@@ -5,11 +5,12 @@
 Phases (any failure exits non-zero before the final line):
 1. card:    nvidia-smi name and power limit;
 2. build:   nvcc builds every kernel source in ktransformers_tpu_torch/csrc;
-3. kernels: each of the eight kernels against its plain PyTorch version on
-            the card at the DeepSeek-V2-Lite shapes of the two main paths
+3. kernels: each of the twelve kernels against its plain PyTorch version
+            on the card at the DeepSeek-V2-Lite shapes of the main paths
             (single user: M = 1 and 256-token chunks; paged serving: a
             decode batch of 8, mixed steps of 8 + C*S rows, page tables),
-            with times;
+            with times; the quant_matmul family once per weight format
+            (int8, fp8, int4, int4_g, int4_gz, mxfp4, mxfp8);
 4. parity:  the full-width config cut to 2 layers, the same synthetic
             weights on the CPU (plain versions) and on the card (kernels),
             float32 compute: a 64-token prefill and 4 decode steps through
@@ -19,7 +20,11 @@ Phases (any failure exits non-zero before the final line):
             weights (two dense layers), every logits row within 1e-4 of its
             largest logit and the KV pools within 2e-5; with W4A8 weights
             (one dense, one MoE layer), greedy tokens equal except at a
-            near-tie;
+            near-tie; then the same dense + MoE model once per weight
+            format through the quant_matmul kernels (no activation requant:
+            every logits row within FORMAT_TOL), int8 also through the
+            paged forward and with the fused decode switched off
+            (mla_decode_attention);
 5. serve:   the full 27-layer config (int4_g weights) in a Generator at
             max_len 1024 answering 3 requests of 512 seeded prompt tokens
             and 32 greedy new tokens; every single-user kernel must launch;
@@ -30,7 +35,15 @@ Phases (any failure exits non-zero before the final line):
             agreement with the single-user Generator are checked;
 7. profile: a prefill chunk and a decode step of the Generator, a batch-8
             decode step and a mixed step of the ServeEngine: wall time,
-            launches per step, device time by kernel (torch.profiler).
+            launches per step, device time by kernel (torch.profiler);
+8. int8:    the int4_g parameters are freed; the full 27-layer config with
+            int8 weights (every matmul through the quant_matmul kernels) in
+            a Generator answering 2 requests of 512 + 32 tokens, the second
+            with the fused decode off; launches per decode step and per
+            prefill chunk held to the counts the code implies; a
+            ServeEngine over the same parameters answering the 8 requests
+            of phase 6 at pipeline depth 3 with the same checks; the
+            profiles of phase 7 on the int8 parameters.
 Prints a kernels JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Imports nothing of JAX.
@@ -134,7 +147,7 @@ def kernel_checks(rows: list, entries: dict) -> None:
 
     def check(name, label, tol, wrapper, plain, launcher, b_bytes, ops,
               peak, library=None, main=False, plain_iters=5, side_tol=None,
-              expect=None):
+              expect=None, iters=20):
         """expect (default plain) gives what the wrapper is held to; plain
         is what plain_ms times on the card."""
         out, ref = wrapper(), (expect or plain)()
@@ -146,8 +159,8 @@ def kernel_checks(rows: list, entries: dict) -> None:
         mae, rel = rel_err(out, ref)
         ok = rel <= tol and bool(torch.isfinite(out.float()).all())
         launch = launcher()[0]
-        ms = time_ms(launch)
-        wrapper_ms = time_ms(wrapper)
+        ms = time_ms(launch, iters=iters)
+        wrapper_ms = time_ms(wrapper, iters=iters)
         plain_ms = time_ms(plain, iters=plain_iters, warmup=1)
         library_ms = None
         if library is not None:
@@ -157,7 +170,7 @@ def kernel_checks(rows: list, entries: dict) -> None:
                 log(f"kernel {name} [{label}] library call refused: "
                     f"{str(exc).splitlines()[0][:120]}")
             else:
-                library_ms = time_ms(library)
+                library_ms = time_ms(library, iters=iters)
         t_bytes, t_ops = b_bytes / HBM_BYTES_PER_S, ops / peak
         bound = max(t_bytes, t_ops) * 1e3
         row = dict(name=name, shape=label, max_abs_err=mae, rel_err=rel,
@@ -333,6 +346,135 @@ def kernel_checks(rows: list, entries: dict) -> None:
         del sgu, sdn
 
     paged_kernel_checks(check, rn, dev)
+    quant_kernel_checks(check, rd, rn, dev)
+    decode_attention_checks(check, rn, dev)
+
+
+QUANT_KINDS = ("int8", "fp8", "int4", "int4_g", "int4_gz", "mxfp4", "mxfp8")
+
+
+def quant_kernel_checks(check, rd, rn, dev) -> None:
+    """Rows 9-11: quant_matmul, gathered_quant_matmul and
+    grouped_quant_matmul for each weight format at the DeepSeek-V2-Lite
+    shapes of the int8 path, bf16 activations, against the plain version on
+    the card. Tolerance 1e-2 of the largest output: both sides decode and
+    round the weight identically and accumulate in float32; what differs is
+    the order of the sums and one bf16 rounding of the output. Bound: x,
+    the weight bytes of the experts the rows use (codes, scales, zero
+    points) and the output over the memory rate, against 2 M K N over the
+    bf16 peak (the activations' type). Library yardstick, row 9 only:
+    torch.matmul on the bf16-dequantized weight (never on the path). int8
+    is the main path's format and gets 20 timed launches, the others 10."""
+    from ktransformers_tpu_torch.ops.cuda import quant_matmul as QM
+    from ktransformers_tpu_torch.quant.formats import dequantize
+
+    bf = torch.bfloat16
+    e, d, f = 64, 2048, 1408
+
+    def wbytes(wt, experts=None):
+        per = [t for t in (wt.data, wt.scales, wt.zeros) if t is not None]
+        if experts is None:
+            return nbytes(*per)
+        return experts * nbytes(*(t[0] for t in per))
+
+    g_cpu = torch.Generator().manual_seed(3)
+
+    def routing(tokens):
+        return torch.stack([torch.randperm(e, generator=g_cpu)[:6]
+                            for _ in range(tokens)]).to(dev)
+
+    ids6 = routing(1).reshape(-1).to(torch.int32)
+    ids48 = routing(8).reshape(-1).to(torch.int32)
+    # sorted rows of 256 / 520 tokens x 6; the last 4 tokens' 24 rows are
+    # past sum(group_sizes): masked, they must come back zero
+    sizes = {t * 6: torch.bincount(routing(t - 4).reshape(-1),
+                                   minlength=e).to(torch.int32)
+             for t in (256, 520)}
+
+    for kind in QUANT_KINDS:
+        it = 20 if kind == "int8" else 10
+        for m, k, n, label in (
+            (1, 2048, 3648, "decode qkv_a M=1"),
+            (8, 2048, 3648, "serve decode qkv_a M=8"),
+            (256, 2048, 3648, "prefill qkv_a M=256"),
+            (1, 2048, 102400, "decode lm_head M=1"),
+            (1, 10944, 2048, "decode layer-0 down M=1"),
+        ):
+            wt, x = rd.q((k, n), kind, 128), rn(m, k)
+            wdq = dequantize(wt, bf)
+            check("quant_matmul", f"{kind} {label}", 1e-2,
+                  lambda: QM.quant_matmul(x, wt),
+                  lambda: QM.quant_matmul_ref(x, wt),
+                  lambda: QM.dense_launcher(x, wt),
+                  nbytes(x) + wbytes(wt) + m * n * 2, 2 * m * n * k,
+                  BF16_FLOPS_PER_S, library=lambda: torch.matmul(x, wdq),
+                  main=(kind == "int8" and m == 1 and n == 3648),
+                  plain_iters=2, iters=it)
+            del wdq, wt
+        for k, n, what in ((d, 2 * f, "gate_up"), (f, d, "down")):
+            wt = rd.q((e, k, n), kind, 128)
+            for ids, label in ((ids6, "decode 6 rows"),
+                               (ids48, "serve decode 48 rows")):
+                x = rn(ids.shape[0], k)
+                check("gathered_quant_matmul",
+                      f"{kind} {label} {what} [64, {k}, {n}]", 1e-2,
+                      lambda: QM.gathered_quant_matmul(x, wt, ids),
+                      lambda: QM.gathered_quant_matmul_ref(x, wt, ids),
+                      lambda: QM.gathered_launcher(x, wt, ids),
+                      nbytes(x) + wbytes(wt, int(ids.unique().numel()))
+                      + ids.shape[0] * n * 2, 2 * ids.shape[0] * n * k,
+                      BF16_FLOPS_PER_S,
+                      main=(kind == "int8" and what == "gate_up"
+                            and ids is ids6), plain_iters=2, iters=it)
+            for rows, sz in sizes.items():
+                x = rn(rows, k)
+                live = int(sz.sum())
+                out = QM.grouped_quant_matmul(x, wt, sz)
+                if live != rows - 24 or bool(out[live:].abs().max() != 0):
+                    raise AssertionError(
+                        f"grouped_quant_matmul {kind}: masked rows not zero")
+                check("grouped_quant_matmul",
+                      f"{kind} {rows} sorted rows ({live} live) {what} "
+                      f"[64, {k}, {n}]", 1e-2,
+                      lambda: QM.grouped_quant_matmul(x, wt, sz),
+                      lambda: QM.grouped_quant_matmul_ref(x, wt, sz),
+                      lambda: QM.grouped_launcher(x, wt, sz),
+                      nbytes(x) + wbytes(wt, int((sz > 0).sum()))
+                      + rows * n * 2, 2 * live * n * k, BF16_FLOPS_PER_S,
+                      main=(kind == "int8" and what == "gate_up"
+                            and rows == 1536), plain_iters=2, iters=it)
+            del wt
+
+
+def decode_attention_checks(check, rn, dev) -> None:
+    """Row 6: mla_decode_attention (16 heads, R 512, dr 64, bf16) at B = 1
+    with 512 and 2048 live rows and at B = 8 with lengths 1..2048; every
+    cache row at or past lengths[b] is NaN. Bound: the bytes of the live
+    rows, queries and output against the flops of the live (query, key)
+    pairs at the bf16 peak. No library yardstick (it needs a gather or a
+    mask pass first; rows 12 and 14 time that variant)."""
+    from ktransformers_tpu_torch.ops.cuda import mla_decode as MD
+
+    h, r, dr, smax = 16, 512, 64, 2048
+    scale = (128 + 64) ** -0.5
+    for lens, main in (([512], True), ([2048], False),
+                       ([1, 64, 65, 512, 513, 1000, 2047, 2048], False)):
+        b = len(lens)
+        qn, qp = rn(b, h, r), rn(b, h, dr)
+        ckv, kpe = rn(b, smax, r), rn(b, smax, dr)
+        for i, n in enumerate(lens):
+            ckv[i, n:] = float("nan")
+            kpe[i, n:] = float("nan")
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (qn, qp, ckv, kpe, lengths, scale)
+        live = sum(lens)
+        check("mla_decode_attention",
+              f"decode B={b} H=16 lengths {lens[0]}..{lens[-1]}", 1e-2,
+              lambda: MD.mla_decode_attention(*args),
+              lambda: MD.mla_decode_attention_ref(*args),
+              lambda: MD.attention_launcher(*args),
+              live * (r + dr) * 2 + nbytes(qn, qp) + b * h * r * 2,
+              2 * h * live * (2 * r + dr), BF16_FLOPS_PER_S, main=main)
 
 
 def paged_kernel_checks(check, rn, dev) -> None:
@@ -448,6 +590,9 @@ def paged_kernel_checks(check, rn, dev) -> None:
 PARITY_TOL = 1e-4  # float32 weights: row error as a share of the largest logit
 POOL_TOL = 2e-5  # float32 weights: KV pool error as a share of the largest entry
 NEAR_TIE = 5e-2  # W4A8 weights: top-2 gap below which greedy tokens may differ
+# weights of one format through the quant_matmul kernels (no activation
+# requant): row error as a share of the largest logit, as for ``dense``
+FORMAT_TOL = 1e-4
 
 
 def parity_variants():
@@ -474,6 +619,29 @@ def parity_variants():
     w4a8 = spec_from_hf_config(cfg)
     yield "w4a8", w4a8, prepare_params(init_params_synthetic(
         w4a8, seed=5, device="cpu"), w4a8), None
+
+
+def format_variant(kind: str):
+    """The ``w4a8``-shaped parity model (one dense, one MoE layer, full
+    width) with every weight in ``kind``, not repacked (KT_W4A8=0, the
+    reference's own switch), so that each matmul runs through the
+    quant_matmul kernels: (name, spec, prepared CPU params, FORMAT_TOL)."""
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.utils.device_prep import prepare_params
+
+    spec = spec_from_hf_config(dict(bench_model_cfg(), num_hidden_layers=2))
+    old = os.environ.get("KT_W4A8")
+    os.environ["KT_W4A8"] = "0"
+    try:
+        params = prepare_params(init_params_synthetic(
+            spec, seed=5, quant=kind, device="cpu"), spec)
+    finally:
+        if old is None:
+            del os.environ["KT_W4A8"]
+        else:
+            os.environ["KT_W4A8"] = old
+    return kind, spec, params, FORMAT_TOL
 
 
 def hold_rows(out: torch.Tensor, ref: torch.Tensor, what: str, tol) -> dict:
@@ -503,9 +671,12 @@ def hold_rows(out: torch.Tensor, ref: torch.Tensor, what: str, tol) -> dict:
 def parity_check(result: dict, variants: list) -> None:
     """A 64-token prefill and 4 decode steps on fixed tokens through the
     contiguous forward(), on the CPU (plain versions) and on the card
-    (kernels), float32 compute, for both parity models; rows are held by
-    hold_rows."""
+    (kernels), float32 compute, for each parity model; rows are held by
+    hold_rows. The int8 model runs once more with the fused decode switched
+    off (mla_decode_attention): held to the CPU on the same route, and its
+    greedy tokens to the fused route's on the card."""
     from ktransformers_tpu_torch.models.model import KVCache, forward
+    from ktransformers_tpu_torch.ops import attention
     from ktransformers_tpu_torch.utils.device_prep import params_to
 
     vocab = bench_model_cfg()["vocab_size"]
@@ -528,12 +699,29 @@ def parity_check(result: dict, variants: list) -> None:
         return torch.cat(outs)
 
     t0 = time.perf_counter()
-    result["parity"] = {}
+    result.setdefault("parity", {})
     for name, spec, params, tol in variants:
+        card = run(params, spec, "cuda")
         result["parity"][name] = hold_rows(
-            run(params, spec, "cuda"), run(params, spec, "cpu"),
+            card, run(params, spec, "cpu"),
             f"parity {name} (card vs CPU)", tol)
-    result["parity"]["seconds"] = time.perf_counter() - t0
+        if name != "int8":
+            continue
+        attention.MLA_FUSED = False
+        try:
+            unfused = run(params, spec, "cuda")
+            result["parity"]["int8_unfused"] = hold_rows(
+                unfused, run(params, spec, "cpu"),
+                "parity int8, fused decode off (card vs CPU)", tol)
+        finally:
+            attention.MLA_FUSED = True
+        result["parity"]["int8_unfused_vs_fused"] = hold_rows(
+            unfused, card, "parity int8 (fused off vs on, on the card)", tol)
+        if not torch.equal(unfused.argmax(-1), card.argmax(-1)):
+            raise AssertionError("fused-off greedy tokens leave the fused "
+                                 "route's")
+    result["parity"]["seconds"] = (result["parity"].get("seconds", 0.0)
+                                   + time.perf_counter() - t0)
 
 
 def pool_err(pools, ref_pools) -> float:
@@ -629,11 +817,12 @@ def paged_parity_check(result: dict, variants: list) -> None:
         return dict(card_vs_cpu=across, mixed_vs_separate=mixed)
 
     t0 = time.perf_counter()
-    result["paged_parity"] = {}
+    result.setdefault("paged_parity", {})
     for name, spec, cpu_params, tol in variants:
         result["paged_parity"][name] = one(name, spec, cpu_params, tol)
         torch.cuda.empty_cache()
-    result["paged_parity"]["seconds"] = time.perf_counter() - t0
+    result["paged_parity"]["seconds"] = (
+        result["paged_parity"].get("seconds", 0.0) + time.perf_counter() - t0)
 
 
 # ------------------------------------------------------------------ serve
@@ -642,29 +831,38 @@ def paged_parity_check(result: dict, variants: list) -> None:
 SINGLE_USER_KERNELS = ("w4a8_prep", "dense_w4a8_matmul", "gathered_w4a8_ffn",
                        "dense_w4a8_ffn", "grouped_w4a8_ffn",
                        "mla_decode_fused")
+INT8_SINGLE_USER_KERNELS = ("quant_matmul", "gathered_quant_matmul",
+                            "grouped_quant_matmul", "mla_decode_fused",
+                            "mla_decode_attention")
 
 
-def serve(result: dict):
+def serve(result: dict, quant: str = "int4_g", key: str = "serve",
+          requests: int = 3, expect=SINGLE_USER_KERNELS,
+          unfused_last: bool = False):
+    """A Generator over the full config with ``quant`` weights answering
+    ``requests`` requests of 512 + 32 tokens; with unfused_last the last
+    one decodes with the fused decode kernel switched off."""
     from ktransformers_tpu_torch.engine.generate import (
         GenerateConfig,
         Generator,
     )
     from ktransformers_tpu_torch.models.init import init_params_synthetic
     from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.ops import attention
     from ktransformers_tpu_torch.ops.cuda import LAUNCHES, reset_launches
 
     cfg = bench_model_cfg()
     spec = spec_from_hf_config(cfg)
     t0 = time.perf_counter()
-    params = init_params_synthetic(spec, seed=0, quant="int4_g",
-                                   moe_quant="int4_g", device="cuda")
+    params = init_params_synthetic(spec, seed=0, quant=quant,
+                                   moe_quant=quant, device="cuda")
     gen = Generator(params, spec, max_len=1024, batch=1, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     pbytes = 0
     for obj in _leaves(gen.params):
         pbytes += obj.numel() * obj.element_size()
-    log(f"serve: params {pbytes / 1e9:.3f} GB ready in {init_s:.1f} s")
+    log(f"{key}: {quant} params {pbytes / 1e9:.3f} GB ready in {init_s:.1f} s")
 
     # warm-up request (allocator, cuBLAS handles); not counted
     gen.generate(list(range(8)), GenerateConfig(max_new_tokens=2))
@@ -672,7 +870,7 @@ def serve(result: dict):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     reqs = []
-    for i in range(3):
+    for i in range(requests):
         prompt = np.random.default_rng(100 + i).integers(
             0, cfg["vocab_size"], 512).tolist()
         stamps = []
@@ -681,9 +879,14 @@ def serve(result: dict):
             torch.cuda.synchronize()
             stamps.append(time.perf_counter())
 
+        fused = not (unfused_last and i == requests - 1)
+        attention.MLA_FUSED = fused
         t_start = time.perf_counter()
-        out = gen.generate(prompt, GenerateConfig(max_new_tokens=32),
-                           on_token=on_token)
+        try:
+            out = gen.generate(prompt, GenerateConfig(max_new_tokens=32),
+                               on_token=on_token)
+        finally:
+            attention.MLA_FUSED = True
         toks = out[0]
         if len(toks) != 32 or not all(0 <= t < cfg["vocab_size"]
                                       for t in toks):
@@ -691,20 +894,71 @@ def serve(result: dict):
         ttft = stamps[0] - t_start
         dec = (len(stamps) - 1) / (stamps[-1] - stamps[0])
         reqs.append(dict(prefill_tok_s=512 / ttft, ttft_s=ttft,
-                         decode_tok_s=dec, tokens=toks[:8]))
-        log(f"serve request {i}: prefill {512 / ttft:.1f} tok/s "
-            f"(ttft {ttft * 1e3:.1f} ms), decode {dec:.2f} tok/s")
+                         decode_tok_s=dec, tokens=toks[:8],
+                         fused_decode=fused))
+        log(f"{key} request {i}: prefill {512 / ttft:.1f} tok/s "
+            f"(ttft {ttft * 1e3:.1f} ms), decode {dec:.2f} tok/s"
+            f"{'' if fused else ' (fused decode off)'}")
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    result["serve"] = dict(requests=reqs, launches=launches,
-                           max_memory_allocated=peak, params_bytes=pbytes,
-                           init_s=init_s)
-    log(f"serve: max_memory_allocated {peak / 1e9:.3f} GB, launches "
+    result[key] = dict(quant=quant, requests=reqs, launches=launches,
+                       max_memory_allocated=peak, params_bytes=pbytes,
+                       init_s=init_s)
+    log(f"{key}: max_memory_allocated {peak / 1e9:.3f} GB, launches "
         f"{json.dumps(launches)}")
-    missing = [k for k in SINGLE_USER_KERNELS if launches[k] <= 0]
+    missing = [k for k in expect if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched by the serve run: {missing}")
+        raise AssertionError(f"kernels not launched by the {key} run: "
+                             f"{missing}")
     return gen
+
+
+def int8_step_launches(result: dict, gen) -> None:
+    """Launches of one decode step (fused decode on, then off) and of one
+    256-token prefill chunk on the int8 parameters, held to what the code
+    implies: quant_matmul 109 (qkv_a and o_proj in 27 layers, lm_head, and
+    gate_up + down of the 27 dense / shared MLPs), the expert kernel 2 x 26
+    (gathered at decode, grouped at prefill), the attention kernel 27 at
+    decode (prefill attention is plain PyTorch) and no W4A8 kernel."""
+    from ktransformers_tpu_torch.ops import attention
+    from ktransformers_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+
+    prompt = torch.as_tensor(np.random.default_rng(201).integers(
+        0, gen.spec.vocab_size, (1, 256)), device=gen.device)
+
+    def counts(fn) -> dict:
+        reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        return {k: v for k, v in LAUNCHES.items() if v}
+
+    cache = gen.new_cache()
+    state = {}
+
+    def chunk():
+        state["last"], _ = gen.prefill(cache, prompt)
+
+    got = {"prefill_chunk": counts(chunk)}
+    tok = state["last"].argmax(-1)
+    got["decode_step"] = counts(lambda: gen.decode_step(tok, cache))
+    attention.MLA_FUSED = False
+    try:
+        got["decode_step_unfused"] = counts(
+            lambda: gen.decode_step(tok, cache))
+    finally:
+        attention.MLA_FUSED = True
+    want = {
+        "prefill_chunk": {"quant_matmul": 109, "grouped_quant_matmul": 52},
+        "decode_step": {"quant_matmul": 109, "gathered_quant_matmul": 52,
+                        "mla_decode_fused": 27},
+        "decode_step_unfused": {"quant_matmul": 109,
+                                "gathered_quant_matmul": 52,
+                                "mla_decode_attention": 27},
+    }
+    log(f"int8 launches per step: {json.dumps(got)}")
+    result["int8_step_launches"] = got
+    if got != want:
+        raise AssertionError(f"int8 launches per step {got}, want {want}")
 
 
 # ------------------------------------------------------------ paged serve
@@ -714,6 +968,9 @@ PAGED_NEW_TOKENS = 32
 PAGED_KERNELS = ("w4a8_prep", "dense_w4a8_matmul", "gathered_w4a8_ffn",
                  "dense_w4a8_ffn", "grouped_w4a8_ffn", "mla_paged_decode",
                  "mla_paged_prefill")
+INT8_PAGED_KERNELS = ("quant_matmul", "gathered_quant_matmul",
+                      "grouped_quant_matmul", "mla_paged_decode",
+                      "mla_paged_prefill")
 
 
 def paged_prompts(vocab: int) -> list:
@@ -745,7 +1002,7 @@ def single_user_reference(gen, prompt: list, n: int):
     return toks, gaps
 
 
-def paged_serve_run(gen, prompts, depth: int) -> dict:
+def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS) -> dict:
     """The 8 requests through one ServeEngine in three waves: 0-3 at once,
     5 and 6 after 8 engine steps, 4 and 7 once request 0 has finished."""
     from ktransformers_tpu_torch.ops.cuda import LAUNCHES, reset_launches
@@ -822,15 +1079,17 @@ def paged_serve_run(gen, prompts, depth: int) -> dict:
     if out["free_pages"] + held != num_pages - 1:
         raise AssertionError(
             f"pages leaked: {out['free_pages']} free + {held} cached")
-    missing = [k for k in PAGED_KERNELS if launches[k] <= 0]
+    missing = [k for k in expect if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by paged serve: {missing}")
     return out
 
 
-def paged_serve(result: dict, gen) -> None:
+def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(1, 3),
+                expect=PAGED_KERNELS) -> None:
     prompts = paged_prompts(gen.spec.vocab_size)
-    runs = {depth: paged_serve_run(gen, prompts, depth) for depth in (1, 3)}
+    runs = {depth: paged_serve_run(gen, prompts, depth, expect)
+            for depth in depths}
     # the single-user Generator on the same prompts
     full, verdicts = 0, []
     for i, prompt in enumerate(prompts):
@@ -846,14 +1105,15 @@ def paged_serve(result: dict, gen) -> None:
                     f"single-user tokens at {diff} with a top-2 gap of "
                     f"{gaps[diff]:.3e}: {got} vs {ref}")
         full += all(run["tokens"][i] == ref for run in runs.values())
-    same = runs[1]["tokens"] == runs[3]["tokens"]
-    log(f"paged serve: {full}/8 requests equal the single-user Generator "
-        f"token for token at both depths; the rest first differ at a bf16 "
-        f"near-tie (top-2 gap < 5e-2); depth 1 tokens == depth 3 tokens: "
+    first = runs[depths[0]]["tokens"]
+    same = all(run["tokens"] == first for run in runs.values())
+    log(f"{key}: {full}/8 requests equal the single-user Generator "
+        f"token for token at depth {list(depths)}; the rest first differ at "
+        f"a bf16 near-tie (top-2 gap < 5e-2); tokens equal across depths: "
         f"{same}")
-    result["paged_serve"] = dict(runs=runs, agreement=verdicts,
-                                 requests_equal_single_user=full,
-                                 depth1_equals_depth3=same)
+    result[key] = dict(runs=runs, agreement=verdicts,
+                       requests_equal_single_user=full,
+                       depth1_equals_depth3=same)
 
 
 # ---------------------------------------------------------------- profile
@@ -864,7 +1124,9 @@ def _is_port_kernel(name: str) -> bool:
                                    "w4a8_prep_kernel",
                                    "mla_decode_fused_kernel",
                                    "mla_paged_decode_kernel",
-                                   "mla_paged_prefill_kernel"))
+                                   "mla_paged_prefill_kernel",
+                                   "quant_rows_kernel",
+                                   "mla_decode_attention_kernel"))
 
 
 def wall_ms(fn) -> float:
@@ -915,7 +1177,7 @@ def summarize_steps(steps: dict) -> dict:
     return out
 
 
-def profile_steps(result: dict, gen) -> None:
+def profile_steps(result: dict, gen, prefix: str = "") -> None:
     """Where the time of a 256-token prefill chunk (the second of a
     512-token prompt) and of a decode step over those 512 tokens goes.
     Wall time: median of 3 unprofiled chunks (each on a fresh cache), mean
@@ -945,8 +1207,9 @@ def profile_steps(result: dict, gen) -> None:
         walls.append(wall_ms(lambda: gen.prefill(cache, second)))
     chunk_launches = dict(LAUNCHES)
     cache, _ = primed(1)
-    steps["prefill_chunk"] = (statistics.median(walls), chunk_launches,
-                              kernel_rows(lambda: gen.prefill(cache, second)))
+    steps[prefix + "prefill_chunk"] = (
+        statistics.median(walls), chunk_launches,
+        kernel_rows(lambda: gen.prefill(cache, second)))
     # decode step
     cache, tok = primed(2)
     state = {"tok": tok}
@@ -958,12 +1221,12 @@ def profile_steps(result: dict, gen) -> None:
     step()
     step_launches = dict(LAUNCHES)
     wall = wall_ms(lambda: [step() for _ in range(8)]) / 8
-    steps["decode_step"] = (wall, step_launches, kernel_rows(step))
+    steps[prefix + "decode_step"] = (wall, step_launches, kernel_rows(step))
 
-    result["profile"] = summarize_steps(steps)
+    result.setdefault("profile", {}).update(summarize_steps(steps))
 
 
-def profile_engine_steps(result: dict, gen) -> None:
+def profile_engine_steps(result: dict, gen, prefix: str = "") -> None:
     """A decode step of the ServeEngine at a batch of 8 (512-token prompts,
     pipelined: mean wall of 8 steps, one more profiled) and a fused mixed
     step (the fixed 8 decode rows, 7 of them live, plus one 256-token chunk
@@ -986,8 +1249,8 @@ def profile_engine_steps(result: dict, gen) -> None:
     eng.step()
     step_launches = dict(LAUNCHES)
     wall = wall_ms(lambda: [eng.step() for _ in range(8)]) / 8
-    steps["serve_decode_step_b8"] = (wall, step_launches,
-                                     kernel_rows(eng.step))
+    steps[prefix + "serve_decode_step_b8"] = (wall, step_launches,
+                                              kernel_rows(eng.step))
     eng.cancel(qs[7])
     late = eng.submit(np.random.default_rng(500).integers(
         0, vocab, 600).tolist(), max_new_tokens=4)
@@ -998,7 +1261,7 @@ def profile_engine_steps(result: dict, gen) -> None:
     rows = kernel_rows(eng.step)
     if eng.mixed_steps_fused != fused0 + 2 or late.prefill_pos != 512:
         raise AssertionError("profile: the mixed steps did not run fused")
-    steps["serve_mixed_step_b8_s256"] = (wall, step_launches, rows)
+    steps[prefix + "serve_mixed_step_b8_s256"] = (wall, step_launches, rows)
     result["profile"].update(summarize_steps(steps))
 
 
@@ -1057,12 +1320,30 @@ def main() -> int:
     parity_check(result, variants)
     paged_parity_check(result, variants)
     del variants
+    # one weight format at a time (each model is ~1 GB on the host)
+    for kind in QUANT_KINDS:
+        variant = [format_variant(kind)]
+        parity_check(result, variant)
+        if kind == "int8":
+            paged_parity_check(result, variant)
+        del variant
     torch.cuda.empty_cache()
 
     gen = serve(result)
     paged_serve(result, gen)
     profile_steps(result, gen)
     profile_engine_steps(result, gen)
+    del gen
+    torch.cuda.empty_cache()
+
+    # the int8 path: every matmul through the quant_matmul kernels
+    gen = serve(result, quant="int8", key="serve_int8", requests=2,
+                expect=INT8_SINGLE_USER_KERNELS, unfused_last=True)
+    int8_step_launches(result, gen)
+    paged_serve(result, gen, key="paged_serve_int8", depths=(3,),
+                expect=INT8_PAGED_KERNELS)
+    profile_steps(result, gen, prefix="int8_")
+    profile_engine_steps(result, gen, prefix="int8_")
     del gen
 
     sources = {
@@ -1085,20 +1366,40 @@ def main() -> int:
         "mla_paged_prefill": (
             "ktransformers_tpu_torch/csrc/paged_attention.cu",
             "ktransformers_tpu/ops/pallas/paged_attention.py:455"),
+        "quant_matmul": (
+            "ktransformers_tpu_torch/csrc/quant_matmul.cu",
+            "ktransformers_tpu/ops/pallas/quant_matmul.py:225"),
+        "gathered_quant_matmul": (
+            "ktransformers_tpu_torch/csrc/quant_matmul.cu",
+            "ktransformers_tpu/ops/pallas/quant_matmul.py:452"),
+        "grouped_quant_matmul": (
+            "ktransformers_tpu_torch/csrc/quant_matmul.cu",
+            "ktransformers_tpu/ops/pallas/quant_matmul.py:655"),
+        "mla_decode_attention": (
+            "ktransformers_tpu_torch/csrc/mla_decode.cu",
+            "ktransformers_tpu/ops/pallas/mla_decode.py:296"),
     }
     # launches: each main path was driven with the counts set to 0 just
-    # before and read just after (single-user serve, then paged serve at the
-    # default pipeline depth); a kernel's count is the sum over the paths
+    # before and read just after (single-user serve and paged serve at the
+    # default pipeline depth, on the int4_g and then on the int8
+    # parameters); a kernel's count is the sum over the four paths
     single = result["serve"]["launches"]
     paged = result["paged_serve"]["runs"][3]["launches"]
+    single8 = result["serve_int8"]["launches"]
+    paged8 = result["paged_serve_int8"]["runs"][3]["launches"]
     kernels = []
     for name in KERNELS:
         row = entries[name]
+        total = single[name] + paged[name] + single8[name] + paged8[name]
+        if total <= 0:
+            raise AssertionError(f"{name} launched on no main path")
         kernels.append(dict(
             name=name, route="cuda", source=sources[name][0],
             replaces=sources[name][1],
-            launches=single[name] + paged[name],
+            launches=total,
             launches_single_user=single[name], launches_paged_serve=paged[name],
+            launches_single_user_int8=single8[name],
+            launches_paged_serve_int8=paged8[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

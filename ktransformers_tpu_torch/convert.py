@@ -9,7 +9,9 @@ their fields only and imports nothing from the JAX package. Handled:
   are sliced back to the true group count;
 - lane-padding columns of a fused qkv_a projection are dropped;
 - int4 data already in the offset-lo encoding (act_quant, int8) and data
-  not yet repacked (uint8) are both kept as they are, with the flag.
+  not yet repacked (uint8) are both kept as they are, with the flag;
+- every format of quant/formats.py: per-channel scales [..., 1, N], zero
+  points, float8_e4m3fn data and uint8 ue8m0 exponents.
 
 ``paged_cache_from_jax(kv, device)`` carries a JAX PagedKVCache (MLA pools,
 numpy leaves) across, so a run can prefill on one side and continue on the
@@ -29,10 +31,15 @@ from ktransformers_tpu_torch.quant.formats import INT4_KINDS, QTensor
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
-    """numpy (including ml_dtypes bfloat16) -> torch tensor on device."""
+    """numpy (including ml_dtypes bfloat16 and float8_e4m3fn, which numpy
+    itself does not know: they cross as their bits) -> torch tensor on
+    device."""
     a = np.array(a)  # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8)).view(
+            torch.float8_e4m3fn).to(device)
     return torch.from_numpy(a).to(device)
 
 
@@ -44,25 +51,27 @@ def _is_qtensor(obj) -> bool:
 
 
 def qtensor_from_jax(q, device, out_cols: int | None = None) -> QTensor:
-    """One JAX QTensor -> port QTensor (scale padding and, when out_cols
-    is given, padding columns removed)."""
+    """One JAX QTensor -> port QTensor (scale / zero-point padding and,
+    when out_cols is given, padding columns removed)."""
     data = tensor_from_numpy(q.data, device)
     scales = None if q.scales is None else tensor_from_numpy(q.scales, device)
-    if getattr(q, "zeros", None) is not None:
-        raise ValueError("zero-point formats are not ported")
+    zeros = getattr(q, "zeros", None)
+    zeros = None if zeros is None else tensor_from_numpy(zeros, device)
     act_quant = bool(getattr(q, "act_quant", False))
     if q.kind in INT4_KINDS and act_quant != (data.dtype == torch.int8):
         raise ValueError(f"act_quant={act_quant} with {data.dtype} data")
     if scales is not None and q.group_size:
         k = data.shape[-2] * (2 if q.kind in INT4_KINDS else 1)
         scales = scales[..., : k // q.group_size, :]
+        zeros = None if zeros is None else zeros[..., : k // q.group_size, :]
     if out_cols is not None and data.shape[-1] > out_cols:
         data = data[..., :out_cols]
         scales = None if scales is None else scales[..., :out_cols]
+        zeros = None if zeros is None else zeros[..., :out_cols]
     return QTensor(
         data.contiguous(),
         None if scales is None else scales.contiguous(),
-        None, kind=q.kind, group_size=int(q.group_size), act_quant=act_quant,
+        None if zeros is None else zeros.contiguous(), kind=q.kind, group_size=int(q.group_size), act_quant=act_quant,
     )
 
 

@@ -1,6 +1,8 @@
-// Fused MLA decode attention for one new token per sequence.
+// MLA decode attention for one new token per sequence: the fused kernel
+// (first) and, at the end of the file, the plain flash decode over a cache
+// that already holds the current token (mla_decode_attention).
 //
-// Replaces ktransformers_tpu/ops/pallas/mla_decode.py:mla_decode_fused
+// mla_decode_fused replaces ktransformers_tpu/ops/pallas/mla_decode.py:mla_decode_fused
 // (body _fused_kernel). One launch does the kv_a RMSNorm of the current
 // token's compressed kv, the rope of q_pe and k_pe as a [dr, dr] rotation,
 // and online-softmax attention in absorbed form
@@ -170,6 +172,93 @@ extern "C" int kt_mla_decode_fused(const void* qn, const void* qp,
         static_cast<const float*>(ckv), static_cast<const float*>(kpe), ln,
         H, S, scale, eps, static_cast<float*>(ctx),
         static_cast<float*>(ckv_new), static_cast<float*>(kpe_new));
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---- mla_decode_attention: the decode attention without the prologue ----
+//
+// Replaces ktransformers_tpu/ops/pallas/mla_decode.py:mla_decode_attention
+// (body _kernel): one query token per sequence over a contiguous compressed
+// cache whose row of the current token is already written, so `lengths`
+// INCLUDES the current token (mla_decode_fused's excludes it). qn is the
+// absorbed query, qp the roped one. No row at or past lengths[b] is read.
+// A sequence with no live row gives zeros. Bound: the bytes of the live
+// rows. Design: as mla_paged_decode with the rows in place: one block per
+// (sequence, HG heads), 8 warps stride over the rows with their own online
+// softmax state (online_softmax.cuh) and merge in shared memory.
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(32 * NW)
+    mla_decode_attention_kernel(const T* __restrict__ qn,
+                                const T* __restrict__ qp,
+                                const T* __restrict__ ckv,
+                                const T* __restrict__ kpe,
+                                const int* __restrict__ lengths, int H, int S,
+                                float scale, T* __restrict__ out) {
+  __shared__ float qn_s[HG][R];
+  __shared__ float qp_s[HG][DR];
+  __shared__ float m_s[NW][HG];
+  __shared__ float l_s[NW][HG];
+  __shared__ float acc_s[HG][R];
+
+  const int b = blockIdx.x;
+  const int h0 = blockIdx.y * HG;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int len = max(0, min(lengths[b], S));
+
+  for (int i = tid; i < HG * R; i += 32 * NW)
+    qn_s[i / R][i % R] = to_f(qn[((size_t)b * H + h0) * R + i]);
+  for (int i = tid; i < HG * DR; i += 32 * NW)
+    qp_s[i / DR][i % DR] = to_f(qp[((size_t)b * H + h0) * DR + i]);
+  __syncthreads();
+
+  float qreg[HG][16];
+  float preg[HG][2];
+  load_query_regs(qn_s, qp_s, lane, qreg, preg);
+  float m[HG], l[HG], acc[HG][16];
+#pragma unroll
+  for (int h = 0; h < HG; ++h) {
+    m[h] = NEG_INF;
+    l[h] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[h][i] = 0.f;
+  }
+  for (int s = warp; s < len; s += NW) {
+    const size_t row = (size_t)b * S + s;
+    softmax_row(ckv + row * R, kpe + row * DR, lane, scale, qreg, preg, m, l,
+                acc);
+  }
+  merge_and_store(m, l, acc, m_s, l_s, acc_s, out + ((size_t)b * H + h0) * R);
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16 (qn, qp, ckv, kpe and out share it).
+extern "C" int kt_mla_decode_attention(const void* qn, const void* qp,
+                                       const void* ckv, const void* kpe,
+                                       const void* lengths, int B, int H,
+                                       int S, float scale, int dtype,
+                                       void* out, void* stream) {
+  if (H % HG != 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  dim3 grid(B, H / HG);
+  dim3 block(32 * NW);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* ln = static_cast<const int*>(lengths);
+  if (dtype == 1) {
+    using T = __nv_bfloat16;
+    mla_decode_attention_kernel<T><<<grid, block, 0, st>>>(
+        static_cast<const T*>(qn), static_cast<const T*>(qp),
+        static_cast<const T*>(ckv), static_cast<const T*>(kpe), ln, H, S,
+        scale, static_cast<T*>(out));
+  } else {
+    mla_decode_attention_kernel<float><<<grid, block, 0, st>>>(
+        static_cast<const float*>(qn), static_cast<const float*>(qp),
+        static_cast<const float*>(ckv), static_cast<const float*>(kpe), ln,
+        H, S, scale, static_cast<float*>(out));
   }
   return (int)cudaGetLastError();
 }

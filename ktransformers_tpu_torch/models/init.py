@@ -1,8 +1,8 @@
 """Synthetic parameters at real model scale (counterpart of
 ktransformers_tpu/models/init.py:init_params_synthetic).
 
-Quantized weights are drawn directly as random packed codes with constant
-scales, on the device, from one seeded torch.Generator, so a multi-GB
+Quantized weights of every format are drawn directly as random packed
+codes with constant scales, on the device, from one seeded torch.Generator, so a multi-GB
 model initialises in seconds. The bits differ from the JAX package's
 (another generator); tests carry JAX weights across with convert.py.
 """
@@ -29,19 +29,61 @@ class _Draw:
         return torch.randn(shape, generator=self.gen, device=self.device,
                            dtype=torch.float32) * scale
 
+    def _bytes(self, shape, lo=0, hi=256, dtype=torch.uint8):
+        return torch.randint(lo, hi, shape, generator=self.gen,
+                             device=self.device, dtype=dtype)
+
+    def _e4m3(self, shape):
+        """Random float8_e4m3fn codes without the two NaN bytes."""
+        b = self._bytes(shape)
+        b = torch.where((b & 0x7F) == 0x7F, b - 1, b)
+        return b.view(torch.float8_e4m3fn)
+
     def q(self, shape, kind: str, group_size: int) -> QTensor:
+        """Random codes of ``kind`` for a weight [..., K, N], every code
+        valid, with constant scales that keep activations of order one."""
         *lead, k, n = shape
         if kind == "bf16":
             return QTensor(self.normal(shape, 1.0 / math.sqrt(k)).to(self.dtype),
                            None, None, kind="bf16", group_size=0)
-        if kind != "int4_g":
-            raise ValueError(f"init: quant kind {kind!r} is not ported")
-        g = effective_group_size(k, group_size)
-        data = torch.randint(0, 256, (*lead, k // 2, n), generator=self.gen,
-                             device=self.device, dtype=torch.uint8)
-        scales = torch.full((*lead, k // g, n), 1.0 / math.sqrt(k) / 7.0,
-                            dtype=torch.float32, device=self.device)
-        return QTensor(data, scales, None, kind="int4_g", group_size=g)
+        std = 1.0 / math.sqrt(k)
+
+        def full(rows, value, dtype=torch.float32):
+            return torch.full((*lead, rows, n), value, dtype=dtype,
+                              device=self.device)
+
+        if kind in ("int8", "fp8", "int4"):
+            if kind == "int8":
+                data, s = self._bytes(shape, -127, 128, torch.int8), std / 127
+            elif kind == "fp8":
+                data, s = self._e4m3(shape), std / 128
+            else:
+                data, s = self._bytes((*lead, k // 2, n)), std / 7
+            return QTensor(data, full(1, s), None, kind=kind, group_size=0)
+        if kind in ("int4_g", "int4_gz", "int8_g"):
+            g = effective_group_size(k, group_size)
+            zeros = None
+            if kind == "int8_g":
+                data, s = self._bytes(shape, -127, 128, torch.int8), std / 127
+            else:
+                data, s = self._bytes((*lead, k // 2, n)), std / 7
+            if kind == "int4_gz":  # zero points in [-8, 7]
+                zeros = self._bytes((*lead, k // g, n), -8, 8,
+                                    torch.int8).to(torch.float32)
+            return QTensor(data, full(k // g, s), zeros, kind=kind,
+                           group_size=g)
+        if kind in ("mxfp4", "mxfp8"):
+            # ue8m0 exponents within one step of the power of two that
+            # gives the weights a standard deviation near 1 / sqrt(K)
+            g = effective_group_size(k, 32)
+            if kind == "mxfp4":
+                data, spread = self._bytes((*lead, k // 2, n)), 3.0
+            else:
+                data, spread = self._e4m3(shape), 128.0
+            e0 = 127 + round(math.log2(std / spread))
+            exps = self._bytes((*lead, k // g, n), e0 - 1, e0 + 2)
+            return QTensor(data, exps, None, kind=kind, group_size=g)
+        raise ValueError(f"init: unknown quant kind {kind!r}")
 
 
 def init_params_synthetic(spec: ModelSpec, seed: int = 0,

@@ -16,7 +16,12 @@ import torch
 
 from ktransformers_tpu_torch.models.spec import ModelSpec
 from ktransformers_tpu_torch.ops.activations import glu_activate
-from ktransformers_tpu_torch.ops.attention import mla_absorbed, mla_decode_fused
+from ktransformers_tpu_torch.ops import attention
+from ktransformers_tpu_torch.ops.attention import (
+    mla_absorbed,
+    mla_decode,
+    mla_decode_fused,
+)
 from ktransformers_tpu_torch.ops.cuda.w4a8_ffn import (
     dense_mlp_fused,
     dense_w4a8_ffn,
@@ -138,9 +143,15 @@ def _mla_attention(p, spec: ModelSpec, x, layer_cache, pos_offset, rope_cs,
     ).to(x.dtype)
     ckv_buf = _write_cache(layer_cache[0], ckv, pos_offset)
     kpe_buf = _write_cache(layer_cache[1], k_pe, pos_offset)
-    mask = _attn_mask(pos_offset, s, ckv_buf.shape[1])
-    attn = mla_absorbed(q_nope_eff, q_pe, ckv_buf, kpe_buf, scale=scale,
-                        mask=mask)
+    if s == 1:
+        # unfused decode: the cache row is written, so the lengths the
+        # kernel gets include the current token
+        attn = mla_decode(q_nope_eff, q_pe, ckv_buf, kpe_buf, pos_offset + 1,
+                          scale=scale)
+    else:
+        mask = _attn_mask(pos_offset, s, ckv_buf.shape[1])
+        attn = mla_absorbed(q_nope_eff, q_pe, ckv_buf, kpe_buf, scale=scale,
+                            mask=mask)
     out = torch.einsum(
         "bhsr,hrv->bshv", attn.to(torch.float32), p["w_uv"].to(torch.float32)
     ).to(x.dtype).reshape(b, s, h * a.v_head_dim)
@@ -150,9 +161,10 @@ def _mla_attention(p, spec: ModelSpec, x, layer_cache, pos_offset, rope_cs,
 def _dense_mlp(p, spec: ModelSpec, x):
     """Dense GLU MLP (shared experts, dense layers), routed as the JAX
     package routes it (w4a8_ffn.dense_mlp_fused): the fused dense FFN
-    kernel where the reference fuses (DeepSeek-V2-Lite's shared experts),
-    else two dense W4A8 matmuls with the GLU in the compute dtype
-    (DeepSeek-V2-Lite's layer-0 MLP, I = 10944 with down group 96)."""
+    kernel where the reference fuses (DeepSeek-V2-Lite's shared experts
+    with W4A8 weights), else two linears with the GLU in the compute dtype
+    (DeepSeek-V2-Lite's layer-0 MLP, I = 10944 with down group 96, and
+    every weight format that is not W4A8)."""
     gu, dn = p["gate_up"], p["down"]
     act = spec.activation
     rows = x.reshape(-1, x.shape[-1])
@@ -210,7 +222,7 @@ def forward(params, spec: ModelSpec, tokens: torch.Tensor, cache: KVCache,
         s, device=tokens.device)[None, :]
     rope_cs = (cos_t[pos], sin_t[pos])
     rope_rot = None
-    if s == 1:
+    if s == 1 and attention.MLA_FUSED:
         # one rotation matrix per step, shared by every layer's fused
         # decode attention
         rope_rot = rope_rotation_matrix(

@@ -2,17 +2,28 @@
 ktransformers_tpu/ops/attention.py, MLA part).
 
 Prefill attention is plain PyTorch (``mla_absorbed``), as it is plain XLA
-in the JAX package. Decode goes through ``mla_decode_fused``, the hook
-point of the fused decode kernel (ops/cuda/mla_decode.py).
+in the JAX package. Decode goes through ``mla_decode_fused`` (norm, both
+ropes and the attention in one kernel) while ``MLA_FUSED`` is on, else
+through ``mla_decode`` after the caller has normed, roped and written the
+cache row (both kernels in ops/cuda/mla_decode.py).
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ktransformers_tpu_torch.ops.cuda.mla_decode import (
+    mla_decode_attention as _mla_decode_attention_kernel,
     mla_decode_fused as _mla_decode_fused_kernel,
 )
+
+# The JAX package's switch (ops/pallas/__init__.py reads KT_MLA_FUSED where
+# it installs the fused hook): "0" sends single-token decode through
+# mla_decode. Read once here; tests set the attribute.
+MLA_FUSED = os.environ.get("KT_MLA_FUSED", "1") != "0"
+
 
 def mla_absorbed(q_nope_eff, q_pe, ckv, k_pe, *, scale: float, mask=None):
     """Attention in the compressed space; returns [B, H, Sq, R].
@@ -41,3 +52,13 @@ def mla_decode_fused(qn_eff, qp_raw, ckv_kpe, gamma, rot, ckv, kpe, lengths,
         qn_eff.contiguous(), qp_raw.contiguous(), ckv_kpe.contiguous(),
         gamma, rot.contiguous(), ckv, kpe, lengths, scale, eps,
     )
+
+
+def mla_decode(q_nope_eff, q_pe, ckv, kpe, lengths, *, scale: float):
+    """Single-token MLA attention over a cache that already holds the
+    current token: q_nope_eff [B, H, 1, R], q_pe [B, H, 1, dr] (roped),
+    lengths [B] including the current token; returns [B, H, 1, R]."""
+    return _mla_decode_attention_kernel(
+        q_nope_eff[:, :, 0].contiguous(), q_pe[:, :, 0].contiguous(), ckv,
+        kpe, lengths.to(torch.int32), scale,
+    )[:, :, None]

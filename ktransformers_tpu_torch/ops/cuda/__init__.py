@@ -2,9 +2,10 @@
 
 Every wrapper launches its kernel for CUDA tensors (or raises) and takes
 its plain-PyTorch version, which lives beside it, only for CPU tensors.
-``KERNELS`` names the eight kernels: the activation prep, the five of the
-single-user generation path and the two paged-attention kernels of the
-serving path. ``LAUNCHES`` counts, per TPU kernel replaced, the wrapper
+``KERNELS`` names the twelve kernels: the activation prep, the five of the
+W4A8 single-user generation path, the two paged-attention kernels of the
+serving path, the three quant_matmul entries every other weight format
+runs through, and the unfused MLA decode attention. ``LAUNCHES`` counts, per TPU kernel replaced, the wrapper
 calls that launched on the card; a call of an FFN wrapper is two kernel
 launches.
 """
@@ -20,6 +21,10 @@ KERNELS = (
     "mla_decode_fused",
     "mla_paged_decode",
     "mla_paged_prefill",
+    "quant_matmul",
+    "gathered_quant_matmul",
+    "grouped_quant_matmul",
+    "mla_decode_attention",
 )
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -18,7 +18,8 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD = os.path.join(CSRC, "build")
-SOURCES = ("w4a8_matmul", "w4a8_ffn", "mla_decode", "paged_attention")
+SOURCES = ("w4a8_matmul", "w4a8_ffn", "mla_decode", "paged_attention",
+           "quant_matmul")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()
@@ -40,10 +41,14 @@ SIGNATURES = {
     },
     "mla_decode": {
         "kt_mla_decode_fused": [P] * 8 + [I, I, I, F, F, I] + [P] * 4,
+        "kt_mla_decode_attention": [P] * 5 + [I, I, I, F, I] + [P, P],
     },
     "paged_attention": {
         "kt_mla_paged_decode": [P] * 6 + [I, I, I, I, F, I] + [P, P],
         "kt_mla_paged_prefill": [P] * 7 + [I] * 5 + [F, I] + [P, P],
+    },
+    "quant_matmul": {
+        "kt_quant_rows": [P] * 7 + [I] * 11 + [P, P],
     },
 }
 

@@ -1,10 +1,13 @@
-"""Fused MLA decode attention: kernel wrapper (csrc/mla_decode.cu) and its
-plain PyTorch version.
+"""MLA decode attention: kernel wrappers (csrc/mla_decode.cu) and their
+plain PyTorch versions.
 
-Replaces ktransformers_tpu/ops/pallas/mla_decode.py:mla_decode_fused.
-Bound on the card: the valid cache bytes, lengths[b] * (R + dr) elements
-per sequence. ``lengths`` is the OLD cached length (current token
-excluded); the caller writes the returned ckv_new / kpe_new into the cache.
+mla_decode_fused replaces
+ktransformers_tpu/ops/pallas/mla_decode.py:mla_decode_fused: ``lengths`` is
+the OLD cached length (current token excluded); the caller writes the
+returned ckv_new / kpe_new into the cache. mla_decode_attention replaces
+:mla_decode_attention: the cache already holds the current token and
+``lengths`` INCLUDES it. Bound on the card, both: the valid cache bytes,
+lengths[b] * (R + dr) elements per sequence.
 """
 
 from __future__ import annotations
@@ -121,3 +124,81 @@ def mla_launcher(qn_eff, qp_raw, ckv_kpe, gamma, rot, ckv, kpe, lengths,
         _build.check(err, what)
 
     return launch, (ctx, ckv_new, kpe_new)
+
+
+def mla_decode_attention_ref(qn, qp, ckv, kpe, lengths, scale: float):
+    """Plain version: [B, H, R]. Rows at or past lengths[b] are cut away
+    before any arithmetic (they may hold anything); a sequence with no live
+    row gives zeros."""
+    smax = ckv.shape[1]
+    live = (torch.arange(smax, device=ckv.device)[None, :]
+            < lengths.to(torch.int64)[:, None])  # [B, S]
+    zero = torch.zeros((), dtype=torch.float32, device=ckv.device)
+    cf = torch.where(live[..., None], ckv.to(torch.float32), zero)
+    kf = torch.where(live[..., None], kpe.to(torch.float32), zero)
+    s = (torch.einsum("bhr,bsr->bhs", qn.to(torch.float32), cf)
+         + torch.einsum("bhd,bsd->bhs", qp.to(torch.float32), kf)) * scale
+    s = torch.where(live[:, None, :], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(live[:, None, :], torch.exp(s - m), zero)
+    l = p.sum(dim=-1, keepdim=True)
+    ctx = torch.einsum("bhs,bsr->bhr", p, cf) / torch.clamp(l, min=1e-30)
+    return ctx.to(qn.dtype)
+
+
+def attention_launcher(qn, qp, ckv, kpe, lengths, scale: float):
+    """(launch, out) of a CUDA mla_decode_attention call; launch() runs
+    only the kernel."""
+    what = "mla_decode_attention"
+    check_cuda_operands(what, qn.device, qn, qp, ckv, kpe, lengths)
+    b, h, _ = qn.shape
+    out = torch.empty_like(qn)
+    fn = _build.lib("mla_decode").kt_mla_decode_attention
+
+    def launch():
+        err = fn(
+            qn.data_ptr(), qp.data_ptr(), ckv.data_ptr(), kpe.data_ptr(),
+            lengths.data_ptr(), b, h, ckv.shape[1], float(scale),
+            int(qn.dtype == torch.bfloat16), out.data_ptr(),
+            torch.cuda.current_stream(qn.device).cuda_stream,
+        )
+        _build.check(err, what)
+
+    return launch, out
+
+
+def mla_decode_attention(qn, qp, ckv, kpe, lengths, scale: float):
+    """Flash decode of one query token per sequence over a contiguous
+    compressed cache: score = (qn . ckv + qp . kpe) * scale over the rows
+    s < lengths[b], value = ckv; [B, H, R].
+
+    qn [B, H, R] absorbed query; qp [B, H, dr] roped; ckv [B, S, R], kpe
+    [B, S, dr]; lengths [B] int32, the current token INCLUDED (its row is
+    already in the cache)."""
+    what = "mla_decode_attention"
+    b, h, r = qn.shape
+    dr = qp.shape[-1]
+    smax = ckv.shape[1]
+    shapes = {"qp": (qp, (b, h, dr)), "ckv": (ckv, (b, smax, r)),
+              "kpe": (kpe, (b, smax, dr)), "lengths": (lengths, (b,))}
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{what}: {name} is {tuple(t.shape)}, want {want}")
+    if qn.device.type == "cpu":
+        return mla_decode_attention_ref(qn, qp, ckv, kpe, lengths, scale)
+    if qn.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {qn.device}")
+    if (r, dr) != (KERNEL_R, KERNEL_DR) or h % KERNEL_HG:
+        raise ValueError(f"{what}: kernel takes R={KERNEL_R}, dr={KERNEL_DR}, "
+                         f"H % {KERNEL_HG} == 0; got R={r} dr={dr} H={h}")
+    dt = qn.dtype
+    if dt not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != dt for t in (qp, ckv, kpe)):
+        raise ValueError(f"{what}: qn/qp/ckv/kpe must share float32 or "
+                         "bfloat16")
+    if lengths.dtype != torch.int32:
+        raise ValueError(f"{what}: lengths must be int32")
+    launch, out = attention_launcher(qn, qp, ckv, kpe, lengths, scale)
+    launch()
+    LAUNCHES[what] += 1
+    return out

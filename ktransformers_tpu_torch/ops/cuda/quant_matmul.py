@@ -1,0 +1,256 @@
+"""Matmuls with the weight decoded inside the kernel: wrappers
+(csrc/quant_matmul.cu) and their plain PyTorch versions.
+
+One kernel family, three entries, one per Pallas function it replaces in
+ktransformers_tpu/ops/pallas/quant_matmul.py:
+- quant_matmul: x [..., K] @ W [K, N] (dense projections, dense / shared MLP),
+- gathered_quant_matmul: row r uses expert ids[r] (decode MoE),
+- grouped_quant_matmul: rows sorted by expert with group sizes; rows past
+  sum(group_sizes) come back zero (prefill MoE).
+Kinds: int8, fp8, int4 / int4_g / int4_gz (also in the offset-lo encoding),
+mxfp4, mxfp8. The arithmetic of every kind is stated in the CUDA source;
+the plain versions round the decoded weight to x.dtype at the same place.
+Bound on the card at decode: the weight bytes of the experts the rows use.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ktransformers_tpu_torch.ops.cuda import LAUNCHES
+from ktransformers_tpu_torch.ops.cuda import _build
+from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
+    _check_x,
+    check_cuda_operands,
+    dense_tiles,
+    device_kind,
+    grouped_tiles,
+    row_tiles,
+    sorted_row_experts,
+)
+from ktransformers_tpu_torch.quant.formats import (
+    INT4_KINDS,
+    QTensor,
+    dequantize,
+    true_group_count,
+)
+
+# the kinds of ktransformers_tpu/ops/pallas/__init__.py:PALLAS_KINDS
+KINDS = ("int8", "int4", "int4_g", "int4_gz", "fp8", "mxfp4", "mxfp8")
+_KIND_CODE = {"int8": 0, "fp8": 1, "int4": 2, "int4_g": 2, "int4_gz": 2,
+              "mxfp4": 3, "mxfp8": 4}
+_DATA_DTYPES = {
+    "int8": (torch.int8,), "fp8": (torch.float8_e4m3fn,),
+    "mxfp8": (torch.float8_e4m3fn,), "mxfp4": (torch.uint8,),
+    "int4": (torch.uint8, torch.int8), "int4_g": (torch.uint8, torch.int8),
+    "int4_gz": (torch.uint8, torch.int8),
+}
+DENSE_MR = 8    # rows per tile of a dense call with more than one row
+GROUPED_MR = 8  # rows per tile of a grouped call
+
+
+def check_weight(w: QTensor, ndim: int, what: str) -> None:
+    """Raise unless w is a weight of one of KINDS with consistent parts."""
+    if not isinstance(w, QTensor):
+        raise TypeError(f"{what}: weight must be a QTensor")
+    if w.kind not in KINDS:
+        raise ValueError(f"{what}: unsupported kind {w.kind!r}")
+    if w.data.dim() != ndim or w.data.dtype not in _DATA_DTYPES[w.kind]:
+        raise ValueError(f"{what}: {w.kind} data must be rank {ndim} of "
+                         f"{_DATA_DTYPES[w.kind]}, got {w.data.dtype} "
+                         f"{tuple(w.data.shape)}")
+    if w.kind in INT4_KINDS and w.kind != "mxfp4":
+        if w.act_quant != (w.data.dtype == torch.int8):
+            raise ValueError(f"{what}: act_quant={w.act_quant} with "
+                             f"{w.data.dtype} data")
+    elif w.act_quant:
+        raise ValueError(f"{what}: act_quant is an int4 encoding")
+    k, n = w.in_features, w.out_features
+    gs = w.group_size or k
+    if k % gs or (w.kind in INT4_KINDS and gs % 2):
+        raise ValueError(f"{what}: K={k} and group {gs} do not fit")
+    mx = w.kind in ("mxfp4", "mxfp8")
+    s = w.scales
+    if s is None or s.dim() != ndim or s.shape[-1] != n \
+            or s.shape[:-2] != w.data.shape[:-2] \
+            or s.shape[-2] < true_group_count(w):
+        raise ValueError(f"{what}: scales must be [..., >= {k // gs}, {n}]")
+    if s.dtype != (torch.uint8 if mx else torch.float32):
+        raise ValueError(f"{what}: {w.kind} scales have dtype {s.dtype}")
+    if w.zeros is not None and (w.kind != "int4_gz"
+                                or w.zeros.shape != s.shape
+                                or w.zeros.dtype != torch.float32):
+        raise ValueError(f"{what}: zero points must be float32 like the "
+                         "scales, on int4_gz only")
+    if w.kind == "int4_gz" and w.zeros is None:
+        raise ValueError(f"{what}: int4_gz needs zero points")
+
+
+def expert_slice(w: QTensor, e: int) -> QTensor:
+    """Expert e of a 3-D weight as a 2-D one (views)."""
+    return dataclasses.replace(
+        w, data=w.data[e], scales=w.scales[e],
+        zeros=None if w.zeros is None else w.zeros[e])
+
+
+def lift(w: QTensor) -> QTensor:
+    """A 2-D weight as a 1-expert 3-D one (views)."""
+    return dataclasses.replace(
+        w, data=w.data[None], scales=w.scales[None],
+        zeros=None if w.zeros is None else w.zeros[None])
+
+
+def matblock_ref(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """x2 [M, K] @ one 2-D weight: float32 [M, N], the kernels' arithmetic.
+
+    int8 / fp8: the codes are exact in x.dtype and the per-channel scale
+    multiplies the f32 sum. Every other kind: the decoded weight
+    (code - zero) * scale is rounded to x.dtype (dequantize does exactly
+    that) before the product."""
+    xf = x2.to(torch.float32)
+    if w.kind in ("int8", "fp8"):
+        return torch.matmul(xf, w.data.to(torch.float32)) * w.scales
+    return torch.matmul(xf, dequantize(w, x2.dtype).to(torch.float32))
+
+
+def rows_ref(x_rows: torch.Tensor, w: QTensor,
+             row_expert: torch.Tensor) -> torch.Tensor:
+    """Plain version of all three entries: row r uses expert row_expert[r]
+    (-1 = none, the output row is zero). [R, N] in x_rows.dtype."""
+    out = torch.zeros(x_rows.shape[0], w.out_features, dtype=torch.float32,
+                      device=x_rows.device)
+    for e in torch.unique(row_expert).tolist():
+        if e < 0:
+            continue
+        idx = torch.nonzero(row_expert == e).flatten()
+        out[idx] = matblock_ref(x_rows[idx], expert_slice(w, e))
+    return out.to(x_rows.dtype)
+
+
+def quant_matmul_ref(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    *lead, kdim = x.shape
+    y = matblock_ref(x.reshape(-1, kdim), w).to(x.dtype)
+    return y.reshape(*lead, w.out_features)
+
+
+def gathered_quant_matmul_ref(x_rows, w: QTensor, ids) -> torch.Tensor:
+    return rows_ref(x_rows, w, ids.to(torch.int64))
+
+
+def grouped_quant_matmul_ref(x_sorted, w: QTensor, group_sizes) -> torch.Tensor:
+    return rows_ref(x_sorted, w, sorted_row_experts(
+        group_sizes.to(x_sorted.device), x_sorted.shape[0]))
+
+
+def rows_launcher(x_rows: torch.Tensor, w: QTensor, tiles, mr: int,
+                  out: torch.Tensor, what: str):
+    """Checks a CUDA call on a 3-D weight; returns launch(), which runs only
+    the kernel and writes ``out`` [R, N]."""
+    check_cuda_operands(what, x_rows.device, x_rows, w.data, w.scales,
+                        *(() if w.zeros is None else (w.zeros,)))
+    kdim, n = w.in_features, w.out_features
+    kr = w.data.shape[-2]
+    gs = w.group_size or kdim
+    rpg = gs // 2 if w.kind in INT4_KINDS else gs
+    if w.kind in ("int8", "fp8"):
+        rpg = kr  # one scale row, applied after the sum
+    unit = next((u for u in (16, 8, 4) if rpg % u == 0), 0)
+    if not unit or n % 4 or kdim % 4:
+        raise ValueError(f"{what}: the kernel takes N and K multiples of 4 "
+                         f"and {rpg} rows a group a multiple of 4 "
+                         f"(N={n}, K={kdim})")
+    te, tr0, trs = tiles
+    fn = _build.lib("quant_matmul").kt_quant_rows
+    flip = 0 if w.act_quant else 8
+    dev = x_rows.device
+
+    def launch():
+        err = fn(
+            x_rows.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
+            None if w.zeros is None else w.zeros.data_ptr(),
+            te.data_ptr(), tr0.data_ptr(), trs.data_ptr(), te.shape[0], mr,
+            _KIND_CODE[w.kind], kdim, kr, n, w.scales.shape[-2], rpg, unit,
+            flip, int(x_rows.dtype == torch.bfloat16), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(err, what)
+
+    return launch
+
+
+def dense_launcher(x2: torch.Tensor, w: QTensor):
+    """(launch, out) of a CUDA quant_matmul call on x2 [M, K]."""
+    m = x2.shape[0]
+    mr = 1 if m == 1 else DENSE_MR
+    out = torch.empty(m, w.out_features, dtype=x2.dtype, device=x2.device)
+    return rows_launcher(x2, lift(w), dense_tiles(m, mr, x2.device), mr, out,
+                         "quant_matmul"), out
+
+
+def gathered_launcher(x_rows: torch.Tensor, w: QTensor, ids: torch.Tensor):
+    out = torch.empty(x_rows.shape[0], w.out_features, dtype=x_rows.dtype,
+                      device=x_rows.device)
+    return rows_launcher(x_rows, w, row_tiles(ids), 1, out,
+                         "gathered_quant_matmul"), out
+
+
+def grouped_launcher(x_sorted: torch.Tensor, w: QTensor,
+                     group_sizes: torch.Tensor):
+    out = torch.zeros(x_sorted.shape[0], w.out_features,
+                      dtype=x_sorted.dtype, device=x_sorted.device)
+    tiles = grouped_tiles(group_sizes, x_sorted.shape[0], GROUPED_MR)
+    return rows_launcher(x_sorted, w, tiles, GROUPED_MR, out,
+                         "grouped_quant_matmul"), out
+
+
+def _counted(what: str, launch, out: torch.Tensor) -> torch.Tensor:
+    launch()
+    LAUNCHES[what] += 1
+    return out
+
+
+def quant_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """x [..., K] @ w (2-D QTensor [K, N]) -> [..., N] in x.dtype.
+
+    CUDA tensors launch csrc/quant_matmul.cu; CPU tensors take
+    quant_matmul_ref."""
+    what = "quant_matmul"
+    check_weight(w, 2, what)
+    *lead, kdim = x.shape
+    x2 = x.reshape(-1, kdim)
+    _check_x(x2, w.in_features, what)
+    if device_kind(x, what) == "cpu":
+        return quant_matmul_ref(x, w)
+    y = _counted(what, *dense_launcher(x2.contiguous(), w))
+    return y.reshape(*lead, w.out_features)
+
+
+def gathered_quant_matmul(x_rows: torch.Tensor, w: QTensor,
+                          ids: torch.Tensor) -> torch.Tensor:
+    """Decode MoE matmul: row r of x_rows [R, K] through expert ids[r] of
+    w [E, K, N]; only the routed experts' bytes are read. [R, N]."""
+    what = "gathered_quant_matmul"
+    check_weight(w, 3, what)
+    _check_x(x_rows, w.in_features, what)
+    if ids.shape != (x_rows.shape[0],):
+        raise ValueError(f"{what}: ids must be [R]")
+    if device_kind(x_rows, what) == "cpu":
+        return gathered_quant_matmul_ref(x_rows, w, ids)
+    return _counted(what, *gathered_launcher(x_rows.contiguous(), w, ids))
+
+
+def grouped_quant_matmul(x_sorted: torch.Tensor, w: QTensor,
+                         group_sizes: torch.Tensor) -> torch.Tensor:
+    """Prefill MoE matmul over rows sorted by expert (group_sizes [E]);
+    rows past sum(group_sizes) come back zero. [M, N] in x dtype."""
+    what = "grouped_quant_matmul"
+    check_weight(w, 3, what)
+    _check_x(x_sorted, w.in_features, what)
+    if group_sizes.shape != (w.data.shape[0],):
+        raise ValueError(f"{what}: group_sizes must be [E]")
+    if device_kind(x_sorted, what) == "cpu":
+        return grouped_quant_matmul_ref(x_sorted, w, group_sizes)
+    return _counted(what, *grouped_launcher(x_sorted.contiguous(), w,
+                                            group_sizes))

@@ -18,6 +18,7 @@ import torch
 
 from ktransformers_tpu_torch.ops.cuda import LAUNCHES
 from ktransformers_tpu_torch.ops.cuda import _build
+from ktransformers_tpu_torch.ops.cuda.quant_matmul import lift
 from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
     _check_x,
     check_cuda_operands,
@@ -28,6 +29,7 @@ from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
     launch_rows,
     prep_activations,
     row_tiles,
+    sorted_row_experts,
     w4a8_group_dot,
 )
 from ktransformers_tpu_torch.quant.formats import QTensor
@@ -149,6 +151,29 @@ def ffn_fits(gate_up, down, act: str, swiglu_limit, rows: int) -> bool:
     return (2 * i2) % (down.group_size or 2 * i2) == 0
 
 
+GROUP_BM = 64  # the reference's rows per grouped tile, in its byte test
+
+
+def grouped_ffn_fits(gate_up, down, act: str, swiglu_limit) -> bool:
+    """Whether the reference's grouped_w4a8_ffn takes 3-D weights (one
+    expert's blocks and the tile's temporaries within its budget)."""
+    if not _fusable(gate_up, down, act, swiglu_limit):
+        return False
+    if gate_up.data.dim() != 3 or down.data.dim() != 3:
+        return False
+    _, k2, n2x = gate_up.data.shape
+    _, i2, kdim = down.data.shape
+    inter = n2x // 2
+    if 2 * i2 != inter or kdim != 2 * k2:
+        return False
+    if inter % (down.group_size or inter):
+        return False
+    bm = GROUP_BM
+    need = (2 * (k2 * n2x + i2 * kdim) + 2 * (bm * k2) * 2 + bm * n2x * 4
+            + bm * inter * 4 + 2 * bm * kdim * 4 + 2 * bm * n2x * 4)
+    return need <= _GATHERED_FFN_BUDGET
+
+
 def dense_mlp_fused(gate_up, down, act: str, swiglu_limit,
                     rows: int) -> bool:
     """Whether the reference runs a dense GLU MLP over ``rows`` rows through
@@ -188,12 +213,6 @@ def w4a8_ffn_ref(x_rows: torch.Tensor, gate_up: QTensor, down: QTensor,
     return out.to(x_rows.dtype)
 
 
-def lift(qt: QTensor) -> QTensor:
-    """A 2-D weight as a 1-expert 3-D one (views, no copy)."""
-    return QTensor(qt.data[None], qt.scales[None], None, kind=qt.kind,
-                   group_size=qt.group_size, act_quant=qt.act_quant)
-
-
 def gathered_w4a8_ffn_ref(x_rows, gate_up, down, ids, act="silu"):
     return w4a8_ffn_ref(x_rows, gate_up, down, ids.to(torch.int64), act)
 
@@ -204,15 +223,8 @@ def dense_w4a8_ffn_ref(x2, gate_up, down, act="silu"):
 
 
 def grouped_w4a8_ffn_ref(x_sorted, gate_up, down, group_sizes, act="silu"):
-    m = x_sorted.shape[0]
-    e = gate_up.data.shape[0]
-    row_expert = torch.repeat_interleave(
-        torch.arange(e, device=x_sorted.device), group_sizes.to(torch.int64)
-    )[:m]
-    pad = torch.full((m - row_expert.shape[0],), -1, dtype=torch.int64,
-                     device=x_sorted.device)
-    return w4a8_ffn_ref(x_sorted, gate_up, down,
-                        torch.cat([row_expert, pad]), act)
+    return w4a8_ffn_ref(x_sorted, gate_up, down, sorted_row_experts(
+        group_sizes.to(x_sorted.device), x_sorted.shape[0]), act)
 
 
 def ffn_launcher(x_rows, gate_up: QTensor, down: QTensor, tiles, mr: int,

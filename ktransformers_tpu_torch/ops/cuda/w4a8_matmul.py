@@ -61,6 +61,19 @@ def grouped_tiles(group_sizes: torch.Tensor, m: int, mr: int):
     return ex.to(torch.int32), row0.to(torch.int32), rows.to(torch.int32)
 
 
+def sorted_row_experts(group_sizes: torch.Tensor, m: int) -> torch.Tensor:
+    """Expert of each of m rows sorted by expert (group_sizes [E]): int64
+    [m], -1 for the rows past sum(group_sizes). What the plain versions of
+    the grouped kernels walk."""
+    e = group_sizes.shape[0]
+    row_expert = torch.repeat_interleave(
+        torch.arange(e, device=group_sizes.device),
+        group_sizes.to(torch.int64))[:m]
+    pad = torch.full((m - row_expert.shape[0],), -1, dtype=torch.int64,
+                     device=group_sizes.device)
+    return torch.cat([row_expert, pad])
+
+
 def check_w4a8_weight(w: QTensor, ndim: int, what: str) -> int:
     """Raise unless w is a W4A8-ready int4_g weight; returns gs/2."""
     if not isinstance(w, QTensor):

@@ -1,10 +1,20 @@
 """Routed-expert MoE forward (counterpart of ktransformers_tpu/ops/moe.py).
 
 Few tokens (decode, t <= DECODE_GATHER_MAX_TOKENS) take the gather path:
-one FFN row per (token, slot) through gathered_w4a8_ffn, which reads only
-the routed experts' bytes. More tokens (prefill) sort the (token, expert)
-pairs by expert and run grouped_w4a8_ffn over the sorted rows. LoRA,
-expert parallelism and host offload are not ported.
+one row per (token, slot), which reads only the routed experts' bytes. More
+tokens (prefill) sort the (token, expert) pairs by expert and run over the
+sorted rows. On either path the route is chosen as the JAX package's Pallas
+hooks choose it (ops/pallas/__init__.py):
+- W4A8 weights (offset-lo int4_g) whose expert fits the fused FFN kernels
+  run gate_up -> GLU -> requant -> down in one call (gathered_w4a8_ffn /
+  grouped_w4a8_ffn, the GLU in float32);
+- every other kernel kind (int8, fp8, int4 kinds not repacked, mxfp4,
+  mxfp8) runs two matmuls with the weight decoded in the kernel
+  (gathered_quant_matmul / grouped_quant_matmul) and the GLU between them
+  in x.dtype;
+- W4A8 weights the fused kernels refuse (too wide, or a swiglu_limit) would
+  need the unfused W4A8 matmuls, which are not ported: they raise.
+LoRA, expert parallelism and host offload are not ported.
 """
 
 from __future__ import annotations
@@ -13,12 +23,24 @@ import dataclasses
 
 import torch
 
-from ktransformers_tpu_torch.ops.activations import ActivationConfig
+from ktransformers_tpu_torch.ops.activations import (
+    ActivationConfig,
+    glu_activate,
+)
+from ktransformers_tpu_torch.ops.cuda.quant_matmul import (
+    KINDS,
+    gathered_quant_matmul,
+    grouped_quant_matmul,
+)
 from ktransformers_tpu_torch.ops.cuda.w4a8_ffn import (
+    GATHERED_FFN_MAX_ROWS,
+    ffn_fits,
     gathered_w4a8_ffn,
+    grouped_ffn_fits,
     grouped_w4a8_ffn,
 )
 from ktransformers_tpu_torch.quant.formats import QTensor
+from ktransformers_tpu_torch.quant.w4a8 import W4A8_KINDS
 
 DECODE_GATHER_MAX_TOKENS = 8
 
@@ -35,11 +57,45 @@ class MoEWeights:
     def num_experts(self) -> int:
         return self.gate_up.data.shape[0]
 
+    @property
+    def intermediate_size(self) -> int:
+        return self.gate_up.data.shape[2] // 2
 
-def _fused_act(cfg: ActivationConfig) -> str:
-    if cfg.swiglu_limit is not None or cfg.kind not in ("silu", "relu", "gelu"):
-        raise NotImplementedError(f"activation {cfg} is not ported")
-    return cfg.kind
+
+def _check_kernel_kind(w: QTensor, what: str) -> None:
+    if w.kind not in KINDS:
+        raise NotImplementedError(
+            f"{what}: {w.kind} experts have no kernel (the plain expert "
+            "products of the JAX package are not ported)")
+    if w.kind in W4A8_KINDS and w.act_quant:
+        raise NotImplementedError(
+            f"{what}: W4A8 experts outside the fused FFN kernels need the "
+            "unfused gathered / grouped W4A8 matmuls (ROADMAP Queue 2)")
+
+
+def gathered_matmul(x: torch.Tensor, w: QTensor,
+                    ids: torch.Tensor) -> torch.Tensor:
+    """Decode expert matmul that reads only the routed experts' bytes.
+
+    x [T, K] (the same input to each of the k experts) or [T, k, K]
+    (per-expert inputs); w [E, K, N]; ids [T, k]. Returns [T, k, N]."""
+    _check_kernel_kind(w, "gathered_matmul")
+    t, k = ids.shape
+    kdim = x.shape[-1]
+    if x.dim() == 2:
+        x_rows = x[:, None, :].expand(t, k, kdim).reshape(t * k, kdim)
+    else:
+        x_rows = x.reshape(t * k, kdim)
+    y = gathered_quant_matmul(x_rows.contiguous(), w, ids.reshape(t * k))
+    return y.reshape(t, k, -1)
+
+
+def grouped_matmul(x: torch.Tensor, w: QTensor,
+                   group_sizes: torch.Tensor) -> torch.Tensor:
+    """x [m, k] rows sorted by group; w [g, k, n]; returns [m, n]. Rows
+    past sum(group_sizes) come back zero."""
+    _check_kernel_kind(w, "grouped_matmul")
+    return grouped_quant_matmul(x, w, group_sizes)
 
 
 def moe_dispatch(topk_idx: torch.Tensor, num_experts: int):
@@ -53,23 +109,44 @@ def moe_dispatch(topk_idx: torch.Tensor, num_experts: int):
     return sort_order, token_of_row, group_sizes
 
 
+def _moe_forward_gather(x, weights: MoEWeights, topk_idx, topk_weights,
+                        act: ActivationConfig) -> torch.Tensor:
+    t, d = x.shape
+    k = topk_idx.shape[1]
+    gu, dn = weights.gate_up, weights.down
+    if t * k <= GATHERED_FFN_MAX_ROWS and ffn_fits(
+            gu, dn, act.kind, act.swiglu_limit, t * k):
+        x_rows = x[:, None, :].expand(t, k, d).reshape(t * k, d).contiguous()
+        y = gathered_w4a8_ffn(x_rows, gu, dn, topk_idx.reshape(-1),
+                              act.kind).reshape(t, k, d)
+    else:
+        inter = weights.intermediate_size
+        h = gathered_matmul(x, gu, topk_idx)  # [t, k, 2F]
+        a = glu_activate(h[..., :inter], h[..., inter:], act)
+        y = gathered_matmul(a, dn, topk_idx)  # [t, k, d]
+    return (y * topk_weights[:, :, None].to(y.dtype)).sum(dim=1).to(x.dtype)
+
+
 def moe_forward(x: torch.Tensor, weights: MoEWeights, topk_idx: torch.Tensor,
                 topk_weights: torch.Tensor,
                 act: ActivationConfig = ActivationConfig()) -> torch.Tensor:
     """x [T, d]; topk_idx [T, k] int; topk_weights [T, k] float32."""
     t, d = x.shape
     k = topk_idx.shape[1]
-    kind = _fused_act(act)
     if t <= DECODE_GATHER_MAX_TOKENS:
-        x_rows = x[:, None, :].expand(t, k, d).reshape(t * k, d).contiguous()
-        y = gathered_w4a8_ffn(x_rows, weights.gate_up, weights.down,
-                              topk_idx.reshape(-1), kind).reshape(t, k, d)
-        return (y * topk_weights[:, :, None].to(y.dtype)).sum(dim=1).to(x.dtype)
+        return _moe_forward_gather(x, weights, topk_idx, topk_weights, act)
+    gu, dn = weights.gate_up, weights.down
     sort_order, token_of_row, group_sizes = moe_dispatch(
         topk_idx, weights.num_experts
     )
     xs = x[token_of_row].contiguous()
-    y = grouped_w4a8_ffn(xs, weights.gate_up, weights.down, group_sizes, kind)
+    if grouped_ffn_fits(gu, dn, act.kind, act.swiglu_limit):
+        y = grouped_w4a8_ffn(xs, gu, dn, group_sizes, act.kind)
+    else:
+        inter = weights.intermediate_size
+        h = grouped_matmul(xs, gu, group_sizes)
+        a = glu_activate(h[:, :inter], h[:, inter:], act)
+        y = grouped_matmul(a, dn, group_sizes)
     combine = topk_weights.reshape(-1)[sort_order]
     y = y * combine[:, None].to(y.dtype)
     inv = torch.empty_like(sort_order)

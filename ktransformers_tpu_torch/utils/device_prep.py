@@ -3,13 +3,16 @@ ktransformers_tpu/utils/device_prep.py:prepare_params).
 
 Applied on every device (the kernels and their plain versions take the same
 layouts): bf16 absorbed-MLA mats, q_proj + kv_a fused into one "qkv_a"
-projection, and the W4A8 offset-lo repack. The TPU-layout passes
+projection, and the W4A8 offset-lo repack of int4_g weights, which the
+environment variable KT_W4A8=0 switches off as in the JAX package (int4
+kinds then run through quant_matmul). The TPU-layout passes
 (pad_scale_sublanes, normalize_layouts) have no counterpart here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -38,13 +41,17 @@ def _concat_out(parts):
                 or t.act_quant != f.act_quant or t.data.dtype != f.data.dtype
                 or t.data.shape[:-1] != f.data.shape[:-1]
                 or (t.scales is None) != (f.scales is None)
-                or t.zeros is not None or f.zeros is not None):
+                or (t.zeros is None) != (f.zeros is None)
+                or (t.scales is not None and t.scales.dtype != f.scales.dtype)
+                or (t.zeros is not None and t.zeros.dtype != f.zeros.dtype)):
             return None
     return dataclasses.replace(
         f,
         data=torch.cat([t.data for t in parts], dim=-1),
         scales=None if f.scales is None
         else torch.cat([t.scales for t in parts], dim=-1),
+        zeros=None if f.zeros is None
+        else torch.cat([t.zeros for t in parts], dim=-1),
     )
 
 
@@ -66,7 +73,8 @@ def fuse_qkv_projections(params, spec):
 
 
 def prepare_params(params, spec=None):
-    """bf16 absorbed mats, fused QKV (when spec is given), W4A8 repack.
+    """bf16 absorbed mats, fused QKV (when spec is given), W4A8 repack
+    (unless KT_W4A8=0).
 
     Transforms the caller's tree in place (dicts and QTensors) and returns
     it, so the caller's params are the prepared ones afterwards; preparing
@@ -74,7 +82,9 @@ def prepare_params(params, spec=None):
     params = bf16_absorbed_mats(params)
     if spec is not None:
         params = fuse_qkv_projections(params, spec)
-    return enable_w4a8(params)
+    if os.environ.get("KT_W4A8", "1") != "0":
+        params = enable_w4a8(params)
+    return params
 
 
 def params_to(node, device):

@@ -21,7 +21,10 @@ Tolerances, as a share of the reference's largest magnitude:
   one step (1/127 of its group's largest value);
 - 1e-2 for bfloat16 outputs (8 mantissa bits);
 - 1e-5 (float32) and 1e-2 (bfloat16) for the two paged-attention kernels:
-  float32 accumulation on both sides, another order of sums.
+  float32 accumulation on both sides, another order of sums;
+- the same 1e-5 / 1e-2 for the quant_matmul family (the weight is decoded
+  and rounded to the activations' type identically on both sides) and for
+  mla_decode_attention.
 """
 
 import numpy as np
@@ -32,6 +35,8 @@ from ktransformers_tpu_torch.ops.cuda import LAUNCHES
 from ktransformers_tpu_torch.ops.cuda import w4a8_ffn as F
 from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
 from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
+from ktransformers_tpu_torch.ops.cuda import mla_decode as MD
+from ktransformers_tpu_torch.ops.cuda import quant_matmul as QM
 from ktransformers_tpu_torch.ops.cuda.mla_decode import mla_decode_fused
 from ktransformers_tpu_torch.ops.rope import rope_rotation_matrix
 from ktransformers_tpu_torch.quant.formats import quantize
@@ -257,3 +262,138 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         MM.dense_w4a8_matmul(x[:, ::2], w)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         MM.dense_w4a8_matmul(x[:, :256].half(), w)
+
+
+# ------------------------------------------------ quant_matmul family, row 6
+
+QM_KINDS = ("int8", "fp8", "int4", "int4_g", "int4_gz", "mxfp4", "mxfp8")
+
+
+def _qw(rng, shape, kind, gs=128):
+    w = rng.standard_normal(shape).astype(np.float32) * 0.1
+    return quantize(torch.from_numpy(w), kind, gs)
+
+
+def _both_dtypes(run, ref, x):
+    """run / ref take the activations; float32 held to 1e-5, bf16 to 1e-2."""
+    out = run(x)
+    assert out.dtype == torch.float32 and _rel(out, ref(x)) <= 1e-5
+    xb = x.bfloat16()
+    out = run(xb)
+    assert out.dtype == torch.bfloat16 and _rel(out, ref(xb)) <= 1e-2
+
+
+@pytest.mark.parametrize("m", [1, 3, 19])
+@pytest.mark.parametrize("kind", QM_KINDS)
+def test_quant_matmul(cuda, kind, m):
+    """K = 192 takes a group of 96 for the int4 group kinds; N = 40 is no
+    multiple of the block's 128 columns; 3 and 19 rows leave partial
+    tiles."""
+    rng = np.random.default_rng(m)
+    w, x = _qw(rng, (192, 40), kind), _x(rng, m, 192)
+    wc = w.to(cuda)
+    _counted("quant_matmul", lambda: QM.quant_matmul(x.to(cuda), wc))
+    _both_dtypes(lambda v: QM.quant_matmul(v.to(cuda), wc),
+                 lambda v: QM.quant_matmul_ref(v, w), x)
+
+
+@pytest.mark.parametrize("kind", ["int4", "int4_g"])
+def test_quant_matmul_offset_lo(cuda, kind):
+    rng = np.random.default_rng(5)
+    w, x = _qw(rng, (256, 72), kind), _x(rng, 4, 256)
+    ref = QM.quant_matmul_ref(x, w)
+    w.data = (w.data ^ 8).view(torch.int8)  # the offset-lo encoding
+    w.act_quant = True
+    out = QM.quant_matmul(x.to(cuda), w.to(cuda))
+    assert _rel(out, ref) <= 1e-5
+    assert _rel(QM.quant_matmul_ref(x, w), ref) == 0.0
+
+
+@pytest.mark.parametrize("kind", QM_KINDS)
+def test_gathered_quant_matmul(cuda, kind):
+    rng = np.random.default_rng(6)
+    w, x = _qw(rng, (8, 128, 72), kind), _x(rng, 7, 128)
+    ids = torch.tensor([3, 0, 5, 3, 7, 1, 3], dtype=torch.int32)
+    wc = w.to(cuda)
+    _counted("gathered_quant_matmul", lambda: QM.gathered_quant_matmul(
+        x.to(cuda), wc, ids.to(cuda)))
+    _both_dtypes(
+        lambda v: QM.gathered_quant_matmul(v.to(cuda), wc, ids.to(cuda)),
+        lambda v: QM.gathered_quant_matmul_ref(v, w, ids), x)
+
+
+@pytest.mark.parametrize("kind", QM_KINDS)
+def test_grouped_quant_matmul(cuda, kind):
+    """Empty experts, groups that leave partial tiles, and a tail of rows
+    past the total, which must come back zero."""
+    rng = np.random.default_rng(7)
+    w, x = _qw(rng, (5, 128, 48), kind), _x(rng, 88, 128)
+    sizes = torch.tensor([9, 0, 70, 0, 4], dtype=torch.int32)
+    wc = w.to(cuda)
+    out = _counted("grouped_quant_matmul", lambda: QM.grouped_quant_matmul(
+        x.to(cuda), wc, sizes.to(cuda)))
+    assert not out[83:].abs().max().item()
+    _both_dtypes(
+        lambda v: QM.grouped_quant_matmul(v.to(cuda), wc, sizes.to(cuda)),
+        lambda v: QM.grouped_quant_matmul_ref(v, w, sizes), x)
+
+
+def test_quant_matmul_padded_scales_and_exponent_zero(cuda):
+    """Scale tensors with more group rows than K / G, and a ue8m0 exponent
+    of 0 (scale 0)."""
+    rng = np.random.default_rng(8)
+    x = _x(rng, 2, 128)
+    for kind in ("int4_gz", "mxfp4"):
+        w = _qw(rng, (128, 40), kind, 64)
+        ref = QM.quant_matmul_ref(x, w)
+        pad = lambda t: torch.cat([t, torch.zeros_like(t)])  # noqa: E731
+        w.scales = pad(w.scales)
+        w.zeros = None if w.zeros is None else pad(w.zeros)
+        assert _rel(QM.quant_matmul(x.to(cuda), w.to(cuda)), ref) <= 1e-5
+    w.scales[0] = 0
+    ref = QM.quant_matmul_ref(x, w)
+    out = QM.quant_matmul(x.to(cuda), w.to(cuda))
+    assert bool(torch.isfinite(out).all()) and _rel(out, ref) <= 1e-5
+
+
+def test_quant_matmul_refuses_on_the_card(cuda):
+    rng = np.random.default_rng(9)
+    w = _qw(rng, (128, 42), "int8")  # N no multiple of 4
+    with pytest.raises(ValueError, match="multiples of 4"):
+        QM.quant_matmul(_x(rng, 1, 128).to(cuda), w.to(cuda))
+    w = _qw(rng, (128, 40), "int8")
+    with pytest.raises(ValueError, match="operands on"):
+        QM.quant_matmul(_x(rng, 1, 128).to(cuda), w)  # weight on the CPU
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_decode_attention(cuda, dtype):
+    """Full kernel widths (R 512, dr 64), NaN in every cache row at or past
+    lengths[b]: lengths on and around multiples of the 8 warps, one row,
+    the whole cache and an empty sequence."""
+    rng = np.random.default_rng(10)
+    b, h, r, dr, smax = 7, 8, 512, 64, 96
+    lengths = torch.tensor([1, 8, 9, 64, 65, 96, 0], dtype=torch.int32)
+    qn, qp = _x(rng, b, h, r).to(dtype), _x(rng, b, h, dr).to(dtype)
+    ckv, kpe = _x(rng, b, smax, r).to(dtype), _x(rng, b, smax, dr).to(dtype)
+    for i, n in enumerate(lengths.tolist()):
+        ckv[i, n:] = float("nan")
+        kpe[i, n:] = float("nan")
+    scale = (128 + 64) ** -0.5
+    out = _counted("mla_decode_attention", lambda: MD.mla_decode_attention(
+        qn.to(cuda), qp.to(cuda), ckv.to(cuda), kpe.to(cuda),
+        lengths.to(cuda), scale))
+    ref = MD.mla_decode_attention_ref(qn, qp, ckv, kpe, lengths, scale)
+    assert out.dtype == dtype and bool(torch.isfinite(out).all())
+    assert not out[6].abs().max().item()
+    assert _rel(out, ref) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def test_mla_decode_attention_refuses(cuda):
+    z = lambda *s: torch.zeros(*s, device=cuda)  # noqa: E731
+    with pytest.raises(ValueError, match="kernel takes"):
+        MD.mla_decode_attention(z(1, 4, 64), z(1, 4, 16), z(1, 8, 64),
+                                z(1, 8, 16), z(1).int(), 1.0)
+    with pytest.raises(ValueError, match="int32"):
+        MD.mla_decode_attention(z(1, 4, 512), z(1, 4, 64), z(1, 8, 512),
+                                z(1, 8, 64), z(1).long(), 1.0)

@@ -147,15 +147,29 @@ def test_ffn_rejects_truncating_gate_up_group():
 
 
 def test_linear_refuses_int4_g_not_repacked():
-    """An int4_g weight reaches the W4A8 kernel only after the offset-lo
-    repack; before it, linear() raises instead of dequantizing (that
-    product is the JAX package's quant_matmul kernel, not ported)."""
-    from ktransformers_tpu_torch.ops.linear import linear
-    from ktransformers_tpu_torch.quant.formats import quantize
+    """What linear() does with an int4_g weight that is not repacked. It
+    used to raise (the product is the JAX package's quant_matmul kernel,
+    then not ported); now it takes that kernel's port, never the W4A8
+    kernel, and equals the product with the dequantized weight. linear()
+    still refuses a kind it does not know."""
+    import dataclasses
 
-    w = quantize(torch.ones(256, 64), "int4_g", 128)
-    with pytest.raises(ValueError, match="repacked"):
-        linear(torch.ones(2, 256), w)
+    from ktransformers_tpu_torch.ops.cuda import quant_matmul as qm
+    from ktransformers_tpu_torch.ops.linear import linear
+    from ktransformers_tpu_torch.quant.formats import dequantize, quantize
+
+    rng = np.random.default_rng(4)
+    w = quantize(torch.from_numpy(
+        rng.standard_normal((256, 64)).astype(np.float32)), "int4_g", 128)
+    x = torch.from_numpy(rng.standard_normal((2, 256)).astype(np.float32))
+    assert not w.act_quant
+    out = linear(x, w)
+    np.testing.assert_array_equal(out.numpy(), qm.quant_matmul_ref(x, w).numpy())
+    np.testing.assert_allclose(
+        out.numpy(), (x @ dequantize(w, torch.float32)).numpy(), rtol=0,
+        atol=1e-5 * float(out.abs().max()))
+    with pytest.raises(ValueError, match="unknown kind"):
+        linear(x, dataclasses.replace(w, kind="int3"))
 
 
 @pytest.mark.parametrize("interleaved", [True, False])

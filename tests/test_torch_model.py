@@ -49,17 +49,19 @@ LOGIT_TOL = 5e-2
 
 
 @contextlib.contextmanager
-def jax_interpret_hooks():
+def jax_interpret_hooks(mla_fused: bool = True):
     """Install the JAX package's Pallas hooks as interpret-mode wrappers
-    (the routing of ops/pallas.enable()), restoring the old hooks after.
-    Yields the dict that counts the calls of each route."""
+    (the routing of ops/pallas.enable(); mla_fused=False leaves the fused
+    decode hook out, as KT_MLA_FUSED=0 does), restoring the old hooks
+    after. Yields the dict that counts the calls of each route."""
     from ktransformers_tpu.ops import attention, linear, moe
     from ktransformers_tpu.ops.pallas import mla_decode as md
     from ktransformers_tpu.ops.pallas import quant_matmul as qm
     from ktransformers_tpu.ops.pallas import w4a8_matmul as wm
 
     old = (linear._PALLAS_QMATMUL, moe._PALLAS_FFN, moe._PALLAS_GROUPED_FFN,
-           moe._PALLAS_DENSE_FFN, attention._PALLAS_MLA_FUSED)
+           moe._PALLAS_DENSE_FFN, attention._PALLAS_MLA_FUSED,
+           moe._PALLAS_GATHER, moe._PALLAS_GMM, attention._PALLAS_MLA_DECODE)
 
     def ffn(x_rows, gu, dn, ids, act):
         if x_rows.shape[0] > 128 or not wm.ffn_fits(
@@ -102,7 +104,18 @@ def jax_interpret_hooks():
     moe.set_pallas_ffn(counted("gathered_ffn", ffn))
     moe.set_pallas_grouped_ffn(counted("grouped_ffn", grouped_ffn))
     moe.set_pallas_dense_ffn(counted("dense_ffn", dense_ffn))
-    attention.set_pallas_mla_fused(counted("mla_fused", fused))
+    moe.set_pallas_gather(counted(
+        "gather", lambda x, w, ids: qm.gathered_quant_matmul(
+            x, w, ids, interpret=True)))
+    moe.set_pallas_gmm(counted(
+        "gmm", lambda x, w, sizes: qm.grouped_quant_matmul(
+            x, w, sizes, interpret=True)))
+    attention.set_pallas_mla_decode(counted(
+        "mla_decode", lambda qn, qp, ckv, kpe, lengths, scale:
+        md.mla_decode_attention(qn, qp, ckv, kpe, lengths, scale,
+                                interpret=True)))
+    attention.set_pallas_mla_fused(
+        counted("mla_fused", fused) if mla_fused else None)
     try:
         yield calls
     finally:
@@ -111,6 +124,9 @@ def jax_interpret_hooks():
         moe.set_pallas_grouped_ffn(old[2])
         moe.set_pallas_dense_ffn(old[3])
         attention.set_pallas_mla_fused(old[4])
+        moe.set_pallas_gather(old[5])
+        moe.set_pallas_gmm(old[6])
+        attention.set_pallas_mla_decode(old[7])
 
 
 @pytest.fixture

@@ -1,0 +1,318 @@
+"""The plain versions of the port's quant_matmul family and of
+mla_decode_attention against the JAX package's Pallas kernels in interpret
+mode (ops/pallas/quant_matmul.py, ops/pallas/mla_decode.py).
+
+Weights are quantized by the JAX package from a numpy seed and carried
+across with convert.qtensor_from_jax; activations are numpy arrays handed
+to both sides.
+
+Tolerances, as a share of the largest |output|: float32 activations 1e-5
+(the two sides sum in another order; the MX kinds also differ by the JAX
+package's exp2, which is off the exact power of two by ~1e-7 near 2^0);
+bfloat16 activations 1e-2 (one bf16 rounding of the output, 2^-8, plus the
+odd decoded weight that lands on the other side of a bf16 rounding).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ktransformers_tpu.ops.pallas import mla_decode as jmd
+from ktransformers_tpu.ops.pallas import quant_matmul as jqm
+from ktransformers_tpu.quant import formats as jf
+from ktransformers_tpu.quant import w4a8 as jw
+from ktransformers_tpu_torch.convert import qtensor_from_jax, tensor_from_numpy
+from ktransformers_tpu_torch.ops.cuda import mla_decode as tmd
+from ktransformers_tpu_torch.ops.cuda import quant_matmul as tqm
+from ktransformers_tpu_torch.quant.formats import QTensor
+
+KINDS = ("int8", "fp8", "int4", "int4_g", "int4_gz", "mxfp4", "mxfp8")
+TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _weights(kind, shape, seed=0, group_size=128):
+    w = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    jq = jf.quantize(jnp.asarray(w * 0.05), kind, group_size=group_size)
+    return jq, qtensor_from_jax(jax.device_get(jq), "cpu")
+
+
+def _x(shape, dtype, seed=1):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return jnp.asarray(x, dtype), torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def _close(out: torch.Tensor, ref, dtype):
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = out.float().numpy()
+    assert out.shape == ref.shape
+    assert np.isfinite(out).all()
+    err = np.abs(out - ref).max() / max(np.abs(ref).max(), 1e-30)
+    assert err <= TOL[dtype], err
+
+
+def test_kinds_are_the_pallas_kinds():
+    from ktransformers_tpu.ops.pallas import PALLAS_KINDS
+
+    assert set(tqm.KINDS) == set(PALLAS_KINDS) == set(KINDS)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_quant_matmul(kind, dtype):
+    # N = 40 is no multiple of 128; x has a leading batch axis
+    jq, tq = _weights(kind, (256, 40))
+    jx, tx = _x((2, 5, 256), dtype)
+    _close(tqm.quant_matmul(tx, tq), jqm.quant_matmul(jx, jq, interpret=True),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_gathered_quant_matmul(kind, dtype):
+    jq, tq = _weights(kind, (6, 128, 72))
+    ids = np.asarray([3, 0, 5, 3, 1, 1, 4], np.int32)  # expert 2 unused
+    jx, tx = _x((7, 128), dtype)
+    _close(tqm.gathered_quant_matmul(tx, tq, torch.from_numpy(ids)),
+           jqm.gathered_quant_matmul(jx, jq, jnp.asarray(ids),
+                                     interpret=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_grouped_quant_matmul(kind, dtype):
+    """Sorted rows with two empty experts and a tail of 5 masked rows, which
+    must come back zero."""
+    jq, tq = _weights(kind, (5, 128, 48))
+    sizes = np.asarray([9, 0, 70, 0, 4], np.int32)  # 83 of 88 rows live
+    jx, tx = _x((88, 128), dtype)
+    out = tqm.grouped_quant_matmul(tx, tq, torch.from_numpy(sizes))
+    _close(out, jqm.grouped_quant_matmul(jx, jq, jnp.asarray(sizes),
+                                         interpret=True), dtype)
+    assert not out[83:].float().abs().max()
+
+
+@pytest.mark.parametrize("kind", ["int4_g", "int4_gz", "mxfp4", "mxfp8"])
+def test_group_size_96_and_padded_scales(kind):
+    """K = 192 with a group of 96 (int4 kinds; the MX kinds keep 32), and
+    scale / zero-point tensors that carry padded group rows, as
+    pad_scale_sublanes leaves them: the port reads only the true groups."""
+    jq, _ = _weights(kind, (192, 40), group_size=96)
+    assert jq.group_size == (32 if kind.startswith("mx") else 96)
+    jq = jf.pad_scale_sublanes(jq)
+    host = jax.device_get(jq)
+    assert host.scales.shape[0] % 8 == 0
+    assert host.scales.shape[0] > jf.true_group_count(jq) or kind == "mxfp4"
+    tq = QTensor(
+        tensor_from_numpy(host.data, "cpu"),
+        tensor_from_numpy(host.scales, "cpu"),
+        None if host.zeros is None else tensor_from_numpy(host.zeros, "cpu"),
+        kind=kind, group_size=host.group_size)
+    jx, tx = _x((3, 192), "float32")
+    _close(tqm.quant_matmul(tx, tq), jqm.quant_matmul(jx, jq, interpret=True),
+           "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["int4", "int4_g"])
+def test_offset_lo_dense(kind, dtype, monkeypatch):
+    """Repacked (offset-lo) data given to quant_matmul is decoded as
+    lo = (b & 15) - 8. The JAX package sends such weights here only past
+    its W4A8 row limit, so that limit is set to 0 for the reference."""
+    jq, _ = _weights(kind, (256, 40), seed=3)
+    jr = jw.repack_offset_lo(jq)
+    tr = qtensor_from_jax(jax.device_get(jr), "cpu")
+    assert tr.act_quant and tr.data.dtype == torch.int8
+    jx, tx = _x((4, 256), dtype)
+    monkeypatch.setattr(jqm, "W4A8_DENSE_MAX_M", 0)
+    ref = jqm.quant_matmul.__wrapped__(jx, jr, interpret=True)
+    _close(tqm.quant_matmul(tx, tr), ref, dtype)
+    # and it is the same function as on the data before the repack
+    _close(tqm.quant_matmul(tx, tr),
+           jqm.quant_matmul(jx, jq, interpret=True), dtype)
+
+
+def test_offset_lo_grouped(monkeypatch):
+    """The reference's bf16-dequant grouped kernel on offset-lo data
+    (KT_GROUPED_IMPL=bf16)."""
+    jq, _ = _weights("int4_g", (3, 128, 40), seed=4)
+    jr = jw.repack_offset_lo(jq)
+    tr = qtensor_from_jax(jax.device_get(jr), "cpu")
+    sizes = np.asarray([5, 0, 11], np.int32)
+    jx, tx = _x((16, 128), "float32")
+    monkeypatch.setattr(jqm, "_GROUPED_IMPL", "bf16")
+    ref = jqm.grouped_quant_matmul.__wrapped__(jx, jr, jnp.asarray(sizes),
+                                               interpret=True)
+    _close(tqm.grouped_quant_matmul(tx, tr, torch.from_numpy(sizes)), ref,
+           "float32")
+
+
+def test_ue8m0_exponent_zero_decodes_to_zero():
+    """A ue8m0 exponent of 0 (2^-127, below float32's normal range) decodes
+    to a scale of 0, as the JAX package's exp2 gives on the CPU: the group
+    contributes nothing and the output stays finite and equal."""
+    jq, tq = _weights("mxfp4", (64, 40), seed=5)
+    s = np.asarray(jq.scales).copy()
+    s[0] = 0  # the first of the two groups
+    jq = dataclasses.replace(jq, scales=jnp.asarray(s))
+    tq = dataclasses.replace(tq, scales=torch.from_numpy(s))
+    jx, tx = _x((2, 64), "float32")
+    out = tqm.quant_matmul(tx, tq)
+    _close(out, jqm.quant_matmul(jx, jq, interpret=True), "float32")
+    only_second = tqm.quant_matmul(
+        torch.cat([torch.zeros(2, 32), tx[:, 32:]], dim=1), tq)
+    np.testing.assert_array_equal(out.numpy(), only_second.numpy())
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4_gz", "mxfp4"])
+def test_gathered_matmul_per_expert_inputs(kind):
+    """ops/moe.gathered_matmul with x [T, K] and with per-expert inputs
+    x [T, k, K], against the JAX package's with its gather hook in
+    interpret mode."""
+    from ktransformers_tpu.ops import moe as jmoe
+    from ktransformers_tpu_torch.ops import moe as tmoe
+
+    jq, tq = _weights(kind, (6, 128, 40), seed=6)
+    ids = np.asarray([[0, 5], [2, 2], [4, 1]], np.int32)
+    old = jmoe._PALLAS_GATHER
+    jmoe.set_pallas_gather(
+        lambda x, w, i: jqm.gathered_quant_matmul(x, w, i, interpret=True))
+    try:
+        for shape in ((3, 128), (3, 2, 128)):
+            jx, tx = _x(shape, "float32", seed=len(shape))
+            ref = jmoe.gathered_matmul(jx, jq, jnp.asarray(ids))
+            out = tmoe.gathered_matmul(tx, tq, torch.from_numpy(ids))
+            assert tuple(out.shape) == (3, 2, 40)
+            _close(out, ref, "float32")
+    finally:
+        jmoe.set_pallas_gather(old)
+
+
+def test_linear_dispatch_matches_jax():
+    """ops/linear.qmatmul against the JAX package's with its qmatmul hook
+    in interpret mode: a kernel kind goes to quant_matmul, int8_g (no
+    kernel in either package) to the plain group contraction, bf16 to a
+    plain matmul."""
+    from ktransformers_tpu.ops import linear as jlinear
+    from ktransformers_tpu.ops.pallas import PALLAS_KINDS
+    from ktransformers_tpu_torch.ops import linear as tlinear
+
+    old = jlinear._PALLAS_QMATMUL
+    jlinear.set_pallas_qmatmul(
+        lambda x, w: jqm.quant_matmul(x, w, interpret=True)
+        if w.kind in PALLAS_KINDS else None)
+    try:
+        for kind in ("int8", "int8_g", "bf16"):
+            jq, tq = _weights(kind, (256, 40), seed=10)
+            jx, tx = _x((3, 256), "float32")
+            _close(tlinear.qmatmul(tx, tq), jlinear.qmatmul(jx, jq),
+                   "bfloat16" if kind == "bf16" else "float32")
+    finally:
+        jlinear.set_pallas_qmatmul(old)
+
+
+def test_wrappers_refuse_what_the_kernel_does_not_take():
+    _, tq = _weights("int8", (64, 40))
+    x = torch.zeros(2, 64)
+    with pytest.raises(ValueError, match="x must be"):
+        tqm.quant_matmul(torch.zeros(2, 32), tq)
+    with pytest.raises(ValueError, match="unsupported kind"):
+        tqm.quant_matmul(x, dataclasses.replace(tq, kind="int8_g"))
+    with pytest.raises(ValueError, match="scales"):
+        tqm.quant_matmul(x, dataclasses.replace(tq, scales=tq.scales[:, :8]))
+    with pytest.raises(ValueError, match="ids"):
+        tqm.gathered_quant_matmul(
+            x, tqm.lift(tq), torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="group_sizes"):
+        tqm.grouped_quant_matmul(
+            x, tqm.lift(tq), torch.zeros(3, dtype=torch.int32))
+    _, tz = _weights("int4_gz", (64, 40))
+    with pytest.raises(ValueError, match="zero points"):
+        tqm.quant_matmul(x, dataclasses.replace(tz, zeros=None))
+
+
+def test_w4a8_experts_outside_the_fused_ffn_raise():
+    """Repacked int4 experts that the fused FFN refuses (here: a
+    swiglu_limit) would need the unfused W4A8 matmuls, which are not
+    ported: NotImplementedError, never a plain product."""
+    from ktransformers_tpu_torch.ops.activations import ActivationConfig
+    from ktransformers_tpu_torch.ops.moe import MoEWeights, moe_forward
+    from ktransformers_tpu_torch.quant.formats import quantize
+    from ktransformers_tpu_torch.quant.w4a8 import repack_offset_lo
+
+    rng = np.random.default_rng(7)
+    gu = repack_offset_lo(quantize(torch.from_numpy(
+        rng.standard_normal((4, 128, 64)).astype(np.float32)), "int4_g"))
+    dn = repack_offset_lo(quantize(torch.from_numpy(
+        rng.standard_normal((4, 32, 128)).astype(np.float32)), "int4_g"))
+    act = ActivationConfig(kind="silu", swiglu_limit=7.0)
+    for t in (2, 12):  # gather path and grouped path
+        idx = torch.from_numpy(rng.integers(0, 4, (t, 2)))
+        with pytest.raises(NotImplementedError, match="Queue 2"):
+            moe_forward(torch.zeros(t, 128), MoEWeights(gu, dn), idx,
+                        torch.ones(t, 2), act)
+
+
+# --------------------------------------------------- mla_decode_attention
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [16, 512])
+def test_mla_decode_attention(block, dtype):
+    """Against mla_decode_attention(interpret=True) with NaN in every cache
+    row at or past lengths[b], at lengths k * block and k * block + 1, a
+    single row, the full cache and an empty sequence. Tolerance 2e-5 of the
+    largest output in float32 (online softmax against one softmax), 1e-2
+    in bfloat16."""
+    rng = np.random.default_rng(8)
+    b, h, r, dr, smax = 6, 4, 64, 16, 64
+    lengths = np.asarray([32, 33, 1, 64, 0, 17], np.int32)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    qn, qp, ckv, kpe = f(b, h, r), f(b, h, dr), f(b, smax, r), f(b, smax, dr)
+    for i, n in enumerate(lengths):
+        ckv[i, n:] = np.nan
+        kpe[i, n:] = np.nan
+    scale = (r + dr) ** -0.5
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    ref = jmd.mla_decode_attention(
+        jnp.asarray(qn, jdt), jnp.asarray(qp, jdt), jnp.asarray(ckv, jdt),
+        jnp.asarray(kpe, jdt), jnp.asarray(lengths), scale=scale,
+        block_s=block, interpret=True)
+    t = lambda a: torch.from_numpy(a).to(tdt)  # noqa: E731
+    out = tmd.mla_decode_attention(t(qn), t(qp), t(ckv), t(kpe),
+                                   torch.from_numpy(lengths), scale)
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = out.float().numpy()
+    assert np.isfinite(out).all() and not np.abs(out[4]).max()
+    err = np.abs(out - ref).max() / np.abs(ref).max()
+    assert err <= (2e-5 if dtype == "float32" else 1e-2), err
+
+
+def test_mla_decode_hook_matches_jax():
+    """ops/attention.mla_decode ([B, H, 1, R] shaped) against the JAX
+    package's with its decode hook in interpret mode."""
+    from ktransformers_tpu.ops import attention as jatt
+    from ktransformers_tpu_torch.ops import attention as tatt
+
+    rng = np.random.default_rng(9)
+    b, h, r, dr, smax = 2, 4, 64, 16, 32
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    qn, qp, ckv, kpe = f(b, h, 1, r), f(b, h, 1, dr), f(b, smax, r), f(b, smax, dr)
+    lengths = np.asarray([7, 32], np.int32)
+    old = jatt._PALLAS_MLA_DECODE
+    jatt.set_pallas_mla_decode(
+        lambda a, c, d, e, ln, s: jmd.mla_decode_attention(
+            a, c, d, e, ln, s, interpret=True))
+    try:
+        ref = np.asarray(jatt.mla_decode(
+            jnp.asarray(qn), jnp.asarray(qp), jnp.asarray(ckv),
+            jnp.asarray(kpe), jnp.asarray(lengths), scale=0.125))
+    finally:
+        jatt.set_pallas_mla_decode(old)
+    out = tatt.mla_decode(*(torch.from_numpy(a) for a in (qn, qp, ckv, kpe)),
+                          torch.from_numpy(lengths), scale=0.125).numpy()
+    assert out.shape == ref.shape == (b, h, 1, r)
+    assert np.abs(out - ref).max() <= 2e-5 * np.abs(ref).max()

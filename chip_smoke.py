@@ -4,8 +4,9 @@
 
 Phases (any failure exits non-zero before the final line):
 1. card:    nvidia-smi name and power limit;
-2. build:   nvcc builds every kernel source in ktransformers_tpu_torch/csrc;
-3. kernels: each of the twelve kernels against its plain PyTorch version
+2. build:   nvcc builds every kernel source in ktransformers_tpu_torch/csrc
+            (one nvcc per source, all started together);
+3. kernels: the first twelve kernels against their plain PyTorch versions
             on the card at the DeepSeek-V2-Lite shapes of the main paths
             (single user: M = 1 and 256-token chunks; paged serving: a
             decode batch of 8, mixed steps of 8 + C*S rows, page tables),
@@ -32,7 +33,9 @@ Phases (any failure exits non-zero before the final line):
             page 64, 512 pages) answering 8 requests in three waves, 32
             greedy tokens each, once at decode pipeline depth 1 and once at
             3; mixed steps, a 256-token prefix hit, page accounting and
-            agreement with the single-user Generator are checked;
+            agreement with the single-user Generator are checked (and that
+            the prompts give at least 4 distinct first tokens, without
+            which that agreement would not see the prompt);
 7. profile: a prefill chunk and a decode step of the Generator, a batch-8
             decode step and a mixed step of the ServeEngine: wall time,
             launches per step, device time by kernel (torch.profiler);
@@ -43,7 +46,17 @@ Phases (any failure exits non-zero before the final line):
             prefill chunk held to the counts the code implies; a
             ServeEngine over the same parameters answering the 8 requests
             of phase 6 at pipeline depth 3 with the same checks; the
-            profiles of phase 7 on the int8 parameters.
+            profiles of phase 7 on the int8 parameters;
+9. mixtral: the int8 parameters are freed; the four kernels of the
+            Mixtral-8x7B path (gathered / grouped W4A8 matmul, GQA paged
+            decode / prefill) against their plain versions at its shapes;
+            parity of its full width cut to 2 layers with the served kinds
+            (int8 attention, int4_g W4A8 experts), held as the W4A8 variant
+            of phase 4; then all 32 layers in a Generator answering 2
+            requests of 512 + 32 tokens, launches per step held to the
+            counts the code implies, a ServeEngine answering the 8 requests
+            of phase 6 at depth 3 with the same checks, and the profiles of
+            phase 7 (engine launches per step held too).
 Prints a kernels JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Imports nothing of JAX.
@@ -100,7 +113,15 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def rel_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+def rel_err(out: torch.Tensor, ref: torch.Tensor,
+            per_row: bool = False) -> tuple[float, float]:
+    """(largest absolute error, error relative to ref's largest magnitude);
+    with per_row, the relative error is taken per row of the last dimension
+    (each against its own row's largest magnitude) and the worst row given."""
+    if per_row:
+        d = (out.float() - ref.float()).abs().flatten(0, -2).amax(-1)
+        top = ref.float().abs().flatten(0, -2).amax(-1).clamp_min(1e-30)
+        return d.max().item(), (d / top).max().item()
     d = (out.float() - ref.float()).abs().max().item()
     return d, d / max(ref.float().abs().max().item(), 1e-30)
 
@@ -118,45 +139,27 @@ def bench_model_cfg():
 # ---------------------------------------------------------------- kernels
 
 
-def kernel_checks(rows: list, entries: dict) -> None:
-    """Each kernel through its public wrapper against its plain version on
-    the same inputs. ms times the kernel launch alone on prepared operands
-    (the wrapper's launcher); wrapper_ms times the whole wrapper call
-    (activation prep, tile maps, allocation, host work included)."""
-    from ktransformers_tpu_torch.models.init import _Draw
-    from ktransformers_tpu_torch.ops.cuda import w4a8_ffn as F
-    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
-    from ktransformers_tpu_torch.ops.cuda import mla_decode as MD
-    from ktransformers_tpu_torch.ops.rope import (
-        RopeConfig,
-        precompute_rope_tables,
-        rope_rotation_matrix,
-    )
-    from ktransformers_tpu_torch.quant.formats import dequantize
-    from ktransformers_tpu_torch.quant.w4a8 import repack_offset_lo
-
-    dev = torch.device("cuda")
-    rd = _Draw(1234, dev, torch.bfloat16)
-    bf = torch.bfloat16
-
-    def w(shape, gs=128):
-        return repack_offset_lo(rd.q(shape, "int4_g", gs))
-
-    def rn(*s):
-        return torch.randn(*s, device=dev, generator=rd.gen).to(bf)
+def make_check(rows: list, entries: dict):
+    """check(): one kernel through its public wrapper against its plain
+    version on the same inputs. ms times the kernel launch alone on
+    prepared operands (the wrapper's launcher); wrapper_ms times the whole
+    wrapper call (activation prep, tile maps, allocation, host work
+    included). A row with main=True is the kernel's entry of the kernels
+    line."""
 
     def check(name, label, tol, wrapper, plain, launcher, b_bytes, ops,
               peak, library=None, main=False, plain_iters=5, side_tol=None,
-              expect=None, iters=20):
+              expect=None, iters=20, per_row=False):
         """expect (default plain) gives what the wrapper is held to; plain
-        is what plain_ms times on the card."""
+        is what plain_ms times on the card; per_row holds every row of the
+        output's last dimension to tol of its own largest value."""
         out, ref = wrapper(), (expect or plain)()
         if isinstance(out, tuple):
             for o, rf in zip(out[1:], ref[1:]):
                 if rel_err(o, rf)[1] > (side_tol or tol):
                     raise AssertionError(f"{name} [{label}] side outputs")
             out, ref = out[0], ref[0]
-        mae, rel = rel_err(out, ref)
+        mae, rel = rel_err(out, ref, per_row)
         ok = rel <= tol and bool(torch.isfinite(out.float()).all())
         launch = launcher()[0]
         ms = time_ms(launch, iters=iters)
@@ -186,6 +189,47 @@ def kernel_checks(rows: list, entries: dict) -> None:
             raise AssertionError(f"{name} [{label}] disagrees: {rel}")
         if main:
             entries[name] = row
+
+    return check
+
+
+def draw(seed: int):
+    """(rd, rn, w): a seeded drawer on the card, bf16 normals, and int4_g
+    weights repacked for W4A8."""
+    from ktransformers_tpu_torch.models.init import _Draw
+    from ktransformers_tpu_torch.quant.w4a8 import repack_offset_lo
+
+    rd = _Draw(seed, torch.device("cuda"), torch.bfloat16)
+
+    def rn(*s):
+        return torch.randn(*s, device="cuda", generator=rd.gen).to(
+            torch.bfloat16)
+
+    def w(shape, gs=128):
+        return repack_offset_lo(rd.q(shape, "int4_g", gs))
+
+    return rd, rn, w
+
+
+def kernel_checks(rows: list, entries: dict) -> None:
+    """The first twelve kernels at the DeepSeek-V2-Lite shapes (see
+    make_check)."""
+    import torch.nn.functional as tF
+
+    from ktransformers_tpu_torch.ops.cuda import w4a8_ffn as F
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+    from ktransformers_tpu_torch.ops.cuda import mla_decode as MD
+    from ktransformers_tpu_torch.ops.rope import (
+        RopeConfig,
+        precompute_rope_tables,
+        rope_rotation_matrix,
+    )
+    from ktransformers_tpu_torch.quant.formats import dequantize
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    check = make_check(rows, entries)
+    rd, rn, w = draw(1234)
 
     # activation prep of every W4A8 call (plain XLA in the JAX package)
     from ktransformers_tpu_torch.quant.w4a8 import w4a8_prep
@@ -289,12 +333,20 @@ def kernel_checks(rows: list, entries: dict) -> None:
     lengths = torch.full((b,), length, dtype=torch.int32, device=dev)
     args = (qn, qp, kv, gamma, rot, ckv, kpe, lengths, (128 + 64) ** -0.5,
             1e-6)
+    # library yardstick: one SDPA over q = [qn | qp], k = [ckv | kpe],
+    # v = ckv on the length + 1 rows (norm and rope of the new row left out)
+    lib_q = torch.cat([qn, qp], dim=-1)[:, :, None]
+    lib_k = torch.cat([ckv[:, : length + 1], kpe[:, : length + 1]],
+                      dim=-1)[:, None].expand(-1, h, -1, -1)
+    lib_v = ckv[:, None, : length + 1].expand(-1, h, -1, -1)
     check("mla_decode_fused", f"decode H=16 cached={length}", 1e-2,
           lambda: MD.mla_decode_fused(*args),
           lambda: MD.mla_decode_fused_ref(*args),
           lambda: MD.mla_launcher(*args),
           length * (r + dr) * 2 + nbytes(qn, qp, kv) + b * h * r * 2,
-          2 * h * (length + 1) * (2 * r + dr), BF16_FLOPS_PER_S, main=True)
+          2 * h * (length + 1) * (2 * r + dr), BF16_FLOPS_PER_S, main=True,
+          library=lambda: tF.scaled_dot_product_attention(
+              lib_q, lib_k, lib_v, scale=(128 + 64) ** -0.5))
 
     # ---- the serving path's row counts through the W4A8 kernels: a decode
     # batch of 8, 48 gathered rows, a mixed step of 8 + 2*256 rows
@@ -451,8 +503,12 @@ def decode_attention_checks(check, rn, dev) -> None:
     with 512 and 2048 live rows and at B = 8 with lengths 1..2048; every
     cache row at or past lengths[b] is NaN. Bound: the bytes of the live
     rows, queries and output against the flops of the live (query, key)
-    pairs at the bf16 peak. No library yardstick (it needs a gather or a
-    mask pass first; rows 12 and 14 time that variant)."""
+    pairs at the bf16 peak. Library yardstick: one
+    F.scaled_dot_product_attention over q = [qn | qp], k = [ckv | kpe],
+    v = ckv with a length mask, on a NaN-free copy of the cache (never on
+    the path)."""
+    import torch.nn.functional as tF
+
     from ktransformers_tpu_torch.ops.cuda import mla_decode as MD
 
     h, r, dr, smax = 16, 512, 64, 2048
@@ -468,13 +524,21 @@ def decode_attention_checks(check, rn, dev) -> None:
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         args = (qn, qp, ckv, kpe, lengths, scale)
         live = sum(lens)
+        lib_q = torch.cat([qn, qp], dim=-1)[:, :, None]
+        lib_k = torch.nan_to_num(torch.cat([ckv, kpe], dim=-1))[:, None]
+        lib_mask = (torch.arange(smax, device=dev)[None]
+                    < lengths[:, None])[:, None, None]
         check("mla_decode_attention",
               f"decode B={b} H=16 lengths {lens[0]}..{lens[-1]}", 1e-2,
               lambda: MD.mla_decode_attention(*args),
               lambda: MD.mla_decode_attention_ref(*args),
               lambda: MD.attention_launcher(*args),
               live * (r + dr) * 2 + nbytes(qn, qp) + b * h * r * 2,
-              2 * h * live * (2 * r + dr), BF16_FLOPS_PER_S, main=main)
+              2 * h * live * (2 * r + dr), BF16_FLOPS_PER_S, main=main,
+              library=lambda: tF.scaled_dot_product_attention(
+                  lib_q, lib_k.expand(-1, h, -1, -1),
+                  lib_k[..., :r].expand(-1, h, -1, -1), attn_mask=lib_mask,
+                  scale=scale))
 
 
 def paged_kernel_checks(check, rn, dev) -> None:
@@ -585,6 +649,190 @@ def paged_kernel_checks(check, rn, dev) -> None:
         del ckv, kpe, ckv0, kpe0
 
 
+def mixtral_cfg():
+    from ktransformers_tpu_torch.models.spec import MIXTRAL_8X7B
+
+    return dict(MIXTRAL_8X7B)
+
+
+def mixtral_kernel_checks(rows: list, entries: dict) -> None:
+    """Rows 7, 8, 13 and 15 at the Mixtral-8x7B shapes of the main paths,
+    bf16, against their plain versions on the card (see make_check).
+
+    Rows 7-8 (gathered / grouped W4A8 matmul): experts gate_up [8, 4096,
+    28672] and down [8, 14336, 4096] (int4_g, group 128, repacked). Bound:
+    x, the weight bytes (codes and scales) of the experts the rows use and
+    the output over the memory rate, against 2 R N K over the int8 peak.
+    No library yardstick: no single PyTorch call computes a per-row expert
+    product on int8 dots. Rows 13 and 15 (GQA paged attention, 32 query
+    heads over 8 KV heads of 128, page 64, 32 pages a query): every pool
+    row the kernels must not read is NaN; every output row (sequence, head,
+    position) is held to 1e-2 of its own largest value, so that a short
+    sequence's large outputs set no scale for a long one's (one bf16 step
+    is at most 2^-7 of the row's largest value). Bound: the bytes of the live rows
+    (k and v), queries and output against the flops of the live (query,
+    key) pairs over the bf16 peak. Library yardstick: gather the pages, then
+    F.scaled_dot_product_attention(..., enable_gqa=True) with the mask, on a
+    NaN-free copy of the pools (gather time included; never on the path)."""
+    import torch.nn.functional as tF
+
+    from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+    from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import grouped_tiles
+
+    dev = torch.device("cuda")
+    check = make_check(rows, entries)
+    rd, rn, w = draw(4321)
+    e, d, f = 8, 4096, 14336
+    g_cpu = torch.Generator().manual_seed(7)
+
+    def routing(tokens):
+        """Top-2 of 8 experts per token, drawn as the router would pick
+        them from softmax scores of random logits."""
+        logits = torch.randn(tokens, e, generator=g_cpu)
+        return torch.topk(logits, 2, dim=-1).indices.to(dev)
+
+    def wbytes(wt, ids):
+        used = int(torch.unique(ids).numel())
+        return used * nbytes(wt.data[0], wt.scales[0])
+
+    for k, n, what in ((d, 2 * f, "gate_up"), (f, d, "down")):
+        wt = w((e, k, n))
+        for tokens, label in ((1, "decode 2 rows (1 tok x 2)"),
+                              (8, "serve decode 16 rows (8 tok x 2)")):
+            ids = routing(tokens).reshape(-1).to(torch.int32)
+            x = rn(ids.shape[0], k)
+            check("gathered_w4a8_matmul",
+                  f"{label} {what} [8, {k}, {n}]", 1e-2,
+                  lambda: MM.gathered_w4a8_matmul(x, wt, ids),
+                  lambda: MM.gathered_w4a8_matmul_ref(x, wt, ids),
+                  lambda: MM.gathered_launcher(x, wt, ids),
+                  nbytes(x) + wbytes(wt, ids) + ids.shape[0] * n * 2,
+                  2 * ids.shape[0] * n * k, INT8_OPS_PER_S,
+                  main=(what == "gate_up" and tokens == 1), plain_iters=3)
+        for tokens, label in ((256, "prefill 512 rows (256 tok x 2)"),
+                              (264, "serve mixed 528 rows (264 tok x 2)")):
+            top = routing(tokens)
+            sizes = torch.bincount(top.reshape(-1), minlength=e).to(
+                torch.int32)
+            x = rn(2 * tokens, k)
+            check("grouped_w4a8_matmul",
+                  f"{label} {what} [8, {k}, {n}]", 1e-2,
+                  lambda: MM.grouped_w4a8_matmul(x, wt, sizes),
+                  lambda: MM.grouped_w4a8_matmul_ref(x, wt, sizes),
+                  lambda: MM.grouped_launcher(x, wt, sizes),
+                  nbytes(x) + wbytes(wt, top) + 2 * tokens * n * 2,
+                  2 * 2 * tokens * n * k, INT8_OPS_PER_S,
+                  main=(what == "gate_up" and tokens == 256), plain_iters=2,
+                  iters=10)
+        # the same 512 rows in tiles of 4: twice the tiles, each re-reading
+        # its expert's weight (measurement only; the path uses GROUPED_MR)
+        top = routing(256)
+        sizes = torch.bincount(top.reshape(-1), minlength=e).to(torch.int32)
+        x = rn(512, k)
+        out4 = torch.zeros(512, n, dtype=x.dtype, device=dev)
+        tiles4 = grouped_tiles(sizes, 512, 4)
+        check("grouped_w4a8_matmul",
+              f"prefill 512 rows {what} [8, {k}, {n}], tiles of 4 rows "
+              "(not the path)", 1e-2,
+              lambda: MM.rows_launcher(x, wt, tiles4, 4, out4, "mr4")()
+              or out4,
+              lambda: MM.grouped_w4a8_matmul_ref(x, wt, sizes),
+              lambda: (MM.rows_launcher(x, wt, tiles4, 4, out4, "mr4"), None),
+              nbytes(x) + wbytes(wt, top) + 512 * n * 2,
+              2 * 512 * n * k, INT8_OPS_PER_S, plain_iters=1, iters=10)
+        del wt
+
+    h, hkv, hd, page, pmax = 32, 8, 128, 64, 32
+    scale = hd ** -0.5
+    bf = torch.bfloat16
+
+    def pool(live):
+        b = len(live)
+        n = b * pmax + 1
+        perm = torch.randperm(n - 1, generator=torch.Generator().manual_seed(
+            b)) + 1
+        tables = perm[: b * pmax].reshape(b, pmax).to(torch.int32).to(dev)
+        k = torch.full((n, page, hkv, hd), float("nan"), dtype=bf, device=dev)
+        v = torch.full_like(k, float("nan"))
+        for i, ln in enumerate(live):
+            pos = torch.arange(ln, device=dev)
+            rows_ = tables[i].long()[pos // page] * page + pos % page
+            k.view(-1, hkv, hd)[rows_] = rn(ln, hkv, hd)
+            v.view(-1, hkv, hd)[rows_] = rn(ln, hkv, hd)
+        return k, v, tables
+
+    def sdpa(q, k0, v0, tables, mask):
+        kg = PA.gather_pages(k0, tables).transpose(1, 2)
+        vg = PA.gather_pages(v0, tables).transpose(1, 2)
+        return tF.scaled_dot_product_attention(q, kg, vg, attn_mask=mask,
+                                               scale=scale, enable_gqa=True)
+
+    # decode: B = 8, lengths on and around page boundaries, window 0 / 512
+    lens = [1, 64, 65, 512, 513, 1000, 2047, 2048]
+    k, v, tables = pool(lens)
+    k0, v0 = torch.nan_to_num(k), torch.nan_to_num(v)
+    q = rn(8, h, hd)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kpos = torch.arange(page * pmax, device=dev)[None]
+    for window in (0, 512):
+        args = (q, k, v, tables, lengths, scale)
+        ok = kpos < lengths[:, None]
+        if window:
+            ok = ok & (kpos >= lengths[:, None] - window)
+        seen = sum(min(n, window) if window else n for n in lens)
+        check("gqa_paged_decode",
+              f"serve decode B=8 H=32 Hkv=8 page=64 lengths 1..2048 "
+              f"window={window}", 1e-2,
+              lambda: PA.gqa_paged_decode(*args, window=window),
+              lambda: PA.gqa_paged_decode_ref(*args, window=window),
+              lambda: PA.gqa_decode_launcher(*args, window=window),
+              seen * hkv * hd * 2 * 2 + nbytes(q) * 2,
+              2 * 2 * h * seen * hd, BF16_FLOPS_PER_S,
+              library=lambda: sdpa(q[:, :, None], k0, v0, tables,
+                                   ok[:, None, None]),
+              main=window == 0, per_row=True)
+    del k, v, k0, v0
+
+    # prefill: a mixed step's chunk after 256 tokens, and two chunks (one
+    # fresh and full, one continued and padded)
+    for olds, s, valids, main in (([256], 256, [256], True),
+                                  ([0, 256], 256, [256, 200], False)):
+        c = len(olds)
+        k, v, tables = pool([o + vl for o, vl in zip(olds, valids)])
+        k0, v0 = torch.nan_to_num(k), torch.nan_to_num(v)
+        q = rn(c, h, s, hd)
+        lengths = torch.tensor(olds, dtype=torch.int32, device=dev)
+        valid = torch.tensor(valids, dtype=torch.int32, device=dev)
+        args = (q, k, v, tables, lengths, valid, scale)
+        kp = torch.arange(page * pmax, device=dev)[None, None]
+        qpos = lengths[:, None] + torch.arange(s, device=dev)[None]
+        mask = ((kp <= qpos[:, :, None])
+                & (kp < (lengths + valid)[:, None, None]))[:, None]
+        live_rows = torch.arange(s, device=dev)[None] < valid[:, None]
+        pairs = sum(vl * o + vl * (vl + 1) // 2
+                    for o, vl in zip(olds, valids))
+
+        def cut(t):  # rows >= valid are padding: finite, not compared
+            return torch.where(live_rows[:, None, :, None], t.float(),
+                               torch.zeros((), device=dev))
+
+        check("gqa_paged_prefill",
+              f"serve prefill C={c} S={s} H=32 Hkv=8 old={olds} "
+              f"valid={valids}", 1e-2,
+              lambda: cut(PA.gqa_paged_prefill(*args)),
+              lambda: cut(PA.gqa_paged_prefill_ref(*args)),
+              lambda: PA.gqa_prefill_launcher(*args),
+              sum(o + vl for o, vl in zip(olds, valids)) * hkv * hd * 2 * 2
+              + nbytes(q) * 2, 2 * 2 * h * pairs * hd, BF16_FLOPS_PER_S,
+              library=lambda: sdpa(q, k0, v0, tables, mask), main=main,
+              plain_iters=3, per_row=True)
+        out = PA.gqa_paged_prefill(*args)
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError("gqa_paged_prefill: padding rows not finite")
+        del k, v, k0, v0
+
+
 # ----------------------------------------------------------------- parity
 
 PARITY_TOL = 1e-4  # float32 weights: row error as a share of the largest logit
@@ -644,6 +892,22 @@ def format_variant(kind: str):
     return kind, spec, params, FORMAT_TOL
 
 
+def mixtral_variant():
+    """Mixtral-8x7B at full width cut to 2 layers with the served weight
+    kinds (int8 attention and lm_head, int4_g experts repacked for W4A8),
+    held as ``w4a8`` is (tolerance None): the experts run through the
+    gathered / grouped W4A8 matmuls, attention through the GQA paged
+    kernels."""
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.utils.device_prep import prepare_params
+
+    spec = spec_from_hf_config(dict(mixtral_cfg(), num_hidden_layers=2))
+    return "mixtral_w4a8", spec, prepare_params(init_params_synthetic(
+        spec, seed=5, quant="int8", moe_quant="int4_g", device="cpu"),
+        spec), None
+
+
 def hold_rows(out: torch.Tensor, ref: torch.Tensor, what: str, tol) -> dict:
     """The one rule of the parity phases, for logits rows out [N, V]
     against ref [N, V] (float32, CPU): all finite; with a tolerance (the
@@ -679,14 +943,13 @@ def parity_check(result: dict, variants: list) -> None:
     from ktransformers_tpu_torch.ops import attention
     from ktransformers_tpu_torch.utils.device_prep import params_to
 
-    vocab = bench_model_cfg()["vocab_size"]
-    feed = [11, 2222, 33333, 44444]  # fixed tokens, the same on both sides
-
     def run(params, spec, device):
+        # fixed tokens, the same on both sides
+        feed = [t % spec.vocab_size for t in (11, 2222, 33333, 44444)]
         params = params_to(params, device)
         cache = KVCache.create(spec, 1, 128, torch.float32, device)
         toks = torch.as_tensor(np.random.default_rng(3).integers(
-            0, vocab, (1, 64)), device=device)
+            0, spec.vocab_size, (1, 64)), device=device)
         logits, cache = forward(params, spec, toks, cache,
                                 compute_dtype=torch.float32,
                                 logits_last_only=True)
@@ -746,18 +1009,21 @@ def paged_parity_check(result: dict, variants: list) -> None:
     )
     from ktransformers_tpu_torch.utils.device_prep import params_to
 
-    vocab = bench_model_cfg()["vocab_size"]
-    rng = np.random.default_rng(4)
     page, pmax, n_pages = 64, 4, 24
-    toks = rng.integers(0, vocab, (2, 96))
-    tables = (rng.permutation(n_pages - 1)[:16] + 1).reshape(4, pmax)
-    feed = rng.integers(0, vocab, (4, 2))
     f32 = dict(compute_dtype=torch.float32)
+
+    def inputs(vocab):
+        """Prompt tokens, shuffled page tables and decode feed, seeded."""
+        rng = np.random.default_rng(4)
+        toks = rng.integers(0, vocab, (2, 96))
+        tables = (rng.permutation(n_pages - 1)[:16] + 1).reshape(4, pmax)
+        return toks, tables, rng.integers(0, vocab, (4, 2))
 
     def ti(a, device, dtype=torch.int32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
     def run(cpu_params, spec, device):
+        toks, tables, feed = inputs(spec.vocab_size)
         params = params_to(cpu_params, device)
         kv = PagedKVCache.create(spec, n_pages, page, dtype=torch.float32,
                                  device=device)
@@ -792,6 +1058,7 @@ def paged_parity_check(result: dict, variants: list) -> None:
 
         # mixed against separate, on the card: 2 decode rows continue the
         # sequences above, 2 chunks (one padded) start on fresh pages
+        toks, tables, feed = inputs(spec.vocab_size)
         dev = "cuda"
         dec_tok = ti(feed[0], dev, torch.int64)
         pre_tok = ti(toks[:, :64], dev, torch.int64)
@@ -838,10 +1105,12 @@ INT8_SINGLE_USER_KERNELS = ("quant_matmul", "gathered_quant_matmul",
 
 def serve(result: dict, quant: str = "int4_g", key: str = "serve",
           requests: int = 3, expect=SINGLE_USER_KERNELS,
-          unfused_last: bool = False):
-    """A Generator over the full config with ``quant`` weights answering
-    ``requests`` requests of 512 + 32 tokens; with unfused_last the last
-    one decodes with the fused decode kernel switched off."""
+          unfused_last: bool = False, cfg=None, moe_quant=None):
+    """A Generator over the full config (DeepSeek-V2-Lite unless ``cfg``
+    names another) with ``quant`` weights (``moe_quant`` for the routed
+    experts, default the same) answering ``requests`` requests of 512 + 32
+    tokens; with unfused_last the last one decodes with the fused decode
+    kernel switched off."""
     from ktransformers_tpu_torch.engine.generate import (
         GenerateConfig,
         Generator,
@@ -851,18 +1120,20 @@ def serve(result: dict, quant: str = "int4_g", key: str = "serve",
     from ktransformers_tpu_torch.ops import attention
     from ktransformers_tpu_torch.ops.cuda import LAUNCHES, reset_launches
 
-    cfg = bench_model_cfg()
+    cfg = cfg or bench_model_cfg()
     spec = spec_from_hf_config(cfg)
     t0 = time.perf_counter()
     params = init_params_synthetic(spec, seed=0, quant=quant,
-                                   moe_quant=quant, device="cuda")
+                                   moe_quant=moe_quant or quant,
+                                   device="cuda")
     gen = Generator(params, spec, max_len=1024, batch=1, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     pbytes = 0
     for obj in _leaves(gen.params):
         pbytes += obj.numel() * obj.element_size()
-    log(f"{key}: {quant} params {pbytes / 1e9:.3f} GB ready in {init_s:.1f} s")
+    log(f"{key}: {cfg['model_type']} {quant} / {moe_quant or quant} params "
+        f"{pbytes / 1e9:.3f} GB ready in {init_s:.1f} s")
 
     # warm-up request (allocator, cuBLAS handles); not counted
     gen.generate(list(range(8)), GenerateConfig(max_new_tokens=2))
@@ -901,9 +1172,10 @@ def serve(result: dict, quant: str = "int4_g", key: str = "serve",
             f"{'' if fused else ' (fused decode off)'}")
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    result[key] = dict(quant=quant, requests=reqs, launches=launches,
-                       max_memory_allocated=peak, params_bytes=pbytes,
-                       init_s=init_s)
+    result[key] = dict(model=cfg["model_type"], quant=quant,
+                       moe_quant=moe_quant or quant, requests=reqs,
+                       launches=launches, max_memory_allocated=peak,
+                       params_bytes=pbytes, init_s=init_s)
     log(f"{key}: max_memory_allocated {peak / 1e9:.3f} GB, launches "
         f"{json.dumps(launches)}")
     missing = [k for k in expect if launches[k] <= 0]
@@ -913,13 +1185,10 @@ def serve(result: dict, quant: str = "int4_g", key: str = "serve",
     return gen
 
 
-def int8_step_launches(result: dict, gen) -> None:
-    """Launches of one decode step (fused decode on, then off) and of one
-    256-token prefill chunk on the int8 parameters, held to what the code
-    implies: quant_matmul 109 (qkv_a and o_proj in 27 layers, lm_head, and
-    gate_up + down of the 27 dense / shared MLPs), the expert kernel 2 x 26
-    (gathered at decode, grouped at prefill), the attention kernel 27 at
-    decode (prefill attention is plain PyTorch) and no W4A8 kernel."""
+def step_launches(result: dict, gen, key: str, want: dict) -> None:
+    """Launches of one 256-token prefill chunk and one decode step (with
+    an MLA model also one with the fused decode off), held to ``want``,
+    the counts the code implies."""
     from ktransformers_tpu_torch.ops import attention
     from ktransformers_tpu_torch.ops.cuda import LAUNCHES, reset_launches
 
@@ -941,24 +1210,56 @@ def int8_step_launches(result: dict, gen) -> None:
     got = {"prefill_chunk": counts(chunk)}
     tok = state["last"].argmax(-1)
     got["decode_step"] = counts(lambda: gen.decode_step(tok, cache))
-    attention.MLA_FUSED = False
-    try:
-        got["decode_step_unfused"] = counts(
-            lambda: gen.decode_step(tok, cache))
-    finally:
-        attention.MLA_FUSED = True
-    want = {
+    if "decode_step_unfused" in want:
+        attention.MLA_FUSED = False
+        try:
+            got["decode_step_unfused"] = counts(
+                lambda: gen.decode_step(tok, cache))
+        finally:
+            attention.MLA_FUSED = True
+    log(f"{key}: {json.dumps(got)}")
+    result[key] = got
+    if got != want:
+        raise AssertionError(f"{key}: {got}, want {want}")
+
+
+def int8_step_launches(result: dict, gen) -> None:
+    """On the int8 parameters: quant_matmul 109 (qkv_a and o_proj in 27
+    layers, lm_head, and gate_up + down of the 27 dense / shared MLPs), the
+    expert kernel 2 x 26 (gathered at decode, grouped at prefill), the
+    attention kernel 27 at decode (prefill attention is plain PyTorch) and
+    no W4A8 kernel."""
+    step_launches(result, gen, "int8_step_launches", {
         "prefill_chunk": {"quant_matmul": 109, "grouped_quant_matmul": 52},
         "decode_step": {"quant_matmul": 109, "gathered_quant_matmul": 52,
                         "mla_decode_fused": 27},
         "decode_step_unfused": {"quant_matmul": 109,
                                 "gathered_quant_matmul": 52,
                                 "mla_decode_attention": 27},
-    }
-    log(f"int8 launches per step: {json.dumps(got)}")
-    result["int8_step_launches"] = got
-    if got != want:
-        raise AssertionError(f"int8 launches per step {got}, want {want}")
+    })
+
+
+# Mixtral-8x7B, 32 layers: quant_matmul 65 (the fused qkv and o_proj of 32
+# layers, lm_head), the expert matmul 2 x 32 with one activation prep each
+# (gathered at decode, grouped at prefill; Mixtral's experts are too wide
+# for the fused FFN), GQA attention plain PyTorch on the contiguous cache
+MIXTRAL_STEP_LAUNCHES = {
+    "prefill_chunk": {"quant_matmul": 65, "grouped_w4a8_matmul": 64,
+                      "w4a8_prep": 64},
+    "decode_step": {"quant_matmul": 65, "gathered_w4a8_matmul": 64,
+                    "w4a8_prep": 64},
+}
+# ... and on the paged path the GQA kernel once a layer: a decode batch of
+# 8 (16 gathered rows), and a mixed step (8 decode rows + one 256-token
+# chunk: 528 grouped rows)
+MIXTRAL_ENGINE_STEP_LAUNCHES = {
+    "serve_decode_step_b8": {"quant_matmul": 65, "gathered_w4a8_matmul": 64,
+                             "w4a8_prep": 64, "gqa_paged_decode": 32},
+    "serve_mixed_step_b8_s256": {"quant_matmul": 65,
+                                 "grouped_w4a8_matmul": 64, "w4a8_prep": 64,
+                                 "gqa_paged_decode": 32,
+                                 "gqa_paged_prefill": 32},
+}
 
 
 # ------------------------------------------------------------ paged serve
@@ -971,6 +1272,10 @@ PAGED_KERNELS = ("w4a8_prep", "dense_w4a8_matmul", "gathered_w4a8_ffn",
 INT8_PAGED_KERNELS = ("quant_matmul", "gathered_quant_matmul",
                       "grouped_quant_matmul", "mla_paged_decode",
                       "mla_paged_prefill")
+MIXTRAL_SINGLE_USER_KERNELS = ("w4a8_prep", "quant_matmul",
+                               "gathered_w4a8_matmul", "grouped_w4a8_matmul")
+MIXTRAL_PAGED_KERNELS = MIXTRAL_SINGLE_USER_KERNELS + ("gqa_paged_decode",
+                                                       "gqa_paged_prefill")
 
 
 def paged_prompts(vocab: int) -> list:
@@ -1091,9 +1396,10 @@ def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(1, 3),
     runs = {depth: paged_serve_run(gen, prompts, depth, expect)
             for depth in depths}
     # the single-user Generator on the same prompts
-    full, verdicts = 0, []
+    full, verdicts, firsts = 0, [], set()
     for i, prompt in enumerate(prompts):
         ref, gaps = single_user_reference(gen, prompt, PAGED_NEW_TOKENS)
+        firsts.add(ref[0])
         for depth, run in runs.items():
             got = run["tokens"][i]
             diff = next((j for j in range(len(ref)) if got[j] != ref[j]), None)
@@ -1107,13 +1413,24 @@ def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(1, 3),
         full += all(run["tokens"][i] == ref for run in runs.values())
     first = runs[depths[0]]["tokens"]
     same = all(run["tokens"] == first for run in runs.values())
+    distinct = len({t for run in runs.values() for toks in run["tokens"]
+                    for t in toks})
     log(f"{key}: {full}/8 requests equal the single-user Generator "
         f"token for token at depth {list(depths)}; the rest first differ at "
         f"a bf16 near-tie (top-2 gap < 5e-2); tokens equal across depths: "
-        f"{same}")
+        f"{same}; {len(firsts)} distinct first tokens, {distinct} distinct "
+        "tokens served")
     result[key] = dict(runs=runs, agreement=verdicts,
                        requests_equal_single_user=full,
-                       depth1_equals_depth3=same)
+                       depth1_equals_depth3=same,
+                       distinct_first_tokens=len(firsts),
+                       distinct_tokens=distinct)
+    # weights whose outputs ignore the prompt would make the agreement
+    # above hold whatever pages, slots or lengths the engine used
+    if len(firsts) < 4:
+        raise AssertionError(f"{key}: the 8 prompts give {len(firsts)} "
+                             "distinct first tokens; the agreement check "
+                             "cannot see the prompt")
 
 
 # ---------------------------------------------------------------- profile
@@ -1126,7 +1443,10 @@ def _is_port_kernel(name: str) -> bool:
                                    "mla_paged_decode_kernel",
                                    "mla_paged_prefill_kernel",
                                    "quant_rows_kernel",
-                                   "mla_decode_attention_kernel"))
+                                   "mla_decode_attention_kernel",
+                                   "gqa_paged_decode_kernel",
+                                   "gqa_decode_combine_kernel",
+                                   "gqa_paged_prefill_kernel"))
 
 
 def wall_ms(fn) -> float:
@@ -1345,6 +1665,33 @@ def main() -> int:
     profile_steps(result, gen, prefix="int8_")
     profile_engine_steps(result, gen, prefix="int8_")
     del gen
+    torch.cuda.empty_cache()
+
+    # Mixtral-8x7B: GQA attention, experts too wide for the fused FFN
+    mixtral_kernel_checks(rows, entries)
+    torch.cuda.empty_cache()
+    variant = [mixtral_variant()]
+    parity_check(result, variant)
+    paged_parity_check(result, variant)
+    del variant
+    torch.cuda.empty_cache()
+    gen = serve(result, quant="int8", moe_quant="int4_g", key="serve_mixtral",
+                requests=2, expect=MIXTRAL_SINGLE_USER_KERNELS,
+                cfg=mixtral_cfg())
+    step_launches(result, gen, "mixtral_step_launches", MIXTRAL_STEP_LAUNCHES)
+    paged_serve(result, gen, key="paged_serve_mixtral", depths=(3,),
+                expect=MIXTRAL_PAGED_KERNELS)
+    profile_steps(result, gen, prefix="mixtral_")
+    profile_engine_steps(result, gen, prefix="mixtral_")
+    got = {name: {k: v for k, v in
+                  result["profile"]["mixtral_" + name]["launches"].items()
+                  if v}
+           for name in MIXTRAL_ENGINE_STEP_LAUNCHES}
+    log(f"mixtral engine launches per step: {json.dumps(got)}")
+    if got != MIXTRAL_ENGINE_STEP_LAUNCHES:
+        raise AssertionError(f"mixtral engine launches per step {got}, "
+                             f"want {MIXTRAL_ENGINE_STEP_LAUNCHES}")
+    del gen
 
     sources = {
         # plain XLA in the JAX package, no Pallas kernel
@@ -1378,28 +1725,44 @@ def main() -> int:
         "mla_decode_attention": (
             "ktransformers_tpu_torch/csrc/mla_decode.cu",
             "ktransformers_tpu/ops/pallas/mla_decode.py:296"),
+        "gathered_w4a8_matmul": (
+            "ktransformers_tpu_torch/csrc/w4a8_matmul.cu",
+            "ktransformers_tpu/ops/pallas/w4a8_matmul.py:133"),
+        "grouped_w4a8_matmul": (
+            "ktransformers_tpu_torch/csrc/w4a8_matmul.cu",
+            "ktransformers_tpu/ops/pallas/w4a8_matmul.py:630"),
+        "gqa_paged_decode": (
+            "ktransformers_tpu_torch/csrc/gqa_paged_attention.cu",
+            "ktransformers_tpu/ops/pallas/paged_attention.py:288"),
+        "gqa_paged_prefill": (
+            "ktransformers_tpu_torch/csrc/gqa_paged_attention.cu",
+            "ktransformers_tpu/ops/pallas/paged_attention.py:632"),
     }
     # launches: each main path was driven with the counts set to 0 just
     # before and read just after (single-user serve and paged serve at the
-    # default pipeline depth, on the int4_g and then on the int8
-    # parameters); a kernel's count is the sum over the four paths
-    single = result["serve"]["launches"]
-    paged = result["paged_serve"]["runs"][3]["launches"]
-    single8 = result["serve_int8"]["launches"]
-    paged8 = result["paged_serve_int8"]["runs"][3]["launches"]
+    # default pipeline depth: DeepSeek-V2-Lite on the int4_g and on the int8
+    # parameters, then Mixtral-8x7B); a kernel's count is the sum over the
+    # six paths
+    paths = {
+        "single_user": result["serve"]["launches"],
+        "paged_serve": result["paged_serve"]["runs"][3]["launches"],
+        "single_user_int8": result["serve_int8"]["launches"],
+        "paged_serve_int8": result["paged_serve_int8"]["runs"][3]["launches"],
+        "single_user_mixtral": result["serve_mixtral"]["launches"],
+        "paged_serve_mixtral":
+            result["paged_serve_mixtral"]["runs"][3]["launches"],
+    }
     kernels = []
     for name in KERNELS:
         row = entries[name]
-        total = single[name] + paged[name] + single8[name] + paged8[name]
+        total = sum(p[name] for p in paths.values())
         if total <= 0:
             raise AssertionError(f"{name} launched on no main path")
         kernels.append(dict(
             name=name, route="cuda", source=sources[name][0],
             replaces=sources[name][1],
             launches=total,
-            launches_single_user=single[name], launches_paged_serve=paged[name],
-            launches_single_user_int8=single8[name],
-            launches_paged_serve_int8=paged8[name],
+            **{f"launches_{k}": p[name] for k, p in paths.items()},
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

@@ -1,5 +1,5 @@
 """Paged KV cache on the device and the host-side page allocator
-(counterpart of ktransformers_tpu/cache/paged.py, MLA pools only).
+(counterpart of ktransformers_tpu/cache/paged.py; MLA and GQA pools).
 
 Pages are shared across layers by index: page p of layer l is bufs[l][p],
 so one page id serves the whole model. Unlike the JAX package the pools are
@@ -18,8 +18,9 @@ from ktransformers_tpu_torch.models.spec import ModelSpec
 
 @dataclasses.dataclass
 class PagedKVCache:
-    """bufs_a[l]: ckv pages [P, page, R]; bufs_b[l]: k_pe pages
-    [P, page, Dr]."""
+    """MLA: bufs_a[l] ckv pages [P, page, R], bufs_b[l] k_pe pages
+    [P, page, Dr]. GQA: bufs_a[l] k pages, bufs_b[l] v pages, both
+    [P, page, Hkv, D] (k roped)."""
 
     bufs_a: list
     bufs_b: list
@@ -34,16 +35,15 @@ class PagedKVCache:
                dtype=torch.bfloat16, summaries: bool = False,
                device="cuda") -> "PagedKVCache":
         a = spec.attention
-        if a.kind != "mla":
-            raise NotImplementedError(
-                "PagedKVCache: only MLA pools are ported (GQA pools come "
-                "with the GQA families, ROADMAP Queue 1 item 6)")
         if summaries:
             raise NotImplementedError(
                 "PagedKVCache: per-page key summaries for sparse decode are "
                 "not ported (ROADMAP Queue 1 item 9)")
-        sa = (num_pages, page_size, a.kv_lora_rank)
-        sb = (num_pages, page_size, a.qk_rope_head_dim)
+        if a.kind == "mla":
+            sa = (num_pages, page_size, a.kv_lora_rank)
+            sb = (num_pages, page_size, a.qk_rope_head_dim)
+        else:
+            sa = sb = (num_pages, page_size, a.num_kv_heads, a.head_dim)
         n = spec.num_layers
         return PagedKVCache(
             bufs_a=[torch.zeros(sa, dtype=dtype, device=device)
@@ -54,6 +54,7 @@ class PagedKVCache:
         )
 
     def bytes_per_page(self) -> int:
+        """Bytes one page id holds over all layers (both pools)."""
         a, b = self.bufs_a[0], self.bufs_b[0]
         per_layer = (a[0].numel() * a.element_size()
                      + b[0].numel() * b.element_size())

@@ -7,15 +7,16 @@ holding numpy arrays) and returns the port's tree. It reads objects by
 their fields only and imports nothing from the JAX package. Handled:
 - group scales padded along the group axis (pad_scale_sublanes, ngp > ng)
   are sliced back to the true group count;
-- lane-padding columns of a fused qkv_a projection are dropped;
+- lane-padding columns of a fused qkv_a (MLA) or qkv (GQA) projection are
+  dropped;
 - int4 data already in the offset-lo encoding (act_quant, int8) and data
   not yet repacked (uint8) are both kept as they are, with the flag;
 - every format of quant/formats.py: per-channel scales [..., 1, N], zero
   points, float8_e4m3fn data and uint8 ue8m0 exponents.
 
-``paged_cache_from_jax(kv, device)`` carries a JAX PagedKVCache (MLA pools,
-numpy leaves) across, so a run can prefill on one side and continue on the
-other. Scheduler, allocator and prefix cache hold only Python state and
+``paged_cache_from_jax(kv, device)`` carries a JAX PagedKVCache (MLA or GQA
+pools, numpy leaves) across, so a run can prefill on one side and continue
+on the other. Scheduler, allocator and prefix cache hold only Python state and
 need no conversion.
 """
 
@@ -78,20 +79,25 @@ def qtensor_from_jax(q, device, out_cols: int | None = None) -> QTensor:
 def params_from_jax(tree, spec: ModelSpec, device="cuda"):
     """The JAX params tree (numpy leaves) as the port's params on device."""
     a = spec.attention
-    qkv_cols = (a.num_heads * (a.qk_nope_head_dim + a.qk_rope_head_dim)
-                + a.kv_lora_rank + a.qk_rope_head_dim)
+    if a.kind == "mla":
+        fkey = "qkv_a"
+        qkv_cols = (a.num_heads * (a.qk_nope_head_dim + a.qk_rope_head_dim)
+                    + a.kv_lora_rank + a.qk_rope_head_dim)
+    else:
+        fkey = "qkv"
+        qkv_cols = (a.num_heads + 2 * a.num_kv_heads) * a.head_dim
 
     def conv(node, key=None):
         if _is_qtensor(node):
             return qtensor_from_jax(
-                node, device, qkv_cols if key == "qkv_a" else None
+                node, device, qkv_cols if key == fkey else None
             )
         if hasattr(node, "gate_up") and hasattr(node, "down"):
             return MoEWeights(conv(node.gate_up), conv(node.down))
         if isinstance(node, dict):
             out = {k: conv(v, k) for k, v in node.items()}
-            if "qkv_a_bias" in out:
-                out["qkv_a_bias"] = out["qkv_a_bias"][:qkv_cols]
+            if fkey + "_bias" in out:
+                out[fkey + "_bias"] = out[fkey + "_bias"][:qkv_cols]
             return out
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]

@@ -1,0 +1,522 @@
+// GQA attention straight off a paged KV pool.
+//
+// Replaces ktransformers_tpu/ops/pallas/paged_attention.py:gqa_paged_decode
+// (body _gqa_kernel) and :gqa_paged_prefill (body _gqa_prefill_kernel).
+// Pools are k and v [P, page, Hkv, D] (k roped); a sequence's token at
+// position pos lives in row pos % page of page tables[b, pos / page]. Query
+// head h reads KV head h / G, G = H / Hkv, so one block serves the G query
+// heads of one KV head and every K / V row it stages is read once for all
+// of them. Rows at or past the live length are never read: pages are
+// recycled without clearing and may hold anything. A query with no live key
+// gives zeros. With window > 0 a query at position qpos sees only keys
+// kpos > qpos - window. Sums, softmax and the context are float32 on either
+// pool type (float32 or bfloat16).
+//
+// gqa_paged_decode: one query token per sequence, `lengths` INCLUDES the
+// current token (its KV is already in the pages), so qpos = lengths - 1.
+// Bound: the bytes of the live rows, lengths[b] * Hkv * D * 2 elements. The
+// key range of a sequence is split into SPLIT_KEYS-long pieces, one block of
+// D threads per (sequence, KV head, piece), so a long sequence no longer
+// sets the time alone (B * Hkv = 64 blocks at the serving shape, for 132
+// SMs; 8 pieces of a 2,048-token pool make 512). A block walks its piece in
+// tiles of DEC_TK: all threads stage the K and V rows of a tile (through the
+// page table, 16-byte loads) as float32 in shared memory, score the G x
+// DEC_TK pairs, one warp per head runs the online softmax over the tile (a
+// lane per key), and thread t adds P V into column t of every head. With
+// one piece the block writes the output; with more, each writes its
+// (max, sum, context) and gqa_decode_combine_kernel merges them.
+//
+// gqa_paged_prefill: S new tokens per chunk, already written to the pages;
+// `lengths` is the OLD cached length (chunk excluded), `valid` the live new
+// tokens. Query row s sees keys kpos <= lengths + s and kpos < lengths +
+// valid; rows s >= valid are padding, see every live key and stay finite.
+// The G * S query rows of one KV head are flattened position-major (row =
+// s * G + g), so a block's TQ rows are TQ / G positions of all G heads and
+// every staged K / V tile serves all of them. Bound at the serving shapes:
+// the f32 FMAs of the two products. Per key tile of TK:
+//   A: scores = Q K^T   (4 x 2 outputs a thread, float4 over the depth),
+//   B: online softmax   (warp w owns rows 8w..8w+7, one key per lane),
+//   C: acc += P V       (8 rows x 4 columns a thread, in registers).
+// Tensor cores (wgmma on bf16 pages) are later work. Shapes: D = 128.
+#include "online_softmax.cuh"
+
+namespace {
+
+using kt_mla::from_f;
+using kt_mla::load8;
+using kt_mla::NEG_INF;
+using kt_mla::to_f;
+using kt_mla::warp_max;
+using kt_mla::warp_sum;
+
+constexpr int D = 128;   // head dim
+constexpr int DC = D / 8;  // 8-element chunks of a row
+
+// Row `pos` of KV head kh of a sequence whose page table is tb.
+__device__ __forceinline__ size_t kv_offset(const int* __restrict__ tb,
+                                            int pos, int page, int Hkv,
+                                            int kh) {
+  const size_t row = (size_t)__ldg(tb + pos / page) * page + pos % page;
+  return (row * Hkv + kh) * D;
+}
+
+template <typename T>
+__device__ __forceinline__ void load8_or_zero(const T* p, bool live,
+                                              float o[8]) {
+  if (live) {
+    load8(p, o);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = 0.f;
+  }
+}
+
+// ---- decode ----
+
+constexpr int DEC_THREADS = D;  // thread t owns output column t
+constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int DEC_TK = 32;      // keys per staged tile (a lane each in B)
+constexpr int GMAX = 2 * DEC_WARPS;  // query heads per KV head
+constexpr int KLD = D + 1;      // k tile row stride: lanes hit distinct banks
+constexpr int SPLIT_KEYS = 256; // keys of one piece (8 tiles)
+
+// part: per (sequence, KV head, piece) G maxima, G sums and G x D context
+// sums (unnormalized), float32; read only when there is more than one piece.
+template <typename T>
+__global__ void __launch_bounds__(DEC_THREADS)
+    gqa_paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                            const T* __restrict__ vp,
+                            const int* __restrict__ tables,
+                            const int* __restrict__ lengths, int H, int Hkv,
+                            int page, int pmax, int window, float scale,
+                            T* __restrict__ out, float* __restrict__ part) {
+  __shared__ float q_s[GMAX][D];
+  __shared__ float k_s[DEC_TK][KLD];
+  __shared__ float v_s[DEC_TK][D];
+  __shared__ float p_s[GMAX][DEC_TK];
+  __shared__ float corr_s[GMAX];
+  __shared__ float l_s[GMAX];
+
+  const int b = blockIdx.x, kh = blockIdx.y, piece = blockIdx.z;
+  const int G = H / Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int len = max(0, min(lengths[b], page * pmax));
+  // this block's keys: the live (and in-window) ones of its piece
+  const int kbeg = max(window > 0 ? max(0, len - window) : 0,
+                       piece * SPLIT_KEYS);
+  const int kend = min(len, (piece + 1) * SPLIT_KEYS);
+  const int* tb = tables + (size_t)b * pmax;
+  const size_t qoff = ((size_t)b * H + (size_t)kh * G) * D;
+
+  for (int i = tid; i < G * D; i += DEC_THREADS)
+    q_s[i / D][i % D] = to_f(q[qoff + i]);
+
+  // warp w runs the softmax state of heads w and w + DEC_WARPS
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[GMAX];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) acc[g] = 0.f;
+
+  for (int k0 = kbeg; k0 < kend; k0 += DEC_TK) {
+    const int kn = min(DEC_TK, kend - k0);
+    __syncthreads();  // q_s is staged / the previous tile is consumed
+    for (int c = tid; c < DEC_TK * DC; c += DEC_THREADS) {
+      const int r = c / DC, col = (c % DC) * 8;
+      const size_t off =
+          r < kn ? kv_offset(tb, k0 + r, page, Hkv, kh) + col : 0;
+      float kv[8], vv[8];
+      load8_or_zero(kp + off, r < kn, kv);
+      load8_or_zero(vp + off, r < kn, vv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        k_s[r][col + j] = kv[j];
+        v_s[r][col + j] = vv[j];
+      }
+    }
+    __syncthreads();
+
+    // scores of the G x DEC_TK (head, key) pairs
+    for (int i = tid; i < G * DEC_TK; i += DEC_THREADS) {
+      const int g = i / DEC_TK, k = i % DEC_TK;
+      float s = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) s = fmaf(q_s[g][d], k_s[k][d], s);
+      p_s[g][k] = s * scale;
+    }
+    __syncthreads();
+
+    // online softmax over the tile: lane = key
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int g = warp + j * DEC_WARPS;
+      if (g < G) {
+        const bool ok = lane < kn;
+        const float sc = ok ? p_s[g][lane] : NEG_INF;
+        const float m_new = fmaxf(m[j], warp_max(sc));
+        const float p = ok ? expf(sc - m_new) : 0.f;
+        const float corr = expf(m[j] - m_new);
+        l[j] = l[j] * corr + warp_sum(p);
+        m[j] = m_new;
+        p_s[g][lane] = p;
+        if (lane == 0) corr_s[g] = corr;
+      }
+    }
+    __syncthreads();
+
+    // acc[g] (column tid) = acc * corr + sum_k p[g][k] v[k][tid]
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      if (g < G) {
+        float a = acc[g] * corr_s[g];
+        for (int k = 0; k < kn; ++k) a = fmaf(p_s[g][k], v_s[k][tid], a);
+        acc[g] = a;
+      }
+    }
+  }
+
+  if (gridDim.z > 1) {
+    // this piece's state: [G] maxima, [G] sums, [G][D] context sums
+    float* pp = part + (((size_t)b * Hkv + kh) * gridDim.z + piece) * G *
+                           (D + 2);
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int g = warp + j * DEC_WARPS;
+        if (g < G) {
+          pp[g] = m[j];
+          pp[G + g] = l[j];
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g)
+      if (g < G) pp[2 * G + (size_t)g * D + tid] = acc[g];
+    return;
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (warp + j * DEC_WARPS < G) l_s[warp + j * DEC_WARPS] = l[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g)
+    if (g < G)
+      from_f(out + qoff + (size_t)g * D + tid, acc[g] / fmaxf(l_s[g], 1e-30f));
+}
+
+// Merge the pieces of one (sequence, KV head): thread t owns column t of
+// each of its G heads. A head with no key in any piece gives zeros.
+template <typename T>
+__global__ void __launch_bounds__(DEC_THREADS)
+    gqa_decode_combine_kernel(const float* __restrict__ part, int H, int Hkv,
+                              int pieces, T* __restrict__ out) {
+  const int b = blockIdx.x, kh = blockIdx.y, tid = threadIdx.x;
+  const int G = H / Hkv;
+  const float* pp = part + ((size_t)b * Hkv + kh) * pieces * G * (D + 2);
+  const size_t stride = (size_t)G * (D + 2);
+  for (int g = 0; g < G; ++g) {
+    float mt = NEG_INF;
+    for (int p = 0; p < pieces; ++p) mt = fmaxf(mt, pp[p * stride + g]);
+    float lt = 0.f, a = 0.f;
+    for (int p = 0; p < pieces; ++p) {
+      const float f = expf(pp[p * stride + g] - mt);
+      lt += pp[p * stride + G + g] * f;
+      a += pp[p * stride + 2 * G + (size_t)g * D + tid] * f;
+    }
+    from_f(out + ((size_t)b * H + (size_t)kh * G + g) * D + tid,
+           a / fmaxf(lt, 1e-30f));
+  }
+}
+
+// ---- prefill ----
+
+constexpr int PF_THREADS = 256;
+constexpr int TQ = 64;          // query rows per block (8 a warp in B and C)
+constexpr int TK = 32;          // keys per staged tile
+constexpr int QLD = D + 4;      // q / k row stride in floats: QLD / 4 odd,
+                                // so float4 reads of 8 rows hit 8 bank groups
+constexpr int SLD = TK + 1;
+constexpr size_t PF_SMEM =
+    (size_t)(TQ * QLD + TK * QLD + TK * D + TQ * SLD + TK * TQ) *
+    sizeof(float);
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b,
+                                      float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  acc = fmaf(a.w, b.w, acc);
+  return acc;
+}
+
+__device__ __forceinline__ void store8(float* dst, const float v[8]) {
+  float4* d = reinterpret_cast<float4*>(dst);
+  d[0] = make_float4(v[0], v[1], v[2], v[3]);
+  d[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(PF_THREADS)
+    gqa_paged_prefill_kernel(const T* __restrict__ q,
+                             const T* __restrict__ kp,
+                             const T* __restrict__ vp,
+                             const int* __restrict__ tables,
+                             const int* __restrict__ lengths,
+                             const int* __restrict__ valid, int H, int Hkv,
+                             int S, int page, int pmax, int window,
+                             float scale, T* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;               // [TQ][QLD]
+  float* k_s = q_s + TQ * QLD;     // [TK][QLD]
+  float* v_s = k_s + TK * QLD;     // [TK][D]
+  float* s_s = v_s + TK * D;       // [TQ][SLD] scores
+  float* pt_s = s_s + TQ * SLD;    // [TK][TQ] probabilities, transposed
+
+  const int q0 = blockIdx.x * TQ;  // first flattened row (s * G + g)
+  const int kh = blockIdx.y;
+  const int c = blockIdx.z;
+  const int G = H / Hkv;
+  const int rows = G * S;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int old_len = max(lengths[c], 0);
+  const int total = min(old_len + max(valid[c], 0), page * pmax);
+  const int* tb = tables + (size_t)c * pmax;
+  // row s * G + g is query head kh * G + g at position s of [C, H, S, D]
+  auto row_offset = [&](int flat) {
+    const int s = flat / G, g = flat % G;
+    return (((size_t)c * H + (size_t)kh * G + g) * S + s) * D;
+  };
+
+  // query tile (rows past G * S are zero and never stored)
+  for (int i = tid; i < TQ * DC; i += PF_THREADS) {
+    const int r = i / DC, col = (i % DC) * 8;
+    const bool live = q0 + r < rows;
+    float v[8];
+    load8_or_zero(q + (live ? row_offset(q0 + r) + col : 0), live, v);
+    store8(q_s + r * QLD + col, v);
+  }
+
+  // warp w owns rows 8w .. 8w+7 in phases B and C; lane owns columns
+  // 4*lane .. 4*lane+3 in C
+  float m[8], l[8];
+  float4 acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  // keys the tile's rows can see: causal limit of its last position, window
+  // start of its first
+  const int s_first = q0 / G;
+  const int s_last = (min(q0 + TQ, rows) - 1) / G;
+  const int limit = min(total, old_len + s_last + 1);
+  const int kstart =
+      window > 0 ? max(0, old_len + s_first - window + 1) : 0;
+  const int ty = tid >> 4, tx = tid & 15;  // A: rows 4ty..4ty+3, keys tx,
+                                           // tx + 16
+
+  for (int k0 = kstart; k0 < limit; k0 += TK) {
+    const int kn = min(TK, limit - k0);
+    __syncthreads();  // q_s is staged / the previous tile's C is done
+    for (int i = tid; i < TK * DC; i += PF_THREADS) {
+      const int r = i / DC, col = (i % DC) * 8;
+      const size_t off =
+          r < kn ? kv_offset(tb, k0 + r, page, Hkv, kh) + col : 0;
+      float kv[8], vv[8];
+      load8_or_zero(kp + off, r < kn, kv);
+      load8_or_zero(vp + off, r < kn, vv);
+      store8(k_s + r * QLD + col, kv);
+      store8(v_s + r * D + col, vv);
+    }
+    __syncthreads();
+
+    // A: scores
+    {
+      float sc[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[i][0] = sc[i][1] = 0.f;
+      const float4* ka = reinterpret_cast<const float4*>(k_s + tx * QLD);
+      const float4* kb =
+          reinterpret_cast<const float4*>(k_s + (tx + 16) * QLD);
+#pragma unroll 4
+      for (int d = 0; d < D / 4; ++d) {
+        const float4 b0 = ka[d], b1 = kb[d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 a =
+              reinterpret_cast<const float4*>(q_s + (4 * ty + i) * QLD)[d];
+          sc[i][0] = dot4(a, b0, sc[i][0]);
+          sc[i][1] = dot4(a, b1, sc[i][1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s_s[(4 * ty + i) * SLD + tx] = sc[i][0] * scale;
+        s_s[(4 * ty + i) * SLD + tx + 16] = sc[i][1] * scale;
+      }
+    }
+    __syncthreads();
+
+    // B: online softmax, one key per lane
+    float corr[8];
+    const int kpos = k0 + lane;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = 8 * warp + i;
+      const int qpos = old_len + (q0 + r) / G;
+      const bool ok = lane < kn && kpos <= qpos && kpos < total &&
+                      (window <= 0 || kpos > qpos - window);
+      const float sc = ok ? s_s[r * SLD + lane] : NEG_INF;
+      const float m_new = fmaxf(m[i], warp_max(sc));
+      const float p = ok ? expf(sc - m_new) : 0.f;
+      corr[i] = expf(m[i] - m_new);
+      l[i] = l[i] * corr[i] + warp_sum(p);
+      m[i] = m_new;
+      pt_s[lane * TQ + r] = p;
+    }
+    __syncwarp();
+
+    // C: acc = acc * corr + P V
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      acc[i].x *= corr[i];
+      acc[i].y *= corr[i];
+      acc[i].z *= corr[i];
+      acc[i].w *= corr[i];
+    }
+    for (int k = 0; k < kn; ++k) {
+      const float4 pa = *reinterpret_cast<const float4*>(pt_s + k * TQ +
+                                                         8 * warp);
+      const float4 pb = *reinterpret_cast<const float4*>(pt_s + k * TQ +
+                                                         8 * warp + 4);
+      const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+      const float4 v = reinterpret_cast<const float4*>(v_s + k * D)[lane];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[i].x = fmaf(pr[i], v.x, acc[i].x);
+        acc[i].y = fmaf(pr[i], v.y, acc[i].y);
+        acc[i].z = fmaf(pr[i], v.z, acc[i].z);
+        acc[i].w = fmaf(pr[i], v.w, acc[i].w);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int flat = q0 + 8 * warp + i;
+    if (flat >= rows) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    T* o = out + row_offset(flat) + 4 * lane;
+    from_f(o, acc[i].x * inv);
+    from_f(o + 1, acc[i].y * inv);
+    from_f(o + 2, acc[i].z * inv);
+    from_f(o + 3, acc[i].w * inv);
+  }
+}
+
+template <typename T>
+int launch_decode(const void* q, const void* k, const void* v,
+                  const int* tables, const int* lengths, int B, int H,
+                  int Hkv, int page, int pmax, int window, float scale,
+                  void* out, float* part, cudaStream_t st) {
+  const int pieces = (page * pmax + SPLIT_KEYS - 1) / SPLIT_KEYS;
+  dim3 grid(B, Hkv, pieces);
+  gqa_paged_decode_kernel<T><<<grid, DEC_THREADS, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), tables, lengths, H, Hkv, page, pmax, window,
+      scale, static_cast<T*>(out), part);
+  if (pieces > 1) {
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    gqa_decode_combine_kernel<T><<<dim3(B, Hkv), DEC_THREADS, 0, st>>>(
+        part, H, Hkv, pieces, static_cast<T*>(out));
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_prefill(const void* q, const void* k, const void* v,
+                   const int* tables, const int* lengths, const int* valid,
+                   int C, int H, int Hkv, int S, int page, int pmax,
+                   int window, float scale, void* out, cudaStream_t st) {
+  auto kernel = gqa_paged_prefill_kernel<T>;
+  // raise the dynamic shared memory limit once per instantiation and device
+  static int ready_dev = -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev != ready_dev) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PF_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    ready_dev = dev;
+  }
+  const int G = H / Hkv;
+  dim3 grid((G * S + TQ - 1) / TQ, Hkv, C);
+  kernel<<<grid, PF_THREADS, PF_SMEM, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), tables, lengths, valid, H, Hkv, S, page, pmax,
+      window, scale, static_cast<T*>(out));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Pieces of the key range a decode call splits a sequence into; the caller
+// allocates B * Hkv * pieces * (H / Hkv) * (D + 2) floats of scratch when
+// there is more than one.
+extern "C" int kt_gqa_decode_pieces(int page, int pmax) {
+  return (page * pmax + SPLIT_KEYS - 1) / SPLIT_KEYS;
+}
+
+// dtype: 0 float32, 1 bfloat16 (q, both pools and out share it). q [B, H,
+// D], pools [P, page, Hkv, D], tables [B, pmax] int32, lengths [B] int32
+// (valid KV length, current token included), out [B, H, D], part the
+// scratch above. Returns the cudaError_t.
+extern "C" int kt_gqa_paged_decode(const void* q, const void* k_pages,
+                                   const void* v_pages, const void* tables,
+                                   const void* lengths, int B, int H, int Hkv,
+                                   int page, int pmax, int window, float scale,
+                                   int dtype, void* out, void* part,
+                                   void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > GMAX || page <= 0 || pmax <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* tb = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lengths);
+  float* pt = static_cast<float*>(part);
+  if (dtype == 1)
+    return launch_decode<__nv_bfloat16>(q, k_pages, v_pages, tb, ln, B, H, Hkv,
+                                        page, pmax, window, scale, out, pt,
+                                        st);
+  return launch_decode<float>(q, k_pages, v_pages, tb, ln, B, H, Hkv, page,
+                              pmax, window, scale, out, pt, st);
+}
+
+// q [C, H, S, D] (roped), tables [C, pmax], lengths [C] OLD cached length,
+// valid [C] live new tokens, out [C, H, S, D].
+extern "C" int kt_gqa_paged_prefill(const void* q, const void* k_pages,
+                                    const void* v_pages, const void* tables,
+                                    const void* lengths, const void* valid,
+                                    int C, int H, int Hkv, int S, int page,
+                                    int pmax, int window, float scale,
+                                    int dtype, void* out, void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || page <= 0 || pmax <= 0 || S <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (C == 0 || H == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* tb = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lengths);
+  const int* vl = static_cast<const int*>(valid);
+  if (dtype == 1)
+    return launch_prefill<__nv_bfloat16>(q, k_pages, v_pages, tb, ln, vl, C,
+                                         H, Hkv, S, page, pmax, window, scale,
+                                         out, st);
+  return launch_prefill<float>(q, k_pages, v_pages, tb, ln, vl, C, H, Hkv, S,
+                               page, pmax, window, scale, out, st);
+}

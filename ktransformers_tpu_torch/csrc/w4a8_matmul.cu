@@ -1,11 +1,19 @@
-// Dense W4A8 matmul y = x @ W for offset-lo packed int4_g weights.
+// W4A8 matmuls y = x @ W for offset-lo packed int4_g weights.
 //
-// Replaces ktransformers_tpu/ops/pallas/w4a8_matmul.py:dense_w4a8_matmul
-// (body _dense_w4a8_kernel). At decode (M = 1) it is bound by the weight
-// bytes (K/2 * N int8 + the f32 group scales): one tile of one row, each
-// weight byte read once, 128 contiguous bytes per warp per weight row. At
-// prefill the rows are cut into tiles of 8 that re-read the weight block
-// from L2. The int8 dots use __dp4a; wgmma/TMA are later work.
+// One entry, kt_w4a8_rows, over the rows kernel of w4a8_core.cuh, replaces
+// three functions of ktransformers_tpu/ops/pallas/w4a8_matmul.py; the
+// wrapper's row-tile map is all that differs:
+// - dense_w4a8_matmul (body _dense_w4a8_kernel): tiles of consecutive rows
+//   of one 2-D weight;
+// - gathered_w4a8_matmul (body _gather_w4a8_kernel): one tile per row, of
+//   expert ids[r] of a 3-D weight (decode MoE);
+// - grouped_w4a8_matmul (body _grouped_w4a8_kernel): tiles of up to 8 rows
+//   of one expert over rows sorted by expert (prefill MoE).
+// At decode (one row a tile) it is bound by the weight bytes (K/2 * N int8
+// + the f32 group scales of the experts read): each weight byte read once,
+// 128 contiguous bytes per warp per weight row. At prefill tiles of 8 rows
+// re-read their weight block from L2 and the __dp4a rate sets the time;
+// wgmma/TMA are later work.
 //
 // Plain C interface, built with nvcc and loaded through ctypes
 // (ops/cuda/_build.py). Returns the cudaError_t of the launch.

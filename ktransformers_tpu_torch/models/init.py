@@ -33,6 +33,15 @@ class _Draw:
         return torch.randint(lo, hi, shape, generator=self.gen,
                              device=self.device, dtype=dtype)
 
+    def _int4(self, shape):
+        """Packed int4 codes [..., K/2, N], each nibble uniform in [-7, 7].
+        Zero mean: codes in [-8, 7] (mean -1/2) give every layer's output a
+        common component which, summed over 32 layers, swamps the prompt, so
+        that every prompt decodes to one token."""
+        r = self._bytes(shape, 0, 225).to(torch.int16)
+        lo, hi = r % 15 - 7, r // 15 - 7
+        return ((lo & 0xF) | ((hi & 0xF) << 4)).to(torch.uint8)
+
     def _e4m3(self, shape):
         """Random float8_e4m3fn codes without the two NaN bytes."""
         b = self._bytes(shape)
@@ -58,7 +67,7 @@ class _Draw:
             elif kind == "fp8":
                 data, s = self._e4m3(shape), std / 128
             else:
-                data, s = self._bytes((*lead, k // 2, n)), std / 7
+                data, s = self._int4((*lead, k // 2, n)), std / 7
             return QTensor(data, full(1, s), None, kind=kind, group_size=0)
         if kind in ("int4_g", "int4_gz", "int8_g"):
             g = effective_group_size(k, group_size)
@@ -66,7 +75,7 @@ class _Draw:
             if kind == "int8_g":
                 data, s = self._bytes(shape, -127, 128, torch.int8), std / 127
             else:
-                data, s = self._bytes((*lead, k // 2, n)), std / 7
+                data, s = self._int4((*lead, k // 2, n)), std / 7
             if kind == "int4_gz":  # zero points in [-8, 7]
                 zeros = self._bytes((*lead, k // g, n), -8, 8,
                                     torch.int8).to(torch.float32)
@@ -90,8 +99,9 @@ def init_params_synthetic(spec: ModelSpec, seed: int = 0,
                           quant: str = "int4_g", moe_quant: str | None = None,
                           group_size: int = 128, dtype=torch.bfloat16,
                           device="cuda"):
-    """Random params for ``spec``: ``quant`` for attention, dense MLP,
-    shared experts and lm_head, ``moe_quant`` for routed experts."""
+    """Random params for ``spec``: ``quant`` for attention (MLA, or GQA's
+    q / k / v / o projections), dense MLP, shared experts and lm_head,
+    ``moe_quant`` for routed experts."""
     moe_quant = moe_quant or quant
     rd = _Draw(seed, device, dtype)
     a = spec.attention
@@ -99,20 +109,30 @@ def init_params_synthetic(spec: ModelSpec, seed: int = 0,
     ones = lambda n: torch.ones(n, dtype=torch.float32, device=rd.device)  # noqa: E731
     layers = []
     for li in range(spec.num_layers):
-        nope, dr, r, v = (a.qk_nope_head_dim, a.qk_rope_head_dim,
-                          a.kv_lora_rank, a.v_head_dim)
         h = a.num_heads
-        lp = {
-            "input_norm": ones(d),
-            "post_attn_norm": ones(d),
-            "attn": {
+        if a.kind == "mla":
+            nope, dr, r, v = (a.qk_nope_head_dim, a.qk_rope_head_dim,
+                              a.kv_lora_rank, a.v_head_dim)
+            attn = {
                 "q_proj": rd.q((d, h * (nope + dr)), quant, group_size),
                 "kv_a": rd.q((d, r + dr), quant, group_size),
                 "kv_a_norm": ones(r),
                 "w_uk": rd.normal((h, nope, r), 1.0 / math.sqrt(nope)),
                 "w_uv": rd.normal((h, r, v), 1.0 / math.sqrt(r)),
                 "o_proj": rd.q((h * v, d), quant, group_size),
-            },
+            }
+        else:
+            hkv, hd = a.num_kv_heads, a.head_dim
+            attn = {
+                "q_proj": rd.q((d, h * hd), quant, group_size),
+                "k_proj": rd.q((d, hkv * hd), quant, group_size),
+                "v_proj": rd.q((d, hkv * hd), quant, group_size),
+                "o_proj": rd.q((h * hd, d), quant, group_size),
+            }
+        lp = {
+            "input_norm": ones(d),
+            "post_attn_norm": ones(d),
+            "attn": attn,
         }
         if spec.moe is not None and spec.moe.is_moe_layer(li):
             m = spec.moe

@@ -1,6 +1,7 @@
-"""The decoder: embedding -> N layers (absorbed MLA attention + dense/MoE
-MLP) -> norm -> lm_head, over a static-shape compressed KV cache
-(counterpart of ktransformers_tpu/models/model.py, MLA families only).
+"""The decoder: embedding -> N layers (attention + dense/MoE MLP) -> norm
+-> lm_head, over a static-shape KV cache (counterpart of
+ktransformers_tpu/models/model.py). Attention is absorbed MLA over a
+compressed cache (deepseek_v2) or GQA over per-head k / v (mixtral).
 
 Params are nested dicts of QTensors / tensors (utils/device_prep.py
 prepares them). Unlike the JAX package, the KV cache is updated IN PLACE:
@@ -18,6 +19,7 @@ from ktransformers_tpu_torch.models.spec import ModelSpec
 from ktransformers_tpu_torch.ops.activations import glu_activate
 from ktransformers_tpu_torch.ops import attention
 from ktransformers_tpu_torch.ops.attention import (
+    mha,
     mla_absorbed,
     mla_decode,
     mla_decode_fused,
@@ -42,9 +44,10 @@ NEG_INF = -1e30
 
 @dataclasses.dataclass
 class KVCache:
-    """Static-shape MLA cache, one buffer pair per layer:
-    bufs_a[l] = ckv [B, S, R], bufs_b[l] = k_pe [B, S, Dr];
-    lengths [B] int32 = tokens already cached per sequence."""
+    """Static-shape cache, one buffer pair per layer: MLA bufs_a[l] = ckv
+    [B, S, R], bufs_b[l] = k_pe [B, S, Dr]; GQA bufs_a[l] = k, bufs_b[l] =
+    v [B, S, Hkv, D] (k roped); lengths [B] int32 = tokens already cached
+    per sequence."""
 
     lengths: torch.Tensor
     bufs_a: list
@@ -54,11 +57,12 @@ class KVCache:
     def create(spec: ModelSpec, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> "KVCache":
         a = spec.attention
-        if a.kind != "mla":
-            raise ValueError("KVCache: only MLA attention is ported")
         lengths = torch.zeros(batch, dtype=torch.int32, device=device)
-        sa = (batch, max_len, a.kv_lora_rank)
-        sb = (batch, max_len, a.qk_rope_head_dim)
+        if a.kind == "mla":
+            sa = (batch, max_len, a.kv_lora_rank)
+            sb = (batch, max_len, a.qk_rope_head_dim)
+        else:
+            sa = sb = (batch, max_len, a.num_kv_heads, a.head_dim)
         bufs_a = [torch.zeros(sa, dtype=dtype, device=device)
                   for _ in range(spec.num_layers)]
         bufs_b = [torch.zeros(sb, dtype=dtype, device=device)
@@ -97,6 +101,63 @@ def mla_qkv_proj(p, spec: ModelSpec, x):
         both = plinear(p, "qkv_a", x, p.get("qkv_a_bias"))
         return both[..., :qw], both[..., qw : qw + rw]
     return plinear(p, "q_proj", x), plinear(p, "kv_a", x, p.get("kv_a_bias"))
+
+
+def gqa_qkv_proj(p, spec: ModelSpec, x):
+    """Flat q [B, S, H*D], k and v [B, S, Hkv*D]; reads the fused "qkv"
+    weight when device_prep merged q_proj, k_proj and v_proj."""
+    a = spec.attention
+    qw = a.num_heads * a.head_dim
+    kw = a.num_kv_heads * a.head_dim
+    if "qkv" in p:
+        qkv = plinear(p, "qkv", x)
+        return qkv[..., :qw], qkv[..., qw : qw + kw], qkv[..., qw + kw :]
+    return (plinear(p, "q_proj", x), plinear(p, "k_proj", x),
+            plinear(p, "v_proj", x))
+
+
+def gqa_rope(spec: ModelSpec, q, k, rope_cs):
+    """q [B, S, H, D] and k [B, S, Hkv, D] -> roped q [B, H, S, D] and
+    roped k [B, S, Hkv, D] (rope over the whole head); rope_cs (cos, sin)
+    [B, S, D/2]."""
+    cos, sin = rope_cs
+    inter = spec.rope.interleaved
+    q = apply_rope(q.transpose(1, 2), cos[:, None], sin[:, None],
+                   interleaved=inter)
+    k = apply_rope(k.transpose(1, 2), cos[:, None], sin[:, None],
+                   interleaved=inter)
+    return q, k.transpose(1, 2)
+
+
+def gqa_project_rope(p, spec: ModelSpec, x, rope_cs):
+    """x [B, S, d] -> roped q [B, H, S, D], roped k and v [B, S, Hkv, D]."""
+    a = spec.attention
+    b, s, _ = x.shape
+    q_flat, k_flat, v_flat = gqa_qkv_proj(p, spec, x)
+    q, k = gqa_rope(spec, q_flat.reshape(b, s, a.num_heads, a.head_dim),
+                    k_flat.reshape(b, s, a.num_kv_heads, a.head_dim), rope_cs)
+    return q, k, v_flat.reshape(b, s, a.num_kv_heads, a.head_dim)
+
+
+def gqa_scale(spec: ModelSpec) -> float:
+    a = spec.attention
+    return a.softmax_scale or a.head_dim ** -0.5
+
+
+def _gqa_attention(p, spec: ModelSpec, x, layer_cache, pos_offset, rope_cs):
+    """GQA attention over the contiguous cache: the new k / v are written
+    first, then ``mha`` attends over the whole buffer with a causal mask
+    (plain PyTorch at every step, as XLA in the JAX package)."""
+    a = spec.attention
+    b, s, _ = x.shape
+    q, k, v = gqa_project_rope(p, spec, x, rope_cs)
+    k_buf = _write_cache(layer_cache[0], k, pos_offset)
+    v_buf = _write_cache(layer_cache[1], v, pos_offset)
+    mask = _attn_mask(pos_offset, s, k_buf.shape[1])
+    out = mha(q, k_buf.transpose(1, 2), v_buf.transpose(1, 2),
+              scale=gqa_scale(spec), mask=mask)
+    out = out.transpose(1, 2).reshape(b, s, a.num_heads * a.head_dim)
+    return plinear(p, "o_proj", out, p.get("o_bias")), (k_buf, v_buf)
 
 
 def _mla_attention(p, spec: ModelSpec, x, layer_cache, pos_offset, rope_cs,
@@ -193,9 +254,12 @@ def decoder_layer(lp, spec: ModelSpec, x, layer_cache, lengths, rope_cs,
     """One decoder layer; returns (x, buf_a, buf_b)."""
     res = x
     xn = rms_norm(x, lp["input_norm"], spec.rms_norm_eps)
-    attn_out, (buf_a, buf_b) = _mla_attention(
-        lp["attn"], spec, xn, layer_cache, lengths, rope_cs, rope_rot
-    )
+    if spec.attention.kind == "mla":
+        attn_out, (buf_a, buf_b) = _mla_attention(
+            lp["attn"], spec, xn, layer_cache, lengths, rope_cs, rope_rot)
+    else:
+        attn_out, (buf_a, buf_b) = _gqa_attention(
+            lp["attn"], spec, xn, layer_cache, lengths, rope_cs)
     x = res + attn_out
     res = x
     xn = rms_norm(x, lp["post_attn_norm"], spec.rms_norm_eps)
@@ -222,7 +286,7 @@ def forward(params, spec: ModelSpec, tokens: torch.Tensor, cache: KVCache,
         s, device=tokens.device)[None, :]
     rope_cs = (cos_t[pos], sin_t[pos])
     rope_rot = None
-    if s == 1 and attention.MLA_FUSED:
+    if s == 1 and attention.MLA_FUSED and spec.attention.kind == "mla":
         # one rotation matrix per step, shared by every layer's fused
         # decode attention
         rope_rot = rope_rotation_matrix(

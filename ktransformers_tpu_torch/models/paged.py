@@ -1,5 +1,5 @@
 """Paged-KV forward: the serving engine's model step (counterpart of
-ktransformers_tpu/models/paged.py, MLA families only).
+ktransformers_tpu/models/paged.py; MLA and GQA attention).
 
 Same math as models/model.py ``forward``, but the KV cache is a page pool
 (cache/paged.py) addressed through per-sequence page tables. Two entry
@@ -8,14 +8,15 @@ points:
   prefill (S > 1) or a batched decode step (S == 1);
 - ``forward_paged_mixed``: the decode batch and C prefill chunks in ONE
   pass over the weights.
-Attention goes through ops/cuda/paged_attention.py (mla_paged_decode,
-mla_paged_prefill), which read the pool through the page table; rope and
-the page writes happen here, before the kernels run. The pools are updated
-IN PLACE and the same PagedKVCache is returned.
+Attention goes through ops/cuda/paged_attention.py (mla_paged_decode /
+mla_paged_prefill, gqa_paged_decode / gqa_paged_prefill), which read the
+pool through the page table; rope and the page writes happen here, before
+the kernels run. The pools are updated IN PLACE and the same PagedKVCache
+is returned.
 
-Not ported, each raising NotImplementedError: GQA attention (ROADMAP
-Queue 1 item 6), the sparse page budget (item 9), routing collection for
-expert re-placement (item 11) and hybrid linear-attention slots (item 6).
+Not ported, each raising NotImplementedError: the sparse page budget
+(ROADMAP Queue 1 item 9), routing collection for expert re-placement (item
+11) and hybrid linear-attention slots (item 6).
 """
 
 from __future__ import annotations
@@ -26,10 +27,16 @@ from ktransformers_tpu_torch.cache.paged import PagedKVCache
 from ktransformers_tpu_torch.models.model import (
     _dense_mlp,
     _moe_mlp,
+    gqa_project_rope,
+    gqa_qkv_proj,
+    gqa_rope,
+    gqa_scale,
     mla_qkv_proj,
 )
 from ktransformers_tpu_torch.models.spec import ModelSpec
 from ktransformers_tpu_torch.ops.cuda.paged_attention import (
+    gqa_paged_decode,
+    gqa_paged_prefill,
     mla_paged_decode,
     mla_paged_prefill,
 )
@@ -173,6 +180,68 @@ def _mla_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
     return plinear(p, "o_proj", out_rows, p.get("o_bias")), (buf_a, buf_b)
 
 
+def _gqa_paged(p, spec: ModelSpec, x, bufs, page_tables, lengths, rope_cs,
+               page_size, valid=None):
+    """x [B, S, d] -> (attention output [B, S, d], (k pages, v pages))."""
+    b, s, _ = x.shape
+    q, k, v = gqa_project_rope(p, spec, x, rope_cs)  # q [B, H, S, D]
+    buf_a = _write_pages(bufs[0], k, page_tables, lengths, page_size, valid)
+    buf_b = _write_pages(bufs[1], v, page_tables, lengths, page_size, valid)
+    if s == 1:
+        # the kernel's lengths include the token just written
+        out = gqa_paged_decode(q[:, :, 0].contiguous(), buf_a, buf_b,
+                               page_tables, lengths + 1, gqa_scale(spec))
+        out = out.reshape(b, 1, -1)
+    else:
+        v_arr = valid if valid is not None else torch.full_like(lengths, s)
+        out = gqa_paged_prefill(q.contiguous(), buf_a, buf_b, page_tables,
+                                lengths, v_arr, gqa_scale(spec))
+        out = out.transpose(1, 2).reshape(b, s, -1)
+    return plinear(p, "o_proj", out, p.get("o_bias")), (buf_a, buf_b)
+
+
+def _gqa_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
+                     pre_table, pre_length, pre_valid, dec_rope_cs,
+                     pre_rope_cs, page_size, b_dec, s_pre):
+    """Mixed-step GQA attention (see _mla_paged_mixed): ONE projection /
+    output pass over the B + C*S rows; the attention core splits into
+    gqa_paged_decode (B rows) and gqa_paged_prefill (C chunks of S)."""
+    a = spec.attention
+    h, hkv, d = a.num_heads, a.num_kv_heads, a.head_dim
+    c_pre = pre_table.shape[0]
+    q_flat, k_flat, v_flat = gqa_qkv_proj(p, spec, rows)
+    q_all = q_flat[0].reshape(-1, h, d)
+    k_all = k_flat[0].reshape(-1, hkv, d)
+    v_all = v_flat[0].reshape(-1, hkv, d)
+    q_d, k_d = gqa_rope(spec, q_all[:b_dec, None], k_all[:b_dec, None],
+                        dec_rope_cs)
+    q_p, k_p = gqa_rope(spec, q_all[b_dec:].reshape(c_pre, s_pre, h, d),
+                        k_all[b_dec:].reshape(c_pre, s_pre, hkv, d),
+                        pre_rope_cs)
+    v_d = v_all[:b_dec, None]
+    v_p = v_all[b_dec:].reshape(c_pre, s_pre, hkv, d)
+
+    # cache writes before any read: decode rows first, then the chunks,
+    # on disjoint page sets (padding rows all go to the trash page)
+    buf_a = _write_pages(bufs[0], k_d, dec_tables, dec_lengths, page_size)
+    buf_b = _write_pages(bufs[1], v_d, dec_tables, dec_lengths, page_size)
+    buf_a = _write_pages(buf_a, k_p, pre_table, pre_length, page_size,
+                         pre_valid)
+    buf_b = _write_pages(buf_b, v_p, pre_table, pre_length, page_size,
+                         pre_valid)
+
+    scale = gqa_scale(spec)
+    out_d = gqa_paged_decode(q_d[:, :, 0].contiguous(), buf_a, buf_b,
+                             dec_tables, dec_lengths + 1, scale)  # [B, H, D]
+    out_p = gqa_paged_prefill(q_p.contiguous(), buf_a, buf_b, pre_table,
+                              pre_length, pre_valid, scale)  # [C, H, S, D]
+    out_rows = torch.cat(
+        [out_d.reshape(b_dec, h * d),
+         out_p.transpose(1, 2).reshape(c_pre * s_pre, h * d)],
+        dim=0)[None]  # [1, B + C*S, H*D]
+    return plinear(p, "o_proj", out_rows, p.get("o_bias")), (buf_a, buf_b)
+
+
 def _mlp(lp, spec: ModelSpec, xn):
     if "moe" in lp:
         return _moe_mlp(lp["moe"], spec, xn)
@@ -184,12 +253,6 @@ def _lm_head(params, x):
     if lm_head is None:
         return x @ params["embed"].to(x.dtype).T
     return linear(x, lm_head)
-
-
-def _require_mla(spec: ModelSpec) -> None:
-    if spec.attention.kind != "mla":
-        raise NotImplementedError(
-            "paged GQA attention is not ported (ROADMAP Queue 1 item 6)")
 
 
 def _reject_sparse(sparse_budget) -> None:
@@ -213,8 +276,9 @@ def forward_paged_mixed(params, spec: ModelSpec, dec_tokens, pre_tokens,
     pre_length [C] tokens already cached per query, pre_valid [C] live
     tokens of each chunk. Returns (dec_logits [B, V], pre_last_logits
     [C, V] at each chunk's last valid row, kv)."""
-    _require_mla(spec)
     _reject_sparse(sparse_budget)
+    attend = _mla_paged_mixed if spec.attention.kind == "mla" \
+        else _gqa_paged_mixed
     dev = dec_tokens.device
     b = dec_tokens.shape[0]
     if pre_tokens.dim() == 1:
@@ -236,7 +300,7 @@ def forward_paged_mixed(params, spec: ModelSpec, dec_tokens, pre_tokens,
     for li, lp in enumerate(params["layers"]):
         res = rows
         xn = rms_norm(rows, lp["input_norm"], spec.rms_norm_eps)
-        attn_out, (kv.bufs_a[li], kv.bufs_b[li]) = _mla_paged_mixed(
+        attn_out, (kv.bufs_a[li], kv.bufs_b[li]) = attend(
             lp["attn"], spec, xn, (kv.bufs_a[li], kv.bufs_b[li]), dec_tables,
             dec_lengths, pre_table, pre_length, pre_valid, dec_rope, pre_rope,
             kv.page_size, b, s)
@@ -267,7 +331,6 @@ def forward_paged(params, spec: ModelSpec, tokens, kv: PagedKVCache,
     chunks); their KV writes go to the trash page and, with
     logits_last_only, the logits row is taken at position valid[b] - 1.
     Returns (logits [B, 1 or S, V], kv); the pools are updated in place."""
-    _require_mla(spec)
     _reject_sparse(sparse_budget)
     if collect_routing:
         raise NotImplementedError(
@@ -277,6 +340,7 @@ def forward_paged(params, spec: ModelSpec, tokens, kv: PagedKVCache,
         raise NotImplementedError(
             "hybrid linear-attention state slots are not ported (ROADMAP "
             "Queue 1 item 6)")
+    attend = _mla_paged if spec.attention.kind == "mla" else _gqa_paged
     dev = tokens.device
     b, s = tokens.shape
     x = params["embed"][tokens].to(compute_dtype)
@@ -290,7 +354,7 @@ def forward_paged(params, spec: ModelSpec, tokens, kv: PagedKVCache,
     for li, lp in enumerate(params["layers"]):
         res = x
         xn = rms_norm(x, lp["input_norm"], spec.rms_norm_eps)
-        attn_out, (kv.bufs_a[li], kv.bufs_b[li]) = _mla_paged(
+        attn_out, (kv.bufs_a[li], kv.bufs_b[li]) = attend(
             lp["attn"], spec, xn, (kv.bufs_a[li], kv.bufs_b[li]), page_tables,
             lengths, rope_cs, kv.page_size, valid)
         x = res + attn_out

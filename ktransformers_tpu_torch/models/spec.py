@@ -1,7 +1,8 @@
 """ModelSpec: static architecture record and the HF config translator
-(counterpart of ktransformers_tpu/models/spec.py), limited to the
-``deepseek_v2`` family this port runs. Config values the port does not
-handle raise instead of being ignored."""
+(counterpart of ktransformers_tpu/models/spec.py), limited to the families
+this port runs: ``deepseek_v2`` (MLA attention) and ``mixtral`` (GQA
+attention). Config values the port does not handle raise instead of being
+ignored."""
 
 from __future__ import annotations
 
@@ -15,10 +16,11 @@ from ktransformers_tpu_torch.ops.rope import RopeConfig
 
 @dataclasses.dataclass(frozen=True)
 class AttentionSpec:
-    kind: str  # "mla"
+    kind: str  # "mla" | "gqa"
     num_heads: int
     num_kv_heads: int
-    head_dim: int  # qk_nope + qk_rope
+    head_dim: int  # gqa head dim; for mla qk_nope + qk_rope
+    # mla only:
     q_lora_rank: int | None = None
     kv_lora_rank: int = 0
     qk_nope_head_dim: int = 0
@@ -58,7 +60,7 @@ class ModelSpec:
     max_position: int = 4096
 
 
-def _rope_from_hf(cfg: dict, dim: int) -> RopeConfig:
+def _rope_from_hf(cfg: dict, dim: int, interleaved: bool) -> RopeConfig:
     scaling = cfg.get("rope_scaling") or {}
     stype = scaling.get("type") or scaling.get("rope_type")
     if stype not in (None, "yarn", "linear"):
@@ -76,7 +78,7 @@ def _rope_from_hf(cfg: dict, dim: int) -> RopeConfig:
         beta_slow=float(scaling.get("beta_slow", 1.0)),
         mscale=float(scaling.get("mscale", 1.0)),
         mscale_all_dim=float(scaling.get("mscale_all_dim", 0.0)),
-        interleaved=True,
+        interleaved=interleaved,
     )
 
 
@@ -139,10 +141,72 @@ def _deepseek_v2_spec(cfg: dict) -> ModelSpec:
         intermediate_size=int(cfg["intermediate_size"]),
         rms_norm_eps=float(cfg.get("rms_norm_eps", 1e-6)),
         attention=attn,
-        rope=_rope_from_hf(cfg, qk_rope),
+        rope=_rope_from_hf(cfg, qk_rope, interleaved=True),
         moe=moe,
         max_position=int(cfg.get("max_position_embeddings", 4096)),
     )
+
+
+def _gqa_attn(cfg: dict) -> AttentionSpec:
+    """Plain GQA attention. The knobs other GQA families set (per-head q/k
+    norm, partial rotary, gated output, sliding window, projection biases)
+    are not ported and raise."""
+    heads = int(cfg["num_attention_heads"])
+    head_dim = int(cfg.get("head_dim") or cfg["hidden_size"] // heads)
+    prf = float(cfg.get("partial_rotary_factor", 1.0) or 1.0)
+    if cfg.get("attention_bias"):
+        raise ValueError("attention_bias is not ported")
+    if prf < 1.0:
+        raise ValueError("partial_rotary_factor < 1 is not ported")
+    if cfg.get("sliding_window"):
+        raise ValueError("sliding_window attention is not ported")
+    for knob in ("qk_norm", "use_qk_norm", "gated_output"):
+        if cfg.get(knob):
+            raise ValueError(f"{knob} is not ported")
+    return AttentionSpec(
+        kind="gqa",
+        num_heads=heads,
+        num_kv_heads=int(cfg.get("num_key_value_heads", heads)),
+        head_dim=head_dim,
+    )
+
+
+def _mixtral_spec(cfg: dict) -> ModelSpec:
+    """Mixtral: GQA attention, rotate-half rope over the whole head, every
+    layer MoE with softmax over all experts, top-k, renormalized (softmax
+    + norm_topk_prob), no shared experts."""
+    if cfg.get("tie_word_embeddings"):
+        raise ValueError("tie_word_embeddings is not ported")
+    if cfg.get("hidden_act", "silu") != "silu":
+        raise ValueError(f"hidden_act {cfg['hidden_act']!r} is not ported")
+    attn = _gqa_attn(cfg)
+    gate = GateConfig(
+        num_experts=int(cfg["num_local_experts"]),
+        top_k=int(cfg["num_experts_per_tok"]),
+        scoring="softmax",
+        norm_topk_prob=True,
+    )
+    moe = MoESpec(
+        num_experts=int(cfg["num_local_experts"]),
+        top_k=int(cfg["num_experts_per_tok"]),
+        moe_intermediate_size=int(cfg["intermediate_size"]),
+        gate=gate,
+    )
+    return ModelSpec(
+        model_type="mixtral",
+        vocab_size=int(cfg["vocab_size"]),
+        hidden_size=int(cfg["hidden_size"]),
+        num_layers=int(cfg["num_hidden_layers"]),
+        intermediate_size=int(cfg["intermediate_size"]),
+        rms_norm_eps=float(cfg.get("rms_norm_eps", 1e-5)),
+        attention=attn,
+        rope=_rope_from_hf(cfg, attn.head_dim, interleaved=False),
+        moe=moe,
+        max_position=int(cfg.get("max_position_embeddings", 4096)),
+    )
+
+
+_TRANSLATORS = {"deepseek_v2": _deepseek_v2_spec, "mixtral": _mixtral_spec}
 
 
 def spec_from_hf_config(cfg: Any) -> ModelSpec:
@@ -150,11 +214,10 @@ def spec_from_hf_config(cfg: Any) -> ModelSpec:
     if not isinstance(cfg, dict):
         cfg = cfg.to_dict()
     mt = cfg.get("model_type")
-    if mt != "deepseek_v2":
-        raise ValueError(
-            f"unsupported model_type {mt!r}; this port supports deepseek_v2"
-        )
-    return _deepseek_v2_spec(cfg)
+    if mt not in _TRANSLATORS:
+        raise ValueError(f"unsupported model_type {mt!r}; this port "
+                         f"supports {sorted(_TRANSLATORS)}")
+    return _TRANSLATORS[mt](cfg)
 
 
 # DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite config.json), the
@@ -185,4 +248,22 @@ DEEPSEEK_V2_LITE = dict(
     max_position_embeddings=2048,
     rms_norm_eps=1e-6,
     rope_theta=10000.0,
+)
+
+
+# Mixtral-8x7B (mistralai/Mixtral-8x7B-Instruct-v0.1 config.json, as the
+# JAX package's model registry lists it).
+MIXTRAL_8X7B = dict(
+    model_type="mixtral",
+    vocab_size=32000,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_hidden_layers=32,
+    num_attention_heads=32,
+    num_key_value_heads=8,
+    num_local_experts=8,
+    num_experts_per_tok=2,
+    rms_norm_eps=1e-5,
+    rope_theta=1000000.0,
+    max_position_embeddings=32768,
 )

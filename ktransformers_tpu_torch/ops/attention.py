@@ -1,11 +1,15 @@
-"""MLA attention in the absorbed (compressed-cache) form (counterpart of
-ktransformers_tpu/ops/attention.py, MLA part).
+"""Attention over a contiguous cache (counterpart of
+ktransformers_tpu/ops/attention.py): GQA (``mha``) and MLA in the absorbed
+(compressed-cache) form.
 
-Prefill attention is plain PyTorch (``mla_absorbed``), as it is plain XLA
-in the JAX package. Decode goes through ``mla_decode_fused`` (norm, both
-ropes and the attention in one kernel) while ``MLA_FUSED`` is on, else
-through ``mla_decode`` after the caller has normed, roped and written the
-cache row (both kernels in ops/cuda/mla_decode.py).
+``mha`` and the MLA prefill attention (``mla_absorbed``) are plain PyTorch,
+as they are plain XLA in the JAX package; so is every single-user GQA step.
+The blockwise variants the JAX package takes past BLOCKWISE_KV_THRESHOLD =
+8192 cached positions are not ported: the plain versions run at any length.
+MLA decode goes through ``mla_decode_fused`` (norm, both ropes and the
+attention in one kernel) while ``MLA_FUSED`` is on, else through
+``mla_decode`` after the caller has normed, roped and written the cache row
+(both kernels in ops/cuda/mla_decode.py).
 """
 
 from __future__ import annotations
@@ -23,6 +27,27 @@ from ktransformers_tpu_torch.ops.cuda.mla_decode import (
 # it installs the fused hook): "0" sends single-token decode through
 # mla_decode. Read once here; tests set the attribute.
 MLA_FUSED = os.environ.get("KT_MLA_FUSED", "1") != "0"
+
+
+def mha(q, k, v, *, scale: float, mask=None):
+    """Dense attention with the GQA head-group broadcast: query head h reads
+    KV head h // (H / Hkv). q [B, H, Sq, D]; k [B, Hkv, Skv, D]; v [B, Hkv,
+    Skv, Dv]; mask additive, broadcastable to [B, H, Sq, Skv] ([Sq, Skv] or
+    [B, Sq, Skv]). Returns [B, H, Sq, Dv] in q.dtype; float32 inside."""
+    b, h, sq, d = q.shape
+    hkv = k.shape[1]
+    if h % hkv:
+        raise ValueError(f"mha: {h} query heads over {hkv} KV heads")
+    qg = q.reshape(b, hkv, h // hkv, sq, d).to(torch.float32)
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qg,
+                          k.to(torch.float32)) * scale
+    if mask is not None:
+        if mask.dim() == 2:
+            mask = mask[None]
+        scores = scores + mask[:, None, None]
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.to(torch.float32))
+    return out.reshape(b, h, sq, v.shape[-1]).to(q.dtype)
 
 
 def mla_absorbed(q_nope_eff, q_pe, ckv, k_pe, *, scale: float, mask=None):

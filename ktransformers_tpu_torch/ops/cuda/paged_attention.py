@@ -1,18 +1,23 @@
-"""Absorbed-MLA attention over a paged KV pool: kernel wrappers
-(csrc/paged_attention.cu) and their plain PyTorch versions.
+"""Attention over a paged KV pool: kernel wrappers and their plain PyTorch
+versions.
 
-Replaces ktransformers_tpu/ops/pallas/paged_attention.py:mla_paged_decode
-and :mla_paged_prefill. Pools are ckv [P, page, R] and kpe [P, page, Dr];
-page tables are int32 [B, Pmax], padded with page 0. Pages are recycled
-without clearing, so rows at or past a sequence's live length may hold
-anything (NaN included): the kernels never read them and the plain versions
-zero them before the products.
+Replaces ktransformers_tpu/ops/pallas/paged_attention.py: mla_paged_decode
+and :mla_paged_prefill (absorbed MLA, csrc/paged_attention.cu; pools ckv
+[P, page, R] and kpe [P, page, Dr]), gqa_paged_decode and
+:gqa_paged_prefill (GQA, csrc/gqa_paged_attention.cu; pools k and v [P,
+page, Hkv, D], query head h on KV head h // (H / Hkv), an optional sliding
+``window``). Page tables are int32 [B, Pmax], padded with page 0. Pages
+are recycled without clearing, so rows at or past a sequence's live length
+may hold anything (NaN included): the kernels never read them and the
+plain versions zero them before the products.
 
 Three meanings of ``lengths`` meet here:
-- mla_paged_decode: the valid KV length INCLUDING the current token (the
-  caller has written it to the pages and passes old length + 1);
-- mla_paged_prefill: the OLD cached length, the chunk excluded; the chunk
-  (already written) adds ``valid`` live tokens, so live KV = lengths + valid;
+- mla_paged_decode, gqa_paged_decode: the valid KV length INCLUDING the
+  current token (the caller has written it to the pages and passes old
+  length + 1);
+- mla_paged_prefill, gqa_paged_prefill: the OLD cached length, the chunk
+  excluded; the chunk (already written) adds ``valid`` live tokens, so
+  live KV = lengths + valid;
 - ops/cuda/mla_decode.mla_decode_fused: the old length, current token
   EXCLUDED (it reads the current token from its own operands).
 
@@ -45,15 +50,22 @@ def gather_pages(buf: torch.Tensor, page_tables: torch.Tensor) -> torch.Tensor:
     return g.reshape(b, pmax * page, *g.shape[3:])
 
 
+def _live_rows(pages, page_tables, live):
+    """Gathered pages [B, Smax, ...] as float32 with the rows at or past
+    live [B] zeroed (recycled rows may hold NaN)."""
+    g = gather_pages(pages, page_tables).to(torch.float32)
+    kpos = torch.arange(g.shape[1], device=g.device)
+    ok = (kpos[None, :] < live.to(torch.int64)[:, None]).reshape(
+        *g.shape[:2], *([1] * (g.dim() - 2)))
+    return torch.where(ok, g, torch.zeros((), device=g.device))
+
+
 def _live_kv(ckv_pages, kpe_pages, page_tables, live):
     """Gathered ckv / kpe as float32 with the rows at or past live [B]
     zeroed, and the key positions [1, Smax]."""
-    ckv = gather_pages(ckv_pages, page_tables).to(torch.float32)
-    kpe = gather_pages(kpe_pages, page_tables).to(torch.float32)
+    ckv = _live_rows(ckv_pages, page_tables, live)
     kpos = torch.arange(ckv.shape[1], device=ckv.device)[None, :]
-    ok = (kpos < live.to(torch.int64)[:, None])[:, :, None]
-    zero = torch.zeros((), dtype=torch.float32, device=ckv.device)
-    return torch.where(ok, ckv, zero), torch.where(ok, kpe, zero), kpos
+    return ckv, _live_rows(kpe_pages, page_tables, live), kpos
 
 
 def _masked_softmax_ctx(scores, ok, ckv, eq: str):
@@ -233,6 +245,192 @@ def mla_paged_prefill(q_nope_eff, q_pe, ckv_pages, kpe_pages, page_tables,
                                      page_tables, lengths, valid, scale)
     launch, out = prefill_launcher(q_nope_eff, q_pe, ckv_pages, kpe_pages,
                                    page_tables, lengths, valid, scale)
+    launch()
+    LAUNCHES[what] += 1
+    return out
+
+
+# ---- GQA ----
+
+GQA_KERNEL_D = 128  # head dim the kernels take
+GQA_KERNEL_GMAX = 8  # query heads per KV head the decode kernel takes
+
+
+def gqa_paged_decode_ref(q, k_pages, v_pages, page_tables, lengths,
+                         scale: float, window: int = 0):
+    """Plain version: gather the pages, masked softmax in float32 over
+    kpos < lengths (and kpos >= lengths - window with a window). A row
+    with no live key gives zeros."""
+    b, h, d = q.shape
+    hkv = k_pages.shape[2]
+    live = lengths.to(torch.int64)
+    k = _live_rows(k_pages, page_tables, live)  # [B, Smax, Hkv, D]
+    v = _live_rows(v_pages, page_tables, live)
+    kpos = torch.arange(k.shape[1], device=k.device)[None, :]
+    ok = kpos < live[:, None]
+    if window > 0:
+        ok = ok & (kpos >= live[:, None] - window)
+    qg = q.to(torch.float32).reshape(b, hkv, h // hkv, d)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k) * scale
+    ctx = _masked_softmax_ctx(scores, ok[:, None, None].expand_as(scores), v,
+                              "bkgs,bskd->bkgd")
+    return ctx.reshape(b, h, d).to(q.dtype)
+
+
+def gqa_paged_prefill_ref(q, k_pages, v_pages, page_tables, lengths, valid,
+                          scale: float, window: int = 0):
+    """Plain version: query row qs (position lengths + qs) sees kpos <=
+    lengths + qs, kpos < lengths + valid and, with a window, kpos >
+    lengths + qs - window. Rows qs >= valid are padding: they see every live
+    key (in the window) and come back finite."""
+    c, h, s, d = q.shape
+    hkv = k_pages.shape[2]
+    old = lengths.to(torch.int64)
+    live = old + valid.to(torch.int64)
+    k = _live_rows(k_pages, page_tables, live)
+    v = _live_rows(v_pages, page_tables, live)
+    kpos = torch.arange(k.shape[1], device=k.device)[None, None, :]
+    qpos = (old[:, None]
+            + torch.arange(s, device=q.device)[None, :])[..., None]
+    ok = (kpos <= qpos) & (kpos < live[:, None, None])
+    if window > 0:
+        ok = ok & (kpos > qpos - window)
+    qg = q.to(torch.float32).reshape(c, hkv, h // hkv, s, d)
+    scores = torch.einsum("ckgqd,cskd->ckgqs", qg, k) * scale
+    ctx = _masked_softmax_ctx(scores, ok[:, None, None].expand_as(scores), v,
+                              "ckgqs,cskd->ckgqd")
+    return ctx.reshape(c, h, s, d).to(q.dtype)
+
+
+def _check_gqa(what, q, k_pages, v_pages, page_tables, lengths, b):
+    h, d = q.shape[1], q.shape[-1]
+    if (k_pages.dim() != 4 or k_pages.shape != v_pages.shape
+            or k_pages.shape[-1] != d):
+        raise ValueError(f"{what}: pools are {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)}, want [P, page, Hkv, {d}]")
+    if h % k_pages.shape[2]:
+        raise ValueError(f"{what}: {h} query heads over {k_pages.shape[2]} "
+                         "KV heads")
+    if page_tables.dim() != 2 or page_tables.shape[0] != b:
+        raise ValueError(f"{what}: page_tables must be [{b}, Pmax]")
+    if tuple(lengths.shape) != (b,):
+        raise ValueError(f"{what}: lengths must be [{b}]")
+    if page_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError(f"{what}: page_tables and lengths must be int32")
+
+
+def _check_gqa_cuda(what, q, k_pages, v_pages, *ints):
+    if q.shape[-1] != GQA_KERNEL_D:
+        raise ValueError(f"{what}: kernel takes D={GQA_KERNEL_D}; got "
+                         f"{q.shape[-1]}")
+    dt = q.dtype
+    if dt not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != dt for t in (k_pages, v_pages)):
+        raise ValueError(f"{what}: queries and pools must share float32 or "
+                         "bfloat16")
+    check_cuda_operands(what, q.device, q, k_pages, v_pages, *ints)
+
+
+def gqa_decode_launcher(q, k_pages, v_pages, page_tables, lengths,
+                        scale: float, window: int = 0):
+    """Checks a CUDA call and allocates its output; returns (launch, out),
+    where launch() runs only the kernel."""
+    what = "gqa_paged_decode"
+    _check_gqa_cuda(what, q, k_pages, v_pages, page_tables, lengths)
+    b, h, _ = q.shape
+    hkv = k_pages.shape[2]
+    if h // hkv > GQA_KERNEL_GMAX:
+        raise ValueError(f"{what}: kernel takes at most {GQA_KERNEL_GMAX} "
+                         f"query heads per KV head; got {h // hkv}")
+    out = torch.empty_like(q)
+    lib = _build.lib("gqa_paged_attention")
+    page, pmax = k_pages.shape[1], page_tables.shape[1]
+    # per (sequence, KV head, piece of the key range): G maxima, G sums and
+    # G x D context sums, merged by the kernel's second launch
+    pieces = lib.kt_gqa_decode_pieces(page, pmax)
+    part = torch.empty(b * pieces * h * (q.shape[-1] + 2) if pieces > 1
+                       else 0, dtype=torch.float32, device=q.device)
+    is_bf16 = int(q.dtype == torch.bfloat16)
+
+    def launch():
+        err = lib.kt_gqa_paged_decode(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_tables.data_ptr(), lengths.data_ptr(), b, h, hkv, page, pmax,
+            int(window), float(scale), is_bf16, out.data_ptr(),
+            part.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream,
+        )
+        _build.check(err, what)
+
+    return launch, out
+
+
+def gqa_prefill_launcher(q, k_pages, v_pages, page_tables, lengths, valid,
+                         scale: float, window: int = 0):
+    """As gqa_decode_launcher, for gqa_paged_prefill."""
+    what = "gqa_paged_prefill"
+    _check_gqa_cuda(what, q, k_pages, v_pages, page_tables, lengths, valid)
+    c, h, s, _ = q.shape
+    out = torch.empty_like(q)
+    fn = _build.lib("gqa_paged_attention").kt_gqa_paged_prefill
+    page, pmax = k_pages.shape[1], page_tables.shape[1]
+    is_bf16 = int(q.dtype == torch.bfloat16)
+
+    def launch():
+        err = fn(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_tables.data_ptr(), lengths.data_ptr(), valid.data_ptr(), c,
+            h, k_pages.shape[2], s, page, pmax, int(window), float(scale),
+            is_bf16, out.data_ptr(),
+            torch.cuda.current_stream(out.device).cuda_stream,
+        )
+        _build.check(err, what)
+
+    return launch, out
+
+
+def gqa_paged_decode(q, k_pages, v_pages, page_tables, lengths, scale: float,
+                     window: int = 0) -> torch.Tensor:
+    """One query token per sequence over its k / v pages; [B, H, D].
+
+    q [B, H, D] roped; k_pages / v_pages [P, page, Hkv, D]; page_tables
+    [B, Pmax] int32; lengths [B] int32 = valid KV length INCLUDING the
+    current token; window > 0 keeps only the last ``window`` keys. An
+    inactive row of a fixed-shape batch (zero table, length 1) reads row 0
+    of page 0 and gives a finite, ignored result."""
+    what = "gqa_paged_decode"
+    if q.dim() != 3:
+        raise ValueError(f"{what}: q must be [B, H, D]")
+    _check_gqa(what, q, k_pages, v_pages, page_tables, lengths, q.shape[0])
+    if device_kind(q, what) == "cpu":
+        return gqa_paged_decode_ref(q, k_pages, v_pages, page_tables,
+                                    lengths, scale, window)
+    launch, out = gqa_decode_launcher(q, k_pages, v_pages, page_tables,
+                                      lengths, scale, window)
+    launch()
+    LAUNCHES[what] += 1
+    return out
+
+
+def gqa_paged_prefill(q, k_pages, v_pages, page_tables, lengths, valid,
+                      scale: float, window: int = 0) -> torch.Tensor:
+    """Causal attention of a chunk of S new tokens per sequence over its
+    k / v pages, the chunk's KV already written; [C, H, S, D].
+
+    q [C, H, S, D] roped; lengths [C] int32 = OLD cached length (chunk
+    excluded); valid [C] int32 = live tokens of the chunk (rows qs >= valid
+    are padding and come back finite)."""
+    what = "gqa_paged_prefill"
+    if q.dim() != 4:
+        raise ValueError(f"{what}: q must be [C, H, S, D]")
+    _check_gqa(what, q, k_pages, v_pages, page_tables, lengths, q.shape[0])
+    if (tuple(valid.shape) != tuple(lengths.shape)
+            or valid.dtype != torch.int32):
+        raise ValueError(f"{what}: valid must be int32 [C]")
+    if device_kind(q, what) == "cpu":
+        return gqa_paged_prefill_ref(q, k_pages, v_pages, page_tables,
+                                     lengths, valid, scale, window)
+    launch, out = gqa_prefill_launcher(q, k_pages, v_pages, page_tables,
+                                       lengths, valid, scale, window)
     launch()
     LAUNCHES[what] += 1
     return out

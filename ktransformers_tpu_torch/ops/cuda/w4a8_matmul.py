@@ -1,9 +1,16 @@
-"""Dense W4A8 matmul: kernel wrapper (csrc/w4a8_matmul.cu) and its plain
-PyTorch version.
+"""W4A8 matmuls: kernel wrappers (csrc/w4a8_matmul.cu) and their plain
+PyTorch versions.
 
-Replaces ktransformers_tpu/ops/pallas/w4a8_matmul.py:dense_w4a8_matmul.
-Bound on the card: weight bytes at decode (K/2 * N int8 + ng * N f32
-scales per call); see the source note in csrc/w4a8_matmul.cu.
+One kernel, three entries, one per Pallas function it replaces in
+ktransformers_tpu/ops/pallas/w4a8_matmul.py:
+- dense_w4a8_matmul: x [M, K] @ W [K/2, N] (dense projections),
+- gathered_w4a8_matmul: row r through expert ids[r] of W [E, K/2, N]
+  (decode MoE experts the fused FFN kernels refuse),
+- grouped_w4a8_matmul: rows sorted by expert with group sizes; rows past
+  sum(group_sizes) come back zero (prefill MoE, likewise).
+They differ only in the row-tile map their wrapper builds. Bound on the
+card at decode: the weight bytes of the experts the rows use (K/2 * N int8
++ ng * N f32 scales each); see the source note in csrc/w4a8_matmul.cu.
 
 Also holds what the FFN wrappers share: the row-tile maps (a tile is up to
 ``mr`` rows that use one expert) and the plain W4A8 group dot.
@@ -233,6 +240,104 @@ def dense_w4a8_matmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
     if x2.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x2.device}")
     launch, out = dense_w4a8_launcher(x2, w)
+    launch()
+    LAUNCHES[what] += 1
+    return out
+
+
+GROUPED_MR = 8  # rows per tile of a grouped call
+
+
+def w4a8_rows_ref(x_rows: torch.Tensor, w: QTensor,
+                  row_expert: torch.Tensor) -> torch.Tensor:
+    """Plain version of the gathered and grouped entries: row r of x_rows
+    [R, K] through expert row_expert[r] of w [E, K/2, N] (-1: none, the
+    output row is zero), the activations quantized per row and scale group
+    by w4a8_prep. [R, N] in x_rows.dtype."""
+    kdim = x_rows.shape[1]
+    qa, qb, sa, sb, t, _ = w4a8_prep(x_rows, kdim, w.group_size)
+    out = torch.zeros(x_rows.shape[0], w.out_features, dtype=torch.float32,
+                      device=x_rows.device)
+    for e in torch.unique(row_expert).tolist():
+        if e < 0:
+            continue
+        idx = torch.nonzero(row_expert == e).flatten()
+        out[idx] = w4a8_group_dot(qa[idx], qb[idx], sa[idx], sb[idx], t[idx],
+                                  w.data[e], w.scales[e], w.group_size // 2)
+    return out.to(x_rows.dtype)
+
+
+def gathered_w4a8_matmul_ref(x_rows, w: QTensor, ids) -> torch.Tensor:
+    return w4a8_rows_ref(x_rows, w, ids.to(torch.int64))
+
+
+def grouped_w4a8_matmul_ref(x_sorted, w: QTensor, group_sizes) -> torch.Tensor:
+    return w4a8_rows_ref(x_sorted, w, sorted_row_experts(
+        group_sizes.to(x_sorted.device), x_sorted.shape[0]))
+
+
+def rows_launcher(x_rows: torch.Tensor, w: QTensor, tiles, mr: int,
+                  out: torch.Tensor, what: str):
+    """Checks a CUDA call on a 3-D weight and preps its activations (one
+    w4a8_prep launch); returns launch(), which runs only the kernel and
+    writes ``out`` [R, N]."""
+    check_cuda_operands(what, x_rows.device, x_rows, w.data, w.scales)
+    prep = prep_activations(x_rows, w.in_features, w.group_size)
+    fn = _build.lib("w4a8_matmul").kt_w4a8_rows
+    return lambda: launch_rows(fn, what, prep, w, tiles, mr, out)
+
+
+def gathered_launcher(x_rows: torch.Tensor, w: QTensor, ids: torch.Tensor):
+    out = torch.empty(x_rows.shape[0], w.out_features, dtype=x_rows.dtype,
+                      device=x_rows.device)
+    return rows_launcher(x_rows, w, row_tiles(ids), 1, out,
+                         "gathered_w4a8_matmul"), out
+
+
+def grouped_launcher(x_sorted: torch.Tensor, w: QTensor,
+                     group_sizes: torch.Tensor):
+    out = torch.zeros(x_sorted.shape[0], w.out_features,
+                      dtype=x_sorted.dtype, device=x_sorted.device)
+    tiles = grouped_tiles(group_sizes, x_sorted.shape[0], GROUPED_MR)
+    return rows_launcher(x_sorted, w, tiles, GROUPED_MR, out,
+                         "grouped_w4a8_matmul"), out
+
+
+def gathered_w4a8_matmul(x_rows: torch.Tensor, w: QTensor,
+                         ids: torch.Tensor) -> torch.Tensor:
+    """Decode MoE matmul on int8 dots: row r of x_rows [R, K] through
+    expert ids[r] of the offset-lo int4_g weight w [E, K/2, N]; only the
+    routed experts' bytes are read. [R, N] in x_rows.dtype.
+
+    CUDA tensors launch csrc/w4a8_matmul.cu (after one w4a8_prep launch);
+    CPU tensors take gathered_w4a8_matmul_ref."""
+    what = "gathered_w4a8_matmul"
+    check_w4a8_weight(w, 3, what)
+    _check_x(x_rows, w.in_features, what)
+    if ids.shape != (x_rows.shape[0],):
+        raise ValueError(f"{what}: ids must be [R]")
+    if device_kind(x_rows, what) == "cpu":
+        return gathered_w4a8_matmul_ref(x_rows, w, ids)
+    launch, out = gathered_launcher(x_rows.contiguous(), w, ids)
+    launch()
+    LAUNCHES[what] += 1
+    return out
+
+
+def grouped_w4a8_matmul(x_sorted: torch.Tensor, w: QTensor,
+                        group_sizes: torch.Tensor) -> torch.Tensor:
+    """Prefill MoE matmul on int8 dots over rows x_sorted [M, K] sorted by
+    expert (group_sizes [E]); rows past sum(group_sizes) come back zero.
+    [M, N] in x_sorted.dtype. Tiles of GROUPED_MR rows of one expert
+    share each weight read."""
+    what = "grouped_w4a8_matmul"
+    check_w4a8_weight(w, 3, what)
+    _check_x(x_sorted, w.in_features, what)
+    if group_sizes.shape != (w.data.shape[0],):
+        raise ValueError(f"{what}: group_sizes must be [E]")
+    if device_kind(x_sorted, what) == "cpu":
+        return grouped_w4a8_matmul_ref(x_sorted, w, group_sizes)
+    launch, out = grouped_launcher(x_sorted.contiguous(), w, group_sizes)
     launch()
     LAUNCHES[what] += 1
     return out

@@ -8,13 +8,16 @@ hooks choose it (ops/pallas/__init__.py):
 - W4A8 weights (offset-lo int4_g) whose expert fits the fused FFN kernels
   run gate_up -> GLU -> requant -> down in one call (gathered_w4a8_ffn /
   grouped_w4a8_ffn, the GLU in float32);
+- W4A8 weights the fused kernels refuse (an expert block too wide for
+  their byte budget, as Mixtral-8x7B's, or a swiglu_limit) run two
+  matmuls on int8 dots (gathered_w4a8_matmul / grouped_w4a8_matmul), the
+  JAX package's route from gathered_quant_matmul / grouped_quant_matmul
+  for repacked int4 weights, with the GLU between them in x.dtype;
 - every other kernel kind (int8, fp8, int4 kinds not repacked, mxfp4,
   mxfp8) runs two matmuls with the weight decoded in the kernel
-  (gathered_quant_matmul / grouped_quant_matmul) and the GLU between them
-  in x.dtype;
-- W4A8 weights the fused kernels refuse (too wide, or a swiglu_limit) would
-  need the unfused W4A8 matmuls, which are not ported: they raise.
-LoRA, expert parallelism and host offload are not ported.
+  (gathered_quant_matmul / grouped_quant_matmul), the GLU likewise.
+Expert kinds with no kernel raise. LoRA, expert parallelism and host
+offload are not ported.
 """
 
 from __future__ import annotations
@@ -38,6 +41,10 @@ from ktransformers_tpu_torch.ops.cuda.w4a8_ffn import (
     gathered_w4a8_ffn,
     grouped_ffn_fits,
     grouped_w4a8_ffn,
+)
+from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
+    gathered_w4a8_matmul,
+    grouped_w4a8_matmul,
 )
 from ktransformers_tpu_torch.quant.formats import QTensor
 from ktransformers_tpu_torch.quant.w4a8 import W4A8_KINDS
@@ -66,11 +73,13 @@ def _check_kernel_kind(w: QTensor, what: str) -> None:
     if w.kind not in KINDS:
         raise NotImplementedError(
             f"{what}: {w.kind} experts have no kernel (the plain expert "
-            "products of the JAX package are not ported)")
-    if w.kind in W4A8_KINDS and w.act_quant:
-        raise NotImplementedError(
-            f"{what}: W4A8 experts outside the fused FFN kernels need the "
-            "unfused gathered / grouped W4A8 matmuls (ROADMAP Queue 2)")
+            "products of the JAX package are not ported, ROADMAP Queue 1)")
+
+
+def _w4a8(w: QTensor) -> bool:
+    """Repacked int4 weights, which the JAX package's gathered / grouped
+    quant_matmul hand to its W4A8 kernels."""
+    return w.kind in W4A8_KINDS and w.act_quant
 
 
 def gathered_matmul(x: torch.Tensor, w: QTensor,
@@ -86,7 +95,8 @@ def gathered_matmul(x: torch.Tensor, w: QTensor,
         x_rows = x[:, None, :].expand(t, k, kdim).reshape(t * k, kdim)
     else:
         x_rows = x.reshape(t * k, kdim)
-    y = gathered_quant_matmul(x_rows.contiguous(), w, ids.reshape(t * k))
+    fn = gathered_w4a8_matmul if _w4a8(w) else gathered_quant_matmul
+    y = fn(x_rows.contiguous(), w, ids.reshape(t * k))
     return y.reshape(t, k, -1)
 
 
@@ -95,7 +105,8 @@ def grouped_matmul(x: torch.Tensor, w: QTensor,
     """x [m, k] rows sorted by group; w [g, k, n]; returns [m, n]. Rows
     past sum(group_sizes) come back zero."""
     _check_kernel_kind(w, "grouped_matmul")
-    return grouped_quant_matmul(x, w, group_sizes)
+    fn = grouped_w4a8_matmul if _w4a8(w) else grouped_quant_matmul
+    return fn(x, w, group_sizes)
 
 
 def moe_dispatch(topk_idx: torch.Tensor, num_experts: int):

@@ -23,9 +23,13 @@ Sampling draws come from one torch.Generator on the engine's device, seeded
 in the constructor: sampled tokens differ from the JAX package's, greedy
 tokens do not.
 
+Both attention kinds of the port serve: MLA pools (ckv / k_pe) and GQA
+pools (k / v per KV head); pool creation, trash-page writes, prefix reuse
+and the spill tiers read pages by id and do not care which.
+
 Not ported, the constructor raises when asked: the sparse page budget
 (ROADMAP Queue 1 item 9), routing collection with expert re-placement
-(item 11), hybrid linear-attention state (item 6).
+(item 11); hybrid linear-attention models have no spec yet (item 6).
 """
 
 from __future__ import annotations
@@ -89,10 +93,6 @@ class ServeEngine:
             raise NotImplementedError(
                 "sparse page-budget decode is not ported (ROADMAP Queue 1 "
                 "item 9)")
-        if spec.attention.kind != "mla":
-            raise NotImplementedError(
-                "ServeEngine: only MLA families are ported; GQA and hybrid "
-                "linear-attention models come with ROADMAP Queue 1 item 6")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.device = torch.device(device)

@@ -2,11 +2,12 @@
 ktransformers_tpu/utils/device_prep.py:prepare_params).
 
 Applied on every device (the kernels and their plain versions take the same
-layouts): bf16 absorbed-MLA mats, q_proj + kv_a fused into one "qkv_a"
-projection, and the W4A8 offset-lo repack of int4_g weights, which the
-environment variable KT_W4A8=0 switches off as in the JAX package (int4
-kinds then run through quant_matmul). The TPU-layout passes
-(pad_scale_sublanes, normalize_layouts) have no counterpart here.
+layouts): bf16 absorbed-MLA mats, the attention input projections fused
+into one ("qkv_a" for MLA, "qkv" for GQA), and the W4A8 offset-lo repack
+of int4_g weights, which the environment variable KT_W4A8=0 switches off
+as in the JAX package (int4 kinds then run through quant_matmul). The
+TPU-layout passes (pad_scale_sublanes, normalize_layouts) have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -56,19 +57,28 @@ def _concat_out(parts):
 
 
 def fuse_qkv_projections(params, spec):
-    """Merge q_proj + kv_a into one "qkv_a" matmul per layer (one launch
-    and one activation quant instead of two). Mutates params in place."""
+    """Merge each layer's attention input projections into one matmul (one
+    launch and one activation quant instead of two or three): MLA q_proj +
+    kv_a -> "qkv_a", GQA q_proj + k_proj + v_proj -> "qkv". Layers with
+    biases or differing formats keep theirs. Mutates params in place."""
+    if spec.attention.kind == "mla":
+        names, fkey = ("q_proj", "kv_a"), "qkv_a"
+        biases = ("q_proj_bias", "kv_a_bias")
+    else:
+        names, fkey = ("q_proj", "k_proj", "v_proj"), "qkv"
+        biases = ("q_bias", "k_bias", "v_bias")
     for lp in params.get("layers", []):
         p = lp.get("attn")
-        if p is None or "q_proj" not in p or "kv_a" not in p:
+        if p is None or any(n not in p for n in names):
             continue
-        if "q_proj_bias" in p or "kv_a_bias" in p:
+        if any(b in p for b in biases):
             continue
-        fused = _concat_out([p["q_proj"], p["kv_a"]])
+        fused = _concat_out([p[n] for n in names])
         if fused is None:
             continue
-        p["qkv_a"] = fused
-        del p["q_proj"], p["kv_a"]
+        p[fkey] = fused
+        for n in names:
+            del p[n]
     return params
 
 

@@ -24,7 +24,9 @@ Tolerances, as a share of the reference's largest magnitude:
   float32 accumulation on both sides, another order of sums;
 - the same 1e-5 / 1e-2 for the quant_matmul family (the weight is decoded
   and rounded to the activations' type identically on both sides) and for
-  mla_decode_attention.
+  mla_decode_attention;
+- 1e-5 / 1e-2 for the gathered and grouped W4A8 matmuls (as the dense one)
+  and for the two GQA paged-attention kernels (as the MLA ones).
 """
 
 import numpy as np
@@ -397,3 +399,123 @@ def test_mla_decode_attention_refuses(cuda):
     with pytest.raises(ValueError, match="int32"):
         MD.mla_decode_attention(z(1, 4, 512), z(1, 4, 64), z(1, 8, 512),
                                 z(1, 8, 64), z(1).long(), 1.0)
+
+
+# ------------------------------------------ the Mixtral path's four kernels
+
+
+@pytest.mark.parametrize("gs", [32, 128])
+def test_gathered_w4a8_matmul(cuda, gs):
+    """Repeated and missing experts; float32 and bfloat16 activations."""
+    rng = np.random.default_rng(gs + 1)
+    w, x = _w(rng, (8, 256, 136), gs), _x(rng, 7, 256)
+    ids = torch.tensor([3, 0, 5, 3, 7, 1, 3], dtype=torch.int32)
+    wc = w.to(cuda)
+    out = _counted("gathered_w4a8_matmul", lambda: MM.gathered_w4a8_matmul(
+        x.to(cuda), wc, ids.to(cuda)))
+    assert out.dtype == torch.float32
+    assert _rel(out, MM.gathered_w4a8_matmul_ref(x, w, ids)) <= 1e-5
+    xb = x.bfloat16()
+    out = MM.gathered_w4a8_matmul(xb.to(cuda), wc, ids.to(cuda))
+    assert out.dtype == torch.bfloat16
+    assert _rel(out, MM.gathered_w4a8_matmul_ref(xb, w, ids)) <= 1e-2
+
+
+def test_grouped_w4a8_matmul_empty_expert_and_tail(cuda):
+    """Expert 1 has no rows, the group sizes cut the 8-row tiles short,
+    and the rows past their sum come back zero."""
+    rng = np.random.default_rng(6)
+    w, xs = _w(rng, (4, 256, 200), 64), _x(rng, 29, 256)
+    sizes = torch.tensor([5, 0, 11, 9], dtype=torch.int32)
+    out = _counted("grouped_w4a8_matmul", lambda: MM.grouped_w4a8_matmul(
+        xs.to(cuda), w.to(cuda), sizes.to(cuda)))
+    assert torch.all(out[25:] == 0)
+    assert _rel(out, MM.grouped_w4a8_matmul_ref(xs, w, sizes)) <= 1e-5
+
+
+def _gqa_pool(rng, b, pmax, page, dtype, live, hkv=2):
+    """Shuffled page tables over k / v pools [P, page, hkv, 128] whose
+    unused pages, and rows at or past each live length, are NaN."""
+    num_pages = b * pmax + 1
+    perm = rng.permutation(num_pages - 1)[: b * pmax] + 1
+    tables = torch.from_numpy(perm.reshape(b, pmax).astype(np.int32))
+    k = torch.full((num_pages, page, hkv, 128), float("nan"))
+    v = torch.full_like(k, float("nan"))
+    for i, n in enumerate(live):
+        for pos in range(n):
+            pid, slot = int(tables[i, pos // page]), pos % page
+            k[pid, slot] = _x(rng, hkv, 128)
+            v[pid, slot] = _x(rng, hkv, 128)
+    return k.to(dtype), v.to(dtype), tables
+
+
+@pytest.mark.parametrize("page, pmax", [(16, 8), (64, 4), (64, 8), (16, 40)])
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_gqa_paged_decode(cuda, page, pmax, window, dtype, tol):
+    """Lengths 1, one page, one page + 1, all pages (current token
+    included), and across the kernel's 256-key pieces where the pool holds
+    more than one (pools of 512 and 640 keys: 2 and 3 pieces merged by its
+    second launch); 8 query heads over 2 KV heads; with a window only the
+    last ``window`` keys count. Every row the kernel must not read is NaN."""
+    rng = np.random.default_rng(page + window)
+    lens = [1, page, page + 1, page * pmax]
+    if page * pmax > 256:
+        lens += [256, 257, page * pmax - 1]
+    b = len(lens)
+    k, v, tables = _gqa_pool(rng, b, pmax, page, dtype, lens)
+    q = _x(rng, b, 8, 128).to(dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    args = (q, k, v, tables, lengths)
+    out = _counted("gqa_paged_decode", lambda: PA.gqa_paged_decode(
+        *[t.to(cuda) for t in args], 0.088, window=window))
+    ref = PA.gqa_paged_decode(*args, 0.088, window=window)
+    assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
+    assert _rel(out, ref) <= tol
+
+
+@pytest.mark.parametrize("page, pmax, s", [(16, 8, 32), (64, 4, 96)])
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_gqa_paged_prefill(cuda, page, pmax, s, window, dtype, tol):
+    """Old lengths 0, mid-page and page-aligned, valid < S and == S, and
+    an empty chunk on an empty cache (zeros). Rows >= valid are padding:
+    finite, and compared where the window leaves them a key."""
+    rng = np.random.default_rng(page + s + window)
+    room = page * pmax - s
+    olds = [0, min(page // 2 + 1, room), min(page, room), 0]
+    valids = [s - 5, s, s - 1, 0]
+    c = len(olds)
+    live = [o + v for o, v in zip(olds, valids)]
+    k, v, tables = _gqa_pool(rng, c, pmax, page, dtype, live)
+    q = _x(rng, c, 8, s, 128).to(dtype)
+    lengths = torch.tensor(olds, dtype=torch.int32)
+    valid = torch.tensor(valids, dtype=torch.int32)
+    args = (q, k, v, tables, lengths, valid)
+    out = _counted("gqa_paged_prefill", lambda: PA.gqa_paged_prefill(
+        *[t.to(cuda) for t in args], 0.088, window=window))
+    ref = PA.gqa_paged_prefill(*args, 0.088, window=window)
+    assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
+    assert torch.all(out[3] == 0)
+    for i, n in enumerate(valids[:3]):
+        assert _rel(out[i, :, :n], ref[i, :, :n]) <= tol, i
+    assert _rel(out[0, :, s - 5:], ref[0, :, s - 5:]) <= tol
+
+
+def test_gqa_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    rng = np.random.default_rng(0)
+    k, v, tables = _gqa_pool(rng, 1, 2, 8, torch.float32, [3], hkv=1)
+    lengths = torch.tensor([3], dtype=torch.int32)
+    on = lambda *ts: [t.to(cuda) for t in ts]  # noqa: E731
+    with pytest.raises(ValueError, match="at most 8"):
+        PA.gqa_paged_decode(*on(_x(rng, 1, 16, 128), k, v, tables, lengths),
+                            0.1)
+    with pytest.raises(ValueError, match="D=128"):
+        PA.gqa_paged_decode(*on(_x(rng, 1, 4, 64), k[..., :64].contiguous(),
+                                v[..., :64].contiguous(), tables, lengths),
+                            0.1)
+    with pytest.raises(ValueError, match="share"):
+        PA.gqa_paged_decode(*on(_x(rng, 1, 4, 128).bfloat16(), k, v, tables,
+                                lengths), 0.1)

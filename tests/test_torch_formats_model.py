@@ -35,6 +35,7 @@ from tests.test_torch_model import (
     _jax_run,
     _port_run,
     jax_interpret_hooks,
+    one_torch_thread,  # noqa: F401 (a fixture)
 )
 
 SPEC = spec_from_hf_config(SMALL)

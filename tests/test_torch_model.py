@@ -48,6 +48,19 @@ PROMPT_LEN, DECODE_STEPS, MAX_LEN = 16, 4, 64
 LOGIT_TOL = 5e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the module's torch ops on one thread. The suite runs these tests
+    beside JAX tests that keep every core busy, and torch's thread pool
+    then waits on descheduled threads at every small op: an engine test
+    that takes 6 s took 47 s on eight threads under such load and 6 s on
+    one. Port test modules import this fixture to share it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @contextlib.contextmanager
 def jax_interpret_hooks(mla_fused: bool = True):
     """Install the JAX package's Pallas hooks as interpret-mode wrappers

@@ -30,7 +30,7 @@ from ktransformers_tpu_torch.models import paged as tpaged
 from ktransformers_tpu_torch.models.spec import spec_from_hf_config
 from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
 
-from tests.test_torch_model import SMALL
+from tests.test_torch_model import SMALL, one_torch_thread  # noqa: F401
 
 H, R, DR = 4, 64, 16
 TOL = dict(rtol=2e-5, atol=2e-5)

@@ -236,9 +236,15 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
 
 def test_w4a8_experts_outside_the_fused_ffn_raise():
     """Repacked int4 experts that the fused FFN refuses (here: a
-    swiglu_limit) would need the unfused W4A8 matmuls, which are not
-    ported: NotImplementedError, never a plain product."""
-    from ktransformers_tpu_torch.ops.activations import ActivationConfig
+    swiglu_limit) run through the unfused W4A8 matmuls, as in the JAX
+    package: gathered_w4a8_matmul at decode, grouped_w4a8_matmul at
+    prefill, the GLU between them, never a plain product. Experts of a
+    kind no kernel takes (int8_g) still raise NotImplementedError."""
+    from ktransformers_tpu_torch.ops.activations import (
+        ActivationConfig,
+        glu_activate,
+    )
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
     from ktransformers_tpu_torch.ops.moe import MoEWeights, moe_forward
     from ktransformers_tpu_torch.quant.formats import quantize
     from ktransformers_tpu_torch.quant.w4a8 import repack_offset_lo
@@ -251,9 +257,21 @@ def test_w4a8_experts_outside_the_fused_ffn_raise():
     act = ActivationConfig(kind="silu", swiglu_limit=7.0)
     for t in (2, 12):  # gather path and grouped path
         idx = torch.from_numpy(rng.integers(0, 4, (t, 2)))
-        with pytest.raises(NotImplementedError, match="Queue 2"):
-            moe_forward(torch.zeros(t, 128), MoEWeights(gu, dn), idx,
-                        torch.ones(t, 2), act)
+        x = torch.from_numpy(rng.standard_normal((t, 128)).astype(np.float32))
+        w = torch.full((t, 2), 0.5)
+        out = moe_forward(x, MoEWeights(gu, dn), idx, w, act)
+        rows = x[:, None].expand(t, 2, 128).reshape(2 * t, 128)
+        ids = idx.reshape(-1).to(torch.int32)
+        h = MM.gathered_w4a8_matmul(rows, gu, ids)
+        a = glu_activate(h[:, :32], h[:, 32:], act)
+        want = MM.gathered_w4a8_matmul(a, dn, ids).reshape(t, 2, 128)
+        np.testing.assert_allclose(out.numpy(), (0.5 * want).sum(1).numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    g8 = quantize(torch.from_numpy(
+        rng.standard_normal((4, 128, 64)).astype(np.float32)), "int8_g")
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        moe_forward(torch.zeros(2, 128), MoEWeights(g8, dn),
+                    torch.zeros(2, 2, dtype=torch.int64), torch.ones(2, 2))
 
 
 # --------------------------------------------------- mla_decode_attention

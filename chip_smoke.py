@@ -56,7 +56,21 @@ Phases (any failure exits non-zero before the final line):
             requests of 512 + 32 tokens, launches per step held to the
             counts the code implies, a ServeEngine answering the 8 requests
             of phase 6 at depth 3 with the same checks, and the profiles of
-            phase 7 (engine launches per step held too).
+            phase 7 (engine launches per step held too);
+10. sft kernels: the two transposed matmuls of the LoRA SFT backward
+            (rows 16 and 17) against their plain versions at the
+            DeepSeek-V2-Lite shapes of a 512-token step (every projection's
+            dx; every weight format at the qkv_a shape; N = 1824; the
+            grouped experts and the gathered entry);
+11. sft parity: the 2-layer full-width model, one Trainer step on the
+            card and on the CPU (float32 compute): int8 weights held (loss,
+            every LoRA gradient, the updated leaves), W4A8 weights recorded;
+12. sft:    the 27-layer W4A8 model with rank-8 adapters, as
+            scripts/bench_sft.py sets it up (seq 512, batch 1, bf16,
+            per-layer remat): a first step and 4 timed steps through
+            Trainer.train_step, finite losses, a frozen base, adapters that
+            moved, launches per step held to the counts the code implies,
+            peak memory, and one profiled step.
 Prints a kernels JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Imports nothing of JAX.
@@ -1446,7 +1460,8 @@ def _is_port_kernel(name: str) -> bool:
                                    "mla_decode_attention_kernel",
                                    "gqa_paged_decode_kernel",
                                    "gqa_decode_combine_kernel",
-                                   "gqa_paged_prefill_kernel"))
+                                   "gqa_paged_prefill_kernel",
+                                   "quant_rows_t_kernel"))
 
 
 def wall_ms(fn) -> float:
@@ -1585,6 +1600,381 @@ def profile_engine_steps(result: dict, gen, prefix: str = "") -> None:
     result["profile"].update(summarize_steps(steps))
 
 
+# -------------------------------------------------------------------- sft
+
+SFT_SEQ = 512
+SFT_STEPS = 4
+# dx float32 on both sides from the same bf16 operands; the kernel's tensor
+# cores add each k16 step's products with truncated alignment (not IEEE
+# round-to-nearest), an error growing with the contraction: 3.8e-6 at
+# N = 3648, 1.2e-4 at N = 102,400 (lm_head) of the largest |dx|
+SFT_KERNEL_TOL = 1e-3
+
+
+def sft_kernel_checks(rows: list, entries: dict) -> None:
+    """Rows 16 and 17 (csrc/quant_matmul_t.cu) at the shapes of a 512-token
+    step of DeepSeek-V2-Lite against their plain versions on the card.
+    dy is bf16 (the step's compute dtype), dx float32. Tolerance
+    SFT_KERNEL_TOL of the largest |dx|: both sides round dy (times the
+    scale for int8 / fp8) and the decoded weight to bf16 and sum in float32
+    (the kernel on tensor cores, the plain version in cuBLAS's f32 FMA).
+    Bound: dy, the weight bytes of the experts the rows use and dx over the
+    memory rate, against 2 M N K over the bf16 peak. Library yardstick, row
+    16 only: torch.matmul(dy, W_bf16.T) on the dequantized weight (never on
+    the path); row 17 has none (no one PyTorch call takes per-row
+    experts)."""
+    from ktransformers_tpu_torch.ops.cuda import quant_matmul_t as QT
+    from ktransformers_tpu_torch.quant.formats import dequantize
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    check = make_check(rows, entries)
+    rd, rn, w = draw(4321)
+    m = SFT_SEQ
+
+    def wbytes(wt, experts=None):
+        per = [t for t in (wt.data, wt.scales, wt.zeros) if t is not None]
+        if experts is None:
+            return nbytes(*per)
+        return experts * nbytes(*(t[0] for t in per))
+
+    def dense(label, wt, main=False, iters=20):
+        k, n = wt.in_features, wt.out_features
+        dy = rn(m, n)
+        wdq = dequantize(wt, bf)
+        check("quant_matmul_t", label, SFT_KERNEL_TOL,
+              lambda: QT.quant_matmul_t(dy, wt),
+              lambda: QT.quant_matmul_t_ref(dy, wt),
+              lambda: QT.dense_t_launcher(dy, wt),
+              nbytes(dy) + wbytes(wt) + m * k * 4, 2 * m * n * k,
+              BF16_FLOPS_PER_S, library=lambda: torch.matmul(dy, wdq.T),
+              main=main, plain_iters=2, iters=iters)
+
+    # row 16 on the W4A8 weights of the step (offset-lo int4_g): every
+    # projection whose input needs a gradient, dy [512, N] -> dx [512, K]
+    for k, n, gs, label, main in (
+        (2048, 3648, 128, "qkv_a 3648->2048", True),
+        (2048, 2048, 128, "o_proj 2048->2048", False),
+        (2048, 102400, 128, "lm_head 102400->2048", False),
+        (2048, 5632, 128, "shared gate_up 5632->2048", False),
+        (1408 * 2, 2048, 128, "shared down 2048->2816", False),
+        (2048, 21888, 128, "layer-0 gate_up 21888->2048", False),
+        (10944, 2048, 96, "layer-0 down 2048->10944 (gs 96)", False),
+        (2048, 1824, 128, "N=1824", False),
+    ):
+        dense(f"int4_g offset-lo M={m} {label}", w((k, n), gs), main)
+    for kind in QUANT_KINDS:
+        dense(f"{kind} M={m} qkv_a 3648->2048", rd.q((2048, 3648), kind, 128),
+              iters=10)
+
+    # row 17: the routed experts' gate_up / down transposes over the 3072
+    # sorted rows of 512 tokens x top-6, and the gathered entry at 6 rows
+    e, d, f = 64, 2048, 1408
+    g_cpu = torch.Generator().manual_seed(5)
+    topk = torch.stack([torch.randperm(e, generator=g_cpu)[:6]
+                        for _ in range(m)]).to(dev)
+    sizes = torch.bincount(topk.reshape(-1), minlength=e).to(torch.int32)
+    used = int((sizes > 0).sum())
+    ids6 = topk[0].to(torch.int32)
+    for k, n, what in ((d, 2 * f, "gate_up"), (f, d, "down")):
+        wt = w((e, k, n))
+        dy = rn(m * 6, n)
+        check("grouped_quant_matmul_t",
+              f"int4_g offset-lo {m * 6} sorted rows {what}^T "
+              f"[64, {k}, {n}]", SFT_KERNEL_TOL,
+              lambda: QT.grouped_quant_matmul_t(dy, wt, sizes),
+              lambda: QT.grouped_quant_matmul_t_ref(dy, wt, sizes),
+              lambda: QT.grouped_t_launcher(dy, wt, sizes),
+              nbytes(dy) + wbytes(wt, used) + m * 6 * k * 4,
+              2 * m * 6 * n * k, BF16_FLOPS_PER_S,
+              main=(what == "gate_up"), plain_iters=2, iters=10)
+        dy6 = rn(6, n)
+        check("grouped_quant_matmul_t",
+              f"gathered entry 6 rows {what}^T [64, {k}, {n}]",
+              SFT_KERNEL_TOL,
+              lambda: QT.gathered_quant_matmul_t(dy6, wt, ids6),
+              lambda: QT.gathered_quant_matmul_t_ref(dy6, wt, ids6),
+              lambda: QT.gathered_t_launcher(dy6, wt, ids6),
+              nbytes(dy6) + wbytes(wt, 6) + 6 * k * 4, 2 * 6 * n * k,
+              BF16_FLOPS_PER_S, plain_iters=2)
+        del wt
+
+
+# the SFT parity model's tolerances (int8 weights, float32 compute): the
+# loss as a share of itself, each LoRA gradient's error as a share of its
+# norm. The int8 weights have no activation requant, so the two devices
+# differ by the order of float32 sums, which the transposed kernels' bf16
+# rounding of dy can turn into one bf16 step (2^-8) of an element of dy:
+# at most 2^-8 of a gradient's norm
+SFT_LOSS_TOL = 1e-4
+SFT_GRAD_TOL = 2.0 ** -8
+
+
+def sft_step(trainer, ids, labels):
+    """One Trainer step as train_step takes it, keeping the gradients:
+    (loss, gradients), the leaves updated in place."""
+    from ktransformers_tpu_torch.sft.train import loss_fn
+
+    dev = trainer.device
+    ids = torch.as_tensor(ids, device=dev)
+    labels = torch.as_tensor(labels, device=dev)
+    loss = loss_fn(trainer.params, trainer.spec, ids, labels,
+                   trainer.compute_dtype, remat=trainer.cfg.remat,
+                   rope_tables=trainer.rope_tables)
+    grads = torch.autograd.grad(loss, trainer.leaves)
+    with torch.no_grad():
+        trainer._update(list(grads))
+    return float(loss.detach()), grads
+
+
+def sft_parity(result: dict) -> None:
+    """DeepSeek-V2-Lite at full width cut to 2 layers (one dense, one MoE
+    layer) with rank-8 adapters: one Trainer step on 64 seeded tokens,
+    float32 compute, on the CPU (plain versions) and on the card (kernels,
+    rows 16 and 17 in the backward). int8 weights: the loss within
+    SFT_LOSS_TOL, every LoRA gradient within SFT_GRAD_TOL of its norm, and
+    every updated leaf equal to the CPU's (to 1e-3 of the learning rate)
+    wherever the CPU's gradient is larger than 4 SFT_GRAD_TOL of its leaf's
+    largest, so that its sign is settled (Adam's first step moves each
+    element by about the learning rate times the sign of its gradient).
+    W4A8 weights (int8 activation codes that float32 sums in another order
+    can flip): recorded, and held finite."""
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.sft import (
+        LoRAConfig,
+        TrainConfig,
+        Trainer,
+        init_lora,
+    )
+    from ktransformers_tpu_torch.sft.lora import lora_leaves
+    from ktransformers_tpu_torch.utils.device_prep import (
+        params_to,
+        prepare_params,
+    )
+
+    t0 = time.perf_counter()
+    spec = spec_from_hf_config(dict(bench_model_cfg(), num_hidden_layers=2))
+    toks = np.random.default_rng(6).integers(0, spec.vocab_size, (1, 64))
+    lr = TrainConfig().learning_rate
+    out = {}
+    for kind, tol in (("int8", SFT_GRAD_TOL), ("int4_g", None)):
+        params = prepare_params(init_params_synthetic(
+            spec, seed=7, quant=kind, device="cpu"), spec)
+        params = init_lora(params, spec, LoRAConfig(rank=8), seed=0)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            tr = Trainer(params_to(params, dev), spec,
+                         TrainConfig(seq_len=64), device=dev)
+            loss, grads = sft_step(tr, toks, toks)
+            runs[dev] = (loss, [g.float().cpu() for g in grads],
+                         [(n, t.detach().float().cpu())
+                          for n, t in lora_leaves(tr.lora)])
+            del tr
+        (lc, gc, pc), (lg, gg, pg) = runs["cpu"], runs["cuda"]
+        before = {n: t.float() for n, t in lora_leaves(params)}
+        loss_err = abs(lg - lc) / abs(lc)
+        grad_errs, leaf_errs, unsettled = {}, {}, 0
+        for (name, a_cpu), a_gpu, g_cpu, g_gpu in zip(pc, [t for _, t in pg],
+                                                      gc, gg):
+            grad_errs[name] = float((g_gpu - g_cpu).norm()
+                                    / g_cpu.norm().clamp_min(1e-30))
+            # (the a factors' gradients are exactly zero at the first step:
+            # their b factors start at zero)
+            settled = g_cpu.abs() > 4 * SFT_GRAD_TOL * g_cpu.abs().max()
+            if settled.any():
+                unsettled += int((~settled).sum())
+            step_diff = ((a_gpu - before[name]) - (a_cpu - before[name])).abs()
+            leaf_errs[name] = float(step_diff[settled].max()) / lr \
+                if settled.any() else 0.0
+        finite = all(bool(torch.isfinite(g).all()) for g in gg) \
+            and np.isfinite(lg)
+        worst_g = max(grad_errs.values())
+        worst_p = max(leaf_errs.values())
+        out[kind] = dict(loss_cpu=lc, loss_card=lg, loss_rel_err=loss_err,
+                         grad_rel_err=grad_errs, leaf_err_over_lr=leaf_errs,
+                         unsettled_elements=unsettled,
+                         tol=None if tol is None else dict(
+                             loss=SFT_LOSS_TOL, grad=SFT_GRAD_TOL,
+                             leaf_over_lr=1e-3))
+        log(f"sft parity {kind} (card vs CPU): loss {lg:.6f} vs {lc:.6f} "
+            f"(rel {loss_err:.2e}), worst LoRA gradient rel {worst_g:.2e}, "
+            f"worst settled leaf step {worst_p:.2e} of the learning rate, "
+            f"{unsettled} elements with unsettled sign "
+            f"(held: {tol is not None})")
+        if not finite:
+            raise AssertionError(f"sft parity {kind}: non-finite loss or "
+                                 "gradients on the card")
+        if tol is not None and (loss_err > SFT_LOSS_TOL or worst_g > tol
+                                or worst_p > 1e-3):
+            raise AssertionError(f"sft parity {kind} failed: {out[kind]}")
+        del params
+    out["seconds"] = time.perf_counter() - t0
+    result["sft_parity"] = out
+
+
+def sft_step_launches(spec, params, rows: int) -> dict:
+    """Launches of one Trainer step of ``rows`` tokens with rank-8 adapters
+    on o_proj and the routed experts (the default targets after the fused
+    qkv_a), per-layer remat, on the W4A8 parameters ``params``, derived
+    from the model:
+    - forward, each layer run twice (the pass and its rematerialization),
+      lm_head once: dense_w4a8_matmul on qkv_a and o_proj of every layer;
+      a GLU MLP (a dense layer's, or a MoE layer's shared experts, which
+      carry no adapter) takes the fused dense FFN where the JAX package
+      fuses it (w4a8_ffn.dense_mlp_fused), else two dense_w4a8_matmul;
+      the two grouped expert matmuls of every MoE layer (adapters keep
+      them off the fused FFN). The rematerialization stops once the last
+      tensor the backward needs is rebuilt (torch.utils.checkpoint's
+      early stop), so an unfused MLP's down projection, which ends its
+      layer and saves nothing for the backward, runs once;
+    - backward: each fused FFN's rule recomputes its gate_up product
+      (dense_w4a8_matmul); dx (quant_matmul_t) of qkv_a and o_proj in
+      every layer but the first (its input, the embedding, and so its
+      attention need no gradient), of gate_up and down of every GLU MLP,
+      and of lm_head; dx of the two expert matmuls of every MoE layer
+      (grouped_quant_matmul_t);
+    - one activation prep per W4A8 matmul or FFN call."""
+    from ktransformers_tpu_torch.ops.cuda.w4a8_ffn import dense_mlp_fused
+
+    act = spec.activation
+    mlps = [lp["moe"]["shared"] if "moe" in lp else lp["mlp"]
+            for lp in params["layers"]]
+    fused = sum(dense_mlp_fused(m["gate_up"], m["down"], act.kind,
+                                act.swiglu_limit, rows) for m in mlps)
+    n_layers = len(mlps)
+    moe = sum("moe" in lp for lp in params["layers"])
+    fwd_dense = 2 * n_layers + 2 * (n_layers - fused)
+    dense = 2 * fwd_dense - (n_layers - fused) + 1 + fused
+    ffn = 2 * fused
+    grouped = 2 * 2 * moe
+    return {
+        "dense_w4a8_matmul": dense,
+        "dense_w4a8_ffn": ffn,
+        "grouped_w4a8_matmul": grouped,
+        "w4a8_prep": dense + ffn + grouped,
+        "quant_matmul_t": 2 * (n_layers - 1) + 2 * n_layers + 1,
+        "grouped_quant_matmul_t": 2 * moe,
+    }
+
+
+SFT_KERNELS = ("w4a8_prep", "dense_w4a8_matmul", "dense_w4a8_ffn",
+               "grouped_w4a8_matmul", "quant_matmul_t",
+               "grouped_quant_matmul_t")
+
+
+def _is_transposed_kernel(name: str) -> bool:
+    return "quant_rows_t_kernel" in name
+
+
+def sft_run(result: dict) -> None:
+    """The SFT path at full depth, as scripts/bench_sft.py sets it up:
+    DeepSeek-V2-Lite (27 layers), int4_g weights prepared for W4A8, rank-8
+    adapters (default targets), one sequence of 512 seeded tokens (labels
+    = inputs), bf16 compute, per-layer remat, default TrainConfig."""
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from ktransformers_tpu_torch.quant.formats import QTensor
+    from ktransformers_tpu_torch.sft import (
+        LoRAConfig,
+        TrainConfig,
+        Trainer,
+        init_lora,
+    )
+    from ktransformers_tpu_torch.sft.lora import lora_leaves
+    from ktransformers_tpu_torch.utils.device_prep import prepare_params
+
+    spec = spec_from_hf_config(bench_model_cfg())
+    t0 = time.perf_counter()
+    params = prepare_params(init_params_synthetic(
+        spec, quant="int4_g", moe_quant="int4_g", device="cuda"), spec)
+    params = init_lora(params, spec, LoRAConfig(rank=8))
+    trainer = Trainer(params, spec, TrainConfig(seq_len=SFT_SEQ, remat=True),
+                      compute_dtype=torch.bfloat16, device="cuda")
+    del params
+    base = [t for t in _leaves(trainer.base)]
+    base_copy = [t.cpu() for t in base]  # on the host: not in the peak
+    pbytes = sum(t.numel() * t.element_size() for t in base)
+    lbytes = sum(t.numel() * t.element_size() for t in trainer.leaves)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"sft: {len(trainer.leaves)} LoRA leaves ({lbytes / 1e6:.1f} MB) on "
+        f"{pbytes / 1e9:.3f} GB of base parameters, ready in {init_s:.1f} s")
+    ids = np.random.default_rng(0).integers(0, spec.vocab_size, (1, SFT_SEQ))
+    want = sft_step_launches(spec, trainer.base, SFT_SEQ)
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: v for k, v in LAUNCHES.items() if v}
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss_first = trainer.train_step(ids, ids)
+    first_s = time.perf_counter() - t0
+    first = counts()
+    b_moved = all(bool(t.abs().max() > 0) for n, t in
+                  lora_leaves(trainer.lora) if n.endswith("b"))
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(ids, ids) for _ in range(SFT_STEPS)]
+    step_s = (time.perf_counter() - t0) / SFT_STEPS
+    timed = counts()
+    peak = torch.cuda.max_memory_allocated()
+    frozen = all(torch.equal(a.cpu(), b) for a, b in zip(base, base_copy))
+    del base_copy
+
+    # one profiled step: device time by kernel (after the counts were read)
+    rows = kernel_rows(lambda: trainer.train_step(ids, ids))
+    busy = sum(r[1] for r in rows)
+    t_ms = {name: sum(r[1] for r in rows if pick(r[0]))
+            for name, pick in (
+                ("quant_matmul_t + grouped_quant_matmul_t",
+                 _is_transposed_kernel),
+                ("port kernels", _is_port_kernel))}
+    out = dict(
+        seq=SFT_SEQ, batch=1, rank=8, remat=True, compute_dtype="bfloat16",
+        init_s=init_s, first_step_s=first_s, step_s=step_s,
+        tok_s=SFT_SEQ / step_s, loss_first=loss_first, loss_last=losses[-1],
+        losses=losses, max_memory_allocated=peak, params_bytes=pbytes,
+        lora_bytes=lbytes, lora_b_moved=b_moved, base_unchanged=frozen,
+        launches_first_step=first, launches=timed, launches_per_step=want,
+        profile=dict(device_busy_ms=busy, wall_ms=step_s * 1e3,
+                     idle_share=1.0 - busy / (step_s * 1e3),
+                     kernel_ms=t_ms,
+                     transposed_share=t_ms[
+                         "quant_matmul_t + grouped_quant_matmul_t"] / busy
+                     if busy else None,
+                     device_kernels=sum(r[2] for r in rows),
+                     top=[dict(name=k[:90], ms=ms, count=n)
+                          for k, ms, n in rows[:15]]),
+    )
+    result["sft"] = out
+    log(f"sft: first step {first_s:.3f} s, then {step_s:.3f} s a step "
+        f"({SFT_SEQ / step_s:.1f} tok/s) over {SFT_STEPS} steps; loss "
+        f"{loss_first:.4f} -> {losses[-1]:.4f}; max_memory_allocated "
+        f"{peak / 1e9:.3f} GB; every LoRA b moved: {b_moved}; base "
+        f"bit-unchanged: {frozen}")
+    log(f"sft launches per step {json.dumps(first)} (want {json.dumps(want)})")
+    log(f"profile sft_step: wall {step_s * 1e3:.1f} ms, device busy "
+        f"{busy:.1f} ms in {out['profile']['device_kernels']} kernels, rows "
+        f"16 + 17 {t_ms['quant_matmul_t + grouped_quant_matmul_t']:.1f} ms")
+    for k, ms, n in rows[:15]:
+        log(f"  {ms:9.3f} ms  x{n:<5d} {k[:90]}")
+    if not (np.isfinite(loss_first) and all(np.isfinite(losses))):
+        raise AssertionError(f"sft: non-finite loss {loss_first} {losses}")
+    if not b_moved or not frozen:
+        raise AssertionError("sft: adapters did not move or the base changed")
+    if first != want or timed != {k: SFT_STEPS * v for k, v in want.items()}:
+        raise AssertionError(f"sft launches {first} / {timed}, want {want} "
+                             "per step")
+    missing = [k for k in SFT_KERNELS if timed.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the sft run: {missing}")
+    del trainer
+
+
 def _leaves(node):
     import dataclasses
 
@@ -1692,6 +2082,15 @@ def main() -> int:
         raise AssertionError(f"mixtral engine launches per step {got}, "
                              f"want {MIXTRAL_ENGINE_STEP_LAUNCHES}")
     del gen
+    torch.cuda.empty_cache()
+
+    # LoRA SFT on DeepSeek-V2-Lite: rows 16 and 17 in the backward
+    sft_kernel_checks(rows, entries)
+    torch.cuda.empty_cache()
+    sft_parity(result)
+    torch.cuda.empty_cache()
+    sft_run(result)
+    torch.cuda.empty_cache()
 
     sources = {
         # plain XLA in the JAX package, no Pallas kernel
@@ -1737,12 +2136,18 @@ def main() -> int:
         "gqa_paged_prefill": (
             "ktransformers_tpu_torch/csrc/gqa_paged_attention.cu",
             "ktransformers_tpu/ops/pallas/paged_attention.py:632"),
+        "quant_matmul_t": (
+            "ktransformers_tpu_torch/csrc/quant_matmul_t.cu",
+            "ktransformers_tpu/ops/pallas/quant_matmul_t.py:172"),
+        "grouped_quant_matmul_t": (
+            "ktransformers_tpu_torch/csrc/quant_matmul_t.cu",
+            "ktransformers_tpu/ops/pallas/quant_matmul_t.py:387"),
     }
     # launches: each main path was driven with the counts set to 0 just
     # before and read just after (single-user serve and paged serve at the
     # default pipeline depth: DeepSeek-V2-Lite on the int4_g and on the int8
-    # parameters, then Mixtral-8x7B); a kernel's count is the sum over the
-    # six paths
+    # parameters, then Mixtral-8x7B; then the SFT steps); a kernel's count
+    # is the sum over the seven paths
     paths = {
         "single_user": result["serve"]["launches"],
         "paged_serve": result["paged_serve"]["runs"][3]["launches"],
@@ -1751,18 +2156,19 @@ def main() -> int:
         "single_user_mixtral": result["serve_mixtral"]["launches"],
         "paged_serve_mixtral":
             result["paged_serve_mixtral"]["runs"][3]["launches"],
+        "sft": result["sft"]["launches"],
     }
     kernels = []
     for name in KERNELS:
         row = entries[name]
-        total = sum(p[name] for p in paths.values())
+        total = sum(p.get(name, 0) for p in paths.values())
         if total <= 0:
             raise AssertionError(f"{name} launched on no main path")
         kernels.append(dict(
             name=name, route="cuda", source=sources[name][0],
             replaces=sources[name][1],
             launches=total,
-            **{f"launches_{k}": p[name] for k, p in paths.items()},
+            **{f"launches_{k}": p.get(name, 0) for k, p in paths.items()},
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

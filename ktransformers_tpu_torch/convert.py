@@ -12,7 +12,10 @@ their fields only and imports nothing from the JAX package. Handled:
 - int4 data already in the offset-lo encoding (act_quant, int8) and data
   not yet repacked (uint8) are both kept as they are, with the flag;
 - every format of quant/formats.py: per-channel scales [..., 1, N], zero
-  points, float8_e4m3fn data and uint8 ue8m0 exponents.
+  points, float8_e4m3fn data and uint8 ue8m0 exponents;
+- LoRA adapters: the "<key>_lora" dicts and MoEWeights.lora. Expert
+  parallelism (logical_to_physical, expert_mask) and fused shared experts
+  (n_shared_fused) are not ported and raise rather than being dropped.
 
 ``paged_cache_from_jax(kv, device)`` carries a JAX PagedKVCache (MLA or GQA
 pools, numpy leaves) across, so a run can prefill on one side and continue
@@ -93,7 +96,15 @@ def params_from_jax(tree, spec: ModelSpec, device="cuda"):
                 node, device, qkv_cols if key == fkey else None
             )
         if hasattr(node, "gate_up") and hasattr(node, "down"):
-            return MoEWeights(conv(node.gate_up), conv(node.down))
+            for f in ("logical_to_physical", "expert_mask"):
+                if getattr(node, f, None) is not None:
+                    raise NotImplementedError(
+                        f"MoEWeights.{f} (expert parallelism) is not ported")
+            if getattr(node, "n_shared_fused", 0):
+                raise NotImplementedError(
+                    "fused shared experts (n_shared_fused) are not ported")
+            return MoEWeights(conv(node.gate_up), conv(node.down),
+                              conv(getattr(node, "lora", None)))
         if isinstance(node, dict):
             out = {k: conv(v, k) for k, v in node.items()}
             if fkey + "_bias" in out:

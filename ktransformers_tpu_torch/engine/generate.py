@@ -49,6 +49,7 @@ class Generator:
         return KVCache.create(self.spec, self.batch, self.max_len,
                               self.cache_dtype, self.device)
 
+    @torch.no_grad()
     def _forward(self, tokens, cache, logits_last_only=False):
         return forward(self.params, self.spec, tokens, cache,
                        rope_tables=self.rope_tables,

@@ -6,7 +6,14 @@ compressed cache (deepseek_v2) or GQA over per-head k / v (mixtral).
 Params are nested dicts of QTensors / tensors (utils/device_prep.py
 prepares them). Unlike the JAX package, the KV cache is updated IN PLACE:
 forward() writes the new tokens into the cache buffers and advances
-cache.lengths, and returns the same cache object.
+cache.lengths, and returns the same cache object. Where the written values
+need a gradient (LoRA SFT, sft/train.py) the write is out of place, so the
+autograd graph never sees a buffer change under it.
+
+forward() records gradients as the caller's grad mode says: the inference
+entry points (engine/generate.py, models/paged.py, serving/engine.py) run
+it under torch.no_grad(). ``remat`` rematerializes each decoder layer in
+the backward (torch.utils.checkpoint), the JAX package's jax.checkpoint.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from ktransformers_tpu_torch.models.spec import ModelSpec
 from ktransformers_tpu_torch.ops.activations import glu_activate
@@ -31,6 +39,7 @@ from ktransformers_tpu_torch.ops.cuda.w4a8_ffn import (
 from ktransformers_tpu_torch.ops.gate import route
 from ktransformers_tpu_torch.ops.linear import linear, plinear
 from ktransformers_tpu_torch.ops.moe import moe_forward
+from ktransformers_tpu_torch.ops.vjp import DenseW4A8FFNFn, needs_grad
 from ktransformers_tpu_torch.ops.norm import rms_norm
 from ktransformers_tpu_torch.ops.rope import (
     apply_rope,
@@ -83,12 +92,28 @@ def _attn_mask(pos_offset: torch.Tensor, q_len: int, kv_len: int):
 
 def _write_cache(buf: torch.Tensor, new: torch.Tensor, offset: torch.Tensor):
     """Write new [B, S, ...] into buf [B, Smax, ...] at per-sequence offsets
-    [B], in place (device indices, no host sync); returns buf."""
+    [B] (device indices, no host sync); returns the written buffer: buf
+    itself, or a new tensor where ``new`` needs a gradient."""
     b, s = new.shape[:2]
     pos = offset.to(torch.int64)[:, None] + torch.arange(s, device=buf.device)
     rows = torch.arange(b, device=buf.device)[:, None]
+    if needs_grad(new):
+        return buf.index_put((rows, pos), new.to(buf.dtype))
     buf[rows, pos] = new.to(buf.dtype)
     return buf
+
+
+def _assert_no_orphan_lora(p, legacy_names, fused_key):
+    """An adapter attached after the qkv fusion under an unfused key (e.g.
+    'q_proj_lora') would never apply: plinear reads '<fused_key>_lora'
+    only. Raise instead."""
+    orphans = [n + "_lora" for n in legacy_names if (n + "_lora") in p]
+    if orphans:
+        raise ValueError(
+            f"LoRA adapters {orphans} are attached under pre-fusion keys but "
+            f"the layer uses the fused '{fused_key}' projection; attach the "
+            f"adapter as '{fused_key}_lora' or attach it before "
+            "utils/device_prep.prepare_params")
 
 
 def mla_qkv_proj(p, spec: ModelSpec, x):
@@ -98,6 +123,7 @@ def mla_qkv_proj(p, spec: ModelSpec, x):
     qw = a.num_heads * (a.qk_nope_head_dim + a.qk_rope_head_dim)
     rw = a.kv_lora_rank + a.qk_rope_head_dim
     if "qkv_a" in p:
+        _assert_no_orphan_lora(p, ("q_proj", "kv_a"), "qkv_a")
         both = plinear(p, "qkv_a", x, p.get("qkv_a_bias"))
         return both[..., :qw], both[..., qw : qw + rw]
     return plinear(p, "q_proj", x), plinear(p, "kv_a", x, p.get("kv_a_bias"))
@@ -110,6 +136,7 @@ def gqa_qkv_proj(p, spec: ModelSpec, x):
     qw = a.num_heads * a.head_dim
     kw = a.num_kv_heads * a.head_dim
     if "qkv" in p:
+        _assert_no_orphan_lora(p, ("q_proj", "k_proj", "v_proj"), "qkv")
         qkv = plinear(p, "qkv", x)
         return qkv[..., :qw], qkv[..., qw : qw + kw], qkv[..., qw + kw :]
     return (plinear(p, "q_proj", x), plinear(p, "k_proj", x),
@@ -225,12 +252,19 @@ def _dense_mlp(p, spec: ModelSpec, x):
     kernel where the reference fuses (DeepSeek-V2-Lite's shared experts
     with W4A8 weights), else two linears with the GLU in the compute dtype
     (DeepSeek-V2-Lite's layer-0 MLP, I = 10944 with down group 96, and
-    every weight format that is not W4A8)."""
+    every weight format that is not W4A8). LoRA adapters keep it off the
+    fused kernel (the JAX package checks gate_up_lora; down_lora alone
+    would be dropped there, so both are checked here)."""
     gu, dn = p["gate_up"], p["down"]
     act = spec.activation
     rows = x.reshape(-1, x.shape[-1])
-    if dense_mlp_fused(gu, dn, act.kind, act.swiglu_limit, rows.shape[0]):
-        y = dense_w4a8_ffn(rows.contiguous(), gu, dn, act.kind)
+    if ("gate_up_lora" not in p and "down_lora" not in p
+            and dense_mlp_fused(gu, dn, act.kind, act.swiglu_limit,
+                                rows.shape[0])):
+        if needs_grad(rows):
+            y = DenseW4A8FFNFn.apply(rows, gu, dn, act.kind)
+        else:
+            y = dense_w4a8_ffn(rows.contiguous(), gu, dn, act.kind)
         return y.reshape(*x.shape[:-1], -1)
     hcat = plinear(p, "gate_up", x)
     f = hcat.shape[-1] // 2
@@ -270,13 +304,15 @@ def decoder_layer(lp, spec: ModelSpec, x, layer_cache, lengths, rope_cs,
     return x, buf_a, buf_b
 
 
-@torch.no_grad()
 def forward(params, spec: ModelSpec, tokens: torch.Tensor, cache: KVCache,
             rope_tables=None, compute_dtype=torch.bfloat16,
-            logits_last_only: bool = False):
+            logits_last_only: bool = False, remat: bool = False):
     """One pass over S new tokens per sequence (positions cache.lengths +
     arange(S)). Returns (logits [B, S, V] or [B, 1, V] with
-    logits_last_only, cache); the cache is updated in place."""
+    logits_last_only, cache); the cache is updated in place. With remat
+    (and gradients recorded) each decoder layer keeps only its input for
+    the backward and runs again there: activation memory of one layer
+    instead of all, for a second forward of every layer."""
     b, s = tokens.shape
     x = params["embed"][tokens].to(compute_dtype)
     if rope_tables is None:
@@ -293,10 +329,13 @@ def forward(params, spec: ModelSpec, tokens: torch.Tensor, cache: KVCache,
             rope_cs[0][:, 0], rope_cs[1][:, 0], spec.rope.interleaved
         )
     for li, lp in enumerate(params["layers"]):
-        x, buf_a, buf_b = decoder_layer(
-            lp, spec, x, (cache.bufs_a[li], cache.bufs_b[li]), cache.lengths,
-            rope_cs, rope_rot,
-        )
+        args = (lp, spec, x, (cache.bufs_a[li], cache.bufs_b[li]),
+                cache.lengths, rope_cs, rope_rot)
+        if remat and torch.is_grad_enabled():
+            x, buf_a, buf_b = torch.utils.checkpoint.checkpoint(
+                decoder_layer, *args, use_reentrant=False)
+        else:
+            x, buf_a, buf_b = decoder_layer(*args)
         cache.bufs_a[li], cache.bufs_b[li] = buf_a, buf_b
     x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
     if logits_last_only:
@@ -306,5 +345,5 @@ def forward(params, spec: ModelSpec, tokens: torch.Tensor, cache: KVCache,
         logits = x @ params["embed"].to(x.dtype).T
     else:
         logits = linear(x, lm_head)
-    cache.lengths += s
+    cache.lengths = cache.lengths + s  # a new tensor: a layer may hold the old
     return logits, cache

@@ -2,14 +2,15 @@
 
 Every wrapper launches its kernel for CUDA tensors (or raises) and takes
 its plain-PyTorch version, which lives beside it, only for CPU tensors.
-``KERNELS`` names the sixteen kernels: the activation prep, the five of the
+``KERNELS`` names the eighteen kernels: the activation prep, the five of the
 W4A8 single-user generation path, the two MLA paged-attention kernels of
 the serving path, the three quant_matmul entries every other weight format
 runs through, the unfused MLA decode attention, the gathered and grouped
-W4A8 matmuls (experts too wide for the fused FFN, Mixtral's) and the two
-GQA paged-attention kernels. ``LAUNCHES`` counts, per TPU kernel replaced,
-the wrapper calls that launched on the card; a call of an FFN wrapper is
-two kernel launches.
+W4A8 matmuls (experts too wide for the fused FFN, Mixtral's), the two
+GQA paged-attention kernels and the two transposed matmuls of the LoRA SFT
+backward (dense, and per-row experts: grouped or gathered). ``LAUNCHES``
+counts, per TPU kernel replaced, the wrapper calls that launched on the
+card; a call of an FFN wrapper is two kernel launches.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ KERNELS = (
     "grouped_w4a8_matmul",
     "gqa_paged_decode",
     "gqa_paged_prefill",
+    "quant_matmul_t",
+    "grouped_quant_matmul_t",
 )
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -19,7 +19,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD = os.path.join(CSRC, "build")
 SOURCES = ("w4a8_matmul", "w4a8_ffn", "mla_decode", "paged_attention",
-           "quant_matmul", "gqa_paged_attention")
+           "quant_matmul", "gqa_paged_attention", "quant_matmul_t")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()
@@ -49,6 +49,9 @@ SIGNATURES = {
     },
     "quant_matmul": {
         "kt_quant_rows": [P] * 7 + [I] * 11 + [P, P],
+    },
+    "quant_matmul_t": {
+        "kt_quant_rows_t": [P] * 7 + [I] * 10 + [P, P],
     },
     "gqa_paged_attention": {
         "kt_gqa_paged_decode": [P] * 5 + [I] * 6 + [F, I] + [P, P, P],

@@ -10,16 +10,22 @@ The dispatch the JAX package has with its Pallas hooks installed:
   inside the kernel;
 - int8_g / int8_gz have no kernel in the JAX package either and run its
   plain group contraction.
+A kernel matmul whose input needs a gradient goes through
+ops/vjp.QuantMatmulFn (the transposed kernel in the backward), as the JAX
+package's hooks call quant_matmul_diff.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ktransformers_tpu_torch.ops.cuda.quant_matmul import KINDS, quant_matmul
-from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import dense_w4a8_matmul
+from ktransformers_tpu_torch.ops.cuda.quant_matmul import KINDS
+from ktransformers_tpu_torch.ops.vjp import (
+    QuantMatmulFn,
+    kernel_matmul,
+    needs_grad,
+)
 from ktransformers_tpu_torch.quant.formats import QTensor
-from ktransformers_tpu_torch.quant.w4a8 import W4A8_KINDS
 
 
 def _int8_group_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
@@ -38,14 +44,12 @@ def _int8_group_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 
 def qmatmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """x [..., K] @ w (2-D QTensor [K, N]) -> [..., N] in x.dtype."""
-    *lead, kdim = x.shape
     if w.kind == "bf16":
         return torch.matmul(x, w.data.to(x.dtype))
-    if w.kind in W4A8_KINDS and w.act_quant:
-        y = dense_w4a8_matmul(x.reshape(-1, kdim).contiguous(), w)
-        return y.reshape(*lead, w.out_features)
     if w.kind in KINDS:
-        return quant_matmul(x, w)
+        if needs_grad(x):
+            return QuantMatmulFn.apply(x, w)
+        return kernel_matmul(x, w)
     if w.kind in ("int8_g", "int8_gz"):
         return _int8_group_matmul(x, w)
     raise ValueError(f"qmatmul: unknown kind {w.kind!r}")
@@ -59,8 +63,13 @@ def linear(x: torch.Tensor, w: QTensor, bias: torch.Tensor | None = None):
 
 
 def plinear(p: dict, key: str, x: torch.Tensor, bias=None):
-    """linear() through a params dict. LoRA siblings are not ported and
-    raise instead of being skipped."""
-    if key + "_lora" in p:
-        raise NotImplementedError(f"LoRA adapter {key}_lora is not ported")
-    return linear(x, p[key], bias)
+    """linear() through a params dict, with the optional LoRA sibling
+    "<key>_lora" = {"a": [K, r], "b": [r, N]} (alpha / r folded into a)
+    added in float32, as ktransformers_tpu/models/model.py:plinear does."""
+    y = linear(x, p[key], bias)
+    lora = p.get(key + "_lora")
+    if lora is not None:
+        delta = (x.to(torch.float32) @ lora["a"].to(torch.float32)) \
+            @ lora["b"].to(torch.float32)
+        y = y + delta.to(y.dtype)
+    return y

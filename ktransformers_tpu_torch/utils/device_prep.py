@@ -60,7 +60,8 @@ def fuse_qkv_projections(params, spec):
     """Merge each layer's attention input projections into one matmul (one
     launch and one activation quant instead of two or three): MLA q_proj +
     kv_a -> "qkv_a", GQA q_proj + k_proj + v_proj -> "qkv". Layers with
-    biases or differing formats keep theirs. Mutates params in place."""
+    biases, differing formats or a LoRA adapter on a part keep theirs.
+    Mutates params in place."""
     if spec.attention.kind == "mla":
         names, fkey = ("q_proj", "kv_a"), "qkv_a"
         biases = ("q_proj_bias", "kv_a_bias")
@@ -69,7 +70,7 @@ def fuse_qkv_projections(params, spec):
         biases = ("q_bias", "k_bias", "v_bias")
     for lp in params.get("layers", []):
         p = lp.get("attn")
-        if p is None or any(n not in p for n in names):
+        if p is None or any(n not in p or n + "_lora" in p for n in names):
             continue
         if any(b in p for b in biases):
             continue

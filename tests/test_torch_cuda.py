@@ -26,7 +26,12 @@ Tolerances, as a share of the reference's largest magnitude:
   and rounded to the activations' type identically on both sides) and for
   mla_decode_attention;
 - 1e-5 / 1e-2 for the gathered and grouped W4A8 matmuls (as the dense one)
-  and for the two GQA paged-attention kernels (as the MLA ones).
+  and for the two GQA paged-attention kernels (as the MLA ones);
+- 1e-5 for the transposed matmuls of the SFT backward at these widths
+  (N <= 3648; dx is float32; both sides round the same operands to bf16,
+  the kernel sums their products on the tensor cores, the plain version
+  in f32 FMAs), and 1e-2 for dx through ops/vjp.QuantMatmulFn on the card
+  (returned in bf16).
 """
 
 import numpy as np
@@ -39,6 +44,7 @@ from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
 from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
 from ktransformers_tpu_torch.ops.cuda import mla_decode as MD
 from ktransformers_tpu_torch.ops.cuda import quant_matmul as QM
+from ktransformers_tpu_torch.ops.cuda import quant_matmul_t as QT
 from ktransformers_tpu_torch.ops.cuda.mla_decode import mla_decode_fused
 from ktransformers_tpu_torch.ops.rope import rope_rotation_matrix
 from ktransformers_tpu_torch.quant.formats import quantize
@@ -519,3 +525,83 @@ def test_gqa_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="share"):
         PA.gqa_paged_decode(*on(_x(rng, 1, 4, 128).bfloat16(), k, v, tables,
                                 lengths), 0.1)
+
+
+# --------------------------------------- transposed matmuls, rows 16 and 17
+
+QT_KINDS = QM_KINDS + ("int4_g offset-lo",)
+
+
+def _tw(rng, shape, kind):
+    w = _qw(rng, shape, kind.split()[0])
+    return repack_offset_lo(w) if kind.endswith("offset-lo") else w
+
+
+@pytest.mark.parametrize("n", [3648, 1824])
+@pytest.mark.parametrize("m", [1, 9])
+@pytest.mark.parametrize("kind", QT_KINDS)
+def test_quant_matmul_t(cuda, kind, m, n):
+    """N = 3648 (the fused qkv_a) and 1824 leave a partial last step of the
+    contraction; K = 192 takes a group of 96 for the int4 group kinds."""
+    rng = np.random.default_rng(m + n)
+    w, dy = _tw(rng, (192, n), kind), _x(rng, m, n)
+    wc = w.to(cuda)
+    for d in (dy, dy.bfloat16()):
+        out = _counted("quant_matmul_t",
+                       lambda: QT.quant_matmul_t(d.to(cuda), wc))
+        assert out.dtype == torch.float32 and out.shape == (m, 192)
+        assert _rel(out, QT.quant_matmul_t_ref(d, w)) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [3648, 1824])
+@pytest.mark.parametrize("kind", QT_KINDS)
+def test_grouped_quant_matmul_t(cuda, kind, n):
+    """Empty experts, partial tiles, and rows past the total (zero)."""
+    rng = np.random.default_rng(n)
+    w, dy = _tw(rng, (5, 128, n), kind), _x(rng, 88, n).bfloat16()
+    sizes = torch.tensor([9, 0, 70, 0, 4], dtype=torch.int32)
+    out = _counted("grouped_quant_matmul_t",
+                   lambda: QT.grouped_quant_matmul_t(
+                       dy.to(cuda), w.to(cuda), sizes.to(cuda)))
+    assert not out[83:].abs().max().item()
+    assert _rel(out, QT.grouped_quant_matmul_t_ref(dy, w, sizes)) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", QT_KINDS)
+def test_gathered_quant_matmul_t(cuda, kind):
+    rng = np.random.default_rng(8)
+    w, dy = _tw(rng, (8, 128, 1824), kind), _x(rng, 7, 1824).bfloat16()
+    ids = torch.tensor([3, 0, 5, 3, 7, 1, 3], dtype=torch.int32)
+    out = _counted("grouped_quant_matmul_t",
+                   lambda: QT.gathered_quant_matmul_t(
+                       dy.to(cuda), w.to(cuda), ids.to(cuda)))
+    assert _rel(out, QT.gathered_quant_matmul_t_ref(dy, w, ids)) <= 1e-5
+
+
+def test_quant_matmul_fn_backward(cuda):
+    """dx through the autograd rule on the card: the W4A8 forward (row 1),
+    then row 16, against the plain transposed matmul on the CPU."""
+    from ktransformers_tpu_torch.ops.vjp import QuantMatmulFn
+
+    rng = np.random.default_rng(9)
+    w = _tw(rng, (256, 1824), "int4_g offset-lo")
+    x = _x(rng, 9, 256).bfloat16().to(cuda).requires_grad_(True)
+    g = _x(rng, 9, 1824)
+    y = QuantMatmulFn.apply(x, w.to(cuda))
+    before = LAUNCHES["quant_matmul_t"]
+    (dx,) = torch.autograd.grad((y.float() * g.to(cuda)).sum(), x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["quant_matmul_t"] == before + 1
+    assert dx.dtype == torch.bfloat16
+    ref = QT.quant_matmul_t_ref(g.bfloat16(), w)
+    assert _rel(dx, ref) <= 1e-2
+
+
+def test_transposed_wrappers_refuse_on_the_card(cuda):
+    rng = np.random.default_rng(10)
+    w = _qw(rng, (128, 40), "int8").to(cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        QT.quant_matmul_t(_x(rng, 4, 40).half().to(cuda), w)
+    w2 = _qw(rng, (128, 42), "int8").to(cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        QT.quant_matmul_t(_x(rng, 4, 42).to(cuda), w2)

@@ -9,9 +9,14 @@ Phases (any failure exits non-zero before the final line):
 3. kernels: the first twelve kernels against their plain PyTorch versions
             on the card at the DeepSeek-V2-Lite shapes of the main paths
             (single user: M = 1 and 256-token chunks; paged serving: a
-            decode batch of 8, mixed steps of 8 + C*S rows, page tables),
-            with times; the quant_matmul family once per weight format
-            (int8, fp8, int4, int4_g, int4_gz, mxfp4, mxfp8);
+            decode batch of 8, mixed steps of 8 + C*S rows, page tables;
+            the SFT step's M = 512), with times; the quant_matmul family
+            once per weight format (int8, fp8, int4, int4_g, int4_gz,
+            mxfp4, mxfp8). Where a wrapper routes a call to a tensor-core
+            kernel (quant_mma_kernel, w4a8_mma_kernel: 2 rows or more),
+            the first version is held and timed on the same operands too
+            (first_ms), and the grouped entries get torch._grouped_mm as
+            their library yardstick where this PyTorch has it;
 4. parity:  the full-width config cut to 2 layers, the same synthetic
             weights on the CPU (plain versions) and on the card (kernels),
             float32 compute: a 64-token prefill and 4 decode steps through
@@ -25,7 +30,9 @@ Phases (any failure exits non-zero before the final line):
             format through the quant_matmul kernels (no activation requant:
             every logits row within FORMAT_TOL), int8 also through the
             paged forward and with the fused decode switched off
-            (mla_decode_attention);
+            (mla_decode_attention); and a greedy Generator run with
+            repetition / presence / frequency penalties on 2 narrow
+            layers, card tokens equal to the CPU's (penalty_check);
 5. serve:   the full 27-layer config (int4_g weights) in a Generator at
             max_len 1024 answering 3 requests of 512 seeded prompt tokens
             and 32 greedy new tokens; every single-user kernel must launch;
@@ -38,7 +45,9 @@ Phases (any failure exits non-zero before the final line):
             which that agreement would not see the prompt);
 7. profile: a prefill chunk and a decode step of the Generator, a batch-8
             decode step and a mixed step of the ServeEngine: wall time,
-            launches per step, device time by kernel (torch.profiler);
+            launches per step, device time by kernel (torch.profiler); a
+            step that still launches a first-version 8-row instantiation
+            on bf16 activations fails (so does the SFT step's profile);
 8. int8:    the int4_g parameters are freed; the full 27-layer config with
             int8 weights (every matmul through the quant_matmul kernels) in
             a Generator answering 2 requests of 512 + 32 tokens, the second
@@ -71,7 +80,9 @@ Phases (any failure exits non-zero before the final line):
             Trainer.train_step, finite losses, a frozen base, adapters that
             moved, launches per step held to the counts the code implies,
             peak memory, and one profiled step.
-Prints a kernels JSON line, the card line, and as the last line
+Prints a kernels JSON line (the eighteen wrappers, then the two
+tensor-core kernels, whose launches are those of their wrappers' calls
+that took them), the card line, and as the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Imports nothing of JAX.
 """
@@ -80,6 +91,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -158,15 +170,20 @@ def make_check(rows: list, entries: dict):
     version on the same inputs. ms times the kernel launch alone on
     prepared operands (the wrapper's launcher); wrapper_ms times the whole
     wrapper call (activation prep, tile maps, allocation, host work
-    included). A row with main=True is the kernel's entry of the kernels
-    line."""
+    included)."""
 
     def check(name, label, tol, wrapper, plain, launcher, b_bytes, ops,
               peak, library=None, main=False, plain_iters=5, side_tol=None,
-              expect=None, iters=20, per_row=False):
+              expect=None, iters=20, per_row=False, first=None, kernel=None,
+              kernel_main=False):
         """expect (default plain) gives what the wrapper is held to; plain
         is what plain_ms times on the card; per_row holds every row of the
-        output's last dimension to tol of its own largest value."""
+        output's last dimension to tol of its own largest value. Where the
+        wrapper routes the call to a tensor-core kernel, ``kernel`` names
+        it and ``first`` gives the first version's launcher on the same
+        operands: first_ms times it, and it is held to the plain version
+        too. A row with main=True is its wrapper's entry of the kernels
+        line, one with kernel_main=True its tensor-core kernel's."""
         out, ref = wrapper(), (expect or plain)()
         if isinstance(out, tuple):
             for o, rf in zip(out[1:], ref[1:]):
@@ -178,12 +195,23 @@ def make_check(rows: list, entries: dict):
         launch = launcher()[0]
         ms = time_ms(launch, iters=iters)
         wrapper_ms = time_ms(wrapper, iters=iters)
+        first_ms = None
+        if first is not None:
+            first_launch, first_out = first()
+            first_launch()
+            first_rel = rel_err(first_out, ref, per_row)[1]
+            if first_rel > tol:
+                raise AssertionError(f"{name} [{label}] first version "
+                                     f"disagrees: {first_rel}")
+            first_ms = time_ms(first_launch, iters=iters)
+            del first_out
         plain_ms = time_ms(plain, iters=plain_iters, warmup=1)
         library_ms = None
         if library is not None:
             try:
                 library()
-            except RuntimeError as exc:  # no backend takes the shape
+            except (RuntimeError, ValueError, TypeError) as exc:
+                # no backend takes the shape
                 log(f"kernel {name} [{label}] library call refused: "
                     f"{str(exc).splitlines()[0][:120]}")
             else:
@@ -194,17 +222,42 @@ def make_check(rows: list, entries: dict):
                    tol=tol, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                    bound_ms=bound,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   library_ms=library_ms, bytes=b_bytes, ops=ops, ok=ok)
+                   library_ms=library_ms, bytes=b_bytes, ops=ops, ok=ok,
+                   kernel=kernel, first_ms=first_ms)
         rows.append(row)
         log(f"kernel {name} [{label}] rel_err={rel:.3e} (tol {tol}) "
             f"ms={ms:.4f} wrapper_ms={wrapper_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound:.4f} library_ms={library_ms}")
+            f"bound_ms={bound:.4f} library_ms={library_ms}"
+            + ("" if kernel is None else
+               f" kernel={kernel} first_ms={first_ms:.4f}"))
         if not ok:
             raise AssertionError(f"{name} [{label}] disagrees: {rel}")
         if main:
             entries[name] = row
+        if kernel_main:
+            entries[kernel] = row
 
     return check
+
+
+def routed(kernel: str, route: str, first) -> dict:
+    """check() keywords for a call its wrapper routes: where the route is
+    the tensor-core kernel, its name and the first version's launcher
+    (``first``) on the same operands; nothing where the call keeps the
+    first version."""
+    return dict(kernel=kernel, first=first) if route == "mma" else {}
+
+
+def grouped_mm(x, wdq, sizes):
+    """The library yardstick of the grouped entries: one torch._grouped_mm
+    over the bf16-dequantized experts wdq [E, K, N] with offs =
+    cumsum(group_sizes) (never on the path), or None where this PyTorch
+    has no _grouped_mm."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    return lambda: fn(x, wdq, offs=offs)
 
 
 def draw(seed: int):
@@ -269,15 +322,31 @@ def kernel_checks(rows: list, entries: dict) -> None:
               expect=lambda: tuple(v.to(dev) for v in split(
                   w4a8_prep(x.cpu(), 2048, 128)[:5])))
 
-    # row 1: dense_w4a8_matmul
-    for m, k, n, label, main in (
-        (1, 2048, 3648, "decode qkv_a M=1", True),
-        (1, 2048, 2048, "decode o_proj M=1", False),
-        (1, 2048, 102400, "decode lm_head M=1", False),
-        (1, 2048, 21888, "decode layer-0 gate_up M=1", False),
-        (1, 10944, 2048, "decode layer-0 down M=1 (gs 96)", False),
-        (256, 2048, 3648, "prefill qkv_a M=256", False),
-    ):
+    # row 1: dense_w4a8_matmul; M >= MM.MMA_MIN_ROWS takes w4a8_mma_kernel,
+    # held and timed beside the first version on the same operands
+    row1 = [
+        (1, 2048, 3648, "decode qkv_a M=1", "main"),
+        (1, 2048, 2048, "decode o_proj M=1", ""),
+        (1, 2048, 102400, "decode lm_head M=1", ""),
+        (1, 2048, 21888, "decode layer-0 gate_up M=1", ""),
+        (1, 10944, 2048, "decode layer-0 down M=1 (gs 96)", ""),
+        (2, 2048, 3648, "qkv_a M=2", ""),
+        (8, 2048, 3648, "serve decode qkv_a M=8", ""),
+    ]
+    for k, n, what in ((2048, 3648, "qkv_a"), (2048, 2048, "o_proj"),
+                       (10944, 2048, "layer-0 down (gs 96)")):
+        for m, where in ((16, ""), (64, ""), (256, "prefill "),
+                         (520, "serve mixed "), (1024, "serve prefill-only ")):
+            row1.append((m, k, n, f"{where}{what} M={m}",
+                         "kernel_main" if (what, m) == ("qkv_a", 256)
+                         else ""))
+    for k, n, what in ((2048, 3648, "qkv_a"), (2048, 2048, "o_proj"),
+                       (2048, 5632, "shared gate_up"),
+                       (2816, 2048, "shared down"),
+                       (2048, 21888, "layer-0 gate_up"),
+                       (2048, 102400, "lm_head")):
+        row1.append((SFT_SEQ, k, n, f"sft {what} M={SFT_SEQ}", ""))
+    for m, k, n, label, main in row1:
         wt, x = w((k, n)), rn(m, k)
         wdq = dequantize(wt, bf)
         check("dense_w4a8_matmul", label, 1e-2,
@@ -286,7 +355,11 @@ def kernel_checks(rows: list, entries: dict) -> None:
               lambda: MM.dense_w4a8_launcher(x, wt),
               nbytes(x, wt.data, wt.scales) + m * n * 2, 2 * m * n * k,
               INT8_OPS_PER_S, library=lambda: torch.matmul(x, wdq),
-              main=main)
+              main=main == "main", kernel_main=main == "kernel_main",
+              plain_iters=2 if m > 64 else 5,
+              **routed("w4a8_mma_kernel",
+                       MM.route(m, "dense", wt.group_size, n),
+                       lambda: MM.dense_w4a8_launcher(x, wt, "rows")))
         del wdq, wt
 
     e, d, f = 64, 2048, 1408
@@ -362,21 +435,9 @@ def kernel_checks(rows: list, entries: dict) -> None:
           library=lambda: tF.scaled_dot_product_attention(
               lib_q, lib_k, lib_v, scale=(128 + 64) ** -0.5))
 
-    # ---- the serving path's row counts through the W4A8 kernels: a decode
-    # batch of 8, 48 gathered rows, a mixed step of 8 + 2*256 rows
-    for m, label in ((8, "serve decode qkv_a M=8"),
-                     (520, "serve mixed qkv_a M=520"),
-                     (1024, "serve prefill-only qkv_a M=1024")):
-        wt, x = w((2048, 3648)), rn(m, 2048)
-        wdq = dequantize(wt, bf)
-        check("dense_w4a8_matmul", label, 1e-2,
-              lambda: MM.dense_w4a8_matmul(x, wt),
-              lambda: MM.w4a8_matmul_ref(x, wt),
-              lambda: MM.dense_w4a8_launcher(x, wt),
-              nbytes(x, wt.data, wt.scales) + m * 3648 * 2,
-              2 * m * 3648 * 2048, INT8_OPS_PER_S,
-              library=lambda: torch.matmul(x, wdq))
-        del wdq, wt
+    # ---- the serving path's row counts through the W4A8 kernels (a decode
+    # batch of 8 and mixed steps of 8 + 2*256 rows at qkv_a above): 48
+    # gathered rows
     gu, dn = w((e, d, 2 * f)), w((e, f, d))
     g_cpu = torch.Generator().manual_seed(2)
     ids48 = torch.stack([torch.randperm(e, generator=g_cpu)[:6]
@@ -457,15 +518,26 @@ def quant_kernel_checks(check, rd, rn, dev) -> None:
                                    minlength=e).to(torch.int32)
              for t in (256, 520)}
 
+    def dense_shapes(kind):
+        yield from ((1, 2048, 3648, "decode qkv_a M=1"),
+                    (8, 2048, 3648, "serve decode qkv_a M=8"),
+                    (256, 2048, 3648, "prefill qkv_a M=256"),
+                    (1, 2048, 102400, "decode lm_head M=1"),
+                    (1, 10944, 2048, "decode layer-0 down M=1"))
+        if kind == "int4_g":  # a group of 96: 48 storage rows a group
+            yield 256, 10944, 2048, "prefill layer-0 down M=256 (gs 96)"
+        if kind != "int8":
+            return
+        yield 2, 2048, 3648, "qkv_a M=2"
+        for k, n, what in ((2048, 3648, "qkv_a"), (2048, 2048, "o_proj"),
+                           (10944, 2048, "layer-0 down")):
+            for m in (16, 64, 256, 520, 1024):
+                if (what, m) != ("qkv_a", 256):
+                    yield m, k, n, f"{what} M={m}"
+
     for kind in QUANT_KINDS:
         it = 20 if kind == "int8" else 10
-        for m, k, n, label in (
-            (1, 2048, 3648, "decode qkv_a M=1"),
-            (8, 2048, 3648, "serve decode qkv_a M=8"),
-            (256, 2048, 3648, "prefill qkv_a M=256"),
-            (1, 2048, 102400, "decode lm_head M=1"),
-            (1, 10944, 2048, "decode layer-0 down M=1"),
-        ):
+        for m, k, n, label in dense_shapes(kind):
             wt, x = rd.q((k, n), kind, 128), rn(m, k)
             wdq = dequantize(wt, bf)
             check("quant_matmul", f"{kind} {label}", 1e-2,
@@ -475,7 +547,12 @@ def quant_kernel_checks(check, rd, rn, dev) -> None:
                   nbytes(x) + wbytes(wt) + m * n * 2, 2 * m * n * k,
                   BF16_FLOPS_PER_S, library=lambda: torch.matmul(x, wdq),
                   main=(kind == "int8" and m == 1 and n == 3648),
-                  plain_iters=2, iters=it)
+                  kernel_main=(kind == "int8" and m == 256 and n == 3648),
+                  plain_iters=2, iters=it,
+                  **routed("quant_mma_kernel", QM.route(
+                      x.dtype, m, "dense", kind, k, n,
+                      QM.rows_per_group(wt)),
+                      lambda: QM.dense_launcher(x, wt, "rows")))
             del wdq, wt
         for k, n, what in ((d, 2 * f, "gate_up"), (f, d, "down")):
             wt = rd.q((e, k, n), kind, 128)
@@ -492,6 +569,7 @@ def quant_kernel_checks(check, rd, rn, dev) -> None:
                       BF16_FLOPS_PER_S,
                       main=(kind == "int8" and what == "gate_up"
                             and ids is ids6), plain_iters=2, iters=it)
+            wdq = dequantize(wt, bf)
             for rows, sz in sizes.items():
                 x = rn(rows, k)
                 live = int(sz.sum())
@@ -507,9 +585,14 @@ def quant_kernel_checks(check, rd, rn, dev) -> None:
                       lambda: QM.grouped_launcher(x, wt, sz),
                       nbytes(x) + wbytes(wt, int((sz > 0).sum()))
                       + rows * n * 2, 2 * live * n * k, BF16_FLOPS_PER_S,
+                      library=grouped_mm(x, wdq, sz),
                       main=(kind == "int8" and what == "gate_up"
-                            and rows == 1536), plain_iters=2, iters=it)
-            del wt
+                            and rows == 1536), plain_iters=2, iters=it,
+                      **routed("quant_mma_kernel", QM.route(
+                          x.dtype, rows, "grouped", kind, k, n,
+                          QM.rows_per_group(wt)),
+                          lambda: QM.grouped_launcher(x, wt, sz, "rows")))
+            del wt, wdq
 
 
 def decode_attention_checks(check, rn, dev) -> None:
@@ -677,8 +760,10 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
     28672] and down [8, 14336, 4096] (int4_g, group 128, repacked). Bound:
     x, the weight bytes (codes and scales) of the experts the rows use and
     the output over the memory rate, against 2 R N K over the int8 peak.
-    No library yardstick: no single PyTorch call computes a per-row expert
-    product on int8 dots. Rows 13 and 15 (GQA paged attention, 32 query
+    Row 8 takes w4a8_mma_kernel, timed beside the first version; its
+    library yardstick is torch._grouped_mm on the bf16-dequantized experts
+    (grouped_mm). Row 7 has none: no single PyTorch call gathers an expert
+    per row. Rows 13 and 15 (GQA paged attention, 32 query
     heads over 8 KV heads of 128, page 64, 32 pages a query): every pool
     row the kernels must not read is NaN; every output row (sequence, head,
     position) is held to 1e-2 of its own largest value, so that a short
@@ -692,7 +777,7 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
 
     from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
     from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
-    from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import grouped_tiles
+    from ktransformers_tpu_torch.quant.formats import dequantize
 
     dev = torch.device("cuda")
     check = make_check(rows, entries)
@@ -724,6 +809,7 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
                   nbytes(x) + wbytes(wt, ids) + ids.shape[0] * n * 2,
                   2 * ids.shape[0] * n * k, INT8_OPS_PER_S,
                   main=(what == "gate_up" and tokens == 1), plain_iters=3)
+        wdq = dequantize(wt, torch.bfloat16)
         for tokens, label in ((256, "prefill 512 rows (256 tok x 2)"),
                               (264, "serve mixed 528 rows (264 tok x 2)")):
             top = routing(tokens)
@@ -737,25 +823,13 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
                   lambda: MM.grouped_launcher(x, wt, sizes),
                   nbytes(x) + wbytes(wt, top) + 2 * tokens * n * 2,
                   2 * 2 * tokens * n * k, INT8_OPS_PER_S,
+                  library=grouped_mm(x, wdq, sizes),
                   main=(what == "gate_up" and tokens == 256), plain_iters=2,
-                  iters=10)
-        # the same 512 rows in tiles of 4: twice the tiles, each re-reading
-        # its expert's weight (measurement only; the path uses GROUPED_MR)
-        top = routing(256)
-        sizes = torch.bincount(top.reshape(-1), minlength=e).to(torch.int32)
-        x = rn(512, k)
-        out4 = torch.zeros(512, n, dtype=x.dtype, device=dev)
-        tiles4 = grouped_tiles(sizes, 512, 4)
-        check("grouped_w4a8_matmul",
-              f"prefill 512 rows {what} [8, {k}, {n}], tiles of 4 rows "
-              "(not the path)", 1e-2,
-              lambda: MM.rows_launcher(x, wt, tiles4, 4, out4, "mr4")()
-              or out4,
-              lambda: MM.grouped_w4a8_matmul_ref(x, wt, sizes),
-              lambda: (MM.rows_launcher(x, wt, tiles4, 4, out4, "mr4"), None),
-              nbytes(x) + wbytes(wt, top) + 512 * n * 2,
-              2 * 512 * n * k, INT8_OPS_PER_S, plain_iters=1, iters=10)
-        del wt
+                  iters=10, **routed(
+                      "w4a8_mma_kernel",
+                      MM.route(2 * tokens, "grouped", wt.group_size, n),
+                      lambda: MM.grouped_launcher(x, wt, sizes, "rows")))
+        del wt, wdq
 
     h, hkv, hd, page, pmax = 32, 8, 128, 64, 32
     scale = hd ** -0.5
@@ -1001,6 +1075,63 @@ def parity_check(result: dict, variants: list) -> None:
                                    + time.perf_counter() - t0)
 
 
+PENALTIES = dict(repetition_penalty=1.3, presence_penalty=0.5,
+                 frequency_penalty=0.25)
+# the penalty check's model: DeepSeek-V2 cut to 2 dense layers and 4 heads
+# at narrow widths with a vocabulary of 512, where greedy decoding repeats
+# tokens (at full width 16 greedy tokens of 102,400 need not repeat, and
+# then no penalty changes one); the MLA widths stay those the decode kernel
+# takes (kv_lora 512, rope 64)
+PENALTY_WIDTHS = dict(
+    vocab_size=512, hidden_size=256, intermediate_size=512,
+    num_hidden_layers=2, first_k_dense_replace=2, num_attention_heads=4,
+    num_key_value_heads=4)
+
+
+def penalty_check(result: dict) -> None:
+    """Greedy generation with repetition, presence and frequency penalties
+    through the single-user Generator on the card and on the CPU
+    (PENALTY_WIDTHS, unquantized float32 weights, float32 compute, a
+    64-token seeded prompt, 16 new tokens): the card's tokens must equal
+    the CPU's, and differ from the unpenalized ones (so that the penalties
+    were applied)."""
+    from ktransformers_tpu_torch.engine.generate import (
+        GenerateConfig,
+        Generator,
+    )
+    from ktransformers_tpu_torch.engine.sampler import SamplingConfig
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.utils.device_prep import params_to
+
+    spec = spec_from_hf_config(dict(bench_model_cfg(), **PENALTY_WIDTHS))
+    prompt = np.random.default_rng(8).integers(0, spec.vocab_size,
+                                               64).tolist()
+    pen = GenerateConfig(max_new_tokens=16, prefill_chunk=64,
+                         sampling=SamplingConfig(**PENALTIES))
+    # the same weights on both devices: drawn on the CPU, then copied
+    params = init_params_synthetic(spec, seed=5, quant="bf16",
+                                   dtype=torch.float32, device="cpu")
+    toks = {}
+    for dev in ("cpu", "cuda"):
+        gen = Generator(params_to(params, dev), spec, max_len=128,
+                        cache_dtype=torch.float32,
+                        compute_dtype=torch.float32, device=dev)
+        toks[dev] = gen.generate(prompt, pen)[0]
+    plain = gen.generate(prompt, GenerateConfig(max_new_tokens=16,
+                                                prefill_chunk=64))[0]
+    del gen, params
+    out = dict(penalties=PENALTIES, card=toks["cuda"], cpu=toks["cpu"],
+               unpenalized_card=plain)
+    result["penalties"] = out
+    log(f"penalties (greedy, 2 narrow layers): card {toks['cuda']} cpu "
+        f"{toks['cpu']} unpenalized {plain}")
+    if toks["cuda"] != toks["cpu"]:
+        raise AssertionError("penalized tokens differ between card and CPU")
+    if plain == toks["cuda"]:
+        raise AssertionError("the penalties changed no token")
+
+
 def pool_err(pools, ref_pools) -> float:
     """Largest error of the KV pools (trash page 0 excluded) as a share of
     the largest entry."""
@@ -1132,7 +1263,11 @@ def serve(result: dict, quant: str = "int4_g", key: str = "serve",
     from ktransformers_tpu_torch.models.init import init_params_synthetic
     from ktransformers_tpu_torch.models.spec import spec_from_hf_config
     from ktransformers_tpu_torch.ops import attention
-    from ktransformers_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from ktransformers_tpu_torch.ops.cuda import (
+        LAUNCHES,
+        MMA_LAUNCHES,
+        reset_launches,
+    )
 
     cfg = cfg or bench_model_cfg()
     spec = spec_from_hf_config(cfg)
@@ -1185,13 +1320,16 @@ def serve(result: dict, quant: str = "int4_g", key: str = "serve",
             f"(ttft {ttft * 1e3:.1f} ms), decode {dec:.2f} tok/s"
             f"{'' if fused else ' (fused decode off)'}")
     launches = dict(LAUNCHES)
+    mma = dict(MMA_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     result[key] = dict(model=cfg["model_type"], quant=quant,
                        moe_quant=moe_quant or quant, requests=reqs,
-                       launches=launches, max_memory_allocated=peak,
+                       launches=launches, mma_launches=mma,
+                       max_memory_allocated=peak,
                        params_bytes=pbytes, init_s=init_s)
     log(f"{key}: max_memory_allocated {peak / 1e9:.3f} GB, launches "
-        f"{json.dumps(launches)}")
+        f"{json.dumps(launches)}, of them on the tensor-core kernels "
+        f"{json.dumps(mma)}")
     missing = [k for k in expect if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the {key} run: "
@@ -1324,7 +1462,11 @@ def single_user_reference(gen, prompt: list, n: int):
 def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS) -> dict:
     """The 8 requests through one ServeEngine in three waves: 0-3 at once,
     5 and 6 after 8 engine steps, 4 and 7 once request 0 has finished."""
-    from ktransformers_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from ktransformers_tpu_torch.ops.cuda import (
+        LAUNCHES,
+        MMA_LAUNCHES,
+        reset_launches,
+    )
     from ktransformers_tpu_torch.serving import SchedulerConfig, ServeEngine
     from ktransformers_tpu_torch.utils.observability import StageTimer
 
@@ -1362,6 +1504,7 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
+    mma = dict(MMA_LAUNCHES)
     held = eng.prefix.stats()["nodes"]
     out = dict(
         depth=depth, wall_s=wall, engine_steps=eng.steps_executed,
@@ -1374,7 +1517,7 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS) -> dict:
         matched_len=[qs[i].matched_len for i in range(8)],
         preemptions=sum(qs[i].preemptions for i in range(8)),
         free_pages=eng.alloc.free_count, prefix_pages=held,
-        stage_timer=eng.timer.report(), launches=launches,
+        stage_timer=eng.timer.report(), launches=launches, mma_launches=mma,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         kv_pool_bytes=eng.kv.bytes_per_page() * num_pages,
     )
@@ -1452,6 +1595,7 @@ def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(1, 3),
 
 def _is_port_kernel(name: str) -> bool:
     return any(k in name for k in ("w4a8_rows_kernel", "ffn_up_kernel",
+                                   "w4a8_mma_kernel", "quant_mma_kernel",
                                    "w4a8_prep_kernel",
                                    "mla_decode_fused_kernel",
                                    "mla_paged_decode_kernel",
@@ -1462,6 +1606,19 @@ def _is_port_kernel(name: str) -> bool:
                                    "gqa_decode_combine_kernel",
                                    "gqa_paged_prefill_kernel",
                                    "quant_rows_t_kernel"))
+
+
+# the first version's 8-row tiles on bf16 activations: since the tensor-core
+# kernels take every dense and grouped bf16 call of 2 rows or more, a step
+# that still launches one of these has a wrapper off its route
+_FIRST_VERSION_MR8 = re.compile(r"quant_rows_kernel<\d+, 8, __nv_bfloat16>"
+                                r"|w4a8_rows_kernel<8, __nv_bfloat16>")
+
+
+def first_version_mr8(rows) -> list:
+    """Names of kernel rows (name, ms, count) that are the first version's
+    8-row instantiation on bf16 activations."""
+    return [r[0] for r in rows if _FIRST_VERSION_MR8.search(r[0])]
 
 
 def wall_ms(fn) -> float:
@@ -1503,12 +1660,17 @@ def summarize_steps(steps: dict) -> dict:
             idle_share=1.0 - busy / wall if busy else None,
             launches=launches,
             top=[dict(name=k[:90], ms=ms, count=n) for k, ms, n in rows[:12]],
+            first_version_mr8=first_version_mr8(rows),
         )
         log(f"profile {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
             f"in {kernels} kernels (port kernels {ours:.3f} ms), "
             f"launches {json.dumps(launches)}")
         for k, ms, n in rows[:12]:
             log(f"  {ms:9.3f} ms  x{n:<5d} {k[:90]}")
+        if out[name]["first_version_mr8"]:
+            raise AssertionError(
+                f"profile {name}: bf16 calls left on the first version's "
+                f"8-row tiles: {out[name]['first_version_mr8']}")
     return out
 
 
@@ -1622,8 +1784,11 @@ def sft_kernel_checks(rows: list, entries: dict) -> None:
     memory rate, against 2 M N K over the bf16 peak. Library yardstick, row
     16 only: torch.matmul(dy, W_bf16.T) on the dequantized weight (never on
     the path); row 17 has none (no one PyTorch call takes per-row
-    experts)."""
+    experts). Also row 8's forward over the step's 3,072 sorted rows
+    (w4a8_mma_kernel beside the first version; yardstick grouped_mm); the
+    step's dense row-1 shapes are in kernel_checks."""
     from ktransformers_tpu_torch.ops.cuda import quant_matmul_t as QT
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
     from ktransformers_tpu_torch.quant.formats import dequantize
 
     dev = torch.device("cuda")
@@ -1697,7 +1862,22 @@ def sft_kernel_checks(rows: list, entries: dict) -> None:
               lambda: QT.gathered_t_launcher(dy6, wt, ids6),
               nbytes(dy6) + wbytes(wt, 6) + 6 * k * 4, 2 * 6 * n * k,
               BF16_FLOPS_PER_S, plain_iters=2)
-        del wt
+        # row 8 forward on the same experts and rows (the step's routed
+        # experts: adapters keep them off the fused FFN), bf16 x
+        x = rn(m * 6, k)
+        wdq = dequantize(wt, bf)
+        check("grouped_w4a8_matmul",
+              f"sft {m * 6} sorted rows {what} [64, {k}, {n}]", 1e-2,
+              lambda: MM.grouped_w4a8_matmul(x, wt, sizes),
+              lambda: MM.grouped_w4a8_matmul_ref(x, wt, sizes),
+              lambda: MM.grouped_launcher(x, wt, sizes),
+              nbytes(x) + wbytes(wt, used) + m * 6 * n * 2,
+              2 * m * 6 * n * k, INT8_OPS_PER_S,
+              library=grouped_mm(x, wdq, sizes), plain_iters=2, iters=10,
+              **routed("w4a8_mma_kernel",
+                       MM.route(m * 6, "grouped", wt.group_size, n),
+                       lambda: MM.grouped_launcher(x, wt, sizes, "rows")))
+        del wt, wdq
 
 
 # the SFT parity model's tolerances (int8 weights, float32 compute): the
@@ -1874,7 +2054,11 @@ def sft_run(result: dict) -> None:
     = inputs), bf16 compute, per-layer remat, default TrainConfig."""
     from ktransformers_tpu_torch.models.init import init_params_synthetic
     from ktransformers_tpu_torch.models.spec import spec_from_hf_config
-    from ktransformers_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from ktransformers_tpu_torch.ops.cuda import (
+        LAUNCHES,
+        MMA_LAUNCHES,
+        reset_launches,
+    )
     from ktransformers_tpu_torch.quant.formats import QTensor
     from ktransformers_tpu_torch.sft import (
         LoRAConfig,
@@ -1908,6 +2092,9 @@ def sft_run(result: dict) -> None:
         torch.cuda.synchronize()
         return {k: v for k, v in LAUNCHES.items() if v}
 
+    def mma_counts():
+        return {k: v for k, v in MMA_LAUNCHES.items() if v}
+
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
@@ -1921,6 +2108,7 @@ def sft_run(result: dict) -> None:
     losses = [trainer.train_step(ids, ids) for _ in range(SFT_STEPS)]
     step_s = (time.perf_counter() - t0) / SFT_STEPS
     timed = counts()
+    timed_mma = mma_counts()
     peak = torch.cuda.max_memory_allocated()
     frozen = all(torch.equal(a.cpu(), b) for a, b in zip(base, base_copy))
     del base_copy
@@ -1940,6 +2128,7 @@ def sft_run(result: dict) -> None:
         losses=losses, max_memory_allocated=peak, params_bytes=pbytes,
         lora_bytes=lbytes, lora_b_moved=b_moved, base_unchanged=frozen,
         launches_first_step=first, launches=timed, launches_per_step=want,
+        mma_launches=timed_mma,
         profile=dict(device_busy_ms=busy, wall_ms=step_s * 1e3,
                      idle_share=1.0 - busy / (step_s * 1e3),
                      kernel_ms=t_ms,
@@ -1956,12 +2145,19 @@ def sft_run(result: dict) -> None:
         f"{loss_first:.4f} -> {losses[-1]:.4f}; max_memory_allocated "
         f"{peak / 1e9:.3f} GB; every LoRA b moved: {b_moved}; base "
         f"bit-unchanged: {frozen}")
-    log(f"sft launches per step {json.dumps(first)} (want {json.dumps(want)})")
+    log(f"sft launches per step {json.dumps(first)} (want {json.dumps(want)}"
+        f"), over {SFT_STEPS} steps on the tensor-core kernels "
+        f"{json.dumps(timed_mma)}")
     log(f"profile sft_step: wall {step_s * 1e3:.1f} ms, device busy "
         f"{busy:.1f} ms in {out['profile']['device_kernels']} kernels, rows "
         f"16 + 17 {t_ms['quant_matmul_t + grouped_quant_matmul_t']:.1f} ms")
     for k, ms, n in rows[:15]:
         log(f"  {ms:9.3f} ms  x{n:<5d} {k[:90]}")
+    out["profile"]["first_version_mr8"] = first_version_mr8(rows)
+    if out["profile"]["first_version_mr8"]:
+        raise AssertionError("sft step: bf16 calls left on the first "
+                             "version's 8-row tiles: "
+                             f"{out['profile']['first_version_mr8']}")
     if not (np.isfinite(loss_first) and all(np.isfinite(losses))):
         raise AssertionError(f"sft: non-finite loss {loss_first} {losses}")
     if not b_moved or not frozen:
@@ -1999,7 +2195,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from ktransformers_tpu_torch.ops.cuda import KERNELS, _build
+    from ktransformers_tpu_torch.ops.cuda import KERNELS, MMA_KERNELS, _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2029,6 +2225,7 @@ def main() -> int:
     variants = list(parity_variants())
     parity_check(result, variants)
     paged_parity_check(result, variants)
+    penalty_check(result)
     del variants
     # one weight format at a time (each model is ~1 GB on the host)
     for kind in QUANT_KINDS:
@@ -2148,18 +2345,29 @@ def main() -> int:
     # default pipeline depth: DeepSeek-V2-Lite on the int4_g and on the int8
     # parameters, then Mixtral-8x7B; then the SFT steps); a kernel's count
     # is the sum over the seven paths
-    paths = {
-        "single_user": result["serve"]["launches"],
-        "paged_serve": result["paged_serve"]["runs"][3]["launches"],
-        "single_user_int8": result["serve_int8"]["launches"],
-        "paged_serve_int8": result["paged_serve_int8"]["runs"][3]["launches"],
-        "single_user_mixtral": result["serve_mixtral"]["launches"],
-        "paged_serve_mixtral":
-            result["paged_serve_mixtral"]["runs"][3]["launches"],
-        "sft": result["sft"]["launches"],
+    runs = {
+        "single_user": result["serve"],
+        "paged_serve": result["paged_serve"]["runs"][3],
+        "single_user_int8": result["serve_int8"],
+        "paged_serve_int8": result["paged_serve_int8"]["runs"][3],
+        "single_user_mixtral": result["serve_mixtral"],
+        "paged_serve_mixtral": result["paged_serve_mixtral"]["runs"][3],
+        "sft": result["sft"],
     }
+    paths = {k: dict(r["launches"]) for k, r in runs.items()}
+    # the tensor-core kernels: launches of their wrappers that took them
+    for kernel, wrappers in MMA_KERNELS.items():
+        for k, r in runs.items():
+            paths[k][kernel] = sum(r["mma_launches"].get(n, 0)
+                                   for n in wrappers)
+    sources["quant_mma_kernel"] = (
+        "ktransformers_tpu_torch/csrc/quant_matmul.cu",
+        "ktransformers_tpu/ops/pallas/quant_matmul.py:225")
+    sources["w4a8_mma_kernel"] = (
+        "ktransformers_tpu_torch/csrc/w4a8_mma.cuh",
+        "ktransformers_tpu/ops/pallas/w4a8_matmul.py:930")
     kernels = []
-    for name in KERNELS:
+    for name in KERNELS + tuple(MMA_KERNELS):
         row = entries[name]
         total = sum(p.get(name, 0) for p in paths.values())
         if total <= 0:
@@ -2172,7 +2380,8 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
-            wrapper_ms=row["wrapper_ms"],
+            wrapper_ms=row["wrapper_ms"], kernel=row["kernel"],
+            first_ms=row["first_ms"],
             shape=row["shape"],
         ))
     result["kernels"] = kernels

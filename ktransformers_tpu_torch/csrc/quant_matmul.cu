@@ -5,7 +5,7 @@
 //
 // Replaces ktransformers_tpu/ops/pallas/quant_matmul.py:quant_matmul,
 // :gathered_quant_matmul and :grouped_quant_matmul. The three differ only
-// in which expert a row uses, so they share one kernel over a row-tile map
+// in which expert a row uses, so they share kernels over a row-tile map
 // (tile_expert, tile_row0, tile_rows: up to MR rows of one expert, built on
 // the device by the Python wrappers; a tile with rows = 0 is skipped).
 //
@@ -17,17 +17,42 @@
 //     mxfp8:      w = e4m3(code) * 2^(e[g, n] - 127)
 // with f32 accumulation and one cast to x's dtype at the end. Nibble kinds
 // keep row g*G + r of group g in the low nibble of byte row g*G/2 + r and
-// row g*G + G/2 + r in the high nibble, so the kernel reads x at those two
-// columns and needs no split pass over the activations.
+// row g*G + G/2 + r in the high nibble, so the kernels read x at those two
+// columns and need no split pass over the activations.
 //
-// Bound at decode: the weight bytes (each read once). Design: a block is
-// 32 x KW threads; threadIdx.x owns 4 adjacent output columns (one 4-byte
-// load per storage row, 128 contiguous bytes a warp), threadIdx.y walks
-// "units" of `unit` consecutive storage rows that share one scale row, four
-// rows at a time, decoding in registers and accumulating with f32 FMAs; the
-// KW partial sums meet in shared memory. Prefill tiles of MR = 8 rows
-// re-read the weight block from L2. Tensor cores, TMA and split-K are later
-// work.
+// Two kernels; the wrappers (ops/cuda/quant_matmul.py:route) pick one by a
+// fixed rule:
+//
+// quant_rows_kernel, the first version: M = 1 (single-user decode; MR = 1)
+// and the gathered entry (one row a tile), and float32 activations (whose
+// roundings bf16 tensor cores would change; tiles of MR = 8 rows). Bound
+// at decode: the weight bytes (each read once). A block is 32 x KW
+// threads; threadIdx.x owns 4 adjacent output columns (one 4-byte load per
+// storage row, 128 contiguous bytes a warp), threadIdx.y walks "units" of
+// `unit` consecutive storage rows that share one scale row, four rows at a
+// time, decoding in registers and accumulating with f32 FMAs; the KW
+// partial sums meet in shared memory.
+//
+// quant_mma_kernel, bf16 activations of 2 rows or more on the dense and grouped
+// entries (the crossover: on the H100 it beats the first version at every M
+// measured from 2 on, even where most of its 64 tile rows are padding): a block
+// owns a tile of BM = 64 rows of one expert and BN = 128 output columns (64
+// where a grid of 128-column blocks would leave SMs idle, the wrapper's choice)
+// and walks K in stages of 32 activation columns (32 storage rows, or 16 of a
+// nibble kind with both halves), so a stage lies inside one scale group (the
+// group's storage rows must be a multiple of 16 or 32: layer 0's down
+// projection, group 96, has 48). A ring of STAGES = 4 stages of raw weight
+// bytes, x rows and the group's scales is filled by cp.async three stages
+// ahead; the threads decode a stage into a bf16 tile [32][BN] in shared memory,
+// then eight warps (2 x 4, 32 x BN/4 outputs each) multiply it with the x tile
+// on the tensor cores (ldmatrix, ldmatrix.trans, mma.sync m16n8k16 bf16 with
+// f32 accumulators). Every operand is a bf16 value the Pallas body also forms
+// (the int8 and e4m3 codes are exact in bf16), so only the order of the f32
+// sums differs. Columns past N (N = 3648 is no multiple of 128) and rows past
+// the tile are zero-filled by the copies and never stored. Bound: operations at
+// the dense prefill shapes (2 M N K over the bf16 rate), the weight bytes of
+// the experts used at the grouped shapes; each weight tile is read and decoded
+// once per 64 rows.
 //
 // Plain C interface, built with nvcc and loaded through ctypes
 // (ops/cuda/_build.py). Returns the cudaError_t of the launch.
@@ -35,6 +60,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -255,6 +282,298 @@ __global__ void __launch_bounds__(32 * KW)
   }
 }
 
+// ------------------------------------------------ tensor-core kernel
+
+namespace tc {
+
+constexpr int BM = 64;        // rows a tile
+constexpr int BK = 32;        // activation columns a stage
+constexpr int STAGES = 4;     // depth of the cp.async ring
+constexpr int THREADS = 256;  // 8 warps: 2 along M x 4 along N
+constexpr int LDX = BK + 8;   // x tile row stride in bf16 (80 bytes)
+constexpr int X_BYTES = BM * LDX * 2;
+
+// BN output columns a block: 128, or 64 where the 128-column grid leaves
+// SMs idle (the wrapper picks; twice the blocks, two of them an SM)
+template <int BN>
+struct Cfg {
+  static constexpr int LDB = BN + 8;     // decoded tile row stride in bf16
+  static constexpr int W_BYTES = BK * BN;  // raw weight bytes a stage, max
+  static constexpr int S_BYTES = BN * 4;   // one scale (or exponent) row
+  static constexpr int STAGE = W_BYTES + X_BYTES + 2 * S_BYTES;
+  static constexpr int SMEM = STAGES * STAGE + BK * LDB * 2;
+  static constexpr int WN = BN / 4;      // columns a warp
+  static constexpr int NT = WN / 8;      // n8 tiles a warp
+};
+
+template <int KIND>
+struct Stage {
+  // storage rows a stage: 32 activation columns either way
+  static constexpr int SR = Traits<KIND>::nibble ? 16 : 32;
+  // raw bytes a thread decodes: 32 x BN values over 256 threads
+  template <int BN>
+  static constexpr int VB = Traits<KIND>::nibble ? BN / 16 : BN / 8;
+};
+
+}  // namespace tc
+
+// Issue the copies of stage st (storage rows st*SR ..) into a ring slot:
+// the raw weight bytes [SR][BN], the x tile [BM][BK] (for a nibble kind
+// the low-nibble columns, then the high-nibble ones) and the group's scale
+// row (int4: scales, then zero points; MX: exponents).
+template <int KIND, int BN>
+__device__ __forceinline__ void mma_load_stage(const Args& a, int e, int row0,
+                                               int nrows, int n0, int st,
+                                               uint8_t* slot) {
+  using C = tc::Cfg<BN>;
+  constexpr bool nib = Traits<KIND>::nibble;
+  constexpr int SR = tc::Stage<KIND>::SR;
+  constexpr int CPR = BN / 16;  // 16-byte chunks of a weight row
+  const int t = threadIdx.x;
+  const int r0 = st * SR;
+  const int g = r0 / a.rpg;
+  if (t < SR * CPR) {
+    const int row = t / CPR, c = t % CPR;
+    const int n = n0 + c * 16;
+    const bool ok = n < a.N;
+    kt_mma::cp_async16(
+        slot + row * BN + c * 16,
+        a.w + ((size_t)e * a.KR + r0 + row) * a.N + (ok ? n : 0), ok);
+  }
+  {
+    const int m = t >> 2, q = t & 3;
+    int col = r0 + q * 8;
+    if (nib) {
+      const int xlo = g * 2 * a.rpg + (r0 - g * a.rpg);
+      col = q < 2 ? xlo + q * 8 : xlo + a.rpg + (q - 2) * 8;
+    }
+    const bool ok = m < nrows;
+    kt_mma::cp_async16(
+        slot + C::W_BYTES + (m * tc::LDX + q * 8) * 2,
+        static_cast<const __nv_bfloat16*>(a.x) +
+            (size_t)(row0 + (ok ? m : 0)) * a.K + col,
+        ok);
+  }
+  uint8_t* sdst = slot + C::W_BYTES + tc::X_BYTES;
+  const size_t off = ((size_t)e * a.SG + g) * a.N;
+  if (KIND == K_INT4) {
+    constexpr int Q = BN / 4;  // 16-byte chunks of a float row
+    if (t < Q) {
+      const int n = n0 + t * 4;
+      const bool ok = n < a.N;
+      kt_mma::cp_async16(sdst + t * 16,
+                         static_cast<const float*>(a.s) + off + (ok ? n : 0),
+                         ok);
+    } else if (t < 2 * Q && a.z != nullptr) {
+      const int n = n0 + (t - Q) * 4;
+      const bool ok = n < a.N;
+      kt_mma::cp_async16(sdst + C::S_BYTES + (t - Q) * 16,
+                         a.z + off + (ok ? n : 0), ok);
+    }
+  } else if (KIND == K_MXFP4 || KIND == K_MXFP8) {
+    if (t < CPR) {
+      const int n = n0 + t * 16;
+      const bool ok = n < a.N;
+      kt_mma::cp_async16(
+          sdst + t * 16,
+          static_cast<const uint8_t*>(a.s) + off + (ok ? n : 0), ok);
+    }
+  }
+}
+
+// Decode a landed stage into Bs [BK][LDB] bf16: row k of Bs is
+// activation column k of the stage (nibble kinds: rows 0-15 the low
+// nibbles of the 16 storage rows, rows 16-31 the high ones). A thread
+// decodes VB consecutive raw bytes of one row.
+template <int KIND, int BN>
+__device__ __forceinline__ void mma_decode_stage(const Args& a,
+                                                 const uint8_t* slot,
+                                                 __nv_bfloat16* Bs) {
+  using C = tc::Cfg<BN>;
+  constexpr int VB = tc::Stage<KIND>::template VB<BN>;
+  constexpr int TPR = BN / VB;  // threads a raw row
+  const int t = threadIdx.x;
+  const int row = t / TPR, c = (t % TPR) * VB;
+  const uint8_t* sm = slot + C::W_BYTES + tc::X_BYTES;
+  uint32_t wd[VB / 4];
+#pragma unroll
+  for (int j = 0; j < VB / 4; ++j)
+    wd[j] = *reinterpret_cast<const uint32_t*>(slot + row * BN + c + 4 * j);
+  if (!Traits<KIND>::nibble) {
+    uint32_t ed[VB / 4];
+#pragma unroll
+    for (int j = 0; j < VB / 4; ++j)
+      ed[j] = KIND == K_MXFP8
+                  ? *reinterpret_cast<const uint32_t*>(sm + c + 4 * j)
+                  : 0u;
+    __align__(16) __nv_bfloat16 o[VB];
+#pragma unroll
+    for (int j = 0; j < VB; ++j) {
+      const uint32_t b = (wd[j >> 2] >> (8 * (j & 3))) & 0xffu;
+      const uint32_t ex = (ed[j >> 2] >> (8 * (j & 3))) & 0xffu;
+      const float sc = KIND == K_MXFP8 ? ue8m0_to_float(ex) : 1.f;
+      float lo, hi;
+      decode<KIND, __nv_bfloat16>(b, sc, 0.f, a.flip, lo, hi);
+      o[j] = __float2bfloat16(lo);
+    }
+#pragma unroll
+    for (int j = 0; j < VB / 8; ++j)
+      reinterpret_cast<uint4*>(Bs + row * C::LDB + c)[j] =
+          reinterpret_cast<const uint4*>(o)[j];
+  } else {
+    float sc[VB], zp[VB];
+    if (KIND == K_INT4) {
+      const float* fs = reinterpret_cast<const float*>(sm) + c;
+#pragma unroll
+      for (int j = 0; j < VB; ++j) {
+        sc[j] = fs[j];
+        zp[j] = a.z != nullptr ? fs[BN + j] : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < VB; ++j) {
+        sc[j] = ue8m0_to_float(sm[c + j]);
+        zp[j] = 0.f;
+      }
+    }
+    __align__(16) __nv_bfloat16 lo8[VB], hi8[VB];
+#pragma unroll
+    for (int j = 0; j < VB; ++j) {
+      const uint32_t b = (wd[j >> 2] >> (8 * (j & 3))) & 0xffu;
+      float lo, hi;
+      decode<KIND, __nv_bfloat16>(b, sc[j], zp[j], a.flip, lo, hi);
+      lo8[j] = __float2bfloat16(lo);
+      hi8[j] = __float2bfloat16(hi);
+    }
+    // VB bf16 = 2 VB bytes: 16 (BN 128) or 8 (BN 64)
+#pragma unroll
+    for (int j = 0; j < VB / 2; ++j) {
+      reinterpret_cast<uint32_t*>(Bs + row * C::LDB + c)[j] =
+          reinterpret_cast<const uint32_t*>(lo8)[j];
+      reinterpret_cast<uint32_t*>(Bs + (16 + row) * C::LDB + c)[j] =
+          reinterpret_cast<const uint32_t*>(hi8)[j];
+    }
+  }
+}
+
+// y[row, n] for a tile of up to BM rows of one expert and BN columns, x
+// and y bf16. grid = (ceil(N / BN), tiles), THREADS threads, SMEM bytes.
+template <int KIND, int BN>
+__global__ void __launch_bounds__(tc::THREADS, 2)
+    quant_mma_kernel(Args a, __nv_bfloat16* __restrict__ out) {
+  using C = tc::Cfg<BN>;
+  constexpr int NT = C::NT;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tile = blockIdx.y;
+  const int nrows = a.tile_rows[tile];
+  if (nrows <= 0) return;  // dead tile (block-uniform)
+  const int row0 = a.tile_row0[tile];
+  const int e = a.tile_expert[tile];
+  const int n0 = blockIdx.x * BN;
+  const int nst = a.KR / tc::Stage<KIND>::SR;
+  __nv_bfloat16* Bs =
+      reinterpret_cast<__nv_bfloat16*>(smem + tc::STAGES * C::STAGE);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp & 1, wn = warp >> 1;  // a warp's 32 x WN outputs
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < tc::STAGES - 1; ++st) {
+    if (st < nst)
+      mma_load_stage<KIND, BN>(a, e, row0, nrows, n0, st,
+                               smem + st * C::STAGE);
+    kt_mma::cp_async_commit();
+  }
+  for (int st = 0; st < nst; ++st) {
+    kt_mma::cp_async_wait<tc::STAGES - 2>();
+    __syncthreads();  // stage st landed; stage st - 1 fully consumed
+    const uint8_t* slot = smem + (st % tc::STAGES) * C::STAGE;
+    const int nx = st + tc::STAGES - 1;  // into the slot stage st - 1 used
+    if (nx < nst)
+      mma_load_stage<KIND, BN>(a, e, row0, nrows, n0, nx,
+                               smem + (nx % tc::STAGES) * C::STAGE);
+    kt_mma::cp_async_commit();
+    mma_decode_stage<KIND, BN>(a, slot, Bs);
+    __syncthreads();
+    const __nv_bfloat16* Xs =
+        reinterpret_cast<const __nv_bfloat16*>(slot + C::W_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < tc::BK; kk += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        kt_mma::ldmatrix_x4(
+            af[i], Xs + (wm * 32 + i * 16 + (lane & 15)) * tc::LDX + kk +
+                       (lane >> 4) * 8);
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+        uint32_t bf[4];
+        kt_mma::ldmatrix_x4_trans(
+            bf, Bs + (kk + (lane & 15)) * C::LDB + wn * C::WN + p * 16 +
+                    (lane >> 4) * 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          kt_mma::mma_bf16_16816(acc[i][2 * p], af[i], bf[0], bf[1]);
+          kt_mma::mma_bf16_16816(acc[i][2 * p + 1], af[i], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  // acc[i][j][c]: row wm*32 + i*16 + lane/4 (+8 for c >= 2), column
+  // n0 + wn*WN + j*8 + (lane%4)*2 + c%2
+  const float* ps = static_cast<const float*>(a.s) + (size_t)e * a.SG * a.N;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int col = n0 + wn * C::WN + j * 8 + (lane & 3) * 2;
+    if (col >= a.N) continue;  // N % 16 == 0: both columns in or out
+    float s0 = 1.f, s1 = 1.f;
+    if (Traits<KIND>::post_scale) {
+      s0 = ps[col];
+      s1 = ps[col + 1];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wm * 32 + i * 16 + (lane >> 2) + h * 8;
+        if (row < nrows)
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + (size_t)(row0 + row) * a.N + col) =
+              __floats2bfloat162_rn(acc[i][j][2 * h] * s0,
+                                    acc[i][j][2 * h + 1] * s1);
+      }
+  }
+}
+
+template <int KIND, int BN>
+cudaError_t launch_mma_bn(const Args& a, int ntiles, __nv_bfloat16* out,
+                          cudaStream_t st) {
+  static int ready_dev = -1;
+  cudaError_t err = kt_mma::allow_smem(quant_mma_kernel<KIND, BN>,
+                                       tc::Cfg<BN>::SMEM, &ready_dev);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.N + BN - 1) / BN, ntiles);
+  quant_mma_kernel<KIND, BN>
+      <<<grid, tc::THREADS, tc::Cfg<BN>::SMEM, st>>>(a, out);
+  return cudaGetLastError();
+}
+
+template <int KIND>
+cudaError_t launch_mma(const Args& a, int ntiles, int bn,
+                       __nv_bfloat16* out, cudaStream_t st) {
+  if (bn == 128) return launch_mma_bn<KIND, 128>(a, ntiles, out, st);
+  if (bn == 64) return launch_mma_bn<KIND, 64>(a, ntiles, out, st);
+  return cudaErrorInvalidValue;
+}
+
 template <int KIND, typename XT>
 cudaError_t launch_mr(const Args& a, int ntiles, int mr, XT* out,
                       cudaStream_t st) {
@@ -315,4 +634,52 @@ extern "C" int kt_quant_rows(const void* x, const void* w, const void* s,
     return (int)launch_kind(a, kind, ntiles, mr,
                             static_cast<__nv_bfloat16*>(out), st);
   return (int)launch_kind(a, kind, ntiles, mr, static_cast<float*>(out), st);
+}
+
+static bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15u) == 0;
+}
+
+// The tensor-core kernel (bf16 x and out): the same operands as
+// kt_quant_rows, tiles of up to 64 rows, bn = 128 or 64 columns a block.
+// Takes N a multiple of 16, K a multiple of 8, rpg a multiple of the
+// stage's storage rows (16 for the nibble kinds, 32 otherwise) and 16-byte
+// aligned operands.
+extern "C" int kt_quant_mma(const void* x, const void* w, const void* s,
+                            const void* z, const void* tile_expert,
+                            const void* tile_row0, const void* tile_rows,
+                            int ntiles, int bn, int kind, int k, int kr,
+                            int n, int sg, int rpg, int flip, void* out,
+                            void* stream) {
+  if (ntiles <= 0) return 0;
+  const int sr = (kind == K_INT4 || kind == K_MXFP4) ? 16 : 32;
+  if (n % 16 || k % 8 || rpg <= 0 || rpg % sr || kr % rpg ||
+      ntiles > 65535 || !aligned16(x) || !aligned16(w) || !aligned16(s) ||
+      (z != nullptr && !aligned16(z)) || ((uintptr_t)out & 3u))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.x = x;
+  a.w = static_cast<const uint8_t*>(w);
+  a.s = s;
+  a.z = static_cast<const float*>(z);
+  a.tile_expert = static_cast<const int*>(tile_expert);
+  a.tile_row0 = static_cast<const int*>(tile_row0);
+  a.tile_rows = static_cast<const int*>(tile_rows);
+  a.K = k;
+  a.KR = kr;
+  a.N = n;
+  a.SG = sg;
+  a.rpg = rpg;
+  a.unit = 0;
+  a.flip = flip;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  switch (kind) {
+    case K_INT8: return (int)launch_mma<K_INT8>(a, ntiles, bn, o, st);
+    case K_FP8: return (int)launch_mma<K_FP8>(a, ntiles, bn, o, st);
+    case K_INT4: return (int)launch_mma<K_INT4>(a, ntiles, bn, o, st);
+    case K_MXFP4: return (int)launch_mma<K_MXFP4>(a, ntiles, bn, o, st);
+    case K_MXFP8: return (int)launch_mma<K_MXFP8>(a, ntiles, bn, o, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -27,6 +27,11 @@ class GenerateConfig:
     seed: int = 0
 
 
+def _count(counts: torch.Tensor, tok: torch.Tensor) -> None:
+    """counts[b, tok[b]] += 1 for every row, in place on the device."""
+    counts.scatter_add_(1, tok[:, None], torch.ones_like(counts[:, :1]))
+
+
 class Generator:
     """Holds prepared params and the rope tables for one (spec, batch,
     max_len) on one device (``cuda`` unless told otherwise)."""
@@ -68,10 +73,20 @@ class Generator:
 
     def decode_step(self, tok: torch.Tensor, cache: KVCache,
                     sampling: SamplingConfig = SamplingConfig(),
-                    generator: torch.Generator | None = None):
-        """One token per sequence: tok [B] -> (next [B], cache)."""
+                    generator: torch.Generator | None = None,
+                    counts: torch.Tensor | None = None,
+                    prompt_mask: torch.Tensor | None = None):
+        """One token per sequence: tok [B] -> (next [B], cache).
+
+        With ``counts`` (int32 [B, V], the generated tokens' occurrences)
+        and ``prompt_mask`` (bool [B, V]) the penalties of ``sampling``
+        apply, and the sampled token is counted into ``counts`` in place
+        (the JAX package's _decode_step_penalized returns new counts)."""
         logits, cache = self._forward(tok[:, None], cache)
-        return sample(logits[:, -1], generator, sampling), cache
+        nxt = sample(logits[:, -1], generator, sampling, counts, prompt_mask)
+        if counts is not None:
+            _count(counts, nxt)
+        return nxt, cache
 
     def generate(self, prompt_ids, cfg: GenerateConfig = GenerateConfig(),
                  on_token=None) -> list[list[int]]:
@@ -90,7 +105,18 @@ class Generator:
         gen.manual_seed(cfg.seed)
         cache = self.new_cache()
         last, cache = self.prefill(cache, prompt, cfg.prefill_chunk)
-        tok = sample(last, gen, cfg.sampling)
+        counts = prompt_mask = None
+        if cfg.sampling.needs_counts:
+            # penalties: the generated tokens' counts and the prompt's
+            # tokens, both on the device (the JAX Generator's layout)
+            v = last.shape[-1]
+            counts = torch.zeros(b, v, dtype=torch.int32, device=self.device)
+            prompt_mask = torch.zeros(b, v, dtype=torch.bool,
+                                      device=self.device)
+            prompt_mask.scatter_(1, prompt, True)
+        tok = sample(last, gen, cfg.sampling, counts, prompt_mask)
+        if counts is not None:
+            _count(counts, tok)
         toks = [tok]
         if on_token is not None:
             on_token(tok)
@@ -100,7 +126,8 @@ class Generator:
                 finished |= (tok == cfg.eos_token_id).cpu()
                 if bool(finished.all()):
                     break
-            tok, cache = self.decode_step(tok, cache, cfg.sampling, gen)
+            tok, cache = self.decode_step(tok, cache, cfg.sampling, gen,
+                                          counts, prompt_mask)
             toks.append(tok)
             if on_token is not None:
                 on_token(tok)

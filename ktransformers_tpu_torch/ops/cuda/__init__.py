@@ -10,7 +10,10 @@ W4A8 matmuls (experts too wide for the fused FFN, Mixtral's), the two
 GQA paged-attention kernels and the two transposed matmuls of the LoRA SFT
 backward (dense, and per-row experts: grouped or gathered). ``LAUNCHES``
 counts, per TPU kernel replaced, the wrapper calls that launched on the
-card; a call of an FFN wrapper is two kernel launches.
+card; a call of an FFN wrapper is two kernel launches. Four wrappers route
+a call to one of two kernels (ops/cuda/quant_matmul.py:route,
+ops/cuda/w4a8_matmul.py:route); ``MMA_LAUNCHES`` counts those of their
+launches that went to the tensor-core kernel (``MMA_KERNELS`` names it).
 """
 
 from __future__ import annotations
@@ -38,7 +41,15 @@ KERNELS = (
 
 LAUNCHES = {name: 0 for name in KERNELS}
 
+# the tensor-core kernels and the wrappers that route calls to them
+MMA_KERNELS = {
+    "quant_mma_kernel": ("quant_matmul", "grouped_quant_matmul"),
+    "w4a8_mma_kernel": ("dense_w4a8_matmul", "grouped_w4a8_matmul"),
+}
+MMA_LAUNCHES = {name: 0 for names in MMA_KERNELS.values() for name in names}
+
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, MMA_LAUNCHES):
+        for name in counts:
+            counts[name] = 0

@@ -33,6 +33,7 @@ F = ctypes.c_float
 SIGNATURES = {
     "w4a8_matmul": {
         "kt_w4a8_rows": [P] * 10 + [I] * 7 + [P, P],
+        "kt_w4a8_mma": [P] * 10 + [I] * 6 + [P, P],
         "kt_w4a8_prep": [P, I, I, I, I] + [P] * 6,
     },
     "w4a8_ffn": {
@@ -49,6 +50,7 @@ SIGNATURES = {
     },
     "quant_matmul": {
         "kt_quant_rows": [P] * 7 + [I] * 11 + [P, P],
+        "kt_quant_mma": [P] * 7 + [I] * 9 + [P, P],
     },
     "quant_matmul_t": {
         "kt_quant_rows_t": [P] * 7 + [I] * 10 + [P, P],

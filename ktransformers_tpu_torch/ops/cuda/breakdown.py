@@ -1,0 +1,207 @@
+"""Where the time of the two tensor-core matmul kernels goes, on one GPU.
+
+    python -m ktransformers_tpu_torch.ops.cuda.breakdown
+
+Each kernel is rebuilt from a copy of csrc/ with parts of its loop
+compiled out, and timed through its wrapper's launcher at the main path's
+prefill shapes (L2 flushed before each launch, median of 20):
+- quant_mma_kernel (int8 weights, bf16 x): without the decode pass (the
+  mma reads whatever the decoded tile holds), without the mma, without
+  both;
+- w4a8_mma_kernel: without the group epilogue, without the s8 mma,
+  without both.
+What is left with both parts out is the skeleton: the cp.async ring, the
+barriers and the ldmatrix loads. The outputs of the cut variants are
+garbage; only their times are read. The copies and libraries go to
+csrc/build/breakdown/ (git-ignored); each W4A8 copy gets its own
+namespaces, so that the libraries share no template symbol. Prints one
+line per shape, then all of them as one JSON line.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+
+import torch
+
+from ktransformers_tpu_torch.ops.cuda import _build
+
+# (file, text, replacement): a variant's switch wraps the marked code
+CUTS = {
+    "quant_matmul.cu": [
+        ("    mma_decode_stage<KIND, BN>(a, slot, Bs);",
+         "#if !CUT_DECODE\n    mma_decode_stage<KIND, BN>(a, slot, Bs);\n"
+         "#endif"),
+        ("          kt_mma::mma_bf16_16816(acc[i][2 * p], af[i], bf[0], "
+         "bf[1]);\n          kt_mma::mma_bf16_16816(acc[i][2 * p + 1], "
+         "af[i], bf[2], bf[3]);",
+         "#if CUT_MMA\n          acc[i][2 * p][0] += __uint_as_float(af[i][0]"
+         " ^ bf[0]);\n          acc[i][2 * p + 1][1] += "
+         "__uint_as_float(af[i][1] ^ bf[3]);\n#else\n"
+         "          kt_mma::mma_bf16_16816(acc[i][2 * p], af[i], bf[0], "
+         "bf[1]);\n          kt_mma::mma_bf16_16816(acc[i][2 * p + 1], "
+         "af[i], bf[2], bf[3]);\n#endif"),
+    ],
+    "w4a8_mma.cuh": [
+        ("            acc[i][p][h][c] += val * sc[c];",
+         "#if CUT_EPILOGUE\n            acc[i][p][h][c] += (float)(pa[i][nt]"
+         "[fc] ^ pb[i][nt][fc]);\n#else\n            acc[i][p][h][c] += "
+         "val * sc[c];\n#endif"),
+        ("          kt_mma::mma_s8_16832(pa[i][2 * p], fa[i], e0 & LO, "
+         "e1 & LO);",
+         "#if CUT_MMA\n          pa[i][2 * p][0] ^= fa[i][0] ^ e0;\n"
+         "          pb[i][2 * p][1] ^= fb[i][1] ^ o1;\n#else\n"
+         "          kt_mma::mma_s8_16832(pa[i][2 * p], fa[i], e0 & LO, "
+         "e1 & LO);"),
+        ("          kt_mma::mma_s8_16832(pb[i][2 * p + 1], fb[i], o0, o1);",
+         "          kt_mma::mma_s8_16832(pb[i][2 * p + 1], fb[i], o0, o1);\n"
+         "#endif"),
+    ],
+}
+VARIANTS = {
+    "quant_matmul": {"full": [], "no_decode": ["-DCUT_DECODE=1"],
+                     "no_mma": ["-DCUT_MMA=1"],
+                     "skeleton": ["-DCUT_DECODE=1", "-DCUT_MMA=1"]},
+    "w4a8_matmul": {"full": [], "no_epilogue": ["-DCUT_EPILOGUE=1"],
+                    "no_mma": ["-DCUT_MMA=1"],
+                    "skeleton": ["-DCUT_EPILOGUE=1", "-DCUT_MMA=1"]},
+}
+OUT = os.path.join(_build.BUILD, "breakdown")
+
+
+def cut_sources() -> str:
+    """A copy of csrc/ with the switches of CUTS in place."""
+    src = os.path.join(OUT, "csrc")
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(_build.CSRC, src,
+                    ignore=shutil.ignore_patterns("build"))
+    for name, cuts in CUTS.items():
+        path = os.path.join(src, name)
+        text = open(path).read()
+        for old, new in cuts:
+            if old not in text:
+                raise RuntimeError(f"breakdown: {name} no longer has "
+                                   f"{old.strip()[:60]!r}")
+            text = text.replace(old, new)
+        with open(path, "w") as fh:
+            fh.write(text)
+    return src
+
+
+def build_variants(src: str) -> dict:
+    """{(library, variant): ctypes library}, all nvcc runs at once."""
+    procs = {}
+    for lib, variants in VARIANTS.items():
+        for v, flags in variants.items():
+            out = os.path.join(OUT, f"lib{lib}_{v}.so")
+            cmd = [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17",
+                   "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", src,
+                   f"-Dkt=kt_{v}", f"-Dkt_mma=kt_mma_{v}", *flags, "-o", out,
+                   os.path.join(src, f"{lib}.cu")]
+            procs[(lib, v)] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), out)
+    libs = {}
+    for (lib, v), (proc, out) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"breakdown: nvcc failed for {lib} {v}:\n"
+                               f"{log}")
+        cdll = ctypes.CDLL(out)
+        for fn, argtypes in _build.SIGNATURES[lib].items():
+            f = getattr(cdll, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        libs[(lib, v)] = cdll
+    return libs
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    """Median time of one call between CUDA events, the L2 cache flushed
+    before each (as chip_smoke.py times its kernels)."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("breakdown: no CUDA device", file=sys.stderr)
+        return 1
+    from ktransformers_tpu_torch.models.init import _Draw
+    from ktransformers_tpu_torch.ops.cuda import quant_matmul as QM
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+    from ktransformers_tpu_torch.quant.w4a8 import repack_offset_lo
+
+    os.makedirs(OUT, exist_ok=True)
+    libs = build_variants(cut_sources())
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    rd = _Draw(1, torch.device("cuda"), torch.bfloat16)
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=rd.gen).to(
+            torch.bfloat16)
+
+    def w(shape):
+        return repack_offset_lo(rd.q(shape, "int4_g", 128))
+
+    shapes = []
+    for m in (256, 1024):
+        x = rn(m, 2048)
+        wq, ww = rd.q((2048, 3648), "int8", 128), w((2048, 3648))
+        shapes.append((f"int8 qkv_a M={m}", "quant_matmul",
+                       lambda x=x, wq=wq: QM.dense_launcher(x, wq, "mma")))
+        shapes.append((f"w4a8 qkv_a M={m}", "w4a8_matmul",
+                       lambda x=x, ww=ww: MM.dense_w4a8_launcher(x, ww,
+                                                                 "mma")))
+    wg = w((8, 4096, 28672))
+    top = torch.topk(torch.randn(256, 8, generator=torch.Generator()
+                                 .manual_seed(7)), 2, dim=-1).indices
+    sizes = torch.bincount(top.reshape(-1), minlength=8).to(
+        torch.int32).cuda()
+    xg = rn(512, 4096)
+    shapes.append(("w4a8 Mixtral gate_up, 512 sorted rows", "w4a8_matmul",
+                   lambda: MM.grouped_launcher(xg, wg, sizes, "mma")))
+    lib_of = _build.lib
+    result = dict(card=card, shapes={})
+    try:
+        for label, lib, launcher in shapes:
+            row = {}
+            for v in VARIANTS[lib]:
+                _build.lib = (lambda name, lib=lib, v=v:
+                              libs[(lib, v)] if name == lib else lib_of(name))
+                row[v] = time_ms(launcher()[0])
+            _build.lib = lib_of
+            result["shapes"][label] = row
+            print(f"{label}: " + ", ".join(f"{v} {ms:.4f} ms"
+                                           for v, ms in row.items()),
+                  flush=True)
+    finally:
+        _build.lib = lib_of
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

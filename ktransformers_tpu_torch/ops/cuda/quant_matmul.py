@@ -11,6 +11,13 @@ Kinds: int8, fp8, int4 / int4_g / int4_gz (also in the offset-lo encoding),
 mxfp4, mxfp8. The arithmetic of every kind is stated in the CUDA source;
 the plain versions round the decoded weight to x.dtype at the same place.
 Bound on the card at decode: the weight bytes of the experts the rows use.
+
+Two kernels serve the entries; ``route`` picks one by a fixed rule:
+quant_mma_kernel (tensor cores, tiles of MMA_BM rows) for bf16 dense and
+grouped calls of at least MMA_MIN_ROWS rows whose shapes it takes, and the
+first version, quant_rows_kernel, for everything else (decode, the
+gathered entry, float32 activations, whose roundings bf16 tensor cores
+would change).
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ import dataclasses
 
 import torch
 
-from ktransformers_tpu_torch.ops.cuda import LAUNCHES
+from ktransformers_tpu_torch.ops.cuda import LAUNCHES, MMA_LAUNCHES
 from ktransformers_tpu_torch.ops.cuda import _build
 from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
     _check_x,
@@ -47,8 +54,55 @@ _DATA_DTYPES = {
     "int4": (torch.uint8, torch.int8), "int4_g": (torch.uint8, torch.int8),
     "int4_gz": (torch.uint8, torch.int8),
 }
+# tile heights of quant_rows_kernel (the first version)
 DENSE_MR = 8    # rows per tile of a dense call with more than one row
 GROUPED_MR = 8  # rows per tile of a grouped call
+# quant_mma_kernel: tiles of MMA_BM rows, from MMA_MIN_ROWS rows on: on the
+# H100 it beats the first version at every M measured from 2 up
+# (chip_smoke.py's kernel phase times both on the same operands); M = 1,
+# single-user decode, keeps the first version
+MMA_BM = 64
+MMA_MIN_ROWS = 2
+
+
+_SMS: dict = {}
+
+
+def mma_block_n(n: int, ntiles: int, device) -> int:
+    """Output columns a block of quant_mma_kernel takes: 128, or 64 where a
+    grid of 128-column blocks would have fewer blocks than the card has
+    SMs (twice the blocks then, two of them an SM). ntiles is the tile
+    map's static length (a grouped map's dead tiles included)."""
+    key = str(device)
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return 64 if (n + 127) // 128 * ntiles < _SMS[key] else 128
+
+
+def rows_per_group(w: QTensor) -> int:
+    """Storage rows that share one scale row (int8 / fp8: all of them)."""
+    kr = w.data.shape[-2]
+    if w.kind in ("int8", "fp8"):
+        return kr
+    gs = w.group_size or w.in_features
+    return gs // 2 if w.kind in INT4_KINDS else gs
+
+
+def route(dtype: torch.dtype, m: int, entry: str, kind: str, k: int,
+          n: int, rpg: int) -> str:
+    """The kernel of a CUDA call: "mma" (quant_mma_kernel) or "rows"
+    (quant_rows_kernel). ``entry`` is "dense", "gathered" or "grouped"; m
+    the rows of x; rpg the storage rows of a scale group. The tensor-core
+    kernel takes bf16 x only (float32 activations keep their roundings),
+    N a multiple of 16, K of 8, and a scale group whose storage rows fill
+    whole stages (16 for the nibble kinds, 32 for the others)."""
+    if entry == "gathered" or dtype != torch.bfloat16 or m < MMA_MIN_ROWS:
+        return "rows"
+    stage_rows = 16 if kind in INT4_KINDS else 32
+    if n % 16 or k % 8 or rpg % stage_rows:
+        return "rows"
+    return "mma"
 
 
 def check_weight(w: QTensor, ndim: int, what: str) -> None:
@@ -147,15 +201,12 @@ def grouped_quant_matmul_ref(x_sorted, w: QTensor, group_sizes) -> torch.Tensor:
 def rows_launcher(x_rows: torch.Tensor, w: QTensor, tiles, mr: int,
                   out: torch.Tensor, what: str):
     """Checks a CUDA call on a 3-D weight; returns launch(), which runs only
-    the kernel and writes ``out`` [R, N]."""
+    quant_rows_kernel and writes ``out`` [R, N]."""
     check_cuda_operands(what, x_rows.device, x_rows, w.data, w.scales,
                         *(() if w.zeros is None else (w.zeros,)))
     kdim, n = w.in_features, w.out_features
     kr = w.data.shape[-2]
-    gs = w.group_size or kdim
-    rpg = gs // 2 if w.kind in INT4_KINDS else gs
-    if w.kind in ("int8", "fp8"):
-        rpg = kr  # one scale row, applied after the sum
+    rpg = rows_per_group(w)
     unit = next((u for u in (16, 8, 4) if rpg % u == 0), 0)
     if not unit or n % 4 or kdim % 4:
         raise ValueError(f"{what}: the kernel takes N and K multiples of 4 "
@@ -180,11 +231,47 @@ def rows_launcher(x_rows: torch.Tensor, w: QTensor, tiles, mr: int,
     return launch
 
 
-def dense_launcher(x2: torch.Tensor, w: QTensor):
-    """(launch, out) of a CUDA quant_matmul call on x2 [M, K]."""
+def mma_launcher(x_rows: torch.Tensor, w: QTensor, tiles,
+                 out: torch.Tensor, what: str):
+    """Checks a CUDA call on a 3-D weight; returns launch(), which runs only
+    quant_mma_kernel (tiles of up to MMA_BM rows, mma_block_n columns a
+    block) and writes ``out``."""
+    check_cuda_operands(what, x_rows.device, x_rows, w.data, w.scales,
+                        *(() if w.zeros is None else (w.zeros,)))
+    te, tr0, trs = tiles
+    bn = mma_block_n(w.out_features, te.shape[0], x_rows.device)
+    fn = _build.lib("quant_matmul").kt_quant_mma
+    flip = 0 if w.act_quant else 8
+    dev = x_rows.device
+
+    def launch():
+        err = fn(
+            x_rows.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
+            None if w.zeros is None else w.zeros.data_ptr(),
+            te.data_ptr(), tr0.data_ptr(), trs.data_ptr(), te.shape[0], bn,
+            _KIND_CODE[w.kind], w.in_features, w.data.shape[-2],
+            w.out_features, w.scales.shape[-2], rows_per_group(w), flip,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(err, what)
+
+    return launch
+
+
+def _route(x_rows: torch.Tensor, w: QTensor, entry: str) -> str:
+    return route(x_rows.dtype, x_rows.shape[0], entry, w.kind, w.in_features,
+                 w.out_features, rows_per_group(w))
+
+
+def dense_launcher(x2: torch.Tensor, w: QTensor, kernel: str | None = None):
+    """(launch, out) of a CUDA quant_matmul call on x2 [M, K]; ``kernel``
+    ("rows" or "mma") overrides ``route``, for a measurement."""
     m = x2.shape[0]
-    mr = 1 if m == 1 else DENSE_MR
     out = torch.empty(m, w.out_features, dtype=x2.dtype, device=x2.device)
+    if (kernel or _route(x2, w, "dense")) == "mma":
+        return mma_launcher(x2, lift(w), dense_tiles(m, MMA_BM, x2.device),
+                            out, "quant_matmul"), out
+    mr = 1 if m == 1 else DENSE_MR
     return rows_launcher(x2, lift(w), dense_tiles(m, mr, x2.device), mr, out,
                          "quant_matmul"), out
 
@@ -197,17 +284,24 @@ def gathered_launcher(x_rows: torch.Tensor, w: QTensor, ids: torch.Tensor):
 
 
 def grouped_launcher(x_sorted: torch.Tensor, w: QTensor,
-                     group_sizes: torch.Tensor):
+                     group_sizes: torch.Tensor, kernel: str | None = None):
     out = torch.zeros(x_sorted.shape[0], w.out_features,
                       dtype=x_sorted.dtype, device=x_sorted.device)
-    tiles = grouped_tiles(group_sizes, x_sorted.shape[0], GROUPED_MR)
+    m = x_sorted.shape[0]
+    if (kernel or _route(x_sorted, w, "grouped")) == "mma":
+        return mma_launcher(x_sorted, w, grouped_tiles(group_sizes, m, MMA_BM),
+                            out, "grouped_quant_matmul"), out
+    tiles = grouped_tiles(group_sizes, m, GROUPED_MR)
     return rows_launcher(x_sorted, w, tiles, GROUPED_MR, out,
                          "grouped_quant_matmul"), out
 
 
-def _counted(what: str, launch, out: torch.Tensor) -> torch.Tensor:
+def _counted(what: str, kernel: str, launch, out: torch.Tensor
+             ) -> torch.Tensor:
     launch()
     LAUNCHES[what] += 1
+    if kernel == "mma":
+        MMA_LAUNCHES[what] += 1
     return out
 
 
@@ -223,7 +317,9 @@ def quant_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     _check_x(x2, w.in_features, what)
     if device_kind(x, what) == "cpu":
         return quant_matmul_ref(x, w)
-    y = _counted(what, *dense_launcher(x2.contiguous(), w))
+    x2 = x2.contiguous()
+    kernel = _route(x2, w, "dense")
+    y = _counted(what, kernel, *dense_launcher(x2, w, kernel))
     return y.reshape(*lead, w.out_features)
 
 
@@ -238,7 +334,8 @@ def gathered_quant_matmul(x_rows: torch.Tensor, w: QTensor,
         raise ValueError(f"{what}: ids must be [R]")
     if device_kind(x_rows, what) == "cpu":
         return gathered_quant_matmul_ref(x_rows, w, ids)
-    return _counted(what, *gathered_launcher(x_rows.contiguous(), w, ids))
+    return _counted(what, "rows",
+                    *gathered_launcher(x_rows.contiguous(), w, ids))
 
 
 def grouped_quant_matmul(x_sorted: torch.Tensor, w: QTensor,
@@ -252,5 +349,7 @@ def grouped_quant_matmul(x_sorted: torch.Tensor, w: QTensor,
         raise ValueError(f"{what}: group_sizes must be [E]")
     if device_kind(x_sorted, what) == "cpu":
         return grouped_quant_matmul_ref(x_sorted, w, group_sizes)
-    return _counted(what, *grouped_launcher(x_sorted.contiguous(), w,
-                                            group_sizes))
+    x_sorted = x_sorted.contiguous()
+    kernel = _route(x_sorted, w, "grouped")
+    return _counted(what, kernel,
+                    *grouped_launcher(x_sorted, w, group_sizes, kernel))

@@ -8,9 +8,13 @@ ktransformers_tpu/ops/pallas/w4a8_matmul.py:
   (decode MoE experts the fused FFN kernels refuse),
 - grouped_w4a8_matmul: rows sorted by expert with group sizes; rows past
   sum(group_sizes) come back zero (prefill MoE, likewise).
-They differ only in the row-tile map their wrapper builds. Bound on the
-card at decode: the weight bytes of the experts the rows use (K/2 * N int8
-+ ng * N f32 scales each); see the source note in csrc/w4a8_matmul.cu.
+They differ only in the row-tile map their wrapper builds and in the
+kernel ``route`` gives them: w4a8_mma_kernel (s8 tensor cores, tiles of
+MMA_BM rows) for dense and grouped calls of at least MMA_MIN_ROWS rows at
+group 128 or 96, w4a8_rows_kernel (the first version, __dp4a) for the rest
+(decode, the gathered entry). Bound on the card at decode: the weight bytes
+of the experts the rows use (K/2 * N int8 + ng * N f32 scales each); see
+the source notes in csrc/w4a8_matmul.cu and csrc/w4a8_mma.cuh.
 
 Also holds what the FFN wrappers share: the row-tile maps (a tile is up to
 ``mr`` rows that use one expert) and the plain W4A8 group dot.
@@ -20,12 +24,32 @@ from __future__ import annotations
 
 import torch
 
-from ktransformers_tpu_torch.ops.cuda import LAUNCHES
+from ktransformers_tpu_torch.ops.cuda import LAUNCHES, MMA_LAUNCHES
 from ktransformers_tpu_torch.ops.cuda import _build
 from ktransformers_tpu_torch.quant.formats import QTensor
 from ktransformers_tpu_torch.quant.w4a8 import w4a8_prep
 
 _DENSE_TILES: dict = {}
+
+# w4a8_mma_kernel: tiles of MMA_BM rows, from MMA_MIN_ROWS rows on (on the
+# H100 it beats the first version at every M measured from 2 up, as
+# chip_smoke.py's kernel phase shows; M = 1, single-user decode, keeps the
+# first version), for the group sizes it is built for
+MMA_BM = 64
+MMA_MIN_ROWS = 2
+MMA_GROUPS = (96, 128)
+
+
+def route(m: int, entry: str, group_size: int, n: int) -> str:
+    """The kernel of a CUDA call: "mma" (w4a8_mma_kernel) or "rows"
+    (w4a8_rows_kernel). ``entry`` is "dense", "gathered" or "grouped"; m
+    the rows of x. The activation codes are integers, so float32 and bf16
+    x take the same kernel; N must be a multiple of 16."""
+    if entry == "gathered" or m < MMA_MIN_ROWS:
+        return "rows"
+    if group_size not in MMA_GROUPS or n % 16:
+        return "rows"
+    return "mma"
 
 
 def dense_tiles(m: int, mr: int, device):
@@ -161,6 +185,23 @@ def _check_x(x: torch.Tensor, kdim: int, what: str) -> None:
         raise ValueError(f"{what}: x must be float32 or bfloat16")
 
 
+def launch_mma(what, prep, w: QTensor, tiles, out):
+    """Launch w4a8_mma_kernel (kt_w4a8_mma)."""
+    qa, qb, sa, sb, t = prep
+    te, tr0, trs = tiles
+    k2, n = w.data.shape[-2], w.data.shape[-1]
+    gs2 = w.group_size // 2
+    err = _build.lib("w4a8_matmul").kt_w4a8_mma(
+        qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+        t.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
+        te.data_ptr(), tr0.data_ptr(), trs.data_ptr(),
+        te.shape[0], k2, n, k2 // gs2, gs2,
+        int(out.dtype == torch.bfloat16), out.data_ptr(),
+        torch.cuda.current_stream(out.device).cuda_stream,
+    )
+    _build.check(err, what)
+
+
 def launch_rows(fn, what, prep, w: QTensor, tiles, mr: int, out):
     """Launch a rows kernel (kt_w4a8_rows / kt_w4a8_ffn_down)."""
     qa, qb, sa, sb, t = prep
@@ -208,23 +249,24 @@ def prep_activations(x2: torch.Tensor, kdim: int, group_size: int):
     return qa, qb, sa, sb, t
 
 
-def dense_w4a8_launcher(x2: torch.Tensor, w: QTensor):
+def dense_w4a8_launcher(x2: torch.Tensor, w: QTensor,
+                        kernel: str | None = None):
     """Checks and prepares a CUDA call; returns (launch, out), where
     launch() runs only the kernel on the prepared operands (so a caller
-    can time the kernel apart from the activation prep)."""
+    can time the kernel apart from the activation prep). ``kernel`` ("rows"
+    or "mma") overrides ``route``, for a measurement."""
     what = "dense_w4a8_matmul"
     check_cuda_operands(what, x2.device, x2, w.data, w.scales)
     m = x2.shape[0]
-    qa, qb, sa, sb, t = prep_activations(x2, w.in_features, w.group_size)
-    mr = 1 if m == 1 else (4 if m <= 4 else 8)
+    prep = prep_activations(x2, w.in_features, w.group_size)
     out = torch.empty(m, w.out_features, dtype=x2.dtype, device=x2.device)
+    if (kernel or route(m, "dense", w.group_size, w.out_features)) == "mma":
+        tiles = dense_tiles(m, MMA_BM, x2.device)
+        return lambda: launch_mma(what, prep, w, tiles, out), out
+    mr = 1 if m == 1 else (4 if m <= 4 else 8)
     fn = _build.lib("w4a8_matmul").kt_w4a8_rows
     tiles = dense_tiles(m, mr, x2.device)
-
-    def launch():
-        launch_rows(fn, what, (qa, qb, sa, sb, t), w, tiles, mr, out)
-
-    return launch, out
+    return lambda: launch_rows(fn, what, prep, w, tiles, mr, out), out
 
 
 def dense_w4a8_matmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
@@ -239,13 +281,16 @@ def dense_w4a8_matmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
         return w4a8_matmul_ref(x2, w)
     if x2.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x2.device}")
-    launch, out = dense_w4a8_launcher(x2, w)
+    kernel = route(x2.shape[0], "dense", w.group_size, w.out_features)
+    launch, out = dense_w4a8_launcher(x2, w, kernel)
     launch()
     LAUNCHES[what] += 1
+    if kernel == "mma":
+        MMA_LAUNCHES[what] += 1
     return out
 
 
-GROUPED_MR = 8  # rows per tile of a grouped call
+GROUPED_MR = 8  # rows per tile of a grouped call on w4a8_rows_kernel
 
 
 def w4a8_rows_ref(x_rows: torch.Tensor, w: QTensor,
@@ -295,12 +340,20 @@ def gathered_launcher(x_rows: torch.Tensor, w: QTensor, ids: torch.Tensor):
 
 
 def grouped_launcher(x_sorted: torch.Tensor, w: QTensor,
-                     group_sizes: torch.Tensor):
-    out = torch.zeros(x_sorted.shape[0], w.out_features,
-                      dtype=x_sorted.dtype, device=x_sorted.device)
-    tiles = grouped_tiles(group_sizes, x_sorted.shape[0], GROUPED_MR)
-    return rows_launcher(x_sorted, w, tiles, GROUPED_MR, out,
-                         "grouped_w4a8_matmul"), out
+                     group_sizes: torch.Tensor, kernel: str | None = None):
+    what = "grouped_w4a8_matmul"
+    m = x_sorted.shape[0]
+    out = torch.zeros(m, w.out_features, dtype=x_sorted.dtype,
+                      device=x_sorted.device)
+    if (kernel or route(m, "grouped", w.group_size, w.out_features)) \
+            == "mma":
+        check_cuda_operands(what, x_sorted.device, x_sorted, w.data,
+                            w.scales)
+        prep = prep_activations(x_sorted, w.in_features, w.group_size)
+        tiles = grouped_tiles(group_sizes, m, MMA_BM)
+        return lambda: launch_mma(what, prep, w, tiles, out), out
+    tiles = grouped_tiles(group_sizes, m, GROUPED_MR)
+    return rows_launcher(x_sorted, w, tiles, GROUPED_MR, out, what), out
 
 
 def gathered_w4a8_matmul(x_rows: torch.Tensor, w: QTensor,
@@ -328,8 +381,8 @@ def grouped_w4a8_matmul(x_sorted: torch.Tensor, w: QTensor,
                         group_sizes: torch.Tensor) -> torch.Tensor:
     """Prefill MoE matmul on int8 dots over rows x_sorted [M, K] sorted by
     expert (group_sizes [E]); rows past sum(group_sizes) come back zero.
-    [M, N] in x_sorted.dtype. Tiles of GROUPED_MR rows of one expert
-    share each weight read."""
+    [M, N] in x_sorted.dtype. Tiles of MMA_BM rows of one expert (of
+    GROUPED_MR on the first version) share each weight read."""
     what = "grouped_w4a8_matmul"
     check_w4a8_weight(w, 3, what)
     _check_x(x_sorted, w.in_features, what)
@@ -337,7 +390,12 @@ def grouped_w4a8_matmul(x_sorted: torch.Tensor, w: QTensor,
         raise ValueError(f"{what}: group_sizes must be [E]")
     if device_kind(x_sorted, what) == "cpu":
         return grouped_w4a8_matmul_ref(x_sorted, w, group_sizes)
-    launch, out = grouped_launcher(x_sorted.contiguous(), w, group_sizes)
+    kernel = route(x_sorted.shape[0], "grouped", w.group_size,
+                   w.out_features)
+    launch, out = grouped_launcher(x_sorted.contiguous(), w, group_sizes,
+                                   kernel)
     launch()
     LAUNCHES[what] += 1
+    if kernel == "mma":
+        MMA_LAUNCHES[what] += 1
     return out

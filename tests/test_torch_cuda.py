@@ -605,3 +605,140 @@ def test_transposed_wrappers_refuse_on_the_card(cuda):
     w2 = _qw(rng, (128, 42), "int8").to(cuda)
     with pytest.raises(ValueError, match="multiple of 4"):
         QT.quant_matmul_t(_x(rng, 4, 42).to(cuda), w2)
+
+
+# ------------------- tensor-core kernels at M >= 16, rows 9 / 11 and 1 / 8
+
+
+def _bf(rng, *shape):
+    return _x(rng, *shape).bfloat16()
+
+
+def _routes(mod, *args):
+    assert mod.route(*args) == "mma", args
+
+
+@pytest.mark.parametrize("m", [16, 64, 1000])
+@pytest.mark.parametrize("kind", QM_KINDS)
+def test_quant_mma_dense(cuda, kind, m):
+    """bf16 activations of at least MMA_MIN_ROWS rows take
+    quant_mma_kernel: N = 3648 (the fused qkv_a, no multiple of the 128
+    columns of a block), 1000 rows leave a partial 64-row tile."""
+    rng = np.random.default_rng(m)
+    w, x = _qw(rng, (256, 3648), kind), _bf(rng, m, 256)
+    _routes(QM, x.dtype, m, "dense", kind, 256, 3648, QM.rows_per_group(w))
+    out = _counted("quant_matmul",
+                   lambda: QM.quant_matmul(x.to(cuda), w.to(cuda)))
+    assert out.dtype == torch.bfloat16
+    assert _rel(out, QM.quant_matmul_ref(x, w)) <= 1e-2
+
+
+@pytest.mark.parametrize("kind", QM_KINDS)
+def test_quant_mma_group_96(cuda, kind):
+    """K = 192: a group of 96 (48 storage rows, three 16-row stages of a
+    nibble kind) for the int4 group kinds, as layer 0's down projection."""
+    rng = np.random.default_rng(96)
+    w, x = _qw(rng, (192, 256), kind), _bf(rng, 40, 192)
+    if kind in ("int4_g", "int4_gz"):
+        assert w.group_size == 96
+    _routes(QM, x.dtype, 40, "dense", kind, 192, 256, QM.rows_per_group(w))
+    out = QM.quant_matmul(x.to(cuda), w.to(cuda))
+    assert _rel(out, QM.quant_matmul_ref(x, w)) <= 1e-2
+
+
+@pytest.mark.parametrize("kind", QM_KINDS + ("int4_g offset-lo",))
+def test_quant_mma_grouped_empty_expert_and_tail(cuda, kind):
+    """Sorted rows over 5 experts: two empty, one longer than a 64-row
+    tile, and 17 rows past the total, which must come back zero."""
+    rng = np.random.default_rng(11)
+    if kind == "int4_g offset-lo":
+        w = _qw(rng, (5, 256, 176), "int4_g")
+        w.data = (w.data ^ 8).view(torch.int8)
+        w.act_quant = True
+    else:
+        w = _qw(rng, (5, 256, 176), kind)
+    x = _bf(rng, 250, 256)
+    sizes = torch.tensor([70, 0, 130, 0, 33], dtype=torch.int32)
+    _routes(QM, x.dtype, 250, "grouped", w.kind, 256, 176,
+            QM.rows_per_group(w))
+    out = _counted("grouped_quant_matmul", lambda: QM.grouped_quant_matmul(
+        x.to(cuda), w.to(cuda), sizes.to(cuda)))
+    assert not out[233:].abs().max().item()
+    assert _rel(out, QM.grouped_quant_matmul_ref(x, w, sizes)) <= 1e-2
+
+
+def test_quant_mma_leaves_float32_on_the_first_version(cuda):
+    """float32 activations keep quant_rows_kernel (their roundings): the
+    float32 tolerance holds at 64 rows."""
+    rng = np.random.default_rng(12)
+    w, x = _qw(rng, (256, 3648), "int4_g"), _x(rng, 64, 256)
+    assert QM.route(x.dtype, 64, "dense", "int4_g", 256, 3648, 64) == "rows"
+    out = QM.quant_matmul(x.to(cuda), w.to(cuda))
+    assert _rel(out, QM.quant_matmul_ref(x, w)) <= 1e-5
+
+
+@pytest.mark.parametrize("m", [16, 64, 1000])
+def test_w4a8_mma_dense(cuda, m):
+    """Both activation types at N = 3648 and 16, 64 and 1000 rows."""
+    rng = np.random.default_rng(30 + m)
+    w, x = _w(rng, (256, 3648)), _x(rng, m, 256)
+    _routes(MM, m, "dense", 128, 3648)
+    wc = w.to(cuda)
+    out = _counted("dense_w4a8_matmul",
+                   lambda: MM.dense_w4a8_matmul(x.to(cuda), wc))
+    assert out.dtype == torch.float32
+    assert _rel(out, MM.w4a8_matmul_ref(x, w)) <= 1e-5
+    xb = x.bfloat16()
+    out = MM.dense_w4a8_matmul(xb.to(cuda), wc)
+    assert out.dtype == torch.bfloat16
+    assert _rel(out, MM.w4a8_matmul_ref(xb, w)) <= 1e-2
+
+
+def test_w4a8_mma_group_96(cuda):
+    """gs/2 = 48 bytes a group: one k32 and one k16 step."""
+    rng = np.random.default_rng(41)
+    w, x = _w(rng, (576, 256)), _x(rng, 40, 576)
+    assert w.group_size == 96
+    _routes(MM, 40, "dense", 96, 256)
+    out = MM.dense_w4a8_matmul(x.to(cuda), w.to(cuda))
+    assert _rel(out, MM.w4a8_matmul_ref(x, w)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_w4a8_mma_grouped_empty_expert_and_tail(cuda, dtype, tol):
+    """Sorted rows over 5 experts: two empty, one longer than a 64-row
+    tile, N = 208 (a partial 128-column block), and 17 rows past the
+    total, which must come back zero."""
+    rng = np.random.default_rng(42)
+    w, xs = _w(rng, (5, 256, 208)), _x(rng, 250, 256).to(dtype)
+    sizes = torch.tensor([70, 0, 130, 0, 33], dtype=torch.int32)
+    _routes(MM, 250, "grouped", 128, 208)
+    out = _counted("grouped_w4a8_matmul", lambda: MM.grouped_w4a8_matmul(
+        xs.to(cuda), w.to(cuda), sizes.to(cuda)))
+    assert out.dtype == dtype and torch.all(out[233:] == 0)
+    assert _rel(out, MM.grouped_w4a8_matmul_ref(xs, w, sizes)) <= tol
+
+
+@pytest.mark.parametrize("entry", ["dense", "grouped"])
+def test_mma_and_first_version_agree(cuda, entry):
+    """The two kernels of one entry on the same bf16 operands, each forced
+    through the launchers' ``kernel`` argument (a measurement hook)."""
+    rng = np.random.default_rng(43)
+    x = _bf(rng, 96, 256).to(cuda)
+    sizes = torch.tensor([40, 0, 50], dtype=torch.int32, device=cuda)
+    qw = _qw(rng, (3, 256, 384), "int8").to(cuda)
+    ww = _w(rng, (3, 256, 384)).to(cuda)
+    if entry == "dense":
+        calls = ((QM.dense_launcher, (x, QM.expert_slice(qw, 2))),
+                 (MM.dense_w4a8_launcher, (x, QM.expert_slice(ww, 2))))
+    else:
+        calls = ((QM.grouped_launcher, (x, qw, sizes)),
+                 (MM.grouped_launcher, (x, ww, sizes)))
+    for launcher, args in calls:
+        outs = []
+        for kernel in ("rows", "mma"):
+            launch, out = launcher(*args, kernel)
+            launch()
+            outs.append(out)
+        assert _rel(outs[1], outs[0]) <= 1e-2

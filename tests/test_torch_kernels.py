@@ -30,6 +30,7 @@ from ktransformers_tpu.quant.formats import quantize as j_quantize
 from ktransformers_tpu.quant.w4a8 import repack_offset_lo as j_repack
 from ktransformers_tpu_torch.convert import qtensor_from_jax
 from ktransformers_tpu_torch.ops.cuda import w4a8_ffn as tffn
+from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as twm
 from ktransformers_tpu_torch.ops.cuda.mla_decode import mla_decode_fused
 from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import dense_w4a8_matmul
 from ktransformers_tpu_torch.quant.formats import QTensor
@@ -55,6 +56,58 @@ def test_dense_w4a8_matmul(m):
     ref = np.asarray(jwm.dense_w4a8_matmul(jnp.asarray(x), jw, interpret=True))
     out = dense_w4a8_matmul(torch.from_numpy(x), tw).numpy()
     assert _rel(out, ref) <= TOL
+
+
+@pytest.mark.parametrize("m, entry, group, n, want", [
+    (16, "dense", 128, 3648, "mma"), (2, "dense", 128, 3648, "mma"),
+    (1, "dense", 128, 3648, "rows"), (8, "dense", 128, 3648, "mma"),
+    (16, "gathered", 128, 28672, "rows"), (512, "grouped", 128, 28672, "mma"),
+    (512, "dense", 96, 2048, "mma"), (512, "dense", 64, 2048, "rows"),
+    (512, "dense", 128, 200, "rows"), (3072, "grouped", 128, 2816, "mma"),
+])
+def test_w4a8_route_rule(m, entry, group, n, want):
+    """Which W4A8 kernel a CUDA call takes, as a pure function of the call
+    (float32 and bf16 x alike: the activation codes are integers)."""
+    assert twm.MMA_MIN_ROWS == 2 and twm.MMA_BM == 64
+    assert twm.route(m, entry, group, n) == want
+
+
+def _tile_rows(tiles):
+    return [tuple(int(v) for v in t) for t in zip(*tiles)]
+
+
+@pytest.mark.parametrize("mr", [8, 64])
+@pytest.mark.parametrize("sizes, m", [([70, 0, 130, 0, 33], 250),
+                                      ([64, 64], 128), ([0, 0, 0], 5),
+                                      ([1] * 10, 12), ([200], 200)])
+def test_grouped_tiles_cover_every_live_row_once(sizes, m, mr):
+    """At the first version's tile height and the tensor-core kernel's:
+    every live row in exactly one tile of its own expert, at most mr rows
+    a tile, the masked tail in none, dead tiles with rows = 0, and the
+    static tile count ceil(m / mr) + E (no host sync)."""
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    tiles = twm.grouped_tiles(gs, m, mr)
+    assert tiles[0].shape[0] == (m + mr - 1) // mr + len(sizes)
+    expert = twm.sorted_row_experts(gs, m).tolist()
+    cover = [0] * m
+    for e, r0, n in _tile_rows(tiles):
+        assert 0 <= n <= mr
+        for r in range(r0, r0 + n):
+            assert expert[r] == e
+            cover[r] += 1
+    live = sum(sizes)
+    assert cover == [1] * live + [0] * (m - live)
+
+
+@pytest.mark.parametrize("m, mr", [(1, 1), (8, 8), (16, 64), (1000, 64),
+                                   (128, 64), (3, 4)])
+def test_dense_tiles_cover_every_row_once(m, mr):
+    tiles = twm.dense_tiles(m, mr, "cpu")
+    rows = _tile_rows(tiles)
+    assert len(rows) == (m + mr - 1) // mr
+    assert [r for e, r0, n in rows for r in range(r0, r0 + n)] == \
+        list(range(m))
+    assert all(e == 0 and 0 < n <= mr for e, _, n in rows)
 
 
 @pytest.mark.parametrize("act", ["silu", "relu", "gelu"])

@@ -269,8 +269,8 @@ def test_port_imports_no_jax():
             "ktransformers_tpu_torch/ops/linear.py",
             "ktransformers_tpu_torch/quant/formats.py"} <= names
     # nor does the package hand a kernel's product to a library call
-    lib = re.compile(r"_int_mm|_scaled_mm|scaled_dot_product_attention"
-                     r"|torch\.compile")
+    lib = re.compile(r"_int_mm|_scaled_mm|_grouped_mm"
+                     r"|scaled_dot_product_attention|torch\.compile")
     for f in files:
         text = f.read_text()
         assert not pat.search(text), f

@@ -150,6 +150,71 @@ def test_offset_lo_grouped(monkeypatch):
            "float32")
 
 
+@pytest.mark.parametrize("kind", ["int8", "int4_g offset-lo", "mxfp4"])
+def test_plain_versions_above_the_crossover(kind, monkeypatch):
+    """bf16 calls of 96 rows (past MMA_MIN_ROWS and one 64-row tile: the
+    tensor-core kernel's route on the card) against the Pallas kernels:
+    dense, and grouped over sorted rows with an empty expert, a group longer
+    than one 64-row tile and 6 masked rows."""
+    base = "int4_g" if kind.endswith("offset-lo") else kind
+    jq, tq = _weights(base, (256, 176), seed=21)
+    jg, tg = _weights(base, (3, 256, 176), seed=22)
+    if base != kind:
+        jq, jg = jw.repack_offset_lo(jq), jw.repack_offset_lo(jg)
+        tq = qtensor_from_jax(jax.device_get(jq), "cpu")
+        tg = qtensor_from_jax(jax.device_get(jg), "cpu")
+        monkeypatch.setattr(jqm, "W4A8_DENSE_MAX_M", 0)
+        monkeypatch.setattr(jqm, "_GROUPED_IMPL", "bf16")
+    jx, tx = _x((96, 256), "bfloat16", seed=23)
+    assert tqm.route(tx.dtype, 96, "dense", tq.kind, 256, 176,
+                     tqm.rows_per_group(tq)) == "mma"
+    dense = getattr(jqm.quant_matmul, "__wrapped__", jqm.quant_matmul)
+    _close(tqm.quant_matmul(tx, tq), dense(jx, jq, interpret=True),
+           "bfloat16")
+    sizes = np.asarray([70, 0, 20], np.int32)
+    grouped = getattr(jqm.grouped_quant_matmul, "__wrapped__",
+                      jqm.grouped_quant_matmul)
+    out = tqm.grouped_quant_matmul(tx, tg, torch.from_numpy(sizes))
+    _close(out, grouped(jx, jg, jnp.asarray(sizes), interpret=True),
+           "bfloat16")
+    assert not out[90:].float().abs().max()
+
+
+@pytest.mark.parametrize("dtype, m, entry, kind, k, n, rpg, want", [
+    (torch.bfloat16, 2, "dense", "int8", 2048, 3648, 2048, "mma"),
+    (torch.bfloat16, 8, "dense", "int8", 2048, 3648, 2048, "mma"),
+    (torch.bfloat16, 1, "dense", "int4_g", 2048, 3648, 64, "rows"),
+    (torch.float32, 256, "dense", "int8", 2048, 3648, 2048, "rows"),
+    (torch.bfloat16, 48, "gathered", "int8", 2048, 2816, 2048, "rows"),
+    (torch.bfloat16, 1536, "grouped", "int4_gz", 2048, 2816, 64, "mma"),
+    (torch.bfloat16, 256, "dense", "int4_g", 10944, 2048, 48, "mma"),
+    (torch.bfloat16, 256, "dense", "mxfp4", 2048, 3648, 16, "mma"),
+    (torch.bfloat16, 256, "dense", "mxfp8", 2048, 3648, 32, "mma"),
+    (torch.bfloat16, 256, "dense", "int4_g", 2048, 3648, 8, "rows"),
+    (torch.bfloat16, 256, "dense", "mxfp8", 2048, 3648, 16, "rows"),
+    (torch.bfloat16, 256, "dense", "int8", 192, 40, 192, "rows"),
+    (torch.bfloat16, 256, "dense", "fp8", 2052, 48, 2052, "rows"),
+])
+def test_route_rule(dtype, m, entry, kind, k, n, rpg, want):
+    """Which kernel a CUDA call takes, as a pure function of the call:
+    bf16, at least MMA_MIN_ROWS rows, dense or grouped, N a multiple of
+    16, K of 8, and a scale group of whole stages (16 storage rows for the
+    nibble kinds, 32 for the others) take quant_mma_kernel."""
+    assert tqm.MMA_MIN_ROWS == 2 and tqm.MMA_BM == 64
+    assert tqm.route(dtype, m, entry, kind, k, n, rpg) == want
+
+
+@pytest.mark.parametrize("kind, shape, group, want", [
+    ("int8", (2048, 3648), 128, 2048), ("fp8", (1408, 2048), 128, 1408),
+    ("int4", (2048, 256), 128, 1024), ("int4_g", (2048, 256), 128, 64),
+    ("int4_g", (10944, 256), 128, 48), ("mxfp4", (2048, 256), 128, 16),
+    ("mxfp8", (2048, 256), 128, 32), ("int4_gz", (192, 64), 128, 48),
+])
+def test_rows_per_group(kind, shape, group, want):
+    _, tq = _weights(kind, shape, group_size=group)
+    assert tqm.rows_per_group(tq) == want
+
+
 def test_ue8m0_exponent_zero_decodes_to_zero():
     """A ue8m0 exponent of 0 (2^-127, below float32's normal range) decodes
     to a scale of 0, as the JAX package's exp2 gives on the CPU: the group

@@ -12,11 +12,14 @@ Phases (any failure exits non-zero before the final line):
             decode batch of 8, mixed steps of 8 + C*S rows, page tables;
             the SFT step's M = 512), with times; the quant_matmul family
             once per weight format (int8, fp8, int4, int4_g, int4_gz,
-            mxfp4, mxfp8). Where a wrapper routes a call to a tensor-core
-            kernel (quant_mma_kernel, w4a8_mma_kernel: 2 rows or more),
-            the first version is held and timed on the same operands too
-            (first_ms), and the grouped entries get torch._grouped_mm as
-            their library yardstick where this PyTorch has it;
+            mxfp4, mxfp8). Where a wrapper routes a call to a redesigned
+            kernel (quant_mma_kernel, w4a8_mma_kernel: 2 rows or more;
+            quant_gemv_kernel: one-row quant_matmul and every gathered
+            call; quant_wgmma_t_kernel: the transposed matmuls), the first
+            version is held and timed on the same operands too (first_ms)
+            and a second call of the wrapper must give the same bits; the
+            grouped entries get torch._grouped_mm as their library
+            yardstick where this PyTorch has it;
 4. parity:  the full-width config cut to 2 layers, the same synthetic
             weights on the CPU (plain versions) and on the card (kernels),
             float32 compute: a 64-token prefill and 4 decode steps through
@@ -46,8 +49,10 @@ Phases (any failure exits non-zero before the final line):
 7. profile: a prefill chunk and a decode step of the Generator, a batch-8
             decode step and a mixed step of the ServeEngine: wall time,
             launches per step, device time by kernel (torch.profiler); a
-            step that still launches a first-version 8-row instantiation
-            on bf16 activations fails (so does the SFT step's profile);
+            step that still launches a first-version instantiation its
+            routes replace (8-row tiles on bf16, one-row quant_matmul
+            tiles, the transposed first version) fails (so does the SFT
+            step's profile);
 8. int8:    the int4_g parameters are freed; the full 27-layer config with
             int8 weights (every matmul through the quant_matmul kernels) in
             a Generator answering 2 requests of 512 + 32 tokens, the second
@@ -56,9 +61,10 @@ Phases (any failure exits non-zero before the final line):
             ServeEngine over the same parameters answering the 8 requests
             of phase 6 at pipeline depth 3 with the same checks; the
             profiles of phase 7 on the int8 parameters;
-9. mixtral: the int8 parameters are freed; the four kernels of the
-            Mixtral-8x7B path (gathered / grouped W4A8 matmul, GQA paged
-            decode / prefill) against their plain versions at its shapes;
+9. mixtral: the int8 parameters are freed; the kernels of the
+            Mixtral-8x7B path (its int8 qkv / o_proj / lm_head at M = 1,
+            gathered / grouped W4A8 matmul, GQA paged decode / prefill)
+            against their plain versions at its shapes;
             parity of its full width cut to 2 layers with the served kinds
             (int8 attention, int4_g W4A8 experts), held as the W4A8 variant
             of phase 4; then all 32 layers in a Generator answering 2
@@ -80,8 +86,8 @@ Phases (any failure exits non-zero before the final line):
             Trainer.train_step, finite losses, a frozen base, adapters that
             moved, launches per step held to the counts the code implies,
             peak memory, and one profiled step.
-Prints a kernels JSON line (the eighteen wrappers, then the two
-tensor-core kernels, whose launches are those of their wrappers' calls
+Prints a kernels JSON line (the eighteen wrappers, then the four
+redesigned kernels, whose launches are those of their wrappers' calls
 that took them), the card line, and as the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Imports nothing of JAX.
@@ -190,6 +196,9 @@ def make_check(rows: list, entries: dict):
                 if rel_err(o, rf)[1] > (side_tol or tol):
                     raise AssertionError(f"{name} [{label}] side outputs")
             out, ref = out[0], ref[0]
+        if kernel is not None and not torch.equal(wrapper(), out):
+            raise AssertionError(f"{name} [{label}] {kernel}: a second call "
+                                 "is not bit-identical")
         mae, rel = rel_err(out, ref, per_row)
         ok = rel <= tol and bool(torch.isfinite(out.float()).all())
         launch = launcher()[0]
@@ -240,12 +249,18 @@ def make_check(rows: list, entries: dict):
     return check
 
 
-def routed(kernel: str, route: str, first) -> dict:
+def routed(kernels: dict, route: str, first) -> dict:
     """check() keywords for a call its wrapper routes: where the route is
-    the tensor-core kernel, its name and the first version's launcher
-    (``first``) on the same operands; nothing where the call keeps the
-    first version."""
-    return dict(kernel=kernel, first=first) if route == "mma" else {}
+    one of ``kernels`` ({route: redesigned kernel}), that kernel's name and
+    the first version's launcher (``first``) on the same operands; nothing
+    where the call keeps the first version."""
+    return dict(kernel=kernels[route], first=first) if route in kernels \
+        else {}
+
+
+QM_ROUTES = {"mma": "quant_mma_kernel", "gemv": "quant_gemv_kernel"}
+W4A8_ROUTES = {"mma": "w4a8_mma_kernel"}
+QT_ROUTES = {"wgmma": "quant_wgmma_t_kernel"}
 
 
 def grouped_mm(x, wdq, sizes):
@@ -357,7 +372,7 @@ def kernel_checks(rows: list, entries: dict) -> None:
               INT8_OPS_PER_S, library=lambda: torch.matmul(x, wdq),
               main=main == "main", kernel_main=main == "kernel_main",
               plain_iters=2 if m > 64 else 5,
-              **routed("w4a8_mma_kernel",
+              **routed(W4A8_ROUTES,
                        MM.route(m, "dense", wt.group_size, n),
                        lambda: MM.dense_w4a8_launcher(x, wt, "rows")))
         del wdq, wt
@@ -520,6 +535,7 @@ def quant_kernel_checks(check, rd, rn, dev) -> None:
 
     def dense_shapes(kind):
         yield from ((1, 2048, 3648, "decode qkv_a M=1"),
+                    (1, 2048, 2048, "decode o_proj M=1"),
                     (8, 2048, 3648, "serve decode qkv_a M=8"),
                     (256, 2048, 3648, "prefill qkv_a M=256"),
                     (1, 2048, 102400, "decode lm_head M=1"),
@@ -547,9 +563,10 @@ def quant_kernel_checks(check, rd, rn, dev) -> None:
                   nbytes(x) + wbytes(wt) + m * n * 2, 2 * m * n * k,
                   BF16_FLOPS_PER_S, library=lambda: torch.matmul(x, wdq),
                   main=(kind == "int8" and m == 1 and n == 3648),
-                  kernel_main=(kind == "int8" and m == 256 and n == 3648),
+                  kernel_main=(kind == "int8" and m in (1, 256)
+                               and n == 3648),
                   plain_iters=2, iters=it,
-                  **routed("quant_mma_kernel", QM.route(
+                  **routed(QM_ROUTES, QM.route(
                       x.dtype, m, "dense", kind, k, n,
                       QM.rows_per_group(wt)),
                       lambda: QM.dense_launcher(x, wt, "rows")))
@@ -568,7 +585,11 @@ def quant_kernel_checks(check, rd, rn, dev) -> None:
                       + ids.shape[0] * n * 2, 2 * ids.shape[0] * n * k,
                       BF16_FLOPS_PER_S,
                       main=(kind == "int8" and what == "gate_up"
-                            and ids is ids6), plain_iters=2, iters=it)
+                            and ids is ids6), plain_iters=2, iters=it,
+                      **routed(QM_ROUTES, QM.route(
+                          x.dtype, ids.shape[0], "gathered", kind, k, n,
+                          QM.rows_per_group(wt)),
+                          lambda: QM.gathered_launcher(x, wt, ids, "rows")))
             wdq = dequantize(wt, bf)
             for rows, sz in sizes.items():
                 x = rn(rows, k)
@@ -588,7 +609,7 @@ def quant_kernel_checks(check, rd, rn, dev) -> None:
                       library=grouped_mm(x, wdq, sz),
                       main=(kind == "int8" and what == "gate_up"
                             and rows == 1536), plain_iters=2, iters=it,
-                      **routed("quant_mma_kernel", QM.route(
+                      **routed(QM_ROUTES, QM.route(
                           x.dtype, rows, "grouped", kind, k, n,
                           QM.rows_per_group(wt)),
                           lambda: QM.grouped_launcher(x, wt, sz, "rows")))
@@ -795,6 +816,28 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
         used = int(torch.unique(ids).numel())
         return used * nbytes(wt.data[0], wt.scales[0])
 
+    # row 9: Mixtral's int8 projections at single-user decode (M = 1, the
+    # GEMV beside the first version); the library yardstick is torch.matmul
+    # on the bf16-dequantized weight
+    from ktransformers_tpu_torch.ops.cuda import quant_matmul as QM
+
+    for k, n, label in ((d, 6144, "qkv 4096->6144"),
+                        (d, d, "o_proj 4096->4096"),
+                        (d, 32000, "lm_head 4096->32000")):
+        wt, x = rd.q((k, n), "int8", 128), rn(1, k)
+        wdq = dequantize(wt, torch.bfloat16)
+        check("quant_matmul", f"mixtral int8 decode {label} M=1", 1e-2,
+              lambda: QM.quant_matmul(x, wt),
+              lambda: QM.quant_matmul_ref(x, wt),
+              lambda: QM.dense_launcher(x, wt),
+              nbytes(x, wt.data, wt.scales) + n * 2, 2 * n * k,
+              BF16_FLOPS_PER_S, library=lambda: torch.matmul(x, wdq),
+              plain_iters=2,
+              **routed(QM_ROUTES, QM.route(x.dtype, 1, "dense", "int8", k, n,
+                                           QM.rows_per_group(wt)),
+                       lambda: QM.dense_launcher(x, wt, "rows")))
+        del wt, wdq
+
     for k, n, what in ((d, 2 * f, "gate_up"), (f, d, "down")):
         wt = w((e, k, n))
         for tokens, label in ((1, "decode 2 rows (1 tok x 2)"),
@@ -826,7 +869,7 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
                   library=grouped_mm(x, wdq, sizes),
                   main=(what == "gate_up" and tokens == 256), plain_iters=2,
                   iters=10, **routed(
-                      "w4a8_mma_kernel",
+                      W4A8_ROUTES,
                       MM.route(2 * tokens, "grouped", wt.group_size, n),
                       lambda: MM.grouped_launcher(x, wt, sizes, "rows")))
         del wt, wdq
@@ -1265,7 +1308,7 @@ def serve(result: dict, quant: str = "int4_g", key: str = "serve",
     from ktransformers_tpu_torch.ops import attention
     from ktransformers_tpu_torch.ops.cuda import (
         LAUNCHES,
-        MMA_LAUNCHES,
+        ROUTED_LAUNCHES,
         reset_launches,
     )
 
@@ -1320,16 +1363,16 @@ def serve(result: dict, quant: str = "int4_g", key: str = "serve",
             f"(ttft {ttft * 1e3:.1f} ms), decode {dec:.2f} tok/s"
             f"{'' if fused else ' (fused decode off)'}")
     launches = dict(LAUNCHES)
-    mma = dict(MMA_LAUNCHES)
+    routed_n = dict(ROUTED_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     result[key] = dict(model=cfg["model_type"], quant=quant,
                        moe_quant=moe_quant or quant, requests=reqs,
-                       launches=launches, mma_launches=mma,
+                       launches=launches, routed_launches=routed_n,
                        max_memory_allocated=peak,
                        params_bytes=pbytes, init_s=init_s)
     log(f"{key}: max_memory_allocated {peak / 1e9:.3f} GB, launches "
-        f"{json.dumps(launches)}, of them on the tensor-core kernels "
-        f"{json.dumps(mma)}")
+        f"{json.dumps(launches)}, of them on the redesigned kernels "
+        f"{json.dumps(routed_n)}")
     missing = [k for k in expect if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the {key} run: "
@@ -1464,7 +1507,7 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS) -> dict:
     5 and 6 after 8 engine steps, 4 and 7 once request 0 has finished."""
     from ktransformers_tpu_torch.ops.cuda import (
         LAUNCHES,
-        MMA_LAUNCHES,
+        ROUTED_LAUNCHES,
         reset_launches,
     )
     from ktransformers_tpu_torch.serving import SchedulerConfig, ServeEngine
@@ -1504,7 +1547,7 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    mma = dict(MMA_LAUNCHES)
+    routed_n = dict(ROUTED_LAUNCHES)
     held = eng.prefix.stats()["nodes"]
     out = dict(
         depth=depth, wall_s=wall, engine_steps=eng.steps_executed,
@@ -1517,7 +1560,8 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS) -> dict:
         matched_len=[qs[i].matched_len for i in range(8)],
         preemptions=sum(qs[i].preemptions for i in range(8)),
         free_pages=eng.alloc.free_count, prefix_pages=held,
-        stage_timer=eng.timer.report(), launches=launches, mma_launches=mma,
+        stage_timer=eng.timer.report(), launches=launches,
+        routed_launches=routed_n,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         kv_pool_bytes=eng.kv.bytes_per_page() * num_pages,
     )
@@ -1605,20 +1649,27 @@ def _is_port_kernel(name: str) -> bool:
                                    "gqa_paged_decode_kernel",
                                    "gqa_decode_combine_kernel",
                                    "gqa_paged_prefill_kernel",
-                                   "quant_rows_t_kernel"))
+                                   "quant_rows_t_kernel",
+                                   "quant_gemv_kernel",
+                                   "quant_wgmma_t_kernel"))
 
 
-# the first version's 8-row tiles on bf16 activations: since the tensor-core
-# kernels take every dense and grouped bf16 call of 2 rows or more, a step
-# that still launches one of these has a wrapper off its route
-_FIRST_VERSION_MR8 = re.compile(r"quant_rows_kernel<\d+, 8, __nv_bfloat16>"
-                                r"|w4a8_rows_kernel<8, __nv_bfloat16>")
+# first-version instantiations no call of the main paths should take: the
+# 8-row tiles on bf16 activations (the tensor-core kernels take every dense
+# and grouped bf16 call of 2 rows or more), the one-row tiles of the
+# quant_matmul family (the GEMV takes one-row dense and every gathered
+# call) and the transposed first version (the wgmma kernel takes every SFT
+# shape); a step that launches one of these has a wrapper off its route
+_OFF_ROUTE = re.compile(r"quant_rows_kernel<\d+, 8, __nv_bfloat16>"
+                        r"|w4a8_rows_kernel<8, __nv_bfloat16>"
+                        r"|quant_rows_kernel<\d+, 1, "
+                        r"|quant_rows_t_kernel<")
 
 
-def first_version_mr8(rows) -> list:
-    """Names of kernel rows (name, ms, count) that are the first version's
-    8-row instantiation on bf16 activations."""
-    return [r[0] for r in rows if _FIRST_VERSION_MR8.search(r[0])]
+def off_route(rows) -> list:
+    """Names of kernel rows (name, ms, count) that are first-version
+    instantiations the routes should have replaced (_OFF_ROUTE)."""
+    return [r[0] for r in rows if _OFF_ROUTE.search(r[0])]
 
 
 def wall_ms(fn) -> float:
@@ -1660,17 +1711,17 @@ def summarize_steps(steps: dict) -> dict:
             idle_share=1.0 - busy / wall if busy else None,
             launches=launches,
             top=[dict(name=k[:90], ms=ms, count=n) for k, ms, n in rows[:12]],
-            first_version_mr8=first_version_mr8(rows),
+            off_route=off_route(rows),
         )
         log(f"profile {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
             f"in {kernels} kernels (port kernels {ours:.3f} ms), "
             f"launches {json.dumps(launches)}")
         for k, ms, n in rows[:12]:
             log(f"  {ms:9.3f} ms  x{n:<5d} {k[:90]}")
-        if out[name]["first_version_mr8"]:
+        if out[name]["off_route"]:
             raise AssertionError(
-                f"profile {name}: bf16 calls left on the first version's "
-                f"8-row tiles: {out[name]['first_version_mr8']}")
+                f"profile {name}: calls left on first versions: "
+                f"{out[name]['off_route']}")
     return out
 
 
@@ -1813,7 +1864,9 @@ def sft_kernel_checks(rows: list, entries: dict) -> None:
               lambda: QT.dense_t_launcher(dy, wt),
               nbytes(dy) + wbytes(wt) + m * k * 4, 2 * m * n * k,
               BF16_FLOPS_PER_S, library=lambda: torch.matmul(dy, wdq.T),
-              main=main, plain_iters=2, iters=iters)
+              main=main, kernel_main=main, plain_iters=2, iters=iters,
+              **routed(QT_ROUTES, QT._route(wt),
+                       lambda: QT.dense_t_launcher(dy, wt, "rows")))
 
     # row 16 on the W4A8 weights of the step (offset-lo int4_g): every
     # projection whose input needs a gradient, dy [512, N] -> dx [512, K]
@@ -1852,7 +1905,9 @@ def sft_kernel_checks(rows: list, entries: dict) -> None:
               lambda: QT.grouped_t_launcher(dy, wt, sizes),
               nbytes(dy) + wbytes(wt, used) + m * 6 * k * 4,
               2 * m * 6 * n * k, BF16_FLOPS_PER_S,
-              main=(what == "gate_up"), plain_iters=2, iters=10)
+              main=(what == "gate_up"), plain_iters=2, iters=10,
+              **routed(QT_ROUTES, QT._route(wt),
+                       lambda: QT.grouped_t_launcher(dy, wt, sizes, "rows")))
         dy6 = rn(6, n)
         check("grouped_quant_matmul_t",
               f"gathered entry 6 rows {what}^T [64, {k}, {n}]",
@@ -1861,7 +1916,10 @@ def sft_kernel_checks(rows: list, entries: dict) -> None:
               lambda: QT.gathered_quant_matmul_t_ref(dy6, wt, ids6),
               lambda: QT.gathered_t_launcher(dy6, wt, ids6),
               nbytes(dy6) + wbytes(wt, 6) + 6 * k * 4, 2 * 6 * n * k,
-              BF16_FLOPS_PER_S, plain_iters=2)
+              BF16_FLOPS_PER_S, plain_iters=2,
+              **routed(QT_ROUTES, QT._route(wt),
+                       lambda: QT.gathered_t_launcher(dy6, wt, ids6,
+                                                      "rows")))
         # row 8 forward on the same experts and rows (the step's routed
         # experts: adapters keep them off the fused FFN), bf16 x
         x = rn(m * 6, k)
@@ -1874,7 +1932,7 @@ def sft_kernel_checks(rows: list, entries: dict) -> None:
               nbytes(x) + wbytes(wt, used) + m * 6 * n * 2,
               2 * m * 6 * n * k, INT8_OPS_PER_S,
               library=grouped_mm(x, wdq, sizes), plain_iters=2, iters=10,
-              **routed("w4a8_mma_kernel",
+              **routed(W4A8_ROUTES,
                        MM.route(m * 6, "grouped", wt.group_size, n),
                        lambda: MM.grouped_launcher(x, wt, sizes, "rows")))
         del wt, wdq
@@ -2044,7 +2102,7 @@ SFT_KERNELS = ("w4a8_prep", "dense_w4a8_matmul", "dense_w4a8_ffn",
 
 
 def _is_transposed_kernel(name: str) -> bool:
-    return "quant_rows_t_kernel" in name
+    return "quant_rows_t_kernel" in name or "quant_wgmma_t_kernel" in name
 
 
 def sft_run(result: dict) -> None:
@@ -2056,7 +2114,7 @@ def sft_run(result: dict) -> None:
     from ktransformers_tpu_torch.models.spec import spec_from_hf_config
     from ktransformers_tpu_torch.ops.cuda import (
         LAUNCHES,
-        MMA_LAUNCHES,
+        ROUTED_LAUNCHES,
         reset_launches,
     )
     from ktransformers_tpu_torch.quant.formats import QTensor
@@ -2092,8 +2150,8 @@ def sft_run(result: dict) -> None:
         torch.cuda.synchronize()
         return {k: v for k, v in LAUNCHES.items() if v}
 
-    def mma_counts():
-        return {k: v for k, v in MMA_LAUNCHES.items() if v}
+    def routed_counts():
+        return {k: v for k, v in ROUTED_LAUNCHES.items() if v}
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2108,7 +2166,7 @@ def sft_run(result: dict) -> None:
     losses = [trainer.train_step(ids, ids) for _ in range(SFT_STEPS)]
     step_s = (time.perf_counter() - t0) / SFT_STEPS
     timed = counts()
-    timed_mma = mma_counts()
+    timed_routed = routed_counts()
     peak = torch.cuda.max_memory_allocated()
     frozen = all(torch.equal(a.cpu(), b) for a, b in zip(base, base_copy))
     del base_copy
@@ -2128,7 +2186,7 @@ def sft_run(result: dict) -> None:
         losses=losses, max_memory_allocated=peak, params_bytes=pbytes,
         lora_bytes=lbytes, lora_b_moved=b_moved, base_unchanged=frozen,
         launches_first_step=first, launches=timed, launches_per_step=want,
-        mma_launches=timed_mma,
+        routed_launches=timed_routed,
         profile=dict(device_busy_ms=busy, wall_ms=step_s * 1e3,
                      idle_share=1.0 - busy / (step_s * 1e3),
                      kernel_ms=t_ms,
@@ -2146,18 +2204,17 @@ def sft_run(result: dict) -> None:
         f"{peak / 1e9:.3f} GB; every LoRA b moved: {b_moved}; base "
         f"bit-unchanged: {frozen}")
     log(f"sft launches per step {json.dumps(first)} (want {json.dumps(want)}"
-        f"), over {SFT_STEPS} steps on the tensor-core kernels "
-        f"{json.dumps(timed_mma)}")
+        f"), over {SFT_STEPS} steps on the redesigned kernels "
+        f"{json.dumps(timed_routed)}")
     log(f"profile sft_step: wall {step_s * 1e3:.1f} ms, device busy "
         f"{busy:.1f} ms in {out['profile']['device_kernels']} kernels, rows "
         f"16 + 17 {t_ms['quant_matmul_t + grouped_quant_matmul_t']:.1f} ms")
     for k, ms, n in rows[:15]:
         log(f"  {ms:9.3f} ms  x{n:<5d} {k[:90]}")
-    out["profile"]["first_version_mr8"] = first_version_mr8(rows)
-    if out["profile"]["first_version_mr8"]:
-        raise AssertionError("sft step: bf16 calls left on the first "
-                             "version's 8-row tiles: "
-                             f"{out['profile']['first_version_mr8']}")
+    out["profile"]["off_route"] = off_route(rows)
+    if out["profile"]["off_route"]:
+        raise AssertionError("sft step: calls left on first versions: "
+                             f"{out['profile']['off_route']}")
     if not (np.isfinite(loss_first) and all(np.isfinite(losses))):
         raise AssertionError(f"sft: non-finite loss {loss_first} {losses}")
     if not b_moved or not frozen:
@@ -2195,7 +2252,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from ktransformers_tpu_torch.ops.cuda import KERNELS, MMA_KERNELS, _build
+    from ktransformers_tpu_torch.ops.cuda import (
+        KERNELS,
+        ROUTED_KERNELS,
+        _build,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2355,19 +2416,24 @@ def main() -> int:
         "sft": result["sft"],
     }
     paths = {k: dict(r["launches"]) for k, r in runs.items()}
-    # the tensor-core kernels: launches of their wrappers that took them
-    for kernel, wrappers in MMA_KERNELS.items():
+    # the redesigned kernels: launches of their wrappers' calls that took them
+    for kernel in ROUTED_KERNELS:
         for k, r in runs.items():
-            paths[k][kernel] = sum(r["mma_launches"].get(n, 0)
-                                   for n in wrappers)
+            paths[k][kernel] = r["routed_launches"].get(kernel, 0)
     sources["quant_mma_kernel"] = (
         "ktransformers_tpu_torch/csrc/quant_matmul.cu",
         "ktransformers_tpu/ops/pallas/quant_matmul.py:225")
     sources["w4a8_mma_kernel"] = (
         "ktransformers_tpu_torch/csrc/w4a8_mma.cuh",
         "ktransformers_tpu/ops/pallas/w4a8_matmul.py:930")
+    sources["quant_gemv_kernel"] = (
+        "ktransformers_tpu_torch/csrc/quant_matmul.cu",
+        "ktransformers_tpu/ops/pallas/quant_matmul.py:225")
+    sources["quant_wgmma_t_kernel"] = (
+        "ktransformers_tpu_torch/csrc/quant_matmul_t.cu",
+        "ktransformers_tpu/ops/pallas/quant_matmul_t.py:172")
     kernels = []
-    for name in KERNELS + tuple(MMA_KERNELS):
+    for name in KERNELS + tuple(ROUTED_KERNELS):
         row = entries[name]
         total = sum(p.get(name, 0) for p in paths.values())
         if total <= 0:

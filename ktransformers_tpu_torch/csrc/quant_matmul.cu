@@ -20,13 +20,28 @@
 // row g*G + G/2 + r in the high nibble, so the kernels read x at those two
 // columns and need no split pass over the activations.
 //
-// Two kernels; the wrappers (ops/cuda/quant_matmul.py:route) pick one by a
-// fixed rule:
+// Three kernels; the wrappers (ops/cuda/quant_matmul.py:route) pick one by
+// a fixed rule:
 //
-// quant_rows_kernel, the first version: M = 1 (single-user decode; MR = 1)
-// and the gathered entry (one row a tile), and float32 activations (whose
-// roundings bf16 tensor cores would change; tiles of MR = 8 rows). Bound
-// at decode: the weight bytes (each read once). A block is 32 x KW
+// quant_gemv_kernel, one-row dense calls (single-user decode) and every
+// gathered call (one row a tile): a split-K GEMV. Bound: the weight bytes of
+// the experts the rows use, each read once. The first version ran
+// ceil(N / 128) blocks a row, 16-29 on 132 SMs at DeepSeek-V2-Lite's
+// decode widths, too few to pull the memory's rate. Here a block of 16 x 8
+// threads owns 256 columns and one split of the storage rows: a thread
+// loads 16 bytes (16 columns) of a storage row with neighbouring threads on
+// neighbouring columns, eight rows at a time (int8 keeps the next eight in
+// flight too), decodes in registers and accumulates 16 columns in f32; the
+// 8 row lanes meet in shared memory; the splits (ops/cuda/quant_matmul.py:
+// gemv_plan, about two blocks an SM) meet in the same launch through f32
+// partials and a per-(column block, tile) counter, the last block summing
+// them in split order, so the result is the same on every call. (The
+// KT_GEMV_CUT_* switches compile parts out for ops/cuda/breakdown.py.)
+//
+// quant_rows_kernel, the first version: float32 activations of several
+// rows (whose roundings bf16 tensor cores would change; tiles of MR = 8
+// rows), shapes the other two refuse, and a measurement hook. A block is
+// 32 x KW
 // threads; threadIdx.x owns 4 adjacent output columns (one 4-byte load per
 // storage row, 128 contiguous bytes a warp), threadIdx.y walks "units" of
 // `unit` consecutive storage rows that share one scale row, four rows at a
@@ -117,18 +132,26 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float o[4]) {
   o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
 }
 
-// float8_e4m3fn: the same exponent and mantissa fields placed in a half
-// give value / 2^8, subnormals included; 0x7f / 0xff are NaN.
+// A small unsigned integer (< 2^23) as a float, exactly: placed in the
+// mantissa of 2^23 and 2^23 subtracted (integer-to-float conversion runs at
+// a quarter of the FMA rate).
+__device__ __forceinline__ float small_uint_to_float(uint32_t v) {
+  return __uint_as_float(0x4B000000u | v) - 8388608.f;
+}
+
+// float8_e4m3fn: the exponent and mantissa fields placed at the top of a
+// float's give value * 2^-120 (a subnormal code gives a float subnormal, so
+// the product is exact); 0x7f / 0xff are NaN.
 __device__ __forceinline__ float e4m3_to_float(uint32_t b) {
-  const unsigned short h =
-      (unsigned short)(((b & 0x80u) << 8) | ((b & 0x7fu) << 7));
-  const float v = __half2float(__ushort_as_half(h)) * 256.0f;
+  const float v =
+      __uint_as_float(((b & 0x80u) << 24) | ((b & 0x7fu) << 20)) * 0x1p120f;
   return (b & 0x7fu) == 0x7fu ? __int_as_float(0x7fc00000) : v;
 }
 
 // e2m1 code [s e1 e0 m]: twice the magnitude is 0 1 2 3 4 6 8 12.
 __device__ __forceinline__ float e2m1_to_float(uint32_t c) {
-  const float mag = 0.5f * (float)((0xC8643210u >> ((c & 7u) * 4u)) & 15u);
+  const float mag =
+      0.5f * small_uint_to_float((0xC8643210u >> ((c & 7u) * 4u)) & 15u);
   return (c & 8u) ? -mag : mag;
 }
 
@@ -180,10 +203,10 @@ __device__ __forceinline__ void decode(uint32_t b, float sc, float zp,
   } else if (KIND == K_MXFP8) {
     lo = round_to(e4m3_to_float(b) * sc, XT());
   } else if (KIND == K_INT4) {
-    const int l = (int)((b & 15u) ^ (uint32_t)flip) - 8;
-    const int h = (int)(((b >> 4) & 15u) ^ 8u) - 8;
-    lo = round_to(((float)l - zp) * sc, XT());
-    hi = round_to(((float)h - zp) * sc, XT());
+    const float l = small_uint_to_float((b & 15u) ^ (uint32_t)flip) - 8.f;
+    const float h = small_uint_to_float(((b >> 4) & 15u) ^ 8u) - 8.f;
+    lo = round_to((l - zp) * sc, XT());
+    hi = round_to((h - zp) * sc, XT());
   } else {  // K_MXFP4
     lo = round_to(e2m1_to_float(b & 15u) * sc, XT());
     hi = round_to(e2m1_to_float((b >> 4) & 15u) * sc, XT());
@@ -279,6 +302,257 @@ __global__ void __launch_bounds__(32 * KW)
         v *= static_cast<const float*>(a.s)[(size_t)e * a.SG * a.N + n];
       store_out(out + (size_t)(row0 + m) * a.N + n, v);
     }
+  }
+}
+
+// ------------------------------------------------ one-row kernel (GEMV)
+
+namespace gv {
+
+constexpr int TX = 16;              // threads along the columns
+constexpr int LANES = 8;            // row lanes (threadIdx.x / TX)
+constexpr int THREADS = TX * LANES;
+constexpr int CPT = 16;             // columns a thread: one 16-byte load a row
+constexpr int BN = TX * CPT;        // 256 columns a block
+constexpr int UNIT = 8;             // storage rows a step: 8 loads in flight
+
+}  // namespace gv
+
+// 16 scales (and zero points) of group g for columns col .. col + 15.
+template <int KIND>
+__device__ __forceinline__ void load_scale16(const Args& a, int e, int g,
+                                             int col, float sc[gv::CPT],
+                                             float zp[gv::CPT]) {
+  const size_t off = ((size_t)e * a.SG + g) * a.N + col;
+  if (KIND == K_INT4) {
+    const float4* s4 =
+        reinterpret_cast<const float4*>(static_cast<const float*>(a.s) + off);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 v = __ldg(s4 + q);
+      sc[4 * q] = v.x; sc[4 * q + 1] = v.y;
+      sc[4 * q + 2] = v.z; sc[4 * q + 3] = v.w;
+      const float4 w =
+          a.z != nullptr
+              ? __ldg(reinterpret_cast<const float4*>(a.z + off) + q)
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+      zp[4 * q] = w.x; zp[4 * q + 1] = w.y;
+      zp[4 * q + 2] = w.z; zp[4 * q + 3] = w.w;
+    }
+  } else if (KIND == K_MXFP4 || KIND == K_MXFP8) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+        static_cast<const uint8_t*>(a.s) + off));
+    const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int c = 0; c < gv::CPT; ++c) {
+      sc[c] = ue8m0_to_float((wd[c >> 2] >> (8 * (c & 3))) & 0xffu);
+      zp[c] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < gv::CPT; ++c) { sc[c] = 1.f; zp[c] = 0.f; }
+  }
+}
+
+// eight consecutive activations (16-byte aligned)
+__device__ __forceinline__ void load8(const float* p, float o[8]) {
+  load4(p, o);
+  load4(p + 4, o + 4);
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float o[8]) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&wd[q]));
+    o[2 * q] = f.x;
+    o[2 * q + 1] = f.y;
+  }
+}
+
+// Byte c of a word of int8 codes as a float, exactly: the code + 128 is
+// placed in the mantissa of 2^23 (one byte permute and one add, where a
+// conversion instruction runs at a quarter of the FMA rate).
+__device__ __forceinline__ float int8_byte(uint32_t biased, int c) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440u + c)) -
+         8388736.f;  // 2^23 + 128
+}
+
+// y[row, n] for one row (a tile of one row) and the block's BN columns,
+// over split blockIdx.z of the storage rows. grid = (ceil(N / BN), tiles,
+// splits), THREADS threads. A split covers granules [G s / S, G (s+1) / S)
+// of `gran` units (UNIT storage rows each; a granule is a whole scale group
+// where the wrapper found enough groups, else one unit), and each lane a
+// contiguous run of its split's units, so a lane loads a group's scales
+// once. With one split the block stores y; with more, each writes its f32
+// partial sums to part[tile][split][N] and the last block of a (column
+// block, tile) pair to finish, found with the pair's counter in cnt (zero
+// between launches: that block sets it back), adds the partials in split
+// order, scales (int8 / fp8), casts and stores: one launch, no atomics on
+// data, the same bits on every call.
+template <int KIND, typename XT>
+__global__ void __launch_bounds__(gv::THREADS)
+    quant_gemv_kernel(Args a, int splits, int gran, float* __restrict__ part,
+                      int* __restrict__ cnt, XT* __restrict__ out) {
+  constexpr int TX = gv::TX, LANES = gv::LANES, THREADS = gv::THREADS;
+  constexpr int CPT = gv::CPT, BN = gv::BN, UNIT = gv::UNIT;
+  constexpr bool nibble = Traits<KIND>::nibble;
+  constexpr bool scaled_groups = KIND == K_INT4 || KIND == K_MXFP4 ||
+                                 KIND == K_MXFP8;
+  __shared__ __align__(16) float red[LANES][BN];
+  __shared__ int last;
+  const int tile = blockIdx.y;
+  if (a.tile_rows[tile] <= 0) return;  // dead tile (block-uniform)
+  const int row0 = a.tile_row0[tile];
+  const int e = a.tile_expert[tile];
+  const int tx = threadIdx.x % TX, ly = threadIdx.x / TX;
+  const int col = blockIdx.x * BN + tx * CPT;
+  const int s = blockIdx.z;
+  const int ngran = a.KR / UNIT / gran;
+  const int u0 = gran * (int)((long long)ngran * s / splits);
+  const int u1 = gran * (int)((long long)ngran * (s + 1) / splits);
+  const int l0 = u0 + (u1 - u0) * ly / LANES;
+  const int l1 = u0 + (u1 - u0) * (ly + 1) / LANES;
+
+  float acc[CPT];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) acc[c] = 0.f;
+
+  if (col < a.N) {
+    const uint8_t* we = a.w + (size_t)e * a.KR * a.N + col;
+    const XT* xr = static_cast<const XT*>(a.x) + (size_t)row0 * a.K;
+    float sc[CPT], zp[CPT];
+    int gcur = -1;
+    if (!scaled_groups) load_scale16<KIND>(a, e, 0, col, sc, zp);
+    // int8 issues the next unit's loads before this unit's FMAs; the other
+    // kinds, whose decode keeps the loads covered, spend no registers on it
+    // (they lose occupancy, measured on the H100)
+    constexpr bool prefetch = KIND == K_INT8;
+    uint4 nx[UNIT];
+    if (prefetch && l0 < l1) {
+#pragma unroll
+      for (int j = 0; j < UNIT; ++j)
+        nx[j] = __ldg(reinterpret_cast<const uint4*>(
+            we + (size_t)(l0 * UNIT + j) * a.N));
+    }
+    for (int u = l0; u < l1; ++u) {
+      const int r0 = u * UNIT;
+      const int g = r0 / a.rpg;
+      uint4 wd[UNIT];
+#pragma unroll
+      for (int j = 0; j < UNIT; ++j)
+        wd[j] = prefetch ? nx[j]
+                         : __ldg(reinterpret_cast<const uint4*>(
+                               we + (size_t)(r0 + j) * a.N));
+      if (prefetch && u + 1 < l1) {
+#pragma unroll
+        for (int j = 0; j < UNIT; ++j)
+          nx[j] = __ldg(reinterpret_cast<const uint4*>(
+              we + (size_t)(r0 + UNIT + j) * a.N));
+      }
+      if (scaled_groups && g != gcur) {
+        load_scale16<KIND>(a, e, g, col, sc, zp);
+        gcur = g;
+      }
+      // activation columns of storage row r0 (and of its high nibbles)
+      const int xlo = nibble ? g * 2 * a.rpg + (r0 - g * a.rpg) : r0;
+      float xl[UNIT], xh[UNIT];
+      load8(xr + xlo, xl);
+      if (nibble) load8(xr + xlo + a.rpg, xh);
+#pragma unroll
+      for (int j = 0; j < UNIT; ++j) {
+        const uint32_t w4[4] = {wd[j].x, wd[j].y, wd[j].z, wd[j].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#if !KT_GEMV_CUT_DECODE
+          if (KIND == K_INT8) {
+            const uint32_t biased = w4[q] ^ 0x80808080u;
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              acc[4 * q + b] =
+                  fmaf(xl[j], int8_byte(biased, b), acc[4 * q + b]);
+          } else {
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              const int c = 4 * q + b;
+              float lo, hi;
+              decode<KIND, XT>((w4[q] >> (8 * b)) & 0xffu, sc[c], zp[c],
+                               a.flip, lo, hi);
+              acc[c] = fmaf(xl[j], lo, acc[c]);
+              if (nibble) acc[c] = fmaf(xh[j], hi, acc[c]);
+            }
+          }
+#else
+          // the loads stay live; no decode, one add a word
+          acc[4 * q] += __uint_as_float(w4[q] & 0x3fffffffu) * xl[j] +
+                        (nibble ? xh[j] : 0.f);
+#endif
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int q = 0; q < CPT / 4; ++q)
+    reinterpret_cast<float4*>(&red[ly][tx * CPT])[q] =
+        make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
+                    acc[4 * q + 3]);
+  __syncthreads();
+  const int n0 = blockIdx.x * BN;
+  const float* ps = static_cast<const float*>(a.s) + (size_t)e * a.SG * a.N;
+  float v[BN / THREADS];
+#pragma unroll
+  for (int i = 0; i < BN / THREADS; ++i) {
+    const int cc = threadIdx.x + i * THREADS;
+    v[i] = 0.f;
+#pragma unroll
+    for (int y = 0; y < LANES; ++y) v[i] += red[y][cc];
+  }
+  if (splits > 1) {
+#if !KT_GEMV_CUT_REDUCE
+    float* pt = part + ((size_t)tile * splits + s) * a.N;
+#pragma unroll
+    for (int i = 0; i < BN / THREADS; ++i) {
+      const int n = n0 + threadIdx.x + i * THREADS;
+      if (n < a.N) pt[n] = v[i];
+    }
+    __threadfence();
+    __syncthreads();
+    int* c = cnt + (size_t)tile * gridDim.x + blockIdx.x;
+    if (threadIdx.x == 0) last = atomicAdd(c, 1) == splits - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    // the partials in split order, sixteen splits' loads in flight at once
+    const float* p0 = part + (size_t)tile * splits * a.N;
+#pragma unroll
+    for (int i = 0; i < BN / THREADS; ++i) v[i] = 0.f;
+    for (int q0 = 0; q0 < splits; q0 += 16) {
+      float pv[BN / THREADS][16];
+#pragma unroll
+      for (int i = 0; i < BN / THREADS; ++i) {
+        const int n = n0 + threadIdx.x + i * THREADS;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          pv[i][j] = n < a.N && q0 + j < splits
+                         ? __ldcg(p0 + (size_t)(q0 + j) * a.N + n)
+                         : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < BN / THREADS; ++i)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) v[i] += pv[i][j];
+    }
+    if (threadIdx.x == 0) *c = 0;  // ready for the next launch
+#endif
+  }
+#pragma unroll
+  for (int i = 0; i < BN / THREADS; ++i) {
+    const int n = n0 + threadIdx.x + i * THREADS;
+    if (n < a.N)
+      store_out(out + (size_t)row0 * a.N + n,
+                Traits<KIND>::post_scale ? v[i] * ps[n] : v[i]);
   }
 }
 
@@ -588,6 +862,39 @@ cudaError_t launch_mr(const Args& a, int ntiles, int mr, XT* out,
   return cudaGetLastError();
 }
 
+template <int KIND, typename XT>
+cudaError_t launch_gemv(const Args& a, int ntiles, int splits, int gran,
+                        float* part, int* cnt, XT* out, cudaStream_t st) {
+  dim3 grid((a.N + gv::BN - 1) / gv::BN, ntiles, splits);
+  quant_gemv_kernel<KIND, XT>
+      <<<grid, gv::THREADS, 0, st>>>(a, splits, gran, part, cnt, out);
+  return cudaGetLastError();
+}
+
+template <typename XT>
+cudaError_t gemv_kind(const Args& a, int kind, int ntiles, int splits,
+                      int gran, float* part, int* cnt, XT* out,
+                      cudaStream_t st) {
+  switch (kind) {
+    case K_INT8:
+      return launch_gemv<K_INT8, XT>(a, ntiles, splits, gran, part, cnt, out,
+                                     st);
+    case K_FP8:
+      return launch_gemv<K_FP8, XT>(a, ntiles, splits, gran, part, cnt, out,
+                                    st);
+    case K_INT4:
+      return launch_gemv<K_INT4, XT>(a, ntiles, splits, gran, part, cnt, out,
+                                     st);
+    case K_MXFP4:
+      return launch_gemv<K_MXFP4, XT>(a, ntiles, splits, gran, part, cnt,
+                                      out, st);
+    case K_MXFP8:
+      return launch_gemv<K_MXFP8, XT>(a, ntiles, splits, gran, part, cnt,
+                                      out, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename XT>
 cudaError_t launch_kind(const Args& a, int kind, int ntiles, int mr, XT* out,
                         cudaStream_t st) {
@@ -682,4 +989,49 @@ extern "C" int kt_quant_mma(const void* x, const void* w, const void* s,
     case K_MXFP8: return (int)launch_mma<K_MXFP8>(a, ntiles, bn, o, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The one-row kernel (GEMV): the operands of kt_quant_rows with tiles of one
+// row, split over `splits` runs of the storage rows (granules of `gran`
+// units of 8 rows). part holds splits * ntiles * n floats and cnt
+// ceil(n / 256) * ntiles ints, zero on entry and on return; both may be null
+// with one split. Takes N a multiple of 16, K of 8, rpg of 8 and 16-byte
+// aligned operands.
+extern "C" int kt_quant_gemv(const void* x, const void* w, const void* s,
+                             const void* z, const void* tile_expert,
+                             const void* tile_row0, const void* tile_rows,
+                             int ntiles, int splits, int gran, int kind,
+                             int k, int kr, int n, int sg, int rpg, int flip,
+                             int x_bf16, void* part, void* cnt, void* out,
+                             void* stream) {
+  if (ntiles <= 0) return 0;
+  if (n % 16 || k % 8 || rpg <= 0 || rpg % gv::UNIT || kr % rpg ||
+      splits < 1 || splits > 65535 || gran < 1 || (kr / gv::UNIT) % gran ||
+      splits > kr / gv::UNIT / gran || ntiles > 65535 ||
+      (splits > 1 && (part == nullptr || cnt == nullptr)) || !aligned16(x) ||
+      !aligned16(w) || !aligned16(s) || (z != nullptr && !aligned16(z)))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.x = x;
+  a.w = static_cast<const uint8_t*>(w);
+  a.s = s;
+  a.z = static_cast<const float*>(z);
+  a.tile_expert = static_cast<const int*>(tile_expert);
+  a.tile_row0 = static_cast<const int*>(tile_row0);
+  a.tile_rows = static_cast<const int*>(tile_rows);
+  a.K = k;
+  a.KR = kr;
+  a.N = n;
+  a.SG = sg;
+  a.rpg = rpg;
+  a.unit = gv::UNIT;
+  a.flip = flip;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  int* c = static_cast<int*>(cnt);
+  if (x_bf16)
+    return (int)gemv_kind(a, kind, ntiles, splits, gran, p, c,
+                          static_cast<__nv_bfloat16*>(out), st);
+  return (int)gemv_kind(a, kind, ntiles, splits, gran, p, c,
+                        static_cast<float*>(out), st);
 }

@@ -10,10 +10,12 @@ W4A8 matmuls (experts too wide for the fused FFN, Mixtral's), the two
 GQA paged-attention kernels and the two transposed matmuls of the LoRA SFT
 backward (dense, and per-row experts: grouped or gathered). ``LAUNCHES``
 counts, per TPU kernel replaced, the wrapper calls that launched on the
-card; a call of an FFN wrapper is two kernel launches. Four wrappers route
-a call to one of two kernels (ops/cuda/quant_matmul.py:route,
-ops/cuda/w4a8_matmul.py:route); ``MMA_LAUNCHES`` counts those of their
-launches that went to the tensor-core kernel (``MMA_KERNELS`` names it).
+card; a call of an FFN wrapper is two kernel launches. Eight wrappers route
+a call to the first version of their kernel or to a redesigned one
+(``route`` in ops/cuda/quant_matmul.py, quant_matmul_t.py and
+w4a8_matmul.py); ``ROUTED_KERNELS`` names each redesigned kernel with the
+wrappers that route to it, and ``ROUTED_LAUNCHES`` counts, per redesigned
+kernel, the wrapper calls that took it.
 """
 
 from __future__ import annotations
@@ -41,15 +43,17 @@ KERNELS = (
 
 LAUNCHES = {name: 0 for name in KERNELS}
 
-# the tensor-core kernels and the wrappers that route calls to them
-MMA_KERNELS = {
+# the redesigned kernels and the wrappers that route calls to them
+ROUTED_KERNELS = {
     "quant_mma_kernel": ("quant_matmul", "grouped_quant_matmul"),
     "w4a8_mma_kernel": ("dense_w4a8_matmul", "grouped_w4a8_matmul"),
+    "quant_gemv_kernel": ("quant_matmul", "gathered_quant_matmul"),
+    "quant_wgmma_t_kernel": ("quant_matmul_t", "grouped_quant_matmul_t"),
 }
-MMA_LAUNCHES = {name: 0 for names in MMA_KERNELS.values() for name in names}
+ROUTED_LAUNCHES = {name: 0 for name in ROUTED_KERNELS}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, MMA_LAUNCHES):
+    for counts in (LAUNCHES, ROUTED_LAUNCHES):
         for name in counts:
             counts[name] = 0

@@ -51,9 +51,11 @@ SIGNATURES = {
     "quant_matmul": {
         "kt_quant_rows": [P] * 7 + [I] * 11 + [P, P],
         "kt_quant_mma": [P] * 7 + [I] * 9 + [P, P],
+        "kt_quant_gemv": [P] * 7 + [I] * 11 + [P] * 4,
     },
     "quant_matmul_t": {
         "kt_quant_rows_t": [P] * 7 + [I] * 10 + [P, P],
+        "kt_quant_wgmma_t": [P] * 7 + [I] * 11 + [P] * 4,
     },
     "gqa_paged_attention": {
         "kt_gqa_paged_decode": [P] * 5 + [I] * 6 + [F, I] + [P, P, P],

@@ -1,21 +1,27 @@
-"""Where the time of the two tensor-core matmul kernels goes, on one GPU.
+"""Where the time of the redesigned matmul kernels goes, on one GPU.
 
-    python -m ktransformers_tpu_torch.ops.cuda.breakdown
+    python -m ktransformers_tpu_torch.ops.cuda.breakdown [kernel ...]
 
 Each kernel is rebuilt from a copy of csrc/ with parts of its loop
 compiled out, and timed through its wrapper's launcher at the main path's
-prefill shapes (L2 flushed before each launch, median of 20):
+shapes (L2 flushed before each launch, median of 20):
 - quant_mma_kernel (int8 weights, bf16 x): without the decode pass (the
   mma reads whatever the decoded tile holds), without the mma, without
   both;
 - w4a8_mma_kernel: without the group epilogue, without the s8 mma,
-  without both.
-What is left with both parts out is the skeleton: the cp.async ring, the
-barriers and the ldmatrix loads. The outputs of the cut variants are
-garbage; only their times are read. The copies and libraries go to
-csrc/build/breakdown/ (git-ignored); each W4A8 copy gets its own
-namespaces, so that the libraries share no template symbol. Prints one
-line per shape, then all of them as one JSON line.
+  without both;
+- quant_gemv_kernel (int8 weights, M = 1 and the gathered entry): without
+  the decode and FMAs (one add a loaded word), without the cross-split
+  reduction (every split stores its own sums), without both;
+- quant_wgmma_t_kernel (W4A8 weights, bf16 dy, the SFT step's shapes):
+  without the decode of the weight tile, without the wgmma, without the
+  cross-split reduction, without decode and wgmma.
+What is left with the main parts out is the skeleton: copies, barriers,
+loads. The outputs of the cut variants are garbage; only their times are
+read. The copies and libraries go to csrc/build/breakdown/ (git-ignored);
+each W4A8 copy gets its own namespaces, so that the libraries share no
+template symbol. Names on the command line pick kernels (default: all).
+Prints one line per shape, then all of them as one JSON line.
 """
 
 from __future__ import annotations
@@ -64,13 +70,26 @@ CUTS = {
          "#endif"),
     ],
 }
+# kernel: (library, {variant: compiler flags}); the GEMV's and the wgmma
+# kernel's switches are preprocessor conditions in their sources
 VARIANTS = {
-    "quant_matmul": {"full": [], "no_decode": ["-DCUT_DECODE=1"],
-                     "no_mma": ["-DCUT_MMA=1"],
-                     "skeleton": ["-DCUT_DECODE=1", "-DCUT_MMA=1"]},
-    "w4a8_matmul": {"full": [], "no_epilogue": ["-DCUT_EPILOGUE=1"],
-                    "no_mma": ["-DCUT_MMA=1"],
-                    "skeleton": ["-DCUT_EPILOGUE=1", "-DCUT_MMA=1"]},
+    "quant_mma_kernel": ("quant_matmul", {
+        "full": [], "no_decode": ["-DCUT_DECODE=1"],
+        "no_mma": ["-DCUT_MMA=1"],
+        "skeleton": ["-DCUT_DECODE=1", "-DCUT_MMA=1"]}),
+    "w4a8_mma_kernel": ("w4a8_matmul", {
+        "full": [], "no_epilogue": ["-DCUT_EPILOGUE=1"],
+        "no_mma": ["-DCUT_MMA=1"],
+        "skeleton": ["-DCUT_EPILOGUE=1", "-DCUT_MMA=1"]}),
+    "quant_gemv_kernel": ("quant_matmul", {
+        "full": [], "no_decode": ["-DKT_GEMV_CUT_DECODE=1"],
+        "no_reduce": ["-DKT_GEMV_CUT_REDUCE=1"],
+        "skeleton": ["-DKT_GEMV_CUT_DECODE=1", "-DKT_GEMV_CUT_REDUCE=1"]}),
+    "quant_wgmma_t_kernel": ("quant_matmul_t", {
+        "full": [], "no_decode": ["-DKT_T_CUT_DECODE=1"],
+        "no_wgmma": ["-DKT_T_CUT_WGMMA=1"],
+        "no_reduce": ["-DKT_T_CUT_REDUCE=1"],
+        "skeleton": ["-DKT_T_CUT_DECODE=1", "-DKT_T_CUT_WGMMA=1"]}),
 }
 OUT = os.path.join(_build.BUILD, "breakdown")
 
@@ -94,31 +113,33 @@ def cut_sources() -> str:
     return src
 
 
-def build_variants(src: str) -> dict:
-    """{(library, variant): ctypes library}, all nvcc runs at once."""
+def build_variants(src: str, kernels) -> dict:
+    """{(kernel, variant): ctypes library}, all nvcc runs at once."""
     procs = {}
-    for lib, variants in VARIANTS.items():
+    for kernel in kernels:
+        lib, variants = VARIANTS[kernel]
         for v, flags in variants.items():
-            out = os.path.join(OUT, f"lib{lib}_{v}.so")
+            tag = f"{kernel}_{v}"
+            out = os.path.join(OUT, f"lib{tag}.so")
             cmd = [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17",
                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", src,
-                   f"-Dkt=kt_{v}", f"-Dkt_mma=kt_mma_{v}", *flags, "-o", out,
-                   os.path.join(src, f"{lib}.cu")]
-            procs[(lib, v)] = (subprocess.Popen(
+                   f"-Dkt=kt_{tag}", f"-Dkt_mma=kt_mma_{tag}", *flags,
+                   "-o", out, os.path.join(src, f"{lib}.cu")]
+            procs[(kernel, v)] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), out)
+                text=True), out, lib)
     libs = {}
-    for (lib, v), (proc, out) in procs.items():
+    for (kernel, v), (proc, out, lib) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"breakdown: nvcc failed for {lib} {v}:\n"
+            raise RuntimeError(f"breakdown: nvcc failed for {kernel} {v}:\n"
                                f"{log}")
         cdll = ctypes.CDLL(out)
         for fn, argtypes in _build.SIGNATURES[lib].items():
             f = getattr(cdll, fn)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
-        libs[(lib, v)] = cdll
+        libs[(kernel, v)] = cdll
     return libs
 
 
@@ -141,17 +162,77 @@ def time_ms(fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def shapes_of(kernel: str, rn, w, rd) -> list:
+    """(label, launcher) pairs of a kernel at the main path's shapes."""
+    from ktransformers_tpu_torch.ops.cuda import quant_matmul as QM
+    from ktransformers_tpu_torch.ops.cuda import quant_matmul_t as QT
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+
+    out = []
+    if kernel == "quant_mma_kernel":
+        for m in (256, 1024):
+            x, wq = rn(m, 2048), rd.q((2048, 3648), "int8", 128)
+            out.append((f"int8 qkv_a M={m}", lambda x=x, wq=wq:
+                        QM.dense_launcher(x, wq, "mma")))
+    elif kernel == "w4a8_mma_kernel":
+        for m in (256, 1024):
+            x, ww = rn(m, 2048), w((2048, 3648))
+            out.append((f"w4a8 qkv_a M={m}", lambda x=x, ww=ww:
+                        MM.dense_w4a8_launcher(x, ww, "mma")))
+        wg = w((8, 4096, 28672))
+        top = torch.topk(torch.randn(256, 8, generator=torch.Generator()
+                                     .manual_seed(7)), 2, dim=-1).indices
+        sizes = torch.bincount(top.reshape(-1), minlength=8).to(
+            torch.int32).cuda()
+        xg = rn(512, 4096)
+        out.append(("w4a8 Mixtral gate_up, 512 sorted rows",
+                    lambda: MM.grouped_launcher(xg, wg, sizes, "mma")))
+    elif kernel == "quant_gemv_kernel":
+        for k, n, label in ((2048, 3648, "qkv_a"), (2048, 2048, "o_proj"),
+                            (10944, 2048, "layer-0 down"),
+                            (2048, 102400, "lm_head")):
+            x, wq = rn(1, k), rd.q((k, n), "int8", 128)
+            out.append((f"int8 {label} M=1", lambda x=x, wq=wq:
+                        QM.dense_launcher(x, wq, "gemv")))
+        we = rd.q((64, 2048, 2816), "int8", 128)
+        ids = torch.randperm(64, generator=torch.Generator().manual_seed(3))[
+            :6].to(torch.int32).cuda()
+        xe = rn(6, 2048)
+        out.append(("int8 gathered gate_up, 6 rows",
+                    lambda: QM.gathered_launcher(xe, we, ids, "gemv")))
+    elif kernel == "quant_wgmma_t_kernel":
+        for k, n, label in ((2048, 3648, "qkv_a"), (2048, 102400, "lm_head"),
+                            (2048, 21888, "layer-0 gate_up")):
+            dy, ww = rn(512, n), w((k, n))
+            out.append((f"w4a8 dx M=512 {label}", lambda dy=dy, ww=ww:
+                        QT.dense_t_launcher(dy, ww, "wgmma")))
+        we = w((64, 2048, 2816))
+        topk = torch.stack([torch.randperm(64, generator=torch.Generator()
+                                           .manual_seed(5 + i))[:6]
+                            for i in range(512)])
+        sizes = torch.bincount(topk.reshape(-1), minlength=64).to(
+            torch.int32).cuda()
+        dye = rn(3072, 2816)
+        out.append(("w4a8 gate_up^T, 3072 sorted rows",
+                    lambda: QT.grouped_t_launcher(dye, we, sizes, "wgmma")))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("breakdown: no CUDA device", file=sys.stderr)
         return 1
     from ktransformers_tpu_torch.models.init import _Draw
-    from ktransformers_tpu_torch.ops.cuda import quant_matmul as QM
-    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
     from ktransformers_tpu_torch.quant.w4a8 import repack_offset_lo
 
+    kernels = sys.argv[1:] or list(VARIANTS)
+    unknown = [k for k in kernels if k not in VARIANTS]
+    if unknown:
+        print(f"breakdown: unknown kernels {unknown}; pick from "
+              f"{list(VARIANTS)}", file=sys.stderr)
+        return 2
     os.makedirs(OUT, exist_ok=True)
-    libs = build_variants(cut_sources())
+    libs = build_variants(cut_sources(), kernels)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -166,37 +247,21 @@ def main() -> int:
     def w(shape):
         return repack_offset_lo(rd.q(shape, "int4_g", 128))
 
-    shapes = []
-    for m in (256, 1024):
-        x = rn(m, 2048)
-        wq, ww = rd.q((2048, 3648), "int8", 128), w((2048, 3648))
-        shapes.append((f"int8 qkv_a M={m}", "quant_matmul",
-                       lambda x=x, wq=wq: QM.dense_launcher(x, wq, "mma")))
-        shapes.append((f"w4a8 qkv_a M={m}", "w4a8_matmul",
-                       lambda x=x, ww=ww: MM.dense_w4a8_launcher(x, ww,
-                                                                 "mma")))
-    wg = w((8, 4096, 28672))
-    top = torch.topk(torch.randn(256, 8, generator=torch.Generator()
-                                 .manual_seed(7)), 2, dim=-1).indices
-    sizes = torch.bincount(top.reshape(-1), minlength=8).to(
-        torch.int32).cuda()
-    xg = rn(512, 4096)
-    shapes.append(("w4a8 Mixtral gate_up, 512 sorted rows", "w4a8_matmul",
-                   lambda: MM.grouped_launcher(xg, wg, sizes, "mma")))
     lib_of = _build.lib
     result = dict(card=card, shapes={})
     try:
-        for label, lib, launcher in shapes:
-            row = {}
-            for v in VARIANTS[lib]:
-                _build.lib = (lambda name, lib=lib, v=v:
-                              libs[(lib, v)] if name == lib else lib_of(name))
-                row[v] = time_ms(launcher()[0])
-            _build.lib = lib_of
-            result["shapes"][label] = row
-            print(f"{label}: " + ", ".join(f"{v} {ms:.4f} ms"
-                                           for v, ms in row.items()),
-                  flush=True)
+        for kernel in kernels:
+            lib, variants = VARIANTS[kernel]
+            for label, launcher in shapes_of(kernel, rn, w, rd):
+                row = {}
+                for v in variants:
+                    _build.lib = (lambda name, lib=lib, key=(kernel, v):
+                                  libs[key] if name == lib else lib_of(name))
+                    row[v] = time_ms(launcher()[0])
+                _build.lib = lib_of
+                result["shapes"][f"{kernel}: {label}"] = row
+                print(f"{kernel}: {label}: " + ", ".join(
+                    f"{v} {ms:.4f} ms" for v, ms in row.items()), flush=True)
     finally:
         _build.lib = lib_of
     print(json.dumps(result))

@@ -12,12 +12,14 @@ mxfp4, mxfp8. The arithmetic of every kind is stated in the CUDA source;
 the plain versions round the decoded weight to x.dtype at the same place.
 Bound on the card at decode: the weight bytes of the experts the rows use.
 
-Two kernels serve the entries; ``route`` picks one by a fixed rule:
-quant_mma_kernel (tensor cores, tiles of MMA_BM rows) for bf16 dense and
-grouped calls of at least MMA_MIN_ROWS rows whose shapes it takes, and the
-first version, quant_rows_kernel, for everything else (decode, the
-gathered entry, float32 activations, whose roundings bf16 tensor cores
-would change).
+Three kernels serve the entries; ``route`` picks one by a fixed rule:
+quant_gemv_kernel (split-K GEMV) for dense calls of one row and every
+gathered call (one row a tile) whose shapes it takes; quant_mma_kernel
+(tensor cores, tiles of MMA_BM rows) for bf16 dense and grouped calls of
+at least MMA_MIN_ROWS rows whose shapes it takes; and the first version,
+quant_rows_kernel, for everything else (float32 activations of several
+rows, whose roundings bf16 tensor cores would change, and shapes the
+other two refuse).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import dataclasses
 
 import torch
 
-from ktransformers_tpu_torch.ops.cuda import LAUNCHES, MMA_LAUNCHES
+from ktransformers_tpu_torch.ops.cuda import LAUNCHES, ROUTED_LAUNCHES
 from ktransformers_tpu_torch.ops.cuda import _build
 from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
     _check_x,
@@ -63,9 +65,22 @@ GROUPED_MR = 8  # rows per tile of a grouped call
 # single-user decode, keeps the first version
 MMA_BM = 64
 MMA_MIN_ROWS = 2
-
+# quant_gemv_kernel: blocks of GEMV_BN columns and GEMV_LANES row lanes,
+# storage rows in units of GEMV_UNIT (one 16-byte load a thread each); the
+# split count aims at gemv_blocks_per_sm(kind) blocks an SM
+GEMV_BN = 256
+GEMV_LANES = 8
+GEMV_UNIT = 8
 
 _SMS: dict = {}
+
+
+def sm_count(device) -> int:
+    key = str(device)
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[key]
 
 
 def mma_block_n(n: int, ntiles: int, device) -> int:
@@ -73,11 +88,64 @@ def mma_block_n(n: int, ntiles: int, device) -> int:
     grid of 128-column blocks would have fewer blocks than the card has
     SMs (twice the blocks then, two of them an SM). ntiles is the tile
     map's static length (a grouped map's dead tiles included)."""
-    key = str(device)
-    if key not in _SMS:
-        _SMS[key] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return 64 if (n + 127) // 128 * ntiles < _SMS[key] else 128
+    return 64 if (n + 127) // 128 * ntiles < sm_count(device) else 128
+
+
+def gemv_blocks_per_sm(kind: str) -> int:
+    """Blocks an SM the GEMV's split aims at: two for int8 (on the H100 its
+    qkv_a / o_proj / layer-0 down / lm_head at M = 1 run fastest with 16-32
+    / 16-32 / 32-64 / 1 splits, ops/cuda/split_sweep.py), four for the
+    kinds whose decode takes more instructions a byte, which want more
+    warps at lm_head width."""
+    return 2 if kind == "int8" else 4
+
+
+def gemv_plan(n: int, ntiles: int, kr: int, rpg: int, sms: int,
+              kind: str = "int8") -> tuple[int, int]:
+    """(splits, gran) of a quant_gemv_kernel launch: the storage rows are
+    cut into ``splits`` runs so that (column blocks x tiles x splits)
+    reaches gemv_blocks_per_sm(kind) blocks an SM, as far as every row lane
+    of a block keeps a unit (GEMV_UNIT rows) of each split. A run holds whole
+    granules of ``gran`` units: a whole scale group where the groups are
+    at least as many as the splits and a group has a unit for every lane
+    (int4_g, group 128), else one unit, which lies inside one group (rpg is
+    a multiple of GEMV_UNIT)."""
+    units = kr // GEMV_UNIT
+    blocks = -(-n // GEMV_BN) * ntiles
+    want = -(-gemv_blocks_per_sm(kind) * sms // blocks)
+    splits = max(1, min(want, units // GEMV_LANES))
+    per_group = rpg // GEMV_UNIT
+    gran = per_group if 1 < splits <= kr // rpg \
+        and per_group >= GEMV_LANES else 1
+    return splits, gran
+
+
+def gemv_split_rows(kr: int, splits: int, gran: int) -> list:
+    """The storage rows [start, end) of each split, as the kernel cuts
+    them."""
+    g = kr // GEMV_UNIT // gran
+    step = GEMV_UNIT * gran
+    return [(step * (g * s // splits), step * (g * (s + 1) // splits))
+            for s in range(splits)]
+
+
+_SCRATCH: dict = {}
+
+
+def scratch(device, floats: int, counters: int, what: str):
+    """(f32 partials, int32 counters) of at least the sizes asked, kept per
+    device and kernel. The counters are zero between launches: the kernel
+    that uses them sets them back; a grown set is allocated with zeros."""
+    key = (str(device), what)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf[0].numel() < floats or buf[1].numel() < counters:
+        old = (0, 0) if buf is None else (buf[0].numel(), buf[1].numel())
+        buf = (torch.empty(max(floats, old[0]), dtype=torch.float32,
+                           device=device),
+               torch.zeros(max(counters, old[1]), dtype=torch.int32,
+                           device=device))
+        _SCRATCH[key] = buf
+    return buf
 
 
 def rows_per_group(w: QTensor) -> int:
@@ -91,13 +159,19 @@ def rows_per_group(w: QTensor) -> int:
 
 def route(dtype: torch.dtype, m: int, entry: str, kind: str, k: int,
           n: int, rpg: int) -> str:
-    """The kernel of a CUDA call: "mma" (quant_mma_kernel) or "rows"
-    (quant_rows_kernel). ``entry`` is "dense", "gathered" or "grouped"; m
-    the rows of x; rpg the storage rows of a scale group. The tensor-core
-    kernel takes bf16 x only (float32 activations keep their roundings),
-    N a multiple of 16, K of 8, and a scale group whose storage rows fill
+    """The kernel of a CUDA call: "gemv" (quant_gemv_kernel), "mma"
+    (quant_mma_kernel) or "rows" (quant_rows_kernel). ``entry`` is
+    "dense", "gathered" or "grouped"; m the rows of x; rpg the storage rows
+    of a scale group. The GEMV takes one-row dense calls and every gathered
+    call, either dtype (its roundings are the first version's), N a
+    multiple of 16 (16-byte loads), K and rpg of 8. The tensor-core kernel
+    takes bf16 x only (float32 activations keep their roundings), N a
+    multiple of 16, K of 8, and a scale group whose storage rows fill
     whole stages (16 for the nibble kinds, 32 for the others)."""
-    if entry == "gathered" or dtype != torch.bfloat16 or m < MMA_MIN_ROWS:
+    if entry == "gathered" or (entry == "dense" and m == 1):
+        return "gemv" if n % 16 == 0 and k % 8 == 0 and rpg % 8 == 0 \
+            else "rows"
+    if dtype != torch.bfloat16 or m < MMA_MIN_ROWS:
         return "rows"
     stage_rows = 16 if kind in INT4_KINDS else 32
     if n % 16 or k % 8 or rpg % stage_rows:
@@ -258,6 +332,45 @@ def mma_launcher(x_rows: torch.Tensor, w: QTensor, tiles,
     return launch
 
 
+def gemv_launcher(x_rows: torch.Tensor, w: QTensor, tiles,
+                  out: torch.Tensor, what: str):
+    """Checks a CUDA call on a 3-D weight with one row a tile; returns
+    launch(), which runs only quant_gemv_kernel (split by gemv_plan) and
+    writes ``out`` [R, N]."""
+    check_cuda_operands(what, x_rows.device, x_rows, w.data, w.scales,
+                        *(() if w.zeros is None else (w.zeros,)))
+    parts = (x_rows, w.data, w.scales) + (() if w.zeros is None
+                                          else (w.zeros,))
+    if any(t.data_ptr() % 16 for t in parts):
+        raise ValueError(f"{what}: the GEMV takes 16-byte aligned operands")
+    te, tr0, trs = tiles
+    kr, n, rpg = w.data.shape[-2], w.out_features, rows_per_group(w)
+    dev = x_rows.device
+    splits, gran = gemv_plan(n, te.shape[0], kr, rpg, sm_count(dev), w.kind)
+    part = cnt = None
+    if splits > 1:
+        part, cnt = scratch(dev, splits * te.shape[0] * n,
+                            -(-n // GEMV_BN) * te.shape[0], "gemv")
+    fn = _build.lib("quant_matmul").kt_quant_gemv
+    flip = 0 if w.act_quant else 8
+
+    def launch():
+        err = fn(
+            x_rows.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
+            None if w.zeros is None else w.zeros.data_ptr(),
+            te.data_ptr(), tr0.data_ptr(), trs.data_ptr(), te.shape[0],
+            splits, gran, _KIND_CODE[w.kind], w.in_features, kr, n,
+            w.scales.shape[-2], rpg, flip,
+            int(x_rows.dtype == torch.bfloat16),
+            None if part is None else part.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(err, what)
+
+    return launch
+
+
 def _route(x_rows: torch.Tensor, w: QTensor, entry: str) -> str:
     return route(x_rows.dtype, x_rows.shape[0], entry, w.kind, w.in_features,
                  w.out_features, rows_per_group(w))
@@ -265,20 +378,28 @@ def _route(x_rows: torch.Tensor, w: QTensor, entry: str) -> str:
 
 def dense_launcher(x2: torch.Tensor, w: QTensor, kernel: str | None = None):
     """(launch, out) of a CUDA quant_matmul call on x2 [M, K]; ``kernel``
-    ("rows" or "mma") overrides ``route``, for a measurement."""
+    ("rows", "gemv" or "mma") overrides ``route``, for a measurement."""
     m = x2.shape[0]
     out = torch.empty(m, w.out_features, dtype=x2.dtype, device=x2.device)
-    if (kernel or _route(x2, w, "dense")) == "mma":
+    kernel = kernel or _route(x2, w, "dense")
+    if kernel == "mma":
         return mma_launcher(x2, lift(w), dense_tiles(m, MMA_BM, x2.device),
                             out, "quant_matmul"), out
+    if kernel == "gemv":
+        return gemv_launcher(x2, lift(w), dense_tiles(m, 1, x2.device), out,
+                             "quant_matmul"), out
     mr = 1 if m == 1 else DENSE_MR
     return rows_launcher(x2, lift(w), dense_tiles(m, mr, x2.device), mr, out,
                          "quant_matmul"), out
 
 
-def gathered_launcher(x_rows: torch.Tensor, w: QTensor, ids: torch.Tensor):
+def gathered_launcher(x_rows: torch.Tensor, w: QTensor, ids: torch.Tensor,
+                      kernel: str | None = None):
     out = torch.empty(x_rows.shape[0], w.out_features, dtype=x_rows.dtype,
                       device=x_rows.device)
+    if (kernel or _route(x_rows, w, "gathered")) == "gemv":
+        return gemv_launcher(x_rows, w, row_tiles(ids), out,
+                             "gathered_quant_matmul"), out
     return rows_launcher(x_rows, w, row_tiles(ids), 1, out,
                          "gathered_quant_matmul"), out
 
@@ -296,12 +417,15 @@ def grouped_launcher(x_sorted: torch.Tensor, w: QTensor,
                          "grouped_quant_matmul"), out
 
 
+KERNEL_NAMES = {"gemv": "quant_gemv_kernel", "mma": "quant_mma_kernel"}
+
+
 def _counted(what: str, kernel: str, launch, out: torch.Tensor
              ) -> torch.Tensor:
     launch()
     LAUNCHES[what] += 1
-    if kernel == "mma":
-        MMA_LAUNCHES[what] += 1
+    if kernel in KERNEL_NAMES:
+        ROUTED_LAUNCHES[KERNEL_NAMES[kernel]] += 1
     return out
 
 
@@ -334,8 +458,10 @@ def gathered_quant_matmul(x_rows: torch.Tensor, w: QTensor,
         raise ValueError(f"{what}: ids must be [R]")
     if device_kind(x_rows, what) == "cpu":
         return gathered_quant_matmul_ref(x_rows, w, ids)
-    return _counted(what, "rows",
-                    *gathered_launcher(x_rows.contiguous(), w, ids))
+    x_rows = x_rows.contiguous()
+    kernel = _route(x_rows, w, "gathered")
+    return _counted(what, kernel,
+                    *gathered_launcher(x_rows, w, ids, kernel))
 
 
 def grouped_quant_matmul(x_sorted: torch.Tensor, w: QTensor,

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ktransformers_tpu_torch.ops.cuda import LAUNCHES, MMA_LAUNCHES
+from ktransformers_tpu_torch.ops.cuda import LAUNCHES, ROUTED_LAUNCHES
 from ktransformers_tpu_torch.ops.cuda import _build
 from ktransformers_tpu_torch.quant.formats import QTensor
 from ktransformers_tpu_torch.quant.w4a8 import w4a8_prep
@@ -286,7 +286,7 @@ def dense_w4a8_matmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
     launch()
     LAUNCHES[what] += 1
     if kernel == "mma":
-        MMA_LAUNCHES[what] += 1
+        ROUTED_LAUNCHES["w4a8_mma_kernel"] += 1
     return out
 
 
@@ -397,5 +397,5 @@ def grouped_w4a8_matmul(x_sorted: torch.Tensor, w: QTensor,
     launch()
     LAUNCHES[what] += 1
     if kernel == "mma":
-        MMA_LAUNCHES[what] += 1
+        ROUTED_LAUNCHES["w4a8_mma_kernel"] += 1
     return out

@@ -742,3 +742,167 @@ def test_mma_and_first_version_agree(cuda, entry):
             launch()
             outs.append(out)
         assert _rel(outs[1], outs[0]) <= 1e-2
+
+
+# -------------- the one-row GEMV (rows 9-10) and the wgmma kernel (16-17)
+
+
+def _gemv_w(rng, kind, k, n):
+    """A weight of K = 10944 with group 96 for the int4 group kinds (layer
+    0's down projection), the registry's group otherwise."""
+    gs = 96 if kind in ("int4_g", "int4_gz") else 128
+    return _qw(rng, (k, n), kind, gs).to("cuda")
+
+
+def _splits(monkeypatch, mod, plan, fixed):
+    """Force a split count (and its granule) through the planner the
+    launcher calls: fixed(*args) -> the plan to use."""
+    monkeypatch.setattr(mod, plan, fixed)
+
+
+@pytest.mark.parametrize("split", ["one", "most"])
+@pytest.mark.parametrize("n", [3648, 2048])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", QM_KINDS)
+def test_quant_gemv(cuda, kind, dtype, n, split, monkeypatch):
+    """quant_gemv_kernel at M = 1, K = 10944 (group 96 for the int4 group
+    kinds), N = 3648 / 2048, with one split and with the largest split the
+    rows allow: against the plain version, bit-identical on a second call,
+    and the forced first version within the same tolerance."""
+    rng = np.random.default_rng(n + len(kind))
+    k = 10944
+    w = _gemv_w(rng, kind, k, n)
+    x = _x(rng, 1, k).to(dtype).to(cuda)
+    rpg = QM.rows_per_group(w)
+    assert QM.route(dtype, 1, "dense", kind, k, n, rpg) == "gemv"
+    kr = w.data.shape[-2]
+    most = kr // QM.GEMV_UNIT // QM.GEMV_LANES
+    real = QM.gemv_plan
+    _splits(monkeypatch, QM, "gemv_plan",
+            lambda *a: (1, 1) if split == "one" else (most, 1))
+    before = QM.ROUTED_LAUNCHES["quant_gemv_kernel"]
+    out = _counted("quant_matmul", lambda: QM.quant_matmul(x, w))
+    assert QM.ROUTED_LAUNCHES["quant_gemv_kernel"] == before + 1
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert out.dtype == dtype
+    assert _rel(out, QM.quant_matmul_ref(x, w)) <= tol
+    assert torch.equal(QM.quant_matmul(x, w), out)
+    launch, first = QM.dense_launcher(x, w, "rows")
+    launch()
+    assert _rel(first, QM.quant_matmul_ref(x, w)) <= tol
+    monkeypatch.setattr(QM, "gemv_plan", real)
+    assert _rel(QM.quant_matmul(x, w), QM.quant_matmul_ref(x, w)) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", QM_KINDS)
+def test_quant_gemv_gathered(cuda, kind, dtype):
+    """The gathered entry through ops/moe.gathered_matmul: x [T, k, K]
+    (per-expert inputs) and x [T, K], experts repeated within and across
+    tokens, 6 and 48 rows; bit-identical on a second call; the forced
+    first version on the same operands."""
+    from ktransformers_tpu_torch.ops.moe import gathered_matmul
+
+    rng = np.random.default_rng(77)
+    w = _qw(rng, (8, 1408, 2048), kind).to(cuda)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    for t in (1, 8):
+        ids = torch.from_numpy(rng.integers(0, 8, (t, 6))).to(torch.int32)
+        ids[0, 1] = ids[0, 0]  # a repeated expert
+        ids = ids.to(cuda)
+        for x in (_x(rng, t, 6, 1408), _x(rng, t, 1408)):
+            x = x.to(dtype).to(cuda)
+            before = QM.ROUTED_LAUNCHES["quant_gemv_kernel"]
+            out = gathered_matmul(x, w, ids)
+            torch.cuda.synchronize()
+            assert QM.ROUTED_LAUNCHES["quant_gemv_kernel"] == before + 1
+            rows = (x if x.dim() == 3 else x[:, None].expand(t, 6, 1408))
+            rows = rows.reshape(t * 6, 1408).contiguous()
+            ref = QM.gathered_quant_matmul_ref(rows, w, ids.reshape(-1))
+            assert _rel(out.reshape(t * 6, -1), ref) <= tol
+            assert torch.equal(gathered_matmul(x, w, ids), out)
+            launch, first = QM.gathered_launcher(rows, w, ids.reshape(-1),
+                                                 "rows")
+            launch()
+            assert _rel(first, ref) <= tol
+
+
+def test_quant_gemv_counters_reset(cuda):
+    """Calls of several shapes in a row share one set of counters and
+    partials: each sees its counters back at zero (a wrong last block would
+    leave stale sums or no output)."""
+    rng = np.random.default_rng(78)
+    for k, n in ((2048, 3648), (10944, 2048), (2048, 3648), (1408, 2048)):
+        w, x = _qw(rng, (k, n), "int8").to(cuda), _bf(rng, 1, k).to(cuda)
+        for _ in range(3):
+            assert _rel(QM.quant_matmul(x, w),
+                        QM.quant_matmul_ref(x, w)) <= 1e-2
+    _, cnt = QM._SCRATCH[(str(x.device), "gemv")]
+    assert not cnt.any()
+
+
+@pytest.mark.parametrize("m", [1, 64, 200, 512])
+@pytest.mark.parametrize("kind", QT_KINDS)
+def test_quant_wgmma_t(cuda, kind, m):
+    """quant_wgmma_t_kernel at N = 3648 (no multiple of 64 or 128: a partial
+    last stage), K = 512 (two column blocks of 256 dx columns at 128-row
+    tiles, four of 128 at 64-row tiles; both nibble halves of each), M = 1
+    / 64 (64-row tiles) and 200 / 512 (128-row tiles, 200 a partial one),
+    bf16 and float32 dy: against the plain version, bit-identical on a
+    second call, the forced first version within tolerance."""
+    rng = np.random.default_rng(m + len(kind))
+    w = _tw(rng, (512, 3648), kind).to(cuda)
+    assert QT._route(w) == "wgmma"
+    for dt in (torch.bfloat16, torch.float32):
+        dy = _x(rng, m, 3648).to(dt).to(cuda)
+        before = QT.ROUTED_LAUNCHES["quant_wgmma_t_kernel"]
+        out = _counted("quant_matmul_t", lambda: QT.quant_matmul_t(dy, w))
+        assert QT.ROUTED_LAUNCHES["quant_wgmma_t_kernel"] == before + 1
+        ref = QT.quant_matmul_t_ref(dy, w)
+        assert out.dtype == torch.float32 and _rel(out, ref) <= 1e-5
+        assert torch.equal(QT.quant_matmul_t(dy, w), out)
+        launch, first = QT.dense_t_launcher(dy, w, "rows")
+        launch()
+        assert _rel(first, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("splits", [1, 7])
+def test_quant_wgmma_t_splits(cuda, splits, monkeypatch):
+    """The contraction split in 1 and 7 runs (the largest for N = 3648 at
+    8 stages a split): the same result within float32 rounding, each
+    bit-identical on a repeat."""
+    rng = np.random.default_rng(90)
+    w = _tw(rng, (256, 3648), "int4_g offset-lo").to(cuda)
+    dy = _bf(rng, 512, 3648).to(cuda)
+    monkeypatch.setattr(QT, "t_plan", lambda *a: splits)
+    out = QT.quant_matmul_t(dy, w)
+    assert _rel(out, QT.quant_matmul_t_ref(dy, w)) <= 1e-5
+    assert torch.equal(QT.quant_matmul_t(dy, w), out)
+
+
+@pytest.mark.parametrize("kind", QT_KINDS)
+def test_quant_wgmma_t_grouped(cuda, kind):
+    """Sorted rows over 6 experts: two empty, one longer than a 64-row
+    tile, and 17 rows past the total (zero), N = 3648; the gathered entry
+    with a repeated expert; bit-identical repeats; the forced first
+    version."""
+    rng = np.random.default_rng(91)
+    w = _tw(rng, (6, 256, 3648), kind).to(cuda)
+    dy = _bf(rng, 250, 3648).to(cuda)
+    sizes = torch.tensor([70, 0, 130, 0, 30, 3], dtype=torch.int32,
+                         device=cuda)
+    out = _counted("grouped_quant_matmul_t",
+                   lambda: QT.grouped_quant_matmul_t(dy, w, sizes))
+    assert not out[233:].abs().max().item()
+    ref = QT.grouped_quant_matmul_t_ref(dy, w, sizes)
+    assert _rel(out, ref) <= 1e-5
+    assert torch.equal(QT.grouped_quant_matmul_t(dy, w, sizes), out)
+    launch, first = QT.grouped_t_launcher(dy, w, sizes, "rows")
+    launch()
+    assert _rel(first, ref) <= 1e-5
+    ids = torch.tensor([3, 0, 5, 3, 2, 1, 3], dtype=torch.int32, device=cuda)
+    d7 = dy[:7].contiguous()
+    out = QT.gathered_quant_matmul_t(d7, w, ids)
+    ref = QT.gathered_quant_matmul_t_ref(d7, w, ids)
+    assert _rel(out, ref) <= 1e-5
+    assert torch.equal(QT.gathered_quant_matmul_t(d7, w, ids), out)

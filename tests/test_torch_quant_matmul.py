@@ -183,9 +183,14 @@ def test_plain_versions_above_the_crossover(kind, monkeypatch):
 @pytest.mark.parametrize("dtype, m, entry, kind, k, n, rpg, want", [
     (torch.bfloat16, 2, "dense", "int8", 2048, 3648, 2048, "mma"),
     (torch.bfloat16, 8, "dense", "int8", 2048, 3648, 2048, "mma"),
-    (torch.bfloat16, 1, "dense", "int4_g", 2048, 3648, 64, "rows"),
+    (torch.bfloat16, 1, "dense", "int4_g", 2048, 3648, 64, "gemv"),
     (torch.float32, 256, "dense", "int8", 2048, 3648, 2048, "rows"),
-    (torch.bfloat16, 48, "gathered", "int8", 2048, 2816, 2048, "rows"),
+    (torch.bfloat16, 48, "gathered", "int8", 2048, 2816, 2048, "gemv"),
+    (torch.float32, 1, "dense", "int8", 10944, 2048, 10944, "gemv"),
+    (torch.bfloat16, 1, "dense", "int8", 192, 40, 192, "rows"),
+    (torch.bfloat16, 7, "gathered", "int8", 128, 72, 128, "rows"),
+    (torch.bfloat16, 1, "dense", "int8", 2052, 48, 2052, "rows"),
+    (torch.bfloat16, 1, "grouped", "int8", 2048, 3648, 2048, "rows"),
     (torch.bfloat16, 1536, "grouped", "int4_gz", 2048, 2816, 64, "mma"),
     (torch.bfloat16, 256, "dense", "int4_g", 10944, 2048, 48, "mma"),
     (torch.bfloat16, 256, "dense", "mxfp4", 2048, 3648, 16, "mma"),
@@ -197,11 +202,106 @@ def test_plain_versions_above_the_crossover(kind, monkeypatch):
 ])
 def test_route_rule(dtype, m, entry, kind, k, n, rpg, want):
     """Which kernel a CUDA call takes, as a pure function of the call:
-    bf16, at least MMA_MIN_ROWS rows, dense or grouped, N a multiple of
-    16, K of 8, and a scale group of whole stages (16 storage rows for the
-    nibble kinds, 32 for the others) take quant_mma_kernel."""
+    one-row dense and every gathered call take quant_gemv_kernel where N
+    is a multiple of 16 and K and the group's storage rows of 8; bf16, at
+    least MMA_MIN_ROWS rows, dense or grouped, N a multiple of 16, K of 8,
+    and a scale group of whole stages (16 storage rows for the nibble
+    kinds, 32 for the others) take quant_mma_kernel."""
     assert tqm.MMA_MIN_ROWS == 2 and tqm.MMA_BM == 64
     assert tqm.route(dtype, m, entry, kind, k, n, rpg) == want
+
+
+# storage rows of a scale group at DeepSeek-V2-Lite's qkv_a (K = 2048, the
+# registry's group sizes: 128 for the int4 group kinds, 32 for MX)
+QKV_A_RPG = {"int8": 2048, "fp8": 2048, "int4": 1024, "int4_g": 64,
+             "int4_gz": 64, "mxfp4": 16, "mxfp8": 32}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", KINDS)
+def test_route_gemv_every_kind(kind, dtype):
+    """Every kind and both dtypes: one-row dense calls and every gathered
+    call (decode 6 rows, served batch-8 48 rows) take the GEMV; calls of
+    two rows or more keep their routes (bf16: the tensor-core kernel;
+    float32: the first version)."""
+    rpg = QKV_A_RPG[kind]
+    assert tqm.route(dtype, 1, "dense", kind, 2048, 3648, rpg) == "gemv"
+    for rows in (6, 48):
+        assert tqm.route(dtype, rows, "gathered", kind, 2048, 2816,
+                         rpg) == "gemv"
+    several = "mma" if dtype == torch.bfloat16 else "rows"
+    for m in (2, 8, 256):
+        assert tqm.route(dtype, m, "dense", kind, 2048, 3648, rpg) == several
+    assert tqm.route(dtype, 1536, "grouped", kind, 2048, 2816,
+                     rpg) == several
+
+
+# (N, tiles, storage rows, storage rows a group): DeepSeek-V2-Lite's int8
+# qkv_a / o_proj / lm_head / layer-0 down at M = 1, int4_g layer-0 down
+# (group 96), int4_g and MX qkv_a, the gathered gate_up / down at 6 and 48
+# rows; Mixtral-8x7B's int8 qkv / o_proj / lm_head
+GEMV_SHAPES = [
+    (3648, 1, 2048, 2048), (2048, 1, 2048, 2048), (102400, 1, 2048, 2048),
+    (2048, 1, 10944, 10944), (2048, 1, 5472, 48), (3648, 1, 1024, 64),
+    (3648, 1, 1024, 16), (3648, 1, 2048, 32), (2816, 6, 2048, 2048),
+    (2048, 6, 1408, 1408), (2816, 48, 2048, 2048), (2048, 48, 1408, 1408),
+    (6144, 1, 4096, 4096), (4096, 1, 4096, 4096), (32000, 1, 4096, 4096),
+    (40, 1, 192, 96), (48, 1, 64, 8),
+]
+
+
+@pytest.mark.parametrize("kind", ["int8", "mxfp8"])
+@pytest.mark.parametrize("n, tiles, kr, rpg", GEMV_SHAPES)
+def test_gemv_plan(n, tiles, kr, rpg, kind):
+    """The split rule of the GEMV: the splits (and within each, the row
+    lanes of a block, as the kernel cuts them) cover every storage row
+    exactly once; a split starts and ends on a scale group boundary where
+    its granule is a group, and on a unit of 8 rows inside one group
+    otherwise; every lane keeps a unit; the grid reaches
+    gemv_blocks_per_sm(kind) blocks an SM where the rows allow."""
+    sms = 132
+    per_sm = tqm.gemv_blocks_per_sm(kind)
+    splits, gran = tqm.gemv_plan(n, tiles, kr, rpg, sms, kind)
+    unit = tqm.GEMV_UNIT
+    assert rpg % unit == 0 and kr % (unit * gran) == 0
+    spans = tqm.gemv_split_rows(kr, splits, gran)
+    assert len(spans) == splits and spans[0][0] == 0 and spans[-1][1] == kr
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    seen = np.zeros(kr, np.int32)
+    for lo, hi in spans:
+        assert hi - lo >= tqm.GEMV_LANES * unit  # a unit for every lane
+        assert lo % (unit * gran) == 0
+        if gran > 1:
+            assert gran * unit == rpg and lo % rpg == 0 and hi % rpg == 0
+        elif rpg >= tqm.GEMV_LANES * unit and 1 < splits <= kr // rpg:
+            raise AssertionError("groups of a unit a lane left unused")
+        u0, u1 = lo // unit, hi // unit
+        for ly in range(tqm.GEMV_LANES):  # the kernel's lane runs
+            l0 = u0 + (u1 - u0) * ly // tqm.GEMV_LANES
+            l1 = u0 + (u1 - u0) * (ly + 1) // tqm.GEMV_LANES
+            seen[l0 * unit:l1 * unit] += 1
+    assert (seen == 1).all()
+    # no unit straddles a scale group
+    assert all((u * unit) // rpg == (u * unit + unit - 1) // rpg
+               for u in range(kr // unit))
+    blocks = -(-n // tqm.GEMV_BN) * tiles * splits
+    most = kr // unit // tqm.GEMV_LANES
+    assert blocks >= per_sm * sms or splits == max(1, most)
+    assert splits == 1 or blocks < (per_sm + 1) * sms \
+        + -(-n // tqm.GEMV_BN) * tiles
+
+
+def test_gemv_plan_reaches_the_card_at_decode():
+    """DeepSeek-V2-Lite's qkv_a and layer-0 down at M = 1 (29 and 16 blocks
+    of the first version) get at least two blocks an SM; o_proj (16 blocks
+    of the first version) as many as its 2048 rows allow, 32 splits of
+    eight 8-row units."""
+    for n, kr in ((3648, 2048), (2048, 10944)):
+        splits, _ = tqm.gemv_plan(n, 1, kr, kr, 132)
+        assert -(-n // tqm.GEMV_BN) * splits >= 2 * 132
+    assert tqm.gemv_plan(2048, 1, 2048, 2048, 132) == (32, 1)
+    assert tqm.gemv_blocks_per_sm("int8") == 2
+    assert {tqm.gemv_blocks_per_sm(k) for k in KINDS if k != "int8"} == {4}
 
 
 @pytest.mark.parametrize("kind, shape, group, want", [

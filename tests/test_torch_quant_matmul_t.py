@@ -141,3 +141,103 @@ def test_rejects_bad_operands():
     with pytest.raises(ValueError):
         tqt.grouped_quant_matmul_t(torch.zeros(3, 40), t3,
                                    torch.tensor([1, 1, 1]))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_route_wgmma_every_kind(kind):
+    """Every kind takes the wgmma kernel at the SFT step's shapes (N =
+    3648, 2048, 102400, 2816, and K = 10944 with group 96 for the int4 group
+    kinds); N no multiple of 16, or scale groups too small for a stage's
+    GMAX scale rows, keep the first version."""
+    base = kind.split()[0]
+    for n, k, gs in ((3648, 2048, 128), (2048, 2048, 128),
+                     (102400, 2048, 128), (2816, 2048, 128),
+                     (2048, 10944, 96)):
+        rpg = {"int8": k, "fp8": k, "int4": k // 2, "int4_g": gs // 2,
+               "int4_gz": gs // 2, "mxfp4": 16, "mxfp8": 32}[base]
+        assert tqt.route(base, n, rpg) == "wgmma", (n, k, gs)
+    assert tqt.route(base, 40, 64) == "rows"  # N no multiple of 16
+    small = 8 if base in ("int4", "int4_g", "int4_gz", "mxfp4") else 16
+    assert tqt.route(base, 3648, small) == "rows"
+
+
+def test_t_rows_per_group_matches_the_weights():
+    for kind, want in (("int8", 256), ("fp8", 256), ("int4_g", 64),
+                       ("int4_gz", 64), ("mxfp4", 16), ("mxfp8", 32),
+                       ("int4", 128)):
+        _, tq = _weights(kind, (256, 64))
+        assert tqt.t_rows_per_group(tq) == want, kind
+
+
+@pytest.mark.parametrize("entry, m, want", [
+    ("dense", 1, 64), ("dense", 64, 64), ("dense", 65, 128),
+    ("dense", 512, 128), ("grouped", 3072, 64), ("gathered", 6, 64)])
+def test_tile_rows(entry, m, want):
+    """Dense calls of more than 64 rows decode each weight tile once per
+    128 dy rows; grouped and gathered calls keep 64-row tiles."""
+    assert tqt.tile_rows(entry, m) == want
+
+
+# (kind, storage rows, N, static tiles, tile rows): the SFT step's dx
+# shapes at 512 rows (4 tiles of 128): qkv_a, o_proj, lm_head, shared
+# gate_up / down, layer-0 gate_up / down (group 96); the grouped experts'
+# transposes over 3072 sorted rows (48 + 64 tiles of 64); the gathered entry
+# (6 one-row tiles); M = 1; and small shapes
+T_SHAPES = [
+    ("int4_g", 1024, 3648, 4, 128), ("int4_g", 1024, 2048, 4, 128),
+    ("int4_g", 1024, 102400, 4, 128), ("int4_g", 1024, 5632, 4, 128),
+    ("int4_g", 1408, 2048, 4, 128), ("int4_g", 1024, 21888, 4, 128),
+    ("int4_g", 5472, 2048, 4, 128), ("int4_g", 1024, 2816, 112, 64),
+    ("int4_g", 704, 2048, 112, 64), ("int4_g", 1024, 2816, 6, 64),
+    ("int8", 2048, 3648, 4, 128), ("mxfp8", 2048, 3648, 1, 64),
+    ("int4_g", 96, 3648, 1, 64), ("int8", 192, 1824, 2, 128),
+    ("fp8", 128, 16, 1, 64),
+]
+
+
+def _t_cost(kind, kr, n, ntiles, bm, sms, s):
+    blocks = -(-kr // tqt.storage_rows_per_block(kind, bm)) * ntiles
+    waves = -(-blocks * s // (sms * tqt.WGMMA_RESIDENT[bm]))
+    stages = -(-n // tqt.WGMMA_NC)
+    return waves * (-(-stages // s) + tqt.WGMMA_BLOCK_OVERHEAD)
+
+
+@pytest.mark.parametrize("kind, kr, n, ntiles, bm", T_SHAPES)
+def test_t_plan(kind, kr, n, ntiles, bm):
+    """The split rule of the wgmma kernel: the splits cover every column of
+    the contraction exactly once in whole 64-column stages; each keeps at
+    least WGMMA_MIN_STAGES stages where there are several; the count is the
+    cheapest in waves x (stages a block + overhead), the smallest of a
+    tie."""
+    sms = 132
+    splits = tqt.t_plan(kind, kr, n, ntiles, bm, sms)
+    spans = tqt.t_split_stages(n, splits)
+    assert len(spans) == splits and spans[0][0] == 0 and spans[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert all(lo % tqt.WGMMA_NC == 0 for lo, _ in spans)
+    stages = -(-n // tqt.WGMMA_NC)
+    most = max(1, stages // tqt.WGMMA_MIN_STAGES)
+    assert 1 <= splits <= most
+    if splits > 1:
+        assert all(hi - lo >= tqt.WGMMA_MIN_STAGES * tqt.WGMMA_NC
+                   or hi == n for lo, hi in spans)
+    costs = [_t_cost(kind, kr, n, ntiles, bm, sms, s)
+             for s in range(1, most + 1)]
+    assert costs[splits - 1] == min(costs)
+    assert costs.index(min(costs)) == splits - 1
+
+
+def test_t_plan_fills_the_card_at_the_sft_shapes():
+    """lm_head, qkv_a and the layer-0 gate_up dx at 512 rows (32 blocks of
+    128 x 256 without a split) get at least 128 blocks, one an SM."""
+    for kr, n in ((1024, 102400), (1024, 3648), (1024, 21888)):
+        splits = tqt.t_plan("int4_g", kr, n, 4, 128, 132)
+        assert (kr // tqt.storage_rows_per_block("int4_g", 128)) * 4 \
+            * splits >= 128
+
+
+@pytest.mark.parametrize("bm, cols", [(128, 256), (64, 128)])
+def test_block_cols(bm, cols):
+    assert tqt.block_cols(bm) == cols
+    assert tqt.storage_rows_per_block("int4_g", bm) == cols // 2
+    assert tqt.storage_rows_per_block("int8", bm) == cols

@@ -14,8 +14,10 @@ Phases (any failure exits non-zero before the final line):
             once per weight format (int8, fp8, int4, int4_g, int4_gz,
             mxfp4, mxfp8). Where a wrapper routes a call to a redesigned
             kernel (quant_mma_kernel, w4a8_mma_kernel: 2 rows or more;
-            quant_gemv_kernel: one-row quant_matmul and every gathered
-            call; quant_wgmma_t_kernel: the transposed matmuls), the first
+            quant_gemv_kernel, w4a8_gemv_kernel: one-row dense calls, every
+            gathered call and the W4A8 FFN's one-row down;
+            w4a8_ffn_mma_kernel: the W4A8 FFN's gate_up from 2 rows on;
+            quant_wgmma_t_kernel: the transposed matmuls), the first
             version is held and timed on the same operands too (first_ms)
             and a second call of the wrapper must give the same bits; the
             grouped entries get torch._grouped_mm as their library
@@ -51,8 +53,9 @@ Phases (any failure exits non-zero before the final line):
             launches per step, device time by kernel (torch.profiler); a
             step that still launches a first-version instantiation its
             routes replace (8-row tiles on bf16, one-row quant_matmul
-            tiles, the transposed first version) fails (so does the SFT
-            step's profile);
+            tiles, any W4A8 rows kernel, the FFN's 4-row gate_up, the
+            transposed first version) fails (so does the SFT step's
+            profile);
 8. int8:    the int4_g parameters are freed; the full 27-layer config with
             int8 weights (every matmul through the quant_matmul kernels) in
             a Generator answering 2 requests of 512 + 32 tokens, the second
@@ -86,7 +89,7 @@ Phases (any failure exits non-zero before the final line):
             Trainer.train_step, finite losses, a frozen base, adapters that
             moved, launches per step held to the counts the code implies,
             peak memory, and one profiled step.
-Prints a kernels JSON line (the eighteen wrappers, then the four
+Prints a kernels JSON line (the eighteen wrappers, then the six
 redesigned kernels, whose launches are those of their wrappers' calls
 that took them), the card line, and as the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -259,7 +262,8 @@ def routed(kernels: dict, route: str, first) -> dict:
 
 
 QM_ROUTES = {"mma": "quant_mma_kernel", "gemv": "quant_gemv_kernel"}
-W4A8_ROUTES = {"mma": "w4a8_mma_kernel"}
+W4A8_ROUTES = {"mma": "w4a8_mma_kernel", "gemv": "w4a8_gemv_kernel"}
+FFN_ROUTES = {"mma": "w4a8_ffn_mma_kernel", "gemv": "w4a8_gemv_kernel"}
 QT_ROUTES = {"wgmma": "quant_wgmma_t_kernel"}
 
 
@@ -337,8 +341,9 @@ def kernel_checks(rows: list, entries: dict) -> None:
               expect=lambda: tuple(v.to(dev) for v in split(
                   w4a8_prep(x.cpu(), 2048, 128)[:5])))
 
-    # row 1: dense_w4a8_matmul; M >= MM.MMA_MIN_ROWS takes w4a8_mma_kernel,
-    # held and timed beside the first version on the same operands
+    # row 1: dense_w4a8_matmul; M = 1 takes w4a8_gemv_kernel, M >=
+    # MM.MMA_MIN_ROWS w4a8_mma_kernel, each held and timed beside the first
+    # version on the same operands
     row1 = [
         (1, 2048, 3648, "decode qkv_a M=1", "main"),
         (1, 2048, 2048, "decode o_proj M=1", ""),
@@ -370,7 +375,8 @@ def kernel_checks(rows: list, entries: dict) -> None:
               lambda: MM.dense_w4a8_launcher(x, wt),
               nbytes(x, wt.data, wt.scales) + m * n * 2, 2 * m * n * k,
               INT8_OPS_PER_S, library=lambda: torch.matmul(x, wdq),
-              main=main == "main", kernel_main=main == "kernel_main",
+              main=main == "main",
+              kernel_main=main in ("main", "kernel_main"),
               plain_iters=2 if m > 64 else 5,
               **routed(W4A8_ROUTES,
                        MM.route(m, "dense", wt.group_size, n),
@@ -390,7 +396,10 @@ def kernel_checks(rows: list, entries: dict) -> None:
           lambda: F.gathered_w4a8_ffn_ref(x, gu, dn, ids),
           lambda: F.gathered_launcher(x, gu, dn, ids),
           6 * per_expert + 2 * nbytes(x), 2 * 6 * 3 * d * f,
-          INT8_OPS_PER_S, main=True)
+          INT8_OPS_PER_S, main=True,
+          **routed(FFN_ROUTES, F.ffn_route(6, "gathered", 128, 128, f, d),
+                   lambda: F.gathered_launcher(x, gu, dn, ids, "silu",
+                                               "rows")))
 
     # row 4: grouped_w4a8_ffn (prefill: 256 tokens x top-6 sorted rows)
     g_cpu = torch.Generator().manual_seed(1)
@@ -405,7 +414,10 @@ def kernel_checks(rows: list, entries: dict) -> None:
           lambda: F.grouped_w4a8_ffn_ref(xs, gu, dn, sizes),
           lambda: F.grouped_launcher(xs, gu, dn, sizes),
           used * per_expert + 2 * nbytes(xs), 2 * 1536 * 3 * d * f,
-          INT8_OPS_PER_S, main=True, plain_iters=2)
+          INT8_OPS_PER_S, main=True, kernel_main=True, plain_iters=2,
+          **routed(FFN_ROUTES, F.ffn_route(1536, "grouped", 128, 128, f, d),
+                   lambda: F.grouped_launcher(xs, gu, dn, sizes, "silu",
+                                              "rows")))
     del gu, dn
 
     # row 3: dense_w4a8_ffn (the shared experts, 2 x 1408; the layer-0
@@ -421,7 +433,9 @@ def kernel_checks(rows: list, entries: dict) -> None:
               lambda: F.dense_launcher(x, sgu, sdn),
               nbytes(sgu.data, sgu.scales, sdn.data, sdn.scales)
               + 2 * nbytes(x), 2 * m * 3 * d * inter, INT8_OPS_PER_S,
-              main=main)
+              main=main, **routed(
+                  FFN_ROUTES, F.ffn_route(m, "dense", 128, 128, inter, d),
+                  lambda: F.dense_launcher(x, sgu, sdn, "silu", "rows")))
         del sgu, sdn
 
     # row 5: mla_decode_fused (16 heads, R 512, dr 64, 512 cached tokens)
@@ -464,7 +478,10 @@ def kernel_checks(rows: list, entries: dict) -> None:
           lambda: F.gathered_w4a8_ffn_ref(x, gu, dn, ids48),
           lambda: F.gathered_launcher(x, gu, dn, ids48),
           int(ids48.unique().numel()) * per_expert + 2 * nbytes(x),
-          2 * 48 * 3 * d * f, INT8_OPS_PER_S)
+          2 * 48 * 3 * d * f, INT8_OPS_PER_S,
+          **routed(FFN_ROUTES, F.ffn_route(48, "gathered", 128, 128, f, d),
+                   lambda: F.gathered_launcher(x, gu, dn, ids48, "silu",
+                                               "rows")))
     topk = torch.stack([torch.randperm(e, generator=g_cpu)[:6]
                         for _ in range(520)]).to(dev)
     sizes = torch.bincount(topk.reshape(-1), minlength=e).to(torch.int32)
@@ -474,7 +491,10 @@ def kernel_checks(rows: list, entries: dict) -> None:
           lambda: F.grouped_w4a8_ffn_ref(xs, gu, dn, sizes),
           lambda: F.grouped_launcher(xs, gu, dn, sizes),
           int((sizes > 0).sum()) * per_expert + 2 * nbytes(xs),
-          2 * 3120 * 3 * d * f, INT8_OPS_PER_S, plain_iters=2)
+          2 * 3120 * 3 * d * f, INT8_OPS_PER_S, plain_iters=2,
+          **routed(FFN_ROUTES, F.ffn_route(3120, "grouped", 128, 128, f, d),
+                   lambda: F.grouped_launcher(xs, gu, dn, sizes, "silu",
+                                              "rows")))
     del gu, dn
     for m, label in ((8, "serve decode shared M=8"),
                      (520, "serve mixed shared M=520")):
@@ -484,7 +504,11 @@ def kernel_checks(rows: list, entries: dict) -> None:
               lambda: F.dense_w4a8_ffn_ref(x, sgu, sdn),
               lambda: F.dense_launcher(x, sgu, sdn),
               nbytes(sgu.data, sgu.scales, sdn.data, sdn.scales)
-              + 2 * nbytes(x), 2 * m * 3 * d * 2816, INT8_OPS_PER_S)
+              + 2 * nbytes(x), 2 * m * 3 * d * 2816, INT8_OPS_PER_S,
+              **routed(FFN_ROUTES, F.ffn_route(m, "dense", 128, 128, 2816,
+                                               d),
+                       lambda: F.dense_launcher(x, sgu, sdn, "silu",
+                                                "rows")))
         del sgu, sdn
 
     paged_kernel_checks(check, rn, dev)
@@ -851,7 +875,11 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
                   lambda: MM.gathered_launcher(x, wt, ids),
                   nbytes(x) + wbytes(wt, ids) + ids.shape[0] * n * 2,
                   2 * ids.shape[0] * n * k, INT8_OPS_PER_S,
-                  main=(what == "gate_up" and tokens == 1), plain_iters=3)
+                  main=(what == "gate_up" and tokens == 1), plain_iters=3,
+                  **routed(W4A8_ROUTES,
+                           MM.route(ids.shape[0], "gathered", wt.group_size,
+                                    n),
+                           lambda: MM.gathered_launcher(x, wt, ids, "rows")))
         wdq = dequantize(wt, torch.bfloat16)
         for tokens, label in ((256, "prefill 512 rows (256 tok x 2)"),
                               (264, "serve mixed 528 rows (264 tok x 2)")):
@@ -1640,6 +1668,8 @@ def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(1, 3),
 def _is_port_kernel(name: str) -> bool:
     return any(k in name for k in ("w4a8_rows_kernel", "ffn_up_kernel",
                                    "w4a8_mma_kernel", "quant_mma_kernel",
+                                   "w4a8_gemv_kernel",
+                                   "w4a8_ffn_mma_kernel",
                                    "w4a8_prep_kernel",
                                    "mla_decode_fused_kernel",
                                    "mla_paged_decode_kernel",
@@ -1658,12 +1688,16 @@ def _is_port_kernel(name: str) -> bool:
 # 8-row tiles on bf16 activations (the tensor-core kernels take every dense
 # and grouped bf16 call of 2 rows or more), the one-row tiles of the
 # quant_matmul family (the GEMV takes one-row dense and every gathered
-# call) and the transposed first version (the wgmma kernel takes every SFT
-# shape); a step that launches one of these has a wrapper off its route
+# call), the transposed first version (the wgmma kernel takes every SFT
+# shape), every W4A8 rows kernel (the W4A8 GEMV takes one-row dense calls,
+# gathered calls and the FFN's one-row downs; w4a8_mma_kernel the rest)
+# and the FFN's 4-row gate_up (w4a8_ffn_mma_kernel takes tiles of more than
+# one row); a step that launches one of these has a wrapper off its route
 _OFF_ROUTE = re.compile(r"quant_rows_kernel<\d+, 8, __nv_bfloat16>"
-                        r"|w4a8_rows_kernel<8, __nv_bfloat16>"
+                        r"|w4a8_rows_kernel<"
                         r"|quant_rows_kernel<\d+, 1, "
-                        r"|quant_rows_t_kernel<")
+                        r"|quant_rows_t_kernel<"
+                        r"|ffn_up_kernel<4>")
 
 
 def off_route(rows) -> list:
@@ -2432,6 +2466,12 @@ def main() -> int:
     sources["quant_wgmma_t_kernel"] = (
         "ktransformers_tpu_torch/csrc/quant_matmul_t.cu",
         "ktransformers_tpu/ops/pallas/quant_matmul_t.py:172")
+    sources["w4a8_gemv_kernel"] = (
+        "ktransformers_tpu_torch/csrc/w4a8_gemv.cuh",
+        "ktransformers_tpu/ops/pallas/w4a8_matmul.py:930")
+    sources["w4a8_ffn_mma_kernel"] = (
+        "ktransformers_tpu_torch/csrc/w4a8_ffn.cu",
+        "ktransformers_tpu/ops/pallas/w4a8_matmul.py:818")
     kernels = []
     for name in KERNELS + tuple(ROUTED_KERNELS):
         row = entries[name]

@@ -1,7 +1,8 @@
 // Building blocks of the tensor-core matmuls (quant_matmul.cu's
-// quant_mma_kernel, w4a8_mma.cuh's w4a8_mma_kernel, quant_matmul_t.cu's
-// quant_wgmma_t_kernel): asynchronous copies from global into shared memory
-// (cp.async, zero-filled where the source lies outside the operand),
+// quant_mma_kernel, w4a8_mma.cuh's w4a8_mma_kernel, w4a8_ffn.cu's
+// w4a8_ffn_mma_kernel, quant_matmul_t.cu's quant_wgmma_t_kernel):
+// asynchronous copies from global into shared memory (cp.async,
+// zero-filled where the source lies outside the operand),
 // ldmatrix, the mma.sync shapes they use, and Hopper's mbarriers and
 // warpgroup MMA (wgmma) with its shared-memory descriptors.
 #pragma once
@@ -55,6 +56,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p)));
 }
 

@@ -7,18 +7,29 @@
 // experts and dense MLP) and grouped_w4a8_ffn (rows sorted by expert,
 // prefill). The wrapper (ops/cuda/w4a8_ffn.py) turns each into a list of
 // row tiles that share one expert; dead tiles (rows = 0) exit at once.
+// Every call is two launches: the gate_up half writes the int8 codes,
+// scales and 8*sum(lo) of the GLU output to a scratch plane in device
+// memory, and the down dot reads them back. Which kernel runs each half
+// is the wrapper's fixed rule (ops/cuda/w4a8_ffn.py:ffn_route):
+// - tiles of more than one row: w4a8_ffn_mma_kernel below for gate_up
+//   (64-row tiles on s8 tensor cores), w4a8_mma_kernel (w4a8_mma.cuh,
+//   kt_w4a8_mma) for the down;
+// - one-row tiles (decode): ffn_up_kernel<1> for gate_up, the split-K
+//   GEMV (w4a8_gemv.cuh, kt_w4a8_gemv) for the down;
+// - shapes those refuse: the first version, ffn_up_kernel<4> and
+//   w4a8_rows_kernel (kt_w4a8_ffn_down).
 //
 // At decode the kernels are bound by the routed experts' weight bytes
-// (gate_up K/2 x 2I + down I/2 x K int8 plus f32 scales). This first
-// version uses two launches: ffn_up writes the int8 codes, scales and
-// 8*sum(lo) of the GLU output to a scratch plane in device memory, and the
-// down dot reads them back. Fusing both into one launch is later work.
+// (gate_up K/2 x 2I + down I/2 x K int8 plus f32 scales); at prefill by
+// the experts' bytes too, as long as each expert is read once a 64-row
+// tile (see w4a8_ffn_mma_kernel).
 //
-// ffn_up: a block owns one down group of the intermediate dimension (bc
-// columns of gate and the matching bc columns of up) for one tile, so the
-// group's requant happens inside the block; the requant is per (row, down
-// group), so the split does not change the numbers.
+// Both gate_up kernels give a block one down group of the intermediate
+// dimension (bc columns of gate and the matching bc columns of up) for one
+// tile, so the group's requant happens inside the block; the requant is
+// per (row, down group), so the split does not change the numbers.
 #include "w4a8_core.cuh"
+#include "w4a8_mma.cuh"
 
 namespace kt {
 
@@ -40,6 +51,54 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// w4a8_prep's requant of one (row, down group) of the GLU output, held by
+// a warp: lane holds lo[i] = act[j] and hi[i] = act[gs2 + j] for
+// j = lane + 32 i (used where j < gs2 <= 64). The codes go to ca / cb at
+// o + j, the scales and 8*sum(lo) to sa2 / sb2 / t2 at si.
+__device__ __forceinline__ void requant_warp(const float lo[2],
+                                             const float hi[2], int gs2,
+                                             int8_t* __restrict__ ca,
+                                             int8_t* __restrict__ cb,
+                                             size_t o,
+                                             float* __restrict__ sa2,
+                                             float* __restrict__ sb2,
+                                             float* __restrict__ t2,
+                                             size_t si) {
+  const int lane = threadIdx.x & 31;
+  float v1[2], v2[2];
+  float amax1 = 0.f, amax2 = 0.f, slo = 0.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = lane + 32 * i;
+    v1[i] = v2[i] = 0.f;
+    if (j < gs2) {
+      v1[i] = lo[i] - hi[i] / 16.0f;
+      v2[i] = hi[i] / 16.0f;
+      amax1 = fmaxf(amax1, fabsf(v1[i]));
+      amax2 = fmaxf(amax2, fabsf(v2[i]));
+      slo += lo[i];
+    }
+  }
+  amax1 = warp_max(amax1);
+  amax2 = warp_max(amax2);
+  slo = warp_sum(slo);
+  const float s1 = fmaxf(amax1, 1e-8f) / 127.0f;
+  const float s2 = fmaxf(amax2, 1e-8f) / 127.0f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = lane + 32 * i;
+    if (j < gs2) {
+      ca[o + j] = (int8_t)fminf(fmaxf(rintf(v1[i] / s1), -127.f), 127.f);
+      cb[o + j] = (int8_t)fminf(fmaxf(rintf(v2[i] / s2), -127.f), 127.f);
+    }
+  }
+  if (lane == 0) {
+    sa2[si] = s1;
+    sb2[si] = s2;
+    t2[si] = 8.0f * slo;
+  }
 }
 
 template <int MR>
@@ -92,43 +151,327 @@ __global__ void __launch_bounds__(32 * KW)
   if (m >= nrows) return;
   const int gs2 = bc / 2;
   const int grp = blockIdx.x;
-  const int ng2 = inter / bc;
   const size_t row = (size_t)(row0 + m);
-  float v1[2], v2[2];
-  float amax1 = 0.f, amax2 = 0.f, slo = 0.f;
+  float lo[2], hi[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int j = tx + 32 * i;
-    v1[i] = v2[i] = 0.f;
-    if (j < gs2) {
-      const float lo = act_s[m][j];
-      const float hi = act_s[m][gs2 + j];
-      v1[i] = lo - hi / 16.0f;
-      v2[i] = hi / 16.0f;
-      amax1 = fmaxf(amax1, fabsf(v1[i]));
-      amax2 = fmaxf(amax2, fabsf(v2[i]));
-      slo += lo;
-    }
+    lo[i] = j < gs2 ? act_s[m][j] : 0.f;
+    hi[i] = j < gs2 ? act_s[m][gs2 + j] : 0.f;
   }
-  amax1 = warp_max(amax1);
-  amax2 = warp_max(amax2);
-  slo = warp_sum(slo);
-  const float s1 = fmaxf(amax1, 1e-8f) / 127.0f;
-  const float s2 = fmaxf(amax2, 1e-8f) / 127.0f;
+  requant_warp(lo, hi, gs2, ca, cb, row * (size_t)(inter / 2) +
+               (size_t)grp * gs2, sa2, sb2, t2, row * (inter / bc) + grp);
+}
+
+
+// ----------------------------------------------- gate_up on tensor cores
+
+// w4a8_ffn_mma_kernel: gate_up + GLU + requant for tiles of up to BM = 64
+// rows of one expert (the tile maps of kt_w4a8_mma), one down group of
+// BC = 128 columns a block: the block's 2 BC gate_up columns are gate
+// columns [c0, c0 + BC) and up columns [I + c0, I + c0 + BC). The int8 dots
+// run on s8 mma.sync as in w4a8_mma.cuh (its ldmatrix.trans of the N-major
+// weight rows, no repack; m16n8k32, and m16n8k16 for the last 16 bytes of
+// a group of 96), with a cp.async ring of STAGES scale groups. Sixteen
+// warps (4 along M, 4 along N: two on the gate half, two on the up half)
+// own 16 rows x 64 columns each: 32 f32 accumulators a thread, one block
+// of 512 threads an SM, so the ring is deep enough (five groups ahead) to
+// keep the copies in flight alone, and each scheduler has four warps whose
+// dot / epilogue chains hide each other's latency. Per scale group a warp
+// loads its A fragments once, then walks its 16-column chunks: the group's
+// int32 sums of a chunk are exact (the integers __dp4a gives) and scaled
+// into the f32 accumulators right away, so only one chunk's int sums are
+// live (and the groups are added in order, as the plain version does).
+// Warps whose 16 rows lie past the tile's rows skip the dots (a tile of a
+// grouped prefill call holds ~24 rows, a decode batch 8). After the K loop
+// the accumulators are staged through shared memory (the ring's bytes),
+// and each warp takes rows for the f32 GLU and the
+// per-(row, down group) requant of ffn_up_kernel (requant_warp).
+//
+// Bound: the experts' weight bytes at the grouped prefill shapes (each
+// expert's gate_up read once a 64-row tile; the first version read it once
+// every 4 rows), operations at the dense ones. The activation codes are
+// read once a down group (I / 128 times).
+// (The KT_FFNMMA_CUT_* switches compile parts out for ops/cuda/breakdown.py.)
+namespace ffnmma {
+
+constexpr int BM = 64;        // rows a tile
+constexpr int BC = 128;       // down group: gate (and up) columns a block
+constexpr int BN = 2 * BC;    // gate_up columns a block
+constexpr int STAGES = 6;     // depth of the cp.async ring (groups)
+constexpr int WARPS_M = 4;    // warps along M: 16 rows each
+constexpr int WARPS_N = 4;    // warps along N: 64 columns each
+constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+constexpr int P = BN / 16 / WARPS_N;  // 16-column chunks a warp
+constexpr int HS = BN + 4;    // row stride (floats) of the staged outputs
+
+template <int GS2>
+struct Shape {
+  // qa / qb tile row stride: an odd number of 16-byte chunks keeps the
+  // ldmatrix rows on distinct banks
+  static constexpr int LDA = (GS2 / 16) % 2 ? GS2 : GS2 + 16;
+  static constexpr int A_BYTES = BM * LDA;
+  static constexpr int W_BYTES = GS2 * BN;
+  static constexpr int F_FLOATS = 3 * BM + BN;  // sa, sb, t, s
+  static constexpr int STAGE = 2 * A_BYTES + W_BYTES + F_FLOATS * 4;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int OUT = BM * HS * 4;
+  static constexpr int SMEM = RING > OUT ? RING : OUT;
+};
+
+// 16-byte chunk c (of 16) of weight row k in the swizzled tile: the 8 rows
+// an ldmatrix.trans reads (k = 0 1 4 5 8 9 12 13, or those + 2) land on 8
+// distinct 16-byte bank groups of their 256-byte rows
+__device__ __forceinline__ int wchunk(int k, int c) {
+  return c ^ ((((k >> 2) & 3) << 1) | (k & 1));
+}
+
+// Issue the copies of scale group g into a ring slot.
+template <int GS2>
+__device__ __forceinline__ void load_stage(const W4A8Args& a, int e,
+                                           int row0, int nrows, int c0,
+                                           int inter, int g, uint8_t* slot) {
+  using S = Shape<GS2>;
+  constexpr int CPR = GS2 / 16;  // 16-byte chunks of a qa row
+  const int t = threadIdx.x;
+  for (int i = t; i < BM * CPR; i += THREADS) {
+    const int m = i / CPR, q = i % CPR;
+    const bool ok = m < nrows;
+    const size_t off =
+        (size_t)(row0 + (ok ? m : 0)) * a.K2 + (size_t)g * GS2 + q * 16;
+    kt_mma::cp_async16(slot + m * S::LDA + q * 16, a.qa + off, ok);
+    kt_mma::cp_async16(slot + S::A_BYTES + m * S::LDA + q * 16, a.qb + off,
+                       ok);
+  }
+  uint8_t* wd = slot + 2 * S::A_BYTES;
+  const int8_t* wg = a.w + ((size_t)e * a.K2 + (size_t)g * GS2) * a.N;
+  for (int i = t; i < GS2 * (BN / 16); i += THREADS) {
+    const int k = i / (BN / 16), c = i % (BN / 16);
+    const int n = (c < BC / 16 ? c0 : inter + c0 - BC) + c * 16;
+    kt_mma::cp_async16(wd + k * BN + wchunk(k, c) * 16,
+                       wg + (size_t)k * a.N + n, true);
+  }
+  float* f = reinterpret_cast<float*>(wd + S::W_BYTES);
+  if (t < 3 * BM) {
+    const int which = t / BM, m = t % BM;
+    const float* src = which == 0 ? a.sa : which == 1 ? a.sb : a.t;
+    const bool ok = m < nrows;
+    kt_mma::cp_async4(f + t, src + (size_t)(row0 + (ok ? m : 0)) * a.ng + g,
+                      ok);
+  } else if (t < 3 * BM + BN / 4) {
+    const int col = 4 * (t - 3 * BM);
+    const int n = col < BC ? c0 + col : inter + c0 + col - BC;
+    kt_mma::cp_async16(f + 3 * BM + col,
+                       a.s + ((size_t)e * a.ng + g) * a.N + n, true);
+  }
+}
+
+}  // namespace ffnmma
+
+template <int GS2>
+__global__ void __launch_bounds__(ffnmma::THREADS, 1)
+    w4a8_ffn_mma_kernel(W4A8Args a, int inter, int act,
+                        int8_t* __restrict__ ca, int8_t* __restrict__ cb,
+                        float* __restrict__ sa2, float* __restrict__ sb2,
+                        float* __restrict__ t2) {
+  constexpr int BM = ffnmma::BM, BC = ffnmma::BC, BN = ffnmma::BN;
+  constexpr int STAGES = ffnmma::STAGES, THREADS = ffnmma::THREADS;
+  constexpr int P = ffnmma::P, HS = ffnmma::HS;
+  constexpr int WARPS_M = ffnmma::WARPS_M;
+  using S = ffnmma::Shape<GS2>;
+  constexpr int KS = GS2 / 32;          // m16n8k32 steps a group
+  constexpr bool TAIL = GS2 % 32 != 0;  // one m16n8k16 step (group 96)
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tile = blockIdx.y;
+  const int nrows = a.tile_rows[tile];
+  if (nrows <= 0) return;  // dead tile (block-uniform)
+  const int row0 = a.tile_row0[tile];
+  const int e = a.tile_expert[tile];
+  const int grp = blockIdx.x, c0 = grp * BC;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
+  const uint32_t LO = 0x0F0F0F0Fu;
+
+  // acc[p][h][c]: row wm*16 + lane/4 + 8h, column (wn*P + p)*16 +
+  // 4*(lane%4) + c of the block's gate_up columns
+  float acc[P][2][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int j = tx + 32 * i;
-    if (j < gs2) {
-      const size_t o = row * (size_t)(inter / 2) + (size_t)grp * gs2 + j;
-      ca[o] = (int8_t)fminf(fmaxf(rintf(v1[i] / s1), -127.f), 127.f);
-      cb[o] = (int8_t)fminf(fmaxf(rintf(v2[i] / s2), -127.f), 127.f);
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[p][h][c] = 0.f;
+
+#pragma unroll
+  for (int g = 0; g < STAGES - 1; ++g) {
+    if (g < a.ng)
+      ffnmma::load_stage<GS2>(a, e, row0, nrows, c0, inter, g,
+                                      smem + g * S::STAGE);
+    kt_mma::cp_async_commit();
+  }
+  const int jm = lane >> 3, jr = lane & 7;
+  // this lane's ldmatrix.trans row inside a 16-row k block
+  const int krow = (jm & 1) * 2 + (jr >> 1) * 4 + (jr & 1);
+  const int arow = (wm * 16 + (lane & 15)) * S::LDA;
+  for (int g = 0; g < a.ng; ++g) {
+    kt_mma::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // group g landed; group g - 1 fully consumed
+    const int nx = g + STAGES - 1;
+    if (nx < a.ng)
+      ffnmma::load_stage<GS2>(a, e, row0, nrows, c0, inter, nx,
+                              smem + (nx % STAGES) * S::STAGE);
+    kt_mma::cp_async_commit();
+    // a warp whose 16 rows all lie past the tile's rows has nothing to add
+    // (warp-uniform; it still takes part in the copies and barriers)
+    if (wm * 16 >= nrows) continue;
+    const uint8_t* slot = smem + (g % STAGES) * S::STAGE;
+    const uint8_t* qa = slot;
+    const uint8_t* qb = slot + S::A_BYTES;
+    const uint8_t* wt = slot + 2 * S::A_BYTES;
+    const float* f = reinterpret_cast<const float*>(wt + S::W_BYTES);
+
+    uint32_t fa[KS][4], fb[KS][4], ta[2], tb[2];
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const int ro = arow + s * 32 + (lane >> 4) * 16;
+      kt_mma::ldmatrix_x4(fa[s], qa + ro);
+      kt_mma::ldmatrix_x4(fb[s], qb + ro);
+    }
+    if (TAIL) {
+      kt_mma::ldmatrix_x2(ta, qa + arow + GS2 - 16);
+      kt_mma::ldmatrix_x2(tb, qb + arow + GS2 - 16);
+    }
+    float sam[2], sbm[2], tm[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wm * 16 + (lane >> 2) + h * 8;
+      sam[h] = f[row];
+      sbm[h] = f[BM + row];
+      tm[h] = f[2 * BM + row];
+    }
+
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int ch = wn * P + p;
+      // the group's int sums of the chunk's even (e) and odd (o) columns
+      int pe[4] = {0, 0, 0, 0}, po[4] = {0, 0, 0, 0};
+      int qe[4] = {0, 0, 0, 0}, qo[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        // matrices: k rows 0-15 (pi0, pi1), then 16-31
+        const int k = s * 32 + (jm >> 1) * 16 + krow;
+        uint32_t r[4];
+        kt_mma::ldmatrix_x4_trans(r, wt + k * BN + ffnmma::wchunk(k, ch) * 16);
+        uint32_t e0, o0, e1, o1;
+        w4mma::split_pair(r[0], r[1], e0, o0);
+        w4mma::split_pair(r[2], r[3], e1, o1);
+#if KT_FFNMMA_CUT_MMA
+        pe[0] ^= fa[s][0] ^ e0;
+        qo[1] ^= fb[s][1] ^ o1;
+#else
+        kt_mma::mma_s8_16832(pe, fa[s], e0 & LO, e1 & LO);
+        kt_mma::mma_s8_16832(po, fa[s], o0 & LO, o1 & LO);
+        kt_mma::mma_s8_16832(qe, fb[s], e0, e1);
+        kt_mma::mma_s8_16832(qo, fb[s], o0, o1);
+#endif
+      }
+      if (TAIL) {  // the last 16 bytes of a group of 96
+        const int k = GS2 - 16 + krow;
+        uint32_t r[2];
+        kt_mma::ldmatrix_x2_trans(r, wt + k * BN + ffnmma::wchunk(k, ch) * 16);
+        uint32_t ev, od;
+        w4mma::split_pair(r[0], r[1], ev, od);
+#if KT_FFNMMA_CUT_MMA
+        po[2] ^= ta[0] ^ ev ^ tb[1] ^ od;
+#else
+        kt_mma::mma_s8_16816(pe, ta, ev & LO);
+        kt_mma::mma_s8_16816(po, ta, od & LO);
+        kt_mma::mma_s8_16816(qe, tb, ev);
+        kt_mma::mma_s8_16816(qo, tb, od);
+#endif
+      }
+      // fragment element fc of the even / odd tile is row lane/4 + 8(fc/2),
+      // column 4*(lane%4) + 2*(fc%2) (+ 1) of the chunk
+      const float4 s4 = *reinterpret_cast<const float4*>(
+          f + 3 * BM + ch * 16 + 4 * (lane & 3));
+      const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int fc = 2 * h + (c >> 1);
+          const int ia = c & 1 ? po[fc] : pe[fc];
+          const int ib = c & 1 ? qo[fc] : qe[fc];
+#if KT_FFNMMA_CUT_EPILOGUE
+          acc[p][h][c] += (float)(ia ^ ib);
+#else
+          const float val = (float)ia * sam[h] + (float)ib * sbm[h] - tm[h];
+          acc[p][h][c] += val * sc[c];
+#endif
+        }
     }
   }
-  if (tx == 0) {
-    sa2[row * ng2 + grp] = s1;
-    sb2[row * ng2 + grp] = s2;
-    t2[row * ng2 + grp] = 8.0f * slo;
+#if !KT_FFNMMA_CUT_REQUANT
+  kt_mma::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+
+  float* hs = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wm * 16 + (lane >> 2) + h * 8;
+      const int col = (wn * P + p) * 16 + 4 * (lane & 3);
+      *reinterpret_cast<float4*>(hs + row * HS + col) =
+          make_float4(acc[p][h][0], acc[p][h][1], acc[p][h][2],
+                      acc[p][h][3]);
+    }
+  __syncthreads();
+
+  // GLU and requant: warp w takes rows w, w + 16, ...; act[j] = glu(gate
+  // column j, up column j) of the down group, lo = act[j], hi = act[BC/2 + j]
+  constexpr int GS2D = BC / 2;
+  for (int m = warp; m < nrows; m += THREADS / 32) {
+    const float* hr = hs + m * HS;
+    float lo[2], hi[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int j = lane + 32 * i;
+      lo[i] = glu(hr[j], hr[BC + j], act);
+      hi[i] = glu(hr[GS2D + j], hr[BC + GS2D + j], act);
+    }
+    const size_t row = (size_t)(row0 + m);
+    requant_warp(lo, hi, GS2D, ca, cb,
+                 row * (size_t)(inter / 2) + (size_t)grp * GS2D, sa2, sb2, t2,
+                 row * (inter / BC) + grp);
   }
+#else
+  float sink = 0.f;  // keeps every accumulator live
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sink += acc[p][h][c];
+  if (sink == 1.2345f) ca[threadIdx.x] = 1;
+#endif
+}
+
+// gs2 = 64 (gate_up group 128) or 48 (group 96); down group BC; I a
+// multiple of BC; K/2 a multiple of 16 bytes.
+template <int GS2>
+cudaError_t launch_ffn_mma_gs(const W4A8Args& a, int ntiles, int inter,
+                              int act, int8_t* ca, int8_t* cb, float* sa2,
+                              float* sb2, float* t2, cudaStream_t stream) {
+  static int ready_dev = -1;
+  using S = ffnmma::Shape<GS2>;
+  cudaError_t err = kt_mma::allow_smem(w4a8_ffn_mma_kernel<GS2>, S::SMEM,
+                                       &ready_dev);
+  if (err != cudaSuccess) return err;
+  dim3 grid(inter / ffnmma::BC, ntiles);
+  w4a8_ffn_mma_kernel<GS2><<<grid, ffnmma::THREADS, S::SMEM, stream>>>(
+      a, inter, act, ca, cb, sa2, sb2, t2);
+  return cudaGetLastError();
 }
 
 }  // namespace kt
@@ -189,6 +532,45 @@ extern "C" int kt_w4a8_ffn_up(const void* qa, const void* qb, const void* sa,
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// gate_up + GLU + requant on the tensor cores (w4a8_ffn_mma_kernel): the
+// operands of kt_w4a8_ffn_up with tiles of up to 64 rows and a down group
+// of 128. gs2 = 64 or 48, inter a multiple of 128, K2 of 16; 16-byte
+// aligned qa, qb, w, s.
+extern "C" int kt_w4a8_ffn_mma(const void* qa, const void* qb,
+                               const void* sa, const void* sb, const void* t,
+                               const void* w, const void* s,
+                               const void* tile_expert,
+                               const void* tile_row0, const void* tile_rows,
+                               int ntiles, int k2, int inter, int ng, int gs2,
+                               int act, void* ca, void* cb, void* sa2,
+                               void* sb2, void* t2, void* stream) {
+  if (ntiles <= 0) return 0;
+  const uintptr_t align = (uintptr_t)qa | (uintptr_t)qb | (uintptr_t)w |
+                          (uintptr_t)s;
+  if (inter % kt::ffnmma::BC || k2 % 16 || ng * gs2 != k2 ||
+      ntiles > 65535 || (align & 15u) ||
+      (((uintptr_t)sa | (uintptr_t)sb | (uintptr_t)t) & 3u))
+    return (int)cudaErrorInvalidValue;
+  kt::W4A8Args a = make_args(qa, qb, sa, sb, t, w, s, tile_expert, tile_row0,
+                             tile_rows, k2, 2 * inter, ng, gs2);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* pca = static_cast<int8_t*>(ca);
+  auto* pcb = static_cast<int8_t*>(cb);
+  auto* psa = static_cast<float*>(sa2);
+  auto* psb = static_cast<float*>(sb2);
+  auto* pt = static_cast<float*>(t2);
+  switch (gs2) {
+    case 64:
+      return (int)kt::launch_ffn_mma_gs<64>(a, ntiles, inter, act, pca, pcb,
+                                            psa, psb, pt, st);
+    case 48:
+      return (int)kt::launch_ffn_mma_gs<48>(a, ntiles, inter, act, pca, pcb,
+                                            psa, psb, pt, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // down dot over the requantized activation: same tiles as kt_w4a8_ffn_up.

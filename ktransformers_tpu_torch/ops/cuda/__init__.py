@@ -10,12 +10,14 @@ W4A8 matmuls (experts too wide for the fused FFN, Mixtral's), the two
 GQA paged-attention kernels and the two transposed matmuls of the LoRA SFT
 backward (dense, and per-row experts: grouped or gathered). ``LAUNCHES``
 counts, per TPU kernel replaced, the wrapper calls that launched on the
-card; a call of an FFN wrapper is two kernel launches. Eight wrappers route
-a call to the first version of their kernel or to a redesigned one
+card; a call of an FFN wrapper is two kernel launches. Eleven wrappers
+route a call to the first version of their kernel or to a redesigned one
 (``route`` in ops/cuda/quant_matmul.py, quant_matmul_t.py and
-w4a8_matmul.py); ``ROUTED_KERNELS`` names each redesigned kernel with the
-wrappers that route to it, and ``ROUTED_LAUNCHES`` counts, per redesigned
-kernel, the wrapper calls that took it.
+w4a8_matmul.py, ``ffn_route`` in w4a8_ffn.py); ``ROUTED_KERNELS`` names
+each redesigned kernel with the wrappers that route to it, and
+``ROUTED_LAUNCHES`` counts, per redesigned kernel, the wrapper calls that
+took it (an FFN call on tensor cores takes two: its gate_up kernel and
+w4a8_mma_kernel for the down).
 """
 
 from __future__ import annotations
@@ -46,9 +48,13 @@ LAUNCHES = {name: 0 for name in KERNELS}
 # the redesigned kernels and the wrappers that route calls to them
 ROUTED_KERNELS = {
     "quant_mma_kernel": ("quant_matmul", "grouped_quant_matmul"),
-    "w4a8_mma_kernel": ("dense_w4a8_matmul", "grouped_w4a8_matmul"),
+    "w4a8_mma_kernel": ("dense_w4a8_matmul", "grouped_w4a8_matmul",
+                        "dense_w4a8_ffn", "grouped_w4a8_ffn"),
     "quant_gemv_kernel": ("quant_matmul", "gathered_quant_matmul"),
     "quant_wgmma_t_kernel": ("quant_matmul_t", "grouped_quant_matmul_t"),
+    "w4a8_gemv_kernel": ("dense_w4a8_matmul", "gathered_w4a8_matmul",
+                         "gathered_w4a8_ffn", "dense_w4a8_ffn"),
+    "w4a8_ffn_mma_kernel": ("dense_w4a8_ffn", "grouped_w4a8_ffn"),
 }
 ROUTED_LAUNCHES = {name: 0 for name in ROUTED_KERNELS}
 

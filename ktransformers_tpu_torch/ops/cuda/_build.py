@@ -35,9 +35,11 @@ SIGNATURES = {
         "kt_w4a8_rows": [P] * 10 + [I] * 7 + [P, P],
         "kt_w4a8_mma": [P] * 10 + [I] * 6 + [P, P],
         "kt_w4a8_prep": [P, I, I, I, I] + [P] * 6,
+        "kt_w4a8_gemv": [P] * 8 + [I] * 10 + [P] * 4,
     },
     "w4a8_ffn": {
         "kt_w4a8_ffn_up": [P] * 10 + [I] * 8 + [P] * 6,
+        "kt_w4a8_ffn_mma": [P] * 10 + [I] * 6 + [P] * 6,
         "kt_w4a8_ffn_down": [P] * 10 + [I] * 7 + [P, P],
     },
     "mla_decode": {

@@ -15,7 +15,14 @@ shapes (L2 flushed before each launch, median of 20):
   reduction (every split stores its own sums), without both;
 - quant_wgmma_t_kernel (W4A8 weights, bf16 dy, the SFT step's shapes):
   without the decode of the weight tile, without the wgmma, without the
-  cross-split reduction, without decode and wgmma.
+  cross-split reduction, without decode and wgmma;
+- w4a8_gemv_kernel (M = 1 and the gathered entry): without the transposes
+  and int8 dots (one xor a loaded word), without the cross-split
+  reduction, without both;
+- w4a8_ffn_mma_kernel (the FFN's gate_up at 64-row tiles): without the
+  s8 mma, without the group epilogue, without the GLU and requant (the
+  staging through shared memory included), without mma and epilogue. The
+  FFN call's down launch (w4a8_mma_kernel, unchanged) is in every time.
 What is left with the main parts out is the skeleton: copies, barriers,
 loads. The outputs of the cut variants are garbage; only their times are
 read. The copies and libraries go to csrc/build/breakdown/ (git-ignored);
@@ -90,6 +97,17 @@ VARIANTS = {
         "no_wgmma": ["-DKT_T_CUT_WGMMA=1"],
         "no_reduce": ["-DKT_T_CUT_REDUCE=1"],
         "skeleton": ["-DKT_T_CUT_DECODE=1", "-DKT_T_CUT_WGMMA=1"]}),
+    "w4a8_gemv_kernel": ("w4a8_matmul", {
+        "full": [], "no_decode": ["-DKT_W4GEMV_CUT_DECODE=1"],
+        "no_reduce": ["-DKT_W4GEMV_CUT_REDUCE=1"],
+        "skeleton": ["-DKT_W4GEMV_CUT_DECODE=1",
+                     "-DKT_W4GEMV_CUT_REDUCE=1"]}),
+    "w4a8_ffn_mma_kernel": ("w4a8_ffn", {
+        "full": [], "no_mma": ["-DKT_FFNMMA_CUT_MMA=1"],
+        "no_epilogue": ["-DKT_FFNMMA_CUT_EPILOGUE=1"],
+        "no_requant": ["-DKT_FFNMMA_CUT_REQUANT=1"],
+        "skeleton": ["-DKT_FFNMMA_CUT_MMA=1",
+                     "-DKT_FFNMMA_CUT_EPILOGUE=1"]}),
 }
 OUT = os.path.join(_build.BUILD, "breakdown")
 
@@ -166,6 +184,7 @@ def shapes_of(kernel: str, rn, w, rd) -> list:
     """(label, launcher) pairs of a kernel at the main path's shapes."""
     from ktransformers_tpu_torch.ops.cuda import quant_matmul as QM
     from ktransformers_tpu_torch.ops.cuda import quant_matmul_t as QT
+    from ktransformers_tpu_torch.ops.cuda import w4a8_ffn as F
     from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
 
     out = []
@@ -215,6 +234,35 @@ def shapes_of(kernel: str, rn, w, rd) -> list:
         dye = rn(3072, 2816)
         out.append(("w4a8 gate_up^T, 3072 sorted rows",
                     lambda: QT.grouped_t_launcher(dye, we, sizes, "wgmma")))
+    elif kernel == "w4a8_gemv_kernel":
+        for k, n, label in ((2048, 3648, "qkv_a"), (2048, 2048, "o_proj"),
+                            (10944, 2048, "layer-0 down (gs 96)"),
+                            (2048, 102400, "lm_head")):
+            x, ww = rn(1, k), w((k, n))
+            out.append((f"w4a8 {label} M=1", lambda x=x, ww=ww:
+                        MM.dense_w4a8_launcher(x, ww, "gemv")))
+        wg = w((8, 4096, 28672))
+        ids = torch.topk(torch.randn(8, 8, generator=torch.Generator()
+                                     .manual_seed(7)), 2, dim=-1).indices
+        ids = ids.reshape(-1).to(torch.int32).cuda()
+        xg = rn(16, 4096)
+        out.append(("w4a8 Mixtral gate_up, 16 gathered rows",
+                    lambda: MM.gathered_launcher(xg, wg, ids, "gemv")))
+    elif kernel == "w4a8_ffn_mma_kernel":
+        gu, dn = w((64, 2048, 2816)), w((64, 1408, 2048))
+        topk = torch.stack([torch.randperm(64, generator=torch.Generator()
+                                           .manual_seed(1 + i))[:6]
+                            for i in range(256)])
+        sizes = torch.bincount(topk.reshape(-1), minlength=64).to(
+            torch.int32).cuda()
+        xs = rn(1536, 2048)
+        out.append(("w4a8 FFN, 1536 sorted rows",
+                    lambda: F.grouped_launcher(xs, gu, dn, sizes)))
+        sgu, sdn = w((2048, 5632)), w((2816, 2048))
+        for m in (256, 520):
+            x = rn(m, 2048)
+            out.append((f"w4a8 shared FFN M={m}", lambda x=x:
+                        F.dense_launcher(x, sgu, sdn)))
     return out
 
 

@@ -36,7 +36,10 @@ from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
     dense_tiles,
     device_kind,
     grouped_tiles,
+    lift,
     row_tiles,
+    scratch,
+    sm_count,
     sorted_row_experts,
 )
 from ktransformers_tpu_torch.quant.formats import (
@@ -71,17 +74,6 @@ MMA_MIN_ROWS = 2
 GEMV_BN = 256
 GEMV_LANES = 8
 GEMV_UNIT = 8
-
-_SMS: dict = {}
-
-
-def sm_count(device) -> int:
-    key = str(device)
-    if key not in _SMS:
-        _SMS[key] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SMS[key]
-
 
 def mma_block_n(n: int, ntiles: int, device) -> int:
     """Output columns a block of quant_mma_kernel takes: 128, or 64 where a
@@ -127,25 +119,6 @@ def gemv_split_rows(kr: int, splits: int, gran: int) -> list:
     step = GEMV_UNIT * gran
     return [(step * (g * s // splits), step * (g * (s + 1) // splits))
             for s in range(splits)]
-
-
-_SCRATCH: dict = {}
-
-
-def scratch(device, floats: int, counters: int, what: str):
-    """(f32 partials, int32 counters) of at least the sizes asked, kept per
-    device and kernel. The counters are zero between launches: the kernel
-    that uses them sets them back; a grown set is allocated with zeros."""
-    key = (str(device), what)
-    buf = _SCRATCH.get(key)
-    if buf is None or buf[0].numel() < floats or buf[1].numel() < counters:
-        old = (0, 0) if buf is None else (buf[0].numel(), buf[1].numel())
-        buf = (torch.empty(max(floats, old[0]), dtype=torch.float32,
-                           device=device),
-               torch.zeros(max(counters, old[1]), dtype=torch.int32,
-                           device=device))
-        _SCRATCH[key] = buf
-    return buf
 
 
 def rows_per_group(w: QTensor) -> int:
@@ -221,13 +194,6 @@ def expert_slice(w: QTensor, e: int) -> QTensor:
     return dataclasses.replace(
         w, data=w.data[e], scales=w.scales[e],
         zeros=None if w.zeros is None else w.zeros[e])
-
-
-def lift(w: QTensor) -> QTensor:
-    """A 2-D weight as a 1-expert 3-D one (views)."""
-    return dataclasses.replace(
-        w, data=w.data[None], scales=w.scales[None],
-        zeros=None if w.zeros is None else w.zeros[None])
 
 
 def matblock_ref(x2: torch.Tensor, w: QTensor) -> torch.Tensor:

@@ -1,12 +1,13 @@
-"""Time the split-K GEMV and the split-N wgmma kernel at the main path's
+"""Time the split-K GEMVs and the split-N wgmma kernel at the main path's
 shapes under several split counts, on one GPU.
 
     python -m ktransformers_tpu_torch.ops.cuda.split_sweep
 
-quant_gemv_kernel (int8 weights, bf16 x, M = 1 and the gathered entry) and
-quant_wgmma_t_kernel (W4A8 weights, bf16 dy, the SFT step's 512 rows) are
-launched through their wrappers' launchers with the planner replaced by a
-fixed count; the planner's own choice is marked. Each time is the median of
+quant_gemv_kernel (int8 weights, bf16 x, M = 1 and the gathered entry),
+w4a8_gemv_kernel (W4A8 weights, bf16 x, M = 1: splits of whole scale
+groups) and quant_wgmma_t_kernel (W4A8 weights, bf16 dy, the SFT step's
+512 rows) are launched through their wrappers' launchers with the planner
+replaced by a fixed count; the planner's own choice is marked. Each time is the median of
 20 launches with the L2 cache flushed before each (as chip_smoke.py times
 its kernels), beside the one-call library yardstick (torch.matmul on the
 bf16-dequantized weight) where there is one. Prints one line per shape,
@@ -51,6 +52,7 @@ def main() -> int:
     from ktransformers_tpu_torch.models.init import _Draw
     from ktransformers_tpu_torch.ops.cuda import quant_matmul as QM
     from ktransformers_tpu_torch.ops.cuda import quant_matmul_t as QT
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
     from ktransformers_tpu_torch.quant.formats import dequantize
     from ktransformers_tpu_torch.quant.w4a8 import repack_offset_lo
 
@@ -65,7 +67,7 @@ def main() -> int:
     def rn(*shape):
         return torch.randn(*shape, device="cuda", generator=rd.gen).to(bf)
 
-    result = dict(card=card, gemv={}, wgmma_t={})
+    result = dict(card=card, gemv={}, w4a8_gemv={}, wgmma_t={})
     for k, n, label in ((2048, 3648, "qkv_a"), (2048, 2048, "o_proj"),
                         (10944, 2048, "layer-0 down"),
                         (2048, 102400, "lm_head"),
@@ -89,6 +91,23 @@ def main() -> int:
         lambda c: (lambda *a: (c, 1)), (1, 2, 4, 8, 16, 32),
         lambda: QM.gathered_launcher(xe, we, ids, "gemv"), None)
     del we
+
+    for k, n, label in ((2048, 3648, "qkv_a"), (2048, 2048, "o_proj"),
+                        (10944, 2048, "layer-0 down (gs 96)"),
+                        (2048, 102400, "lm_head")):
+        w = repack_offset_lo(rd.q((k, n), "int4_g", 128))
+        x = rn(1, k)
+        wdq = dequantize(w, bf)
+        gs2 = w.group_size // 2
+        groups = k // w.group_size
+        counts = sorted({c for c in (1, 2, 4, 8, 16, 32, 64, groups)
+                         if c <= groups})
+        result["w4a8_gemv"][label] = sweep(
+            f"gemv w4a8 {label} M=1", MM, "w4a8_gemv_plan",
+            lambda c, gs2=gs2: (lambda *a: (c, gs2 // MM.GEMV_UNIT)), counts,
+            lambda x=x, w=w: MM.dense_w4a8_launcher(x, w, "gemv"),
+            lambda x=x, wdq=wdq: torch.matmul(x, wdq))
+        del wdq
 
     for k, n, label in ((2048, 3648, "qkv_a"), (2048, 2048, "o_proj"),
                         (2048, 102400, "lm_head"),

@@ -6,8 +6,11 @@ ktransformers_tpu/ops/pallas/w4a8_matmul.py:
 - gathered_w4a8_ffn: one expert per routed row (decode MoE),
 - dense_w4a8_ffn: one 2-D expert (shared experts, dense MLP),
 - grouped_w4a8_ffn: rows sorted by expert with group sizes (prefill MoE).
-They compute the same function; each builds its own row-tile map. Bound on
-the card at decode: the weight bytes of the experts the rows use.
+They compute the same function; each builds its own row-tile map, and
+``ffn_route`` picks the two kernels of a call (gate_up, then down) by a
+fixed rule: tensor cores for tiles of more than one row, the GEMV for the
+down of one-row tiles, the first version for the shapes those refuse.
+Bound on the card: the weight bytes of the experts the rows use.
 """
 
 from __future__ import annotations
@@ -16,17 +19,24 @@ import math
 
 import torch
 
-from ktransformers_tpu_torch.ops.cuda import LAUNCHES
+from ktransformers_tpu_torch.ops.cuda import LAUNCHES, ROUTED_LAUNCHES
 from ktransformers_tpu_torch.ops.cuda import _build
-from ktransformers_tpu_torch.ops.cuda.quant_matmul import lift
 from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
+    MMA_BM,
+    MMA_GROUPS,
+    MMA_MIN_ROWS,
     _check_x,
     check_cuda_operands,
     check_w4a8_weight,
     dense_tiles,
     device_kind,
+    gemv_launcher,
+    gemv_takes,
     grouped_tiles,
+    launch_mma,
     launch_rows,
+    lift,
+    one_id,
     prep_activations,
     row_tiles,
     sorted_row_experts,
@@ -37,6 +47,33 @@ from ktransformers_tpu_torch.quant.w4a8 import _quant_rows, w4a8_prep
 
 ACTS = {"silu": 0, "relu": 1, "gelu": 2}
 MAX_DOWN_GROUP = 128  # one down group per block of the up kernel
+# w4a8_ffn_mma_kernel: tiles of MMA_BM rows, one down group of this many
+# columns a block
+FFN_MMA_DOWN_GROUP = 128
+FIRST_MR = 4  # rows a tile of the first version at more than one row
+
+
+def ffn_route(m: int, entry: str, gs_up: int, gs_dn: int, inter: int,
+              kdim: int) -> str:
+    """The kernels of a CUDA FFN call (``entry`` "dense", "gathered" or
+    "grouped", m rows), a pure function of the shapes:
+    - "gemv": one-row tiles (every gathered call, a dense call of one row):
+      ffn_up_kernel<1> for gate_up, w4a8_gemv_kernel for the down, where
+      the GEMV takes the down (gemv_takes: at most 128 rows, K a multiple
+      of 16, a down group of whole 8-row units);
+    - "mma": dense and grouped calls of at least MMA_MIN_ROWS rows:
+      w4a8_ffn_mma_kernel for gate_up + GLU + requant, w4a8_mma_kernel for
+      the down, both on 64-row tiles; gate_up group 128 or 96, down group
+      128 (I a multiple of it), K a multiple of 32;
+    - "rows": the first version (ffn_up_kernel, w4a8_rows_kernel) for the
+      shapes those refuse."""
+    if entry == "gathered" or (entry == "dense" and m == 1):
+        return "gemv" if gemv_takes(m, gs_dn, kdim) else "rows"
+    if (m >= MMA_MIN_ROWS and gs_up in MMA_GROUPS
+            and gs_dn == FFN_MMA_DOWN_GROUP
+            and inter % FFN_MMA_DOWN_GROUP == 0 and kdim % 32 == 0):
+        return "mma"
+    return "rows"
 
 
 def glu(g: torch.Tensor, u: torch.Tensor, act: str) -> torch.Tensor:
@@ -227,11 +264,19 @@ def grouped_w4a8_ffn_ref(x_sorted, gate_up, down, group_sizes, act="silu"):
         group_sizes.to(x_sorted.device), x_sorted.shape[0]), act)
 
 
-def ffn_launcher(x_rows, gate_up: QTensor, down: QTensor, tiles, mr: int,
-                 act: str, out: torch.Tensor, what: str):
-    """Checks and prepares a CUDA call; returns launch(), which runs only
-    the two kernels on the prepared operands and writes ``out``."""
+def ffn_launcher(x_rows, gate_up: QTensor, down: QTensor, kernel: str,
+                 tiles, mr: int, act: str, out: torch.Tensor, what: str,
+                 ids=None):
+    """Checks and prepares a CUDA call on 3-D weights; returns launch(),
+    which runs only the two kernels ``kernel`` (ffn_route) names on the
+    prepared operands and writes ``out``. ``tiles`` is the row-tile map of
+    the gate_up launch (and of the down, but for "gemv") with up to ``mr``
+    rows a tile: MMA_BM for "mma", 1 for "gemv"; ``ids`` the rows' experts
+    of the "gemv" down (ids = [0] for a dense call of one row)."""
     r, kdim = x_rows.shape
+    if kernel == "gemv" and (mr != 1 or ids is None or ids.shape != (r,)):
+        raise ValueError(f"{what}: the GEMV down takes one-row tiles and "
+                         "an expert a row")
     inter = gate_up.out_features // 2
     gs1, gs_dn = gate_up.group_size, down.group_size
     check_cuda_operands(what, x_rows.device, x_rows, gate_up.data,
@@ -244,50 +289,91 @@ def ffn_launcher(x_rows, gate_up: QTensor, down: QTensor, tiles, mr: int,
     sa2 = torch.empty(r, ng2, dtype=torch.float32, device=dev)
     sb2 = torch.empty_like(sa2)
     t2 = torch.empty_like(sa2)
+    mid = (ca, cb, sa2, sb2, t2)
     te, tr0, trs = tiles
     lib = _build.lib("w4a8_ffn")
+    head = (qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+            t.data_ptr(), gate_up.data.data_ptr(), gate_up.scales.data_ptr(),
+            te.data_ptr(), tr0.data_ptr(), trs.data_ptr(), te.shape[0])
+    tail = (ca.data_ptr(), cb.data_ptr(), sa2.data_ptr(), sb2.data_ptr(),
+            t2.data_ptr())
+    if kernel == "mma":
+        def up():
+            return lib.kt_w4a8_ffn_mma(
+                *head, kdim // 2, inter, kdim // gs1, gs1 // 2, ACTS[act],
+                *tail, torch.cuda.current_stream(dev).cuda_stream)
+
+        def down_launch():
+            launch_mma(what + " (down)", mid, down, tiles, out)
+    else:
+        def up():
+            return lib.kt_w4a8_ffn_up(
+                *head, mr, kdim // 2, inter, kdim // gs1, gs1 // 2, gs_dn,
+                ACTS[act], *tail, torch.cuda.current_stream(dev).cuda_stream)
+
+        if kernel == "gemv":
+            down_launch = gemv_launcher(what + " (down)", mid, down, ids, out)
+        else:
+            def down_launch():
+                launch_rows(lib.kt_w4a8_ffn_down, what + " (down)", mid,
+                            down, tiles, mr, out)
 
     def launch():
-        err = lib.kt_w4a8_ffn_up(
-            qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-            t.data_ptr(), gate_up.data.data_ptr(), gate_up.scales.data_ptr(),
-            te.data_ptr(), tr0.data_ptr(), trs.data_ptr(), te.shape[0], mr,
-            kdim // 2, inter, kdim // gs1, gs1 // 2, gs_dn, ACTS[act],
-            ca.data_ptr(), cb.data_ptr(), sa2.data_ptr(), sb2.data_ptr(),
-            t2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
-        _build.check(err, what + " (gate_up)")
-        launch_rows(lib.kt_w4a8_ffn_down, what + " (down)",
-                    (ca, cb, sa2, sb2, t2), down, tiles, mr, out)
+        _build.check(up(), what + " (gate_up)")
+        down_launch()
 
     return launch
 
 
-def _counted(what: str, launch, out: torch.Tensor) -> torch.Tensor:
+def _counted(what: str, kernel: str, launch, out: torch.Tensor
+             ) -> torch.Tensor:
     launch()
     LAUNCHES[what] += 1
+    if kernel == "gemv":
+        ROUTED_LAUNCHES["w4a8_gemv_kernel"] += 1
+    elif kernel == "mma":
+        ROUTED_LAUNCHES["w4a8_ffn_mma_kernel"] += 1
+        ROUTED_LAUNCHES["w4a8_mma_kernel"] += 1
     return out
 
 
-def gathered_launcher(x_rows, gate_up, down, ids, act="silu"):
+def _route(x, gate_up: QTensor, down: QTensor, entry: str) -> str:
+    return ffn_route(x.shape[0], entry, gate_up.group_size, down.group_size,
+                     gate_up.out_features // 2, x.shape[1])
+
+
+def gathered_launcher(x_rows, gate_up, down, ids, act="silu",
+                      kernel: str | None = None):
+    """(launch, out) of a CUDA gathered_w4a8_ffn call; ``kernel`` ("rows")
+    overrides ffn_route, for a measurement."""
     out = torch.empty_like(x_rows)
-    return ffn_launcher(x_rows, gate_up, down, row_tiles(ids), 1, act, out,
-                        "gathered_w4a8_ffn"), out
+    kernel = kernel or _route(x_rows, gate_up, down, "gathered")
+    return ffn_launcher(x_rows, gate_up, down, kernel, row_tiles(ids), 1,
+                        act, out, "gathered_w4a8_ffn", ids), out
 
 
-def dense_launcher(x2, gate_up, down, act="silu"):
-    mr = 1 if x2.shape[0] == 1 else 4
+def dense_launcher(x2, gate_up, down, act="silu", kernel: str | None = None):
+    """(launch, out) of a CUDA dense_w4a8_ffn call; ``kernel`` ("rows")
+    overrides ffn_route, for a measurement."""
+    m = x2.shape[0]
     out = torch.empty_like(x2)
-    return ffn_launcher(x2, lift(gate_up), lift(down),
-                        dense_tiles(x2.shape[0], mr, x2.device), mr, act,
-                        out, "dense_w4a8_ffn"), out
+    kernel = kernel or _route(x2, gate_up, down, "dense")
+    mr = MMA_BM if kernel == "mma" else 1 if m == 1 else FIRST_MR
+    return ffn_launcher(x2, lift(gate_up), lift(down), kernel,
+                        dense_tiles(m, mr, x2.device), mr, act, out,
+                        "dense_w4a8_ffn", one_id(x2.device)), out
 
 
-def grouped_launcher(x_sorted, gate_up, down, group_sizes, act="silu"):
-    mr = 4
+def grouped_launcher(x_sorted, gate_up, down, group_sizes, act="silu",
+                     kernel: str | None = None):
+    """(launch, out) of a CUDA grouped_w4a8_ffn call; ``kernel`` ("rows")
+    overrides ffn_route, for a measurement."""
+    m = x_sorted.shape[0]
     out = torch.zeros_like(x_sorted)
-    tiles = grouped_tiles(group_sizes, x_sorted.shape[0], mr)
-    return ffn_launcher(x_sorted, gate_up, down, tiles, mr, act, out,
+    kernel = kernel or _route(x_sorted, gate_up, down, "grouped")
+    mr = MMA_BM if kernel == "mma" else FIRST_MR
+    return ffn_launcher(x_sorted, gate_up, down, kernel,
+                        grouped_tiles(group_sizes, m, mr), mr, act, out,
                         "grouped_w4a8_ffn"), out
 
 
@@ -302,7 +388,9 @@ def gathered_w4a8_ffn(x_rows: torch.Tensor, gate_up: QTensor, down: QTensor,
         raise ValueError(f"{what}: ids must be [R]")
     if device_kind(x_rows, what) == "cpu":
         return gathered_w4a8_ffn_ref(x_rows, gate_up, down, ids, act)
-    return _counted(what, *gathered_launcher(x_rows, gate_up, down, ids, act))
+    kernel = _route(x_rows, gate_up, down, "gathered")
+    return _counted(what, kernel, *gathered_launcher(
+        x_rows, gate_up, down, ids, act, kernel))
 
 
 def dense_w4a8_ffn(x2: torch.Tensor, gate_up: QTensor, down: QTensor,
@@ -314,7 +402,9 @@ def dense_w4a8_ffn(x2: torch.Tensor, gate_up: QTensor, down: QTensor,
     _check_x(x2, kdim, what)
     if device_kind(x2, what) == "cpu":
         return dense_w4a8_ffn_ref(x2, gate_up, down, act)
-    return _counted(what, *dense_launcher(x2, gate_up, down, act))
+    kernel = _route(x2, gate_up, down, "dense")
+    return _counted(what, kernel, *dense_launcher(x2, gate_up, down, act,
+                                                  kernel))
 
 
 def grouped_w4a8_ffn(x_sorted: torch.Tensor, gate_up: QTensor, down: QTensor,
@@ -330,5 +420,6 @@ def grouped_w4a8_ffn(x_sorted: torch.Tensor, gate_up: QTensor, down: QTensor,
         raise ValueError(f"{what}: group_sizes must be [E]")
     if device_kind(x_sorted, what) == "cpu":
         return grouped_w4a8_ffn_ref(x_sorted, gate_up, down, group_sizes, act)
-    return _counted(what, *grouped_launcher(x_sorted, gate_up, down,
-                                            group_sizes, act))
+    kernel = _route(x_sorted, gate_up, down, "grouped")
+    return _counted(what, kernel, *grouped_launcher(
+        x_sorted, gate_up, down, group_sizes, act, kernel))

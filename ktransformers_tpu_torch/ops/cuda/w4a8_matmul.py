@@ -1,26 +1,30 @@
 """W4A8 matmuls: kernel wrappers (csrc/w4a8_matmul.cu) and their plain
 PyTorch versions.
 
-One kernel, three entries, one per Pallas function it replaces in
+Three kernels, three entries, one per Pallas function they replace in
 ktransformers_tpu/ops/pallas/w4a8_matmul.py:
 - dense_w4a8_matmul: x [M, K] @ W [K/2, N] (dense projections),
 - gathered_w4a8_matmul: row r through expert ids[r] of W [E, K/2, N]
   (decode MoE experts the fused FFN kernels refuse),
 - grouped_w4a8_matmul: rows sorted by expert with group sizes; rows past
   sum(group_sizes) come back zero (prefill MoE, likewise).
-They differ only in the row-tile map their wrapper builds and in the
-kernel ``route`` gives them: w4a8_mma_kernel (s8 tensor cores, tiles of
-MMA_BM rows) for dense and grouped calls of at least MMA_MIN_ROWS rows at
-group 128 or 96, w4a8_rows_kernel (the first version, __dp4a) for the rest
-(decode, the gathered entry). Bound on the card at decode: the weight bytes
-of the experts the rows use (K/2 * N int8 + ng * N f32 scales each); see
-the source notes in csrc/w4a8_matmul.cu and csrc/w4a8_mma.cuh.
+``route`` picks the kernel of a call by a fixed rule: w4a8_gemv_kernel
+(split-K GEMV, tiles keyed by expert) for one-row dense calls and every
+gathered call of up to GEMV_MAX_ROWS rows; w4a8_mma_kernel (s8 tensor
+cores, tiles of MMA_BM rows) for dense and grouped calls of at least
+MMA_MIN_ROWS rows at group 128 or 96; w4a8_rows_kernel (the first version,
+__dp4a) for the shapes those refuse. Bound on the card at decode: the
+weight bytes of the experts the rows use (K/2 * N int8 + ng * N f32 scales
+each); see the source notes in csrc/w4a8_gemv.cuh and csrc/w4a8_mma.cuh.
 
-Also holds what the FFN wrappers share: the row-tile maps (a tile is up to
-``mr`` rows that use one expert) and the plain W4A8 group dot.
+Also holds what the other wrappers share: the row-tile maps (a tile is up
+to ``mr`` rows that use one expert), the plain W4A8 group dot, the SM count
+and the split kernels' scratch.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -33,23 +37,106 @@ _DENSE_TILES: dict = {}
 
 # w4a8_mma_kernel: tiles of MMA_BM rows, from MMA_MIN_ROWS rows on (on the
 # H100 it beats the first version at every M measured from 2 up, as
-# chip_smoke.py's kernel phase shows; M = 1, single-user decode, keeps the
-# first version), for the group sizes it is built for
+# chip_smoke.py's kernel phase shows), for the group sizes it is built for
 MMA_BM = 64
 MMA_MIN_ROWS = 2
 MMA_GROUPS = (96, 128)
+# w4a8_gemv_kernel: blocks of GEMV_BN columns and GEMV_LANES row lanes,
+# storage rows in units of GEMV_UNIT (one 16-byte load a thread each), at
+# most GEMV_MAX_ROWS rows a call (one id a thread of the tile scan); the
+# split count aims at GEMV_BLOCKS_PER_SM blocks an SM
+GEMV_BN = 256
+GEMV_LANES = 8
+GEMV_UNIT = 8
+GEMV_MAX_ROWS = 128
+GEMV_BLOCKS_PER_SM = 2
+
+
+def gemv_takes(rows: int, group_size: int, n: int) -> bool:
+    """Whether w4a8_gemv_kernel takes a call of ``rows`` rows: N a multiple
+    of 16 (16-byte loads) and a scale group of whole 8-row units."""
+    return (rows <= GEMV_MAX_ROWS and n % 16 == 0
+            and (group_size // 2) % GEMV_UNIT == 0)
 
 
 def route(m: int, entry: str, group_size: int, n: int) -> str:
-    """The kernel of a CUDA call: "mma" (w4a8_mma_kernel) or "rows"
-    (w4a8_rows_kernel). ``entry`` is "dense", "gathered" or "grouped"; m
-    the rows of x. The activation codes are integers, so float32 and bf16
-    x take the same kernel; N must be a multiple of 16."""
-    if entry == "gathered" or m < MMA_MIN_ROWS:
-        return "rows"
-    if group_size not in MMA_GROUPS or n % 16:
+    """The kernel of a CUDA call: "gemv" (w4a8_gemv_kernel), "mma"
+    (w4a8_mma_kernel) or "rows" (w4a8_rows_kernel). ``entry`` is "dense",
+    "gathered" or "grouped"; m the rows of x. The activation codes are
+    integers, so float32 and bf16 x take the same kernel."""
+    if entry == "gathered" or (entry == "dense" and m == 1):
+        return "gemv" if gemv_takes(m, group_size, n) else "rows"
+    if m < MMA_MIN_ROWS or group_size not in MMA_GROUPS or n % 16:
         return "rows"
     return "mma"
+
+
+_SMS: dict = {}
+
+
+def sm_count(device) -> int:
+    key = str(device)
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[key]
+
+
+_SCRATCH: dict = {}
+
+
+def scratch(device, floats: int, counters: int, what: str):
+    """(f32 partials, int32 counters) of at least the sizes asked, kept per
+    device and kernel. The counters are zero between launches: the kernel
+    that uses them sets them back; a grown set is allocated with zeros."""
+    key = (str(device), what)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf[0].numel() < floats or buf[1].numel() < counters:
+        old = (0, 0) if buf is None else (buf[0].numel(), buf[1].numel())
+        buf = (torch.empty(max(floats, old[0]), dtype=torch.float32,
+                           device=device),
+               torch.zeros(max(counters, old[1]), dtype=torch.int32,
+                           device=device))
+        _SCRATCH[key] = buf
+    return buf
+
+
+def w4a8_gemv_plan(n: int, ntiles: int, k2: int, gs2: int,
+                   sms: int) -> tuple[int, int]:
+    """(splits, gran) of a w4a8_gemv_kernel launch: the K/2 storage rows
+    are cut into ``splits`` runs of whole scale groups (gran = gs2 /
+    GEMV_UNIT units, 64 storage rows at group 128, 48 at 96) so that
+    (column blocks x tiles x splits) reaches GEMV_BLOCKS_PER_SM blocks an
+    SM, at least one group a split. ntiles is the static tile count
+    (gemv_tile_count)."""
+    groups = k2 // gs2
+    blocks = -(-n // GEMV_BN) * ntiles
+    want = -(-GEMV_BLOCKS_PER_SM * sms // blocks)
+    return max(1, min(want, groups)), gs2 // GEMV_UNIT
+
+
+def gemv_split_rows(k2: int, splits: int, gran: int) -> list:
+    """The storage rows [start, end) of each split, as the kernel cuts
+    them."""
+    g = k2 // GEMV_UNIT // gran
+    step = GEMV_UNIT * gran
+    return [(step * (g * s // splits), step * (g * (s + 1) // splits))
+            for s in range(splits)]
+
+
+def gemv_rows_per_chunk(rows: int, experts: int) -> int:
+    """Rows a w4a8_gemv_kernel tile takes (its RB): 1 where the rows are at
+    most the experts (at decode most experts get one row), 2 where experts
+    must repeat."""
+    return 1 if rows <= experts else 2
+
+
+def gemv_tile_count(rows: int, experts: int, rb: int) -> int:
+    """Static tile count of a w4a8_gemv_kernel launch: at least the number
+    of (expert, chunk of rb rows) pairs of any routing of ``rows`` rows over
+    ``experts`` experts, sum ceil(n_e / rb) <= (rows + d (rb - 1)) / rb for
+    d <= min(rows, experts) distinct experts; tiles past the pairs exit."""
+    return (rows + min(rows, experts) * (rb - 1)) // rb
 
 
 def dense_tiles(m: int, mr: int, device):
@@ -103,6 +190,13 @@ def sorted_row_experts(group_sizes: torch.Tensor, m: int) -> torch.Tensor:
     pad = torch.full((m - row_expert.shape[0],), -1, dtype=torch.int64,
                      device=group_sizes.device)
     return torch.cat([row_expert, pad])
+
+
+def lift(w: QTensor) -> QTensor:
+    """A 2-D weight as a 1-expert 3-D one (views)."""
+    return dataclasses.replace(
+        w, data=w.data[None], scales=w.scales[None],
+        zeros=None if w.zeros is None else w.zeros[None])
 
 
 def check_w4a8_weight(w: QTensor, ndim: int, what: str) -> int:
@@ -202,6 +296,59 @@ def launch_mma(what, prep, w: QTensor, tiles, out):
     _build.check(err, what)
 
 
+_ONE_ID: dict = {}
+
+
+def gemv_launcher(what, prep, w: QTensor, ids: torch.Tensor, out):
+    """Checks a CUDA call on a 3-D weight w [E, K/2, N] with row r through
+    expert ids[r] (a dense call: ids = [0] on one expert); returns launch(),
+    which runs only w4a8_gemv_kernel (kt_w4a8_gemv, split by
+    w4a8_gemv_plan) and writes ``out`` [R, N]."""
+    qa, qb, sa, sb, t = prep
+    e, k2, n = w.data.shape
+    gs2 = w.group_size // 2
+    r = ids.shape[0]
+    if not gemv_takes(r, w.group_size, n):
+        raise ValueError(f"{what}: the GEMV takes at most {GEMV_MAX_ROWS} "
+                         f"rows, N a multiple of 16 and a group of 16s "
+                         f"(rows={r}, N={n}, group={w.group_size})")
+    if any(p.data_ptr() % 16 for p in (w.data, w.scales, out)):
+        raise ValueError(f"{what}: the GEMV takes 16-byte aligned operands")
+    dev = out.device
+    ids = ids.to(torch.int32).contiguous()
+    rb = gemv_rows_per_chunk(r, e)
+    tiles = gemv_tile_count(r, e, rb)
+    splits, gran = w4a8_gemv_plan(n, tiles, k2, gs2, sm_count(dev))
+    part = cnt = None
+    if splits > 1:
+        part, cnt = scratch(dev, r * splits * n, -(-n // GEMV_BN) * tiles,
+                            "w4a8_gemv")
+    fn = _build.lib("w4a8_matmul").kt_w4a8_gemv
+
+    def launch():
+        err = fn(
+            qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+            t.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
+            ids.data_ptr(), r, tiles, splits, gran, rb, k2, n, k2 // gs2,
+            gs2,
+            int(out.dtype == torch.bfloat16),
+            None if part is None else part.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(err, what)
+
+    return launch
+
+
+def one_id(device) -> torch.Tensor:
+    """ids = [0] on ``device``: a dense call's one tile for the GEMV."""
+    key = str(device)
+    if key not in _ONE_ID:
+        _ONE_ID[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _ONE_ID[key]
+
+
 def launch_rows(fn, what, prep, w: QTensor, tiles, mr: int, out):
     """Launch a rows kernel (kt_w4a8_rows / kt_w4a8_ffn_down)."""
     qa, qb, sa, sb, t = prep
@@ -253,16 +400,22 @@ def dense_w4a8_launcher(x2: torch.Tensor, w: QTensor,
                         kernel: str | None = None):
     """Checks and prepares a CUDA call; returns (launch, out), where
     launch() runs only the kernel on the prepared operands (so a caller
-    can time the kernel apart from the activation prep). ``kernel`` ("rows"
-    or "mma") overrides ``route``, for a measurement."""
+    can time the kernel apart from the activation prep). ``kernel``
+    ("rows", "gemv" or "mma") overrides ``route``, for a measurement."""
     what = "dense_w4a8_matmul"
     check_cuda_operands(what, x2.device, x2, w.data, w.scales)
     m = x2.shape[0]
     prep = prep_activations(x2, w.in_features, w.group_size)
     out = torch.empty(m, w.out_features, dtype=x2.dtype, device=x2.device)
-    if (kernel or route(m, "dense", w.group_size, w.out_features)) == "mma":
+    kernel = kernel or route(m, "dense", w.group_size, w.out_features)
+    if kernel == "mma":
         tiles = dense_tiles(m, MMA_BM, x2.device)
         return lambda: launch_mma(what, prep, w, tiles, out), out
+    if kernel == "gemv":
+        if m != 1:
+            raise ValueError(f"{what}: the GEMV takes one row, got {m}")
+        return gemv_launcher(what, prep, lift(w), one_id(x2.device),
+                             out), out
     mr = 1 if m == 1 else (4 if m <= 4 else 8)
     fn = _build.lib("w4a8_matmul").kt_w4a8_rows
     tiles = dense_tiles(m, mr, x2.device)
@@ -282,11 +435,18 @@ def dense_w4a8_matmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
     if x2.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x2.device}")
     kernel = route(x2.shape[0], "dense", w.group_size, w.out_features)
-    launch, out = dense_w4a8_launcher(x2, w, kernel)
+    return _counted(what, kernel, *dense_w4a8_launcher(x2, w, kernel))
+
+
+KERNEL_NAMES = {"gemv": "w4a8_gemv_kernel", "mma": "w4a8_mma_kernel"}
+
+
+def _counted(what: str, kernel: str, launch, out: torch.Tensor
+             ) -> torch.Tensor:
     launch()
     LAUNCHES[what] += 1
-    if kernel == "mma":
-        ROUTED_LAUNCHES["w4a8_mma_kernel"] += 1
+    if kernel in KERNEL_NAMES:
+        ROUTED_LAUNCHES[KERNEL_NAMES[kernel]] += 1
     return out
 
 
@@ -332,11 +492,18 @@ def rows_launcher(x_rows: torch.Tensor, w: QTensor, tiles, mr: int,
     return lambda: launch_rows(fn, what, prep, w, tiles, mr, out)
 
 
-def gathered_launcher(x_rows: torch.Tensor, w: QTensor, ids: torch.Tensor):
+def gathered_launcher(x_rows: torch.Tensor, w: QTensor, ids: torch.Tensor,
+                      kernel: str | None = None):
+    what = "gathered_w4a8_matmul"
     out = torch.empty(x_rows.shape[0], w.out_features, dtype=x_rows.dtype,
                       device=x_rows.device)
-    return rows_launcher(x_rows, w, row_tiles(ids), 1, out,
-                         "gathered_w4a8_matmul"), out
+    if (kernel or route(x_rows.shape[0], "gathered", w.group_size,
+                        w.out_features)) == "gemv":
+        check_cuda_operands(what, x_rows.device, x_rows, w.data, w.scales,
+                            ids)
+        prep = prep_activations(x_rows, w.in_features, w.group_size)
+        return gemv_launcher(what, prep, w, ids, out), out
+    return rows_launcher(x_rows, w, row_tiles(ids), 1, out, what), out
 
 
 def grouped_launcher(x_sorted: torch.Tensor, w: QTensor,
@@ -360,7 +527,8 @@ def gathered_w4a8_matmul(x_rows: torch.Tensor, w: QTensor,
                          ids: torch.Tensor) -> torch.Tensor:
     """Decode MoE matmul on int8 dots: row r of x_rows [R, K] through
     expert ids[r] of the offset-lo int4_g weight w [E, K/2, N]; only the
-    routed experts' bytes are read. [R, N] in x_rows.dtype.
+    routed experts' bytes are read, once however many rows share an expert
+    (the GEMV's tiles are keyed by expert). [R, N] in x_rows.dtype.
 
     CUDA tensors launch csrc/w4a8_matmul.cu (after one w4a8_prep launch);
     CPU tensors take gathered_w4a8_matmul_ref."""
@@ -371,10 +539,9 @@ def gathered_w4a8_matmul(x_rows: torch.Tensor, w: QTensor,
         raise ValueError(f"{what}: ids must be [R]")
     if device_kind(x_rows, what) == "cpu":
         return gathered_w4a8_matmul_ref(x_rows, w, ids)
-    launch, out = gathered_launcher(x_rows.contiguous(), w, ids)
-    launch()
-    LAUNCHES[what] += 1
-    return out
+    kernel = route(x_rows.shape[0], "gathered", w.group_size, w.out_features)
+    return _counted(what, kernel, *gathered_launcher(x_rows.contiguous(), w,
+                                                     ids, kernel))
 
 
 def grouped_w4a8_matmul(x_sorted: torch.Tensor, w: QTensor,
@@ -392,10 +559,5 @@ def grouped_w4a8_matmul(x_sorted: torch.Tensor, w: QTensor,
         return grouped_w4a8_matmul_ref(x_sorted, w, group_sizes)
     kernel = route(x_sorted.shape[0], "grouped", w.group_size,
                    w.out_features)
-    launch, out = grouped_launcher(x_sorted.contiguous(), w, group_sizes,
-                                   kernel)
-    launch()
-    LAUNCHES[what] += 1
-    if kernel == "mma":
-        ROUTED_LAUNCHES["w4a8_mma_kernel"] += 1
-    return out
+    return _counted(what, kernel, *grouped_launcher(
+        x_sorted.contiguous(), w, group_sizes, kernel))

@@ -27,6 +27,10 @@ Tolerances, as a share of the reference's largest magnitude:
   mla_decode_attention;
 - 1e-5 / 1e-2 for the gathered and grouped W4A8 matmuls (as the dense one)
   and for the two GQA paged-attention kernels (as the MLA ones);
+- 1e-5 / 1e-2 for the W4A8 GEMV at the main path's widths, held to the
+  plain group dot of the kernel's own activation codes on the card (the
+  prep is held to its plain version by test_w4a8_prep), and 1e-2 for the
+  W4A8 FFN on tensor cores (as the FFN kernels);
 - 1e-5 for the transposed matmuls of the SFT backward at these widths
   (N <= 3648; dx is float32; both sides round the same operands to bf16,
   the kernel sums their products on the tensor cores, the plain version
@@ -837,7 +841,7 @@ def test_quant_gemv_counters_reset(cuda):
         for _ in range(3):
             assert _rel(QM.quant_matmul(x, w),
                         QM.quant_matmul_ref(x, w)) <= 1e-2
-    _, cnt = QM._SCRATCH[(str(x.device), "gemv")]
+    _, cnt = MM._SCRATCH[(str(x.device), "gemv")]
     assert not cnt.any()
 
 
@@ -906,3 +910,242 @@ def test_quant_wgmma_t_grouped(cuda, kind):
     ref = QT.gathered_quant_matmul_t_ref(d7, w, ids)
     assert _rel(out, ref) <= 1e-5
     assert torch.equal(QT.gathered_quant_matmul_t(d7, w, ids), out)
+
+
+# ------ the W4A8 GEMV (rows 1 at M = 1, 7, the FFN's down at decode) and
+# ------ the FFN's gate_up on tensor cores (rows 3 at M >= 2 and 4)
+
+
+def _dw(shape, gs=128, seed=0):
+    """An int4_g weight repacked for W4A8, drawn on the card (the main
+    path's widths are too large to quantize on the host)."""
+    from ktransformers_tpu_torch.models.init import _Draw
+
+    rd = _Draw(seed, torch.device("cuda"), torch.bfloat16)
+    return repack_offset_lo(rd.q(shape, "int4_g", gs))
+
+
+def _dx(seed, *shape, dtype=torch.bfloat16):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+
+def _dot_ref(x, w, row_expert):
+    """The plain W4A8 product on the card from the kernel's own activation
+    codes (MM.prep_activations, held to the plain prep by test_w4a8_prep):
+    the GEMV alone against the plain group dot, float32 [R, N]."""
+    qa, qb, sa, sb, t = MM.prep_activations(x, w.in_features, w.group_size)
+    out = torch.zeros(x.shape[0], w.out_features, device=x.device)
+    for e in torch.unique(row_expert).tolist():
+        idx = torch.nonzero(row_expert == e).flatten()
+        e = int(e)
+        out[idx] = MM.w4a8_group_dot(qa[idx], qb[idx], sa[idx], sb[idx],
+                                     t[idx], w.data[e], w.scales[e],
+                                     w.group_size // 2)
+    return out
+
+
+def _dense_ref(x, w):
+    """_dot_ref of a dense call: one expert."""
+    return _dot_ref(x, MM.lift(w), torch.zeros(1, dtype=torch.int32,
+                                               device=x.device))
+
+
+def _gemv_routed(fn):
+    before = MM.ROUTED_LAUNCHES["w4a8_gemv_kernel"]
+    out = fn()
+    torch.cuda.synchronize()
+    assert MM.ROUTED_LAUNCHES["w4a8_gemv_kernel"] == before + 1
+    return out
+
+
+# DeepSeek-V2-Lite's projections at single-user decode: qkv_a, o_proj,
+# lm_head, layer 0's gate_up and down (group 96)
+GEMV_DENSE = [(2048, 3648, 128), (2048, 2048, 128), (2048, 102400, 128),
+              (2048, 21888, 128), (10944, 2048, 96)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k, n, gs", GEMV_DENSE)
+def test_w4a8_gemv_dense(cuda, k, n, gs, dtype):
+    """w4a8_gemv_kernel at M = 1 on the main path's shapes: against the
+    plain group dot of the same codes (1e-5 float32, 1e-2 bf16),
+    bit-identical on a second call, and the forced first version within
+    the same tolerance."""
+    w, x = _dw((k, n), gs, seed=k + n), _dx(k + n, 1, k, dtype=dtype)
+    assert MM.route(1, "dense", gs, n) == "gemv"
+    out = _gemv_routed(lambda: _counted(
+        "dense_w4a8_matmul", lambda: MM.dense_w4a8_matmul(x, w)))
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    ref = _dense_ref(x, w)
+    assert out.dtype == dtype and _rel(out, ref) <= tol
+    assert torch.equal(MM.dense_w4a8_matmul(x, w), out)
+    launch, first = MM.dense_w4a8_launcher(x, w, "rows")
+    launch()
+    assert _rel(first, ref) <= tol
+
+
+@pytest.mark.parametrize("split", ["one", "most"])
+@pytest.mark.parametrize("k, n, gs", [(576, 208, 96), (1024, 3648, 128)])
+def test_w4a8_gemv_splits(cuda, k, n, gs, split, monkeypatch):
+    """One split, and one a scale group (N = 208: a partial column block;
+    group 96: 48 storage rows = 6 units, two of the eight lanes idle)."""
+    w, x = _dw((k, n), gs, seed=k), _dx(k, 1, k, dtype=torch.float32)
+    groups = k // gs
+    monkeypatch.setattr(MM, "w4a8_gemv_plan", lambda *a: (
+        1 if split == "one" else groups, gs // 2 // MM.GEMV_UNIT))
+    out = MM.dense_w4a8_matmul(x, w)
+    assert _rel(out, _dense_ref(x, w)) <= 1e-5
+    assert torch.equal(MM.dense_w4a8_matmul(x, w), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("what", ["gate_up", "down"])
+def test_w4a8_gemv_gathered_mixtral(cuda, what, dtype):
+    """Mixtral-8x7B's experts at decode: 2 rows (one token's top-2) and 16
+    rows (8 tokens, repeated experts): rows that share an expert read it
+    once; against the plain group dot, bit-identical repeats, the forced
+    first version."""
+    k, n = (4096, 28672) if what == "gate_up" else (14336, 4096)
+    w = _dw((8, k, n), 128, seed=7)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for r in (2, 16):
+        g = torch.Generator().manual_seed(r)
+        ids = torch.topk(torch.randn(r // 2, 8, generator=g), 2,
+                         dim=-1).indices.reshape(-1).to(torch.int32).to(cuda)
+        x = _dx(r, r, k, dtype=dtype)
+        assert MM.route(r, "gathered", 128, n) == "gemv"
+        out = _gemv_routed(lambda: MM.gathered_w4a8_matmul(x, w, ids))
+        ref = _dot_ref(x, w, ids)
+        assert _rel(out, ref) <= tol
+        assert torch.equal(MM.gathered_w4a8_matmul(x, w, ids), out)
+        launch, first = MM.gathered_launcher(x, w, ids, "rows")
+        launch()
+        assert _rel(first, ref) <= tol
+
+
+@pytest.mark.parametrize("ids", ["equal", "random", "one"])
+def test_w4a8_gemv_gathered_rows(cuda, ids):
+    """All 128 rows on one expert (64 chunks of two rows in one tile), 128
+    rows over 4 experts, one row; group 96 at K = 576."""
+    r = {"equal": 128, "random": 128, "one": 1}[ids]
+    g = torch.Generator().manual_seed(r)
+    idv = (torch.full((r,), 2) if ids == "equal"
+           else torch.randint(0, 4, (r,), generator=g))
+    idv = idv.to(torch.int32).to(cuda)
+    w, x = _dw((4, 576, 256), 96, seed=3), _dx(5, r, 576,
+                                                dtype=torch.float32)
+    out = _gemv_routed(lambda: MM.gathered_w4a8_matmul(x, w, idv))
+    assert _rel(out, _dot_ref(x, w, idv)) <= 1e-5
+    assert torch.equal(MM.gathered_w4a8_matmul(x, w, idv), out)
+
+
+def test_w4a8_gemv_counters_reset(cuda):
+    """Calls of several shapes in a row share one set of counters and
+    partials; each finds its counters at zero and leaves them so."""
+    for k, n in ((2048, 3648), (10944, 2048), (2048, 3648), (1408, 2048)):
+        gs = 96 if k == 10944 else 128
+        w, x = _dw((k, n), gs, seed=k), _dx(k, 1, k)
+        for _ in range(3):
+            ref = _dense_ref(x, w)
+            assert _rel(MM.dense_w4a8_matmul(x, w), ref) <= 1e-2
+    _, cnt = MM._SCRATCH[(str(x.device), "w4a8_gemv")]
+    assert not cnt.any()
+
+
+def _ffn_routed(kernel, fn):
+    names = (("w4a8_gemv_kernel",) if kernel == "gemv"
+             else ("w4a8_ffn_mma_kernel", "w4a8_mma_kernel"))
+    before = [MM.ROUTED_LAUNCHES[k] for k in names]
+    out = fn()
+    torch.cuda.synchronize()
+    assert [MM.ROUTED_LAUNCHES[k] for k in names] == [b + 1 for b in before]
+    return out
+
+
+@pytest.mark.parametrize("act", ["silu", "relu", "gelu"])
+def test_w4a8_ffn_gemv_down(cuda, act):
+    """The FFN's one-row tiles (ffn_up_kernel<1>, then the GEMV down) on
+    DeepSeek-V2-Lite's experts: 6 routed rows, 48 rows with repeats, and
+    the shared experts at M = 1; against the plain version on the card
+    (1e-2: the requant may move a code by one step), bit-identical."""
+    gu, dn = _dw((64, 2048, 2816), seed=1), _dw((64, 1408, 2048), seed=2)
+    g = torch.Generator().manual_seed(3)
+    for tokens in (1, 8):
+        ids = torch.stack([torch.randperm(64, generator=g)[:6]
+                           for _ in range(tokens)]).reshape(-1)
+        ids = ids.to(torch.int32).to(cuda)
+        x = _dx(tokens, 6 * tokens, 2048)
+        assert F.ffn_route(6 * tokens, "gathered", 128, 128, 1408,
+                           2048) == "gemv"
+        out = _ffn_routed("gemv", lambda: F.gathered_w4a8_ffn(
+            x, gu, dn, ids, act))
+        assert _rel(out, F.gathered_w4a8_ffn_ref(x, gu, dn, ids, act)) <= 1e-2
+        assert torch.equal(F.gathered_w4a8_ffn(x, gu, dn, ids, act), out)
+    sgu, sdn = _dw((2048, 5632), seed=4), _dw((2816, 2048), seed=5)
+    x = _dx(9, 1, 2048, dtype=torch.float32)
+    out = _ffn_routed("gemv", lambda: F.dense_w4a8_ffn(x, sgu, sdn, act))
+    assert _rel(out, F.dense_w4a8_ffn_ref(x, sgu, sdn, act)) <= 1e-2
+    assert torch.equal(F.dense_w4a8_ffn(x, sgu, sdn, act), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [2, 8, 256, 520])
+def test_w4a8_ffn_mma_dense(cuda, m, dtype):
+    """w4a8_ffn_mma_kernel + w4a8_mma_kernel on the shared experts (I =
+    2816, 22 down groups) at a decode batch, a chunk and a mixed step
+    (520: a partial 64-row tile): against the plain version, bit-identical
+    on a second call, the forced first version within the tolerance."""
+    sgu, sdn = _dw((2048, 5632), seed=4), _dw((2816, 2048), seed=5)
+    x = _dx(m, m, 2048, dtype=dtype)
+    assert F.ffn_route(m, "dense", 128, 128, 2816, 2048) == "mma"
+    out = _ffn_routed("mma", lambda: _counted(
+        "dense_w4a8_ffn", lambda: F.dense_w4a8_ffn(x, sgu, sdn)))
+    ref = F.dense_w4a8_ffn_ref(x, sgu, sdn)
+    assert out.dtype == dtype and _rel(out, ref) <= 1e-2
+    assert torch.equal(F.dense_w4a8_ffn(x, sgu, sdn), out)
+    launch, first = F.dense_launcher(x, sgu, sdn, "silu", "rows")
+    launch()
+    assert _rel(first, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("gs_up, act", [(128, "relu"), (128, "gelu"),
+                                        (96, "silu")])
+def test_w4a8_ffn_mma_acts_and_group_96(cuda, gs_up, act):
+    """Each activation, and a gate_up group of 96 (K = 576: one k32 and one
+    k16 step a group) with I = 384 (three down groups)."""
+    k = 576 if gs_up == 96 else 512
+    gu, dn = _dw((k, 768), gs_up, seed=6), _dw((384, k), 128, seed=7)
+    x = _dx(8, 40, k, dtype=torch.float32)
+    assert F.ffn_route(40, "dense", gs_up, 128, 384, k) == "mma"
+    out = _ffn_routed("mma", lambda: F.dense_w4a8_ffn(x, gu, dn, act))
+    assert _rel(out, F.dense_w4a8_ffn_ref(x, gu, dn, act)) <= 1e-2
+    assert torch.equal(F.dense_w4a8_ffn(x, gu, dn, act), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tokens", [256, 520])
+def test_w4a8_ffn_mma_grouped(cuda, tokens, dtype):
+    """DeepSeek-V2-Lite's routed experts over 1536 / 3120 sorted rows
+    (top-6 of 64), expert 5 emptied and 40 rows past the total, which must
+    come back zero; against the plain version, bit-identical, the forced
+    first version."""
+    gu, dn = _dw((64, 2048, 2816), seed=1), _dw((64, 1408, 2048), seed=2)
+    g = torch.Generator().manual_seed(tokens)
+    topk = torch.stack([torch.randperm(63, generator=g)[:6]
+                        for _ in range(tokens)])
+    topk = topk + (topk >= 5).long()  # no row on expert 5
+    sizes = torch.bincount(topk.reshape(-1), minlength=64).to(torch.int32)
+    assert sizes[5] == 0
+    sizes = sizes.to(cuda)
+    m = 6 * tokens + 40
+    xs = _dx(tokens, m, 2048, dtype=dtype)
+    out = _ffn_routed("mma", lambda: _counted(
+        "grouped_w4a8_ffn", lambda: F.grouped_w4a8_ffn(xs, gu, dn, sizes)))
+    assert torch.all(out[6 * tokens:] == 0)
+    ref = F.grouped_w4a8_ffn_ref(xs, gu, dn, sizes)
+    assert _rel(out, ref) <= 1e-2
+    assert torch.equal(F.grouped_w4a8_ffn(xs, gu, dn, sizes), out)
+    launch, first = F.grouped_launcher(xs, gu, dn, sizes, "silu", "rows")
+    launch()
+    assert _rel(first, ref) <= 1e-2

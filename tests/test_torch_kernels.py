@@ -60,14 +60,15 @@ def test_dense_w4a8_matmul(m):
 
 @pytest.mark.parametrize("m, entry, group, n, want", [
     (16, "dense", 128, 3648, "mma"), (2, "dense", 128, 3648, "mma"),
-    (1, "dense", 128, 3648, "rows"), (8, "dense", 128, 3648, "mma"),
-    (16, "gathered", 128, 28672, "rows"), (512, "grouped", 128, 28672, "mma"),
+    (1, "dense", 128, 3648, "gemv"), (8, "dense", 128, 3648, "mma"),
+    (16, "gathered", 128, 28672, "gemv"), (512, "grouped", 128, 28672, "mma"),
     (512, "dense", 96, 2048, "mma"), (512, "dense", 64, 2048, "rows"),
     (512, "dense", 128, 200, "rows"), (3072, "grouped", 128, 2816, "mma"),
 ])
 def test_w4a8_route_rule(m, entry, group, n, want):
     """Which W4A8 kernel a CUDA call takes, as a pure function of the call
-    (float32 and bf16 x alike: the activation codes are integers)."""
+    (float32 and bf16 x alike: the activation codes are integers): one-row
+    dense calls and gathered calls take the GEMV."""
     assert twm.MMA_MIN_ROWS == 2 and twm.MMA_BM == 64
     assert twm.route(m, entry, group, n) == want
 

@@ -17,7 +17,11 @@ Phases (any failure exits non-zero before the final line):
             quant_gemv_kernel, w4a8_gemv_kernel: one-row dense calls, every
             gathered call and the W4A8 FFN's one-row down;
             w4a8_ffn_mma_kernel: the W4A8 FFN's gate_up from 2 rows on;
-            quant_wgmma_t_kernel: the transposed matmuls), the first
+            quant_wgmma_t_kernel: the transposed matmuls;
+            mla_decode_split_kernel: bf16 mla_decode_fused, timed at 512,
+            2048 and 4095 cached rows; mla_prefill_mma_kernel: bf16
+            mla_paged_prefill; the MLA caches and pools hold NaN in every
+            row the kernels must not read), the first
             version is held and timed on the same operands too (first_ms)
             and a second call of the wrapper must give the same bits; the
             grouped entries get torch._grouped_mm as their library
@@ -54,7 +58,8 @@ Phases (any failure exits non-zero before the final line):
             step that still launches a first-version instantiation its
             routes replace (8-row tiles on bf16, one-row quant_matmul
             tiles, any W4A8 rows kernel, the FFN's 4-row gate_up, the
-            transposed first version) fails (so does the SFT step's
+            transposed first version, the bf16 MLA fused decode and paged
+            prefill first versions) fails (so does the SFT step's
             profile);
 8. int8:    the int4_g parameters are freed; the full 27-layer config with
             int8 weights (every matmul through the quant_matmul kernels) in
@@ -89,9 +94,11 @@ Phases (any failure exits non-zero before the final line):
             Trainer.train_step, finite losses, a frozen base, adapters that
             moved, launches per step held to the counts the code implies,
             peak memory, and one profiled step.
-Prints a kernels JSON line (the eighteen wrappers, then the six
+Prints a kernels JSON line (the eighteen wrappers, then the eight
 redesigned kernels, whose launches are those of their wrappers' calls
-that took them), the card line, and as the last line
+that took them; the two MLA kernels must have launched on the single-user
+and paged paths of both DeepSeek parameter sets), the card line, and as
+the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Imports nothing of JAX.
 """
@@ -193,13 +200,16 @@ def make_check(rows: list, entries: dict):
         operands: first_ms times it, and it is held to the plain version
         too. A row with main=True is its wrapper's entry of the kernels
         line, one with kernel_main=True its tensor-core kernel's."""
+        def first_out(o):  # a wrapper with side outputs: the main one
+            return o[0] if isinstance(o, tuple) else o
+
         out, ref = wrapper(), (expect or plain)()
         if isinstance(out, tuple):
             for o, rf in zip(out[1:], ref[1:]):
                 if rel_err(o, rf)[1] > (side_tol or tol):
                     raise AssertionError(f"{name} [{label}] side outputs")
             out, ref = out[0], ref[0]
-        if kernel is not None and not torch.equal(wrapper(), out):
+        if kernel is not None and not torch.equal(first_out(wrapper()), out):
             raise AssertionError(f"{name} [{label}] {kernel}: a second call "
                                  "is not bit-identical")
         mae, rel = rel_err(out, ref, per_row)
@@ -209,14 +219,14 @@ def make_check(rows: list, entries: dict):
         wrapper_ms = time_ms(wrapper, iters=iters)
         first_ms = None
         if first is not None:
-            first_launch, first_out = first()
+            first_launch, f_out = first()
             first_launch()
-            first_rel = rel_err(first_out, ref, per_row)[1]
+            first_rel = rel_err(first_out(f_out), ref, per_row)[1]
             if first_rel > tol:
                 raise AssertionError(f"{name} [{label}] first version "
                                      f"disagrees: {first_rel}")
             first_ms = time_ms(first_launch, iters=iters)
-            del first_out
+            del f_out
         plain_ms = time_ms(plain, iters=plain_iters, warmup=1)
         library_ms = None
         if library is not None:
@@ -265,6 +275,8 @@ QM_ROUTES = {"mma": "quant_mma_kernel", "gemv": "quant_gemv_kernel"}
 W4A8_ROUTES = {"mma": "w4a8_mma_kernel", "gemv": "w4a8_gemv_kernel"}
 FFN_ROUTES = {"mma": "w4a8_ffn_mma_kernel", "gemv": "w4a8_gemv_kernel"}
 QT_ROUTES = {"wgmma": "quant_wgmma_t_kernel"}
+MLA_DECODE_ROUTES = {"split": "mla_decode_split_kernel"}
+MLA_PREFILL_ROUTES = {"mma": "mla_prefill_mma_kernel"}
 
 
 def grouped_mm(x, wdq, sizes):
@@ -438,31 +450,47 @@ def kernel_checks(rows: list, entries: dict) -> None:
                   lambda: F.dense_launcher(x, sgu, sdn, "silu", "rows")))
         del sgu, sdn
 
-    # row 5: mla_decode_fused (16 heads, R 512, dr 64, 512 cached tokens)
-    b, h, r, dr, smax, length = 1, 16, 512, 64, 1024, 512
-    cos, sin = precompute_rope_tables(RopeConfig(dim=dr, max_position=2048,
+    # row 5: mla_decode_fused (16 heads, R 512, dr 64) at 512 cached rows
+    # of the Generator's 1024 (the main path), and at 2048 and 4095 (the
+    # current token fills the cache) of 4096; every cache row at or past
+    # the length is NaN. bf16 takes mla_decode_split_kernel, the first
+    # version is timed beside it.
+    b, h, r, dr = 1, 16, 512, 64
+    cos, sin = precompute_rope_tables(RopeConfig(dim=dr, max_position=4096,
                                                  interleaved=True), dev)
-    rot = rope_rotation_matrix(cos[length][None], sin[length][None], True)
-    qn, qp, kv = rn(b, h, r), rn(b, h, dr), rn(b, 1, r + dr)
-    gamma = torch.ones(r, device=dev)
-    ckv, kpe = rn(b, smax, r), rn(b, smax, dr)
-    lengths = torch.full((b,), length, dtype=torch.int32, device=dev)
-    args = (qn, qp, kv, gamma, rot, ckv, kpe, lengths, (128 + 64) ** -0.5,
-            1e-6)
-    # library yardstick: one SDPA over q = [qn | qp], k = [ckv | kpe],
-    # v = ckv on the length + 1 rows (norm and rope of the new row left out)
-    lib_q = torch.cat([qn, qp], dim=-1)[:, :, None]
-    lib_k = torch.cat([ckv[:, : length + 1], kpe[:, : length + 1]],
-                      dim=-1)[:, None].expand(-1, h, -1, -1)
-    lib_v = ckv[:, None, : length + 1].expand(-1, h, -1, -1)
-    check("mla_decode_fused", f"decode H=16 cached={length}", 1e-2,
-          lambda: MD.mla_decode_fused(*args),
-          lambda: MD.mla_decode_fused_ref(*args),
-          lambda: MD.mla_launcher(*args),
-          length * (r + dr) * 2 + nbytes(qn, qp, kv) + b * h * r * 2,
-          2 * h * (length + 1) * (2 * r + dr), BF16_FLOPS_PER_S, main=True,
-          library=lambda: tF.scaled_dot_product_attention(
-              lib_q, lib_k, lib_v, scale=(128 + 64) ** -0.5))
+    for smax, length in ((1024, 512), (4096, 2048), (4096, 4095)):
+        rot = rope_rotation_matrix(cos[length][None], sin[length][None],
+                                   True)
+        qn, qp, kv = rn(b, h, r), rn(b, h, dr), rn(b, 1, r + dr)
+        gamma = torch.ones(r, device=dev)
+        ckv, kpe = rn(b, smax, r), rn(b, smax, dr)
+        ckv[:, length:] = float("nan")
+        kpe[:, length:] = float("nan")
+        lengths = torch.full((b,), length, dtype=torch.int32, device=dev)
+        args = (qn, qp, kv, gamma, rot, ckv, kpe, lengths,
+                (128 + 64) ** -0.5, 1e-6)
+        # library yardstick: one SDPA over q = [qn | qp], k = [ckv | kpe],
+        # v = ckv on the length + 1 rows (norm and rope of the new row left
+        # out; its row taken from the cache, NaN-free)
+        lib_c = torch.nan_to_num(ckv[:, : length + 1])
+        lib_q = torch.cat([qn, qp], dim=-1)[:, :, None]
+        lib_k = torch.cat([lib_c, torch.nan_to_num(kpe[:, : length + 1])],
+                          dim=-1)[:, None].expand(-1, h, -1, -1)
+        lib_v = lib_c[:, None].expand(-1, h, -1, -1)
+        main = length == 512
+        check("mla_decode_fused", f"decode H=16 cached={length} S={smax}",
+              1e-2, lambda args=args: MD.mla_decode_fused(*args),
+              lambda args=args: MD.mla_decode_fused_ref(*args),
+              lambda args=args: MD.mla_launcher(*args),
+              length * (r + dr) * 2 + nbytes(qn, qp, kv) + b * h * r * 2,
+              2 * h * (length + 1) * (2 * r + dr), BF16_FLOPS_PER_S,
+              main=main, kernel_main=main,
+              library=lambda q=lib_q, k=lib_k, v=lib_v:
+              tF.scaled_dot_product_attention(q, k, v,
+                                              scale=(128 + 64) ** -0.5),
+              **routed(MLA_DECODE_ROUTES, MD.route(torch.bfloat16),
+                       lambda args=args: MD.mla_launcher(*args, "fused")))
+        del ckv, kpe, lib_c, lib_k, lib_v
 
     # ---- the serving path's row counts through the W4A8 kernels (a decode
     # batch of 8 and mixed steps of 8 + 2*256 rows at qkv_a above): 48
@@ -687,7 +715,8 @@ def paged_kernel_checks(check, rn, dev) -> None:
     """Rows 12 and 14: mla_paged_decode and mla_paged_prefill at the
     serving shapes (16 heads, R 512, dr 64, page 64, 32 pages a query,
     bf16), shuffled page tables, every pool row the kernels must not read
-    NaN. Bound: the bytes of the live rows + queries + output over the
+    NaN; bf16 prefill takes mla_prefill_mma_kernel, its first version is
+    timed beside it. Bound: the bytes of the live rows + queries + output over the
     memory rate, against the flops of the live (query, key) pairs over
     the bf16 peak. Library yardstick: gather the pages, then
     F.scaled_dot_product_attention on K = [ckv | kpe], V = ckv (gather
@@ -768,23 +797,21 @@ def paged_kernel_checks(check, rn, dev) -> None:
         mask = ((kpos <= qpos[:, :, None])
                 & (kpos < (lengths + valid)[:, None, None]))[:, None]
         q = torch.cat([qn, qp], dim=-1)
-        rows = torch.arange(s, device=dev)[None] < valid[:, None]
         pairs = sum(v * o + v * (v + 1) // 2 for o, v in zip(olds, valids))
-
-        def cut(t):  # rows >= valid are padding: finite, not compared
-            return torch.where(rows[:, None, :, None], t.float(),
-                               torch.zeros((), device=dev))
-
+        # rows >= valid are padding: they see every live key, in the plain
+        # version as in both kernels, and are compared too
         check("mla_paged_prefill",
               f"serve prefill C={c} S={s} old={olds} valid={valids}", 1e-2,
-              lambda: cut(PA.mla_paged_prefill(*args)),
-              lambda: cut(PA.mla_paged_prefill_ref(*args)),
+              lambda: PA.mla_paged_prefill(*args),
+              lambda: PA.mla_paged_prefill_ref(*args),
               lambda: PA.prefill_launcher(*args),
               sum(o + v for o, v in zip(olds, valids)) * (r + dr) * 2
               + nbytes(qn, qp) + c * h * s * r * 2,
               2 * h * pairs * (2 * r + dr), BF16_FLOPS_PER_S,
               library=lambda: sdpa(q, ckv0, kpe0, tables, mask), main=main,
-              plain_iters=3)
+              kernel_main=main, plain_iters=3,
+              **routed(MLA_PREFILL_ROUTES, PA.prefill_route(torch.bfloat16),
+                       lambda: PA.prefill_launcher(*args, kernel="first")))
         out = PA.mla_paged_prefill(*args)
         if not bool(torch.isfinite(out.float()).all()):
             raise AssertionError("mla_paged_prefill: padding rows not finite")
@@ -1681,7 +1708,9 @@ def _is_port_kernel(name: str) -> bool:
                                    "gqa_paged_prefill_kernel",
                                    "quant_rows_t_kernel",
                                    "quant_gemv_kernel",
-                                   "quant_wgmma_t_kernel"))
+                                   "quant_wgmma_t_kernel",
+                                   "mla_decode_split_kernel",
+                                   "mla_prefill_mma_kernel"))
 
 
 # first-version instantiations no call of the main paths should take: the
@@ -1690,14 +1719,18 @@ def _is_port_kernel(name: str) -> bool:
 # quant_matmul family (the GEMV takes one-row dense and every gathered
 # call), the transposed first version (the wgmma kernel takes every SFT
 # shape), every W4A8 rows kernel (the W4A8 GEMV takes one-row dense calls,
-# gathered calls and the FFN's one-row downs; w4a8_mma_kernel the rest)
-# and the FFN's 4-row gate_up (w4a8_ffn_mma_kernel takes tiles of more than
-# one row); a step that launches one of these has a wrapper off its route
+# gathered calls and the FFN's one-row downs; w4a8_mma_kernel the rest),
+# the FFN's 4-row gate_up (w4a8_ffn_mma_kernel takes tiles of more than
+# one row) and the bf16 MLA fused decode and paged prefill first versions
+# (mla_decode_split_kernel and mla_prefill_mma_kernel take every bf16
+# call); a step that launches one of these has a wrapper off its route
 _OFF_ROUTE = re.compile(r"quant_rows_kernel<\d+, 8, __nv_bfloat16>"
                         r"|w4a8_rows_kernel<"
                         r"|quant_rows_kernel<\d+, 1, "
                         r"|quant_rows_t_kernel<"
-                        r"|ffn_up_kernel<4>")
+                        r"|ffn_up_kernel<4>"
+                        r"|mla_decode_fused_kernel<__nv_bfloat16>"
+                        r"|mla_paged_prefill_kernel<__nv_bfloat16>")
 
 
 def off_route(rows) -> list:
@@ -2472,6 +2505,20 @@ def main() -> int:
     sources["w4a8_ffn_mma_kernel"] = (
         "ktransformers_tpu_torch/csrc/w4a8_ffn.cu",
         "ktransformers_tpu/ops/pallas/w4a8_matmul.py:818")
+    sources["mla_decode_split_kernel"] = (
+        "ktransformers_tpu_torch/csrc/mla_decode.cu",
+        "ktransformers_tpu/ops/pallas/mla_decode.py:199")
+    sources["mla_prefill_mma_kernel"] = (
+        "ktransformers_tpu_torch/csrc/paged_attention.cu",
+        "ktransformers_tpu/ops/pallas/paged_attention.py:455")
+    # the two MLA kernels carry the DeepSeek paths' attention on both
+    # parameter sets: decode single-user, prefill in the served mixed steps
+    for kernel, keys in (
+            ("mla_decode_split_kernel", ("single_user", "single_user_int8")),
+            ("mla_prefill_mma_kernel", ("paged_serve", "paged_serve_int8"))):
+        idle = [k for k in keys if paths[k].get(kernel, 0) <= 0]
+        if idle:
+            raise AssertionError(f"{kernel} launched on no call of {idle}")
     kernels = []
     for name in KERNELS + tuple(ROUTED_KERNELS):
         row = entries[name]

@@ -27,8 +27,10 @@
 //   A: scores = Q K^T   (2x2 outputs a thread, float4 over the depth),
 //   B: online softmax   (warp w owns rows 4w..4w+3, one key per lane),
 //   C: acc += P V       (4 rows x 16 columns a thread, in registers).
-// Tensor cores (wgmma on bf16 pages) are later work.
+// That kernel keeps float32 calls; bf16 calls take mla_prefill_mma_kernel
+// (the end of this file) on the tensor cores.
 // Shapes: R = 512, DR = 64, H a multiple of HG for decode.
+#include "mla_mma.cuh"
 #include "online_softmax.cuh"
 
 namespace {
@@ -365,4 +367,159 @@ extern "C" int kt_mla_paged_prefill(const void* qn, const void* qp,
                                          st);
   return launch_prefill<float>(qn, qp, ckv_pages, kpe_pages, tb, ln, vl, C, H,
                                S, page, pmax, scale, out, st);
+}
+
+// ---- mla_prefill_mma_kernel: the bf16 mla_paged_prefill on tensor cores ----
+//
+// Replaces ktransformers_tpu/ops/pallas/paged_attention.py:mla_paged_prefill
+// (body _mla_prefill_kernel) for bf16 operands; computes what
+// mla_paged_prefill_kernel computes. Bound at the serving shapes: the bf16
+// operations of the two products (2 * H * live pairs * (2 R + DR)) against
+// the bytes of the live rows. The first version ran one block per (chunk,
+// head, 32 queries) on float32 FMAs, so every key tile was staged and
+// converted once per head. Here, as in the Pallas kernel, a block's query
+// rows are flattened (head, position) rows: RG heads x 16 positions (RG = 4:
+// 64 rows, or 2: 32 rows, by ops/cuda/paged_attention.py:prefill_plan), one
+// mma row group a head, so each staged key tile serves every head of the
+// block (mla_mma.cuh: bf16 mma.sync for Q K^T over depth 576 and for P V,
+// softmax in float32). A block walks the keys in tiles of TK positions (32
+// at 4 heads, 64 at 2: the largest ring that fits beside the query rows)
+// up to its causal limit min(live, old + last position + 1), each tile copied
+// through the page table with 16-byte cp.async (rows past the limit
+// zero-filled, never read) into a two-stage ring; query row qs sees kpos <=
+// old + qs and kpos < old + valid. Position groups are numbered from the
+// end of the chunk, so the blocks with the longest walks start first. Heads
+// past H and positions past S are zero rows, never stored.
+// Shared memory: RG = 4: queries 64 x 1168 B, ring 2 x 32 x 1168 B, scores
+// 64 x 40 x 4 B: 156 KB; RG = 2: queries 32 rows, ring 2 x 64 rows, scores
+// 32 x 72 x 4 B: 192 KB. One block an SM (RG = 4 holds 128 accumulators a
+// thread). At RG = 2 the 64-key ring beat a 32-key one on the H100 at the
+// mixed step's chunk (C = 1, S = 256 after 256).
+namespace kt_mla_mma {
+namespace prefill {
+
+constexpr int PB = 16;  // query positions a block: one row group's rows
+
+template <int RG, int TK>
+__global__ void __launch_bounds__(THREADS, 1)
+    mla_prefill_mma_kernel(const bf16* __restrict__ qn,
+                           const bf16* __restrict__ qp,
+                           const bf16* __restrict__ ckv_pages,
+                           const bf16* __restrict__ kpe_pages,
+                           const int* __restrict__ tables,
+                           const int* __restrict__ lengths,
+                           const int* __restrict__ valid, int H, int S,
+                           int page, int pmax, float scale,
+                           bf16* __restrict__ out) {
+  using Tl = Tile<RG, TK>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* k_s = q_s + Tl::ROWS * LDS;
+  float* s_s = reinterpret_cast<float*>(smem + Tl::Q_BYTES + 2 * Tl::K_BYTES);
+
+  const int p0 = (gridDim.x - 1 - blockIdx.x) * PB;
+  const int h0 = blockIdx.y * RG;
+  const int c = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int rg = warp / Tl::CW, cw = warp % Tl::CW;
+  const int old = max(lengths[c], 0);
+  const int total = min(old + max(valid[c], 0), page * pmax);
+  const int q_last = min(p0 + PB, S) - 1;
+  const int limit = min(total, old + q_last + 1);
+  const int nt = limit > 0 ? (limit + TK - 1) / TK : 0;
+  const int* tb = tables + (size_t)c * pmax;
+
+  State<RG, TK> st;
+  st.clear();
+  if (nt > 0) {
+    // query row i: head h0 + i / PB, position p0 + i % PB
+    stage_rows<Tl::ROWS>(q_s, [&](int i, const bf16*& cr, const bf16*& pr) {
+      const int h = h0 + i / PB, qs = p0 + i % PB;
+      const bool ok = h < H && qs < S;
+      const size_t row = ok ? ((size_t)c * H + h) * S + qs : 0;
+      cr = qn + row * R;
+      pr = qp + row * DR;
+      return ok;
+    });
+  }
+  auto keys = [&](bf16* dst, int k0) {
+    stage_rows<TK>(dst, [&](int r, const bf16*& cr, const bf16*& pr) {
+      const int pos = k0 + r;
+      const bool ok = pos < limit;
+      const size_t row =
+          ok ? (size_t)__ldg(tb + pos / page) * page + pos % page : 0;
+      cr = ckv_pages + row * R;
+      pr = kpe_pages + row * DR;
+      return ok;
+    });
+  };
+  if (nt > 0) keys(k_s, 0);
+  kt_mma::cp_async_commit();
+  int lim[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) lim[e] = min(total, old + p0 + g + 8 * e + 1);
+  walk<RG, TK>(q_s, k_s, s_s, 0, nt, scale * LOG2E, lim, keys, st);
+
+  const int h = h0 + rg;
+  if (h >= H) return;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int qs = p0 + g + 8 * e;
+    if (qs >= S) continue;
+    const float inv = 1.f / fmaxf(st.l[e], 1e-30f);
+    bf16* o = out + (((size_t)c * H + h) * S + qs) * R + cw * Tl::COLS + 2 * q;
+#pragma unroll
+    for (int t = 0; t < Tl::NTO; ++t)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * t) = __floats2bfloat162_rn(
+          st.acc[t][2 * e] * inv, st.acc[t][2 * e + 1] * inv);
+  }
+}
+
+template <int RG, int TK>
+int launch(const void* qn, const void* qp, const void* ckv, const void* kpe,
+           const int* tables, const int* lengths, const int* valid, int C,
+           int H, int S, int page, int pmax, float scale, void* out,
+           cudaStream_t st) {
+  auto kernel = mla_prefill_mma_kernel<RG, TK>;
+  constexpr int smem = Tile<RG, TK>::SMEM;
+  static int ready_dev = -1;
+  cudaError_t err = kt_mma::allow_smem(kernel, smem, &ready_dev);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + PB - 1) / PB, (H + RG - 1) / RG, C);
+  kernel<<<grid, THREADS, smem, st>>>(
+      static_cast<const bf16*>(qn), static_cast<const bf16*>(qp),
+      static_cast<const bf16*>(ckv), static_cast<const bf16*>(kpe), tables,
+      lengths, valid, H, S, page, pmax, scale, static_cast<bf16*>(out));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace prefill
+}  // namespace kt_mla_mma
+
+// The bf16 mla_paged_prefill on mla_prefill_mma_kernel: operands as
+// kt_mla_paged_prefill (bf16 only); rg = 4 heads a block (32-key tiles) or
+// 2 (64-key tiles).
+extern "C" int kt_mla_prefill_mma(const void* qn, const void* qp,
+                                  const void* ckv_pages,
+                                  const void* kpe_pages, const void* tables,
+                                  const void* lengths, const void* valid,
+                                  int C, int H, int S, int page, int pmax,
+                                  float scale, int rg, void* out,
+                                  void* stream) {
+  if (page <= 0 || pmax <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  if (C == 0 || H == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* tb = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lengths);
+  const int* vl = static_cast<const int*>(valid);
+  if (rg == 4)
+    return kt_mla_mma::prefill::launch<4, 32>(qn, qp, ckv_pages, kpe_pages,
+                                              tb, ln, vl, C, H, S, page, pmax,
+                                              scale, out, st);
+  if (rg == 2)
+    return kt_mla_mma::prefill::launch<2, 64>(qn, qp, ckv_pages, kpe_pages,
+                                              tb, ln, vl, C, H, S, page, pmax,
+                                              scale, out, st);
+  return (int)cudaErrorInvalidValue;
 }

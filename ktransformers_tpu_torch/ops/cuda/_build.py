@@ -45,10 +45,12 @@ SIGNATURES = {
     "mla_decode": {
         "kt_mla_decode_fused": [P] * 8 + [I, I, I, F, F, I] + [P] * 4,
         "kt_mla_decode_attention": [P] * 5 + [I, I, I, F, I] + [P, P],
+        "kt_mla_decode_split": [P] * 8 + [I] * 5 + [F, F] + [P] * 6,
     },
     "paged_attention": {
         "kt_mla_paged_decode": [P] * 6 + [I, I, I, I, F, I] + [P, P],
         "kt_mla_paged_prefill": [P] * 7 + [I] * 5 + [F, I] + [P, P],
+        "kt_mla_prefill_mma": [P] * 7 + [I] * 5 + [F, I] + [P, P],
     },
     "quant_matmul": {
         "kt_quant_rows": [P] * 7 + [I] * 11 + [P, P],

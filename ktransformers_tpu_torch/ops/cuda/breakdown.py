@@ -1,4 +1,4 @@
-"""Where the time of the redesigned matmul kernels goes, on one GPU.
+"""Where the time of the redesigned kernels goes, on one GPU.
 
     python -m ktransformers_tpu_torch.ops.cuda.breakdown [kernel ...]
 
@@ -22,7 +22,13 @@ shapes (L2 flushed before each launch, median of 20):
 - w4a8_ffn_mma_kernel (the FFN's gate_up at 64-row tiles): without the
   s8 mma, without the group epilogue, without the GLU and requant (the
   staging through shared memory included), without mma and epilogue. The
-  FFN call's down launch (w4a8_mma_kernel, unchanged) is in every time.
+  FFN call's down launch (w4a8_mma_kernel, unchanged) is in every time;
+- mla_decode_split_kernel (bf16 mla_decode_fused, 16 heads): without the
+  two products (mma.sync), without the in-launch merge of the splits,
+  without both and the exponentials;
+- mla_prefill_mma_kernel (bf16 mla_paged_prefill, 16 heads, the plan's
+  block shape): without the products, without the exponentials, without
+  both.
 What is left with the main parts out is the skeleton: copies, barriers,
 loads. The outputs of the cut variants are garbage; only their times are
 read. The copies and libraries go to csrc/build/breakdown/ (git-ignored);
@@ -108,6 +114,15 @@ VARIANTS = {
         "no_requant": ["-DKT_FFNMMA_CUT_REQUANT=1"],
         "skeleton": ["-DKT_FFNMMA_CUT_MMA=1",
                      "-DKT_FFNMMA_CUT_EPILOGUE=1"]}),
+    "mla_decode_split_kernel": ("mla_decode", {
+        "full": [], "no_mma": ["-DKT_MLA_CUT_MMA=1"],
+        "no_merge": ["-DKT_MLA_CUT_MERGE=1"],
+        "skeleton": ["-DKT_MLA_CUT_MMA=1", "-DKT_MLA_CUT_SOFTMAX=1",
+                     "-DKT_MLA_CUT_MERGE=1"]}),
+    "mla_prefill_mma_kernel": ("paged_attention", {
+        "full": [], "no_mma": ["-DKT_MLA_CUT_MMA=1"],
+        "no_softmax": ["-DKT_MLA_CUT_SOFTMAX=1"],
+        "skeleton": ["-DKT_MLA_CUT_MMA=1", "-DKT_MLA_CUT_SOFTMAX=1"]}),
 }
 OUT = os.path.join(_build.BUILD, "breakdown")
 
@@ -141,7 +156,8 @@ def build_variants(src: str, kernels) -> dict:
             out = os.path.join(OUT, f"lib{tag}.so")
             cmd = [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17",
                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", src,
-                   f"-Dkt=kt_{tag}", f"-Dkt_mma=kt_mma_{tag}", *flags,
+                   f"-Dkt=kt_{tag}", f"-Dkt_mma=kt_mma_{tag}",
+                   f"-Dkt_mla_mma=kt_mla_mma_{tag}", *flags,
                    "-o", out, os.path.join(src, f"{lib}.cu")]
             procs[(kernel, v)] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -182,10 +198,13 @@ def time_ms(fn, iters: int = 20) -> float:
 
 def shapes_of(kernel: str, rn, w, rd) -> list:
     """(label, launcher) pairs of a kernel at the main path's shapes."""
+    from ktransformers_tpu_torch.ops.cuda import mla_decode as MD
+    from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
     from ktransformers_tpu_torch.ops.cuda import quant_matmul as QM
     from ktransformers_tpu_torch.ops.cuda import quant_matmul_t as QT
     from ktransformers_tpu_torch.ops.cuda import w4a8_ffn as F
     from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+    from ktransformers_tpu_torch.ops.rope import rope_rotation_matrix
 
     out = []
     if kernel == "quant_mma_kernel":
@@ -263,6 +282,35 @@ def shapes_of(kernel: str, rn, w, rd) -> list:
             x = rn(m, 2048)
             out.append((f"w4a8 shared FFN M={m}", lambda x=x:
                         F.dense_launcher(x, sgu, sdn)))
+    elif kernel == "mla_decode_split_kernel":
+        for b, smax, lens in ((1, 1024, [512]), (1, 4096, [2048]),
+                              (8, 1024, [1, 64, 65, 300, 512, 513, 800,
+                                         1000])):
+            rot = rope_rotation_matrix(rn(b, 32).float(), rn(b, 32).float(),
+                                       True)
+            args = (rn(b, 16, 512), rn(b, 16, 64), rn(b, 1, 576),
+                    torch.ones(512, device="cuda"), rot, rn(b, smax, 512),
+                    rn(b, smax, 64),
+                    torch.tensor(lens, dtype=torch.int32, device="cuda"),
+                    0.07, 1e-6)
+            out.append((f"B={b} S={smax} cached {lens[0]}..{lens[-1]}",
+                        lambda args=args: MD.mla_launcher(*args, "split")))
+    elif kernel == "mla_prefill_mma_kernel":
+        for olds, s, valids in (([256], 256, [256]), ([0, 256], 256,
+                                                      [256, 200]),
+                                ([0], 512, [512]),
+                                ([0, 256], 512, [512, 456])):
+            c = len(olds)
+            tables = (torch.randperm(c * 32, generator=torch.Generator()
+                                     .manual_seed(s + c)) + 1).reshape(
+                c, 32).to(torch.int32).cuda()
+            args = (rn(c, 16, s, 512), rn(c, 16, s, 64),
+                    rn(c * 32 + 1, 64, 512), rn(c * 32 + 1, 64, 64), tables,
+                    torch.tensor(olds, dtype=torch.int32, device="cuda"),
+                    torch.tensor(valids, dtype=torch.int32, device="cuda"),
+                    0.07)
+            out.append((f"C={c} S={s} old={olds} valid={valids}",
+                        lambda args=args: PA.prefill_launcher(*args, "mma")))
     return out
 
 

@@ -8,25 +8,73 @@ returned ckv_new / kpe_new into the cache. mla_decode_attention replaces
 :mla_decode_attention: the cache already holds the current token and
 ``lengths`` INCLUDES it. Bound on the card, both: the valid cache bytes,
 lengths[b] * (R + dr) elements per sequence.
+
+mla_decode_fused routes a CUDA call by ``route``: bf16 operands take
+mla_decode_split_kernel (the cached rows split over blocks by
+``decode_split_plan``, the current token in a block of its own, all merged
+in the same launch), float32 keeps the first version,
+mla_decode_fused_kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ktransformers_tpu_torch.ops.cuda import LAUNCHES
+from ktransformers_tpu_torch.ops.cuda import LAUNCHES, ROUTED_LAUNCHES
 from ktransformers_tpu_torch.ops.cuda import _build
-from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import check_cuda_operands
+from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
+    check_cuda_operands,
+    scratch,
+    sm_count,
+)
 
 NEG_INF = -1e30
 KERNEL_R, KERNEL_DR, KERNEL_HG = 512, 64, 4
+# mla_decode_split_kernel (csrc/mla_decode.cu): 16 heads a block (one mma
+# row group), splits of whole 16-row units, at most DECODE_MAX_SPLITS
+# splits (the merge's weights live in shared memory), and a state record
+# of m [16], l [16] and acc [16, R] floats for each split and for the
+# current token
+DECODE_HEADS = 16
+DECODE_UNIT = 16
+DECODE_MIN_SPAN = 64
+DECODE_MAX_SPLITS = 32
+DECODE_REC = 2 * DECODE_HEADS + DECODE_HEADS * KERNEL_R
+KERNEL_NAMES = {"split": "mla_decode_split_kernel"}
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernel of a CUDA mla_decode_fused call: "split"
+    (mla_decode_split_kernel) for bf16 operands, "fused"
+    (mla_decode_fused_kernel, the first version) for float32, whose card
+    tests hold 1e-5 and which bf16 products could not."""
+    return "split" if dtype == torch.bfloat16 else "fused"
+
+
+def decode_split_plan(b: int, s: int, h: int, sms: int) -> tuple[int, int]:
+    """(splits, span) of a mla_decode_split_kernel launch over a cache of
+    capacity ``s`` rows: split j takes rows [j * span, (j + 1) * span), so
+    every row lies in exactly one split (the current token has a block of
+    its own). The plan reads no length (they live on the card): (B x head
+    tiles x splits) aims at one block an SM, with at least DECODE_MIN_SPAN
+    rows a split (a multiple of DECODE_UNIT) and at most DECODE_MAX_SPLITS
+    splits."""
+    tiles = b * -(-h // DECODE_HEADS)
+    want = max(1, -(-sms // tiles))
+    span = max(DECODE_MIN_SPAN, -(-s // want), -(-s // DECODE_MAX_SPLITS))
+    span = -(-span // DECODE_UNIT) * DECODE_UNIT
+    return -(-s // span), span
 
 
 def mla_decode_fused_ref(qn_eff, qp_raw, ckv_kpe, gamma, rot, ckv, kpe,
                          lengths, scale: float, eps: float):
-    """Plain version: (ctx [B, H, R], ckv_new [B, 1, R], kpe_new [B, 1, dr])."""
+    """Plain version: (ctx [B, H, R], ckv_new [B, 1, R], kpe_new [B, 1, dr]).
+    Cache rows at or past lengths[b] are cut away before any arithmetic
+    (they may hold anything)."""
     b, h, r = qn_eff.shape
     smax = ckv.shape[1]
+    kpos = torch.arange(smax, device=ckv.device)[None, None, :]
+    live = kpos < lengths.to(torch.int64)[:, None, None]  # [B, 1, S]
     rotf = rot.to(torch.float32)
     qp = torch.matmul(qp_raw.to(torch.float32), rotf)  # [B, H, dr]
     kv = ckv_kpe.to(torch.float32)[:, 0]  # [B, R + dr]
@@ -35,13 +83,12 @@ def mla_decode_fused_ref(qn_eff, qp_raw, ckv_kpe, gamma, rot, ckv, kpe,
     ckvn = ckv_raw * torch.rsqrt(ms + eps) * gamma.to(torch.float32)
     kpen = torch.matmul(kv[:, None, r:], rotf)[:, 0]  # [B, dr]
     qn = qn_eff.to(torch.float32)
-    cf = ckv.to(torch.float32)
-    kf = kpe.to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=ckv.device)
+    cf = torch.where(live[:, 0, :, None], ckv.to(torch.float32), zero)
+    kf = torch.where(live[:, 0, :, None], kpe.to(torch.float32), zero)
     s_cache = (torch.einsum("bhr,bsr->bhs", qn, cf)
                + torch.einsum("bhd,bsd->bhs", qp, kf)) * scale
-    kpos = torch.arange(smax, device=ckv.device)[None, None, :]
-    s_cache = torch.where(kpos < lengths.to(torch.int64)[:, None, None],
-                          s_cache, torch.full_like(s_cache, NEG_INF))
+    s_cache = torch.where(live, s_cache, torch.full_like(s_cache, NEG_INF))
     s_cur = ((qn * ckvn[:, None, :]).sum(-1)
              + (qp * kpen[:, None, :]).sum(-1)) * scale  # [B, H]
     p = torch.softmax(torch.cat([s_cache, s_cur[..., None]], dim=-1), dim=-1)
@@ -78,9 +125,6 @@ def mla_decode_fused(qn_eff, qp_raw, ckv_kpe, gamma, rot, ckv, kpe, lengths,
                                     kpe, lengths, scale, eps)
     if qn_eff.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {qn_eff.device}")
-    if (r, dr) != (KERNEL_R, KERNEL_DR) or h % KERNEL_HG:
-        raise ValueError(f"{what}: kernel takes R={KERNEL_R}, dr={KERNEL_DR}, "
-                         f"H % {KERNEL_HG} == 0; got R={r} dr={dr} H={h}")
     dt = qn_eff.dtype
     if dt not in (torch.float32, torch.bfloat16) or any(
         t.dtype != dt for t in (qp_raw, ckv_kpe, ckv, kpe)
@@ -91,25 +135,59 @@ def mla_decode_fused(qn_eff, qp_raw, ckv_kpe, gamma, rot, ckv, kpe, lengths,
         raise ValueError(f"{what}: gamma and rot must be float32")
     if lengths.dtype != torch.int32:
         raise ValueError(f"{what}: lengths must be int32")
+    kernel = route(dt)
     launch, outs = mla_launcher(qn_eff, qp_raw, ckv_kpe, gamma, rot, ckv,
-                                kpe, lengths, scale, eps)
+                                kpe, lengths, scale, eps, kernel)
     launch()
     LAUNCHES[what] += 1
+    if kernel in KERNEL_NAMES:
+        ROUTED_LAUNCHES[KERNEL_NAMES[kernel]] += 1
     return outs
 
 
 def mla_launcher(qn_eff, qp_raw, ckv_kpe, gamma, rot, ckv, kpe, lengths,
-                 scale: float, eps: float):
+                 scale: float, eps: float, kernel: str | None = None):
     """Allocates the outputs of a CUDA call; returns (launch, outputs),
-    where launch() runs only the kernel."""
+    where launch() runs only the kernel. ``kernel`` ("split" or "fused")
+    overrides ``route``, for a measurement."""
     what = "mla_decode_fused"
     check_cuda_operands(what, qn_eff.device, qn_eff, qp_raw, ckv_kpe, gamma,
                         rot, ckv, kpe, lengths)
     b, h, r = qn_eff.shape
     dr, dt = qp_raw.shape[-1], qn_eff.dtype
+    kernel = kernel or route(dt)
+    if (r, dr) != (KERNEL_R, KERNEL_DR) or (kernel == "fused"
+                                             and h % KERNEL_HG):
+        raise ValueError(f"{what}: kernel takes R={KERNEL_R}, dr={KERNEL_DR}"
+                         + (f", H % {KERNEL_HG} == 0" if kernel == "fused"
+                            else "") + f"; got R={r} dr={dr} H={h}")
+    if kernel == "split" and dt != torch.bfloat16:
+        raise ValueError(f"{what}: mla_decode_split_kernel takes bfloat16")
+    dev = qn_eff.device
     ctx = torch.empty_like(qn_eff)
-    ckv_new = torch.empty(b, 1, r, dtype=dt, device=qn_eff.device)
-    kpe_new = torch.empty(b, 1, dr, dtype=dt, device=qn_eff.device)
+    ckv_new = torch.empty(b, 1, r, dtype=dt, device=dev)
+    kpe_new = torch.empty(b, 1, dr, dtype=dt, device=dev)
+    if kernel == "split":
+        smax = ckv.shape[1]
+        splits, span = decode_split_plan(b, smax, h, sm_count(dev))
+        pairs = b * -(-h // DECODE_HEADS)
+        part, cnt = scratch(dev, pairs * (splits + 1) * DECODE_REC, pairs,
+                            "mla_decode_split")
+        split_fn = _build.lib("mla_decode").kt_mla_decode_split
+
+        def launch_split():
+            err = split_fn(
+                qn_eff.data_ptr(), qp_raw.data_ptr(), ckv_kpe.data_ptr(),
+                gamma.data_ptr(), rot.data_ptr(), ckv.data_ptr(),
+                kpe.data_ptr(), lengths.data_ptr(), b, h, smax, splits, span,
+                float(scale), float(eps), part.data_ptr(), cnt.data_ptr(),
+                ctx.data_ptr(),
+                ckv_new.data_ptr(), kpe_new.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+            _build.check(err, what)
+
+        return launch_split, (ctx, ckv_new, kpe_new)
     fn = _build.lib("mla_decode").kt_mla_decode_fused
 
     def launch():
@@ -118,8 +196,7 @@ def mla_launcher(qn_eff, qp_raw, ckv_kpe, gamma, rot, ckv, kpe, lengths,
             gamma.data_ptr(), rot.data_ptr(), ckv.data_ptr(), kpe.data_ptr(),
             lengths.data_ptr(), b, h, ckv.shape[1], float(scale), float(eps),
             int(dt == torch.bfloat16), ctx.data_ptr(), ckv_new.data_ptr(),
-            kpe_new.data_ptr(),
-            torch.cuda.current_stream(qn_eff.device).cuda_stream,
+            kpe_new.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(err, what)
 

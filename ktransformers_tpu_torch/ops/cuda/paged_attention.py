@@ -22,14 +22,19 @@ Three meanings of ``lengths`` meet here:
   EXCLUDED (it reads the current token from its own operands).
 
 Bound on the card: decode by the bytes of the live rows; prefill at the
-serving shapes by the float32 operations of its two products.
+serving shapes by the operations of its two products.
+
+mla_paged_prefill routes a CUDA call by ``prefill_route``: bf16 operands
+take mla_prefill_mma_kernel (tensor cores, RG heads x 16 positions a block
+by ``prefill_plan``), float32 keeps the first version,
+mla_paged_prefill_kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ktransformers_tpu_torch.ops.cuda import LAUNCHES
+from ktransformers_tpu_torch.ops.cuda import LAUNCHES, ROUTED_LAUNCHES
 from ktransformers_tpu_torch.ops.cuda import _build
 from ktransformers_tpu_torch.ops.cuda.mla_decode import (
     KERNEL_DR,
@@ -40,7 +45,31 @@ from ktransformers_tpu_torch.ops.cuda.mla_decode import (
 from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
     check_cuda_operands,
     device_kind,
+    sm_count,
 )
+
+# mla_prefill_mma_kernel (csrc/paged_attention.cu): a block holds RG heads
+# x PREFILL_POSITIONS positions, RG one of PREFILL_HEADS
+PREFILL_POSITIONS = 16
+PREFILL_HEADS = (4, 2)
+PREFILL_KERNEL_NAMES = {"mma": "mla_prefill_mma_kernel"}
+
+
+def prefill_route(dtype: torch.dtype) -> str:
+    """The kernel of a CUDA mla_paged_prefill call: "mma"
+    (mla_prefill_mma_kernel) for bf16 operands, "first"
+    (mla_paged_prefill_kernel) for float32, whose card tests hold 1e-5 and
+    which bf16 products could not."""
+    return "mma" if dtype == torch.bfloat16 else "first"
+
+
+def prefill_plan(c: int, h: int, s: int, sms: int) -> int:
+    """Heads a block of mla_prefill_mma_kernel: 4 (64 query rows, each
+    staged key tile serving 4 heads) where that gives more than one block
+    for every two SMs, else 2 (32 rows, twice the blocks). On the H100 4
+    wins from 128 blocks on and 2 at 64 (ops/cuda/split_sweep.py)."""
+    blocks = c * -(-h // 4) * -(-s // PREFILL_POSITIONS)
+    return 4 if 2 * blocks > sms else 2
 
 
 def gather_pages(buf: torch.Tensor, page_tables: torch.Tensor) -> torch.Tensor:
@@ -177,22 +206,31 @@ def decode_launcher(q_nope_eff, q_pe, ckv_pages, kpe_pages, page_tables,
 
 
 def prefill_launcher(q_nope_eff, q_pe, ckv_pages, kpe_pages, page_tables,
-                     lengths, valid, scale: float):
-    """As decode_launcher, for mla_paged_prefill."""
+                     lengths, valid, scale: float, kernel: str | None = None):
+    """As decode_launcher, for mla_paged_prefill. ``kernel`` ("mma" or
+    "first") overrides ``prefill_route``, for a measurement."""
     what = "mla_paged_prefill"
     _check_cuda(what, q_nope_eff, q_pe, ckv_pages, kpe_pages, page_tables,
                 lengths, valid)
     c, h, s, _ = q_nope_eff.shape
+    dt = q_nope_eff.dtype
+    kernel = kernel or prefill_route(dt)
+    if kernel == "mma" and dt != torch.bfloat16:
+        raise ValueError(f"{what}: mla_prefill_mma_kernel takes bfloat16")
     out = torch.empty_like(q_nope_eff)
-    fn = _build.lib("paged_attention").kt_mla_paged_prefill
+    lib = _build.lib("paged_attention")
     page, pmax = ckv_pages.shape[1], page_tables.shape[1]
-    is_bf16 = int(q_nope_eff.dtype == torch.bfloat16)
+    if kernel == "mma":
+        fn = lib.kt_mla_prefill_mma
+        mode = prefill_plan(c, h, s, sm_count(out.device))
+    else:  # the first version's last int is the dtype flag
+        fn, mode = lib.kt_mla_paged_prefill, int(dt == torch.bfloat16)
 
     def launch():
         err = fn(
             q_nope_eff.data_ptr(), q_pe.data_ptr(), ckv_pages.data_ptr(),
             kpe_pages.data_ptr(), page_tables.data_ptr(), lengths.data_ptr(),
-            valid.data_ptr(), c, h, s, page, pmax, float(scale), is_bf16,
+            valid.data_ptr(), c, h, s, page, pmax, float(scale), mode,
             out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream,
         )
         _build.check(err, what)
@@ -243,10 +281,13 @@ def mla_paged_prefill(q_nope_eff, q_pe, ckv_pages, kpe_pages, page_tables,
     if device_kind(q_nope_eff, what) == "cpu":
         return mla_paged_prefill_ref(q_nope_eff, q_pe, ckv_pages, kpe_pages,
                                      page_tables, lengths, valid, scale)
+    kernel = prefill_route(q_nope_eff.dtype)
     launch, out = prefill_launcher(q_nope_eff, q_pe, ckv_pages, kpe_pages,
-                                   page_tables, lengths, valid, scale)
+                                   page_tables, lengths, valid, scale, kernel)
     launch()
     LAUNCHES[what] += 1
+    if kernel in PREFILL_KERNEL_NAMES:
+        ROUTED_LAUNCHES[PREFILL_KERNEL_NAMES[kernel]] += 1
     return out
 
 

@@ -1,17 +1,22 @@
-"""Time the split-K GEMVs and the split-N wgmma kernel at the main path's
-shapes under several split counts, on one GPU.
+"""Time the split-K GEMVs, the split-N wgmma kernel and the two bf16 MLA
+attention kernels at the main path's shapes under several split counts
+or block shapes, on one GPU.
 
-    python -m ktransformers_tpu_torch.ops.cuda.split_sweep
+    python -m ktransformers_tpu_torch.ops.cuda.split_sweep [section ...]
 
-quant_gemv_kernel (int8 weights, bf16 x, M = 1 and the gathered entry),
-w4a8_gemv_kernel (W4A8 weights, bf16 x, M = 1: splits of whole scale
-groups) and quant_wgmma_t_kernel (W4A8 weights, bf16 dy, the SFT step's
-512 rows) are launched through their wrappers' launchers with the planner
-replaced by a fixed count; the planner's own choice is marked. Each time is the median of
-20 launches with the L2 cache flushed before each (as chip_smoke.py times
-its kernels), beside the one-call library yardstick (torch.matmul on the
-bf16-dequantized weight) where there is one. Prints one line per shape,
-then all of them as one JSON line.
+Sections (default: all): gemv, w4a8_gemv, wgmma_t, mla_decode,
+mla_prefill. quant_gemv_kernel (int8 weights, bf16 x, M = 1 and the
+gathered entry), w4a8_gemv_kernel (W4A8 weights, bf16 x, M = 1: splits of
+whole scale groups), quant_wgmma_t_kernel (W4A8 weights, bf16 dy, the SFT
+step's 512 rows), mla_decode_split_kernel (16 heads, rows a split) and
+mla_prefill_mma_kernel (16 heads, heads a block) are launched through
+their wrappers' launchers with the planner replaced by a fixed count; the
+planner's own choice is marked, and the MLA rows also time the first
+version ("first"). Each time is the median of 20 launches with the L2
+cache flushed before each (as chip_smoke.py times its kernels), beside the
+one-call library yardstick (torch.matmul on the bf16-dequantized weight)
+where there is one; the attention kernels' yardstick is chip_smoke.py's.
+Prints one line per shape, then all of them as one JSON line.
 """
 
 from __future__ import annotations
@@ -50,11 +55,6 @@ def main() -> int:
         print("split_sweep: no CUDA device", file=sys.stderr)
         return 1
     from ktransformers_tpu_torch.models.init import _Draw
-    from ktransformers_tpu_torch.ops.cuda import quant_matmul as QM
-    from ktransformers_tpu_torch.ops.cuda import quant_matmul_t as QT
-    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
-    from ktransformers_tpu_torch.quant.formats import dequantize
-    from ktransformers_tpu_torch.quant.w4a8 import repack_offset_lo
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -62,12 +62,26 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
     rd = _Draw(2, torch.device("cuda"), torch.bfloat16)
-    bf = torch.bfloat16
 
     def rn(*shape):
-        return torch.randn(*shape, device="cuda", generator=rd.gen).to(bf)
+        return torch.randn(*shape, device="cuda", generator=rd.gen).to(
+            torch.bfloat16)
 
-    result = dict(card=card, gemv={}, w4a8_gemv={}, wgmma_t={})
+    sections = sys.argv[1:] or ["gemv", "w4a8_gemv", "wgmma_t", "mla_decode",
+                                "mla_prefill"]
+    result = dict(card=card)
+    for name in sections:
+        result[name] = {}
+        SECTIONS[name](result[name], rd, rn)
+    print(json.dumps(result))
+    return 0
+
+
+def gemv_section(result, rd, rn):
+    from ktransformers_tpu_torch.ops.cuda import quant_matmul as QM
+    from ktransformers_tpu_torch.quant.formats import dequantize
+
+    bf = torch.bfloat16
     for k, n, label in ((2048, 3648, "qkv_a"), (2048, 2048, "o_proj"),
                         (10944, 2048, "layer-0 down"),
                         (2048, 102400, "lm_head"),
@@ -76,7 +90,7 @@ def main() -> int:
         wdq = dequantize(w, bf)
         most = k // QM.GEMV_UNIT // QM.GEMV_LANES
         counts = sorted({c for c in (1, 8, 16, 32, 64, 128) if c <= most})
-        result["gemv"][label] = sweep(
+        result[label] = sweep(
             f"gemv int8 {label} M=1", QM, "gemv_plan",
             lambda c: (lambda *a: (c, 1)), counts,
             lambda x=x, w=w: QM.dense_launcher(x, w, "gemv"),
@@ -86,12 +100,19 @@ def main() -> int:
     ids = torch.randperm(64, generator=torch.Generator().manual_seed(3))[
         :6].to(torch.int32).cuda()
     xe = rn(6, 2048)
-    result["gemv"]["gathered gate_up 6 rows"] = sweep(
+    result["gathered gate_up 6 rows"] = sweep(
         "gemv int8 gathered gate_up 6 rows", QM, "gemv_plan",
         lambda c: (lambda *a: (c, 1)), (1, 2, 4, 8, 16, 32),
         lambda: QM.gathered_launcher(xe, we, ids, "gemv"), None)
     del we
 
+
+def w4a8_gemv_section(result, rd, rn):
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+    from ktransformers_tpu_torch.quant.formats import dequantize
+    from ktransformers_tpu_torch.quant.w4a8 import repack_offset_lo
+
+    bf = torch.bfloat16
     for k, n, label in ((2048, 3648, "qkv_a"), (2048, 2048, "o_proj"),
                         (10944, 2048, "layer-0 down (gs 96)"),
                         (2048, 102400, "lm_head")):
@@ -102,13 +123,20 @@ def main() -> int:
         groups = k // w.group_size
         counts = sorted({c for c in (1, 2, 4, 8, 16, 32, 64, groups)
                          if c <= groups})
-        result["w4a8_gemv"][label] = sweep(
+        result[label] = sweep(
             f"gemv w4a8 {label} M=1", MM, "w4a8_gemv_plan",
             lambda c, gs2=gs2: (lambda *a: (c, gs2 // MM.GEMV_UNIT)), counts,
             lambda x=x, w=w: MM.dense_w4a8_launcher(x, w, "gemv"),
             lambda x=x, wdq=wdq: torch.matmul(x, wdq))
         del wdq
 
+
+def wgmma_t_section(result, rd, rn):
+    from ktransformers_tpu_torch.ops.cuda import quant_matmul_t as QT
+    from ktransformers_tpu_torch.quant.formats import dequantize
+    from ktransformers_tpu_torch.quant.w4a8 import repack_offset_lo
+
+    bf = torch.bfloat16
     for k, n, label in ((2048, 3648, "qkv_a"), (2048, 2048, "o_proj"),
                         (2048, 102400, "lm_head"),
                         (2048, 21888, "layer-0 gate_up"),
@@ -119,14 +147,76 @@ def main() -> int:
         wdq = dequantize(w, bf)
         most = max(1, -(-n // QT.WGMMA_NC) // QT.WGMMA_MIN_STAGES)
         counts = sorted({c for c in (1, 2, 3, 4, 6, 8, 12, 16) if c <= most})
-        result["wgmma_t"][label] = sweep(
+        result[label] = sweep(
             f"wgmma_t w4a8 dx M=512 {label}", QT, "t_plan",
             lambda c: (lambda *a: c), counts,
             lambda dy=dy, w=w: QT.dense_t_launcher(dy, w, "wgmma"),
             lambda dy=dy, wdq=wdq: torch.matmul(dy, wdq.T))
         del wdq
-    print(json.dumps(result))
-    return 0
+
+
+def mla_decode_section(result, rd, rn):
+    """mla_decode_split_kernel at 16 heads under forced rows a split
+    (splits = ceil(S / span)), the first version beside it."""
+    from ktransformers_tpu_torch.ops.cuda import mla_decode as MD
+    from ktransformers_tpu_torch.ops.rope import rope_rotation_matrix
+
+    h, r, dr = 16, 512, 64
+    scale = (128 + 64) ** -0.5
+    for b, smax, lens in ((1, 1024, [512]), (1, 4096, [2048]),
+                          (1, 4096, [4095]),
+                          (8, 1024, [1, 64, 65, 300, 512, 513, 800, 1000])):
+        rot = rope_rotation_matrix(rn(b, dr // 2).float(),
+                                   rn(b, dr // 2).float(), True)
+        args = (rn(b, h, r), rn(b, h, dr), rn(b, 1, r + dr),
+                torch.ones(r, device="cuda"), rot, rn(b, smax, r),
+                rn(b, smax, dr),
+                torch.tensor(lens, dtype=torch.int32, device="cuda"), scale,
+                1e-6)
+        spans = [sp for sp in (16, 32, 64, 128, 256, 512, 1024)
+                 if -(-smax // sp) <= MD.DECODE_MAX_SPLITS]
+        label = f"B={b} S={smax} cached {lens[0]}..{lens[-1]}"
+        row = sweep(f"mla_decode_split {label}, rows a split", MD,
+                    "decode_split_plan",
+                    lambda sp, smax=smax: (lambda *a: (-(-smax // sp), sp)),
+                    spans, lambda args=args: MD.mla_launcher(*args, "split"),
+                    None)
+        row["first_ms"] = time_ms(MD.mla_launcher(*args, "fused")[0])
+        print(f"  first {row['first_ms']:.4f}", flush=True)
+        result[label] = row
+
+
+def mla_prefill_section(result, rd, rn):
+    """mla_prefill_mma_kernel at 16 heads, 4 or 2 heads a block, the first
+    version beside it, at the four shapes chip_smoke.py times."""
+    from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
+
+    h, r, dr, page, pmax = 16, 512, 64, 64, 32
+    scale = (128 + 64) ** -0.5
+    for olds, s, valids in (([256], 256, [256]), ([0, 256], 256, [256, 200]),
+                            ([0], 512, [512]), ([0, 256], 512, [512, 456])):
+        c = len(olds)
+        perm = torch.randperm(c * pmax, generator=torch.Generator()
+                              .manual_seed(s + c)) + 1
+        tables = perm.reshape(c, pmax).to(torch.int32).cuda()
+        ckv, kpe = rn(c * pmax + 1, page, r), rn(c * pmax + 1, page, dr)
+        lengths = torch.tensor(olds, dtype=torch.int32, device="cuda")
+        valid = torch.tensor(valids, dtype=torch.int32, device="cuda")
+        qn, qp = rn(c, h, s, r), rn(c, h, s, dr)
+        args = (qn, qp, ckv, kpe, tables, lengths, valid, scale)
+        label = f"C={c} S={s} old={olds} valid={valids}"
+        row = sweep(f"mla_prefill_mma {label}, heads a block", PA,
+                    "prefill_plan", lambda hb: (lambda *a: hb), (4, 2),
+                    lambda args=args: PA.prefill_launcher(*args, "mma"),
+                    None)
+        row["first_ms"] = time_ms(PA.prefill_launcher(*args, "first")[0])
+        print(f"  first {row['first_ms']:.4f}", flush=True)
+        result[label] = row
+
+
+SECTIONS = {"gemv": gemv_section, "w4a8_gemv": w4a8_gemv_section,
+            "wgmma_t": wgmma_t_section, "mla_decode": mla_decode_section,
+            "mla_prefill": mla_prefill_section}
 
 
 if __name__ == "__main__":

@@ -31,6 +31,10 @@ Tolerances, as a share of the reference's largest magnitude:
   plain group dot of the kernel's own activation codes on the card (the
   prep is held to its plain version by test_w4a8_prep), and 1e-2 for the
   W4A8 FFN on tensor cores (as the FFN kernels);
+- 1e-2 for the bf16 MLA kernels on the tensor cores (mla_decode_split_kernel
+  and mla_prefill_mma_kernel, `-k mla`): bf16 scores summed in float32, P
+  rounded to bf16 before P V; float32 calls keep the first versions at
+  1e-5;
 - 1e-5 for the transposed matmuls of the SFT backward at these widths
   (N <= 3648; dx is float32; both sides round the same operands to bf16,
   the kernel sums their products on the tensor cores, the plain version
@@ -42,7 +46,7 @@ import numpy as np
 import pytest
 import torch
 
-from ktransformers_tpu_torch.ops.cuda import LAUNCHES
+from ktransformers_tpu_torch.ops.cuda import LAUNCHES, ROUTED_LAUNCHES
 from ktransformers_tpu_torch.ops.cuda import w4a8_ffn as F
 from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
 from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
@@ -167,8 +171,12 @@ def test_mla_decode_fused(cuda, dtype, tol):
     cast = [t.to(dtype) for t in (qn, qp, kv)] + [gamma, rot] + [
         t.to(dtype) for t in (ckv, kpe)] + [lengths]
     args = (0.07, 1e-6)
+    split = ROUTED_LAUNCHES["mla_decode_split_kernel"]
     out = _counted("mla_decode_fused", lambda: mla_decode_fused(
         *[t.to(cuda) for t in cast], *args))
+    # bf16 takes the split kernel, float32 the first version
+    assert ROUTED_LAUNCHES["mla_decode_split_kernel"] == split + (
+        dtype == torch.bfloat16)
     ref = mla_decode_fused(*cast, *args)
     for o, rf in zip(out, ref):
         assert o.dtype == dtype
@@ -232,8 +240,12 @@ def test_mla_paged_prefill(cuda, page, pmax, s, dtype, tol):
     lengths = torch.tensor(olds, dtype=torch.int32)
     valid = torch.tensor(valids, dtype=torch.int32)
     args = (qn, qp, ckv, kpe, tables, lengths, valid)
+    mma = ROUTED_LAUNCHES["mla_prefill_mma_kernel"]
     out = _counted("mla_paged_prefill", lambda: PA.mla_paged_prefill(
         *[t.to(cuda) for t in args], 0.07))
+    # bf16 takes the tensor-core kernel, float32 the first version
+    assert ROUTED_LAUNCHES["mla_prefill_mma_kernel"] == mma + (
+        dtype == torch.bfloat16)
     ref = PA.mla_paged_prefill(*args, 0.07)
     assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
     assert torch.all(out[3] == 0)
@@ -241,6 +253,124 @@ def test_mla_paged_prefill(cuda, page, pmax, s, dtype, tol):
         assert _rel(out[i, :, :v], ref[i, :, :v]) <= tol, i
     # padding rows see every live key, as in the plain version
     assert _rel(out[0, :, s - 5:], ref[0, :, s - 5:]) <= tol
+
+
+def _decode_inputs(rng, b, h, smax, lens):
+    """bf16 operands of mla_decode_fused, every cache row at or past
+    lens[i] NaN."""
+    r, dr = 512, 64
+    bf = torch.bfloat16
+    qn, qp, kv = _x(rng, b, h, r), _x(rng, b, h, dr), _x(rng, b, 1, r + dr)
+    gamma = _x(rng, r) * 0.1 + 1.0
+    rot = rope_rotation_matrix(_x(rng, b, dr // 2), _x(rng, b, dr // 2), True)
+    ckv, kpe = _x(rng, b, smax, r), _x(rng, b, smax, dr)
+    for i, n in enumerate(lens):
+        ckv[i, n:] = float("nan")
+        kpe[i, n:] = float("nan")
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    return ([t.to(bf) for t in (qn, qp, kv)] + [gamma, rot]
+            + [t.to(bf) for t in (ckv, kpe)] + [lengths])
+
+
+@pytest.mark.parametrize("h", [4, 8, 16, 32])
+@pytest.mark.parametrize("smax, lens", [
+    (64, [0, 1, 63]),                                 # one split
+    (2048, [0, 1, 15, 16, 63, 64, 65, 2047]),         # many; the full cache
+    (4096, [2048]),                                   # one sequence, 32 splits
+])
+def test_mla_decode_split(cuda, h, smax, lens):
+    """mla_decode_split_kernel through mla_decode_fused (bf16) against the
+    plain version: H a multiple of 16 or not, one split and many (the
+    plan's), lengths 0 (the current token alone), on and around 16-row
+    units and 64-row tiles, and S - 1 (the current token fills the cache);
+    every cache row at or past lengths[b] NaN. A second call gives the same
+    bits (the merge's counters were set back)."""
+    rng = np.random.default_rng(h + smax)
+    cast = _decode_inputs(rng, len(lens), h, smax, lens)
+    on = [t.to(cuda) for t in cast]
+    args = (0.07, 1e-6)
+    split = ROUTED_LAUNCHES["mla_decode_split_kernel"]
+    out = _counted("mla_decode_fused", lambda: mla_decode_fused(*on, *args))
+    assert ROUTED_LAUNCHES["mla_decode_split_kernel"] == split + 1
+    again = mla_decode_fused(*on, *args)
+    ref = MD.mla_decode_fused_ref(*cast, *args)
+    for o, a, rf in zip(out, again, ref):
+        assert o.dtype == torch.bfloat16
+        assert bool(torch.isfinite(o.float()).all())
+        assert torch.equal(o, a)
+        assert _rel(o, rf) <= 1e-2
+
+
+@pytest.mark.parametrize("splits", ["one", "most"])
+def test_mla_decode_split_plans(cuda, splits, monkeypatch):
+    """The kernel at a forced plan: one split of the whole cache, and the
+    most splits (DECODE_MAX_SPLITS of 32 rows)."""
+    rng = np.random.default_rng(4)
+    lens = [0, 17, 700, 1023]
+    cast = _decode_inputs(rng, len(lens), 16, 1024, lens)
+    plan = (1, 1024) if splits == "one" else (MD.DECODE_MAX_SPLITS, 32)
+    monkeypatch.setattr(MD, "decode_split_plan", lambda *a: plan)
+    out = mla_decode_fused(*[t.to(cuda) for t in cast], 0.07, 1e-6)
+    ref = MD.mla_decode_fused_ref(*cast, 0.07, 1e-6)
+    for o, rf in zip(out, ref):
+        assert _rel(o, rf) <= 1e-2
+
+
+@pytest.mark.parametrize("h", [4, 6, 8, 16, 32])
+@pytest.mark.parametrize("heads", [4, 2])
+def test_mla_prefill_mma(cuda, h, heads, monkeypatch):
+    """mla_prefill_mma_kernel at both block shapes (4 or 2 heads x 16
+    positions) against the plain version: H not a multiple of the block's
+    heads, old lengths 0, 1, mid-page, page-aligned and 2048 - S, valid <
+    S and == S (S not a multiple of 16), an empty chunk on an empty cache;
+    every pool row past the live length NaN. Rows >= valid are padding:
+    finite, compared too (they see every live key). A second call gives
+    the same bits."""
+    rng = np.random.default_rng(h * heads)
+    page, pmax, s = 64, 40, 120
+    olds = [0, 1, 33, 64, 2048 - s, 0]
+    valids = [s - 7, s, s - 1, 50, s, 0]
+    c = len(olds)
+    live = [o + v for o, v in zip(olds, valids)]
+    ckv, kpe, tables = _paged_pool(rng, c, pmax, page, torch.bfloat16, live)
+    qn = _x(rng, c, h, s, 512).bfloat16()
+    qp = _x(rng, c, h, s, 64).bfloat16()
+    lengths = torch.tensor(olds, dtype=torch.int32)
+    valid = torch.tensor(valids, dtype=torch.int32)
+    args = (qn, qp, ckv, kpe, tables, lengths, valid)
+    on = [t.to(cuda) for t in args]
+    monkeypatch.setattr(PA, "prefill_plan", lambda *a: heads)
+    launch, out = PA.prefill_launcher(*on, 0.07, "mma")
+    launch()
+    torch.cuda.synchronize()
+    first = out.clone()
+    launch()
+    ref = PA.mla_paged_prefill_ref(*args, 0.07)
+    assert bool(torch.isfinite(out.float()).all())
+    assert torch.equal(out, first)
+    assert torch.all(out[5] == 0)
+    for i in range(c - 1):
+        assert _rel(out[i], ref[i]) <= 1e-2, i
+
+
+def test_mla_prefill_mma_plan_route(cuda):
+    """The wrapper's bf16 call at the mixed step's chunk takes the
+    tensor-core kernel (counted in ROUTED_LAUNCHES) and gives the bits its
+    launcher gives."""
+    rng = np.random.default_rng(9)
+    ckv, kpe, tables = _paged_pool(rng, 1, 8, 64, torch.bfloat16, [300])
+    qn = _x(rng, 1, 16, 256, 512).bfloat16()
+    qp = _x(rng, 1, 16, 256, 64).bfloat16()
+    ints = (tables, torch.tensor([44], dtype=torch.int32),
+            torch.tensor([256], dtype=torch.int32))
+    on = [t.to(cuda) for t in (qn, qp, ckv, kpe, *ints)]
+    mma = ROUTED_LAUNCHES["mla_prefill_mma_kernel"]
+    out = _counted("mla_paged_prefill",
+                   lambda: PA.mla_paged_prefill(*on, 0.07))
+    assert ROUTED_LAUNCHES["mla_prefill_mma_kernel"] == mma + 1
+    launch, want = PA.prefill_launcher(*on, 0.07, "mma")
+    launch()
+    assert torch.equal(out, want)
 
 
 def test_paged_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

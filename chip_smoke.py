@@ -20,8 +20,10 @@ Phases (any failure exits non-zero before the final line):
             quant_wgmma_t_kernel: the transposed matmuls;
             mla_decode_split_kernel: bf16 mla_decode_fused, timed at 512,
             2048 and 4095 cached rows; mla_prefill_mma_kernel: bf16
-            mla_paged_prefill; the MLA caches and pools hold NaN in every
-            row the kernels must not read), the first
+            mla_paged_prefill; mla_paged_decode_split_kernel: bf16
+            mla_paged_decode; gqa_prefill_mma_kernel: bf16
+            gqa_paged_prefill, phase 9; the attention caches and pools
+            hold NaN in every row the kernels must not read), the first
             version is held and timed on the same operands too (first_ms)
             and a second call of the wrapper must give the same bits; the
             grouped entries get torch._grouped_mm as their library
@@ -58,8 +60,9 @@ Phases (any failure exits non-zero before the final line):
             step that still launches a first-version instantiation its
             routes replace (8-row tiles on bf16, one-row quant_matmul
             tiles, any W4A8 rows kernel, the FFN's 4-row gate_up, the
-            transposed first version, the bf16 MLA fused decode and paged
-            prefill first versions) fails (so does the SFT step's
+            transposed first version, the bf16 MLA fused decode, paged
+            decode and paged prefill and the bf16 GQA paged prefill first
+            versions) fails (so does the SFT step's
             profile);
 8. int8:    the int4_g parameters are freed; the full 27-layer config with
             int8 weights (every matmul through the quant_matmul kernels) in
@@ -94,10 +97,12 @@ Phases (any failure exits non-zero before the final line):
             Trainer.train_step, finite losses, a frozen base, adapters that
             moved, launches per step held to the counts the code implies,
             peak memory, and one profiled step.
-Prints a kernels JSON line (the eighteen wrappers, then the eight
+Prints a kernels JSON line (the eighteen wrappers, then the ten
 redesigned kernels, whose launches are those of their wrappers' calls
-that took them; the two MLA kernels must have launched on the single-user
-and paged paths of both DeepSeek parameter sets), the card line, and as
+that took them; the MLA kernels must have launched on the single-user
+(decode) and paged (paged decode and prefill) paths of both DeepSeek
+parameter sets, the GQA prefill kernel on Mixtral's paged path), the card
+line, and as
 the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Imports nothing of JAX.
@@ -277,6 +282,8 @@ FFN_ROUTES = {"mma": "w4a8_ffn_mma_kernel", "gemv": "w4a8_gemv_kernel"}
 QT_ROUTES = {"wgmma": "quant_wgmma_t_kernel"}
 MLA_DECODE_ROUTES = {"split": "mla_decode_split_kernel"}
 MLA_PREFILL_ROUTES = {"mma": "mla_prefill_mma_kernel"}
+MLA_PAGED_DECODE_ROUTES = {"split": "mla_paged_decode_split_kernel"}
+GQA_PREFILL_ROUTES = {"mma": "gqa_prefill_mma_kernel"}
 
 
 def grouped_mm(x, wdq, sizes):
@@ -715,8 +722,8 @@ def paged_kernel_checks(check, rn, dev) -> None:
     """Rows 12 and 14: mla_paged_decode and mla_paged_prefill at the
     serving shapes (16 heads, R 512, dr 64, page 64, 32 pages a query,
     bf16), shuffled page tables, every pool row the kernels must not read
-    NaN; bf16 prefill takes mla_prefill_mma_kernel, its first version is
-    timed beside it. Bound: the bytes of the live rows + queries + output over the
+    NaN; bf16 decode takes mla_paged_decode_split_kernel and bf16 prefill
+    mla_prefill_mma_kernel, each with its first version timed beside it. Bound: the bytes of the live rows + queries + output over the
     memory rate, against the flops of the live (query, key) pairs over
     the bf16 peak. Library yardstick: gather the pages, then
     F.scaled_dot_product_attention on K = [ckv | kpe], V = ckv (gather
@@ -773,7 +780,11 @@ def paged_kernel_checks(check, rn, dev) -> None:
               lambda: PA.decode_launcher(*args),
               live * (r + dr) * 2 + nbytes(qn, qp) + 8 * h * r * 2,
               2 * h * live * (2 * r + dr), BF16_FLOPS_PER_S,
-              library=lambda: sdpa(q, ckv0, kpe0, tables, mask), main=main)
+              library=lambda: sdpa(q, ckv0, kpe0, tables, mask), main=main,
+              kernel_main=main,
+              **routed(MLA_PAGED_DECODE_ROUTES,
+                       PA.decode_route(torch.bfloat16),
+                       lambda: PA.decode_launcher(*args, kernel="first")))
         del ckv, kpe, ckv0, kpe0
 
     # prefill: chunks of a mixed step (S = 256) and of a prefill-only step
@@ -836,8 +847,9 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
     library yardstick is torch._grouped_mm on the bf16-dequantized experts
     (grouped_mm). Row 7 has none: no single PyTorch call gathers an expert
     per row. Rows 13 and 15 (GQA paged attention, 32 query
-    heads over 8 KV heads of 128, page 64, 32 pages a query): every pool
-    row the kernels must not read is NaN; every output row (sequence, head,
+    heads over 8 KV heads of 128, page 64, 32 pages a query; bf16 prefill
+    takes gqa_prefill_mma_kernel, its first version timed beside it):
+    every pool row the kernels must not read is NaN; every output row (sequence, head,
     position) is held to 1e-2 of its own largest value, so that a short
     sequence's large outputs set no scale for a long one's (one bf16 step
     is at most 2^-7 of the row's largest value). Bound: the bytes of the live rows
@@ -995,24 +1007,24 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
         qpos = lengths[:, None] + torch.arange(s, device=dev)[None]
         mask = ((kp <= qpos[:, :, None])
                 & (kp < (lengths + valid)[:, None, None]))[:, None]
-        live_rows = torch.arange(s, device=dev)[None] < valid[:, None]
         pairs = sum(vl * o + vl * (vl + 1) // 2
                     for o, vl in zip(olds, valids))
-
-        def cut(t):  # rows >= valid are padding: finite, not compared
-            return torch.where(live_rows[:, None, :, None], t.float(),
-                               torch.zeros((), device=dev))
-
+        # rows >= valid are padding: they see every live key, in the plain
+        # version as in both kernels, and are compared too
         check("gqa_paged_prefill",
               f"serve prefill C={c} S={s} H=32 Hkv=8 old={olds} "
               f"valid={valids}", 1e-2,
-              lambda: cut(PA.gqa_paged_prefill(*args)),
-              lambda: cut(PA.gqa_paged_prefill_ref(*args)),
+              lambda: PA.gqa_paged_prefill(*args),
+              lambda: PA.gqa_paged_prefill_ref(*args),
               lambda: PA.gqa_prefill_launcher(*args),
               sum(o + vl for o, vl in zip(olds, valids)) * hkv * hd * 2 * 2
               + nbytes(q) * 2, 2 * 2 * h * pairs * hd, BF16_FLOPS_PER_S,
               library=lambda: sdpa(q, k0, v0, tables, mask), main=main,
-              plain_iters=3, per_row=True)
+              kernel_main=main, plain_iters=3, per_row=True,
+              **routed(GQA_PREFILL_ROUTES,
+                       PA.gqa_prefill_route(torch.bfloat16),
+                       lambda: PA.gqa_prefill_launcher(*args,
+                                                       kernel="first")))
         out = PA.gqa_paged_prefill(*args)
         if not bool(torch.isfinite(out.float()).all()):
             raise AssertionError("gqa_paged_prefill: padding rows not finite")
@@ -1710,7 +1722,9 @@ def _is_port_kernel(name: str) -> bool:
                                    "quant_gemv_kernel",
                                    "quant_wgmma_t_kernel",
                                    "mla_decode_split_kernel",
-                                   "mla_prefill_mma_kernel"))
+                                   "mla_prefill_mma_kernel",
+                                   "mla_paged_decode_split_kernel",
+                                   "gqa_prefill_mma_kernel"))
 
 
 # first-version instantiations no call of the main paths should take: the
@@ -1721,16 +1735,20 @@ def _is_port_kernel(name: str) -> bool:
 # shape), every W4A8 rows kernel (the W4A8 GEMV takes one-row dense calls,
 # gathered calls and the FFN's one-row downs; w4a8_mma_kernel the rest),
 # the FFN's 4-row gate_up (w4a8_ffn_mma_kernel takes tiles of more than
-# one row) and the bf16 MLA fused decode and paged prefill first versions
-# (mla_decode_split_kernel and mla_prefill_mma_kernel take every bf16
-# call); a step that launches one of these has a wrapper off its route
+# one row) and the bf16 attention first versions: MLA fused decode, paged
+# decode and paged prefill, GQA paged prefill (mla_decode_split_kernel,
+# mla_paged_decode_split_kernel, mla_prefill_mma_kernel and
+# gqa_prefill_mma_kernel take every bf16 call); a step that launches one of
+# these has a wrapper off its route
 _OFF_ROUTE = re.compile(r"quant_rows_kernel<\d+, 8, __nv_bfloat16>"
                         r"|w4a8_rows_kernel<"
                         r"|quant_rows_kernel<\d+, 1, "
                         r"|quant_rows_t_kernel<"
                         r"|ffn_up_kernel<4>"
                         r"|mla_decode_fused_kernel<__nv_bfloat16>"
-                        r"|mla_paged_prefill_kernel<__nv_bfloat16>")
+                        r"|mla_paged_decode_kernel<__nv_bfloat16>"
+                        r"|mla_paged_prefill_kernel<__nv_bfloat16>"
+                        r"|gqa_paged_prefill_kernel<__nv_bfloat16>")
 
 
 def off_route(rows) -> list:
@@ -2511,11 +2529,22 @@ def main() -> int:
     sources["mla_prefill_mma_kernel"] = (
         "ktransformers_tpu_torch/csrc/paged_attention.cu",
         "ktransformers_tpu/ops/pallas/paged_attention.py:455")
-    # the two MLA kernels carry the DeepSeek paths' attention on both
-    # parameter sets: decode single-user, prefill in the served mixed steps
+    sources["mla_paged_decode_split_kernel"] = (
+        "ktransformers_tpu_torch/csrc/paged_attention.cu",
+        "ktransformers_tpu/ops/pallas/paged_attention.py:124")
+    sources["gqa_prefill_mma_kernel"] = (
+        "ktransformers_tpu_torch/csrc/gqa_paged_attention.cu",
+        "ktransformers_tpu/ops/pallas/paged_attention.py:632")
+    # the attention kernels carry their paths' attention: on both DeepSeek
+    # parameter sets the MLA decode single-user, the paged decode and the
+    # prefill in the served steps; on Mixtral the GQA prefill in the served
+    # mixed steps
     for kernel, keys in (
             ("mla_decode_split_kernel", ("single_user", "single_user_int8")),
-            ("mla_prefill_mma_kernel", ("paged_serve", "paged_serve_int8"))):
+            ("mla_prefill_mma_kernel", ("paged_serve", "paged_serve_int8")),
+            ("mla_paged_decode_split_kernel",
+             ("paged_serve", "paged_serve_int8")),
+            ("gqa_prefill_mma_kernel", ("paged_serve_mixtral",))):
         idle = [k for k in keys if paths[k].get(kernel, 0) <= 0]
         if idle:
             raise AssertionError(f"{kernel} launched on no call of {idle}")

@@ -37,7 +37,9 @@
 //   A: scores = Q K^T   (4 x 2 outputs a thread, float4 over the depth),
 //   B: online softmax   (warp w owns rows 8w..8w+7, one key per lane),
 //   C: acc += P V       (8 rows x 4 columns a thread, in registers).
-// Tensor cores (wgmma on bf16 pages) are later work. Shapes: D = 128.
+// That kernel keeps float32 calls; bf16 calls take gqa_prefill_mma_kernel
+// (the end of this file) on the tensor cores. Shapes: D = 128.
+#include "mma_sm90.cuh"
 #include "online_softmax.cuh"
 
 namespace {
@@ -519,4 +521,382 @@ extern "C" int kt_gqa_paged_prefill(const void* q, const void* k_pages,
                                          out, st);
   return launch_prefill<float>(q, k_pages, v_pages, tb, ln, vl, C, H, Hkv, S,
                                page, pmax, window, scale, out, st);
+}
+
+// ---- gqa_prefill_mma_kernel: the bf16 gqa_paged_prefill on tensor cores ----
+//
+// Replaces ktransformers_tpu/ops/pallas/paged_attention.py:gqa_paged_prefill
+// (body _gqa_prefill_kernel) for bf16 operands; computes what
+// gqa_paged_prefill_kernel computes (query row s sees keys kpos <= lengths +
+// s, kpos < lengths + valid and, with a window, kpos > lengths + s -
+// window; a row with no key gives zeros; padding rows s >= valid see every
+// live key in their window). Bound at the serving shapes: the bf16
+// operations of the two products, 4 * H * live pairs * D, against the
+// bytes of the live rows. The first version ran float32 FMAs on K / V
+// tiles staged as float32. Here:
+// - one block per (chunk, KV head, ROWS flattened query rows), row = s * G
+//   + g (G = H / Hkv) as in the first version, so a 16-row mma row group
+//   is 16 / G positions of the G heads and every staged K / V tile serves
+//   all of them; G need not divide 16: each row carries its own position,
+//   causal limit and window. ROWS = 64 or 128 by
+//   ops/cuda/paged_attention.py:gqa_prefill_plan; row tiles are numbered
+//   from the end of the chunk, so the longest walks start first;
+// - the block walks key tiles of TK = 64 from its window start (rounded
+//   down to a tile) to its causal limit min(live, old + last position +
+//   1). Each tile's K and V rows of the block's KV head (256 B at stride
+//   Hkv * D in the pool) are copied through the page table with 16-byte
+//   cp.async into a three-stage ring (bf16; the query rows are staged in
+//   the third stage, free until tile 2 is issued); rows past the limit
+//   are zero-filled and never read, so P V never meets 0 x NaN from a
+//   recycled page. One barrier a tile: wait for tile t, barrier, issue
+//   tile t + 2 into the stage tile t - 1 used, compute tile t;
+// - the FlashAttention-2 layout, kept because D = 128 fits one warp: a
+//   warp owns 16 query rows outright (its Q fragments stay in registers
+//   for the whole walk, 32 registers, from ldmatrix once), runs mma.sync
+//   m16n8k16 bf16 for Q K^T (B from ldmatrix on the key rows) into n8
+//   score tiles in registers, the online softmax in log2 units in float32
+//   (quad shuffles, no shared memory), P rounded to bf16 in registers as
+//   the A operand of P V (B from ldmatrix.trans on the V rows) into 16 n8
+//   tiles = all 128 columns (64 float32 accumulators). MLA's mla_mma.cuh
+//   must split its 512 output columns over the warps of a row group and
+//   hand the scores round through shared memory; at D = 128 nothing is
+//   shared but the staged tiles;
+// - 8 warps a block either way: at 128 rows each warp owns a row group
+//   (KSP = 1); at 64 rows two warps share a row group (KSP = 2), each
+//   taking 32 keys of every tile with its own softmax state, and the pair
+//   is merged through shared memory at the end, so that the mixed step's
+//   128 blocks (one an SM) still give each SM 8 warps to hide the copies'
+//   and products' latency. A warp whose rows all lie outside its keys of
+//   a tile (before their window or past their causal limit) skips its
+//   products for that tile.
+// Row stride of a staged row: LDS = 136 values, 272 bytes = 17 16-byte
+// units (odd), so the 8 rows of an ldmatrix 8x8 hit 8 distinct bank groups.
+// Shared memory: the ring, 3 x (K + V) x 64 x 272 B = 102 KB. ptxas
+// (sm_90a): 180 registers at KSP = 2, 213 at KSP = 1, no spill; one block
+// an SM.
+// (KT_GQA_CUT_MMA and KT_GQA_CUT_SOFTMAX compile the products and the
+// exponentials out for ops/cuda/breakdown.py; the loads stay live.)
+namespace kt_gqa_mma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int D = 128;
+constexpr int CH = D / 8;        // 16-byte copies a row
+constexpr int LDS = D + 8;       // staged row stride (bf16 values)
+constexpr int TK = 64;           // keys a tile
+constexpr int DK = D / 16;       // k16 steps of Q K^T
+constexpr int NO = D / 8;        // n8 output tiles
+constexpr int TILE = TK * LDS;   // one staged K or V tile (values)
+constexpr int STAGES = 3;        // ring stages of K + V tiles
+constexpr int STAGE = 2 * TILE;  // one stage: K then V (values)
+constexpr int THREADS = 256;
+constexpr int NWARP = THREADS / 32;
+constexpr int SMEM = STAGES * STAGE * 2;
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// KSP warps share each of the block's row groups, each KW keys of a tile
+template <int KSP>
+struct Shape {
+  static constexpr int RGN = NWARP / KSP;  // row groups a block
+  static constexpr int ROWS = 16 * RGN;
+  static constexpr int KW = TK / KSP;      // keys a warp scores a tile
+  static constexpr int NS = KW / 8;        // its n8 score tiles
+  static constexpr int KS = KW / 16;       // its k16 steps of P V
+  static_assert(ROWS * LDS <= STAGE, "query rows fit one stage");
+  static_assert((KSP - 1) * 32 * (4 + 4 * NO) * 4 * RGN <= SMEM,
+                "the merge's states fit the ring");
+};
+
+template <int KSP>
+__global__ void __launch_bounds__(THREADS, 1)
+    gqa_prefill_mma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ kp,
+                           const bf16* __restrict__ vp,
+                           const int* __restrict__ tables,
+                           const int* __restrict__ lengths,
+                           const int* __restrict__ valid, int H, int Hkv,
+                           int S, int page, int pmax, int window, float scale,
+                           bf16* __restrict__ out) {
+  using Sh = Shape<KSP>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  // stage st: K [TK][LDS] at st * STAGE, then V [TK][LDS]
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* q_s = ring + (STAGES - 1) * STAGE;  // [ROWS][LDS] until tile 2
+
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * Sh::ROWS;
+  const int kh = blockIdx.y, c = blockIdx.z;
+  const int G = H / Hkv;
+  const int rows = G * S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = warp % Sh::RGN, part = warp / Sh::RGN;
+  const int g = lane >> 2, qd = lane & 3;
+  const int old = max(lengths[c], 0);
+  const int total = min(old + max(valid[c], 0), page * pmax);
+  const int* tb = tables + (size_t)c * pmax;
+  // row fr is query head kh * G + fr % G at position fr / G of [C, H, S, D]
+  auto row_offset = [&](int fr) {
+    return (((size_t)c * H + (size_t)kh * G + fr % G) * S + fr / G) * D;
+  };
+
+  // the block's keys: from its first row's window start to its last row's
+  // causal limit
+  const int limit =
+      min(total, old + (min(r0 + Sh::ROWS, rows) - 1) / G + 1);
+  const int kbeg = window > 0 ? max(0, old + r0 / G - window + 1) : 0;
+  const int first = kbeg / TK * TK;
+  const int nt = kbeg < limit ? (limit - first + TK - 1) / TK : 0;
+
+  // this thread's rows g and g + 8 of its row group: keys lo[e] <= kpos <
+  // hi[e]
+  const int w0 = r0 + 16 * rg;
+  int lo[2], hi[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int fr = w0 + g + 8 * e;
+    const int qpos = old + fr / G;
+    hi[e] = fr < rows ? min(total, qpos + 1) : 0;
+    lo[e] = window > 0 ? qpos - window + 1 : 0;
+  }
+  // the row group's keys: the union of its rows'
+  const int whi =
+      w0 < rows ? min(total, old + (min(w0 + 16, rows) - 1) / G + 1) : 0;
+  const int wlo = window > 0 ? old + w0 / G - window + 1 : 0;
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int t = 0; t < NO; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[t][i] = 0.f;
+
+  if (nt > 0) {
+    for (int i = tid; i < Sh::ROWS * CH; i += THREADS) {
+      const int r = i / CH, ch = i - r * CH;
+      const bool ok = r0 + r < rows;
+      kt_mma::cp_async16(q_s + r * LDS + ch * 8,
+                         q + (ok ? row_offset(r0 + r) : 0) + ch * 8, ok);
+    }
+  }
+  // K and V rows of positions k0 .. k0 + TK into ring stage st
+  auto stage = [&](int st, int k0) {
+    for (int i = tid; i < TK * CH; i += THREADS) {
+      const int r = i / CH, ch = i - r * CH;
+      const int pos = k0 + r;
+      const bool ok = pos < limit;
+      const size_t off =
+          ok ? (((size_t)__ldg(tb + pos / page) * page + pos % page) * Hkv +
+                kh) * D + ch * 8
+             : 0;
+      bf16* dst = ring + st * STAGE + r * LDS + ch * 8;
+      kt_mma::cp_async16(dst, kp + off, ok);
+      kt_mma::cp_async16(dst + TILE, vp + off, ok);
+    }
+  };
+  // group 0: the query rows and tile 0; group 1: tile 1; then one group a
+  // tile (empty past the last), so that wait<1> at tile t means tile t
+  if (nt > 0) stage(0, first);
+  kt_mma::cp_async_commit();
+  if (nt > 1) stage(1, first + TK);
+  kt_mma::cp_async_commit();
+
+  const float sl = scale * LOG2E;
+  uint32_t qf[DK][4];
+  for (int t = 0; t < nt; ++t) {
+    const int k0 = first + t * TK;
+    kt_mma::cp_async_wait<1>();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    if (t == 0) {
+      const bf16* qa = q_s + (16 * rg + (lane & 15)) * LDS + (lane >> 4) * 8;
+#pragma unroll
+      for (int d = 0; d < DK; ++d) kt_mma::ldmatrix_x4(qf[d], qa + 16 * d);
+      __syncthreads();  // every warp holds its query rows: q_s is free
+    }
+    if (t + 2 < nt) stage((t + 2) % STAGES, k0 + 2 * TK);
+    kt_mma::cp_async_commit();
+    const int kb = k0 + part * Sh::KW;  // this warp's keys kb .. kb + KW
+    if (kb >= whi || kb + Sh::KW <= wlo) continue;
+    const bf16* kc = ring + (t % STAGES) * STAGE + part * Sh::KW * LDS;
+    const bf16* vc = kc + TILE;
+
+    // scores: sc[n][j], row g + 8 (j >> 1), key kb + 8 n + 2 qd + (j & 1)
+    float sc[Sh::NS][4];
+#pragma unroll
+    for (int n = 0; n < Sh::NS; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
+    // one x4 of B covers 16 keys x 16 depth: two n8 tiles
+    const bf16* kr =
+        kc + ((lane & 7) + ((lane >> 4) << 3)) * LDS + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int d = 0; d < DK; ++d) {
+#pragma unroll
+      for (int p = 0; p < Sh::NS / 2; ++p) {
+        uint32_t b[4];
+        kt_mma::ldmatrix_x4(b, kr + p * 16 * LDS + 16 * d);
+#if KT_GQA_CUT_MMA
+        sc[2 * p][0] += __uint_as_float((qf[d][0] ^ b[0]) & 0x3f7fffffu);
+        sc[2 * p + 1][1] += __uint_as_float((qf[d][1] ^ b[3]) & 0x3f7fffffu);
+#else
+        kt_mma::mma_bf16_16816(sc[2 * p], qf[d], b[0], b[1]);
+        kt_mma::mma_bf16_16816(sc[2 * p + 1], qf[d], b[2], b[3]);
+#endif
+      }
+    }
+
+    // online softmax of rows g, g + 8 (log2 units), P in place
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < Sh::NS; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int kpos = kb + 8 * n + 2 * qd + j;
+          sc[n][2 * e + j] *= sl;
+          if (kpos >= lo[e] && kpos < hi[e])
+            mx = fmaxf(mx, sc[n][2 * e + j]);
+        }
+      const float m_new = fmaxf(m[e], kt_mma::quad_max(mx));
+      const float corr = exp2f(m[e] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < Sh::NS; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int kpos = kb + 8 * n + 2 * qd + j;
+          const bool ok = kpos >= lo[e] && kpos < hi[e];
+#if KT_GQA_CUT_SOFTMAX
+          const float p = ok ? sc[n][2 * e + j] - m_new : 0.f;
+#else
+          const float p = ok ? exp2f(sc[n][2 * e + j] - m_new) : 0.f;
+#endif
+          sc[n][2 * e + j] = p;
+          sum += p;
+        }
+      l[e] = l[e] * corr + kt_mma::quad_sum(sum);
+      m[e] = m_new;
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+        acc[o][2 * e] *= corr;
+        acc[o][2 * e + 1] *= corr;
+      }
+    }
+
+    // acc += P V: P (bf16) from the score tiles, V by ldmatrix.trans
+    const bf16* vb = vc + (lane & 15) * LDS + (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < Sh::KS; ++kk) {
+      uint32_t pa[4];
+      pa[0] = kt_mma::pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
+      pa[1] = kt_mma::pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
+      pa[2] = kt_mma::pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+      pa[3] = kt_mma::pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+#pragma unroll
+      for (int p = 0; p < NO / 2; ++p) {
+        uint32_t b[4];
+        kt_mma::ldmatrix_x4_trans(b, vb + kk * 16 * LDS + p * 16);
+#if KT_GQA_CUT_MMA
+        acc[2 * p][0] += __uint_as_float((pa[0] ^ b[0]) & 0x3f7fffffu);
+        acc[2 * p + 1][1] += __uint_as_float((pa[1] ^ b[3]) & 0x3f7fffffu);
+#else
+        kt_mma::mma_bf16_16816(acc[2 * p], pa, b[0], b[1]);
+        kt_mma::mma_bf16_16816(acc[2 * p + 1], pa, b[2], b[3]);
+#endif
+      }
+    }
+  }
+
+  if constexpr (KSP == 2) {
+    // the second warp of each row group hands its state (m, l, acc) to the
+    // first through the ring, which no copy targets any more
+    float* st_s = reinterpret_cast<float*>(smem) +
+                  (size_t)(rg * 32 + lane) * (4 + 4 * NO);
+    kt_mma::cp_async_wait<0>();
+    __syncthreads();
+    if (part == 1) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        st_s[e] = m[e];
+        st_s[2 + e] = l[e];
+      }
+#pragma unroll
+      for (int o = 0; o < NO; ++o)
+        *reinterpret_cast<float4*>(st_s + 4 + 4 * o) =
+            make_float4(acc[o][0], acc[o][1], acc[o][2], acc[o][3]);
+    }
+    __syncthreads();
+    if (part == 1) return;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float m1 = st_s[e], l1 = st_s[2 + e];
+      const float mm = fmaxf(m[e], m1);
+      const float a0 = exp2f(m[e] - mm), a1 = exp2f(m1 - mm);
+      l[e] = l[e] * a0 + l1 * a1;
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+        acc[o][2 * e] = acc[o][2 * e] * a0 + st_s[4 + 4 * o + 2 * e] * a1;
+        acc[o][2 * e + 1] =
+            acc[o][2 * e + 1] * a0 + st_s[4 + 4 * o + 2 * e + 1] * a1;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int fr = w0 + g + 8 * e;
+    if (fr >= rows) continue;
+    const float inv = 1.f / fmaxf(l[e], 1e-30f);
+    bf16* o = out + row_offset(fr) + 2 * qd;
+#pragma unroll
+    for (int t = 0; t < NO; ++t)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * t) =
+          __floats2bfloat162_rn(acc[t][2 * e] * inv, acc[t][2 * e + 1] * inv);
+  }
+}
+
+template <int KSP>
+int launch(const void* q, const void* k, const void* v, const int* tables,
+           const int* lengths, const int* valid, int C, int H, int Hkv,
+           int S, int page, int pmax, int window, float scale, void* out,
+           cudaStream_t st) {
+  auto kernel = gqa_prefill_mma_kernel<KSP>;
+  static int ready_dev = -1;
+  cudaError_t err = kt_mma::allow_smem(kernel, SMEM, &ready_dev);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = H / Hkv * S;
+  dim3 grid((rows + Shape<KSP>::ROWS - 1) / Shape<KSP>::ROWS, Hkv, C);
+  kernel<<<grid, THREADS, SMEM, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), tables, lengths, valid, H, Hkv, S, page,
+      pmax, window, scale, static_cast<bf16*>(out));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace kt_gqa_mma
+
+// The bf16 gqa_paged_prefill on gqa_prefill_mma_kernel: operands as
+// kt_gqa_paged_prefill (bf16 only); rows = 64 (two warps a row group, the
+// keys of a tile split between them) or 128 (a warp a row group) flattened
+// query rows a block.
+extern "C" int kt_gqa_prefill_mma(const void* q, const void* k_pages,
+                                  const void* v_pages, const void* tables,
+                                  const void* lengths, const void* valid,
+                                  int C, int H, int Hkv, int S, int page,
+                                  int pmax, int window, float scale, int rows,
+                                  void* out, void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || page <= 0 || pmax <= 0 || S <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (C == 0 || H == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* tb = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lengths);
+  const int* vl = static_cast<const int*>(valid);
+  if (rows == 64)
+    return kt_gqa_mma::launch<2>(q, k_pages, v_pages, tb, ln, vl, C, H, Hkv,
+                                 S, page, pmax, window, scale, out, st);
+  if (rows == 128)
+    return kt_gqa_mma::launch<1>(q, k_pages, v_pages, tb, ln, vl, C, H, Hkv,
+                                 S, page, pmax, window, scale, out, st);
+  return (int)cudaErrorInvalidValue;
 }

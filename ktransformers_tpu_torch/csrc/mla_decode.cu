@@ -305,12 +305,6 @@ extern "C" int kt_mla_decode_attention(const void* qn, const void* qp,
 namespace kt_mla_mma {
 namespace split {
 
-constexpr int TK = 64;
-constexpr int HT = 16;          // heads a block: one mma row group
-constexpr int MAX_SPLITS = 32;  // ops/cuda/mla_decode.py:DECODE_MAX_SPLITS
-constexpr int REC = 2 * HT + HT * R;  // a state: m [HT], l [HT], acc [HT][R]
-constexpr int SLOTS = (MAX_SPLITS + 1 + 31) / 32;  // merge states a lane
-using Tl = Tile<1, TK>;
 // staged with the query rows: rotation [DR][DR] f32, q_pe [HT][DR] bf16,
 // raw kv [D] bf16 and gamma [R] f32 (the current token's block)
 constexpr int ROT_OFF = Tl::SMEM;
@@ -320,7 +314,7 @@ constexpr int GAMMA_OFF = KV_OFF + D * 2;
 constexpr int F_OFF = GAMMA_OFF + R * 4;
 // floats from F_OFF: ckvn [R], kpen [DR], q_pe roped [HT][DR], s_cur [HT],
 // warp sums [NWARP], merge weights [MAX_SPLITS + 1][HT]
-constexpr int F_FLOATS = R + DR + HT * DR + HT + NWARP + (MAX_SPLITS + 1) * HT;
+constexpr int F_FLOATS = R + DR + HT * DR + HT + NWARP + W_FLOATS;
 constexpr int SMEM = F_OFF + F_FLOATS * 4;
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -350,7 +344,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* scur_s = qpf_s + HT * DR;
   float* red_s = scur_s + HT;
   float* w_s = red_s + NWARP;
-  __shared__ int last_s;
 
   const int b = blockIdx.x, sp = blockIdx.y, ht = blockIdx.z;
   const int splits = gridDim.y - 1;  // block y = splits: the current token
@@ -358,7 +351,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int h0 = ht * HT;
   const int nh = min(HT, H - h0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;
   const int len = min(max(lengths[b], 0), S);
   const int start = sp * span;
   const int end = cur ? start : min(len, start + span);
@@ -476,94 +468,18 @@ __global__ void __launch_bounds__(THREADS, 1)
       st.clear();
       const int lim[2] = {end, end};
       walk<1, TK>(q_s, k_s, s_s, start, nt, sl, lim, keys, st);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int h = g + 8 * e;
-        if (warp == 0 && q == 0) {
-          rec[h] = st.m[e];
-          rec[HT + h] = st.l[e];
-        }
-        float* a = rec + 2 * HT + h * R + warp * Tl::COLS + 2 * q;
-#pragma unroll
-        for (int t = 0; t < Tl::NTO; ++t)
-          *reinterpret_cast<float2*>(a + 8 * t) =
-              make_float2(st.acc[t][2 * e], st.acc[t][2 * e + 1]);
-      }
+      store_state(st, rec);
     }
   }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last_s = atomicAdd(cnt + pair, 1) == splits;
-  __syncthreads();
-  if (!last_s) return;
-#if KT_MLA_CUT_MERGE  // ops/cuda/breakdown.py: the merge compiled out
-  if (tid == 0) cnt[pair] = 0;
-  return;
-#endif
-  __threadfence();
-
+  if (!arrive_last(cnt + pair, splits + 1)) return;
+#if !KT_MLA_CUT_MERGE  // ops/cuda/breakdown.py: the merge compiled out
   // the states to merge, in this order: the splits that start below
   // lengths[b] (0 .. live - 1), then the current token's (index splits)
   const int live = min(splits, (len + span - 1) / span);
-  const float* base = part + pair * (splits + 1) * REC;
-  for (int h = warp; h < HT; h += NWARP) {
-    float mi[SLOTS], li[SLOTS];
-    float mx = NEG_INF;
-#pragma unroll
-    for (int k = 0; k < SLOTS; ++k) {
-      const int i = lane + 32 * k;
-      const bool ok = i <= live;
-      const float* ri = base + (size_t)(i < live ? i : splits) * REC;
-      mi[k] = ok ? __ldcg(ri + h) : NEG_INF;
-      li[k] = ok ? __ldcg(ri + HT + h) : 0.f;
-      mx = fmaxf(mx, mi[k]);
-    }
-    mx = kt_mla::warp_max(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int k = 0; k < SLOTS; ++k) {
-      mi[k] = lane + 32 * k <= live ? exp2f(mi[k] - mx) : 0.f;
-      sum += li[k] * mi[k];
-    }
-    const float inv = 1.f / fmaxf(kt_mla::warp_sum(sum), 1e-30f);
-#pragma unroll
-    for (int k = 0; k < SLOTS; ++k)
-      if (lane + 32 * k <= live) w_s[(lane + 32 * k) * HT + h] = mi[k] * inv;
-  }
-  __syncthreads();
-  // 16 threads a head, eight float4 of columns each (c4 = c0 + 16 j)
-  const int h = tid >> 4, c0 = tid & 15;
-  if (h < nh) {
-    float4 o[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 2
-    for (int i = 0; i <= live; ++i) {
-      const float w = w_s[i * HT + h];
-      const float4* src =
-          reinterpret_cast<const float4*>(
-              base + (size_t)(i < live ? i : splits) * REC + 2 * HT + h * R) +
-          c0;
-      float4 v[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = __ldcg(src + 16 * j);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        o[j].x += w * v[j].x;
-        o[j].y += w * v[j].y;
-        o[j].z += w * v[j].z;
-        o[j].w += w * v[j].w;
-      }
-    }
-    bf16* out = ctx + ((size_t)b * H + h0 + h) * R;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      __nv_bfloat162* d =
-          reinterpret_cast<__nv_bfloat162*>(out + 4 * (c0 + 16 * j));
-      d[0] = __floats2bfloat162_rn(o[j].x, o[j].y);
-      d[1] = __floats2bfloat162_rn(o[j].z, o[j].w);
-    }
-  }
+  merge_states(part + pair * (splits + 1) * REC, live + 1,
+               [=](int i) { return i < live ? i : splits; }, w_s, nh,
+               ctx + ((size_t)b * H + h0) * R);
+#endif
   if (tid == 0) cnt[pair] = 0;  // ready for the next launch
 }
 

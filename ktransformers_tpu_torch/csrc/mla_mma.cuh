@@ -1,6 +1,7 @@
-// Tensor-core core of the two bf16 MLA attention kernels:
+// Tensor-core core of the three bf16 MLA attention kernels:
 // mla_decode.cu's mla_decode_split_kernel (row 5, mla_decode_fused) and
-// paged_attention.cu's mla_prefill_mma_kernel (row 14, mla_paged_prefill).
+// paged_attention.cu's mla_paged_decode_split_kernel (row 12,
+// mla_paged_decode) and mla_prefill_mma_kernel (row 14, mla_paged_prefill).
 //
 // Absorbed MLA: score = (qn . ckv + qp . kpe) * scale over a depth of
 // D = 512 + 64, value = ckv. A block holds RG row groups of 16 query rows
@@ -32,6 +33,7 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "online_softmax.cuh"
 
 namespace kt_mla_mma {
 
@@ -103,20 +105,9 @@ __device__ __forceinline__ void stage_rows(bf16* __restrict__ dst, Src src) {
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
+using kt_mma::pack_bf16;
+using kt_mma::quad_max;
+using kt_mma::quad_sum;
 
 // Scores of the staged key tile k_s against the query rows q_s, times sl,
 // into s_s [ROWS][SLD]. Block-wide (each warp its part); no barrier.
@@ -301,5 +292,125 @@ __device__ __forceinline__ void walk(const bf16* __restrict__ q_s,
   }
   kt_mma::cp_async_wait<0>();
 }
+
+// ---- split-KV decode: a split's state record and the in-launch merge
+// (mla_decode.cu's mla_decode_split_kernel, paged_attention.cu's
+// mla_paged_decode_split_kernel). A block (sequence, split, head tile of
+// HT heads) walks its rows with RG = 1, writes (m, l, acc) to its record
+// and arrives on the (sequence, head tile) counter; the last block to
+// arrive merges the records in a fixed order and sets the counter back.
+namespace split {
+
+constexpr int TK = 64;          // rows a key tile
+constexpr int HT = 16;          // heads a block: one mma row group
+constexpr int MAX_SPLITS = 32;  // ops/cuda/mla_decode.py:DECODE_MAX_SPLITS
+constexpr int REC = 2 * HT + HT * R;  // a state: m [HT], l [HT], acc [HT][R]
+constexpr int MAX_RECS = MAX_SPLITS + 1;  // the splits and a current token
+constexpr int SLOTS = (MAX_RECS + 31) / 32;  // merge records a lane
+constexpr int W_FLOATS = MAX_RECS * HT;      // the merge weights
+using Tl = Tile<1, TK>;
+
+// The block's state (walked with RG = 1) into its record.
+__device__ __forceinline__ void store_state(const State<1, TK>& st,
+                                            float* __restrict__ rec) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int h = g + 8 * e;
+    if (warp == 0 && q == 0) {
+      rec[h] = st.m[e];
+      rec[HT + h] = st.l[e];
+    }
+    float* a = rec + 2 * HT + h * R + warp * Tl::COLS + 2 * q;
+#pragma unroll
+    for (int t = 0; t < Tl::NTO; ++t)
+      *reinterpret_cast<float2*>(a + 8 * t) =
+          make_float2(st.acc[t][2 * e], st.acc[t][2 * e + 1]);
+  }
+}
+
+// Arrive on *cnt once the block's record is written; true (in every thread)
+// in the last of `blocks` blocks to arrive, whose reads then see every
+// record.
+__device__ __forceinline__ bool arrive_last(int* cnt, int blocks) {
+  __shared__ int last_s;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last_s = atomicAdd(cnt, 1) == blocks - 1;
+  __syncthreads();
+  const bool last = last_s;
+  if (last) __threadfence();
+  return last;
+}
+
+// Merge n records (record i at base + rec(i) * REC, in the order i = 0 ..
+// n - 1) with weights exp2(m_i - M) / L into out [nh][R] (bf16); w_s holds
+// W_FLOATS floats of shared memory. n = 0 gives zeros. Block-wide.
+template <class Rec>
+__device__ __forceinline__ void merge_states(const float* __restrict__ base,
+                                             int n, Rec rec,
+                                             float* __restrict__ w_s, int nh,
+                                             bf16* __restrict__ out) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int h = warp; h < HT; h += NWARP) {
+    float mi[SLOTS], li[SLOTS];
+    float mx = NEG_INF;
+#pragma unroll
+    for (int k = 0; k < SLOTS; ++k) {
+      const int i = lane + 32 * k;
+      const bool ok = i < n;
+      const float* ri = base + (size_t)rec(ok ? i : 0) * REC;
+      mi[k] = ok ? __ldcg(ri + h) : NEG_INF;
+      li[k] = ok ? __ldcg(ri + HT + h) : 0.f;
+      mx = fmaxf(mx, mi[k]);
+    }
+    mx = kt_mla::warp_max(mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < SLOTS; ++k) {
+      mi[k] = lane + 32 * k < n ? exp2f(mi[k] - mx) : 0.f;
+      sum += li[k] * mi[k];
+    }
+    const float inv = 1.f / fmaxf(kt_mla::warp_sum(sum), 1e-30f);
+#pragma unroll
+    for (int k = 0; k < SLOTS; ++k)
+      if (lane + 32 * k < n) w_s[(lane + 32 * k) * HT + h] = mi[k] * inv;
+  }
+  __syncthreads();
+  // 16 threads a head, eight float4 of columns each (c4 = c0 + 16 j)
+  const int h = tid >> 4, c0 = tid & 15;
+  if (h >= nh) return;
+  float4 o[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+  for (int i = 0; i < n; ++i) {
+    const float w = w_s[i * HT + h];
+    const float4* src = reinterpret_cast<const float4*>(
+                            base + (size_t)rec(i) * REC + 2 * HT + h * R) +
+                        c0;
+    float4 v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = __ldcg(src + 16 * j);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[j].x += w * v[j].x;
+      o[j].y += w * v[j].y;
+      o[j].z += w * v[j].z;
+      o[j].w += w * v[j].w;
+    }
+  }
+  bf16* orow = out + (size_t)h * R;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    __nv_bfloat162* d =
+        reinterpret_cast<__nv_bfloat162*>(orow + 4 * (c0 + 16 * j));
+    d[0] = __floats2bfloat162_rn(o[j].x, o[j].y);
+    d[1] = __floats2bfloat162_rn(o[j].z, o[j].w);
+  }
+}
+
+}  // namespace split
 
 }  // namespace kt_mla_mma

@@ -1,12 +1,15 @@
-// Building blocks of the tensor-core matmuls (quant_matmul.cu's
+// Building blocks of the tensor-core kernels (quant_matmul.cu's
 // quant_mma_kernel, w4a8_mma.cuh's w4a8_mma_kernel, w4a8_ffn.cu's
-// w4a8_ffn_mma_kernel, quant_matmul_t.cu's quant_wgmma_t_kernel):
+// w4a8_ffn_mma_kernel, quant_matmul_t.cu's quant_wgmma_t_kernel, the
+// attention kernels of mla_mma.cuh and gqa_paged_attention.cu):
 // asynchronous copies from global into shared memory (cp.async,
 // zero-filled where the source lies outside the operand),
-// ldmatrix, the mma.sync shapes they use, and Hopper's mbarriers and
+// ldmatrix, the mma.sync shapes they use, the quad reductions and bf16
+// packing of an mma fragment, and Hopper's mbarriers and
 // warpgroup MMA (wgmma) with its shared-memory descriptors.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -102,6 +105,23 @@ __device__ __forceinline__ void mma_s8_16816(int c[4], const uint32_t a[2],
       "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(b0));
+}
+
+// Two floats as a bf16 pair (lo in the low half): an mma A-fragment register.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Max / sum over the 4 lanes of a quad (the lanes that share an mma row).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // ------------------------------------------------------------- Hopper

@@ -14,7 +14,9 @@
 // live rows, lengths[b] * (R + DR) elements. One block per (sequence, group
 // of HG heads); its 8 warps stride over the live rows with the online
 // softmax of online_softmax.cuh, each row's address taken through the page
-// table. Splitting a long sequence over more blocks is later work.
+// table. That kernel keeps float32 calls; bf16 calls take
+// mla_paged_decode_split_kernel (the end of this file), which splits each
+// sequence over blocks on the tensor cores.
 //
 // mla_paged_prefill: S new tokens per chunk, already written to the pages;
 // `lengths` is the OLD cached length (chunk excluded), `valid` the live new
@@ -522,4 +524,143 @@ extern "C" int kt_mla_prefill_mma(const void* qn, const void* qp,
                                               tb, ln, vl, C, H, S, page, pmax,
                                               scale, out, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---- mla_paged_decode_split_kernel: the bf16 mla_paged_decode, split over
+// the pages ----
+//
+// Replaces ktransformers_tpu/ops/pallas/paged_attention.py:mla_paged_decode
+// (body _mla_kernel) for bf16 operands; computes what
+// mla_paged_decode_kernel computes. Bound: the bytes of the live rows,
+// lengths[b] * (R + DR) * 2, read once. The first version ran one block per
+// (sequence, 4 heads), 32 blocks at the serving batch of 8 x 16 heads for
+// 132 SMs, each walking every live row of its sequence on float32 FMAs and
+// each row read once per head group: the longest sequence set the time.
+// Here, as mla_decode.cu's mla_decode_split_kernel without its
+// current-token block (the current token is already in the pages):
+// - the grid is (B, splits, ceil(H / 16)). Block (b, s, t) takes the
+//   positions [s * span, (s + 1) * span) of sequence b, cut at lengths[b],
+//   for the 16 heads 16 t .. 16 t + 15 (missing heads zero rows), so each
+//   row is read once a head tile; (splits, span) is
+//   ops/cuda/mla_decode.py:decode_split_plan over the pool's pmax * page
+//   positions, a pure function of the shapes: lengths stay on the card;
+// - the 16 heads are the 16 rows of one mma.sync tile (mla_mma.cuh, RG =
+//   1): tiles of 64 positions, each row's [ckv | kpe] copied through the
+//   page table with 16-byte cp.async into a two-stage ring, rows past the
+//   split's end zero-filled and never read (recycled pages may hold NaN);
+// - a block with a row writes (m, l, acc[16][512]) to its record of part
+//   and every block arrives on the (sequence, head tile) counter; the last
+//   to arrive merges the splits that start below lengths[b] in split order
+//   (weights exp2(m_i - M) / L; none: zeros) and sets the counter back.
+//   One launch, the same bits on every call.
+// Shared memory: query rows 16 x 1168 B, the ring 2 x 64 x 1168 B, scores
+// 16 x 72 x 4 B, the merge weights 2 KB: 171 KB, one block an SM. ptxas
+// (sm_90a): 132 registers, no spill.
+namespace kt_mla_mma {
+namespace split {
+
+constexpr int PAGED_SMEM = Tl::SMEM + W_FLOATS * 4;
+
+__global__ void __launch_bounds__(THREADS, 1)
+    mla_paged_decode_split_kernel(const bf16* __restrict__ qn,
+                                  const bf16* __restrict__ qp,
+                                  const bf16* __restrict__ ckv_pages,
+                                  const bf16* __restrict__ kpe_pages,
+                                  const int* __restrict__ tables,
+                                  const int* __restrict__ lengths, int H,
+                                  int page, int pmax, int span, float scale,
+                                  float* __restrict__ part,
+                                  int* __restrict__ cnt,
+                                  bf16* __restrict__ out) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* k_s = q_s + Tl::ROWS * LDS;
+  float* s_s = reinterpret_cast<float*>(smem + Tl::Q_BYTES + 2 * Tl::K_BYTES);
+  float* w_s = reinterpret_cast<float*>(smem + Tl::SMEM);
+
+  const int b = blockIdx.x, sp = blockIdx.y, ht = blockIdx.z;
+  const int splits = gridDim.y;
+  const int h0 = ht * HT;
+  const int nh = min(HT, H - h0);
+  const int len = min(max(lengths[b], 0), page * pmax);
+  const int start = sp * span;
+  const int end = min(len, start + span);
+  const int nt = end > start ? (end - start + TK - 1) / TK : 0;
+  const int* tb = tables + (size_t)b * pmax;
+  const size_t pair = (size_t)b * gridDim.z + ht;
+  float* base = part + pair * splits * REC;
+
+  if (nt > 0) {
+    stage_rows<HT>(q_s, [&](int i, const bf16*& cr, const bf16*& pr) {
+      const bool ok = i < nh;
+      const size_t row = (size_t)b * H + h0 + (ok ? i : 0);
+      cr = qn + row * R;
+      pr = qp + row * DR;
+      return ok;
+    });
+    auto keys = [&](bf16* dst, int k0) {
+      stage_rows<TK>(dst, [&](int r, const bf16*& cr, const bf16*& pr) {
+        const int pos = k0 + r;
+        const bool ok = pos < end;
+        const size_t row =
+            ok ? (size_t)__ldg(tb + pos / page) * page + pos % page : 0;
+        cr = ckv_pages + row * R;
+        pr = kpe_pages + row * DR;
+        return ok;
+      });
+    };
+    keys(k_s, start);
+    kt_mma::cp_async_commit();
+    State<1, TK> st;
+    st.clear();
+    const int lim[2] = {end, end};
+    walk<1, TK>(q_s, k_s, s_s, start, nt, scale * LOG2E, lim, keys, st);
+    store_state(st, base + (size_t)sp * REC);
+  }
+  if (!arrive_last(cnt + pair, splits)) return;
+#if !KT_MLA_CUT_MERGE  // ops/cuda/breakdown.py: the merge compiled out
+  merge_states(base, min(splits, (len + span - 1) / span),
+               [](int i) { return i; }, w_s, nh,
+               out + ((size_t)b * H + h0) * R);
+#endif
+  if (threadIdx.x == 0) cnt[pair] = 0;  // ready for the next launch
+}
+
+}  // namespace split
+}  // namespace kt_mla_mma
+
+// The bf16 mla_paged_decode on mla_paged_decode_split_kernel: operands as
+// kt_mla_paged_decode (bf16 only, any H); `splits` blocks of `span`
+// positions a sequence and head tile (splits * span >= page * pmax, 1 <=
+// splits <= MAX_SPLITS); part holds B * ceil(H / 16) * splits * REC
+// floats, cnt B * ceil(H / 16) ints, zero on entry (left zero).
+extern "C" int kt_mla_paged_decode_split(const void* qn, const void* qp,
+                                         const void* ckv_pages,
+                                         const void* kpe_pages,
+                                         const void* tables,
+                                         const void* lengths, int B, int H,
+                                         int page, int pmax, int splits,
+                                         int span, float scale, void* part,
+                                         void* cnt, void* out, void* stream) {
+  namespace K = kt_mla_mma::split;
+  if (H <= 0 || page <= 0 || pmax <= 0 || splits < 1 ||
+      splits > K::MAX_SPLITS || span <= 0 ||
+      (long long)splits * span < (long long)page * pmax || part == nullptr ||
+      cnt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  static int ready_dev = -1;
+  cudaError_t err = kt_mma::allow_smem(K::mla_paged_decode_split_kernel,
+                                       K::PAGED_SMEM, &ready_dev);
+  if (err != cudaSuccess) return (int)err;
+  using T = __nv_bfloat16;
+  dim3 grid(B, splits, (H + K::HT - 1) / K::HT);
+  K::mla_paged_decode_split_kernel<<<grid, kt_mla_mma::THREADS, K::PAGED_SMEM,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(qn), static_cast<const T*>(qp),
+      static_cast<const T*>(ckv_pages), static_cast<const T*>(kpe_pages),
+      static_cast<const int*>(tables), static_cast<const int*>(lengths), H,
+      page, pmax, span, scale, static_cast<float*>(part),
+      static_cast<int*>(cnt), static_cast<T*>(out));
+  return (int)cudaGetLastError();
 }

@@ -51,6 +51,7 @@ SIGNATURES = {
         "kt_mla_paged_decode": [P] * 6 + [I, I, I, I, F, I] + [P, P],
         "kt_mla_paged_prefill": [P] * 7 + [I] * 5 + [F, I] + [P, P],
         "kt_mla_prefill_mma": [P] * 7 + [I] * 5 + [F, I] + [P, P],
+        "kt_mla_paged_decode_split": [P] * 6 + [I] * 6 + [F] + [P] * 4,
     },
     "quant_matmul": {
         "kt_quant_rows": [P] * 7 + [I] * 11 + [P, P],
@@ -65,6 +66,7 @@ SIGNATURES = {
         "kt_gqa_paged_decode": [P] * 5 + [I] * 6 + [F, I] + [P, P, P],
         "kt_gqa_decode_pieces": [I, I],
         "kt_gqa_paged_prefill": [P] * 6 + [I] * 7 + [F, I] + [P, P],
+        "kt_gqa_prefill_mma": [P] * 6 + [I] * 7 + [F, I] + [P, P],
     },
 }
 

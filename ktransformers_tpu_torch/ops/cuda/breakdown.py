@@ -28,7 +28,13 @@ shapes (L2 flushed before each launch, median of 20):
   without both and the exponentials;
 - mla_prefill_mma_kernel (bf16 mla_paged_prefill, 16 heads, the plan's
   block shape): without the products, without the exponentials, without
-  both.
+  both;
+- mla_paged_decode_split_kernel (bf16 mla_paged_decode, 16 heads, the
+  serving batch over page 64): without the products, without the merge,
+  without both and the exponentials;
+- gqa_prefill_mma_kernel (bf16 gqa_paged_prefill, Mixtral's 32 / 8 heads,
+  the plan's block shape): without the products, without the
+  exponentials, without both.
 What is left with the main parts out is the skeleton: copies, barriers,
 loads. The outputs of the cut variants are garbage; only their times are
 read. The copies and libraries go to csrc/build/breakdown/ (git-ignored);
@@ -123,6 +129,15 @@ VARIANTS = {
         "full": [], "no_mma": ["-DKT_MLA_CUT_MMA=1"],
         "no_softmax": ["-DKT_MLA_CUT_SOFTMAX=1"],
         "skeleton": ["-DKT_MLA_CUT_MMA=1", "-DKT_MLA_CUT_SOFTMAX=1"]}),
+    "mla_paged_decode_split_kernel": ("paged_attention", {
+        "full": [], "no_mma": ["-DKT_MLA_CUT_MMA=1"],
+        "no_merge": ["-DKT_MLA_CUT_MERGE=1"],
+        "skeleton": ["-DKT_MLA_CUT_MMA=1", "-DKT_MLA_CUT_SOFTMAX=1",
+                     "-DKT_MLA_CUT_MERGE=1"]}),
+    "gqa_prefill_mma_kernel": ("gqa_paged_attention", {
+        "full": [], "no_mma": ["-DKT_GQA_CUT_MMA=1"],
+        "no_softmax": ["-DKT_GQA_CUT_SOFTMAX=1"],
+        "skeleton": ["-DKT_GQA_CUT_MMA=1", "-DKT_GQA_CUT_SOFTMAX=1"]}),
 }
 OUT = os.path.join(_build.BUILD, "breakdown")
 
@@ -157,7 +172,8 @@ def build_variants(src: str, kernels) -> dict:
             cmd = [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17",
                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", src,
                    f"-Dkt=kt_{tag}", f"-Dkt_mma=kt_mma_{tag}",
-                   f"-Dkt_mla_mma=kt_mla_mma_{tag}", *flags,
+                   f"-Dkt_mla_mma=kt_mla_mma_{tag}",
+                   f"-Dkt_gqa_mma=kt_gqa_mma_{tag}", *flags,
                    "-o", out, os.path.join(src, f"{lib}.cu")]
             procs[(kernel, v)] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -311,6 +327,30 @@ def shapes_of(kernel: str, rn, w, rd) -> list:
                     0.07)
             out.append((f"C={c} S={s} old={olds} valid={valids}",
                         lambda args=args: PA.prefill_launcher(*args, "mma")))
+    elif kernel == "mla_paged_decode_split_kernel":
+        lens = [1, 64, 65, 512, 513, 1000, 2047, 2048]
+        tables = (torch.randperm(8 * 32, generator=torch.Generator()
+                                 .manual_seed(8)) + 1).reshape(8, 32).to(
+            torch.int32).cuda()
+        args = (rn(8, 16, 512), rn(8, 16, 64), rn(8 * 32 + 1, 64, 512),
+                rn(8 * 32 + 1, 64, 64), tables,
+                torch.tensor(lens, dtype=torch.int32, device="cuda"), 0.07)
+        out.append(("B=8 H=16 page=64 lengths 1..2048",
+                    lambda: PA.decode_launcher(*args, kernel="split")))
+    elif kernel == "gqa_prefill_mma_kernel":
+        for olds, valids in (([256], [256]), ([0, 256], [256, 200])):
+            c = len(olds)
+            tables = (torch.randperm(c * 32, generator=torch.Generator()
+                                     .manual_seed(c)) + 1).reshape(
+                c, 32).to(torch.int32).cuda()
+            args = (rn(c, 32, 256, 128), rn(c * 32 + 1, 64, 8, 128),
+                    rn(c * 32 + 1, 64, 8, 128), tables,
+                    torch.tensor(olds, dtype=torch.int32, device="cuda"),
+                    torch.tensor(valids, dtype=torch.int32, device="cuda"),
+                    128 ** -0.5)
+            out.append((f"C={c} S=256 H=32 Hkv=8 old={olds} valid={valids}",
+                        lambda args=args: PA.gqa_prefill_launcher(
+                            *args, kernel="mma")))
     return out
 
 

@@ -24,10 +24,20 @@ Three meanings of ``lengths`` meet here:
 Bound on the card: decode by the bytes of the live rows; prefill at the
 serving shapes by the operations of its two products.
 
-mla_paged_prefill routes a CUDA call by ``prefill_route``: bf16 operands
-take mla_prefill_mma_kernel (tensor cores, RG heads x 16 positions a block
-by ``prefill_plan``), float32 keeps the first version,
-mla_paged_prefill_kernel.
+Three wrappers route a CUDA call by the operands' type; float32 keeps
+the first versions, whose card tests hold 1e-5 and which bf16 products
+could not:
+- mla_paged_decode by ``decode_route``: bf16 takes
+  mla_paged_decode_split_kernel (each sequence's positions split over
+  blocks by ops/cuda/mla_decode.decode_split_plan, 16 heads an mma row
+  group, the splits merged in the same launch), float32
+  mla_paged_decode_kernel;
+- mla_paged_prefill by ``prefill_route``: bf16 takes
+  mla_prefill_mma_kernel (tensor cores, RG heads x 16 positions a block by
+  ``prefill_plan``), float32 mla_paged_prefill_kernel;
+- gqa_paged_prefill by ``gqa_prefill_route``: bf16 takes
+  gqa_prefill_mma_kernel (tensor cores, 64 or 128 flattened query rows a
+  block by ``gqa_prefill_plan``), float32 gqa_paged_prefill_kernel.
 """
 
 from __future__ import annotations
@@ -36,7 +46,10 @@ import torch
 
 from ktransformers_tpu_torch.ops.cuda import LAUNCHES, ROUTED_LAUNCHES
 from ktransformers_tpu_torch.ops.cuda import _build
+from ktransformers_tpu_torch.ops.cuda import mla_decode as MD
 from ktransformers_tpu_torch.ops.cuda.mla_decode import (
+    DECODE_HEADS,
+    DECODE_REC,
     KERNEL_DR,
     KERNEL_HG,
     KERNEL_R,
@@ -45,6 +58,7 @@ from ktransformers_tpu_torch.ops.cuda.mla_decode import (
 from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
     check_cuda_operands,
     device_kind,
+    scratch,
     sm_count,
 )
 
@@ -53,6 +67,14 @@ from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
 PREFILL_POSITIONS = 16
 PREFILL_HEADS = (4, 2)
 PREFILL_KERNEL_NAMES = {"mma": "mla_prefill_mma_kernel"}
+DECODE_KERNEL_NAMES = {"split": "mla_paged_decode_split_kernel"}
+
+
+def decode_route(dtype: torch.dtype) -> str:
+    """The kernel of a CUDA mla_paged_decode call: "split"
+    (mla_paged_decode_split_kernel) for bf16 operands, "first"
+    (mla_paged_decode_kernel) for float32."""
+    return "split" if dtype == torch.bfloat16 else "first"
 
 
 def prefill_route(dtype: torch.dtype) -> str:
@@ -179,19 +201,45 @@ def _check_cuda(what, q_nope_eff, q_pe, ckv_pages, kpe_pages, *ints):
 
 
 def decode_launcher(q_nope_eff, q_pe, ckv_pages, kpe_pages, page_tables,
-                    lengths, scale: float):
+                    lengths, scale: float, kernel: str | None = None):
     """Checks a CUDA call and allocates its output; returns (launch, out),
-    where launch() runs only the kernel."""
+    where launch() runs only the kernel. ``kernel`` ("split" or "first")
+    overrides ``decode_route``, for a measurement."""
     what = "mla_paged_decode"
     _check_cuda(what, q_nope_eff, q_pe, ckv_pages, kpe_pages, page_tables,
                 lengths)
     b, h, _ = q_nope_eff.shape
-    if h % KERNEL_HG:
+    dt = q_nope_eff.dtype
+    kernel = kernel or decode_route(dt)
+    if kernel == "first" and h % KERNEL_HG:
         raise ValueError(f"{what}: kernel takes H % {KERNEL_HG} == 0; got {h}")
+    if kernel == "split" and dt != torch.bfloat16:
+        raise ValueError(f"{what}: mla_paged_decode_split_kernel takes "
+                         "bfloat16")
     out = torch.empty_like(q_nope_eff)
-    fn = _build.lib("paged_attention").kt_mla_paged_decode
+    lib = _build.lib("paged_attention")
     page, pmax = ckv_pages.shape[1], page_tables.shape[1]
-    is_bf16 = int(q_nope_eff.dtype == torch.bfloat16)
+    if kernel == "split":
+        dev = out.device
+        # the plan reads the module attribute, so a test can force one
+        splits, span = MD.decode_split_plan(b, pmax * page, h, sm_count(dev))
+        pairs = b * -(-h // DECODE_HEADS)
+        part, cnt = scratch(dev, pairs * splits * DECODE_REC, pairs,
+                            "mla_paged_decode_split")
+
+        def launch_split():
+            err = lib.kt_mla_paged_decode_split(
+                q_nope_eff.data_ptr(), q_pe.data_ptr(), ckv_pages.data_ptr(),
+                kpe_pages.data_ptr(), page_tables.data_ptr(),
+                lengths.data_ptr(), b, h, page, pmax, splits, span,
+                float(scale), part.data_ptr(), cnt.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+            _build.check(err, what)
+
+        return launch_split, out
+    fn = lib.kt_mla_paged_decode
+    is_bf16 = int(dt == torch.bfloat16)
 
     def launch():
         err = fn(
@@ -256,10 +304,13 @@ def mla_paged_decode(q_nope_eff, q_pe, ckv_pages, kpe_pages, page_tables,
     if device_kind(q_nope_eff, what) == "cpu":
         return mla_paged_decode_ref(q_nope_eff, q_pe, ckv_pages, kpe_pages,
                                     page_tables, lengths, scale)
+    kernel = decode_route(q_nope_eff.dtype)
     launch, out = decode_launcher(q_nope_eff, q_pe, ckv_pages, kpe_pages,
-                                  page_tables, lengths, scale)
+                                  page_tables, lengths, scale, kernel)
     launch()
     LAUNCHES[what] += 1
+    if kernel in DECODE_KERNEL_NAMES:
+        ROUTED_LAUNCHES[DECODE_KERNEL_NAMES[kernel]] += 1
     return out
 
 
@@ -295,6 +346,30 @@ def mla_paged_prefill(q_nope_eff, q_pe, ckv_pages, kpe_pages, page_tables,
 
 GQA_KERNEL_D = 128  # head dim the kernels take
 GQA_KERNEL_GMAX = 8  # query heads per KV head the decode kernel takes
+# gqa_prefill_mma_kernel (csrc/gqa_paged_attention.cu): a block holds one
+# of GQA_PREFILL_ROWS flattened (position, head) query rows of one KV head
+# with 8 warps (at 64 rows two warps a 16-row group, splitting the keys)
+GQA_PREFILL_ROWS = (64, 128)
+GQA_PREFILL_KERNEL_NAMES = {"mma": "gqa_prefill_mma_kernel"}
+
+
+def gqa_prefill_route(dtype: torch.dtype) -> str:
+    """The kernel of a CUDA gqa_paged_prefill call: "mma"
+    (gqa_prefill_mma_kernel) for bf16 operands, "first"
+    (gqa_paged_prefill_kernel) for float32. No other call takes the first
+    version."""
+    return "mma" if dtype == torch.bfloat16 else "first"
+
+
+def gqa_prefill_plan(c: int, h: int, hkv: int, s: int, sms: int) -> int:
+    """Flattened query rows a block of gqa_prefill_mma_kernel: 128 (each
+    staged K / V tile serving 128 rows) where that gives more than one
+    block for every two SMs, else 64 (twice the blocks, each tile's keys
+    split between the two warps of a row group). On the H100 at Mixtral's
+    widths 64 won at 64 blocks of 128 rows (C = 1, S = 256), 128 at 128
+    and 256 (C = 2, S = 256; S = 512) (ops/cuda/split_sweep.py)."""
+    blocks = c * hkv * -(-(h // hkv) * s // 128)
+    return 128 if 2 * blocks > sms else 64
 
 
 def gqa_paged_decode_ref(q, k_pages, v_pages, page_tables, lengths,
@@ -406,23 +481,32 @@ def gqa_decode_launcher(q, k_pages, v_pages, page_tables, lengths,
 
 
 def gqa_prefill_launcher(q, k_pages, v_pages, page_tables, lengths, valid,
-                         scale: float, window: int = 0):
-    """As gqa_decode_launcher, for gqa_paged_prefill."""
+                         scale: float, window: int = 0,
+                         kernel: str | None = None):
+    """As gqa_decode_launcher, for gqa_paged_prefill. ``kernel`` ("mma"
+    or "first") overrides ``gqa_prefill_route``, for a measurement."""
     what = "gqa_paged_prefill"
     _check_gqa_cuda(what, q, k_pages, v_pages, page_tables, lengths, valid)
     c, h, s, _ = q.shape
+    hkv = k_pages.shape[2]
+    kernel = kernel or gqa_prefill_route(q.dtype)
+    if kernel == "mma" and q.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: gqa_prefill_mma_kernel takes bfloat16")
     out = torch.empty_like(q)
-    fn = _build.lib("gqa_paged_attention").kt_gqa_paged_prefill
+    lib = _build.lib("gqa_paged_attention")
     page, pmax = k_pages.shape[1], page_tables.shape[1]
-    is_bf16 = int(q.dtype == torch.bfloat16)
+    if kernel == "mma":
+        fn = lib.kt_gqa_prefill_mma
+        mode = gqa_prefill_plan(c, h, hkv, s, sm_count(out.device))
+    else:  # the first version's last int is the dtype flag
+        fn, mode = lib.kt_gqa_paged_prefill, int(q.dtype == torch.bfloat16)
 
     def launch():
         err = fn(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_tables.data_ptr(), lengths.data_ptr(), valid.data_ptr(), c,
-            h, k_pages.shape[2], s, page, pmax, int(window), float(scale),
-            is_bf16, out.data_ptr(),
-            torch.cuda.current_stream(out.device).cuda_stream,
+            h, hkv, s, page, pmax, int(window), float(scale), mode,
+            out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream,
         )
         _build.check(err, what)
 
@@ -470,8 +554,11 @@ def gqa_paged_prefill(q, k_pages, v_pages, page_tables, lengths, valid,
     if device_kind(q, what) == "cpu":
         return gqa_paged_prefill_ref(q, k_pages, v_pages, page_tables,
                                      lengths, valid, scale, window)
+    kernel = gqa_prefill_route(q.dtype)
     launch, out = gqa_prefill_launcher(q, k_pages, v_pages, page_tables,
-                                       lengths, valid, scale, window)
+                                       lengths, valid, scale, window, kernel)
     launch()
     LAUNCHES[what] += 1
+    if kernel in GQA_PREFILL_KERNEL_NAMES:
+        ROUTED_LAUNCHES[GQA_PREFILL_KERNEL_NAMES[kernel]] += 1
     return out

@@ -1,18 +1,21 @@
-"""Time the split-K GEMVs, the split-N wgmma kernel and the two bf16 MLA
+"""Time the split-K GEMVs, the split-N wgmma kernel and the four bf16
 attention kernels at the main path's shapes under several split counts
 or block shapes, on one GPU.
 
     python -m ktransformers_tpu_torch.ops.cuda.split_sweep [section ...]
 
 Sections (default: all): gemv, w4a8_gemv, wgmma_t, mla_decode,
-mla_prefill. quant_gemv_kernel (int8 weights, bf16 x, M = 1 and the
-gathered entry), w4a8_gemv_kernel (W4A8 weights, bf16 x, M = 1: splits of
-whole scale groups), quant_wgmma_t_kernel (W4A8 weights, bf16 dy, the SFT
-step's 512 rows), mla_decode_split_kernel (16 heads, rows a split) and
-mla_prefill_mma_kernel (16 heads, heads a block) are launched through
-their wrappers' launchers with the planner replaced by a fixed count; the
-planner's own choice is marked, and the MLA rows also time the first
-version ("first"). Each time is the median of 20 launches with the L2
+mla_prefill, mla_paged_decode, gqa_prefill. quant_gemv_kernel (int8
+weights, bf16 x, M = 1 and the gathered entry), w4a8_gemv_kernel (W4A8
+weights, bf16 x, M = 1: splits of whole scale groups),
+quant_wgmma_t_kernel (W4A8 weights, bf16 dy, the SFT step's 512 rows),
+mla_decode_split_kernel (16 heads, rows a split), mla_prefill_mma_kernel
+(16 heads, heads a block), mla_paged_decode_split_kernel (16 heads, the
+serving batch, positions a split) and gqa_prefill_mma_kernel (Mixtral's
+32 / 8 heads, query rows a block) are launched through their wrappers'
+launchers with the planner replaced by a fixed count; the planner's own
+choice is marked, and the attention rows also time the first version
+("first"). Each time is the median of 20 launches with the L2
 cache flushed before each (as chip_smoke.py times its kernels), beside the
 one-call library yardstick (torch.matmul on the bf16-dequantized weight)
 where there is one; the attention kernels' yardstick is chip_smoke.py's.
@@ -67,8 +70,7 @@ def main() -> int:
         return torch.randn(*shape, device="cuda", generator=rd.gen).to(
             torch.bfloat16)
 
-    sections = sys.argv[1:] or ["gemv", "w4a8_gemv", "wgmma_t", "mla_decode",
-                                "mla_prefill"]
+    sections = sys.argv[1:] or list(SECTIONS)
     result = dict(card=card)
     for name in sections:
         result[name] = {}
@@ -214,9 +216,75 @@ def mla_prefill_section(result, rd, rn):
         result[label] = row
 
 
+def mla_paged_decode_section(result, rd, rn):
+    """mla_paged_decode_split_kernel at the serving batch (8 sequences of
+    lengths 1..2048, 16 heads, 32 pages a sequence) under forced positions
+    a split, at page 16, 64 and 128, the first version beside it."""
+    from ktransformers_tpu_torch.ops.cuda import mla_decode as MD
+    from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
+
+    h, r, dr = 16, 512, 64
+    scale = (128 + 64) ** -0.5
+    lens = [1, 64, 65, 512, 513, 1000, 2047, 2048]
+    for page in (16, 64, 128):
+        pmax = 2048 // page
+        perm = torch.randperm(8 * pmax, generator=torch.Generator()
+                              .manual_seed(page)) + 1
+        tables = perm.reshape(8, pmax).to(torch.int32).cuda()
+        args = (rn(8, h, r), rn(8, h, dr), rn(8 * pmax + 1, page, r),
+                rn(8 * pmax + 1, page, dr), tables,
+                torch.tensor(lens, dtype=torch.int32, device="cuda"), scale)
+        spans = [sp for sp in (64, 128, 256, 512, 1024, 2048)
+                 if -(-2048 // sp) <= MD.DECODE_MAX_SPLITS]
+        label = f"B=8 page={page} lengths 1..2048"
+        row = sweep(f"mla_paged_decode_split {label}, positions a split", MD,
+                    "decode_split_plan",
+                    lambda sp: (lambda *a: (-(-2048 // sp), sp)), spans,
+                    lambda args=args: PA.decode_launcher(*args,
+                                                         kernel="split"),
+                    None)
+        row["first_ms"] = time_ms(PA.decode_launcher(*args,
+                                                     kernel="first")[0])
+        print(f"  first {row['first_ms']:.4f}", flush=True)
+        result[label] = row
+
+
+def gqa_prefill_section(result, rd, rn):
+    """gqa_prefill_mma_kernel at Mixtral's widths (32 query heads over 8 KV
+    heads of 128, page 64), 64 or 128 query rows a block, the first version
+    beside it, at the chunks chip_smoke.py times and at S = 512."""
+    from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
+
+    h, hkv, d, page, pmax = 32, 8, 128, 64, 32
+    for olds, s, valids in (([256], 256, [256]), ([0, 256], 256, [256, 200]),
+                            ([0], 512, [512]), ([0, 256], 512, [512, 456])):
+        c = len(olds)
+        perm = torch.randperm(c * pmax, generator=torch.Generator()
+                              .manual_seed(s + c)) + 1
+        tables = perm.reshape(c, pmax).to(torch.int32).cuda()
+        args = (rn(c, h, s, d), rn(c * pmax + 1, page, hkv, d),
+                rn(c * pmax + 1, page, hkv, d), tables,
+                torch.tensor(olds, dtype=torch.int32, device="cuda"),
+                torch.tensor(valids, dtype=torch.int32, device="cuda"),
+                d ** -0.5)
+        label = f"C={c} S={s} old={olds} valid={valids}"
+        row = sweep(f"gqa_prefill_mma {label}, rows a block", PA,
+                    "gqa_prefill_plan", lambda rows: (lambda *a: rows),
+                    PA.GQA_PREFILL_ROWS,
+                    lambda args=args: PA.gqa_prefill_launcher(*args,
+                                                              kernel="mma"),
+                    None)
+        row["first_ms"] = time_ms(PA.gqa_prefill_launcher(
+            *args, kernel="first")[0])
+        print(f"  first {row['first_ms']:.4f}", flush=True)
+        result[label] = row
+
+
 SECTIONS = {"gemv": gemv_section, "w4a8_gemv": w4a8_gemv_section,
             "wgmma_t": wgmma_t_section, "mla_decode": mla_decode_section,
-            "mla_prefill": mla_prefill_section}
+            "mla_prefill": mla_prefill_section,
+            "mla_paged_decode": mla_paged_decode_section,
+            "gqa_prefill": gqa_prefill_section}
 
 
 if __name__ == "__main__":

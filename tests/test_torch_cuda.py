@@ -31,10 +31,12 @@ Tolerances, as a share of the reference's largest magnitude:
   plain group dot of the kernel's own activation codes on the card (the
   prep is held to its plain version by test_w4a8_prep), and 1e-2 for the
   W4A8 FFN on tensor cores (as the FFN kernels);
-- 1e-2 for the bf16 MLA kernels on the tensor cores (mla_decode_split_kernel
-  and mla_prefill_mma_kernel, `-k mla`): bf16 scores summed in float32, P
-  rounded to bf16 before P V; float32 calls keep the first versions at
-  1e-5;
+- 1e-2 for the bf16 attention kernels on the tensor cores
+  (mla_decode_split_kernel and mla_prefill_mma_kernel, `-k mla`;
+  mla_paged_decode_split_kernel and gqa_prefill_mma_kernel,
+  `-k "gqa or mla_paged"`, each sequence or chunk against its own largest
+  value): bf16 scores summed in float32, P rounded to bf16 before P V;
+  float32 calls keep the first versions at 1e-5;
 - 1e-5 for the transposed matmuls of the SFT backward at these widths
   (N <= 3648; dx is float32; both sides round the same operands to bf16,
   the kernel sums their products on the tensor cores, the plain version
@@ -1279,3 +1281,183 @@ def test_w4a8_ffn_mma_grouped(cuda, tokens, dtype):
     launch, first = F.grouped_launcher(xs, gu, dn, sizes, "silu", "rows")
     launch()
     assert _rel(first, ref) <= 1e-2
+
+
+# ------------------------- redesigned paged attention, rows 12 and 15 (bf16)
+
+
+def _bf_pool(rng, b, pmax, page, live, widths):
+    """bf16 pools [b * pmax + 1, page, *width] (one per width) on shuffled
+    tables; every row at or past a sequence's live length, and every page no
+    table names, is NaN, except row 0 of page 0 (the serving pool's trash
+    page, which an inactive batch row reads)."""
+    n = b * pmax + 1
+    tables = (rng.permutation(n - 1)[: b * pmax] + 1).reshape(
+        b, pmax).astype(np.int32)
+    pools = []
+    for width in widths:
+        buf = np.full((n * page, *width), np.nan, np.float32)
+        buf[0] = rng.standard_normal(width)
+        for i, ln in enumerate(live):
+            pos = np.arange(ln)
+            rows = tables[i, pos // page].astype(np.int64) * page + pos % page
+            buf[rows] = rng.standard_normal((ln, *width))
+        pools.append(torch.from_numpy(buf.reshape(n, page, *width))
+                     .bfloat16())
+    return pools, torch.from_numpy(tables)
+
+
+def _mla_paged_case(rng, page, h, lens):
+    """bf16 operands of mla_paged_decode over 2048 positions a sequence;
+    the last row is an inactive batch row (zero table, length 1)."""
+    pmax = 2048 // page
+    b = len(lens) + 1
+    (ckv, kpe), tables = _bf_pool(rng, b, pmax, page, lens + [0],
+                                  [(512,), (64,)])
+    tables[-1] = 0
+    qn = _x(rng, b, h, 512).bfloat16()
+    qp = _x(rng, b, h, 64).bfloat16()
+    lengths = torch.tensor(lens + [1], dtype=torch.int32)
+    return qn, qp, ckv, kpe, tables, lengths
+
+
+MLA_PAGED_LENS = [0, 1, 15, 16, 63, 64, 65, 127, 128, 129, 1000, 2047, 2048]
+
+
+@pytest.mark.parametrize("h", [4, 8, 32])
+@pytest.mark.parametrize("page", [16, 64, 128])
+def test_mla_paged_decode_split(cuda, page, h):
+    """mla_paged_decode_split_kernel through mla_paged_decode (bf16)
+    against the plain version: page 16 / 64 / 128 over 2048 positions, H
+    below one head tile of 16 (4, 8) and two tiles (32); lengths 0 (zeros),
+    1, on and around 16-row units, 64-row tiles, pages and 128-row spans,
+    2047 and 2048; an inactive batch row; every pool row no sequence owns
+    NaN. A second call gives the same bits (the merge's counters were set
+    back), and ROUTED_LAUNCHES counts one a call."""
+    rng = np.random.default_rng(page + h)
+    lens = sorted(set(MLA_PAGED_LENS + [page - 1, page, page + 1]))
+    args = _mla_paged_case(rng, page, h, lens)
+    on = [t.to(cuda) for t in args]
+    split = ROUTED_LAUNCHES["mla_paged_decode_split_kernel"]
+    out = _counted("mla_paged_decode",
+                   lambda: PA.mla_paged_decode(*on, 0.07))
+    assert ROUTED_LAUNCHES["mla_paged_decode_split_kernel"] == split + 1
+    again = PA.mla_paged_decode(*on, 0.07)
+    ref = PA.mla_paged_decode_ref(*args, 0.07)
+    assert out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out.float()).all())
+    assert torch.equal(out, again)
+    assert torch.all(out[0] == 0)
+    for i in range(1, len(lens) + 1):
+        assert _rel(out[i], ref[i]) <= 1e-2, lens[i] if i < len(lens) else i
+
+
+@pytest.mark.parametrize("splits", ["one", "most"])
+def test_mla_paged_decode_split_plans(cuda, splits, monkeypatch):
+    """The kernel at a forced plan: one split of all 2048 positions, and
+    the most splits (DECODE_MAX_SPLITS of 64 positions)."""
+    rng = np.random.default_rng(5)
+    args = _mla_paged_case(rng, 64, 16, [0, 17, 700, 2048])
+    plan = (1, 2048) if splits == "one" else (MD.DECODE_MAX_SPLITS, 64)
+    monkeypatch.setattr(MD, "decode_split_plan", lambda *a: plan)
+    out = PA.mla_paged_decode(*[t.to(cuda) for t in args], 0.07)
+    ref = PA.mla_paged_decode_ref(*args, 0.07)
+    assert torch.all(out[0] == 0)
+    for i in range(1, 5):
+        assert _rel(out[i], ref[i]) <= 1e-2, i
+
+
+def test_mla_paged_decode_routes(cuda):
+    """float32 keeps the first version (not counted as routed, 1e-5); the
+    first version on bf16 operands (kernel="first", what chip_smoke.py
+    times beside the split kernel) agrees at 1e-2."""
+    rng = np.random.default_rng(6)
+    args = _mla_paged_case(rng, 64, 8, [0, 5, 300])
+    f32 = [t.float() if t.is_floating_point() else t for t in args]
+    split = ROUTED_LAUNCHES["mla_paged_decode_split_kernel"]
+    out = _counted("mla_paged_decode", lambda: PA.mla_paged_decode(
+        *[t.to(cuda) for t in f32], 0.07))
+    assert ROUTED_LAUNCHES["mla_paged_decode_split_kernel"] == split
+    assert _rel(out, PA.mla_paged_decode_ref(*f32, 0.07)) <= 1e-5
+    launch, first = PA.decode_launcher(*[t.to(cuda) for t in args], 0.07,
+                                       kernel="first")
+    launch()
+    assert _rel(first, PA.mla_paged_decode_ref(*args, 0.07)) <= 1e-2
+
+
+def _gqa_prefill_case(rng, page, g, s, olds, valids, hkv=2):
+    """bf16 operands of gqa_paged_prefill over 2048 positions a chunk."""
+    pmax = 2048 // page
+    live = [o + v for o, v in zip(olds, valids)]
+    (k, v), tables = _bf_pool(rng, len(olds), pmax, page, live,
+                              [(hkv, 128), (hkv, 128)])
+    q = _x(rng, len(olds), g * hkv, s, 128).bfloat16()
+    return (q, k, v, tables, torch.tensor(olds, dtype=torch.int32),
+            torch.tensor(valids, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("window", [0, 20, 512])
+@pytest.mark.parametrize("g", [1, 4, 6, 8])
+@pytest.mark.parametrize("page", [16, 64, 128])
+def test_gqa_prefill_mma(cuda, page, g, window):
+    """gqa_prefill_mma_kernel through gqa_paged_prefill (bf16) against the
+    plain version: G = 1, 4, 6 (16 rows not a multiple of it), 8 query
+    heads a KV head; window 0, 20, 512; old lengths 0, 1, on and around a
+    page, a 64-key tile and 2048 - S, valid < S and == S (S = 100, not a
+    multiple of 16), an empty chunk on an empty cache (zeros); every pool
+    row past the live length NaN. Padding rows (s >= valid) are compared
+    too and finite: they see every live key in their window, and a row
+    whose window holds none gives zeros in both. A second call gives the
+    same bits; ROUTED_LAUNCHES counts one a call."""
+    rng = np.random.default_rng(page * g + window)
+    s = 100
+    olds = [0, 1, page - 1, page + 1, 64, 2048 - s, 0]
+    valids = [s - 7, s, s - 1, 37, s, s, 0]
+    args = _gqa_prefill_case(rng, page, g, s, olds, valids)
+    on = [t.to(cuda) for t in args]
+    mma = ROUTED_LAUNCHES["gqa_prefill_mma_kernel"]
+    out = _counted("gqa_paged_prefill", lambda: PA.gqa_paged_prefill(
+        *on, 0.088, window=window))
+    assert ROUTED_LAUNCHES["gqa_prefill_mma_kernel"] == mma + 1
+    again = PA.gqa_paged_prefill(*on, 0.088, window=window)
+    ref = PA.gqa_paged_prefill_ref(*args, 0.088, window=window)
+    assert out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out.float()).all())
+    assert torch.equal(out, again)
+    assert torch.all(out[-1] == 0)
+    for i in range(len(olds) - 1):
+        assert _rel(out[i], ref[i]) <= 1e-2, (olds[i], valids[i])
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+def test_gqa_prefill_mma_plans(cuda, rows, monkeypatch):
+    """Both block shapes at Mixtral's widths (32 query heads over 8 KV
+    heads) and the mixed step's chunk (S = 256 after 256, and a padded
+    continued chunk beside a fresh one), the plan forced."""
+    rng = np.random.default_rng(rows)
+    args = _gqa_prefill_case(rng, 64, 4, 256, [256, 0], [256, 200], hkv=8)
+    monkeypatch.setattr(PA, "gqa_prefill_plan", lambda *a: rows)
+    launch, out = PA.gqa_prefill_launcher(*[t.to(cuda) for t in args],
+                                          0.088, kernel="mma")
+    launch()
+    ref = PA.gqa_paged_prefill_ref(*args, 0.088)
+    assert bool(torch.isfinite(out.float()).all())
+    for i in range(2):
+        assert _rel(out[i], ref[i]) <= 1e-2, i
+
+
+def test_gqa_prefill_routes(cuda):
+    """float32 keeps the first version (not counted as routed, 1e-5); the
+    first version on bf16 operands (kernel="first") agrees at 1e-2."""
+    rng = np.random.default_rng(7)
+    args = _gqa_prefill_case(rng, 16, 4, 40, [0, 19], [40, 33])
+    f32 = [t.float() if t.is_floating_point() else t for t in args]
+    mma = ROUTED_LAUNCHES["gqa_prefill_mma_kernel"]
+    out = _counted("gqa_paged_prefill", lambda: PA.gqa_paged_prefill(
+        *[t.to(cuda) for t in f32], 0.088))
+    assert ROUTED_LAUNCHES["gqa_prefill_mma_kernel"] == mma
+    assert _rel(out, PA.gqa_paged_prefill_ref(*f32, 0.088)) <= 1e-5
+    launch, first = PA.gqa_prefill_launcher(*[t.to(cuda) for t in args],
+                                            0.088, kernel="first")
+    launch()
+    assert _rel(first, PA.gqa_paged_prefill_ref(*args, 0.088)) <= 1e-2

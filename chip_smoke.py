@@ -17,12 +17,16 @@ Phases (any failure exits non-zero before the final line):
             quant_gemv_kernel, w4a8_gemv_kernel: one-row dense calls, every
             gathered call and the W4A8 FFN's one-row down;
             w4a8_ffn_mma_kernel: the W4A8 FFN's gate_up from 2 rows on;
+            w4a8_ffn_gemv_kernel: its one-row gate_up, whose half of the
+            call is timed apart too, beside the first version's and its
+            bound;
             quant_wgmma_t_kernel: the transposed matmuls;
             mla_decode_split_kernel: bf16 mla_decode_fused, timed at 512,
             2048 and 4095 cached rows; mla_prefill_mma_kernel: bf16
             mla_paged_prefill; mla_paged_decode_split_kernel: bf16
-            mla_paged_decode; gqa_prefill_mma_kernel: bf16
-            gqa_paged_prefill, phase 9; the attention caches and pools
+            mla_paged_decode; gqa_prefill_mma_kernel and
+            gqa_decode_split_kernel: bf16 gqa_paged_prefill and
+            gqa_paged_decode, phase 9; the attention caches and pools
             hold NaN in every row the kernels must not read), the first
             version is held and timed on the same operands too (first_ms)
             and a second call of the wrapper must give the same bits; the
@@ -59,10 +63,11 @@ Phases (any failure exits non-zero before the final line):
             launches per step, device time by kernel (torch.profiler); a
             step that still launches a first-version instantiation its
             routes replace (8-row tiles on bf16, one-row quant_matmul
-            tiles, any W4A8 rows kernel, the FFN's 4-row gate_up, the
-            transposed first version, the bf16 MLA fused decode, paged
-            decode and paged prefill and the bf16 GQA paged prefill first
-            versions) fails (so does the SFT step's
+            tiles, any W4A8 rows kernel, the FFN's gate_up of 1 and 4 rows
+            a tile, the transposed first version, the bf16 MLA fused
+            decode, paged decode and paged prefill and the bf16 GQA paged
+            decode, its combine launch and paged prefill first versions)
+            fails (so does the SFT step's
             profile);
 8. int8:    the int4_g parameters are freed; the full 27-layer config with
             int8 weights (every matmul through the quant_matmul kernels) in
@@ -97,12 +102,13 @@ Phases (any failure exits non-zero before the final line):
             Trainer.train_step, finite losses, a frozen base, adapters that
             moved, launches per step held to the counts the code implies,
             peak memory, and one profiled step.
-Prints a kernels JSON line (the eighteen wrappers, then the ten
+Prints a kernels JSON line (the eighteen wrappers, then the twelve
 redesigned kernels, whose launches are those of their wrappers' calls
 that took them; the MLA kernels must have launched on the single-user
 (decode) and paged (paged decode and prefill) paths of both DeepSeek
-parameter sets, the GQA prefill kernel on Mixtral's paged path), the card
-line, and as
+parameter sets, the FFN's one-row gate_up on both W4A8 decode paths, the
+GQA kernels on Mixtral's paged path; w4a8_ffn_gemv_kernel's entry gives
+the gate_up half's times and bound), the card line, and as
 the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Imports nothing of JAX.
@@ -196,7 +202,7 @@ def make_check(rows: list, entries: dict):
     def check(name, label, tol, wrapper, plain, launcher, b_bytes, ops,
               peak, library=None, main=False, plain_iters=5, side_tol=None,
               expect=None, iters=20, per_row=False, first=None, kernel=None,
-              kernel_main=False):
+              kernel_main=False, up=None):
         """expect (default plain) gives what the wrapper is held to; plain
         is what plain_ms times on the card; per_row holds every row of the
         output's last dimension to tol of its own largest value. Where the
@@ -204,7 +210,11 @@ def make_check(rows: list, entries: dict):
         it and ``first`` gives the first version's launcher on the same
         operands: first_ms times it, and it is held to the plain version
         too. A row with main=True is its wrapper's entry of the kernels
-        line, one with kernel_main=True its tensor-core kernel's."""
+        line, one with kernel_main=True its redesigned kernel's. An FFN
+        call's ``up`` (dict of its gate_up half's plain version, bytes,
+        ops and library call or None) times the halves of the FFN launch
+        apart (the first version's gate_up beside it) into row["up"], which
+        a kernel_main row gives its kernel's entry."""
         def first_out(o):  # a wrapper with side outputs: the main one
             return o[0] if isinstance(o, tuple) else o
 
@@ -243,14 +253,27 @@ def make_check(rows: list, entries: dict):
                     f"{str(exc).splitlines()[0][:120]}")
             else:
                 library_ms = time_ms(library, iters=iters)
-        t_bytes, t_ops = b_bytes / HBM_BYTES_PER_S, ops / peak
-        bound = max(t_bytes, t_ops) * 1e3
+        bound, bound_by = bound_of(b_bytes, ops, peak)
         row = dict(name=name, shape=label, max_abs_err=mae, rel_err=rel,
                    tol=tol, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                   bound_ms=bound,
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bound_ms=bound, bound_by=bound_by,
                    library_ms=library_ms, bytes=b_bytes, ops=ops, ok=ok,
                    kernel=kernel, first_ms=first_ms)
+        if up is not None:
+            halves = launcher()[0]
+            up_bound, up_by = bound_of(up["bytes"], up["ops"], peak)
+            row["up"] = dict(
+                ms=time_ms(halves.up, iters=iters),
+                down_ms=time_ms(halves.down, iters=iters),
+                first_ms=None if first is None else time_ms(
+                    first()[0].up, iters=iters),
+                plain_ms=time_ms(up["plain"], iters=plain_iters, warmup=1),
+                library_ms=None if up["library"] is None else time_ms(
+                    up["library"], iters=iters),
+                bound_ms=up_bound, bound_by=up_by, bytes=up["bytes"],
+                ops=up["ops"])
+            log(f"kernel {name} [{label}] gate_up half: "
+                + " ".join(f"{k}={v}" for k, v in row["up"].items()))
         rows.append(row)
         log(f"kernel {name} [{label}] rel_err={rel:.3e} (tol {tol}) "
             f"ms={ms:.4f} wrapper_ms={wrapper_ms:.4f} plain_ms={plain_ms:.4f} "
@@ -262,9 +285,17 @@ def make_check(rows: list, entries: dict):
         if main:
             entries[name] = row
         if kernel_main:
-            entries[kernel] = row
+            entries[kernel] = {**row, **row.get("up", {})}
 
     return check
+
+
+def bound_of(b_bytes: int, ops: int, peak: float) -> tuple[float, str]:
+    """(bound ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over the peak."""
+    t_bytes, t_ops = b_bytes / HBM_BYTES_PER_S, ops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def routed(kernels: dict, route: str, first) -> dict:
@@ -278,12 +309,13 @@ def routed(kernels: dict, route: str, first) -> dict:
 
 QM_ROUTES = {"mma": "quant_mma_kernel", "gemv": "quant_gemv_kernel"}
 W4A8_ROUTES = {"mma": "w4a8_mma_kernel", "gemv": "w4a8_gemv_kernel"}
-FFN_ROUTES = {"mma": "w4a8_ffn_mma_kernel", "gemv": "w4a8_gemv_kernel"}
+FFN_ROUTES = {"mma": "w4a8_ffn_mma_kernel", "gemv": "w4a8_ffn_gemv_kernel"}
 QT_ROUTES = {"wgmma": "quant_wgmma_t_kernel"}
 MLA_DECODE_ROUTES = {"split": "mla_decode_split_kernel"}
 MLA_PREFILL_ROUTES = {"mma": "mla_prefill_mma_kernel"}
 MLA_PAGED_DECODE_ROUTES = {"split": "mla_paged_decode_split_kernel"}
 GQA_PREFILL_ROUTES = {"mma": "gqa_prefill_mma_kernel"}
+GQA_DECODE_ROUTES = {"split": "gqa_decode_split_kernel"}
 
 
 def grouped_mm(x, wdq, sizes):
@@ -406,6 +438,21 @@ def kernel_checks(rows: list, entries: dict) -> None:
     gu, dn = w((e, d, 2 * f)), w((e, f, d))
     per_expert = nbytes(gu.data[0], gu.scales[0], dn.data[0], dn.scales[0])
 
+    def ffn_up(x, gu, dn, row_expert, used, library=None):
+        """check()'s ``up`` of an FFN call on one-row tiles: the gate_up
+        half's plain version, its bytes (the gate_up codes and scales of
+        the experts used, the activation codes in, the requantized codes
+        out) and int8 operations, and its library yardstick."""
+        r, k = x.shape
+        inter = gu.out_features // 2
+        gs, gs_dn = gu.group_size, dn.group_size
+        gu3 = MM.lift(gu) if gu.data.dim() == 2 else gu
+        return dict(
+            plain=lambda: F.gate_up_ref(x, gu3, gs_dn, row_expert),
+            bytes=used * nbytes(gu3.data[0], gu3.scales[0])
+            + r * (k + 12 * (k // gs)) + r * (inter + 12 * (inter // gs_dn)),
+            ops=2 * r * 2 * inter * k, library=library)
+
     # row 2: gathered_w4a8_ffn (decode: 6 routed rows, distinct experts)
     ids = torch.randperm(e, generator=torch.Generator().manual_seed(0))[:6]
     ids = ids.to(torch.int32).to(dev)
@@ -415,7 +462,8 @@ def kernel_checks(rows: list, entries: dict) -> None:
           lambda: F.gathered_w4a8_ffn_ref(x, gu, dn, ids),
           lambda: F.gathered_launcher(x, gu, dn, ids),
           6 * per_expert + 2 * nbytes(x), 2 * 6 * 3 * d * f,
-          INT8_OPS_PER_S, main=True,
+          INT8_OPS_PER_S, main=True, kernel_main=True,
+          up=ffn_up(x, gu, dn, ids.long(), 6),
           **routed(FFN_ROUTES, F.ffn_route(6, "gathered", 128, 128, f, d),
                    lambda: F.gathered_launcher(x, gu, dn, ids, "silu",
                                                "rows")))
@@ -446,16 +494,24 @@ def kernel_checks(rows: list, entries: dict) -> None:
         (256, 2816, "prefill shared M=256", False),
     ):
         sgu, sdn, x = w((d, 2 * inter)), w((inter, d)), rn(m, d)
+        route = F.ffn_route(m, "dense", 128, 128, inter, d)
+        # the one-row gate_up's library yardstick: torch.matmul on the
+        # bf16-dequantized gate_up (no GLU, no requant)
+        gdq = dequantize(sgu, bf) if route == "gemv" else None
         check("dense_w4a8_ffn", label, 3e-2,
               lambda: F.dense_w4a8_ffn(x, sgu, sdn),
               lambda: F.dense_w4a8_ffn_ref(x, sgu, sdn),
               lambda: F.dense_launcher(x, sgu, sdn),
               nbytes(sgu.data, sgu.scales, sdn.data, sdn.scales)
               + 2 * nbytes(x), 2 * m * 3 * d * inter, INT8_OPS_PER_S,
-              main=main, **routed(
-                  FFN_ROUTES, F.ffn_route(m, "dense", 128, 128, inter, d),
-                  lambda: F.dense_launcher(x, sgu, sdn, "silu", "rows")))
-        del sgu, sdn
+              main=main,
+              up=None if gdq is None else ffn_up(
+                  x, sgu, sdn, torch.zeros(1, dtype=torch.int64, device=dev),
+                  1, lambda: torch.matmul(x, gdq)),
+              **routed(FFN_ROUTES, route,
+                       lambda: F.dense_launcher(x, sgu, sdn, "silu",
+                                                "rows")))
+        del sgu, sdn, gdq
 
     # row 5: mla_decode_fused (16 heads, R 512, dr 64) at 512 cached rows
     # of the Generator's 1024 (the main path), and at 2048 and 4095 (the
@@ -514,6 +570,7 @@ def kernel_checks(rows: list, entries: dict) -> None:
           lambda: F.gathered_launcher(x, gu, dn, ids48),
           int(ids48.unique().numel()) * per_expert + 2 * nbytes(x),
           2 * 48 * 3 * d * f, INT8_OPS_PER_S,
+          up=ffn_up(x, gu, dn, ids48.long(), int(ids48.unique().numel())),
           **routed(FFN_ROUTES, F.ffn_route(48, "gathered", 128, 128, f, d),
                    lambda: F.gathered_launcher(x, gu, dn, ids48, "silu",
                                                "rows")))
@@ -847,8 +904,9 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
     library yardstick is torch._grouped_mm on the bf16-dequantized experts
     (grouped_mm). Row 7 has none: no single PyTorch call gathers an expert
     per row. Rows 13 and 15 (GQA paged attention, 32 query
-    heads over 8 KV heads of 128, page 64, 32 pages a query; bf16 prefill
-    takes gqa_prefill_mma_kernel, its first version timed beside it):
+    heads over 8 KV heads of 128, page 64, 32 pages a query; bf16 decode
+    takes gqa_decode_split_kernel and bf16 prefill gqa_prefill_mma_kernel,
+    each with its first version timed beside it):
     every pool row the kernels must not read is NaN; every output row (sequence, head,
     position) is held to 1e-2 of its own largest value, so that a short
     sequence's large outputs set no scale for a long one's (one bf16 step
@@ -989,7 +1047,10 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
               2 * 2 * h * seen * hd, BF16_FLOPS_PER_S,
               library=lambda: sdpa(q[:, :, None], k0, v0, tables,
                                    ok[:, None, None]),
-              main=window == 0, per_row=True)
+              main=window == 0, kernel_main=window == 0, per_row=True,
+              **routed(GQA_DECODE_ROUTES, PA.gqa_decode_route(bf),
+                       lambda: PA.gqa_decode_launcher(*args, window=window,
+                                                      kernel="first")))
     del k, v, k0, v0
 
     # prefill: a mixed step's chunk after 256 tokens, and two chunks (one
@@ -1724,7 +1785,9 @@ def _is_port_kernel(name: str) -> bool:
                                    "mla_decode_split_kernel",
                                    "mla_prefill_mma_kernel",
                                    "mla_paged_decode_split_kernel",
-                                   "gqa_prefill_mma_kernel"))
+                                   "gqa_prefill_mma_kernel",
+                                   "w4a8_ffn_gemv_kernel",
+                                   "gqa_decode_split_kernel"))
 
 
 # first-version instantiations no call of the main paths should take: the
@@ -1734,20 +1797,25 @@ def _is_port_kernel(name: str) -> bool:
 # call), the transposed first version (the wgmma kernel takes every SFT
 # shape), every W4A8 rows kernel (the W4A8 GEMV takes one-row dense calls,
 # gathered calls and the FFN's one-row downs; w4a8_mma_kernel the rest),
-# the FFN's 4-row gate_up (w4a8_ffn_mma_kernel takes tiles of more than
-# one row) and the bf16 attention first versions: MLA fused decode, paged
-# decode and paged prefill, GQA paged prefill (mla_decode_split_kernel,
-# mla_paged_decode_split_kernel, mla_prefill_mma_kernel and
+# the FFN's gate_up of 1 and 4 rows a tile (w4a8_ffn_gemv_kernel takes
+# one-row tiles, w4a8_ffn_mma_kernel tiles of more than one row) and the
+# bf16 attention first versions: MLA fused decode, paged decode and paged
+# prefill, GQA paged decode (and its combine launch) and paged prefill
+# (mla_decode_split_kernel, mla_paged_decode_split_kernel,
+# mla_prefill_mma_kernel, gqa_decode_split_kernel and
 # gqa_prefill_mma_kernel take every bf16 call); a step that launches one of
 # these has a wrapper off its route
 _OFF_ROUTE = re.compile(r"quant_rows_kernel<\d+, 8, __nv_bfloat16>"
                         r"|w4a8_rows_kernel<"
                         r"|quant_rows_kernel<\d+, 1, "
                         r"|quant_rows_t_kernel<"
+                        r"|ffn_up_kernel<1>"
                         r"|ffn_up_kernel<4>"
                         r"|mla_decode_fused_kernel<__nv_bfloat16>"
                         r"|mla_paged_decode_kernel<__nv_bfloat16>"
                         r"|mla_paged_prefill_kernel<__nv_bfloat16>"
+                        r"|gqa_paged_decode_kernel<__nv_bfloat16>"
+                        r"|gqa_decode_combine_kernel<__nv_bfloat16>"
                         r"|gqa_paged_prefill_kernel<__nv_bfloat16>")
 
 
@@ -2535,16 +2603,24 @@ def main() -> int:
     sources["gqa_prefill_mma_kernel"] = (
         "ktransformers_tpu_torch/csrc/gqa_paged_attention.cu",
         "ktransformers_tpu/ops/pallas/paged_attention.py:632")
+    sources["w4a8_ffn_gemv_kernel"] = (
+        "ktransformers_tpu_torch/csrc/w4a8_ffn.cu",
+        "ktransformers_tpu/ops/pallas/w4a8_matmul.py:308")
+    sources["gqa_decode_split_kernel"] = (
+        "ktransformers_tpu_torch/csrc/gqa_paged_attention.cu",
+        "ktransformers_tpu/ops/pallas/paged_attention.py:288")
     # the attention kernels carry their paths' attention: on both DeepSeek
     # parameter sets the MLA decode single-user, the paged decode and the
-    # prefill in the served steps; on Mixtral the GQA prefill in the served
-    # mixed steps
+    # prefill in the served steps; on Mixtral the GQA decode and prefill in
+    # the served steps; the FFN's one-row gate_up every W4A8 decode
     for kernel, keys in (
             ("mla_decode_split_kernel", ("single_user", "single_user_int8")),
             ("mla_prefill_mma_kernel", ("paged_serve", "paged_serve_int8")),
             ("mla_paged_decode_split_kernel",
              ("paged_serve", "paged_serve_int8")),
-            ("gqa_prefill_mma_kernel", ("paged_serve_mixtral",))):
+            ("gqa_prefill_mma_kernel", ("paged_serve_mixtral",)),
+            ("gqa_decode_split_kernel", ("paged_serve_mixtral",)),
+            ("w4a8_ffn_gemv_kernel", ("single_user", "paged_serve"))):
         idle = [k for k in keys if paths[k].get(kernel, 0) <= 0]
         if idle:
             raise AssertionError(f"{kernel} launched on no call of {idle}")

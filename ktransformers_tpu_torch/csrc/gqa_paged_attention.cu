@@ -24,7 +24,9 @@
 // DEC_TK pairs, one warp per head runs the online softmax over the tile (a
 // lane per key), and thread t adds P V into column t of every head. With
 // one piece the block writes the output; with more, each writes its
-// (max, sum, context) and gqa_decode_combine_kernel merges them.
+// (max, sum, context) and gqa_decode_combine_kernel merges them. That
+// kernel keeps float32 calls; bf16 calls take gqa_decode_split_kernel (the
+// end of this file), one launch on the tensor cores.
 //
 // gqa_paged_prefill: S new tokens per chunk, already written to the pages;
 // `lengths` is the OLD cached length (chunk excluded), `valid` the live new
@@ -899,4 +901,392 @@ extern "C" int kt_gqa_prefill_mma(const void* q, const void* k_pages,
     return kt_gqa_mma::launch<1>(q, k_pages, v_pages, tb, ln, vl, C, H, Hkv,
                                  S, page, pmax, window, scale, out, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---- gqa_decode_split_kernel: the bf16 gqa_paged_decode, split over the
+// keys, on tensor cores ----
+//
+// Replaces ktransformers_tpu/ops/pallas/paged_attention.py:gqa_paged_decode
+// (body _gqa_kernel) for bf16 operands; computes what
+// gqa_paged_decode_kernel + gqa_decode_combine_kernel compute (query head
+// h of sequence b sees keys kpos < lengths[b] and, with a window, kpos >=
+// lengths[b] - window; no key gives zeros). Bound: the bytes of the K and
+// V rows in the window, read once. The first version staged K and V as
+// float32, scored with scalar FMAs, ran a softmax of a lane per key, added
+// P V column by column and merged its pieces in a second launch: 10.7x its
+// byte bound at the serving batch. Here:
+// - the grid is (B, splits, Hkv); `splits` is a pure function of the
+//   shapes (ops/cuda/paged_attention.py:gqa_decode_split_plan: the most
+//   whose blocks fit the card at once, 4 at Mixtral's serving batch), and
+//   block (b, s, kh) cuts the keys of sequence b it may
+//   see, [kbeg, len) with kbeg = max(0, len - window) under a window, into
+//   `splits` runs of `chunk` = max(TK, ceil((len - kbeg) / splits) rounded
+//   up to 16) keys (split_chunk), from the length on the card: every split
+//   of a long window does work and no split lies outside it; the splits
+//   past the last key hold none and write nothing;
+// - the G = H / Hkv query heads of the KV head are the rows of one m16 row
+//   group (G <= 16; rows past G are zero, never stored), their Q fragments
+//   in registers for the whole walk; the block walks its keys in tiles of
+//   TK = 64, each tile's K and V rows of the KV head (256 B each, at stride
+//   Hkv * D in the pool) copied through the page table with 16-byte
+//   cp.async into a three-stage ring (two tiles in flight while one is
+//   computed), rows past the split's end zero-filled and never read
+//   (recycled pages may hold NaN);
+// - 4 warps split each tile's keys, 16 a warp, each with its own softmax
+//   state (m, l in log2 units, acc for all 128 columns): Q K^T and P V on
+//   bf16 mma.sync m16n8k16, P rounded to bf16 in registers. After the walk
+//   the warps' states meet in warp order through shared memory; with one
+//   split that is the output, with more the block writes the merged state
+//   to its record (m [16], l [16], acc [16][128] floats) and arrives on the
+//   (sequence, KV head) counter; the last block to arrive merges the
+//   records of the splits that hold a key in split order (weights
+//   exp2(m_i - M) / L; each thread a column of every head, the heads'
+//   loads of a record in flight together), writes the G rows and sets the
+//   counter back. One launch, no combine kernel, the same bits on every
+//   call.
+// Shared memory: the query rows 16 x 272 B, the ring 3 x (K + V) x 64 x
+// 272 B: 106 KB, two blocks an SM.
+// (KT_GQA_CUT_MMA and KT_GQA_CUT_SOFTMAX compile the products and the
+// exponentials out, KT_GQA_CUT_MERGE the cross-split merge, for
+// ops/cuda/breakdown.py.)
+namespace kt_gqa_mma {
+namespace decode {
+
+constexpr int THREADS = 128;
+constexpr int NW = THREADS / 32;
+constexpr int KW = TK / NW;           // keys a warp of each tile: 16
+constexpr int HT = 16;                // query rows: one mma row group
+constexpr int UNIT = 16;              // a split's keys: a multiple of this
+constexpr int MAX_SPLITS = 32;        // one merge record a lane
+constexpr int REC = 2 * HT + HT * D;  // a state: m [HT], l [HT], acc [HT][D]
+constexpr int ST = 4 + 4 * NO;        // a lane's share of a warp's state
+constexpr int SD = 3;                 // ring stages of K + V tiles
+constexpr int Q_BYTES = HT * LDS * 2;
+constexpr int RING_BYTES = SD * STAGE * 2;
+constexpr int SMEM = Q_BYTES + RING_BYTES;
+static_assert(KW == 16, "a warp's keys: one k16 step of P V");
+static_assert((NW - 1) * 32 * ST * 4 <= RING_BYTES,
+              "the warps' states fit the ring");
+static_assert(MAX_SPLITS * HT * 4 <= RING_BYTES, "the weights fit the ring");
+
+// Keys a split takes of n live keys (ops/cuda/paged_attention.py:
+// gqa_decode_split_rows).
+__device__ __forceinline__ int split_chunk(int n, int splits) {
+  const int per = (n + splits - 1) / splits;
+  return max(TK, (per + UNIT - 1) / UNIT * UNIT);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+    gqa_decode_split_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ kp,
+                            const bf16* __restrict__ vp,
+                            const int* __restrict__ tables,
+                            const int* __restrict__ lengths, int H, int Hkv,
+                            int page, int pmax, int window, float scale,
+                            float* __restrict__ part, int* __restrict__ cnt,
+                            bf16* __restrict__ out) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);            // [HT][LDS]
+  bf16* ring = reinterpret_cast<bf16*>(smem + Q_BYTES);  // 2 x (K, V)
+  float* f_s = reinterpret_cast<float*>(smem + Q_BYTES);  // after the walk
+
+  const int b = blockIdx.x, sp = blockIdx.y, kh = blockIdx.z;
+  const int splits = gridDim.y;
+  const int G = H / Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int len = min(max(lengths[b], 0), page * pmax);
+  const int kbeg = window > 0 ? max(0, len - window) : 0;
+  const int n = len - kbeg;
+  const int chunk = split_chunk(n, splits);
+  const int start = kbeg + sp * chunk;
+  const int end = min(len, start + chunk);
+  const int nt = end > start ? (end - start + TK - 1) / TK : 0;
+  const int* tb = tables + (size_t)b * pmax;
+  const size_t pair = (size_t)b * Hkv + kh;
+  const size_t qrow = (size_t)b * H + (size_t)kh * G;  // the first head
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int t = 0; t < NO; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[t][i] = 0.f;
+
+  if (nt > 0) {
+    for (int i = tid; i < HT * CH; i += THREADS) {
+      const int r = i / CH, ch = i - r * CH;
+      const bool ok = r < G;
+      kt_mma::cp_async16(q_s + r * LDS + ch * 8,
+                         q + (qrow + (ok ? r : 0)) * D + ch * 8, ok);
+    }
+    // K and V rows of positions k0 .. k0 + TK into ring stage st
+    auto stage = [&](int st, int k0) {
+      for (int i = tid; i < TK * CH; i += THREADS) {
+        const int r = i / CH, ch = i - r * CH;
+        const int pos = k0 + r;
+        const bool ok = pos < end;
+        const size_t off =
+            ok ? (((size_t)__ldg(tb + pos / page) * page + pos % page) * Hkv +
+                  kh) * D + ch * 8
+               : 0;
+        bf16* dst = ring + st * STAGE + r * LDS + ch * 8;
+        kt_mma::cp_async16(dst, kp + off, ok);
+        kt_mma::cp_async16(dst + TILE, vp + off, ok);
+      }
+    };
+    // group s < SD - 1: tile s (group 0 with the query rows); then one
+    // group a tile (empty past the last), so that wait<SD - 2> at tile t
+    // means tile t landed
+#pragma unroll
+    for (int st = 0; st < SD - 1; ++st) {
+      if (st < nt) stage(st, start + st * TK);
+      kt_mma::cp_async_commit();
+    }
+
+    const float sl = scale * LOG2E;
+    uint32_t qf[DK][4];
+    for (int t = 0; t < nt; ++t) {
+      const int k0 = start + t * TK;
+      kt_mma::cp_async_wait<SD - 2>();
+      __syncthreads();  // tile t landed; every warp is done with tile t - 1
+      if (t == 0) {
+        const bf16* qa = q_s + (lane & 15) * LDS + (lane >> 4) * 8;
+#pragma unroll
+        for (int d = 0; d < DK; ++d) kt_mma::ldmatrix_x4(qf[d], qa + 16 * d);
+      }
+      if (t + SD - 1 < nt) stage((t + SD - 1) % SD, k0 + (SD - 1) * TK);
+      kt_mma::cp_async_commit();
+      const int kb = k0 + warp * KW;  // this warp's keys kb .. kb + KW
+      if (kb < end) {
+        const bf16* kc = ring + (t % SD) * STAGE + warp * KW * LDS;
+        const bf16* vc = kc + TILE;
+        // scores: sc[n][j], row g + 8 (j >> 1), key kb + 8 n + 2 qd + (j & 1)
+        float sc[2][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[0][i] = sc[1][i] = 0.f;
+        // one x4 of B covers the warp's 16 keys x 16 depth: two n8 tiles
+        const bf16* kr = kc + ((lane & 7) + ((lane >> 4) << 3)) * LDS +
+                         ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int d = 0; d < DK; ++d) {
+          uint32_t bk[4];
+          kt_mma::ldmatrix_x4(bk, kr + 16 * d);
+#if KT_GQA_CUT_MMA
+          sc[0][0] += __uint_as_float((qf[d][0] ^ bk[0]) & 0x3f7fffffu);
+          sc[1][1] += __uint_as_float((qf[d][1] ^ bk[3]) & 0x3f7fffffu);
+#else
+          kt_mma::mma_bf16_16816(sc[0], qf[d], bk[0], bk[1]);
+          kt_mma::mma_bf16_16816(sc[1], qf[d], bk[2], bk[3]);
+#endif
+        }
+        // online softmax of rows g, g + 8 (log2 units), P in place
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float mx = NEG_INF;
+#pragma unroll
+          for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              sc[nn][2 * e + j] *= sl;
+              if (kb + 8 * nn + 2 * qd + j < end)
+                mx = fmaxf(mx, sc[nn][2 * e + j]);
+            }
+          const float m_new = fmaxf(m[e], kt_mma::quad_max(mx));
+          const float corr = exp2f(m[e] - m_new);
+          float sum = 0.f;
+#pragma unroll
+          for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const bool ok = kb + 8 * nn + 2 * qd + j < end;
+#if KT_GQA_CUT_SOFTMAX
+              const float p = ok ? sc[nn][2 * e + j] - m_new : 0.f;
+#else
+              const float p = ok ? exp2f(sc[nn][2 * e + j] - m_new) : 0.f;
+#endif
+              sc[nn][2 * e + j] = p;
+              sum += p;
+            }
+          l[e] = l[e] * corr + kt_mma::quad_sum(sum);
+          m[e] = m_new;
+#pragma unroll
+          for (int o = 0; o < NO; ++o) {
+            acc[o][2 * e] *= corr;
+            acc[o][2 * e + 1] *= corr;
+          }
+        }
+        // acc += P V: P (bf16) from the score tiles, V by ldmatrix.trans
+        uint32_t pa[4];
+        pa[0] = kt_mma::pack_bf16(sc[0][0], sc[0][1]);
+        pa[1] = kt_mma::pack_bf16(sc[0][2], sc[0][3]);
+        pa[2] = kt_mma::pack_bf16(sc[1][0], sc[1][1]);
+        pa[3] = kt_mma::pack_bf16(sc[1][2], sc[1][3]);
+        const bf16* vb = vc + (lane & 15) * LDS + (lane >> 4) * 8;
+#pragma unroll
+        for (int p = 0; p < NO / 2; ++p) {
+          uint32_t bv[4];
+          kt_mma::ldmatrix_x4_trans(bv, vb + p * 16);
+#if KT_GQA_CUT_MMA
+          acc[2 * p][0] += __uint_as_float((pa[0] ^ bv[0]) & 0x3f7fffffu);
+          acc[2 * p + 1][1] += __uint_as_float((pa[1] ^ bv[3]) & 0x3f7fffffu);
+#else
+          kt_mma::mma_bf16_16816(acc[2 * p], pa, bv[0], bv[1]);
+          kt_mma::mma_bf16_16816(acc[2 * p + 1], pa, bv[2], bv[3]);
+#endif
+        }
+      }
+    }
+    kt_mma::cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring
+  }
+
+  // the warps' states meet in warp order (the ring is free: every copy
+  // landed and every warp passed the walk's last barrier)
+  float* st_s = f_s + (size_t)lane * ST;  // warp w's at + (w - 1) * 32 * ST
+  if (warp > 0) {
+    float* mine = st_s + (size_t)(warp - 1) * 32 * ST;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mine[e] = m[e];
+      mine[2 + e] = l[e];
+    }
+#pragma unroll
+    for (int o = 0; o < NO; ++o)
+      *reinterpret_cast<float4*>(mine + 4 + 4 * o) =
+          make_float4(acc[o][0], acc[o][1], acc[o][2], acc[o][3]);
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float mm = m[e];
+#pragma unroll
+      for (int w = 1; w < NW; ++w)
+        mm = fmaxf(mm, st_s[(size_t)(w - 1) * 32 * ST + e]);
+      const float a0 = exp2f(m[e] - mm);
+      float ll = l[e] * a0;
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+        acc[o][2 * e] *= a0;
+        acc[o][2 * e + 1] *= a0;
+      }
+#pragma unroll
+      for (int w = 1; w < NW; ++w) {
+        const float* sw = st_s + (size_t)(w - 1) * 32 * ST;
+        const float aw = exp2f(sw[e] - mm);
+        ll += sw[2 + e] * aw;
+#pragma unroll
+        for (int o = 0; o < NO; ++o) {
+          acc[o][2 * e] += sw[4 + 4 * o + 2 * e] * aw;
+          acc[o][2 * e + 1] += sw[4 + 4 * o + 2 * e + 1] * aw;
+        }
+      }
+      m[e] = mm;
+      l[e] = ll;
+    }
+    if (splits == 1) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int h = g + 8 * e;
+        if (h >= G) continue;
+        const float inv = 1.f / fmaxf(l[e], 1e-30f);
+        bf16* o = out + (qrow + h) * D + 2 * qd;
+#pragma unroll
+        for (int t = 0; t < NO; ++t)
+          *reinterpret_cast<__nv_bfloat162*>(o + 8 * t) =
+              __floats2bfloat162_rn(acc[t][2 * e] * inv,
+                                    acc[t][2 * e + 1] * inv);
+      }
+    } else if (nt > 0) {  // this split's record
+      float* rec = part + (pair * splits + sp) * REC;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int h = g + 8 * e;
+        if (qd == 0) {
+          rec[h] = m[e];
+          rec[HT + h] = l[e];
+        }
+        float* a = rec + 2 * HT + h * D + 2 * qd;
+#pragma unroll
+        for (int t = 0; t < NO; ++t)
+          *reinterpret_cast<float2*>(a + 8 * t) =
+              make_float2(acc[t][2 * e], acc[t][2 * e + 1]);
+      }
+    }
+  }
+  if (splits == 1) return;
+  if (!kt_mma::arrive_last(cnt + pair, splits)) return;
+#if !KT_GQA_CUT_MERGE
+  // the splits that hold a key, in split order: weights exp2(m_i - M) / L
+  // per head (a lane a record), then thread tid sums column tid of each
+  // head; none gives zeros
+  const int live = n > 0 ? (n + chunk - 1) / chunk : 0;
+  const float* base = part + pair * splits * REC;
+  float* w_s = f_s;  // [MAX_SPLITS][HT]
+  for (int h = warp; h < G; h += NW) {
+    const bool ok = lane < live;
+    const float* ri = base + (size_t)(ok ? lane : 0) * REC;
+    const float mi = ok ? __ldcg(ri + h) : NEG_INF;
+    const float li = ok ? __ldcg(ri + HT + h) : 0.f;
+    const float mx = kt_mla::warp_max(mi);
+    const float wi = ok ? exp2f(mi - mx) : 0.f;
+    const float inv = 1.f / fmaxf(kt_mla::warp_sum(li * wi), 1e-30f);
+    if (ok) w_s[lane * HT + h] = wi * inv;
+  }
+  __syncthreads();
+  // per record, the G heads' loads in flight together
+  float o[HT];
+#pragma unroll
+  for (int h = 0; h < HT; ++h) o[h] = 0.f;
+  for (int i = 0; i < live; ++i) {
+    const float* col = base + (size_t)i * REC + 2 * HT + tid;
+    float v[HT];
+#pragma unroll
+    for (int h = 0; h < HT; ++h) v[h] = h < G ? __ldcg(col + h * D) : 0.f;
+#pragma unroll
+    for (int h = 0; h < HT; ++h)
+      if (h < G) o[h] += w_s[i * HT + h] * v[h];
+  }
+#pragma unroll
+  for (int h = 0; h < HT; ++h)
+    if (h < G) out[(qrow + h) * D + tid] = __float2bfloat16(o[h]);
+#endif
+  if (tid == 0) cnt[pair] = 0;  // ready for the next launch
+}
+
+}  // namespace decode
+}  // namespace kt_gqa_mma
+
+// The bf16 gqa_paged_decode on gqa_decode_split_kernel: operands as
+// kt_gqa_paged_decode (bf16 only, H / Hkv <= 16); `splits` blocks a
+// (sequence, KV head), 1 <= splits <= 32; part holds B * Hkv * splits *
+// (2 * 16 + 16 * 128) floats and cnt B * Hkv ints, zero on entry (left
+// zero); both may be null with one split.
+extern "C" int kt_gqa_decode_split(const void* q, const void* k_pages,
+                                   const void* v_pages, const void* tables,
+                                   const void* lengths, int B, int H, int Hkv,
+                                   int page, int pmax, int window, int splits,
+                                   float scale, void* part, void* cnt,
+                                   void* out, void* stream) {
+  namespace K = kt_gqa_mma::decode;
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > K::HT || page <= 0 ||
+      pmax <= 0 || splits < 1 || splits > K::MAX_SPLITS || Hkv > 65535 ||
+      (splits > 1 && (part == nullptr || cnt == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || H == 0) return 0;
+  static int ready_dev = -1;
+  cudaError_t err = kt_mma::allow_smem(K::gqa_decode_split_kernel, K::SMEM,
+                                       &ready_dev);
+  if (err != cudaSuccess) return (int)err;
+  using T = __nv_bfloat16;
+  dim3 grid(B, splits, Hkv);
+  K::gqa_decode_split_kernel<<<grid, K::THREADS, K::SMEM,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), static_cast<const int*>(tables),
+      static_cast<const int*>(lengths), H, Hkv, page, pmax, window, scale,
+      static_cast<float*>(part), static_cast<int*>(cnt),
+      static_cast<T*>(out));
+  return (int)cudaGetLastError();
 }

@@ -330,19 +330,7 @@ __device__ __forceinline__ void store_state(const State<1, TK>& st,
   }
 }
 
-// Arrive on *cnt once the block's record is written; true (in every thread)
-// in the last of `blocks` blocks to arrive, whose reads then see every
-// record.
-__device__ __forceinline__ bool arrive_last(int* cnt, int blocks) {
-  __shared__ int last_s;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last_s = atomicAdd(cnt, 1) == blocks - 1;
-  __syncthreads();
-  const bool last = last_s;
-  if (last) __threadfence();
-  return last;
-}
+using kt_mma::arrive_last;
 
 // Merge n records (record i at base + rec(i) * REC, in the order i = 0 ..
 // n - 1) with weights exp2(m_i - M) / L into out [nh][R] (bf16); w_s holds

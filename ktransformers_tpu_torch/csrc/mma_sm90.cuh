@@ -285,6 +285,22 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// Arrive on the counter *cnt once the block's partial results are written;
+// true (in every thread) in the last of `blocks` blocks to arrive, whose
+// reads then see every partial. The split kernels (w4a8_gemv.cuh,
+// mla_mma.cuh, gqa_paged_attention.cu) set the counter back to 0 in that
+// block, so it is zero between launches.
+__device__ __forceinline__ bool arrive_last(int* cnt, int blocks) {
+  __shared__ int last_s;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last_s = atomicAdd(cnt, 1) == blocks - 1;
+  __syncthreads();
+  const bool last = last_s;
+  if (last) __threadfence();
+  return last;
+}
+
 // Set a kernel's dynamic shared memory limit once per device.
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes, int* ready_dev) {

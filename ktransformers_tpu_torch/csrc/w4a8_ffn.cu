@@ -14,9 +14,11 @@
 // - tiles of more than one row: w4a8_ffn_mma_kernel below for gate_up
 //   (64-row tiles on s8 tensor cores), w4a8_mma_kernel (w4a8_mma.cuh,
 //   kt_w4a8_mma) for the down;
-// - one-row tiles (decode): ffn_up_kernel<1> for gate_up, the split-K
-//   GEMV (w4a8_gemv.cuh, kt_w4a8_gemv) for the down;
-// - shapes those refuse: the first version, ffn_up_kernel<4> and
+// - one-row tiles (decode): w4a8_ffn_gemv_kernel below for gate_up (the
+//   split-K GEMV's walk with the GLU and requant in the last block of a
+//   split set), the split-K GEMV (w4a8_gemv.cuh, kt_w4a8_gemv) for the
+//   down;
+// - shapes those refuse: the first version, ffn_up_kernel<1> / <4> and
 //   w4a8_rows_kernel (kt_w4a8_ffn_down).
 //
 // At decode the kernels are bound by the routed experts' weight bytes
@@ -29,6 +31,7 @@
 // tile, so the group's requant happens inside the block; the requant is
 // per (row, down group), so the split does not change the numbers.
 #include "w4a8_core.cuh"
+#include "w4a8_gemv.cuh"
 #include "w4a8_mma.cuh"
 
 namespace kt {
@@ -163,6 +166,174 @@ __global__ void __launch_bounds__(32 * KW)
                (size_t)grp * gs2, sa2, sb2, t2, row * (inter / bc) + grp);
 }
 
+
+// ------------------------------------- gate_up of one-row tiles: a GEMV
+
+// w4a8_ffn_gemv_kernel: gate_up + GLU + requant of the W4A8 FFN for tiles
+// of one or two rows of one expert (decode: gathered_w4a8_ffn, and
+// dense_w4a8_ffn at M = 1). It replaces ffn_up_kernel<1>, which ran one
+// block of 32 x KW threads per (down group, row) with 4-byte loads: 66
+// blocks for DeepSeek-V2-Lite's 6 routed rows (11 down groups of 128) and
+// 22 for the shared experts (I = 2816) on 132 SMs, each pulling its 256 KB
+// through 4-byte loads, and rows routed to one expert read its bytes once
+// each. Bound: the gate_up bytes of the experts the rows use (K/2 x 2I
+// int8 plus the f32 group scales), read once. The design is the W4A8
+// GEMV's (w4a8_gemv.cuh):
+// - a block owns one down group of bc <= 128 columns: gate columns [c0,
+//   c0 + bc) and up columns [I + c0, I + c0 + bc), two column bases in one
+//   block of BN = 256 (threads tx < 8 on the gate half, the others on the
+//   up half, 16 columns a thread with one 16-byte load a storage row; a
+//   down group below 128 leaves the threads past it idle), 8 row lanes
+//   (w4gv::lane_walk: transpose4x4 + __dp4a, a group's int dots scaled
+//   once);
+// - the storage rows are cut into `splits` runs of whole scale groups
+//   (blockIdx.z), planned by ops/cuda/w4a8_ffn.py:ffn_gemv_plan so that
+//   (down groups x tiles x splits) fills the card: 4 splits for 6 routed
+//   rows (264 blocks), 12 for the shared experts at M = 1, none at 48 rows;
+// - tiles are keyed by expert (w4gv::tile_rows), as the down GEMV's: rows
+//   routed to one expert read its bytes once, in neighbouring blocks;
+//   tiles past the last (expert, chunk) pair exit at once, before they
+//   arrive on any counter;
+// - the lanes meet in shared memory; the splits through f32 partials
+//   part[row][split][2I] in the same launch. The last block of a (down
+//   group, tile) set to arrive (its counter, which it sets back to 0) adds
+//   them in split order, so the same bits come out on every call, applies
+//   the GLU and requantizes each row's down group with requant_warp into
+//   the ca / cb / sa2 / sb2 / t2 planes the down GEMV reads. With one split
+//   the block does that itself.
+// (KT_W4GEMV_CUT_DECODE reaches this kernel through w4gv::lane_walk;
+// KT_FFNGV_CUT_REDUCE and KT_FFNGV_CUT_REQUANT compile the cross-split sum
+// and the GLU + requant out for ops/cuda/breakdown.py.)
+template <int RB>
+__global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
+    w4a8_ffn_gemv_kernel(W4A8Args a, const int* __restrict__ ids, int R,
+                         int inter, int bc, int act, int splits, int gran,
+                         float* __restrict__ part, int* __restrict__ cnt,
+                         int8_t* __restrict__ ca, int8_t* __restrict__ cb,
+                         float* __restrict__ sa2, float* __restrict__ sb2,
+                         float* __restrict__ t2) {
+  constexpr int TX = w4gv::TX, LANES = w4gv::LANES, THREADS = w4gv::THREADS;
+  constexpr int CPT = w4gv::CPT, BN = w4gv::BN;
+  constexpr int MAX_ROWS = w4gv::MAX_ROWS;
+  constexpr int HB = BN / 2;  // local columns of the gate half, then the up
+  static_assert(HB == THREADS, "thread t holds gate and up column t");
+  __shared__ __align__(16) float red[LANES][RB][BN];
+  __shared__ float act_s[RB][HB];
+  __shared__ int ids_s[MAX_ROWS], rows_s[RB], wsum[THREADS / 32];
+  __shared__ int expert_s, chunk_s, nrows_s;
+  w4gv::tile_rows<RB>(ids, R, blockIdx.y, ids_s, rows_s, wsum, &expert_s,
+                      &chunk_s, &nrows_s);
+  const int e = expert_s;
+  if (e < 0) return;  // past the last (expert, chunk) pair (block-uniform)
+  const int nr = nrows_s;
+  const int tx = threadIdx.x % TX, ly = threadIdx.x / TX;
+  const int grp = blockIdx.x, c0 = grp * bc;
+  const int lc = tx * CPT;   // the thread's first local column
+  const int j0 = lc % HB;    // ... as a column of the down group
+  const int s = blockIdx.z;
+  int l0, l1;
+  w4gv::lane_run(a.K2, gran, splits, s, ly, l0, l1);
+  const int col = (lc < HB ? 0 : inter) + c0 + j0;
+  const int8_t* we = a.w + (size_t)e * a.K2 * a.N + col;
+  const float* se = a.s + (size_t)e * a.ng * a.N + col;
+
+  int row[RB];
+#pragma unroll
+  for (int m = 0; m < RB; ++m) row[m] = rows_s[m < nr ? m : 0];
+  float acc[RB][CPT];
+#pragma unroll
+  for (int m = 0; m < RB; ++m)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[m][c] = 0.f;
+
+  if (j0 < bc && l0 < l1)
+    w4gv::lane_walk<RB>(a, we, se, row, nr, l0, l1, acc);
+
+#pragma unroll
+  for (int m = 0; m < RB; ++m)
+#pragma unroll
+    for (int q = 0; q < CPT / 4; ++q)
+      reinterpret_cast<float4*>(&red[ly][m][lc])[q] =
+          make_float4(acc[m][4 * q], acc[m][4 * q + 1], acc[m][4 * q + 2],
+                      acc[m][4 * q + 3]);
+  __syncthreads();
+  // thread t: gate column t (h[m][0]) and up column t (h[m][1]) of the
+  // down group, the lanes summed in order
+  const int t = threadIdx.x;
+  const bool live = t < bc;
+  float h[RB][2];
+#pragma unroll
+  for (int m = 0; m < RB; ++m)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float v = 0.f;
+#pragma unroll
+      for (int y = 0; y < LANES; ++y) v += red[y][m][u * HB + t];
+      h[m][u] = v;
+    }
+  if (splits > 1) {
+#pragma unroll
+    for (int m = 0; m < RB; ++m) {
+      if (m >= nr || !live) continue;
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        part[((size_t)row[m] * splits + s) * a.N + u * inter + c0 + t] =
+            h[m][u];
+    }
+#if !KT_FFNGV_CUT_REDUCE
+    int* c = cnt + (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    if (!kt_mma::arrive_last(c, splits)) return;
+    // the partials of the tile's rows in split order
+#pragma unroll
+    for (int m = 0; m < RB; ++m) {
+      if (m >= nr || !live) continue;
+      const float* p0 = part + (size_t)row[m] * splits * a.N + c0 + t;
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        h[m][u] = w4gv::split_sum(p0 + u * inter, splits, a.N);
+    }
+    if (t == 0) *c = 0;  // ready for the next launch
+#endif
+  }
+#if !KT_FFNGV_CUT_REQUANT
+#pragma unroll
+  for (int m = 0; m < RB; ++m)
+    if (m < nr && live) act_s[m][t] = glu(h[m][0], h[m][1], act);
+  __syncthreads();
+  // requant of the block's down group: warp m handles row m
+  const int m = t >> 5, lane = t & 31;
+  if (m >= nr) return;
+  const int gs2 = bc / 2;
+  float lo[2], hi[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = lane + 32 * i;
+    lo[i] = j < gs2 ? act_s[m][j] : 0.f;
+    hi[i] = j < gs2 ? act_s[m][gs2 + j] : 0.f;
+  }
+  const size_t r = (size_t)rows_s[m];
+  requant_warp(lo, hi, gs2, ca, cb, r * (size_t)(inter / 2) + (size_t)grp *
+               gs2, sa2, sb2, t2, r * (inter / bc) + grp);
+#else
+  float sink = 0.f;  // keeps the sums live
+#pragma unroll
+  for (int m = 0; m < RB; ++m) sink += h[m][0] + h[m][1];
+  if (sink == 1.2345f) ca[t] = 1;
+#endif
+}
+
+template <int RB>
+cudaError_t launch_ffn_gemv(const W4A8Args& a, const int* ids, int R,
+                            int tiles, int inter, int bc, int act, int splits,
+                            int gran, float* part, int* cnt, int8_t* ca,
+                            int8_t* cb, float* sa2, float* sb2, float* t2,
+                            cudaStream_t stream) {
+  dim3 grid(inter / bc, tiles, splits);
+  w4a8_ffn_gemv_kernel<RB><<<grid, w4gv::THREADS, 0, stream>>>(
+      a, ids, R, inter, bc, act, splits, gran, part, cnt, ca, cb, sa2, sb2,
+      t2);
+  return cudaGetLastError();
+}
 
 // ----------------------------------------------- gate_up on tensor cores
 
@@ -532,6 +703,62 @@ extern "C" int kt_w4a8_ffn_up(const void* qa, const void* qb, const void* sa,
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// gate_up + GLU + requant of one-row tiles on w4a8_ffn_gemv_kernel: row r
+// of the activation codes through expert ids[r] of w [E, K2, 2 * inter]
+// for r < R (R <= 128; a dense call passes R = 1, ids = [0]), `tiles`
+// tiles of up to rb rows of one expert (rb 1 or 2; tiles at least the
+// number of (expert, chunk) pairs), `splits` runs of `gran` 8-row units
+// (gran * 8 = gs2, one scale group); down group bc (a multiple of 16, at
+// most 128, dividing inter). Writes ca / cb int8 [R, inter/2] and sa2 /
+// sb2 / t2 f32 [R, inter/bc] (rows of tiles past the last pair untouched).
+// part holds R * splits * 2 * inter floats and cnt (inter / bc) * tiles
+// ints, zero on entry and on return; both may be null with one split.
+// 16-byte aligned w and s, 8-byte aligned qa and qb.
+extern "C" int kt_w4a8_ffn_gemv(const void* qa, const void* qb,
+                                const void* sa, const void* sb, const void* t,
+                                const void* w, const void* s, const void* ids,
+                                int r, int tiles, int splits, int gran, int rb,
+                                int k2, int inter, int ng, int gs2, int bc,
+                                int act, void* part, void* cnt, void* ca,
+                                void* cb, void* sa2, void* sb2, void* t2,
+                                void* stream) {
+  namespace G = kt::w4gv;
+  if (r <= 0) return 0;
+  const uintptr_t a16 = (uintptr_t)w | (uintptr_t)s;
+  const uintptr_t a8 = (uintptr_t)qa | (uintptr_t)qb;
+  if (r > G::MAX_ROWS || tiles < 1 || tiles > 65535 || bc < 16 ||
+      bc > G::BN / 2 || bc % 16 || inter % bc || gs2 <= 0 ||
+      gs2 % G::UNIT || k2 % gs2 || ng * gs2 != k2 || gran < 1 ||
+      (k2 / G::UNIT) % gran || splits < 1 || splits > 65535 ||
+      splits > k2 / G::UNIT / gran || act < 0 || act > 2 ||
+      (splits > 1 && (part == nullptr || cnt == nullptr)) || (a16 & 15u) ||
+      (a8 & 7u))
+    return (int)cudaErrorInvalidValue;
+  kt::W4A8Args a = make_args(qa, qb, sa, sb, t, w, s, nullptr, nullptr,
+                             nullptr, k2, 2 * inter, ng, gs2);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* pid = static_cast<const int*>(ids);
+  float* p = static_cast<float*>(part);
+  int* c = static_cast<int*>(cnt);
+  auto* pca = static_cast<int8_t*>(ca);
+  auto* pcb = static_cast<int8_t*>(cb);
+  auto* psa = static_cast<float*>(sa2);
+  auto* psb = static_cast<float*>(sb2);
+  auto* pt = static_cast<float*>(t2);
+  switch (rb) {
+    case 1:
+      return (int)kt::launch_ffn_gemv<1>(a, pid, r, tiles, inter, bc, act,
+                                         splits, gran, p, c, pca, pcb, psa,
+                                         psb, pt, st);
+    case 2:
+      return (int)kt::launch_ffn_gemv<2>(a, pid, r, tiles, inter, bc, act,
+                                         splits, gran, p, c, pca, pcb, psa,
+                                         psb, pt, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // gate_up + GLU + requant on the tensor cores (w4a8_ffn_mma_kernel): the

@@ -36,6 +36,7 @@
 // (The KT_W4GEMV_CUT_* switches compile parts out for ops/cuda/breakdown.py.)
 #pragma once
 
+#include "mma_sm90.cuh"
 #include "w4a8_core.cuh"
 
 namespace kt {
@@ -125,6 +126,133 @@ __device__ __forceinline__ void flush_group(const int pa[RB][CPT],
   }
 }
 
+// The units [l0, l1) of row lane ly in split s: the K2 / UNIT units are
+// cut into granules of `gran` units (one scale group), split s takes
+// granules [G s / S, G (s + 1) / S) and each of the LANES lanes a
+// contiguous run of its split's units.
+__device__ __forceinline__ void lane_run(int K2, int gran, int splits, int s,
+                                         int ly, int& l0, int& l1) {
+  const int ngran = K2 / UNIT / gran;
+  const int u0 = gran * (int)((long long)ngran * s / splits);
+  const int u1 = gran * (int)((long long)ngran * (s + 1) / splits);
+  l0 = u0 + (u1 - u0) * ly / LANES;
+  l1 = u0 + (u1 - u0) * (ly + 1) / LANES;
+}
+
+// The sum of p[q * stride] over the splits q in split order, sixteen
+// splits' loads in flight at once (the partials another block wrote: read
+// through L2).
+__device__ __forceinline__ float split_sum(const float* p, int splits,
+                                           size_t stride) {
+  float v = 0.f;
+  for (int q0 = 0; q0 < splits; q0 += 16) {
+    float pv[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      pv[j] = q0 + j < splits ? __ldcg(p + (size_t)(q0 + j) * stride) : 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v += pv[j];
+  }
+  return v;
+}
+
+// The K walk of one row lane: units [l0, l1) of UNIT storage rows of the
+// expert at we / se (its weight and scales, offset to the thread's first
+// of CPT columns) against the activation codes of the tile's rows row[m],
+// m < nr, into acc. A lane sums a group's int dots over its units and
+// scales them once; the lane that holds the group's first unit subtracts t.
+// Shared by w4a8_gemv_kernel and w4a8_ffn.cu's w4a8_ffn_gemv_kernel.
+template <int RB>
+__device__ __forceinline__ void lane_walk(const W4A8Args& a,
+                                          const int8_t* __restrict__ we,
+                                          const float* __restrict__ se,
+                                          const int (&row)[RB], int nr,
+                                          int l0, int l1,
+                                          float (&acc)[RB][CPT]) {
+  int pa[RB][CPT], pb[RB][CPT];
+  float sc[CPT], sam[RB], sbm[RB], tm[RB];
+  int gcur = -1;
+  for (int u = l0; u < l1; ++u) {
+    const int r0 = u * UNIT;
+    const int g = r0 / a.gs2;
+    if (g != gcur) {
+      if (gcur >= 0)
+        flush_group<RB>(pa, pb, sam, sbm, tm, sc, nr, acc);
+      gcur = g;
+      const float4* s4 =
+          reinterpret_cast<const float4*>(se + (size_t)g * a.N);
+#pragma unroll
+      for (int q = 0; q < CPT / 4; ++q) {
+        const float4 v = __ldg(s4 + q);
+        sc[4 * q] = v.x; sc[4 * q + 1] = v.y;
+        sc[4 * q + 2] = v.z; sc[4 * q + 3] = v.w;
+      }
+      // the lane holding the group's first unit subtracts t
+      const bool with_t = r0 == g * a.gs2;
+#pragma unroll
+      for (int m = 0; m < RB; ++m) {
+        const size_t ri = (size_t)row[m] * a.ng + g;
+        sam[m] = __ldg(a.sa + ri);
+        sbm[m] = __ldg(a.sb + ri);
+        tm[m] = with_t ? __ldg(a.t + ri) : 0.f;
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) pa[m][c] = pb[m][c] = 0;
+      }
+    }
+    uint4 wd[UNIT];
+#pragma unroll
+    for (int j = 0; j < UNIT; ++j)
+      wd[j] = __ldg(reinterpret_cast<const uint4*>(
+          we + (size_t)(r0 + j) * a.N));
+    int a4[RB][2], b4[RB][2];
+#pragma unroll
+    for (int m = 0; m < RB; ++m) {
+      const size_t ro = (size_t)row[m] * a.K2 + r0;
+      const int2 va = __ldg(reinterpret_cast<const int2*>(a.qa + ro));
+      const int2 vb = __ldg(reinterpret_cast<const int2*>(a.qb + ro));
+      a4[m][0] = va.x; a4[m][1] = va.y;
+      b4[m][0] = vb.x; b4[m][1] = vb.y;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // storage rows 4h .. 4h + 3
+      const uint4* w4 = wd + 4 * h;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // columns 4q .. 4q + 3
+        int wrow[4], wcol[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint4 v = w4[j];
+          wrow[j] = (int)(q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z
+                                                              : v.w);
+        }
+#if !KT_W4GEMV_CUT_DECODE
+        transpose4x4(wrow, wcol);
+#pragma unroll
+        for (int m = 0; m < RB; ++m) {
+          if (m < nr) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              pa[m][4 * q + c] = __dp4a(a4[m][h], wcol[c] & 0x0F0F0F0F,
+                                        pa[m][4 * q + c]);
+              pb[m][4 * q + c] =
+                  __dp4a(b4[m][h], wcol[c], pb[m][4 * q + c]);
+            }
+          }
+        }
+#else
+        // the loads stay live; one xor a loaded word
+#pragma unroll
+        for (int m = 0; m < RB; ++m)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            pa[m][4 * q + c] ^= wrow[c] ^ a4[m][h] ^ b4[m][h];
+#endif
+      }
+    }
+  }
+  if (gcur >= 0) flush_group<RB>(pa, pb, sam, sbm, tm, sc, nr, acc);
+}
+
 }  // namespace w4gv
 
 // y[row, n] for the rows of tile blockIdx.y (up to RB rows of one expert)
@@ -141,11 +269,11 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
                      int splits, int gran, float* __restrict__ part,
                      int* __restrict__ cnt, OutT* __restrict__ out) {
   constexpr int TX = w4gv::TX, LANES = w4gv::LANES, THREADS = w4gv::THREADS;
-  constexpr int CPT = w4gv::CPT, BN = w4gv::BN, UNIT = w4gv::UNIT;
+  constexpr int CPT = w4gv::CPT, BN = w4gv::BN;
   constexpr int MAX_ROWS = w4gv::MAX_ROWS;
   __shared__ __align__(16) float red[LANES][RB][BN];
   __shared__ int ids_s[MAX_ROWS], rows_s[RB], wsum[THREADS / 32];
-  __shared__ int expert_s, chunk_s, nrows_s, last;
+  __shared__ int expert_s, chunk_s, nrows_s;
   w4gv::tile_rows<RB>(ids, R, blockIdx.y, ids_s, rows_s, wsum, &expert_s,
                       &chunk_s, &nrows_s);
   const int e = expert_s;
@@ -155,11 +283,8 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
   const int n0 = blockIdx.x * BN;
   const int col = n0 + tx * CPT;
   const int s = blockIdx.z;
-  const int ngran = a.K2 / UNIT / gran;
-  const int u0 = gran * (int)((long long)ngran * s / splits);
-  const int u1 = gran * (int)((long long)ngran * (s + 1) / splits);
-  const int l0 = u0 + (u1 - u0) * ly / LANES;
-  const int l1 = u0 + (u1 - u0) * (ly + 1) / LANES;
+  int l0, l1;
+  w4gv::lane_run(a.K2, gran, splits, s, ly, l0, l1);
   const int8_t* we = a.w + (size_t)e * a.K2 * a.N + col;
   const float* se = a.s + (size_t)e * a.ng * a.N + col;
   constexpr int PER = BN / THREADS;  // output columns a thread stores
@@ -173,90 +298,8 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[m][c] = 0.f;
 
-  if (col < a.N && l0 < l1) {
-    int pa[RB][CPT], pb[RB][CPT];
-    float sc[CPT], sam[RB], sbm[RB], tm[RB];
-    int gcur = -1;
-    for (int u = l0; u < l1; ++u) {
-      const int r0 = u * UNIT;
-      const int g = r0 / a.gs2;
-      if (g != gcur) {
-        if (gcur >= 0)
-          w4gv::flush_group<RB>(pa, pb, sam, sbm, tm, sc, nr, acc);
-        gcur = g;
-        const float4* s4 =
-            reinterpret_cast<const float4*>(se + (size_t)g * a.N);
-#pragma unroll
-        for (int q = 0; q < CPT / 4; ++q) {
-          const float4 v = __ldg(s4 + q);
-          sc[4 * q] = v.x; sc[4 * q + 1] = v.y;
-          sc[4 * q + 2] = v.z; sc[4 * q + 3] = v.w;
-        }
-        // the lane holding the group's first unit subtracts t
-        const bool with_t = r0 == g * a.gs2;
-#pragma unroll
-        for (int m = 0; m < RB; ++m) {
-          const size_t ri = (size_t)row[m] * a.ng + g;
-          sam[m] = __ldg(a.sa + ri);
-          sbm[m] = __ldg(a.sb + ri);
-          tm[m] = with_t ? __ldg(a.t + ri) : 0.f;
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) pa[m][c] = pb[m][c] = 0;
-        }
-      }
-      uint4 wd[UNIT];
-#pragma unroll
-      for (int j = 0; j < UNIT; ++j)
-        wd[j] = __ldg(reinterpret_cast<const uint4*>(
-            we + (size_t)(r0 + j) * a.N));
-      int a4[RB][2], b4[RB][2];
-#pragma unroll
-      for (int m = 0; m < RB; ++m) {
-        const size_t ro = (size_t)row[m] * a.K2 + r0;
-        const int2 va = __ldg(reinterpret_cast<const int2*>(a.qa + ro));
-        const int2 vb = __ldg(reinterpret_cast<const int2*>(a.qb + ro));
-        a4[m][0] = va.x; a4[m][1] = va.y;
-        b4[m][0] = vb.x; b4[m][1] = vb.y;
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // storage rows 4h .. 4h + 3
-        const uint4* w4 = wd + 4 * h;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {  // columns 4q .. 4q + 3
-          int wrow[4], wcol[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const uint4 v = w4[j];
-            wrow[j] = (int)(q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z
-                                                                : v.w);
-          }
-#if !KT_W4GEMV_CUT_DECODE
-          transpose4x4(wrow, wcol);
-#pragma unroll
-          for (int m = 0; m < RB; ++m) {
-            if (m < nr) {
-#pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                pa[m][4 * q + c] = __dp4a(a4[m][h], wcol[c] & 0x0F0F0F0F,
-                                          pa[m][4 * q + c]);
-                pb[m][4 * q + c] =
-                    __dp4a(b4[m][h], wcol[c], pb[m][4 * q + c]);
-              }
-            }
-          }
-#else
-          // the loads stay live; one xor a loaded word
-#pragma unroll
-          for (int m = 0; m < RB; ++m)
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              pa[m][4 * q + c] ^= wrow[c] ^ a4[m][h] ^ b4[m][h];
-#endif
-        }
-      }
-    }
-    if (gcur >= 0) w4gv::flush_group<RB>(pa, pb, sam, sbm, tm, sc, nr, acc);
-  }
+  if (col < a.N && l0 < l1)
+    w4gv::lane_walk<RB>(a, we, se, row, nr, l0, l1, acc);
 
 #pragma unroll
   for (int m = 0; m < RB; ++m)
@@ -286,13 +329,8 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
   }
   if (splits == 1) return;
 #if !KT_W4GEMV_CUT_REDUCE
-  __threadfence();
-  __syncthreads();
   int* c = cnt + (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  if (threadIdx.x == 0) last = atomicAdd(c, 1) == splits - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
+  if (!kt_mma::arrive_last(c, splits)) return;
   // the partials of the tile's rows in split order, sixteen splits' loads
   // in flight at once
 #pragma unroll
@@ -303,17 +341,8 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
     for (int i = 0; i < PER; ++i) {
       const int n = n0 + threadIdx.x + i * THREADS;
       if (n >= a.N) continue;
-      float v = 0.f;
-      for (int q0 = 0; q0 < splits; q0 += 16) {
-        float pv[16];
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-          pv[j] = q0 + j < splits ? __ldcg(p0 + (size_t)(q0 + j) * a.N + n)
-                                  : 0.f;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) v += pv[j];
-      }
-      store_out(out + (size_t)row[m] * a.N + n, v);
+      store_out(out + (size_t)row[m] * a.N + n,
+                w4gv::split_sum(p0 + n, splits, a.N));
     }
   }
   if (threadIdx.x == 0) *c = 0;  // ready for the next launch

@@ -10,16 +10,16 @@ W4A8 matmuls (experts too wide for the fused FFN, Mixtral's), the two
 GQA paged-attention kernels and the two transposed matmuls of the LoRA SFT
 backward (dense, and per-row experts: grouped or gathered). ``LAUNCHES``
 counts, per TPU kernel replaced, the wrapper calls that launched on the
-card; a call of an FFN wrapper is two kernel launches. Fifteen wrappers
+card; a call of an FFN wrapper is two kernel launches. Sixteen wrappers
 route a call to the first version of their kernel or to a redesigned one
 (``route`` in ops/cuda/quant_matmul.py, quant_matmul_t.py, w4a8_matmul.py
 and mla_decode.py, ``ffn_route`` in w4a8_ffn.py, ``decode_route``,
-``prefill_route`` and ``gqa_prefill_route`` in paged_attention.py);
-``ROUTED_KERNELS`` names
-each redesigned kernel with the wrappers that route to it, and
-``ROUTED_LAUNCHES`` counts, per redesigned kernel, the wrapper calls that
-took it (an FFN call on tensor cores takes two: its gate_up kernel and
-w4a8_mma_kernel for the down).
+``prefill_route``, ``gqa_decode_route`` and ``gqa_prefill_route`` in
+paged_attention.py); ``ROUTED_KERNELS`` names each redesigned kernel with
+the wrappers that route to it, and ``ROUTED_LAUNCHES`` counts, per
+redesigned kernel, the wrapper calls that took it (an FFN call takes two:
+its gate_up kernel, w4a8_ffn_mma_kernel or w4a8_ffn_gemv_kernel, and
+w4a8_mma_kernel or w4a8_gemv_kernel for the down).
 """
 
 from __future__ import annotations
@@ -61,6 +61,8 @@ ROUTED_KERNELS = {
     "mla_prefill_mma_kernel": ("mla_paged_prefill",),
     "mla_paged_decode_split_kernel": ("mla_paged_decode",),
     "gqa_prefill_mma_kernel": ("gqa_paged_prefill",),
+    "w4a8_ffn_gemv_kernel": ("gathered_w4a8_ffn", "dense_w4a8_ffn"),
+    "gqa_decode_split_kernel": ("gqa_paged_decode",),
 }
 ROUTED_LAUNCHES = {name: 0 for name in ROUTED_KERNELS}
 

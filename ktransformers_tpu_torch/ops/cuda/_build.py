@@ -41,6 +41,7 @@ SIGNATURES = {
         "kt_w4a8_ffn_up": [P] * 10 + [I] * 8 + [P] * 6,
         "kt_w4a8_ffn_mma": [P] * 10 + [I] * 6 + [P] * 6,
         "kt_w4a8_ffn_down": [P] * 10 + [I] * 7 + [P, P],
+        "kt_w4a8_ffn_gemv": [P] * 8 + [I] * 11 + [P] * 8,
     },
     "mla_decode": {
         "kt_mla_decode_fused": [P] * 8 + [I, I, I, F, F, I] + [P] * 4,
@@ -67,6 +68,7 @@ SIGNATURES = {
         "kt_gqa_decode_pieces": [I, I],
         "kt_gqa_paged_prefill": [P] * 6 + [I] * 7 + [F, I] + [P, P],
         "kt_gqa_prefill_mma": [P] * 6 + [I] * 7 + [F, I] + [P, P],
+        "kt_gqa_decode_split": [P] * 5 + [I] * 7 + [F] + [P] * 4,
     },
 }
 

@@ -34,10 +34,19 @@ shapes (L2 flushed before each launch, median of 20):
   without both and the exponentials;
 - gqa_prefill_mma_kernel (bf16 gqa_paged_prefill, Mixtral's 32 / 8 heads,
   the plan's block shape): without the products, without the
-  exponentials, without both.
+  exponentials, without both;
+- w4a8_ffn_gemv_kernel (the W4A8 FFN's one-row gate_up, its launch alone:
+  6 and 48 routed rows, the shared experts at M = 1): without the
+  transposes and int8 dots (w4gv::lane_walk's switch), without the
+  cross-split sum, without the GLU and requant, without all three;
+- gqa_decode_split_kernel (bf16 gqa_paged_decode, Mixtral's 32 / 8 heads,
+  the serving batch, window 0 and 512): without the products, without the
+  merge of the splits, without both and the exponentials.
 What is left with the main parts out is the skeleton: copies, barriers,
 loads. The outputs of the cut variants are garbage; only their times are
-read. The copies and libraries go to csrc/build/breakdown/ (git-ignored);
+read. Beside them, the floor of this way of timing (floor_ms): an empty
+launch, and a device-to-device copy (the library's) of 6, 18.4 and 25.6 MB,
+the bytes of the new decode kernels' calls. The copies and libraries go to csrc/build/breakdown/ (git-ignored);
 each W4A8 copy gets its own namespaces, so that the libraries share no
 template symbol. Names on the command line pick kernels (default: all).
 Prints one line per shape, then all of them as one JSON line.
@@ -138,6 +147,17 @@ VARIANTS = {
         "full": [], "no_mma": ["-DKT_GQA_CUT_MMA=1"],
         "no_softmax": ["-DKT_GQA_CUT_SOFTMAX=1"],
         "skeleton": ["-DKT_GQA_CUT_MMA=1", "-DKT_GQA_CUT_SOFTMAX=1"]}),
+    "w4a8_ffn_gemv_kernel": ("w4a8_ffn", {
+        "full": [], "no_decode": ["-DKT_W4GEMV_CUT_DECODE=1"],
+        "no_reduce": ["-DKT_FFNGV_CUT_REDUCE=1"],
+        "no_requant": ["-DKT_FFNGV_CUT_REQUANT=1"],
+        "skeleton": ["-DKT_W4GEMV_CUT_DECODE=1", "-DKT_FFNGV_CUT_REDUCE=1",
+                     "-DKT_FFNGV_CUT_REQUANT=1"]}),
+    "gqa_decode_split_kernel": ("gqa_paged_attention", {
+        "full": [], "no_mma": ["-DKT_GQA_CUT_MMA=1"],
+        "no_merge": ["-DKT_GQA_CUT_MERGE=1"],
+        "skeleton": ["-DKT_GQA_CUT_MMA=1", "-DKT_GQA_CUT_SOFTMAX=1",
+                     "-DKT_GQA_CUT_MERGE=1"]}),
 }
 OUT = os.path.join(_build.BUILD, "breakdown")
 
@@ -210,6 +230,18 @@ def time_ms(fn, iters: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def floor_ms() -> dict:
+    """{what: ms} of calls that do no kernel's work, timed as the kernels
+    are: an empty launch, and a copy of n MB (read n, write n)."""
+    out = {"empty launch": time_ms(lambda: torch.cuda._sleep(0))}
+    for mb in (6, 18.4, 25.6):
+        src = torch.empty(int(mb * 1e6) // 16 * 4, dtype=torch.int32,
+                          device="cuda")
+        dst = torch.empty_like(src)
+        out[f"copy {mb} MB"] = time_ms(lambda: dst.copy_(src))
+    return out
 
 
 def shapes_of(kernel: str, rn, w, rd) -> list:
@@ -351,6 +383,34 @@ def shapes_of(kernel: str, rn, w, rd) -> list:
             out.append((f"C={c} S=256 H=32 Hkv=8 old={olds} valid={valids}",
                         lambda args=args: PA.gqa_prefill_launcher(
                             *args, kernel="mma")))
+    elif kernel == "w4a8_ffn_gemv_kernel":
+        gu, dn = w((64, 2048, 2816)), w((64, 1408, 2048))
+        g = torch.Generator().manual_seed(3)
+        for rows in (6, 48):
+            ids = torch.stack([torch.randperm(64, generator=g)[:6]
+                               for _ in range(rows // 6)]).reshape(-1)
+            ids = ids.to(torch.int32).cuda()
+            x = rn(rows, 2048)
+            out.append((f"gathered gate_up, {rows} rows",
+                        lambda x=x, ids=ids: (F.gathered_launcher(
+                            x, gu, dn, ids)[0].up, None)))
+        sgu, sdn, xs = w((2048, 5632)), w((2816, 2048)), rn(1, 2048)
+        out.append(("shared gate_up M=1", lambda: (
+            F.dense_launcher(xs, sgu, sdn)[0].up, None)))
+    elif kernel == "gqa_decode_split_kernel":
+        lens = [1, 64, 65, 512, 513, 1000, 2047, 2048]
+        tables = (torch.randperm(8 * 32, generator=torch.Generator()
+                                 .manual_seed(8)) + 1).reshape(8, 32).to(
+            torch.int32).cuda()
+        args = (rn(8, 32, 128), rn(8 * 32 + 1, 64, 8, 128),
+                rn(8 * 32 + 1, 64, 8, 128), tables,
+                torch.tensor(lens, dtype=torch.int32, device="cuda"),
+                128 ** -0.5)
+        for window in (0, 512):
+            out.append((f"B=8 H=32 Hkv=8 page=64 lengths 1..2048 "
+                        f"window={window}",
+                        lambda window=window: PA.gqa_decode_launcher(
+                            *args, window=window, kernel="split")))
     return out
 
 
@@ -384,7 +444,10 @@ def main() -> int:
         return repack_offset_lo(rd.q(shape, "int4_g", 128))
 
     lib_of = _build.lib
-    result = dict(card=card, shapes={})
+    result = dict(card=card, floor=floor_ms(), shapes={})
+    print("floor: " + ", ".join(f"{k} {ms:.4f} ms"
+                                for k, ms in result["floor"].items()),
+          flush=True)
     try:
         for kernel in kernels:
             lib, variants = VARIANTS[kernel]

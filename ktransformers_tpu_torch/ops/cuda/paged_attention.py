@@ -24,7 +24,7 @@ Three meanings of ``lengths`` meet here:
 Bound on the card: decode by the bytes of the live rows; prefill at the
 serving shapes by the operations of its two products.
 
-Three wrappers route a CUDA call by the operands' type; float32 keeps
+Four wrappers route a CUDA call by the operands' type; float32 keeps
 the first versions, whose card tests hold 1e-5 and which bf16 products
 could not:
 - mla_paged_decode by ``decode_route``: bf16 takes
@@ -35,6 +35,11 @@ could not:
 - mla_paged_prefill by ``prefill_route``: bf16 takes
   mla_prefill_mma_kernel (tensor cores, RG heads x 16 positions a block by
   ``prefill_plan``), float32 mla_paged_prefill_kernel;
+- gqa_paged_decode by ``gqa_decode_route``: bf16 takes
+  gqa_decode_split_kernel (each sequence's keys split over
+  ``gqa_decode_split_plan`` blocks, the G query heads of a KV head an mma
+  row group, the splits merged in the same launch), float32
+  gqa_paged_decode_kernel and its combine launch;
 - gqa_paged_prefill by ``gqa_prefill_route``: bf16 takes
   gqa_prefill_mma_kernel (tensor cores, 64 or 128 flattened query rows a
   block by ``gqa_prefill_plan``), float32 gqa_paged_prefill_kernel.
@@ -345,12 +350,63 @@ def mla_paged_prefill(q_nope_eff, q_pe, ckv_pages, kpe_pages, page_tables,
 # ---- GQA ----
 
 GQA_KERNEL_D = 128  # head dim the kernels take
-GQA_KERNEL_GMAX = 8  # query heads per KV head the decode kernel takes
+GQA_KERNEL_GMAX = 8  # query heads per KV head the float32 decode takes
+# gqa_decode_split_kernel (csrc/gqa_paged_attention.cu): the G query heads
+# of a KV head are the rows of one mma row group; a split takes a multiple
+# of GQA_DECODE_UNIT keys, at least GQA_DECODE_MIN_SPAN (one tile); at most
+# GQA_DECODE_MAX_SPLITS splits (one merge record a lane), each writing a
+# record of m [16], l [16] and acc [16, D] floats; the plan fills the card
+# with GQA_DECODE_BLOCKS_PER_SM blocks an SM (its shared memory allows two)
+GQA_SPLIT_GMAX = 16
+GQA_DECODE_UNIT = 16
+GQA_DECODE_MIN_SPAN = 64
+GQA_DECODE_MAX_SPLITS = 32
+GQA_DECODE_BLOCKS_PER_SM = 2
+GQA_DECODE_REC = 2 * GQA_SPLIT_GMAX + GQA_SPLIT_GMAX * GQA_KERNEL_D
+GQA_DECODE_KERNEL_NAMES = {"split": "gqa_decode_split_kernel"}
 # gqa_prefill_mma_kernel (csrc/gqa_paged_attention.cu): a block holds one
 # of GQA_PREFILL_ROWS flattened (position, head) query rows of one KV head
 # with 8 warps (at 64 rows two warps a 16-row group, splitting the keys)
 GQA_PREFILL_ROWS = (64, 128)
 GQA_PREFILL_KERNEL_NAMES = {"mma": "gqa_prefill_mma_kernel"}
+
+
+def gqa_decode_route(dtype: torch.dtype) -> str:
+    """The kernel of a CUDA gqa_paged_decode call: "split"
+    (gqa_decode_split_kernel) for bf16 operands, "first"
+    (gqa_paged_decode_kernel and its combine launch) for float32."""
+    return "split" if dtype == torch.bfloat16 else "first"
+
+
+def gqa_decode_split_plan(b: int, hkv: int, capacity: int, sms: int) -> int:
+    """Splits a (sequence, KV head) of a gqa_decode_split_kernel launch over
+    pools of ``capacity`` = pmax * page positions a sequence: the most for
+    which (B x Hkv x splits) blocks fit the card at once
+    (GQA_DECODE_BLOCKS_PER_SM blocks an SM, the kernel's shared memory
+    allows two), at most GQA_DECODE_MAX_SPLITS and no more than the
+    capacity's tiles. On the H100 at Mixtral's serving batch (B = 8, Hkv =
+    8) that is 4, which beat 5 and 8 at window 0 and 512
+    (ops/cuda/split_sweep.py). A pure function of the shapes: the lengths
+    stay on the card, where each block cuts its sequence's keys
+    (gqa_decode_split_rows)."""
+    fit = GQA_DECODE_BLOCKS_PER_SM * sms // (b * hkv)
+    return max(1, min(fit, GQA_DECODE_MAX_SPLITS,
+                      -(-capacity // GQA_DECODE_MIN_SPAN)))
+
+
+def gqa_decode_split_rows(length: int, window: int, splits: int) -> list:
+    """The keys [start, end) each split of gqa_decode_split_kernel takes of
+    a sequence of ``length`` live keys (as the kernel's split_chunk cuts
+    them): the keys the query sees, [kbeg, length) with kbeg = max(0,
+    length - window) under a window, in runs of max(GQA_DECODE_MIN_SPAN,
+    ceil(n / splits) rounded up to GQA_DECODE_UNIT) keys; splits past the
+    last key get an empty run."""
+    kbeg = max(0, length - window) if window > 0 else 0
+    per = -(-(length - kbeg) // splits)
+    chunk = max(GQA_DECODE_MIN_SPAN,
+                -(-per // GQA_DECODE_UNIT) * GQA_DECODE_UNIT)
+    return [(kbeg + j * chunk, min(length, kbeg + (j + 1) * chunk))
+            for j in range(splits)]
 
 
 def gqa_prefill_route(dtype: torch.dtype) -> str:
@@ -448,19 +504,45 @@ def _check_gqa_cuda(what, q, k_pages, v_pages, *ints):
 
 
 def gqa_decode_launcher(q, k_pages, v_pages, page_tables, lengths,
-                        scale: float, window: int = 0):
+                        scale: float, window: int = 0,
+                        kernel: str | None = None):
     """Checks a CUDA call and allocates its output; returns (launch, out),
-    where launch() runs only the kernel."""
+    where launch() runs only the kernel. ``kernel`` ("split" or "first")
+    overrides ``gqa_decode_route``, for a measurement."""
     what = "gqa_paged_decode"
     _check_gqa_cuda(what, q, k_pages, v_pages, page_tables, lengths)
     b, h, _ = q.shape
     hkv = k_pages.shape[2]
-    if h // hkv > GQA_KERNEL_GMAX:
-        raise ValueError(f"{what}: kernel takes at most {GQA_KERNEL_GMAX} "
-                         f"query heads per KV head; got {h // hkv}")
+    kernel = kernel or gqa_decode_route(q.dtype)
+    if kernel == "split" and q.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: gqa_decode_split_kernel takes bfloat16")
+    gmax = GQA_SPLIT_GMAX if kernel == "split" else GQA_KERNEL_GMAX
+    if h // hkv > gmax:
+        raise ValueError(f"{what}: kernel takes at most {gmax} query heads "
+                         f"per KV head; got {h // hkv}")
     out = torch.empty_like(q)
     lib = _build.lib("gqa_paged_attention")
     page, pmax = k_pages.shape[1], page_tables.shape[1]
+    if kernel == "split":
+        dev = out.device
+        splits = gqa_decode_split_plan(b, hkv, pmax * page, sm_count(dev))
+        part = cnt = None
+        if splits > 1:
+            part, cnt = scratch(dev, b * hkv * splits * GQA_DECODE_REC,
+                                b * hkv, "gqa_decode_split")
+
+        def launch_split():
+            err = lib.kt_gqa_decode_split(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                page_tables.data_ptr(), lengths.data_ptr(), b, h, hkv, page,
+                pmax, int(window), splits, float(scale),
+                None if part is None else part.data_ptr(),
+                None if cnt is None else cnt.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+            _build.check(err, what)
+
+        return launch_split, out
     # per (sequence, KV head, piece of the key range): G maxima, G sums and
     # G x D context sums, merged by the kernel's second launch
     pieces = lib.kt_gqa_decode_pieces(page, pmax)
@@ -529,10 +611,13 @@ def gqa_paged_decode(q, k_pages, v_pages, page_tables, lengths, scale: float,
     if device_kind(q, what) == "cpu":
         return gqa_paged_decode_ref(q, k_pages, v_pages, page_tables,
                                     lengths, scale, window)
+    kernel = gqa_decode_route(q.dtype)
     launch, out = gqa_decode_launcher(q, k_pages, v_pages, page_tables,
-                                      lengths, scale, window)
+                                      lengths, scale, window, kernel)
     launch()
     LAUNCHES[what] += 1
+    if kernel in GQA_DECODE_KERNEL_NAMES:
+        ROUTED_LAUNCHES[GQA_DECODE_KERNEL_NAMES[kernel]] += 1
     return out
 
 

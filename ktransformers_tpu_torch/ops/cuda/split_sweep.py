@@ -1,21 +1,24 @@
-"""Time the split-K GEMVs, the split-N wgmma kernel and the four bf16
+"""Time the split-K GEMVs, the split-N wgmma kernel and the five bf16
 attention kernels at the main path's shapes under several split counts
 or block shapes, on one GPU.
 
     python -m ktransformers_tpu_torch.ops.cuda.split_sweep [section ...]
 
-Sections (default: all): gemv, w4a8_gemv, wgmma_t, mla_decode,
-mla_prefill, mla_paged_decode, gqa_prefill. quant_gemv_kernel (int8
-weights, bf16 x, M = 1 and the gathered entry), w4a8_gemv_kernel (W4A8
-weights, bf16 x, M = 1: splits of whole scale groups),
+Sections (default: all): gemv, w4a8_gemv, ffn_gemv, wgmma_t, mla_decode,
+mla_prefill, mla_paged_decode, gqa_prefill, gqa_decode.
+quant_gemv_kernel (int8 weights, bf16 x, M = 1 and the gathered entry),
+w4a8_gemv_kernel (W4A8 weights, bf16 x, M = 1: splits of whole scale
+groups), w4a8_ffn_gemv_kernel (the W4A8 FFN's one-row gate_up launch
+alone: 6 and 48 routed rows, the shared experts at M = 1),
 quant_wgmma_t_kernel (W4A8 weights, bf16 dy, the SFT step's 512 rows),
 mla_decode_split_kernel (16 heads, rows a split), mla_prefill_mma_kernel
 (16 heads, heads a block), mla_paged_decode_split_kernel (16 heads, the
-serving batch, positions a split) and gqa_prefill_mma_kernel (Mixtral's
-32 / 8 heads, query rows a block) are launched through their wrappers'
-launchers with the planner replaced by a fixed count; the planner's own
-choice is marked, and the attention rows also time the first version
-("first"). Each time is the median of 20 launches with the L2
+serving batch, positions a split), gqa_prefill_mma_kernel (Mixtral's
+32 / 8 heads, query rows a block) and gqa_decode_split_kernel (Mixtral's
+32 / 8 heads, the serving batch, splits a (sequence, KV head)) are
+launched through their wrappers' launchers with the planner replaced by a
+fixed count; the planner's own choice is marked, and the FFN and
+attention rows also time the first version ("first"). Each time is the median of 20 launches with the L2
 cache flushed before each (as chip_smoke.py times its kernels), beside the
 one-call library yardstick (torch.matmul on the bf16-dequantized weight)
 where there is one; the attention kernels' yardstick is chip_smoke.py's.
@@ -280,11 +283,74 @@ def gqa_prefill_section(result, rd, rn):
         result[label] = row
 
 
+def ffn_gemv_section(result, rd, rn):
+    """w4a8_ffn_gemv_kernel (the gate_up launch of a one-row FFN call) at
+    DeepSeek-V2-Lite's decode shapes under forced splits of whole scale
+    groups, the first version's gate_up (ffn_up_kernel<1>) beside it."""
+    from ktransformers_tpu_torch.ops.cuda import w4a8_ffn as F
+    from ktransformers_tpu_torch.quant.w4a8 import repack_offset_lo
+
+    def w(shape):
+        return repack_offset_lo(rd.q(shape, "int4_g", 128))
+
+    gu, dn = w((64, 2048, 2816)), w((64, 1408, 2048))
+    g = torch.Generator().manual_seed(3)
+    calls = []
+    for rows in (6, 48):
+        ids = torch.stack([torch.randperm(64, generator=g)[:6]
+                           for _ in range(rows // 6)]).reshape(-1)
+        x = rn(rows, 2048)
+        calls.append((f"gathered {rows} rows", lambda k, x=x,
+                      ids=ids.to(torch.int32).cuda(): F.gathered_launcher(
+                          x, gu, dn, ids, "silu", k)))
+    sgu, sdn, xs = w((2048, 5632)), w((2816, 2048)), rn(1, 2048)
+    calls.append(("shared M=1", lambda k: F.dense_launcher(xs, sgu, sdn,
+                                                           "silu", k)))
+    for label, launcher in calls:
+        row = sweep(f"ffn_gemv {label}, splits", F, "ffn_gemv_plan",
+                    lambda c: (lambda *a: (c, 8)), (1, 2, 4, 8, 12, 16),
+                    lambda launcher=launcher: (launcher("gemv")[0].up, None),
+                    None)
+        row["first_ms"] = time_ms(launcher("rows")[0].up)
+        print(f"  first {row['first_ms']:.4f}", flush=True)
+        result[label] = row
+
+
+def gqa_decode_section(result, rd, rn):
+    """gqa_decode_split_kernel at Mixtral's widths (32 query heads over 8
+    KV heads of 128, page 64) and the serving batch (8 sequences of
+    lengths 1..2048), window 0 and 512, under forced splits, the first
+    version beside it."""
+    from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
+
+    lens = [1, 64, 65, 512, 513, 1000, 2047, 2048]
+    perm = torch.randperm(8 * 32, generator=torch.Generator()
+                          .manual_seed(8)) + 1
+    tables = perm.reshape(8, 32).to(torch.int32).cuda()
+    args = (rn(8, 32, 128), rn(8 * 32 + 1, 64, 8, 128),
+            rn(8 * 32 + 1, 64, 8, 128), tables,
+            torch.tensor(lens, dtype=torch.int32, device="cuda"),
+            128 ** -0.5)
+    for window in (0, 512):
+        label = f"B=8 page=64 lengths 1..2048 window={window}"
+        row = sweep(f"gqa_decode_split {label}, splits", PA,
+                    "gqa_decode_split_plan", lambda c: (lambda *a: c),
+                    (1, 2, 3, 4, 5, 6, 8, 12, 16, 32),
+                    lambda window=window: PA.gqa_decode_launcher(
+                        *args, window=window, kernel="split"), None)
+        row["first_ms"] = time_ms(PA.gqa_decode_launcher(
+            *args, window=window, kernel="first")[0])
+        print(f"  first {row['first_ms']:.4f}", flush=True)
+        result[label] = row
+
+
 SECTIONS = {"gemv": gemv_section, "w4a8_gemv": w4a8_gemv_section,
+            "ffn_gemv": ffn_gemv_section,
             "wgmma_t": wgmma_t_section, "mla_decode": mla_decode_section,
             "mla_prefill": mla_prefill_section,
             "mla_paged_decode": mla_paged_decode_section,
-            "gqa_prefill": gqa_prefill_section}
+            "gqa_prefill": gqa_prefill_section,
+            "gqa_decode": gqa_decode_section}
 
 
 if __name__ == "__main__":

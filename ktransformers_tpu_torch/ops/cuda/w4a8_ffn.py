@@ -8,14 +8,18 @@ ktransformers_tpu/ops/pallas/w4a8_matmul.py:
 - grouped_w4a8_ffn: rows sorted by expert with group sizes (prefill MoE).
 They compute the same function; each builds its own row-tile map, and
 ``ffn_route`` picks the two kernels of a call (gate_up, then down) by a
-fixed rule: tensor cores for tiles of more than one row, the GEMV for the
-down of one-row tiles, the first version for the shapes those refuse.
-Bound on the card: the weight bytes of the experts the rows use.
+fixed rule: tensor cores for tiles of more than one row, split-K GEMVs for
+one-row tiles (w4a8_ffn_gemv_kernel for gate_up + GLU + requant, planned
+by ``ffn_gemv_plan``; w4a8_gemv_kernel for the down), the first version
+for the shapes those refuse. Bound on the card: the weight bytes of the
+experts the rows use.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Callable
 
 import torch
 
@@ -25,13 +29,17 @@ from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
     MMA_BM,
     MMA_GROUPS,
     MMA_MIN_ROWS,
+    GEMV_MAX_ROWS,
+    GEMV_UNIT,
     _check_x,
     check_cuda_operands,
     check_w4a8_weight,
     dense_tiles,
     device_kind,
     gemv_launcher,
+    gemv_rows_per_chunk,
     gemv_takes,
+    gemv_tile_count,
     grouped_tiles,
     launch_mma,
     launch_rows,
@@ -39,7 +47,10 @@ from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
     one_id,
     prep_activations,
     row_tiles,
+    scratch,
+    sm_count,
     sorted_row_experts,
+    split_k_plan,
     w4a8_group_dot,
 )
 from ktransformers_tpu_torch.quant.formats import QTensor
@@ -58,9 +69,11 @@ def ffn_route(m: int, entry: str, gs_up: int, gs_dn: int, inter: int,
     """The kernels of a CUDA FFN call (``entry`` "dense", "gathered" or
     "grouped", m rows), a pure function of the shapes:
     - "gemv": one-row tiles (every gathered call, a dense call of one row):
-      ffn_up_kernel<1> for gate_up, w4a8_gemv_kernel for the down, where
-      the GEMV takes the down (gemv_takes: at most 128 rows, K a multiple
-      of 16, a down group of whole 8-row units);
+      w4a8_ffn_gemv_kernel for gate_up + GLU + requant, w4a8_gemv_kernel
+      for the down, where both take the shapes (gemv_takes for the down:
+      at most 128 rows, K a multiple of 16, a down group of whole 8-row
+      units, at most MAX_DOWN_GROUP, as check_ffn holds; a gate_up group
+      of whole 8-row units for the gate_up);
     - "mma": dense and grouped calls of at least MMA_MIN_ROWS rows:
       w4a8_ffn_mma_kernel for gate_up + GLU + requant, w4a8_mma_kernel for
       the down, both on 64-row tiles; gate_up group 128 or 96, down group
@@ -68,12 +81,23 @@ def ffn_route(m: int, entry: str, gs_up: int, gs_dn: int, inter: int,
     - "rows": the first version (ffn_up_kernel, w4a8_rows_kernel) for the
       shapes those refuse."""
     if entry == "gathered" or (entry == "dense" and m == 1):
-        return "gemv" if gemv_takes(m, gs_dn, kdim) else "rows"
+        takes = gemv_takes(m, gs_dn, kdim) and (gs_up // 2) % GEMV_UNIT == 0
+        return "gemv" if takes else "rows"
     if (m >= MMA_MIN_ROWS and gs_up in MMA_GROUPS
             and gs_dn == FFN_MMA_DOWN_GROUP
             and inter % FFN_MMA_DOWN_GROUP == 0 and kdim % 32 == 0):
         return "mma"
     return "rows"
+
+
+def ffn_gemv_plan(inter: int, gs_dn: int, ntiles: int, k2: int, gs2: int,
+                  sms: int) -> tuple[int, int]:
+    """(splits, gran) of a w4a8_ffn_gemv_kernel launch: split_k_plan over
+    (I / down group) x tiles blocks a split, one block a (down group,
+    tile). At DeepSeek-V2-Lite's decode shapes (K = 2048, group 128: 16
+    groups): 6 routed rows (66 blocks) take 4 splits, the shared experts at
+    M = 1 (I = 2816: 22 blocks) 12, 48 routed rows (528 blocks) one."""
+    return split_k_plan(inter // gs_dn * ntiles, k2, gs2, sms)
 
 
 def glu(g: torch.Tensor, u: torch.Tensor, act: str) -> torch.Tensor:
@@ -227,15 +251,16 @@ def dense_mlp_fused(gate_up, down, act: str, swiglu_limit,
             and ffn_fits(lift(gate_up), lift(down), act, swiglu_limit, rows))
 
 
-def w4a8_ffn_ref(x_rows: torch.Tensor, gate_up: QTensor, down: QTensor,
-                 row_expert: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """Plain version of all three FFN entries: row r uses expert
-    row_expert[r] (-1 = no expert, output row zero). Weights are
-    [E, K/2, 2I] / [E, I/2, K]. Returns [R, K] in x_rows.dtype."""
-    r, kdim = x_rows.shape
+def gate_up_ref(x_rows: torch.Tensor, gate_up: QTensor, gs_dn: int,
+                row_expert: torch.Tensor, act: str = "silu"):
+    """Plain version of an FFN call's first half: row r through expert
+    row_expert[r] of gate_up [E, K/2, 2I] (-1: none), the GLU and the
+    requant per down group of gs_dn. {expert: (rows, (ca, cb, sa2, sb2,
+    t2))}, what the down reads (requant_groups)."""
+    kdim = x_rows.shape[1]
     inter = gate_up.out_features // 2
     qa, qb, sa, sb, t, _ = w4a8_prep(x_rows, kdim, gate_up.group_size)
-    out = torch.zeros(r, kdim, dtype=torch.float32, device=x_rows.device)
+    mids = {}
     for e in torch.unique(row_expert).tolist():
         if e < 0:
             continue
@@ -243,10 +268,22 @@ def w4a8_ffn_ref(x_rows: torch.Tensor, gate_up: QTensor, down: QTensor,
         h = w4a8_group_dot(qa[idx], qb[idx], sa[idx], sb[idx], t[idx],
                            gate_up.data[e], gate_up.scales[e],
                            gate_up.group_size // 2)
-        a = glu(h[:, :inter], h[:, inter:], act)
-        ca, cb, sa2, sb2, t2 = requant_groups(a, down.group_size)
-        out[idx] = w4a8_group_dot(ca, cb, sa2, sb2, t2, down.data[e],
-                                  down.scales[e], down.group_size // 2)
+        mids[e] = idx, requant_groups(glu(h[:, :inter], h[:, inter:], act),
+                                      gs_dn)
+    return mids
+
+
+def w4a8_ffn_ref(x_rows: torch.Tensor, gate_up: QTensor, down: QTensor,
+                 row_expert: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """Plain version of all three FFN entries: row r uses expert
+    row_expert[r] (-1 = no expert, output row zero). Weights are
+    [E, K/2, 2I] / [E, I/2, K]. Returns [R, K] in x_rows.dtype."""
+    r, kdim = x_rows.shape
+    out = torch.zeros(r, kdim, dtype=torch.float32, device=x_rows.device)
+    for e, (idx, mid) in gate_up_ref(x_rows, gate_up, down.group_size,
+                                     row_expert, act).items():
+        out[idx] = w4a8_group_dot(*mid, down.data[e], down.scales[e],
+                                  down.group_size // 2)
     return out.to(x_rows.dtype)
 
 
@@ -264,19 +301,76 @@ def grouped_w4a8_ffn_ref(x_sorted, gate_up, down, group_sizes, act="silu"):
         group_sizes.to(x_sorted.device), x_sorted.shape[0]), act)
 
 
+@dataclasses.dataclass
+class FfnLaunch:
+    """The two launches of a CUDA FFN call on prepared operands: up()
+    (gate_up + GLU + requant into the scratch plane), then down(), which
+    reads that plane and writes the output. Calling it runs both."""
+    up: Callable[[], None]
+    down: Callable[[], None]
+
+    def __call__(self) -> None:
+        self.up()
+        self.down()
+
+
+def gemv_up_launcher(what, prep, gate_up: QTensor, gs_dn: int,
+                     ids: torch.Tensor, act: str, mid):
+    """Checks a one-row-tile gate_up on a 3-D weight [E, K/2, 2I] with row
+    r through expert ids[r]; returns launch(), which runs only
+    w4a8_ffn_gemv_kernel (kt_w4a8_ffn_gemv, split by ffn_gemv_plan) and
+    writes the requantized activation ``mid`` (ca, cb, sa2, sb2, t2)."""
+    qa, qb, sa, sb, t = prep
+    e, k2, n2x = gate_up.data.shape
+    inter = n2x // 2
+    gs2 = gate_up.group_size // 2
+    r = ids.shape[0]
+    if r > GEMV_MAX_ROWS or gs2 % GEMV_UNIT or gs_dn % 16:
+        raise ValueError(f"{what}: the GEMV takes at most {GEMV_MAX_ROWS} "
+                         "rows, a gate_up group of 16s and a down group of "
+                         f"16s (rows={r}, groups {2 * gs2} / {gs_dn})")
+    if any(p.data_ptr() % 16 for p in (gate_up.data, gate_up.scales)):
+        raise ValueError(f"{what}: the GEMV takes 16-byte aligned weights")
+    dev = qa.device
+    ids = ids.to(torch.int32).contiguous()
+    rb = gemv_rows_per_chunk(r, e)
+    tiles = gemv_tile_count(r, e, rb)
+    splits, gran = ffn_gemv_plan(inter, gs_dn, tiles, k2, gs2,
+                                 sm_count(dev))
+    part = cnt = None
+    if splits > 1:
+        part, cnt = scratch(dev, r * splits * n2x, inter // gs_dn * tiles,
+                            "w4a8_ffn_gemv")
+    fn = _build.lib("w4a8_ffn").kt_w4a8_ffn_gemv
+    tail = tuple(v.data_ptr() for v in mid)
+
+    def launch():
+        err = fn(
+            qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+            t.data_ptr(), gate_up.data.data_ptr(), gate_up.scales.data_ptr(),
+            ids.data_ptr(), r, tiles, splits, gran, rb, k2, inter, k2 // gs2,
+            gs2, gs_dn, ACTS[act],
+            None if part is None else part.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), *tail,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(err, what)
+
+    return launch
+
+
 def ffn_launcher(x_rows, gate_up: QTensor, down: QTensor, kernel: str,
                  tiles, mr: int, act: str, out: torch.Tensor, what: str,
-                 ids=None):
-    """Checks and prepares a CUDA call on 3-D weights; returns launch(),
-    which runs only the two kernels ``kernel`` (ffn_route) names on the
-    prepared operands and writes ``out``. ``tiles`` is the row-tile map of
-    the gate_up launch (and of the down, but for "gemv") with up to ``mr``
-    rows a tile: MMA_BM for "mma", 1 for "gemv"; ``ids`` the rows' experts
-    of the "gemv" down (ids = [0] for a dense call of one row)."""
+                 ids=None) -> FfnLaunch:
+    """Checks and prepares a CUDA call on 3-D weights; returns the
+    FfnLaunch of the two kernels ``kernel`` (ffn_route) names on the
+    prepared operands, which writes ``out``. ``tiles`` is the row-tile map
+    of both launches with up to ``mr`` rows a tile (MMA_BM for "mma"); a
+    "gemv" call takes ``ids``, the rows' experts (ids = [0] for a dense
+    call of one row), and keys its tiles by expert on the card."""
     r, kdim = x_rows.shape
-    if kernel == "gemv" and (mr != 1 or ids is None or ids.shape != (r,)):
-        raise ValueError(f"{what}: the GEMV down takes one-row tiles and "
-                         "an expert a row")
+    if kernel == "gemv" and (ids is None or ids.shape != (r,)):
+        raise ValueError(f"{what}: the GEMVs take an expert a row")
     inter = gate_up.out_features // 2
     gs1, gs_dn = gate_up.group_size, down.group_size
     check_cuda_operands(what, x_rows.device, x_rows, gate_up.data,
@@ -290,6 +384,11 @@ def ffn_launcher(x_rows, gate_up: QTensor, down: QTensor, kernel: str,
     sb2 = torch.empty_like(sa2)
     t2 = torch.empty_like(sa2)
     mid = (ca, cb, sa2, sb2, t2)
+    if kernel == "gemv":
+        return FfnLaunch(
+            gemv_up_launcher(what + " (gate_up)", (qa, qb, sa, sb, t),
+                             gate_up, gs_dn, ids, act, mid),
+            gemv_launcher(what + " (down)", mid, down, ids, out))
     te, tr0, trs = tiles
     lib = _build.lib("w4a8_ffn")
     head = (qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
@@ -311,29 +410,25 @@ def ffn_launcher(x_rows, gate_up: QTensor, down: QTensor, kernel: str,
                 *head, mr, kdim // 2, inter, kdim // gs1, gs1 // 2, gs_dn,
                 ACTS[act], *tail, torch.cuda.current_stream(dev).cuda_stream)
 
-        if kernel == "gemv":
-            down_launch = gemv_launcher(what + " (down)", mid, down, ids, out)
-        else:
-            def down_launch():
-                launch_rows(lib.kt_w4a8_ffn_down, what + " (down)", mid,
-                            down, tiles, mr, out)
+        def down_launch():
+            launch_rows(lib.kt_w4a8_ffn_down, what + " (down)", mid, down,
+                        tiles, mr, out)
 
-    def launch():
-        _build.check(up(), what + " (gate_up)")
-        down_launch()
+    return FfnLaunch(lambda: _build.check(up(), what + " (gate_up)"),
+                     down_launch)
 
-    return launch
+
+# the redesigned kernels of each route: gate_up, then down
+ROUTE_KERNELS = {"gemv": ("w4a8_ffn_gemv_kernel", "w4a8_gemv_kernel"),
+                 "mma": ("w4a8_ffn_mma_kernel", "w4a8_mma_kernel")}
 
 
 def _counted(what: str, kernel: str, launch, out: torch.Tensor
              ) -> torch.Tensor:
     launch()
     LAUNCHES[what] += 1
-    if kernel == "gemv":
-        ROUTED_LAUNCHES["w4a8_gemv_kernel"] += 1
-    elif kernel == "mma":
-        ROUTED_LAUNCHES["w4a8_ffn_mma_kernel"] += 1
-        ROUTED_LAUNCHES["w4a8_mma_kernel"] += 1
+    for name in ROUTE_KERNELS.get(kernel, ()):
+        ROUTED_LAUNCHES[name] += 1
     return out
 
 
@@ -348,8 +443,9 @@ def gathered_launcher(x_rows, gate_up, down, ids, act="silu",
     overrides ffn_route, for a measurement."""
     out = torch.empty_like(x_rows)
     kernel = kernel or _route(x_rows, gate_up, down, "gathered")
-    return ffn_launcher(x_rows, gate_up, down, kernel, row_tiles(ids), 1,
-                        act, out, "gathered_w4a8_ffn", ids), out
+    tiles = None if kernel == "gemv" else row_tiles(ids)
+    return ffn_launcher(x_rows, gate_up, down, kernel, tiles, 1, act, out,
+                        "gathered_w4a8_ffn", ids), out
 
 
 def dense_launcher(x2, gate_up, down, act="silu", kernel: str | None = None):

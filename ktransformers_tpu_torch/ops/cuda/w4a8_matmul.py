@@ -101,18 +101,24 @@ def scratch(device, floats: int, counters: int, what: str):
     return buf
 
 
-def w4a8_gemv_plan(n: int, ntiles: int, k2: int, gs2: int,
-                   sms: int) -> tuple[int, int]:
-    """(splits, gran) of a w4a8_gemv_kernel launch: the K/2 storage rows
-    are cut into ``splits`` runs of whole scale groups (gran = gs2 /
-    GEMV_UNIT units, 64 storage rows at group 128, 48 at 96) so that
-    (column blocks x tiles x splits) reaches GEMV_BLOCKS_PER_SM blocks an
-    SM, at least one group a split. ntiles is the static tile count
-    (gemv_tile_count)."""
+def split_k_plan(blocks: int, k2: int, gs2: int,
+                 sms: int) -> tuple[int, int]:
+    """(splits, gran) of a split-K W4A8 GEMV launch of ``blocks`` blocks a
+    split: the K/2 storage rows are cut into ``splits`` runs of whole scale
+    groups (gran = gs2 / GEMV_UNIT units, 64 storage rows at group 128, 48
+    at 96) so that blocks x splits reaches GEMV_BLOCKS_PER_SM blocks an SM,
+    at least one group a split."""
     groups = k2 // gs2
-    blocks = -(-n // GEMV_BN) * ntiles
     want = -(-GEMV_BLOCKS_PER_SM * sms // blocks)
     return max(1, min(want, groups)), gs2 // GEMV_UNIT
+
+
+def w4a8_gemv_plan(n: int, ntiles: int, k2: int, gs2: int,
+                   sms: int) -> tuple[int, int]:
+    """split_k_plan of a w4a8_gemv_kernel launch: (column blocks of
+    GEMV_BN x tiles) blocks a split; ntiles is the static tile count
+    (gemv_tile_count)."""
+    return split_k_plan(-(-n // GEMV_BN) * ntiles, k2, gs2, sms)
 
 
 def gemv_split_rows(k2: int, splits: int, gran: int) -> list:

@@ -44,6 +44,8 @@ Tolerances, as a share of the reference's largest magnitude:
   (returned in bf16).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -661,6 +663,10 @@ def test_gqa_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="share"):
         PA.gqa_paged_decode(*on(_x(rng, 1, 4, 128).bfloat16(), k, v, tables,
                                 lengths), 0.1)
+    with pytest.raises(ValueError, match="at most 16"):
+        PA.gqa_paged_decode(*on(_x(rng, 1, 32, 128).bfloat16(),
+                                k.bfloat16(), v.bfloat16(), tables,
+                                lengths), 0.1)
 
 
 # --------------------------------------- transposed matmuls, rows 16 and 17
@@ -1186,8 +1192,7 @@ def test_w4a8_gemv_counters_reset(cuda):
 
 
 def _ffn_routed(kernel, fn):
-    names = (("w4a8_gemv_kernel",) if kernel == "gemv"
-             else ("w4a8_ffn_mma_kernel", "w4a8_mma_kernel"))
+    names = F.ROUTE_KERNELS[kernel]
     before = [MM.ROUTED_LAUNCHES[k] for k in names]
     out = fn()
     torch.cuda.synchronize()
@@ -1197,9 +1202,9 @@ def _ffn_routed(kernel, fn):
 
 @pytest.mark.parametrize("act", ["silu", "relu", "gelu"])
 def test_w4a8_ffn_gemv_down(cuda, act):
-    """The FFN's one-row tiles (ffn_up_kernel<1>, then the GEMV down) on
-    DeepSeek-V2-Lite's experts: 6 routed rows, 48 rows with repeats, and
-    the shared experts at M = 1; against the plain version on the card
+    """The FFN's one-row tiles (w4a8_ffn_gemv_kernel, then the GEMV down)
+    on DeepSeek-V2-Lite's experts: 6 routed rows, 48 rows with repeats,
+    and the shared experts at M = 1; against the plain version on the card
     (1e-2: the requant may move a code by one step), bit-identical."""
     gu, dn = _dw((64, 2048, 2816), seed=1), _dw((64, 1408, 2048), seed=2)
     g = torch.Generator().manual_seed(3)
@@ -1219,6 +1224,110 @@ def test_w4a8_ffn_gemv_down(cuda, act):
     out = _ffn_routed("gemv", lambda: F.dense_w4a8_ffn(x, sgu, sdn, act))
     assert _rel(out, F.dense_w4a8_ffn_ref(x, sgu, sdn, act)) <= 1e-2
     assert torch.equal(F.dense_w4a8_ffn(x, sgu, sdn, act), out)
+
+
+def _poison_unrouted(w, ids):
+    """w with the scales of every expert no row routes to set to NaN: a
+    kernel that reads one gives NaN."""
+    used = torch.zeros(w.data.shape[0], dtype=torch.bool, device=w.data.device)
+    used[ids.long()] = True
+    scales = w.scales.clone()
+    scales[~used] = float("nan")
+    return dataclasses.replace(w, scales=scales)
+
+
+def _poison_scratch(name):
+    """Fill a split kernel's partials with NaN (they are written before they
+    are read, so a call must not see them)."""
+    for (_, what), (part, _) in MM._SCRATCH.items():
+        if what == name:
+            part.fill_(float("nan"))
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("rows", [6, 48, 16])
+def test_w4a8_ffn_gemv(cuda, rows, act):
+    """w4a8_ffn_gemv_kernel (gate_up + GLU + requant) and the GEMV down on
+    DeepSeek-V2-Lite's routed experts (64 of gate_up [2048, 2816], down
+    [1408, 2048]): 6 distinct rows (4 splits), 48 rows of 8 tokens with
+    repeats (one split), 16 rows over 4 experts (tiles of two rows: rows
+    outnumber the experts used, so the tile count has dead tiles). The
+    unrouted experts' scales and the split partials hold NaN; against the
+    plain version (1e-2), bit-identical on a second call, the counters back
+    at zero, the first version (ffn_up_kernel<1>) on the same operands
+    within the tolerance."""
+    gu, dn = _dw((64, 2048, 2816), seed=1), _dw((64, 1408, 2048), seed=2)
+    g = torch.Generator().manual_seed(rows)
+    if rows == 16:
+        ids = torch.randint(0, 4, (16,), generator=g)
+    else:
+        ids = torch.stack([torch.randperm(64, generator=g)[:6]
+                           for _ in range(rows // 6)]).reshape(-1)
+    ids = ids.to(torch.int32).to(cuda)
+    gu, dn = _poison_unrouted(gu, ids), _poison_unrouted(dn, ids)
+    x = _dx(rows, rows, 2048)
+    assert F.ffn_route(rows, "gathered", 128, 128, 1408, 2048) == "gemv"
+    _poison_scratch("w4a8_ffn_gemv")
+    out = _ffn_routed("gemv", lambda: _counted(
+        "gathered_w4a8_ffn", lambda: F.gathered_w4a8_ffn(x, gu, dn, ids,
+                                                         act)))
+    ref = F.gathered_w4a8_ffn_ref(x, gu, dn, ids, act)
+    assert bool(torch.isfinite(out.float()).all())
+    assert _rel(out, ref) <= 1e-2
+    assert torch.equal(F.gathered_w4a8_ffn(x, gu, dn, ids, act), out)
+    for what in ("w4a8_ffn_gemv", "w4a8_gemv"):
+        key = (str(x.device), what)
+        assert key not in MM._SCRATCH or not MM._SCRATCH[key][1].any()
+    launch, first = F.gathered_launcher(x, gu, dn, ids, act, "rows")
+    launch()
+    assert _rel(first, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("split", ["planned", "one", "most"])
+@pytest.mark.parametrize("gs_up, gs_dn, inter", [
+    (128, 128, 2816), (64, 64, 384), (96, 96, 576), (128, 32, 256)])
+def test_w4a8_ffn_gemv_shapes(cuda, gs_up, gs_dn, inter, split,
+                              monkeypatch):
+    """The one-row gate_up at other groups (gate_up 64 / 96, down groups
+    of 64, 96 and 32: fewer columns than a block's 128 a half) and forced
+    split counts (one; one a scale group), a dense call of one row and a
+    gathered call of 5 rows on 3 experts (a repeat): against the plain
+    version, bit-identical."""
+    k = 576 if gs_up == 96 else 512
+    assert F.ffn_route(1, "dense", gs_up, gs_dn, inter, k) == "gemv"
+    if split != "planned":
+        fixed = 1 if split == "one" else k // gs_up
+        monkeypatch.setattr(F, "ffn_gemv_plan", lambda *a: (
+            fixed, gs_up // 2 // MM.GEMV_UNIT))
+    sgu, sdn = _dw((k, 2 * inter), gs_up, seed=8), _dw((inter, k), gs_dn,
+                                                      seed=9)
+    x = _dx(10, 1, k, dtype=torch.float32)
+    out = _ffn_routed("gemv", lambda: F.dense_w4a8_ffn(x, sgu, sdn))
+    assert _rel(out, F.dense_w4a8_ffn_ref(x, sgu, sdn)) <= 1e-2
+    assert torch.equal(F.dense_w4a8_ffn(x, sgu, sdn), out)
+    gu, dn = _dw((3, k, 2 * inter), gs_up, seed=10), _dw((3, inter, k),
+                                                        gs_dn, seed=11)
+    ids = torch.tensor([2, 0, 2, 1, 0], dtype=torch.int32, device=cuda)
+    x = _dx(12, 5, k)
+    out = _ffn_routed("gemv", lambda: F.gathered_w4a8_ffn(x, gu, dn, ids,
+                                                          "relu"))
+    assert _rel(out, F.gathered_w4a8_ffn_ref(x, gu, dn, ids,
+                                             "relu")) <= 1e-2
+    assert torch.equal(F.gathered_w4a8_ffn(x, gu, dn, ids, "relu"), out)
+
+
+def test_w4a8_ffn_gemv_refuses(cuda):
+    """A gate_up group of 8 (4 storage rows: no whole 8-row unit) keeps the
+    first version; the GEMV, forced, raises rather than running it."""
+    gu, dn = _dw((256, 512), 8, seed=12), _dw((256, 256), 128, seed=13)
+    x = _dx(14, 1, 256)
+    assert F.ffn_route(1, "dense", 8, 128, 256, 256) == "rows"
+    before = MM.ROUTED_LAUNCHES["w4a8_ffn_gemv_kernel"]
+    out = F.dense_w4a8_ffn(x, gu, dn)
+    assert MM.ROUTED_LAUNCHES["w4a8_ffn_gemv_kernel"] == before
+    assert _rel(out, F.dense_w4a8_ffn_ref(x, gu, dn)) <= 1e-2
+    with pytest.raises(ValueError, match="group of 16s"):
+        F.dense_launcher(x, gu, dn, "silu", "gemv")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1461,3 +1570,91 @@ def test_gqa_prefill_routes(cuda):
                                             0.088, kernel="first")
     launch()
     assert _rel(first, PA.gqa_paged_prefill_ref(*args, 0.088)) <= 1e-2
+
+
+# ------------------------------- redesigned paged GQA decode, row 13 (bf16)
+
+
+def _gqa_decode_case(rng, page, g, lens, hkv=2):
+    """bf16 operands of gqa_paged_decode over 2048 positions a sequence;
+    the last row is an inactive batch row (zero table, length 1)."""
+    pmax = 2048 // page
+    b = len(lens) + 1
+    (k, v), tables = _bf_pool(rng, b, pmax, page, lens + [0],
+                              [(hkv, 128), (hkv, 128)])
+    tables[-1] = 0
+    q = _x(rng, b, g * hkv, 128).bfloat16()
+    lengths = torch.tensor(lens + [1], dtype=torch.int32)
+    return q, k, v, tables, lengths
+
+
+GQA_DECODE_LENS = [0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1000, 2047,
+                   2048]
+
+
+@pytest.mark.parametrize("window", [0, 20, 512])
+@pytest.mark.parametrize("g", [1, 4, 6, 16])
+@pytest.mark.parametrize("page", [16, 64, 128])
+def test_gqa_decode_split(cuda, page, g, window):
+    """gqa_decode_split_kernel through gqa_paged_decode (bf16) against the
+    plain version: page 16 / 64 / 128 over 2048 positions, G = 1, 4, 6 and
+    16 query heads a KV head (one mma row group), window 0, 20 (fewer keys
+    than a split's least) and 512; lengths 0 (zeros), 1, on and around
+    16-key units, 64-key tiles and pages, 1000, 2047 and 2048; an inactive
+    batch row; every pool row no sequence owns NaN, and the split partials
+    NaN before the call. A second call gives the same bits (the counters
+    were set back), and ROUTED_LAUNCHES counts one a call."""
+    rng = np.random.default_rng(page * g + window)
+    lens = sorted(set(GQA_DECODE_LENS + [page - 1, page, page + 1]))
+    args = _gqa_decode_case(rng, page, g, lens)
+    on = [t.to(cuda) for t in args]
+    split = ROUTED_LAUNCHES["gqa_decode_split_kernel"]
+    _poison_scratch("gqa_decode_split")
+    out = _counted("gqa_paged_decode", lambda: PA.gqa_paged_decode(
+        *on, 0.088, window=window))
+    assert ROUTED_LAUNCHES["gqa_decode_split_kernel"] == split + 1
+    again = PA.gqa_paged_decode(*on, 0.088, window=window)
+    ref = PA.gqa_paged_decode_ref(*args, 0.088, window=window)
+    assert out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out.float()).all())
+    assert torch.equal(out, again)
+    assert torch.all(out[0] == 0)
+    for i in range(1, len(lens) + 1):
+        assert _rel(out[i], ref[i]) <= 1e-2, lens[i] if i < len(lens) else i
+    _, cnt = MM._SCRATCH[(str(out.device), "gqa_decode_split")]
+    assert not cnt.any()
+
+
+@pytest.mark.parametrize("splits", [1, 32])
+@pytest.mark.parametrize("window", [0, 512])
+def test_gqa_decode_split_plans(cuda, splits, window, monkeypatch):
+    """The kernel at Mixtral's widths (32 query heads over 8 KV heads) at a
+    forced plan: one split (the block writes the output itself), and the
+    most splits (32: most hold no key of a short sequence or a window)."""
+    rng = np.random.default_rng(splits + window)
+    args = _gqa_decode_case(rng, 64, 4, [0, 17, 700, 2048], hkv=8)
+    monkeypatch.setattr(PA, "gqa_decode_split_plan", lambda *a: splits)
+    out = PA.gqa_paged_decode(*[t.to(cuda) for t in args], 0.088,
+                              window=window)
+    ref = PA.gqa_paged_decode_ref(*args, 0.088, window=window)
+    assert torch.all(out[0] == 0)
+    for i in range(1, 5):
+        assert _rel(out[i], ref[i]) <= 1e-2, i
+
+
+def test_gqa_decode_routes(cuda):
+    """float32 keeps the first version (not counted as routed, 1e-5); the
+    first version on bf16 operands (kernel="first", what chip_smoke.py
+    times beside the split kernel) agrees at 1e-2."""
+    rng = np.random.default_rng(6)
+    args = _gqa_decode_case(rng, 64, 4, [5, 300, 700])
+    f32 = [t.float() if t.is_floating_point() else t for t in args]
+    split = ROUTED_LAUNCHES["gqa_decode_split_kernel"]
+    out = _counted("gqa_paged_decode", lambda: PA.gqa_paged_decode(
+        *[t.to(cuda) for t in f32], 0.088))
+    assert ROUTED_LAUNCHES["gqa_decode_split_kernel"] == split
+    assert _rel(out, PA.gqa_paged_decode_ref(*f32, 0.088)) <= 1e-5
+    launch, first = PA.gqa_decode_launcher(*[t.to(cuda) for t in args],
+                                           0.088, kernel="first")
+    launch()
+    assert _rel(first, PA.gqa_paged_decode_ref(*args, 0.088)) <= 1e-2

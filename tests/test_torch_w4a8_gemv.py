@@ -103,7 +103,7 @@ def test_w4a8_route_table(m, entry, group, n, want):
     (1, "grouped", 128, 128, 1408, 2048, "rows"),
 ])
 def test_ffn_route_table(m, entry, gs_up, gs_dn, inter, kdim, want):
-    """The FFN's two kernels by a fixed rule: "gemv" (ffn_up_kernel<1>,
+    """The FFN's two kernels by a fixed rule: "gemv" (w4a8_ffn_gemv_kernel,
     then the GEMV down) for one-row tiles, "mma" (w4a8_ffn_mma_kernel, then
     w4a8_mma_kernel) from two rows on where both take the groups, the first
     version otherwise."""

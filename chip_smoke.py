@@ -22,7 +22,9 @@ Phases (any failure exits non-zero before the final line):
             bound;
             quant_wgmma_t_kernel: the transposed matmuls;
             mla_decode_split_kernel: bf16 mla_decode_fused, timed at 512,
-            2048 and 4095 cached rows; mla_prefill_mma_kernel: bf16
+            2048 and 4095 cached rows, and without its current-token
+            block (mla_decode_split_kernel<false>) bf16
+            mla_decode_attention; mla_prefill_mma_kernel: bf16
             mla_paged_prefill; mla_paged_decode_split_kernel: bf16
             mla_paged_decode; gqa_prefill_mma_kernel and
             gqa_decode_split_kernel: bf16 gqa_paged_prefill and
@@ -31,7 +33,11 @@ Phases (any failure exits non-zero before the final line):
             version is held and timed on the same operands too (first_ms)
             and a second call of the wrapper must give the same bits; the
             grouped entries get torch._grouped_mm as their library
-            yardstick where this PyTorch has it;
+            yardstick where this PyTorch has it; every W4A8 call of rows
+            1-4, 7 and 8 runs its kernel folded (quantizing x itself)
+            and unfolded on the codes of a prep launch, which must give
+            the same bits, and times the folded kernel beside prep +
+            unfolded kernel;
 4. parity:  the full-width config cut to 2 layers, the same synthetic
             weights on the CPU (plain versions) and on the card (kernels),
             float32 compute: a 64-token prefill and 4 decode steps through
@@ -65,15 +71,19 @@ Phases (any failure exits non-zero before the final line):
             routes replace (8-row tiles on bf16, one-row quant_matmul
             tiles, any W4A8 rows kernel, the FFN's gate_up of 1 and 4 rows
             a tile, the transposed first version, the bf16 MLA fused
-            decode, paged decode and paged prefill and the bf16 GQA paged
-            decode, its combine launch and paged prefill first versions)
-            fails (so does the SFT step's
-            profile);
+            decode, decode attention, paged decode and paged prefill and
+            the bf16 GQA paged decode, its combine launch and paged
+            prefill first versions) fails (so does the SFT step's
+            profile); the activation preps of the decode step (none) and
+            of the batch-8 step (those the fold crossovers imply) are
+            held;
 8. int8:    the int4_g parameters are freed; the full 27-layer config with
             int8 weights (every matmul through the quant_matmul kernels) in
             a Generator answering 2 requests of 512 + 32 tokens, the second
             with the fused decode off; launches per decode step and per
-            prefill chunk held to the counts the code implies; a
+            prefill chunk held to the counts the code implies (with the
+            fused decode off, every attention call on
+            mla_decode_split_kernel<false>); a
             ServeEngine over the same parameters answering the 8 requests
             of phase 6 at pipeline depth 3 with the same checks; the
             profiles of phase 7 on the int8 parameters;
@@ -102,13 +112,16 @@ Phases (any failure exits non-zero before the final line):
             Trainer.train_step, finite losses, a frozen base, adapters that
             moved, launches per step held to the counts the code implies,
             peak memory, and one profiled step.
-Prints a kernels JSON line (the eighteen wrappers, then the twelve
+Prints a kernels JSON line (the eighteen wrappers, then the thirteen
 redesigned kernels, whose launches are those of their wrappers' calls
 that took them; the MLA kernels must have launched on the single-user
 (decode) and paged (paged decode and prefill) paths of both DeepSeek
-parameter sets, the FFN's one-row gate_up on both W4A8 decode paths, the
-GQA kernels on Mixtral's paged path; w4a8_ffn_gemv_kernel's entry gives
-the gate_up half's times and bound), the card line, and as
+parameter sets, mla_decode_split_kernel<false> on the int8 single-user
+path (its last request decodes with the fused decode off), the FFN's
+one-row gate_up on both W4A8 decode paths, the GQA kernels on Mixtral's
+paged path; w4a8_ffn_gemv_kernel's entry gives the gate_up half's times
+and bound; a W4A8 entry also its "fold": the folded kernel beside prep +
+unfolded kernel), the card line, and as
 the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 Imports nothing of JAX.
@@ -202,7 +215,7 @@ def make_check(rows: list, entries: dict):
     def check(name, label, tol, wrapper, plain, launcher, b_bytes, ops,
               peak, library=None, main=False, plain_iters=5, side_tol=None,
               expect=None, iters=20, per_row=False, first=None, kernel=None,
-              kernel_main=False, up=None):
+              kernel_main=False, up=None, fold=None):
         """expect (default plain) gives what the wrapper is held to; plain
         is what plain_ms times on the card; per_row holds every row of the
         output's last dimension to tol of its own largest value. Where the
@@ -214,7 +227,11 @@ def make_check(rows: list, entries: dict):
         call's ``up`` (dict of its gate_up half's plain version, bytes,
         ops and library call or None) times the halves of the FFN launch
         apart (the first version's gate_up beside it) into row["up"], which
-        a kernel_main row gives its kernel's entry."""
+        a kernel_main row gives its kernel's entry. A W4A8 call's ``fold``
+        (fold_pair) runs its kernel folded (quantizing x itself) and
+        unfolded on the codes of a prep launch: the two must give the same
+        bits, and row["fold"] times the folded kernel beside prep +
+        unfolded kernel (for an FFN call the gate_up halves too)."""
         def first_out(o):  # a wrapper with side outputs: the main one
             return o[0] if isinstance(o, tuple) else o
 
@@ -259,9 +276,14 @@ def make_check(rows: list, entries: dict):
                    bound_ms=bound, bound_by=bound_by,
                    library_ms=library_ms, bytes=b_bytes, ops=ops, ok=ok,
                    kernel=kernel, first_ms=first_ms)
+        if fold is not None:
+            row["fold"] = fold_times(name, label, fold, first_out, iters,
+                                     up is not None)
         if up is not None:
             halves = launcher()[0]
             up_bound, up_by = bound_of(up["bytes"], up["ops"], peak)
+            down_bound, down_by = bound_of(up["down_bytes"], up["down_ops"],
+                                           peak)
             row["up"] = dict(
                 ms=time_ms(halves.up, iters=iters),
                 down_ms=time_ms(halves.down, iters=iters),
@@ -271,7 +293,8 @@ def make_check(rows: list, entries: dict):
                 library_ms=None if up["library"] is None else time_ms(
                     up["library"], iters=iters),
                 bound_ms=up_bound, bound_by=up_by, bytes=up["bytes"],
-                ops=up["ops"])
+                ops=up["ops"], down_bound_ms=down_bound,
+                down_bound_by=down_by)
             log(f"kernel {name} [{label}] gate_up half: "
                 + " ".join(f"{k}={v}" for k, v in row["up"].items()))
         rows.append(row)
@@ -288,6 +311,46 @@ def make_check(rows: list, entries: dict):
             entries[kernel] = {**row, **row.get("up", {})}
 
     return check
+
+
+def fold_pair(launcher, prep, folds: bool, fits: bool = True) -> dict:
+    """check()'s ``fold`` of a W4A8 call: ``launcher(fold)`` gives (launch,
+    out) with its kernel folded (True: it quantizes x itself) or unfolded
+    (False: it reads the codes of the prep launch the launcher makes);
+    ``prep`` runs that prep alone; ``folds`` is what the route does;
+    ``fits``: whether the folded kernel takes the shape at all (a
+    tensor-core kernel's A tile must fit beside its ring)."""
+    return dict(launcher=launcher, prep=prep, folds=folds, fits=fits)
+
+
+def fold_times(name, label, fold, first_out, iters, ffn) -> dict:
+    """The folded kernel beside prep + unfolded kernel on the same operands:
+    the same bits, then folded_ms, prep_unfolded_ms (one prep launch and
+    the unfolded kernel, timed together) and prep_ms; for an FFN call the
+    gate_up halves too."""
+    prep = fold["prep"]
+    u_launch, u_out = fold["launcher"](False)
+    u_launch()
+    out = dict(folds=fold["folds"], folded_ms=None,
+               prep_unfolded_ms=time_ms(lambda: (prep(), u_launch()),
+                                        iters=iters),
+               prep_ms=time_ms(prep, iters=iters))
+    if fold["fits"]:
+        f_launch, f_out = fold["launcher"](True)
+        f_launch()
+        if not torch.equal(first_out(f_out), first_out(u_out)):
+            raise AssertionError(f"{name} [{label}]: the folded kernel and "
+                                 "prep + unfolded kernel give other bits")
+        out["folded_ms"] = time_ms(f_launch, iters=iters)
+    if ffn:
+        out["up_prep_unfolded_ms"] = time_ms(lambda: (prep(), u_launch.up()),
+                                             iters=iters)
+        out["up_folded_ms"] = (time_ms(f_launch.up, iters=iters)
+                               if fold["fits"] else None)
+    log(f"kernel {name} [{label}] fold (route folds: {fold['folds']}): "
+        + " ".join(f"{k}={v}" for k, v in out.items() if k != "folds")
+        + (" (same bits)" if fold["fits"] else " (no A tile fits)"))
+    return out
 
 
 def bound_of(b_bytes: int, ops: int, peak: float) -> tuple[float, str]:
@@ -316,6 +379,7 @@ MLA_PREFILL_ROUTES = {"mma": "mla_prefill_mma_kernel"}
 MLA_PAGED_DECODE_ROUTES = {"split": "mla_paged_decode_split_kernel"}
 GQA_PREFILL_ROUTES = {"mma": "gqa_prefill_mma_kernel"}
 GQA_DECODE_ROUTES = {"split": "gqa_decode_split_kernel"}
+MLA_ATTENTION_ROUTES = {"split": "mla_decode_split_kernel<false>"}
 
 
 def grouped_mm(x, wdq, sizes):
@@ -367,6 +431,7 @@ def kernel_checks(rows: list, entries: dict) -> None:
     bf = torch.bfloat16
     check = make_check(rows, entries)
     rd, rn, w = draw(1234)
+    sms = MM.sm_count(dev)
 
     # activation prep of every W4A8 call (plain XLA in the JAX package)
     from ktransformers_tpu_torch.quant.w4a8 import w4a8_prep
@@ -429,6 +494,13 @@ def kernel_checks(rows: list, entries: dict) -> None:
               main=main == "main",
               kernel_main=main in ("main", "kernel_main"),
               plain_iters=2 if m > 64 else 5,
+              fold=fold_pair(
+                  lambda f: MM.dense_w4a8_launcher(x, wt, None, f),
+                  lambda: MM.prep_activations(x, k, wt.group_size),
+                  MM.gemv_call_folds(n, 1, 1, k, wt.group_size, sms)
+                  if m == 1 else MM.folds("mma", m, k, wt.group_size),
+                  m == 1 or MM.mma_fold_fits(m, k, wt.group_size,
+                                             MM.MMA_STAGES, 64)),
               **routed(W4A8_ROUTES,
                        MM.route(m, "dense", wt.group_size, n),
                        lambda: MM.dense_w4a8_launcher(x, wt, "rows")))
@@ -441,17 +513,22 @@ def kernel_checks(rows: list, entries: dict) -> None:
     def ffn_up(x, gu, dn, row_expert, used, library=None):
         """check()'s ``up`` of an FFN call on one-row tiles: the gate_up
         half's plain version, its bytes (the gate_up codes and scales of
-        the experts used, the activation codes in, the requantized codes
-        out) and int8 operations, and its library yardstick."""
+        the experts used, x in, the requantized codes out) and int8
+        operations, and its library yardstick; and the down half's bytes
+        (the down codes and scales of the experts used, the requantized
+        codes in, bf16 out) and operations."""
         r, k = x.shape
         inter = gu.out_features // 2
-        gs, gs_dn = gu.group_size, dn.group_size
+        gs_dn = dn.group_size
         gu3 = MM.lift(gu) if gu.data.dim() == 2 else gu
+        dn3 = MM.lift(dn) if dn.data.dim() == 2 else dn
+        mid = r * (inter + 12 * (inter // gs_dn))
         return dict(
             plain=lambda: F.gate_up_ref(x, gu3, gs_dn, row_expert),
-            bytes=used * nbytes(gu3.data[0], gu3.scales[0])
-            + r * (k + 12 * (k // gs)) + r * (inter + 12 * (inter // gs_dn)),
-            ops=2 * r * 2 * inter * k, library=library)
+            bytes=used * nbytes(gu3.data[0], gu3.scales[0]) + nbytes(x)
+            + mid, ops=2 * r * 2 * inter * k, library=library,
+            down_bytes=used * nbytes(dn3.data[0], dn3.scales[0]) + mid
+            + r * k * 2, down_ops=2 * r * inter * k)
 
     # row 2: gathered_w4a8_ffn (decode: 6 routed rows, distinct experts)
     ids = torch.randperm(e, generator=torch.Generator().manual_seed(0))[:6]
@@ -464,6 +541,11 @@ def kernel_checks(rows: list, entries: dict) -> None:
           6 * per_expert + 2 * nbytes(x), 2 * 6 * 3 * d * f,
           INT8_OPS_PER_S, main=True, kernel_main=True,
           up=ffn_up(x, gu, dn, ids.long(), 6),
+          fold=fold_pair(
+              lambda fo: F.gathered_launcher(x, gu, dn, ids, "silu", None,
+                                             fo),
+              lambda: MM.prep_activations(x, d, 128),
+              F.ffn_gemv_call_folds(6, e, f, 128, d, 128, sms)),
           **routed(FFN_ROUTES, F.ffn_route(6, "gathered", 128, 128, f, d),
                    lambda: F.gathered_launcher(x, gu, dn, ids, "silu",
                                                "rows")))
@@ -482,6 +564,13 @@ def kernel_checks(rows: list, entries: dict) -> None:
           lambda: F.grouped_launcher(xs, gu, dn, sizes),
           used * per_expert + 2 * nbytes(xs), 2 * 1536 * 3 * d * f,
           INT8_OPS_PER_S, main=True, kernel_main=True, plain_iters=2,
+          fold=fold_pair(
+              lambda fo: F.grouped_launcher(xs, gu, dn, sizes, "silu", None,
+                                            fo),
+              lambda: MM.prep_activations(xs, d, 128),
+              F.ffn_folds(F.ffn_route(1536, "grouped", 128, 128, f, d),
+                          1536, d, 128),
+              MM.mma_fold_fits(1536, d, 128, F.FFN_MMA_STAGES, 256)),
           **routed(FFN_ROUTES, F.ffn_route(1536, "grouped", 128, 128, f, d),
                    lambda: F.grouped_launcher(xs, gu, dn, sizes, "silu",
                                               "rows")))
@@ -508,6 +597,13 @@ def kernel_checks(rows: list, entries: dict) -> None:
               up=None if gdq is None else ffn_up(
                   x, sgu, sdn, torch.zeros(1, dtype=torch.int64, device=dev),
                   1, lambda: torch.matmul(x, gdq)),
+              fold=fold_pair(
+                  lambda fo: F.dense_launcher(x, sgu, sdn, "silu", None, fo),
+                  lambda: MM.prep_activations(x, d, 128),
+                  F.ffn_gemv_call_folds(1, 1, inter, 128, d, 128, sms)
+                  if route == "gemv" else F.ffn_folds(route, m, d, 128),
+                  route == "gemv" or MM.mma_fold_fits(
+                      m, d, 128, F.FFN_MMA_STAGES, 256)),
               **routed(FFN_ROUTES, route,
                        lambda: F.dense_launcher(x, sgu, sdn, "silu",
                                                 "rows")))
@@ -571,6 +667,11 @@ def kernel_checks(rows: list, entries: dict) -> None:
           int(ids48.unique().numel()) * per_expert + 2 * nbytes(x),
           2 * 48 * 3 * d * f, INT8_OPS_PER_S,
           up=ffn_up(x, gu, dn, ids48.long(), int(ids48.unique().numel())),
+          fold=fold_pair(
+              lambda fo: F.gathered_launcher(x, gu, dn, ids48, "silu", None,
+                                             fo),
+              lambda: MM.prep_activations(x, d, 128),
+              F.ffn_gemv_call_folds(48, e, f, 128, d, 128, sms)),
           **routed(FFN_ROUTES, F.ffn_route(48, "gathered", 128, 128, f, d),
                    lambda: F.gathered_launcher(x, gu, dn, ids48, "silu",
                                                "rows")))
@@ -584,6 +685,13 @@ def kernel_checks(rows: list, entries: dict) -> None:
           lambda: F.grouped_launcher(xs, gu, dn, sizes),
           int((sizes > 0).sum()) * per_expert + 2 * nbytes(xs),
           2 * 3120 * 3 * d * f, INT8_OPS_PER_S, plain_iters=2,
+          fold=fold_pair(
+              lambda fo: F.grouped_launcher(xs, gu, dn, sizes, "silu", None,
+                                            fo),
+              lambda: MM.prep_activations(xs, d, 128),
+              F.ffn_folds(F.ffn_route(3120, "grouped", 128, 128, f, d),
+                          3120, d, 128),
+              MM.mma_fold_fits(3120, d, 128, F.FFN_MMA_STAGES, 256)),
           **routed(FFN_ROUTES, F.ffn_route(3120, "grouped", 128, 128, f, d),
                    lambda: F.grouped_launcher(xs, gu, dn, sizes, "silu",
                                               "rows")))
@@ -597,6 +705,12 @@ def kernel_checks(rows: list, entries: dict) -> None:
               lambda: F.dense_launcher(x, sgu, sdn),
               nbytes(sgu.data, sgu.scales, sdn.data, sdn.scales)
               + 2 * nbytes(x), 2 * m * 3 * d * 2816, INT8_OPS_PER_S,
+              fold=fold_pair(
+                  lambda fo: F.dense_launcher(x, sgu, sdn, "silu", None, fo),
+                  lambda: MM.prep_activations(x, d, 128),
+                  F.ffn_folds(F.ffn_route(m, "dense", 128, 128, 2816, d),
+                              m, d, 128),
+                  MM.mma_fold_fits(m, d, 128, F.FFN_MMA_STAGES, 256)),
               **routed(FFN_ROUTES, F.ffn_route(m, "dense", 128, 128, 2816,
                                                d),
                        lambda: F.dense_launcher(x, sgu, sdn, "silu",
@@ -735,9 +849,11 @@ def quant_kernel_checks(check, rd, rn, dev) -> None:
 def decode_attention_checks(check, rn, dev) -> None:
     """Row 6: mla_decode_attention (16 heads, R 512, dr 64, bf16) at B = 1
     with 512 and 2048 live rows and at B = 8 with lengths 1..2048; every
-    cache row at or past lengths[b] is NaN. Bound: the bytes of the live
-    rows, queries and output against the flops of the live (query, key)
-    pairs at the bf16 peak. Library yardstick: one
+    cache row at or past lengths[b] is NaN. bf16 takes
+    mla_decode_split_kernel<false>, the first version timed beside it;
+    every output row is held to 1e-2 of its own largest value. Bound: the
+    bytes of the live rows, queries and output against the flops of the
+    live (query, key) pairs at the bf16 peak. Library yardstick: one
     F.scaled_dot_product_attention over q = [qn | qp], k = [ckv | kpe],
     v = ckv with a length mask, on a NaN-free copy of the cache (never on
     the path)."""
@@ -769,10 +885,14 @@ def decode_attention_checks(check, rn, dev) -> None:
               lambda: MD.attention_launcher(*args),
               live * (r + dr) * 2 + nbytes(qn, qp) + b * h * r * 2,
               2 * h * live * (2 * r + dr), BF16_FLOPS_PER_S, main=main,
+              kernel_main=main, per_row=True,
               library=lambda: tF.scaled_dot_product_attention(
                   lib_q, lib_k.expand(-1, h, -1, -1),
                   lib_k[..., :r].expand(-1, h, -1, -1), attn_mask=lib_mask,
-                  scale=scale))
+                  scale=scale),
+              **routed(MLA_ATTENTION_ROUTES,
+                       MD.attention_route(torch.bfloat16),
+                       lambda: MD.attention_launcher(*args, kernel="first")))
 
 
 def paged_kernel_checks(check, rn, dev) -> None:
@@ -973,6 +1093,12 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
                   nbytes(x) + wbytes(wt, ids) + ids.shape[0] * n * 2,
                   2 * ids.shape[0] * n * k, INT8_OPS_PER_S,
                   main=(what == "gate_up" and tokens == 1), plain_iters=3,
+                  fold=fold_pair(
+                      lambda f: MM.gathered_launcher(x, wt, ids, None, f),
+                      lambda: MM.prep_activations(x, k, wt.group_size),
+                      MM.gemv_call_folds(n, ids.shape[0], e, k,
+                                         wt.group_size,
+                                         MM.sm_count(dev))),
                   **routed(W4A8_ROUTES,
                            MM.route(ids.shape[0], "gathered", wt.group_size,
                                     n),
@@ -993,7 +1119,15 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
                   2 * 2 * tokens * n * k, INT8_OPS_PER_S,
                   library=grouped_mm(x, wdq, sizes),
                   main=(what == "gate_up" and tokens == 256), plain_iters=2,
-                  iters=10, **routed(
+                  iters=10, fold=fold_pair(
+                      lambda f: MM.grouped_launcher(x, wt, sizes, None, f),
+                      lambda: MM.prep_activations(x, k, wt.group_size),
+                      MM.folds(MM.route(2 * tokens, "grouped",
+                                        wt.group_size, n), 2 * tokens, k,
+                               wt.group_size),
+                      MM.mma_fold_fits(2 * tokens, k, wt.group_size,
+                                       MM.MMA_STAGES, 64)),
+                  **routed(
                       W4A8_ROUTES,
                       MM.route(2 * tokens, "grouped", wt.group_size, n),
                       lambda: MM.grouped_launcher(x, wt, sizes, "rows")))
@@ -1508,20 +1642,28 @@ def serve(result: dict, quant: str = "int4_g", key: str = "serve",
     return gen
 
 
-def step_launches(result: dict, gen, key: str, want: dict) -> None:
+def step_launches(result: dict, gen, key: str, want: dict) -> dict:
     """Launches of one 256-token prefill chunk and one decode step (with
     an MLA model also one with the fused decode off), held to ``want``,
-    the counts the code implies."""
+    the counts the code implies; returns the redesigned kernels' launches
+    of each (ROUTED_LAUNCHES)."""
     from ktransformers_tpu_torch.ops import attention
-    from ktransformers_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from ktransformers_tpu_torch.ops.cuda import (
+        LAUNCHES,
+        ROUTED_LAUNCHES,
+        reset_launches,
+    )
 
     prompt = torch.as_tensor(np.random.default_rng(201).integers(
         0, gen.spec.vocab_size, (1, 256)), device=gen.device)
+    routed_n: dict = {}
 
     def counts(fn) -> dict:
         reset_launches()
         fn()
         torch.cuda.synchronize()
+        routed_n[len(routed_n)] = {k: v for k, v in ROUTED_LAUNCHES.items()
+                                   if v}
         return {k: v for k, v in LAUNCHES.items() if v}
 
     cache = gen.new_cache()
@@ -1540,10 +1682,14 @@ def step_launches(result: dict, gen, key: str, want: dict) -> None:
                 lambda: gen.decode_step(tok, cache))
         finally:
             attention.MLA_FUSED = True
-    log(f"{key}: {json.dumps(got)}")
+    routed_by = dict(zip(got, routed_n.values()))
+    log(f"{key}: {json.dumps(got)}; on the redesigned kernels "
+        f"{json.dumps(routed_by)}")
     result[key] = got
+    result[key + "_routed"] = routed_by
     if got != want:
         raise AssertionError(f"{key}: {got}, want {want}")
+    return routed_by
 
 
 def int8_step_launches(result: dict, gen) -> None:
@@ -1551,8 +1697,9 @@ def int8_step_launches(result: dict, gen) -> None:
     layers, lm_head, and gate_up + down of the 27 dense / shared MLPs), the
     expert kernel 2 x 26 (gathered at decode, grouped at prefill), the
     attention kernel 27 at decode (prefill attention is plain PyTorch) and
-    no W4A8 kernel."""
-    step_launches(result, gen, "int8_step_launches", {
+    no W4A8 kernel; with the fused decode off, every one of the 27 bf16
+    mla_decode_attention calls on mla_decode_split_kernel<false>."""
+    routed_by = step_launches(result, gen, "int8_step_launches", {
         "prefill_chunk": {"quant_matmul": 109, "grouped_quant_matmul": 52},
         "decode_step": {"quant_matmul": 109, "gathered_quant_matmul": 52,
                         "mla_decode_fused": 27},
@@ -1560,21 +1707,28 @@ def int8_step_launches(result: dict, gen) -> None:
                                 "gathered_quant_matmul": 52,
                                 "mla_decode_attention": 27},
     })
+    split = routed_by["decode_step_unfused"].get(
+        "mla_decode_split_kernel<false>", 0)
+    if split != 27:
+        raise AssertionError(f"fused decode off: {split} of 27 attention "
+                             "calls on mla_decode_split_kernel<false>")
 
 
 # Mixtral-8x7B, 32 layers: quant_matmul 65 (the fused qkv and o_proj of 32
-# layers, lm_head), the expert matmul 2 x 32 with one activation prep each
-# (gathered at decode, grouped at prefill; Mixtral's experts are too wide
-# for the fused FFN), GQA attention plain PyTorch on the contiguous cache
+# layers, lm_head), the expert matmul 2 x 32 (gathered at decode on the
+# GEMV, which quantizes x itself; grouped at prefill, 512 rows, past the
+# tensor-core kernel's fold crossover: one activation prep each; Mixtral's
+# experts are too wide for the fused FFN), GQA attention plain PyTorch on
+# the contiguous cache
 MIXTRAL_STEP_LAUNCHES = {
     "prefill_chunk": {"quant_matmul": 65, "grouped_w4a8_matmul": 64,
                       "w4a8_prep": 64},
-    "decode_step": {"quant_matmul": 65, "gathered_w4a8_matmul": 64,
-                    "w4a8_prep": 64},
+    "decode_step": {"quant_matmul": 65, "gathered_w4a8_matmul": 64},
 }
 # ... and on the paged path the GQA kernel once a layer: a decode batch of
-# 8 (16 gathered rows), and a mixed step (8 decode rows + one 256-token
-# chunk: 528 grouped rows)
+# 8 (16 gathered rows: a GEMV block of two rows would quantize more groups
+# than w4a8_matmul.gemv_folds lets it, so a prep each), and a mixed step (8
+# decode rows + one 256-token chunk: 528 grouped rows, a prep each)
 MIXTRAL_ENGINE_STEP_LAUNCHES = {
     "serve_decode_step_b8": {"quant_matmul": 65, "gathered_w4a8_matmul": 64,
                              "w4a8_prep": 64, "gqa_paged_decode": 32},
@@ -1799,12 +1953,12 @@ def _is_port_kernel(name: str) -> bool:
 # gathered calls and the FFN's one-row downs; w4a8_mma_kernel the rest),
 # the FFN's gate_up of 1 and 4 rows a tile (w4a8_ffn_gemv_kernel takes
 # one-row tiles, w4a8_ffn_mma_kernel tiles of more than one row) and the
-# bf16 attention first versions: MLA fused decode, paged decode and paged
-# prefill, GQA paged decode (and its combine launch) and paged prefill
-# (mla_decode_split_kernel, mla_paged_decode_split_kernel,
-# mla_prefill_mma_kernel, gqa_decode_split_kernel and
-# gqa_prefill_mma_kernel take every bf16 call); a step that launches one of
-# these has a wrapper off its route
+# bf16 attention first versions: MLA fused decode, decode attention, paged
+# decode and paged prefill, GQA paged decode (and its combine launch) and
+# paged prefill (mla_decode_split_kernel<true> / <false>,
+# mla_paged_decode_split_kernel, mla_prefill_mma_kernel,
+# gqa_decode_split_kernel and gqa_prefill_mma_kernel take every bf16 call);
+# a step that launches one of these has a wrapper off its route
 _OFF_ROUTE = re.compile(r"quant_rows_kernel<\d+, 8, __nv_bfloat16>"
                         r"|w4a8_rows_kernel<"
                         r"|quant_rows_kernel<\d+, 1, "
@@ -1816,7 +1970,8 @@ _OFF_ROUTE = re.compile(r"quant_rows_kernel<\d+, 8, __nv_bfloat16>"
                         r"|mla_paged_prefill_kernel<__nv_bfloat16>"
                         r"|gqa_paged_decode_kernel<__nv_bfloat16>"
                         r"|gqa_decode_combine_kernel<__nv_bfloat16>"
-                        r"|gqa_paged_prefill_kernel<__nv_bfloat16>")
+                        r"|gqa_paged_prefill_kernel<__nv_bfloat16>"
+                        r"|mla_decode_attention_kernel<__nv_bfloat16>")
 
 
 def off_route(rows) -> list:
@@ -1925,6 +2080,26 @@ def profile_steps(result: dict, gen, prefix: str = "") -> None:
     steps[prefix + "decode_step"] = (wall, step_launches, kernel_rows(step))
 
     result.setdefault("profile", {}).update(summarize_steps(steps))
+
+
+# activation preps of a DeepSeek-V2-Lite W4A8 step of the served batch of
+# 8: its 57 dense projections (qkv_a and o_proj of 27 layers, lm_head, the
+# layer-0 MLP's two) at 8 rows lie past w4a8_mma_kernel's fold crossover
+# (w4a8_matmul.MMA_FOLD_MAX_ROWS); its 26 shared-expert FFN calls fold
+# (w4a8_ffn.FFN_MMA_FOLD_MAX_ROWS) and so do its 48 routed rows (the GEMV)
+DEEPSEEK_B8_PREPS = 57
+
+
+def hold_prep(result: dict, prefix: str = "", b8: int = 0) -> None:
+    """The activation preps of the W4A8 decode steps: none in a single-user
+    decode step (every W4A8 call of one row or of the routed rows
+    quantizes x inside its GEMV), ``b8`` in a served batch-8 step."""
+    for name, want in (("decode_step", 0), ("serve_decode_step_b8", b8)):
+        got = result["profile"][prefix + name]["launches"].get("w4a8_prep",
+                                                               0)
+        if got != want:
+            raise AssertionError(f"profile {prefix}{name}: {got} w4a8_prep "
+                                 f"launches, want {want}")
 
 
 def profile_engine_steps(result: dict, gen, prefix: str = "") -> None:
@@ -2085,6 +2260,13 @@ def sft_kernel_checks(rows: list, entries: dict) -> None:
               nbytes(x) + wbytes(wt, used) + m * 6 * n * 2,
               2 * m * 6 * n * k, INT8_OPS_PER_S,
               library=grouped_mm(x, wdq, sizes), plain_iters=2, iters=10,
+              fold=fold_pair(
+                  lambda f: MM.grouped_launcher(x, wt, sizes, None, f),
+                  lambda: MM.prep_activations(x, k, wt.group_size),
+                  MM.folds(MM.route(m * 6, "grouped", wt.group_size, n),
+                           m * 6, k, wt.group_size),
+                  MM.mma_fold_fits(m * 6, k, wt.group_size, MM.MMA_STAGES,
+                                   64)),
               **routed(W4A8_ROUTES,
                        MM.route(m * 6, "grouped", wt.group_size, n),
                        lambda: MM.grouped_launcher(x, wt, sizes, "rows")))
@@ -2225,8 +2407,14 @@ def sft_step_launches(spec, params, rows: int) -> dict:
       attention need no gradient), of gate_up and down of every GLU MLP,
       and of lm_head; dx of the two expert matmuls of every MoE layer
       (grouped_quant_matmul_t);
-    - one activation prep per W4A8 matmul or FFN call."""
-    from ktransformers_tpu_torch.ops.cuda.w4a8_ffn import dense_mlp_fused
+    - one activation prep per W4A8 matmul or FFN call whose kernel does not
+      quantize x itself (w4a8_matmul.folds, w4a8_ffn.ffn_folds: a step of
+      512 tokens lies past the tensor-core kernels' crossovers)."""
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+    from ktransformers_tpu_torch.ops.cuda.w4a8_ffn import (
+        dense_mlp_fused,
+        ffn_folds,
+    )
 
     act = spec.activation
     mlps = [lp["moe"]["shared"] if "moe" in lp else lp["mlp"]
@@ -2239,11 +2427,15 @@ def sft_step_launches(spec, params, rows: int) -> dict:
     dense = 2 * fwd_dense - (n_layers - fused) + 1 + fused
     ffn = 2 * fused
     grouped = 2 * 2 * moe
+    k = spec.hidden_size
+    prep = (dense * (not MM.folds("mma", rows, k, 128))
+            + ffn * (not ffn_folds("mma", rows, k, 128))
+            + grouped * (not MM.folds("mma", spec.moe.top_k * rows, k, 128)))
     return {
         "dense_w4a8_matmul": dense,
         "dense_w4a8_ffn": ffn,
         "grouped_w4a8_matmul": grouped,
-        "w4a8_prep": dense + ffn + grouped,
+        "w4a8_prep": prep,
         "quant_matmul_t": 2 * (n_layers - 1) + 2 * n_layers + 1,
         "grouped_quant_matmul_t": 2 * moe,
     }
@@ -2430,6 +2622,16 @@ def main() -> int:
         for name, text in logs.items():
             fh.write(f"== {name}\n{text}\n")
 
+    # a second of bf16 products first, so the card's clocks have risen
+    # before the first kernel is timed
+    warm = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    t_end = time.perf_counter() + 1.0
+    while time.perf_counter() < t_end:
+        for _ in range(20):
+            warm @ warm
+        torch.cuda.synchronize()
+    del warm
+
     rows: list = []
     entries: dict = {}
     kernel_checks(rows, entries)
@@ -2454,6 +2656,7 @@ def main() -> int:
     paged_serve(result, gen)
     profile_steps(result, gen)
     profile_engine_steps(result, gen)
+    hold_prep(result, b8=DEEPSEEK_B8_PREPS)
     del gen
     torch.cuda.empty_cache()
 
@@ -2484,6 +2687,9 @@ def main() -> int:
                 expect=MIXTRAL_PAGED_KERNELS)
     profile_steps(result, gen, prefix="mixtral_")
     profile_engine_steps(result, gen, prefix="mixtral_")
+    hold_prep(result, "mixtral_",
+              MIXTRAL_ENGINE_STEP_LAUNCHES["serve_decode_step_b8"][
+                  "w4a8_prep"])
     got = {name: {k: v for k, v in
                   result["profile"]["mixtral_" + name]["launches"].items()
                   if v}
@@ -2609,6 +2815,9 @@ def main() -> int:
     sources["gqa_decode_split_kernel"] = (
         "ktransformers_tpu_torch/csrc/gqa_paged_attention.cu",
         "ktransformers_tpu/ops/pallas/paged_attention.py:288")
+    sources["mla_decode_split_kernel<false>"] = (
+        "ktransformers_tpu_torch/csrc/mla_decode.cu",
+        "ktransformers_tpu/ops/pallas/mla_decode.py:296")
     # the attention kernels carry their paths' attention: on both DeepSeek
     # parameter sets the MLA decode single-user, the paged decode and the
     # prefill in the served steps; on Mixtral the GQA decode and prefill in
@@ -2620,7 +2829,8 @@ def main() -> int:
              ("paged_serve", "paged_serve_int8")),
             ("gqa_prefill_mma_kernel", ("paged_serve_mixtral",)),
             ("gqa_decode_split_kernel", ("paged_serve_mixtral",)),
-            ("w4a8_ffn_gemv_kernel", ("single_user", "paged_serve"))):
+            ("w4a8_ffn_gemv_kernel", ("single_user", "paged_serve")),
+            ("mla_decode_split_kernel<false>", ("single_user_int8",))):
         idle = [k for k in keys if paths[k].get(kernel, 0) <= 0]
         if idle:
             raise AssertionError(f"{kernel} launched on no call of {idle}")
@@ -2639,7 +2849,7 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             wrapper_ms=row["wrapper_ms"], kernel=row["kernel"],
-            first_ms=row["first_ms"],
+            first_ms=row["first_ms"], fold=row.get("fold"),
             shape=row["shape"],
         ))
     result["kernels"] = kernels

@@ -302,6 +302,16 @@ extern "C" int kt_mla_decode_attention(const void* qn, const void* qp,
 // 16 x 72 x 4 B, the small operands 21 KB, the current token's vectors and
 // the merge weights 10 KB: 200 KB, one block an SM. (Inside kt_mla_mma, so
 // that R, DR and NEG_INF name its constants and not online_softmax.cuh's.)
+//
+// kCurrentToken = false is the bf16 mla_decode_attention (row 6, replacing
+// ktransformers_tpu/ops/pallas/mla_decode.py:mla_decode_attention, body
+// _kernel): the cache already holds the current token, lengths[b] counts
+// it, and qp comes roped, so there is no current-token block, no kv_a norm,
+// no rope and no ckv_new / kpe_new: grid (B, splits, ceil(H / 16)), q_pe
+// copied straight into the query rows, the merge over the splits that hold
+// a row (a sequence of length 0 gives zeros). It replaces the first
+// version above (one block per (sequence, 4 heads), 8 warps striding over
+// the rows with float32 FMAs), which float32 calls keep.
 namespace kt_mla_mma {
 namespace split {
 
@@ -317,6 +327,7 @@ constexpr int F_OFF = GAMMA_OFF + R * 4;
 constexpr int F_FLOATS = R + DR + HT * DR + HT + NWARP + W_FLOATS;
 constexpr int SMEM = F_OFF + F_FLOATS * 4;
 
+template <bool kCurrentToken>
 __global__ void __launch_bounds__(THREADS, 1)
     mla_decode_split_kernel(const bf16* __restrict__ qn,
                             const bf16* __restrict__ qp,
@@ -346,8 +357,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* w_s = red_s + NWARP;
 
   const int b = blockIdx.x, sp = blockIdx.y, ht = blockIdx.z;
-  const int splits = gridDim.y - 1;  // block y = splits: the current token
-  const bool cur = sp == splits;
+  // with the current token, block y = splits takes it alone
+  constexpr int CUR = kCurrentToken ? 1 : 0;
+  const int splits = gridDim.y - CUR;
+  const bool cur = kCurrentToken && sp == splits;
   const int h0 = ht * HT;
   const int nh = min(HT, H - h0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -358,18 +371,21 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float sl = scale * LOG2E;
   const size_t seq = (size_t)b * S;
   const size_t pair = (size_t)b * gridDim.z + ht;
-  float* rec = part + (pair * (splits + 1) + sp) * REC;
+  float* rec = part + (pair * (splits + CUR) + sp) * REC;
 
   if (cur || nt > 0) {
-    // the small operands and the qn rows, then the first key tile
-    const float* rb = rot + (size_t)b * DR * DR;
-    for (int i = tid; i < DR * DR / 4; i += THREADS)
-      kt_mma::cp_async16(rot_s + 4 * i, rb + 4 * i, true);
+    // the small operands and the qn rows, then the first key tile; without
+    // the current token q_pe comes roped and goes straight to its rows
+    if (kCurrentToken) {
+      const float* rb = rot + (size_t)b * DR * DR;
+      for (int i = tid; i < DR * DR / 4; i += THREADS)
+        kt_mma::cp_async16(rot_s + 4 * i, rb + 4 * i, true);
+    }
     for (int i = tid; i < HT * (DR / 8); i += THREADS) {
       const int h = i / (DR / 8), ch = i % (DR / 8);
       const bool ok = h < nh;
       kt_mma::cp_async16(
-          qp_s + h * DR + ch * 8,
+          kCurrentToken ? qp_s + h * DR + ch * 8 : q_s + h * LDS + R + ch * 8,
           qp + ((size_t)b * H + h0 + (ok ? h : 0)) * DR + ch * 8, ok);
     }
     for (int i = tid; i < HT * (R / 8); i += THREADS) {
@@ -400,7 +416,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     kt_mma::cp_async_commit();
     kt_mma::cp_async_wait<1>();
     __syncthreads();
-    {  // q_pe @ rot in float32: thread (head tid / 16, 4 columns)
+    if (kCurrentToken) {
+      // q_pe @ rot in float32: thread (head tid / 16, 4 columns)
       const int h = tid >> 4, j0 = (tid & 15) * 4;
       float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 16
@@ -471,12 +488,13 @@ __global__ void __launch_bounds__(THREADS, 1)
       store_state(st, rec);
     }
   }
-  if (!arrive_last(cnt + pair, splits + 1)) return;
+  if (!arrive_last(cnt + pair, splits + CUR)) return;
 #if !KT_MLA_CUT_MERGE  // ops/cuda/breakdown.py: the merge compiled out
   // the states to merge, in this order: the splits that start below
-  // lengths[b] (0 .. live - 1), then the current token's (index splits)
+  // lengths[b] (0 .. live - 1), then the current token's (index splits);
+  // no state at all (length 0, no current token) gives zeros
   const int live = min(splits, (len + span - 1) / span);
-  merge_states(part + pair * (splits + 1) * REC, live + 1,
+  merge_states(part + pair * (splits + CUR) * REC, live + CUR,
                [=](int i) { return i < live ? i : splits; }, w_s, nh,
                ctx + ((size_t)b * H + h0) * R);
 #endif
@@ -506,13 +524,13 @@ extern "C" int kt_mla_decode_split(const void* qn, const void* qp,
       part == nullptr || cnt == nullptr)
     return (int)cudaErrorInvalidValue;
   static int ready_dev = -1;
-  cudaError_t err =
-      kt_mma::allow_smem(K::mla_decode_split_kernel, K::SMEM, &ready_dev);
+  cudaError_t err = kt_mma::allow_smem(K::mla_decode_split_kernel<true>,
+                                       K::SMEM, &ready_dev);
   if (err != cudaSuccess) return (int)err;
   using T = __nv_bfloat16;
   dim3 grid(B, splits + 1, (H + K::HT - 1) / K::HT);
-  K::mla_decode_split_kernel<<<grid, kt_mla_mma::THREADS, K::SMEM,
-                               static_cast<cudaStream_t>(stream)>>>(
+  K::mla_decode_split_kernel<true><<<grid, kt_mla_mma::THREADS, K::SMEM,
+                                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(qn), static_cast<const T*>(qp),
       static_cast<const T*>(kvraw), static_cast<const float*>(gamma),
       static_cast<const float*>(rot), static_cast<const T*>(ckv),
@@ -520,5 +538,36 @@ extern "C" int kt_mla_decode_split(const void* qn, const void* qp,
       span, scale, eps, static_cast<float*>(part), static_cast<int*>(cnt),
       static_cast<T*>(ctx), static_cast<T*>(ckv_new),
       static_cast<T*>(kpe_new));
+  return (int)cudaGetLastError();
+}
+
+// The bf16 mla_decode_attention on mla_decode_split_kernel<false>: operands
+// as kt_mla_decode_attention (lengths count the current token, qp roped);
+// `splits` blocks of `span` rows a sequence and head tile (splits * span >=
+// S, 1 <= splits <= MAX_SPLITS, span a multiple of 16); part holds B *
+// ceil(H / 16) * splits * REC floats, cnt B * ceil(H / 16) ints, zero on
+// entry (left zero).
+extern "C" int kt_mla_decode_attention_split(
+    const void* qn, const void* qp, const void* ckv, const void* kpe,
+    const void* lengths, int B, int H, int S, int splits, int span,
+    float scale, void* part, void* cnt, void* out, void* stream) {
+  namespace K = kt_mla_mma::split;
+  if (B <= 0 || H <= 0 || S <= 0 || splits < 1 || splits > K::MAX_SPLITS ||
+      span <= 0 || span % 16 || (long long)splits * span < S ||
+      part == nullptr || cnt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  static int ready_dev = -1;
+  cudaError_t err = kt_mma::allow_smem(K::mla_decode_split_kernel<false>,
+                                       K::SMEM, &ready_dev);
+  if (err != cudaSuccess) return (int)err;
+  using T = __nv_bfloat16;
+  dim3 grid(B, splits, (H + K::HT - 1) / K::HT);
+  K::mla_decode_split_kernel<false><<<grid, kt_mla_mma::THREADS, K::SMEM,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(qn), static_cast<const T*>(qp), nullptr, nullptr,
+      nullptr, static_cast<const T*>(ckv), static_cast<const T*>(kpe),
+      static_cast<const int*>(lengths), H, S, span, scale, 0.f,
+      static_cast<float*>(part), static_cast<int*>(cnt), static_cast<T*>(out),
+      nullptr, nullptr);
   return (int)cudaGetLastError();
 }

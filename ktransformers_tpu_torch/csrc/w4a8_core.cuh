@@ -3,7 +3,9 @@
 // Weights are int4_g in the offset-lo encoding (quant/w4a8.py): each int8
 // byte braw = 16*hi + (lo + 8), u = braw & 15. Activations come as per
 // (row, scale group) int8 codes qa, qb with float scales sa, sb and the
-// correction t = 8*sum(x_lo) (w4a8_prep). For output column n and group g:
+// correction t = 8*sum(x_lo) (w4a8_prep; prep_group below, run by a launch
+// of w4a8_prep_kernel ahead of the consumer or by the consumer itself, which
+// then reads x). For output column n and group g:
 //
 //   val = (qa . u)*sa + (qb . braw)*sb - t;   y[n] += val * s[g, n]
 //
@@ -42,6 +44,8 @@ struct W4A8Args {
   const float* sa;    // [R, ng]
   const float* sb;    // [R, ng]
   const float* t;     // [R, ng]
+  const void* x;      // [R, 2 K2] float or bf16 rows of a launch that
+                      // quantizes them itself (qa .. t unused then)
   const int8_t* w;    // [E, K2, N] offset-lo packed int4
   const float* s;     // [E, ng, N]
   const int* tile_expert;
@@ -172,11 +176,107 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Activation prep of quant/w4a8.py:w4a8_prep, one warp per (row, group):
-// a = x_lo - x_hi/16 and b = x_hi/16 quantized to int8 on their own
-// absmax/127 scales (round half to even), t = 8*sum(x_lo). Two passes over
-// the group's gs elements (the second one hits L1).
-template <typename InT>
+// The activation prep of quant/w4a8.py:w4a8_prep for N (row, scale group)
+// units of x at once, held by one warp: unit n's gs = 2 gs2 values start at
+// xr[n] (gs2 <= 32 J); a = lo - hi/16 and b = hi/16 (lo = xr[n][j], hi =
+// xr[n][gs2 + j]) are quantized to int8 on their own absmax/127 scales
+// (round half to even), t = 8*sum(lo). The codes go to qa[n][j], qb[n][j]
+// (global or shared memory); every lane returns s_a[n], s_b[n] and t[n].
+// Each lane loads its values (j = lane, lane + 32, ...) once, all N units'
+// at a time, and keeps them in registers. This is the one copy of the
+// prep's arithmetic: w4a8_prep_kernel (N = 1) and every kernel that folds
+// the prep in (w4a8_gemv.cuh, w4a8_mma.cuh, w4a8_ffn.cu, through
+// prep_units) call it, so the codes and scales are the same bits whichever
+// runs it: the division by the scale (not a reciprocal), rintf, the clamp
+// to +-127, each lane's sums over its j in increasing order, then one
+// __shfl_xor tree. The N units only interleave, to overlap their
+// latencies; each one's operations and their order are those of a unit
+// alone.
+template <int N, int J, typename InT>
+__device__ __forceinline__ void prep_group(const InT* const (&xr)[N],
+                                           int gs2, int8_t* const (&qa)[N],
+                                           int8_t* const (&qb)[N],
+                                           float (&s_a)[N], float (&s_b)[N],
+                                           float (&t)[N]) {
+  const int lane = threadIdx.x & 31;
+  float lo[N][J], hi[N][J];
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      const int j = lane + 32 * i;
+      lo[n][i] = j < gs2 ? to_float(xr[n][j]) : 0.f;
+      hi[n][i] = j < gs2 ? to_float(xr[n][gs2 + j]) : 0.f;
+    }
+  float amax_a[N], amax_b[N], slo[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    amax_a[n] = amax_b[n] = slo[n] = 0.f;
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      if (lane + 32 * i < gs2) {
+        amax_a[n] = fmaxf(amax_a[n], fabsf(lo[n][i] - hi[n][i] / 16.0f));
+        amax_b[n] = fmaxf(amax_b[n], fabsf(hi[n][i] / 16.0f));
+        slo[n] += lo[n][i];
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      amax_a[n] = fmaxf(amax_a[n], __shfl_xor_sync(0xffffffffu, amax_a[n], o));
+      amax_b[n] = fmaxf(amax_b[n], __shfl_xor_sync(0xffffffffu, amax_b[n], o));
+      slo[n] += __shfl_xor_sync(0xffffffffu, slo[n], o);
+    }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    s_a[n] = fmaxf(amax_a[n], 1e-8f) / 127.0f;
+    s_b[n] = fmaxf(amax_b[n], 1e-8f) / 127.0f;
+    t[n] = 8.0f * slo[n];
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      const int j = lane + 32 * i;
+      if (j < gs2) {
+        qa[n][j] = (int8_t)fminf(
+            fmaxf(rintf((lo[n][i] - hi[n][i] / 16.0f) / s_a[n]), -127.f),
+            127.f);
+        qb[n][j] = (int8_t)fminf(
+            fmaxf(rintf((hi[n][i] / 16.0f) / s_b[n]), -127.f), 127.f);
+      }
+    }
+  }
+}
+
+// Units 0 .. n - 1 of a folded prep (scale groups of gs2 <= 64 pairs),
+// shared by the nwarps warps of a block, N at a time a warp (prep_group):
+// unit(u, xr, qa, qb) sets unit u's values and code destinations, store(u,
+// s_a, s_b, t) takes its scales and sum (lane 0). A warp short of N units
+// repeats its first one (the same bits to the same places). Ends
+// unsynchronised.
+template <int N, typename InT, class Unit, class Store>
+__device__ __forceinline__ void prep_units(int n, int nwarps, int gs2,
+                                           Unit unit, Store store) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int u0 = warp * N; u0 < n; u0 += nwarps * N) {
+    const InT* xr[N];
+    int8_t* qa[N];
+    int8_t* qb[N];
+    float s_a[N], s_b[N], t[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      unit(u0 + k < n ? u0 + k : u0, xr[k], qa[k], qb[k]);
+    prep_group<N, 2, InT>(xr, gs2, qa, qb, s_a, s_b, t);
+    if (lane == 0)
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        if (u0 + k < n) store(u0 + k, s_a[k], s_b[k], t[k]);
+  }
+}
+
+// The prep as a launch of its own, one warp per (row, group): x [M, K] ->
+// qa, qb [M, K/2], sa, sb, t [M, K/gs]; gs/2 <= 32 J.
+template <int J, typename InT>
 __global__ void w4a8_prep_kernel(const InT* __restrict__ x, int M, int K,
                                  int gs, int8_t* __restrict__ qa,
                                  int8_t* __restrict__ qb,
@@ -186,36 +286,17 @@ __global__ void w4a8_prep_kernel(const InT* __restrict__ x, int M, int K,
   const int ng = K / gs, gs2 = gs / 2;
   const int unit = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   if (unit >= M * ng) return;
-  const int lane = threadIdx.x & 31;
   const int m = unit / ng, g = unit % ng;
-  const InT* xr = x + (size_t)m * K + (size_t)g * gs;
-  float amax_a = 0.f, amax_b = 0.f, slo = 0.f;
-  for (int j = lane; j < gs2; j += 32) {
-    const float lo = to_float(xr[j]), hi = to_float(xr[gs2 + j]);
-    amax_a = fmaxf(amax_a, fabsf(lo - hi / 16.0f));
-    amax_b = fmaxf(amax_b, fabsf(hi / 16.0f));
-    slo += lo;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    amax_a = fmaxf(amax_a, __shfl_xor_sync(0xffffffffu, amax_a, o));
-    amax_b = fmaxf(amax_b, __shfl_xor_sync(0xffffffffu, amax_b, o));
-    slo += __shfl_xor_sync(0xffffffffu, slo, o);
-  }
-  const float s_a = fmaxf(amax_a, 1e-8f) / 127.0f;
-  const float s_b = fmaxf(amax_b, 1e-8f) / 127.0f;
   const size_t o0 = (size_t)m * (K / 2) + (size_t)g * gs2;
-  for (int j = lane; j < gs2; j += 32) {
-    const float lo = to_float(xr[j]), hi = to_float(xr[gs2 + j]);
-    qa[o0 + j] = (int8_t)fminf(fmaxf(rintf((lo - hi / 16.0f) / s_a), -127.f),
-                               127.f);
-    qb[o0 + j] = (int8_t)fminf(fmaxf(rintf((hi / 16.0f) / s_b), -127.f),
-                               127.f);
-  }
-  if (lane == 0) {
-    sa[(size_t)m * ng + g] = s_a;
-    sb[(size_t)m * ng + g] = s_b;
-    t[(size_t)m * ng + g] = 8.0f * slo;
+  const InT* xr[1] = {x + (size_t)m * K + (size_t)g * gs};
+  int8_t* const ca[1] = {qa + o0};
+  int8_t* const cb[1] = {qb + o0};
+  float s_a[1], s_b[1], tt[1];
+  prep_group<1, J, InT>(xr, gs2, ca, cb, s_a, s_b, tt);
+  if ((threadIdx.x & 31) == 0) {
+    sa[(size_t)m * ng + g] = s_a[0];
+    sb[(size_t)m * ng + g] = s_b[0];
+    t[(size_t)m * ng + g] = tt[0];
   }
 }
 

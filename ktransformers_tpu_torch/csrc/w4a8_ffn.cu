@@ -29,7 +29,14 @@
 // Both gate_up kernels give a block one down group of the intermediate
 // dimension (bc columns of gate and the matching bc columns of up) for one
 // tile, so the group's requant happens inside the block; the requant is
-// per (row, down group), so the split does not change the numbers.
+// per (row, down group), so the split does not change the numbers. Both
+// fold the activation prep of x in where the wrapper's rule says so
+// (ops/cuda/w4a8_ffn.py:ffn_folds: the GEMV always, the tensor-core kernel
+// below its crossover), with w4a8_core.cuh's prep_group: the GEMV as the
+// down GEMV does (split_acts), the tensor-core kernel as w4a8_mma.cuh does
+// (fold_tile: every group of the tile's rows into an A tile after its ring,
+// before its K loop). The first version and the unfolded instantiations
+// read the codes of a kt_w4a8_prep launch.
 #include "w4a8_core.cuh"
 #include "w4a8_gemv.cuh"
 #include "w4a8_mma.cuh"
@@ -204,7 +211,7 @@ __global__ void __launch_bounds__(32 * KW)
 // (KT_W4GEMV_CUT_DECODE reaches this kernel through w4gv::lane_walk;
 // KT_FFNGV_CUT_REDUCE and KT_FFNGV_CUT_REQUANT compile the cross-split sum
 // and the GLU + requant out for ops/cuda/breakdown.py.)
-template <int RB>
+template <int RB, typename XT>
 __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
     w4a8_ffn_gemv_kernel(W4A8Args a, const int* __restrict__ ids, int R,
                          int inter, int bc, int act, int splits, int gran,
@@ -221,6 +228,7 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
   __shared__ float act_s[RB][HB];
   __shared__ int ids_s[MAX_ROWS], rows_s[RB], wsum[THREADS / 32];
   __shared__ int expert_s, chunk_s, nrows_s;
+  extern __shared__ __align__(16) uint8_t acts_s[];
   w4gv::tile_rows<RB>(ids, R, blockIdx.y, ids_s, rows_s, wsum, &expert_s,
                       &chunk_s, &nrows_s);
   const int e = expert_s;
@@ -231,8 +239,9 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
   const int lc = tx * CPT;   // the thread's first local column
   const int j0 = lc % HB;    // ... as a column of the down group
   const int s = blockIdx.z;
-  int l0, l1;
+  int l0, l1, g0, g1;
   w4gv::lane_run(a.K2, gran, splits, s, ly, l0, l1);
+  w4gv::split_groups(a.ng, splits, s, g0, g1);
   const int col = (lc < HB ? 0 : inter) + c0 + j0;
   const int8_t* we = a.w + (size_t)e * a.K2 * a.N + col;
   const float* se = a.s + (size_t)e * a.ng * a.N + col;
@@ -246,8 +255,9 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[m][c] = 0.f;
 
+  const auto acts = w4gv::split_acts<RB, XT>(a, row, nr, g0, g1, acts_s);
   if (j0 < bc && l0 < l1)
-    w4gv::lane_walk<RB>(a, we, se, row, nr, l0, l1, acc);
+    w4gv::lane_walk(a, we, se, acts, nr, l0, l1, acc);
 
 #pragma unroll
   for (int m = 0; m < RB; ++m)
@@ -322,14 +332,26 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
 #endif
 }
 
-template <int RB>
+template <int RB, typename XT>
 cudaError_t launch_ffn_gemv(const W4A8Args& a, const int* ids, int R,
                             int tiles, int inter, int bc, int act, int splits,
                             int gran, float* part, int* cnt, int8_t* ca,
                             int8_t* cb, float* sa2, float* sb2, float* t2,
                             cudaStream_t stream) {
+  constexpr bool kFold = !std::is_same<XT, int8_t>::value;
+  if (kFold && (gran * w4gv::UNIT != a.gs2 || a.gs2 > w4gv::FOLD_GS2))
+    return cudaErrorInvalidValue;
+  const int smem =
+      kFold ? w4gv::acts_bytes(RB, (a.ng + splits - 1) / splits, a.gs2) : 0;
+  if (smem > w4gv::MAX_ACTS_SMEM) return cudaErrorInvalidValue;
+  static int ready_dev = -1;
+  if (kFold) {
+    cudaError_t err = kt_mma::allow_smem(w4a8_ffn_gemv_kernel<RB, XT>,
+                                         w4gv::MAX_ACTS_SMEM, &ready_dev);
+    if (err != cudaSuccess) return err;
+  }
   dim3 grid(inter / bc, tiles, splits);
-  w4a8_ffn_gemv_kernel<RB><<<grid, w4gv::THREADS, 0, stream>>>(
+  w4a8_ffn_gemv_kernel<RB, XT><<<grid, w4gv::THREADS, smem, stream>>>(
       a, ids, R, inter, bc, act, splits, gran, part, cnt, ca, cb, sa2, sb2,
       t2);
   return cudaGetLastError();
@@ -376,18 +398,24 @@ constexpr int THREADS = 32 * WARPS_M * WARPS_N;
 constexpr int P = BN / 16 / WARPS_N;  // 16-column chunks a warp
 constexpr int HS = BN + 4;    // row stride (floats) of the staged outputs
 
-template <int GS2>
+// The ring as w4a8_mma.cuh's Shape: a stage holds the weight bytes and the
+// scales of a group, and the group's codes where the kernel reads a prep
+// launch's (XT = int8_t); where it folds the prep in (float or bf16) the
+// codes of every group lie in an A tile after the ring
+// (w4mma::fold_bytes).
+template <int GS2, typename XT>
 struct Shape {
+  static constexpr bool FOLD = !std::is_same<XT, int8_t>::value;
   // qa / qb tile row stride: an odd number of 16-byte chunks keeps the
   // ldmatrix rows on distinct banks
   static constexpr int LDA = (GS2 / 16) % 2 ? GS2 : GS2 + 16;
   static constexpr int A_BYTES = BM * LDA;
+  static constexpr int CODE_BYTES = FOLD ? 0 : 2 * A_BYTES;  // qa, qb
   static constexpr int W_BYTES = GS2 * BN;
-  static constexpr int F_FLOATS = 3 * BM + BN;  // sa, sb, t, s
-  static constexpr int STAGE = 2 * A_BYTES + W_BYTES + F_FLOATS * 4;
+  static constexpr int F_FLOATS = (FOLD ? 0 : 3 * BM) + BN;  // [sa, sb, t,] s
+  static constexpr int STAGE = CODE_BYTES + W_BYTES + F_FLOATS * 4;
   static constexpr int RING = STAGES * STAGE;
   static constexpr int OUT = BM * HS * 4;
-  static constexpr int SMEM = RING > OUT ? RING : OUT;
 };
 
 // 16-byte chunk c (of 16) of weight row k in the swizzled tile: the 8 rows
@@ -398,23 +426,25 @@ __device__ __forceinline__ int wchunk(int k, int c) {
 }
 
 // Issue the copies of scale group g into a ring slot.
-template <int GS2>
+template <int GS2, typename XT>
 __device__ __forceinline__ void load_stage(const W4A8Args& a, int e,
                                            int row0, int nrows, int c0,
                                            int inter, int g, uint8_t* slot) {
-  using S = Shape<GS2>;
-  constexpr int CPR = GS2 / 16;  // 16-byte chunks of a qa row
+  using S = Shape<GS2, XT>;
   const int t = threadIdx.x;
-  for (int i = t; i < BM * CPR; i += THREADS) {
-    const int m = i / CPR, q = i % CPR;
-    const bool ok = m < nrows;
-    const size_t off =
-        (size_t)(row0 + (ok ? m : 0)) * a.K2 + (size_t)g * GS2 + q * 16;
-    kt_mma::cp_async16(slot + m * S::LDA + q * 16, a.qa + off, ok);
-    kt_mma::cp_async16(slot + S::A_BYTES + m * S::LDA + q * 16, a.qb + off,
-                       ok);
+  if constexpr (!S::FOLD) {
+    constexpr int CPR = GS2 / 16;  // 16-byte chunks of a qa row
+    for (int i = t; i < BM * CPR; i += THREADS) {
+      const int m = i / CPR, q = i % CPR;
+      const bool ok = m < nrows;
+      const size_t off =
+          (size_t)(row0 + (ok ? m : 0)) * a.K2 + (size_t)g * GS2 + q * 16;
+      kt_mma::cp_async16(slot + m * S::LDA + q * 16, a.qa + off, ok);
+      kt_mma::cp_async16(slot + S::A_BYTES + m * S::LDA + q * 16,
+                         a.qb + off, ok);
+    }
   }
-  uint8_t* wd = slot + 2 * S::A_BYTES;
+  uint8_t* wd = slot + S::CODE_BYTES;
   const int8_t* wg = a.w + ((size_t)e * a.K2 + (size_t)g * GS2) * a.N;
   for (int i = t; i < GS2 * (BN / 16); i += THREADS) {
     const int k = i / (BN / 16), c = i % (BN / 16);
@@ -423,33 +453,38 @@ __device__ __forceinline__ void load_stage(const W4A8Args& a, int e,
                        wg + (size_t)k * a.N + n, true);
   }
   float* f = reinterpret_cast<float*>(wd + S::W_BYTES);
-  if (t < 3 * BM) {
+  constexpr int RF = S::FOLD ? 0 : 3 * BM;  // the rows' sa, sb, t
+  if (t < RF) {
     const int which = t / BM, m = t % BM;
     const float* src = which == 0 ? a.sa : which == 1 ? a.sb : a.t;
     const bool ok = m < nrows;
     kt_mma::cp_async4(f + t, src + (size_t)(row0 + (ok ? m : 0)) * a.ng + g,
                       ok);
-  } else if (t < 3 * BM + BN / 4) {
-    const int col = 4 * (t - 3 * BM);
+  } else if (t < RF + BN / 4) {
+    const int col = 4 * (t - RF);
     const int n = col < BC ? c0 + col : inter + c0 + col - BC;
-    kt_mma::cp_async16(f + 3 * BM + col,
+    kt_mma::cp_async16(f + RF + col,
                        a.s + ((size_t)e * a.ng + g) * a.N + n, true);
   }
 }
 
 }  // namespace ffnmma
 
-template <int GS2>
+// XT = int8_t reads a prep launch's codes; float or bf16 folds the prep in
+// (w4mma::fold_tile into an A tile of arows rows, a multiple of 16 at least
+// the tile's rows).
+template <int GS2, typename XT>
 __global__ void __launch_bounds__(ffnmma::THREADS, 1)
-    w4a8_ffn_mma_kernel(W4A8Args a, int inter, int act,
+    w4a8_ffn_mma_kernel(W4A8Args a, int arows, int inter, int act,
                         int8_t* __restrict__ ca, int8_t* __restrict__ cb,
                         float* __restrict__ sa2, float* __restrict__ sb2,
                         float* __restrict__ t2) {
   constexpr int BM = ffnmma::BM, BC = ffnmma::BC, BN = ffnmma::BN;
-  constexpr int STAGES = ffnmma::STAGES, THREADS = ffnmma::THREADS;
+  constexpr int THREADS = ffnmma::THREADS;
   constexpr int P = ffnmma::P, HS = ffnmma::HS;
   constexpr int WARPS_M = ffnmma::WARPS_M;
-  using S = ffnmma::Shape<GS2>;
+  using S = ffnmma::Shape<GS2, XT>;
+  constexpr int STAGES = ffnmma::STAGES;
   constexpr int KS = GS2 / 32;          // m16n8k32 steps a group
   constexpr bool TAIL = GS2 % 32 != 0;  // one m16n8k16 step (group 96)
   extern __shared__ __align__(128) uint8_t smem[];
@@ -476,30 +511,44 @@ __global__ void __launch_bounds__(ffnmma::THREADS, 1)
 #pragma unroll
   for (int g = 0; g < STAGES - 1; ++g) {
     if (g < a.ng)
-      ffnmma::load_stage<GS2>(a, e, row0, nrows, c0, inter, g,
-                                      smem + g * S::STAGE);
+      ffnmma::load_stage<GS2, XT>(a, e, row0, nrows, c0, inter, g,
+                                  smem + g * S::STAGE);
     kt_mma::cp_async_commit();
   }
+  uint8_t* A = smem + S::RING;  // the folded A tile
+  if constexpr (S::FOLD)
+    w4mma::fold_tile<8, XT>(a, row0, nrows, arows, THREADS / 32, A);
   const int jm = lane >> 3, jr = lane & 7;
   // this lane's ldmatrix.trans row inside a 16-row k block
   const int krow = (jm & 1) * 2 + (jr >> 1) * 4 + (jr & 1);
-  const int arow = (wm * 16 + (lane & 15)) * S::LDA;
   for (int g = 0; g < a.ng; ++g) {
     kt_mma::cp_async_wait<STAGES - 2>();
     __syncthreads();  // group g landed; group g - 1 fully consumed
     const int nx = g + STAGES - 1;
     if (nx < a.ng)
-      ffnmma::load_stage<GS2>(a, e, row0, nrows, c0, inter, nx,
-                              smem + (nx % STAGES) * S::STAGE);
+      ffnmma::load_stage<GS2, XT>(a, e, row0, nrows, c0, inter, nx,
+                                  smem + (nx % STAGES) * S::STAGE);
     kt_mma::cp_async_commit();
     // a warp whose 16 rows all lie past the tile's rows has nothing to add
     // (warp-uniform; it still takes part in the copies and barriers)
     if (wm * 16 >= nrows) continue;
     const uint8_t* slot = smem + (g % STAGES) * S::STAGE;
-    const uint8_t* qa = slot;
-    const uint8_t* qb = slot + S::A_BYTES;
-    const uint8_t* wt = slot + 2 * S::A_BYTES;
-    const float* f = reinterpret_cast<const float*>(wt + S::W_BYTES);
+    const uint8_t* wt = slot + S::CODE_BYTES;
+    const float* fs = reinterpret_cast<const float*>(wt + S::W_BYTES) +
+                      (S::FOLD ? 0 : 3 * BM);  // the columns' s
+    w4mma::AView av;
+    if constexpr (S::FOLD) {
+      const int ld = w4mma::fold_ld(a.K2);
+      av = {A + g * GS2, A + arows * ld + g * GS2, ld,
+            reinterpret_cast<const float*>(A + 2 * arows * ld) + g, a.ng,
+            arows * a.ng};
+    } else {
+      av = {slot, slot + S::A_BYTES, S::LDA,
+            reinterpret_cast<const float*>(wt + S::W_BYTES), 1, BM};
+    }
+    const uint8_t* qa = av.qa;
+    const uint8_t* qb = av.qb;
+    const int arow = (wm * 16 + (lane & 15)) * av.ld;
 
     uint32_t fa[KS][4], fb[KS][4], ta[2], tb[2];
 #pragma unroll
@@ -515,10 +564,10 @@ __global__ void __launch_bounds__(ffnmma::THREADS, 1)
     float sam[2], sbm[2], tm[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = wm * 16 + (lane >> 2) + h * 8;
-      sam[h] = f[row];
-      sbm[h] = f[BM + row];
-      tm[h] = f[2 * BM + row];
+      const float* fr = av.f + (wm * 16 + (lane >> 2) + h * 8) * av.fs;
+      sam[h] = fr[0];
+      sbm[h] = fr[av.fp];
+      tm[h] = fr[2 * av.fp];
     }
 
 #pragma unroll
@@ -564,7 +613,7 @@ __global__ void __launch_bounds__(ffnmma::THREADS, 1)
       // fragment element fc of the even / odd tile is row lane/4 + 8(fc/2),
       // column 4*(lane%4) + 2*(fc%2) (+ 1) of the chunk
       const float4 s4 = *reinterpret_cast<const float4*>(
-          f + 3 * BM + ch * 16 + 4 * (lane & 3));
+          fs + ch * 16 + 4 * (lane & 3));
       const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
 #pragma unroll
       for (int h = 0; h < 2; ++h)
@@ -629,20 +678,44 @@ __global__ void __launch_bounds__(ffnmma::THREADS, 1)
 }
 
 // gs2 = 64 (gate_up group 128) or 48 (group 96); down group BC; I a
-// multiple of BC; K/2 a multiple of 16 bytes.
-template <int GS2>
-cudaError_t launch_ffn_mma_gs(const W4A8Args& a, int ntiles, int inter,
-                              int act, int8_t* ca, int8_t* cb, float* sa2,
-                              float* sb2, float* t2, cudaStream_t stream) {
+// multiple of BC; K/2 a multiple of 16 bytes. XT as w4a8_ffn_mma_kernel.
+template <int GS2, typename XT>
+cudaError_t launch_ffn_mma_gs(const W4A8Args& a, int ntiles, int arows,
+                              int inter, int act, int8_t* ca, int8_t* cb,
+                              float* sa2, float* sb2, float* t2,
+                              cudaStream_t stream) {
   static int ready_dev = -1;
-  using S = ffnmma::Shape<GS2>;
-  cudaError_t err = kt_mma::allow_smem(w4a8_ffn_mma_kernel<GS2>, S::SMEM,
-                                       &ready_dev);
+  using S = ffnmma::Shape<GS2, XT>;
+  const int ring =
+      S::RING + (S::FOLD ? w4mma::fold_bytes(arows, a.K2, a.ng) : 0);
+  const int smem = ring > S::OUT ? ring : S::OUT;
+  if (S::FOLD && (arows < 16 || arows > ffnmma::BM || arows % 16 ||
+                  smem > w4mma::MAX_SMEM))
+    return cudaErrorInvalidValue;
+  cudaError_t err = kt_mma::allow_smem(w4a8_ffn_mma_kernel<GS2, XT>,
+                                       w4mma::MAX_SMEM, &ready_dev);
   if (err != cudaSuccess) return err;
   dim3 grid(inter / ffnmma::BC, ntiles);
-  w4a8_ffn_mma_kernel<GS2><<<grid, ffnmma::THREADS, S::SMEM, stream>>>(
-      a, inter, act, ca, cb, sa2, sb2, t2);
+  w4a8_ffn_mma_kernel<GS2, XT><<<grid, ffnmma::THREADS, smem, stream>>>(
+      a, arows, inter, act, ca, cb, sa2, sb2, t2);
   return cudaGetLastError();
+}
+
+template <typename XT>
+cudaError_t launch_ffn_mma(const W4A8Args& a, int ntiles, int arows,
+                           int inter, int act, int8_t* ca, int8_t* cb,
+                           float* sa2, float* sb2, float* t2,
+                           cudaStream_t stream) {
+  switch (a.gs2) {
+    case 64:
+      return launch_ffn_mma_gs<64, XT>(a, ntiles, arows, inter, act, ca, cb,
+                                       sa2, sb2, t2, stream);
+    case 48:
+      return launch_ffn_mma_gs<48, XT>(a, ntiles, arows, inter, act, ca, cb,
+                                       sa2, sb2, t2, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace kt
@@ -652,7 +725,7 @@ static kt::W4A8Args make_args(const void* qa, const void* qb, const void* sa,
                               const void* s, const void* te, const void* tr0,
                               const void* trs, int k2, int n, int ng,
                               int gs2) {
-  kt::W4A8Args a;
+  kt::W4A8Args a = {};
   a.qa = static_cast<const int8_t*>(qa);
   a.qb = static_cast<const int8_t*>(qb);
   a.sa = static_cast<const float*>(sa);
@@ -705,11 +778,46 @@ extern "C" int kt_w4a8_ffn_up(const void* qa, const void* qb, const void* sa,
   return (int)cudaGetLastError();
 }
 
+// The activations of a gate_up launch: x_dtype 0 takes the codes of a prep
+// launch (qa, qb, sa, sb, t), 1 float32 and 2 bfloat16 rows x [R, 2 K2]
+// (the kernel folds the prep in).
+enum { X_CODES = 0, X_F32 = 1, X_BF16 = 2 };
+
+template <template <typename> class Launch, typename... Args>
+static int by_x_dtype(int x_dtype, Args... args) {
+  switch (x_dtype) {
+    case X_CODES: return (int)Launch<int8_t>::run(args...);
+    case X_F32: return (int)Launch<float>::run(args...);
+    case X_BF16: return (int)Launch<__nv_bfloat16>::run(args...);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename XT>
+struct GemvUp {
+  template <typename... Args>
+  static cudaError_t run(int rb, Args... args) {
+    switch (rb) {
+      case 1: return kt::launch_ffn_gemv<1, XT>(args...);
+      case 2: return kt::launch_ffn_gemv<2, XT>(args...);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+};
+
+template <typename XT>
+struct MmaUp {
+  template <typename... Args>
+  static cudaError_t run(Args... args) {
+    return kt::launch_ffn_mma<XT>(args...);
+  }
+};
+
 // gate_up + GLU + requant of one-row tiles on w4a8_ffn_gemv_kernel: row r
-// of the activation codes through expert ids[r] of w [E, K2, 2 * inter]
-// for r < R (R <= 128; a dense call passes R = 1, ids = [0]), `tiles`
-// tiles of up to rb rows of one expert (rb 1 or 2; tiles at least the
-// number of (expert, chunk) pairs), `splits` runs of `gran` 8-row units
+// of the activations (as x_dtype says) through expert ids[r] of w [E, K2,
+// 2 * inter] for r < R (R <= 128; a dense call passes R = 1, ids = [0]),
+// `tiles` tiles of up to rb rows of one expert (rb 1 or 2; tiles at least
+// the number of (expert, chunk) pairs), `splits` runs of `gran` 8-row units
 // (gran * 8 = gs2, one scale group); down group bc (a multiple of 16, at
 // most 128, dividing inter). Writes ca / cb int8 [R, inter/2] and sa2 /
 // sb2 / t2 f32 [R, inter/bc] (rows of tiles past the last pair untouched).
@@ -718,8 +826,9 @@ extern "C" int kt_w4a8_ffn_up(const void* qa, const void* qb, const void* sa,
 // 16-byte aligned w and s, 8-byte aligned qa and qb.
 extern "C" int kt_w4a8_ffn_gemv(const void* qa, const void* qb,
                                 const void* sa, const void* sb, const void* t,
-                                const void* w, const void* s, const void* ids,
-                                int r, int tiles, int splits, int gran, int rb,
+                                const void* x, int x_dtype, const void* w,
+                                const void* s, const void* ids, int r,
+                                int tiles, int splits, int gran, int rb,
                                 int k2, int inter, int ng, int gs2, int bc,
                                 int act, void* part, void* cnt, void* ca,
                                 void* cb, void* sa2, void* sb2, void* t2,
@@ -734,70 +843,49 @@ extern "C" int kt_w4a8_ffn_gemv(const void* qa, const void* qb,
       (k2 / G::UNIT) % gran || splits < 1 || splits > 65535 ||
       splits > k2 / G::UNIT / gran || act < 0 || act > 2 ||
       (splits > 1 && (part == nullptr || cnt == nullptr)) || (a16 & 15u) ||
-      (a8 & 7u))
+      (x_dtype == X_CODES && (a8 & 7u)))
     return (int)cudaErrorInvalidValue;
   kt::W4A8Args a = make_args(qa, qb, sa, sb, t, w, s, nullptr, nullptr,
                              nullptr, k2, 2 * inter, ng, gs2);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* pid = static_cast<const int*>(ids);
-  float* p = static_cast<float*>(part);
-  int* c = static_cast<int*>(cnt);
-  auto* pca = static_cast<int8_t*>(ca);
-  auto* pcb = static_cast<int8_t*>(cb);
-  auto* psa = static_cast<float*>(sa2);
-  auto* psb = static_cast<float*>(sb2);
-  auto* pt = static_cast<float*>(t2);
-  switch (rb) {
-    case 1:
-      return (int)kt::launch_ffn_gemv<1>(a, pid, r, tiles, inter, bc, act,
-                                         splits, gran, p, c, pca, pcb, psa,
-                                         psb, pt, st);
-    case 2:
-      return (int)kt::launch_ffn_gemv<2>(a, pid, r, tiles, inter, bc, act,
-                                         splits, gran, p, c, pca, pcb, psa,
-                                         psb, pt, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  a.x = x;
+  return by_x_dtype<GemvUp>(
+      x_dtype, rb, a, static_cast<const int*>(ids), r, tiles, inter, bc, act,
+      splits, gran, static_cast<float*>(part), static_cast<int*>(cnt),
+      static_cast<int8_t*>(ca), static_cast<int8_t*>(cb),
+      static_cast<float*>(sa2), static_cast<float*>(sb2),
+      static_cast<float*>(t2), static_cast<cudaStream_t>(stream));
 }
 
 // gate_up + GLU + requant on the tensor cores (w4a8_ffn_mma_kernel): the
 // operands of kt_w4a8_ffn_up with tiles of up to 64 rows and a down group
-// of 128. gs2 = 64 or 48, inter a multiple of 128, K2 of 16; 16-byte
-// aligned qa, qb, w, s.
+// of 128, the activations as x_dtype says (a folded launch quantizes each
+// tile into an A tile of arows rows: a multiple of 16, at least every
+// tile's rows). gs2 = 64 or 48, inter a multiple of 128, K2 of 16; 16-byte
+// aligned qa and qb, w, s.
 extern "C" int kt_w4a8_ffn_mma(const void* qa, const void* qb,
                                const void* sa, const void* sb, const void* t,
-                               const void* w, const void* s,
-                               const void* tile_expert,
+                               const void* x, int x_dtype, const void* w,
+                               const void* s, const void* tile_expert,
                                const void* tile_row0, const void* tile_rows,
-                               int ntiles, int k2, int inter, int ng, int gs2,
-                               int act, void* ca, void* cb, void* sa2,
-                               void* sb2, void* t2, void* stream) {
+                               int ntiles, int arows, int k2, int inter,
+                               int ng, int gs2, int act, void* ca, void* cb,
+                               void* sa2, void* sb2, void* t2, void* stream) {
   if (ntiles <= 0) return 0;
-  const uintptr_t align = (uintptr_t)qa | (uintptr_t)qb | (uintptr_t)w |
-                          (uintptr_t)s;
+  const uintptr_t align = (uintptr_t)w | (uintptr_t)s;
+  const uintptr_t codes = (uintptr_t)qa | (uintptr_t)qb;
+  const uintptr_t scales = (uintptr_t)sa | (uintptr_t)sb | (uintptr_t)t;
   if (inter % kt::ffnmma::BC || k2 % 16 || ng * gs2 != k2 ||
       ntiles > 65535 || (align & 15u) ||
-      (((uintptr_t)sa | (uintptr_t)sb | (uintptr_t)t) & 3u))
+      (x_dtype == X_CODES && (codes & 15u || scales & 3u)))
     return (int)cudaErrorInvalidValue;
   kt::W4A8Args a = make_args(qa, qb, sa, sb, t, w, s, tile_expert, tile_row0,
                              tile_rows, k2, 2 * inter, ng, gs2);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* pca = static_cast<int8_t*>(ca);
-  auto* pcb = static_cast<int8_t*>(cb);
-  auto* psa = static_cast<float*>(sa2);
-  auto* psb = static_cast<float*>(sb2);
-  auto* pt = static_cast<float*>(t2);
-  switch (gs2) {
-    case 64:
-      return (int)kt::launch_ffn_mma_gs<64>(a, ntiles, inter, act, pca, pcb,
-                                            psa, psb, pt, st);
-    case 48:
-      return (int)kt::launch_ffn_mma_gs<48>(a, ntiles, inter, act, pca, pcb,
-                                            psa, psb, pt, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  a.x = x;
+  return by_x_dtype<MmaUp>(
+      x_dtype, a, ntiles, arows, inter, act, static_cast<int8_t*>(ca),
+      static_cast<int8_t*>(cb), static_cast<float*>(sa2),
+      static_cast<float*>(sb2), static_cast<float*>(t2),
+      static_cast<cudaStream_t>(stream));
 }
 
 // down dot over the requantized activation: same tiles as kt_w4a8_ffn_up.

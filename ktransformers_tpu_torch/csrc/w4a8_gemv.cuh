@@ -33,8 +33,18 @@
 //   its rows, and the tiles of one expert sit next to each other in the
 //   grid, so their blocks run together and share those bytes through L2.
 //   A dense call is one tile: ids = [0], one expert.
+// - the activation prep is folded in (XT float or bf16; groups of up to
+//   128): a block quantizes just the scale groups of its split for its
+//   tile's rows (split_acts: prep_units, four (row, group) units a warp)
+//   into shared memory, the bits of the prep launch it replaces, and walks
+//   them there; the wrapper folds where that is at most 16 (row, group)
+//   units a block (w4a8_matmul.py:gemv_folds). XT = int8_t reads the codes
+//   of a prep launch (the FFN's down reads those its gate_up's requant
+//   wrote).
 // (The KT_W4GEMV_CUT_* switches compile parts out for ops/cuda/breakdown.py.)
 #pragma once
+
+#include <type_traits>
 
 #include "mma_sm90.cuh"
 #include "w4a8_core.cuh"
@@ -49,6 +59,10 @@ constexpr int CPT = 16;              // columns a thread: 16 bytes a row
 constexpr int BN = TX * CPT;         // 256 columns a block
 constexpr int UNIT = 8;              // storage rows a step
 constexpr int MAX_ROWS = THREADS;    // rows of a call: one id a thread
+// dynamic shared memory a folded launch may take for its activations, and
+// the largest half group it folds (prep_units: two values a lane)
+constexpr int MAX_ACTS_SMEM = 160 * 1024;
+constexpr int FOLD_GS2 = 64;
 
 // The rows of tile j: the experts of ids[0..R) in order of first
 // appearance, each cut into chunks of RB of its rows (in row order), the
@@ -156,17 +170,114 @@ __device__ __forceinline__ float split_sum(const float* p, int splits,
   return v;
 }
 
+// The scale groups [g0, g1) of split s (a granule of `gran` units is one
+// scale group where the kernel folds the prep in: the launch checks it).
+__device__ __forceinline__ void split_groups(int ng, int splits, int s,
+                                             int& g0, int& g1) {
+  g0 = (int)((long long)ng * s / splits);
+  g1 = (int)((long long)ng * (s + 1) / splits);
+}
+
+// Where a walk finds the activation of tile row m: its codes at qa + coff[m]
+// + r and qb + coff[m] + r (r a storage row), its scales at sa / sb / t +
+// soff[m] + g (g a scale group). kSmem: the codes and scales lie in shared
+// memory (split_acts quantized them there), else in global memory (a prep
+// launch or the FFN's gate_up wrote them).
+template <int RB, bool kSmem>
+struct Acts {
+  const int8_t* qa;
+  const int8_t* qb;
+  const float* sa;
+  const float* sb;
+  const float* t;
+  int coff[RB], soff[RB];
+};
+
+template <bool kSmem, typename T>
+__device__ __forceinline__ T load_act(const T* p) {
+  if constexpr (kSmem) return *p;
+  else return __ldg(p);
+}
+
+// Bytes of shared memory split_acts takes for RB rows of ng_split scale
+// groups of gs2 storage rows: the codes qa, qb and the scales sa, sb, t.
+__host__ __device__ constexpr int acts_bytes(int rb, int ng_split, int gs2) {
+  return rb * ng_split * (2 * gs2 + 3 * 4);
+}
+
+// The activations of a walk over scale groups [g0, g1) for the tile rows
+// row[m], m < nr. XT = int8_t: the codes a prep launch wrote (a.qa .. a.t,
+// global memory). XT float or bf16: the kernel folds the prep in, quantizing
+// those groups of its rows of a.x into smem (acts_bytes of it) with
+// prep_units (four (row, group) units at a time a warp), so no prep launch
+// runs and the codes are the prep's bits. Block-wide (every thread calls
+// it); ends synchronised when it quantizes.
+template <int RB, typename XT>
+__device__ __forceinline__ auto split_acts(const W4A8Args& a,
+                                           const int (&row)[RB], int nr,
+                                           int g0, int g1, uint8_t* smem) {
+  constexpr bool kFold = !std::is_same<XT, int8_t>::value;
+  Acts<RB, kFold> v;
+  if constexpr (!kFold) {
+    v.qa = a.qa;
+    v.qb = a.qb;
+    v.sa = a.sa;
+    v.sb = a.sb;
+    v.t = a.t;
+#pragma unroll
+    for (int m = 0; m < RB; ++m) {
+      v.coff[m] = row[m] * a.K2;
+      v.soff[m] = row[m] * a.ng;
+    }
+  } else {
+    const int ng = g1 - g0, len = ng * a.gs2;
+    int8_t* qa = reinterpret_cast<int8_t*>(smem);
+    int8_t* qb = qa + RB * len;
+    float* sa = reinterpret_cast<float*>(qb + RB * len);
+    float* sb = sa + RB * ng;
+    float* t = sb + RB * ng;
+    const XT* x = static_cast<const XT*>(a.x);
+    const int gs2 = a.gs2;
+    const size_t ld = (size_t)2 * a.K2;
+    prep_units<4, XT>(
+        nr * ng, THREADS / 32, gs2,
+        [&](int u, const XT*& xr, int8_t*& ca, int8_t*& cb) {
+          const int m = u / ng, j = u - m * ng;
+          xr = x + row[m] * ld + (size_t)(g0 + j) * 2 * gs2;
+          ca = qa + m * len + j * gs2;
+          cb = qb + m * len + j * gs2;
+        },
+        [&](int u, float s_a, float s_b, float tt) {
+          sa[u] = s_a;  // u = m * ng + j
+          sb[u] = s_b;
+          t[u] = tt;
+        });
+    __syncthreads();
+    v.qa = qa;
+    v.qb = qb;
+    v.sa = sa;
+    v.sb = sb;
+    v.t = t;
+#pragma unroll
+    for (int m = 0; m < RB; ++m) {
+      v.coff[m] = m * len - g0 * a.gs2;
+      v.soff[m] = m * ng - g0;
+    }
+  }
+  return v;
+}
+
 // The K walk of one row lane: units [l0, l1) of UNIT storage rows of the
-// expert at we / se (its weight and scales, offset to the thread's first
-// of CPT columns) against the activation codes of the tile's rows row[m],
-// m < nr, into acc. A lane sums a group's int dots over its units and
+// expert at we / se (its weight and scales, offset to the thread's first of
+// CPT columns) against the activations of the tile's rows m < nr (acts:
+// split_acts) into acc. A lane sums a group's int dots over its units and
 // scales them once; the lane that holds the group's first unit subtracts t.
 // Shared by w4a8_gemv_kernel and w4a8_ffn.cu's w4a8_ffn_gemv_kernel.
-template <int RB>
+template <int RB, bool kSmem>
 __device__ __forceinline__ void lane_walk(const W4A8Args& a,
                                           const int8_t* __restrict__ we,
                                           const float* __restrict__ se,
-                                          const int (&row)[RB], int nr,
+                                          const Acts<RB, kSmem>& act, int nr,
                                           int l0, int l1,
                                           float (&acc)[RB][CPT]) {
   int pa[RB][CPT], pb[RB][CPT];
@@ -191,10 +302,10 @@ __device__ __forceinline__ void lane_walk(const W4A8Args& a,
       const bool with_t = r0 == g * a.gs2;
 #pragma unroll
       for (int m = 0; m < RB; ++m) {
-        const size_t ri = (size_t)row[m] * a.ng + g;
-        sam[m] = __ldg(a.sa + ri);
-        sbm[m] = __ldg(a.sb + ri);
-        tm[m] = with_t ? __ldg(a.t + ri) : 0.f;
+        const int ri = act.soff[m] + g;
+        sam[m] = load_act<kSmem>(act.sa + ri);
+        sbm[m] = load_act<kSmem>(act.sb + ri);
+        tm[m] = with_t ? load_act<kSmem>(act.t + ri) : 0.f;
 #pragma unroll
         for (int c = 0; c < CPT; ++c) pa[m][c] = pb[m][c] = 0;
       }
@@ -207,9 +318,11 @@ __device__ __forceinline__ void lane_walk(const W4A8Args& a,
     int a4[RB][2], b4[RB][2];
 #pragma unroll
     for (int m = 0; m < RB; ++m) {
-      const size_t ro = (size_t)row[m] * a.K2 + r0;
-      const int2 va = __ldg(reinterpret_cast<const int2*>(a.qa + ro));
-      const int2 vb = __ldg(reinterpret_cast<const int2*>(a.qb + ro));
+      const int ro = act.coff[m] + r0;
+      const int2 va =
+          load_act<kSmem>(reinterpret_cast<const int2*>(act.qa + ro));
+      const int2 vb =
+          load_act<kSmem>(reinterpret_cast<const int2*>(act.qb + ro));
       a4[m][0] = va.x; a4[m][1] = va.y;
       b4[m][0] = vb.x; b4[m][1] = vb.y;
     }
@@ -262,8 +375,11 @@ __device__ __forceinline__ void lane_walk(const W4A8Args& a,
 // [G s / S, G (s+1) / S) of `gran` units (gran * UNIT = one scale group's
 // storage rows) and each lane a contiguous run of its split's units. With
 // one split the block stores y; with more, part[row][split][N] holds the
-// partials and cnt[tile][column block] the counters.
-template <int RB, typename OutT>
+// partials and cnt[tile][column block] the counters. XT = int8_t reads the
+// codes of a prep launch (a.qa .. a.t); XT = float or bf16 (OutT) folds the
+// prep in: the block quantizes its split's scale groups of its rows of a.x
+// into dynamic shared memory (split_acts), then walks as before.
+template <int RB, typename XT, typename OutT>
 __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
     w4a8_gemv_kernel(W4A8Args a, const int* __restrict__ ids, int R,
                      int splits, int gran, float* __restrict__ part,
@@ -271,9 +387,11 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
   constexpr int TX = w4gv::TX, LANES = w4gv::LANES, THREADS = w4gv::THREADS;
   constexpr int CPT = w4gv::CPT, BN = w4gv::BN;
   constexpr int MAX_ROWS = w4gv::MAX_ROWS;
+  constexpr bool kFold = !std::is_same<XT, int8_t>::value;
   __shared__ __align__(16) float red[LANES][RB][BN];
   __shared__ int ids_s[MAX_ROWS], rows_s[RB], wsum[THREADS / 32];
   __shared__ int expert_s, chunk_s, nrows_s;
+  extern __shared__ __align__(16) uint8_t acts_s[];
   w4gv::tile_rows<RB>(ids, R, blockIdx.y, ids_s, rows_s, wsum, &expert_s,
                       &chunk_s, &nrows_s);
   const int e = expert_s;
@@ -283,8 +401,9 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
   const int n0 = blockIdx.x * BN;
   const int col = n0 + tx * CPT;
   const int s = blockIdx.z;
-  int l0, l1;
+  int l0, l1, g0, g1;
   w4gv::lane_run(a.K2, gran, splits, s, ly, l0, l1);
+  w4gv::split_groups(a.ng, splits, s, g0, g1);
   const int8_t* we = a.w + (size_t)e * a.K2 * a.N + col;
   const float* se = a.s + (size_t)e * a.ng * a.N + col;
   constexpr int PER = BN / THREADS;  // output columns a thread stores
@@ -298,8 +417,9 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[m][c] = 0.f;
 
+  const auto act = w4gv::split_acts<RB, XT>(a, row, nr, g0, g1, acts_s);
   if (col < a.N && l0 < l1)
-    w4gv::lane_walk<RB>(a, we, se, row, nr, l0, l1, acc);
+    w4gv::lane_walk(a, we, se, act, nr, l0, l1, acc);
 
 #pragma unroll
   for (int m = 0; m < RB; ++m)
@@ -353,20 +473,36 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
 // call: R = 1, ids = [0]), in `tiles` tiles of up to rb rows (1 or 2). N a
 // multiple of 16, gs2 of UNIT, K2 of gs2; splits >= 1 runs of `gran` units
 // (part: R * splits * N floats, cnt: ceil(N / BN) * tiles ints, zero on
-// entry).
-template <typename OutT>
+// entry). XT: as w4a8_gemv_kernel; a folded launch takes gran * UNIT = gs2.
+template <typename XT, typename OutT>
 cudaError_t launch_gemv(const W4A8Args& a, const int* ids, int R, int tiles,
                         int splits, int gran, int rb, float* part, int* cnt,
                         OutT* out, cudaStream_t stream) {
   constexpr int BN = w4gv::BN, THREADS = w4gv::THREADS;
+  constexpr bool kFold = !std::is_same<XT, int8_t>::value;
+  if (kFold && (gran * w4gv::UNIT != a.gs2 || a.gs2 > w4gv::FOLD_GS2))
+    return cudaErrorInvalidValue;
+  const int smem =
+      kFold ? w4gv::acts_bytes(rb, (a.ng + splits - 1) / splits, a.gs2) : 0;
+  if (smem > w4gv::MAX_ACTS_SMEM) return cudaErrorInvalidValue;
   dim3 grid((a.N + BN - 1) / BN, tiles, splits);
+  static int ready_dev[2] = {-1, -1};
+  cudaError_t err = cudaSuccess;
   switch (rb) {
     case 1:
-      w4a8_gemv_kernel<1, OutT><<<grid, THREADS, 0, stream>>>(
+      if (kFold)
+        err = kt_mma::allow_smem(w4a8_gemv_kernel<1, XT, OutT>,
+                                 w4gv::MAX_ACTS_SMEM, &ready_dev[0]);
+      if (err != cudaSuccess) return err;
+      w4a8_gemv_kernel<1, XT, OutT><<<grid, THREADS, smem, stream>>>(
           a, ids, R, splits, gran, part, cnt, out);
       break;
     case 2:
-      w4a8_gemv_kernel<2, OutT><<<grid, THREADS, 0, stream>>>(
+      if (kFold)
+        err = kt_mma::allow_smem(w4a8_gemv_kernel<2, XT, OutT>,
+                                 w4gv::MAX_ACTS_SMEM, &ready_dev[1]);
+      if (err != cudaSuccess) return err;
+      w4a8_gemv_kernel<2, XT, OutT><<<grid, THREADS, smem, stream>>>(
           a, ids, R, splits, gran, part, cnt, out);
       break;
     default: return cudaErrorInvalidValue;

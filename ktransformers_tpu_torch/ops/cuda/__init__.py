@@ -13,13 +13,18 @@ counts, per TPU kernel replaced, the wrapper calls that launched on the
 card; a call of an FFN wrapper is two kernel launches. Sixteen wrappers
 route a call to the first version of their kernel or to a redesigned one
 (``route`` in ops/cuda/quant_matmul.py, quant_matmul_t.py, w4a8_matmul.py
-and mla_decode.py, ``ffn_route`` in w4a8_ffn.py, ``decode_route``,
-``prefill_route``, ``gqa_decode_route`` and ``gqa_prefill_route`` in
-paged_attention.py); ``ROUTED_KERNELS`` names each redesigned kernel with
-the wrappers that route to it, and ``ROUTED_LAUNCHES`` counts, per
-redesigned kernel, the wrapper calls that took it (an FFN call takes two:
-its gate_up kernel, w4a8_ffn_mma_kernel or w4a8_ffn_gemv_kernel, and
-w4a8_mma_kernel or w4a8_gemv_kernel for the down).
+and mla_decode.py, ``attention_route`` in mla_decode.py, ``ffn_route`` in
+w4a8_ffn.py, ``decode_route``, ``prefill_route``, ``gqa_decode_route`` and
+``gqa_prefill_route`` in paged_attention.py); ``ROUTED_KERNELS`` names
+each redesigned kernel with the wrappers that route to it, and
+``ROUTED_LAUNCHES`` counts, per redesigned kernel, the wrapper calls that
+took it (an FFN call takes two: its gate_up kernel, w4a8_ffn_mma_kernel or
+w4a8_ffn_gemv_kernel, and w4a8_mma_kernel or w4a8_gemv_kernel for the
+down). The W4A8 GEMVs and, below their crossovers, the W4A8 tensor-core
+kernels quantize x themselves (``folds`` / ``gemv_folds`` in
+w4a8_matmul.py, ``ffn_folds`` in w4a8_ffn.py): such a call makes no
+w4a8_prep launch, so ``LAUNCHES["w4a8_prep"]`` counts the calls that still
+do.
 """
 
 from __future__ import annotations
@@ -63,6 +68,8 @@ ROUTED_KERNELS = {
     "gqa_prefill_mma_kernel": ("gqa_paged_prefill",),
     "w4a8_ffn_gemv_kernel": ("gathered_w4a8_ffn", "dense_w4a8_ffn"),
     "gqa_decode_split_kernel": ("gqa_paged_decode",),
+    # the split decode without its current-token block (bf16 row 6)
+    "mla_decode_split_kernel<false>": ("mla_decode_attention",),
 }
 ROUTED_LAUNCHES = {name: 0 for name in ROUTED_KERNELS}
 

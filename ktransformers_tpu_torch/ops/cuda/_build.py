@@ -33,20 +33,21 @@ F = ctypes.c_float
 SIGNATURES = {
     "w4a8_matmul": {
         "kt_w4a8_rows": [P] * 10 + [I] * 7 + [P, P],
-        "kt_w4a8_mma": [P] * 10 + [I] * 6 + [P, P],
+        "kt_w4a8_mma": [P] * 6 + [I] + [P] * 5 + [I] * 7 + [P, P],
         "kt_w4a8_prep": [P, I, I, I, I] + [P] * 6,
-        "kt_w4a8_gemv": [P] * 8 + [I] * 10 + [P] * 4,
+        "kt_w4a8_gemv": [P] * 6 + [I] + [P] * 3 + [I] * 10 + [P] * 4,
     },
     "w4a8_ffn": {
         "kt_w4a8_ffn_up": [P] * 10 + [I] * 8 + [P] * 6,
-        "kt_w4a8_ffn_mma": [P] * 10 + [I] * 6 + [P] * 6,
+        "kt_w4a8_ffn_mma": [P] * 6 + [I] + [P] * 5 + [I] * 7 + [P] * 6,
         "kt_w4a8_ffn_down": [P] * 10 + [I] * 7 + [P, P],
-        "kt_w4a8_ffn_gemv": [P] * 8 + [I] * 11 + [P] * 8,
+        "kt_w4a8_ffn_gemv": [P] * 6 + [I] + [P] * 3 + [I] * 11 + [P] * 8,
     },
     "mla_decode": {
         "kt_mla_decode_fused": [P] * 8 + [I, I, I, F, F, I] + [P] * 4,
         "kt_mla_decode_attention": [P] * 5 + [I, I, I, F, I] + [P, P],
         "kt_mla_decode_split": [P] * 8 + [I] * 5 + [F, F] + [P] * 6,
+        "kt_mla_decode_attention_split": [P] * 5 + [I] * 5 + [F] + [P] * 4,
     },
     "paged_attention": {
         "kt_mla_paged_decode": [P] * 6 + [I, I, I, I, F, I] + [P, P],

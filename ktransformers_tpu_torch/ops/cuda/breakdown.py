@@ -83,19 +83,19 @@ CUTS = {
          "af[i], bf[2], bf[3]);\n#endif"),
     ],
     "w4a8_mma.cuh": [
-        ("            acc[i][p][h][c] += val * sc[c];",
-         "#if CUT_EPILOGUE\n            acc[i][p][h][c] += (float)(pa[i][nt]"
-         "[fc] ^ pb[i][nt][fc]);\n#else\n            acc[i][p][h][c] += "
-         "val * sc[c];\n#endif"),
-        ("          kt_mma::mma_s8_16832(pa[i][2 * p], fa[i], e0 & LO, "
+        ("              acc[i][p][h][c] += val * sc[c];",
+         "#if CUT_EPILOGUE\n              acc[i][p][h][c] += (float)(pa[i]"
+         "[nt][fc] ^ pb[i][nt][fc]);\n#else\n              acc[i][p][h][c]"
+         " += val * sc[c];\n#endif"),
+        ("            kt_mma::mma_s8_16832(pa[i][2 * p], fa[i], e0 & LO, "
          "e1 & LO);",
-         "#if CUT_MMA\n          pa[i][2 * p][0] ^= fa[i][0] ^ e0;\n"
-         "          pb[i][2 * p][1] ^= fb[i][1] ^ o1;\n#else\n"
-         "          kt_mma::mma_s8_16832(pa[i][2 * p], fa[i], e0 & LO, "
+         "#if CUT_MMA\n            pa[i][2 * p][0] ^= fa[i][0] ^ e0;\n"
+         "            pb[i][2 * p][1] ^= fb[i][1] ^ o1;\n#else\n"
+         "            kt_mma::mma_s8_16832(pa[i][2 * p], fa[i], e0 & LO, "
          "e1 & LO);"),
-        ("          kt_mma::mma_s8_16832(pb[i][2 * p + 1], fb[i], o0, o1);",
-         "          kt_mma::mma_s8_16832(pb[i][2 * p + 1], fb[i], o0, o1);\n"
-         "#endif"),
+        ("            kt_mma::mma_s8_16832(pb[i][2 * p + 1], fb[i], o0, o1);",
+         "            kt_mma::mma_s8_16832(pb[i][2 * p + 1], fb[i], o0, o1);"
+         "\n#endif"),
     ],
 }
 # kernel: (library, {variant: compiler flags}); the GEMV's and the wgmma

@@ -13,7 +13,10 @@ mla_decode_fused routes a CUDA call by ``route``: bf16 operands take
 mla_decode_split_kernel (the cached rows split over blocks by
 ``decode_split_plan``, the current token in a block of its own, all merged
 in the same launch), float32 keeps the first version,
-mla_decode_fused_kernel.
+mla_decode_fused_kernel. mla_decode_attention routes by
+``attention_route``: bf16 operands take the same split kernel without the
+current-token block (mla_decode_split_kernel<false>, the same plan),
+float32 keeps the first version, mla_decode_attention_kernel.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ DECODE_MIN_SPAN = 64
 DECODE_MAX_SPLITS = 32
 DECODE_REC = 2 * DECODE_HEADS + DECODE_HEADS * KERNEL_R
 KERNEL_NAMES = {"split": "mla_decode_split_kernel"}
+ATTENTION_KERNEL_NAMES = {"split": "mla_decode_split_kernel<false>"}
 
 
 def route(dtype: torch.dtype) -> str:
@@ -49,6 +53,13 @@ def route(dtype: torch.dtype) -> str:
     (mla_decode_fused_kernel, the first version) for float32, whose card
     tests hold 1e-5 and which bf16 products could not."""
     return "split" if dtype == torch.bfloat16 else "fused"
+
+
+def attention_route(dtype: torch.dtype) -> str:
+    """The kernel of a CUDA mla_decode_attention call: "split"
+    (mla_decode_split_kernel<false>) for bf16 operands, "first"
+    (mla_decode_attention_kernel) for float32, as ``route``."""
+    return "split" if dtype == torch.bfloat16 else "first"
 
 
 def decode_split_plan(b: int, s: int, h: int, sms: int) -> tuple[int, int]:
@@ -223,21 +234,47 @@ def mla_decode_attention_ref(qn, qp, ckv, kpe, lengths, scale: float):
     return ctx.to(qn.dtype)
 
 
-def attention_launcher(qn, qp, ckv, kpe, lengths, scale: float):
+def attention_launcher(qn, qp, ckv, kpe, lengths, scale: float,
+                       kernel: str | None = None):
     """(launch, out) of a CUDA mla_decode_attention call; launch() runs
-    only the kernel."""
+    only the kernel. ``kernel`` ("split" or "first") overrides
+    ``attention_route``, for a measurement."""
     what = "mla_decode_attention"
     check_cuda_operands(what, qn.device, qn, qp, ckv, kpe, lengths)
     b, h, _ = qn.shape
+    smax = ckv.shape[1]
+    dev = qn.device
+    kernel = kernel or attention_route(qn.dtype)
     out = torch.empty_like(qn)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if kernel == "split":
+        if qn.dtype != torch.bfloat16:
+            raise ValueError(f"{what}: mla_decode_split_kernel takes "
+                             "bfloat16")
+        splits, span = decode_split_plan(b, smax, h, sm_count(dev))
+        pairs = b * -(-h // DECODE_HEADS)
+        part, cnt = scratch(dev, pairs * splits * DECODE_REC, pairs,
+                            "mla_decode_split")
+        split_fn = _build.lib("mla_decode").kt_mla_decode_attention_split
+
+        def launch_split():
+            err = split_fn(
+                qn.data_ptr(), qp.data_ptr(), ckv.data_ptr(), kpe.data_ptr(),
+                lengths.data_ptr(), b, h, smax, splits, span, float(scale),
+                part.data_ptr(), cnt.data_ptr(), out.data_ptr(), stream)
+            _build.check(err, what)
+
+        return launch_split, out
+    if h % KERNEL_HG:
+        raise ValueError(f"{what}: the first version takes H % {KERNEL_HG} "
+                         f"== 0; got H={h}")
     fn = _build.lib("mla_decode").kt_mla_decode_attention
 
     def launch():
         err = fn(
             qn.data_ptr(), qp.data_ptr(), ckv.data_ptr(), kpe.data_ptr(),
-            lengths.data_ptr(), b, h, ckv.shape[1], float(scale),
-            int(qn.dtype == torch.bfloat16), out.data_ptr(),
-            torch.cuda.current_stream(qn.device).cuda_stream,
+            lengths.data_ptr(), b, h, smax, float(scale),
+            int(qn.dtype == torch.bfloat16), out.data_ptr(), stream,
         )
         _build.check(err, what)
 
@@ -265,9 +302,9 @@ def mla_decode_attention(qn, qp, ckv, kpe, lengths, scale: float):
         return mla_decode_attention_ref(qn, qp, ckv, kpe, lengths, scale)
     if qn.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {qn.device}")
-    if (r, dr) != (KERNEL_R, KERNEL_DR) or h % KERNEL_HG:
-        raise ValueError(f"{what}: kernel takes R={KERNEL_R}, dr={KERNEL_DR}, "
-                         f"H % {KERNEL_HG} == 0; got R={r} dr={dr} H={h}")
+    if (r, dr) != (KERNEL_R, KERNEL_DR):
+        raise ValueError(f"{what}: kernel takes R={KERNEL_R}, dr={KERNEL_DR}; "
+                         f"got R={r} dr={dr}")
     dt = qn.dtype
     if dt not in (torch.float32, torch.bfloat16) or any(
             t.dtype != dt for t in (qp, ckv, kpe)):
@@ -275,7 +312,10 @@ def mla_decode_attention(qn, qp, ckv, kpe, lengths, scale: float):
                          "bfloat16")
     if lengths.dtype != torch.int32:
         raise ValueError(f"{what}: lengths must be int32")
-    launch, out = attention_launcher(qn, qp, ckv, kpe, lengths, scale)
+    kernel = attention_route(dt)
+    launch, out = attention_launcher(qn, qp, ckv, kpe, lengths, scale, kernel)
     launch()
     LAUNCHES[what] += 1
+    if kernel in ATTENTION_KERNEL_NAMES:
+        ROUTED_LAUNCHES[ATTENTION_KERNEL_NAMES[kernel]] += 1
     return out

@@ -11,8 +11,11 @@ They compute the same function; each builds its own row-tile map, and
 fixed rule: tensor cores for tiles of more than one row, split-K GEMVs for
 one-row tiles (w4a8_ffn_gemv_kernel for gate_up + GLU + requant, planned
 by ``ffn_gemv_plan``; w4a8_gemv_kernel for the down), the first version
-for the shapes those refuse. Bound on the card: the weight bytes of the
-experts the rows use.
+for the shapes those refuse. Whether the gate_up kernel quantizes x
+itself (no w4a8_prep launch): the GEMV by w4a8_matmul.gemv_folds, the
+tensor-core kernel at up to FFN_MMA_FOLD_MAX_ROWS rows (``ffn_folds``);
+the down reads the codes the gate_up's requant wrote. Bound on the card:
+the weight bytes of the experts the rows use.
 """
 
 from __future__ import annotations
@@ -29,13 +32,18 @@ from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
     MMA_BM,
     MMA_GROUPS,
     MMA_MIN_ROWS,
+    FOLD_MAX_GROUP,
     GEMV_MAX_ROWS,
     GEMV_UNIT,
     _check_x,
+    act_args,
+    activations,
     check_cuda_operands,
     check_w4a8_weight,
     dense_tiles,
     device_kind,
+    fold_rows,
+    gemv_folds,
     gemv_launcher,
     gemv_rows_per_chunk,
     gemv_takes,
@@ -44,8 +52,8 @@ from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
     launch_mma,
     launch_rows,
     lift,
+    mma_fold_fits,
     one_id,
-    prep_activations,
     row_tiles,
     scratch,
     sm_count,
@@ -61,6 +69,13 @@ MAX_DOWN_GROUP = 128  # one down group per block of the up kernel
 # w4a8_ffn_mma_kernel: tiles of MMA_BM rows, one down group of this many
 # columns a block
 FFN_MMA_DOWN_GROUP = 128
+# ... and it quantizes x itself at up to this many rows, where its A tile
+# fits beside its ring of FFN_MMA_STAGES groups (each of the I / 128 blocks
+# of a tile quantizes its rows again: the crossover on the H100, which
+# ops/cuda/fold_sweep.py and chip_smoke.py time, folded beside prep +
+# unfolded kernel)
+FFN_MMA_FOLD_MAX_ROWS = 8
+FFN_MMA_STAGES = 6
 FIRST_MR = 4  # rows a tile of the first version at more than one row
 
 
@@ -88,6 +103,31 @@ def ffn_route(m: int, entry: str, gs_up: int, gs_dn: int, inter: int,
             and inter % FFN_MMA_DOWN_GROUP == 0 and kdim % 32 == 0):
         return "mma"
     return "rows"
+
+
+def ffn_folds(kernel: str, m: int, kdim: int, gs_up: int) -> bool:
+    """Whether the gate_up kernel of a CUDA FFN call [m, kdim] routed to the
+    tensor cores (kernel "mma") folds the activation prep in (no w4a8_prep
+    launch): at up to FFN_MMA_FOLD_MAX_ROWS rows, at gate_up groups of up
+    to FOLD_MAX_GROUP, where its A tile fits beside its ring. The first
+    version never folds; the one-row gate_up's rule is gemv_folds
+    (ffn_gemv_call_folds). A pure function of the shape."""
+    return (kernel == "mma" and m <= FFN_MMA_FOLD_MAX_ROWS
+            and gs_up <= FOLD_MAX_GROUP
+            and mma_fold_fits(m, kdim, gs_up, FFN_MMA_STAGES,
+                              2 * FFN_MMA_DOWN_GROUP))
+
+
+def ffn_gemv_call_folds(rows: int, experts: int, inter: int, gs_dn: int,
+                        kdim: int, gs_up: int, sms: int) -> bool:
+    """gemv_folds of the one-row gate_up of a W4A8 FFN call of ``rows``
+    rows over ``experts`` experts (a dense call: 1 and 1), planned by
+    ffn_gemv_plan."""
+    rb = gemv_rows_per_chunk(rows, experts)
+    splits, _ = ffn_gemv_plan(inter, gs_dn, gemv_tile_count(rows, experts,
+                                                             rb),
+                              kdim // 2, gs_up // 2, sms)
+    return gemv_folds(rb, kdim // gs_up, splits, gs_up)
 
 
 def ffn_gemv_plan(inter: int, gs_dn: int, ntiles: int, k2: int, gs2: int,
@@ -314,13 +354,15 @@ class FfnLaunch:
         self.down()
 
 
-def gemv_up_launcher(what, prep, gate_up: QTensor, gs_dn: int,
-                     ids: torch.Tensor, act: str, mid):
+def gemv_up_launcher(what, x, gate_up: QTensor, gs_dn: int,
+                     ids: torch.Tensor, act: str, mid,
+                     fold: bool | None = None):
     """Checks a one-row-tile gate_up on a 3-D weight [E, K/2, 2I] with row
-    r through expert ids[r]; returns launch(), which runs only
+    r of x through expert ids[r]; returns launch(), which runs only
     w4a8_ffn_gemv_kernel (kt_w4a8_ffn_gemv, split by ffn_gemv_plan) and
-    writes the requantized activation ``mid`` (ca, cb, sa2, sb2, t2)."""
-    qa, qb, sa, sb, t = prep
+    writes the requantized activation ``mid`` (ca, cb, sa2, sb2, t2). The
+    kernel quantizes x itself where ``fold`` (default gemv_folds), else one
+    prep launch here makes its codes."""
     e, k2, n2x = gate_up.data.shape
     inter = n2x // 2
     gs2 = gate_up.group_size // 2
@@ -331,7 +373,7 @@ def gemv_up_launcher(what, prep, gate_up: QTensor, gs_dn: int,
                          f"16s (rows={r}, groups {2 * gs2} / {gs_dn})")
     if any(p.data_ptr() % 16 for p in (gate_up.data, gate_up.scales)):
         raise ValueError(f"{what}: the GEMV takes 16-byte aligned weights")
-    dev = qa.device
+    dev = mid[0].device
     ids = ids.to(torch.int32).contiguous()
     rb = gemv_rows_per_chunk(r, e)
     tiles = gemv_tile_count(r, e, rb)
@@ -341,17 +383,19 @@ def gemv_up_launcher(what, prep, gate_up: QTensor, gs_dn: int,
     if splits > 1:
         part, cnt = scratch(dev, r * splits * n2x, inter // gs_dn * tiles,
                             "w4a8_ffn_gemv")
+    if fold is None:
+        fold = gemv_folds(rb, k2 // gs2, splits, gate_up.group_size)
+    acts = activations(x, 2 * k2, gate_up.group_size, fold)
     fn = _build.lib("w4a8_ffn").kt_w4a8_ffn_gemv
-    tail = tuple(v.data_ptr() for v in mid)
-
-    def launch():
+    def launch():  # holds acts and mid (and their memory) while it lives
         err = fn(
-            qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-            t.data_ptr(), gate_up.data.data_ptr(), gate_up.scales.data_ptr(),
+            *act_args(acts), gate_up.data.data_ptr(),
+            gate_up.scales.data_ptr(),
             ids.data_ptr(), r, tiles, splits, gran, rb, k2, inter, k2 // gs2,
             gs2, gs_dn, ACTS[act],
             None if part is None else part.data_ptr(),
-            None if cnt is None else cnt.data_ptr(), *tail,
+            None if cnt is None else cnt.data_ptr(),
+            *(v.data_ptr() for v in mid),
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(err, what)
@@ -361,21 +405,27 @@ def gemv_up_launcher(what, prep, gate_up: QTensor, gs_dn: int,
 
 def ffn_launcher(x_rows, gate_up: QTensor, down: QTensor, kernel: str,
                  tiles, mr: int, act: str, out: torch.Tensor, what: str,
-                 ids=None) -> FfnLaunch:
+                 ids=None, fold: bool | None = None) -> FfnLaunch:
     """Checks and prepares a CUDA call on 3-D weights; returns the
     FfnLaunch of the two kernels ``kernel`` (ffn_route) names on the
     prepared operands, which writes ``out``. ``tiles`` is the row-tile map
     of both launches with up to ``mr`` rows a tile (MMA_BM for "mma"); a
     "gemv" call takes ``ids``, the rows' experts (ids = [0] for a dense
-    call of one row), and keys its tiles by expert on the card."""
+    call of one row), and keys its tiles by expert on the card. ``fold``
+    (default ffn_folds, gemv_folds for "gemv") says whether the gate_up
+    kernel quantizes x itself or reads the codes of one prep launch made
+    here."""
     r, kdim = x_rows.shape
     if kernel == "gemv" and (ids is None or ids.shape != (r,)):
         raise ValueError(f"{what}: the GEMVs take an expert a row")
+    if fold is None and kernel != "gemv":
+        fold = ffn_folds(kernel, r, kdim, gate_up.group_size)
+    if fold and kernel == "rows":
+        raise ValueError(f"{what}: the first version takes no x")
     inter = gate_up.out_features // 2
     gs1, gs_dn = gate_up.group_size, down.group_size
     check_cuda_operands(what, x_rows.device, x_rows, gate_up.data,
                         gate_up.scales, down.data, down.scales)
-    qa, qb, sa, sb, t = prep_activations(x_rows, kdim, gs1)
     dev = x_rows.device
     ng2 = inter // gs_dn
     ca = torch.empty(r, inter // 2, dtype=torch.int8, device=dev)
@@ -386,29 +436,33 @@ def ffn_launcher(x_rows, gate_up: QTensor, down: QTensor, kernel: str,
     mid = (ca, cb, sa2, sb2, t2)
     if kernel == "gemv":
         return FfnLaunch(
-            gemv_up_launcher(what + " (gate_up)", (qa, qb, sa, sb, t),
-                             gate_up, gs_dn, ids, act, mid),
+            gemv_up_launcher(what + " (gate_up)", x_rows, gate_up, gs_dn,
+                             ids, act, mid, fold),
             gemv_launcher(what + " (down)", mid, down, ids, out))
+    acts = activations(x_rows, kdim, gs1, fold)
     te, tr0, trs = tiles
     lib = _build.lib("w4a8_ffn")
-    head = (qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-            t.data_ptr(), gate_up.data.data_ptr(), gate_up.scales.data_ptr(),
-            te.data_ptr(), tr0.data_ptr(), trs.data_ptr(), te.shape[0])
+    weights = (gate_up.data.data_ptr(), gate_up.scales.data_ptr(),
+               te.data_ptr(), tr0.data_ptr(), trs.data_ptr(), te.shape[0])
     tail = (ca.data_ptr(), cb.data_ptr(), sa2.data_ptr(), sb2.data_ptr(),
             t2.data_ptr())
     if kernel == "mma":
+        arows = fold_rows(r) if fold else 0
+
         def up():
             return lib.kt_w4a8_ffn_mma(
-                *head, kdim // 2, inter, kdim // gs1, gs1 // 2, ACTS[act],
-                *tail, torch.cuda.current_stream(dev).cuda_stream)
+                *act_args(acts), *weights, arows, kdim // 2, inter,
+                kdim // gs1, gs1 // 2, ACTS[act], *tail,
+                torch.cuda.current_stream(dev).cuda_stream)
 
         def down_launch():
             launch_mma(what + " (down)", mid, down, tiles, out)
     else:
         def up():
             return lib.kt_w4a8_ffn_up(
-                *head, mr, kdim // 2, inter, kdim // gs1, gs1 // 2, gs_dn,
-                ACTS[act], *tail, torch.cuda.current_stream(dev).cuda_stream)
+                *(v.data_ptr() for v in acts), *weights, mr, kdim // 2,
+                inter, kdim // gs1, gs1 // 2, gs_dn, ACTS[act], *tail,
+                torch.cuda.current_stream(dev).cuda_stream)
 
         def down_launch():
             launch_rows(lib.kt_w4a8_ffn_down, what + " (down)", mid, down,
@@ -438,39 +492,40 @@ def _route(x, gate_up: QTensor, down: QTensor, entry: str) -> str:
 
 
 def gathered_launcher(x_rows, gate_up, down, ids, act="silu",
-                      kernel: str | None = None):
+                      kernel: str | None = None, fold: bool | None = None):
     """(launch, out) of a CUDA gathered_w4a8_ffn call; ``kernel`` ("rows")
-    overrides ffn_route, for a measurement."""
+    overrides ffn_route and ``fold`` ffn_folds, for a measurement."""
     out = torch.empty_like(x_rows)
     kernel = kernel or _route(x_rows, gate_up, down, "gathered")
     tiles = None if kernel == "gemv" else row_tiles(ids)
     return ffn_launcher(x_rows, gate_up, down, kernel, tiles, 1, act, out,
-                        "gathered_w4a8_ffn", ids), out
+                        "gathered_w4a8_ffn", ids, fold), out
 
 
-def dense_launcher(x2, gate_up, down, act="silu", kernel: str | None = None):
+def dense_launcher(x2, gate_up, down, act="silu", kernel: str | None = None,
+                   fold: bool | None = None):
     """(launch, out) of a CUDA dense_w4a8_ffn call; ``kernel`` ("rows")
-    overrides ffn_route, for a measurement."""
+    overrides ffn_route and ``fold`` ffn_folds, for a measurement."""
     m = x2.shape[0]
     out = torch.empty_like(x2)
     kernel = kernel or _route(x2, gate_up, down, "dense")
     mr = MMA_BM if kernel == "mma" else 1 if m == 1 else FIRST_MR
     return ffn_launcher(x2, lift(gate_up), lift(down), kernel,
                         dense_tiles(m, mr, x2.device), mr, act, out,
-                        "dense_w4a8_ffn", one_id(x2.device)), out
+                        "dense_w4a8_ffn", one_id(x2.device), fold), out
 
 
 def grouped_launcher(x_sorted, gate_up, down, group_sizes, act="silu",
-                     kernel: str | None = None):
+                     kernel: str | None = None, fold: bool | None = None):
     """(launch, out) of a CUDA grouped_w4a8_ffn call; ``kernel`` ("rows")
-    overrides ffn_route, for a measurement."""
+    overrides ffn_route and ``fold`` ffn_folds, for a measurement."""
     m = x_sorted.shape[0]
     out = torch.zeros_like(x_sorted)
     kernel = kernel or _route(x_sorted, gate_up, down, "grouped")
     mr = MMA_BM if kernel == "mma" else FIRST_MR
     return ffn_launcher(x_sorted, gate_up, down, kernel,
                         grouped_tiles(group_sizes, m, mr), mr, act, out,
-                        "grouped_w4a8_ffn"), out
+                        "grouped_w4a8_ffn", fold=fold), out
 
 
 def gathered_w4a8_ffn(x_rows: torch.Tensor, gate_up: QTensor, down: QTensor,

@@ -13,9 +13,15 @@ ktransformers_tpu/ops/pallas/w4a8_matmul.py:
 gathered call of up to GEMV_MAX_ROWS rows; w4a8_mma_kernel (s8 tensor
 cores, tiles of MMA_BM rows) for dense and grouped calls of at least
 MMA_MIN_ROWS rows at group 128 or 96; w4a8_rows_kernel (the first version,
-__dp4a) for the shapes those refuse. Bound on the card at decode: the
-weight bytes of the experts the rows use (K/2 * N int8 + ng * N f32 scales
-each); see the source notes in csrc/w4a8_gemv.cuh and csrc/w4a8_mma.cuh.
+__dp4a) for the shapes those refuse. ``gemv_folds`` and ``folds`` say
+whether the kernel quantizes x itself (the activation prep of
+quant/w4a8.py:w4a8_prep folded in: no prep launch, no code tensors) or
+reads the codes of one kt_w4a8_prep launch: the GEMV where a block
+quantizes at most FOLD_MAX_UNITS (row, group) units, the tensor-core
+kernel at up to MMA_FOLD_MAX_ROWS rows; the first version never. Bound on
+the card at decode: the weight bytes of
+the experts the rows use (K/2 * N int8 + ng * N f32 scales each); see the
+source notes in csrc/w4a8_gemv.cuh and csrc/w4a8_mma.cuh.
 
 Also holds what the other wrappers share: the row-tile maps (a tile is up
 to ``mr`` rows that use one expert), the plain W4A8 group dot, the SM count
@@ -41,6 +47,23 @@ _DENSE_TILES: dict = {}
 MMA_BM = 64
 MMA_MIN_ROWS = 2
 MMA_GROUPS = (96, 128)
+# w4a8_mma_kernel quantizes x itself at up to this many rows, where its A
+# tile (the rows rounded up to 16, every scale group) fits beside its ring
+# of MMA_STAGES groups: each of its blocks quantizes the tile again, which
+# the ring's first copies hide at a few rows and which costs more than the
+# prep launch it saves from 5 rows on (the crossover on the H100:
+# ops/cuda/fold_sweep.py and chip_smoke.py time both on the same operands)
+MMA_FOLD_MAX_ROWS = 4
+MMA_STAGES = 4
+# the shared memory a block may take on the H100 (227 KB)
+SMEM_MAX = 232448
+# the largest scale group a kernel quantizes itself (two values a lane of
+# each half group: csrc/w4a8_core.cuh:prep_units)
+FOLD_MAX_GROUP = 128
+# a folded GEMV block quantizes at most this many (row, scale group) units
+# of its split: one round of its four warps, four units each
+# (csrc/w4a8_gemv.cuh:split_acts); more outlast the prep launch they save
+FOLD_MAX_UNITS = 16
 # w4a8_gemv_kernel: blocks of GEMV_BN columns and GEMV_LANES row lanes,
 # storage rows in units of GEMV_UNIT (one 16-byte load a thread each), at
 # most GEMV_MAX_ROWS rows a call (one id a thread of the tile scan); the
@@ -69,6 +92,64 @@ def route(m: int, entry: str, group_size: int, n: int) -> str:
     if m < MMA_MIN_ROWS or group_size not in MMA_GROUPS or n % 16:
         return "rows"
     return "mma"
+
+
+def fold_rows(m: int) -> int:
+    """Rows of the A tile a folded tensor-core launch of m rows quantizes
+    into: a tile's rows (at most MMA_BM) rounded up to 16."""
+    return min(MMA_BM, -(-m // 16) * 16)
+
+
+def fold_bytes(arows: int, kdim: int, group_size: int) -> int:
+    """Shared memory of a folded A tile (csrc/w4a8_mma.cuh:fold_bytes): qa
+    and qb rows of K/2 bytes (an odd number of 16-byte chunks) and sa, sb,
+    t per row and scale group."""
+    k2 = kdim // 2
+    ld = k2 if (k2 // 16) % 2 else k2 + 16
+    return 2 * arows * ld + 12 * arows * (kdim // group_size)
+
+
+def mma_fold_fits(m: int, kdim: int, group_size: int, stages: int,
+                  bn: int, limit: int = SMEM_MAX) -> bool:
+    """Whether a folded A tile of m rows fits beside a tensor-core ring of
+    ``stages`` groups of weight bytes [gs/2][bn] and bn scales within
+    ``limit`` bytes of shared memory."""
+    ring = stages * (group_size // 2 * bn + 4 * bn)
+    return ring + fold_bytes(fold_rows(m), kdim, group_size) <= limit
+
+
+def folds(kernel: str, m: int, kdim: int, group_size: int) -> bool:
+    """Whether a CUDA call [m, kdim] routed to the tensor-core kernel
+    (kernel "mma") folds the activation prep in, quantizing x inside the
+    kernel (no w4a8_prep launch): at up to MMA_FOLD_MAX_ROWS rows, at
+    scale groups of up to FOLD_MAX_GROUP, where its A tile leaves room for
+    two blocks an SM (at K = 2048; not at K = 10944). The first version
+    never folds; the GEMV's rule is gemv_folds. A pure function of the
+    shape, as the route is."""
+    return (kernel == "mma" and m <= MMA_FOLD_MAX_ROWS
+            and group_size <= FOLD_MAX_GROUP
+            and mma_fold_fits(m, kdim, group_size, MMA_STAGES, 64,
+                              SMEM_MAX // 2 - 1024))
+
+
+def gemv_folds(rb: int, ng: int, splits: int, group_size: int) -> bool:
+    """Whether a split-K GEMV launch (w4a8_gemv_kernel, w4a8_ffn_gemv_kernel)
+    of tiles of rb rows and ``splits`` splits of ng scale groups folds the
+    prep in: at groups of up to FOLD_MAX_GROUP, where a block quantizes at
+    most FOLD_MAX_UNITS (row, group) units, rb * ceil(ng / splits). A pure
+    function of the shape and the SM count, as its plan is."""
+    return (group_size <= FOLD_MAX_GROUP
+            and rb * -(-ng // splits) <= FOLD_MAX_UNITS)
+
+
+def gemv_call_folds(n: int, rows: int, experts: int, kdim: int,
+                    group_size: int, sms: int) -> bool:
+    """gemv_folds of a w4a8_gemv_kernel call of ``rows`` rows over
+    ``experts`` experts of [K/2, N] (a dense call: rows = experts = 1)."""
+    rb = gemv_rows_per_chunk(rows, experts)
+    splits, _ = w4a8_gemv_plan(n, gemv_tile_count(rows, experts, rb),
+                               kdim // 2, group_size // 2, sms)
+    return gemv_folds(rb, kdim // group_size, splits, group_size)
 
 
 _SMS: dict = {}
@@ -285,17 +366,35 @@ def _check_x(x: torch.Tensor, kdim: int, what: str) -> None:
         raise ValueError(f"{what}: x must be float32 or bfloat16")
 
 
-def launch_mma(what, prep, w: QTensor, tiles, out):
-    """Launch w4a8_mma_kernel (kt_w4a8_mma)."""
-    qa, qb, sa, sb, t = prep
+X_DTYPES = {torch.float32: 1, torch.bfloat16: 2}  # the entries' x_dtype
+
+
+def act_args(acts) -> tuple:
+    """The activation arguments of a kernel entry (qa, qb, sa, sb, t, x,
+    x_dtype): the codes of a prep launch (a tuple of five tensors), or the
+    rows x themselves (a tensor) for a launch that folds the prep in."""
+    if isinstance(acts, torch.Tensor):
+        return (None,) * 5 + (acts.data_ptr(), X_DTYPES[acts.dtype])
+    return tuple(v.data_ptr() for v in acts) + (None, 0)
+
+
+def activations(x2: torch.Tensor, kdim: int, group_size: int, fold: bool):
+    """What a CUDA launch reads: x2 itself where it folds the prep in, else
+    the codes of one prep launch."""
+    return x2 if fold else prep_activations(x2, kdim, group_size)
+
+
+def launch_mma(what, acts, w: QTensor, tiles, out):
+    """Launch w4a8_mma_kernel (kt_w4a8_mma) on ``acts`` (act_args: x folds
+    the prep in, into an A tile of fold_rows rows)."""
     te, tr0, trs = tiles
     k2, n = w.data.shape[-2], w.data.shape[-1]
     gs2 = w.group_size // 2
+    arows = fold_rows(out.shape[0]) if isinstance(acts, torch.Tensor) else 0
     err = _build.lib("w4a8_matmul").kt_w4a8_mma(
-        qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-        t.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
+        *act_args(acts), w.data.data_ptr(), w.scales.data_ptr(),
         te.data_ptr(), tr0.data_ptr(), trs.data_ptr(),
-        te.shape[0], k2, n, k2 // gs2, gs2,
+        te.shape[0], arows, k2, n, k2 // gs2, gs2,
         int(out.dtype == torch.bfloat16), out.data_ptr(),
         torch.cuda.current_stream(out.device).cuda_stream,
     )
@@ -305,12 +404,15 @@ def launch_mma(what, prep, w: QTensor, tiles, out):
 _ONE_ID: dict = {}
 
 
-def gemv_launcher(what, prep, w: QTensor, ids: torch.Tensor, out):
-    """Checks a CUDA call on a 3-D weight w [E, K/2, N] with row r through
-    expert ids[r] (a dense call: ids = [0] on one expert); returns launch(),
-    which runs only w4a8_gemv_kernel (kt_w4a8_gemv, split by
-    w4a8_gemv_plan) and writes ``out`` [R, N]."""
-    qa, qb, sa, sb, t = prep
+def gemv_launcher(what, x, w: QTensor, ids: torch.Tensor, out,
+                  fold: bool | None = None):
+    """Checks a CUDA call on a 3-D weight w [E, K/2, N] with row r of x
+    through expert ids[r] (a dense call: ids = [0] on one expert); returns
+    launch(), which runs only w4a8_gemv_kernel (kt_w4a8_gemv, split by
+    w4a8_gemv_plan) and writes ``out`` [R, N]. x is the rows (the kernel
+    quantizes them itself where ``fold``, default gemv_folds, else one prep
+    launch here makes their codes) or the codes themselves (a tuple: the
+    FFN's down)."""
     e, k2, n = w.data.shape
     gs2 = w.group_size // 2
     r = ids.shape[0]
@@ -329,12 +431,17 @@ def gemv_launcher(what, prep, w: QTensor, ids: torch.Tensor, out):
     if splits > 1:
         part, cnt = scratch(dev, r * splits * n, -(-n // GEMV_BN) * tiles,
                             "w4a8_gemv")
+    if isinstance(x, torch.Tensor):
+        if fold is None:
+            fold = gemv_folds(rb, k2 // gs2, splits, w.group_size)
+        acts = activations(x, w.in_features, w.group_size, fold)
+    else:
+        acts = x
     fn = _build.lib("w4a8_matmul").kt_w4a8_gemv
 
-    def launch():
+    def launch():  # holds acts (and so their memory) while it lives
         err = fn(
-            qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-            t.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
+            *act_args(acts), w.data.data_ptr(), w.scales.data_ptr(),
             ids.data_ptr(), r, tiles, splits, gran, rb, k2, n, k2 // gs2,
             gs2,
             int(out.dtype == torch.bfloat16),
@@ -356,7 +463,8 @@ def one_id(device) -> torch.Tensor:
 
 
 def launch_rows(fn, what, prep, w: QTensor, tiles, mr: int, out):
-    """Launch a rows kernel (kt_w4a8_rows / kt_w4a8_ffn_down)."""
+    """Launch a rows kernel (kt_w4a8_rows / kt_w4a8_ffn_down) on the codes
+    of a prep launch."""
     qa, qb, sa, sb, t = prep
     te, tr0, trs = tiles
     k2, n = w.data.shape[-2], w.data.shape[-1]
@@ -403,29 +511,34 @@ def prep_activations(x2: torch.Tensor, kdim: int, group_size: int):
 
 
 def dense_w4a8_launcher(x2: torch.Tensor, w: QTensor,
-                        kernel: str | None = None):
+                        kernel: str | None = None, fold: bool | None = None):
     """Checks and prepares a CUDA call; returns (launch, out), where
     launch() runs only the kernel on the prepared operands (so a caller
-    can time the kernel apart from the activation prep). ``kernel``
-    ("rows", "gemv" or "mma") overrides ``route``, for a measurement."""
+    can time the kernel apart from a prep launch). ``kernel`` ("rows",
+    "gemv" or "mma") overrides ``route`` and ``fold`` overrides ``folds`` /
+    ``gemv_folds``, for a measurement (the first version never folds)."""
     what = "dense_w4a8_matmul"
     check_cuda_operands(what, x2.device, x2, w.data, w.scales)
     m = x2.shape[0]
-    prep = prep_activations(x2, w.in_features, w.group_size)
-    out = torch.empty(m, w.out_features, dtype=x2.dtype, device=x2.device)
     kernel = kernel or route(m, "dense", w.group_size, w.out_features)
-    if kernel == "mma":
-        tiles = dense_tiles(m, MMA_BM, x2.device)
-        return lambda: launch_mma(what, prep, w, tiles, out), out
+    out = torch.empty(m, w.out_features, dtype=x2.dtype, device=x2.device)
     if kernel == "gemv":
         if m != 1:
             raise ValueError(f"{what}: the GEMV takes one row, got {m}")
-        return gemv_launcher(what, prep, lift(w), one_id(x2.device),
-                             out), out
+        return gemv_launcher(what, x2, lift(w), one_id(x2.device), out,
+                             fold), out
+    if fold is None:
+        fold = folds(kernel, m, w.in_features, w.group_size)
+    if fold and kernel == "rows":
+        raise ValueError(f"{what}: the first version takes no x")
+    acts = activations(x2, w.in_features, w.group_size, fold)
+    if kernel == "mma":
+        tiles = dense_tiles(m, MMA_BM, x2.device)
+        return lambda: launch_mma(what, acts, w, tiles, out), out
     mr = 1 if m == 1 else (4 if m <= 4 else 8)
     fn = _build.lib("w4a8_matmul").kt_w4a8_rows
     tiles = dense_tiles(m, mr, x2.device)
-    return lambda: launch_rows(fn, what, prep, w, tiles, mr, out), out
+    return lambda: launch_rows(fn, what, acts, w, tiles, mr, out), out
 
 
 def dense_w4a8_matmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
@@ -499,32 +612,39 @@ def rows_launcher(x_rows: torch.Tensor, w: QTensor, tiles, mr: int,
 
 
 def gathered_launcher(x_rows: torch.Tensor, w: QTensor, ids: torch.Tensor,
-                      kernel: str | None = None):
+                      kernel: str | None = None, fold: bool | None = None):
     what = "gathered_w4a8_matmul"
     out = torch.empty(x_rows.shape[0], w.out_features, dtype=x_rows.dtype,
                       device=x_rows.device)
-    if (kernel or route(x_rows.shape[0], "gathered", w.group_size,
-                        w.out_features)) == "gemv":
+    kernel = kernel or route(x_rows.shape[0], "gathered", w.group_size,
+                             w.out_features)
+    if kernel == "gemv":
         check_cuda_operands(what, x_rows.device, x_rows, w.data, w.scales,
                             ids)
-        prep = prep_activations(x_rows, w.in_features, w.group_size)
-        return gemv_launcher(what, prep, w, ids, out), out
+        return gemv_launcher(what, x_rows, w, ids, out, fold), out
+    if fold:
+        raise ValueError(f"{what}: the first version takes no x")
     return rows_launcher(x_rows, w, row_tiles(ids), 1, out, what), out
 
 
 def grouped_launcher(x_sorted: torch.Tensor, w: QTensor,
-                     group_sizes: torch.Tensor, kernel: str | None = None):
+                     group_sizes: torch.Tensor, kernel: str | None = None,
+                     fold: bool | None = None):
     what = "grouped_w4a8_matmul"
     m = x_sorted.shape[0]
     out = torch.zeros(m, w.out_features, dtype=x_sorted.dtype,
                       device=x_sorted.device)
-    if (kernel or route(m, "grouped", w.group_size, w.out_features)) \
-            == "mma":
+    kernel = kernel or route(m, "grouped", w.group_size, w.out_features)
+    if kernel == "mma":
         check_cuda_operands(what, x_sorted.device, x_sorted, w.data,
                             w.scales)
-        prep = prep_activations(x_sorted, w.in_features, w.group_size)
+        if fold is None:
+            fold = folds(kernel, m, w.in_features, w.group_size)
+        acts = activations(x_sorted, w.in_features, w.group_size, fold)
         tiles = grouped_tiles(group_sizes, m, MMA_BM)
-        return lambda: launch_mma(what, prep, w, tiles, out), out
+        return lambda: launch_mma(what, acts, w, tiles, out), out
+    if fold:
+        raise ValueError(f"{what}: the first version takes no x")
     tiles = grouped_tiles(group_sizes, m, GROUPED_MR)
     return rows_launcher(x_sorted, w, tiles, GROUPED_MR, out, what), out
 
@@ -536,8 +656,8 @@ def gathered_w4a8_matmul(x_rows: torch.Tensor, w: QTensor,
     routed experts' bytes are read, once however many rows share an expert
     (the GEMV's tiles are keyed by expert). [R, N] in x_rows.dtype.
 
-    CUDA tensors launch csrc/w4a8_matmul.cu (after one w4a8_prep launch);
-    CPU tensors take gathered_w4a8_matmul_ref."""
+    CUDA tensors launch csrc/w4a8_matmul.cu (the GEMV quantizes x
+    itself); CPU tensors take gathered_w4a8_matmul_ref."""
     what = "gathered_w4a8_matmul"
     check_w4a8_weight(w, 3, what)
     _check_x(x_rows, w.in_features, what)

@@ -111,7 +111,36 @@ Phases (any failure exits non-zero before the final line):
             per-layer remat): a first step and 4 timed steps through
             Trainer.train_step, finite losses, a frozen base, adapters that
             moved, launches per step held to the counts the code implies,
-            peak memory, and one profiled step.
+            peak memory, and one profiled step;
+13. v3 kernels: DeepSeek-V3's widths (hidden 7168, 128 MLA heads, 256
+            experts top-8, q_lora 1536; v3_cfg): row 1 at M = 1, 8, 256
+            and 264 (qkv_a 7168 -> 2112, q_b 1536 -> 24576, o_proj 16384
+            -> 7168, lm_head 7168 -> 129280), row 3 at the same M (shared
+            expert I = 2048, dense MLP I = 18432), rows 7-8 (the routed experts, which the fused
+            FFN's budget refuses: 8 and 64 gathered rows, 4096 grouped rows
+            over 256 experts), row 5 at H = 128 with V3's softmax scale,
+            rows 12 and 14 at H = 128; each against its plain version, as
+            phase 3;
+14. v3 parity: DeepSeek-V3 at full width cut to 2 layers (one dense, one
+            MoE), W4A8, an 8-token prompt and 4 decode steps card vs CPU
+            (held as ``w4a8``; a row past NEAR_TIE only where its token's
+            routed experts differ between the devices); DeepSeek-V2-Lite's 2-layer model with
+            unquantized float32 experts (the plain expert products of
+            ops/moe.py on both devices), held to PARITY_TOL; the HF import
+            (hf_import): DeepSeek-V2-Lite's full width at depth 2 as
+            HF-named tensors in a plain nn.Module tree, through
+            TorchModelProvider -> build_params(int4_g) on both devices (the
+            same bits; the host quantizes for both, so this holds the move
+            to the card) -> prepare_params -> Generator, logits held as
+            ``w4a8``;
+15. v3 serve: DeepSeek-V3 cut to 6 layers (3 dense, 3 MoE; W4A8, bf16
+            absorbed mats): a Generator answering 2 requests of 512 + 32
+            tokens, a ServeEngine answering the 8 requests of phase 6 at
+            depth 3 (near-tie V3_NEAR_TIE), the four profiled steps,
+            launches per step held to V3_STEP_LAUNCHES /
+            V3_ENGINE_STEP_LAUNCHES; then the same 6 layers with int8
+            weights: one Generator request and the ServeEngine's 8 held
+            to the Generator at NEAR_TIE.
 Prints a kernels JSON line (the eighteen wrappers, then the thirteen
 redesigned kernels, whose launches are those of their wrappers' calls
 that took them; the MLA kernels must have launched on the single-user
@@ -119,7 +148,8 @@ that took them; the MLA kernels must have launched on the single-user
 parameter sets, mla_decode_split_kernel<false> on the int8 single-user
 path (its last request decodes with the fused decode off), the FFN's
 one-row gate_up on both W4A8 decode paths, the GQA kernels on Mixtral's
-paged path; w4a8_ffn_gemv_kernel's entry gives the gate_up half's times
+paged path, the MLA kernels and both W4A8 matmul kernels on DeepSeek-V3's
+two paths; w4a8_ffn_gemv_kernel's entry gives the gate_up half's times
 and bound; a W4A8 entry also its "fold": the folded kernel beside prep +
 unfolded kernel), the card line, and as
 the last line
@@ -412,6 +442,149 @@ def draw(seed: int):
     return rd, rn, w
 
 
+def ffn_up(x, gu, dn, row_expert, used, library=None):
+    """check()'s ``up`` of an FFN call on one-row tiles: the gate_up
+    half's plain version, its bytes (the gate_up codes and scales of
+    the experts used, x in, the requantized codes out) and int8
+    operations, and its library yardstick; and the down half's bytes
+    (the down codes and scales of the experts used, the requantized
+    codes in, bf16 out) and operations."""
+    from ktransformers_tpu_torch.ops.cuda import w4a8_ffn as F
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+
+    r, k = x.shape
+    inter = gu.out_features // 2
+    gs_dn = dn.group_size
+    gu3 = MM.lift(gu) if gu.data.dim() == 2 else gu
+    dn3 = MM.lift(dn) if dn.data.dim() == 2 else dn
+    mid = r * (inter + 12 * (inter // gs_dn))
+    return dict(
+        plain=lambda: F.gate_up_ref(x, gu3, gs_dn, row_expert),
+        bytes=used * nbytes(gu3.data[0], gu3.scales[0]) + nbytes(x)
+        + mid, ops=2 * r * 2 * inter * k, library=library,
+        down_bytes=used * nbytes(dn3.data[0], dn3.scales[0]) + mid
+        + r * k * 2, down_ops=2 * r * inter * k)
+
+
+def dense_w4a8_check(check, x, wt, label, sms, main=False,
+                     kernel_main=False):
+    """Row 1 (dense_w4a8_matmul) on x [M, K] and the W4A8 weight wt [K, N]
+    through check(): held to its plain version, timed beside the first
+    version where the route takes a redesigned kernel, folded and
+    unfolded, with torch.matmul on the bf16-dequantized weight as the
+    library yardstick."""
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+    from ktransformers_tpu_torch.quant.formats import dequantize
+
+    m, k = x.shape
+    n = wt.out_features
+    wdq = dequantize(wt, torch.bfloat16)
+    check("dense_w4a8_matmul", label, 1e-2,
+          lambda: MM.dense_w4a8_matmul(x, wt),
+          lambda: MM.w4a8_matmul_ref(x, wt),
+          lambda: MM.dense_w4a8_launcher(x, wt),
+          nbytes(x, wt.data, wt.scales) + m * n * 2, 2 * m * n * k,
+          INT8_OPS_PER_S, library=lambda: torch.matmul(x, wdq), main=main,
+          kernel_main=kernel_main, plain_iters=2 if m > 64 else 5,
+          fold=fold_pair(
+              lambda f: MM.dense_w4a8_launcher(x, wt, None, f),
+              lambda: MM.prep_activations(x, k, wt.group_size),
+              MM.gemv_call_folds(n, 1, 1, k, wt.group_size, sms)
+              if m == 1 else MM.folds("mma", m, k, wt.group_size),
+              m == 1 or MM.mma_fold_fits(m, k, wt.group_size,
+                                         MM.MMA_STAGES, 64)),
+          **routed(W4A8_ROUTES, MM.route(m, "dense", wt.group_size, n),
+                   lambda: MM.dense_w4a8_launcher(x, wt, "rows")))
+
+
+def dense_ffn_check(check, x, sgu, sdn, label, sms, main=False):
+    """Row 3 (dense_w4a8_ffn) on x [M, K], gate_up [K, 2I] and down [I, K]
+    through check(); a one-row call's gate_up half is timed apart, with
+    torch.matmul on the bf16-dequantized gate_up (no GLU, no requant) as
+    its library yardstick."""
+    from ktransformers_tpu_torch.ops.cuda import w4a8_ffn as F
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+    from ktransformers_tpu_torch.quant.formats import dequantize
+
+    m, d = x.shape
+    inter = sdn.in_features
+    gs = sgu.group_size
+    route = F.ffn_route(m, "dense", gs, sdn.group_size, inter, d)
+    gdq = dequantize(sgu, torch.bfloat16) if route == "gemv" else None
+    check("dense_w4a8_ffn", label, 3e-2,
+          lambda: F.dense_w4a8_ffn(x, sgu, sdn),
+          lambda: F.dense_w4a8_ffn_ref(x, sgu, sdn),
+          lambda: F.dense_launcher(x, sgu, sdn),
+          nbytes(sgu.data, sgu.scales, sdn.data, sdn.scales)
+          + 2 * nbytes(x), 2 * m * 3 * d * inter, INT8_OPS_PER_S,
+          main=main, plain_iters=2 if m > 64 else 5,
+          up=None if gdq is None else ffn_up(
+              x, sgu, sdn, torch.zeros(1, dtype=torch.int64,
+                                       device=x.device),
+              1, lambda: torch.matmul(x, gdq)),
+          fold=fold_pair(
+              lambda fo: F.dense_launcher(x, sgu, sdn, "silu", None, fo),
+              lambda: MM.prep_activations(x, d, gs),
+              F.ffn_gemv_call_folds(1, 1, inter, sdn.group_size, d, gs, sms)
+              if route == "gemv" else F.ffn_folds(route, m, d, gs),
+              route == "gemv" or MM.mma_fold_fits(
+                  m, d, gs, F.FFN_MMA_STAGES, 256)),
+          **routed(FFN_ROUTES, route,
+                   lambda: F.dense_launcher(x, sgu, sdn, "silu", "rows")))
+
+
+def gathered_mm_check(check, x, wt, ids, label, main=False):
+    """Row 7 (gathered_w4a8_matmul): row r of x through expert ids[r] of
+    wt [E, K, N]. Bound: x, the codes and scales of the experts the rows
+    use and the output over the memory rate, against 2 R N K over the int8
+    peak. No library yardstick: no single PyTorch call gathers an expert
+    per row."""
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+
+    rows, k = x.shape
+    e, n = wt.data.shape[0], wt.out_features
+    used = int(torch.unique(ids).numel())
+    check("gathered_w4a8_matmul", label, 1e-2,
+          lambda: MM.gathered_w4a8_matmul(x, wt, ids),
+          lambda: MM.gathered_w4a8_matmul_ref(x, wt, ids),
+          lambda: MM.gathered_launcher(x, wt, ids),
+          nbytes(x) + used * nbytes(wt.data[0], wt.scales[0]) + rows * n * 2,
+          2 * rows * n * k, INT8_OPS_PER_S, main=main, plain_iters=3,
+          fold=fold_pair(
+              lambda f: MM.gathered_launcher(x, wt, ids, None, f),
+              lambda: MM.prep_activations(x, k, wt.group_size),
+              MM.gemv_call_folds(n, rows, e, k, wt.group_size,
+                                 MM.sm_count(x.device))),
+          **routed(W4A8_ROUTES,
+                   MM.route(rows, "gathered", wt.group_size, n),
+                   lambda: MM.gathered_launcher(x, wt, ids, "rows")))
+
+
+def grouped_mm_check(check, x, wt, sizes, label, library=None, main=False):
+    """Row 8 (grouped_w4a8_matmul): x [M, K] sorted by expert with the
+    group sizes ``sizes`` through wt [E, K, N]; bound as row 7 over the
+    experts with rows; ``library`` the grouped_mm yardstick or None."""
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+
+    rows, k = x.shape
+    n = wt.out_features
+    used = int((sizes > 0).sum())
+    check("grouped_w4a8_matmul", label, 1e-2,
+          lambda: MM.grouped_w4a8_matmul(x, wt, sizes),
+          lambda: MM.grouped_w4a8_matmul_ref(x, wt, sizes),
+          lambda: MM.grouped_launcher(x, wt, sizes),
+          nbytes(x) + used * nbytes(wt.data[0], wt.scales[0]) + rows * n * 2,
+          2 * rows * n * k, INT8_OPS_PER_S, library=library, main=main,
+          plain_iters=2, iters=10, fold=fold_pair(
+              lambda f: MM.grouped_launcher(x, wt, sizes, None, f),
+              lambda: MM.prep_activations(x, k, wt.group_size),
+              MM.folds(MM.route(rows, "grouped", wt.group_size, n), rows, k,
+                       wt.group_size),
+              MM.mma_fold_fits(rows, k, wt.group_size, MM.MMA_STAGES, 64)),
+          **routed(W4A8_ROUTES, MM.route(rows, "grouped", wt.group_size, n),
+                   lambda: MM.grouped_launcher(x, wt, sizes, "rows")))
+
+
 def kernel_checks(rows: list, entries: dict) -> None:
     """The first twelve kernels at the DeepSeek-V2-Lite shapes (see
     make_check)."""
@@ -425,10 +598,8 @@ def kernel_checks(rows: list, entries: dict) -> None:
         precompute_rope_tables,
         rope_rotation_matrix,
     )
-    from ktransformers_tpu_torch.quant.formats import dequantize
 
     dev = torch.device("cuda")
-    bf = torch.bfloat16
     check = make_check(rows, entries)
     rd, rn, w = draw(1234)
     sms = MM.sm_count(dev)
@@ -484,51 +655,13 @@ def kernel_checks(rows: list, entries: dict) -> None:
         row1.append((SFT_SEQ, k, n, f"sft {what} M={SFT_SEQ}", ""))
     for m, k, n, label, main in row1:
         wt, x = w((k, n)), rn(m, k)
-        wdq = dequantize(wt, bf)
-        check("dense_w4a8_matmul", label, 1e-2,
-              lambda: MM.dense_w4a8_matmul(x, wt),
-              lambda: MM.w4a8_matmul_ref(x, wt),
-              lambda: MM.dense_w4a8_launcher(x, wt),
-              nbytes(x, wt.data, wt.scales) + m * n * 2, 2 * m * n * k,
-              INT8_OPS_PER_S, library=lambda: torch.matmul(x, wdq),
-              main=main == "main",
-              kernel_main=main in ("main", "kernel_main"),
-              plain_iters=2 if m > 64 else 5,
-              fold=fold_pair(
-                  lambda f: MM.dense_w4a8_launcher(x, wt, None, f),
-                  lambda: MM.prep_activations(x, k, wt.group_size),
-                  MM.gemv_call_folds(n, 1, 1, k, wt.group_size, sms)
-                  if m == 1 else MM.folds("mma", m, k, wt.group_size),
-                  m == 1 or MM.mma_fold_fits(m, k, wt.group_size,
-                                             MM.MMA_STAGES, 64)),
-              **routed(W4A8_ROUTES,
-                       MM.route(m, "dense", wt.group_size, n),
-                       lambda: MM.dense_w4a8_launcher(x, wt, "rows")))
-        del wdq, wt
+        dense_w4a8_check(check, x, wt, label, sms, main=main == "main",
+                         kernel_main=main in ("main", "kernel_main"))
+        del wt
 
     e, d, f = 64, 2048, 1408
     gu, dn = w((e, d, 2 * f)), w((e, f, d))
     per_expert = nbytes(gu.data[0], gu.scales[0], dn.data[0], dn.scales[0])
-
-    def ffn_up(x, gu, dn, row_expert, used, library=None):
-        """check()'s ``up`` of an FFN call on one-row tiles: the gate_up
-        half's plain version, its bytes (the gate_up codes and scales of
-        the experts used, x in, the requantized codes out) and int8
-        operations, and its library yardstick; and the down half's bytes
-        (the down codes and scales of the experts used, the requantized
-        codes in, bf16 out) and operations."""
-        r, k = x.shape
-        inter = gu.out_features // 2
-        gs_dn = dn.group_size
-        gu3 = MM.lift(gu) if gu.data.dim() == 2 else gu
-        dn3 = MM.lift(dn) if dn.data.dim() == 2 else dn
-        mid = r * (inter + 12 * (inter // gs_dn))
-        return dict(
-            plain=lambda: F.gate_up_ref(x, gu3, gs_dn, row_expert),
-            bytes=used * nbytes(gu3.data[0], gu3.scales[0]) + nbytes(x)
-            + mid, ops=2 * r * 2 * inter * k, library=library,
-            down_bytes=used * nbytes(dn3.data[0], dn3.scales[0]) + mid
-            + r * k * 2, down_ops=2 * r * inter * k)
 
     # row 2: gathered_w4a8_ffn (decode: 6 routed rows, distinct experts)
     ids = torch.randperm(e, generator=torch.Generator().manual_seed(0))[:6]
@@ -583,31 +716,8 @@ def kernel_checks(rows: list, entries: dict) -> None:
         (256, 2816, "prefill shared M=256", False),
     ):
         sgu, sdn, x = w((d, 2 * inter)), w((inter, d)), rn(m, d)
-        route = F.ffn_route(m, "dense", 128, 128, inter, d)
-        # the one-row gate_up's library yardstick: torch.matmul on the
-        # bf16-dequantized gate_up (no GLU, no requant)
-        gdq = dequantize(sgu, bf) if route == "gemv" else None
-        check("dense_w4a8_ffn", label, 3e-2,
-              lambda: F.dense_w4a8_ffn(x, sgu, sdn),
-              lambda: F.dense_w4a8_ffn_ref(x, sgu, sdn),
-              lambda: F.dense_launcher(x, sgu, sdn),
-              nbytes(sgu.data, sgu.scales, sdn.data, sdn.scales)
-              + 2 * nbytes(x), 2 * m * 3 * d * inter, INT8_OPS_PER_S,
-              main=main,
-              up=None if gdq is None else ffn_up(
-                  x, sgu, sdn, torch.zeros(1, dtype=torch.int64, device=dev),
-                  1, lambda: torch.matmul(x, gdq)),
-              fold=fold_pair(
-                  lambda fo: F.dense_launcher(x, sgu, sdn, "silu", None, fo),
-                  lambda: MM.prep_activations(x, d, 128),
-                  F.ffn_gemv_call_folds(1, 1, inter, 128, d, 128, sms)
-                  if route == "gemv" else F.ffn_folds(route, m, d, 128),
-                  route == "gemv" or MM.mma_fold_fits(
-                      m, d, 128, F.FFN_MMA_STAGES, 256)),
-              **routed(FFN_ROUTES, route,
-                       lambda: F.dense_launcher(x, sgu, sdn, "silu",
-                                                "rows")))
-        del sgu, sdn, gdq
+        dense_ffn_check(check, x, sgu, sdn, label, sms, main=main)
+        del sgu, sdn
 
     # row 5: mla_decode_fused (16 heads, R 512, dr 64) at 512 cached rows
     # of the Generator's 1024 (the main path), and at 2048 and 4095 (the
@@ -895,11 +1005,15 @@ def decode_attention_checks(check, rn, dev) -> None:
                        lambda: MD.attention_launcher(*args, kernel="first")))
 
 
-def paged_kernel_checks(check, rn, dev) -> None:
+def paged_kernel_checks(check, rn, dev, h: int = 16,
+                        scale: float = (128 + 64) ** -0.5,
+                        prefix: str = "") -> None:
     """Rows 12 and 14: mla_paged_decode and mla_paged_prefill at the
-    serving shapes (16 heads, R 512, dr 64, page 64, 32 pages a query,
-    bf16), shuffled page tables, every pool row the kernels must not read
-    NaN; bf16 decode takes mla_paged_decode_split_kernel and bf16 prefill
+    serving shapes (``h`` heads, 16 for DeepSeek-V2-Lite, R 512, dr 64,
+    page 64, 32 pages a query, bf16), shuffled page tables, every pool row
+    the kernels must not read NaN; with a ``prefix`` (another model's
+    shapes) only the main page size and the mixed step's chunks, and no
+    entry of the kernels line; bf16 decode takes mla_paged_decode_split_kernel and bf16 prefill
     mla_prefill_mma_kernel, each with its first version timed beside it. Bound: the bytes of the live rows + queries + output over the
     memory rate, against the flops of the live (query, key) pairs over
     the bf16 peak. Library yardstick: gather the pages, then
@@ -909,8 +1023,7 @@ def paged_kernel_checks(check, rn, dev) -> None:
 
     from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
 
-    h, r, dr = 16, 512, 64
-    scale = (128 + 64) ** -0.5
+    r, dr = 512, 64
     bf = torch.bfloat16
 
     def pool(live, page, pmax):
@@ -939,8 +1052,9 @@ def paged_kernel_checks(check, rn, dev) -> None:
 
     # decode: B = 8, lengths on and around page boundaries
     lens = [1, 64, 65, 512, 513, 1000, 2047, 2048]
-    for page, pmax, main in ((64, 32, True), (16, 128, False),
-                             (128, 16, False)):
+    pages = ((64, 32, True), (16, 128, False), (128, 16, False))
+    for page, pmax, main in pages[:3 if not prefix else 1]:
+        main = main and not prefix
         ckv, kpe, tables = pool(lens, page, pmax)
         qn, qp = rn(8, h, r), rn(8, h, dr)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -951,7 +1065,8 @@ def paged_kernel_checks(check, rn, dev) -> None:
         q = torch.cat([qn, qp], dim=-1)[:, :, None]
         live = sum(lens)
         check("mla_paged_decode",
-              f"serve decode B=8 H=16 page={page} lengths 1..2048", 1e-2,
+              f"{prefix}serve decode B=8 H={h} page={page} lengths 1..2048",
+              1e-2,
               lambda: PA.mla_paged_decode(*args),
               lambda: PA.mla_paged_decode_ref(*args),
               lambda: PA.decode_launcher(*args),
@@ -966,12 +1081,10 @@ def paged_kernel_checks(check, rn, dev) -> None:
 
     # prefill: chunks of a mixed step (S = 256) and of a prefill-only step
     # (S = 512), fresh and continued, full and padded
-    for olds, s, valids, main in (
-        ([256], 256, [256], True),
-        ([0, 256], 256, [256, 200], False),
-        ([0], 512, [512], False),
-        ([0, 256], 512, [512, 456], False),
-    ):
+    chunks = (([256], 256, [256], True), ([0, 256], 256, [256, 200], False),
+              ([0], 512, [512], False), ([0, 256], 512, [512, 456], False))
+    for olds, s, valids, main in chunks[:4 if not prefix else 2]:
+        main = main and not prefix
         c, page, pmax = len(olds), 64, 32
         ckv, kpe, tables = pool([o + v for o, v in zip(olds, valids)], page,
                                 pmax)
@@ -989,7 +1102,8 @@ def paged_kernel_checks(check, rn, dev) -> None:
         # rows >= valid are padding: they see every live key, in the plain
         # version as in both kernels, and are compared too
         check("mla_paged_prefill",
-              f"serve prefill C={c} S={s} old={olds} valid={valids}", 1e-2,
+              f"{prefix}serve prefill C={c} S={s} H={h} old={olds} "
+              f"valid={valids}", 1e-2,
               lambda: PA.mla_paged_prefill(*args),
               lambda: PA.mla_paged_prefill_ref(*args),
               lambda: PA.prefill_launcher(*args),
@@ -1038,7 +1152,6 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
     import torch.nn.functional as tF
 
     from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
-    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
     from ktransformers_tpu_torch.quant.formats import dequantize
 
     dev = torch.device("cuda")
@@ -1052,10 +1165,6 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
         them from softmax scores of random logits."""
         logits = torch.randn(tokens, e, generator=g_cpu)
         return torch.topk(logits, 2, dim=-1).indices.to(dev)
-
-    def wbytes(wt, ids):
-        used = int(torch.unique(ids).numel())
-        return used * nbytes(wt.data[0], wt.scales[0])
 
     # row 9: Mixtral's int8 projections at single-user decode (M = 1, the
     # GEMV beside the first version); the library yardstick is torch.matmul
@@ -1084,53 +1193,19 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
         for tokens, label in ((1, "decode 2 rows (1 tok x 2)"),
                               (8, "serve decode 16 rows (8 tok x 2)")):
             ids = routing(tokens).reshape(-1).to(torch.int32)
-            x = rn(ids.shape[0], k)
-            check("gathered_w4a8_matmul",
-                  f"{label} {what} [8, {k}, {n}]", 1e-2,
-                  lambda: MM.gathered_w4a8_matmul(x, wt, ids),
-                  lambda: MM.gathered_w4a8_matmul_ref(x, wt, ids),
-                  lambda: MM.gathered_launcher(x, wt, ids),
-                  nbytes(x) + wbytes(wt, ids) + ids.shape[0] * n * 2,
-                  2 * ids.shape[0] * n * k, INT8_OPS_PER_S,
-                  main=(what == "gate_up" and tokens == 1), plain_iters=3,
-                  fold=fold_pair(
-                      lambda f: MM.gathered_launcher(x, wt, ids, None, f),
-                      lambda: MM.prep_activations(x, k, wt.group_size),
-                      MM.gemv_call_folds(n, ids.shape[0], e, k,
-                                         wt.group_size,
-                                         MM.sm_count(dev))),
-                  **routed(W4A8_ROUTES,
-                           MM.route(ids.shape[0], "gathered", wt.group_size,
-                                    n),
-                           lambda: MM.gathered_launcher(x, wt, ids, "rows")))
+            gathered_mm_check(check, rn(ids.shape[0], k), wt, ids,
+                              f"{label} {what} [8, {k}, {n}]",
+                              main=(what == "gate_up" and tokens == 1))
         wdq = dequantize(wt, torch.bfloat16)
         for tokens, label in ((256, "prefill 512 rows (256 tok x 2)"),
                               (264, "serve mixed 528 rows (264 tok x 2)")):
-            top = routing(tokens)
-            sizes = torch.bincount(top.reshape(-1), minlength=e).to(
-                torch.int32)
+            sizes = torch.bincount(routing(tokens).reshape(-1),
+                                   minlength=e).to(torch.int32)
             x = rn(2 * tokens, k)
-            check("grouped_w4a8_matmul",
-                  f"{label} {what} [8, {k}, {n}]", 1e-2,
-                  lambda: MM.grouped_w4a8_matmul(x, wt, sizes),
-                  lambda: MM.grouped_w4a8_matmul_ref(x, wt, sizes),
-                  lambda: MM.grouped_launcher(x, wt, sizes),
-                  nbytes(x) + wbytes(wt, top) + 2 * tokens * n * 2,
-                  2 * 2 * tokens * n * k, INT8_OPS_PER_S,
-                  library=grouped_mm(x, wdq, sizes),
-                  main=(what == "gate_up" and tokens == 256), plain_iters=2,
-                  iters=10, fold=fold_pair(
-                      lambda f: MM.grouped_launcher(x, wt, sizes, None, f),
-                      lambda: MM.prep_activations(x, k, wt.group_size),
-                      MM.folds(MM.route(2 * tokens, "grouped",
-                                        wt.group_size, n), 2 * tokens, k,
-                               wt.group_size),
-                      MM.mma_fold_fits(2 * tokens, k, wt.group_size,
-                                       MM.MMA_STAGES, 64)),
-                  **routed(
-                      W4A8_ROUTES,
-                      MM.route(2 * tokens, "grouped", wt.group_size, n),
-                      lambda: MM.grouped_launcher(x, wt, sizes, "rows")))
+            grouped_mm_check(check, x, wt, sizes,
+                             f"{label} {what} [8, {k}, {n}]",
+                             library=grouped_mm(x, wdq, sizes),
+                             main=(what == "gate_up" and tokens == 256))
         del wt, wdq
 
     h, hkv, hd, page, pmax = 32, 8, 128, 64, 32
@@ -1234,6 +1309,10 @@ NEAR_TIE = 5e-2  # W4A8 weights: top-2 gap below which greedy tokens may differ
 # weights of one format through the quant_matmul kernels (no activation
 # requant): row error as a share of the largest logit, as for ``dense``
 FORMAT_TOL = 1e-4
+# prompt tokens of a parity model's prefill where not 64: DeepSeek-V3's is
+# few tokens (its routed experts then take the gathered path, whose plain
+# version reads only the routed experts on the host)
+PARITY_PROMPT = {"v3_w4a8": 8}
 
 
 def parity_variants():
@@ -1325,49 +1404,54 @@ def hold_rows(out: torch.Tensor, ref: torch.Tensor, what: str, tol) -> dict:
     return dict(rel_err=errs, tol=tol, greedy_differ=sum(differ))
 
 
-def parity_check(result: dict, variants: list) -> None:
-    """A 64-token prefill and 4 decode steps on fixed tokens through the
-    contiguous forward(), on the CPU (plain versions) and on the card
-    (kernels), float32 compute, for each parity model; rows are held by
-    hold_rows. The int8 model runs once more with the fused decode switched
-    off (mla_decode_attention): held to the CPU on the same route, and its
-    greedy tokens to the fused route's on the card."""
+def parity_rows(params, spec, device, prompt: int) -> torch.Tensor:
+    """Logits rows [5, V] (float32, CPU) of the parity run on ``device``: the
+    last position of a ``prompt``-token prefill, then 4 decode steps on
+    fixed tokens, the same on both sides, through the contiguous forward()
+    in float32 compute."""
     from ktransformers_tpu_torch.models.model import KVCache, forward
-    from ktransformers_tpu_torch.ops import attention
     from ktransformers_tpu_torch.utils.device_prep import params_to
 
-    def run(params, spec, device):
-        # fixed tokens, the same on both sides
-        feed = [t % spec.vocab_size for t in (11, 2222, 33333, 44444)]
-        params = params_to(params, device)
-        cache = KVCache.create(spec, 1, 128, torch.float32, device)
-        toks = torch.as_tensor(np.random.default_rng(3).integers(
-            0, spec.vocab_size, (1, 64)), device=device)
-        logits, cache = forward(params, spec, toks, cache,
-                                compute_dtype=torch.float32,
-                                logits_last_only=True)
-        outs = [logits[:, -1].float().cpu()]
-        for tok in feed:
-            logits, cache = forward(
-                params, spec, torch.tensor([[tok]], device=device), cache,
-                compute_dtype=torch.float32)
-            outs.append(logits[:, -1].float().cpu())
-        return torch.cat(outs)
+    feed = [t % spec.vocab_size for t in (11, 2222, 33333, 44444)]
+    params = params_to(params, device)
+    cache = KVCache.create(spec, 1, 128, torch.float32, device)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, spec.vocab_size, (1, prompt)), device=device)
+    logits, cache = forward(params, spec, toks, cache,
+                            compute_dtype=torch.float32,
+                            logits_last_only=True)
+    outs = [logits[:, -1].float().cpu()]
+    for tok in feed:
+        logits, cache = forward(
+            params, spec, torch.tensor([[tok]], device=device), cache,
+            compute_dtype=torch.float32)
+        outs.append(logits[:, -1].float().cpu())
+    return torch.cat(outs)
+
+
+def parity_check(result: dict, variants: list) -> None:
+    """parity_rows of a 64-token prefill (PARITY_PROMPT gives another
+    length) on the CPU (plain versions) and on the card (kernels) for each
+    parity model; rows are held by hold_rows. The int8 model runs once more with the fused decode switched
+    off (mla_decode_attention): held to the CPU on the same route, and its
+    greedy tokens to the fused route's on the card."""
+    from ktransformers_tpu_torch.ops import attention
 
     t0 = time.perf_counter()
     result.setdefault("parity", {})
     for name, spec, params, tol in variants:
-        card = run(params, spec, "cuda")
+        prompt = PARITY_PROMPT.get(name, 64)
+        card = parity_rows(params, spec, "cuda", prompt)
         result["parity"][name] = hold_rows(
-            card, run(params, spec, "cpu"),
+            card, parity_rows(params, spec, "cpu", prompt),
             f"parity {name} (card vs CPU)", tol)
         if name != "int8":
             continue
         attention.MLA_FUSED = False
         try:
-            unfused = run(params, spec, "cuda")
+            unfused = parity_rows(params, spec, "cuda", prompt)
             result["parity"]["int8_unfused"] = hold_rows(
-                unfused, run(params, spec, "cpu"),
+                unfused, parity_rows(params, spec, "cpu", prompt),
                 "parity int8, fused decode off (card vs CPU)", tol)
         finally:
             attention.MLA_FUSED = True
@@ -1874,7 +1958,11 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS) -> dict:
 
 
 def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(1, 3),
-                expect=PAGED_KERNELS) -> None:
+                expect=PAGED_KERNELS, tie: float = NEAR_TIE) -> None:
+    """The 8 requests through the ServeEngine at each pipeline depth, each
+    request's tokens held to the single-user Generator's up to the first
+    position whose top-2 gap there lies below ``tie`` of the largest
+    logit (a near-tie that rounding order may flip)."""
     prompts = paged_prompts(gen.spec.vocab_size)
     runs = {depth: paged_serve_run(gen, prompts, depth, expect)
             for depth in depths}
@@ -1888,7 +1976,7 @@ def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(1, 3),
             diff = next((j for j in range(len(ref)) if got[j] != ref[j]), None)
             verdicts.append(dict(request=i, depth=depth, first_diff=diff,
                                  gap=None if diff is None else gaps[diff]))
-            if diff is not None and gaps[diff] >= 5e-2:
+            if diff is not None and gaps[diff] >= tie:
                 raise AssertionError(
                     f"paged request {i} (depth {depth}) leaves the "
                     f"single-user tokens at {diff} with a top-2 gap of "
@@ -1900,7 +1988,7 @@ def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(1, 3),
                     for t in toks})
     log(f"{key}: {full}/8 requests equal the single-user Generator "
         f"token for token at depth {list(depths)}; the rest first differ at "
-        f"a bf16 near-tie (top-2 gap < 5e-2); tokens equal across depths: "
+        f"a near-tie (top-2 gap < {tie}); tokens equal across depths: "
         f"{same}; {len(firsts)} distinct first tokens, {distinct} distinct "
         "tokens served")
     result[key] = dict(runs=runs, agreement=verdicts,
@@ -2573,6 +2661,504 @@ def sft_run(result: dict) -> None:
     del trainer
 
 
+# ----------------------------------------------------------- DeepSeek-V3
+
+
+def v3_cfg(layers: int = 6, first_dense: int = 3) -> dict:
+    """DeepSeek-V3 at its published widths (models/spec.DEEPSEEK_V3, the
+    deepseek-ai/DeepSeek-V3 config.json) with the depth cut: the served
+    model keeps 6 of its 61 layers, 3 dense as published and 3 MoE; the
+    parity model 2, one of each."""
+    from ktransformers_tpu_torch.models.spec import DEEPSEEK_V3
+
+    return dict(DEEPSEEK_V3, num_hidden_layers=layers,
+                first_k_dense_replace=first_dense)
+
+
+def dequant_experts(wt, step: int = 16) -> torch.Tensor:
+    """bf16 [E, K, N] of an expert stack, ``step`` experts at a time (the
+    float32 intermediate of one dequantize of all 256 of V3's would not
+    fit)."""
+    import dataclasses
+
+    from ktransformers_tpu_torch.quant.formats import dequantize
+
+    e = wt.data.shape[0]
+    out = torch.empty(e, wt.in_features, wt.out_features,
+                      dtype=torch.bfloat16, device=wt.data.device)
+    for lo in range(0, e, step):
+        part = dataclasses.replace(wt, data=wt.data[lo : lo + step],
+                                   scales=wt.scales[lo : lo + step])
+        out[lo : lo + step] = dequantize(part, torch.bfloat16)
+    return out
+
+
+# the rows of V3's dense calls on its paths: a decode step, the engine's
+# decode batch of 8, a prefill chunk, a mixed step of 8 + 256 rows
+V3_ROWS = (1, 8, 256, 264)
+
+
+def v3_kernel_checks(rows: list, entries: dict) -> None:
+    """The kernels of the DeepSeek-V3 path at its widths (hidden 7168, 128
+    MLA heads, 256 experts top-8, q_lora 1536) against their plain
+    versions on the card (see make_check); rows of chip_smoke.json's
+    kernel_rows, labelled "v3", none an entry of the kernels line:
+    - row 1 at M = 1, 8, 256 and 264 (a decode step, the engine's batch
+      of 8, a prefill chunk, the mixed step's 8 + 256 rows): qkv_a 7168 ->
+      2112, q_b 1536 -> 24576, o_proj 16384 -> 7168, lm_head 7168 ->
+      129280;
+    - row 3: the shared expert (I = 2048) and the dense MLP (I = 18432) at
+      the same M (both fused, as the JAX package's dense_ffn_plan
+      decides; at M = 8 the tensor-core gate_up quantizes x itself, its A
+      tile at K = 7168 beside its ring: 230,400 of 232,448 bytes);
+    - rows 7 and 8: the routed experts, which the fused FFN refuses (one
+      expert's gate_up and down blocks are 44 MB against the JAX package's
+      15 MB budget, ffn_fits / grouped_ffn_fits): gathered at 8 and 64 rows
+      (1 and 8 tokens x top-8), grouped at 4096 rows (512 tokens x 8) over
+      256 experts, gate_up [256, 7168, 4096] and down [256, 2048, 7168];
+    - row 5 at H = 128, 512 cached rows of 1024, V3's softmax scale;
+    - rows 12 and 14 at H = 128 (paged_kernel_checks)."""
+    import torch.nn.functional as tF
+
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.ops.cuda import mla_decode as MD
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+    from ktransformers_tpu_torch.ops.rope import (
+        RopeConfig,
+        precompute_rope_tables,
+        rope_rotation_matrix,
+    )
+
+    dev = torch.device("cuda")
+    check = make_check(rows, entries)
+    _, rn, w = draw(3003)
+    sms = MM.sm_count(dev)
+    d, e, f, top = 7168, 256, 2048, 8
+    scale = spec_from_hf_config(v3_cfg()).attention.softmax_scale
+
+    for k, n, what in ((d, 2112, "qkv_a"), (1536, 24576, "q_b"),
+                       (16384, d, "o_proj"), (d, 129280, "lm_head")):
+        wt = w((k, n))
+        for m in V3_ROWS:
+            dense_w4a8_check(check, rn(m, k), wt,
+                             f"v3 {what} {k}->{n} M={m}", sms)
+        del wt
+        torch.cuda.empty_cache()
+
+    for inter, what in ((f, "shared"), (18432, "dense MLP")):
+        sgu, sdn = w((d, 2 * inter)), w((inter, d))
+        for m in V3_ROWS:
+            dense_ffn_check(check, rn(m, d), sgu, sdn,
+                            f"v3 {what} I={inter} M={m}", sms)
+        del sgu, sdn
+        torch.cuda.empty_cache()
+
+    g_cpu = torch.Generator().manual_seed(3)
+
+    def routing(tokens):
+        return torch.stack([torch.randperm(e, generator=g_cpu)[:top]
+                            for _ in range(tokens)]).to(dev)
+
+    for k, n, what in ((d, 2 * f, "gate_up"), (f, d, "down")):
+        wt = w((e, k, n))
+        for tokens in (1, 8):
+            ids = routing(tokens).reshape(-1).to(torch.int32)
+            gathered_mm_check(check, rn(ids.shape[0], k), wt, ids,
+                              f"v3 {what} gathered {ids.shape[0]} rows "
+                              f"({tokens} tok x 8) [256, {k}, {n}]")
+        sizes = torch.bincount(routing(512).reshape(-1), minlength=e).to(
+            torch.int32)
+        x = rn(512 * top, k)
+        wdq = dequant_experts(wt)
+        grouped_mm_check(check, x, wt, sizes,
+                         f"v3 {what} grouped 4096 rows (512 tok x 8), 256 "
+                         f"experts [256, {k}, {n}]",
+                         library=grouped_mm(x, wdq, sizes))
+        del wt, wdq, x
+        torch.cuda.empty_cache()
+
+    # row 5 at 128 heads
+    h, r, dr, smax, length = 128, 512, 64, 1024, 512
+    cos, sin = precompute_rope_tables(RopeConfig(dim=dr, max_position=smax,
+                                                 interleaved=True), dev)
+    rot = rope_rotation_matrix(cos[length][None], sin[length][None], True)
+    qn, qp, kv = rn(1, h, r), rn(1, h, dr), rn(1, 1, r + dr)
+    gamma = torch.ones(r, device=dev)
+    ckv, kpe = rn(1, smax, r), rn(1, smax, dr)
+    ckv[:, length:] = float("nan")
+    kpe[:, length:] = float("nan")
+    lengths = torch.full((1,), length, dtype=torch.int32, device=dev)
+    args = (qn, qp, kv, gamma, rot, ckv, kpe, lengths, scale, 1e-6)
+    lib_c = torch.nan_to_num(ckv[:, : length + 1])
+    lib_q = torch.cat([qn, qp], dim=-1)[:, :, None]
+    lib_k = torch.cat([lib_c, torch.nan_to_num(kpe[:, : length + 1])],
+                      dim=-1)[:, None].expand(-1, h, -1, -1)
+    lib_v = lib_c[:, None].expand(-1, h, -1, -1)
+    check("mla_decode_fused", f"v3 decode H=128 cached={length} S={smax}",
+          1e-2, lambda: MD.mla_decode_fused(*args),
+          lambda: MD.mla_decode_fused_ref(*args),
+          lambda: MD.mla_launcher(*args),
+          length * (r + dr) * 2 + nbytes(qn, qp, kv) + h * r * 2,
+          2 * h * (length + 1) * (2 * r + dr), BF16_FLOPS_PER_S,
+          library=lambda: tF.scaled_dot_product_attention(
+              lib_q, lib_k, lib_v, scale=scale),
+          **routed(MLA_DECODE_ROUTES, MD.route(torch.bfloat16),
+                   lambda: MD.mla_launcher(*args, "fused")))
+    del ckv, kpe, lib_c, lib_k, lib_v
+    paged_kernel_checks(check, rn, dev, h=h, scale=scale, prefix="v3 ")
+
+
+def v3_variant():
+    """DeepSeek-V3 at full width cut to 2 layers (layer 0 dense, layer 1
+    MoE; first_k_dense_replace 1) with int4_g weights repacked for W4A8:
+    (name, spec, prepared CPU params, None), held as ``w4a8`` is. The
+    weights are drawn and prepared on the card (fast) and copied to the
+    host, so both devices run the same bits."""
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.utils.device_prep import (
+        params_to,
+        prepare_params,
+    )
+
+    spec = spec_from_hf_config(v3_cfg(layers=2, first_dense=1))
+    params = prepare_params(init_params_synthetic(spec, seed=5,
+                                                  device="cuda"), spec)
+    cpu = params_to(params, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    return "v3_w4a8", spec, cpu, None
+
+
+def routes_of(fn):
+    """(fn(), picks): fn run with the expert set each MoE layer of
+    models/model.py routes each token to recorded, one list of frozensets a
+    call of its router, in call order."""
+    from ktransformers_tpu_torch.models import model
+
+    picks, route = [], model.route
+
+    def recording(*args, **kwargs):
+        idx, weights = route(*args, **kwargs)
+        picks.append([frozenset(r) for r in idx.tolist()])
+        return idx, weights
+
+    model.route = recording
+    try:
+        return fn(), picks
+    finally:
+        model.route = route
+
+
+def v3_parity(result: dict) -> None:
+    """v3_variant's rows card vs CPU (parity_rows, an 8-token prompt), held
+    as ``w4a8`` is, with the routed experts of each row's token recorded
+    on both devices. The one MoE layer is the last, so a row's logits see
+    the routing of its own token only (the prompt's last token for row 0,
+    the fed token for each decode row). A row further than NEAR_TIE from
+    the CPU's must be one whose token the card sent to another expert set:
+    the sigmoid router's top-8 of 256 is a discrete choice that an int8
+    activation code flipped by the rounding order can move; every other
+    row stays inside DeepSeek-V2-Lite's W4A8 spread."""
+    name, spec, params, tol = v3_variant()
+    prompt = PARITY_PROMPT[name]
+    t0 = time.perf_counter()
+    card, card_picks = routes_of(
+        lambda: parity_rows(params, spec, "cuda", prompt))
+    cpu, cpu_picks = routes_of(
+        lambda: parity_rows(params, spec, "cpu", prompt))
+    del params
+    held = hold_rows(card, cpu, f"parity {name} (card vs CPU)", tol)
+    rerouted = [a[-1] != b[-1] for a, b in zip(card_picks, cpu_picks)]
+    wide = [i for i, e in enumerate(held["rel_err"]) if e > NEAR_TIE]
+    log(f"parity {name}: rows past {NEAR_TIE} {wide}; rows whose token took "
+        f"other experts on the card {[i for i, r in enumerate(rerouted) if r]}")
+    if len(rerouted) != card.shape[0] or any(not rerouted[i] for i in wide):
+        raise AssertionError(f"parity {name}: rows {wide} leave the W4A8 "
+                             f"spread with the same experts ({rerouted})")
+    result.setdefault("parity", {})[name] = dict(
+        held, rerouted=rerouted, seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+
+def bf16_experts_variant():
+    """DeepSeek-V2-Lite at full width cut to 2 layers (one dense, one MoE)
+    with unquantized float32 weights everywhere, experts included: the
+    routed experts run the plain expert products (ops/moe.py PLAIN_KINDS)
+    on both devices, the rest as the ``dense`` variant; held to
+    PARITY_TOL."""
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.utils.device_prep import prepare_params
+
+    spec = spec_from_hf_config(dict(bench_model_cfg(), num_hidden_layers=2))
+    return "bf16_experts", spec, prepare_params(init_params_synthetic(
+        spec, seed=5, quant="bf16", dtype=torch.float32, device="cpu"),
+        spec), PARITY_TOL
+
+
+# DeepSeek-V3 cut to 6 layers (3 dense, 3 MoE), W4A8 weights. A single-user
+# step: dense_w4a8_matmul 19 (qkv_a = [q_a | kv_a], q_b and o_proj of 6
+# layers, lm_head), dense_w4a8_ffn 6 (3 dense MLPs, I = 18432, and 3 shared
+# experts, I = 2048: both have a chunk plan in the JAX package), the
+# routed experts on the W4A8 matmuls, 2 x 3 (their blocks exceed the
+# fused FFN's budget); activation preps where the routes do not fold (at
+# prefill every 256-row call and the last-row lm_head: 31; at decode the
+# lm_head GEMV, the dense MLP's one-row gate_up and the 8 routed rows'
+# gate_up: 7)
+V3_STEP_LAUNCHES = {
+    "prefill_chunk": {"dense_w4a8_matmul": 19, "dense_w4a8_ffn": 6,
+                      "grouped_w4a8_matmul": 6, "w4a8_prep": 31},
+    "decode_step": {"dense_w4a8_matmul": 19, "dense_w4a8_ffn": 6,
+                    "gathered_w4a8_matmul": 6, "mla_decode_fused": 6,
+                    "w4a8_prep": 7},
+}
+# ... and the ServeEngine's steps: a decode batch of 8 (64 gathered rows;
+# 22 preps: the 19 dense projections at 8 rows lie past the tensor-core
+# fold crossover, the FFNs' 8 rows fold, the routed gate_up does not) and
+# a mixed step (8 decode rows + one 256-token chunk: 31 preps)
+V3_ENGINE_STEP_LAUNCHES = {
+    "serve_decode_step_b8": {"dense_w4a8_matmul": 19, "dense_w4a8_ffn": 6,
+                             "gathered_w4a8_matmul": 6, "w4a8_prep": 22,
+                             "mla_paged_decode": 6},
+    "serve_mixed_step_b8_s256": {"dense_w4a8_matmul": 19,
+                                 "dense_w4a8_ffn": 6,
+                                 "grouped_w4a8_matmul": 6, "w4a8_prep": 31,
+                                 "mla_paged_decode": 6,
+                                 "mla_paged_prefill": 6},
+}
+# the near-tie of V3's W4A8 engine agreement: a logits row whose token the
+# sigmoid router sends to another expert set moves by up to 1.0e-1 of the
+# largest logit (v3_parity holds that only such rows leave NEAR_TIE), and
+# the engine's batch of 8 rounds otherwise than the Generator's one row, so
+# a top-2 gap of 5e-2 is no margin there. The engine itself is held at
+# NEAR_TIE on V3 with int8 weights (v3_int8_engine), which have no
+# activation codes to flip.
+V3_NEAR_TIE = 1e-1
+V3_SINGLE_USER_KERNELS = ("w4a8_prep", "dense_w4a8_matmul", "dense_w4a8_ffn",
+                          "gathered_w4a8_matmul", "grouped_w4a8_matmul",
+                          "mla_decode_fused")
+V3_PAGED_KERNELS = ("w4a8_prep", "dense_w4a8_matmul", "dense_w4a8_ffn",
+                    "gathered_w4a8_matmul", "grouped_w4a8_matmul",
+                    "mla_paged_decode", "mla_paged_prefill")
+
+
+def v3_serve(result: dict) -> None:
+    """DeepSeek-V3 cut to 6 layers on the card: a Generator answering 2
+    requests of 512 + 32 tokens, the launches of a prefill chunk and a
+    decode step held to V3_STEP_LAUNCHES; a ServeEngine answering the 8
+    requests of phase 6 at depth 3 with the same checks; the four
+    profiled steps, the engine's launches held to V3_ENGINE_STEP_LAUNCHES;
+    then the parameters are freed."""
+    gen = serve(result, quant="int4_g", key="serve_v3", requests=2,
+                expect=V3_SINGLE_USER_KERNELS, cfg=v3_cfg())
+    step_launches(result, gen, "v3_step_launches", V3_STEP_LAUNCHES)
+    paged_serve(result, gen, key="paged_serve_v3", depths=(3,),
+                expect=V3_PAGED_KERNELS, tie=V3_NEAR_TIE)
+    profile_steps(result, gen, prefix="v3_")
+    profile_engine_steps(result, gen, prefix="v3_")
+    got = {name: {k: v for k, v in
+                  result["profile"]["v3_" + name]["launches"].items() if v}
+           for name in V3_ENGINE_STEP_LAUNCHES}
+    log(f"v3 engine launches per step: {json.dumps(got)}")
+    if got != V3_ENGINE_STEP_LAUNCHES:
+        raise AssertionError(f"v3 engine launches per step {got}, want "
+                             f"{V3_ENGINE_STEP_LAUNCHES}")
+    del gen
+    torch.cuda.empty_cache()
+
+
+V3_INT8_SINGLE_USER_KERNELS = ("quant_matmul", "gathered_quant_matmul",
+                               "grouped_quant_matmul", "mla_decode_fused")
+
+
+def v3_int8_engine(result: dict) -> None:
+    """DeepSeek-V3 cut to 6 layers with int8 weights everywhere (the
+    quant_matmul kernels, rows 9-11, no int8 activation codes): a Generator
+    answering one request of 512 + 32 tokens, then the ServeEngine's 8
+    requests at depth 3 held to the Generator at NEAR_TIE, as
+    DeepSeek-V2-Lite's int8 engine is. The engine path (paged MLA at 128
+    heads with V3's softmax scale, batches, pages) is the W4A8 one; what
+    the int8 weights take away is the activation codes that let the
+    rounding order move the router."""
+    gen = serve(result, quant="int8", key="serve_v3_int8", requests=1,
+                expect=V3_INT8_SINGLE_USER_KERNELS, cfg=v3_cfg())
+    paged_serve(result, gen, key="paged_serve_v3_int8", depths=(3,),
+                expect=INT8_PAGED_KERNELS)
+    del gen
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------- HF import
+
+
+def hf_tensors(spec, seed: int) -> dict:
+    """HF-named float32 tensors ([out, in] for linear weights) of a
+    DeepSeek spec (q_proj or q_a / q_a_layernorm / q_b, kv_a / kv_b, dense
+    MLP or routed + shared experts with the router and, under noaux_tc, its
+    correction bias), drawn on the host from one seeded generator: weights
+    normal with std 1 / sqrt(in), norms near 1."""
+    gen = torch.Generator().manual_seed(seed)
+    a, d = spec.attention, spec.hidden_size
+    h, nope, dr = a.num_heads, a.qk_nope_head_dim, a.qk_rope_head_dim
+    out: dict = {}
+
+    def lin(name, n_out, n_in):
+        out[name] = torch.randn(n_out, n_in, generator=gen) / n_in ** 0.5
+
+    def norm(name, n):
+        out[name] = 1.0 + 0.1 * torch.randn(n, generator=gen)
+
+    def mlp(pre, inter):
+        lin(f"{pre}.gate_proj.weight", inter, d)
+        lin(f"{pre}.up_proj.weight", inter, d)
+        lin(f"{pre}.down_proj.weight", d, inter)
+
+    out["model.embed_tokens.weight"] = 0.02 * torch.randn(
+        spec.vocab_size, d, generator=gen)
+    for li in range(spec.num_layers):
+        pre = f"model.layers.{li}"
+        sa = f"{pre}.self_attn"
+        norm(f"{pre}.input_layernorm.weight", d)
+        norm(f"{pre}.post_attention_layernorm.weight", d)
+        if a.q_lora_rank:
+            lin(f"{sa}.q_a_proj.weight", a.q_lora_rank, d)
+            norm(f"{sa}.q_a_layernorm.weight", a.q_lora_rank)
+            lin(f"{sa}.q_b_proj.weight", h * (nope + dr), a.q_lora_rank)
+        else:
+            lin(f"{sa}.q_proj.weight", h * (nope + dr), d)
+        lin(f"{sa}.kv_a_proj_with_mqa.weight", a.kv_lora_rank + dr, d)
+        norm(f"{sa}.kv_a_layernorm.weight", a.kv_lora_rank)
+        lin(f"{sa}.kv_b_proj.weight", h * (nope + a.v_head_dim),
+            a.kv_lora_rank)
+        lin(f"{sa}.o_proj.weight", d, h * a.v_head_dim)
+        m = spec.moe
+        if m is not None and m.is_moe_layer(li):
+            lin(f"{pre}.mlp.gate.weight", m.num_experts, d)
+            if m.gate.has_correction_bias:
+                out[f"{pre}.mlp.gate.e_score_correction_bias"] = \
+                    0.1 * torch.rand(m.num_experts, generator=gen)
+            for ex in range(m.num_experts):
+                mlp(f"{pre}.mlp.experts.{ex}", m.moe_intermediate_size)
+            if m.shared_expert_intermediate_size:
+                mlp(f"{pre}.mlp.shared_experts",
+                    m.shared_expert_intermediate_size)
+        else:
+            mlp(f"{pre}.mlp", spec.intermediate_size)
+    norm("model.norm.weight", d)
+    lin("lm_head.weight", spec.vocab_size, d)
+    return out
+
+
+def hf_module(tensors: dict) -> torch.nn.Module:
+    """A plain nn.Module tree whose named_parameters() are ``tensors``
+    under their HF names (no transformers)."""
+    root = torch.nn.Module()
+    for name, t in tensors.items():
+        *path, leaf = name.split(".")
+        mod = root
+        for part in path:
+            if not hasattr(mod, part):
+                mod.add_module(part, torch.nn.Module())
+            mod = getattr(mod, part)
+        mod.register_parameter(leaf, torch.nn.Parameter(t,
+                                                        requires_grad=False))
+    return root
+
+
+def hf_import(result: dict) -> None:
+    """DeepSeek-V2-Lite at full width cut to 2 layers (one dense, one MoE)
+    as HF-named tensors drawn on the host (hf_tensors), held by a plain
+    nn.Module tree: TorchModelProvider -> build_params(int4_g) on the card
+    and on the CPU. Every imported leaf on the card equal to the CPU's
+    bits (build_params quantizes on the host for both devices, so this
+    holds the move of the tree to the card, not the quantizer: the
+    quantizer's bits are held against the JAX package's on the CPU, in
+    tests/test_torch_hf_import.py); then prepare_params and a Generator on
+    each device: a 16-token
+    prompt and 4 decode steps on fixed tokens, whose logits rows the parity
+    rule holds (hold_rows, W4A8: greedy tokens equal except at a
+    near-tie)."""
+    from ktransformers_tpu_torch.engine.generate import Generator
+    from ktransformers_tpu_torch.loader.providers import TorchModelProvider
+    from ktransformers_tpu_torch.models.loading import build_params
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+
+    t0 = time.perf_counter()
+    spec = spec_from_hf_config(dict(bench_model_cfg(), num_hidden_layers=2))
+    provider = TorchModelProvider(hf_module(hf_tensors(spec, seed=13)))
+    trees = {dev: build_params(provider, spec, quant="int4_g", device=dev)
+             for dev in ("cuda", "cpu")}
+    del provider
+    leaves = list(zip(_leaves(trees["cuda"]), _leaves(trees["cpu"])))
+    differ = sum(not (a.dtype == b.dtype and torch.equal(a.cpu(), b))
+                 for a, b in leaves)
+    log(f"hf_import: {len(leaves)} leaves moved to the card, {differ} differ "
+        "from the CPU's")
+    if differ:
+        raise AssertionError(f"hf_import: {differ} leaves differ")
+    prompt = np.random.default_rng(14).integers(0, spec.vocab_size,
+                                                16).tolist()
+    feed = [t % spec.vocab_size for t in (11, 2222, 33333, 44444)]
+    outs = {}
+    for dev, params in trees.items():
+        gen = Generator(params, spec, max_len=64, device=dev,
+                        cache_dtype=torch.float32,
+                        compute_dtype=torch.float32)
+        cache = gen.new_cache()
+        last, cache = gen.prefill(cache, torch.as_tensor([prompt],
+                                                         device=dev))
+        rows = [last.float().cpu()]
+        for tok in feed:
+            logits, cache = gen._forward(
+                torch.tensor([[tok]], device=dev), cache)
+            rows.append(logits[:, -1].float().cpu())
+        outs[dev] = rows
+        del gen, cache
+    del trees
+    torch.cuda.empty_cache()
+    result["hf_import"] = dict(
+        leaves=len(leaves), differ=differ,
+        logits=hold_rows(torch.cat(outs["cuda"]), torch.cat(outs["cpu"]),
+                         "hf_import logits (card vs CPU)", None),
+        seconds=time.perf_counter() - t0)
+
+
+def mixtral_run(result: dict, rows: list, entries: dict) -> None:
+    """Mixtral-8x7B (GQA attention, experts too wide for the fused FFN):
+    its kernels at its shapes, 2-layer parity with the served kinds, then
+    32 layers single-user and through the ServeEngine with launches per
+    step held; the parameters are freed after."""
+    mixtral_kernel_checks(rows, entries)
+    torch.cuda.empty_cache()
+    variant = [mixtral_variant()]
+    parity_check(result, variant)
+    paged_parity_check(result, variant)
+    del variant
+    torch.cuda.empty_cache()
+    gen = serve(result, quant="int8", moe_quant="int4_g", key="serve_mixtral",
+                requests=2, expect=MIXTRAL_SINGLE_USER_KERNELS,
+                cfg=mixtral_cfg())
+    step_launches(result, gen, "mixtral_step_launches", MIXTRAL_STEP_LAUNCHES)
+    paged_serve(result, gen, key="paged_serve_mixtral", depths=(3,),
+                expect=MIXTRAL_PAGED_KERNELS)
+    profile_steps(result, gen, prefix="mixtral_")
+    profile_engine_steps(result, gen, prefix="mixtral_")
+    hold_prep(result, "mixtral_",
+              MIXTRAL_ENGINE_STEP_LAUNCHES["serve_decode_step_b8"][
+                  "w4a8_prep"])
+    got = {name: {k: v for k, v in
+                  result["profile"]["mixtral_" + name]["launches"].items()
+                  if v}
+           for name in MIXTRAL_ENGINE_STEP_LAUNCHES}
+    log(f"mixtral engine launches per step: {json.dumps(got)}")
+    if got != MIXTRAL_ENGINE_STEP_LAUNCHES:
+        raise AssertionError(f"mixtral engine launches per step {got}, "
+                             f"want {MIXTRAL_ENGINE_STEP_LAUNCHES}")
+    del gen
+    torch.cuda.empty_cache()
+
+
 def _leaves(node):
     import dataclasses
 
@@ -2634,8 +3220,8 @@ def main() -> int:
 
     rows: list = []
     entries: dict = {}
-    kernel_checks(rows, entries)
     result["kernel_rows"] = rows
+    kernel_checks(rows, entries)
     torch.cuda.empty_cache()
 
     variants = list(parity_variants())
@@ -2671,35 +3257,7 @@ def main() -> int:
     del gen
     torch.cuda.empty_cache()
 
-    # Mixtral-8x7B: GQA attention, experts too wide for the fused FFN
-    mixtral_kernel_checks(rows, entries)
-    torch.cuda.empty_cache()
-    variant = [mixtral_variant()]
-    parity_check(result, variant)
-    paged_parity_check(result, variant)
-    del variant
-    torch.cuda.empty_cache()
-    gen = serve(result, quant="int8", moe_quant="int4_g", key="serve_mixtral",
-                requests=2, expect=MIXTRAL_SINGLE_USER_KERNELS,
-                cfg=mixtral_cfg())
-    step_launches(result, gen, "mixtral_step_launches", MIXTRAL_STEP_LAUNCHES)
-    paged_serve(result, gen, key="paged_serve_mixtral", depths=(3,),
-                expect=MIXTRAL_PAGED_KERNELS)
-    profile_steps(result, gen, prefix="mixtral_")
-    profile_engine_steps(result, gen, prefix="mixtral_")
-    hold_prep(result, "mixtral_",
-              MIXTRAL_ENGINE_STEP_LAUNCHES["serve_decode_step_b8"][
-                  "w4a8_prep"])
-    got = {name: {k: v for k, v in
-                  result["profile"]["mixtral_" + name]["launches"].items()
-                  if v}
-           for name in MIXTRAL_ENGINE_STEP_LAUNCHES}
-    log(f"mixtral engine launches per step: {json.dumps(got)}")
-    if got != MIXTRAL_ENGINE_STEP_LAUNCHES:
-        raise AssertionError(f"mixtral engine launches per step {got}, "
-                             f"want {MIXTRAL_ENGINE_STEP_LAUNCHES}")
-    del gen
-    torch.cuda.empty_cache()
+    mixtral_run(result, rows, entries)
 
     # LoRA SFT on DeepSeek-V2-Lite: rows 16 and 17 in the backward
     sft_kernel_checks(rows, entries)
@@ -2708,6 +3266,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     sft_run(result)
     torch.cuda.empty_cache()
+
+    # DeepSeek-V3: its kernels at full width, 2-layer parity, then 6
+    # layers served; the plain expert products at DeepSeek-V2-Lite's
+    # width and the HF import between them
+    v3_kernel_checks(rows, entries)
+    torch.cuda.empty_cache()
+    v3_parity(result)
+    parity_check(result, [bf16_experts_variant()])
+    torch.cuda.empty_cache()
+    hf_import(result)
+    v3_serve(result)
+    v3_int8_engine(result)
 
     sources = {
         # plain XLA in the JAX package, no Pallas kernel
@@ -2763,8 +3333,8 @@ def main() -> int:
     # launches: each main path was driven with the counts set to 0 just
     # before and read just after (single-user serve and paged serve at the
     # default pipeline depth: DeepSeek-V2-Lite on the int4_g and on the int8
-    # parameters, then Mixtral-8x7B; then the SFT steps); a kernel's count
-    # is the sum over the seven paths
+    # parameters, then Mixtral-8x7B; then the SFT steps; then DeepSeek-V3 on
+    # W4A8 and on int8 parameters); a kernel's count is the sum over them
     runs = {
         "single_user": result["serve"],
         "paged_serve": result["paged_serve"]["runs"][3],
@@ -2773,6 +3343,10 @@ def main() -> int:
         "single_user_mixtral": result["serve_mixtral"],
         "paged_serve_mixtral": result["paged_serve_mixtral"]["runs"][3],
         "sft": result["sft"],
+        "single_user_v3": result["serve_v3"],
+        "paged_serve_v3": result["paged_serve_v3"]["runs"][3],
+        "single_user_v3_int8": result["serve_v3_int8"],
+        "paged_serve_v3_int8": result["paged_serve_v3_int8"]["runs"][3],
     }
     paths = {k: dict(r["launches"]) for k, r in runs.items()}
     # the redesigned kernels: launches of their wrappers' calls that took them
@@ -2823,10 +3397,14 @@ def main() -> int:
     # prefill in the served steps; on Mixtral the GQA decode and prefill in
     # the served steps; the FFN's one-row gate_up every W4A8 decode
     for kernel, keys in (
-            ("mla_decode_split_kernel", ("single_user", "single_user_int8")),
-            ("mla_prefill_mma_kernel", ("paged_serve", "paged_serve_int8")),
+            ("mla_decode_split_kernel", ("single_user", "single_user_int8",
+                                         "single_user_v3")),
+            ("mla_prefill_mma_kernel", ("paged_serve", "paged_serve_int8",
+                                        "paged_serve_v3")),
             ("mla_paged_decode_split_kernel",
-             ("paged_serve", "paged_serve_int8")),
+             ("paged_serve", "paged_serve_int8", "paged_serve_v3")),
+            ("w4a8_gemv_kernel", ("single_user_v3", "paged_serve_v3")),
+            ("w4a8_mma_kernel", ("single_user_v3", "paged_serve_v3")),
             ("gqa_prefill_mma_kernel", ("paged_serve_mixtral",)),
             ("gqa_decode_split_kernel", ("paged_serve_mixtral",)),
             ("w4a8_ffn_gemv_kernel", ("single_user", "paged_serve")),

@@ -7,8 +7,9 @@ holding numpy arrays) and returns the port's tree. It reads objects by
 their fields only and imports nothing from the JAX package. Handled:
 - group scales padded along the group axis (pad_scale_sublanes, ngp > ng)
   are sliced back to the true group count;
-- lane-padding columns of a fused qkv_a (MLA) or qkv (GQA) projection are
-  dropped;
+- lane-padding columns of a fused qkv_a (MLA, [q_proj or q_a | kv_a]) or
+  qkv (GQA) projection are dropped; every other key (q_a_norm, q_b,
+  router_bias_corr, ...) crosses as it is;
 - int4 data already in the offset-lo encoding (act_quant, int8) and data
   not yet repacked (uint8) are both kept as they are, with the flag;
 - every format of quant/formats.py: per-channel scales [..., 1, N], zero
@@ -84,8 +85,9 @@ def params_from_jax(tree, spec: ModelSpec, device="cuda"):
     a = spec.attention
     if a.kind == "mla":
         fkey = "qkv_a"
-        qkv_cols = (a.num_heads * (a.qk_nope_head_dim + a.qk_rope_head_dim)
-                    + a.kv_lora_rank + a.qk_rope_head_dim)
+        qkv_cols = (a.q_lora_rank or a.num_heads * (a.qk_nope_head_dim
+                                                    + a.qk_rope_head_dim)
+                    ) + a.kv_lora_rank + a.qk_rope_head_dim
     else:
         fkey = "qkv"
         qkv_cols = (a.num_heads + 2 * a.num_kv_heads) * a.head_dim

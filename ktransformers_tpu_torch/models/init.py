@@ -99,9 +99,10 @@ def init_params_synthetic(spec: ModelSpec, seed: int = 0,
                           quant: str = "int4_g", moe_quant: str | None = None,
                           group_size: int = 128, dtype=torch.bfloat16,
                           device="cuda"):
-    """Random params for ``spec``: ``quant`` for attention (MLA, or GQA's
-    q / k / v / o projections), dense MLP, shared experts and lm_head,
-    ``moe_quant`` for routed experts."""
+    """Random params for ``spec``: ``quant`` for attention (MLA with q_proj
+    or q_a / q_b, or GQA's q / k / v / o projections), dense MLP, shared
+    experts and lm_head, ``moe_quant`` for routed experts; a zero router
+    correction bias where the gate has one."""
     moe_quant = moe_quant or quant
     rd = _Draw(seed, device, dtype)
     a = spec.attention
@@ -113,14 +114,23 @@ def init_params_synthetic(spec: ModelSpec, seed: int = 0,
         if a.kind == "mla":
             nope, dr, r, v = (a.qk_nope_head_dim, a.qk_rope_head_dim,
                               a.kv_lora_rank, a.v_head_dim)
-            attn = {
-                "q_proj": rd.q((d, h * (nope + dr)), quant, group_size),
+            if a.q_lora_rank:
+                qr = a.q_lora_rank
+                attn = {
+                    "q_a": rd.q((d, qr), quant, group_size),
+                    "q_a_norm": ones(qr),
+                    "q_b": rd.q((qr, h * (nope + dr)), quant, group_size),
+                }
+            else:
+                attn = {"q_proj": rd.q((d, h * (nope + dr)), quant,
+                                       group_size)}
+            attn.update({
                 "kv_a": rd.q((d, r + dr), quant, group_size),
                 "kv_a_norm": ones(r),
                 "w_uk": rd.normal((h, nope, r), 1.0 / math.sqrt(nope)),
                 "w_uv": rd.normal((h, r, v), 1.0 / math.sqrt(r)),
                 "o_proj": rd.q((h * v, d), quant, group_size),
-            }
+            })
         else:
             hkv, hd = a.num_kv_heads, a.head_dim
             attn = {
@@ -145,6 +155,9 @@ def init_params_synthetic(spec: ModelSpec, seed: int = 0,
                     down=rd.q((m.num_experts, f, d), moe_quant, group_size),
                 ),
             }
+            if m.gate.has_correction_bias:  # zeros, as in the JAX package
+                moe["router_bias_corr"] = torch.zeros(
+                    m.num_experts, dtype=torch.float32, device=rd.device)
             if m.shared_expert_intermediate_size:
                 fs = m.shared_expert_intermediate_size
                 moe["shared"] = {

@@ -1,0 +1,185 @@
+"""Provider-driven params construction (counterpart of
+ktransformers_tpu/models/loading.py): one function that makes the params
+tree from a ``get(name) -> np.ndarray`` provider of HF-named tensors ([out,
+in] for linear weights).
+
+``build_params`` maps the HF names of the families this port runs
+(DeepSeek-V2 / V3 MLA, with or without q_lora; Mixtral GQA) onto the
+port's params tree. Weights are quantized on the host with
+quant/formats.quantize, where the JAX package quantizes them, so the codes
+are bit-exact with its build_params; the finished tree moves to
+``device`` once, at the end. The file sources (safetensors, GGUF), the
+per-module ``placement`` and the lossless GGUF repack (``exact_gguf``)
+belong to ROADMAP item 5b; linear-attention layers to item 6.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ktransformers_tpu_torch.models.spec import ModelSpec
+from ktransformers_tpu_torch.ops.attention import absorb_kv_b_proj
+from ktransformers_tpu_torch.ops.moe import MoEWeights
+from ktransformers_tpu_torch.quant.formats import quantize
+from ktransformers_tpu_torch.utils.device_prep import params_to
+
+
+class WeightProvider:
+    """get(name) -> np.ndarray in HF layout ([out, in] for linear
+    weights); KeyError for a name it does not hold."""
+
+    def get(self, name: str) -> np.ndarray:
+        raise NotImplementedError
+
+    def maybe(self, name: str):
+        try:
+            return self.get(name)
+        except KeyError:
+            return None
+
+
+def _t(w: np.ndarray) -> np.ndarray:
+    """[out, in] -> float32 [in, out]."""
+    return np.ascontiguousarray(np.asarray(w, np.float32).T)
+
+
+def _vec(arr) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, np.float32))
+
+
+def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
+                 moe_quant: str | None = None, group_size: int = 128,
+                 placement=None,
+                 exact_gguf: bool = False, layer_indices=None,
+                 include_head: bool = True, device="cuda"):
+    """The params tree from a provider, on ``device``. ``quant`` for
+    attention, dense MLP, shared experts and lm_head, ``moe_quant``
+    (default quant) for the routed experts; ``layer_indices`` (default
+    all) with ``include_head=False`` builds a partial tree of those layers
+    only, as in the JAX package."""
+    if placement is not None:
+        raise NotImplementedError(
+            "build_params: per-module placement is not ported (ROADMAP "
+            "Queue 1 item 5b)")
+    if exact_gguf:
+        raise NotImplementedError(
+            "build_params: the lossless GGUF repack is not ported (ROADMAP "
+            "Queue 1 item 5b)")
+    moe_quant = moe_quant or quant
+    a = spec.attention
+    get, maybe = p.get, p.maybe
+    if layer_indices is None:
+        layer_indices = range(spec.num_layers)
+
+    def q(arr: np.ndarray, kind: str):
+        return quantize(torch.from_numpy(arr), kind, group_size=group_size)
+
+    def qx(name: str, kind: str = quant):
+        return q(_t(get(name)), kind)
+
+    def qx_fused(gname: str, uname: str):
+        return q(np.concatenate([_t(get(gname)), _t(get(uname))], 1), quant)
+
+    def vec(name: str) -> torch.Tensor:
+        return _vec(get(name))
+
+    layers = []
+    for li in layer_indices:
+        pre = f"model.layers.{li}"
+        if maybe(f"{pre}.linear_attn.in_proj_qkvz.weight") is not None:
+            raise NotImplementedError(
+                f"layer {li}: linear-attention layers are not ported "
+                "(ROADMAP Queue 1 item 6)")
+        lp = {
+            "input_norm": vec(f"{pre}.input_layernorm.weight"),
+            "post_attn_norm": vec(f"{pre}.post_attention_layernorm.weight"),
+        }
+        sa = f"{pre}.self_attn"
+        if a.kind == "mla":
+            kv_b = torch.from_numpy(_t(get(f"{sa}.kv_b_proj.weight")))
+            w_uk, w_uv = absorb_kv_b_proj(kv_b, a.num_heads,
+                                          a.qk_nope_head_dim, a.v_head_dim)
+            absorbed = torch.float32 if quant == "f32" else torch.bfloat16
+            attn = {
+                "kv_a": qx(f"{sa}.kv_a_proj_with_mqa.weight"),
+                "kv_a_norm": vec(f"{sa}.kv_a_layernorm.weight"),
+                "w_uk": w_uk.to(absorbed),
+                "w_uv": w_uv.to(absorbed),
+                "o_proj": qx(f"{sa}.o_proj.weight"),
+            }
+            if maybe(f"{sa}.kv_a_proj_with_mqa.bias") is not None:
+                attn["kv_a_bias"] = vec(f"{sa}.kv_a_proj_with_mqa.bias")
+            if a.q_lora_rank:
+                attn["q_a"] = qx(f"{sa}.q_a_proj.weight")
+                attn["q_a_norm"] = vec(f"{sa}.q_a_layernorm.weight")
+                attn["q_b"] = qx(f"{sa}.q_b_proj.weight")
+            else:
+                attn["q_proj"] = qx(f"{sa}.q_proj.weight")
+        else:
+            attn = {}
+            for nm in ("q", "k", "v", "o"):
+                if maybe(f"{sa}.{nm}_proj.bias") is not None:
+                    raise NotImplementedError(
+                        f"{sa}.{nm}_proj.bias: attention biases are not "
+                        "ported (ROADMAP Queue 1 item 6)")
+                attn[f"{nm}_proj"] = qx(f"{sa}.{nm}_proj.weight")
+        lp["attn"] = attn
+
+        mlp_pre = f"{pre}.mlp"
+        if spec.moe is not None and spec.moe.is_moe_layer(li):
+            m = spec.moe
+            if maybe(f"{mlp_pre}.gate.weight") is None:
+                mlp_pre = f"{pre}.block_sparse_moe"  # mixtral
+            moe = {"router_w": vec(f"{mlp_pre}.gate.weight")}
+            bias = maybe(f"{mlp_pre}.gate.e_score_correction_bias")
+            if bias is not None:
+                moe["router_bias_corr"] = _vec(bias)
+            stacked = maybe(f"{mlp_pre}.experts.gate_up_proj")
+            if stacked is not None:
+                # pre-stacked [E, in, 2 * out] / down [E, inter, in]
+                gus = np.asarray(stacked, np.float32)
+                dns = np.asarray(get(f"{mlp_pre}.experts.down_proj"),
+                                 np.float32)
+            else:
+                gus_list, dns_list = [], []
+                for e in range(m.num_experts):
+                    base = f"{mlp_pre}.experts.{e}"
+                    if maybe(f"{base}.gate_proj.weight") is not None:
+                        names = ("gate_proj", "up_proj", "down_proj")
+                    else:  # mixtral w1 / w3 / w2
+                        names = ("w1", "w3", "w2")
+                    g, u, dn = (_t(get(f"{base}.{nm}.weight"))
+                                for nm in names)
+                    gus_list.append(np.concatenate([g, u], axis=1))
+                    dns_list.append(dn)
+                gus, dns = np.stack(gus_list), np.stack(dns_list)
+                del gus_list, dns_list
+            moe["experts"] = MoEWeights(gate_up=q(gus, moe_quant),
+                                        down=q(dns, moe_quant))
+            del gus, dns
+            if m.shared_expert_intermediate_size:
+                base = f"{mlp_pre}.shared_experts"
+                # shared experts take the dense kind, as in the JAX package
+                moe["shared"] = {
+                    "gate_up": qx_fused(f"{base}.gate_proj.weight",
+                                        f"{base}.up_proj.weight"),
+                    "down": qx(f"{base}.down_proj.weight"),
+                }
+            lp["moe"] = moe
+        else:
+            lp["mlp"] = {
+                "gate_up": qx_fused(f"{mlp_pre}.gate_proj.weight",
+                                    f"{mlp_pre}.up_proj.weight"),
+                "down": qx(f"{mlp_pre}.down_proj.weight"),
+            }
+        layers.append(lp)
+
+    params = {
+        "embed": vec("model.embed_tokens.weight") if include_head else None,
+        "layers": layers,
+        "final_norm": vec("model.norm.weight") if include_head else None,
+    }
+    if include_head and not spec.tie_word_embeddings:
+        params["lm_head"] = qx("lm_head.weight")
+    return params_to(params, device)

@@ -118,15 +118,23 @@ def _assert_no_orphan_lora(p, legacy_names, fused_key):
 
 def mla_qkv_proj(p, spec: ModelSpec, x):
     """q [B, S, H*(nope+dr)] and the raw kv_a output [B, S, R+Dr]; reads the
-    fused "qkv_a" weight when device_prep merged q_proj and kv_a."""
+    fused "qkv_a" weight when device_prep merged q_proj (or q_a) and kv_a.
+    With q_lora_rank the query goes q_a -> RMSNorm (q_a_norm) -> q_b."""
     a = spec.attention
-    qw = a.num_heads * (a.qk_nope_head_dim + a.qk_rope_head_dim)
     rw = a.kv_lora_rank + a.qk_rope_head_dim
     if "qkv_a" in p:
-        _assert_no_orphan_lora(p, ("q_proj", "kv_a"), "qkv_a")
+        _assert_no_orphan_lora(p, ("q_a", "q_proj", "kv_a"), "qkv_a")
+        qw = a.q_lora_rank or a.num_heads * (
+            a.qk_nope_head_dim + a.qk_rope_head_dim)
         both = plinear(p, "qkv_a", x, p.get("qkv_a_bias"))
-        return both[..., :qw], both[..., qw : qw + rw]
-    return plinear(p, "q_proj", x), plinear(p, "kv_a", x, p.get("kv_a_bias"))
+        q, ckv_kpe = both[..., :qw], both[..., qw : qw + rw]
+    else:
+        q = plinear(p, "q_a" if a.q_lora_rank else "q_proj", x)
+        ckv_kpe = plinear(p, "kv_a", x, p.get("kv_a_bias"))
+    if a.q_lora_rank:
+        q = rms_norm(q, p["q_a_norm"], spec.rms_norm_eps)
+        q = plinear(p, "q_b", q)
+    return q, ckv_kpe
 
 
 def gqa_qkv_proj(p, spec: ModelSpec, x):

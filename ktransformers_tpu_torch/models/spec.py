@@ -1,8 +1,8 @@
 """ModelSpec: static architecture record and the HF config translator
 (counterpart of ktransformers_tpu/models/spec.py), limited to the families
-this port runs: ``deepseek_v2`` (MLA attention) and ``mixtral`` (GQA
-attention). Config values the port does not handle raise instead of being
-ignored."""
+this port runs: ``deepseek_v2`` / ``deepseek_v3`` / ``kimi_k2`` (MLA
+attention) and ``mixtral`` (GQA attention). Config values the port does
+not handle raise instead of being ignored."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from typing import Any
 
 from ktransformers_tpu_torch.ops.activations import ActivationConfig
 from ktransformers_tpu_torch.ops.gate import GateConfig
-from ktransformers_tpu_torch.ops.rope import RopeConfig
+from ktransformers_tpu_torch.ops.rope import RopeConfig, yarn_get_mscale
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,20 +82,43 @@ def _rope_from_hf(cfg: dict, dim: int, interleaved: bool) -> RopeConfig:
     )
 
 
-_GROUP_METHODS = {"greedy": "none", "group_limited_greedy": "group_max"}
+_GROUP_METHODS = {"greedy": "none", "group_limited_greedy": "group_max",
+                  "noaux_tc": "group_top2sum"}
 
 
-def _deepseek_v2_spec(cfg: dict) -> ModelSpec:
-    if cfg.get("q_lora_rank"):
-        raise ValueError("q_lora_rank (q_a/q_b projections) is not ported")
+def _v3_softmax_scale(cfg: dict, qk_head_dim: int) -> float | None:
+    """HF DeepseekV3Attention's softmax scale (transformers 4.57.6,
+    modeling_deepseek_v3.py:371-377): qk_head_dim^-0.5, times m_all^2 with
+    m_all = yarn_get_mscale(factor, mscale_all_dim) where rope_scaling sets
+    mscale_all_dim. The JAX package multiplies by (m / m_all)^2 instead
+    (its ops/rope.py:rope_attention_scale), which is 1 at DeepSeek-V3's
+    published values; the port follows HF. None without rope_scaling (the
+    default rule then gives qk_head_dim^-0.5)."""
+    scaling = cfg.get("rope_scaling")
+    if not scaling:
+        return None
+    scale = qk_head_dim ** -0.5
+    m_all = float(scaling.get("mscale_all_dim", 0) or 0)
+    if m_all:
+        scale *= yarn_get_mscale(float(scaling["factor"]), m_all) ** 2
+    return scale
+
+
+def _deepseek_spec(cfg: dict, model_type: str) -> ModelSpec:
+    """DeepSeek-V2 / V3 (and Kimi-K2, a V3): MLA attention, optionally
+    with the q_a -> q_a_norm -> q_b query projection (q_lora_rank), and a
+    softmax or sigmoid router, greedy or group-limited, with the V3
+    correction bias under noaux_tc. V3's defaults: sigmoid scoring,
+    noaux_tc, norm_topk_prob."""
+    v3 = model_type == "deepseek_v3"
     if cfg.get("attention_bias"):
         raise ValueError("attention_bias is not ported")
     if cfg.get("tie_word_embeddings"):
         raise ValueError("tie_word_embeddings is not ported")
     scoring = cfg.get("scoring_func", "softmax")
-    if scoring != "softmax":
+    if scoring not in ("softmax", "sigmoid"):
         raise ValueError(f"scoring_func {scoring!r} is not ported")
-    topk_method = cfg.get("topk_method", "greedy")
+    topk_method = cfg.get("topk_method", "noaux_tc" if v3 else "greedy")
     if topk_method not in _GROUP_METHODS:
         raise ValueError(f"topk_method {topk_method!r} is not ported")
     if cfg.get("hidden_act", "silu") != "silu":
@@ -107,21 +130,24 @@ def _deepseek_v2_spec(cfg: dict) -> ModelSpec:
         num_heads=int(cfg["num_attention_heads"]),
         num_kv_heads=int(cfg["num_attention_heads"]),
         head_dim=qk_nope + qk_rope,
-        q_lora_rank=None,
+        q_lora_rank=cfg.get("q_lora_rank"),
         kv_lora_rank=int(cfg["kv_lora_rank"]),
         qk_nope_head_dim=qk_nope,
         qk_rope_head_dim=qk_rope,
         v_head_dim=int(cfg["v_head_dim"]),
+        softmax_scale=_v3_softmax_scale(cfg, qk_nope + qk_rope) if v3
+        else None,
     )
     gate = GateConfig(
         num_experts=int(cfg["n_routed_experts"]),
         top_k=int(cfg["num_experts_per_tok"]),
-        scoring="softmax",
+        scoring="sigmoid" if scoring == "sigmoid" or v3 else "softmax",
         group_method=_GROUP_METHODS[topk_method],
         n_group=int(cfg.get("n_group", 1) or 1),
         topk_group=int(cfg.get("topk_group", 1) or 1),
-        norm_topk_prob=bool(cfg.get("norm_topk_prob", False)),
+        norm_topk_prob=bool(cfg.get("norm_topk_prob", v3)),
         routed_scaling_factor=float(cfg.get("routed_scaling_factor", 1.0)),
+        has_correction_bias=topk_method == "noaux_tc",
     )
     moe = MoESpec(
         num_experts=int(cfg["n_routed_experts"]),
@@ -134,7 +160,7 @@ def _deepseek_v2_spec(cfg: dict) -> ModelSpec:
         moe_layer_freq=int(cfg.get("moe_layer_freq", 1)),
     )
     return ModelSpec(
-        model_type="deepseek_v2",
+        model_type=model_type,
         vocab_size=int(cfg["vocab_size"]),
         hidden_size=int(cfg["hidden_size"]),
         num_layers=int(cfg["num_hidden_layers"]),
@@ -206,7 +232,12 @@ def _mixtral_spec(cfg: dict) -> ModelSpec:
     )
 
 
-_TRANSLATORS = {"deepseek_v2": _deepseek_v2_spec, "mixtral": _mixtral_spec}
+_TRANSLATORS = {
+    "deepseek_v2": lambda c: _deepseek_spec(c, "deepseek_v2"),
+    "deepseek_v3": lambda c: _deepseek_spec(c, "deepseek_v3"),
+    "kimi_k2": lambda c: _deepseek_spec(c, "deepseek_v3"),
+    "mixtral": _mixtral_spec,
+}
 
 
 def spec_from_hf_config(cfg: Any) -> ModelSpec:
@@ -251,6 +282,24 @@ DEEPSEEK_V2_LITE = dict(
 )
 
 
+# DeepSeek-V3 (deepseek-ai/DeepSeek-V3 config.json, the JAX package's
+# models/registry.py _DS_V3); DeepSeek-R1 has the same architecture.
+DEEPSEEK_V3 = dict(
+    model_type="deepseek_v3", vocab_size=129280, hidden_size=7168,
+    intermediate_size=18432, moe_intermediate_size=2048,
+    num_hidden_layers=61, num_attention_heads=128, num_key_value_heads=128,
+    n_shared_experts=1, n_routed_experts=256, num_experts_per_tok=8,
+    n_group=8, topk_group=4, first_k_dense_replace=3, norm_topk_prob=True,
+    routed_scaling_factor=2.5, scoring_func="sigmoid",
+    topk_method="noaux_tc", kv_lora_rank=512, q_lora_rank=1536,
+    qk_rope_head_dim=64, qk_nope_head_dim=128, v_head_dim=128,
+    rms_norm_eps=1e-6, rope_theta=10000.0, max_position_embeddings=163840,
+    rope_scaling=dict(type="yarn", factor=40.0, beta_fast=32, beta_slow=1,
+                      mscale=1.0, mscale_all_dim=1.0,
+                      original_max_position_embeddings=4096),
+)
+
+
 # Mixtral-8x7B (mistralai/Mixtral-8x7B-Instruct-v0.1 config.json, as the
 # JAX package's model registry lists it).
 MIXTRAL_8X7B = dict(
@@ -267,3 +316,4 @@ MIXTRAL_8X7B = dict(
     rope_theta=1000000.0,
     max_position_embeddings=32768,
 )
+

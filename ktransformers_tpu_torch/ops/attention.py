@@ -87,3 +87,15 @@ def mla_decode(q_nope_eff, q_pe, ckv, kpe, lengths, *, scale: float):
         q_nope_eff[:, :, 0].contiguous(), q_pe[:, :, 0].contiguous(), ckv,
         kpe, lengths.to(torch.int32), scale,
     )[:, :, None]
+
+
+def absorb_kv_b_proj(kv_b_proj: torch.Tensor, num_heads: int,
+                     qk_nope_head_dim: int, v_head_dim: int):
+    """Split a dense kv_b_proj [R, H * (nope + v)] into the absorbed
+    matrices (w_uk [H, nope, R], w_uv [H, R, v]), as the JAX package's
+    absorb_kv_b_proj does."""
+    r = kv_b_proj.shape[0]
+    w = kv_b_proj.reshape(r, num_heads, qk_nope_head_dim + v_head_dim)
+    w_uk = w[:, :, :qk_nope_head_dim].permute(1, 2, 0).contiguous()
+    w_uv = w[:, :, qk_nope_head_dim:].permute(1, 0, 2).contiguous()
+    return w_uk, w_uv

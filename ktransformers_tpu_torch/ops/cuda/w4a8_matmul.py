@@ -268,15 +268,14 @@ def grouped_tiles(group_sizes: torch.Tensor, m: int, mr: int):
 
 def sorted_row_experts(group_sizes: torch.Tensor, m: int) -> torch.Tensor:
     """Expert of each of m rows sorted by expert (group_sizes [E]): int64
-    [m], -1 for the rows past sum(group_sizes). What the plain versions of
-    the grouped kernels walk."""
-    e = group_sizes.shape[0]
-    row_expert = torch.repeat_interleave(
-        torch.arange(e, device=group_sizes.device),
-        group_sizes.to(torch.int64))[:m]
-    pad = torch.full((m - row_expert.shape[0],), -1, dtype=torch.int64,
-                     device=group_sizes.device)
-    return torch.cat([row_expert, pad])
+    [m], -1 for the rows past sum(group_sizes), found on the device with no
+    host sync. What the plain versions of the grouped kernels and
+    ops/moe.py's plain products walk."""
+    ends = torch.cumsum(group_sizes.to(torch.int64), 0)
+    rows = torch.arange(m, device=group_sizes.device)
+    row_expert = torch.searchsorted(ends, rows, right=True)
+    return torch.where(row_expert < group_sizes.shape[0], row_expert,
+                       torch.full_like(row_expert, -1))
 
 
 def lift(w: QTensor) -> QTensor:

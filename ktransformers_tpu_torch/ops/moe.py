@@ -15,8 +15,15 @@ hooks choose it (ops/pallas/__init__.py):
   for repacked int4 weights, with the GLU between them in x.dtype;
 - every other kernel kind (int8, fp8, int4 kinds not repacked, mxfp4,
   mxfp8) runs two matmuls with the weight decoded in the kernel
-  (gathered_quant_matmul / grouped_quant_matmul), the GLU likewise.
-Expert kinds with no kernel raise. Per-expert LoRA factors
+  (gathered_quant_matmul / grouped_quant_matmul), the GLU likewise;
+- the kinds no kernel takes in either package (PLAIN_KINDS: bf16 with
+  bf16 or float32 data, int8_g, int8_gz) run the JAX package's plain XLA
+  products in plain PyTorch, on any device: the gathered einsum over the
+  routed experts' codes (its gathered_matmul) and, on the sorted rows,
+  the dequantized weights in the compute dtype (the ragged_dot of its
+  grouped_matmul). Both take each row's expert on the device, with no host
+  sync, over chunks of rows that bound the gathered weights' memory.
+Any other kind raises. Per-expert LoRA factors
 (MoEWeights.lora, the SFT path) are added after each expert matmul, as the
 JAX package adds them, and keep the routes off the fused FFN kernels. A
 call whose input needs a gradient runs its kernels through the
@@ -48,6 +55,7 @@ from ktransformers_tpu_torch.ops.cuda.w4a8_ffn import (
 from ktransformers_tpu_torch.ops.cuda.w4a8_matmul import (
     gathered_w4a8_matmul,
     grouped_w4a8_matmul,
+    sorted_row_experts,
 )
 from ktransformers_tpu_torch.ops.vjp import (
     GatheredQuantMatmulFn,
@@ -56,9 +64,13 @@ from ktransformers_tpu_torch.ops.vjp import (
     is_w4a8,
     needs_grad,
 )
-from ktransformers_tpu_torch.quant.formats import QTensor
+from ktransformers_tpu_torch.quant.formats import QTensor, dequantize
 
 DECODE_GATHER_MAX_TOKENS = 8
+# expert kinds with no kernel in either package, run as plain products
+PLAIN_KINDS = ("bf16", "int8_g", "int8_gz")
+# float32 bytes of gathered expert weights a plain product holds at once
+PLAIN_CHUNK_BYTES = 256 << 20
 
 
 @dataclasses.dataclass
@@ -87,10 +99,52 @@ class MoEWeights:
 
 
 def _check_kernel_kind(w: QTensor, what: str) -> None:
-    if w.kind not in KINDS:
+    if w.kind not in KINDS and w.kind not in PLAIN_KINDS:
         raise NotImplementedError(
-            f"{what}: {w.kind} experts have no kernel (the plain expert "
-            "products of the JAX package are not ported, ROADMAP Queue 1)")
+            f"{what}: {w.kind} experts have neither a kernel nor a plain "
+            "product")
+
+
+def _plain_rows(x_rows: torch.Tensor, w: QTensor, row_expert: torch.Tensor,
+                dequant: bool) -> torch.Tensor:
+    """Row r of x_rows [R, K] through expert row_expert[r] of w [E, K, N]
+    (an id outside [0, E): the output row is zero), in plain PyTorch:
+    [R, N] in x_rows.dtype. ``dequant`` False is the JAX gathered einsum
+    (float32 codes; per scale group x_g . q_g, less sum(x_g) * zero, times
+    the scale, groups summed), True its grouped ragged_dot (the weight
+    dequantized to x.dtype, the product in x.dtype). Rows go in chunks
+    whose gathered weights stay within PLAIN_CHUNK_BYTES."""
+    r, kdim = x_rows.shape
+    e, n = w.data.shape[0], w.data.shape[-1]
+    ok = (row_expert >= 0) & (row_expert < e)
+    ids = torch.where(ok, row_expert, torch.zeros_like(row_expert)).long()
+    step = max(1, PLAIN_CHUNK_BYTES // (kdim * n * 4))
+    outs = []
+    for lo in range(0, r, step):
+        sel, xc = ids[lo : lo + step], x_rows[lo : lo + step]
+        if dequant:
+            pick = lambda t: None if t is None else t[sel]  # noqa: E731
+            wd = dequantize(dataclasses.replace(  # [c, K, N]
+                w, data=w.data[sel], scales=pick(w.scales),
+                zeros=pick(w.zeros)), x_rows.dtype)
+            outs.append(torch.bmm(xc[:, None, :], wd)[:, 0])
+            continue
+        q = w.data[sel].to(torch.float32)
+        xf = xc.to(torch.float32)
+        if w.kind == "bf16":
+            outs.append(torch.bmm(xf[:, None, :], q)[:, 0].to(x_rows.dtype))
+            continue
+        g = w.group_size
+        ng = kdim // g
+        xg = xf.reshape(-1, ng, g)
+        part = torch.einsum("cGg,cGgn->cGn", xg, q.reshape(-1, ng, g, n))
+        if w.kind.endswith("_gz"):
+            part = part - xg.sum(dim=-1)[..., None] * w.zeros[sel][:, :ng]
+        outs.append((part * w.scales[sel][:, :ng]).sum(dim=1)
+                    .to(x_rows.dtype))
+    y = torch.cat(outs)
+    return torch.where(ok[:, None], y, torch.zeros((), dtype=y.dtype,
+                                                   device=y.device))
 
 
 def gathered_matmul(x: torch.Tensor, w: QTensor,
@@ -107,6 +161,8 @@ def gathered_matmul(x: torch.Tensor, w: QTensor,
     else:
         x_rows = x.reshape(t * k, kdim)
     ids = ids.reshape(t * k)
+    if w.kind in PLAIN_KINDS:
+        return _plain_rows(x_rows, w, ids, dequant=False).reshape(t, k, -1)
     fn = gathered_w4a8_matmul if is_w4a8(w) else gathered_quant_matmul
     if needs_grad(x_rows):
         y = GatheredQuantMatmulFn.apply(x_rows, w, ids, fn)
@@ -120,6 +176,9 @@ def grouped_matmul(x: torch.Tensor, w: QTensor,
     """x [m, k] rows sorted by group; w [g, k, n]; returns [m, n]. Rows
     past sum(group_sizes) come back zero."""
     _check_kernel_kind(w, "grouped_matmul")
+    if w.kind in PLAIN_KINDS:
+        return _plain_rows(x, w, sorted_row_experts(group_sizes, x.shape[0]),
+                           dequant=True)
     fn = grouped_w4a8_matmul if is_w4a8(w) else grouped_quant_matmul
     if needs_grad(x):
         return GroupedQuantMatmulFn.apply(x, w, group_sizes, fn)
@@ -223,3 +282,20 @@ def moe_forward(x: torch.Tensor, weights: MoEWeights, topk_idx: torch.Tensor,
     inv = torch.empty_like(sort_order)
     inv[sort_order] = torch.arange(sort_order.shape[0], device=x.device)
     return y[inv].reshape(t, k, d).sum(dim=1).to(x.dtype)
+
+
+def moe_forward_dense_reference(x: torch.Tensor, weights: MoEWeights,
+                                topk_idx: torch.Tensor,
+                                topk_weights: torch.Tensor,
+                                act: ActivationConfig = ActivationConfig()
+                                ) -> torch.Tensor:
+    """Every expert for every token, on the dequantized float32 weights
+    (the JAX package's moe_forward_dense_reference). For tests only."""
+    inter = weights.intermediate_size
+    gu = dequantize(weights.gate_up, torch.float32)
+    dn = dequantize(weights.down, torch.float32)
+    h = torch.einsum("td,edf->tef", x.to(torch.float32), gu)
+    a = glu_activate(h[..., :inter], h[..., inter:], act)
+    y = torch.einsum("tef,efd->ted", a, dn)
+    sel = torch.take_along_dim(y, topk_idx.long()[:, :, None], dim=1)
+    return (sel * topk_weights[:, :, None]).sum(dim=1).to(x.dtype)

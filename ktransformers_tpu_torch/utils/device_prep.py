@@ -58,13 +58,16 @@ def _concat_out(parts):
 
 def fuse_qkv_projections(params, spec):
     """Merge each layer's attention input projections into one matmul (one
-    launch and one activation quant instead of two or three): MLA q_proj +
-    kv_a -> "qkv_a", GQA q_proj + k_proj + v_proj -> "qkv". Layers with
+    launch and one activation quant instead of two or three): MLA q_proj
+    (q_a with q_lora_rank) + kv_a -> "qkv_a", GQA q_proj + k_proj + v_proj
+    -> "qkv". Layers with
     biases, differing formats or a LoRA adapter on a part keep theirs.
     Mutates params in place."""
-    if spec.attention.kind == "mla":
-        names, fkey = ("q_proj", "kv_a"), "qkv_a"
-        biases = ("q_proj_bias", "kv_a_bias")
+    a = spec.attention
+    if a.kind == "mla":
+        q = "q_a" if a.q_lora_rank else "q_proj"
+        names, fkey = (q, "kv_a"), "qkv_a"
+        biases = (q + "_bias", "kv_a_bias")
     else:
         names, fkey = ("q_proj", "k_proj", "v_proj"), "qkv"
         biases = ("q_bias", "k_bias", "v_bias")

@@ -1658,3 +1658,31 @@ def test_gqa_decode_routes(cuda):
                                            0.088, kernel="first")
     launch()
     assert _rel(first, PA.gqa_paged_decode_ref(*args, 0.088)) <= 1e-2
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8_g"])
+@pytest.mark.parametrize("t", [3, 12])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_expert_products_on_card(cuda, kind, t, dtype):
+    """Experts of the kinds no kernel takes (ops/moe.py PLAIN_KINDS) run
+    the plain products on the card: the gather path (3 tokens) and the
+    grouped path (12) equal the CPU's within 1e-5 (float32) / 1e-2 (bf16),
+    and no custom kernel launches."""
+    from ktransformers_tpu_torch.ops.moe import MoEWeights, moe_forward
+    from ktransformers_tpu_torch.quant.formats import quantize
+
+    rng = np.random.default_rng(t)
+    gu = quantize(_x(rng, 6, 128, 96) * 0.1, kind, 32)
+    dn = quantize(_x(rng, 6, 48, 128) * 0.1, kind, 32)
+    idx = torch.from_numpy(np.stack([rng.permutation(6)[:2]
+                                     for _ in range(t)]))
+    w = torch.from_numpy(rng.random((t, 2)).astype(np.float32))
+    x = _x(rng, t, 128).to(getattr(torch, dtype))
+    ref = moe_forward(x, MoEWeights(gu, dn), idx, w)
+    before = (dict(LAUNCHES), dict(ROUTED_LAUNCHES))
+    out = moe_forward(x.to(cuda), MoEWeights(gu.to(cuda), dn.to(cuda)),
+                      idx.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert (dict(LAUNCHES), dict(ROUTED_LAUNCHES)) == before
+    assert out.device.type == "cuda" and out.dtype == x.dtype
+    assert _rel(out, ref) <= (1e-5 if dtype == "float32" else 1e-2)

@@ -404,7 +404,8 @@ def test_w4a8_experts_outside_the_fused_ffn_raise():
     swiglu_limit) run through the unfused W4A8 matmuls, as in the JAX
     package: gathered_w4a8_matmul at decode, grouped_w4a8_matmul at
     prefill, the GLU between them, never a plain product. Experts of a
-    kind no kernel takes (int8_g) still raise NotImplementedError."""
+    kind no kernel takes (int8_g) run the plain product; a kind that
+    neither covers still raises NotImplementedError."""
     from ktransformers_tpu_torch.ops.activations import (
         ActivationConfig,
         glu_activate,
@@ -434,9 +435,15 @@ def test_w4a8_experts_outside_the_fused_ffn_raise():
                                    rtol=1e-5, atol=1e-5)
     g8 = quantize(torch.from_numpy(
         rng.standard_normal((4, 128, 64)).astype(np.float32)), "int8_g")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        moe_forward(torch.zeros(2, 128), MoEWeights(g8, dn),
-                    torch.zeros(2, 2, dtype=torch.int64), torch.ones(2, 2))
+    d8 = quantize(torch.from_numpy(
+        rng.standard_normal((4, 32, 128)).astype(np.float32)), "int8_g")
+    x = torch.from_numpy(rng.standard_normal((2, 128)).astype(np.float32))
+    idx = torch.zeros(2, 2, dtype=torch.int64)
+    out = moe_forward(x, MoEWeights(g8, d8), idx, torch.ones(2, 2))
+    assert out.shape == (2, 128) and bool(torch.isfinite(out).all())
+    with pytest.raises(NotImplementedError, match="neither a kernel"):
+        moe_forward(x, MoEWeights(dataclasses.replace(g8, kind="int2"), d8),
+                    idx, torch.ones(2, 2))
 
 
 # --------------------------------------------------- mla_decode_attention

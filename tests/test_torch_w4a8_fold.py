@@ -452,10 +452,11 @@ def test_gathered_gemv_fold(cuda, dtype, rows, e, k, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m", [2, 8, 48, 64, 256])
-@pytest.mark.parametrize("k, n, gs", [(2048, 3648, 128), (10944, 2048, 96)])
+@pytest.mark.parametrize("k, n, gs", [(2048, 3648, 128), (10944, 2048, 96),
+                                      (7168, 2112, 128), (1536, 24576, 128)])
 def test_dense_mma_fold(cuda, dtype, m, k, n, gs):
     """Row 1 from M = 2 on w4a8_mma_kernel, on both sides of the
-    crossover."""
+    crossover; DeepSeek-V3's qkv_a and q_b."""
     w, x, _ = _draw(cuda, m + k)
     wt, xs = w((k, n), gs), x(m, k, dtype=dtype)
     fits = MM.mma_fold_fits(m, k, gs, MM.MMA_STAGES, 64)
@@ -514,10 +515,14 @@ def test_dense_ffn_gemv_fold(cuda, dtype, k, inter, gs):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m", [2, 8, 48, 64, 256])
-@pytest.mark.parametrize("k, inter, gs", [(2048, 2816, 128), (1536, 256, 96)])
+@pytest.mark.parametrize("k, inter, gs", [(2048, 2816, 128), (1536, 256, 96),
+                                          (7168, 2048, 128),
+                                          (7168, 18432, 128)])
 def test_dense_ffn_mma_fold(cuda, dtype, m, k, inter, gs):
     """Row 3 from M = 2 on w4a8_ffn_mma_kernel, on both sides of the
-    crossover; a gate_up group of 96."""
+    crossover; a gate_up group of 96; DeepSeek-V3's shared expert and
+    dense MLP, whose folded A tile at K = 7168 nearly fills the shared
+    memory beside the ring."""
     w, x, _ = _draw(cuda, m + inter)
     gu, dn = w((k, 2 * inter), gs), w((inter, k))
     xs = x(m, k, dtype=dtype)

@@ -37,7 +37,11 @@ Phases (any failure exits non-zero before the final line):
             1-4, 7 and 8 runs its kernel folded (quantizing x itself)
             and unfolded on the codes of a prep launch, which must give
             the same bits, and times the folded kernel beside prep +
-            unfolded kernel;
+            unfolded kernel; then the same W4A8 rows (1-4, 7, 8 and the
+            prep) on int4_gz at group 32 and 16 and per-channel int4
+            (zero_point_kernel_checks: the zero term, groups 32 / 16 on
+            the tensor cores, a per-channel down group on the FFN's split
+            route) at M = 1, 8, 256, 264;
 4. parity:  the full-width config cut to 2 layers, the same synthetic
             weights on the CPU (plain versions) and on the card (kernels),
             float32 compute: a 64-token prefill and 4 decode steps through
@@ -140,7 +144,18 @@ Phases (any failure exits non-zero before the final line):
             launches per step held to V3_STEP_LAUNCHES /
             V3_ENGINE_STEP_LAUNCHES; then the same 6 layers with int8
             weights: one Generator request and the ServeEngine's 8 held
-            to the Generator at NEAR_TIE.
+            to the Generator at NEAR_TIE;
+16. gguf:   DeepSeek-V2-Lite's published shape cut to 4 layers written as a
+            GGUF file (Q4_K matmuls and lm_head, Q4_1 where the input
+            width is no multiple of 256, one layer's experts' down in
+            Q8_0, F16 embedding; ~1.6 GB in a temporary directory) with
+            the port's write_gguf, read back by spec_from_gguf_fields and
+            GGUFProvider + build_params(exact_gguf=True), a sample
+            dequantized against decode_ggml, prepared for W4A8 (every W4A8
+            weight int4_gz), parity card vs CPU by v3_parity's rule, then
+            one request of 256 + 32 tokens, the ServeEngine's 8 requests
+            at depth 3 and the four profiled steps; every W4A8 call on a
+            redesigned kernel (gguf_serve).
 Prints a kernels JSON line (the eighteen wrappers, then the thirteen
 redesigned kernels, whose launches are those of their wrappers' calls
 that took them; the MLA kernels must have launched on the single-user
@@ -454,16 +469,42 @@ def ffn_up(x, gu, dn, row_expert, used, library=None):
 
     r, k = x.shape
     inter = gu.out_features // 2
-    gs_dn = dn.group_size
+    gs_dn = MM.group_of(dn)
+    hasz = dn.zeros is not None
     gu3 = MM.lift(gu) if gu.data.dim() == 2 else gu
     dn3 = MM.lift(dn) if dn.data.dim() == 2 else dn
-    mid = r * (inter + 12 * (inter // gs_dn))
+    mid = r * (inter + (16 if hasz else 12) * (inter // gs_dn))
     return dict(
-        plain=lambda: F.gate_up_ref(x, gu3, gs_dn, row_expert),
-        bytes=used * nbytes(gu3.data[0], gu3.scales[0]) + nbytes(x)
+        plain=lambda: F.gate_up_ref(x, gu3, gs_dn, row_expert, "silu",
+                                    hasz),
+        bytes=used * nbytes(*weight_parts(gu3, 0)) + nbytes(x)
         + mid, ops=2 * r * 2 * inter * k, library=library,
-        down_bytes=used * nbytes(dn3.data[0], dn3.scales[0]) + mid
+        down_bytes=used * nbytes(*weight_parts(dn3, 0)) + mid
         + r * k * 2, down_ops=2 * r * inter * k)
+
+
+def weight_parts(wt, e=None) -> tuple:
+    """The tensors a kernel reads of a W4A8 weight (of expert e of a 3-D
+    one): codes, scales and zero points where it has them."""
+    parts = (wt.data, wt.scales, wt.zeros)
+    return parts if e is None else tuple(
+        None if t is None else t[e] for t in parts)
+
+
+def fold_fits(route, m, k, gs, hasz, stages, bn) -> bool:
+    """Whether a W4A8 call's kernel takes x folded at all (fold_pair's
+    ``fits``): the GEMV at scale groups of up to 128 (a per-channel group
+    is cut into unit runs, which a fold cannot quantize), the tensor-core
+    kernels where the group is one of theirs and the A tile fits beside
+    the ring."""
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+
+    if gs > MM.FOLD_MAX_GROUP:
+        return False
+    if route == "gemv":
+        return True
+    return (route == "mma" and not MM.mma_wide(gs, k)
+            and MM.mma_fold_fits(m, k, gs, stages, bn, zeros=hasz))
 
 
 def dense_w4a8_check(check, x, wt, label, sms, main=False,
@@ -478,22 +519,23 @@ def dense_w4a8_check(check, x, wt, label, sms, main=False,
 
     m, k = x.shape
     n = wt.out_features
+    gs, hasz = MM.group_of(wt), wt.zeros is not None
     wdq = dequantize(wt, torch.bfloat16)
+    route = MM.route(m, "dense", gs, n, k)
     check("dense_w4a8_matmul", label, 1e-2,
           lambda: MM.dense_w4a8_matmul(x, wt),
           lambda: MM.w4a8_matmul_ref(x, wt),
           lambda: MM.dense_w4a8_launcher(x, wt),
-          nbytes(x, wt.data, wt.scales) + m * n * 2, 2 * m * n * k,
+          nbytes(x, *weight_parts(wt)) + m * n * 2, 2 * m * n * k,
           INT8_OPS_PER_S, library=lambda: torch.matmul(x, wdq), main=main,
           kernel_main=kernel_main, plain_iters=2 if m > 64 else 5,
           fold=fold_pair(
               lambda f: MM.dense_w4a8_launcher(x, wt, None, f),
-              lambda: MM.prep_activations(x, k, wt.group_size),
-              MM.gemv_call_folds(n, 1, 1, k, wt.group_size, sms)
-              if m == 1 else MM.folds("mma", m, k, wt.group_size),
-              m == 1 or MM.mma_fold_fits(m, k, wt.group_size,
-                                         MM.MMA_STAGES, 64)),
-          **routed(W4A8_ROUTES, MM.route(m, "dense", wt.group_size, n),
+              lambda: MM.prep_activations(x, k, wt.group_size, hasz),
+              MM.gemv_call_folds(n, 1, 1, k, gs, sms)
+              if m == 1 else MM.folds(route, m, k, gs, hasz),
+              fold_fits(route, m, k, gs, hasz, MM.MMA_STAGES, 64)),
+          **routed(W4A8_ROUTES, route,
                    lambda: MM.dense_w4a8_launcher(x, wt, "rows")))
 
 
@@ -508,27 +550,28 @@ def dense_ffn_check(check, x, sgu, sdn, label, sms, main=False):
 
     m, d = x.shape
     inter = sdn.in_features
-    gs = sgu.group_size
-    route = F.ffn_route(m, "dense", gs, sdn.group_size, inter, d)
+    gs, gs_dn = MM.group_of(sgu), MM.group_of(sdn)
+    hasz = sgu.zeros is not None
+    route = F.ffn_route(m, "dense", gs, gs_dn, inter, d)
     gdq = dequantize(sgu, torch.bfloat16) if route == "gemv" else None
+    folds = (F.ffn_gemv_call_folds(1, 1, inter, gs_dn, d, gs, sms)
+             if route == "gemv" else F.ffn_folds(route, m, d, gs, hasz))
     check("dense_w4a8_ffn", label, 3e-2,
           lambda: F.dense_w4a8_ffn(x, sgu, sdn),
           lambda: F.dense_w4a8_ffn_ref(x, sgu, sdn),
           lambda: F.dense_launcher(x, sgu, sdn),
-          nbytes(sgu.data, sgu.scales, sdn.data, sdn.scales)
+          nbytes(*weight_parts(sgu), *weight_parts(sdn))
           + 2 * nbytes(x), 2 * m * 3 * d * inter, INT8_OPS_PER_S,
           main=main, plain_iters=2 if m > 64 else 5,
           up=None if gdq is None else ffn_up(
               x, sgu, sdn, torch.zeros(1, dtype=torch.int64,
                                        device=x.device),
               1, lambda: torch.matmul(x, gdq)),
-          fold=fold_pair(
+          fold=None if route == "split" else fold_pair(
               lambda fo: F.dense_launcher(x, sgu, sdn, "silu", None, fo),
-              lambda: MM.prep_activations(x, d, gs),
-              F.ffn_gemv_call_folds(1, 1, inter, sdn.group_size, d, gs, sms)
-              if route == "gemv" else F.ffn_folds(route, m, d, gs),
-              route == "gemv" or MM.mma_fold_fits(
-                  m, d, gs, F.FFN_MMA_STAGES, 256)),
+              lambda: MM.prep_activations(x, d, sgu.group_size, hasz),
+              folds, fold_fits(route, m, d, gs, hasz, F.FFN_MMA_STAGES,
+                               256)),
           **routed(FFN_ROUTES, route,
                    lambda: F.dense_launcher(x, sgu, sdn, "silu", "rows")))
 
@@ -543,20 +586,21 @@ def gathered_mm_check(check, x, wt, ids, label, main=False):
 
     rows, k = x.shape
     e, n = wt.data.shape[0], wt.out_features
+    gs, hasz = MM.group_of(wt), wt.zeros is not None
     used = int(torch.unique(ids).numel())
+    route = MM.route(rows, "gathered", gs, n, k)
     check("gathered_w4a8_matmul", label, 1e-2,
           lambda: MM.gathered_w4a8_matmul(x, wt, ids),
           lambda: MM.gathered_w4a8_matmul_ref(x, wt, ids),
           lambda: MM.gathered_launcher(x, wt, ids),
-          nbytes(x) + used * nbytes(wt.data[0], wt.scales[0]) + rows * n * 2,
+          nbytes(x) + used * nbytes(*weight_parts(wt, 0)) + rows * n * 2,
           2 * rows * n * k, INT8_OPS_PER_S, main=main, plain_iters=3,
           fold=fold_pair(
               lambda f: MM.gathered_launcher(x, wt, ids, None, f),
-              lambda: MM.prep_activations(x, k, wt.group_size),
-              MM.gemv_call_folds(n, rows, e, k, wt.group_size,
-                                 MM.sm_count(x.device))),
-          **routed(W4A8_ROUTES,
-                   MM.route(rows, "gathered", wt.group_size, n),
+              lambda: MM.prep_activations(x, k, wt.group_size, hasz),
+              MM.gemv_call_folds(n, rows, e, k, gs, MM.sm_count(x.device)),
+              fold_fits(route, rows, k, gs, hasz, MM.MMA_STAGES, 64)),
+          **routed(W4A8_ROUTES, route,
                    lambda: MM.gathered_launcher(x, wt, ids, "rows")))
 
 
@@ -568,20 +612,21 @@ def grouped_mm_check(check, x, wt, sizes, label, library=None, main=False):
 
     rows, k = x.shape
     n = wt.out_features
+    gs, hasz = MM.group_of(wt), wt.zeros is not None
     used = int((sizes > 0).sum())
+    route = MM.route(rows, "grouped", gs, n, k)
     check("grouped_w4a8_matmul", label, 1e-2,
           lambda: MM.grouped_w4a8_matmul(x, wt, sizes),
           lambda: MM.grouped_w4a8_matmul_ref(x, wt, sizes),
           lambda: MM.grouped_launcher(x, wt, sizes),
-          nbytes(x) + used * nbytes(wt.data[0], wt.scales[0]) + rows * n * 2,
+          nbytes(x) + used * nbytes(*weight_parts(wt, 0)) + rows * n * 2,
           2 * rows * n * k, INT8_OPS_PER_S, library=library, main=main,
           plain_iters=2, iters=10, fold=fold_pair(
               lambda f: MM.grouped_launcher(x, wt, sizes, None, f),
-              lambda: MM.prep_activations(x, k, wt.group_size),
-              MM.folds(MM.route(rows, "grouped", wt.group_size, n), rows, k,
-                       wt.group_size),
-              MM.mma_fold_fits(rows, k, wt.group_size, MM.MMA_STAGES, 64)),
-          **routed(W4A8_ROUTES, MM.route(rows, "grouped", wt.group_size, n),
+              lambda: MM.prep_activations(x, k, wt.group_size, hasz),
+              MM.folds(route, rows, k, gs, hasz),
+              fold_fits(route, rows, k, gs, hasz, MM.MMA_STAGES, 64)),
+          **routed(W4A8_ROUTES, route,
                    lambda: MM.grouped_launcher(x, wt, sizes, "rows")))
 
 
@@ -2029,7 +2074,8 @@ def _is_port_kernel(name: str) -> bool:
                                    "mla_paged_decode_split_kernel",
                                    "gqa_prefill_mma_kernel",
                                    "w4a8_ffn_gemv_kernel",
-                                   "gqa_decode_split_kernel"))
+                                   "gqa_decode_split_kernel",
+                                   "w4a8_prep_block_kernel"))
 
 
 # first-version instantiations no call of the main paths should take: the
@@ -2687,8 +2733,10 @@ def dequant_experts(wt, step: int = 16) -> torch.Tensor:
     out = torch.empty(e, wt.in_features, wt.out_features,
                       dtype=torch.bfloat16, device=wt.data.device)
     for lo in range(0, e, step):
-        part = dataclasses.replace(wt, data=wt.data[lo : lo + step],
-                                   scales=wt.scales[lo : lo + step])
+        part = dataclasses.replace(
+            wt, data=wt.data[lo : lo + step],
+            scales=wt.scales[lo : lo + step],
+            zeros=None if wt.zeros is None else wt.zeros[lo : lo + step])
         out[lo : lo + step] = dequantize(part, torch.bfloat16)
     return out
 
@@ -3159,6 +3207,530 @@ def mixtral_run(result: dict, rows: list, entries: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------- zero points, per-channel groups, GGUF
+
+# the W4A8 weights of GGUF checkpoints and per-channel int4: int4_gz at
+# group 32 (Q4_K, Q4_1), at group 16 (Q2_K), int4 with one group of all K
+ZP_KINDS = (("int4_gz", 32), ("int4_gz", 16), ("int4", 0))
+ZP_ROWS = (1, 8, 256, 264)
+
+
+def zp_tag(kind: str, gs: int) -> str:
+    return f"{kind} g{gs}" if gs else f"{kind} per-channel"
+
+
+def split_codes(outs):
+    """(codes and scales, sums t and xs), each flattened to float."""
+    return (torch.cat([v.float().flatten() for v in outs[:4]]),
+            torch.cat([v.flatten() for v in outs[4:]]))
+
+
+def ffn_entry_check(check, entry, x, gu, dn, label, sms, ids=None,
+                    sizes=None, kernel_main=False):
+    """Row 2 (gathered_w4a8_ffn, ``ids``) or row 4 (grouped_w4a8_ffn,
+    ``sizes``) on 3-D gate_up [E, K, 2I] / down [E, I, K] through check():
+    the route's kernels held to the plain version, folded = unfolded where
+    the route folds, a one-row-tile call's gate_up half timed apart. Bound:
+    x, the codes, scales and zero points of the experts the rows use, the
+    output."""
+    from ktransformers_tpu_torch.ops.cuda import w4a8_ffn as F
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+
+    r, d = x.shape
+    e, inter = gu.data.shape[0], dn.in_features
+    gs, gs_dn = MM.group_of(gu), MM.group_of(dn)
+    hasz = gu.zeros is not None
+    route = F.ffn_route(r, entry, gs, gs_dn, inter, d)
+    per_expert = nbytes(*weight_parts(gu, 0), *weight_parts(dn, 0))
+    if entry == "gathered":
+        used = int(torch.unique(ids).numel())
+        wrapper = lambda: F.gathered_w4a8_ffn(x, gu, dn, ids)  # noqa: E731
+        plain = lambda: F.gathered_w4a8_ffn_ref(x, gu, dn, ids)  # noqa: E731
+        launcher = lambda k=None, fo=None: F.gathered_launcher(  # noqa: E731
+            x, gu, dn, ids, "silu", k, fo)
+        folds = route == "gemv" and F.ffn_gemv_call_folds(
+            r, e, inter, gs_dn, d, gs, sms)
+    else:
+        used = int((sizes > 0).sum())
+        wrapper = lambda: F.grouped_w4a8_ffn(x, gu, dn, sizes)  # noqa: E731
+        plain = lambda: F.grouped_w4a8_ffn_ref(x, gu, dn, sizes)  # noqa: E731
+        launcher = lambda k=None, fo=None: F.grouped_launcher(  # noqa: E731
+            x, gu, dn, sizes, "silu", k, fo)
+        folds = F.ffn_folds(route, r, d, gs, hasz)
+    check(f"{entry}_w4a8_ffn", label, 3e-2, wrapper, plain, launcher,
+          used * per_expert + 2 * nbytes(x), 2 * r * 3 * d * inter,
+          INT8_OPS_PER_S, plain_iters=2, iters=10, kernel_main=kernel_main,
+          up=ffn_up(x, gu, dn, ids.long(), used)
+          if route == "gemv" else None,
+          fold=None if route == "split" else fold_pair(
+              lambda fo: launcher(None, fo),
+              lambda: MM.prep_activations(x, d, gu.group_size, hasz),
+              folds, fold_fits(route, r, d, gs, hasz, F.FFN_MMA_STAGES,
+                               256)),
+          **routed(FFN_ROUTES, route, lambda: launcher("rows")))
+
+
+def zero_point_kernel_checks(rows: list, entries: dict) -> None:
+    """The W4A8 rows at DeepSeek-V2-Lite's widths for each of ZP_KINDS
+    (the zero term, groups 32 and 16 on the tensor cores, a per-channel
+    group: w4a8_core.cuh, w4a8_mma.cuh, w4a8_gemv.cuh, w4a8_ffn.cu) against
+    their plain versions (see make_check: a second call bit-identical,
+    folded = unfolded where the route folds; timed with the bound and the
+    library call), rows of chip_smoke.json's kernel_rows labelled by kind.
+    The kernels line's entries of the zero-term instantiations (W4A8_ZP)
+    are the int4_gz g32 rows (GGUF Q4_K's) of the shapes the int4_g
+    entries take: qkv_a at M = 1 (the GEMV) and 256 (the tensor-core
+    kernel), the gathered FFN of 6 rows (the FFN GEMV) and the grouped FFN
+    of 1536 rows (the FFN's tensor-core kernel); the block prep's
+    (w4a8_prep_block_kernel) the per-channel prep at M = 264, K = 10944:
+    - the prep with the zero term's sums at K = 2048 and 10944 (a
+      per-channel group of 10944 takes the block prep);
+    - row 1 at M = 1, 8, 256, 264: qkv_a 2048 -> 3648, and the layer-0
+      down 10944 -> 2048 at M = 1 and 264;
+    - row 3 (the shared experts, I = 2816) at the same M;
+    - rows 7 and 2 (64 experts, 2048 -> 2 x 1408 -> 2048) at 6 and 48
+      routed rows (1 and 8 tokens x top-6), rows 8 and 4 at 48, 1536 and
+      1584 sorted rows (8, 256, 264 tokens) with torch._grouped_mm on the
+      bf16-dequantized experts as row 8's library yardstick.
+    A per-channel down group takes the FFN's "split" route (the gate_up
+    matmul into a float32 plane, kt_w4a8_glu_prep, the down matmul)."""
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+    from ktransformers_tpu_torch.quant.w4a8 import repack_offset_lo, w4a8_prep
+
+    dev = torch.device("cuda")
+    zp_entries = {}  # the kernel_main rows, keyed by the kernel's name
+    check = make_check(rows, zp_entries)
+    rd, rn, _ = draw(4004)
+    sms = MM.sm_count(dev)
+    e, d, f, top = 64, 2048, 1408, 6
+    g_cpu = torch.Generator().manual_seed(4)
+
+    def routing(tokens):
+        return torch.stack([torch.randperm(e, generator=g_cpu)[:top]
+                            for _ in range(tokens)]).to(dev)
+
+    t0 = time.perf_counter()
+    for kind, gs in ZP_KINDS:
+        tag = zp_tag(kind, gs)
+        ent = (kind, gs) == ("int4_gz", 32)  # the kernels line's rows
+
+        def w(shape):
+            return repack_offset_lo(rd.q(shape, kind, gs))
+
+        for m, k in ((1, d), (264, 10944)):
+            x = rn(m, k)
+            g = gs or k
+            check("w4a8_prep", f"{tag} M={m} K={k}", 0.0,
+                  lambda: split_codes(MM.prep_activations(x, k, gs, True)),
+                  lambda: split_codes(w4a8_prep(x, k, gs)),
+                  lambda: (lambda: MM.prep_activations(x, k, gs, True),
+                           None),
+                  nbytes(x) + m * k + 4 * m * (k // g) * 4, 0,
+                  INT8_OPS_PER_S, side_tol=1e-5, iters=10,
+                  expect=lambda: tuple(v.to(dev) for v in split_codes(
+                      w4a8_prep(x.cpu(), k, gs))))
+            if g > MM.PREP_WARP_MAX_GROUP and m == 264:
+                entries["w4a8_prep_block_kernel"] = rows[-1]
+        for k, n, what, ms in ((d, 3648, "qkv_a", ZP_ROWS),
+                               (10944, d, "layer-0 down", (1, 264))):
+            wt = w((k, n))
+            for m in ms:
+                dense_w4a8_check(
+                    check, rn(m, k), wt, f"{tag} {what} {k}->{n} M={m}",
+                    sms, kernel_main=ent and what == "qkv_a" and m in (1, 256))
+            del wt
+        sgu, sdn = w((d, 2 * 2816)), w((2816, d))
+        for m in ZP_ROWS:
+            dense_ffn_check(check, rn(m, d), sgu, sdn,
+                            f"{tag} shared I=2816 M={m}", sms)
+        del sgu, sdn
+        gu, dn = w((e, d, 2 * f)), w((e, f, d))
+        for tokens in (1, 8):
+            ids = routing(tokens).reshape(-1).to(torch.int32)
+            x = rn(ids.shape[0], d)
+            label = f"{tag} {ids.shape[0]} rows ({tokens} tok x 6)"
+            gathered_mm_check(check, x, gu, ids, label + " gate_up")
+            ffn_entry_check(check, "gathered", x, gu, dn, label, sms,
+                            ids=ids, kernel_main=ent and tokens == 1)
+        wdq = dequant_experts(gu)
+        for tokens in (8, 256, 264):
+            sizes = torch.bincount(routing(tokens).reshape(-1),
+                                   minlength=e).to(torch.int32)
+            x = rn(tokens * top, d)
+            label = f"{tag} {tokens * top} sorted rows ({tokens} tok x 6)"
+            grouped_mm_check(check, x, gu, sizes, label + " gate_up",
+                             library=grouped_mm(x, wdq, sizes))
+            ffn_entry_check(check, "grouped", x, gu, dn, label, sms,
+                            sizes=sizes, kernel_main=ent and tokens == 256)
+        del gu, dn, wdq
+        torch.cuda.empty_cache()
+    for name, zp in zip(W4A8_REDESIGNED, W4A8_ZP):
+        entries[zp] = zp_entries[name]
+    log(f"zero-point kernel rows: {time.perf_counter() - t0:.1f} s")
+
+
+# DeepSeek-V2-Lite's published shape (bench_model_cfg) cut to 4 layers for
+# the GGUF phase: layer 0 dense, 1-3 MoE
+GGUF_LAYERS = 4
+GGUF_SEED = 14
+
+
+def gguf_fields(cfg: dict) -> dict:
+    """llama.cpp metadata of a DeepSeek-V2 checkpoint (general.architecture
+    deepseek2) for the config ``cfg``: what spec_from_gguf_fields reads."""
+    a = "deepseek2"
+    return {
+        "general.architecture": a, "general.name": "DeepSeek-V2-Lite",
+        f"{a}.block_count": cfg["num_hidden_layers"],
+        f"{a}.embedding_length": cfg["hidden_size"],
+        f"{a}.feed_forward_length": cfg["intermediate_size"],
+        f"{a}.attention.head_count": cfg["num_attention_heads"],
+        f"{a}.attention.head_count_kv": cfg["num_key_value_heads"],
+        f"{a}.attention.layer_norm_rms_epsilon": cfg["rms_norm_eps"],
+        f"{a}.rope.freq_base": cfg["rope_theta"],
+        f"{a}.context_length": cfg["max_position_embeddings"],
+        f"{a}.vocab_size": cfg["vocab_size"],
+        f"{a}.expert_count": cfg["n_routed_experts"],
+        f"{a}.expert_used_count": cfg["num_experts_per_tok"],
+        f"{a}.expert_feed_forward_length": cfg["moe_intermediate_size"],
+        f"{a}.expert_shared_count": cfg["n_shared_experts"],
+        f"{a}.expert_weights_scale": cfg["routed_scaling_factor"],
+        f"{a}.leading_dense_block_count": cfg["first_k_dense_replace"],
+        f"{a}.attention.kv_lora_rank": cfg["kv_lora_rank"],
+        f"{a}.attention.q_lora_rank": 0,
+        f"{a}.rope.dimension_count": cfg["qk_rope_head_dim"],
+        f"{a}.attention.key_length": cfg["qk_nope_head_dim"]
+        + cfg["qk_rope_head_dim"],
+        f"{a}.attention.value_length": cfg["v_head_dim"],
+    }
+
+
+def gguf_tensors(cfg: dict, rng) -> dict:
+    """The checkpoint's tensors in ggml blocks from ``rng``
+    (loader/gguf_writer.random_blocks: random codes, block scales that give
+    each weight a standard deviation of 1 / sqrt(its input width), so that
+    activations stay of order one): every matmul weight and the lm_head in
+    Q4_K, as a Q4_K_M file holds them, where the input width is a multiple
+    of the 256-value k-quant block; the layer-0 down (input 10944) and the
+    routed experts' down (input 1408) are not, and there llama.cpp's Q4_K_M
+    falls back to another block: here Q4_1 (int4_gz, group 32: the same
+    W4A8 kernels), and Q8_0 (int8_g: the plain expert products, as in the
+    JAX package) for the last MoE layer's experts' down, where a Q4_K_M
+    file asks for Q6_K and falls back to Q8_0. The embedding in F16 (std
+    1), norms ones and the router (std 1 / sqrt(hidden)) in F32."""
+    from ktransformers_tpu_torch.loader.gguf_writer import random_blocks
+
+    d, h = cfg["hidden_size"], cfg["num_attention_heads"]
+    nope, rope, v = (cfg["qk_nope_head_dim"], cfg["qk_rope_head_dim"],
+                     cfg["v_head_dim"])
+    r, e = cfg["kv_lora_rank"], cfg["n_routed_experts"]
+    inter, mi = cfg["intermediate_size"], cfg["moe_intermediate_size"]
+    shared = cfg["n_shared_experts"] * mi
+    layers = cfg["num_hidden_layers"]
+
+    def blocks(tname, *shape):
+        return random_blocks(rng, tname, shape, shape[-1] ** -0.5)
+
+    def ones(n):
+        return np.ones(n, np.float32)
+
+    t = {"token_embd.weight": rng.standard_normal(
+             (cfg["vocab_size"], d), dtype=np.float32).astype(np.float16),
+         "output_norm.weight": ones(d),
+         "output.weight": blocks("Q4_K", cfg["vocab_size"], d)}
+    for li in range(layers):
+        b = f"blk.{li}."
+        t.update({
+            b + "attn_norm.weight": ones(d), b + "ffn_norm.weight": ones(d),
+            b + "attn_q.weight": blocks("Q4_K", h * (nope + rope), d),
+            b + "attn_kv_a_mqa.weight": blocks("Q4_K", r + rope, d),
+            b + "attn_kv_a_norm.weight": ones(r),
+            b + "attn_kv_b.weight": blocks("Q4_K", h * (nope + v), r),
+            b + "attn_output.weight": blocks("Q4_K", d, h * v),
+        })
+        if li < cfg["first_k_dense_replace"]:
+            t.update({b + "ffn_gate.weight": blocks("Q4_K", inter, d),
+                      b + "ffn_up.weight": blocks("Q4_K", inter, d),
+                      b + "ffn_down.weight": blocks("Q4_1", d, inter)})
+            continue
+        down = "Q8_0" if li == layers - 1 else "Q4_1"
+        t.update({
+            b + "ffn_gate_inp.weight": (rng.standard_normal(
+                (e, d), dtype=np.float32) * d ** -0.5),
+            b + "ffn_gate_exps.weight": blocks("Q4_K", e, mi, d),
+            b + "ffn_up_exps.weight": blocks("Q4_K", e, mi, d),
+            b + "ffn_down_exps.weight": blocks(down, e, d, mi),
+            b + "ffn_gate_shexp.weight": blocks("Q4_K", shared, d),
+            b + "ffn_up_shexp.weight": blocks("Q4_K", shared, d),
+            b + "ffn_down_shexp.weight": blocks("Q4_K", d, shared),
+        })
+    return t
+
+
+# one dequantized sample a ggml type: (param path, GGUF name, expert or
+# None, the fused gate||up half: 0 gate, 1 up, or None)
+GGUF_SAMPLES = (
+    (("layers", 0, "attn", "q_proj"), "blk.0.attn_q.weight", None, None),
+    (("layers", 0, "mlp", "down"), "blk.0.ffn_down.weight", None, None),
+    (("layers", 1, "moe", "experts", "gate_up"), "blk.1.ffn_up_exps.weight",
+     5, 1),
+    (("layers", 3, "moe", "experts", "down"), "blk.3.ffn_down_exps.weight",
+     7, None),
+    (("lm_head",), "output.weight", None, None),
+)
+
+
+def gguf_sample_check(params, prov) -> dict:
+    """dequantize of a sample of the repacked tensors (one a ggml type: a
+    Q4_K attention weight, the Q4_1 layer-0 down, an expert's Q4_K up half
+    of the fused gate_up, an expert's Q8_0 down, the Q4_K lm_head) against
+    decode_ggml of the same blocks: within 1e-5 of the largest magnitude
+    (the repack divides each Q4_K / Q4_1 min by its scale once)."""
+    import dataclasses
+
+    from ktransformers_tpu_torch.loader.gguf import decode_ggml
+    from ktransformers_tpu_torch.quant.formats import dequantize
+
+    out = {}
+    for path, gname, expert, half in GGUF_SAMPLES:
+        qt = params
+        for k in path:
+            qt = getattr(qt, k) if isinstance(k, str) and not isinstance(
+                qt, (dict, list)) else qt[k]
+        info = prov.gguf.info(gname)
+        raw = prov.gguf.tensor_file[gname].raw(gname)
+        shape = info.shape
+        if expert is not None:
+            per = raw.size // shape[0]
+            raw, shape = raw[expert * per:(expert + 1) * per], shape[1:]
+            pick = lambda t: None if t is None else t[expert]  # noqa: E731
+            qt = dataclasses.replace(qt, data=qt.data[expert],
+                                     scales=pick(qt.scales),
+                                     zeros=pick(qt.zeros))
+        ref = torch.from_numpy(decode_ggml(raw, info.ggml_type).reshape(
+            shape).T.copy()).to(qt.data.device)
+        got = dequantize(qt, torch.float32)
+        if half is not None:
+            n = got.shape[-1] // 2
+            got = got[..., half * n:(half + 1) * n]
+        mae, rel = rel_err(got, ref)
+        log(f"gguf sample {gname}{'' if expert is None else f'[{expert}]'} "
+            f"{qt.kind} g{qt.group_size}: dequantize vs decode_ggml "
+            f"rel_err={rel:.2e}")
+        if rel > 1e-5:
+            raise AssertionError(f"gguf {gname}: the repack dequantizes to "
+                                 f"other values ({rel})")
+        out[gname] = dict(kind=qt.kind, group_size=qt.group_size,
+                          rel_err=rel)
+    return out
+
+
+W4A8_WRAPPERS = ("dense_w4a8_matmul", "gathered_w4a8_matmul",
+                 "grouped_w4a8_matmul")
+W4A8_FFN_WRAPPERS = ("gathered_w4a8_ffn", "dense_w4a8_ffn",
+                     "grouped_w4a8_ffn")
+W4A8_REDESIGNED = ("w4a8_mma_kernel", "w4a8_gemv_kernel",
+                   "w4a8_ffn_mma_kernel", "w4a8_ffn_gemv_kernel")
+# their instantiations with the zero term (ops/cuda/w4a8_matmul.py:ZP)
+W4A8_ZP = tuple(k + "<zp>" for k in W4A8_REDESIGNED)
+# kernels of the kernels line that no main path runs, and why
+OFF_MAIN_PATHS = {
+    "w4a8_prep_block_kernel": "per-channel int4 weights only (a group of "
+                              "all K); no GGUF block gives them",
+}
+GGUF_KERNELS = ("dense_w4a8_matmul", "gathered_w4a8_ffn", "dense_w4a8_ffn",
+                "grouped_w4a8_ffn", "gathered_w4a8_matmul",
+                "grouped_w4a8_matmul", "mla_decode_fused")
+GGUF_PAGED_KERNELS = ("dense_w4a8_matmul", "gathered_w4a8_ffn",
+                      "dense_w4a8_ffn", "grouped_w4a8_ffn",
+                      "gathered_w4a8_matmul", "grouped_w4a8_matmul",
+                      "mla_paged_decode", "mla_paged_prefill")
+
+
+def hold_w4a8_routes(what: str, launches: dict, routed_n: dict,
+                     zeros: bool = False) -> None:
+    """Every W4A8 wrapper call of a run took redesigned kernels: each matmul
+    call one, each FFN call two (its gate_up and down kernels, or a split
+    call's two matmuls), so their sum equals the redesigned kernels'
+    launches exactly when no call took a first version. With ``zeros``
+    (every W4A8 weight of the run has zero points) only the kernels'
+    instantiations with the zero term count."""
+    calls = (sum(launches.get(k, 0) for k in W4A8_WRAPPERS)
+             + 2 * sum(launches.get(k, 0) for k in W4A8_FFN_WRAPPERS))
+    names = W4A8_ZP if zeros else W4A8_REDESIGNED + W4A8_ZP
+    took = sum(routed_n.get(k, 0) for k in names)
+    log(f"{what}: {calls} W4A8 kernel launches by the wrappers, "
+        f"{took} on the redesigned kernels"
+        + (" with the zero term" if zeros else ""))
+    if calls != took:
+        raise AssertionError(f"{what}: {calls - took} W4A8 launches took a "
+                             "first version"
+                             + (" or dropped the zero term" if zeros else ""))
+
+
+def gguf_serve(result: dict) -> None:
+    """A DeepSeek-V2-Lite GGUF checkpoint into the port on the card:
+    gguf_tensors at the published widths, cut to GGUF_LAYERS layers,
+    written with loader/gguf_writer.write_gguf to a temporary directory
+    (deleted afterwards); spec_from_gguf_fields of its metadata equal to
+    the config's spec; GGUFProvider + build_params(exact_gguf=True) onto
+    the card (the file's codes and block scales as they are,
+    quant/gguf_repack.py); gguf_sample_check; prepare_params (W4A8 on: the
+    int4_gz weights take the W4A8 kernels with their zero term); parity
+    card vs CPU on an 8-token prompt and 4 decode steps by v3_parity's rule
+    (greedy tokens equal except at a near-tie; a row further than
+    NEAR_TIE must follow a token that took other experts on the card);
+    then a Generator answering one request of 256 prompt + 32 new tokens
+    (tok/s), the ServeEngine answering the 8 requests of phase 6 at depth
+    3, and the four profiled steps (device busy and idle share); every W4A8
+    call of both runs on a redesigned kernel (hold_w4a8_routes) and every
+    W4A8 weight int4_gz with zero points."""
+    import tempfile
+
+    from ktransformers_tpu_torch.engine.generate import (
+        GenerateConfig,
+        Generator,
+    )
+    from ktransformers_tpu_torch.loader.gguf_writer import write_gguf
+    from ktransformers_tpu_torch.loader.providers import GGUFProvider
+    from ktransformers_tpu_torch.models.loading import build_params
+    from ktransformers_tpu_torch.models.spec import (
+        spec_from_gguf_fields,
+        spec_from_hf_config,
+    )
+    from ktransformers_tpu_torch.ops.cuda import (
+        LAUNCHES,
+        ROUTED_LAUNCHES,
+        reset_launches,
+    )
+    from ktransformers_tpu_torch.utils.device_prep import (
+        params_to,
+        prepare_params,
+    )
+
+    cfg = dict(bench_model_cfg(), num_hidden_layers=GGUF_LAYERS)
+    rec: dict = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "deepseek-v2-lite-4l-q4_k.gguf")
+        write_gguf(path, gguf_fields(cfg), gguf_tensors(
+            cfg, np.random.default_rng(GGUF_SEED)))
+        rec["file_bytes"] = os.path.getsize(path)
+        rec["write_s"] = time.perf_counter() - t0
+        log(f"gguf: wrote {rec['file_bytes'] / 1e9:.3f} GB in "
+            f"{rec['write_s']:.1f} s")
+        t1 = time.perf_counter()
+        prov = GGUFProvider(path)
+        spec = spec_from_gguf_fields(prov.fields())
+        # GGUF keeps float metadata in float32
+        f32 = {k: float(np.float32(cfg[k]))
+               for k in ("rms_norm_eps", "rope_theta")}
+        if spec != spec_from_hf_config(dict(cfg, **f32)):
+            raise AssertionError("gguf: spec_from_gguf_fields differs from "
+                                 "the config's spec")
+        params = build_params(prov, spec, quant="int8", exact_gguf=True,
+                              device="cuda")
+        torch.cuda.synchronize()
+        rec["build_s"] = time.perf_counter() - t1
+        rec["samples"] = gguf_sample_check(params, prov)
+        prov.gguf.close()
+    log(f"gguf: built in {rec['build_s']:.1f} s")
+    prepare_params(params, spec)
+    w4 = [q for q in _qtensors(params) if q.act_quant]
+    bad = [(q.kind, q.group_size) for q in w4
+           if q.kind != "int4_gz" or q.zeros is None]
+    if bad or not w4:
+        raise AssertionError(f"gguf: W4A8 weights without zero points {bad}")
+    rec["w4a8_weights"] = len(w4)
+
+    # parity card vs CPU (v3_parity's rule)
+    prompt = 8
+    cpu_params = params_to(params, "cpu")
+    card, card_picks = routes_of(
+        lambda: parity_rows(params, spec, "cuda", prompt))
+    cpu, cpu_picks = routes_of(
+        lambda: parity_rows(cpu_params, spec, "cpu", prompt))
+    del cpu_params
+    held = hold_rows(card, cpu, "parity gguf (card vs CPU)", None)
+    moe_calls = len(card_picks) // card.shape[0]
+    rerouted = [a != b for a, b in zip(card_picks, cpu_picks)]
+    wide = [i for i, err in enumerate(held["rel_err"]) if err > NEAR_TIE]
+    follow = [any(rerouted[:(i + 1) * moe_calls]) for i in
+              range(card.shape[0])]
+    log(f"parity gguf: rows past {NEAR_TIE} {wide}; rows after a token the "
+        f"card sent to other experts {[i for i, r in enumerate(follow) if r]}")
+    if any(not follow[i] for i in wide):
+        raise AssertionError(f"parity gguf: rows {wide} leave the W4A8 "
+                             f"spread with the same experts ({rerouted})")
+    rec["parity"] = dict(held, rerouted_calls=rerouted)
+
+    # single user: 256 prompt + 32 new tokens
+    gen = Generator(params, spec, max_len=1024, batch=1, device="cuda")
+    gen.generate(list(range(8)), GenerateConfig(max_new_tokens=2))
+    torch.cuda.synchronize()
+    reset_launches()
+    prompt_ids = np.random.default_rng(140).integers(
+        0, spec.vocab_size, 256).tolist()
+    stamps = []
+
+    def on_token(tok):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    t_start = time.perf_counter()
+    out = gen.generate(prompt_ids, GenerateConfig(max_new_tokens=32),
+                       on_token=on_token)
+    if len(out[0]) != 32:
+        raise AssertionError(f"gguf: bad tokens {out}")
+    ttft = stamps[0] - t_start
+    dec = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    launches, routed_n = dict(LAUNCHES), dict(ROUTED_LAUNCHES)
+    log(f"gguf single user: prefill {256 / ttft:.1f} tok/s (ttft "
+        f"{ttft * 1e3:.1f} ms), decode {dec:.2f} tok/s; launches "
+        f"{json.dumps(launches)}, redesigned {json.dumps(routed_n)}")
+    missing = [k for k in GGUF_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"gguf single user: not launched {missing}")
+    hold_w4a8_routes("gguf single user", launches, routed_n, zeros=True)
+    result["serve_gguf"] = dict(prefill_tok_s=256 / ttft, ttft_s=ttft,
+                                decode_tok_s=dec, tokens=out[0][:8],
+                                launches=launches, routed_launches=routed_n)
+    paged_serve(result, gen, key="paged_serve_gguf", depths=(3,),
+                expect=GGUF_PAGED_KERNELS)
+    run = result["paged_serve_gguf"]["runs"][3]
+    hold_w4a8_routes("gguf paged serve", run["launches"],
+                     run["routed_launches"], zeros=True)
+    profile_steps(result, gen, prefix="gguf_")
+    profile_engine_steps(result, gen, prefix="gguf_")
+    for name in ("decode_step", "prefill_chunk", "serve_decode_step_b8",
+                 "serve_mixed_step_b8_s256"):
+        p = result["profile"]["gguf_" + name]
+        log(f"gguf {name}: wall {p['wall_ms']:.3f} ms, device busy "
+            f"{p['device_busy_ms']:.3f} ms, idle share {p['idle_share']}")
+    rec["seconds"] = time.perf_counter() - t0
+    result["gguf"] = rec
+    del gen, params
+    torch.cuda.empty_cache()
+
+
+def _qtensors(node):
+    import dataclasses
+
+    from ktransformers_tpu_torch.quant.formats import QTensor
+
+    if isinstance(node, QTensor):
+        yield node
+    elif isinstance(node, dict):
+        for v in node.values():
+            yield from _qtensors(v)
+    elif isinstance(node, list):
+        for v in node:
+            yield from _qtensors(v)
+    elif dataclasses.is_dataclass(node):
+        for f in dataclasses.fields(node):
+            yield from _qtensors(getattr(node, f.name))
+
+
 def _leaves(node):
     import dataclasses
 
@@ -3223,6 +3795,8 @@ def main() -> int:
     result["kernel_rows"] = rows
     kernel_checks(rows, entries)
     torch.cuda.empty_cache()
+    zero_point_kernel_checks(rows, entries)
+    torch.cuda.empty_cache()
 
     variants = list(parity_variants())
     parity_check(result, variants)
@@ -3278,6 +3852,8 @@ def main() -> int:
     hf_import(result)
     v3_serve(result)
     v3_int8_engine(result)
+    # a DeepSeek-V2-Lite GGUF checkpoint (Q4_K blocks) on the W4A8 kernels
+    gguf_serve(result)
 
     sources = {
         # plain XLA in the JAX package, no Pallas kernel
@@ -3334,7 +3910,8 @@ def main() -> int:
     # before and read just after (single-user serve and paged serve at the
     # default pipeline depth: DeepSeek-V2-Lite on the int4_g and on the int8
     # parameters, then Mixtral-8x7B; then the SFT steps; then DeepSeek-V3 on
-    # W4A8 and on int8 parameters); a kernel's count is the sum over them
+    # W4A8 and on int8 parameters; then the GGUF DeepSeek-V2-Lite); a
+    # kernel's count is the sum over them
     runs = {
         "single_user": result["serve"],
         "paged_serve": result["paged_serve"]["runs"][3],
@@ -3347,6 +3924,8 @@ def main() -> int:
         "paged_serve_v3": result["paged_serve_v3"]["runs"][3],
         "single_user_v3_int8": result["serve_v3_int8"],
         "paged_serve_v3_int8": result["paged_serve_v3_int8"]["runs"][3],
+        "single_user_gguf": result["serve_gguf"],
+        "paged_serve_gguf": result["paged_serve_gguf"]["runs"][3],
     }
     paths = {k: dict(r["launches"]) for k, r in runs.items()}
     # the redesigned kernels: launches of their wrappers' calls that took them
@@ -3392,6 +3971,11 @@ def main() -> int:
     sources["mla_decode_split_kernel<false>"] = (
         "ktransformers_tpu_torch/csrc/mla_decode.cu",
         "ktransformers_tpu/ops/pallas/mla_decode.py:296")
+    for name, zp in zip(W4A8_REDESIGNED, W4A8_ZP):
+        sources[zp] = sources[name]
+    sources["w4a8_prep_block_kernel"] = (
+        "ktransformers_tpu_torch/csrc/w4a8_core.cuh",
+        "ktransformers_tpu/quant/w4a8.py:92")
     # the attention kernels carry their paths' attention: on both DeepSeek
     # parameter sets the MLA decode single-user, the paged decode and the
     # prefill in the served steps; on Mixtral the GQA decode and prefill in
@@ -3408,6 +3992,8 @@ def main() -> int:
             ("gqa_prefill_mma_kernel", ("paged_serve_mixtral",)),
             ("gqa_decode_split_kernel", ("paged_serve_mixtral",)),
             ("w4a8_ffn_gemv_kernel", ("single_user", "paged_serve")),
+            *((k, ("single_user_gguf", "paged_serve_gguf"))
+              for k in W4A8_ZP),
             ("mla_decode_split_kernel<false>", ("single_user_int8",))):
         idle = [k for k in keys if paths[k].get(kernel, 0) <= 0]
         if idle:
@@ -3416,7 +4002,7 @@ def main() -> int:
     for name in KERNELS + tuple(ROUTED_KERNELS):
         row = entries[name]
         total = sum(p.get(name, 0) for p in paths.values())
-        if total <= 0:
+        if total <= 0 and name not in OFF_MAIN_PATHS:
             raise AssertionError(f"{name} launched on no main path")
         kernels.append(dict(
             name=name, route="cuda", source=sources[name][0],
@@ -3429,6 +4015,8 @@ def main() -> int:
             wrapper_ms=row["wrapper_ms"], kernel=row["kernel"],
             first_ms=row["first_ms"], fold=row.get("fold"),
             shape=row["shape"],
+            **({"off_main_path": OFF_MAIN_PATHS[name]}
+               if name in OFF_MAIN_PATHS else {}),
         ))
     result["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:

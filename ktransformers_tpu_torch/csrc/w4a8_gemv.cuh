@@ -41,6 +41,12 @@
 //   units a block (w4a8_matmul.py:gemv_folds). XT = int8_t reads the codes
 //   of a prep launch (the FFN's down reads those its gate_up's requant
 //   wrote).
+// - zero points (int4_gz): the lane holding a group's first unit also
+//   subtracts xs * z[g, n] (xs: the row's group sum of x), where it
+//   subtracts t; a per-channel group (all of K, one group) is cut inside
+//   the group into splits of whole units (w4a8_matmul.py:split_k_plan): the
+//   int32 dots of a run times the row scales are its share of the group's
+//   value, and t and the zero term are taken once, by that lane.
 // (The KT_W4GEMV_CUT_* switches compile parts out for ops/cuda/breakdown.py.)
 #pragma once
 
@@ -118,22 +124,26 @@ __device__ __forceinline__ void tile_rows(const int* __restrict__ ids, int R,
   __syncthreads();
 }
 
-// The scaled group sums of one lane: acc[m][c] += (pa*sa + pb*sb - t?)*s.
-template <int RB>
+// The scaled group sums of one lane: acc[m][c] += (pa*sa + pb*sb - t? [-
+// xs? * z])*s (the zero term where the weight has zero points: ZP).
+template <int RB, bool ZP>
 __device__ __forceinline__ void flush_group(const int pa[RB][CPT],
                                             const int pb[RB][CPT],
                                             const float sam[RB],
                                             const float sbm[RB],
                                             const float tm[RB],
-                                            const float sc[CPT], int nr,
+                                            const float xm[RB],
+                                            const float sc[CPT],
+                                            const float zc[CPT], int nr,
                                             float acc[RB][CPT]) {
 #pragma unroll
   for (int m = 0; m < RB; ++m) {
     if (m < nr) {
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
-        const float val =
+        float val =
             (float)pa[m][c] * sam[m] + (float)pb[m][c] * sbm[m] - tm[m];
+        if constexpr (ZP) val -= xm[m] * zc[c];
         acc[m][c] += val * sc[c];
       }
     }
@@ -179,10 +189,11 @@ __device__ __forceinline__ void split_groups(int ng, int splits, int s,
 }
 
 // Where a walk finds the activation of tile row m: its codes at qa + coff[m]
-// + r and qb + coff[m] + r (r a storage row), its scales at sa / sb / t +
-// soff[m] + g (g a scale group). kSmem: the codes and scales lie in shared
-// memory (split_acts quantized them there), else in global memory (a prep
-// launch or the FFN's gate_up wrote them).
+// + r and qb + coff[m] + r (r a storage row), its scales at sa / sb / t / xs
+// + soff[m] + g (g a scale group; xs only where the weight has zeros).
+// kSmem: the codes and scales lie in shared memory (split_acts quantized
+// them there), else in global memory (a prep launch or the FFN's gate_up
+// wrote them).
 template <int RB, bool kSmem>
 struct Acts {
   const int8_t* qa;
@@ -190,6 +201,7 @@ struct Acts {
   const float* sa;
   const float* sb;
   const float* t;
+  const float* xs;
   int coff[RB], soff[RB];
 };
 
@@ -200,9 +212,9 @@ __device__ __forceinline__ T load_act(const T* p) {
 }
 
 // Bytes of shared memory split_acts takes for RB rows of ng_split scale
-// groups of gs2 storage rows: the codes qa, qb and the scales sa, sb, t.
+// groups of gs2 storage rows: the codes qa, qb and the scales sa, sb, t, xs.
 __host__ __device__ constexpr int acts_bytes(int rb, int ng_split, int gs2) {
-  return rb * ng_split * (2 * gs2 + 3 * 4);
+  return rb * ng_split * (2 * gs2 + 4 * 4);
 }
 
 // The activations of a walk over scale groups [g0, g1) for the tile rows
@@ -224,6 +236,7 @@ __device__ __forceinline__ auto split_acts(const W4A8Args& a,
     v.sa = a.sa;
     v.sb = a.sb;
     v.t = a.t;
+    v.xs = a.xs;
 #pragma unroll
     for (int m = 0; m < RB; ++m) {
       v.coff[m] = row[m] * a.K2;
@@ -236,6 +249,7 @@ __device__ __forceinline__ auto split_acts(const W4A8Args& a,
     float* sa = reinterpret_cast<float*>(qb + RB * len);
     float* sb = sa + RB * ng;
     float* t = sb + RB * ng;
+    float* xs = t + RB * ng;
     const XT* x = static_cast<const XT*>(a.x);
     const int gs2 = a.gs2;
     const size_t ld = (size_t)2 * a.K2;
@@ -247,10 +261,11 @@ __device__ __forceinline__ auto split_acts(const W4A8Args& a,
           ca = qa + m * len + j * gs2;
           cb = qb + m * len + j * gs2;
         },
-        [&](int u, float s_a, float s_b, float tt) {
+        [&](int u, float s_a, float s_b, float tt, float sx) {
           sa[u] = s_a;  // u = m * ng + j
           sb[u] = s_b;
           t[u] = tt;
+          xs[u] = sx;
         });
     __syncthreads();
     v.qa = qa;
@@ -258,6 +273,7 @@ __device__ __forceinline__ auto split_acts(const W4A8Args& a,
     v.sa = sa;
     v.sb = sb;
     v.t = t;
+    v.xs = xs;
 #pragma unroll
     for (int m = 0; m < RB; ++m) {
       v.coff[m] = m * len - g0 * a.gs2;
@@ -268,27 +284,31 @@ __device__ __forceinline__ auto split_acts(const W4A8Args& a,
 }
 
 // The K walk of one row lane: units [l0, l1) of UNIT storage rows of the
-// expert at we / se (its weight and scales, offset to the thread's first of
-// CPT columns) against the activations of the tile's rows m < nr (acts:
-// split_acts) into acc. A lane sums a group's int dots over its units and
-// scales them once; the lane that holds the group's first unit subtracts t.
-// Shared by w4a8_gemv_kernel and w4a8_ffn.cu's w4a8_ffn_gemv_kernel.
-template <int RB, bool kSmem>
+// expert at we / se / ze (its weight, scales and zero points or null,
+// offset to the thread's first of CPT columns) against the activations of
+// the tile's rows m < nr (acts: split_acts) into acc. A lane sums a group's
+// int dots over its units and scales them once; the lane that holds the
+// group's first unit subtracts t (and xs * z: ZP, a separate instantiation
+// so that the walk without zero points keeps its registers). Shared by
+// w4a8_gemv_kernel and w4a8_ffn.cu's w4a8_ffn_gemv_kernel.
+template <int RB, bool kSmem, bool ZP>
 __device__ __forceinline__ void lane_walk(const W4A8Args& a,
                                           const int8_t* __restrict__ we,
                                           const float* __restrict__ se,
+                                          const float* __restrict__ ze,
                                           const Acts<RB, kSmem>& act, int nr,
                                           int l0, int l1,
                                           float (&acc)[RB][CPT]) {
   int pa[RB][CPT], pb[RB][CPT];
-  float sc[CPT], sam[RB], sbm[RB], tm[RB];
+  float sc[CPT], zc[CPT], sam[RB], sbm[RB], tm[RB], xm[RB];
+  constexpr bool hasz = ZP;
   int gcur = -1;
   for (int u = l0; u < l1; ++u) {
     const int r0 = u * UNIT;
     const int g = r0 / a.gs2;
     if (g != gcur) {
       if (gcur >= 0)
-        flush_group<RB>(pa, pb, sam, sbm, tm, sc, nr, acc);
+        flush_group<RB, ZP>(pa, pb, sam, sbm, tm, xm, sc, zc, nr, acc);
       gcur = g;
       const float4* s4 =
           reinterpret_cast<const float4*>(se + (size_t)g * a.N);
@@ -298,14 +318,25 @@ __device__ __forceinline__ void lane_walk(const W4A8Args& a,
         sc[4 * q] = v.x; sc[4 * q + 1] = v.y;
         sc[4 * q + 2] = v.z; sc[4 * q + 3] = v.w;
       }
-      // the lane holding the group's first unit subtracts t
+      // the lane holding the group's first unit subtracts t (and xs * z)
       const bool with_t = r0 == g * a.gs2;
+      if constexpr (hasz) {
+        const float4* z4 =
+            reinterpret_cast<const float4*>(ze + (size_t)g * a.N);
+#pragma unroll
+        for (int q = 0; q < CPT / 4; ++q) {
+          const float4 v = __ldg(z4 + q);
+          zc[4 * q] = v.x; zc[4 * q + 1] = v.y;
+          zc[4 * q + 2] = v.z; zc[4 * q + 3] = v.w;
+        }
+      }
 #pragma unroll
       for (int m = 0; m < RB; ++m) {
         const int ri = act.soff[m] + g;
         sam[m] = load_act<kSmem>(act.sa + ri);
         sbm[m] = load_act<kSmem>(act.sb + ri);
         tm[m] = with_t ? load_act<kSmem>(act.t + ri) : 0.f;
+        xm[m] = hasz && with_t ? load_act<kSmem>(act.xs + ri) : 0.f;
 #pragma unroll
         for (int c = 0; c < CPT; ++c) pa[m][c] = pb[m][c] = 0;
       }
@@ -363,7 +394,8 @@ __device__ __forceinline__ void lane_walk(const W4A8Args& a,
       }
     }
   }
-  if (gcur >= 0) flush_group<RB>(pa, pb, sam, sbm, tm, sc, nr, acc);
+  if (gcur >= 0)
+    flush_group<RB, ZP>(pa, pb, sam, sbm, tm, xm, sc, zc, nr, acc);
 }
 
 }  // namespace w4gv
@@ -379,7 +411,7 @@ __device__ __forceinline__ void lane_walk(const W4A8Args& a,
 // codes of a prep launch (a.qa .. a.t); XT = float or bf16 (OutT) folds the
 // prep in: the block quantizes its split's scale groups of its rows of a.x
 // into dynamic shared memory (split_acts), then walks as before.
-template <int RB, typename XT, typename OutT>
+template <int RB, typename XT, typename OutT, bool ZP>
 __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
     w4a8_gemv_kernel(W4A8Args a, const int* __restrict__ ids, int R,
                      int splits, int gran, float* __restrict__ part,
@@ -406,6 +438,7 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
   w4gv::split_groups(a.ng, splits, s, g0, g1);
   const int8_t* we = a.w + (size_t)e * a.K2 * a.N + col;
   const float* se = a.s + (size_t)e * a.ng * a.N + col;
+  const float* ze = ZP ? a.z + (size_t)e * a.ng * a.N + col : nullptr;
   constexpr int PER = BN / THREADS;  // output columns a thread stores
 
   int row[RB];
@@ -419,7 +452,7 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
 
   const auto act = w4gv::split_acts<RB, XT>(a, row, nr, g0, g1, acts_s);
   if (col < a.N && l0 < l1)
-    w4gv::lane_walk(a, we, se, act, nr, l0, l1, acc);
+    w4gv::lane_walk<RB, kFold, ZP>(a, we, se, ze, act, nr, l0, l1, acc);
 
 #pragma unroll
   for (int m = 0; m < RB; ++m)
@@ -469,15 +502,10 @@ __global__ void __launch_bounds__(w4gv::THREADS, RB == 1 ? 4 : 3)
 #endif
 }
 
-// R rows (R <= MAX_ROWS) through expert ids[r] of w [E, K2, N] (a dense
-// call: R = 1, ids = [0]), in `tiles` tiles of up to rb rows (1 or 2). N a
-// multiple of 16, gs2 of UNIT, K2 of gs2; splits >= 1 runs of `gran` units
-// (part: R * splits * N floats, cnt: ceil(N / BN) * tiles ints, zero on
-// entry). XT: as w4a8_gemv_kernel; a folded launch takes gran * UNIT = gs2.
-template <typename XT, typename OutT>
-cudaError_t launch_gemv(const W4A8Args& a, const int* ids, int R, int tiles,
-                        int splits, int gran, int rb, float* part, int* cnt,
-                        OutT* out, cudaStream_t stream) {
+template <typename XT, typename OutT, bool ZP>
+cudaError_t launch_gemv_z(const W4A8Args& a, const int* ids, int R, int tiles,
+                          int splits, int gran, int rb, float* part, int* cnt,
+                          OutT* out, cudaStream_t stream) {
   constexpr int BN = w4gv::BN, THREADS = w4gv::THREADS;
   constexpr bool kFold = !std::is_same<XT, int8_t>::value;
   if (kFold && (gran * w4gv::UNIT != a.gs2 || a.gs2 > w4gv::FOLD_GS2))
@@ -491,23 +519,39 @@ cudaError_t launch_gemv(const W4A8Args& a, const int* ids, int R, int tiles,
   switch (rb) {
     case 1:
       if (kFold)
-        err = kt_mma::allow_smem(w4a8_gemv_kernel<1, XT, OutT>,
+        err = kt_mma::allow_smem(w4a8_gemv_kernel<1, XT, OutT, ZP>,
                                  w4gv::MAX_ACTS_SMEM, &ready_dev[0]);
       if (err != cudaSuccess) return err;
-      w4a8_gemv_kernel<1, XT, OutT><<<grid, THREADS, smem, stream>>>(
+      w4a8_gemv_kernel<1, XT, OutT, ZP><<<grid, THREADS, smem, stream>>>(
           a, ids, R, splits, gran, part, cnt, out);
       break;
     case 2:
       if (kFold)
-        err = kt_mma::allow_smem(w4a8_gemv_kernel<2, XT, OutT>,
+        err = kt_mma::allow_smem(w4a8_gemv_kernel<2, XT, OutT, ZP>,
                                  w4gv::MAX_ACTS_SMEM, &ready_dev[1]);
       if (err != cudaSuccess) return err;
-      w4a8_gemv_kernel<2, XT, OutT><<<grid, THREADS, smem, stream>>>(
+      w4a8_gemv_kernel<2, XT, OutT, ZP><<<grid, THREADS, smem, stream>>>(
           a, ids, R, splits, gran, part, cnt, out);
       break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+// R rows (R <= MAX_ROWS) through expert ids[r] of w [E, K2, N] (a dense
+// call: R = 1, ids = [0]), in `tiles` tiles of up to rb rows (1 or 2). N a
+// multiple of 16, gs2 of UNIT, K2 of gs2; splits >= 1 runs of `gran` units
+// (part: R * splits * N floats, cnt: ceil(N / BN) * tiles ints, zero on
+// entry). XT: as w4a8_gemv_kernel; a folded launch takes gran * UNIT = gs2.
+// The instantiation with the zero term where a.z is given.
+template <typename XT, typename OutT>
+cudaError_t launch_gemv(const W4A8Args& a, const int* ids, int R, int tiles,
+                        int splits, int gran, int rb, float* part, int* cnt,
+                        OutT* out, cudaStream_t stream) {
+  return a.z ? launch_gemv_z<XT, OutT, true>(a, ids, R, tiles, splits, gran,
+                                             rb, part, cnt, out, stream)
+             : launch_gemv_z<XT, OutT, false>(a, ids, R, tiles, splits, gran,
+                                              rb, part, cnt, out, stream);
 }
 
 }  // namespace kt

@@ -1,14 +1,19 @@
 """Weight providers (counterpart of ktransformers_tpu/loader/providers.py):
-``get(name)`` over HF-style tensor names. Only the in-memory torch source
-is ported; the safetensors and GGUF providers belong to ROADMAP Queue 1
-item 5b."""
+``get(name)`` over HF-style tensor names. The in-memory torch source and
+the GGUF file source (with its lossless repack, ``get_exact``); the
+safetensors provider belongs to ROADMAP Queue 1 item 5b."""
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 
+from ktransformers_tpu_torch.loader.gguf import GGML_TYPES, GGUFDir
 from ktransformers_tpu_torch.models.loading import WeightProvider
+from ktransformers_tpu_torch.quant.formats import QTensor
+from ktransformers_tpu_torch.quant.gguf_repack import repack_ggml_exact
 
 
 class TorchModelProvider(WeightProvider):
@@ -24,3 +29,184 @@ class TorchModelProvider(WeightProvider):
         if name not in self._sd:
             raise KeyError(name)
         return self._sd[name].detach().to("cpu").float().numpy()
+
+
+# --- GGUF name translation -------------------------------------------------
+
+_GGUF_SUFFIX = {
+    "input_layernorm.weight": "attn_norm.weight",
+    "post_attention_layernorm.weight": "ffn_norm.weight",
+    "self_attn.q_proj.weight": "attn_q.weight",
+    "self_attn.q_proj.bias": "attn_q.bias",
+    "self_attn.k_proj.weight": "attn_k.weight",
+    "self_attn.k_proj.bias": "attn_k.bias",
+    "self_attn.v_proj.weight": "attn_v.weight",
+    "self_attn.v_proj.bias": "attn_v.bias",
+    "self_attn.o_proj.weight": "attn_output.weight",
+    "self_attn.q_norm.weight": "attn_q_norm.weight",
+    "self_attn.k_norm.weight": "attn_k_norm.weight",
+    "self_attn.q_a_proj.weight": "attn_q_a.weight",
+    "self_attn.q_a_layernorm.weight": "attn_q_a_norm.weight",
+    "self_attn.q_b_proj.weight": "attn_q_b.weight",
+    "self_attn.kv_a_proj_with_mqa.weight": "attn_kv_a_mqa.weight",
+    "self_attn.kv_a_layernorm.weight": "attn_kv_a_norm.weight",
+    "self_attn.kv_b_proj.weight": "attn_kv_b.weight",
+    "mlp.gate_proj.weight": "ffn_gate.weight",
+    "mlp.up_proj.weight": "ffn_up.weight",
+    "mlp.down_proj.weight": "ffn_down.weight",
+    "mlp.gate.weight": "ffn_gate_inp.weight",
+    "block_sparse_moe.gate.weight": "ffn_gate_inp.weight",
+    "mlp.gate.e_score_correction_bias": "exp_probs_b.bias",
+    "mlp.shared_experts.gate_proj.weight": "ffn_gate_shexp.weight",
+    "mlp.shared_experts.up_proj.weight": "ffn_up_shexp.weight",
+    "mlp.shared_experts.down_proj.weight": "ffn_down_shexp.weight",
+    "mlp.shared_expert.gate_proj.weight": "ffn_gate_shexp.weight",
+    "mlp.shared_expert.up_proj.weight": "ffn_up_shexp.weight",
+    "mlp.shared_expert.down_proj.weight": "ffn_down_shexp.weight",
+    "mlp.shared_expert_gate.weight": "ffn_gate_inp_shexp.weight",
+}
+
+_GGUF_TOP = {
+    "model.embed_tokens.weight": "token_embd.weight",
+    "model.norm.weight": "output_norm.weight",
+    "lm_head.weight": "output.weight",
+}
+
+
+class GGUFProvider(WeightProvider):
+    """Serves HF-style names from a GGUF file/dir, dequantizing blocks (the
+    JAX package's loader/providers.py:GGUFProvider).
+
+    Stacked expert tensors (``…experts.gate_up_proj`` / ``…experts.down_proj``,
+    the fast path in models/loading.py) are assembled from the 3D
+    ffn_{gate,up,down}_exps tensors. ``get_exact`` carries a tensor's ggml
+    codes and block scales over as a QTensor on ``device``
+    (quant/gguf_repack.py), what build_params(exact_gguf=True) takes.
+    """
+
+    def __init__(self, path: str, device="cpu"):
+        self.gguf = GGUFDir(path)
+        self._names = set(self.gguf.tensors())
+        self.device = device
+
+    def fields(self):
+        return self.gguf.fields
+
+    def get(self, name: str) -> np.ndarray:
+        if name in _GGUF_TOP:
+            g = _GGUF_TOP[name]
+            if g not in self._names and name == "lm_head.weight":
+                g = "token_embd.weight"  # tied
+            if g not in self._names:
+                raise KeyError(name)
+            return self.gguf.load(g)
+
+        m = re.match(r"model\.layers\.(\d+)\.(.+)$", name)
+        if not m:
+            raise KeyError(name)
+        li, suffix = int(m.group(1)), m.group(2)
+
+        if suffix in ("mlp.experts.gate_up_proj", "block_sparse_moe.experts.gate_up_proj"):
+            g = self._load3d(li, "ffn_gate_exps.weight")  # [E, ff, d]
+            u = self._load3d(li, "ffn_up_exps.weight")
+            return np.concatenate(
+                [g.transpose(0, 2, 1), u.transpose(0, 2, 1)], axis=2
+            )  # [E, d, 2ff]
+        if suffix in ("mlp.experts.down_proj", "block_sparse_moe.experts.down_proj"):
+            dn = self._load3d(li, "ffn_down_exps.weight")  # [E, d, ff]
+            return dn.transpose(0, 2, 1)  # [E, ff, d]
+
+        if suffix not in _GGUF_SUFFIX:
+            raise KeyError(name)
+        g = f"blk.{li}.{_GGUF_SUFFIX[suffix]}"
+        if g not in self._names:
+            raise KeyError(name)
+        return self.gguf.load(g)
+
+    def _load3d(self, li: int, gname: str) -> np.ndarray:
+        full = f"blk.{li}.{gname}"
+        if full not in self._names:
+            raise KeyError(full)
+        return self.gguf.load(full)
+
+    # -- lossless repack (exact Q4_K-class compute, VERDICT r1 item 4) ------
+
+    def _repack(self, gname: str):
+        """Repack one ggml tensor without requantizing; None if dense or
+        unsupported type."""
+        info = self.gguf.info(gname)
+        tname = GGML_TYPES[info.ggml_type][0]
+        gf = self.gguf.tensor_file[gname]
+        return repack_ggml_exact(gf.raw(gname), tname, info.shape,
+                                 self.device)
+
+    @staticmethod
+    def _cat_n(a, b):
+        """Concatenate two repacked QTensors along N (gate||up fusion);
+        None if formats differ."""
+        if a is None or b is None:
+            return None
+        if a.kind != b.kind or a.group_size != b.group_size:
+            return None
+        return QTensor(
+            data=torch.cat([a.data, b.data], dim=-1),
+            scales=torch.cat([a.scales, b.scales], dim=-1),
+            zeros=None
+            if a.zeros is None
+            else torch.cat([a.zeros, b.zeros], dim=-1),
+            kind=a.kind,
+            group_size=a.group_size,
+        )
+
+    def get_exact(self, name: str):
+        """QTensor in the [..., K, N] layout carrying the ORIGINAL ggml
+        codes and block scales (no decode->requantize), or None for dense/
+        unsupported tensors. `…gate_up_proj` names fuse gate||up along N."""
+        if name in _GGUF_TOP:
+            g = _GGUF_TOP[name]
+            if g not in self._names and name == "lm_head.weight":
+                g = "token_embd.weight"
+            if g not in self._names:
+                raise KeyError(name)
+            return self._repack(g)
+
+        m = re.match(r"model\.layers\.(\d+)\.(.+)$", name)
+        if not m:
+            raise KeyError(name)
+        li, suffix = int(m.group(1)), m.group(2)
+
+        if suffix in (
+            "mlp.experts.gate_up_proj",
+            "block_sparse_moe.experts.gate_up_proj",
+        ):
+            return self._cat_n(
+                self._repack(f"blk.{li}.ffn_gate_exps.weight"),
+                self._repack(f"blk.{li}.ffn_up_exps.weight"),
+            )
+        if suffix in (
+            "mlp.experts.down_proj",
+            "block_sparse_moe.experts.down_proj",
+        ):
+            return self._repack(f"blk.{li}.ffn_down_exps.weight")
+        fused = {
+            "mlp.gate_up_proj": ("ffn_gate.weight", "ffn_up.weight"),
+            "mlp.shared_experts.gate_up_proj": (
+                "ffn_gate_shexp.weight", "ffn_up_shexp.weight",
+            ),
+            "mlp.shared_expert.gate_up_proj": (
+                "ffn_gate_shexp.weight", "ffn_up_shexp.weight",
+            ),
+        }
+        if suffix in fused:
+            ga = f"blk.{li}.{fused[suffix][0]}"
+            up = f"blk.{li}.{fused[suffix][1]}"
+            if ga not in self._names or up not in self._names:
+                return None
+            return self._cat_n(self._repack(ga), self._repack(up))
+
+        if suffix not in _GGUF_SUFFIX:
+            raise KeyError(name)
+        g = f"blk.{li}.{_GGUF_SUFFIX[suffix]}"
+        if g not in self._names:
+            raise KeyError(name)
+        return self._repack(g)

@@ -8,9 +8,12 @@ in] for linear weights).
 port's params tree. Weights are quantized on the host with
 quant/formats.quantize, where the JAX package quantizes them, so the codes
 are bit-exact with its build_params; the finished tree moves to
-``device`` once, at the end. The file sources (safetensors, GGUF), the
-per-module ``placement`` and the lossless GGUF repack (``exact_gguf``)
-belong to ROADMAP item 5b; linear-attention layers to item 6.
+``device`` once, at the end. With ``exact_gguf`` a provider that has
+``get_exact`` (loader/providers.GGUFProvider) hands over its tensors' GGUF
+codes and block scales as they are (quant/gguf_repack.py), as the JAX
+package's build_params does. The safetensors source and the per-module
+``placement`` belong to ROADMAP item 5b; linear-attention layers to item
+6.
 """
 
 from __future__ import annotations
@@ -57,28 +60,39 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
     attention, dense MLP, shared experts and lm_head, ``moe_quant``
     (default quant) for the routed experts; ``layer_indices`` (default
     all) with ``include_head=False`` builds a partial tree of those layers
-    only, as in the JAX package."""
+    only, as in the JAX package. ``exact_gguf``: take the provider's
+    lossless repack (get_exact) of every tensor it has one for, the
+    others (norms, router, embedding, F16 / F32 tensors) as above."""
     if placement is not None:
         raise NotImplementedError(
             "build_params: per-module placement is not ported (ROADMAP "
-            "Queue 1 item 5b)")
-    if exact_gguf:
-        raise NotImplementedError(
-            "build_params: the lossless GGUF repack is not ported (ROADMAP "
-            "Queue 1 item 5b)")
+            "Queue 1 item 5b, with models/checkpoint.py and placement/*)")
     moe_quant = moe_quant or quant
     a = spec.attention
     get, maybe = p.get, p.maybe
+    can_exact = exact_gguf and hasattr(p, "get_exact")
     if layer_indices is None:
         layer_indices = range(spec.num_layers)
 
     def q(arr: np.ndarray, kind: str):
         return quantize(torch.from_numpy(arr), kind, group_size=group_size)
 
-    def qx(name: str, kind: str = quant):
-        return q(_t(get(name)), kind)
+    def exact(name: str):
+        if not can_exact:
+            return None
+        try:
+            return p.get_exact(name)
+        except KeyError:
+            return None
 
-    def qx_fused(gname: str, uname: str):
+    def qx(name: str, kind: str = quant):
+        qt = exact(name)
+        return qt if qt is not None else q(_t(get(name)), kind)
+
+    def qx_fused(gname: str, uname: str, fused_name: str):
+        qt = exact(fused_name)
+        if qt is not None:
+            return qt
         return q(np.concatenate([_t(get(gname)), _t(get(uname))], 1), quant)
 
     def vec(name: str) -> torch.Tensor:
@@ -135,8 +149,14 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
             bias = maybe(f"{mlp_pre}.gate.e_score_correction_bias")
             if bias is not None:
                 moe["router_bias_corr"] = _vec(bias)
-            stacked = maybe(f"{mlp_pre}.experts.gate_up_proj")
-            if stacked is not None:
+            exact_gu = exact(f"{mlp_pre}.experts.gate_up_proj")
+            exact_dn = exact(f"{mlp_pre}.experts.down_proj")
+            stacked = None
+            if exact_gu is None or exact_dn is None:
+                stacked = maybe(f"{mlp_pre}.experts.gate_up_proj")
+            if exact_gu is not None and exact_dn is not None:
+                gus = dns = None
+            elif stacked is not None:
                 # pre-stacked [E, in, 2 * out] / down [E, inter, in]
                 gus = np.asarray(stacked, np.float32)
                 dns = np.asarray(get(f"{mlp_pre}.experts.down_proj"),
@@ -155,22 +175,27 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
                     dns_list.append(dn)
                 gus, dns = np.stack(gus_list), np.stack(dns_list)
                 del gus_list, dns_list
-            moe["experts"] = MoEWeights(gate_up=q(gus, moe_quant),
-                                        down=q(dns, moe_quant))
+            if gus is None:
+                moe["experts"] = MoEWeights(gate_up=exact_gu, down=exact_dn)
+            else:
+                moe["experts"] = MoEWeights(gate_up=q(gus, moe_quant),
+                                            down=q(dns, moe_quant))
             del gus, dns
             if m.shared_expert_intermediate_size:
                 base = f"{mlp_pre}.shared_experts"
                 # shared experts take the dense kind, as in the JAX package
                 moe["shared"] = {
                     "gate_up": qx_fused(f"{base}.gate_proj.weight",
-                                        f"{base}.up_proj.weight"),
+                                        f"{base}.up_proj.weight",
+                                        f"{base}.gate_up_proj"),
                     "down": qx(f"{base}.down_proj.weight"),
                 }
             lp["moe"] = moe
         else:
             lp["mlp"] = {
                 "gate_up": qx_fused(f"{mlp_pre}.gate_proj.weight",
-                                    f"{mlp_pre}.up_proj.weight"),
+                                    f"{mlp_pre}.up_proj.weight",
+                                    f"{mlp_pre}.gate_up_proj"),
                 "down": qx(f"{mlp_pre}.down_proj.weight"),
             }
         layers.append(lp)

@@ -251,6 +251,101 @@ def spec_from_hf_config(cfg: Any) -> ModelSpec:
     return _TRANSLATORS[mt](cfg)
 
 
+# -- GGUF metadata -> ModelSpec ---------------------------------------------
+
+_GGUF_ARCH_TO_HF = {
+    "deepseek2": "deepseek_v2",
+    "deepseek3": "deepseek_v3",
+    "qwen2moe": "qwen2_moe",
+    "qwen3moe": "qwen3_moe",
+    "llama": "llama",
+    "qwen2": "qwen2",
+    "qwen3": "qwen3",
+    "glm4moe": "glm4_moe",
+}
+
+
+def spec_from_gguf_fields(fields: dict) -> ModelSpec:
+    """Build a ModelSpec from GGUF metadata (llama.cpp key conventions),
+    so a bare .gguf file is runnable without the HF config.json: the
+    JAX package's models/spec.py:spec_from_gguf_fields. An architecture
+    whose HF translator the port lacks (_TRANSLATORS) raises."""
+    arch = fields.get("general.architecture")
+    if arch not in _GGUF_ARCH_TO_HF:
+        raise ValueError(
+            f"unsupported gguf architecture {arch!r}; provide --config"
+        )
+    mt = _GGUF_ARCH_TO_HF[arch]
+    if mt not in _TRANSLATORS:
+        raise NotImplementedError(
+            f"gguf architecture {arch!r} ({mt}): the port has no {mt} "
+            "translator yet (ROADMAP Queue 1 item 6)")
+    g = lambda key, default=None: fields.get(f"{arch}.{key}", default)
+
+    heads = int(g("attention.head_count"))
+    cfg: dict = {
+        "model_type": mt,
+        "vocab_size": int(g("vocab_size", 0))
+        or len(fields.get("tokenizer.ggml.tokens", [])),
+        "hidden_size": int(g("embedding_length")),
+        "intermediate_size": int(g("feed_forward_length")),
+        "num_hidden_layers": int(g("block_count")),
+        "num_attention_heads": heads,
+        "num_key_value_heads": int(g("attention.head_count_kv", heads)),
+        "rms_norm_eps": float(g("attention.layer_norm_rms_epsilon", 1e-6)),
+        "rope_theta": float(g("rope.freq_base", 10000.0)),
+        "max_position_embeddings": int(g("context_length", 4096)),
+        "tie_word_embeddings": False,
+    }
+    if g("rope.dimension_count") and heads:
+        cfg["head_dim"] = (
+            int(g("attention.key_length"))
+            if g("attention.key_length")
+            else None
+        )
+    if g("rope.scaling.type") == "yarn":
+        cfg["rope_scaling"] = {
+            "type": "yarn",
+            "factor": float(g("rope.scaling.factor", 1.0)),
+            "original_max_position_embeddings": int(
+                g("rope.scaling.original_context_length", 4096)
+            ),
+        }
+    if g("expert_count"):
+        cfg.update(
+            n_routed_experts=int(g("expert_count")),
+            num_experts=int(g("expert_count")),
+            num_experts_per_tok=int(g("expert_used_count", 2)),
+            moe_intermediate_size=int(
+                g("expert_feed_forward_length", g("feed_forward_length"))
+            ),
+            n_shared_experts=int(g("expert_shared_count", 0)),
+            shared_expert_intermediate_size=int(
+                g("expert_shared_feed_forward_length", 0)
+            )
+            or int(g("expert_shared_count", 0))
+            * int(g("expert_feed_forward_length", 0)),
+            routed_scaling_factor=float(g("expert_weights_scale", 1.0)),
+            norm_topk_prob=bool(g("expert_weights_norm", False)),
+            first_k_dense_replace=int(g("leading_dense_block_count", 0)),
+        )
+        if g("expert_gating_func") == 2 or mt == "deepseek_v3":
+            cfg["scoring_func"] = "sigmoid"
+            cfg["topk_method"] = "noaux_tc"
+        if mt == "deepseek_v2":
+            cfg["topk_method"] = "greedy"
+    if mt in ("deepseek_v2", "deepseek_v3"):
+        cfg.update(
+            kv_lora_rank=int(g("attention.kv_lora_rank")),
+            q_lora_rank=int(g("attention.q_lora_rank", 0)) or None,
+            qk_rope_head_dim=int(g("rope.dimension_count")),
+            qk_nope_head_dim=int(g("attention.key_length"))
+            - int(g("rope.dimension_count")),
+            v_head_dim=int(g("attention.value_length")),
+        )
+    return spec_from_hf_config(cfg)
+
+
 # DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite config.json), the
 # configuration bench.py drives.
 DEEPSEEK_V2_LITE = dict(

@@ -20,7 +20,8 @@ each redesigned kernel with the wrappers that route to it, and
 ``ROUTED_LAUNCHES`` counts, per redesigned kernel, the wrapper calls that
 took it (an FFN call takes two: its gate_up kernel, w4a8_ffn_mma_kernel or
 w4a8_ffn_gemv_kernel, and w4a8_mma_kernel or w4a8_gemv_kernel for the
-down). The W4A8 GEMVs and, below their crossovers, the W4A8 tensor-core
+down). A W4A8 kernel's calls on weights with zero points count under its
+instantiation with the zero term, ``<zp>`` after its name. The W4A8 GEMVs and, below their crossovers, the W4A8 tensor-core
 kernels quantize x themselves (``folds`` / ``gemv_folds`` in
 w4a8_matmul.py, ``ffn_folds`` in w4a8_ffn.py): such a call makes no
 w4a8_prep launch, so ``LAUNCHES["w4a8_prep"]`` counts the calls that still
@@ -70,6 +71,17 @@ ROUTED_KERNELS = {
     "gqa_decode_split_kernel": ("gqa_paged_decode",),
     # the split decode without its current-token block (bf16 row 6)
     "mla_decode_split_kernel<false>": ("mla_decode_attention",),
+    # the W4A8 kernels' instantiations with the zero term (int4_gz weights)
+    "w4a8_gemv_kernel<zp>": ("dense_w4a8_matmul", "gathered_w4a8_matmul",
+                             "gathered_w4a8_ffn", "dense_w4a8_ffn"),
+    "w4a8_mma_kernel<zp>": ("dense_w4a8_matmul", "grouped_w4a8_matmul",
+                            "dense_w4a8_ffn", "grouped_w4a8_ffn"),
+    "w4a8_ffn_gemv_kernel<zp>": ("gathered_w4a8_ffn", "dense_w4a8_ffn"),
+    "w4a8_ffn_mma_kernel<zp>": ("dense_w4a8_ffn", "grouped_w4a8_ffn"),
+    # the activation prep of a group past 512 (per-channel int4), a block a
+    # (row, group), and of a per-channel down group (the FFN's split route)
+    "w4a8_prep_block_kernel": ("w4a8_prep", "gathered_w4a8_ffn",
+                               "dense_w4a8_ffn", "grouped_w4a8_ffn"),
 }
 ROUTED_LAUNCHES = {name: 0 for name in ROUTED_KERNELS}
 

@@ -32,16 +32,19 @@ F = ctypes.c_float
 # argtypes of every exported function, so ctypes never truncates a pointer
 SIGNATURES = {
     "w4a8_matmul": {
-        "kt_w4a8_rows": [P] * 10 + [I] * 7 + [P, P],
-        "kt_w4a8_mma": [P] * 6 + [I] + [P] * 5 + [I] * 7 + [P, P],
-        "kt_w4a8_prep": [P, I, I, I, I] + [P] * 6,
-        "kt_w4a8_gemv": [P] * 6 + [I] + [P] * 3 + [I] * 10 + [P] * 4,
+        "kt_w4a8_rows": [P] * 10 + [I] * 7 + [P] * 4,
+        "kt_w4a8_mma": [P] * 6 + [I] + [P] * 5 + [I] * 7 + [P] * 4,
+        "kt_w4a8_prep": [P, I, I, I, I] + [P] * 7,
+        "kt_w4a8_gemv": [P] * 6 + [I] + [P] * 3 + [I] * 10 + [P] * 6,
     },
     "w4a8_ffn": {
-        "kt_w4a8_ffn_up": [P] * 10 + [I] * 8 + [P] * 6,
-        "kt_w4a8_ffn_mma": [P] * 6 + [I] + [P] * 5 + [I] * 7 + [P] * 6,
-        "kt_w4a8_ffn_down": [P] * 10 + [I] * 7 + [P, P],
-        "kt_w4a8_ffn_gemv": [P] * 6 + [I] + [P] * 3 + [I] * 11 + [P] * 8,
+        "kt_w4a8_ffn_up": [P] * 10 + [I] * 8 + [P] * 9,
+        "kt_w4a8_ffn_mma": [P] * 6 + [I] + [P] * 5 + [I] * 7 + [P] * 8
+        + [I, P],
+        "kt_w4a8_ffn_down": [P] * 10 + [I] * 7 + [P] * 4,
+        "kt_w4a8_ffn_gemv": [P] * 6 + [I] + [P] * 3 + [I] * 11 + [P] * 10
+        + [I, P],
+        "kt_w4a8_glu_prep": [P, I, I, I, I] + [P] * 7,
     },
     "mla_decode": {
         "kt_mla_decode_fused": [P] * 8 + [I, I, I, F, F, I] + [P] * 4,

@@ -1,12 +1,14 @@
-"""Time the W4A8 GEMV and FFN kernels of this tree against those of another
-csrc tree (the same C interface), in turns, on one GPU.
+"""Time the W4A8 GEMV, tensor-core and FFN kernels of this tree against those
+of another csrc tree (the same C interface), in turns, on one GPU.
 
     python -m ktransformers_tpu_torch.ops.cuda.compare OTHER_CSRC_DIR
 
 Builds csrc/w4a8_matmul.cu and csrc/w4a8_ffn.cu of both trees (each with
 its own namespaces, into csrc/build/compare/), then at the main path's
-shapes (DeepSeek-V2-Lite's projections at M = 1, Mixtral's gathered
-experts at 2 and 16 rows, the W4A8 FFN gathered / grouped / dense) times
+shapes (DeepSeek-V2-Lite's projections at M = 1 on the GEMV and at M = 8,
+256 and 1024 on the tensor-core kernel, its experts' grouped gate_up at
+1536 rows, Mixtral's gathered experts at 2 and 16 rows, the W4A8 FFN
+gathered / grouped / dense) times
 the launch of this tree (A) and of the other (B) in the order A B B A,
 each the median of 20 with the L2 cache flushed before each launch, and
 prints the better of each pair, their ratio, how far the two outputs lie
@@ -70,6 +72,12 @@ def shapes(rn, w) -> list:
         x, wt = rn(1, k), w((k, n))
         out.append((f"gemv {label} M=1", lambda x=x, wt=wt:
                     MM.dense_w4a8_launcher(x, wt, "gemv")))
+    for k, n, label in ((2048, 3648, "qkv_a"), (2048, 2048, "o_proj")):
+        wt = w((k, n))
+        for m in (8, 256, 1024):
+            x = rn(m, k)
+            out.append((f"mma {label} M={m}", lambda x=x, wt=wt:
+                        MM.dense_w4a8_launcher(x, wt, "mma")))
     g = torch.Generator().manual_seed(7)
     for k, n, label in ((4096, 28672, "gate_up"), (14336, 4096, "down")):
         wt = w((8, k, n))
@@ -82,6 +90,14 @@ def shapes(rn, w) -> list:
                         lambda x=x, wt=wt, ids=ids.cuda():
                         MM.gathered_launcher(x, wt, ids, "gemv")))
     gu, dn = w((64, 2048, 2816)), w((64, 1408, 2048))
+    for tokens in (256,):
+        topk = torch.stack([torch.randperm(64, generator=g)[:6]
+                            for _ in range(tokens)])
+        sizes = torch.bincount(topk.reshape(-1), minlength=64).to(torch.int32)
+        xs = rn(6 * tokens, 2048)
+        out.append((f"mma grouped gate_up {6 * tokens} rows", lambda xs=xs,
+                    sizes=sizes.cuda():
+                    MM.grouped_launcher(xs, gu, sizes, "mma")))
     for tokens in (1, 8):
         ids = torch.stack([torch.randperm(64, generator=g)[:6]
                            for _ in range(tokens)]).reshape(-1)

@@ -8,12 +8,16 @@ ktransformers_tpu/ops/pallas/w4a8_matmul.py:
   (decode MoE experts the fused FFN kernels refuse),
 - grouped_w4a8_matmul: rows sorted by expert with group sizes; rows past
   sum(group_sizes) come back zero (prefill MoE, likewise).
+Weights are offset-lo int4 (one group of all K), int4_g or int4_gz (the
+zero term - xsum * z of each scale group, csrc/w4a8_core.cuh); every
+kernel below takes all three.
 ``route`` picks the kernel of a call by a fixed rule: w4a8_gemv_kernel
 (split-K GEMV, tiles keyed by expert) for one-row dense calls and every
 gathered call of up to GEMV_MAX_ROWS rows; w4a8_mma_kernel (s8 tensor
 cores, tiles of MMA_BM rows) for dense and grouped calls of at least
-MMA_MIN_ROWS rows at group 128 or 96; w4a8_rows_kernel (the first version,
-__dp4a) for the shapes those refuse. ``gemv_folds`` and ``folds`` say
+MMA_MIN_ROWS rows at groups of 128, 96, 32 and 16 and at one group of all
+K (``mma_takes``); w4a8_rows_kernel (the first version, __dp4a) for the
+shapes those refuse. ``gemv_folds`` and ``folds`` say
 whether the kernel quantizes x itself (the activation prep of
 quant/w4a8.py:w4a8_prep folded in: no prep launch, no code tensors) or
 reads the codes of one kt_w4a8_prep launch: the GEMV where a block
@@ -37,7 +41,7 @@ import torch
 from ktransformers_tpu_torch.ops.cuda import LAUNCHES, ROUTED_LAUNCHES
 from ktransformers_tpu_torch.ops.cuda import _build
 from ktransformers_tpu_torch.quant.formats import QTensor
-from ktransformers_tpu_torch.quant.w4a8 import w4a8_prep
+from ktransformers_tpu_torch.quant.w4a8 import W4A8_KINDS, w4a8_prep
 
 _DENSE_TILES: dict = {}
 
@@ -46,7 +50,7 @@ _DENSE_TILES: dict = {}
 # chip_smoke.py's kernel phase shows), for the group sizes it is built for
 MMA_BM = 64
 MMA_MIN_ROWS = 2
-MMA_GROUPS = (96, 128)
+MMA_GROUPS = (16, 32, 96, 128)
 # w4a8_mma_kernel quantizes x itself at up to this many rows, where its A
 # tile (the rows rounded up to 16, every scale group) fits beside its ring
 # of MMA_STAGES groups: each of its blocks quantizes the tile again, which
@@ -75,6 +79,30 @@ GEMV_MAX_ROWS = 128
 GEMV_BLOCKS_PER_SM = 2
 
 
+def group_of(w: QTensor) -> int:
+    """The scale group of a W4A8 weight: group_size, or all of K for a
+    per-channel int4 weight (group_size 0)."""
+    return w.group_size or w.in_features
+
+
+def mma_takes(group_size: int, kdim: int | None = None) -> bool:
+    """Whether w4a8_mma_kernel takes a scale group (csrc/w4a8_mma.cuh:
+    launch_mma): 128 and 96 (a stage a group), 32 and 16 (stages of 32
+    bytes of K: K a multiple of 64), or one group of all K (per-channel,
+    its int sums over every stage; ``kdim`` given)."""
+    if group_size in (96, 128):
+        return True
+    if group_size in (16, 32):
+        return kdim is None or kdim % 64 == 0
+    return kdim is not None and group_size == kdim and kdim % 32 == 0
+
+
+def mma_wide(group_size: int, kdim: int) -> bool:
+    """A group the tensor-core kernel takes as one group of all K (its WIDE
+    stages): such a call reads a prep launch's codes, never folds."""
+    return group_size == kdim and group_size not in MMA_GROUPS
+
+
 def gemv_takes(rows: int, group_size: int, n: int) -> bool:
     """Whether w4a8_gemv_kernel takes a call of ``rows`` rows: N a multiple
     of 16 (16-byte loads) and a scale group of whole 8-row units."""
@@ -82,14 +110,16 @@ def gemv_takes(rows: int, group_size: int, n: int) -> bool:
             and (group_size // 2) % GEMV_UNIT == 0)
 
 
-def route(m: int, entry: str, group_size: int, n: int) -> str:
+def route(m: int, entry: str, group_size: int, n: int,
+          kdim: int | None = None) -> str:
     """The kernel of a CUDA call: "gemv" (w4a8_gemv_kernel), "mma"
     (w4a8_mma_kernel) or "rows" (w4a8_rows_kernel). ``entry`` is "dense",
-    "gathered" or "grouped"; m the rows of x. The activation codes are
-    integers, so float32 and bf16 x take the same kernel."""
+    "gathered" or "grouped"; m the rows of x; group_size the weight's scale
+    group (group_of: K for per-channel int4), ``kdim`` its K. The activation
+    codes are integers, so float32 and bf16 x take the same kernel."""
     if entry == "gathered" or (entry == "dense" and m == 1):
         return "gemv" if gemv_takes(m, group_size, n) else "rows"
-    if m < MMA_MIN_ROWS or group_size not in MMA_GROUPS or n % 16:
+    if m < MMA_MIN_ROWS or not mma_takes(group_size, kdim) or n % 16:
         return "rows"
     return "mma"
 
@@ -100,36 +130,50 @@ def fold_rows(m: int) -> int:
     return min(MMA_BM, -(-m // 16) * 16)
 
 
-def fold_bytes(arows: int, kdim: int, group_size: int) -> int:
+def fold_bytes(arows: int, kdim: int, group_size: int,
+               zeros: bool = False) -> int:
     """Shared memory of a folded A tile (csrc/w4a8_mma.cuh:fold_bytes): qa
     and qb rows of K/2 bytes (an odd number of 16-byte chunks) and sa, sb,
-    t per row and scale group."""
+    t (and xs, with zero points) per row and scale group."""
     k2 = kdim // 2
     ld = k2 if (k2 // 16) % 2 else k2 + 16
-    return 2 * arows * ld + 12 * arows * (kdim // group_size)
+    return 2 * arows * ld + (16 if zeros else 12) * arows * (kdim // group_size)
+
+
+def stage_bytes(group_size: int, bn: int, zeros: bool = False) -> int:
+    """Shared memory of a folded ring stage (csrc/w4a8_mma.cuh:Shape, and
+    w4a8_ffn.cu's): KC bytes of K of bn weight columns (a group at 128 and
+    96, 32 bytes at 32 and 16) and each of its groups' s (and z) columns."""
+    gs2 = group_size // 2
+    kc = 32 if gs2 < 32 else gs2
+    return kc * bn + (kc // gs2) * (8 if zeros else 4) * bn
 
 
 def mma_fold_fits(m: int, kdim: int, group_size: int, stages: int,
-                  bn: int, limit: int = SMEM_MAX) -> bool:
+                  bn: int, limit: int = SMEM_MAX,
+                  zeros: bool = False) -> bool:
     """Whether a folded A tile of m rows fits beside a tensor-core ring of
-    ``stages`` groups of weight bytes [gs/2][bn] and bn scales within
-    ``limit`` bytes of shared memory."""
-    ring = stages * (group_size // 2 * bn + 4 * bn)
-    return ring + fold_bytes(fold_rows(m), kdim, group_size) <= limit
+    ``stages`` stages of bn columns (stage_bytes) within ``limit`` bytes of
+    shared memory."""
+    ring = stages * stage_bytes(group_size, bn, zeros)
+    return ring + fold_bytes(fold_rows(m), kdim, group_size,
+                             zeros) <= limit
 
 
-def folds(kernel: str, m: int, kdim: int, group_size: int) -> bool:
+def folds(kernel: str, m: int, kdim: int, group_size: int,
+          zeros: bool = False) -> bool:
     """Whether a CUDA call [m, kdim] routed to the tensor-core kernel
     (kernel "mma") folds the activation prep in, quantizing x inside the
     kernel (no w4a8_prep launch): at up to MMA_FOLD_MAX_ROWS rows, at
-    scale groups of up to FOLD_MAX_GROUP, where its A tile leaves room for
-    two blocks an SM (at K = 2048; not at K = 10944). The first version
-    never folds; the GEMV's rule is gemv_folds. A pure function of the
-    shape, as the route is."""
+    scale groups of up to FOLD_MAX_GROUP that it takes as groups (not one
+    group of all K), where its A tile leaves room for two blocks an SM (at
+    K = 2048; not at K = 10944). The first version never folds; the GEMV's
+    rule is gemv_folds. A pure function of the shape, as the route is."""
     return (kernel == "mma" and m <= MMA_FOLD_MAX_ROWS
             and group_size <= FOLD_MAX_GROUP
+            and not mma_wide(group_size, kdim)
             and mma_fold_fits(m, kdim, group_size, MMA_STAGES, 64,
-                              SMEM_MAX // 2 - 1024))
+                              SMEM_MAX // 2 - 1024, zeros))
 
 
 def gemv_folds(rb: int, ng: int, splits: int, group_size: int) -> bool:
@@ -147,9 +191,10 @@ def gemv_call_folds(n: int, rows: int, experts: int, kdim: int,
     """gemv_folds of a w4a8_gemv_kernel call of ``rows`` rows over
     ``experts`` experts of [K/2, N] (a dense call: rows = experts = 1)."""
     rb = gemv_rows_per_chunk(rows, experts)
-    splits, _ = w4a8_gemv_plan(n, gemv_tile_count(rows, experts, rb),
-                               kdim // 2, group_size // 2, sms)
-    return gemv_folds(rb, kdim // group_size, splits, group_size)
+    splits, gran = w4a8_gemv_plan(n, gemv_tile_count(rows, experts, rb),
+                                  kdim // 2, group_size // 2, sms)
+    return (gran * GEMV_UNIT == group_size // 2
+            and gemv_folds(rb, kdim // group_size, splits, group_size))
 
 
 _SMS: dict = {}
@@ -188,9 +233,15 @@ def split_k_plan(blocks: int, k2: int, gs2: int,
     split: the K/2 storage rows are cut into ``splits`` runs of whole scale
     groups (gran = gs2 / GEMV_UNIT units, 64 storage rows at group 128, 48
     at 96) so that blocks x splits reaches GEMV_BLOCKS_PER_SM blocks an SM,
-    at least one group a split."""
+    at least one group a split. One group of all K wider than a fold
+    (per-channel int4) is cut inside the group, in whole units (gran 1):
+    a run's int dots times the row scales are its share of the group's
+    value, and the kernel takes t and the zero term once (the lane that
+    holds the group's first unit)."""
     groups = k2 // gs2
     want = -(-GEMV_BLOCKS_PER_SM * sms // blocks)
+    if groups == 1 and 2 * gs2 > FOLD_MAX_GROUP:
+        return max(1, min(want, k2 // GEMV_UNIT)), 1
     return max(1, min(want, groups)), gs2 // GEMV_UNIT
 
 
@@ -286,18 +337,24 @@ def lift(w: QTensor) -> QTensor:
 
 
 def check_w4a8_weight(w: QTensor, ndim: int, what: str) -> int:
-    """Raise unless w is a W4A8-ready int4_g weight; returns gs/2."""
+    """Raise unless w is a W4A8-ready int4 / int4_g / int4_gz weight (its
+    zero points, where it has them, shaped as its scales); returns gs/2
+    (gs = group_of(w))."""
     if not isinstance(w, QTensor):
         raise TypeError(f"{what}: weight must be a QTensor")
-    if w.kind != "int4_g" or not w.act_quant or w.zeros is not None:
+    if w.kind not in W4A8_KINDS or not w.act_quant:
         raise ValueError(
-            f"{what}: needs offset-lo int4_g weights without zeros "
+            f"{what}: needs offset-lo int4 weights "
             f"(kind={w.kind}, act_quant={w.act_quant})"
         )
+    if (w.zeros is not None) != (w.kind == "int4_gz"):
+        raise ValueError(f"{what}: {w.kind} weights "
+                         f"{'need' if w.kind == 'int4_gz' else 'take no'} "
+                         "zero points")
     if w.data.dtype != torch.int8 or w.data.dim() != ndim:
         raise ValueError(f"{what}: want int8 data of rank {ndim}, got "
                          f"{w.data.dtype} {tuple(w.data.shape)}")
-    gs = w.group_size
+    gs = group_of(w)
     if gs <= 0 or gs % 8:
         raise ValueError(f"{what}: group size {gs} must be a multiple of 8")
     k = w.in_features
@@ -305,10 +362,14 @@ def check_w4a8_weight(w: QTensor, ndim: int, what: str) -> int:
         raise ValueError(f"{what}: K={k} is not a multiple of group {gs}")
     ng = k // gs
     want = (*w.data.shape[:-2], ng, w.out_features)
-    if w.scales is None or tuple(w.scales.shape) != want:
-        raise ValueError(f"{what}: scales must be {want}")
-    if w.scales.dtype != torch.float32:
-        raise ValueError(f"{what}: scales must be float32")
+    for name in ("scales", "zeros"):
+        v = getattr(w, name)
+        if v is None and name == "zeros":
+            continue
+        if v is None or tuple(v.shape) != want:
+            raise ValueError(f"{what}: {name} must be {want}")
+        if v.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} must be float32")
     if w.out_features % 4:
         raise ValueError(f"{what}: N={w.out_features} must be a multiple of 4")
     return gs // 2
@@ -322,6 +383,12 @@ def device_kind(x: torch.Tensor, what: str) -> str:
     return x.device.type
 
 
+def weight_tensors(w: QTensor) -> tuple:
+    """The device tensors of a W4A8 weight: data, scales and its zero
+    points where it has them."""
+    return (w.data, w.scales) + (() if w.zeros is None else (w.zeros,))
+
+
 def check_cuda_operands(what: str, device, *tensors) -> None:
     for t in tensors:
         if t.device != device:
@@ -330,20 +397,29 @@ def check_cuda_operands(what: str, device, *tensors) -> None:
             raise ValueError(f"{what}: operands must be contiguous")
 
 
-def w4a8_group_dot(qa, qb, sa, sb, t, wdata, scales, gs2: int):
+def w4a8_group_dot(qa, qb, sa, sb, t, wdata, scales, gs2: int,
+                   xsum=None, zeros=None):
     """Plain W4A8 product for one weight [K/2, N]: float32 [M, N].
 
     The int8 dots run as float32 matmuls, exact because every partial sum
-    is an integer below 2^24 (gs/2 * 127 * 128 < 2^24); groups are added
-    in order like _w4a8_group_acc."""
+    is an integer below 2^24 (gs/2 * 127 * 128 < 2^24), or as float64 ones
+    where a group is wider (per-channel int4: exact below 2^53), each
+    rounded once to float32 as the kernels' int32 sums are; groups are
+    added in order like _w4a8_group_acc. ``zeros`` [ng, N] (int4_gz) with
+    ``xsum`` [M, ng]: each group's value less xsum * z."""
     m, k2 = qa.shape
     n = wdata.shape[-1]
     ng = k2 // gs2
-    braw = wdata.to(torch.float32).reshape(ng, gs2, n)
-    u = (wdata & 15).to(torch.float32).reshape(ng, gs2, n)
-    pa = torch.einsum("mgj,gjn->mgn", qa.to(torch.float32).reshape(m, ng, gs2), u)
-    pb = torch.einsum("mgj,gjn->mgn", qb.to(torch.float32).reshape(m, ng, gs2), braw)
+    dot = torch.float32 if gs2 * 127 * 128 < 2**24 else torch.float64
+    braw = wdata.to(dot).reshape(ng, gs2, n)
+    u = (wdata & 15).to(dot).reshape(ng, gs2, n)
+    pa = torch.einsum("mgj,gjn->mgn", qa.to(dot).reshape(m, ng, gs2),
+                      u).to(torch.float32)
+    pb = torch.einsum("mgj,gjn->mgn", qb.to(dot).reshape(m, ng, gs2),
+                      braw).to(torch.float32)
     val = pa * sa[:, :, None] + pb * sb[:, :, None] - t[:, :, None]
+    if zeros is not None:
+        val = val - xsum[:, :, None] * zeros[None]
     acc = torch.zeros(m, n, dtype=torch.float32, device=qa.device)
     for g in range(ng):
         acc = acc + val[:, g] * scales[g]
@@ -353,8 +429,9 @@ def w4a8_group_dot(qa, qb, sa, sb, t, wdata, scales, gs2: int):
 def w4a8_matmul_ref(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
     """Plain version of dense_w4a8_matmul: x2 [M, K] -> [M, N] x2.dtype."""
     kdim = x2.shape[1]
-    qa, qb, sa, sb, t, _ = w4a8_prep(x2, kdim, w.group_size)
-    y = w4a8_group_dot(qa, qb, sa, sb, t, w.data, w.scales, w.group_size // 2)
+    qa, qb, sa, sb, t, xs = w4a8_prep(x2, kdim, w.group_size)
+    y = w4a8_group_dot(qa, qb, sa, sb, t, w.data, w.scales,
+                       group_of(w) // 2, xs, w.zeros)
     return y.to(x2.dtype)
 
 
@@ -370,17 +447,31 @@ X_DTYPES = {torch.float32: 1, torch.bfloat16: 2}  # the entries' x_dtype
 
 def act_args(acts) -> tuple:
     """The activation arguments of a kernel entry (qa, qb, sa, sb, t, x,
-    x_dtype): the codes of a prep launch (a tuple of five tensors), or the
-    rows x themselves (a tensor) for a launch that folds the prep in."""
+    x_dtype): the codes of a prep launch (a tuple of five tensors, or six
+    with the group sums xs: zero_args passes those), or the rows x
+    themselves (a tensor) for a launch that folds the prep in."""
     if isinstance(acts, torch.Tensor):
         return (None,) * 5 + (acts.data_ptr(), X_DTYPES[acts.dtype])
-    return tuple(v.data_ptr() for v in acts) + (None, 0)
+    return tuple(v.data_ptr() for v in acts[:5]) + (None, 0)
 
 
-def activations(x2: torch.Tensor, kdim: int, group_size: int, fold: bool):
+def zero_args(acts, w: QTensor) -> tuple:
+    """The zero-term arguments of a kernel entry (xs, z): the group sums of
+    a prep launch's codes (the sixth tensor; none where the launch folds
+    the prep in) and the weight's zero points, or (None, None) without
+    them."""
+    if w.zeros is None:
+        return None, None
+    xs = None if isinstance(acts, torch.Tensor) else acts[5].data_ptr()
+    return xs, w.zeros.data_ptr()
+
+
+def activations(x2: torch.Tensor, kdim: int, group_size: int, fold: bool,
+                xsum: bool = False):
     """What a CUDA launch reads: x2 itself where it folds the prep in, else
-    the codes of one prep launch."""
-    return x2 if fold else prep_activations(x2, kdim, group_size)
+    the codes of one prep launch (with the group sums where ``xsum``: a
+    weight with zero points)."""
+    return x2 if fold else prep_activations(x2, kdim, group_size, xsum)
 
 
 def launch_mma(what, acts, w: QTensor, tiles, out):
@@ -388,13 +479,14 @@ def launch_mma(what, acts, w: QTensor, tiles, out):
     the prep in, into an A tile of fold_rows rows)."""
     te, tr0, trs = tiles
     k2, n = w.data.shape[-2], w.data.shape[-1]
-    gs2 = w.group_size // 2
+    gs2 = group_of(w) // 2
     arows = fold_rows(out.shape[0]) if isinstance(acts, torch.Tensor) else 0
     err = _build.lib("w4a8_matmul").kt_w4a8_mma(
         *act_args(acts), w.data.data_ptr(), w.scales.data_ptr(),
         te.data_ptr(), tr0.data_ptr(), trs.data_ptr(),
         te.shape[0], arows, k2, n, k2 // gs2, gs2,
         int(out.dtype == torch.bfloat16), out.data_ptr(),
+        *zero_args(acts, w),
         torch.cuda.current_stream(out.device).cuda_stream,
     )
     _build.check(err, what)
@@ -413,13 +505,15 @@ def gemv_launcher(what, x, w: QTensor, ids: torch.Tensor, out,
     launch here makes their codes) or the codes themselves (a tuple: the
     FFN's down)."""
     e, k2, n = w.data.shape
-    gs2 = w.group_size // 2
+    gs = group_of(w)
+    gs2 = gs // 2
     r = ids.shape[0]
-    if not gemv_takes(r, w.group_size, n):
+    if not gemv_takes(r, gs, n):
         raise ValueError(f"{what}: the GEMV takes at most {GEMV_MAX_ROWS} "
                          f"rows, N a multiple of 16 and a group of 16s "
-                         f"(rows={r}, N={n}, group={w.group_size})")
-    if any(p.data_ptr() % 16 for p in (w.data, w.scales, out)):
+                         f"(rows={r}, N={n}, group={gs})")
+    if any(p is not None and p.data_ptr() % 16
+           for p in (w.data, w.scales, w.zeros, out)):
         raise ValueError(f"{what}: the GEMV takes 16-byte aligned operands")
     dev = out.device
     ids = ids.to(torch.int32).contiguous()
@@ -432,8 +526,9 @@ def gemv_launcher(what, x, w: QTensor, ids: torch.Tensor, out,
                             "w4a8_gemv")
     if isinstance(x, torch.Tensor):
         if fold is None:
-            fold = gemv_folds(rb, k2 // gs2, splits, w.group_size)
-        acts = activations(x, w.in_features, w.group_size, fold)
+            fold = (gran * GEMV_UNIT == gs2
+                    and gemv_folds(rb, k2 // gs2, splits, gs))
+        acts = activations(x, w.in_features, gs, fold, w.zeros is not None)
     else:
         acts = x
     fn = _build.lib("w4a8_matmul").kt_w4a8_gemv
@@ -446,6 +541,7 @@ def gemv_launcher(what, x, w: QTensor, ids: torch.Tensor, out,
             int(out.dtype == torch.bfloat16),
             None if part is None else part.data_ptr(),
             None if cnt is None else cnt.data_ptr(), out.data_ptr(),
+            *zero_args(acts, w),
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(err, what)
@@ -463,50 +559,63 @@ def one_id(device) -> torch.Tensor:
 
 def launch_rows(fn, what, prep, w: QTensor, tiles, mr: int, out):
     """Launch a rows kernel (kt_w4a8_rows / kt_w4a8_ffn_down) on the codes
-    of a prep launch."""
-    qa, qb, sa, sb, t = prep
+    of a prep launch (with the group sums where w has zero points)."""
+    qa, qb, sa, sb, t = prep[:5]
     te, tr0, trs = tiles
     k2, n = w.data.shape[-2], w.data.shape[-1]
-    gs2 = w.group_size // 2
+    gs2 = group_of(w) // 2
     err = fn(
         qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
         t.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
         te.data_ptr(), tr0.data_ptr(), trs.data_ptr(),
         te.shape[0], mr, k2, n, k2 // gs2, gs2,
         int(out.dtype == torch.bfloat16), out.data_ptr(),
+        *zero_args(prep, w),
         torch.cuda.current_stream(out.device).cuda_stream,
     )
     _build.check(err, what)
 
 
-def prep_activations(x2: torch.Tensor, kdim: int, group_size: int):
-    """(qa, qb, sa, sb, t) of w4a8_prep for x2 [M, K]: the plain version on
-    the CPU, one launch of kt_w4a8_prep (csrc/w4a8_matmul.cu) on the card.
+# the widest group w4a8_prep_kernel takes (a warp a (row, group)); wider
+# ones (per-channel int4) prep on w4a8_prep_block_kernel, a block a (row,
+# group) (csrc/w4a8_matmul.cu:launch_prep)
+PREP_WARP_MAX_GROUP = 512
+
+
+def prep_activations(x2: torch.Tensor, kdim: int, group_size: int,
+                     xsum: bool = False):
+    """(qa, qb, sa, sb, t) of w4a8_prep for x2 [M, K], and xsum where asked
+    (the zero term's group sums): the plain version on the CPU, one launch
+    of kt_w4a8_prep (csrc/w4a8_matmul.cu) on the card. group_size 0 is one
+    group of all K (per-channel int4).
 
     The prep is plain XLA in the JAX package (quant/w4a8.py:w4a8_prep);
     as eager PyTorch it is ~15 small launches per projection."""
     what = "w4a8_prep"
     if x2.device.type == "cpu":
-        return w4a8_prep(x2, kdim, group_size)[:5]
+        return w4a8_prep(x2, kdim, group_size)[:6 if xsum else 5]
     if x2.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{what}: x must be float32 or bfloat16")
     check_cuda_operands(what, x2.device, x2)
     m = x2.shape[0]
-    ng = kdim // group_size
+    gs = group_size or kdim
+    ng = kdim // gs
     dev = x2.device
     qa = torch.empty(m, kdim // 2, dtype=torch.int8, device=dev)
     qb = torch.empty_like(qa)
-    sa = torch.empty(m, ng, dtype=torch.float32, device=dev)
-    sb = torch.empty_like(sa)
-    t = torch.empty_like(sa)
+    planes = [torch.empty(m, ng, dtype=torch.float32, device=dev)
+              for _ in range(4 if xsum else 3)]
     err = _build.lib("w4a8_matmul").kt_w4a8_prep(
-        x2.data_ptr(), m, kdim, group_size, int(x2.dtype == torch.bfloat16),
-        qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-        t.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        x2.data_ptr(), m, kdim, gs, int(x2.dtype == torch.bfloat16),
+        qa.data_ptr(), qb.data_ptr(), *(v.data_ptr() for v in planes),
+        *([] if xsum else [None]),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, what)
     LAUNCHES[what] += 1
-    return qa, qb, sa, sb, t
+    if gs > PREP_WARP_MAX_GROUP:
+        ROUTED_LAUNCHES["w4a8_prep_block_kernel"] += 1
+    return (qa, qb, *planes)
 
 
 def dense_w4a8_launcher(x2: torch.Tensor, w: QTensor,
@@ -517,9 +626,10 @@ def dense_w4a8_launcher(x2: torch.Tensor, w: QTensor,
     "gemv" or "mma") overrides ``route`` and ``fold`` overrides ``folds`` /
     ``gemv_folds``, for a measurement (the first version never folds)."""
     what = "dense_w4a8_matmul"
-    check_cuda_operands(what, x2.device, x2, w.data, w.scales)
+    check_cuda_operands(what, x2.device, x2, *weight_tensors(w))
     m = x2.shape[0]
-    kernel = kernel or route(m, "dense", w.group_size, w.out_features)
+    gs = group_of(w)
+    kernel = kernel or route(m, "dense", gs, w.out_features, w.in_features)
     out = torch.empty(m, w.out_features, dtype=x2.dtype, device=x2.device)
     if kernel == "gemv":
         if m != 1:
@@ -527,10 +637,10 @@ def dense_w4a8_launcher(x2: torch.Tensor, w: QTensor,
         return gemv_launcher(what, x2, lift(w), one_id(x2.device), out,
                              fold), out
     if fold is None:
-        fold = folds(kernel, m, w.in_features, w.group_size)
+        fold = folds(kernel, m, w.in_features, gs, w.zeros is not None)
     if fold and kernel == "rows":
         raise ValueError(f"{what}: the first version takes no x")
-    acts = activations(x2, w.in_features, w.group_size, fold)
+    acts = activations(x2, w.in_features, gs, fold, w.zeros is not None)
     if kernel == "mma":
         tiles = dense_tiles(m, MMA_BM, x2.device)
         return lambda: launch_mma(what, acts, w, tiles, out), out
@@ -541,7 +651,8 @@ def dense_w4a8_launcher(x2: torch.Tensor, w: QTensor,
 
 
 def dense_w4a8_matmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """y = x2 @ W for offset-lo int4_g W [K/2, N]: [M, N] in x2.dtype.
+    """y = x2 @ W for offset-lo int4 / int4_g / int4_gz W [K/2, N]: [M, N]
+    in x2.dtype.
 
     CUDA tensors launch csrc/w4a8_matmul.cu; CPU tensors take
     w4a8_matmul_ref."""
@@ -552,19 +663,29 @@ def dense_w4a8_matmul(x2: torch.Tensor, w: QTensor) -> torch.Tensor:
         return w4a8_matmul_ref(x2, w)
     if x2.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x2.device}")
-    kernel = route(x2.shape[0], "dense", w.group_size, w.out_features)
-    return _counted(what, kernel, *dense_w4a8_launcher(x2, w, kernel))
+    kernel = route(x2.shape[0], "dense", group_of(w), w.out_features,
+                   w.in_features)
+    return _counted(what, kernel, *dense_w4a8_launcher(x2, w, kernel), w)
 
 
 KERNEL_NAMES = {"gemv": "w4a8_gemv_kernel", "mma": "w4a8_mma_kernel"}
+# the suffix of a W4A8 kernel's instantiation with the zero term in
+# ROUTED_LAUNCHES (the C launchers pick it where z is given)
+ZP = "<zp>"
 
 
-def _counted(what: str, kernel: str, launch, out: torch.Tensor
-             ) -> torch.Tensor:
+def kernel_name(kernel: str, w: QTensor) -> str:
+    """The ROUTED_LAUNCHES key of redesigned kernel ``kernel`` ("gemv" or
+    "mma") on weight w."""
+    return KERNEL_NAMES[kernel] + (ZP if w.zeros is not None else "")
+
+
+def _counted(what: str, kernel: str, launch, out: torch.Tensor,
+             w: QTensor) -> torch.Tensor:
     launch()
     LAUNCHES[what] += 1
     if kernel in KERNEL_NAMES:
-        ROUTED_LAUNCHES[KERNEL_NAMES[kernel]] += 1
+        ROUTED_LAUNCHES[kernel_name(kernel, w)] += 1
     return out
 
 
@@ -578,15 +699,17 @@ def w4a8_rows_ref(x_rows: torch.Tensor, w: QTensor,
     output row is zero), the activations quantized per row and scale group
     by w4a8_prep. [R, N] in x_rows.dtype."""
     kdim = x_rows.shape[1]
-    qa, qb, sa, sb, t, _ = w4a8_prep(x_rows, kdim, w.group_size)
+    qa, qb, sa, sb, t, xs = w4a8_prep(x_rows, kdim, w.group_size)
     out = torch.zeros(x_rows.shape[0], w.out_features, dtype=torch.float32,
                       device=x_rows.device)
     for e in torch.unique(row_expert).tolist():
         if e < 0:
             continue
         idx = torch.nonzero(row_expert == e).flatten()
-        out[idx] = w4a8_group_dot(qa[idx], qb[idx], sa[idx], sb[idx], t[idx],
-                                  w.data[e], w.scales[e], w.group_size // 2)
+        out[idx] = w4a8_group_dot(
+            qa[idx], qb[idx], sa[idx], sb[idx], t[idx], w.data[e],
+            w.scales[e], group_of(w) // 2, xs[idx],
+            None if w.zeros is None else w.zeros[e])
     return out.to(x_rows.dtype)
 
 
@@ -604,8 +727,9 @@ def rows_launcher(x_rows: torch.Tensor, w: QTensor, tiles, mr: int,
     """Checks a CUDA call on a 3-D weight and preps its activations (one
     w4a8_prep launch); returns launch(), which runs only the kernel and
     writes ``out`` [R, N]."""
-    check_cuda_operands(what, x_rows.device, x_rows, w.data, w.scales)
-    prep = prep_activations(x_rows, w.in_features, w.group_size)
+    check_cuda_operands(what, x_rows.device, x_rows, *weight_tensors(w))
+    prep = prep_activations(x_rows, w.in_features, w.group_size,
+                            w.zeros is not None)
     fn = _build.lib("w4a8_matmul").kt_w4a8_rows
     return lambda: launch_rows(fn, what, prep, w, tiles, mr, out)
 
@@ -615,10 +739,10 @@ def gathered_launcher(x_rows: torch.Tensor, w: QTensor, ids: torch.Tensor,
     what = "gathered_w4a8_matmul"
     out = torch.empty(x_rows.shape[0], w.out_features, dtype=x_rows.dtype,
                       device=x_rows.device)
-    kernel = kernel or route(x_rows.shape[0], "gathered", w.group_size,
-                             w.out_features)
+    kernel = kernel or route(x_rows.shape[0], "gathered", group_of(w),
+                             w.out_features, w.in_features)
     if kernel == "gemv":
-        check_cuda_operands(what, x_rows.device, x_rows, w.data, w.scales,
+        check_cuda_operands(what, x_rows.device, x_rows, *weight_tensors(w),
                             ids)
         return gemv_launcher(what, x_rows, w, ids, out, fold), out
     if fold:
@@ -633,13 +757,15 @@ def grouped_launcher(x_sorted: torch.Tensor, w: QTensor,
     m = x_sorted.shape[0]
     out = torch.zeros(m, w.out_features, dtype=x_sorted.dtype,
                       device=x_sorted.device)
-    kernel = kernel or route(m, "grouped", w.group_size, w.out_features)
+    gs = group_of(w)
+    kernel = kernel or route(m, "grouped", gs, w.out_features, w.in_features)
     if kernel == "mma":
-        check_cuda_operands(what, x_sorted.device, x_sorted, w.data,
-                            w.scales)
+        check_cuda_operands(what, x_sorted.device, x_sorted,
+                            *weight_tensors(w))
         if fold is None:
-            fold = folds(kernel, m, w.in_features, w.group_size)
-        acts = activations(x_sorted, w.in_features, w.group_size, fold)
+            fold = folds(kernel, m, w.in_features, gs, w.zeros is not None)
+        acts = activations(x_sorted, w.in_features, gs, fold,
+                           w.zeros is not None)
         tiles = grouped_tiles(group_sizes, m, MMA_BM)
         return lambda: launch_mma(what, acts, w, tiles, out), out
     if fold:
@@ -651,7 +777,7 @@ def grouped_launcher(x_sorted: torch.Tensor, w: QTensor,
 def gathered_w4a8_matmul(x_rows: torch.Tensor, w: QTensor,
                          ids: torch.Tensor) -> torch.Tensor:
     """Decode MoE matmul on int8 dots: row r of x_rows [R, K] through
-    expert ids[r] of the offset-lo int4_g weight w [E, K/2, N]; only the
+    expert ids[r] of the offset-lo int4 weight w [E, K/2, N]; only the
     routed experts' bytes are read, once however many rows share an expert
     (the GEMV's tiles are keyed by expert). [R, N] in x_rows.dtype.
 
@@ -664,9 +790,10 @@ def gathered_w4a8_matmul(x_rows: torch.Tensor, w: QTensor,
         raise ValueError(f"{what}: ids must be [R]")
     if device_kind(x_rows, what) == "cpu":
         return gathered_w4a8_matmul_ref(x_rows, w, ids)
-    kernel = route(x_rows.shape[0], "gathered", w.group_size, w.out_features)
+    kernel = route(x_rows.shape[0], "gathered", group_of(w), w.out_features,
+                   w.in_features)
     return _counted(what, kernel, *gathered_launcher(x_rows.contiguous(), w,
-                                                     ids, kernel))
+                                                     ids, kernel), w)
 
 
 def grouped_w4a8_matmul(x_sorted: torch.Tensor, w: QTensor,
@@ -682,7 +809,7 @@ def grouped_w4a8_matmul(x_sorted: torch.Tensor, w: QTensor,
         raise ValueError(f"{what}: group_sizes must be [E]")
     if device_kind(x_sorted, what) == "cpu":
         return grouped_w4a8_matmul_ref(x_sorted, w, group_sizes)
-    kernel = route(x_sorted.shape[0], "grouped", w.group_size,
-                   w.out_features)
+    kernel = route(x_sorted.shape[0], "grouped", group_of(w),
+                   w.out_features, w.in_features)
     return _counted(what, kernel, *grouped_launcher(
-        x_sorted.contiguous(), w, group_sizes, kernel))
+        x_sorted.contiguous(), w, group_sizes, kernel), w)

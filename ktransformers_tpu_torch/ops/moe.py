@@ -5,9 +5,9 @@ one row per (token, slot), which reads only the routed experts' bytes. More
 tokens (prefill) sort the (token, expert) pairs by expert and run over the
 sorted rows. On either path the route is chosen as the JAX package's Pallas
 hooks choose it (ops/pallas/__init__.py):
-- W4A8 weights (offset-lo int4_g) whose expert fits the fused FFN kernels
-  run gate_up -> GLU -> requant -> down in one call (gathered_w4a8_ffn /
-  grouped_w4a8_ffn, the GLU in float32);
+- W4A8 weights (offset-lo int4, int4_g, int4_gz) whose expert fits the
+  fused FFN kernels run gate_up -> GLU -> requant -> down in one call
+  (gathered_w4a8_ffn / grouped_w4a8_ffn, the GLU in float32);
 - W4A8 weights the fused kernels refuse (an expert block too wide for
   their byte budget, as Mixtral-8x7B's, or a swiglu_limit) run two
   matmuls on int8 dots (gathered_w4a8_matmul / grouped_w4a8_matmul), the

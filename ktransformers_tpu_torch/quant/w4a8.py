@@ -24,22 +24,16 @@ W4A8_KINDS = ("int4", "int4_g", "int4_gz")
 
 
 def repack_offset_lo(qt: QTensor) -> QTensor:
-    """Offset-lo repack of an int4 QTensor, IN PLACE: the bytes are flipped
-    where they lie (so resident weight bytes never double) and qt itself
-    becomes the repacked tensor (data viewed as int8, act_quant=True).
-    Returns qt. A second call finds act_quant set and changes nothing.
-
-    ``int4`` and ``int4_gz`` would take the W4A8 kernels with a per-channel
-    group and a zero-point term, which the port's W4A8 kernels do not have
-    yet: they raise here instead of becoming weights no kernel accepts.
-    With KT_W4A8=0 (utils/device_prep.prepare_params) they run through
-    quant_matmul as they are."""
+    """Offset-lo repack of an int4 QTensor (int4, int4_g or int4_gz, as
+    ktransformers_tpu/quant/w4a8.py:repack_offset_lo), IN PLACE: the bytes
+    are flipped where they lie (so resident weight bytes never double) and
+    qt itself becomes the repacked tensor (data viewed as int8,
+    act_quant=True); its zero points and group size (0: one group of all
+    K) stay as they are. Returns qt. A second call finds act_quant set and
+    changes nothing. With KT_W4A8=0 (utils/device_prep.prepare_params) no
+    weight is repacked and every int4 kind runs through quant_matmul."""
     if qt.act_quant or qt.kind not in W4A8_KINDS:
         return qt
-    if qt.kind != "int4_g" or qt.zeros is not None:
-        raise NotImplementedError(
-            f"W4A8 for {qt.kind} weights is not ported (ROADMAP Queue 1 "
-            "item 1); set KT_W4A8=0 to run them through quant_matmul")
     if qt.data.dtype != torch.uint8:
         raise ValueError(
             f"repack_offset_lo: want uint8 data, got {qt.data.dtype}")

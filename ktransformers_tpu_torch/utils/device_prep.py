@@ -4,8 +4,9 @@ ktransformers_tpu/utils/device_prep.py:prepare_params).
 Applied on every device (the kernels and their plain versions take the same
 layouts): bf16 absorbed-MLA mats, the attention input projections fused
 into one ("qkv_a" for MLA, "qkv" for GQA), and the W4A8 offset-lo repack
-of int4_g weights, which the environment variable KT_W4A8=0 switches off
-as in the JAX package (int4 kinds then run through quant_matmul). The
+of the int4 kinds (int4, int4_g, int4_gz), which the environment variable
+KT_W4A8=0 switches off as in the JAX package (they then run through
+quant_matmul). The
 TPU-layout passes (pad_scale_sublanes, normalize_layouts) have no
 counterpart here.
 """

@@ -20,13 +20,17 @@ Tolerances: on unquantized float32 weights (whose experts run the plain
 expert products on both sides) logits within 1e-4 of the largest, the
 same greedy tokens. On W4A8 weights each step's logits within 5e-2
 (LOGIT_TOL of tests/test_torch_model.py, which explains the int8
-activation codes that float32 summation order flips), with greedy tokens
-equal except at a near-tie (the reference's top-2 gap below 5e-2 of its
-largest logit, chip_smoke.py's rule): this model's sigmoid group router
-turns a flipped code into another expert now and then, so its prefill can
-end on a near-tie, and its decode steps take fixed tokens that such a tie
-cannot change. The JAX forward moves by a comparable amount when its
-embedding moves by one float32 ulp
+activation codes that float32 summation order flips) under equal routing,
+with greedy tokens equal except at a near-tie (the reference's top-2 gap
+below 5e-2 of its largest logit, chip_smoke.py's rule). This model's
+sigmoid group router turns a flipped code into another expert set now and
+then, on one machine's float32 summation order and not on another's (the
+first token it reroutes moves the logits by up to 0.27): the test records
+every router call of both packages, puts the reference's expert set in
+wherever the port's differs, and holds every such row to be a tie of the
+reference's router (test_w4a8_reroutes_are_ties). The decode steps take
+fixed tokens that a tie cannot change. The JAX forward moves by a
+comparable amount when its embedding moves by one float32 ulp
 (test_jax_self_sensitivity_bounds_tolerance).
 """
 
@@ -256,22 +260,166 @@ def test_forward_f32_matches_jax(f32, hooks):
     assert hooks.get("mla_fused", 0) > 0
 
 
-def test_forward_w4a8_matches_jax(w4a8, hooks):
-    """Each step within LOGIT_TOL; greedy tokens equal except at a
-    near-tie of the reference."""
+def _routed_runs(jspec, jparams, params, tokens):
+    """The W4A8 runs of test_forward_w4a8_matches_jax, every router call
+    recorded (one per MoE layer a forward, in call order, on both sides):
+    - ref: the JAX forward, its calls' (choice scores, expert ids);
+    - free: the port's own forward, its calls' expert ids;
+    - forced: the port's forward with the reference's expert set put in
+      wherever its own differs (test only): the weights come from the
+      port's own scores at those experts, normalized as its GateConfig
+      says; its calls' (choice scores, own expert ids).
+    Each run: (last logits rows, greedy tokens, calls)."""
+    from ktransformers_tpu.models import model as jmodel
+
+    cfg = SPEC.moe.gate
+    ref_calls, jroute = [], jmodel.route
+
+    def jrecord(logits, gate, bias=None):
+        idx, w = jroute(logits, gate, bias)
+        ref_calls.append((_choice(np.asarray(logits), bias, cfg),
+                          np.asarray(idx)))
+        return idx, w
+
+    jmodel.route = jrecord
+    try:
+        ref = _jax_run(jspec, jparams, tokens, FEED)
+    finally:
+        jmodel.route = jroute
+
+    troute = tmodel.route
+
+    def port(force: bool):
+        calls = []
+
+        def record(logits, gate, bias=None):
+            idx, w = troute(logits, gate, bias)
+            choice = _choice(logits.numpy(), bias, cfg)
+            calls.append((choice, idx.numpy().copy()))
+            if force:
+                want = torch.as_tensor(ref_calls[len(calls) - 1][1].copy())
+                differ = torch.tensor([set(a) != set(b) for a, b in zip(
+                    idx.tolist(), want.tolist())])
+                scores = torch.sigmoid(logits.float())
+                rw = torch.gather(scores, 1, want.long())
+                if gate.norm_topk_prob:
+                    rw = rw / (rw.sum(dim=-1, keepdim=True) + 1e-20)
+                rw = rw * gate.routed_scaling_factor
+                idx = torch.where(differ[:, None], want.to(idx.dtype), idx)
+                w = torch.where(differ[:, None], rw, w)
+            return idx, w
+
+        tmodel.route = record
+        try:
+            return (*_port_run(params, tokens, FEED), calls)
+        finally:
+            tmodel.route = troute
+
+    assert cfg.scoring == "sigmoid" and cfg.has_correction_bias
+    return (*ref, ref_calls), port(False), port(True)
+
+
+def _choice(logits, bias, cfg) -> np.ndarray:
+    """The sigmoid router's choice scores: sigmoid(logits) + the
+    correction bias (ops/gate.route), float32 [T, E]."""
+    logits = np.asarray(logits, np.float32)
+    return (1.0 / (1.0 + np.exp(-logits)) + np.asarray(bias, np.float32)
+            ).astype(np.float32)
+
+
+def _group_scores(choice, cfg) -> np.ndarray:
+    """group_top2sum of the choice scores: [T, n_group]."""
+    g = np.sort(choice.reshape(choice.shape[0], cfg.n_group, -1), axis=-1)
+    return g[..., -2:].sum(axis=-1)
+
+
+def _margin(sorted_desc_row, k) -> float:
+    """The gap between the k-th and the (k+1)-th largest value."""
+    return float(sorted_desc_row[k - 1] - sorted_desc_row[k])
+
+
+@pytest.fixture(scope="module")
+def w4a8_runs(w4a8, hooks):
     jspec, jparams, params = w4a8
-    tokens = _tokens()
-    ref, ref_toks = _jax_run(jspec, jparams, tokens, FEED)
-    out, toks = _port_run(params, tokens, FEED)
-    for step, (a, b) in enumerate(zip(out, ref)):
-        assert _rel(a, b) <= LOGIT_TOL, step
+    return _routed_runs(jspec, jparams, params, _tokens())
+
+
+# the widest margin of a tie, in choice-score units (sigmoid(logit) + bias,
+# in (-0.1, 1.1)): the router's input carries the W4A8 spread that LOGIT_TOL
+# allows the logits, the sigmoid's slope is at most 1/4, and a margin is a
+# gap between two scores, each moved that much: 2 x LOGIT_TOL / 4
+ROUTE_TOL = LOGIT_TOL / 2
+
+
+def test_forward_w4a8_matches_jax(w4a8_runs):
+    """Equal routing gives equal logits: with the reference's expert set
+    put in wherever the port's router chose another (each such row a tie:
+    test_w4a8_reroutes_are_ties), each step within LOGIT_TOL and greedy
+    tokens equal except at a near-tie of the reference."""
+    (ref, ref_toks, _), _, (out, toks, _) = w4a8_runs
+    errs = [_rel(a, b) for a, b in zip(out, ref)]
+    assert max(errs) <= LOGIT_TOL, errs
+    for step, b in enumerate(ref):
         top2 = np.sort(b[0])[-2:]
         if (top2[1] - top2[0]) / np.abs(b[0]).max() >= NEAR_TIE:
             assert toks[step] == ref_toks[step], step
-    assert _leaf(params, "layers", 1, "attn", "qkv_a").act_quant
+
+
+def test_w4a8_steps_past_tolerance_follow_a_reroute(w4a8_runs, w4a8,
+                                                    hooks):
+    """Unforced, a step past LOGIT_TOL must follow a token the port sent to
+    other experts at or before its position: the sigmoid group router turns
+    an int8 activation code that float32 summation order flips into
+    another top-k choice now and then, on one machine and not on another.
+    Both packages ran their W4A8 routes (the JAX package its Pallas
+    kernels in interpret mode)."""
+    (ref, _, ref_calls), free, _ = w4a8_runs
+    # the calls of each step's forward: two MoE layers a forward
+    moe_layers = len(ref_calls) // (DECODE_STEPS + 1)
+    rerouted = [any(set(a) != set(b) for a, b in zip(f[1], r[1]))
+                for f, r in zip(free[2], ref_calls)]
+    for step, (a, b) in enumerate(zip(free[0], ref)):
+        if _rel(a, b) > LOGIT_TOL:
+            assert any(rerouted[:(step + 1) * moe_layers]), step
+    assert _leaf(w4a8[2], "layers", 1, "attn", "qkv_a").act_quant
     for name in ("qmatmul", "gathered_ffn", "grouped_ffn", "dense_ffn",
                  "mla_fused"):
         assert hooks.get(name, 0) > 0, name
+
+
+def test_w4a8_reroutes_are_ties(w4a8_runs):
+    """Every row (under equal routing upstream) where the port's own router
+    chose another expert set is a tie of the reference's router: where the
+    group choice flipped, the gap between the reference's last chosen and
+    first unchosen group score (group_top2sum) is at most twice the row's
+    largest group score difference; where only the experts flipped, the gap
+    between its last chosen and first unchosen bias-corrected score within
+    the chosen groups is at most twice the row's largest choice score
+    difference. Both are the most a top-k can move when every score moves
+    by at most that much, so a flip beyond them is a fault of the port's
+    router; and the gap is at most ROUTE_TOL, so a flip at a wide margin (a
+    router or expert product that is off) fails too."""
+    (_, _, ref_calls), _, (_, _, calls) = w4a8_runs
+    cfg = SPEC.moe.gate
+    assert len(calls) == len(ref_calls) == 2 * (DECODE_STEPS + 1)
+    for c, ((choice, own), (rchoice, ridx)) in enumerate(zip(calls,
+                                                             ref_calls)):
+        gs, rgs = _group_scores(choice, cfg), _group_scores(rchoice, cfg)
+        for r in range(own.shape[0]):
+            if set(own[r]) == set(ridx[r]):
+                continue
+            if set(np.argsort(gs[r])[-cfg.topk_group:]) != set(
+                    np.argsort(rgs[r])[-cfg.topk_group:]):
+                gap = _margin(np.sort(rgs[r])[::-1], cfg.topk_group)
+                d = float(np.abs(gs[r] - rgs[r]).max())
+            else:
+                groups = np.argsort(rgs[r])[-cfg.topk_group:]
+                mask = np.repeat(np.isin(np.arange(cfg.n_group), groups),
+                                 cfg.num_experts // cfg.n_group)
+                gap = _margin(np.sort(np.where(mask, rchoice[r], -np.inf))
+                              [::-1], cfg.top_k)
+                d = float(np.abs(choice[r] - rchoice[r]).max())
+            assert gap <= 2 * d and gap <= ROUTE_TOL, (c, r, gap, d)
 
 
 def test_jax_self_sensitivity_bounds_tolerance(w4a8):
@@ -286,6 +434,64 @@ def test_jax_self_sensitivity_bounds_tolerance(w4a8):
     nudged["embed"] = jnp.asarray(np.nextafter(e, np.inf).astype(np.float32))
     out, _ = _jax_run(jspec, nudged, tokens, FEED)
     assert LOGIT_TOL <= 2 * max(_rel(a, b) for a, b in zip(out, ref))
+
+
+def _jax_forced_nudged_run(jspec, jparams, tokens, ref_calls):
+    """The JAX forward on the W4A8 weights with its embedding moved by one
+    float32 ulp and the reference's expert set put in wherever its own
+    router chose another (the port's forced run's substitution, test only):
+    the reference's own spread under equal routing. (last logits rows,
+    greedy tokens)."""
+    from ktransformers_tpu.models import model as jmodel
+
+    jroute, n = jmodel.route, [0]
+
+    def forced(logits, gate, bias=None):
+        idx, w = jroute(logits, gate, bias)
+        want = ref_calls[n[0]][1]
+        n[0] += 1
+        own = np.asarray(idx)
+        differ = np.array([set(a) != set(b) for a, b in zip(own.tolist(),
+                                                            want.tolist())])
+        if not differ.any():
+            return idx, w
+        scores = 1.0 / (1.0 + np.exp(-np.asarray(logits, np.float32)))
+        rw = np.take_along_axis(scores, want.astype(np.int64), 1)
+        if gate.norm_topk_prob:
+            rw = rw / (rw.sum(axis=-1, keepdims=True) + 1e-20)
+        rw = (rw * gate.routed_scaling_factor).astype(np.float32)
+        return (jnp.asarray(np.where(differ[:, None], want, own), jnp.int32),
+                jnp.asarray(np.where(differ[:, None], rw, np.asarray(w))))
+
+    nudged = dict(jparams)
+    e = np.asarray(jparams["embed"])
+    nudged["embed"] = jnp.asarray(np.nextafter(e, np.inf).astype(np.float32))
+    jmodel.route = forced
+    try:
+        out = _jax_run(jspec, nudged, tokens, FEED)
+    finally:
+        jmodel.route = jroute
+    assert n[0] == len(ref_calls)
+    return out
+
+
+def test_w4a8_forced_error_within_jax_forced_spread(w4a8, w4a8_runs):
+    """Under equal routing the port's error is the reference's own float32
+    spread: the JAX forward against itself, its embedding moved by one ulp
+    and its routing forced to the un-nudged run's, moves each step by
+    `spread`; the port's forced run (test_forward_w4a8_matches_jax's) lies
+    within twice the largest step of it. One nudge is one draw of that
+    spread, and the port's summation order differs from the reference's
+    in every op, not in one input ulp: hence twice, the factor of
+    test_jax_self_sensitivity_bounds_tolerance. An expert product or a
+    router that is off moves the logits by far more (the first token the
+    port reroutes unforced moves them by up to 0.27)."""
+    jspec, jparams, _ = w4a8
+    (ref, _, ref_calls), _, (out, _, _) = w4a8_runs
+    nudged, _ = _jax_forced_nudged_run(jspec, jparams, _tokens(), ref_calls)
+    spread = [_rel(a, b) for a, b in zip(nudged, ref)]
+    errs = [_rel(a, b) for a, b in zip(out, ref)]
+    assert max(errs) <= 2 * max(spread), (errs, spread)
 
 
 def test_generator_matches_jax(f32):

@@ -177,15 +177,20 @@ def test_concat_out_carries_zeros():
 
 
 def test_repack_refuses_int4_and_int4_gz(monkeypatch):
-    """W4A8 takes int4_g only; int4 / int4_gz raise at the repack, and
-    with KT_W4A8=0 prepare_params leaves every int4 kind as it is."""
+    """W4A8 takes every int4 kind now (the W4A8 kernels have the zero term
+    and a per-channel group): int4 / int4_gz are repacked in place, their
+    zero points and group kept, the other kinds left as they are; with
+    KT_W4A8=0 prepare_params leaves every int4 kind as it is."""
     from ktransformers_tpu_torch.quant.w4a8 import repack_offset_lo
     from ktransformers_tpu_torch.utils.device_prep import prepare_params
 
     w = torch.from_numpy(_input((128, 8), 8))
     for kind in ("int4", "int4_gz"):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            repack_offset_lo(tf.quantize(w, kind))
+        q = tf.quantize(w, kind)
+        raw, zeros, gs = q.data.clone(), q.zeros, q.group_size
+        assert repack_offset_lo(q) is q and q.act_quant
+        assert torch.equal(q.data.view(torch.uint8), raw ^ 8)
+        assert q.zeros is zeros and q.group_size == gs
     for kind in ("int8", "fp8", "mxfp4", "mxfp8", "int8_g"):
         q = tf.quantize(w, kind)
         assert repack_offset_lo(q) is q and not q.act_quant

@@ -170,14 +170,21 @@ def test_synthetic_params_of_every_kind_generate(kind, no_w4a8):
 
 
 def test_int4_gz_needs_the_w4a8_switch_off():
-    """With the repack on (the default) int4_gz weights raise at engine
-    init rather than reach a kernel that has no zero-point term."""
+    """With the repack on (the default) int4_gz weights no longer need
+    KT_W4A8=0: the engine repacks them for the W4A8 kernels (their zero
+    term), zero points kept, and generates on them."""
     from ktransformers_tpu_torch.models.init import init_params_synthetic
 
     params = init_params_synthetic(SPEC, seed=3, quant="int4_gz",
                                    dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="KT_W4A8=0"):
-        Generator(params, SPEC, max_len=MAX_LEN, **F32)
+    gen = Generator(params, SPEC, max_len=MAX_LEN, **F32)
+    qkv = gen.params["layers"][0]["attn"]["qkv_a"]
+    assert qkv.kind == "int4_gz" and qkv.act_quant
+    assert qkv.zeros is not None and qkv.data.dtype == torch.int8
+    out = gen.generate(_tokens()[0].tolist(), GenerateConfig(
+        max_new_tokens=3, prefill_chunk=PROMPT_LEN))
+    assert len(out[0]) == 3 and all(0 <= t < SMALL["vocab_size"]
+                                    for t in out[0])
 
 
 # ------------------------------------------------------------- the engine

@@ -96,8 +96,10 @@ Phases (any failure exits non-zero before the final line):
             gathered / grouped W4A8 matmul, GQA paged decode / prefill)
             against their plain versions at its shapes;
             parity of its full width cut to 2 layers with the served kinds
-            (int8 attention, int4_g W4A8 experts), held as the W4A8 variant
-            of phase 4; then all 32 layers in a Generator answering 2
+            (int8 attention, int4_g W4A8 experts), held by moe_parity (the
+            W4A8 variant's rule of phase 4, and a row past NEAR_TIE only
+            where a route it sees differs between the devices); then all
+            32 layers in a Generator answering 2
             requests of 512 + 32 tokens, launches per step held to the
             counts the code implies, a ServeEngine answering the 8 requests
             of phase 6 at depth 3 with the same checks, and the profiles of
@@ -127,8 +129,7 @@ Phases (any failure exits non-zero before the final line):
             phase 3;
 14. v3 parity: DeepSeek-V3 at full width cut to 2 layers (one dense, one
             MoE), W4A8, an 8-token prompt and 4 decode steps card vs CPU
-            (held as ``w4a8``; a row past NEAR_TIE only where its token's
-            routed experts differ between the devices); DeepSeek-V2-Lite's 2-layer model with
+            (moe_parity); DeepSeek-V2-Lite's 2-layer model with
             unquantized float32 experts (the plain expert products of
             ops/moe.py on both devices), held to PARITY_TOL; the HF import
             (hf_import): DeepSeek-V2-Lite's full width at depth 2 as
@@ -152,19 +153,35 @@ Phases (any failure exits non-zero before the final line):
             the port's write_gguf, read back by spec_from_gguf_fields and
             GGUFProvider + build_params(exact_gguf=True), a sample
             dequantized against decode_ggml, prepared for W4A8 (every W4A8
-            weight int4_gz), parity card vs CPU by v3_parity's rule, then
+            weight int4_gz), parity card vs CPU by moe_parity, then
             one request of 256 + 32 tokens, the ServeEngine's 8 requests
             at depth 3 and the four profiled steps; every W4A8 call on a
-            redesigned kernel (gguf_serve).
+            redesigned kernel (gguf_serve);
+17. qwen:   the kernels of the Qwen paths at their widths against their
+            plain versions (qwen_kernel_checks: row 9 on every int8 weight
+            of the served kinds at M = 1, 8 and 256 (the fused QKV with
+            Qwen2's bias, o_proj, Qwen2's 20480-wide shared expert) and on
+            the 151,936-wide lm_head, Qwen3's experts on the fused FFN,
+            rows 2 and 4, Qwen2's on rows 7 and 8, row 3 on Qwen2's shared
+            expert as all-int4_g weights would have it, rows 13 and 15 at
+            G = 8 and G = 7); 2-layer parity card vs CPU of both models
+            with the served kinds (int8 attention, shared expert and
+            lm_head, int4_g experts) by moe_parity; then Qwen3-30B-A3B at all 48 layers
+            and full width and Qwen2-57B-A14B cut to 4 layers (depth only),
+            each in a Generator answering 2 requests of 512 + 32 tokens and
+            a ServeEngine answering the 8 requests of phase 6 at depth 3,
+            profiled, launches per step held to QWEN3_* / QWEN2_*
+            (qwen_run).
 Prints a kernels JSON line (the eighteen wrappers, then the thirteen
 redesigned kernels, whose launches are those of their wrappers' calls
 that took them; the MLA kernels must have launched on the single-user
 (decode) and paged (paged decode and prefill) paths of both DeepSeek
 parameter sets, mla_decode_split_kernel<false> on the int8 single-user
 path (its last request decodes with the fused decode off), the FFN's
-one-row gate_up on both W4A8 decode paths, the GQA kernels on Mixtral's
-paged path, the MLA kernels and both W4A8 matmul kernels on DeepSeek-V3's
-two paths; w4a8_ffn_gemv_kernel's entry gives the gate_up half's times
+one-row gate_up on both W4A8 decode paths and Qwen3's, the GQA kernels on
+Mixtral's and both Qwen models' paged paths, the MLA kernels and both W4A8
+matmul kernels on DeepSeek-V3's two paths and the W4A8 matmul kernels on
+Qwen2's; w4a8_ffn_gemv_kernel's entry gives the gate_up half's times
 and bound; a W4A8 entry also its "fold": the folded kernel beside prep +
 unfolded kernel), the card line, and as
 the last line
@@ -1193,10 +1210,8 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
     (k and v), queries and output against the flops of the live (query,
     key) pairs over the bf16 peak. Library yardstick: gather the pages, then
     F.scaled_dot_product_attention(..., enable_gqa=True) with the mask, on a
-    NaN-free copy of the pools (gather time included; never on the path)."""
-    import torch.nn.functional as tF
-
-    from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
+    NaN-free copy of the pools (gather time included; never on the path;
+    gqa_paged_checks)."""
     from ktransformers_tpu_torch.quant.formats import dequantize
 
     dev = torch.device("cuda")
@@ -1253,7 +1268,27 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
                              main=(what == "gate_up" and tokens == 256))
         del wt, wdq
 
-    h, hkv, hd, page, pmax = 32, 8, 128, 64, 32
+    gqa_paged_checks(check, rn, 32, 8, main=True)
+
+
+def gqa_paged_checks(check, rn, h: int, hkv: int, main: bool = False,
+                     tag: str = "") -> None:
+    """Rows 13 and 15 (GQA paged attention) at ``h`` query heads over
+    ``hkv`` KV heads of 128, page 64, 32 pages a query, bf16 (decode on
+    gqa_decode_split_kernel, prefill on gqa_prefill_mma_kernel, each with
+    its first version timed beside it): a decode batch of 8 with lengths
+    on and around page boundaries at window 0 and 512, and prefill chunks
+    (a mixed step's chunk after 256 tokens; a fresh full chunk beside a
+    continued padded one). Every pool row the kernels must not read is
+    NaN; every output row (sequence, head, position) is held to 1e-2 of
+    its own largest value (see mixtral_kernel_checks); ``main`` makes the
+    first decode and prefill rows the kernels line's entries."""
+    import torch.nn.functional as tF
+
+    from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
+
+    dev = torch.device("cuda")
+    hd, page, pmax = 128, 64, 32
     scale = hd ** -0.5
     bf = torch.bfloat16
 
@@ -1292,8 +1327,8 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
             ok = ok & (kpos >= lengths[:, None] - window)
         seen = sum(min(n, window) if window else n for n in lens)
         check("gqa_paged_decode",
-              f"serve decode B=8 H=32 Hkv=8 page=64 lengths 1..2048 "
-              f"window={window}", 1e-2,
+              f"{tag}serve decode B=8 H={h} Hkv={hkv} page=64 lengths "
+              f"1..2048 window={window}", 1e-2,
               lambda: PA.gqa_paged_decode(*args, window=window),
               lambda: PA.gqa_paged_decode_ref(*args, window=window),
               lambda: PA.gqa_decode_launcher(*args, window=window),
@@ -1301,7 +1336,8 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
               2 * 2 * h * seen * hd, BF16_FLOPS_PER_S,
               library=lambda: sdpa(q[:, :, None], k0, v0, tables,
                                    ok[:, None, None]),
-              main=window == 0, kernel_main=window == 0, per_row=True,
+              main=main and window == 0, kernel_main=main and window == 0,
+              per_row=True,
               **routed(GQA_DECODE_ROUTES, PA.gqa_decode_route(bf),
                        lambda: PA.gqa_decode_launcher(*args, window=window,
                                                       kernel="first")))
@@ -1309,8 +1345,8 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
 
     # prefill: a mixed step's chunk after 256 tokens, and two chunks (one
     # fresh and full, one continued and padded)
-    for olds, s, valids, main in (([256], 256, [256], True),
-                                  ([0, 256], 256, [256, 200], False)):
+    for olds, s, valids, first in (([256], 256, [256], True),
+                                   ([0, 256], 256, [256, 200], False)):
         c = len(olds)
         k, v, tables = pool([o + vl for o, vl in zip(olds, valids)])
         k0, v0 = torch.nan_to_num(k), torch.nan_to_num(v)
@@ -1327,15 +1363,16 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
         # rows >= valid are padding: they see every live key, in the plain
         # version as in both kernels, and are compared too
         check("gqa_paged_prefill",
-              f"serve prefill C={c} S={s} H=32 Hkv=8 old={olds} "
+              f"{tag}serve prefill C={c} S={s} H={h} Hkv={hkv} old={olds} "
               f"valid={valids}", 1e-2,
               lambda: PA.gqa_paged_prefill(*args),
               lambda: PA.gqa_paged_prefill_ref(*args),
               lambda: PA.gqa_prefill_launcher(*args),
               sum(o + vl for o, vl in zip(olds, valids)) * hkv * hd * 2 * 2
               + nbytes(q) * 2, 2 * 2 * h * pairs * hd, BF16_FLOPS_PER_S,
-              library=lambda: sdpa(q, k0, v0, tables, mask), main=main,
-              kernel_main=main, plain_iters=3, per_row=True,
+              library=lambda: sdpa(q, k0, v0, tables, mask),
+              main=main and first, kernel_main=main and first, plain_iters=3,
+              per_row=True,
               **routed(GQA_PREFILL_ROUTES,
                        PA.gqa_prefill_route(torch.bfloat16),
                        lambda: PA.gqa_prefill_launcher(*args,
@@ -1409,18 +1446,19 @@ def format_variant(kind: str):
     return kind, spec, params, FORMAT_TOL
 
 
-def mixtral_variant():
-    """Mixtral-8x7B at full width cut to 2 layers with the served weight
-    kinds (int8 attention and lm_head, int4_g experts repacked for W4A8),
-    held as ``w4a8`` is (tolerance None): the experts run through the
-    gathered / grouped W4A8 matmuls, attention through the GQA paged
-    kernels."""
+def gqa_variant(name: str, cfg: dict):
+    """The model of ``cfg`` (Mixtral-8x7B, Qwen3-30B-A3B, Qwen2-57B-A14B)
+    at full width cut to 2 layers with the served weight kinds (int8
+    attention, shared expert and lm_head, int4_g experts repacked for
+    W4A8): (name, spec, prepared CPU params, None), held by moe_parity.
+    The experts run through the W4A8 kernels the route picks, attention
+    through the GQA paged kernels."""
     from ktransformers_tpu_torch.models.init import init_params_synthetic
     from ktransformers_tpu_torch.models.spec import spec_from_hf_config
     from ktransformers_tpu_torch.utils.device_prep import prepare_params
 
-    spec = spec_from_hf_config(dict(mixtral_cfg(), num_hidden_layers=2))
-    return "mixtral_w4a8", spec, prepare_params(init_params_synthetic(
+    spec = spec_from_hf_config(dict(cfg, num_hidden_layers=2))
+    return name, spec, prepare_params(init_params_synthetic(
         spec, seed=5, quant="int8", moe_quant="int4_g", device="cpu"),
         spec), None
 
@@ -2859,7 +2897,7 @@ def v3_kernel_checks(rows: list, entries: dict) -> None:
 def v3_variant():
     """DeepSeek-V3 at full width cut to 2 layers (layer 0 dense, layer 1
     MoE; first_k_dense_replace 1) with int4_g weights repacked for W4A8:
-    (name, spec, prepared CPU params, None), held as ``w4a8`` is. The
+    (name, spec, prepared CPU params, None), held by moe_parity. The
     weights are drawn and prepared on the card (fast) and copied to the
     host, so both devices run the same bits."""
     from ktransformers_tpu_torch.models.init import init_params_synthetic
@@ -2898,34 +2936,51 @@ def routes_of(fn):
         model.route = route
 
 
-def v3_parity(result: dict) -> None:
-    """v3_variant's rows card vs CPU (parity_rows, an 8-token prompt), held
-    as ``w4a8`` is, with the routed experts of each row's token recorded
-    on both devices. The one MoE layer is the last, so a row's logits see
-    the routing of its own token only (the prompt's last token for row 0,
-    the fed token for each decode row). A row further than NEAR_TIE from
-    the CPU's must be one whose token the card sent to another expert set:
-    the sigmoid router's top-8 of 256 is a discrete choice that an int8
-    activation code flipped by the rounding order can move; every other
-    row stays inside DeepSeek-V2-Lite's W4A8 spread."""
-    name, spec, params, tol = v3_variant()
-    prompt = PARITY_PROMPT[name]
-    t0 = time.perf_counter()
+def moe_parity(what: str, spec, params, prompt: int) -> dict:
+    """parity_rows of a W4A8 MoE model card vs CPU, held as ``w4a8`` is
+    (hold_rows, tolerance None), with the expert set each MoE layer routes
+    each token to recorded on both devices (routes_of). A row's logits see
+    the routes of every MoE layer but the last for each token up to the
+    row (through the attention after them) and the last MoE layer's route
+    of the row's own token. A row further than NEAR_TIE from the CPU's
+    must be one where such a route differs: a router's top-k is a discrete
+    choice that an int8 activation code flipped by the rounding order can
+    move; every other row stays inside the W4A8 spread. Returns hold_rows'
+    record with ``rerouted`` per row."""
     card, card_picks = routes_of(
         lambda: parity_rows(params, spec, "cuda", prompt))
     cpu, cpu_picks = routes_of(
         lambda: parity_rows(params, spec, "cpu", prompt))
-    del params
-    held = hold_rows(card, cpu, f"parity {name} (card vs CPU)", tol)
-    rerouted = [a[-1] != b[-1] for a, b in zip(card_picks, cpu_picks)]
+    held = hold_rows(card, cpu, f"parity {what} (card vs CPU)", None)
+    steps = card.shape[0]
+    layers = len(card_picks) // steps
+    if (not layers or layers * steps != len(card_picks)
+            or len(cpu_picks) != len(card_picks)):
+        raise AssertionError(f"parity {what}: {len(card_picks)} / "
+                             f"{len(cpu_picks)} router calls for {steps} rows")
+    rerouted, earlier = [], False
+    for i in range(steps):
+        a = card_picks[i * layers:(i + 1) * layers]
+        b = cpu_picks[i * layers:(i + 1) * layers]
+        earlier = earlier or a[:-1] != b[:-1]
+        rerouted.append(earlier or a[-1][-1] != b[-1][-1])
     wide = [i for i, e in enumerate(held["rel_err"]) if e > NEAR_TIE]
-    log(f"parity {name}: rows past {NEAR_TIE} {wide}; rows whose token took "
-        f"other experts on the card {[i for i, r in enumerate(rerouted) if r]}")
-    if len(rerouted) != card.shape[0] or any(not rerouted[i] for i in wide):
-        raise AssertionError(f"parity {name}: rows {wide} leave the W4A8 "
+    log(f"parity {what}: rows past {NEAR_TIE} {wide}; rows a route of the "
+        f"card's differs for {[i for i, r in enumerate(rerouted) if r]}")
+    if any(not rerouted[i] for i in wide):
+        raise AssertionError(f"parity {what}: rows {wide} leave the W4A8 "
                              f"spread with the same experts ({rerouted})")
+    return dict(held, rerouted=rerouted)
+
+
+def routed_parity(result: dict, variant) -> None:
+    """moe_parity of a parity model (name, spec, CPU params, None), its
+    prompt PARITY_PROMPT's or 64 tokens, into result["parity"][name]."""
+    name, spec, params, _ = variant
+    t0 = time.perf_counter()
+    rec = moe_parity(name, spec, params, PARITY_PROMPT.get(name, 64))
     result.setdefault("parity", {})[name] = dict(
-        held, rerouted=rerouted, seconds=time.perf_counter() - t0)
+        rec, seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
 
 
@@ -2977,7 +3032,7 @@ V3_ENGINE_STEP_LAUNCHES = {
 }
 # the near-tie of V3's W4A8 engine agreement: a logits row whose token the
 # sigmoid router sends to another expert set moves by up to 1.0e-1 of the
-# largest logit (v3_parity holds that only such rows leave NEAR_TIE), and
+# largest logit (moe_parity holds that only such rows leave NEAR_TIE), and
 # the engine's batch of 8 rounds otherwise than the Generator's one row, so
 # a top-2 gap of 5e-2 is no margin there. The engine itself is held at
 # NEAR_TIE on V3 with int8 weights (v3_int8_engine), which have no
@@ -2992,28 +3047,12 @@ V3_PAGED_KERNELS = ("w4a8_prep", "dense_w4a8_matmul", "dense_w4a8_ffn",
 
 
 def v3_serve(result: dict) -> None:
-    """DeepSeek-V3 cut to 6 layers on the card: a Generator answering 2
-    requests of 512 + 32 tokens, the launches of a prefill chunk and a
-    decode step held to V3_STEP_LAUNCHES; a ServeEngine answering the 8
-    requests of phase 6 at depth 3 with the same checks; the four
-    profiled steps, the engine's launches held to V3_ENGINE_STEP_LAUNCHES;
-    then the parameters are freed."""
-    gen = serve(result, quant="int4_g", key="serve_v3", requests=2,
-                expect=V3_SINGLE_USER_KERNELS, cfg=v3_cfg())
-    step_launches(result, gen, "v3_step_launches", V3_STEP_LAUNCHES)
-    paged_serve(result, gen, key="paged_serve_v3", depths=(3,),
-                expect=V3_PAGED_KERNELS, tie=V3_NEAR_TIE)
-    profile_steps(result, gen, prefix="v3_")
-    profile_engine_steps(result, gen, prefix="v3_")
-    got = {name: {k: v for k, v in
-                  result["profile"]["v3_" + name]["launches"].items() if v}
-           for name in V3_ENGINE_STEP_LAUNCHES}
-    log(f"v3 engine launches per step: {json.dumps(got)}")
-    if got != V3_ENGINE_STEP_LAUNCHES:
-        raise AssertionError(f"v3 engine launches per step {got}, want "
-                             f"{V3_ENGINE_STEP_LAUNCHES}")
-    del gen
-    torch.cuda.empty_cache()
+    """DeepSeek-V3 cut to 6 layers on the card, W4A8 (serve_model): launches
+    per step held to V3_STEP_LAUNCHES / V3_ENGINE_STEP_LAUNCHES, the
+    engine's tokens held to the Generator's at V3_NEAR_TIE."""
+    serve_model(result, "v3", v3_cfg(), "int4_g", "int4_g",
+                V3_SINGLE_USER_KERNELS, V3_PAGED_KERNELS, V3_STEP_LAUNCHES,
+                V3_ENGINE_STEP_LAUNCHES, tie=V3_NEAR_TIE)
 
 
 V3_INT8_SINGLE_USER_KERNELS = ("quant_matmul", "gathered_quant_matmul",
@@ -3179,32 +3218,14 @@ def mixtral_run(result: dict, rows: list, entries: dict) -> None:
     step held; the parameters are freed after."""
     mixtral_kernel_checks(rows, entries)
     torch.cuda.empty_cache()
-    variant = [mixtral_variant()]
-    parity_check(result, variant)
+    variant = [gqa_variant("mixtral_w4a8", mixtral_cfg())]
+    routed_parity(result, variant[0])
     paged_parity_check(result, variant)
     del variant
     torch.cuda.empty_cache()
-    gen = serve(result, quant="int8", moe_quant="int4_g", key="serve_mixtral",
-                requests=2, expect=MIXTRAL_SINGLE_USER_KERNELS,
-                cfg=mixtral_cfg())
-    step_launches(result, gen, "mixtral_step_launches", MIXTRAL_STEP_LAUNCHES)
-    paged_serve(result, gen, key="paged_serve_mixtral", depths=(3,),
-                expect=MIXTRAL_PAGED_KERNELS)
-    profile_steps(result, gen, prefix="mixtral_")
-    profile_engine_steps(result, gen, prefix="mixtral_")
-    hold_prep(result, "mixtral_",
-              MIXTRAL_ENGINE_STEP_LAUNCHES["serve_decode_step_b8"][
-                  "w4a8_prep"])
-    got = {name: {k: v for k, v in
-                  result["profile"]["mixtral_" + name]["launches"].items()
-                  if v}
-           for name in MIXTRAL_ENGINE_STEP_LAUNCHES}
-    log(f"mixtral engine launches per step: {json.dumps(got)}")
-    if got != MIXTRAL_ENGINE_STEP_LAUNCHES:
-        raise AssertionError(f"mixtral engine launches per step {got}, "
-                             f"want {MIXTRAL_ENGINE_STEP_LAUNCHES}")
-    del gen
-    torch.cuda.empty_cache()
+    serve_model(result, "mixtral", mixtral_cfg(), "int8", "int4_g",
+                MIXTRAL_SINGLE_USER_KERNELS, MIXTRAL_PAGED_KERNELS,
+                MIXTRAL_STEP_LAUNCHES, MIXTRAL_ENGINE_STEP_LAUNCHES)
 
 
 # --------------------------------- zero points, per-channel groups, GGUF
@@ -3577,7 +3598,7 @@ def gguf_serve(result: dict) -> None:
     the card (the file's codes and block scales as they are,
     quant/gguf_repack.py); gguf_sample_check; prepare_params (W4A8 on: the
     int4_gz weights take the W4A8 kernels with their zero term); parity
-    card vs CPU on an 8-token prompt and 4 decode steps by v3_parity's rule
+    card vs CPU on an 8-token prompt and 4 decode steps by moe_parity
     (greedy tokens equal except at a near-tie; a row further than
     NEAR_TIE must follow a token that took other experts on the card);
     then a Generator answering one request of 256 prompt + 32 new tokens
@@ -3603,10 +3624,7 @@ def gguf_serve(result: dict) -> None:
         ROUTED_LAUNCHES,
         reset_launches,
     )
-    from ktransformers_tpu_torch.utils.device_prep import (
-        params_to,
-        prepare_params,
-    )
+    from ktransformers_tpu_torch.utils.device_prep import prepare_params
 
     cfg = dict(bench_model_cfg(), num_hidden_layers=GGUF_LAYERS)
     rec: dict = {}
@@ -3643,26 +3661,8 @@ def gguf_serve(result: dict) -> None:
         raise AssertionError(f"gguf: W4A8 weights without zero points {bad}")
     rec["w4a8_weights"] = len(w4)
 
-    # parity card vs CPU (v3_parity's rule)
-    prompt = 8
-    cpu_params = params_to(params, "cpu")
-    card, card_picks = routes_of(
-        lambda: parity_rows(params, spec, "cuda", prompt))
-    cpu, cpu_picks = routes_of(
-        lambda: parity_rows(cpu_params, spec, "cpu", prompt))
-    del cpu_params
-    held = hold_rows(card, cpu, "parity gguf (card vs CPU)", None)
-    moe_calls = len(card_picks) // card.shape[0]
-    rerouted = [a != b for a, b in zip(card_picks, cpu_picks)]
-    wide = [i for i, err in enumerate(held["rel_err"]) if err > NEAR_TIE]
-    follow = [any(rerouted[:(i + 1) * moe_calls]) for i in
-              range(card.shape[0])]
-    log(f"parity gguf: rows past {NEAR_TIE} {wide}; rows after a token the "
-        f"card sent to other experts {[i for i, r in enumerate(follow) if r]}")
-    if any(not follow[i] for i in wide):
-        raise AssertionError(f"parity gguf: rows {wide} leave the W4A8 "
-                             f"spread with the same experts ({rerouted})")
-    rec["parity"] = dict(held, rerouted_calls=rerouted)
+    # parity card vs CPU (moe_parity's rule)
+    rec["parity"] = moe_parity("gguf", spec, params, 8)
 
     # single user: 256 prompt + 32 new tokens
     gen = Generator(params, spec, max_len=1024, batch=1, device="cuda")
@@ -3711,6 +3711,250 @@ def gguf_serve(result: dict) -> None:
     result["gguf"] = rec
     del gen, params
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------- Qwen2-MoE / Qwen3-MoE
+
+# Qwen2-57B-A14B's depth on the card: cut to 4 layers (depth only; the 28
+# layers would take 34.7 GB and another two minutes of serving)
+QWEN2_LAYERS = 4
+
+
+def qwen3_cfg() -> dict:
+    """Qwen3-30B-A3B (Qwen/Qwen3-30B-A3B config.json, the registry's
+    preset): 48 layers, hidden 2048, 32 query heads over 4 KV heads of
+    128 with the per-head q / k norm, 128 experts of inter 768 top-8
+    renormalized, vocab 151,936. Not cut."""
+    from ktransformers_tpu_torch.models.registry import REGISTRY
+
+    return dict(REGISTRY["qwen3-30b-a3b"].config)
+
+
+def qwen2_cfg(layers: int = QWEN2_LAYERS) -> dict:
+    """Qwen2-57B-A14B (Qwen/Qwen2-57B-A14B-Instruct config.json, the
+    registry's preset): hidden 3584, 28 query heads over 4 KV heads of 128
+    with q / k / v biases, 64 experts of inter 2560 top-8 unnormalized, a
+    shared expert of inter 20480 behind a sigmoid gate, vocab 151,936; cut
+    to ``layers`` in depth only."""
+    from ktransformers_tpu_torch.models.registry import REGISTRY
+
+    return dict(REGISTRY["qwen2-57b-a14b"].config, num_hidden_layers=layers)
+
+
+def qwen_kernel_checks(rows: list, entries: dict) -> None:
+    """The kernels of the Qwen paths at their widths, bf16, against their
+    plain versions (see make_check; none is a kernels-line entry):
+    - row 9 (quant_matmul) on every int8 weight of the served kinds at
+      M = 1, 8 and 256: the fused QKV (Qwen3 2048 -> 5120; Qwen2 3584 ->
+      4608 with its bias added after the kernel), o_proj (4096 -> 2048,
+      3584 -> 3584), Qwen2's shared expert (gate_up 3584 -> 40960, down
+      20480 -> 3584), and the 151,936-wide lm_head at M = 1 and 8. Bound:
+      bf16 operations, as for Mixtral's (int8 weights meet bf16
+      activations on bf16 MMAs);
+    - the W4A8 experts by the route the wrappers take: Qwen3's (128 of
+      2048 -> 2 x 768 -> 2048) on the fused FFN, row 2 at 8 and 64 routed
+      rows, row 4 at 2048 sorted rows (256 tokens x 8); Qwen2's (64 of
+      3584 -> 2 x 2560 -> 3584), which the fused FFN's budget refuses, on
+      rows 7 (8 and 64 rows) and 8 (2048 rows), gate_up and down;
+    - row 3 (dense_w4a8_ffn) on Qwen2's shared expert as all-int4_g
+      weights would have it (3584 -> 2 x 20480 -> 3584) at M = 1, 8 and
+      256; the served kinds keep it int8 (row 9 above);
+    - rows 13 and 15 at G = 8 (Qwen3: 32 over 4 KV heads) and G = 7
+      (Qwen2: 28 over 4), gqa_paged_checks.
+    Routing draws top-8 of the experts from softmax scores of random
+    logits."""
+    from ktransformers_tpu_torch.ops.cuda import quant_matmul as QM
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+    from ktransformers_tpu_torch.ops.linear import linear
+    from ktransformers_tpu_torch.quant.formats import dequantize
+
+    dev = torch.device("cuda")
+    check = make_check(rows, entries)
+    rd, rn, w = draw(1515)
+    sms = MM.sm_count(dev)
+    g_cpu = torch.Generator().manual_seed(15)
+
+    def routing(tokens, e):
+        logits = torch.randn(tokens, e, generator=g_cpu)
+        return torch.topk(logits, 8, dim=-1).indices.to(dev)
+
+    # row 9: every int8 projection of the served paths, at the M they give
+    # it (1 single-user decode, 8 the engine's decode batch, 256 a prefill
+    # chunk; the lm_head reads only last rows). The kernel takes no bias:
+    # the fused QKV's is added after it, as linear() adds it, the same bits
+    for tag, d, n, what in (
+            ("qwen3", 2048, 5120, "qkv"),
+            ("qwen3", 4096, 2048, "o_proj"),
+            ("qwen3", 2048, 151936, "lm_head"),
+            ("qwen2", 3584, 4608, "qkv + bias"),
+            ("qwen2", 3584, 3584, "o_proj"),
+            ("qwen2", 3584, 40960, "shared gate_up"),
+            ("qwen2", 20480, 3584, "shared down"),
+            ("qwen2", 3584, 151936, "lm_head")):
+        wt = rd.q((d, n), "int8", 128)
+        wdq = dequantize(wt, torch.bfloat16)
+        for m in ((1, 8) if what == "lm_head" else (1, 8, 256)):
+            x = rn(m, d)
+            check("quant_matmul", f"{tag} int8 {what} {d}->{n} M={m}", 1e-2,
+                  lambda: QM.quant_matmul(x, wt),
+                  lambda: QM.quant_matmul_ref(x, wt),
+                  lambda: QM.dense_launcher(x, wt),
+                  nbytes(x, wt.data, wt.scales) + m * n * 2, 2 * m * n * d,
+                  BF16_FLOPS_PER_S, library=lambda: torch.matmul(x, wdq),
+                  plain_iters=2,
+                  **routed(QM_ROUTES, QM.route(x.dtype, m, "dense", "int8",
+                                               d, n, QM.rows_per_group(wt)),
+                           lambda: QM.dense_launcher(x, wt, "rows")))
+            if what.endswith("bias"):
+                b = rn(n)
+                if not torch.equal(linear(x, wt, b),
+                                   QM.quant_matmul(x, wt) + b):
+                    raise AssertionError(f"{tag} qkv bias: linear() is not "
+                                         "the kernel's product + bias")
+        del wt, wdq
+        torch.cuda.empty_cache()
+
+    # Qwen3's experts: the fused FFN (rows 2 and 4)
+    e, d, f = 128, 2048, 768
+    gu, dn = w((e, d, 2 * f)), w((e, f, d))
+    for tokens, label in ((1, "decode 8 rows (1 tok x 8)"),
+                          (8, "serve decode 64 rows (8 tok x 8)")):
+        ids = routing(tokens, e).reshape(-1).to(torch.int32)
+        ffn_entry_check(check, "gathered", rn(ids.shape[0], d), gu, dn,
+                        f"qwen3 {label}, 128 experts {d}->2x{f}->{d}", sms,
+                        ids=ids)
+    sizes = torch.bincount(routing(256, e).reshape(-1),
+                           minlength=e).to(torch.int32)
+    ffn_entry_check(check, "grouped", rn(2048, d), gu, dn,
+                    f"qwen3 prefill 2048 rows (256 tok x 8), 128 experts "
+                    f"{d}->2x{f}->{d}", sms, sizes=sizes)
+    del gu, dn
+
+    # Qwen2's experts: rows 7 and 8
+    e, d, f = 64, 3584, 2560
+    for k, n, what in ((d, 2 * f, "gate_up"), (f, d, "down")):
+        wt = w((e, k, n))
+        for tokens, label in ((1, "decode 8 rows (1 tok x 8)"),
+                              (8, "serve decode 64 rows (8 tok x 8)")):
+            ids = routing(tokens, e).reshape(-1).to(torch.int32)
+            gathered_mm_check(check, rn(ids.shape[0], k), wt, ids,
+                              f"qwen2 {label} {what} [64, {k}, {n}]")
+        wdq = dequantize(wt, torch.bfloat16)
+        sizes = torch.bincount(routing(256, e).reshape(-1),
+                               minlength=e).to(torch.int32)
+        x = rn(2048, k)
+        grouped_mm_check(check, x, wt, sizes,
+                         f"qwen2 prefill 2048 rows (256 tok x 8) {what} "
+                         f"[64, {k}, {n}]",
+                         library=grouped_mm(x, wdq, sizes))
+        del wt, wdq
+
+    # row 3 on Qwen2's shared expert in int4_g (all-int4_g weights; the
+    # served kinds keep it int8, on row 9 above)
+    fs = 20480
+    sgu, sdn = w((d, 2 * fs)), w((fs, d))
+    for m in (1, 8, 256):
+        dense_ffn_check(check, rn(m, d), sgu, sdn,
+                        f"qwen2 shared int4_g I={fs}, M={m}", sms)
+    del sgu, sdn
+    torch.cuda.empty_cache()
+
+    gqa_paged_checks(check, rn, 32, 4, tag="qwen3 ")
+    gqa_paged_checks(check, rn, 28, 4, tag="qwen2 ")
+
+
+QWEN3_SINGLE_USER_KERNELS = ("w4a8_prep", "quant_matmul",
+                             "gathered_w4a8_ffn", "grouped_w4a8_ffn")
+QWEN3_PAGED_KERNELS = QWEN3_SINGLE_USER_KERNELS + ("gqa_paged_decode",
+                                                   "gqa_paged_prefill")
+# Qwen3-30B-A3B, 48 MoE layers: quant_matmul 97 (the fused qkv and o_proj
+# of 48 layers, lm_head); the experts on the fused FFN, grouped at prefill
+# (2048 sorted rows: one activation prep a call) and gathered at decode (8
+# rows on the one-row gate_up, which quantizes x itself: no prep); GQA
+# attention plain PyTorch on the contiguous cache
+QWEN3_STEP_LAUNCHES = {
+    "prefill_chunk": {"quant_matmul": 97, "grouped_w4a8_ffn": 48,
+                      "w4a8_prep": 48},
+    "decode_step": {"quant_matmul": 97, "gathered_w4a8_ffn": 48},
+}
+# ... and on the paged path the GQA kernel once a layer: a decode batch of
+# 8 (64 gathered rows, one a tile: still folded) and a mixed step (8 decode
+# rows + one 256-token chunk: 2112 grouped rows, a prep each)
+QWEN3_ENGINE_STEP_LAUNCHES = {
+    "serve_decode_step_b8": {"quant_matmul": 97, "gathered_w4a8_ffn": 48,
+                             "gqa_paged_decode": 48},
+    "serve_mixed_step_b8_s256": {"quant_matmul": 97, "grouped_w4a8_ffn": 48,
+                                 "w4a8_prep": 48, "gqa_paged_decode": 48,
+                                 "gqa_paged_prefill": 48},
+}
+# Qwen2-57B-A14B cut to 4 MoE layers: quant_matmul 17 (the fused qkv with
+# its bias, o_proj and the shared expert's gate_up and down of 4 layers,
+# lm_head; the shared gate's sigmoid is plain PyTorch); the experts too
+# wide for the fused FFN on the W4A8 matmuls, 2 a layer: grouped at
+# prefill (a prep each), gathered at decode (8 rows fold, 64 do not)
+QWEN2_STEP_LAUNCHES = {
+    "prefill_chunk": {"quant_matmul": 17, "grouped_w4a8_matmul": 8,
+                      "w4a8_prep": 8},
+    "decode_step": {"quant_matmul": 17, "gathered_w4a8_matmul": 8},
+}
+QWEN2_ENGINE_STEP_LAUNCHES = {
+    "serve_decode_step_b8": {"quant_matmul": 17, "gathered_w4a8_matmul": 8,
+                             "w4a8_prep": 8, "gqa_paged_decode": 4},
+    "serve_mixed_step_b8_s256": {"quant_matmul": 17,
+                                 "grouped_w4a8_matmul": 8, "w4a8_prep": 8,
+                                 "gqa_paged_decode": 4,
+                                 "gqa_paged_prefill": 4},
+}
+
+
+def serve_model(result: dict, name: str, cfg: dict, quant: str,
+                moe_quant: str, single, paged, steps, engine_steps,
+                tie: float = NEAR_TIE) -> None:
+    """One model on the card (``quant`` weights, ``moe_quant`` routed
+    experts): a Generator answering 2 requests of 512 + 32 tokens, the
+    launches of a prefill chunk and a decode step held to ``steps``; a
+    ServeEngine answering the 8 requests of phase 6 at depth 3 with phase
+    6's checks (near-tie ``tie``); the four profiled steps, the engine's
+    launches held to ``engine_steps``; then the parameters are freed.
+    Results go under serve_<name>, <name>_step_launches,
+    paged_serve_<name> and profile <name>_*."""
+    gen = serve(result, quant=quant, moe_quant=moe_quant,
+                key=f"serve_{name}", requests=2, expect=single, cfg=cfg)
+    step_launches(result, gen, f"{name}_step_launches", steps)
+    paged_serve(result, gen, key=f"paged_serve_{name}", depths=(3,),
+                expect=paged, tie=tie)
+    profile_steps(result, gen, prefix=f"{name}_")
+    profile_engine_steps(result, gen, prefix=f"{name}_")
+    got = {step: {k: v for k, v in
+                  result["profile"][f"{name}_{step}"]["launches"].items()
+                  if v}
+           for step in engine_steps}
+    log(f"{name} engine launches per step: {json.dumps(got)}")
+    if got != engine_steps:
+        raise AssertionError(f"{name} engine launches per step {got}, want "
+                             f"{engine_steps}")
+    del gen
+    torch.cuda.empty_cache()
+
+
+def qwen_run(result: dict, rows: list, entries: dict) -> None:
+    """Qwen3-30B-A3B (per-head q / k norm, G = 8, the fused expert FFN)
+    and Qwen2-57B-A14B (q / k / v biases, the gated shared expert, G = 7,
+    the experts on rows 7-8): their kernels at their widths, 2-layer
+    parity card vs CPU with the served kinds, then Qwen3 at all 48 layers
+    and Qwen2 cut to QWEN2_LAYERS served single-user and through the
+    ServeEngine with launches per step held."""
+    qwen_kernel_checks(rows, entries)
+    torch.cuda.empty_cache()
+    routed_parity(result, gqa_variant("qwen3_w4a8", qwen3_cfg()))
+    routed_parity(result, gqa_variant("qwen2_w4a8", qwen2_cfg()))
+    serve_model(result, "qwen3", qwen3_cfg(), "int8", "int4_g",
+                QWEN3_SINGLE_USER_KERNELS, QWEN3_PAGED_KERNELS,
+                QWEN3_STEP_LAUNCHES, QWEN3_ENGINE_STEP_LAUNCHES)
+    # Qwen2's experts take Mixtral's route (rows 7-8, no fused FFN)
+    serve_model(result, "qwen2", qwen2_cfg(), "int8", "int4_g",
+                MIXTRAL_SINGLE_USER_KERNELS, MIXTRAL_PAGED_KERNELS,
+                QWEN2_STEP_LAUNCHES, QWEN2_ENGINE_STEP_LAUNCHES)
 
 
 def _qtensors(node):
@@ -3846,7 +4090,7 @@ def main() -> int:
     # width and the HF import between them
     v3_kernel_checks(rows, entries)
     torch.cuda.empty_cache()
-    v3_parity(result)
+    routed_parity(result, v3_variant())
     parity_check(result, [bf16_experts_variant()])
     torch.cuda.empty_cache()
     hf_import(result)
@@ -3854,6 +4098,9 @@ def main() -> int:
     v3_int8_engine(result)
     # a DeepSeek-V2-Lite GGUF checkpoint (Q4_K blocks) on the W4A8 kernels
     gguf_serve(result)
+    torch.cuda.empty_cache()
+    # Qwen3-30B-A3B at full depth, Qwen2-57B-A14B cut to 4 layers
+    qwen_run(result, rows, entries)
 
     sources = {
         # plain XLA in the JAX package, no Pallas kernel
@@ -3910,8 +4157,9 @@ def main() -> int:
     # before and read just after (single-user serve and paged serve at the
     # default pipeline depth: DeepSeek-V2-Lite on the int4_g and on the int8
     # parameters, then Mixtral-8x7B; then the SFT steps; then DeepSeek-V3 on
-    # W4A8 and on int8 parameters; then the GGUF DeepSeek-V2-Lite); a
-    # kernel's count is the sum over them
+    # W4A8 and on int8 parameters; then the GGUF DeepSeek-V2-Lite; then
+    # Qwen3-30B-A3B and Qwen2-57B-A14B); a kernel's count is the sum over
+    # them
     runs = {
         "single_user": result["serve"],
         "paged_serve": result["paged_serve"]["runs"][3],
@@ -3926,6 +4174,10 @@ def main() -> int:
         "paged_serve_v3_int8": result["paged_serve_v3_int8"]["runs"][3],
         "single_user_gguf": result["serve_gguf"],
         "paged_serve_gguf": result["paged_serve_gguf"]["runs"][3],
+        "single_user_qwen3": result["serve_qwen3"],
+        "paged_serve_qwen3": result["paged_serve_qwen3"]["runs"][3],
+        "single_user_qwen2": result["serve_qwen2"],
+        "paged_serve_qwen2": result["paged_serve_qwen2"]["runs"][3],
     }
     paths = {k: dict(r["launches"]) for k, r in runs.items()}
     # the redesigned kernels: launches of their wrappers' calls that took them
@@ -3989,9 +4241,19 @@ def main() -> int:
              ("paged_serve", "paged_serve_int8", "paged_serve_v3")),
             ("w4a8_gemv_kernel", ("single_user_v3", "paged_serve_v3")),
             ("w4a8_mma_kernel", ("single_user_v3", "paged_serve_v3")),
-            ("gqa_prefill_mma_kernel", ("paged_serve_mixtral",)),
-            ("gqa_decode_split_kernel", ("paged_serve_mixtral",)),
-            ("w4a8_ffn_gemv_kernel", ("single_user", "paged_serve")),
+            ("gqa_prefill_mma_kernel", ("paged_serve_mixtral",
+                                        "paged_serve_qwen3",
+                                        "paged_serve_qwen2")),
+            ("gqa_decode_split_kernel", ("paged_serve_mixtral",
+                                         "paged_serve_qwen3",
+                                         "paged_serve_qwen2")),
+            ("w4a8_ffn_gemv_kernel", ("single_user", "paged_serve",
+                                      "single_user_qwen3",
+                                      "paged_serve_qwen3")),
+            ("w4a8_ffn_mma_kernel", ("single_user_qwen3",
+                                     "paged_serve_qwen3")),
+            ("w4a8_gemv_kernel", ("single_user_qwen2", "paged_serve_qwen2")),
+            ("w4a8_mma_kernel", ("single_user_qwen2", "paged_serve_qwen2")),
             *((k, ("single_user_gguf", "paged_serve_gguf"))
               for k in W4A8_ZP),
             ("mla_decode_split_kernel<false>", ("single_user_int8",))):

@@ -102,7 +102,9 @@ def init_params_synthetic(spec: ModelSpec, seed: int = 0,
     """Random params for ``spec``: ``quant`` for attention (MLA with q_proj
     or q_a / q_b, or GQA's q / k / v / o projections), dense MLP, shared
     experts and lm_head, ``moe_quant`` for routed experts; a zero router
-    correction bias where the gate has one."""
+    correction bias where the gate has one; GQA q / k / v biases (std
+    0.01), unit q / k norms and the shared expert's gate row where the
+    spec has them, under the JAX package's keys."""
     moe_quant = moe_quant or quant
     rd = _Draw(seed, device, dtype)
     a = spec.attention
@@ -139,6 +141,13 @@ def init_params_synthetic(spec: ModelSpec, seed: int = 0,
                 "v_proj": rd.q((d, hkv * hd), quant, group_size),
                 "o_proj": rd.q((h * hd, d), quant, group_size),
             }
+            if a.attention_bias:  # the JAX package's keys and scale
+                attn["q_bias"] = rd.normal((h * hd,), 0.01)
+                attn["k_bias"] = rd.normal((hkv * hd,), 0.01)
+                attn["v_bias"] = rd.normal((hkv * hd,), 0.01)
+            if a.qk_norm:
+                attn["q_norm"] = ones(hd)
+                attn["k_norm"] = ones(hd)
         lp = {
             "input_norm": ones(d),
             "post_attn_norm": ones(d),
@@ -164,6 +173,8 @@ def init_params_synthetic(spec: ModelSpec, seed: int = 0,
                     "gate_up": rd.q((d, 2 * fs), quant, group_size),
                     "down": rd.q((fs, d), quant, group_size),
                 }
+                if m.shared_expert_gate:
+                    moe["shared_gate"] = rd.normal((1, d), 1.0 / math.sqrt(d))
             lp["moe"] = moe
         else:
             f = spec.intermediate_size

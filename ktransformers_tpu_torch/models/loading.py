@@ -4,8 +4,10 @@ tree from a ``get(name) -> np.ndarray`` provider of HF-named tensors ([out,
 in] for linear weights).
 
 ``build_params`` maps the HF names of the families this port runs
-(DeepSeek-V2 / V3 MLA, with or without q_lora; Mixtral GQA) onto the
-port's params tree. Weights are quantized on the host with
+(DeepSeek-V2 / V3 MLA, with or without q_lora; Mixtral GQA; Qwen2-MoE
+GQA with q / k / v biases, a shared expert and its sigmoid gate;
+Qwen3-MoE GQA with per-head q / k norms) onto the port's params tree.
+Weights are quantized on the host with
 quant/formats.quantize, where the JAX package quantizes them, so the codes
 are bit-exact with its build_params; the finished tree moves to
 ``device`` once, at the end. With ``exact_gguf`` a provider that has
@@ -133,11 +135,18 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
         else:
             attn = {}
             for nm in ("q", "k", "v", "o"):
-                if maybe(f"{sa}.{nm}_proj.bias") is not None:
-                    raise NotImplementedError(
-                        f"{sa}.{nm}_proj.bias: attention biases are not "
-                        "ported (ROADMAP Queue 1 item 6)")
                 attn[f"{nm}_proj"] = qx(f"{sa}.{nm}_proj.weight")
+                bias = maybe(f"{sa}.{nm}_proj.bias")
+                if bias is None:
+                    continue
+                if nm == "o":  # the JAX package reads no o_proj bias
+                    raise NotImplementedError(
+                        f"{sa}.o_proj.bias: an output projection bias is "
+                        "not ported (ROADMAP Queue 1 item 6)")
+                attn[f"{nm}_bias"] = _vec(bias)
+            if a.qk_norm:
+                attn["q_norm"] = vec(f"{sa}.q_norm.weight")
+                attn["k_norm"] = vec(f"{sa}.k_norm.weight")
         lp["attn"] = attn
 
         mlp_pre = f"{pre}.mlp"
@@ -182,7 +191,10 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
                                             down=q(dns, moe_quant))
             del gus, dns
             if m.shared_expert_intermediate_size:
+                # deepseek's shared_experts, qwen2-moe's shared_expert
                 base = f"{mlp_pre}.shared_experts"
+                if maybe(f"{base}.gate_proj.weight") is None:
+                    base = f"{mlp_pre}.shared_expert"
                 # shared experts take the dense kind, as in the JAX package
                 moe["shared"] = {
                     "gate_up": qx_fused(f"{base}.gate_proj.weight",
@@ -190,6 +202,11 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
                                         f"{base}.gate_up_proj"),
                     "down": qx(f"{base}.down_proj.weight"),
                 }
+                if m.shared_expert_gate:
+                    # [1, hidden] as HF holds it (a GGUF file's
+                    # ffn_gate_inp_shexp is one row of hidden values)
+                    moe["shared_gate"] = vec(
+                        f"{mlp_pre}.shared_expert_gate.weight").reshape(1, -1)
             lp["moe"] = moe
         else:
             lp["mlp"] = {

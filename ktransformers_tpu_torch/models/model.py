@@ -1,7 +1,8 @@
 """The decoder: embedding -> N layers (attention + dense/MoE MLP) -> norm
 -> lm_head, over a static-shape KV cache (counterpart of
 ktransformers_tpu/models/model.py). Attention is absorbed MLA over a
-compressed cache (deepseek_v2) or GQA over per-head k / v (mixtral).
+compressed cache (deepseek_v2 / v3) or GQA over per-head k / v (mixtral,
+qwen2_moe with projection biases, qwen3_moe with per-head q / k norms).
 
 Params are nested dicts of QTensors / tensors (utils/device_prep.py
 prepares them). Unlike the JAX package, the KV cache is updated IN PLACE:
@@ -128,8 +129,11 @@ def mla_qkv_proj(p, spec: ModelSpec, x):
             a.qk_nope_head_dim + a.qk_rope_head_dim)
         both = plinear(p, "qkv_a", x, p.get("qkv_a_bias"))
         q, ckv_kpe = both[..., :qw], both[..., qw : qw + rw]
+    elif a.q_lora_rank:
+        q = plinear(p, "q_a", x, p.get("q_a_bias"))
+        ckv_kpe = plinear(p, "kv_a", x, p.get("kv_a_bias"))
     else:
-        q = plinear(p, "q_a" if a.q_lora_rank else "q_proj", x)
+        q = plinear(p, "q_proj", x)
         ckv_kpe = plinear(p, "kv_a", x, p.get("kv_a_bias"))
     if a.q_lora_rank:
         q = rms_norm(q, p["q_a_norm"], spec.rms_norm_eps)
@@ -138,23 +142,30 @@ def mla_qkv_proj(p, spec: ModelSpec, x):
 
 
 def gqa_qkv_proj(p, spec: ModelSpec, x):
-    """Flat q [B, S, H*D], k and v [B, S, Hkv*D]; reads the fused "qkv"
-    weight when device_prep merged q_proj, k_proj and v_proj."""
+    """Flat q [B, S, H*D], k and v [B, S, Hkv*D], with the projection
+    biases where the layer has them; reads the fused "qkv" weight (and its
+    concatenated "qkv_bias") when device_prep merged q_proj, k_proj and
+    v_proj."""
     a = spec.attention
     qw = a.num_heads * a.head_dim
     kw = a.num_kv_heads * a.head_dim
     if "qkv" in p:
         _assert_no_orphan_lora(p, ("q_proj", "k_proj", "v_proj"), "qkv")
-        qkv = plinear(p, "qkv", x)
+        qkv = plinear(p, "qkv", x, p.get("qkv_bias"))
         return qkv[..., :qw], qkv[..., qw : qw + kw], qkv[..., qw + kw :]
-    return (plinear(p, "q_proj", x), plinear(p, "k_proj", x),
-            plinear(p, "v_proj", x))
+    return (plinear(p, "q_proj", x, p.get("q_bias")),
+            plinear(p, "k_proj", x, p.get("k_bias")),
+            plinear(p, "v_proj", x, p.get("v_bias")))
 
 
-def gqa_rope(spec: ModelSpec, q, k, rope_cs):
+def gqa_rope(p, spec: ModelSpec, q, k, rope_cs):
     """q [B, S, H, D] and k [B, S, Hkv, D] -> roped q [B, H, S, D] and
-    roped k [B, S, Hkv, D] (rope over the whole head); rope_cs (cos, sin)
-    [B, S, D/2]."""
+    roped k [B, S, Hkv, D] (rope over the whole head), each head RMS-normed
+    first where the spec has qk_norm (p["q_norm"], p["k_norm"] [D]);
+    rope_cs (cos, sin) [B, S, D/2]."""
+    if spec.attention.qk_norm:
+        q = rms_norm(q, p["q_norm"], spec.rms_norm_eps)
+        k = rms_norm(k, p["k_norm"], spec.rms_norm_eps)
     cos, sin = rope_cs
     inter = spec.rope.interleaved
     q = apply_rope(q.transpose(1, 2), cos[:, None], sin[:, None],
@@ -169,8 +180,9 @@ def gqa_project_rope(p, spec: ModelSpec, x, rope_cs):
     a = spec.attention
     b, s, _ = x.shape
     q_flat, k_flat, v_flat = gqa_qkv_proj(p, spec, x)
-    q, k = gqa_rope(spec, q_flat.reshape(b, s, a.num_heads, a.head_dim),
-                    k_flat.reshape(b, s, a.num_kv_heads, a.head_dim), rope_cs)
+    q, k = gqa_rope(p, spec, q_flat.reshape(b, s, a.num_heads, a.head_dim),
+                    k_flat.reshape(b, s, a.num_kv_heads, a.head_dim),
+                    rope_cs)
     return q, k, v_flat.reshape(b, s, a.num_kv_heads, a.head_dim)
 
 
@@ -287,7 +299,13 @@ def _moe_mlp(p, spec: ModelSpec, x):
     topk_idx, topk_w = route(logits, spec.moe.gate, p.get("router_bias_corr"))
     y = moe_forward(flat, p["experts"], topk_idx, topk_w, spec.activation)
     if p.get("shared") is not None:
-        y = y + _dense_mlp(p["shared"], spec, flat)
+        y_sh = _dense_mlp(p["shared"], spec, flat)
+        if spec.moe.shared_expert_gate:
+            # qwen2-moe: the shared expert scaled by a sigmoid gate [T, 1]
+            g = torch.sigmoid(flat.to(torch.float32)
+                              @ p["shared_gate"].to(torch.float32).T)
+            y_sh = y_sh * g.to(y_sh.dtype)
+        y = y + y_sh
     return y.reshape(b, s, d)
 
 

@@ -213,9 +213,9 @@ def _gqa_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
     q_all = q_flat[0].reshape(-1, h, d)
     k_all = k_flat[0].reshape(-1, hkv, d)
     v_all = v_flat[0].reshape(-1, hkv, d)
-    q_d, k_d = gqa_rope(spec, q_all[:b_dec, None], k_all[:b_dec, None],
+    q_d, k_d = gqa_rope(p, spec, q_all[:b_dec, None], k_all[:b_dec, None],
                         dec_rope_cs)
-    q_p, k_p = gqa_rope(spec, q_all[b_dec:].reshape(c_pre, s_pre, h, d),
+    q_p, k_p = gqa_rope(p, spec, q_all[b_dec:].reshape(c_pre, s_pre, h, d),
                         k_all[b_dec:].reshape(c_pre, s_pre, hkv, d),
                         pre_rope_cs)
     v_d = v_all[:b_dec, None]

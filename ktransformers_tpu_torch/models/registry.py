@@ -37,7 +37,8 @@ _BYTES_PER_PARAM = {
     "mxfp8": 1.0 + 1 / 32,
 }
 
-_PORTED = ("deepseek_v2", "deepseek_v3", "kimi_k2", "mixtral")
+_PORTED = ("deepseek_v2", "deepseek_v3", "kimi_k2", "mixtral", "qwen2_moe",
+           "qwen3_moe")
 
 
 @dataclasses.dataclass(frozen=True)

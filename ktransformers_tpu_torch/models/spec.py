@@ -1,8 +1,10 @@
 """ModelSpec: static architecture record and the HF config translator
 (counterpart of ktransformers_tpu/models/spec.py), limited to the families
 this port runs: ``deepseek_v2`` / ``deepseek_v3`` / ``kimi_k2`` (MLA
-attention) and ``mixtral`` (GQA attention). Config values the port does
-not handle raise instead of being ignored."""
+attention), ``mixtral`` and ``qwen2_moe`` / ``qwen3_moe`` (GQA attention;
+Qwen2's q / k / v biases and gated shared expert, Qwen3's per-head q / k
+RMSNorm). Config values the port does not handle raise instead of being
+ignored."""
 
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ class AttentionSpec:
     qk_nope_head_dim: int = 0
     qk_rope_head_dim: int = 0
     v_head_dim: int = 0
+    attention_bias: bool = False  # q / k / v projection biases (gqa)
+    qk_norm: bool = False  # per-head RMSNorm of q and k before rope (qwen3)
     softmax_scale: float | None = None  # None = head_dim**-0.5 (x yarn mscale)
 
 
@@ -36,12 +40,19 @@ class MoESpec:
     moe_intermediate_size: int
     gate: GateConfig = None  # type: ignore[assignment]
     shared_expert_intermediate_size: int = 0
+    shared_expert_gate: bool = False  # qwen2-moe: sigmoid gate on shared out
     first_k_dense: int = 0
     moe_layer_freq: int = 1
+    # deepseek checks layer_idx % freq == 0, qwen (layer_idx + 1) % step
+    moe_layer_offset: int = 0
+    mlp_only_layers: tuple[int, ...] = ()  # qwen explicit dense layers
 
     def is_moe_layer(self, layer_idx: int) -> bool:
+        if layer_idx in self.mlp_only_layers:
+            return False
         return (layer_idx >= self.first_k_dense
-                and layer_idx % self.moe_layer_freq == 0)
+                and (layer_idx + self.moe_layer_offset)
+                % self.moe_layer_freq == 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,27 +184,34 @@ def _deepseek_spec(cfg: dict, model_type: str) -> ModelSpec:
     )
 
 
-def _gqa_attn(cfg: dict) -> AttentionSpec:
-    """Plain GQA attention. The knobs other GQA families set (per-head q/k
-    norm, partial rotary, gated output, sliding window, projection biases)
-    are not ported and raise."""
+def _gqa_attn(cfg: dict, qk_norm: bool = False) -> AttentionSpec:
+    """GQA attention: projection biases where the config sets
+    attention_bias (always for qwen2 / qwen2_moe, as in the JAX package),
+    the per-head q / k RMSNorm where the family applies it (``qk_norm``).
+    Partial rotary, a sliding window in use, gated output and a config
+    that asks for a q / k norm its family does not apply raise."""
     heads = int(cfg["num_attention_heads"])
     head_dim = int(cfg.get("head_dim") or cfg["hidden_size"] // heads)
     prf = float(cfg.get("partial_rotary_factor", 1.0) or 1.0)
-    if cfg.get("attention_bias"):
-        raise ValueError("attention_bias is not ported")
     if prf < 1.0:
         raise ValueError("partial_rotary_factor < 1 is not ported")
-    if cfg.get("sliding_window"):
+    # qwen configs carry a window that applies only with use_sliding_window
+    if cfg.get("sliding_window") and cfg.get("use_sliding_window", True):
         raise ValueError("sliding_window attention is not ported")
-    for knob in ("qk_norm", "use_qk_norm", "gated_output"):
-        if cfg.get(knob):
-            raise ValueError(f"{knob} is not ported")
+    if cfg.get("gated_output"):
+        raise ValueError("gated_output is not ported")
+    for knob in ("qk_norm", "use_qk_norm"):
+        if cfg.get(knob) and not qk_norm:
+            raise ValueError(f"{knob} is not ported for "
+                             f"{cfg.get('model_type')}")
     return AttentionSpec(
         kind="gqa",
         num_heads=heads,
         num_kv_heads=int(cfg.get("num_key_value_heads", heads)),
         head_dim=head_dim,
+        attention_bias=bool(cfg.get("attention_bias", False))
+        or cfg.get("model_type") in ("qwen2", "qwen2_moe"),
+        qk_norm=qk_norm,
     )
 
 
@@ -232,11 +250,58 @@ def _mixtral_spec(cfg: dict) -> ModelSpec:
     )
 
 
+def _qwen_moe_spec(cfg: dict, model_type: str) -> ModelSpec:
+    """Qwen2-MoE / Qwen3-MoE: GQA attention (Qwen2 with q / k / v biases,
+    Qwen3 with the per-head q / k RMSNorm), rotate-half rope over the
+    whole head, softmax top-k routing (renormalized where norm_topk_prob),
+    an MoE layer where (layer + 1) % decoder_sparse_step == 0 outside
+    mlp_only_layers; Qwen2's shared expert scaled by sigmoid(x @
+    shared_gate.T), Qwen3 without a shared expert."""
+    q3 = model_type == "qwen3_moe"
+    if cfg.get("tie_word_embeddings"):
+        raise ValueError("tie_word_embeddings is not ported")
+    if cfg.get("hidden_act", "silu") != "silu":
+        raise ValueError(f"hidden_act {cfg['hidden_act']!r} is not ported")
+    attn = _gqa_attn(cfg, qk_norm=q3)
+    gate = GateConfig(
+        num_experts=int(cfg["num_experts"]),
+        top_k=int(cfg["num_experts_per_tok"]),
+        scoring="softmax",
+        norm_topk_prob=bool(cfg.get("norm_topk_prob", False)),
+    )
+    moe = MoESpec(
+        num_experts=int(cfg["num_experts"]),
+        top_k=int(cfg["num_experts_per_tok"]),
+        moe_intermediate_size=int(cfg["moe_intermediate_size"]),
+        gate=gate,
+        shared_expert_intermediate_size=0 if q3 else int(
+            cfg.get("shared_expert_intermediate_size", 0)),
+        shared_expert_gate=not q3,
+        moe_layer_freq=int(cfg.get("decoder_sparse_step", 1)),
+        moe_layer_offset=1,
+        mlp_only_layers=tuple(cfg.get("mlp_only_layers", []) or []),
+    )
+    return ModelSpec(
+        model_type=model_type,
+        vocab_size=int(cfg["vocab_size"]),
+        hidden_size=int(cfg["hidden_size"]),
+        num_layers=int(cfg["num_hidden_layers"]),
+        intermediate_size=int(cfg["intermediate_size"]),
+        rms_norm_eps=float(cfg.get("rms_norm_eps", 1e-6)),
+        attention=attn,
+        rope=_rope_from_hf(cfg, attn.head_dim, interleaved=False),
+        moe=moe,
+        max_position=int(cfg.get("max_position_embeddings", 4096)),
+    )
+
+
 _TRANSLATORS = {
     "deepseek_v2": lambda c: _deepseek_spec(c, "deepseek_v2"),
     "deepseek_v3": lambda c: _deepseek_spec(c, "deepseek_v3"),
     "kimi_k2": lambda c: _deepseek_spec(c, "deepseek_v3"),
     "mixtral": _mixtral_spec,
+    "qwen2_moe": lambda c: _qwen_moe_spec(c, "qwen2_moe"),
+    "qwen3_moe": lambda c: _qwen_moe_spec(c, "qwen3_moe"),
 }
 
 

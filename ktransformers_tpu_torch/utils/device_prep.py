@@ -61,29 +61,38 @@ def fuse_qkv_projections(params, spec):
     """Merge each layer's attention input projections into one matmul (one
     launch and one activation quant instead of two or three): MLA q_proj
     (q_a with q_lora_rank) + kv_a -> "qkv_a", GQA q_proj + k_proj + v_proj
-    -> "qkv". Layers with
-    biases, differing formats or a LoRA adapter on a part keep theirs.
-    Mutates params in place."""
+    -> "qkv". Where a part has a bias, the fused projection gets one
+    concatenated "<fused>_bias" (zeros for a part without one), as in the
+    JAX package. Layers with differing formats or a LoRA adapter on a
+    part keep theirs. Mutates params in place."""
     a = spec.attention
     if a.kind == "mla":
-        q = "q_a" if a.q_lora_rank else "q_proj"
-        names, fkey = (q, "kv_a"), "qkv_a"
-        biases = (q + "_bias", "kv_a_bias")
+        names, fkey = ("q_a" if a.q_lora_rank else "q_proj", "kv_a"), "qkv_a"
+        # the MLA path without q_lora takes no q bias (models/model.py)
+        bias_keys = ("q_a_bias" if a.q_lora_rank else None, "kv_a_bias")
     else:
         names, fkey = ("q_proj", "k_proj", "v_proj"), "qkv"
-        biases = ("q_bias", "k_bias", "v_bias")
+        bias_keys = ("q_bias", "k_bias", "v_bias")
     for lp in params.get("layers", []):
         p = lp.get("attn")
         if p is None or any(n not in p or n + "_lora" in p for n in names):
             continue
-        if any(b in p for b in biases):
-            continue
-        fused = _concat_out([p[n] for n in names])
+        parts = [p[n] for n in names]
+        fused = _concat_out(parts)
         if fused is None:
             continue
+        biases = [p.get(bk) if bk else None for bk in bias_keys]
+        if any(b is not None for b in biases):
+            dt = next(b.dtype for b in biases if b is not None)
+            p[fkey + "_bias"] = torch.cat([
+                b.to(dt) if b is not None else torch.zeros(
+                    t.data.shape[-1], dtype=dt, device=t.data.device)
+                for t, b in zip(parts, biases)])
         p[fkey] = fused
-        for n in names:
+        for n, bk in zip(names, bias_keys):
             del p[n]
+            if bk:
+                p.pop(bk, None)
     return params
 
 

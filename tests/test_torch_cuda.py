@@ -1506,12 +1506,13 @@ def _gqa_prefill_case(rng, page, g, s, olds, valids, hkv=2):
 
 
 @pytest.mark.parametrize("window", [0, 20, 512])
-@pytest.mark.parametrize("g", [1, 4, 6, 8])
+@pytest.mark.parametrize("g", [1, 4, 6, 7, 8])
 @pytest.mark.parametrize("page", [16, 64, 128])
 def test_gqa_prefill_mma(cuda, page, g, window):
     """gqa_prefill_mma_kernel through gqa_paged_prefill (bf16) against the
-    plain version: G = 1, 4, 6 (16 rows not a multiple of it), 8 query
-    heads a KV head; window 0, 20, 512; old lengths 0, 1, on and around a
+    plain version: G = 1, 4, 6 and 7 (16 rows and the 64- / 128-row blocks
+    not a multiple of it: Qwen2-57B-A14B's 28 over 4), 8 query heads a KV
+    head; window 0, 20, 512; old lengths 0, 1, on and around a
     page, a 64-key tile and 2048 - S, valid < S and == S (S = 100, not a
     multiple of 16), an empty chunk on an empty cache (zeros); every pool
     row past the live length NaN. Padding rows (s >= valid) are compared
@@ -1593,12 +1594,13 @@ GQA_DECODE_LENS = [0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1000, 2047,
 
 
 @pytest.mark.parametrize("window", [0, 20, 512])
-@pytest.mark.parametrize("g", [1, 4, 6, 16])
+@pytest.mark.parametrize("g", [1, 4, 6, 7, 8, 16])
 @pytest.mark.parametrize("page", [16, 64, 128])
 def test_gqa_decode_split(cuda, page, g, window):
     """gqa_decode_split_kernel through gqa_paged_decode (bf16) against the
-    plain version: page 16 / 64 / 128 over 2048 positions, G = 1, 4, 6 and
-    16 query heads a KV head (one mma row group), window 0, 20 (fewer keys
+    plain version: page 16 / 64 / 128 over 2048 positions, G = 1, 4, 6, 7
+    (Qwen2-57B-A14B), 8 (Qwen3) and 16 query heads a KV head (one mma row
+    group, rows past G zero and never stored), window 0, 20 (fewer keys
     than a split's least) and 512; lengths 0 (zeros), 1, on and around
     16-key units, 64-key tiles and pages, 1000, 2047 and 2048; an inactive
     batch row; every pool row no sequence owns NaN, and the split partials
@@ -1640,6 +1642,37 @@ def test_gqa_decode_split_plans(cuda, splits, window, monkeypatch):
     assert torch.all(out[0] == 0)
     for i in range(1, 5):
         assert _rel(out[i], ref[i]) <= 1e-2, i
+
+
+@pytest.mark.parametrize("h", [32, 28])
+def test_gqa_qwen_widths(cuda, h):
+    """Both kernels at the Qwen widths, at the plans their wrappers pick:
+    Qwen3-30B-A3B's 32 and Qwen2-57B-A14B's 28 query heads over 4 KV heads
+    of 128, page 64; the serving batch of 8 at decode (lengths 0, 1, on
+    and around pages, 2048) and a mixed step's chunk of 256 after 256 and
+    two chunks (one fresh, one continued and padded) at prefill; every
+    pool row no sequence owns NaN; each row within 1e-2 of its plain
+    version's, the launches counted on the redesigned kernels."""
+    rng = np.random.default_rng(h)
+    g = h // 4
+    lens = [0, 1, 63, 64, 65, 700, 2047]
+    args = _gqa_decode_case(rng, 64, g, lens, hkv=4)
+    split = ROUTED_LAUNCHES["gqa_decode_split_kernel"]
+    out = PA.gqa_paged_decode(*[t.to(cuda) for t in args], 0.088)
+    assert ROUTED_LAUNCHES["gqa_decode_split_kernel"] == split + 1
+    ref = PA.gqa_paged_decode_ref(*args, 0.088)
+    assert torch.all(out[0] == 0)
+    for i in range(1, len(lens) + 1):
+        assert _rel(out[i], ref[i]) <= 1e-2, i
+    for olds, valids in (([256], [256]), ([0, 256], [256, 200])):
+        pargs = _gqa_prefill_case(rng, 64, g, 256, olds, valids, hkv=4)
+        mma = ROUTED_LAUNCHES["gqa_prefill_mma_kernel"]
+        out = PA.gqa_paged_prefill(*[t.to(cuda) for t in pargs], 0.088)
+        assert ROUTED_LAUNCHES["gqa_prefill_mma_kernel"] == mma + 1
+        ref = PA.gqa_paged_prefill_ref(*pargs, 0.088)
+        assert bool(torch.isfinite(out.float()).all())
+        for i in range(len(olds)):
+            assert _rel(out[i], ref[i]) <= 1e-2, (olds[i], valids[i])
 
 
 def test_gqa_decode_routes(cuda):

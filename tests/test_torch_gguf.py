@@ -241,10 +241,21 @@ def _same_fields(t, j, path, skip):
 @pytest.mark.parametrize("arch", ["llama", "qwen2moe", "qwen3moe", "qwen2",
                                   "qwen3", "glm4moe"])
 def test_spec_from_gguf_fields_names_what_is_missing(arch):
+    """The architectures whose HF translator the port lacks raise naming
+    ROADMAP item 6; qwen2moe and qwen3moe, ported, give the JAX package's
+    spec field by field; an unknown one asks for a config."""
+    from ktransformers_tpu.models.spec import spec_from_gguf_fields as jspec
+
     from ktransformers_tpu_torch.models.spec import spec_from_gguf_fields
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        spec_from_gguf_fields(_fields(arch))
+    if arch in ("qwen2moe", "qwen3moe"):
+        t = spec_from_gguf_fields(_fields(arch))
+        _same_fields(t, jspec(_fields(arch)), "", set())
+        assert t.model_type == {"qwen2moe": "qwen2_moe",
+                                "qwen3moe": "qwen3_moe"}[arch]
+    else:
+        with pytest.raises(NotImplementedError, match="item 6"):
+            spec_from_gguf_fields(_fields(arch))
     with pytest.raises(ValueError, match="provide --config"):
         spec_from_gguf_fields({"general.architecture": "mamba"})
 
@@ -291,3 +302,127 @@ def test_provider_get_matches_jax(tmp_path, rng):
         with pytest.raises(KeyError):
             tp.get(name)
         assert tp.maybe(name) is None
+
+
+def _qwen_gguf(path: str, arch: str, rng) -> None:
+    """A 2-layer Qwen2-MoE / Qwen3-MoE GGUF file at widths the k-quants
+    take (hidden 256, 4 query heads of 64 over 2 KV heads, 4 experts top-2
+    of inter 256, a shared expert of 256): Q4_K matmuls and lm_head, F32
+    norms, router, Qwen2's q / k / v biases and shared-expert gate (one
+    row of hidden values, as llama.cpp writes it), Qwen3's q / k norms,
+    F16 embedding."""
+    from ktransformers_tpu_torch.loader.gguf_writer import (
+        random_blocks,
+        write_gguf,
+    )
+
+    d, hd, h, hkv, e, f = 256, 64, 4, 2, 4, 256
+
+    def q4k(*shape):
+        return random_blocks(rng, "Q4_K", shape, shape[-1] ** -0.5)
+
+    def vec(n, scale=0.1, base=0.0):
+        return (base + scale * rng.standard_normal(n)).astype(np.float32)
+
+    fields = {"general.architecture": arch, f"{arch}.block_count": 2,
+              f"{arch}.embedding_length": d,
+              f"{arch}.feed_forward_length": 512,
+              f"{arch}.attention.head_count": h,
+              f"{arch}.attention.head_count_kv": hkv,
+              f"{arch}.attention.layer_norm_rms_epsilon": 1e-6,
+              f"{arch}.rope.freq_base": 1e6, f"{arch}.context_length": 256,
+              f"{arch}.vocab_size": 64, f"{arch}.expert_count": e,
+              f"{arch}.expert_used_count": 2,
+              f"{arch}.expert_feed_forward_length": f,
+              f"{arch}.rope.dimension_count": hd,
+              f"{arch}.attention.key_length": hd}
+    if arch == "qwen2moe":
+        fields[f"{arch}.expert_shared_feed_forward_length"] = f
+    t = {"token_embd.weight": rng.standard_normal((64, d)).astype(
+             np.float16),
+         "output_norm.weight": vec(d, base=1.0), "output.weight": q4k(64, d)}
+    for li in range(2):
+        b = f"blk.{li}."
+        t.update({
+            b + "attn_norm.weight": vec(d, base=1.0),
+            b + "ffn_norm.weight": vec(d, base=1.0),
+            b + "attn_q.weight": q4k(h * hd, d),
+            b + "attn_k.weight": q4k(hkv * hd, d),
+            b + "attn_v.weight": q4k(hkv * hd, d),
+            b + "attn_output.weight": q4k(d, h * hd),
+            b + "ffn_gate_inp.weight": vec((e, d), d ** -0.5),
+            b + "ffn_gate_exps.weight": q4k(e, f, d),
+            b + "ffn_up_exps.weight": q4k(e, f, d),
+            b + "ffn_down_exps.weight": q4k(e, d, f),
+        })
+        if arch == "qwen2moe":
+            t.update({b + "attn_q.bias": vec(h * hd),
+                      b + "attn_k.bias": vec(hkv * hd),
+                      b + "attn_v.bias": vec(hkv * hd),
+                      b + "ffn_gate_shexp.weight": q4k(f, d),
+                      b + "ffn_up_shexp.weight": q4k(f, d),
+                      b + "ffn_down_shexp.weight": q4k(d, f),
+                      b + "ffn_gate_inp_shexp.weight": vec(d, d ** -0.5)})
+        else:
+            t.update({b + "attn_q_norm.weight": vec(hd, base=1.0),
+                      b + "attn_k_norm.weight": vec(hd, base=1.0)})
+    write_gguf(path, fields, t)
+
+
+@pytest.mark.parametrize("arch", ["qwen2moe", "qwen3moe"])
+def test_qwen_gguf_exact_build_matches_jax(tmp_path, rng, arch):
+    """A Qwen GGUF file through both packages' GGUFProvider +
+    build_params(exact_gguf=True): the spec field by field, every tensor
+    the same bits (Q4_K -> int4_gz group 32; biases, norms, router as
+    F32), but the shared-expert gate, which the port holds as HF's [1,
+    hidden] where the JAX package keeps the file's one row; the port's
+    W4A8 forward then runs (the JAX package's would broadcast that row
+    against the shared expert's output)."""
+    import jax
+    import torch
+
+    from ktransformers_tpu.loader.providers import GGUFProvider as JP
+    from ktransformers_tpu.models.loading import build_params as jbuild
+    from ktransformers_tpu.models.spec import spec_from_gguf_fields as jspec
+
+    from tests.test_torch_hf_import import _assert_same_tree
+
+    from ktransformers_tpu_torch.convert import params_from_jax
+    from ktransformers_tpu_torch.engine.generate import (
+        GenerateConfig,
+        Generator,
+    )
+    from ktransformers_tpu_torch.loader.providers import GGUFProvider
+    from ktransformers_tpu_torch.models.loading import build_params
+    from ktransformers_tpu_torch.models.spec import spec_from_gguf_fields
+    from ktransformers_tpu_torch.utils.device_prep import prepare_params
+
+    path = str(tmp_path / f"{arch}.gguf")
+    _qwen_gguf(path, arch, rng)
+    prov = GGUFProvider(path)
+    spec = spec_from_gguf_fields(prov.fields())
+    params = build_params(prov, spec, quant="int8", exact_gguf=True,
+                          device="cpu")
+    jp = JP(path)
+    js = jspec(jp.fields())
+    _same_fields(spec, js, "", set())
+    ref = params_from_jax(jax.device_get(
+        jbuild(jp, js, quant="int8", exact_gguf=True)), spec, "cpu")
+    if arch == "qwen2moe":
+        for lp, jlp in zip(params["layers"], ref["layers"]):
+            gate, jgate = lp["moe"]["shared_gate"], jlp["moe"].pop(
+                "shared_gate")
+            assert gate.shape == (1, 256) and jgate.shape == (256,)
+            assert torch.equal(gate[0], jgate)
+            jlp["moe"]["shared_gate"] = gate
+        assert {"q_bias", "k_bias", "v_bias"} <= set(params["layers"][0]
+                                                     ["attn"])
+    else:
+        assert params["layers"][0]["attn"]["q_norm"].shape == (64,)
+    _assert_same_tree(params, ref)
+    assert params["layers"][0]["attn"]["q_proj"].kind == "int4_gz"
+    prepare_params(params, spec)
+    gen = Generator(params, spec, max_len=32, device="cpu",
+                    cache_dtype=torch.float32, compute_dtype=torch.float32)
+    out = gen.generate([[1, 5, 9, 2, 7]], GenerateConfig(max_new_tokens=3))
+    assert len(out[0]) == 3 and all(0 <= t < 64 for t in out[0])

@@ -73,6 +73,8 @@ def test_route_table():
     (1, 8, 2048, 32),   # one sequence: the cap of 32 splits
     (4, 2, 128, 2),     # a small pool: no more splits than tiles
     (64, 8, 2048, 1),   # a batch that fills the card alone
+    (8, 4, 2048, 8),    # the Qwen models' serving batch: 4 KV heads
+    (1, 4, 2048, 32),
 ])
 def test_split_plan(b, hkv, capacity, want):
     """The most splits whose (B x Hkv x splits) blocks fit the card at
@@ -216,12 +218,12 @@ def decode_walk(q, k_pages, v_pages, tables, lengths, scale, window, splits,
 
 @pytest.mark.parametrize("plan", ["one", "planned"])
 @pytest.mark.parametrize("window", [0, 20])
-@pytest.mark.parametrize("g", [1, 4, 6, 16])
+@pytest.mark.parametrize("g", [1, 4, 6, 7, 8, 16])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_walk_matches_pallas(g, window, plan, bf16):
     """Lengths 0 (zeros), 1, on and around 16-key units and 64-key tiles,
     130, 200 and 256 (the whole pool) and an inactive batch row over a
-    pool of page 16; G = 1, 4, 6 and 16 query heads a KV head; window 0
+    pool of page 16; G = 1, 4, 6, 7, 8 and 16 query heads a KV head; window 0
     and 20 (one live split, the others without a key); one split and the
     plan's four. The rows with a key against the Pallas kernel, all of
     them against the port's plain version."""

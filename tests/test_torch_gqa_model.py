@@ -162,11 +162,17 @@ def test_spec_matches_jax():
 @pytest.mark.parametrize("change", [
     dict(qk_norm=True), dict(use_qk_norm=True), dict(gated_output=True),
     dict(partial_rotary_factor=0.5), dict(sliding_window=4096),
-    dict(attention_bias=True), dict(tie_word_embeddings=True),
-    dict(hidden_act="gelu"), dict(model_type="qwen3_moe"),
+    dict(rope_scaling=dict(type="dynamic", factor=2.0)),
+    dict(tie_word_embeddings=True),
+    dict(hidden_act="gelu"), dict(model_type="qwen3_next"),
     dict(model_type="llama"),
 ])
 def test_spec_refuses_unported_gqa_knobs(change):
+    """Mixtral with a knob of another GQA family raises (q / k norm,
+    gated output, partial rotary, a sliding window, dynamic rope scaling,
+    tied embeddings, another activation) and so do the GQA families the
+    port does not run; projection biases (attention_bias) are ported and
+    Qwen3-MoE is (tests/test_torch_qwen_moe.py)."""
     with pytest.raises(ValueError):
         spec_from_hf_config(dict(MIXTRAL_8X7B, **change))
 

@@ -9,7 +9,9 @@ last position. YaRN rope_scaling is held the same way, on DeepSeek-V3's
 published values (where the JAX package's softmax scale misses: its
 rope_attention_scale gives (m / m_all)^2 = 1, HF's DeepseekV3Attention
 m_all^2, ROADMAP Queue 3) and on DeepSeek-V2-Lite's (mscale =
-mscale_all_dim = 0.707, where both rules give 1).
+mscale_all_dim = 0.707, where both rules give 1). Qwen2-MoE and Qwen3-MoE
+are held the same way, their biases, q / k norms and shared-expert gate
+drawn away from HF's constant init.
 
 build_params itself is held bit-exact: the port's tree against the JAX
 package's build_params carried across with convert.params_from_jax, for
@@ -113,6 +115,68 @@ def _mixtral_model():
         max_position_embeddings=64, attn_implementation="eager")
     torch.manual_seed(4)
     return MixtralForCausalLM(cfg), cfg
+
+
+def _qwen_moe_model(family: str):
+    """A tiny HF Qwen2-MoE / Qwen3-MoE (the configs and seeds of
+    tests/test_models_parity.py) with its q / k / v biases, q / k norms,
+    layer norms and shared-expert gate drawn: HF initialises them to
+    constants, which would leave a missing bias or a norm applied twice
+    unseen."""
+    from transformers import (
+        Qwen2MoeConfig,
+        Qwen2MoeForCausalLM,
+        Qwen3MoeConfig,
+        Qwen3MoeForCausalLM,
+    )
+
+    kw = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
+              moe_intermediate_size=32, num_hidden_layers=2,
+              num_attention_heads=4, num_key_value_heads=2, num_experts=8,
+              num_experts_per_tok=2, decoder_sparse_step=1,
+              max_position_embeddings=64, attn_implementation="eager")
+    if family == "qwen2_moe":
+        cfg = Qwen2MoeConfig(shared_expert_intermediate_size=64,
+                             norm_topk_prob=False, **kw)
+        torch.manual_seed(2)
+        model = Qwen2MoeForCausalLM(cfg)
+    else:
+        cfg = Qwen3MoeConfig(head_dim=16, norm_topk_prob=True, **kw)
+        torch.manual_seed(3)
+        model = Qwen3MoeForCausalLM(cfg)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if name.endswith(("_proj.bias", "shared_expert_gate.weight")):
+                prm.copy_(torch.randn(prm.shape, generator=gen) * 0.1)
+            elif name.endswith("norm.weight"):
+                prm.copy_(1 + 0.1 * torch.randn(prm.shape, generator=gen))
+    return model, cfg
+
+
+@pytest.mark.parametrize("family", ["qwen2_moe", "qwen3_moe"])
+def test_qwen_moe_parity(family):
+    """Qwen2-MoE (q / k / v biases, the shared expert's sigmoid gate,
+    softmax top-2 unnormalized) and Qwen3-MoE (per-head q / k RMSNorm,
+    head_dim 16 of hidden 64, top-2 renormalized) within 2e-3 of HF's
+    logits, the same argmax; HF's own config dict gives the JAX package's
+    spec field by field."""
+    from ktransformers_tpu.models.spec import spec_from_hf_config as jspec
+
+    model, cfg = _qwen_moe_model(family)
+    spec, params, _, _ = _run_parity(model, cfg)
+    attn = params["layers"][0]["attn"]
+    if family == "qwen2_moe":
+        assert {"q_bias", "k_bias", "v_bias"} <= set(attn)
+        assert params["layers"][0]["moe"]["shared_gate"].shape == (1, 64)
+    else:
+        assert attn["q_norm"].shape == attn["k_norm"].shape == (16,)
+    j = jspec(cfg.to_dict())
+    for sub, jsub in ((spec, j), (spec.attention, j.attention),
+                      (spec.moe, j.moe), (spec.rope, j.rope)):
+        for f in dataclasses.fields(sub):
+            if not dataclasses.is_dataclass(getattr(sub, f.name)):
+                assert getattr(sub, f.name) == getattr(jsub, f.name), f.name
 
 
 def test_deepseek_v2_lite_parity():
@@ -223,7 +287,8 @@ def _assert_same_tree(t, j, path="params"):
         assert t.dtype == j.dtype and torch.equal(t, j), path
 
 
-@pytest.mark.parametrize("family", ["v2_lite", "v3", "mixtral"])
+@pytest.mark.parametrize("family", ["v2_lite", "v3", "mixtral", "qwen2_moe",
+                                    "qwen3_moe"])
 @pytest.mark.parametrize("quant", ["int4_g", "int8", "bf16"])
 def test_build_params_bit_exact_with_jax(family, quant):
     """The port's build_params (through params_from_hf) against the JAX
@@ -240,7 +305,9 @@ def test_build_params_bit_exact_with_jax(family, quant):
     from ktransformers_tpu_torch.convert import params_from_jax
 
     model, cfg = {"v2_lite": _v2_lite_model, "v3": _v3_model,
-                  "mixtral": _mixtral_model}[family]()
+                  "mixtral": _mixtral_model,
+                  "qwen2_moe": lambda: _qwen_moe_model("qwen2_moe"),
+                  "qwen3_moe": lambda: _qwen_moe_model("qwen3_moe")}[family]()
     model = model.eval().float()
     spec = spec_from_hf_config(cfg)
     moe_quant = "bf16" if quant == "bf16" else "int4_g"

@@ -79,6 +79,9 @@ def test_route_tables(dtype, decode, prefill):
     (2, 32, 8, 512, 132, 128),    # 256 blocks at 128 rows
     (1, 8, 2, 16, 132, 64),
     (1, 32, 8, 264, 132, 128),    # 72 blocks: more than one for two SMs
+    (1, 32, 4, 256, 132, 64),     # Qwen3-30B-A3B's chunk (G = 8): 64 blocks
+    (1, 28, 4, 256, 132, 64),     # Qwen2-57B-A14B's (G = 7): 56 blocks
+    (2, 28, 4, 256, 132, 128),    # two of them: 112
 ])
 def test_gqa_prefill_plan(c, h, hkv, s, sms, want):
     """128 rows a block (each staged K / V tile serving 128 rows) where
@@ -335,12 +338,13 @@ def gqa_prefill_walk(q, k_pages, v_pages, tables, lengths, valid, scale,
 
 @pytest.mark.parametrize("rows_block", [64, 128])
 @pytest.mark.parametrize("window", [0, 20])
-@pytest.mark.parametrize("g", [1, 4, 6])
+@pytest.mark.parametrize("g", [1, 4, 6, 7, 8])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_gqa_prefill_walk_matches_pallas(g, window, rows_block, bf16):
     """Chunks of S = 40 after old lengths 0, mid-page, page-aligned and
     150 (a window start past the first key tile), valid < S and == S;
-    G = 6 leaves 16-row groups that straddle positions. Live rows against
+    G = 6 and 7 (Qwen2-57B-A14B) leave 16-row groups and 64- / 128-row
+    blocks that straddle positions, G = 8 is Qwen3's. Live rows against
     the Pallas kernel; every row, padding rows included, against the
     port's plain version (with a window the two packages differ on a
     padding row whose window holds no key: zeros in the port)."""

@@ -1,6 +1,6 @@
 """The port's model registry against the JAX package's: every preset
 listed with the same config, the same weight bytes by role at every quant
-kind, the DeepSeek / Kimi / Mixtral presets translated to specs, and the
+kind, the DeepSeek / Kimi / Qwen-MoE / Mixtral presets translated to specs, and the
 families the port cannot translate yet refused with the ROADMAP item."""
 
 import pytest
@@ -11,7 +11,8 @@ from ktransformers_tpu_torch.models import registry as treg
 BYTE_FIELDS = ("embed_gb", "attn_gb", "dense_mlp_gb", "experts_gb",
                "shared_gb", "total_gb", "active_gb_per_token")
 PORTED = ("deepseek-v2-lite", "deepseek-v2", "deepseek-v3", "deepseek-r1",
-          "kimi-k2", "mixtral-8x7b")
+          "kimi-k2", "qwen3-235b-a22b", "qwen3-30b-a3b", "qwen2-57b-a14b",
+          "mixtral-8x7b")
 
 
 def test_every_preset_lists():

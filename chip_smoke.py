@@ -166,12 +166,35 @@ Phases (any failure exits non-zero before the final line):
             expert as all-int4_g weights would have it, rows 13 and 15 at
             G = 8 and G = 7); 2-layer parity card vs CPU of both models
             with the served kinds (int8 attention, shared expert and
-            lm_head, int4_g experts) by moe_parity; then Qwen3-30B-A3B at all 48 layers
-            and full width and Qwen2-57B-A14B cut to 4 layers (depth only),
-            each in a Generator answering 2 requests of 512 + 32 tokens and
-            a ServeEngine answering the 8 requests of phase 6 at depth 3,
-            profiled, launches per step held to QWEN3_* / QWEN2_*
-            (qwen_run).
+            lm_head, int4_g experts) by moe_parity; then Qwen3-30B-A3B cut
+            to QWEN3_LAYERS = 12 of its 48 layers and Qwen2-57B-A14B cut to
+            4 layers (depth only, full width), each in a Generator answering
+            2 requests of 512 + 32 tokens and a ServeEngine answering the 8
+            requests of phase 6 at depth 3, profiled, launches per step held
+            to QWEN3_* / QWEN2_* (qwen_run);
+18. long context: DeepSeek-V2-Lite and Llama-3.1-8B at full width cut to
+            2 layers, int8 weights, in a Generator at max_len 16,384: a
+            seeded 9,000-token prompt prefilled in 256-token chunks and 8
+            greedy tokens, once on the blockwise path (the cache buffer past
+            BLOCKWISE_KV_THRESHOLD: mla_absorbed_blockwise at the MLA
+            prefill, mha_blockwise at every GQA step, their calls counted)
+            and once with the threshold above max_len (the dense path), on
+            the same weights: the last chunk's logits within LONG_TOL of the
+            dense path's, tokens equal up to a near-tie, the peak memory and
+            time of the last full chunk recorded (long_context);
+19. dense and GLM: the kernels of the Llama-3.1-8B and GLM-4.5-Air paths
+            at their widths (dense_glm_kernel_checks: row 9 on every int8
+            weight at M = 1, 8, 256, GLM's experts on rows 7 and 8, row 3 on
+            GLM's shared expert and dense MLP as int4_g weights, rows 13 and
+            15 at G = 12); 2-layer parity card vs CPU (Llama int8 held to
+            FORMAT_TOL, GLM by moe_parity); then Llama-3.1-8B at all 32
+            layers (int8) and GLM-4.5-Air cut to GLM_LAYERS = 4 (the dense
+            layer and 3 MoE layers; int8 with int4_g experts, the published
+            q / k / v biases), each in a Generator answering 2 requests of
+            512 + 32 tokens and a ServeEngine answering the 8 requests of
+            phase 6 at depth 3, profiled, launches per step held to
+            LLAMA_* / GLM_* (dense_glm_run).
+Each phase's seconds are logged and kept in chip_smoke.json (phase_s).
 Prints a kernels JSON line (the eighteen wrappers, then the thirteen
 redesigned kernels, whose launches are those of their wrappers' calls
 that took them; the MLA kernels must have launched on the single-user
@@ -179,9 +202,10 @@ that took them; the MLA kernels must have launched on the single-user
 parameter sets, mla_decode_split_kernel<false> on the int8 single-user
 path (its last request decodes with the fused decode off), the FFN's
 one-row gate_up on both W4A8 decode paths and Qwen3's, the GQA kernels on
-Mixtral's and both Qwen models' paged paths, the MLA kernels and both W4A8
-matmul kernels on DeepSeek-V3's two paths and the W4A8 matmul kernels on
-Qwen2's; w4a8_ffn_gemv_kernel's entry gives the gate_up half's times
+Mixtral's, both Qwen models', Llama's and GLM's paged paths, the MLA
+kernels and both W4A8 matmul kernels on DeepSeek-V3's two paths and the W4A8
+matmul kernels on Qwen2's and GLM's, row 9 and both its redesigned kernels
+on Llama's; w4a8_ffn_gemv_kernel's entry gives the gate_up half's times
 and bound; a W4A8 entry also its "fold": the folded kernel beside prep +
 unfolded kernel), the card line, and as
 the last line
@@ -1931,13 +1955,11 @@ def paged_prompts(vocab: int) -> list:
     return prompts
 
 
-def single_user_reference(gen, prompt: list, n: int):
-    """Greedy tokens of the single-user Generator and, per position, the
-    gap between its two largest logits as a share of the largest logit
+def greedy_decode(gen, last, cache, n: int):
+    """n greedy tokens of the single-user Generator from the last logits
+    row ``last`` [1, V] of a prefilled ``cache`` and, per position, the gap
+    between its two largest logits as a share of the largest logit
     magnitude (a small gap marks a bf16 near-tie)."""
-    cache = gen.new_cache()
-    last, cache = gen.prefill(
-        cache, torch.as_tensor([prompt], device=gen.device), 256)
     toks, gaps = [], []
     for _ in range(n):
         lf = last.float()
@@ -1949,6 +1971,14 @@ def single_user_reference(gen, prompt: list, n: int):
             logits, cache = gen._forward(tok[:, None], cache)
             last = logits[:, -1]
     return toks, gaps
+
+
+def single_user_reference(gen, prompt: list, n: int):
+    """greedy_decode of n tokens after the prompt's 256-token prefill."""
+    cache = gen.new_cache()
+    last, cache = gen.prefill(
+        cache, torch.as_tensor([prompt], device=gen.device), 256)
+    return greedy_decode(gen, last, cache, n)
 
 
 def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS) -> dict:
@@ -2332,10 +2362,12 @@ def sft_kernel_checks(rows: list, entries: dict) -> None:
     scale for int8 / fp8) and the decoded weight to bf16 and sum in float32
     (the kernel on tensor cores, the plain version in cuBLAS's f32 FMA).
     Bound: dy, the weight bytes of the experts the rows use and dx over the
-    memory rate, against 2 M N K over the bf16 peak. Library yardstick, row
-    16 only: torch.matmul(dy, W_bf16.T) on the dequantized weight (never on
-    the path); row 17 has none (no one PyTorch call takes per-row
-    experts). Also row 8's forward over the step's 3,072 sorted rows
+    memory rate, against 2 M N K over the bf16 peak. Library yardsticks
+    (never on the path): row 16 torch.matmul(dy, W_bf16.T) on the
+    dequantized weight; row 17's grouped rows torch._grouped_mm over the
+    bf16-dequantized, transposed experts, as rows 8 and 11 time it; its
+    gathered entry none (no one PyTorch call takes per-row experts). Also
+    row 8's forward over the step's 3,072 sorted rows
     (w4a8_mma_kernel beside the first version; yardstick grouped_mm); the
     step's dense row-1 shapes are in kernel_checks."""
     from ktransformers_tpu_torch.ops.cuda import quant_matmul_t as QT
@@ -2397,6 +2429,7 @@ def sft_kernel_checks(rows: list, entries: dict) -> None:
     for k, n, what in ((d, 2 * f, "gate_up"), (f, d, "down")):
         wt = w((e, k, n))
         dy = rn(m * 6, n)
+        wdqt = dequantize(wt, bf).transpose(1, 2).contiguous()
         check("grouped_quant_matmul_t",
               f"int4_g offset-lo {m * 6} sorted rows {what}^T "
               f"[64, {k}, {n}]", SFT_KERNEL_TOL,
@@ -2405,9 +2438,11 @@ def sft_kernel_checks(rows: list, entries: dict) -> None:
               lambda: QT.grouped_t_launcher(dy, wt, sizes),
               nbytes(dy) + wbytes(wt, used) + m * 6 * k * 4,
               2 * m * 6 * n * k, BF16_FLOPS_PER_S,
+              library=grouped_mm(dy, wdqt, sizes),
               main=(what == "gate_up"), plain_iters=2, iters=10,
               **routed(QT_ROUTES, QT._route(wt),
                        lambda: QT.grouped_t_launcher(dy, wt, sizes, "rows")))
+        del wdqt
         dy6 = rn(6, n)
         check("grouped_quant_matmul_t",
               f"gathered entry 6 rows {what}^T [64, {k}, {n}]",
@@ -3718,16 +3753,19 @@ def gguf_serve(result: dict) -> None:
 # Qwen2-57B-A14B's depth on the card: cut to 4 layers (depth only; the 28
 # layers would take 34.7 GB and another two minutes of serving)
 QWEN2_LAYERS = 4
+# Qwen3-30B-A3B served at 12 of its 48 layers: the phases of the dense and
+# GLM models took the time (it ran whole, 48 layers, until then)
+QWEN3_LAYERS = 12
 
 
-def qwen3_cfg() -> dict:
+def qwen3_cfg(layers: int = QWEN3_LAYERS) -> dict:
     """Qwen3-30B-A3B (Qwen/Qwen3-30B-A3B config.json, the registry's
-    preset): 48 layers, hidden 2048, 32 query heads over 4 KV heads of
-    128 with the per-head q / k norm, 128 experts of inter 768 top-8
-    renormalized, vocab 151,936. Not cut."""
+    preset): hidden 2048, 32 query heads over 4 KV heads of 128 with the
+    per-head q / k norm, 128 experts of inter 768 top-8 renormalized, vocab
+    151,936; cut from 48 to ``layers`` in depth only."""
     from ktransformers_tpu_torch.models.registry import REGISTRY
 
-    return dict(REGISTRY["qwen3-30b-a3b"].config)
+    return dict(REGISTRY["qwen3-30b-a3b"].config, num_hidden_layers=layers)
 
 
 def qwen2_cfg(layers: int = QWEN2_LAYERS) -> dict:
@@ -3739,6 +3777,71 @@ def qwen2_cfg(layers: int = QWEN2_LAYERS) -> dict:
     from ktransformers_tpu_torch.models.registry import REGISTRY
 
     return dict(REGISTRY["qwen2-57b-a14b"].config, num_hidden_layers=layers)
+
+
+def int8_matmul_checks(check, rd, rn, weights) -> None:
+    """Row 9 (quant_matmul) on int8 weights of (tag, K, N, what) at the M
+    the served paths give them: 1 (single-user decode), 8 (the engine's
+    decode batch) and 256 (a prefill chunk); an lm_head only 1 and 8 (it
+    reads last rows). The kernel takes no bias: a fused QKV's ("... +
+    bias") is added after it, as linear() adds it, the same bits. Bound
+    over the bf16 peak (int8 weights meet bf16 activations on bf16 MMAs);
+    torch.matmul on the bf16-dequantized weight the yardstick."""
+    from ktransformers_tpu_torch.ops.cuda import quant_matmul as QM
+    from ktransformers_tpu_torch.ops.linear import linear
+    from ktransformers_tpu_torch.quant.formats import dequantize
+
+    for tag, d, n, what in weights:
+        wt = rd.q((d, n), "int8", 128)
+        wdq = dequantize(wt, torch.bfloat16)
+        for m in ((1, 8) if what == "lm_head" else (1, 8, 256)):
+            x = rn(m, d)
+            check("quant_matmul", f"{tag} int8 {what} {d}->{n} M={m}", 1e-2,
+                  lambda: QM.quant_matmul(x, wt),
+                  lambda: QM.quant_matmul_ref(x, wt),
+                  lambda: QM.dense_launcher(x, wt),
+                  nbytes(x, wt.data, wt.scales) + m * n * 2, 2 * m * n * d,
+                  BF16_FLOPS_PER_S, library=lambda: torch.matmul(x, wdq),
+                  plain_iters=2,
+                  **routed(QM_ROUTES, QM.route(x.dtype, m, "dense", "int8",
+                                               d, n, QM.rows_per_group(wt)),
+                           lambda: QM.dense_launcher(x, wt, "rows")))
+            if what.endswith("bias"):
+                b = rn(n)
+                if not torch.equal(linear(x, wt, b),
+                                   QM.quant_matmul(x, wt) + b):
+                    raise AssertionError(f"{tag} qkv bias: linear() is not "
+                                         "the kernel's product + bias")
+        del wt, wdq
+        torch.cuda.empty_cache()
+
+
+def expert_mm_checks(check, w, rn, routing, tag: str, e: int, d: int,
+                     f: int) -> None:
+    """Rows 7 and 8 on e W4A8 experts d -> 2 x f -> d that the fused FFN's
+    budget refuses, gate_up and down: gathered at 8 and 64 rows (one token
+    and the engine's 8 tokens, top-8: ``routing(tokens)`` gives the expert
+    ids [tokens, 8]), grouped at 2048 sorted rows (a 256-token chunk) with
+    torch._grouped_mm on the bf16-dequantized experts as the yardstick."""
+    from ktransformers_tpu_torch.quant.formats import dequantize
+
+    for k, n, what in ((d, 2 * f, "gate_up"), (f, d, "down")):
+        wt = w((e, k, n))
+        for tokens, label in ((1, "decode 8 rows (1 tok x 8)"),
+                              (8, "serve decode 64 rows (8 tok x 8)")):
+            ids = routing(tokens).reshape(-1).to(torch.int32)
+            gathered_mm_check(check, rn(ids.shape[0], k), wt, ids,
+                              f"{tag} {label} {what} [{e}, {k}, {n}]")
+        wdq = dequantize(wt, torch.bfloat16)
+        sizes = torch.bincount(routing(256).reshape(-1),
+                               minlength=e).to(torch.int32)
+        x = rn(2048, k)
+        grouped_mm_check(check, x, wt, sizes,
+                         f"{tag} prefill 2048 rows (256 tok x 8) {what} "
+                         f"[{e}, {k}, {n}]",
+                         library=grouped_mm(x, wdq, sizes))
+        del wt, wdq
+        torch.cuda.empty_cache()
 
 
 def qwen_kernel_checks(rows: list, entries: dict) -> None:
@@ -3763,10 +3866,7 @@ def qwen_kernel_checks(rows: list, entries: dict) -> None:
       (Qwen2: 28 over 4), gqa_paged_checks.
     Routing draws top-8 of the experts from softmax scores of random
     logits."""
-    from ktransformers_tpu_torch.ops.cuda import quant_matmul as QM
     from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
-    from ktransformers_tpu_torch.ops.linear import linear
-    from ktransformers_tpu_torch.quant.formats import dequantize
 
     dev = torch.device("cuda")
     check = make_check(rows, entries)
@@ -3778,41 +3878,15 @@ def qwen_kernel_checks(rows: list, entries: dict) -> None:
         logits = torch.randn(tokens, e, generator=g_cpu)
         return torch.topk(logits, 8, dim=-1).indices.to(dev)
 
-    # row 9: every int8 projection of the served paths, at the M they give
-    # it (1 single-user decode, 8 the engine's decode batch, 256 a prefill
-    # chunk; the lm_head reads only last rows). The kernel takes no bias:
-    # the fused QKV's is added after it, as linear() adds it, the same bits
-    for tag, d, n, what in (
-            ("qwen3", 2048, 5120, "qkv"),
-            ("qwen3", 4096, 2048, "o_proj"),
-            ("qwen3", 2048, 151936, "lm_head"),
-            ("qwen2", 3584, 4608, "qkv + bias"),
-            ("qwen2", 3584, 3584, "o_proj"),
-            ("qwen2", 3584, 40960, "shared gate_up"),
-            ("qwen2", 20480, 3584, "shared down"),
-            ("qwen2", 3584, 151936, "lm_head")):
-        wt = rd.q((d, n), "int8", 128)
-        wdq = dequantize(wt, torch.bfloat16)
-        for m in ((1, 8) if what == "lm_head" else (1, 8, 256)):
-            x = rn(m, d)
-            check("quant_matmul", f"{tag} int8 {what} {d}->{n} M={m}", 1e-2,
-                  lambda: QM.quant_matmul(x, wt),
-                  lambda: QM.quant_matmul_ref(x, wt),
-                  lambda: QM.dense_launcher(x, wt),
-                  nbytes(x, wt.data, wt.scales) + m * n * 2, 2 * m * n * d,
-                  BF16_FLOPS_PER_S, library=lambda: torch.matmul(x, wdq),
-                  plain_iters=2,
-                  **routed(QM_ROUTES, QM.route(x.dtype, m, "dense", "int8",
-                                               d, n, QM.rows_per_group(wt)),
-                           lambda: QM.dense_launcher(x, wt, "rows")))
-            if what.endswith("bias"):
-                b = rn(n)
-                if not torch.equal(linear(x, wt, b),
-                                   QM.quant_matmul(x, wt) + b):
-                    raise AssertionError(f"{tag} qkv bias: linear() is not "
-                                         "the kernel's product + bias")
-        del wt, wdq
-        torch.cuda.empty_cache()
+    int8_matmul_checks(check, rd, rn, (
+        ("qwen3", 2048, 5120, "qkv"),
+        ("qwen3", 4096, 2048, "o_proj"),
+        ("qwen3", 2048, 151936, "lm_head"),
+        ("qwen2", 3584, 4608, "qkv + bias"),
+        ("qwen2", 3584, 3584, "o_proj"),
+        ("qwen2", 3584, 40960, "shared gate_up"),
+        ("qwen2", 20480, 3584, "shared down"),
+        ("qwen2", 3584, 151936, "lm_head")))
 
     # Qwen3's experts: the fused FFN (rows 2 and 4)
     e, d, f = 128, 2048, 768
@@ -3831,23 +3905,9 @@ def qwen_kernel_checks(rows: list, entries: dict) -> None:
     del gu, dn
 
     # Qwen2's experts: rows 7 and 8
-    e, d, f = 64, 3584, 2560
-    for k, n, what in ((d, 2 * f, "gate_up"), (f, d, "down")):
-        wt = w((e, k, n))
-        for tokens, label in ((1, "decode 8 rows (1 tok x 8)"),
-                              (8, "serve decode 64 rows (8 tok x 8)")):
-            ids = routing(tokens, e).reshape(-1).to(torch.int32)
-            gathered_mm_check(check, rn(ids.shape[0], k), wt, ids,
-                              f"qwen2 {label} {what} [64, {k}, {n}]")
-        wdq = dequantize(wt, torch.bfloat16)
-        sizes = torch.bincount(routing(256, e).reshape(-1),
-                               minlength=e).to(torch.int32)
-        x = rn(2048, k)
-        grouped_mm_check(check, x, wt, sizes,
-                         f"qwen2 prefill 2048 rows (256 tok x 8) {what} "
-                         f"[64, {k}, {n}]",
-                         library=grouped_mm(x, wdq, sizes))
-        del wt, wdq
+    d = 3584
+    expert_mm_checks(check, w, rn, lambda t: routing(t, 64), "qwen2", 64, d,
+                     2560)
 
     # row 3 on Qwen2's shared expert in int4_g (all-int4_g weights; the
     # served kinds keep it int8, on row 9 above)
@@ -3867,25 +3927,28 @@ QWEN3_SINGLE_USER_KERNELS = ("w4a8_prep", "quant_matmul",
                              "gathered_w4a8_ffn", "grouped_w4a8_ffn")
 QWEN3_PAGED_KERNELS = QWEN3_SINGLE_USER_KERNELS + ("gqa_paged_decode",
                                                    "gqa_paged_prefill")
-# Qwen3-30B-A3B, 48 MoE layers: quant_matmul 97 (the fused qkv and o_proj
-# of 48 layers, lm_head); the experts on the fused FFN, grouped at prefill
-# (2048 sorted rows: one activation prep a call) and gathered at decode (8
-# rows on the one-row gate_up, which quantizes x itself: no prep); GQA
-# attention plain PyTorch on the contiguous cache
+# Qwen3-30B-A3B, QWEN3_LAYERS MoE layers (L): quant_matmul 2 L + 1 (the
+# fused qkv and o_proj of every layer, lm_head); the experts on the fused
+# FFN, grouped at prefill (2048 sorted rows: one activation prep a call)
+# and gathered at decode (8 rows on the one-row gate_up, which quantizes x
+# itself: no prep); GQA attention plain PyTorch on the contiguous cache
+_L3 = QWEN3_LAYERS
 QWEN3_STEP_LAUNCHES = {
-    "prefill_chunk": {"quant_matmul": 97, "grouped_w4a8_ffn": 48,
-                      "w4a8_prep": 48},
-    "decode_step": {"quant_matmul": 97, "gathered_w4a8_ffn": 48},
+    "prefill_chunk": {"quant_matmul": 2 * _L3 + 1, "grouped_w4a8_ffn": _L3,
+                      "w4a8_prep": _L3},
+    "decode_step": {"quant_matmul": 2 * _L3 + 1, "gathered_w4a8_ffn": _L3},
 }
 # ... and on the paged path the GQA kernel once a layer: a decode batch of
 # 8 (64 gathered rows, one a tile: still folded) and a mixed step (8 decode
 # rows + one 256-token chunk: 2112 grouped rows, a prep each)
 QWEN3_ENGINE_STEP_LAUNCHES = {
-    "serve_decode_step_b8": {"quant_matmul": 97, "gathered_w4a8_ffn": 48,
-                             "gqa_paged_decode": 48},
-    "serve_mixed_step_b8_s256": {"quant_matmul": 97, "grouped_w4a8_ffn": 48,
-                                 "w4a8_prep": 48, "gqa_paged_decode": 48,
-                                 "gqa_paged_prefill": 48},
+    "serve_decode_step_b8": {"quant_matmul": 2 * _L3 + 1,
+                             "gathered_w4a8_ffn": _L3,
+                             "gqa_paged_decode": _L3},
+    "serve_mixed_step_b8_s256": {"quant_matmul": 2 * _L3 + 1,
+                                 "grouped_w4a8_ffn": _L3, "w4a8_prep": _L3,
+                                 "gqa_paged_decode": _L3,
+                                 "gqa_paged_prefill": _L3},
 }
 # Qwen2-57B-A14B cut to 4 MoE layers: quant_matmul 17 (the fused qkv with
 # its bias, o_proj and the shared expert's gate_up and down of 4 layers,
@@ -3941,9 +4004,9 @@ def qwen_run(result: dict, rows: list, entries: dict) -> None:
     """Qwen3-30B-A3B (per-head q / k norm, G = 8, the fused expert FFN)
     and Qwen2-57B-A14B (q / k / v biases, the gated shared expert, G = 7,
     the experts on rows 7-8): their kernels at their widths, 2-layer
-    parity card vs CPU with the served kinds, then Qwen3 at all 48 layers
-    and Qwen2 cut to QWEN2_LAYERS served single-user and through the
-    ServeEngine with launches per step held."""
+    parity card vs CPU with the served kinds, then Qwen3 cut to
+    QWEN3_LAYERS and Qwen2 cut to QWEN2_LAYERS served single-user and
+    through the ServeEngine with launches per step held."""
     qwen_kernel_checks(rows, entries)
     torch.cuda.empty_cache()
     routed_parity(result, gqa_variant("qwen3_w4a8", qwen3_cfg()))
@@ -3955,6 +4018,335 @@ def qwen_run(result: dict, rows: list, entries: dict) -> None:
     serve_model(result, "qwen2", qwen2_cfg(), "int8", "int4_g",
                 MIXTRAL_SINGLE_USER_KERNELS, MIXTRAL_PAGED_KERNELS,
                 QWEN2_STEP_LAUNCHES, QWEN2_ENGINE_STEP_LAUNCHES)
+
+
+# ------------------------------------------------------------ long context
+
+LONG_MAX_LEN = 16384  # cache positions: past BLOCKWISE_KV_THRESHOLD
+LONG_PROMPT = 9000
+LONG_CHUNK = 256
+LONG_NEW = 8
+LONG_LAYERS = 2
+# last-chunk logits, blockwise against dense: of the largest logit. Both
+# paths compute float32 attention from the same bf16 cache; only the order
+# of the softmax sums differs, so bf16 activations round apart now and then
+LONG_TOL = 1e-2
+
+
+def long_context_models():
+    """(name, cfg, quant, moe_quant) of phase 18, full width cut to
+    LONG_LAYERS, int8 weights (the quant_matmul kernels: no activation
+    codes, which a rounding-order change in the attention would flip and
+    so move a row by more than the paths differ): DeepSeek-V2-Lite with its
+    published max_position_embeddings (163,840; the rope tables must reach
+    9,008 positions); Llama-3.1-8B."""
+    return (("v2_lite", dict(bench_model_cfg(), num_hidden_layers=LONG_LAYERS,
+                             max_position_embeddings=163840),
+             "int8", "int8"),
+            ("llama", llama_cfg(LONG_LAYERS), "int8", "int8"))
+
+
+def long_run(gen, prompt, late: int) -> dict:
+    """prompt [1, S] prefilled through the Generator in LONG_CHUNK-token
+    chunks, then LONG_NEW greedy tokens. The chunk that starts at ``late``
+    is measured: its wall ms and the peak device memory it allocated above
+    what was allocated before it. Returns the last chunk's last logits row
+    (float32, CPU), the tokens, the top-2 gap before each token and the
+    measurements."""
+    cache = gen.new_cache()
+    rec: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start in range(0, prompt.shape[1], LONG_CHUNK):
+        if start == late:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+        logits, cache = gen._forward(prompt[:, start : start + LONG_CHUNK],
+                                     cache, logits_last_only=True)
+        if start == late:
+            torch.cuda.synchronize()
+            rec["late_chunk_ms"] = (time.perf_counter() - t1) * 1e3
+            rec["late_chunk_peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                            - base)
+            rec["late_chunk_peak_total_bytes"] = \
+                torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    rec["prefill_s"] = time.perf_counter() - t0
+    rec["logits"] = logits[:, -1].float().cpu()[0]
+    t0 = time.perf_counter()
+    rec["tokens"], rec["gaps"] = greedy_decode(gen, logits[:, -1], cache,
+                                               LONG_NEW)
+    torch.cuda.synchronize()
+    rec["decode_tok_s"] = (LONG_NEW - 1) / (time.perf_counter() - t0)
+    return rec
+
+
+def long_context(result: dict) -> None:
+    """Phase 18: a single-user Generator at max_len LONG_MAX_LEN prefills a
+    seeded LONG_PROMPT-token prompt in 256-token chunks and decodes
+    LONG_NEW greedy tokens, on each model of long_context_models, twice on
+    the same weights: on the blockwise path (the cache buffer past
+    BLOCKWISE_KV_THRESHOLD: MLA prefill on mla_absorbed_blockwise, GQA
+    prefill and decode on mha_blockwise; counted) and with the threshold
+    set above max_len (the dense mla_absorbed / mha over the whole
+    buffer). The last chunk's logits are held within LONG_TOL of the
+    dense path's largest logit, the tokens equal up to a near-tie of the
+    dense path (NEAR_TIE); the peak memory and time of the last full
+    chunk on both paths are recorded."""
+    from ktransformers_tpu_torch.engine.generate import Generator
+    from ktransformers_tpu_torch.models import model as tmodel
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.ops import attention
+
+    out = {}
+    for name, cfg, quant, moe_quant in long_context_models():
+        t0 = time.perf_counter()
+        spec = spec_from_hf_config(cfg)
+        gen = Generator(init_params_synthetic(spec, seed=0, quant=quant,
+                                              moe_quant=moe_quant,
+                                              device="cuda"),
+                        spec, max_len=LONG_MAX_LEN, device="cuda")
+        prompt = torch.as_tensor(np.random.default_rng(1800).integers(
+            0, spec.vocab_size, (1, LONG_PROMPT)), device="cuda")
+        late = (LONG_PROMPT // LONG_CHUNK - 1) * LONG_CHUNK
+        blockwise = ("mla_absorbed_blockwise" if spec.attention.kind == "mla"
+                     else "mha_blockwise")
+        real, calls = getattr(tmodel, blockwise), [0]
+
+        def counted(*a, **kw):
+            calls[0] += 1
+            return real(*a, **kw)
+
+        runs = {}
+        for path, threshold in (("blockwise",
+                                 attention.BLOCKWISE_KV_THRESHOLD),
+                                ("dense", LONG_MAX_LEN + 1)):
+            old = attention.BLOCKWISE_KV_THRESHOLD
+            attention.BLOCKWISE_KV_THRESHOLD = threshold
+            setattr(tmodel, blockwise, counted)
+            calls[0] = 0
+            try:
+                runs[path] = long_run(gen, prompt, late)
+            finally:
+                attention.BLOCKWISE_KV_THRESHOLD = old
+                setattr(tmodel, blockwise, real)
+            runs[path]["blockwise_calls"] = calls[0]
+        b, d = runs["blockwise"], runs["dense"]
+        err = float((b["logits"] - d["logits"]).abs().max()
+                    / d["logits"].abs().max())
+        diff = next((j for j in range(LONG_NEW)
+                     if b["tokens"][j] != d["tokens"][j]), None)
+        # a GQA model attends blockwise at every chunk and decode step, an
+        # MLA model at every chunk (its decode runs the fused kernel)
+        chunks = -(-LONG_PROMPT // LONG_CHUNK)
+        want = spec.num_layers * (chunks + (LONG_NEW - 1
+                                            if blockwise == "mha_blockwise"
+                                            else 0))
+        rec = dict(model=cfg["model_type"], quant=quant, layers=spec.num_layers,
+                   max_len=LONG_MAX_LEN, prompt=LONG_PROMPT, rel_err=err,
+                   tol=LONG_TOL, first_token_diff=diff,
+                   gap=None if diff is None else d["gaps"][diff],
+                   seconds=time.perf_counter() - t0,
+                   **{p: {k: v for k, v in r.items() if k != "logits"}
+                      for p, r in runs.items()})
+        out[name] = rec
+        log(f"long context {name}: {LONG_PROMPT} tokens into a "
+            f"{LONG_MAX_LEN}-position cache, blockwise vs dense last-chunk "
+            f"logits rel_err {err:.3e} (tol {LONG_TOL}); tokens "
+            f"{b['tokens']} / {d['tokens']}; late chunk peak "
+            f"{b['late_chunk_peak_bytes'] / 1e6:.1f} / "
+            f"{d['late_chunk_peak_bytes'] / 1e6:.1f} MB above the "
+            f"allocated, {b['late_chunk_ms']:.1f} / {d['late_chunk_ms']:.1f}"
+            f" ms; prefill {b['prefill_s']:.2f} / {d['prefill_s']:.2f} s, "
+            f"decode {b['decode_tok_s']:.1f} / {d['decode_tok_s']:.1f} tok/s;"
+            f" {blockwise} calls {b['blockwise_calls']} / "
+            f"{d['blockwise_calls']}")
+        if b["blockwise_calls"] != want or d["blockwise_calls"]:
+            raise AssertionError(f"long context {name}: {blockwise} ran "
+                                 f"{b['blockwise_calls']} / "
+                                 f"{d['blockwise_calls']} times, want {want}"
+                                 " / 0")
+        if not bool(torch.isfinite(b["logits"]).all()) or err > LONG_TOL:
+            raise AssertionError(f"long context {name}: blockwise logits "
+                                 f"{err:.3e} from the dense path's")
+        if diff is not None and d["gaps"][diff] >= NEAR_TIE:
+            raise AssertionError(f"long context {name}: tokens leave the "
+                                 f"dense path's at {diff}, top-2 gap "
+                                 f"{d['gaps'][diff]:.3e}")
+        del gen
+        torch.cuda.empty_cache()
+    result["long_context"] = out
+
+
+# ---------------------------------------------------- dense and GLM models
+
+# GLM-4.5-Air served at 4 of its 46 layers: the dense layer and 3 MoE
+# layers (all 46 would be ~61 GB with the float32 embedding)
+GLM_LAYERS = 4
+
+
+def llama_cfg(layers: int | None = None) -> dict:
+    """Llama-3.1-8B (meta-llama/Llama-3.1-8B-Instruct config.json, the
+    registry's preset): 32 layers, hidden 4096, 32 query heads over 8 KV
+    heads of 128 (G = 4), dense MLP of inter 14336, vocab 128,256, rope
+    theta 500,000 with HF's llama3 scaling; cut to ``layers`` in depth
+    only where given."""
+    from ktransformers_tpu_torch.models.registry import REGISTRY
+
+    cfg = dict(REGISTRY["llama-3.1-8b"].config)
+    if layers:
+        cfg["num_hidden_layers"] = layers
+    return cfg
+
+
+def glm_cfg(layers: int = GLM_LAYERS) -> dict:
+    """GLM-4.5-Air (zai-org/GLM-4.5-Air config.json, the registry's
+    preset, with the published attention_bias: q / k / v biases): hidden
+    4096, 96 query heads over 8 KV heads of 128 (G = 12) with rope over 64
+    of them and the q / k norm, a dense first layer of inter 10944, 128
+    experts of inter 1408 top-8 (sigmoid, correction bias) and one shared
+    expert, vocab 151,552; cut from 46 to ``layers`` in depth only."""
+    from ktransformers_tpu_torch.models.registry import REGISTRY
+
+    return dict(REGISTRY["glm-4.5-air"].config, attention_bias=True,
+                num_hidden_layers=layers)
+
+
+def dense_glm_kernel_checks(rows: list, entries: dict) -> None:
+    """The kernels of the Llama and GLM paths at their widths, bf16,
+    against their plain versions (see make_check; none is a kernels-line
+    entry):
+    - row 9 (quant_matmul) on every int8 weight of the served kinds at
+      M = 1, 8 and 256 (the lm_heads at 1 and 8): Llama's fused QKV (4096
+      -> 6144), o_proj (4096 -> 4096), gate_up (4096 -> 28672), down
+      (14336 -> 4096), lm_head (-> 128,256); GLM's fused QKV with its bias
+      (4096 -> 14336), o_proj (12288 -> 4096), the dense layer's gate_up
+      (4096 -> 21888) and down (10944 -> 4096), the shared expert's
+      gate_up (4096 -> 2816) and down (1408 -> 4096), lm_head (->
+      151,552); bound over the bf16 peak, as for Mixtral's and Qwen's;
+    - GLM's experts (128 of 4096 -> 2 x 1408 -> 4096, int4_g repacked) on
+      the route the wrappers take: the fused FFN's budget refuses them, so
+      rows 7 (8 and 64 gathered rows) and 8 (2048 sorted rows), gate_up
+      and down, with torch._grouped_mm on the bf16-dequantized experts as
+      row 8's yardstick;
+    - row 3 (dense_w4a8_ffn) on GLM's shared expert (I = 1408) and dense
+      MLP (I = 10944) as all-int4_g weights would have them, M = 1, 8, 256
+      (the served kinds keep both int8: row 9 above);
+    - rows 13 and 15 at G = 12 (96 query heads over 8), gqa_paged_checks.
+    Routing draws top-8 of 128 from random logits."""
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+
+    dev = torch.device("cuda")
+    check = make_check(rows, entries)
+    rd, rn, w = draw(1619)
+    sms = MM.sm_count(dev)
+    g_cpu = torch.Generator().manual_seed(19)
+    int8_matmul_checks(check, rd, rn, (
+        ("llama", 4096, 6144, "qkv"),
+        ("llama", 4096, 4096, "o_proj"),
+        ("llama", 4096, 28672, "gate_up"),
+        ("llama", 14336, 4096, "down"),
+        ("llama", 4096, 128256, "lm_head"),
+        ("glm", 4096, 14336, "qkv + bias"),
+        ("glm", 12288, 4096, "o_proj"),
+        ("glm", 4096, 21888, "dense gate_up"),
+        ("glm", 10944, 4096, "dense down"),
+        ("glm", 4096, 2816, "shared gate_up"),
+        ("glm", 1408, 4096, "shared down"),
+        ("glm", 4096, 151552, "lm_head")))
+
+    # GLM's experts: rows 7 and 8
+    d = 4096
+
+    def routing(tokens):
+        logits = torch.randn(tokens, 128, generator=g_cpu)
+        return torch.topk(logits, 8, dim=-1).indices.to(dev)
+
+    expert_mm_checks(check, w, rn, routing, "glm", 128, d, 1408)
+
+    # row 3 on GLM's shared expert and dense MLP in int4_g
+    for inter, what in ((1408, "shared"), (10944, "dense MLP")):
+        sgu, sdn = w((d, 2 * inter)), w((inter, d))
+        for m in (1, 8, 256):
+            dense_ffn_check(check, rn(m, d), sgu, sdn,
+                            f"glm {what} int4_g I={inter}, M={m}", sms)
+        del sgu, sdn
+        torch.cuda.empty_cache()
+
+    gqa_paged_checks(check, rn, 96, 8, tag="glm ")
+
+
+LLAMA_SINGLE_USER_KERNELS = ("quant_matmul",)
+LLAMA_PAGED_KERNELS = ("quant_matmul", "gqa_paged_decode",
+                       "gqa_paged_prefill")
+# Llama-3.1-8B, 32 dense int8 layers: quant_matmul 129 (the fused qkv,
+# o_proj, gate_up and down of 32 layers, lm_head); no W4A8 weight, so no
+# prep; GQA attention plain PyTorch on the contiguous cache
+LLAMA_STEP_LAUNCHES = {
+    "prefill_chunk": {"quant_matmul": 129},
+    "decode_step": {"quant_matmul": 129},
+}
+# ... and the GQA paged kernels once a layer on the engine's steps
+LLAMA_ENGINE_STEP_LAUNCHES = {
+    "serve_decode_step_b8": {"quant_matmul": 129, "gqa_paged_decode": 32},
+    "serve_mixed_step_b8_s256": {"quant_matmul": 129,
+                                 "gqa_paged_decode": 32,
+                                 "gqa_paged_prefill": 32},
+}
+# GLM-4.5-Air cut to GLM_LAYERS (1 dense + 3 MoE): quant_matmul 17 (the
+# fused qkv with its bias and o_proj of 4 layers, the dense layer's gate_up
+# and down, the 3 shared experts' gate_up and down, lm_head); the experts
+# too wide for the fused FFN on the W4A8 matmuls, 2 a MoE layer: grouped at
+# prefill (2048 rows, a prep each), gathered at decode (8 rows: both
+# fold); GQA attention plain PyTorch on the contiguous cache
+GLM_STEP_LAUNCHES = {
+    "prefill_chunk": {"quant_matmul": 17, "grouped_w4a8_matmul": 6,
+                      "w4a8_prep": 6},
+    "decode_step": {"quant_matmul": 17, "gathered_w4a8_matmul": 6},
+}
+# ... the engine's batch of 8 gathers 64 rows: the gate_up GEMV keeps its
+# prep there (w4a8_matmul.gemv_folds), the down folds; a mixed step's 2112
+# grouped rows a prep each; the GQA paged kernels once a layer
+GLM_ENGINE_STEP_LAUNCHES = {
+    "serve_decode_step_b8": {"quant_matmul": 17, "gathered_w4a8_matmul": 6,
+                             "w4a8_prep": 3, "gqa_paged_decode": 4},
+    "serve_mixed_step_b8_s256": {"quant_matmul": 17,
+                                 "grouped_w4a8_matmul": 6, "w4a8_prep": 6,
+                                 "gqa_paged_decode": 4,
+                                 "gqa_paged_prefill": 4},
+}
+
+
+def dense_glm_run(result: dict, rows: list, entries: dict) -> None:
+    """Phase 19: Llama-3.1-8B (dense, int8, G = 4, llama3 rope) and
+    GLM-4.5-Air (half rotary, q / k norm, QKV biases, G = 12, sigmoid
+    router, experts on rows 7-8): their kernels at their widths, 2-layer
+    parity card vs CPU (Llama's int8 weights held to FORMAT_TOL on every
+    row; GLM's served kinds by moe_parity), then Llama at all 32 layers
+    and GLM cut to GLM_LAYERS served single-user and through the
+    ServeEngine with launches per step held."""
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.utils.device_prep import prepare_params
+
+    dense_glm_kernel_checks(rows, entries)
+    torch.cuda.empty_cache()
+    spec = spec_from_hf_config(llama_cfg(2))
+    parity_check(result, [("llama_int8", spec, prepare_params(
+        init_params_synthetic(spec, seed=5, quant="int8", device="cpu"),
+        spec), FORMAT_TOL)])
+    routed_parity(result, gqa_variant("glm_w4a8", glm_cfg()))
+    torch.cuda.empty_cache()
+    serve_model(result, "llama", llama_cfg(), "int8", "int8",
+                LLAMA_SINGLE_USER_KERNELS, LLAMA_PAGED_KERNELS,
+                LLAMA_STEP_LAUNCHES, LLAMA_ENGINE_STEP_LAUNCHES)
+    # GLM's experts take Mixtral's route (rows 7-8, no fused FFN)
+    serve_model(result, "glm", glm_cfg(), "int8", "int4_g",
+                MIXTRAL_SINGLE_USER_KERNELS, MIXTRAL_PAGED_KERNELS,
+                GLM_STEP_LAUNCHES, GLM_ENGINE_STEP_LAUNCHES)
 
 
 def _qtensors(node):
@@ -4009,6 +4401,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(OUT_DIR, exist_ok=True)
     result: dict = {}
+    marks = [("start", time.perf_counter())]
+    result["phase_s"] = {}
+
+    def phase(name: str) -> None:
+        """Seconds since the last mark into result["phase_s"][name]."""
+        now = time.perf_counter()
+        result["phase_s"][name] = now - marks[-1][1]
+        marks.append((name, now))
+        log(f"phase {name}: {result['phase_s'][name]:.1f} s "
+            f"({now - marks[0][1]:.1f} s in all)")
+
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -4023,6 +4426,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "ptxas.log"), "w") as fh:
         for name, text in logs.items():
             fh.write(f"== {name}\n{text}\n")
+    phase("build")
 
     # a second of bf16 products first, so the card's clocks have risen
     # before the first kernel is timed
@@ -4041,6 +4445,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     zero_point_kernel_checks(rows, entries)
     torch.cuda.empty_cache()
+    phase("kernels")
 
     variants = list(parity_variants())
     parity_check(result, variants)
@@ -4055,6 +4460,7 @@ def main() -> int:
             paged_parity_check(result, variant)
         del variant
     torch.cuda.empty_cache()
+    phase("parity")
 
     gen = serve(result)
     paged_serve(result, gen)
@@ -4063,6 +4469,7 @@ def main() -> int:
     hold_prep(result, b8=DEEPSEEK_B8_PREPS)
     del gen
     torch.cuda.empty_cache()
+    phase("serve_w4a8")
 
     # the int8 path: every matmul through the quant_matmul kernels
     gen = serve(result, quant="int8", key="serve_int8", requests=2,
@@ -4074,8 +4481,10 @@ def main() -> int:
     profile_engine_steps(result, gen, prefix="int8_")
     del gen
     torch.cuda.empty_cache()
+    phase("serve_int8")
 
     mixtral_run(result, rows, entries)
+    phase("mixtral")
 
     # LoRA SFT on DeepSeek-V2-Lite: rows 16 and 17 in the backward
     sft_kernel_checks(rows, entries)
@@ -4084,6 +4493,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     sft_run(result)
     torch.cuda.empty_cache()
+    phase("sft")
 
     # DeepSeek-V3: its kernels at full width, 2-layer parity, then 6
     # layers served; the plain expert products at DeepSeek-V2-Lite's
@@ -4096,11 +4506,20 @@ def main() -> int:
     hf_import(result)
     v3_serve(result)
     v3_int8_engine(result)
+    phase("v3")
     # a DeepSeek-V2-Lite GGUF checkpoint (Q4_K blocks) on the W4A8 kernels
     gguf_serve(result)
     torch.cuda.empty_cache()
-    # Qwen3-30B-A3B at full depth, Qwen2-57B-A14B cut to 4 layers
+    phase("gguf")
+    # Qwen3-30B-A3B cut to QWEN3_LAYERS, Qwen2-57B-A14B cut to 4 layers
     qwen_run(result, rows, entries)
+    phase("qwen")
+    # 9,000 tokens into a 16,384-position cache: blockwise against dense
+    long_context(result)
+    phase("long_context")
+    # Llama-3.1-8B at full depth, GLM-4.5-Air cut to GLM_LAYERS
+    dense_glm_run(result, rows, entries)
+    phase("dense_glm")
 
     sources = {
         # plain XLA in the JAX package, no Pallas kernel
@@ -4158,8 +4577,8 @@ def main() -> int:
     # default pipeline depth: DeepSeek-V2-Lite on the int4_g and on the int8
     # parameters, then Mixtral-8x7B; then the SFT steps; then DeepSeek-V3 on
     # W4A8 and on int8 parameters; then the GGUF DeepSeek-V2-Lite; then
-    # Qwen3-30B-A3B and Qwen2-57B-A14B); a kernel's count is the sum over
-    # them
+    # Qwen3-30B-A3B and Qwen2-57B-A14B; then Llama-3.1-8B and
+    # GLM-4.5-Air); a kernel's count is the sum over them
     runs = {
         "single_user": result["serve"],
         "paged_serve": result["paged_serve"]["runs"][3],
@@ -4178,6 +4597,10 @@ def main() -> int:
         "paged_serve_qwen3": result["paged_serve_qwen3"]["runs"][3],
         "single_user_qwen2": result["serve_qwen2"],
         "paged_serve_qwen2": result["paged_serve_qwen2"]["runs"][3],
+        "single_user_llama": result["serve_llama"],
+        "paged_serve_llama": result["paged_serve_llama"]["runs"][3],
+        "single_user_glm": result["serve_glm"],
+        "paged_serve_glm": result["paged_serve_glm"]["runs"][3],
     }
     paths = {k: dict(r["launches"]) for k, r in runs.items()}
     # the redesigned kernels: launches of their wrappers' calls that took them
@@ -4243,10 +4666,25 @@ def main() -> int:
             ("w4a8_mma_kernel", ("single_user_v3", "paged_serve_v3")),
             ("gqa_prefill_mma_kernel", ("paged_serve_mixtral",
                                         "paged_serve_qwen3",
-                                        "paged_serve_qwen2")),
+                                        "paged_serve_qwen2",
+                                        "paged_serve_llama",
+                                        "paged_serve_glm")),
             ("gqa_decode_split_kernel", ("paged_serve_mixtral",
                                          "paged_serve_qwen3",
-                                         "paged_serve_qwen2")),
+                                         "paged_serve_qwen2",
+                                         "paged_serve_llama",
+                                         "paged_serve_glm")),
+            # row 9 on Llama's paths (its GEMV at decode, its tensor-core
+            # kernel at prefill), rows 13 and 15 on both models' paged
+            # paths, GLM's experts on rows 7 and 8
+            *((k, ("single_user_llama", "paged_serve_llama"))
+              for k in ("quant_matmul", "quant_gemv_kernel",
+                        "quant_mma_kernel")),
+            *((k, ("paged_serve_llama", "paged_serve_glm"))
+              for k in ("gqa_paged_decode", "gqa_paged_prefill")),
+            *((k, ("single_user_glm", "paged_serve_glm"))
+              for k in ("gathered_w4a8_matmul", "grouped_w4a8_matmul",
+                        "w4a8_gemv_kernel", "w4a8_mma_kernel")),
             ("w4a8_ffn_gemv_kernel", ("single_user", "paged_serve",
                                       "single_user_qwen3",
                                       "paged_serve_qwen3")),

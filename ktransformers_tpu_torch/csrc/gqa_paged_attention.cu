@@ -21,8 +21,9 @@
 // SMs; 8 pieces of a 2,048-token pool make 512). A block walks its piece in
 // tiles of DEC_TK: all threads stage the K and V rows of a tile (through the
 // page table, 16-byte loads) as float32 in shared memory, score the G x
-// DEC_TK pairs, one warp per head runs the online softmax over the tile (a
-// lane per key), and thread t adds P V into column t of every head. With
+// DEC_TK pairs, each warp runs the online softmax of up to HPW heads over
+// the tile (a lane per key; G <= GMAX = 16, GLM-4.5-Air's 12 included), and
+// thread t adds P V into column t of every head. With
 // one piece the block writes the output; with more, each writes its
 // (max, sum, context) and gqa_decode_combine_kernel merges them. That
 // kernel keeps float32 calls; bf16 calls take gqa_decode_split_kernel (the
@@ -80,7 +81,8 @@ __device__ __forceinline__ void load8_or_zero(const T* p, bool live,
 constexpr int DEC_THREADS = D;  // thread t owns output column t
 constexpr int DEC_WARPS = DEC_THREADS / 32;
 constexpr int DEC_TK = 32;      // keys per staged tile (a lane each in B)
-constexpr int GMAX = 2 * DEC_WARPS;  // query heads per KV head
+constexpr int HPW = 4;          // query heads whose softmax state a warp runs
+constexpr int GMAX = HPW * DEC_WARPS;  // query heads per KV head (16)
 constexpr int KLD = D + 1;      // k tile row stride: lanes hit distinct banks
 constexpr int SPLIT_KEYS = 256; // keys of one piece (8 tiles)
 
@@ -115,8 +117,13 @@ __global__ void __launch_bounds__(DEC_THREADS)
   for (int i = tid; i < G * D; i += DEC_THREADS)
     q_s[i / D][i % D] = to_f(q[qoff + i]);
 
-  // warp w runs the softmax state of heads w and w + DEC_WARPS
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  // warp w runs the softmax state of heads w + j * DEC_WARPS, j < HPW
+  float m[HPW], l[HPW];
+#pragma unroll
+  for (int j = 0; j < HPW; ++j) {
+    m[j] = NEG_INF;
+    l[j] = 0.f;
+  }
   float acc[GMAX];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) acc[g] = 0.f;
@@ -151,7 +158,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
 
     // online softmax over the tile: lane = key
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < HPW; ++j) {
       const int g = warp + j * DEC_WARPS;
       if (g < G) {
         const bool ok = lane < kn;
@@ -184,7 +191,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
                            (D + 2);
     if (lane == 0) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < HPW; ++j) {
         const int g = warp + j * DEC_WARPS;
         if (g < G) {
           pp[g] = m[j];
@@ -199,7 +206,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
   }
   if (lane == 0) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < HPW; ++j)
       if (warp + j * DEC_WARPS < G) l_s[warp + j * DEC_WARPS] = l[j];
   }
   __syncthreads();

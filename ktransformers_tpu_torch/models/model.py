@@ -2,7 +2,10 @@
 -> lm_head, over a static-shape KV cache (counterpart of
 ktransformers_tpu/models/model.py). Attention is absorbed MLA over a
 compressed cache (deepseek_v2 / v3) or GQA over per-head k / v (mixtral,
-qwen2_moe with projection biases, qwen3_moe with per-head q / k norms).
+qwen2_moe with projection biases, qwen3_moe with per-head q / k norms, the
+dense llama / qwen2 / qwen3, glm4_moe with rope over half of each head).
+Past BLOCKWISE_KV_THRESHOLD cache positions (ops/attention.py) the plain
+attention of the contiguous cache runs blockwise.
 
 Params are nested dicts of QTensors / tensors (utils/device_prep.py
 prepares them). Unlike the JAX package, the KV cache is updated IN PLACE:
@@ -29,7 +32,9 @@ from ktransformers_tpu_torch.ops.activations import glu_activate
 from ktransformers_tpu_torch.ops import attention
 from ktransformers_tpu_torch.ops.attention import (
     mha,
+    mha_blockwise,
     mla_absorbed,
+    mla_absorbed_blockwise,
     mla_decode,
     mla_decode_fused,
 )
@@ -80,11 +85,16 @@ class KVCache:
         return KVCache(lengths, bufs_a, bufs_b)
 
 
+def _q_positions(pos_offset: torch.Tensor, q_len: int):
+    """Absolute positions [B, q_len] of the new tokens."""
+    return pos_offset.to(torch.int64)[:, None] + torch.arange(
+        q_len, device=pos_offset.device)[None, :]
+
+
 def _attn_mask(pos_offset: torch.Tensor, q_len: int, kv_len: int):
     """Additive causal mask [B, q_len, kv_len] from per-sequence offsets."""
     dev = pos_offset.device
-    qpos = pos_offset.to(torch.int64)[:, None, None] + torch.arange(
-        q_len, device=dev)[None, :, None]
+    qpos = _q_positions(pos_offset, q_len)[:, :, None]
     kpos = torch.arange(kv_len, device=dev)[None, None, :]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
@@ -160,19 +170,23 @@ def gqa_qkv_proj(p, spec: ModelSpec, x):
 
 def gqa_rope(p, spec: ModelSpec, q, k, rope_cs):
     """q [B, S, H, D] and k [B, S, Hkv, D] -> roped q [B, H, S, D] and
-    roped k [B, S, Hkv, D] (rope over the whole head), each head RMS-normed
-    first where the spec has qk_norm (p["q_norm"], p["k_norm"] [D]);
-    rope_cs (cos, sin) [B, S, D/2]."""
+    roped k [B, S, Hkv, D], each head RMS-normed first where the spec has
+    qk_norm (p["q_norm"], p["k_norm"] [D]); rope over the leading
+    rotary_dim of each head (all of it, or glm4's half), the rest passed
+    through; rope_cs (cos, sin) [B, S, rotary_dim/2]. Every GQA path (the
+    contiguous cache and both paged forwards) goes through here."""
     if spec.attention.qk_norm:
         q = rms_norm(q, p["q_norm"], spec.rms_norm_eps)
         k = rms_norm(k, p["k_norm"], spec.rms_norm_eps)
     cos, sin = rope_cs
-    inter = spec.rope.interleaved
-    q = apply_rope(q.transpose(1, 2), cos[:, None], sin[:, None],
-                   interleaved=inter)
-    k = apply_rope(k.transpose(1, 2), cos[:, None], sin[:, None],
-                   interleaved=inter)
-    return q, k.transpose(1, 2)
+    rot = spec.attention.rotary_dim
+
+    def rope(t):  # [B, X, S, D]
+        r = apply_rope(t[..., :rot], cos[:, None], sin[:, None],
+                       interleaved=spec.rope.interleaved)
+        return r if rot == t.shape[-1] else torch.cat([r, t[..., rot:]], -1)
+
+    return rope(q.transpose(1, 2)), rope(k.transpose(1, 2)).transpose(1, 2)
 
 
 def gqa_project_rope(p, spec: ModelSpec, x, rope_cs):
@@ -193,16 +207,23 @@ def gqa_scale(spec: ModelSpec) -> float:
 
 def _gqa_attention(p, spec: ModelSpec, x, layer_cache, pos_offset, rope_cs):
     """GQA attention over the contiguous cache: the new k / v are written
-    first, then ``mha`` attends over the whole buffer with a causal mask
-    (plain PyTorch at every step, as XLA in the JAX package)."""
+    first, then ``mha`` attends over the whole buffer with a causal mask,
+    or ``mha_blockwise`` at every step once the buffer holds
+    BLOCKWISE_KV_THRESHOLD positions (plain PyTorch, as XLA in the JAX
+    package, models/model.py:380-388)."""
     a = spec.attention
     b, s, _ = x.shape
     q, k, v = gqa_project_rope(p, spec, x, rope_cs)
     k_buf = _write_cache(layer_cache[0], k, pos_offset)
     v_buf = _write_cache(layer_cache[1], v, pos_offset)
-    mask = _attn_mask(pos_offset, s, k_buf.shape[1])
-    out = mha(q, k_buf.transpose(1, 2), v_buf.transpose(1, 2),
-              scale=gqa_scale(spec), mask=mask)
+    if k_buf.shape[1] >= attention.BLOCKWISE_KV_THRESHOLD:
+        out = mha_blockwise(q, k_buf.transpose(1, 2), v_buf.transpose(1, 2),
+                            _q_positions(pos_offset, s),
+                            scale=gqa_scale(spec))
+    else:
+        mask = _attn_mask(pos_offset, s, k_buf.shape[1])
+        out = mha(q, k_buf.transpose(1, 2), v_buf.transpose(1, 2),
+                  scale=gqa_scale(spec), mask=mask)
     out = out.transpose(1, 2).reshape(b, s, a.num_heads * a.head_dim)
     return plinear(p, "o_proj", out, p.get("o_bias")), (k_buf, v_buf)
 
@@ -256,6 +277,11 @@ def _mla_attention(p, spec: ModelSpec, x, layer_cache, pos_offset, rope_cs,
         # kernel gets include the current token
         attn = mla_decode(q_nope_eff, q_pe, ckv_buf, kpe_buf, pos_offset + 1,
                           scale=scale)
+    elif ckv_buf.shape[1] >= attention.BLOCKWISE_KV_THRESHOLD:
+        # a long buffer: O(block) scores (the JAX package's :312-316)
+        attn = mla_absorbed_blockwise(q_nope_eff, q_pe, ckv_buf, kpe_buf,
+                                      _q_positions(pos_offset, s),
+                                      scale=scale)
     else:
         mask = _attn_mask(pos_offset, s, ckv_buf.shape[1])
         attn = mla_absorbed(q_nope_eff, q_pe, ckv_buf, kpe_buf, scale=scale,
@@ -344,8 +370,7 @@ def forward(params, spec: ModelSpec, tokens: torch.Tensor, cache: KVCache,
     if rope_tables is None:
         rope_tables = precompute_rope_tables(spec.rope, tokens.device)
     cos_t, sin_t = rope_tables
-    pos = cache.lengths.to(torch.int64)[:, None] + torch.arange(
-        s, device=tokens.device)[None, :]
+    pos = _q_positions(cache.lengths, s)
     rope_cs = (cos_t[pos], sin_t[pos])
     rope_rot = None
     if s == 1 and attention.MLA_FUSED and spec.attention.kind == "mla":

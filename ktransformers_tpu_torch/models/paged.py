@@ -14,6 +14,13 @@ pool through the page table; rope and the page writes happen here, before
 the kernels run. The pools are updated IN PLACE and the same PagedKVCache
 is returned.
 
+The JAX package switches its plain paged attention to the blockwise forms
+past BLOCKWISE_KV_THRESHOLD positions (its models/paged.py:240, :358). Here
+no switch is needed: the paged kernels (rows 12-15 of PERF.md's table)
+walk the pages in tiles of keys on the card, so no score tensor of the
+whole cache is made. Their plain versions, which run only for CPU tensors
+(the tests' small pools), gather the pages whole.
+
 Not ported, each raising NotImplementedError: the sparse page budget
 (ROADMAP Queue 1 item 9), routing collection for expert re-placement (item
 11) and hybrid linear-attention slots (item 6).

@@ -38,7 +38,7 @@ _BYTES_PER_PARAM = {
 }
 
 _PORTED = ("deepseek_v2", "deepseek_v3", "kimi_k2", "mixtral", "qwen2_moe",
-           "qwen3_moe")
+           "qwen3_moe", "llama", "qwen2", "qwen3", "glm4_moe")
 
 
 @dataclasses.dataclass(frozen=True)

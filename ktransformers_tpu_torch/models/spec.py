@@ -1,10 +1,12 @@
 """ModelSpec: static architecture record and the HF config translator
 (counterpart of ktransformers_tpu/models/spec.py), limited to the families
 this port runs: ``deepseek_v2`` / ``deepseek_v3`` / ``kimi_k2`` (MLA
-attention), ``mixtral`` and ``qwen2_moe`` / ``qwen3_moe`` (GQA attention;
-Qwen2's q / k / v biases and gated shared expert, Qwen3's per-head q / k
-RMSNorm). Config values the port does not handle raise instead of being
-ignored."""
+attention), ``mixtral``, ``qwen2_moe`` / ``qwen3_moe``, the dense
+``llama`` / ``qwen2`` / ``qwen3`` and ``glm4_moe`` (GQA attention; q / k / v
+biases, per-head q / k RMSNorm, partial rotary and tied embeddings where
+the config sets them). Config values the port does not handle raise
+instead of being ignored; SmallThinker, Qwen3-Next and linear-attention
+layers belong to ROADMAP Queue 1 item 6."""
 
 from __future__ import annotations
 
@@ -30,7 +32,15 @@ class AttentionSpec:
     v_head_dim: int = 0
     attention_bias: bool = False  # q / k / v projection biases (gqa)
     qk_norm: bool = False  # per-head RMSNorm of q and k before rope (qwen3)
+    partial_rotary_dim: int = 0  # 0 = rope over the whole head (glm4: half)
     softmax_scale: float | None = None  # None = head_dim**-0.5 (x yarn mscale)
+
+    @property
+    def rotary_dim(self) -> int:
+        """The leading dims of each head that rope rotates."""
+        if self.kind == "mla":
+            return self.qk_rope_head_dim
+        return self.partial_rotary_dim or self.head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,10 +82,30 @@ class ModelSpec:
 
 
 def _rope_from_hf(cfg: dict, dim: int, interleaved: bool) -> RopeConfig:
+    """The rope of an HF config. Llama-3.1's ``rope_type: llama3`` follows
+    HF (transformers' _compute_llama3_parameters): its factor and
+    original_max_position_embeddings, and its high / low_freq_factor as
+    beta_fast / beta_slow, which are the same quantity (rotations over the
+    original context above which a frequency is kept, below which it is
+    divided by the factor). The JAX package's translator drops this
+    scaling (ROADMAP Queue 3)."""
     scaling = cfg.get("rope_scaling") or {}
     stype = scaling.get("type") or scaling.get("rope_type")
-    if stype not in (None, "yarn", "linear"):
+    if stype not in (None, "yarn", "linear", "llama3"):
         raise ValueError(f"rope_scaling type {stype!r} is not ported")
+    if stype == "llama3":
+        return RopeConfig(
+            dim=dim,
+            base=float(cfg.get("rope_theta", 10000.0)),
+            max_position=int(cfg.get("max_position_embeddings", 4096)),
+            scaling_type=stype,
+            scaling_factor=float(scaling["factor"]),
+            original_max_position=int(
+                scaling["original_max_position_embeddings"]),
+            beta_fast=float(scaling["high_freq_factor"]),
+            beta_slow=float(scaling["low_freq_factor"]),
+            interleaved=interleaved,
+        )
     return RopeConfig(
         dim=dim,
         base=float(cfg.get("rope_theta", 10000.0)),
@@ -187,19 +217,21 @@ def _deepseek_spec(cfg: dict, model_type: str) -> ModelSpec:
 def _gqa_attn(cfg: dict, qk_norm: bool = False) -> AttentionSpec:
     """GQA attention: projection biases where the config sets
     attention_bias (always for qwen2 / qwen2_moe, as in the JAX package),
-    the per-head q / k RMSNorm where the family applies it (``qk_norm``).
-    Partial rotary, a sliding window in use, gated output and a config
-    that asks for a q / k norm its family does not apply raise."""
+    the per-head q / k RMSNorm where the family applies it (``qk_norm``),
+    rope over the leading partial_rotary_factor of each head. A sliding
+    window in use (SmallThinker), gated output (Qwen3-Next) and a config
+    that asks for a q / k norm its family does not apply raise (ROADMAP
+    Queue 1 item 6)."""
     heads = int(cfg["num_attention_heads"])
     head_dim = int(cfg.get("head_dim") or cfg["hidden_size"] // heads)
     prf = float(cfg.get("partial_rotary_factor", 1.0) or 1.0)
-    if prf < 1.0:
-        raise ValueError("partial_rotary_factor < 1 is not ported")
     # qwen configs carry a window that applies only with use_sliding_window
     if cfg.get("sliding_window") and cfg.get("use_sliding_window", True):
-        raise ValueError("sliding_window attention is not ported")
+        raise ValueError("sliding_window attention is not ported (ROADMAP "
+                         "Queue 1 item 6)")
     if cfg.get("gated_output"):
-        raise ValueError("gated_output is not ported")
+        raise ValueError("gated_output is not ported (ROADMAP Queue 1 "
+                         "item 6)")
     for knob in ("qk_norm", "use_qk_norm"):
         if cfg.get(knob) and not qk_norm:
             raise ValueError(f"{knob} is not ported for "
@@ -212,6 +244,7 @@ def _gqa_attn(cfg: dict, qk_norm: bool = False) -> AttentionSpec:
         attention_bias=bool(cfg.get("attention_bias", False))
         or cfg.get("model_type") in ("qwen2", "qwen2_moe"),
         qk_norm=qk_norm,
+        partial_rotary_dim=int(head_dim * prf) if prf < 1.0 else 0,
     )
 
 
@@ -219,8 +252,6 @@ def _mixtral_spec(cfg: dict) -> ModelSpec:
     """Mixtral: GQA attention, rotate-half rope over the whole head, every
     layer MoE with softmax over all experts, top-k, renormalized (softmax
     + norm_topk_prob), no shared experts."""
-    if cfg.get("tie_word_embeddings"):
-        raise ValueError("tie_word_embeddings is not ported")
     if cfg.get("hidden_act", "silu") != "silu":
         raise ValueError(f"hidden_act {cfg['hidden_act']!r} is not ported")
     attn = _gqa_attn(cfg)
@@ -244,8 +275,9 @@ def _mixtral_spec(cfg: dict) -> ModelSpec:
         intermediate_size=int(cfg["intermediate_size"]),
         rms_norm_eps=float(cfg.get("rms_norm_eps", 1e-5)),
         attention=attn,
-        rope=_rope_from_hf(cfg, attn.head_dim, interleaved=False),
+        rope=_rope_from_hf(cfg, attn.rotary_dim, interleaved=False),
         moe=moe,
+        tie_word_embeddings=bool(cfg.get("tie_word_embeddings", False)),
         max_position=int(cfg.get("max_position_embeddings", 4096)),
     )
 
@@ -258,8 +290,6 @@ def _qwen_moe_spec(cfg: dict, model_type: str) -> ModelSpec:
     mlp_only_layers; Qwen2's shared expert scaled by sigmoid(x @
     shared_gate.T), Qwen3 without a shared expert."""
     q3 = model_type == "qwen3_moe"
-    if cfg.get("tie_word_embeddings"):
-        raise ValueError("tie_word_embeddings is not ported")
     if cfg.get("hidden_act", "silu") != "silu":
         raise ValueError(f"hidden_act {cfg['hidden_act']!r} is not ported")
     attn = _gqa_attn(cfg, qk_norm=q3)
@@ -289,8 +319,80 @@ def _qwen_moe_spec(cfg: dict, model_type: str) -> ModelSpec:
         intermediate_size=int(cfg["intermediate_size"]),
         rms_norm_eps=float(cfg.get("rms_norm_eps", 1e-6)),
         attention=attn,
-        rope=_rope_from_hf(cfg, attn.head_dim, interleaved=False),
+        rope=_rope_from_hf(cfg, attn.rotary_dim, interleaved=False),
         moe=moe,
+        tie_word_embeddings=bool(cfg.get("tie_word_embeddings", False)),
+        max_position=int(cfg.get("max_position_embeddings", 4096)),
+    )
+
+
+def _dense_spec(cfg: dict, model_type: str) -> ModelSpec:
+    """Llama and the dense Qwen2 / Qwen3: GQA attention (Qwen2 with q / k /
+    v biases, Qwen3 with the per-head q / k RMSNorm), rotate-half rope,
+    every layer a dense GLU MLP, tied embeddings where the config sets
+    them."""
+    if cfg.get("hidden_act", "silu") != "silu":
+        raise ValueError(f"hidden_act {cfg['hidden_act']!r} is not ported")
+    if cfg.get("mlp_bias"):
+        raise ValueError("mlp_bias is not ported")
+    attn = _gqa_attn(cfg, qk_norm=model_type == "qwen3")
+    return ModelSpec(
+        model_type=model_type,
+        vocab_size=int(cfg["vocab_size"]),
+        hidden_size=int(cfg["hidden_size"]),
+        num_layers=int(cfg["num_hidden_layers"]),
+        intermediate_size=int(cfg["intermediate_size"]),
+        rms_norm_eps=float(cfg.get("rms_norm_eps", 1e-6)),
+        attention=attn,
+        rope=_rope_from_hf(cfg, attn.rotary_dim, interleaved=False),
+        moe=None,
+        tie_word_embeddings=bool(cfg.get("tie_word_embeddings", False)),
+        max_position=int(cfg.get("max_position_embeddings", 4096)),
+    )
+
+
+def _glm4_moe_spec(cfg: dict) -> ModelSpec:
+    """GLM4-MoE (GLM-4.5 / 4.5-Air): GQA attention with rope over the
+    leading partial_rotary_factor of each head, the optional per-head q / k
+    RMSNorm (use_qk_norm) and projection biases as attention_bias sets
+    them; DeepSeek-V3's router (sigmoid scores, the correction bias,
+    groups ranked by their top-2 sum, norm_topk_prob, routed_scaling_factor);
+    first_k_dense_replace dense layers; n_shared_experts x
+    moe_intermediate_size of ungated shared expert."""
+    if cfg.get("hidden_act", "silu") != "silu":
+        raise ValueError(f"hidden_act {cfg['hidden_act']!r} is not ported")
+    gate = GateConfig(
+        num_experts=int(cfg["n_routed_experts"]),
+        top_k=int(cfg["num_experts_per_tok"]),
+        scoring="sigmoid",
+        group_method="group_top2sum",
+        n_group=int(cfg.get("n_group", 1) or 1),
+        topk_group=int(cfg.get("topk_group", 1) or 1),
+        norm_topk_prob=bool(cfg.get("norm_topk_prob", True)),
+        routed_scaling_factor=float(cfg.get("routed_scaling_factor", 1.0)),
+        has_correction_bias=True,
+    )
+    moe = MoESpec(
+        num_experts=int(cfg["n_routed_experts"]),
+        top_k=int(cfg["num_experts_per_tok"]),
+        moe_intermediate_size=int(cfg["moe_intermediate_size"]),
+        gate=gate,
+        shared_expert_intermediate_size=int(cfg.get("n_shared_experts") or 0)
+        * int(cfg["moe_intermediate_size"]),
+        first_k_dense=int(cfg.get("first_k_dense_replace", 1)),
+    )
+    attn = _gqa_attn(cfg, qk_norm=bool(cfg.get("use_qk_norm", False)))
+    return ModelSpec(
+        model_type="glm4_moe",
+        vocab_size=int(cfg["vocab_size"]),
+        hidden_size=int(cfg["hidden_size"]),
+        num_layers=int(cfg["num_hidden_layers"]),
+        intermediate_size=int(cfg["intermediate_size"]),
+        rms_norm_eps=float(cfg.get("rms_norm_eps", 1e-5)),
+        attention=attn,
+        rope=_rope_from_hf(cfg, attn.rotary_dim, interleaved=False),
+        moe=moe,
+        tie_word_embeddings=bool(cfg.get("tie_word_embeddings", False)),
         max_position=int(cfg.get("max_position_embeddings", 4096)),
     )
 
@@ -302,7 +404,16 @@ _TRANSLATORS = {
     "mixtral": _mixtral_spec,
     "qwen2_moe": lambda c: _qwen_moe_spec(c, "qwen2_moe"),
     "qwen3_moe": lambda c: _qwen_moe_spec(c, "qwen3_moe"),
+    "llama": lambda c: _dense_spec(c, "llama"),
+    "qwen2": lambda c: _dense_spec(c, "qwen2"),
+    "qwen3": lambda c: _dense_spec(c, "qwen3"),
+    "glm4_moe": _glm4_moe_spec,
 }
+
+# GGUF files of these architectures stay out until their loader is held
+# against real files (ROADMAP Queue 1 item 5b): llama.cpp's converter
+# permutes a llama file's attn_q / attn_k rows for its interleaved rope
+_GGUF_REFUSED = ("llama", "qwen2", "qwen3", "glm4_moe")
 
 
 def spec_from_hf_config(cfg: Any) -> ModelSpec:
@@ -341,6 +452,11 @@ def spec_from_gguf_fields(fields: dict) -> ModelSpec:
             f"unsupported gguf architecture {arch!r}; provide --config"
         )
     mt = _GGUF_ARCH_TO_HF[arch]
+    if mt in _GGUF_REFUSED:
+        raise NotImplementedError(
+            f"gguf architecture {arch!r} ({mt}): GGUF files of this "
+            "architecture are not ported (ROADMAP Queue 1 item 5b: the "
+            "attn_q / attn_k row permutation of llama.cpp's converter)")
     if mt not in _TRANSLATORS:
         raise NotImplementedError(
             f"gguf architecture {arch!r} ({mt}): the port has no {mt} "

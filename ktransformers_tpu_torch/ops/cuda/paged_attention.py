@@ -350,7 +350,7 @@ def mla_paged_prefill(q_nope_eff, q_pe, ckv_pages, kpe_pages, page_tables,
 # ---- GQA ----
 
 GQA_KERNEL_D = 128  # head dim the kernels take
-GQA_KERNEL_GMAX = 8  # query heads per KV head the float32 decode takes
+GQA_KERNEL_GMAX = 16  # query heads per KV head the float32 decode takes
 # gqa_decode_split_kernel (csrc/gqa_paged_attention.cu): the G query heads
 # of a KV head are the rows of one mma row group; a split takes a multiple
 # of GQA_DECODE_UNIT keys, at least GQA_DECODE_MIN_SPAN (one tile); at most

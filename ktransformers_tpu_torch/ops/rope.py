@@ -1,6 +1,7 @@
 """Rotary position embeddings (counterpart of ktransformers_tpu/ops/rope.py):
-standard and DeepSeek-interleaved rope, YaRN tables, and the exact [dr, dr]
-rotation matrix the fused decode-attention kernel applies."""
+standard and DeepSeek-interleaved rope, YaRN and Llama-3.1 (``llama3``)
+tables, the per-position gather, and the exact [dr, dr] rotation matrix the
+fused decode-attention kernel applies."""
 
 from __future__ import annotations
 
@@ -16,9 +17,12 @@ class RopeConfig:
     dim: int  # rotary dim (qk_rope_head_dim for MLA)
     base: float = 10000.0
     max_position: int = 4096
-    scaling_type: str | None = None  # None | "yarn" | "linear"
+    scaling_type: str | None = None  # None | "yarn" | "linear" | "llama3"
     scaling_factor: float = 1.0
     original_max_position: int = 4096
+    # rotations over original_max_position above which a frequency keeps
+    # its value, below which it is divided by scaling_factor (YaRN's
+    # beta_fast / beta_slow; llama3's high / low_freq_factor)
     beta_fast: float = 32.0
     beta_slow: float = 1.0
     mscale: float = 1.0
@@ -60,6 +64,22 @@ def rope_attention_scale(cfg: RopeConfig) -> float:
     return (m / m_all) ** 2 if cfg.mscale_all_dim else m * m
 
 
+def llama3_inv_freq(inv_freq: np.ndarray, cfg: RopeConfig) -> np.ndarray:
+    """Llama-3.1's frequencies (transformers' _compute_llama3_parameters):
+    wavelengths shorter than original / high_freq_factor keep theirs,
+    those longer than original / low_freq_factor are divided by the factor,
+    and the ones between are interpolated linearly in original /
+    wavelength."""
+    orig, factor = cfg.original_max_position, cfg.scaling_factor
+    low, high = cfg.beta_slow, cfg.beta_fast  # low / high_freq_factor
+    wavelen = 2 * math.pi / inv_freq
+    scaled = np.where(wavelen > orig / low, inv_freq / factor, inv_freq)
+    smooth = (orig / wavelen - low) / (high - low)
+    smoothed = (1 - smooth) * scaled / factor + smooth * scaled
+    medium = ~(wavelen < orig / high) & ~(wavelen > orig / low)
+    return np.where(medium, smoothed, scaled)
+
+
 def precompute_rope_tables(cfg: RopeConfig, device="cuda"):
     """(cos, sin) float32 tables [max_position, dim // 2], computed in
     float64 on the host (YaRN included) and moved to ``device``."""
@@ -80,6 +100,8 @@ def precompute_rope_tables(cfg: RopeConfig, device="cuda"):
         attn_factor = attn_factor / m_all if cfg.mscale_all_dim else attn_factor
     elif cfg.scaling_type == "linear":
         inv_freq = inv_freq / cfg.scaling_factor
+    elif cfg.scaling_type == "llama3":
+        inv_freq = llama3_inv_freq(inv_freq, cfg)
     t = np.arange(cfg.max_position, dtype=np.float64)
     freqs = np.outer(t, inv_freq)
     cos = torch.from_numpy((np.cos(freqs) * attn_factor).astype(np.float32))
@@ -108,6 +130,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *,
         x2 = xf[..., half:]
         out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def gather_rope(cos: torch.Tensor, sin: torch.Tensor,
+                positions: torch.Tensor):
+    """The rows of the tables at ``positions`` [...]: (cos, sin) [...,
+    dim // 2] (ktransformers_tpu/ops/rope.py:gather_rope)."""
+    return cos[positions], sin[positions]
 
 
 def rope_rotation_matrix(cos: torch.Tensor, sin: torch.Tensor,

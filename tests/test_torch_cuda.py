@@ -597,19 +597,21 @@ def _gqa_pool(rng, b, pmax, page, dtype, live, hkv=2):
 @pytest.mark.parametrize("window", [0, 40])
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 1e-2)])
-def test_gqa_paged_decode(cuda, page, pmax, window, dtype, tol):
+@pytest.mark.parametrize("g", [4, 12, 16])
+def test_gqa_paged_decode(cuda, page, pmax, window, dtype, tol, g):
     """Lengths 1, one page, one page + 1, all pages (current token
     included), and across the kernel's 256-key pieces where the pool holds
     more than one (pools of 512 and 640 keys: 2 and 3 pieces merged by its
-    second launch); 8 query heads over 2 KV heads; with a window only the
-    last ``window`` keys count. Every row the kernel must not read is NaN."""
+    second launch); 4, 12 (GLM-4.5-Air) and 16 query heads a KV head over 2
+    KV heads; with a window only the last ``window`` keys count. Every row
+    the kernel must not read is NaN."""
     rng = np.random.default_rng(page + window)
     lens = [1, page, page + 1, page * pmax]
     if page * pmax > 256:
         lens += [256, 257, page * pmax - 1]
     b = len(lens)
     k, v, tables = _gqa_pool(rng, b, pmax, page, dtype, lens)
-    q = _x(rng, b, 8, 128).to(dtype)
+    q = _x(rng, b, 2 * g, 128).to(dtype)
     lengths = torch.tensor(lens, dtype=torch.int32)
     args = (q, k, v, tables, lengths)
     out = _counted("gqa_paged_decode", lambda: PA.gqa_paged_decode(
@@ -653,8 +655,8 @@ def test_gqa_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     k, v, tables = _gqa_pool(rng, 1, 2, 8, torch.float32, [3], hkv=1)
     lengths = torch.tensor([3], dtype=torch.int32)
     on = lambda *ts: [t.to(cuda) for t in ts]  # noqa: E731
-    with pytest.raises(ValueError, match="at most 8"):
-        PA.gqa_paged_decode(*on(_x(rng, 1, 16, 128), k, v, tables, lengths),
+    with pytest.raises(ValueError, match="at most 16"):
+        PA.gqa_paged_decode(*on(_x(rng, 1, 32, 128), k, v, tables, lengths),
                             0.1)
     with pytest.raises(ValueError, match="D=128"):
         PA.gqa_paged_decode(*on(_x(rng, 1, 4, 64), k[..., :64].contiguous(),
@@ -1506,13 +1508,13 @@ def _gqa_prefill_case(rng, page, g, s, olds, valids, hkv=2):
 
 
 @pytest.mark.parametrize("window", [0, 20, 512])
-@pytest.mark.parametrize("g", [1, 4, 6, 7, 8])
+@pytest.mark.parametrize("g", [1, 4, 6, 7, 8, 12])
 @pytest.mark.parametrize("page", [16, 64, 128])
 def test_gqa_prefill_mma(cuda, page, g, window):
     """gqa_prefill_mma_kernel through gqa_paged_prefill (bf16) against the
     plain version: G = 1, 4, 6 and 7 (16 rows and the 64- / 128-row blocks
-    not a multiple of it: Qwen2-57B-A14B's 28 over 4), 8 query heads a KV
-    head; window 0, 20, 512; old lengths 0, 1, on and around a
+    not a multiple of it: Qwen2-57B-A14B's 28 over 4), 8 and 12
+    (GLM-4.5-Air's 96 over 8) query heads a KV head; window 0, 20, 512; old lengths 0, 1, on and around a
     page, a 64-key tile and 2048 - S, valid < S and == S (S = 100, not a
     multiple of 16), an empty chunk on an empty cache (zeros); every pool
     row past the live length NaN. Padding rows (s >= valid) are compared
@@ -1594,13 +1596,13 @@ GQA_DECODE_LENS = [0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1000, 2047,
 
 
 @pytest.mark.parametrize("window", [0, 20, 512])
-@pytest.mark.parametrize("g", [1, 4, 6, 7, 8, 16])
+@pytest.mark.parametrize("g", [1, 4, 6, 7, 8, 12, 16])
 @pytest.mark.parametrize("page", [16, 64, 128])
 def test_gqa_decode_split(cuda, page, g, window):
     """gqa_decode_split_kernel through gqa_paged_decode (bf16) against the
     plain version: page 16 / 64 / 128 over 2048 positions, G = 1, 4, 6, 7
-    (Qwen2-57B-A14B), 8 (Qwen3) and 16 query heads a KV head (one mma row
-    group, rows past G zero and never stored), window 0, 20 (fewer keys
+    (Qwen2-57B-A14B), 8 (Qwen3), 12 (GLM-4.5-Air) and 16 query heads a KV
+    head (one mma row group, rows past G zero and never stored), window 0, 20 (fewer keys
     than a split's least) and 512; lengths 0 (zeros), 1, on and around
     16-key units, 64-key tiles and pages, 1000, 2047 and 2048; an inactive
     batch row; every pool row no sequence owns NaN, and the split partials
@@ -1644,19 +1646,19 @@ def test_gqa_decode_split_plans(cuda, splits, window, monkeypatch):
         assert _rel(out[i], ref[i]) <= 1e-2, i
 
 
-@pytest.mark.parametrize("h", [32, 28])
-def test_gqa_qwen_widths(cuda, h):
-    """Both kernels at the Qwen widths, at the plans their wrappers pick:
-    Qwen3-30B-A3B's 32 and Qwen2-57B-A14B's 28 query heads over 4 KV heads
-    of 128, page 64; the serving batch of 8 at decode (lengths 0, 1, on
+@pytest.mark.parametrize("h, hkv", [(32, 4), (28, 4), (96, 8)])
+def test_gqa_qwen_widths(cuda, h, hkv):
+    """Both kernels at the Qwen and GLM widths, at the plans their wrappers
+    pick: Qwen3-30B-A3B's 32 and Qwen2-57B-A14B's 28 query heads over 4 KV
+    heads of 128 and GLM-4.5-Air's 96 over 8 (G = 12), page 64; the serving batch of 8 at decode (lengths 0, 1, on
     and around pages, 2048) and a mixed step's chunk of 256 after 256 and
     two chunks (one fresh, one continued and padded) at prefill; every
     pool row no sequence owns NaN; each row within 1e-2 of its plain
     version's, the launches counted on the redesigned kernels."""
     rng = np.random.default_rng(h)
-    g = h // 4
+    g = h // hkv
     lens = [0, 1, 63, 64, 65, 700, 2047]
-    args = _gqa_decode_case(rng, 64, g, lens, hkv=4)
+    args = _gqa_decode_case(rng, 64, g, lens, hkv=hkv)
     split = ROUTED_LAUNCHES["gqa_decode_split_kernel"]
     out = PA.gqa_paged_decode(*[t.to(cuda) for t in args], 0.088)
     assert ROUTED_LAUNCHES["gqa_decode_split_kernel"] == split + 1
@@ -1665,7 +1667,7 @@ def test_gqa_qwen_widths(cuda, h):
     for i in range(1, len(lens) + 1):
         assert _rel(out[i], ref[i]) <= 1e-2, i
     for olds, valids in (([256], [256]), ([0, 256], [256, 200])):
-        pargs = _gqa_prefill_case(rng, 64, g, 256, olds, valids, hkv=4)
+        pargs = _gqa_prefill_case(rng, 64, g, 256, olds, valids, hkv=hkv)
         mma = ROUTED_LAUNCHES["gqa_prefill_mma_kernel"]
         out = PA.gqa_paged_prefill(*[t.to(cuda) for t in pargs], 0.088)
         assert ROUTED_LAUNCHES["gqa_prefill_mma_kernel"] == mma + 1

@@ -241,9 +241,11 @@ def _same_fields(t, j, path, skip):
 @pytest.mark.parametrize("arch", ["llama", "qwen2moe", "qwen3moe", "qwen2",
                                   "qwen3", "glm4moe"])
 def test_spec_from_gguf_fields_names_what_is_missing(arch):
-    """The architectures whose HF translator the port lacks raise naming
-    ROADMAP item 6; qwen2moe and qwen3moe, ported, give the JAX package's
-    spec field by field; an unknown one asks for a config."""
+    """GGUF files of the dense and GLM architectures (llama, qwen2, qwen3,
+    glm4moe), whose HF translators the port has, raise naming ROADMAP item
+    5b (llama.cpp permutes a llama file's attn_q / attn_k rows, which
+    neither package undoes); qwen2moe and qwen3moe, ported, give the JAX
+    package's spec field by field; an unknown one asks for a config."""
     from ktransformers_tpu.models.spec import spec_from_gguf_fields as jspec
 
     from ktransformers_tpu_torch.models.spec import spec_from_gguf_fields
@@ -254,7 +256,7 @@ def test_spec_from_gguf_fields_names_what_is_missing(arch):
         assert t.model_type == {"qwen2moe": "qwen2_moe",
                                 "qwen3moe": "qwen3_moe"}[arch]
     else:
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(NotImplementedError, match="item 5b"):
             spec_from_gguf_fields(_fields(arch))
     with pytest.raises(ValueError, match="provide --config"):
         spec_from_gguf_fields({"general.architecture": "mamba"})

@@ -58,11 +58,13 @@ LENS = [0, 1, 15, 16, 17, 63, 64, 65, 130, 200, 256]
 
 def test_route_table():
     """bf16 calls take the split kernel; float32 calls keep the first
-    version (and its combine launch), whose card tests hold 1e-5."""
+    version (and its combine launch), whose card tests hold 1e-5; both take
+    up to 16 query heads a KV head (the first version 8 until GLM-4.5-Air's
+    12 needed more)."""
     assert PA.gqa_decode_route(torch.bfloat16) == "split"
     assert PA.gqa_decode_route(torch.float32) == "first"
     assert PA.GQA_DECODE_KERNEL_NAMES == {"split": "gqa_decode_split_kernel"}
-    assert PA.GQA_SPLIT_GMAX == 16 and PA.GQA_KERNEL_GMAX == 8
+    assert PA.GQA_SPLIT_GMAX == 16 and PA.GQA_KERNEL_GMAX == 16
 
 
 # --------------------------------------------------------------- split plan
@@ -218,12 +220,13 @@ def decode_walk(q, k_pages, v_pages, tables, lengths, scale, window, splits,
 
 @pytest.mark.parametrize("plan", ["one", "planned"])
 @pytest.mark.parametrize("window", [0, 20])
-@pytest.mark.parametrize("g", [1, 4, 6, 7, 8, 16])
+@pytest.mark.parametrize("g", [1, 4, 6, 7, 8, 12, 16])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_walk_matches_pallas(g, window, plan, bf16):
     """Lengths 0 (zeros), 1, on and around 16-key units and 64-key tiles,
     130, 200 and 256 (the whole pool) and an inactive batch row over a
-    pool of page 16; G = 1, 4, 6, 7, 8 and 16 query heads a KV head; window 0
+    pool of page 16; G = 1, 4, 6, 7, 8, 12 (GLM-4.5-Air) and 16 query heads
+    a KV head; window 0
     and 20 (one live split, the others without a key); one split and the
     plan's four. The rows with a key against the Pallas kernel, all of
     them against the port's plain version."""

@@ -169,10 +169,24 @@ def test_spec_matches_jax():
 ])
 def test_spec_refuses_unported_gqa_knobs(change):
     """Mixtral with a knob of another GQA family raises (q / k norm,
-    gated output, partial rotary, a sliding window, dynamic rope scaling,
-    tied embeddings, another activation) and so do the GQA families the
-    port does not run; projection biases (attention_bias) are ported and
-    Qwen3-MoE is (tests/test_torch_qwen_moe.py)."""
+    gated output, a sliding window, dynamic rope scaling, another
+    activation) and so do the GQA families the port does not run;
+    projection biases (attention_bias) are ported and Qwen3-MoE is
+    (tests/test_torch_qwen_moe.py). Partial rotary, tied embeddings and
+    the llama family, which GLM4-MoE and the dense families need, build:
+    rope over the leading half of each head, no lm_head, a dense model."""
+    if "partial_rotary_factor" in change:
+        spec = spec_from_hf_config(dict(MIXTRAL_8X7B, **change))
+        assert spec.attention.rotary_dim == spec.rope.dim == 64
+        return
+    if "tie_word_embeddings" in change:
+        assert spec_from_hf_config(dict(MIXTRAL_8X7B, **change)) \
+            .tie_word_embeddings
+        return
+    if change.get("model_type") == "llama":
+        spec = spec_from_hf_config(dict(MIXTRAL_8X7B, **change))
+        assert spec.moe is None and spec.model_type == "llama"
+        return
     with pytest.raises(ValueError):
         spec_from_hf_config(dict(MIXTRAL_8X7B, **change))
 

@@ -1,7 +1,7 @@
 """The port's small ops and spec against the JAX package's on the same
-numpy inputs: rms_norm, activations, rope tables (YaRN included),
-apply_rope, rope_rotation_matrix, route, absorbed MLA attention and the
-deepseek_v2 spec translator.
+numpy inputs: rms_norm, layer_norm, activations, rope tables (YaRN
+included), gather_rope, apply_rope, rope_rotation_matrix, route, absorbed
+MLA attention and the deepseek_v2 spec translator.
 
 Tolerances: routing ids are compared exactly on inputs without ties
 (continuous random logits; ties have probability zero); the rope tables
@@ -46,6 +46,35 @@ def test_rms_norm():
     x, w = _f(rng, 3, 5, 64), _f(rng, 64)
     _close(tn.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-6),
            jn.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-6))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_layer_norm(bias):
+    """layer_norm with and without a bias, off-centre inputs (mean 3), the
+    JAX package's default eps and another."""
+    rng = np.random.default_rng(10)
+    x, w, b = _f(rng, 3, 5, 64) + 3.0, _f(rng, 64), _f(rng, 64)
+    for eps in (1e-5, 1e-2):
+        _close(tn.layer_norm(torch.from_numpy(x), torch.from_numpy(w),
+                             torch.from_numpy(b) if bias else None, eps),
+               jn.layer_norm(jnp.asarray(x), jnp.asarray(w),
+                             jnp.asarray(b) if bias else None, eps),
+               rtol=1e-5, atol=1e-5)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    assert tn.layer_norm(xb, torch.from_numpy(w)).dtype == torch.bfloat16
+
+
+def test_gather_rope():
+    """The rows of both tables at positions of any shape, bit-equal."""
+    cfg = dict(dim=32, max_position=64)
+    tc, ts = tr.precompute_rope_tables(tr.RopeConfig(**cfg), "cpu")
+    jc, js = jr.precompute_rope_tables(jr.RopeConfig(**cfg))
+    pos = np.random.default_rng(11).integers(0, 64, (3, 7))
+    (a, b), (c, d) = (tr.gather_rope(tc, ts, torch.from_numpy(pos)),
+                      jr.gather_rope(jc, js, jnp.asarray(pos)))
+    assert a.shape == (3, 7, 16)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(c))
+    np.testing.assert_array_equal(b.numpy(), np.asarray(d))
 
 
 @pytest.mark.parametrize("kind", ["silu", "gelu", "relu", "swigluoai"])

@@ -338,13 +338,14 @@ def gqa_prefill_walk(q, k_pages, v_pages, tables, lengths, valid, scale,
 
 @pytest.mark.parametrize("rows_block", [64, 128])
 @pytest.mark.parametrize("window", [0, 20])
-@pytest.mark.parametrize("g", [1, 4, 6, 7, 8])
+@pytest.mark.parametrize("g", [1, 4, 6, 7, 8, 12])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_gqa_prefill_walk_matches_pallas(g, window, rows_block, bf16):
     """Chunks of S = 40 after old lengths 0, mid-page, page-aligned and
     150 (a window start past the first key tile), valid < S and == S;
     G = 6 and 7 (Qwen2-57B-A14B) leave 16-row groups and 64- / 128-row
-    blocks that straddle positions, G = 8 is Qwen3's. Live rows against
+    blocks that straddle positions, G = 8 is Qwen3's, G = 12 GLM-4.5-Air's
+    (96 over 8). Live rows against
     the Pallas kernel; every row, padding rows included, against the
     port's plain version (with a window the two packages differ on a
     padding row whose window holds no key: zeros in the port)."""

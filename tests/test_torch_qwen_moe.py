@@ -123,12 +123,23 @@ def test_spec_matches_jax(name):
     dict(hidden_act="gelu"), dict(use_qk_norm=True),
 ])
 def test_spec_refuses_unported_knobs(family, change):
-    """Partial rotary, a sliding window in use, gated output, tied
-    embeddings and another activation raise; so does a q / k norm asked of
-    Qwen2 (Qwen3 applies its own)."""
+    """A sliding window in use, gated output and another activation raise;
+    so does a q / k norm asked of Qwen2 (Qwen3 applies its own). Partial
+    rotary and tied embeddings, which every GQA family takes (GLM4-MoE and
+    the dense families need them), build: rope over the leading half of
+    each head (tables sized to it), no lm_head."""
     if family == "qwen3_moe" and "use_qk_norm" in change:
         assert spec_from_hf_config(dict(TINY[family], **change)).attention \
             .qk_norm
+        return
+    if "partial_rotary_factor" in change:
+        spec = spec_from_hf_config(dict(TINY[family], **change))
+        hd = spec.attention.head_dim
+        assert spec.attention.rotary_dim == spec.rope.dim == hd // 2
+        return
+    if "tie_word_embeddings" in change:
+        assert spec_from_hf_config(dict(TINY[family], **change)) \
+            .tie_word_embeddings
         return
     with pytest.raises(ValueError):
         spec_from_hf_config(dict(TINY[family], **change))

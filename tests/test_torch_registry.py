@@ -1,7 +1,12 @@
 """The port's model registry against the JAX package's: every preset
 listed with the same config, the same weight bytes by role at every quant
-kind, the DeepSeek / Kimi / Qwen-MoE / Mixtral presets translated to specs, and the
-families the port cannot translate yet refused with the ROADMAP item."""
+kind, the DeepSeek / Kimi / Qwen-MoE / Mixtral / Llama / GLM presets
+translated to specs (llama-3.1-8b's and glm-4.5-air's equal to the JAX
+package's field by field but for the llama3 rope scaling, which the port
+takes from HF), and the families the port cannot translate yet refused with
+the ROADMAP item."""
+
+import dataclasses
 
 import pytest
 
@@ -12,7 +17,7 @@ BYTE_FIELDS = ("embed_gb", "attn_gb", "dense_mlp_gb", "experts_gb",
                "shared_gb", "total_gb", "active_gb_per_token")
 PORTED = ("deepseek-v2-lite", "deepseek-v2", "deepseek-v3", "deepseek-r1",
           "kimi-k2", "qwen3-235b-a22b", "qwen3-30b-a3b", "qwen2-57b-a14b",
-          "mixtral-8x7b")
+          "mixtral-8x7b", "llama-3.1-8b", "glm-4.5-air")
 
 
 def test_every_preset_lists():
@@ -54,7 +59,7 @@ def test_ported_presets_translate(name):
     spec = treg.REGISTRY[name].spec()
     shown = treg.show_model(name)
     assert shown["layers"] == spec.num_layers
-    assert shown["experts"] == spec.moe.num_experts
+    assert shown["experts"] == (spec.moe.num_experts if spec.moe else 0)
     assert shown["estimate"] == treg.estimate_bytes(
         treg.REGISTRY[name].config, shown["recommended"]["quant"],
         shown["recommended"]["moe_quant"])
@@ -76,3 +81,48 @@ def test_other_families_raise_naming_item_6(name):
     # they still list and estimate
     assert treg.estimate_bytes(treg.REGISTRY[name].config, "int8",
                                "int4_g")["total_gb"] > 0
+
+
+def _fields(t, j, path=""):
+    """(path, port value, JAX value) of every field of the port's spec
+    dataclass t, recursively, against the JAX spec's attribute of that
+    name."""
+    for f in dataclasses.fields(t):
+        tv, jv = getattr(t, f.name), getattr(j, f.name)
+        if dataclasses.is_dataclass(tv):
+            yield from _fields(tv, jv, path + f.name + ".")
+        else:
+            yield path + f.name, tv, jv
+
+
+@pytest.mark.parametrize("name, differ", [
+    # HF's llama3 rope: its type, and high_freq_factor 4 in beta_fast
+    # (the JAX translator drops the scaling: no type, YaRN's default 32)
+    ("llama-3.1-8b", {"rope.scaling_type": ("llama3", None),
+                      "rope.beta_fast": (4.0, 32.0)}),
+    ("glm-4.5-air", {}),
+])
+def test_dense_and_glm_specs_match_jax(name, differ):
+    """The registry's Llama-3.1-8B and GLM-4.5-Air specs equal the JAX
+    registry's field by field, apart from the named rope difference;
+    GLM's partial rotary (64 of 128), q / k norm, G = 96 / 8 and sigmoid
+    group router, Llama's dense layers; both estimates as the JAX
+    package's."""
+    t, j = treg.REGISTRY[name].spec(), jreg.REGISTRY[name].spec()
+    got = {p: (tv, jv) for p, tv, jv in _fields(t, j) if tv != jv}
+    assert got == differ
+    a = t.attention
+    if name == "glm-4.5-air":
+        assert (a.rotary_dim, t.rope.dim, a.qk_norm) == (64, 64, True)
+        assert a.num_heads // a.num_kv_heads == 12
+        assert t.moe.gate.group_method == "group_top2sum"
+        assert t.moe.gate.has_correction_bias and t.moe.first_k_dense == 1
+        assert t.moe.shared_expert_intermediate_size == 1408
+    else:
+        assert t.moe is None and a.rotary_dim == t.rope.dim == 128
+        assert t.rope.scaling_factor == 8.0 and t.rope.beta_slow == 1.0
+    e = treg.REGISTRY[name]
+    est = treg.estimate_bytes(e.config, e.quant, e.moe_quant)
+    jest = jreg.estimate_bytes(j, e.quant, e.moe_quant)
+    assert {f: est[f] for f in BYTE_FIELDS} == {f: jest[f]
+                                                for f in BYTE_FIELDS}

@@ -98,8 +98,8 @@ Phases (any failure exits non-zero before the final line):
             parity of its full width cut to 2 layers with the served kinds
             (int8 attention, int4_g W4A8 experts), held by moe_parity (the
             W4A8 variant's rule of phase 4, and a row past NEAR_TIE only
-            where a route it sees differs between the devices); then all
-            32 layers in a Generator answering 2
+            where a route it sees differs between the devices); then
+            MIXTRAL_LAYERS = 16 of its 32 layers in a Generator answering 2
             requests of 512 + 32 tokens, launches per step held to the
             counts the code implies, a ServeEngine answering the 8 requests
             of phase 6 at depth 3 with the same checks, and the profiles of
@@ -146,10 +146,10 @@ Phases (any failure exits non-zero before the final line):
             V3_ENGINE_STEP_LAUNCHES; then the same 6 layers with int8
             weights: one Generator request and the ServeEngine's 8 held
             to the Generator at NEAR_TIE;
-16. gguf:   DeepSeek-V2-Lite's published shape cut to 4 layers written as a
+16. gguf:   DeepSeek-V2-Lite's published shape cut to 3 layers written as a
             GGUF file (Q4_K matmuls and lm_head, Q4_1 where the input
             width is no multiple of 256, one layer's experts' down in
-            Q8_0, F16 embedding; ~1.6 GB in a temporary directory) with
+            Q8_0, F16 embedding; ~1.4 GB in a temporary directory) with
             the port's write_gguf, read back by spec_from_gguf_fields and
             GGUFProvider + build_params(exact_gguf=True), a sample
             dequantized against decode_ggml, prepared for W4A8 (every W4A8
@@ -187,13 +187,43 @@ Phases (any failure exits non-zero before the final line):
             weight at M = 1, 8, 256, GLM's experts on rows 7 and 8, row 3 on
             GLM's shared expert and dense MLP as int4_g weights, rows 13 and
             15 at G = 12); 2-layer parity card vs CPU (Llama int8 held to
-            FORMAT_TOL, GLM by moe_parity); then Llama-3.1-8B at all 32
-            layers (int8) and GLM-4.5-Air cut to GLM_LAYERS = 4 (the dense
+            FORMAT_TOL, GLM by moe_parity); then Llama-3.1-8B cut to
+            LLAMA_LAYERS = 16 of its 32 layers (int8) and GLM-4.5-Air cut
+            to GLM_LAYERS = 4 (the dense
             layer and 3 MoE layers; int8 with int4_g experts, the published
             q / k / v biases), each in a Generator answering 2 requests of
             512 + 32 tokens and a ServeEngine answering the 8 requests of
             phase 6 at depth 3, profiled, launches per step held to
-            LLAMA_* / GLM_* (dense_glm_run).
+            LLAMA_* / GLM_* (dense_glm_run);
+20. hybrid and window: rows 13 and 15 at head dim 256 (Qwen3-Next's 16
+            query heads over 2 KV heads: decode B = 1 and 8 at 512 and 4,608
+            keys, a 256-token chunk after 256; bf16 and float32) and at
+            SmallThinker's G = 7 past its 4,096-key window (decode at 4,097
+            to 8,200 keys, chunks after 4,352 and 7,944; the keys before
+            each window NaN), library SDPA on a gathered copy; parity card
+            vs CPU of SmallThinker-21B at 2 layers and Qwen3-Next-80B-A3B at
+            4 (3 GatedDeltaNet + 1 gated full attention) with the served
+            kinds by moe_parity; on float32 weights at 4 layers (one NoPE
+            layer) a ServeEngine against the single-user Generator token for
+            token up to a float32 near-tie, a 4,608-token prompt past the
+            window included; then SmallThinker cut to SMALLTHINKER_LAYERS
+            answering a 4,608-token and a 512-token request single-user and
+            the 8 requests of phase 6 with request 0 the 4,608-token prompt
+            through the ServeEngine (its random weights grow any rounding
+            difference, so a request may leave the single-user tokens only
+            at a near-tie or after a reroute, and the engine's model step
+            with the single-user routes forced on it stays within twice
+            what bf16 rounding moves the single-user step, up to there and
+            over request 0: reroute_check), and
+            Qwen3-Next
+            cut to QNEXT_LAYERS single-user and through the ServeEngine at
+            batch 8 (no prefix cache, no fused mixed step, request 4 on
+            request 0's reused slot, its state zeroed); profiled, launches
+            per step held to SMALLTHINKER_* / QNEXT_*, the GatedDeltaNet
+            recurrence's share of Qwen3-Next's prefill chunk recorded
+            (hybrid_window_run).
+The parity phases draw their 2-layer weights on the card and copy them to
+the host (card_drawn), where the host took 7-9 s to draw each.
 Each phase's seconds are logged and kept in chip_smoke.json (phase_s).
 Prints a kernels JSON line (the eighteen wrappers, then the thirteen
 redesigned kernels, whose launches are those of their wrappers' calls
@@ -202,7 +232,9 @@ that took them; the MLA kernels must have launched on the single-user
 parameter sets, mla_decode_split_kernel<false> on the int8 single-user
 path (its last request decodes with the fused decode off), the FFN's
 one-row gate_up on both W4A8 decode paths and Qwen3's, the GQA kernels on
-Mixtral's, both Qwen models', Llama's and GLM's paged paths, the MLA
+Mixtral's, both Qwen models', Llama's, GLM's, SmallThinker's and
+Qwen3-Next's paged paths, the fused FFN's kernels on both of the last two
+models' paths, the MLA
 kernels and both W4A8 matmul kernels on DeepSeek-V3's two paths and the W4A8
 matmul kernels on Qwen2's and GLM's, row 9 and both its redesigned kernels
 on Llama's; w4a8_ffn_gemv_kernel's entry gives the gate_up half's times
@@ -1223,19 +1255,15 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
     Row 8 takes w4a8_mma_kernel, timed beside the first version; its
     library yardstick is torch._grouped_mm on the bf16-dequantized experts
     (grouped_mm). Row 7 has none: no single PyTorch call gathers an expert
-    per row. Rows 13 and 15 (GQA paged attention, 32 query
-    heads over 8 KV heads of 128, page 64, 32 pages a query; bf16 decode
-    takes gqa_decode_split_kernel and bf16 prefill gqa_prefill_mma_kernel,
-    each with its first version timed beside it):
-    every pool row the kernels must not read is NaN; every output row (sequence, head,
+    per row. Rows 13 and 15 (GQA paged attention, 32 query heads over 8
+    KV heads of 128, page 64, bf16) on GQA_SERVE_CASES by gqa_cases_checks
+    (decode on gqa_decode_split_kernel, prefill on gqa_prefill_mma_kernel,
+    each with its first version timed beside it): every pool row the
+    kernels must not read is NaN; every output row (sequence, head,
     position) is held to 1e-2 of its own largest value, so that a short
     sequence's large outputs set no scale for a long one's (one bf16 step
-    is at most 2^-7 of the row's largest value). Bound: the bytes of the live rows
-    (k and v), queries and output against the flops of the live (query,
-    key) pairs over the bf16 peak. Library yardstick: gather the pages, then
-    F.scaled_dot_product_attention(..., enable_gqa=True) with the mask, on a
-    NaN-free copy of the pools (gather time included; never on the path;
-    gqa_paged_checks)."""
+    is at most 2^-7 of the row's largest value); their first decode and
+    prefill rows are the kernels line's entries."""
     from ktransformers_tpu_torch.quant.formats import dequantize
 
     dev = torch.device("cuda")
@@ -1292,119 +1320,144 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
                              main=(what == "gate_up" and tokens == 256))
         del wt, wdq
 
-    gqa_paged_checks(check, rn, 32, 8, main=True)
+    gqa_cases_checks(check, rn, 32, 8, 128, GQA_SERVE_CASES, "mixtral ",
+                     main=True)
 
 
-def gqa_paged_checks(check, rn, h: int, hkv: int, main: bool = False,
-                     tag: str = "") -> None:
-    """Rows 13 and 15 (GQA paged attention) at ``h`` query heads over
-    ``hkv`` KV heads of 128, page 64, 32 pages a query, bf16 (decode on
-    gqa_decode_split_kernel, prefill on gqa_prefill_mma_kernel, each with
-    its first version timed beside it): a decode batch of 8 with lengths
-    on and around page boundaries at window 0 and 512, and prefill chunks
-    (a mixed step's chunk after 256 tokens; a fresh full chunk beside a
-    continued padded one). Every pool row the kernels must not read is
-    NaN; every output row (sequence, head, position) is held to 1e-2 of
-    its own largest value (see mixtral_kernel_checks); ``main`` makes the
-    first decode and prefill rows the kernels line's entries."""
+# rows 13 and 15 at a served GQA shape (gqa_cases_checks, head dim 128): a
+# decode batch of 8 with lengths on and around page boundaries at window 0
+# and 512, and prefill chunks (a mixed step's chunk after 256 tokens; a
+# fresh full chunk beside a continued padded one)
+GQA_SERVE_LENGTHS = [1, 64, 65, 512, 513, 1000, 2047, 2048]
+GQA_SERVE_CASES = (("decode", GQA_SERVE_LENGTHS, 0),
+                   ("decode", GQA_SERVE_LENGTHS, 512),
+                   ("prefill", [256], [256], 0),
+                   ("prefill", [0, 256], [256, 200], 0))
+
+
+def gqa_cases_checks(check, rn, h: int, hkv: int, hd: int, cases, tag: str,
+                     dtype=torch.bfloat16, main: bool = False) -> None:
+    """Rows 13 and 15 at ``h`` query heads over ``hkv`` KV heads of ``hd``,
+    page 64, on shuffled page tables: each case ("decode", lengths,
+    window) or ("prefill", old lengths, valid, window) against its plain
+    version, every row held to 1e-2 (bf16) or 1e-5 (float32) of its own
+    largest value. Every pool row the kernels must not read is NaN: rows at
+    or past a sequence's live length, and (K rows, which the plain version
+    masks by position) the keys before a decode's window or before the
+    first query's window of a chunk. bf16 calls take the redesigned
+    kernels, each first version timed beside them. Bound: the K and V
+    rows in the windows (each read once) plus q and the output, against
+    the bf16 operations of the two products. Library: SDPA on a gathered
+    contiguous copy (NaN zeroed), gathered before the timing. ``main``
+    makes the first decode and the first prefill case the kernels line's
+    entries (the wrappers' and the redesigned kernels')."""
     import torch.nn.functional as tF
 
     from ktransformers_tpu_torch.ops.cuda import paged_attention as PA
 
     dev = torch.device("cuda")
-    hd, page, pmax = 128, 64, 32
+    page = 64
     scale = hd ** -0.5
-    bf = torch.bfloat16
+    f32 = dtype == torch.float32
+    tol = 1e-5 if f32 else 1e-2
+    entered = set()  # the kinds whose kernels-line entry is taken
 
-    def pool(live):
+    def pool(live, hidden):
+        """Pools and tables over sequences of ``live`` keys, K rows below
+        ``hidden`` (per sequence) NaN as well."""
         b = len(live)
+        pmax = -(-max(live) // page) + 1
         n = b * pmax + 1
         perm = torch.randperm(n - 1, generator=torch.Generator().manual_seed(
-            b)) + 1
+            b * 7 + hd)) + 1
         tables = perm[: b * pmax].reshape(b, pmax).to(torch.int32).to(dev)
-        k = torch.full((n, page, hkv, hd), float("nan"), dtype=bf, device=dev)
+        k = torch.full((n, page, hkv, hd), float("nan"), dtype=dtype,
+                       device=dev)
         v = torch.full_like(k, float("nan"))
         for i, ln in enumerate(live):
             pos = torch.arange(ln, device=dev)
             rows_ = tables[i].long()[pos // page] * page + pos % page
-            k.view(-1, hkv, hd)[rows_] = rn(ln, hkv, hd)
-            v.view(-1, hkv, hd)[rows_] = rn(ln, hkv, hd)
+            k.view(-1, hkv, hd)[rows_] = rn(ln, hkv, hd).to(dtype)
+            v.view(-1, hkv, hd)[rows_] = rn(ln, hkv, hd).to(dtype)
+            k.view(-1, hkv, hd)[rows_[: hidden[i]]] = float("nan")
         return k, v, tables
 
-    def sdpa(q, k0, v0, tables, mask):
-        kg = PA.gather_pages(k0, tables).transpose(1, 2)
-        vg = PA.gather_pages(v0, tables).transpose(1, 2)
-        return tF.scaled_dot_product_attention(q, kg, vg, attn_mask=mask,
-                                               scale=scale, enable_gqa=True)
+    def gathered(k, v, tables):
+        return (PA.gather_pages(torch.nan_to_num(k), tables).transpose(1, 2),
+                PA.gather_pages(torch.nan_to_num(v), tables).transpose(1, 2))
 
-    # decode: B = 8, lengths on and around page boundaries, window 0 / 512
-    lens = [1, 64, 65, 512, 513, 1000, 2047, 2048]
-    k, v, tables = pool(lens)
-    k0, v0 = torch.nan_to_num(k), torch.nan_to_num(v)
-    q = rn(8, h, hd)
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    kpos = torch.arange(page * pmax, device=dev)[None]
-    for window in (0, 512):
-        args = (q, k, v, tables, lengths, scale)
-        ok = kpos < lengths[:, None]
-        if window:
-            ok = ok & (kpos >= lengths[:, None] - window)
-        seen = sum(min(n, window) if window else n for n in lens)
-        check("gqa_paged_decode",
-              f"{tag}serve decode B=8 H={h} Hkv={hkv} page=64 lengths "
-              f"1..2048 window={window}", 1e-2,
-              lambda: PA.gqa_paged_decode(*args, window=window),
-              lambda: PA.gqa_paged_decode_ref(*args, window=window),
-              lambda: PA.gqa_decode_launcher(*args, window=window),
-              seen * hkv * hd * 2 * 2 + nbytes(q) * 2,
-              2 * 2 * h * seen * hd, BF16_FLOPS_PER_S,
-              library=lambda: sdpa(q[:, :, None], k0, v0, tables,
-                                   ok[:, None, None]),
-              main=main and window == 0, kernel_main=main and window == 0,
-              per_row=True,
-              **routed(GQA_DECODE_ROUTES, PA.gqa_decode_route(bf),
-                       lambda: PA.gqa_decode_launcher(*args, window=window,
-                                                      kernel="first")))
-    del k, v, k0, v0
+    for case in cases:
+        entry = main and case[0] not in entered
+        entered.add(case[0])
+        if case[0] == "decode":
+            _, lens, window = case
+            seen = [min(n, window) if window else n for n in lens]
+            k, v, tables = pool(lens, [n - s for n, s in zip(lens, seen)])
+            b = len(lens)
+            q = rn(b, h, hd).to(dtype)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            args = (q, k, v, tables, lengths, scale)
+            kg, vg = gathered(k, v, tables)
+            kpos = torch.arange(kg.shape[2], device=dev)[None]
+            ok = kpos < lengths[:, None]
+            if window:
+                ok = ok & (kpos >= lengths[:, None] - window)
+            route = PA.gqa_decode_route(dtype)
+            check("gqa_paged_decode",
+                  f"{tag}decode B={b} H={h} Hkv={hkv} D={hd} {dtype} "
+                  f"lengths {lens} window={window}", tol,
+                  lambda: PA.gqa_paged_decode(*args, window=window),
+                  lambda: PA.gqa_paged_decode_ref(*args, window=window),
+                  lambda: PA.gqa_decode_launcher(*args, window=window),
+                  sum(seen) * hkv * hd * 2 * k.element_size()
+                  + nbytes(q) * 2, 2 * 2 * h * sum(seen) * hd,
+                  BF16_FLOPS_PER_S,
+                  library=lambda: tF.scaled_dot_product_attention(
+                      q[:, :, None], kg, vg, attn_mask=ok[:, None, None],
+                      scale=scale, enable_gqa=True),
+                  per_row=True, plain_iters=2, main=entry, kernel_main=entry,
+                  **routed(GQA_DECODE_ROUTES, route,
+                           lambda: PA.gqa_decode_launcher(
+                               *args, window=window, kernel="first")))
+        else:
+            _, olds, valids, window = case
+            c, s = len(olds), max(valids)
+            live = [o + vl for o, vl in zip(olds, valids)]
+            first = [max(0, o - window + 1) if window else 0 for o in olds]
+            k, v, tables = pool(live, first)
+            q = rn(c, h, s, hd).to(dtype)
+            lengths = torch.tensor(olds, dtype=torch.int32, device=dev)
+            valid = torch.tensor(valids, dtype=torch.int32, device=dev)
+            args = (q, k, v, tables, lengths, valid, scale)
+            kg, vg = gathered(k, v, tables)
+            kp = torch.arange(kg.shape[2], device=dev)[None, None]
+            qpos = lengths[:, None] + torch.arange(s, device=dev)[None]
+            mask = ((kp <= qpos[:, :, None])
+                    & (kp < (lengths + valid)[:, None, None]))
+            if window:
+                mask = mask & (kp > qpos[:, :, None] - window)
+            pairs = sum(min(o + j + 1, window) if window else o + j + 1
+                        for o, vl in zip(olds, valids) for j in range(vl))
+            keys = sum(n - f for n, f in zip(live, first))
+            route = PA.gqa_prefill_route(dtype)
+            check("gqa_paged_prefill",
+                  f"{tag}prefill C={c} S={s} H={h} Hkv={hkv} D={hd} {dtype} "
+                  f"old={olds} valid={valids} window={window}", tol,
+                  lambda: PA.gqa_paged_prefill(*args, window=window),
+                  lambda: PA.gqa_paged_prefill_ref(*args, window=window),
+                  lambda: PA.gqa_prefill_launcher(*args, window=window),
+                  keys * hkv * hd * 2 * k.element_size() + nbytes(q) * 2,
+                  2 * 2 * h * pairs * hd, BF16_FLOPS_PER_S,
+                  library=lambda: tF.scaled_dot_product_attention(
+                      q, kg, vg, attn_mask=mask[:, None], scale=scale,
+                      enable_gqa=True),
+                  per_row=True, plain_iters=2, main=entry, kernel_main=entry,
+                  **routed(GQA_PREFILL_ROUTES, route,
+                           lambda: PA.gqa_prefill_launcher(
+                               *args, window=window, kernel="first")))
+        del k, v, kg, vg
+        torch.cuda.empty_cache()
 
-    # prefill: a mixed step's chunk after 256 tokens, and two chunks (one
-    # fresh and full, one continued and padded)
-    for olds, s, valids, first in (([256], 256, [256], True),
-                                   ([0, 256], 256, [256, 200], False)):
-        c = len(olds)
-        k, v, tables = pool([o + vl for o, vl in zip(olds, valids)])
-        k0, v0 = torch.nan_to_num(k), torch.nan_to_num(v)
-        q = rn(c, h, s, hd)
-        lengths = torch.tensor(olds, dtype=torch.int32, device=dev)
-        valid = torch.tensor(valids, dtype=torch.int32, device=dev)
-        args = (q, k, v, tables, lengths, valid, scale)
-        kp = torch.arange(page * pmax, device=dev)[None, None]
-        qpos = lengths[:, None] + torch.arange(s, device=dev)[None]
-        mask = ((kp <= qpos[:, :, None])
-                & (kp < (lengths + valid)[:, None, None]))[:, None]
-        pairs = sum(vl * o + vl * (vl + 1) // 2
-                    for o, vl in zip(olds, valids))
-        # rows >= valid are padding: they see every live key, in the plain
-        # version as in both kernels, and are compared too
-        check("gqa_paged_prefill",
-              f"{tag}serve prefill C={c} S={s} H={h} Hkv={hkv} old={olds} "
-              f"valid={valids}", 1e-2,
-              lambda: PA.gqa_paged_prefill(*args),
-              lambda: PA.gqa_paged_prefill_ref(*args),
-              lambda: PA.gqa_prefill_launcher(*args),
-              sum(o + vl for o, vl in zip(olds, valids)) * hkv * hd * 2 * 2
-              + nbytes(q) * 2, 2 * 2 * h * pairs * hd, BF16_FLOPS_PER_S,
-              library=lambda: sdpa(q, k0, v0, tables, mask),
-              main=main and first, kernel_main=main and first, plain_iters=3,
-              per_row=True,
-              **routed(GQA_PREFILL_ROUTES,
-                       PA.gqa_prefill_route(torch.bfloat16),
-                       lambda: PA.gqa_prefill_launcher(*args,
-                                                       kernel="first")))
-        out = PA.gqa_paged_prefill(*args)
-        if not bool(torch.isfinite(out.float()).all()):
-            raise AssertionError("gqa_paged_prefill: padding rows not finite")
-        del k, v, k0, v0
 
 
 # ----------------------------------------------------------------- parity
@@ -1412,6 +1465,10 @@ def gqa_paged_checks(check, rn, h: int, hkv: int, main: bool = False,
 PARITY_TOL = 1e-4  # float32 weights: row error as a share of the largest logit
 POOL_TOL = 2e-5  # float32 weights: KV pool error as a share of the largest entry
 NEAR_TIE = 5e-2  # W4A8 weights: top-2 gap below which greedy tokens may differ
+# the engine's model step with the single-user routes forced on it may
+# leave the single-user step by this many times what bf16 rounding moves
+# the single-user step itself (reroute_check)
+SPREAD_FACTOR = 2.0
 # weights of one format through the quant_matmul kernels (no activation
 # requant): row error as a share of the largest logit, as for ``dense``
 FORMAT_TOL = 1e-4
@@ -1419,6 +1476,27 @@ FORMAT_TOL = 1e-4
 # few tokens (its routed experts then take the gathered path, whose plain
 # version reads only the routed experts on the host)
 PARITY_PROMPT = {"v3_w4a8": 8}
+
+
+def card_drawn(spec, prepare: bool = True, seed: int = 5, **kw):
+    """init_params_synthetic(spec, seed, **kw) drawn on the card (the host
+    took 7-9 s for each full-width 2-layer model, the parity phase's
+    largest cost), prepared there (prepare_params) where ``prepare``, and
+    copied to the host: a parity variant's CPU params, the same bits on
+    both devices."""
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.utils.device_prep import (
+        params_to,
+        prepare_params,
+    )
+
+    params = init_params_synthetic(spec, seed=seed, device="cuda", **kw)
+    if prepare:
+        params = prepare_params(params, spec)
+    cpu = params_to(params, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    return cpu
 
 
 def parity_variants():
@@ -1433,18 +1511,14 @@ def parity_variants():
       int8 activation codes and now and then swap two nearly tied experts,
       so logits are only recorded and the greedy tokens held (tolerance
       None)."""
-    from ktransformers_tpu_torch.models.init import init_params_synthetic
     from ktransformers_tpu_torch.models.spec import spec_from_hf_config
-    from ktransformers_tpu_torch.utils.device_prep import prepare_params
 
     cfg = dict(bench_model_cfg(), num_hidden_layers=2)
     dense = spec_from_hf_config(dict(cfg, first_k_dense_replace=2))
-    yield "dense", dense, prepare_params(init_params_synthetic(
-        dense, seed=5, quant="bf16", dtype=torch.float32, device="cpu"),
-        dense), PARITY_TOL
+    yield "dense", dense, card_drawn(dense, quant="bf16",
+                                     dtype=torch.float32), PARITY_TOL
     w4a8 = spec_from_hf_config(cfg)
-    yield "w4a8", w4a8, prepare_params(init_params_synthetic(
-        w4a8, seed=5, device="cpu"), w4a8), None
+    yield "w4a8", w4a8, card_drawn(w4a8), None
 
 
 def format_variant(kind: str):
@@ -1452,16 +1526,13 @@ def format_variant(kind: str):
     width) with every weight in ``kind``, not repacked (KT_W4A8=0, the
     reference's own switch), so that each matmul runs through the
     quant_matmul kernels: (name, spec, prepared CPU params, FORMAT_TOL)."""
-    from ktransformers_tpu_torch.models.init import init_params_synthetic
     from ktransformers_tpu_torch.models.spec import spec_from_hf_config
-    from ktransformers_tpu_torch.utils.device_prep import prepare_params
 
     spec = spec_from_hf_config(dict(bench_model_cfg(), num_hidden_layers=2))
     old = os.environ.get("KT_W4A8")
     os.environ["KT_W4A8"] = "0"
     try:
-        params = prepare_params(init_params_synthetic(
-            spec, seed=5, quant=kind, device="cpu"), spec)
+        params = card_drawn(spec, quant=kind)
     finally:
         if old is None:
             del os.environ["KT_W4A8"]
@@ -1477,14 +1548,11 @@ def gqa_variant(name: str, cfg: dict):
     W4A8): (name, spec, prepared CPU params, None), held by moe_parity.
     The experts run through the W4A8 kernels the route picks, attention
     through the GQA paged kernels."""
-    from ktransformers_tpu_torch.models.init import init_params_synthetic
     from ktransformers_tpu_torch.models.spec import spec_from_hf_config
-    from ktransformers_tpu_torch.utils.device_prep import prepare_params
 
     spec = spec_from_hf_config(dict(cfg, num_hidden_layers=2))
-    return name, spec, prepare_params(init_params_synthetic(
-        spec, seed=5, quant="int8", moe_quant="int4_g", device="cpu"),
-        spec), None
+    return name, spec, card_drawn(spec, quant="int8",
+                                  moe_quant="int4_g"), None
 
 
 def hold_rows(out: torch.Tensor, ref: torch.Tensor, what: str, tol) -> dict:
@@ -1746,12 +1814,14 @@ INT8_SINGLE_USER_KERNELS = ("quant_matmul", "gathered_quant_matmul",
 
 def serve(result: dict, quant: str = "int4_g", key: str = "serve",
           requests: int = 3, expect=SINGLE_USER_KERNELS,
-          unfused_last: bool = False, cfg=None, moe_quant=None):
+          unfused_last: bool = False, cfg=None, moe_quant=None,
+          max_len: int = 1024, prompt_lens=None):
     """A Generator over the full config (DeepSeek-V2-Lite unless ``cfg``
     names another) with ``quant`` weights (``moe_quant`` for the routed
-    experts, default the same) answering ``requests`` requests of 512 + 32
-    tokens; with unfused_last the last one decodes with the fused decode
-    kernel switched off."""
+    experts, default the same) at ``max_len`` cache positions answering
+    ``requests`` requests of 512 (or ``prompt_lens``) + 32 tokens; with
+    unfused_last the last one decodes with the fused decode kernel
+    switched off."""
     from ktransformers_tpu_torch.engine.generate import (
         GenerateConfig,
         Generator,
@@ -1771,7 +1841,7 @@ def serve(result: dict, quant: str = "int4_g", key: str = "serve",
     params = init_params_synthetic(spec, seed=0, quant=quant,
                                    moe_quant=moe_quant or quant,
                                    device="cuda")
-    gen = Generator(params, spec, max_len=1024, batch=1, device="cuda")
+    gen = Generator(params, spec, max_len=max_len, batch=1, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     pbytes = 0
@@ -1786,16 +1856,17 @@ def serve(result: dict, quant: str = "int4_g", key: str = "serve",
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     reqs = []
-    for i in range(requests):
+    lens = prompt_lens or [512] * requests
+    for i, n in enumerate(lens):
         prompt = np.random.default_rng(100 + i).integers(
-            0, cfg["vocab_size"], 512).tolist()
+            0, cfg["vocab_size"], n).tolist()
         stamps = []
 
         def on_token(tok, stamps=stamps):
             torch.cuda.synchronize()
             stamps.append(time.perf_counter())
 
-        fused = not (unfused_last and i == requests - 1)
+        fused = not (unfused_last and i == len(lens) - 1)
         attention.MLA_FUSED = fused
         t_start = time.perf_counter()
         try:
@@ -1809,10 +1880,11 @@ def serve(result: dict, quant: str = "int4_g", key: str = "serve",
             raise AssertionError(f"request {i}: bad tokens {toks}")
         ttft = stamps[0] - t_start
         dec = (len(stamps) - 1) / (stamps[-1] - stamps[0])
-        reqs.append(dict(prefill_tok_s=512 / ttft, ttft_s=ttft,
-                         decode_tok_s=dec, tokens=toks[:8],
+        reqs.append(dict(prompt_tokens=n, prefill_tok_s=n / ttft,
+                         ttft_s=ttft, decode_tok_s=dec, tokens=toks[:8],
                          fused_decode=fused))
-        log(f"{key} request {i}: prefill {512 / ttft:.1f} tok/s "
+        log(f"{key} request {i}: {n} prompt tokens, prefill "
+            f"{n / ttft:.1f} tok/s "
             f"(ttft {ttft * 1e3:.1f} ms), decode {dec:.2f} tok/s"
             f"{'' if fused else ' (fused decode off)'}")
     launches = dict(LAUNCHES)
@@ -1905,28 +1977,35 @@ def int8_step_launches(result: dict, gen) -> None:
                              "calls on mla_decode_split_kernel<false>")
 
 
-# Mixtral-8x7B, 32 layers: quant_matmul 65 (the fused qkv and o_proj of 32
-# layers, lm_head), the expert matmul 2 x 32 (gathered at decode on the
+# Mixtral-8x7B served at MIXTRAL_LAYERS of its 32 layers (served whole
+# until the SmallThinker / Qwen3-Next phase took the time)
+MIXTRAL_LAYERS = 16
+_LM = MIXTRAL_LAYERS
+# Mixtral, L layers: quant_matmul 2 L + 1 (the fused qkv and o_proj of
+# every layer, lm_head), the expert matmul 2 L (gathered at decode on the
 # GEMV, which quantizes x itself; grouped at prefill, 512 rows, past the
 # tensor-core kernel's fold crossover: one activation prep each; Mixtral's
 # experts are too wide for the fused FFN), GQA attention plain PyTorch on
 # the contiguous cache
 MIXTRAL_STEP_LAUNCHES = {
-    "prefill_chunk": {"quant_matmul": 65, "grouped_w4a8_matmul": 64,
-                      "w4a8_prep": 64},
-    "decode_step": {"quant_matmul": 65, "gathered_w4a8_matmul": 64},
+    "prefill_chunk": {"quant_matmul": 2 * _LM + 1,
+                      "grouped_w4a8_matmul": 2 * _LM, "w4a8_prep": 2 * _LM},
+    "decode_step": {"quant_matmul": 2 * _LM + 1,
+                    "gathered_w4a8_matmul": 2 * _LM},
 }
 # ... and on the paged path the GQA kernel once a layer: a decode batch of
 # 8 (16 gathered rows: a GEMV block of two rows would quantize more groups
 # than w4a8_matmul.gemv_folds lets it, so a prep each), and a mixed step (8
 # decode rows + one 256-token chunk: 528 grouped rows, a prep each)
 MIXTRAL_ENGINE_STEP_LAUNCHES = {
-    "serve_decode_step_b8": {"quant_matmul": 65, "gathered_w4a8_matmul": 64,
-                             "w4a8_prep": 64, "gqa_paged_decode": 32},
-    "serve_mixed_step_b8_s256": {"quant_matmul": 65,
-                                 "grouped_w4a8_matmul": 64, "w4a8_prep": 64,
-                                 "gqa_paged_decode": 32,
-                                 "gqa_paged_prefill": 32},
+    "serve_decode_step_b8": {"quant_matmul": 2 * _LM + 1,
+                             "gathered_w4a8_matmul": 2 * _LM,
+                             "w4a8_prep": 2 * _LM, "gqa_paged_decode": _LM},
+    "serve_mixed_step_b8_s256": {"quant_matmul": 2 * _LM + 1,
+                                 "grouped_w4a8_matmul": 2 * _LM,
+                                 "w4a8_prep": 2 * _LM,
+                                 "gqa_paged_decode": _LM,
+                                 "gqa_paged_prefill": _LM},
 }
 
 
@@ -1981,9 +2060,15 @@ def single_user_reference(gen, prompt: list, n: int):
     return greedy_decode(gen, last, cache, n)
 
 
-def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS) -> dict:
-    """The 8 requests through one ServeEngine in three waves: 0-3 at once,
-    5 and 6 after 8 engine steps, 4 and 7 once request 0 has finished."""
+def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS,
+                    sched=None) -> dict:
+    """The 8 requests through one ServeEngine (``sched``, default
+    SchedulerConfig()) in three waves: 0-3 at once, 5 and 6 after 8 engine
+    steps, 4 and 7 once request 0 has finished (request 4 then takes
+    request 0's slot). A hybrid model (linear-attention layers) runs
+    no prefix cache and no fused mixed step, and zeroes a slot's state
+    before each query's first chunk: held instead of the prefix hit and
+    the mixed steps, with request 4's reused slot among the zeroed ones."""
     from ktransformers_tpu_torch.ops.cuda import (
         LAUNCHES,
         ROUTED_LAUNCHES,
@@ -1993,11 +2078,20 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS) -> dict:
     from ktransformers_tpu_torch.utils.observability import StageTimer
 
     num_pages = 512
-    eng = ServeEngine(gen.params, gen.spec, SchedulerConfig(),
+    eng = ServeEngine(gen.params, gen.spec, sched or SchedulerConfig(),
                       num_pages=num_pages, device="cuda")
     eng.decode_pipeline_depth = depth
     eng.generate_sync(list(range(8)), max_new_tokens=2)  # warm-up
     eng.reset_metrics()
+    resets, hybrid = [], gen.spec.hybrid
+    if hybrid:
+        reset = eng._reset_linear_state
+
+        def counted_reset(slot):
+            resets.append(slot)
+            reset(slot)
+
+        eng._reset_linear_state = counted_reset
     eng.timer = StageTimer(enabled=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2027,7 +2121,7 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     routed_n = dict(ROUTED_LAUNCHES)
-    held = eng.prefix.stats()["nodes"]
+    held = 0 if eng.prefix is None else eng.prefix.stats()["nodes"]
     out = dict(
         depth=depth, wall_s=wall, engine_steps=eng.steps_executed,
         mixed_steps_fused=eng.mixed_steps_fused,
@@ -2043,6 +2137,7 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS) -> dict:
         routed_launches=routed_n,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         kv_pool_bytes=eng.kv.bytes_per_page() * num_pages,
+        state_bytes=eng.kv.state_bytes(), state_resets=resets,
     )
     log(f"paged serve depth {depth}: {steps} engine steps "
         f"({eng.mixed_steps_fused} fused mixed) in {wall:.2f} s, "
@@ -2057,9 +2152,17 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS) -> dict:
         if (out["finish"][i] != "length" or len(t) != PAGED_NEW_TOKENS
                 or not all(0 <= x < vocab for x in t)):
             raise AssertionError(f"paged request {i}: {out['finish'][i]} {t}")
-    if eng.mixed_steps_fused < 1:
+    if hybrid:
+        if eng.mixed_steps_fused or eng.prefix is not None or any(
+                out["matched_len"]):
+            raise AssertionError("hybrid engine: a fused mixed step or a "
+                                 "prefix hit ran")
+        if len(resets) != 8 or len(set(resets)) == len(resets):
+            raise AssertionError(f"hybrid engine: slot states zeroed at "
+                                 f"{resets}, want 8 with a reused slot")
+    elif eng.mixed_steps_fused < 1:
         raise AssertionError("no fused mixed step ran")
-    if out["matched_len"][4] != 256:
+    elif out["matched_len"][4] != 256:
         raise AssertionError(f"request 4 matched {out['matched_len'][4]}")
     if out["free_pages"] + held != num_pages - 1:
         raise AssertionError(
@@ -2070,26 +2173,165 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS) -> dict:
     return out
 
 
+def forced_weights(logits, cfg, idx):
+    """ops/gate.route's weights for the experts ``idx`` [T, k] instead of
+    its own top-k: their scores, renormalized and scaled as route does."""
+    logits = logits.to(torch.float32)
+    scores = (torch.softmax(logits, dim=-1) if cfg.scoring == "softmax"
+              else torch.sigmoid(logits))
+    w = torch.gather(scores, 1, idx.long())
+    if cfg.norm_topk_prob:
+        w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+    return w * cfg.routed_scaling_factor
+
+
+def model_steps(gen, prompt: list, toks: list, paged: bool = False,
+                forced=None):
+    """The single-user forward, or with ``paged`` the engine's model step
+    (forward_paged, one sequence), fed ``prompt`` in 256-token chunks and
+    then ``toks`` one a step: (logits [steps, V], float32, each step's last
+    row; routes, a list a step of the [T, k] experts each router call of
+    the step picked). With ``forced`` (such routes from the other side)
+    every router call takes the forced call's experts, weighted by its own
+    scores (forced_weights): the two sides then differ by rounding
+    alone."""
+    from ktransformers_tpu_torch.cache.paged import PagedKVCache
+    from ktransformers_tpu_torch.models import model
+    from ktransformers_tpu_torch.models.paged import forward_paged
+
+    dev, spec = gen.device, gen.spec
+    n = len(prompt)
+    seq = torch.as_tensor([prompt + toks], device=dev)
+    ends = [min(n, i + 256) for i in range(0, n, 256)]
+    ends += list(range(n + 1, n + len(toks) + 1))
+    if paged:
+        pages = -(-seq.shape[1] // 64)
+        kv = PagedKVCache.create(spec, pages + 1, 64, dtype=gen.cache_dtype,
+                                 device=dev)
+        tables = torch.arange(1, pages + 1, dtype=torch.int32,
+                              device=dev)[None]
+
+        def step(start, end):
+            return forward_paged(
+                gen.params, spec, seq[:, start:end], kv, tables,
+                torch.tensor([start], dtype=torch.int32, device=dev),
+                rope_tables=gen.rope_tables,
+                compute_dtype=gen.compute_dtype)[0]
+    else:
+        cache = gen.new_cache()
+
+        def step(start, end):
+            return gen._forward(seq[:, start:end], cache, True)[0]
+
+    route, feed = model.route, iter([i for s in forced or () for i in s])
+    logits, routes = [], []
+
+    def hooked(lg, cfg, bias=None):
+        if forced is None:
+            idx, w = route(lg, cfg, bias)
+        else:
+            idx = next(feed)
+            w = forced_weights(lg, cfg, idx)
+        routes[-1].append(idx)
+        return idx, w
+
+    model.route = hooked
+    try:
+        start = 0
+        for end in ends:
+            routes.append([])
+            logits.append(step(start, end)[:, -1].float())
+            start = end
+    finally:
+        model.route = route
+    return torch.cat(logits), routes
+
+
+def expert_sets(calls) -> list:
+    return [[frozenset(r) for r in idx.tolist()] for idx in calls]
+
+
+def reroute_check(gen, prompt: list, toks: list, what: str,
+                  tol: float | None = None) -> tuple:
+    """The engine's model step against the single-user forward, fed the
+    same ``prompt`` and then ``toks`` (model_steps):
+    - the index of the first token of ``toks`` whose logits follow a step
+      where a router call of the two chose other experts for some row (0:
+      the prompt's own routes differ), None where no route differs;
+    - the engine's model step again with the single-user routes forced on
+      it, held by hold_rows at ``tol``: what the routes do not explain (the
+      windows, the early router's input, the paged kernels) must stay
+      inside it. Without ``tol`` it is SPREAD_FACTOR times the rounding
+      spread: the largest row error, against the same single-user steps,
+      of the single-user forward in float32 compute under the same routes
+      (what bf16 rounding alone moves the single-user step by).
+    Returns (that index, a record with the tolerance held)."""
+    ref, routes = model_steps(gen, prompt, toks)
+    _, paged_routes = model_steps(gen, prompt, toks, paged=True)
+    chunks = len(routes) - len(toks)  # the last prompt chunk gives token 0
+    first = next((max(0, i - chunks + 1)
+                  for i, (a, b) in enumerate(zip(routes, paged_routes))
+                  if expert_sets(a) != expert_sets(b)), None)
+    spread = None
+    if tol is None:
+        dtypes = gen.compute_dtype, gen.cache_dtype
+        gen.compute_dtype = gen.cache_dtype = torch.float32
+        try:
+            f32, _ = model_steps(gen, prompt, toks, forced=routes)
+        finally:
+            gen.compute_dtype, gen.cache_dtype = dtypes
+        spread = float(((f32 - ref).abs().amax(-1)
+                        / ref.abs().amax(-1)).max())
+        tol = SPREAD_FACTOR * spread
+    out, _ = model_steps(gen, prompt, toks, paged=True, forced=routes)
+    held = hold_rows(out.cpu(), ref.cpu(), f"{what} (single-user routes "
+                     "forced on the engine's model step)", tol)
+    return first, dict(steps=len(routes), max_rel_err=max(held["rel_err"]),
+                       tol=tol, spread=spread,
+                       greedy_differ=held["greedy_differ"])
+
+
 def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(1, 3),
-                expect=PAGED_KERNELS, tie: float = NEAR_TIE) -> None:
-    """The 8 requests through the ServeEngine at each pipeline depth, each
-    request's tokens held to the single-user Generator's up to the first
-    position whose top-2 gap there lies below ``tie`` of the largest
-    logit (a near-tie that rounding order may flip)."""
-    prompts = paged_prompts(gen.spec.vocab_size)
-    runs = {depth: paged_serve_run(gen, prompts, depth, expect)
+                expect=PAGED_KERNELS, tie: float = NEAR_TIE, prompts=None,
+                sched=None, reroutes: bool = False) -> None:
+    """The 8 requests (paged_prompts unless ``prompts``) through the
+    ServeEngine (paged_serve_run) at each pipeline depth, each request's
+    tokens held to the single-user Generator's up to the first position
+    whose top-2 gap there lies below ``tie`` of the largest logit (a
+    near-tie that rounding order may flip). With ``reroutes`` (a model
+    whose random weights grow a rounding difference past any near-tie:
+    SmallThinker's ReLU experts under unnormalized sigmoid weights) a
+    request may leave the single-user tokens elsewhere only after a token
+    that the engine's model step and the single-user forward, fed the
+    same tokens, send to other experts (reroute_check): moe_parity's
+    rule. The engine's model step under the single-user routes must then
+    stay within SPREAD_FACTOR times the rounding spread on every step up
+    to that token, as must request 0's (the longest prompt) over its
+    prompt and first 8 tokens: request 0 measures the spread, every
+    request is held to it (reroute_check)."""
+    prompts = prompts or paged_prompts(gen.spec.vocab_size)
+    runs = {depth: paged_serve_run(gen, prompts, depth, expect, sched)
             for depth in depths}
     # the single-user Generator on the same prompts
-    full, verdicts, firsts = 0, [], set()
+    full, verdicts, firsts, tol = 0, [], set(), None
     for i, prompt in enumerate(prompts):
         ref, gaps = single_user_reference(gen, prompt, PAGED_NEW_TOKENS)
         firsts.add(ref[0])
         for depth, run in runs.items():
             got = run["tokens"][i]
             diff = next((j for j in range(len(ref)) if got[j] != ref[j]), None)
+            wide = diff is not None and gaps[diff] >= tie
+            rerouted = forced = None
+            if reroutes and (wide or (i == 0 and depth == depths[0])):
+                rerouted, forced = reroute_check(
+                    gen, prompt, got[:diff] if wide else got[:8],
+                    f"{key} request {i}", tol)
+                tol = forced["tol"]
             verdicts.append(dict(request=i, depth=depth, first_diff=diff,
-                                 gap=None if diff is None else gaps[diff]))
-            if diff is not None and gaps[diff] >= tie:
+                                 gap=None if diff is None else gaps[diff],
+                                 first_reroute=rerouted if wide else None,
+                                 routes_forced=forced))
+            if wide and (rerouted is None or rerouted > diff):
                 raise AssertionError(
                     f"paged request {i} (depth {depth}) leaves the "
                     f"single-user tokens at {diff} with a top-2 gap of "
@@ -2170,9 +2412,9 @@ _OFF_ROUTE = re.compile(r"quant_rows_kernel<\d+, 8, __nv_bfloat16>"
                         r"|mla_decode_fused_kernel<__nv_bfloat16>"
                         r"|mla_paged_decode_kernel<__nv_bfloat16>"
                         r"|mla_paged_prefill_kernel<__nv_bfloat16>"
-                        r"|gqa_paged_decode_kernel<__nv_bfloat16>"
-                        r"|gqa_decode_combine_kernel<__nv_bfloat16>"
-                        r"|gqa_paged_prefill_kernel<__nv_bfloat16>"
+                        r"|gqa_paged_decode_kernel<__nv_bfloat16, "
+                        r"|gqa_decode_combine_kernel<__nv_bfloat16, "
+                        r"|gqa_paged_prefill_kernel<__nv_bfloat16, "
                         r"|mla_decode_attention_kernel<__nv_bfloat16>")
 
 
@@ -2309,7 +2551,8 @@ def profile_engine_steps(result: dict, gen, prefix: str = "") -> None:
     pipelined: mean wall of 8 steps, one more profiled) and a fused mixed
     step (the fixed 8 decode rows, 7 of them live, plus one 256-token chunk
     of a new 600-token prompt: one step for the wall time and the launches,
-    the next one profiled)."""
+    the next one profiled). A hybrid model's engine runs that step's
+    decode and chunk as two passes (serve_split_step_b8_s256)."""
     from ktransformers_tpu_torch.ops.cuda import LAUNCHES, reset_launches
     from ktransformers_tpu_torch.serving import SchedulerConfig, ServeEngine
 
@@ -2337,9 +2580,14 @@ def profile_engine_steps(result: dict, gen, prefix: str = "") -> None:
     wall = wall_ms(eng.step)
     step_launches = dict(LAUNCHES)
     rows = kernel_rows(eng.step)
-    if eng.mixed_steps_fused != fused0 + 2 or late.prefill_pos != 512:
-        raise AssertionError("profile: the mixed steps did not run fused")
-    steps[prefix + "serve_mixed_step_b8_s256"] = (wall, step_launches, rows)
+    hybrid = gen.spec.hybrid
+    fused = 0 if hybrid else 2
+    if eng.mixed_steps_fused != fused0 + fused or late.prefill_pos != 512:
+        raise AssertionError(f"profile: {eng.mixed_steps_fused - fused0} of "
+                             f"the 2 mixed steps ran fused, want {fused}")
+    name = "serve_split_step_b8_s256" if hybrid else \
+        "serve_mixed_step_b8_s256"
+    steps[prefix + name] = (wall, step_launches, rows)
     result["profile"].update(summarize_steps(steps))
 
 
@@ -2519,7 +2767,6 @@ def sft_parity(result: dict) -> None:
     element by about the learning rate times the sign of its gradient).
     W4A8 weights (int8 activation codes that float32 sums in another order
     can flip): recorded, and held finite."""
-    from ktransformers_tpu_torch.models.init import init_params_synthetic
     from ktransformers_tpu_torch.models.spec import spec_from_hf_config
     from ktransformers_tpu_torch.sft import (
         LoRAConfig,
@@ -2528,10 +2775,7 @@ def sft_parity(result: dict) -> None:
         init_lora,
     )
     from ktransformers_tpu_torch.sft.lora import lora_leaves
-    from ktransformers_tpu_torch.utils.device_prep import (
-        params_to,
-        prepare_params,
-    )
+    from ktransformers_tpu_torch.utils.device_prep import params_to
 
     t0 = time.perf_counter()
     spec = spec_from_hf_config(dict(bench_model_cfg(), num_hidden_layers=2))
@@ -2539,8 +2783,7 @@ def sft_parity(result: dict) -> None:
     lr = TrainConfig().learning_rate
     out = {}
     for kind, tol in (("int8", SFT_GRAD_TOL), ("int4_g", None)):
-        params = prepare_params(init_params_synthetic(
-            spec, seed=7, quant=kind, device="cpu"), spec)
+        params = card_drawn(spec, seed=7, quant=kind)
         params = init_lora(params, spec, LoRAConfig(rank=8), seed=0)
         runs = {}
         for dev in ("cpu", "cuda"):
@@ -2935,20 +3178,10 @@ def v3_variant():
     (name, spec, prepared CPU params, None), held by moe_parity. The
     weights are drawn and prepared on the card (fast) and copied to the
     host, so both devices run the same bits."""
-    from ktransformers_tpu_torch.models.init import init_params_synthetic
     from ktransformers_tpu_torch.models.spec import spec_from_hf_config
-    from ktransformers_tpu_torch.utils.device_prep import (
-        params_to,
-        prepare_params,
-    )
 
     spec = spec_from_hf_config(v3_cfg(layers=2, first_dense=1))
-    params = prepare_params(init_params_synthetic(spec, seed=5,
-                                                  device="cuda"), spec)
-    cpu = params_to(params, "cpu")
-    del params
-    torch.cuda.empty_cache()
-    return "v3_w4a8", spec, cpu, None
+    return "v3_w4a8", spec, card_drawn(spec), None
 
 
 def routes_of(fn):
@@ -3025,14 +3258,11 @@ def bf16_experts_variant():
     routed experts run the plain expert products (ops/moe.py PLAIN_KINDS)
     on both devices, the rest as the ``dense`` variant; held to
     PARITY_TOL."""
-    from ktransformers_tpu_torch.models.init import init_params_synthetic
     from ktransformers_tpu_torch.models.spec import spec_from_hf_config
-    from ktransformers_tpu_torch.utils.device_prep import prepare_params
 
     spec = spec_from_hf_config(dict(bench_model_cfg(), num_hidden_layers=2))
-    return "bf16_experts", spec, prepare_params(init_params_synthetic(
-        spec, seed=5, quant="bf16", dtype=torch.float32, device="cpu"),
-        spec), PARITY_TOL
+    return "bf16_experts", spec, card_drawn(
+        spec, quant="bf16", dtype=torch.float32), PARITY_TOL
 
 
 # DeepSeek-V3 cut to 6 layers (3 dense, 3 MoE), W4A8 weights. A single-user
@@ -3249,8 +3479,8 @@ def hf_import(result: dict) -> None:
 def mixtral_run(result: dict, rows: list, entries: dict) -> None:
     """Mixtral-8x7B (GQA attention, experts too wide for the fused FFN):
     its kernels at its shapes, 2-layer parity with the served kinds, then
-    32 layers single-user and through the ServeEngine with launches per
-    step held; the parameters are freed after."""
+    MIXTRAL_LAYERS layers single-user and through the ServeEngine with
+    launches per step held; the parameters are freed after."""
     mixtral_kernel_checks(rows, entries)
     torch.cuda.empty_cache()
     variant = [gqa_variant("mixtral_w4a8", mixtral_cfg())]
@@ -3258,7 +3488,9 @@ def mixtral_run(result: dict, rows: list, entries: dict) -> None:
     paged_parity_check(result, variant)
     del variant
     torch.cuda.empty_cache()
-    serve_model(result, "mixtral", mixtral_cfg(), "int8", "int4_g",
+    serve_model(result, "mixtral",
+                dict(mixtral_cfg(), num_hidden_layers=MIXTRAL_LAYERS),
+                "int8", "int4_g",
                 MIXTRAL_SINGLE_USER_KERNELS, MIXTRAL_PAGED_KERNELS,
                 MIXTRAL_STEP_LAUNCHES, MIXTRAL_ENGINE_STEP_LAUNCHES)
 
@@ -3427,7 +3659,10 @@ def zero_point_kernel_checks(rows: list, entries: dict) -> None:
 
 # DeepSeek-V2-Lite's published shape (bench_model_cfg) cut to 4 layers for
 # the GGUF phase: layer 0 dense, 1-3 MoE
-GGUF_LAYERS = 4
+# DeepSeek-V2-Lite's GGUF file cut to 3 layers: the dense layer 0, a MoE
+# layer with Q4_1 experts' down and the last with Q8_0 ones (writing and
+# loading the 4 it had took ~55 s of the script)
+GGUF_LAYERS = 3
 GGUF_SEED = 14
 
 
@@ -3530,8 +3765,8 @@ GGUF_SAMPLES = (
     (("layers", 0, "mlp", "down"), "blk.0.ffn_down.weight", None, None),
     (("layers", 1, "moe", "experts", "gate_up"), "blk.1.ffn_up_exps.weight",
      5, 1),
-    (("layers", 3, "moe", "experts", "down"), "blk.3.ffn_down_exps.weight",
-     7, None),
+    (("layers", GGUF_LAYERS - 1, "moe", "experts", "down"),
+     f"blk.{GGUF_LAYERS - 1}.ffn_down_exps.weight", 7, None),
     (("lm_head",), "output.weight", None, None),
 )
 
@@ -3665,7 +3900,8 @@ def gguf_serve(result: dict) -> None:
     rec: dict = {}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "deepseek-v2-lite-4l-q4_k.gguf")
+        path = os.path.join(tmp,
+                            f"deepseek-v2-lite-{GGUF_LAYERS}l-q4_k.gguf")
         write_gguf(path, gguf_fields(cfg), gguf_tensors(
             cfg, np.random.default_rng(GGUF_SEED)))
         rec["file_bytes"] = os.path.getsize(path)
@@ -3863,7 +4099,7 @@ def qwen_kernel_checks(rows: list, entries: dict) -> None:
       weights would have it (3584 -> 2 x 20480 -> 3584) at M = 1, 8 and
       256; the served kinds keep it int8 (row 9 above);
     - rows 13 and 15 at G = 8 (Qwen3: 32 over 4 KV heads) and G = 7
-      (Qwen2: 28 over 4), gqa_paged_checks.
+      (Qwen2: 28 over 4), gqa_cases_checks on GQA_SERVE_CASES.
     Routing draws top-8 of the experts from softmax scores of random
     logits."""
     from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
@@ -3919,8 +4155,8 @@ def qwen_kernel_checks(rows: list, entries: dict) -> None:
     del sgu, sdn
     torch.cuda.empty_cache()
 
-    gqa_paged_checks(check, rn, 32, 4, tag="qwen3 ")
-    gqa_paged_checks(check, rn, 28, 4, tag="qwen2 ")
+    gqa_cases_checks(check, rn, 32, 4, 128, GQA_SERVE_CASES, "qwen3 ")
+    gqa_cases_checks(check, rn, 28, 4, 128, GQA_SERVE_CASES, "qwen2 ")
 
 
 QWEN3_SINGLE_USER_KERNELS = ("w4a8_prep", "quant_matmul",
@@ -4235,7 +4471,8 @@ def dense_glm_kernel_checks(rows: list, entries: dict) -> None:
     - row 3 (dense_w4a8_ffn) on GLM's shared expert (I = 1408) and dense
       MLP (I = 10944) as all-int4_g weights would have them, M = 1, 8, 256
       (the served kinds keep both int8: row 9 above);
-    - rows 13 and 15 at G = 12 (96 query heads over 8), gqa_paged_checks.
+    - rows 13 and 15 at G = 12 (96 query heads over 8), gqa_cases_checks
+      on GQA_SERVE_CASES.
     Routing draws top-8 of 128 from random logits."""
     from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
 
@@ -4276,25 +4513,30 @@ def dense_glm_kernel_checks(rows: list, entries: dict) -> None:
         del sgu, sdn
         torch.cuda.empty_cache()
 
-    gqa_paged_checks(check, rn, 96, 8, tag="glm ")
+    gqa_cases_checks(check, rn, 96, 8, 128, GQA_SERVE_CASES, "glm ")
 
 
 LLAMA_SINGLE_USER_KERNELS = ("quant_matmul",)
 LLAMA_PAGED_KERNELS = ("quant_matmul", "gqa_paged_decode",
                        "gqa_paged_prefill")
-# Llama-3.1-8B, 32 dense int8 layers: quant_matmul 129 (the fused qkv,
-# o_proj, gate_up and down of 32 layers, lm_head); no W4A8 weight, so no
-# prep; GQA attention plain PyTorch on the contiguous cache
+# Llama-3.1-8B served at LLAMA_LAYERS of its 32 layers (served whole until
+# the SmallThinker / Qwen3-Next phase took the time)
+LLAMA_LAYERS = 16
+_LL = LLAMA_LAYERS
+# Llama, L dense int8 layers: quant_matmul 4 L + 1 (the fused qkv, o_proj,
+# gate_up and down of every layer, lm_head); no W4A8 weight, so no prep;
+# GQA attention plain PyTorch on the contiguous cache
 LLAMA_STEP_LAUNCHES = {
-    "prefill_chunk": {"quant_matmul": 129},
-    "decode_step": {"quant_matmul": 129},
+    "prefill_chunk": {"quant_matmul": 4 * _LL + 1},
+    "decode_step": {"quant_matmul": 4 * _LL + 1},
 }
 # ... and the GQA paged kernels once a layer on the engine's steps
 LLAMA_ENGINE_STEP_LAUNCHES = {
-    "serve_decode_step_b8": {"quant_matmul": 129, "gqa_paged_decode": 32},
-    "serve_mixed_step_b8_s256": {"quant_matmul": 129,
-                                 "gqa_paged_decode": 32,
-                                 "gqa_paged_prefill": 32},
+    "serve_decode_step_b8": {"quant_matmul": 4 * _LL + 1,
+                             "gqa_paged_decode": _LL},
+    "serve_mixed_step_b8_s256": {"quant_matmul": 4 * _LL + 1,
+                                 "gqa_paged_decode": _LL,
+                                 "gqa_paged_prefill": _LL},
 }
 # GLM-4.5-Air cut to GLM_LAYERS (1 dense + 3 MoE): quant_matmul 17 (the
 # fused qkv with its bias and o_proj of 4 layers, the dense layer's gate_up
@@ -4325,28 +4567,332 @@ def dense_glm_run(result: dict, rows: list, entries: dict) -> None:
     GLM-4.5-Air (half rotary, q / k norm, QKV biases, G = 12, sigmoid
     router, experts on rows 7-8): their kernels at their widths, 2-layer
     parity card vs CPU (Llama's int8 weights held to FORMAT_TOL on every
-    row; GLM's served kinds by moe_parity), then Llama at all 32 layers
-    and GLM cut to GLM_LAYERS served single-user and through the
+    row; GLM's served kinds by moe_parity), then Llama cut to
+    LLAMA_LAYERS and GLM to GLM_LAYERS served single-user and through the
     ServeEngine with launches per step held."""
-    from ktransformers_tpu_torch.models.init import init_params_synthetic
     from ktransformers_tpu_torch.models.spec import spec_from_hf_config
-    from ktransformers_tpu_torch.utils.device_prep import prepare_params
 
     dense_glm_kernel_checks(rows, entries)
     torch.cuda.empty_cache()
     spec = spec_from_hf_config(llama_cfg(2))
-    parity_check(result, [("llama_int8", spec, prepare_params(
-        init_params_synthetic(spec, seed=5, quant="int8", device="cpu"),
-        spec), FORMAT_TOL)])
+    parity_check(result, [("llama_int8", spec, card_drawn(spec, quant="int8"),
+                           FORMAT_TOL)])
     routed_parity(result, gqa_variant("glm_w4a8", glm_cfg()))
     torch.cuda.empty_cache()
-    serve_model(result, "llama", llama_cfg(), "int8", "int8",
+    serve_model(result, "llama", llama_cfg(LLAMA_LAYERS), "int8", "int8",
                 LLAMA_SINGLE_USER_KERNELS, LLAMA_PAGED_KERNELS,
                 LLAMA_STEP_LAUNCHES, LLAMA_ENGINE_STEP_LAUNCHES)
     # GLM's experts take Mixtral's route (rows 7-8, no fused FFN)
     serve_model(result, "glm", glm_cfg(), "int8", "int4_g",
                 MIXTRAL_SINGLE_USER_KERNELS, MIXTRAL_PAGED_KERNELS,
                 GLM_STEP_LAUNCHES, GLM_ENGINE_STEP_LAUNCHES)
+
+
+# ------------------------------- SmallThinker-21B and Qwen3-Next (phase 20)
+
+# SmallThinker-21B served at SMALLTHINKER_LAYERS of its 52 layers: a
+# multiple of 4 keeps its layouts (every 4th layer NoPE and unwindowed, the
+# others windowed at 4,096 keys)
+SMALLTHINKER_LAYERS = 16
+# Qwen3-Next-80B-A3B at QNEXT_LAYERS of its 48: its first layer_types, 3
+# GatedDeltaNet layers and 1 gated full-attention layer
+QNEXT_LAYERS = 4
+WINDOW = 4096  # SmallThinker's sliding_window_size
+WINDOW_PROMPT = 4608  # the seeded prompt's tokens: past the window
+WINDOW_MAX_LEN = 5120  # the Generator's cache; the engine's pages a query
+F32_TIE = 2 * PARITY_TOL  # float32 weights: a near-tie of hold_rows' rule
+
+
+def smallthinker_cfg(layers: int = SMALLTHINKER_LAYERS) -> dict:
+    """SmallThinker-21B (PowerInfer/SmallThinker-21BA3B-Instruct, the
+    registry's preset): hidden 2560, 28 query heads over 4 KV heads of 128
+    (G = 7), every 4th layer NoPE and unwindowed, the others windowed at
+    4,096 keys; 64 ReLU-GLU experts of inter 768 top-6 behind the early
+    router (sigmoid, no renormalization); vocab 151,936; cut to ``layers``
+    in depth only, the layouts with it."""
+    from ktransformers_tpu_torch.models.registry import REGISTRY
+
+    cfg = REGISTRY["smallthinker-21b"].config
+    return dict(cfg, num_hidden_layers=layers,
+                rope_layout=cfg["rope_layout"][:layers],
+                sliding_window_layout=cfg["sliding_window_layout"][:layers])
+
+
+def qnext_cfg(layers: int = QNEXT_LAYERS) -> dict:
+    """Qwen3-Next-80B-A3B (Qwen/Qwen3-Next-80B-A3B-Instruct, the registry's
+    preset): hidden 2048; GatedDeltaNet layers of 16 key heads and 32 value
+    heads of 128, conv 4; gated full attention of 16 query heads over 2 KV
+    heads of 256 (G = 8) with rope over 64 and the q / k norm; 512 experts
+    of inter 512 top-10 renormalized and a gated shared expert of 512;
+    vocab 151,936; cut to ``layers`` in depth only, layer_types with it."""
+    from ktransformers_tpu_torch.models.registry import REGISTRY
+
+    cfg = REGISTRY["qwen3-next-80b-a3b"].config
+    return dict(cfg, num_hidden_layers=layers,
+                layer_types=cfg["layer_types"][:layers])
+
+
+def hybrid_window_kernel_checks(rows: list, entries: dict) -> None:
+    """Rows 13 and 15 on the two new shapes (gqa_cases_checks; none is a
+    kernels-line entry):
+    - head dim 256 at Qwen3-Next's 16 query heads over 2 KV heads (G = 8):
+      decode B = 1 and 8 at 512 and 4,608 cached keys, a 256-token chunk
+      after 256; bf16 on the redesigned kernels, float32 (B = 8 at 512, the
+      chunk) on the first versions;
+    - SmallThinker's G = 7 (28 over 4 of 128) at window 4,096, past it:
+      decode B = 8 at 4,608 and 8,200 keys (and 1, 4,097, 4,096), chunks of
+      256 after 4,352 and after 7,944 (the keys before each window NaN)."""
+    check = make_check(rows, entries)
+    _, rn, _ = draw(2020)
+    for dtype, cases in (
+            (torch.bfloat16, [("decode", [512], 0), ("decode", [4608], 0),
+                              ("decode", [512] * 8, 0),
+                              ("decode", [4608] * 8, 0),
+                              ("prefill", [256], [256], 0)]),
+            (torch.float32, [("decode", [512] * 8, 0),
+                             ("prefill", [256], [256], 0)])):
+        gqa_cases_checks(check, rn, 16, 2, 256, cases, "qwen3-next ", dtype)
+    gqa_cases_checks(check, rn, 28, 4, 128, [
+        ("decode", [4608, 8200, 1, 4097, 4096, 4608, 8200, 700], WINDOW),
+        ("prefill", [4352], [256], WINDOW),
+        ("prefill", [7944], [256], WINDOW)], "smallthinker ")
+
+
+def f32_engine_check(result: dict, name: str, cfg: dict, prompts: list,
+                     new_tokens: int = 8) -> None:
+    """``cfg`` with float32 weights (plain expert products on the card) in
+    a float32 Generator and ServeEngine (batch 8, its pages WINDOW_MAX_LEN
+    a query): every prompt's greedy tokens from the engine equal the
+    single-user Generator's up to a float32 near-tie (F32_TIE of the
+    largest logit), the paged GQA kernels' float32 routes and the linear
+    layers' slot states against the contiguous cache."""
+    from ktransformers_tpu_torch.engine.generate import Generator
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.serving import SchedulerConfig, ServeEngine
+
+    t0 = time.perf_counter()
+    spec = spec_from_hf_config(cfg)
+    params = init_params_synthetic(spec, seed=7, quant="bf16",
+                                   dtype=torch.float32, device="cuda")
+    f32 = dict(cache_dtype=torch.float32, compute_dtype=torch.float32,
+               device="cuda")
+    gen = Generator(params, spec, max_len=WINDOW_MAX_LEN, **f32)
+    eng = ServeEngine(gen.params, spec, SchedulerConfig(
+        max_pages_per_query=WINDOW_MAX_LEN // 64), num_pages=256, **f32)
+    qs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    while any(q.state != "done" for q in qs):
+        if not eng.step():
+            break
+    firsts = []
+    for i, (p, q) in enumerate(zip(prompts, qs)):
+        ref, gaps = single_user_reference(gen, p, new_tokens)
+        got = list(q.output_ids)
+        diff = next((j for j in range(len(ref)) if got[j] != ref[j]), None)
+        firsts.append(diff)
+        if diff is not None and gaps[diff] >= F32_TIE:
+            raise AssertionError(f"{name} float32 engine request {i} leaves "
+                                 f"the single-user tokens at {diff} (gap "
+                                 f"{gaps[diff]:.2e}): {got} vs {ref}")
+    rec = dict(prompt_tokens=[len(p) for p in prompts], first_diff=firsts,
+               mixed_steps_fused=eng.mixed_steps_fused,
+               seconds=time.perf_counter() - t0)
+    log(f"{name} float32 engine vs single user: {len(prompts)} prompts of "
+        f"{rec['prompt_tokens']} tokens, first differing token {firsts} "
+        f"(None: all {new_tokens} equal), {eng.mixed_steps_fused} fused "
+        f"mixed steps, {rec['seconds']:.1f} s")
+    result.setdefault("f32_engine", {})[name] = rec
+    del gen, eng, params
+    torch.cuda.empty_cache()
+
+
+SMALLTHINKER_SINGLE_USER_KERNELS = ("w4a8_prep", "quant_matmul",
+                                    "gathered_w4a8_ffn", "grouped_w4a8_ffn")
+SMALLTHINKER_PAGED_KERNELS = SMALLTHINKER_SINGLE_USER_KERNELS + (
+    "gqa_paged_decode", "gqa_paged_prefill")
+_LS = SMALLTHINKER_LAYERS
+# SmallThinker cut to SMALLTHINKER_LAYERS MoE layers (L): quant_matmul
+# 2 L + 1 (the fused qkv and o_proj of every layer, lm_head); the ReLU
+# experts on the fused FFN, grouped at prefill (1536 sorted rows: a prep a
+# call) and gathered at decode (6 rows on the one-row gate_up, which
+# quantizes x itself: no prep); attention plain PyTorch on the contiguous
+# cache (windows as masks)
+SMALLTHINKER_STEP_LAUNCHES = {
+    "prefill_chunk": {"quant_matmul": 2 * _LS + 1, "grouped_w4a8_ffn": _LS,
+                      "w4a8_prep": _LS},
+    "decode_step": {"quant_matmul": 2 * _LS + 1, "gathered_w4a8_ffn": _LS},
+}
+# ... and on the paged path the GQA kernels once a layer, each with its
+# layer's window: a batch of 8 (48 gathered rows) and a mixed step (8
+# decode rows + one 256-token chunk: 1584 grouped rows, a prep each).
+# Predicted before the first card run without a prep at the batch of 8 (as
+# Qwen3-30B-A3B's); the card showed one a layer: at hidden 2560 a row holds
+# 20 scale groups, past the 16 (row, group) units a folding GEMV block
+# quantizes (w4a8_matmul.FOLD_MAX_UNITS), where Qwen3's 2048 hold 16
+SMALLTHINKER_ENGINE_STEP_LAUNCHES = {
+    "serve_decode_step_b8": {"quant_matmul": 2 * _LS + 1,
+                             "gathered_w4a8_ffn": _LS, "w4a8_prep": _LS,
+                             "gqa_paged_decode": _LS},
+    "serve_mixed_step_b8_s256": {"quant_matmul": 2 * _LS + 1,
+                                 "grouped_w4a8_ffn": _LS, "w4a8_prep": _LS,
+                                 "gqa_paged_decode": _LS,
+                                 "gqa_paged_prefill": _LS},
+}
+QNEXT_SINGLE_USER_KERNELS = SMALLTHINKER_SINGLE_USER_KERNELS
+QNEXT_PAGED_KERNELS = SMALLTHINKER_PAGED_KERNELS
+_LQ = QNEXT_LAYERS
+# Qwen3-Next cut to QNEXT_LAYERS (3 linear + 1 full, all MoE):
+# quant_matmul 17 (each linear layer's in_proj_qkvz and out_proj, the full
+# layer's fused gated qkv and o_proj, the 4 shared experts' gate_up and
+# down, lm_head; in_proj_ba is bf16, a plain matmul); the experts on the
+# fused FFN as SmallThinker's (2560 grouped rows at prefill, 10 gathered
+# at decode)
+_QMM = 2 * (_LQ - 1) + 2 + 2 * _LQ + 1
+QNEXT_STEP_LAUNCHES = {
+    "prefill_chunk": {"quant_matmul": _QMM, "grouped_w4a8_ffn": _LQ,
+                      "w4a8_prep": _LQ},
+    "decode_step": {"quant_matmul": _QMM, "gathered_w4a8_ffn": _LQ},
+}
+# ... and on the paged path the GQA kernels at the one full layer: a batch
+# of 8 (80 gathered rows, folded); no fused mixed step for a hybrid model:
+# the step's decode and its chunk run as two passes
+QNEXT_ENGINE_STEP_LAUNCHES = {
+    "serve_decode_step_b8": {"quant_matmul": _QMM, "gathered_w4a8_ffn": _LQ,
+                             "gqa_paged_decode": 1},
+    "serve_split_step_b8_s256": {"quant_matmul": 2 * _QMM,
+                                 "gathered_w4a8_ffn": _LQ,
+                                 "grouped_w4a8_ffn": _LQ, "w4a8_prep": _LQ,
+                                 "gqa_paged_decode": 1,
+                                 "gqa_paged_prefill": 1},
+}
+# the launches of one GatedDeltaNet layer's recurrence over a 256-token
+# chunk, predicted before the first card run: ~10 a position
+QNEXT_SCAN_LAUNCHES_PREDICTED = 2560
+
+
+def hold_engine_steps(result: dict, name: str, want: dict) -> None:
+    got = {step: {k: v for k, v in
+                  result["profile"][f"{name}_{step}"]["launches"].items()
+                  if v}
+           for step in want}
+    log(f"{name} engine launches per step: {json.dumps(got)}")
+    if got != want:
+        raise AssertionError(f"{name} engine launches per step {got}, want "
+                             f"{want}")
+
+
+def recurrence_share(result: dict, gen) -> None:
+    """Where Qwen3-Next's prefill chunk (256 tokens after 256) goes: its
+    wall time with the GatedDeltaNet recurrences (gated_delta_scan)
+    synchronized around and timed on the host's clock, their share of it,
+    and the device kernels of one recurrence alone over the chunk's shapes
+    (torch.profiler)."""
+    from ktransformers_tpu_torch.ops import linear_attention as tla
+
+    prompt = torch.as_tensor(np.random.default_rng(210).integers(
+        0, gen.spec.vocab_size, (1, 512)), device=gen.device)
+    scan, spent, shapes = tla.gated_delta_scan, [], []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = scan(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        shapes.append(a)
+        return out
+
+    walls = []
+    tla.gated_delta_scan = timed
+    try:
+        for _ in range(3):
+            cache = gen.new_cache()
+            gen.prefill(cache, prompt[:, :256])
+            spent.clear()
+            walls.append((wall_ms(lambda: gen.prefill(cache,
+                                                      prompt[:, 256:])),
+                          sum(spent) * 1e3, len(spent)))
+    finally:
+        tla.gated_delta_scan = scan
+    wall, scan_ms, calls = sorted(walls)[1]
+    rows = kernel_rows(lambda: scan(*shapes[-1]))
+    kernels = sum(r[2] for r in rows)
+    rec = dict(chunk_wall_ms=wall, scan_ms=scan_ms, scan_calls=calls,
+               share=scan_ms / wall, scan_device_ms=sum(r[1] for r in rows),
+               scan_kernels=kernels,
+               scan_kernels_predicted=QNEXT_SCAN_LAUNCHES_PREDICTED,
+               top=[dict(name=k[:90], ms=ms, count=n)
+                    for k, ms, n in rows[:6]])
+    log(f"qnext recurrence: a 256-token chunk {wall:.1f} ms wall, the "
+        f"{calls} recurrences {scan_ms:.1f} ms of it ({rec['share']:.1%}); "
+        f"one recurrence alone {rec['scan_device_ms']:.3f} ms device in "
+        f"{kernels} kernels (predicted {QNEXT_SCAN_LAUNCHES_PREDICTED})")
+    result["qnext_recurrence"] = rec
+
+
+def hybrid_window_run(result: dict, rows: list, entries: dict) -> None:
+    """Phase 20: SmallThinker-21B (NoPE and windowed layers, the early
+    router, ReLU experts) and Qwen3-Next-80B-A3B (GatedDeltaNet layers,
+    gated attention at head dim 256): rows 13 / 15 at D = 256 and past a
+    window; 2-layer (SmallThinker) and 4-layer (Qwen3-Next) parity card vs
+    CPU with the served kinds by moe_parity; the ServeEngine against the
+    single-user Generator on float32 weights at 4 layers; then SmallThinker
+    cut to SMALLTHINKER_LAYERS with a 4,608-token prompt through the
+    Generator and the ServeEngine, and Qwen3-Next cut to QNEXT_LAYERS in a
+    Generator and a ServeEngine at batch 8 whose waves reuse a slot;
+    launches per step held to SMALLTHINKER_* / QNEXT_*, the recurrence's
+    share of Qwen3-Next's chunk recorded."""
+    hybrid_window_kernel_checks(rows, entries)
+    torch.cuda.empty_cache()
+    routed_parity(result, gqa_variant("smallthinker_w4a8",
+                                      smallthinker_cfg(2)))
+    routed_parity(result, gqa_variant("qnext_w4a8", qnext_cfg(4)))
+    vocab = smallthinker_cfg()["vocab_size"]
+    long_prompt = np.random.default_rng(4608).integers(
+        0, vocab, WINDOW_PROMPT).tolist()
+    f32_engine_check(result, "smallthinker", smallthinker_cfg(4),
+                     [long_prompt, long_prompt[:300], long_prompt[-77:]])
+    f32_engine_check(result, "qnext", qnext_cfg(4),
+                     [long_prompt[:600], long_prompt[:300],
+                      long_prompt[-77:]])
+
+    # SmallThinker: the 4,608-token prompt single-user and in the engine
+    from ktransformers_tpu_torch.serving import SchedulerConfig
+
+    sched = SchedulerConfig(max_pages_per_query=WINDOW_MAX_LEN // 64)
+    gen = serve(result, quant="int8", moe_quant="int4_g",
+                key="serve_smallthinker", requests=2,
+                expect=SMALLTHINKER_SINGLE_USER_KERNELS,
+                cfg=smallthinker_cfg(), max_len=WINDOW_MAX_LEN,
+                prompt_lens=[WINDOW_PROMPT, 512])
+    step_launches(result, gen, "smallthinker_step_launches",
+                  SMALLTHINKER_STEP_LAUNCHES)
+    prompts = paged_prompts(vocab)
+    prompts[0] = long_prompt
+    prompts[4][:256] = long_prompt[:256]
+    paged_serve(result, gen, key="paged_serve_smallthinker", depths=(3,),
+                expect=SMALLTHINKER_PAGED_KERNELS, prompts=prompts,
+                sched=sched, reroutes=True)
+    profile_steps(result, gen, prefix="smallthinker_")
+    profile_engine_steps(result, gen, prefix="smallthinker_")
+    hold_engine_steps(result, "smallthinker",
+                      SMALLTHINKER_ENGINE_STEP_LAUNCHES)
+    del gen
+    torch.cuda.empty_cache()
+
+    # Qwen3-Next: single user, the engine's waves, the recurrence's share
+    gen = serve(result, quant="int8", moe_quant="int4_g", key="serve_qnext",
+                requests=2, expect=QNEXT_SINGLE_USER_KERNELS,
+                cfg=qnext_cfg())
+    step_launches(result, gen, "qnext_step_launches", QNEXT_STEP_LAUNCHES)
+    paged_serve(result, gen, key="paged_serve_qnext", depths=(3,),
+                expect=QNEXT_PAGED_KERNELS)
+    profile_steps(result, gen, prefix="qnext_")
+    profile_engine_steps(result, gen, prefix="qnext_")
+    hold_engine_steps(result, "qnext", QNEXT_ENGINE_STEP_LAUNCHES)
+    recurrence_share(result, gen)
+    del gen
+    torch.cuda.empty_cache()
 
 
 def _qtensors(node):
@@ -4520,6 +5066,9 @@ def main() -> int:
     # Llama-3.1-8B at full depth, GLM-4.5-Air cut to GLM_LAYERS
     dense_glm_run(result, rows, entries)
     phase("dense_glm")
+    # SmallThinker-21B past its window, Qwen3-Next's hybrid layers
+    hybrid_window_run(result, rows, entries)
+    phase("hybrid_window")
 
     sources = {
         # plain XLA in the JAX package, no Pallas kernel
@@ -4578,7 +5127,8 @@ def main() -> int:
     # parameters, then Mixtral-8x7B; then the SFT steps; then DeepSeek-V3 on
     # W4A8 and on int8 parameters; then the GGUF DeepSeek-V2-Lite; then
     # Qwen3-30B-A3B and Qwen2-57B-A14B; then Llama-3.1-8B and
-    # GLM-4.5-Air); a kernel's count is the sum over them
+    # GLM-4.5-Air; then SmallThinker-21B and Qwen3-Next-80B-A3B); a
+    # kernel's count is the sum over them
     runs = {
         "single_user": result["serve"],
         "paged_serve": result["paged_serve"]["runs"][3],
@@ -4601,6 +5151,11 @@ def main() -> int:
         "paged_serve_llama": result["paged_serve_llama"]["runs"][3],
         "single_user_glm": result["serve_glm"],
         "paged_serve_glm": result["paged_serve_glm"]["runs"][3],
+        "single_user_smallthinker": result["serve_smallthinker"],
+        "paged_serve_smallthinker":
+            result["paged_serve_smallthinker"]["runs"][3],
+        "single_user_qnext": result["serve_qnext"],
+        "paged_serve_qnext": result["paged_serve_qnext"]["runs"][3],
     }
     paths = {k: dict(r["launches"]) for k, r in runs.items()}
     # the redesigned kernels: launches of their wrappers' calls that took them
@@ -4668,12 +5223,25 @@ def main() -> int:
                                         "paged_serve_qwen3",
                                         "paged_serve_qwen2",
                                         "paged_serve_llama",
-                                        "paged_serve_glm")),
+                                        "paged_serve_glm",
+                                        "paged_serve_smallthinker",
+                                        "paged_serve_qnext")),
             ("gqa_decode_split_kernel", ("paged_serve_mixtral",
                                          "paged_serve_qwen3",
                                          "paged_serve_qwen2",
                                          "paged_serve_llama",
-                                         "paged_serve_glm")),
+                                         "paged_serve_glm",
+                                         "paged_serve_smallthinker",
+                                         "paged_serve_qnext")),
+            # SmallThinker's windowed layers and Qwen3-Next's D = 256 on
+            # both GQA wrappers; their ReLU / silu experts on the fused FFN
+            *((k, ("paged_serve_smallthinker", "paged_serve_qnext"))
+              for k in ("gqa_paged_decode", "gqa_paged_prefill")),
+            *((k, ("single_user_smallthinker", "paged_serve_smallthinker",
+                   "single_user_qnext", "paged_serve_qnext"))
+              for k in ("gathered_w4a8_ffn", "grouped_w4a8_ffn",
+                        "w4a8_ffn_gemv_kernel", "w4a8_ffn_mma_kernel",
+                        "quant_matmul")),
             # row 9 on Llama's paths (its GEMV at decode, its tensor-core
             # kernel at prefill), rows 13 and 15 on both models' paged
             # paths, GLM's experts on rows 7 and 8

@@ -4,7 +4,9 @@
 Pages are shared across layers by index: page p of layer l is bufs[l][p],
 so one page id serves the whole model. Unlike the JAX package the pools are
 updated IN PLACE (models/paged.py writes into them); a PagedKVCache is a
-handle on buffers, not a value.
+handle on buffers, not a value. A hybrid model's GatedDeltaNet layers hold
+no pages: their two buffers are O(1) state per slot (``linear_slots`` rows,
+the engine's decode-batch slots).
 """
 
 from __future__ import annotations
@@ -20,20 +22,29 @@ from ktransformers_tpu_torch.models.spec import ModelSpec
 class PagedKVCache:
     """MLA: bufs_a[l] ckv pages [P, page, R], bufs_b[l] k_pe pages
     [P, page, Dr]. GQA: bufs_a[l] k pages, bufs_b[l] v pages, both
-    [P, page, Hkv, D] (k roped)."""
+    [P, page, Hkv, D] (k roped). A GatedDeltaNet layer: bufs_a[l] the conv
+    tails [slots, K, conv_dim], bufs_b[l] the float32 recurrent states
+    [slots, Hv, dk, dv]."""
 
     bufs_a: list
     bufs_b: list
     page_size: int = 64
+    linear_layers: tuple = ()  # layers whose buffers are slot state
+
+    @property
+    def paged_layers(self) -> list:
+        """Indices of the layers whose buffers are page pools."""
+        return [li for li in range(len(self.bufs_a))
+                if li not in self.linear_layers]
 
     @property
     def num_pages(self) -> int:
-        return self.bufs_a[0].shape[0]
+        return self.bufs_a[self.paged_layers[0]].shape[0]
 
     @staticmethod
     def create(spec: ModelSpec, num_pages: int, page_size: int = 64,
                dtype=torch.bfloat16, summaries: bool = False,
-               device="cuda") -> "PagedKVCache":
+               device="cuda", linear_slots: int = 8) -> "PagedKVCache":
         a = spec.attention
         if summaries:
             raise NotImplementedError(
@@ -44,21 +55,38 @@ class PagedKVCache:
             sb = (num_pages, page_size, a.qk_rope_head_dim)
         else:
             sa = sb = (num_pages, page_size, a.num_kv_heads, a.head_dim)
-        n = spec.num_layers
-        return PagedKVCache(
-            bufs_a=[torch.zeros(sa, dtype=dtype, device=device)
-                    for _ in range(n)],
-            bufs_b=[torch.zeros(sb, dtype=dtype, device=device)
-                    for _ in range(n)],
-            page_size=page_size,
-        )
+        bufs_a, bufs_b, linear = [], [], []
+        for li in range(spec.num_layers):
+            if spec.layer_kind(li) == "linear":
+                la = spec.linear_attn
+                linear.append(li)
+                bufs_a.append(torch.zeros(
+                    (linear_slots, la.conv_kernel, la.conv_dim), dtype=dtype,
+                    device=device))
+                bufs_b.append(torch.zeros(
+                    (linear_slots, la.num_v_heads, la.head_k_dim,
+                     la.head_v_dim), dtype=torch.float32, device=device))
+            else:
+                bufs_a.append(torch.zeros(sa, dtype=dtype, device=device))
+                bufs_b.append(torch.zeros(sb, dtype=dtype, device=device))
+        return PagedKVCache(bufs_a=bufs_a, bufs_b=bufs_b,
+                            page_size=page_size, linear_layers=tuple(linear))
 
     def bytes_per_page(self) -> int:
-        """Bytes one page id holds over all layers (both pools)."""
-        a, b = self.bufs_a[0], self.bufs_b[0]
-        per_layer = (a[0].numel() * a.element_size()
-                     + b[0].numel() * b.element_size())
-        return per_layer * len(self.bufs_a)
+        """Bytes one page id holds over all paged layers (both pools)."""
+        per_page = 0
+        for li in self.paged_layers:
+            a, b = self.bufs_a[li], self.bufs_b[li]
+            per_page += (a[0].numel() * a.element_size()
+                         + b[0].numel() * b.element_size())
+        return per_page
+
+    def state_bytes(self) -> int:
+        """Bytes of the linear layers' slot state (conv tails and
+        recurrent states, every slot)."""
+        return sum(self.bufs_a[li].numel() * self.bufs_a[li].element_size()
+                   + self.bufs_b[li].numel() * self.bufs_b[li].element_size()
+                   for li in self.linear_layers)
 
 
 class PageAllocator:

@@ -16,11 +16,15 @@ their fields only and imports nothing from the JAX package. Handled:
   points, float8_e4m3fn data and uint8 ue8m0 exponents;
 - LoRA adapters: the "<key>_lora" dicts and MoEWeights.lora. Expert
   parallelism (logical_to_physical, expert_mask) and fused shared experts
-  (n_shared_fused) are not ported and raise rather than being dropped.
+  (n_shared_fused) are not ported and raise rather than being dropped;
+- a GatedDeltaNet layer's leaves (conv_w, A_log, dt_bias, norm_w, the bf16
+  in_proj_ba, the quantized in_proj_qkvz / out_proj) cross as they are;
+  a gated q_proj is twice as wide inside the fused qkv.
 
-``paged_cache_from_jax(kv, device)`` carries a JAX PagedKVCache (MLA or GQA
-pools, numpy leaves) across, so a run can prefill on one side and continue
-on the other. Scheduler, allocator and prefix cache hold only Python state and
+``paged_cache_from_jax(kv, spec, device)`` carries a JAX PagedKVCache (MLA
+or GQA pools, and a hybrid model's conv tails [slots, K, conv_dim] and
+float32 recurrent states [slots, Hv, dk, dv], numpy leaves) across, so a
+run can prefill on one side and continue on the other. Scheduler, allocator and prefix cache hold only Python state and
 need no conversion.
 """
 
@@ -90,7 +94,8 @@ def params_from_jax(tree, spec: ModelSpec, device="cuda"):
                     ) + a.kv_lora_rank + a.qk_rope_head_dim
     else:
         fkey = "qkv"
-        qkv_cols = (a.num_heads + 2 * a.num_kv_heads) * a.head_dim
+        qkv_cols = (a.num_heads * (2 if a.gated_output else 1)
+                    + 2 * a.num_kv_heads) * a.head_dim
 
     def conv(node, key=None):
         if _is_qtensor(node):
@@ -121,10 +126,12 @@ def params_from_jax(tree, spec: ModelSpec, device="cuda"):
     return conv(tree)
 
 
-def paged_cache_from_jax(kv, device="cuda") -> PagedKVCache:
+def paged_cache_from_jax(kv, spec: ModelSpec, device="cuda") -> PagedKVCache:
     """The JAX package's PagedKVCache after ``jax.device_get`` (bufs_a /
-    bufs_b lists of numpy arrays, page_size) as the port's, on device.
-    Page summaries for sparse decode are not ported and raise."""
+    bufs_b lists of numpy arrays, page_size) as the port's, on device; the
+    ``spec`` it was made for marks which layers hold slot state (a hybrid
+    model's linear layers). Page summaries for sparse decode are not
+    ported and raise."""
     if any(getattr(kv, n, None) is not None
            for n in ("smin", "smax", "ssum", "sfix", "sdyn")):
         raise ValueError("page summaries (sparse decode) are not ported")
@@ -132,4 +139,6 @@ def paged_cache_from_jax(kv, device="cuda") -> PagedKVCache:
         bufs_a=[tensor_from_numpy(a, device) for a in kv.bufs_a],
         bufs_b=[tensor_from_numpy(b, device) for b in kv.bufs_b],
         page_size=int(kv.page_size),
+        linear_layers=tuple(li for li in range(spec.num_layers)
+                            if spec.layer_kind(li) == "linear"),
     )

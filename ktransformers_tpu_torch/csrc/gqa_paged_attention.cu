@@ -41,7 +41,15 @@
 //   B: online softmax   (warp w owns rows 8w..8w+7, one key per lane),
 //   C: acc += P V       (8 rows x 4 columns a thread, in registers).
 // That kernel keeps float32 calls; bf16 calls take gqa_prefill_mma_kernel
-// (the end of this file) on the tensor cores. Shapes: D = 128.
+// (the end of this file) on the tensor cores.
+//
+// Head dims D = 128 and 256 (Qwen3-Next's full-attention layers): every
+// kernel is a template on D, instantiated for both; the C entry points take
+// D and refuse any other. At D = 256 the first decode takes D threads (a
+// column each, two heads' softmax a warp) and its tiles in dynamic shared
+// memory, the first prefill four columns a lane twice.
+#include <type_traits>
+
 #include "mma_sm90.cuh"
 #include "online_softmax.cuh"
 
@@ -54,10 +62,8 @@ using kt_mla::to_f;
 using kt_mla::warp_max;
 using kt_mla::warp_sum;
 
-constexpr int D = 128;   // head dim
-constexpr int DC = D / 8;  // 8-element chunks of a row
-
 // Row `pos` of KV head kh of a sequence whose page table is tb.
+template <int D>
 __device__ __forceinline__ size_t kv_offset(const int* __restrict__ tb,
                                             int pos, int page, int Hkv,
                                             int kh) {
@@ -78,30 +84,43 @@ __device__ __forceinline__ void load8_or_zero(const T* p, bool live,
 
 // ---- decode ----
 
-constexpr int DEC_THREADS = D;  // thread t owns output column t
-constexpr int DEC_WARPS = DEC_THREADS / 32;
 constexpr int DEC_TK = 32;      // keys per staged tile (a lane each in B)
-constexpr int HPW = 4;          // query heads whose softmax state a warp runs
-constexpr int GMAX = HPW * DEC_WARPS;  // query heads per KV head (16)
-constexpr int KLD = D + 1;      // k tile row stride: lanes hit distinct banks
+constexpr int GMAX = 16;        // query heads per KV head
 constexpr int SPLIT_KEYS = 256; // keys of one piece (8 tiles)
+
+template <int D>
+struct Dec {
+  static constexpr int DC = D / 8;        // 8-element chunks of a row
+  static constexpr int THREADS = D;       // thread t owns output column t
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int HPW = GMAX / WARPS;  // heads whose softmax a warp runs
+  static constexpr int KLD = D + 1;       // k tile row stride: distinct banks
+  // q [GMAX][D], k [DEC_TK][KLD], v [DEC_TK][D], p [GMAX][DEC_TK], corr and
+  // l [GMAX], floats
+  static constexpr int SMEM =
+      (GMAX * D + DEC_TK * KLD + DEC_TK * D + GMAX * DEC_TK + 2 * GMAX) * 4;
+};
 
 // part: per (sequence, KV head, piece) G maxima, G sums and G x D context
 // sums (unnormalized), float32; read only when there is more than one piece.
-template <typename T>
-__global__ void __launch_bounds__(DEC_THREADS)
+template <typename T, int D>
+__global__ void __launch_bounds__(Dec<D>::THREADS)
     gqa_paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                             const T* __restrict__ vp,
                             const int* __restrict__ tables,
                             const int* __restrict__ lengths, int H, int Hkv,
                             int page, int pmax, int window, float scale,
                             T* __restrict__ out, float* __restrict__ part) {
-  __shared__ float q_s[GMAX][D];
-  __shared__ float k_s[DEC_TK][KLD];
-  __shared__ float v_s[DEC_TK][D];
-  __shared__ float p_s[GMAX][DEC_TK];
-  __shared__ float corr_s[GMAX];
-  __shared__ float l_s[GMAX];
+  constexpr int DC = Dec<D>::DC, DEC_THREADS = Dec<D>::THREADS;
+  constexpr int DEC_WARPS = Dec<D>::WARPS, HPW = Dec<D>::HPW;
+  constexpr int KLD = Dec<D>::KLD;
+  extern __shared__ __align__(16) float dsm[];
+  float* q_s = dsm;                      // [GMAX][D]
+  float* k_s = q_s + GMAX * D;           // [DEC_TK][KLD]
+  float* v_s = k_s + DEC_TK * KLD;       // [DEC_TK][D]
+  float* p_s = v_s + DEC_TK * D;         // [GMAX][DEC_TK]
+  float* corr_s = p_s + GMAX * DEC_TK;   // [GMAX]
+  float* l_s = corr_s + GMAX;            // [GMAX]
 
   const int b = blockIdx.x, kh = blockIdx.y, piece = blockIdx.z;
   const int G = H / Hkv;
@@ -115,7 +134,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
   const size_t qoff = ((size_t)b * H + (size_t)kh * G) * D;
 
   for (int i = tid; i < G * D; i += DEC_THREADS)
-    q_s[i / D][i % D] = to_f(q[qoff + i]);
+    q_s[i] = to_f(q[qoff + i]);
 
   // warp w runs the softmax state of heads w + j * DEC_WARPS, j < HPW
   float m[HPW], l[HPW];
@@ -134,14 +153,14 @@ __global__ void __launch_bounds__(DEC_THREADS)
     for (int c = tid; c < DEC_TK * DC; c += DEC_THREADS) {
       const int r = c / DC, col = (c % DC) * 8;
       const size_t off =
-          r < kn ? kv_offset(tb, k0 + r, page, Hkv, kh) + col : 0;
+          r < kn ? kv_offset<D>(tb, k0 + r, page, Hkv, kh) + col : 0;
       float kv[8], vv[8];
       load8_or_zero(kp + off, r < kn, kv);
       load8_or_zero(vp + off, r < kn, vv);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        k_s[r][col + j] = kv[j];
-        v_s[r][col + j] = vv[j];
+        k_s[r * KLD + col + j] = kv[j];
+        v_s[r * D + col + j] = vv[j];
       }
     }
     __syncthreads();
@@ -151,8 +170,8 @@ __global__ void __launch_bounds__(DEC_THREADS)
       const int g = i / DEC_TK, k = i % DEC_TK;
       float s = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < D; ++d) s = fmaf(q_s[g][d], k_s[k][d], s);
-      p_s[g][k] = s * scale;
+      for (int d = 0; d < D; ++d) s = fmaf(q_s[g * D + d], k_s[k * KLD + d], s);
+      p_s[g * DEC_TK + k] = s * scale;
     }
     __syncthreads();
 
@@ -162,13 +181,13 @@ __global__ void __launch_bounds__(DEC_THREADS)
       const int g = warp + j * DEC_WARPS;
       if (g < G) {
         const bool ok = lane < kn;
-        const float sc = ok ? p_s[g][lane] : NEG_INF;
+        const float sc = ok ? p_s[g * DEC_TK + lane] : NEG_INF;
         const float m_new = fmaxf(m[j], warp_max(sc));
         const float p = ok ? expf(sc - m_new) : 0.f;
         const float corr = expf(m[j] - m_new);
         l[j] = l[j] * corr + warp_sum(p);
         m[j] = m_new;
-        p_s[g][lane] = p;
+        p_s[g * DEC_TK + lane] = p;
         if (lane == 0) corr_s[g] = corr;
       }
     }
@@ -179,7 +198,8 @@ __global__ void __launch_bounds__(DEC_THREADS)
     for (int g = 0; g < GMAX; ++g) {
       if (g < G) {
         float a = acc[g] * corr_s[g];
-        for (int k = 0; k < kn; ++k) a = fmaf(p_s[g][k], v_s[k][tid], a);
+        for (int k = 0; k < kn; ++k)
+          a = fmaf(p_s[g * DEC_TK + k], v_s[k * D + tid], a);
         acc[g] = a;
       }
     }
@@ -218,8 +238,8 @@ __global__ void __launch_bounds__(DEC_THREADS)
 
 // Merge the pieces of one (sequence, KV head): thread t owns column t of
 // each of its G heads. A head with no key in any piece gives zeros.
-template <typename T>
-__global__ void __launch_bounds__(DEC_THREADS)
+template <typename T, int D>
+__global__ void __launch_bounds__(Dec<D>::THREADS)
     gqa_decode_combine_kernel(const float* __restrict__ part, int H, int Hkv,
                               int pieces, T* __restrict__ out) {
   const int b = blockIdx.x, kh = blockIdx.y, tid = threadIdx.x;
@@ -245,12 +265,19 @@ __global__ void __launch_bounds__(DEC_THREADS)
 constexpr int PF_THREADS = 256;
 constexpr int TQ = 64;          // query rows per block (8 a warp in B and C)
 constexpr int TK = 32;          // keys per staged tile
-constexpr int QLD = D + 4;      // q / k row stride in floats: QLD / 4 odd,
-                                // so float4 reads of 8 rows hit 8 bank groups
 constexpr int SLD = TK + 1;
-constexpr size_t PF_SMEM =
-    (size_t)(TQ * QLD + TK * QLD + TK * D + TQ * SLD + TK * TQ) *
-    sizeof(float);
+
+template <int D>
+struct Pf {
+  static constexpr int DC = D / 8;
+  static constexpr int QLD = D + 4;  // q / k row stride in floats: QLD / 4
+                                     // odd, so float4 reads of 8 rows hit 8
+                                     // bank groups
+  static constexpr int NC = D / 128;  // float4 columns a lane in C
+  static constexpr size_t SMEM =
+      (size_t)(TQ * QLD + TK * QLD + TK * D + TQ * SLD + TK * TQ) *
+      sizeof(float);
+};
 
 __device__ __forceinline__ float dot4(const float4& a, const float4& b,
                                       float acc) {
@@ -267,7 +294,7 @@ __device__ __forceinline__ void store8(float* dst, const float v[8]) {
   d[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(PF_THREADS)
     gqa_paged_prefill_kernel(const T* __restrict__ q,
                              const T* __restrict__ kp,
@@ -277,6 +304,7 @@ __global__ void __launch_bounds__(PF_THREADS)
                              const int* __restrict__ valid, int H, int Hkv,
                              int S, int page, int pmax, int window,
                              float scale, T* __restrict__ out) {
+  constexpr int DC = Pf<D>::DC, QLD = Pf<D>::QLD, NC = Pf<D>::NC;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;               // [TQ][QLD]
   float* k_s = q_s + TQ * QLD;     // [TK][QLD]
@@ -310,14 +338,15 @@ __global__ void __launch_bounds__(PF_THREADS)
   }
 
   // warp w owns rows 8w .. 8w+7 in phases B and C; lane owns columns
-  // 4*lane .. 4*lane+3 in C
+  // 4 * (lane + 32 j) .. + 3, j < NC, in C
   float m[8], l[8];
-  float4 acc[8];
+  float4 acc[8][NC];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
   // keys the tile's rows can see: causal limit of its last position, window
@@ -336,7 +365,7 @@ __global__ void __launch_bounds__(PF_THREADS)
     for (int i = tid; i < TK * DC; i += PF_THREADS) {
       const int r = i / DC, col = (i % DC) * 8;
       const size_t off =
-          r < kn ? kv_offset(tb, k0 + r, page, Hkv, kh) + col : 0;
+          r < kn ? kv_offset<D>(tb, k0 + r, page, Hkv, kh) + col : 0;
       float kv[8], vv[8];
       load8_or_zero(kp + off, r < kn, kv);
       load8_or_zero(vp + off, r < kn, vv);
@@ -394,10 +423,13 @@ __global__ void __launch_bounds__(PF_THREADS)
     // C: acc = acc * corr + P V
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      acc[i].x *= corr[i];
-      acc[i].y *= corr[i];
-      acc[i].z *= corr[i];
-      acc[i].w *= corr[i];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        acc[i][j].x *= corr[i];
+        acc[i][j].y *= corr[i];
+        acc[i][j].z *= corr[i];
+        acc[i][j].w *= corr[i];
+      }
     }
     for (int k = 0; k < kn; ++k) {
       const float4 pa = *reinterpret_cast<const float4*>(pt_s + k * TQ +
@@ -405,13 +437,17 @@ __global__ void __launch_bounds__(PF_THREADS)
       const float4 pb = *reinterpret_cast<const float4*>(pt_s + k * TQ +
                                                          8 * warp + 4);
       const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-      const float4 v = reinterpret_cast<const float4*>(v_s + k * D)[lane];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        acc[i].x = fmaf(pr[i], v.x, acc[i].x);
-        acc[i].y = fmaf(pr[i], v.y, acc[i].y);
-        acc[i].z = fmaf(pr[i], v.z, acc[i].z);
-        acc[i].w = fmaf(pr[i], v.w, acc[i].w);
+      for (int j = 0; j < NC; ++j) {
+        const float4 v =
+            reinterpret_cast<const float4*>(v_s + k * D)[lane + 32 * j];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[i][j].x = fmaf(pr[i], v.x, acc[i][j].x);
+          acc[i][j].y = fmaf(pr[i], v.y, acc[i][j].y);
+          acc[i][j].z = fmaf(pr[i], v.z, acc[i][j].z);
+          acc[i][j].w = fmaf(pr[i], v.w, acc[i][j].w);
+        }
       }
     }
   }
@@ -421,59 +457,65 @@ __global__ void __launch_bounds__(PF_THREADS)
     const int flat = q0 + 8 * warp + i;
     if (flat >= rows) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* o = out + row_offset(flat) + 4 * lane;
-    from_f(o, acc[i].x * inv);
-    from_f(o + 1, acc[i].y * inv);
-    from_f(o + 2, acc[i].z * inv);
-    from_f(o + 3, acc[i].w * inv);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      T* o = out + row_offset(flat) + 4 * (lane + 32 * j);
+      from_f(o, acc[i][j].x * inv);
+      from_f(o + 1, acc[i][j].y * inv);
+      from_f(o + 2, acc[i][j].z * inv);
+      from_f(o + 3, acc[i][j].w * inv);
+    }
   }
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_decode(const void* q, const void* k, const void* v,
                   const int* tables, const int* lengths, int B, int H,
                   int Hkv, int page, int pmax, int window, float scale,
                   void* out, float* part, cudaStream_t st) {
+  auto kernel = gqa_paged_decode_kernel<T, D>;
+  static int ready_dev = -1;
+  cudaError_t err = kt_mma::allow_smem(kernel, Dec<D>::SMEM, &ready_dev);
+  if (err != cudaSuccess) return (int)err;
   const int pieces = (page * pmax + SPLIT_KEYS - 1) / SPLIT_KEYS;
   dim3 grid(B, Hkv, pieces);
-  gqa_paged_decode_kernel<T><<<grid, DEC_THREADS, 0, st>>>(
+  kernel<<<grid, Dec<D>::THREADS, Dec<D>::SMEM, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), tables, lengths, H, Hkv, page, pmax, window,
       scale, static_cast<T*>(out), part);
   if (pieces > 1) {
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    gqa_decode_combine_kernel<T><<<dim3(B, Hkv), DEC_THREADS, 0, st>>>(
-        part, H, Hkv, pieces, static_cast<T*>(out));
+    gqa_decode_combine_kernel<T, D><<<dim3(B, Hkv), Dec<D>::THREADS, 0,
+                                      st>>>(part, H, Hkv, pieces,
+                                            static_cast<T*>(out));
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_prefill(const void* q, const void* k, const void* v,
                    const int* tables, const int* lengths, const int* valid,
                    int C, int H, int Hkv, int S, int page, int pmax,
                    int window, float scale, void* out, cudaStream_t st) {
-  auto kernel = gqa_paged_prefill_kernel<T>;
+  auto kernel = gqa_paged_prefill_kernel<T, D>;
   // raise the dynamic shared memory limit once per instantiation and device
   static int ready_dev = -1;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = kt_mma::allow_smem(kernel, (int)Pf<D>::SMEM, &ready_dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev != ready_dev) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PF_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    ready_dev = dev;
-  }
   const int G = H / Hkv;
   dim3 grid((G * S + TQ - 1) / TQ, Hkv, C);
-  kernel<<<grid, PF_THREADS, PF_SMEM, st>>>(
+  kernel<<<grid, PF_THREADS, Pf<D>::SMEM, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), tables, lengths, valid, H, Hkv, S, page, pmax,
       window, scale, static_cast<T*>(out));
   return (int)cudaGetLastError();
 }
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
 
 }  // namespace
 
@@ -484,52 +526,67 @@ extern "C" int kt_gqa_decode_pieces(int page, int pmax) {
   return (page * pmax + SPLIT_KEYS - 1) / SPLIT_KEYS;
 }
 
-// dtype: 0 float32, 1 bfloat16 (q, both pools and out share it). q [B, H,
-// D], pools [P, page, Hkv, D], tables [B, pmax] int32, lengths [B] int32
-// (valid KV length, current token included), out [B, H, D], part the
-// scratch above. Returns the cudaError_t.
+// dtype: 0 float32, 1 bfloat16 (q, both pools and out share it); D: 128 or
+// 256. q [B, H, D], pools [P, page, Hkv, D], tables [B, pmax] int32,
+// lengths [B] int32 (valid KV length, current token included), out [B, H,
+// D], part the scratch above. Returns the cudaError_t.
 extern "C" int kt_gqa_paged_decode(const void* q, const void* k_pages,
                                    const void* v_pages, const void* tables,
                                    const void* lengths, int B, int H, int Hkv,
                                    int page, int pmax, int window, float scale,
-                                   int dtype, void* out, void* part,
+                                   int dtype, int D, void* out, void* part,
                                    void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > GMAX || page <= 0 || pmax <= 0)
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > GMAX || page <= 0 || pmax <= 0 ||
+      (D != 128 && D != 256))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lengths);
   float* pt = static_cast<float*>(part);
+  auto go = [&](auto tag, auto dim) {
+    using T = typename decltype(tag)::type;
+    return launch_decode<T, decltype(dim)::value>(
+        q, k_pages, v_pages, tb, ln, B, H, Hkv, page, pmax, window, scale,
+        out, pt, st);
+  };
+  using D128 = std::integral_constant<int, 128>;
+  using D256 = std::integral_constant<int, 256>;
   if (dtype == 1)
-    return launch_decode<__nv_bfloat16>(q, k_pages, v_pages, tb, ln, B, H, Hkv,
-                                        page, pmax, window, scale, out, pt,
-                                        st);
-  return launch_decode<float>(q, k_pages, v_pages, tb, ln, B, H, Hkv, page,
-                              pmax, window, scale, out, pt, st);
+    return D == 128 ? go(Tag<__nv_bfloat16>(), D128())
+                    : go(Tag<__nv_bfloat16>(), D256());
+  return D == 128 ? go(Tag<float>(), D128()) : go(Tag<float>(), D256());
 }
 
 // q [C, H, S, D] (roped), tables [C, pmax], lengths [C] OLD cached length,
-// valid [C] live new tokens, out [C, H, S, D].
+// valid [C] live new tokens, out [C, H, S, D]; D 128 or 256.
 extern "C" int kt_gqa_paged_prefill(const void* q, const void* k_pages,
                                     const void* v_pages, const void* tables,
                                     const void* lengths, const void* valid,
                                     int C, int H, int Hkv, int S, int page,
                                     int pmax, int window, float scale,
-                                    int dtype, void* out, void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || page <= 0 || pmax <= 0 || S <= 0)
+                                    int dtype, int D, void* out,
+                                    void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || page <= 0 || pmax <= 0 || S <= 0 ||
+      (D != 128 && D != 256))
     return (int)cudaErrorInvalidValue;
   if (C == 0 || H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lengths);
   const int* vl = static_cast<const int*>(valid);
+  auto go = [&](auto tag, auto dim) {
+    using T = typename decltype(tag)::type;
+    return launch_prefill<T, decltype(dim)::value>(
+        q, k_pages, v_pages, tb, ln, vl, C, H, Hkv, S, page, pmax, window,
+        scale, out, st);
+  };
+  using D128 = std::integral_constant<int, 128>;
+  using D256 = std::integral_constant<int, 256>;
   if (dtype == 1)
-    return launch_prefill<__nv_bfloat16>(q, k_pages, v_pages, tb, ln, vl, C,
-                                         H, Hkv, S, page, pmax, window, scale,
-                                         out, st);
-  return launch_prefill<float>(q, k_pages, v_pages, tb, ln, vl, C, H, Hkv, S,
-                               page, pmax, window, scale, out, st);
+    return D == 128 ? go(Tag<__nv_bfloat16>(), D128())
+                    : go(Tag<__nv_bfloat16>(), D256());
+  return D == 128 ? go(Tag<float>(), D128()) : go(Tag<float>(), D256());
 }
 
 // ---- gqa_prefill_mma_kernel: the bf16 gqa_paged_prefill on tensor cores ----
@@ -583,41 +640,69 @@ extern "C" int kt_gqa_paged_prefill(const void* q, const void* k_pages,
 // Shared memory: the ring, 3 x (K + V) x 64 x 272 B = 102 KB. ptxas
 // (sm_90a): 180 registers at KSP = 2, 213 at KSP = 1, no spill; one block
 // an SM.
+// At D = 256 (Qwen3-Next) a warp's 16 rows hold 128 float32 accumulators a
+// thread: the layout stays (a warp owns its rows and all 256 columns, so
+// nothing but the tiles is shared), and two things make room for them.
+// The query fragments (64 registers at D = 256) are not held: they are read
+// from the staged query rows by ldmatrix at each k16 step of every tile,
+// and those rows stay staged, after the ring. The tiles hold TK = 32 keys
+// (LDS = 264, 528 B = 33 units), so that ring (3 x (K + V) x 32 x 528 B =
+// 99 KB) and query rows (128 x 528 B = 66 KB, or 33 KB at 64 rows) fit the
+// block's 227 KB together; at 64 rows each warp of a pair takes 16 keys of
+// a tile.
 // (KT_GQA_CUT_MMA and KT_GQA_CUT_SOFTMAX compile the products and the
 // exponentials out for ops/cuda/breakdown.py; the loads stay live.)
 namespace kt_gqa_mma {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int D = 128;
-constexpr int CH = D / 8;        // 16-byte copies a row
-constexpr int LDS = D + 8;       // staged row stride (bf16 values)
-constexpr int TK = 64;           // keys a tile
-constexpr int DK = D / 16;       // k16 steps of Q K^T
-constexpr int NO = D / 8;        // n8 output tiles
-constexpr int TILE = TK * LDS;   // one staged K or V tile (values)
 constexpr int STAGES = 3;        // ring stages of K + V tiles
-constexpr int STAGE = 2 * TILE;  // one stage: K then V (values)
 constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
-constexpr int SMEM = STAGES * STAGE * 2;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// KSP warps share each of the block's row groups, each KW keys of a tile
-template <int KSP>
-struct Shape {
-  static constexpr int RGN = NWARP / KSP;  // row groups a block
-  static constexpr int ROWS = 16 * RGN;
-  static constexpr int KW = TK / KSP;      // keys a warp scores a tile
-  static constexpr int NS = KW / 8;        // its n8 score tiles
-  static constexpr int KS = KW / 16;       // its k16 steps of P V
-  static_assert(ROWS * LDS <= STAGE, "query rows fit one stage");
-  static_assert((KSP - 1) * 32 * (4 + 4 * NO) * 4 * RGN <= SMEM,
-                "the merge's states fit the ring");
+// Shapes of one head dim. At D = 128 a tile holds TK = 64 keys and a warp's
+// query fragments stay in registers for the walk (QREG); at D = 256 (a
+// warp's 16 rows then hold 128 float32 accumulators a thread) a tile holds
+// 32 keys, so that the ring and the query rows of 128 rows fit the block's
+// shared memory beside each other, and the fragments are read again from
+// the staged query rows at every tile (ldmatrix), 64 registers fewer.
+template <int D>
+struct Dim {
+  static constexpr int CH = D / 8;        // 16-byte copies a row
+  static constexpr int LDS = D + 8;       // staged row stride (bf16 values)
+  static constexpr int TK = D == 128 ? 64 : 32;  // keys a tile
+  static constexpr int DK = D / 16;       // k16 steps of Q K^T
+  static constexpr int NO = D / 8;        // n8 output tiles
+  static constexpr int TILE = TK * LDS;   // one staged K or V tile (values)
+  static constexpr int STAGE = 2 * TILE;  // one stage: K then V (values)
+  static constexpr int RING = STAGES * STAGE * 2;  // bytes
+  static constexpr bool QREG = D == 128;
 };
 
-template <int KSP>
+// KSP warps share each of the block's row groups, each KW keys of a tile
+template <int D, int KSP>
+struct Shape {
+  using Dm = Dim<D>;
+  static constexpr int RGN = NWARP / KSP;  // row groups a block
+  static constexpr int ROWS = 16 * RGN;
+  static constexpr int KW = Dm::TK / KSP;  // keys a warp scores a tile
+  static constexpr int NS = KW / 8;        // its n8 score tiles
+  static constexpr int KS = KW / 16;       // its k16 steps of P V
+  // the query rows: in the ring's last stage (free until tile 2 is issued)
+  // with QREG, else after the ring
+  static constexpr int SMEM =
+      Dm::RING + (Dm::QREG ? 0 : ROWS * Dm::LDS * 2);
+  static_assert(!Dm::QREG || ROWS * Dm::LDS <= Dm::STAGE,
+                "query rows fit one stage");
+  static_assert(KS >= 1 && NS % 2 == 0, "whole k16 steps a warp");
+  static_assert((KSP - 1) * 32 * (4 + 4 * Dm::NO) * 4 * RGN <= Dm::RING,
+                "the merge's states fit the ring");
+  static_assert(SMEM <= 232448, "a block's shared memory");
+};
+
+template <int D, int KSP>
 __global__ void __launch_bounds__(THREADS, 1)
     gqa_prefill_mma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ kp,
@@ -627,11 +712,14 @@ __global__ void __launch_bounds__(THREADS, 1)
                            const int* __restrict__ valid, int H, int Hkv,
                            int S, int page, int pmax, int window, float scale,
                            bf16* __restrict__ out) {
-  using Sh = Shape<KSP>;
+  using Sh = Shape<D, KSP>;
+  using Dm = Dim<D>;
+  constexpr int CH = Dm::CH, LDS = Dm::LDS, TK = Dm::TK, DK = Dm::DK;
+  constexpr int NO = Dm::NO, TILE = Dm::TILE, STAGE = Dm::STAGE;
   extern __shared__ __align__(128) uint8_t smem[];
   // stage st: K [TK][LDS] at st * STAGE, then V [TK][LDS]
   bf16* ring = reinterpret_cast<bf16*>(smem);
-  bf16* q_s = ring + (STAGES - 1) * STAGE;  // [ROWS][LDS] until tile 2
+  bf16* q_s = ring + (Dm::QREG ? (STAGES - 1) : STAGES) * STAGE;  // [ROWS][LDS]
 
   const int r0 = (gridDim.x - 1 - blockIdx.x) * Sh::ROWS;
   const int kh = blockIdx.y, c = blockIdx.z;
@@ -710,16 +798,20 @@ __global__ void __launch_bounds__(THREADS, 1)
   kt_mma::cp_async_commit();
 
   const float sl = scale * LOG2E;
-  uint32_t qf[DK][4];
+  // the warp's query fragments: in registers for the walk (QREG) or read
+  // again at every tile from its staged rows
+  const bf16* qa = q_s + (16 * rg + (lane & 15)) * LDS + (lane >> 4) * 8;
+  uint32_t qf[Dm::QREG ? DK : 1][4];
   for (int t = 0; t < nt; ++t) {
     const int k0 = first + t * TK;
     kt_mma::cp_async_wait<1>();
     __syncthreads();  // tile t landed; every warp is done with tile t - 1
-    if (t == 0) {
-      const bf16* qa = q_s + (16 * rg + (lane & 15)) * LDS + (lane >> 4) * 8;
+    if constexpr (Dm::QREG) {
+      if (t == 0) {
 #pragma unroll
-      for (int d = 0; d < DK; ++d) kt_mma::ldmatrix_x4(qf[d], qa + 16 * d);
-      __syncthreads();  // every warp holds its query rows: q_s is free
+        for (int d = 0; d < DK; ++d) kt_mma::ldmatrix_x4(qf[d], qa + 16 * d);
+        __syncthreads();  // every warp holds its query rows: q_s is free
+      }
     }
     if (t + 2 < nt) stage((t + 2) % STAGES, k0 + 2 * TK);
     kt_mma::cp_async_commit();
@@ -739,16 +831,23 @@ __global__ void __launch_bounds__(THREADS, 1)
         kc + ((lane & 7) + ((lane >> 4) << 3)) * LDS + ((lane >> 3) & 1) * 8;
 #pragma unroll
     for (int d = 0; d < DK; ++d) {
+      uint32_t qd4[4];
+      if constexpr (Dm::QREG) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qd4[i] = qf[d][i];
+      } else {
+        kt_mma::ldmatrix_x4(qd4, qa + 16 * d);
+      }
 #pragma unroll
       for (int p = 0; p < Sh::NS / 2; ++p) {
         uint32_t b[4];
         kt_mma::ldmatrix_x4(b, kr + p * 16 * LDS + 16 * d);
 #if KT_GQA_CUT_MMA
-        sc[2 * p][0] += __uint_as_float((qf[d][0] ^ b[0]) & 0x3f7fffffu);
-        sc[2 * p + 1][1] += __uint_as_float((qf[d][1] ^ b[3]) & 0x3f7fffffu);
+        sc[2 * p][0] += __uint_as_float((qd4[0] ^ b[0]) & 0x3f7fffffu);
+        sc[2 * p + 1][1] += __uint_as_float((qd4[1] ^ b[3]) & 0x3f7fffffu);
 #else
-        kt_mma::mma_bf16_16816(sc[2 * p], qf[d], b[0], b[1]);
-        kt_mma::mma_bf16_16816(sc[2 * p + 1], qf[d], b[2], b[3]);
+        kt_mma::mma_bf16_16816(sc[2 * p], qd4, b[0], b[1]);
+        kt_mma::mma_bf16_16816(sc[2 * p + 1], qd4, b[2], b[3]);
 #endif
       }
     }
@@ -864,18 +963,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int KSP>
+template <int D, int KSP>
 int launch(const void* q, const void* k, const void* v, const int* tables,
            const int* lengths, const int* valid, int C, int H, int Hkv,
            int S, int page, int pmax, int window, float scale, void* out,
            cudaStream_t st) {
-  auto kernel = gqa_prefill_mma_kernel<KSP>;
+  using Sh = Shape<D, KSP>;
+  auto kernel = gqa_prefill_mma_kernel<D, KSP>;
   static int ready_dev = -1;
-  cudaError_t err = kt_mma::allow_smem(kernel, SMEM, &ready_dev);
+  cudaError_t err = kt_mma::allow_smem(kernel, Sh::SMEM, &ready_dev);
   if (err != cudaSuccess) return (int)err;
   const int rows = H / Hkv * S;
-  dim3 grid((rows + Shape<KSP>::ROWS - 1) / Shape<KSP>::ROWS, Hkv, C);
-  kernel<<<grid, THREADS, SMEM, st>>>(
+  dim3 grid((rows + Sh::ROWS - 1) / Sh::ROWS, Hkv, C);
+  kernel<<<grid, THREADS, Sh::SMEM, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), tables, lengths, valid, H, Hkv, S, page,
       pmax, window, scale, static_cast<bf16*>(out));
@@ -887,27 +987,28 @@ int launch(const void* q, const void* k, const void* v, const int* tables,
 // The bf16 gqa_paged_prefill on gqa_prefill_mma_kernel: operands as
 // kt_gqa_paged_prefill (bf16 only); rows = 64 (two warps a row group, the
 // keys of a tile split between them) or 128 (a warp a row group) flattened
-// query rows a block.
+// query rows a block; D = 128 or 256.
 extern "C" int kt_gqa_prefill_mma(const void* q, const void* k_pages,
                                   const void* v_pages, const void* tables,
                                   const void* lengths, const void* valid,
                                   int C, int H, int Hkv, int S, int page,
                                   int pmax, int window, float scale, int rows,
-                                  void* out, void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || page <= 0 || pmax <= 0 || S <= 0)
+                                  int D, void* out, void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || page <= 0 || pmax <= 0 || S <= 0 ||
+      (rows != 64 && rows != 128) || (D != 128 && D != 256))
     return (int)cudaErrorInvalidValue;
   if (C == 0 || H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lengths);
   const int* vl = static_cast<const int*>(valid);
-  if (rows == 64)
-    return kt_gqa_mma::launch<2>(q, k_pages, v_pages, tb, ln, vl, C, H, Hkv,
-                                 S, page, pmax, window, scale, out, st);
-  if (rows == 128)
-    return kt_gqa_mma::launch<1>(q, k_pages, v_pages, tb, ln, vl, C, H, Hkv,
-                                 S, page, pmax, window, scale, out, st);
-  return (int)cudaErrorInvalidValue;
+#define KT_GQA_PREFILL(DIM, KSP)                                              \
+  kt_gqa_mma::launch<DIM, KSP>(q, k_pages, v_pages, tb, ln, vl, C, H, Hkv, S, \
+                               page, pmax, window, scale, out, st)
+  if (D == 128)
+    return rows == 64 ? KT_GQA_PREFILL(128, 2) : KT_GQA_PREFILL(128, 1);
+  return rows == 64 ? KT_GQA_PREFILL(256, 2) : KT_GQA_PREFILL(256, 1);
+#undef KT_GQA_PREFILL
 }
 
 // ---- gqa_decode_split_kernel: the bf16 gqa_paged_decode, split over the
@@ -952,7 +1053,12 @@ extern "C" int kt_gqa_prefill_mma(const void* q, const void* k_pages,
 //   counter back. One launch, no combine kernel, the same bits on every
 //   call.
 // Shared memory: the query rows 16 x 272 B, the ring 3 x (K + V) x 64 x
-// 272 B: 106 KB, two blocks an SM.
+// 272 B: 106 KB, two blocks an SM. At D = 256 the same walk: the query rows
+// 16 x 528 B and the ring 3 x (K + V) x 64 x 528 B, 206 KB, one block an
+// SM; the query fragments are read from the staged rows at each k16 step
+// instead of held (the accumulators of 256 columns take 128 registers a
+// thread), a record holds acc [16][256], and the merge's threads take two
+// columns of each head apiece.
 // (KT_GQA_CUT_MMA and KT_GQA_CUT_SOFTMAX compile the products and the
 // exponentials out, KT_GQA_CUT_MERGE the cross-split merge, for
 // ops/cuda/breakdown.py.)
@@ -961,20 +1067,38 @@ namespace decode {
 
 constexpr int THREADS = 128;
 constexpr int NW = THREADS / 32;
+constexpr int TK = 64;                // keys a tile
 constexpr int KW = TK / NW;           // keys a warp of each tile: 16
 constexpr int HT = 16;                // query rows: one mma row group
 constexpr int UNIT = 16;              // a split's keys: a multiple of this
 constexpr int MAX_SPLITS = 32;        // one merge record a lane
-constexpr int REC = 2 * HT + HT * D;  // a state: m [HT], l [HT], acc [HT][D]
-constexpr int ST = 4 + 4 * NO;        // a lane's share of a warp's state
 constexpr int SD = 3;                 // ring stages of K + V tiles
-constexpr int Q_BYTES = HT * LDS * 2;
-constexpr int RING_BYTES = SD * STAGE * 2;
-constexpr int SMEM = Q_BYTES + RING_BYTES;
 static_assert(KW == 16, "a warp's keys: one k16 step of P V");
-static_assert((NW - 1) * 32 * ST * 4 <= RING_BYTES,
-              "the warps' states fit the ring");
-static_assert(MAX_SPLITS * HT * 4 <= RING_BYTES, "the weights fit the ring");
+
+// Shapes of one head dim: at D = 128 two blocks an SM and the query
+// fragments in registers; at D = 256 (211 KB of shared memory) one block an
+// SM, the fragments read again from the staged query rows at each k16 step
+// (the accumulators of all 256 columns take 128 registers a thread).
+template <int D>
+struct Dec {
+  static constexpr int CH = D / 8;
+  static constexpr int LDS = D + 8;
+  static constexpr int DK = D / 16;
+  static constexpr int NO = D / 8;
+  static constexpr int TILE = TK * LDS;
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int REC = 2 * HT + HT * D;  // m [HT], l [HT], acc [HT][D]
+  static constexpr int ST = 4 + 4 * NO;        // a lane's share of a state
+  static constexpr int Q_BYTES = HT * LDS * 2;
+  static constexpr int RING_BYTES = SD * STAGE * 2;
+  static constexpr int SMEM = Q_BYTES + RING_BYTES;
+  static constexpr bool QREG = D == 128;
+  static constexpr int MIN_BLOCKS = D == 128 ? 2 : 1;
+  static_assert((NW - 1) * 32 * ST * 4 <= RING_BYTES,
+                "the warps' states fit the ring");
+  static_assert(MAX_SPLITS * HT * 4 <= RING_BYTES, "the weights fit the ring");
+  static_assert(SMEM <= 232448, "a block's shared memory");
+};
 
 // Keys a split takes of n live keys (ops/cuda/paged_attention.py:
 // gqa_decode_split_rows).
@@ -983,7 +1107,8 @@ __device__ __forceinline__ int split_chunk(int n, int splits) {
   return max(TK, (per + UNIT - 1) / UNIT * UNIT);
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
+template <int D>
+__global__ void __launch_bounds__(THREADS, Dec<D>::MIN_BLOCKS)
     gqa_decode_split_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ kp,
                             const bf16* __restrict__ vp,
@@ -992,10 +1117,14 @@ __global__ void __launch_bounds__(THREADS, 2)
                             int page, int pmax, int window, float scale,
                             float* __restrict__ part, int* __restrict__ cnt,
                             bf16* __restrict__ out) {
+  using Dc = Dec<D>;
+  constexpr int CH = Dc::CH, LDS = Dc::LDS, DK = Dc::DK, NO = Dc::NO;
+  constexpr int TILE = Dc::TILE, STAGE = Dc::STAGE, REC = Dc::REC;
+  constexpr int ST = Dc::ST;
   extern __shared__ __align__(128) uint8_t smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);            // [HT][LDS]
-  bf16* ring = reinterpret_cast<bf16*>(smem + Q_BYTES);  // 2 x (K, V)
-  float* f_s = reinterpret_cast<float*>(smem + Q_BYTES);  // after the walk
+  bf16* q_s = reinterpret_cast<bf16*>(smem);                 // [HT][LDS]
+  bf16* ring = reinterpret_cast<bf16*>(smem + Dc::Q_BYTES);  // SD x (K, V)
+  float* f_s = reinterpret_cast<float*>(smem + Dc::Q_BYTES);  // after walk
 
   const int b = blockIdx.x, sp = blockIdx.y, kh = blockIdx.z;
   const int splits = gridDim.y;
@@ -1052,15 +1181,17 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
 
     const float sl = scale * LOG2E;
-    uint32_t qf[DK][4];
+    const bf16* qa = q_s + (lane & 15) * LDS + (lane >> 4) * 8;
+    uint32_t qf[Dc::QREG ? DK : 1][4];
     for (int t = 0; t < nt; ++t) {
       const int k0 = start + t * TK;
       kt_mma::cp_async_wait<SD - 2>();
       __syncthreads();  // tile t landed; every warp is done with tile t - 1
-      if (t == 0) {
-        const bf16* qa = q_s + (lane & 15) * LDS + (lane >> 4) * 8;
+      if constexpr (Dc::QREG) {
+        if (t == 0) {
 #pragma unroll
-        for (int d = 0; d < DK; ++d) kt_mma::ldmatrix_x4(qf[d], qa + 16 * d);
+          for (int d = 0; d < DK; ++d) kt_mma::ldmatrix_x4(qf[d], qa + 16 * d);
+        }
       }
       if (t + SD - 1 < nt) stage((t + SD - 1) % SD, k0 + (SD - 1) * TK);
       kt_mma::cp_async_commit();
@@ -1077,14 +1208,21 @@ __global__ void __launch_bounds__(THREADS, 2)
                          ((lane >> 3) & 1) * 8;
 #pragma unroll
         for (int d = 0; d < DK; ++d) {
+          uint32_t qd4[4];
+          if constexpr (Dc::QREG) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) qd4[i] = qf[d][i];
+          } else {
+            kt_mma::ldmatrix_x4(qd4, qa + 16 * d);
+          }
           uint32_t bk[4];
           kt_mma::ldmatrix_x4(bk, kr + 16 * d);
 #if KT_GQA_CUT_MMA
-          sc[0][0] += __uint_as_float((qf[d][0] ^ bk[0]) & 0x3f7fffffu);
-          sc[1][1] += __uint_as_float((qf[d][1] ^ bk[3]) & 0x3f7fffffu);
+          sc[0][0] += __uint_as_float((qd4[0] ^ bk[0]) & 0x3f7fffffu);
+          sc[1][1] += __uint_as_float((qd4[1] ^ bk[3]) & 0x3f7fffffu);
 #else
-          kt_mma::mma_bf16_16816(sc[0], qf[d], bk[0], bk[1]);
-          kt_mma::mma_bf16_16816(sc[1], qf[d], bk[2], bk[3]);
+          kt_mma::mma_bf16_16816(sc[0], qd4, bk[0], bk[1]);
+          kt_mma::mma_bf16_16816(sc[1], qd4, bk[2], bk[3]);
 #endif
         }
         // online softmax of rows g, g + 8 (log2 units), P in place
@@ -1226,8 +1364,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   if (!kt_mma::arrive_last(cnt + pair, splits)) return;
 #if !KT_GQA_CUT_MERGE
   // the splits that hold a key, in split order: weights exp2(m_i - M) / L
-  // per head (a lane a record), then thread tid sums column tid of each
-  // head; none gives zeros
+  // per head (a lane a record), then thread tid sums columns tid, tid +
+  // THREADS, ... of each head; none gives zeros
   const int live = n > 0 ? (n + chunk - 1) / chunk : 0;
   const float* base = part + pair * splits * REC;
   float* w_s = f_s;  // [MAX_SPLITS][HT]
@@ -1243,57 +1381,75 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
   __syncthreads();
   // per record, the G heads' loads in flight together
-  float o[HT];
 #pragma unroll
-  for (int h = 0; h < HT; ++h) o[h] = 0.f;
-  for (int i = 0; i < live; ++i) {
-    const float* col = base + (size_t)i * REC + 2 * HT + tid;
-    float v[HT];
+  for (int c0 = 0; c0 < D; c0 += THREADS) {
+    float o[HT];
 #pragma unroll
-    for (int h = 0; h < HT; ++h) v[h] = h < G ? __ldcg(col + h * D) : 0.f;
+    for (int h = 0; h < HT; ++h) o[h] = 0.f;
+    for (int i = 0; i < live; ++i) {
+      const float* col = base + (size_t)i * REC + 2 * HT + c0 + tid;
+      float v[HT];
+#pragma unroll
+      for (int h = 0; h < HT; ++h) v[h] = h < G ? __ldcg(col + h * D) : 0.f;
+#pragma unroll
+      for (int h = 0; h < HT; ++h)
+        if (h < G) o[h] += w_s[i * HT + h] * v[h];
+    }
 #pragma unroll
     for (int h = 0; h < HT; ++h)
-      if (h < G) o[h] += w_s[i * HT + h] * v[h];
+      if (h < G) out[(qrow + h) * D + c0 + tid] = __float2bfloat16(o[h]);
   }
-#pragma unroll
-  for (int h = 0; h < HT; ++h)
-    if (h < G) out[(qrow + h) * D + tid] = __float2bfloat16(o[h]);
 #endif
   if (tid == 0) cnt[pair] = 0;  // ready for the next launch
+}
+
+template <int D>
+int launch_split(const void* q, const void* k_pages, const void* v_pages,
+                 const void* tables, const void* lengths, int B, int H,
+                 int Hkv, int page, int pmax, int window, int splits,
+                 float scale, void* part, void* cnt, void* out,
+                 cudaStream_t st) {
+  static int ready_dev = -1;
+  cudaError_t err = kt_mma::allow_smem(gqa_decode_split_kernel<D>,
+                                       Dec<D>::SMEM, &ready_dev);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B, splits, Hkv);
+  gqa_decode_split_kernel<D><<<grid, THREADS, Dec<D>::SMEM, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
+      static_cast<const bf16*>(v_pages), static_cast<const int*>(tables),
+      static_cast<const int*>(lengths), H, Hkv, page, pmax, window, scale,
+      static_cast<float*>(part), static_cast<int*>(cnt),
+      static_cast<bf16*>(out));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace decode
 }  // namespace kt_gqa_mma
 
 // The bf16 gqa_paged_decode on gqa_decode_split_kernel: operands as
-// kt_gqa_paged_decode (bf16 only, H / Hkv <= 16); `splits` blocks a
-// (sequence, KV head), 1 <= splits <= 32; part holds B * Hkv * splits *
-// (2 * 16 + 16 * 128) floats and cnt B * Hkv ints, zero on entry (left
-// zero); both may be null with one split.
+// kt_gqa_paged_decode (bf16 only, H / Hkv <= 16, D = 128 or 256); `splits`
+// blocks a (sequence, KV head), 1 <= splits <= 32; part holds B * Hkv *
+// splits * (2 * 16 + 16 * D) floats and cnt B * Hkv ints, zero on entry
+// (left zero); both may be null with one split.
 extern "C" int kt_gqa_decode_split(const void* q, const void* k_pages,
                                    const void* v_pages, const void* tables,
                                    const void* lengths, int B, int H, int Hkv,
                                    int page, int pmax, int window, int splits,
-                                   float scale, void* part, void* cnt,
+                                   float scale, int D, void* part, void* cnt,
                                    void* out, void* stream) {
   namespace K = kt_gqa_mma::decode;
   if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > K::HT || page <= 0 ||
       pmax <= 0 || splits < 1 || splits > K::MAX_SPLITS || Hkv > 65535 ||
+      (D != 128 && D != 256) ||
       (splits > 1 && (part == nullptr || cnt == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return 0;
-  static int ready_dev = -1;
-  cudaError_t err = kt_mma::allow_smem(K::gqa_decode_split_kernel, K::SMEM,
-                                       &ready_dev);
-  if (err != cudaSuccess) return (int)err;
-  using T = __nv_bfloat16;
-  dim3 grid(B, splits, Hkv);
-  K::gqa_decode_split_kernel<<<grid, K::THREADS, K::SMEM,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), H, Hkv, page, pmax, window, scale,
-      static_cast<float*>(part), static_cast<int*>(cnt),
-      static_cast<T*>(out));
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return K::launch_split<128>(q, k_pages, v_pages, tables, lengths, B, H,
+                                Hkv, page, pmax, window, splits, scale, part,
+                                cnt, out, st);
+  return K::launch_split<256>(q, k_pages, v_pages, tables, lengths, B, H, Hkv,
+                              page, pmax, window, splits, scale, part, cnt,
+                              out, st);
 }

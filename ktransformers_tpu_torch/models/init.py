@@ -100,11 +100,14 @@ def init_params_synthetic(spec: ModelSpec, seed: int = 0,
                           group_size: int = 128, dtype=torch.bfloat16,
                           device="cuda"):
     """Random params for ``spec``: ``quant`` for attention (MLA with q_proj
-    or q_a / q_b, or GQA's q / k / v / o projections), dense MLP, shared
-    experts and lm_head, ``moe_quant`` for routed experts; a zero router
-    correction bias where the gate has one; GQA q / k / v biases (std
-    0.01), unit q / k norms and the shared expert's gate row where the
-    spec has them, under the JAX package's keys."""
+    or q_a / q_b, GQA's q / k / v / o projections, q_proj twice as wide
+    with gated output, or a GatedDeltaNet layer's in_proj_qkvz and
+    out_proj), dense MLP, shared experts and lm_head, ``moe_quant`` for
+    routed experts; a GatedDeltaNet layer's in_proj_ba in bf16 whatever
+    ``dtype``, as the JAX package keeps it; a zero router correction bias
+    where the gate has one; GQA q / k / v biases (std 0.01), unit q / k
+    norms and the shared expert's gate row where the spec has them, under
+    the JAX package's keys."""
     moe_quant = moe_quant or quant
     rd = _Draw(seed, device, dtype)
     a = spec.attention
@@ -113,7 +116,22 @@ def init_params_synthetic(spec: ModelSpec, seed: int = 0,
     layers = []
     for li in range(spec.num_layers):
         h = a.num_heads
-        if a.kind == "mla":
+        if spec.layer_kind(li) == "linear":
+            la = spec.linear_attn
+            attn = {
+                "in_proj_qkvz": rd.q((d, 2 * la.key_dim + 2 * la.value_dim),
+                                     quant, group_size),
+                "in_proj_ba": QTensor(
+                    rd.normal((d, 2 * la.num_v_heads),
+                              1.0 / math.sqrt(d)).to(torch.bfloat16),
+                    None, None, kind="bf16", group_size=0),
+                "conv_w": rd.normal((la.conv_dim, la.conv_kernel), 0.3),
+                "dt_bias": rd.normal((la.num_v_heads,), 0.5),
+                "A_log": rd.normal((la.num_v_heads,), 0.5),
+                "norm_w": ones(la.head_v_dim),
+                "out_proj": rd.q((la.value_dim, d), quant, group_size),
+            }
+        elif a.kind == "mla":
             nope, dr, r, v = (a.qk_nope_head_dim, a.qk_rope_head_dim,
                               a.kv_lora_rank, a.v_head_dim)
             if a.q_lora_rank:
@@ -136,7 +154,8 @@ def init_params_synthetic(spec: ModelSpec, seed: int = 0,
         else:
             hkv, hd = a.num_kv_heads, a.head_dim
             attn = {
-                "q_proj": rd.q((d, h * hd), quant, group_size),
+                "q_proj": rd.q((d, h * hd * (2 if a.gated_output else 1)),
+                               quant, group_size),
                 "k_proj": rd.q((d, hkv * hd), quant, group_size),
                 "v_proj": rd.q((d, hkv * hd), quant, group_size),
                 "o_proj": rd.q((h * hd, d), quant, group_size),

@@ -6,7 +6,12 @@ in] for linear weights).
 ``build_params`` maps the HF names of the families this port runs
 (DeepSeek-V2 / V3 MLA, with or without q_lora; Mixtral GQA; Qwen2-MoE
 GQA with q / k / v biases, a shared expert and its sigmoid gate;
-Qwen3-MoE GQA with per-head q / k norms) onto the port's params tree.
+Qwen3-MoE GQA with per-head q / k norms; SmallThinker's
+block_sparse_moe.primary_router and gate / up / down experts; Qwen3-Next's
+GatedDeltaNet layers, their in_proj_qkvz / in_proj_ba columns permuted per
+key head into [q | k | v | z] and [b | a], and its zero-centred RMSNorm
+weights, +1 on every norm but the GatedDeltaNet's own) onto the port's
+params tree.
 Weights are quantized on the host with
 quant/formats.quantize, where the JAX package quantizes them, so the codes
 are bit-exact with its build_params; the finished tree moves to
@@ -14,8 +19,7 @@ are bit-exact with its build_params; the finished tree moves to
 ``get_exact`` (loader/providers.GGUFProvider) hands over its tensors' GGUF
 codes and block scales as they are (quant/gguf_repack.py), as the JAX
 package's build_params does. The safetensors source and the per-module
-``placement`` belong to ROADMAP item 5b; linear-attention layers to item
-6.
+``placement`` belong to ROADMAP item 5b.
 """
 
 from __future__ import annotations
@@ -51,6 +55,30 @@ def _t(w: np.ndarray) -> np.ndarray:
 
 def _vec(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, np.float32))
+
+
+def linear_attn_perms(la) -> tuple[np.ndarray, np.ndarray]:
+    """Column permutations of in_proj_qkvz and in_proj_ba. The HF
+    checkpoint interleaves their output features per key-head group ([q |
+    k | v | z] and [b | a] blocks, transformers' Qwen3-Next
+    fix_query_key_value_ordering); the permuted columns are [q_all | k_all
+    | v_all | z_all] and [b_all | a_all], which ops/linear_attention.py
+    splits contiguously."""
+    hk, hv = la.num_k_heads, la.num_v_heads
+    dk, dv = la.head_k_dim, la.head_v_dim
+    r = hv // hk
+    blk = 2 * dk + 2 * r * dv
+
+    def seg(off: int, width: int, block: int) -> np.ndarray:
+        return np.concatenate([np.arange(kh * block + off,
+                                         kh * block + off + width)
+                               for kh in range(hk)])
+
+    qkvz = np.concatenate([seg(0, dk, blk), seg(dk, dk, blk),
+                           seg(2 * dk, r * dv, blk),
+                           seg(2 * dk + r * dv, r * dv, blk)])
+    ba = np.concatenate([seg(0, r, 2 * r), seg(r, r, 2 * r)])
+    return qkvz, ba
 
 
 def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
@@ -100,19 +128,41 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
     def vec(name: str) -> torch.Tensor:
         return _vec(get(name))
 
+    # qwen3-next stores its RMSNorm weights zero-centred (output = normed *
+    # (1 + w)); the +1 is folded in here, so the norm op stays one
+    norm_off = 1.0 if spec.model_type == "qwen3_next" else 0.0
+
+    def nvec(name: str) -> torch.Tensor:
+        return vec(name) + norm_off
+
     layers = []
     for li in layer_indices:
         pre = f"model.layers.{li}"
-        if maybe(f"{pre}.linear_attn.in_proj_qkvz.weight") is not None:
-            raise NotImplementedError(
-                f"layer {li}: linear-attention layers are not ported "
-                "(ROADMAP Queue 1 item 6)")
         lp = {
-            "input_norm": vec(f"{pre}.input_layernorm.weight"),
-            "post_attn_norm": vec(f"{pre}.post_attention_layernorm.weight"),
+            "input_norm": nvec(f"{pre}.input_layernorm.weight"),
+            "post_attn_norm": nvec(f"{pre}.post_attention_layernorm.weight"),
         }
         sa = f"{pre}.self_attn"
-        if a.kind == "mla":
+        if spec.layer_kind(li) == "linear":
+            la_pre = f"{pre}.linear_attn"
+            perm_qkvz, perm_ba = linear_attn_perms(spec.linear_attn)
+            conv = np.asarray(get(f"{la_pre}.conv1d.weight"), np.float32)
+            attn = {
+                "in_proj_qkvz": q(np.ascontiguousarray(
+                    _t(get(f"{la_pre}.in_proj_qkvz.weight"))[:, perm_qkvz]),
+                    quant),
+                "in_proj_ba": q(np.ascontiguousarray(
+                    _t(get(f"{la_pre}.in_proj_ba.weight"))[:, perm_ba]),
+                    "bf16"),
+                "conv_w": torch.from_numpy(np.ascontiguousarray(
+                    conv[:, 0, :])),  # [C, 1, K] -> [C, K]
+                "dt_bias": vec(f"{la_pre}.dt_bias"),
+                "A_log": vec(f"{la_pre}.A_log"),
+                # GatedDeltaNet's own gated norm is not zero-centred
+                "norm_w": vec(f"{la_pre}.norm.weight"),
+                "out_proj": q(_t(get(f"{la_pre}.out_proj.weight")), quant),
+            }
+        elif a.kind == "mla":
             kv_b = torch.from_numpy(_t(get(f"{sa}.kv_b_proj.weight")))
             w_uk, w_uv = absorb_kv_b_proj(kv_b, a.num_heads,
                                           a.qk_nope_head_dim, a.v_head_dim)
@@ -142,19 +192,22 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
                 if nm == "o":  # the JAX package reads no o_proj bias
                     raise NotImplementedError(
                         f"{sa}.o_proj.bias: an output projection bias is "
-                        "not ported (ROADMAP Queue 1 item 6)")
+                        "not ported (nor read by the JAX package)")
                 attn[f"{nm}_bias"] = _vec(bias)
             if a.qk_norm:
-                attn["q_norm"] = vec(f"{sa}.q_norm.weight")
-                attn["k_norm"] = vec(f"{sa}.k_norm.weight")
+                attn["q_norm"] = nvec(f"{sa}.q_norm.weight")
+                attn["k_norm"] = nvec(f"{sa}.k_norm.weight")
         lp["attn"] = attn
 
         mlp_pre = f"{pre}.mlp"
         if spec.moe is not None and spec.moe.is_moe_layer(li):
             m = spec.moe
             if maybe(f"{mlp_pre}.gate.weight") is None:
-                mlp_pre = f"{pre}.block_sparse_moe"  # mixtral
-            moe = {"router_w": vec(f"{mlp_pre}.gate.weight")}
+                mlp_pre = f"{pre}.block_sparse_moe"  # mixtral, smallthinker
+            router = f"{mlp_pre}.gate.weight"
+            if maybe(router) is None:
+                router = f"{mlp_pre}.primary_router.weight"  # smallthinker
+            moe = {"router_w": vec(router)}
             bias = maybe(f"{mlp_pre}.gate.e_score_correction_bias")
             if bias is not None:
                 moe["router_bias_corr"] = _vec(bias)
@@ -176,8 +229,10 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
                     base = f"{mlp_pre}.experts.{e}"
                     if maybe(f"{base}.gate_proj.weight") is not None:
                         names = ("gate_proj", "up_proj", "down_proj")
-                    else:  # mixtral w1 / w3 / w2
-                        names = ("w1", "w3", "w2")
+                    elif maybe(f"{base}.w1.weight") is not None:
+                        names = ("w1", "w3", "w2")  # mixtral
+                    else:  # smallthinker
+                        names = ("gate", "up", "down")
                     g, u, dn = (_t(get(f"{base}.{nm}.weight"))
                                 for nm in names)
                     gus_list.append(np.concatenate([g, u], axis=1))
@@ -208,6 +263,16 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
                     moe["shared_gate"] = vec(
                         f"{mlp_pre}.shared_expert_gate.weight").reshape(1, -1)
             lp["moe"] = moe
+        elif (maybe(f"{mlp_pre}.gate_proj.weight") is None
+              and maybe(f"{pre}.block_sparse_moe.gate.weight") is not None):
+            # smallthinker's dense layers live under block_sparse_moe
+            bsm = f"{pre}.block_sparse_moe"
+            lp["mlp"] = {
+                "gate_up": q(np.concatenate([_t(get(f"{bsm}.gate.weight")),
+                                             _t(get(f"{bsm}.up.weight"))],
+                                            1), quant),
+                "down": qx(f"{bsm}.down.weight"),
+            }
         else:
             lp["mlp"] = {
                 "gate_up": qx_fused(f"{mlp_pre}.gate_proj.weight",
@@ -220,7 +285,7 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
     params = {
         "embed": vec("model.embed_tokens.weight") if include_head else None,
         "layers": layers,
-        "final_norm": vec("model.norm.weight") if include_head else None,
+        "final_norm": nvec("model.norm.weight") if include_head else None,
     }
     if include_head and not spec.tie_word_embeddings:
         params["lm_head"] = qx("lm_head.weight")

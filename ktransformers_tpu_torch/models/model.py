@@ -3,9 +3,13 @@
 ktransformers_tpu/models/model.py). Attention is absorbed MLA over a
 compressed cache (deepseek_v2 / v3) or GQA over per-head k / v (mixtral,
 qwen2_moe with projection biases, qwen3_moe with per-head q / k norms, the
-dense llama / qwen2 / qwen3, glm4_moe with rope over half of each head).
-Past BLOCKWISE_KV_THRESHOLD cache positions (ops/attention.py) the plain
-attention of the contiguous cache runs blockwise.
+dense llama / qwen2 / qwen3, glm4_moe with rope over half of each head,
+smallthinker with NoPE and sliding-window layers and the early router,
+qwen3_next's gated attention); qwen3_next's linear layers run GatedDeltaNet
+(ops/linear_attention.py) over O(1) state per sequence. Past
+BLOCKWISE_KV_THRESHOLD cache positions (ops/attention.py) the plain
+attention of the contiguous cache runs blockwise, on layers without a
+window.
 
 Params are nested dicts of QTensors / tensors (utils/device_prep.py
 prepares them). Unlike the JAX package, the KV cache is updated IN PLACE:
@@ -44,6 +48,7 @@ from ktransformers_tpu_torch.ops.cuda.w4a8_ffn import (
 )
 from ktransformers_tpu_torch.ops.gate import route
 from ktransformers_tpu_torch.ops.linear import linear, plinear
+from ktransformers_tpu_torch.ops.linear_attention import gated_delta_net
 from ktransformers_tpu_torch.ops.moe import moe_forward
 from ktransformers_tpu_torch.ops.vjp import DenseW4A8FFNFn, needs_grad
 from ktransformers_tpu_torch.ops.norm import rms_norm
@@ -61,8 +66,10 @@ NEG_INF = -1e30
 class KVCache:
     """Static-shape cache, one buffer pair per layer: MLA bufs_a[l] = ckv
     [B, S, R], bufs_b[l] = k_pe [B, S, Dr]; GQA bufs_a[l] = k, bufs_b[l] =
-    v [B, S, Hkv, D] (k roped); lengths [B] int32 = tokens already cached
-    per sequence."""
+    v [B, S, Hkv, D] (k roped); a GatedDeltaNet layer's bufs_a[l] = the
+    conv tail [B, K, conv_dim], bufs_b[l] = the float32 recurrent state
+    [B, Hv, dk, dv]; lengths [B] int32 = tokens already cached per
+    sequence."""
 
     lengths: torch.Tensor
     bufs_a: list
@@ -78,10 +85,19 @@ class KVCache:
             sb = (batch, max_len, a.qk_rope_head_dim)
         else:
             sa = sb = (batch, max_len, a.num_kv_heads, a.head_dim)
-        bufs_a = [torch.zeros(sa, dtype=dtype, device=device)
-                  for _ in range(spec.num_layers)]
-        bufs_b = [torch.zeros(sb, dtype=dtype, device=device)
-                  for _ in range(spec.num_layers)]
+        bufs_a, bufs_b = [], []
+        for li in range(spec.num_layers):
+            if spec.layer_kind(li) == "linear":
+                la = spec.linear_attn
+                bufs_a.append(torch.zeros(
+                    (batch, la.conv_kernel, la.conv_dim), dtype=dtype,
+                    device=device))
+                bufs_b.append(torch.zeros(
+                    (batch, la.num_v_heads, la.head_k_dim, la.head_v_dim),
+                    dtype=torch.float32, device=device))
+            else:
+                bufs_a.append(torch.zeros(sa, dtype=dtype, device=device))
+                bufs_b.append(torch.zeros(sb, dtype=dtype, device=device))
         return KVCache(lengths, bufs_a, bufs_b)
 
 
@@ -91,14 +107,20 @@ def _q_positions(pos_offset: torch.Tensor, q_len: int):
         q_len, device=pos_offset.device)[None, :]
 
 
-def _attn_mask(pos_offset: torch.Tensor, q_len: int, kv_len: int):
-    """Additive causal mask [B, q_len, kv_len] from per-sequence offsets."""
+def _attn_mask(pos_offset: torch.Tensor, q_len: int, kv_len: int,
+               window: int = 0):
+    """Additive causal mask [B, q_len, kv_len] from per-sequence offsets;
+    with window > 0 keys older than ``window`` positions are masked too
+    (smallthinker's sliding-window layers)."""
     dev = pos_offset.device
     qpos = _q_positions(pos_offset, q_len)[:, :, None]
     kpos = torch.arange(kv_len, device=dev)[None, None, :]
+    ok = kpos <= qpos
+    if window:
+        ok = ok & (kpos > qpos - window)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
-    return torch.where(kpos <= qpos, zero, neg)
+    return torch.where(ok, zero, neg)
 
 
 def _write_cache(buf: torch.Tensor, new: torch.Tensor, offset: torch.Tensor):
@@ -152,12 +174,12 @@ def mla_qkv_proj(p, spec: ModelSpec, x):
 
 
 def gqa_qkv_proj(p, spec: ModelSpec, x):
-    """Flat q [B, S, H*D], k and v [B, S, Hkv*D], with the projection
-    biases where the layer has them; reads the fused "qkv" weight (and its
-    concatenated "qkv_bias") when device_prep merged q_proj, k_proj and
-    v_proj."""
+    """Flat q [B, S, H*D] (with gated output [B, S, H*2D], each head's [q |
+    gate]), k and v [B, S, Hkv*D], with the projection biases where the
+    layer has them; reads the fused "qkv" weight (and its concatenated
+    "qkv_bias") when device_prep merged q_proj, k_proj and v_proj."""
     a = spec.attention
-    qw = a.num_heads * a.head_dim
+    qw = a.num_heads * a.head_dim * (2 if a.gated_output else 1)
     kw = a.num_kv_heads * a.head_dim
     if "qkv" in p:
         _assert_no_orphan_lora(p, ("q_proj", "k_proj", "v_proj"), "qkv")
@@ -168,16 +190,41 @@ def gqa_qkv_proj(p, spec: ModelSpec, x):
             plinear(p, "v_proj", x, p.get("v_bias")))
 
 
-def gqa_rope(p, spec: ModelSpec, q, k, rope_cs):
+def gqa_split_gate(spec: ModelSpec, q_flat):
+    """q_flat [..., H*D] -> (q [..., H, D], None); with gated output
+    q_flat [..., H*2D] holds each head's [q | gate]: (q [..., H, D], gate
+    [..., H*D])."""
+    a = spec.attention
+    h, d = a.num_heads, a.head_dim
+    lead = q_flat.shape[:-1]
+    if not a.gated_output:
+        return q_flat.reshape(*lead, h, d), None
+    qg = q_flat.reshape(*lead, h, 2 * d)
+    return qg[..., :d], qg[..., d:].reshape(*lead, h * d)
+
+
+def gqa_gate(out, gate):
+    """The attention output [..., H*D] times sigmoid(gate) (qwen3-next),
+    or as it is without a gate."""
+    if gate is None:
+        return out
+    return out * torch.sigmoid(gate.to(torch.float32)).to(out.dtype)
+
+
+def gqa_rope(p, spec: ModelSpec, q, k, rope_cs, use_rope: bool = True):
     """q [B, S, H, D] and k [B, S, Hkv, D] -> roped q [B, H, S, D] and
     roped k [B, S, Hkv, D], each head RMS-normed first where the spec has
     qk_norm (p["q_norm"], p["k_norm"] [D]); rope over the leading
     rotary_dim of each head (all of it, or glm4's half), the rest passed
-    through; rope_cs (cos, sin) [B, S, rotary_dim/2]. Every GQA path (the
-    contiguous cache and both paged forwards) goes through here."""
+    through, none on a NoPE layer (``use_rope`` False: positions reach it
+    only through the mask); rope_cs (cos, sin) [B, S, rotary_dim/2]. Every
+    GQA path (the contiguous cache and both paged forwards) goes through
+    here."""
     if spec.attention.qk_norm:
         q = rms_norm(q, p["q_norm"], spec.rms_norm_eps)
         k = rms_norm(k, p["k_norm"], spec.rms_norm_eps)
+    if not use_rope:
+        return q.transpose(1, 2), k
     cos, sin = rope_cs
     rot = spec.attention.rotary_dim
 
@@ -189,15 +236,17 @@ def gqa_rope(p, spec: ModelSpec, q, k, rope_cs):
     return rope(q.transpose(1, 2)), rope(k.transpose(1, 2)).transpose(1, 2)
 
 
-def gqa_project_rope(p, spec: ModelSpec, x, rope_cs):
-    """x [B, S, d] -> roped q [B, H, S, D], roped k and v [B, S, Hkv, D]."""
+def gqa_project_rope(p, spec: ModelSpec, x, rope_cs, use_rope: bool = True):
+    """x [B, S, d] -> roped q [B, H, S, D], roped k and v [B, S, Hkv, D],
+    and the output gate [B, S, H*D] (None without gated output)."""
     a = spec.attention
     b, s, _ = x.shape
     q_flat, k_flat, v_flat = gqa_qkv_proj(p, spec, x)
-    q, k = gqa_rope(p, spec, q_flat.reshape(b, s, a.num_heads, a.head_dim),
+    q, gate = gqa_split_gate(spec, q_flat)
+    q, k = gqa_rope(p, spec, q,
                     k_flat.reshape(b, s, a.num_kv_heads, a.head_dim),
-                    rope_cs)
-    return q, k, v_flat.reshape(b, s, a.num_kv_heads, a.head_dim)
+                    rope_cs, use_rope)
+    return q, k, v_flat.reshape(b, s, a.num_kv_heads, a.head_dim), gate
 
 
 def gqa_scale(spec: ModelSpec) -> float:
@@ -205,26 +254,30 @@ def gqa_scale(spec: ModelSpec) -> float:
     return a.softmax_scale or a.head_dim ** -0.5
 
 
-def _gqa_attention(p, spec: ModelSpec, x, layer_cache, pos_offset, rope_cs):
+def _gqa_attention(p, spec: ModelSpec, x, layer_cache, pos_offset, rope_cs,
+                   use_rope: bool = True, window: int = 0):
     """GQA attention over the contiguous cache: the new k / v are written
-    first, then ``mha`` attends over the whole buffer with a causal mask,
-    or ``mha_blockwise`` at every step once the buffer holds
+    first, then ``mha`` attends over the whole buffer with a causal mask
+    (and the sliding window of a windowed layer), or, on a layer without a
+    window, ``mha_blockwise`` at every step once the buffer holds
     BLOCKWISE_KV_THRESHOLD positions (plain PyTorch, as XLA in the JAX
-    package, models/model.py:380-388)."""
+    package, models/model.py:380-396); the output gated where the spec
+    says so."""
     a = spec.attention
     b, s, _ = x.shape
-    q, k, v = gqa_project_rope(p, spec, x, rope_cs)
+    q, k, v, gate = gqa_project_rope(p, spec, x, rope_cs, use_rope)
     k_buf = _write_cache(layer_cache[0], k, pos_offset)
     v_buf = _write_cache(layer_cache[1], v, pos_offset)
-    if k_buf.shape[1] >= attention.BLOCKWISE_KV_THRESHOLD:
+    if window == 0 and k_buf.shape[1] >= attention.BLOCKWISE_KV_THRESHOLD:
         out = mha_blockwise(q, k_buf.transpose(1, 2), v_buf.transpose(1, 2),
                             _q_positions(pos_offset, s),
                             scale=gqa_scale(spec))
     else:
-        mask = _attn_mask(pos_offset, s, k_buf.shape[1])
+        mask = _attn_mask(pos_offset, s, k_buf.shape[1], window)
         out = mha(q, k_buf.transpose(1, 2), v_buf.transpose(1, 2),
                   scale=gqa_scale(spec), mask=mask)
-    out = out.transpose(1, 2).reshape(b, s, a.num_heads * a.head_dim)
+    out = gqa_gate(out.transpose(1, 2).reshape(b, s, a.num_heads * a.head_dim),
+                   gate)
     return plinear(p, "o_proj", out, p.get("o_bias")), (k_buf, v_buf)
 
 
@@ -318,10 +371,14 @@ def _dense_mlp(p, spec: ModelSpec, x):
                                            spec.activation))
 
 
-def _moe_mlp(p, spec: ModelSpec, x):
+def _moe_mlp(p, spec: ModelSpec, x, router_x=None):
+    """Routed experts (and the shared expert) of x [B, S, d]; the router
+    reads ``router_x`` where given (smallthinker's early router: the layer
+    input), else x."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
-    logits = flat.to(torch.float32) @ p["router_w"].to(torch.float32).T
+    rflat = flat if router_x is None else router_x.reshape(b * s, d)
+    logits = rflat.to(torch.float32) @ p["router_w"].to(torch.float32).T
     topk_idx, topk_w = route(logits, spec.moe.gate, p.get("router_bias_corr"))
     y = moe_forward(flat, p["experts"], topk_idx, topk_w, spec.activation)
     if p.get("shared") is not None:
@@ -335,25 +392,52 @@ def _moe_mlp(p, spec: ModelSpec, x):
     return y.reshape(b, s, d)
 
 
+def early_router_input(spec: ModelSpec, x):
+    """The router's input of a layer whose input is x: x itself (before
+    the attention norm) under smallthinker's early router, else None (the
+    router reads the post-attention hidden state)."""
+    return x if spec.moe is not None and spec.moe.early_router else None
+
+
+def mlp(lp, spec: ModelSpec, xn, router_x=None):
+    """The layer's MoE (its router on ``router_x`` where given) or dense
+    MLP of the normed hidden state xn."""
+    if "moe" in lp:
+        return _moe_mlp(lp["moe"], spec, xn, router_x)
+    return _dense_mlp(lp["mlp"], spec, xn)
+
+
+def linear_layer_state(p, spec: ModelSpec, xn, conv, rec, valid=None):
+    """A GatedDeltaNet layer over its states conv [B, K, C] / rec [B, Hv,
+    dk, dv]: (output, new conv in conv's dtype, new rec)."""
+    out, new_conv, new_rec = gated_delta_net(p, spec.linear_attn, xn, conv,
+                                             rec, spec.rms_norm_eps, valid)
+    return out, new_conv.to(conv.dtype), new_rec
+
+
 def decoder_layer(lp, spec: ModelSpec, x, layer_cache, lengths, rope_cs,
-                  rope_rot=None):
-    """One decoder layer; returns (x, buf_a, buf_b)."""
+                  rope_rot=None, kind: str = "full", use_rope: bool = True,
+                  window: int = 0):
+    """One decoder layer; returns (x, buf_a, buf_b). ``kind`` "linear" runs
+    GatedDeltaNet over the layer's states; ``use_rope`` / ``window`` are
+    the layer's (spec.layer_uses_rope / layer_window)."""
     res = x
+    router_x = early_router_input(spec, x)
     xn = rms_norm(x, lp["input_norm"], spec.rms_norm_eps)
-    if spec.attention.kind == "mla":
+    if kind == "linear":
+        attn_out, buf_a, buf_b = linear_layer_state(
+            lp["attn"], spec, xn, layer_cache[0], layer_cache[1])
+    elif spec.attention.kind == "mla":
         attn_out, (buf_a, buf_b) = _mla_attention(
             lp["attn"], spec, xn, layer_cache, lengths, rope_cs, rope_rot)
     else:
         attn_out, (buf_a, buf_b) = _gqa_attention(
-            lp["attn"], spec, xn, layer_cache, lengths, rope_cs)
+            lp["attn"], spec, xn, layer_cache, lengths, rope_cs, use_rope,
+            window)
     x = res + attn_out
     res = x
     xn = rms_norm(x, lp["post_attn_norm"], spec.rms_norm_eps)
-    if "moe" in lp:
-        x = res + _moe_mlp(lp["moe"], spec, xn)
-    else:
-        x = res + _dense_mlp(lp["mlp"], spec, xn)
-    return x, buf_a, buf_b
+    return res + mlp(lp, spec, xn, router_x), buf_a, buf_b
 
 
 def forward(params, spec: ModelSpec, tokens: torch.Tensor, cache: KVCache,
@@ -381,7 +465,8 @@ def forward(params, spec: ModelSpec, tokens: torch.Tensor, cache: KVCache,
         )
     for li, lp in enumerate(params["layers"]):
         args = (lp, spec, x, (cache.bufs_a[li], cache.bufs_b[li]),
-                cache.lengths, rope_cs, rope_rot)
+                cache.lengths, rope_cs, rope_rot, spec.layer_kind(li),
+                spec.layer_uses_rope(li), spec.layer_window(li))
         if remat and torch.is_grad_enabled():
             x, buf_a, buf_b = torch.utils.checkpoint.checkpoint(
                 decoder_layer, *args, use_reentrant=False)

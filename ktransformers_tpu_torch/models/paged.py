@@ -21,9 +21,16 @@ walk the pages in tiles of keys on the card, so no score tensor of the
 whole cache is made. Their plain versions, which run only for CPU tensors
 (the tests' small pools), gather the pages whole.
 
+A hybrid model's GatedDeltaNet layers (qwen3-next) hold no pages: they
+read and write their O(1) state at the rows' slots (``slots``, the decode
+batch's rows by default), and padding (``valid``) leaves it untouched. The
+fused mixed step refuses a hybrid model, as in the JAX package. A windowed
+layer (smallthinker) hands its window to the paged kernels; a NoPE layer
+skips rope; qwen3-next's attention output is gated.
+
 Not ported, each raising NotImplementedError: the sparse page budget
-(ROADMAP Queue 1 item 9), routing collection for expert re-placement (item
-11) and hybrid linear-attention slots (item 6).
+(ROADMAP Queue 1 item 9) and routing collection for expert re-placement
+(item 11).
 """
 
 from __future__ import annotations
@@ -32,13 +39,16 @@ import torch
 
 from ktransformers_tpu_torch.cache.paged import PagedKVCache
 from ktransformers_tpu_torch.models.model import (
-    _dense_mlp,
-    _moe_mlp,
+    early_router_input,
+    gqa_gate,
     gqa_project_rope,
     gqa_qkv_proj,
     gqa_rope,
     gqa_scale,
+    gqa_split_gate,
+    linear_layer_state,
     mla_qkv_proj,
+    mlp,
 )
 from ktransformers_tpu_torch.models.spec import ModelSpec
 from ktransformers_tpu_torch.ops.cuda.paged_attention import (
@@ -188,28 +198,32 @@ def _mla_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
 
 
 def _gqa_paged(p, spec: ModelSpec, x, bufs, page_tables, lengths, rope_cs,
-               page_size, valid=None):
-    """x [B, S, d] -> (attention output [B, S, d], (k pages, v pages))."""
+               page_size, valid=None, use_rope: bool = True, window: int = 0):
+    """x [B, S, d] -> (attention output [B, S, d], (k pages, v pages));
+    ``use_rope`` / ``window`` are the layer's."""
     b, s, _ = x.shape
-    q, k, v = gqa_project_rope(p, spec, x, rope_cs)  # q [B, H, S, D]
+    q, k, v, gate = gqa_project_rope(p, spec, x, rope_cs, use_rope)
     buf_a = _write_pages(bufs[0], k, page_tables, lengths, page_size, valid)
     buf_b = _write_pages(bufs[1], v, page_tables, lengths, page_size, valid)
     if s == 1:
         # the kernel's lengths include the token just written
         out = gqa_paged_decode(q[:, :, 0].contiguous(), buf_a, buf_b,
-                               page_tables, lengths + 1, gqa_scale(spec))
+                               page_tables, lengths + 1, gqa_scale(spec),
+                               window)
         out = out.reshape(b, 1, -1)
     else:
         v_arr = valid if valid is not None else torch.full_like(lengths, s)
         out = gqa_paged_prefill(q.contiguous(), buf_a, buf_b, page_tables,
-                                lengths, v_arr, gqa_scale(spec))
+                                lengths, v_arr, gqa_scale(spec), window)
         out = out.transpose(1, 2).reshape(b, s, -1)
+    out = gqa_gate(out, gate)
     return plinear(p, "o_proj", out, p.get("o_bias")), (buf_a, buf_b)
 
 
 def _gqa_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
                      pre_table, pre_length, pre_valid, dec_rope_cs,
-                     pre_rope_cs, page_size, b_dec, s_pre):
+                     pre_rope_cs, page_size, b_dec, s_pre,
+                     use_rope: bool = True, window: int = 0):
     """Mixed-step GQA attention (see _mla_paged_mixed): ONE projection /
     output pass over the B + C*S rows; the attention core splits into
     gqa_paged_decode (B rows) and gqa_paged_prefill (C chunks of S)."""
@@ -217,14 +231,14 @@ def _gqa_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
     h, hkv, d = a.num_heads, a.num_kv_heads, a.head_dim
     c_pre = pre_table.shape[0]
     q_flat, k_flat, v_flat = gqa_qkv_proj(p, spec, rows)
-    q_all = q_flat[0].reshape(-1, h, d)
+    q_all, gate = gqa_split_gate(spec, q_flat[0])
     k_all = k_flat[0].reshape(-1, hkv, d)
     v_all = v_flat[0].reshape(-1, hkv, d)
     q_d, k_d = gqa_rope(p, spec, q_all[:b_dec, None], k_all[:b_dec, None],
-                        dec_rope_cs)
+                        dec_rope_cs, use_rope)
     q_p, k_p = gqa_rope(p, spec, q_all[b_dec:].reshape(c_pre, s_pre, h, d),
                         k_all[b_dec:].reshape(c_pre, s_pre, hkv, d),
-                        pre_rope_cs)
+                        pre_rope_cs, use_rope)
     v_d = v_all[:b_dec, None]
     v_p = v_all[b_dec:].reshape(c_pre, s_pre, hkv, d)
 
@@ -239,20 +253,17 @@ def _gqa_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
 
     scale = gqa_scale(spec)
     out_d = gqa_paged_decode(q_d[:, :, 0].contiguous(), buf_a, buf_b,
-                             dec_tables, dec_lengths + 1, scale)  # [B, H, D]
+                             dec_tables, dec_lengths + 1, scale,
+                             window)  # [B, H, D]
     out_p = gqa_paged_prefill(q_p.contiguous(), buf_a, buf_b, pre_table,
-                              pre_length, pre_valid, scale)  # [C, H, S, D]
+                              pre_length, pre_valid, scale,
+                              window)  # [C, H, S, D]
     out_rows = torch.cat(
         [out_d.reshape(b_dec, h * d),
          out_p.transpose(1, 2).reshape(c_pre * s_pre, h * d)],
         dim=0)[None]  # [1, B + C*S, H*D]
+    out_rows = gqa_gate(out_rows, gate)
     return plinear(p, "o_proj", out_rows, p.get("o_bias")), (buf_a, buf_b)
-
-
-def _mlp(lp, spec: ModelSpec, xn):
-    if "moe" in lp:
-        return _moe_mlp(lp["moe"], spec, xn)
-    return _dense_mlp(lp["mlp"], spec, xn)
 
 
 def _lm_head(params, x):
@@ -282,10 +293,13 @@ def forward_paged_mixed(params, spec: ModelSpec, dec_tokens, pre_tokens,
     C = 1); dec_tables [B, Pmax], dec_lengths [B]; pre_table [C, Pmax],
     pre_length [C] tokens already cached per query, pre_valid [C] live
     tokens of each chunk. Returns (dec_logits [B, V], pre_last_logits
-    [C, V] at each chunk's last valid row, kv)."""
+    [C, V] at each chunk's last valid row, kv). A hybrid model (linear
+    layers) raises: its engine runs decode and prefill apart."""
     _reject_sparse(sparse_budget)
-    attend = _mla_paged_mixed if spec.attention.kind == "mla" \
-        else _gqa_paged_mixed
+    if spec.hybrid:
+        raise ValueError("forward_paged_mixed: the fused mixed step does "
+                         "not run hybrid linear-attention layers")
+    mla = spec.attention.kind == "mla"
     dev = dec_tokens.device
     b = dec_tokens.shape[0]
     if pre_tokens.dim() == 1:
@@ -306,15 +320,18 @@ def forward_paged_mixed(params, spec: ModelSpec, dec_tokens, pre_tokens,
 
     for li, lp in enumerate(params["layers"]):
         res = rows
+        router_x = early_router_input(spec, rows)
         xn = rms_norm(rows, lp["input_norm"], spec.rms_norm_eps)
-        attn_out, (kv.bufs_a[li], kv.bufs_b[li]) = attend(
-            lp["attn"], spec, xn, (kv.bufs_a[li], kv.bufs_b[li]), dec_tables,
-            dec_lengths, pre_table, pre_length, pre_valid, dec_rope, pre_rope,
-            kv.page_size, b, s)
+        args = (lp["attn"], spec, xn, (kv.bufs_a[li], kv.bufs_b[li]),
+                dec_tables, dec_lengths, pre_table, pre_length, pre_valid,
+                dec_rope, pre_rope, kv.page_size, b, s)
+        attn_out, (kv.bufs_a[li], kv.bufs_b[li]) = (
+            _mla_paged_mixed(*args) if mla else _gqa_paged_mixed(
+                *args, spec.layer_uses_rope(li), spec.layer_window(li)))
         rows = res + attn_out
         res = rows
         xn = rms_norm(rows, lp["post_attn_norm"], spec.rms_norm_eps)
-        rows = res + _mlp(lp, spec, xn)
+        rows = res + mlp(lp, spec, xn, router_x)
 
     x = rms_norm(rows[0], params["final_norm"], spec.rms_norm_eps)
     # decode rows + each prefill chunk's last VALID row
@@ -335,19 +352,19 @@ def forward_paged(params, spec: ModelSpec, tokens, kv: PagedKVCache,
     [B, Pmax] int32; lengths [B] int32 tokens already cached.
 
     ``valid`` [B] int32: tokens[b, valid[b]:] are padding (bucketed prefill
-    chunks); their KV writes go to the trash page and, with
-    logits_last_only, the logits row is taken at position valid[b] - 1.
-    Returns (logits [B, 1 or S, V], kv); the pools are updated in place."""
+    chunks, or the inactive rows of a hybrid model's decode batch); their
+    KV writes go to the trash page, they leave a linear layer's state
+    untouched and, with logits_last_only, the logits row is taken at
+    position valid[b] - 1. ``slots`` [B] int64 (hybrid models): the state
+    row of each batch row in the linear layers' buffers, arange(B) when
+    None (the decode batch's rows are its slots). Returns (logits [B, 1 or
+    S, V], kv); the pools and states are updated in place."""
     _reject_sparse(sparse_budget)
     if collect_routing:
         raise NotImplementedError(
             "collect_routing (expert re-placement statistics) is not ported "
             "(ROADMAP Queue 1 item 11)")
-    if slots is not None:
-        raise NotImplementedError(
-            "hybrid linear-attention state slots are not ported (ROADMAP "
-            "Queue 1 item 6)")
-    attend = _mla_paged if spec.attention.kind == "mla" else _gqa_paged
+    mla = spec.attention.kind == "mla"
     dev = tokens.device
     b, s = tokens.shape
     x = params["embed"][tokens].to(compute_dtype)
@@ -360,14 +377,28 @@ def forward_paged(params, spec: ModelSpec, tokens, kv: PagedKVCache,
 
     for li, lp in enumerate(params["layers"]):
         res = x
+        router_x = early_router_input(spec, x)
         xn = rms_norm(x, lp["input_norm"], spec.rms_norm_eps)
-        attn_out, (kv.bufs_a[li], kv.bufs_b[li]) = attend(
-            lp["attn"], spec, xn, (kv.bufs_a[li], kv.bufs_b[li]), page_tables,
-            lengths, rope_cs, kv.page_size, valid)
+        bufs = (kv.bufs_a[li], kv.bufs_b[li])
+        if spec.layer_kind(li) == "linear":
+            if slots is None:
+                slots = torch.arange(b, device=dev)
+            attn_out, conv, rec = linear_layer_state(
+                lp["attn"], spec, xn, bufs[0][slots], bufs[1][slots], valid)
+            bufs[0][slots] = conv
+            bufs[1][slots] = rec
+        elif mla:
+            attn_out, _ = _mla_paged(lp["attn"], spec, xn, bufs, page_tables,
+                                     lengths, rope_cs, kv.page_size, valid)
+        else:
+            attn_out, _ = _gqa_paged(
+                lp["attn"], spec, xn, bufs, page_tables, lengths, rope_cs,
+                kv.page_size, valid, spec.layer_uses_rope(li),
+                spec.layer_window(li))
         x = res + attn_out
         res = x
         xn = rms_norm(x, lp["post_attn_norm"], spec.rms_norm_eps)
-        x = res + _mlp(lp, spec, xn)
+        x = res + mlp(lp, spec, xn, router_x)
 
     x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
     if logits_last_only:

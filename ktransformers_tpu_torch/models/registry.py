@@ -3,10 +3,10 @@ ktransformers_tpu/models/registry.py, every catalog entry copied).
 
 Each entry carries the public HF config values spec_from_hf_config reads,
 with the weight bytes of a quantized copy and whether it fits one NVIDIA
-H100 80GB HBM3 card. The byte arithmetic reads the config itself, so that
-the families this port cannot yet translate still list and estimate; their
-``spec()`` raises, naming ROADMAP Queue 1 item 6. No download: ``hf_id``
-names the upstream checkpoint for provenance.
+H100 80GB HBM3 card. The byte arithmetic reads the config itself; every
+preset's ``spec()`` translates, and a model type the port does not know
+raises. No download: ``hf_id`` names the upstream checkpoint for
+provenance.
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ _BYTES_PER_PARAM = {
 }
 
 _PORTED = ("deepseek_v2", "deepseek_v3", "kimi_k2", "mixtral", "qwen2_moe",
-           "qwen3_moe", "llama", "qwen2", "qwen3", "glm4_moe")
+           "qwen3_moe", "llama", "qwen2", "qwen3", "glm4_moe",
+           "smallthinker", "qwen3_next")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,8 +57,7 @@ class ModelEntry:
         mt = self.config.get("model_type")
         if mt not in _PORTED:
             raise ValueError(
-                f"{self.name}: model_type {mt!r} is not ported yet (ROADMAP "
-                "Queue 1 item 6)")
+                f"{self.name}: model_type {mt!r} is not ported")
         return spec_from_hf_config(dict(self.config))
 
 

@@ -4,9 +4,10 @@ this port runs: ``deepseek_v2`` / ``deepseek_v3`` / ``kimi_k2`` (MLA
 attention), ``mixtral``, ``qwen2_moe`` / ``qwen3_moe``, the dense
 ``llama`` / ``qwen2`` / ``qwen3`` and ``glm4_moe`` (GQA attention; q / k / v
 biases, per-head q / k RMSNorm, partial rotary and tied embeddings where
-the config sets them). Config values the port does not handle raise
-instead of being ignored; SmallThinker, Qwen3-Next and linear-attention
-layers belong to ROADMAP Queue 1 item 6."""
+the config sets them), ``smallthinker`` (per-layer NoPE and sliding-window
+layouts, the early router, ReLU-GLU experts) and ``qwen3_next`` (hybrid
+GatedDeltaNet / gated full-attention layers). Config values the port does
+not handle raise instead of being ignored."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Any
 
 from ktransformers_tpu_torch.ops.activations import ActivationConfig
 from ktransformers_tpu_torch.ops.gate import GateConfig
+from ktransformers_tpu_torch.ops.linear_attention import LinearAttentionSpec
 from ktransformers_tpu_torch.ops.rope import RopeConfig, yarn_get_mscale
 
 
@@ -34,6 +36,9 @@ class AttentionSpec:
     qk_norm: bool = False  # per-head RMSNorm of q and k before rope (qwen3)
     partial_rotary_dim: int = 0  # 0 = rope over the whole head (glm4: half)
     softmax_scale: float | None = None  # None = head_dim**-0.5 (x yarn mscale)
+    gated_output: bool = False  # qwen3-next: q_proj emits [q | gate] per
+    # head and the output is multiplied by sigmoid(gate) before o_proj
+    sliding_window: int = 0  # smallthinker: window of swa_layout layers
 
     @property
     def rotary_dim(self) -> int:
@@ -56,6 +61,9 @@ class MoESpec:
     # deepseek checks layer_idx % freq == 0, qwen (layer_idx + 1) % step
     moe_layer_offset: int = 0
     mlp_only_layers: tuple[int, ...] = ()  # qwen explicit dense layers
+    # smallthinker: the router reads the layer input (the residual before
+    # the attention norm) instead of the post-attention hidden state
+    early_router: bool = False
 
     def is_moe_layer(self, layer_idx: int) -> bool:
         if layer_idx in self.mlp_only_layers:
@@ -79,6 +87,32 @@ class ModelSpec:
     moe: MoESpec | None = None
     tie_word_embeddings: bool = False
     max_position: int = 4096
+    # hybrid models (qwen3-next): per-layer kind "full" | "linear", None =
+    # all full attention; linear_attn holds the GatedDeltaNet dims
+    layer_kinds: tuple | None = None
+    linear_attn: LinearAttentionSpec | None = None
+    # smallthinker's per-layer layouts: rope on / off, sliding window on /
+    # off (its size in attention.sliding_window)
+    rope_layout: tuple | None = None
+    swa_layout: tuple | None = None
+
+    def layer_uses_rope(self, li: int) -> bool:
+        return self.rope_layout is None or bool(self.rope_layout[li])
+
+    def layer_window(self, li: int) -> int:
+        """0 = full attention, else the sliding window's size."""
+        if self.swa_layout is None or not self.swa_layout[li]:
+            return 0
+        return self.attention.sliding_window
+
+    def layer_kind(self, li: int) -> str:
+        return "full" if self.layer_kinds is None else self.layer_kinds[li]
+
+    @property
+    def hybrid(self) -> bool:
+        """Whether some layer is linear attention (state per slot, not
+        pages)."""
+        return self.layer_kinds is not None and "linear" in self.layer_kinds
 
 
 def _rope_from_hf(cfg: dict, dim: int, interleaved: bool) -> RopeConfig:
@@ -218,20 +252,19 @@ def _gqa_attn(cfg: dict, qk_norm: bool = False) -> AttentionSpec:
     """GQA attention: projection biases where the config sets
     attention_bias (always for qwen2 / qwen2_moe, as in the JAX package),
     the per-head q / k RMSNorm where the family applies it (``qk_norm``),
-    rope over the leading partial_rotary_factor of each head. A sliding
-    window in use (SmallThinker), gated output (Qwen3-Next) and a config
-    that asks for a q / k norm its family does not apply raise (ROADMAP
-    Queue 1 item 6)."""
+    rope over the leading partial_rotary_factor of each head, the output
+    gated per head where the config sets gated_output (Qwen3-Next's
+    translator sets it). A Qwen / Mistral sliding window in use and a
+    config that asks for a q / k norm its family does not apply raise."""
     heads = int(cfg["num_attention_heads"])
     head_dim = int(cfg.get("head_dim") or cfg["hidden_size"] // heads)
     prf = float(cfg.get("partial_rotary_factor", 1.0) or 1.0)
     # qwen configs carry a window that applies only with use_sliding_window
     if cfg.get("sliding_window") and cfg.get("use_sliding_window", True):
-        raise ValueError("sliding_window attention is not ported (ROADMAP "
-                         "Queue 1 item 6)")
-    if cfg.get("gated_output"):
-        raise ValueError("gated_output is not ported (ROADMAP Queue 1 "
-                         "item 6)")
+        raise ValueError(
+            "sliding_window of a Qwen / Mistral config is not ported: the "
+            "JAX package reads a window only from SmallThinker's "
+            "sliding_window_layout")
     for knob in ("qk_norm", "use_qk_norm"):
         if cfg.get(knob) and not qk_norm:
             raise ValueError(f"{knob} is not ported for "
@@ -245,6 +278,7 @@ def _gqa_attn(cfg: dict, qk_norm: bool = False) -> AttentionSpec:
         or cfg.get("model_type") in ("qwen2", "qwen2_moe"),
         qk_norm=qk_norm,
         partial_rotary_dim=int(head_dim * prf) if prf < 1.0 else 0,
+        gated_output=bool(cfg.get("gated_output", False)),
     )
 
 
@@ -397,6 +431,91 @@ def _glm4_moe_spec(cfg: dict) -> ModelSpec:
     )
 
 
+def _qwen3_next_spec(cfg: dict) -> ModelSpec:
+    """Qwen3-Next: hybrid GatedDeltaNet layers (layer_types
+    "linear_attention") and gated full attention (q_proj emits [q | gate]
+    per head, per-head q / k norm, rope over the leading
+    partial_rotary_factor, 0.25 by default, of each head), Qwen2-MoE-style
+    experts with a gated shared expert; the JAX package's
+    _qwen3_next_spec."""
+    base = _qwen_moe_spec(cfg, "qwen3_moe")
+    head_dim = int(cfg.get("head_dim")
+                   or cfg["hidden_size"] // cfg["num_attention_heads"])
+    prf = float(cfg.get("partial_rotary_factor", 0.25))
+    attn = dataclasses.replace(
+        base.attention, qk_norm=True, gated_output=True,
+        attention_bias=bool(cfg.get("attention_bias", False)),
+        partial_rotary_dim=int(head_dim * prf) if prf < 1.0 else 0,
+        num_kv_heads=int(cfg["num_key_value_heads"]), head_dim=head_dim)
+    kinds = tuple("linear" if t == "linear_attention" else "full"
+                  for t in cfg["layer_types"])
+    moe = dataclasses.replace(
+        base.moe, shared_expert_intermediate_size=int(
+            cfg.get("shared_expert_intermediate_size", 0)),
+        shared_expert_gate=True)
+    rot = int(head_dim * prf) if prf < 1.0 else head_dim
+    return dataclasses.replace(
+        base, model_type="qwen3_next", attention=attn, moe=moe,
+        rope=_rope_from_hf(cfg, rot, interleaved=False), layer_kinds=kinds,
+        linear_attn=LinearAttentionSpec(
+            num_v_heads=int(cfg["linear_num_value_heads"]),
+            num_k_heads=int(cfg["linear_num_key_heads"]),
+            head_k_dim=int(cfg["linear_key_head_dim"]),
+            head_v_dim=int(cfg["linear_value_head_dim"]),
+            conv_kernel=int(cfg.get("linear_conv_kernel_dim", 4))))
+
+
+def _smallthinker_spec(cfg: dict) -> ModelSpec:
+    """SmallThinker (4B / 21B MoE): GQA attention with per-layer rope on /
+    off (rope_layout) and sliding window on / off (sliding_window_layout),
+    ReLU-GLU experts behind an early router (fed the layer input), sigmoid
+    top-k without renormalization or softmax top-k renormalized; the JAX
+    package's _smallthinker_spec. Secondary experts raise."""
+    if cfg.get("moe_enable_secondary_experts"):
+        raise NotImplementedError(
+            "smallthinker secondary experts are not supported (nor in the "
+            "JAX package)")
+    n_layers = int(cfg["num_hidden_layers"])
+    e = int(cfg["moe_num_primary_experts"])
+    softmax = cfg.get("moe_primary_router_apply_softmax", True)
+    gate = GateConfig(
+        num_experts=e, top_k=int(cfg["moe_num_active_primary_experts"]),
+        scoring="softmax" if softmax else "sigmoid",
+        norm_topk_prob=bool(softmax))
+    moe_layout = list(cfg.get("moe_layer_layout") or [1] * n_layers)
+    moe = MoESpec(
+        num_experts=e, top_k=gate.top_k,
+        moe_intermediate_size=int(cfg["moe_ffn_hidden_size"]), gate=gate,
+        mlp_only_layers=tuple(li for li in range(n_layers)
+                              if not moe_layout[li]),
+        early_router=bool(cfg.get("moe_enable_early_router", True)))
+    head_dim = int(cfg.get("head_dim")
+                   or cfg["hidden_size"] // cfg["num_attention_heads"])
+    attn = AttentionSpec(
+        kind="gqa", num_heads=int(cfg["num_attention_heads"]),
+        num_kv_heads=int(cfg["num_key_value_heads"]), head_dim=head_dim,
+        sliding_window=int(cfg.get("sliding_window_size", 0)))
+    rope_layout = cfg.get("rope_layout")
+    swa_layout = cfg.get("sliding_window_layout")
+    return ModelSpec(
+        model_type="smallthinker",
+        vocab_size=int(cfg["vocab_size"]),
+        hidden_size=int(cfg["hidden_size"]),
+        num_layers=n_layers,
+        intermediate_size=int(cfg.get("dense_ffn_hidden_size",
+                                      cfg.get("moe_ffn_hidden_size"))),
+        rms_norm_eps=float(cfg.get("rms_norm_eps", 1e-6)),
+        attention=attn,
+        rope=_rope_from_hf(cfg, head_dim, interleaved=False),
+        activation=ActivationConfig(kind="relu"),
+        moe=moe,
+        tie_word_embeddings=bool(cfg.get("tie_word_embeddings", False)),
+        max_position=int(cfg.get("max_position_embeddings", 4096)),
+        rope_layout=None if rope_layout is None else tuple(rope_layout),
+        swa_layout=None if swa_layout is None else tuple(swa_layout),
+    )
+
+
 _TRANSLATORS = {
     "deepseek_v2": lambda c: _deepseek_spec(c, "deepseek_v2"),
     "deepseek_v3": lambda c: _deepseek_spec(c, "deepseek_v3"),
@@ -408,6 +527,8 @@ _TRANSLATORS = {
     "qwen2": lambda c: _dense_spec(c, "qwen2"),
     "qwen3": lambda c: _dense_spec(c, "qwen3"),
     "glm4_moe": _glm4_moe_spec,
+    "qwen3_next": _qwen3_next_spec,
+    "smallthinker": _smallthinker_spec,
 }
 
 # GGUF files of these architectures stay out until their loader is held
@@ -460,7 +581,7 @@ def spec_from_gguf_fields(fields: dict) -> ModelSpec:
     if mt not in _TRANSLATORS:
         raise NotImplementedError(
             f"gguf architecture {arch!r} ({mt}): the port has no {mt} "
-            "translator yet (ROADMAP Queue 1 item 6)")
+            "translator")
     g = lambda key, default=None: fields.get(f"{arch}.{key}", default)
 
     heads = int(g("attention.head_count"))

@@ -68,11 +68,11 @@ SIGNATURES = {
         "kt_quant_wgmma_t": [P] * 7 + [I] * 11 + [P] * 4,
     },
     "gqa_paged_attention": {
-        "kt_gqa_paged_decode": [P] * 5 + [I] * 6 + [F, I] + [P, P, P],
+        "kt_gqa_paged_decode": [P] * 5 + [I] * 6 + [F, I, I] + [P, P, P],
         "kt_gqa_decode_pieces": [I, I],
-        "kt_gqa_paged_prefill": [P] * 6 + [I] * 7 + [F, I] + [P, P],
-        "kt_gqa_prefill_mma": [P] * 6 + [I] * 7 + [F, I] + [P, P],
-        "kt_gqa_decode_split": [P] * 5 + [I] * 7 + [F] + [P] * 4,
+        "kt_gqa_paged_prefill": [P] * 6 + [I] * 7 + [F, I, I] + [P, P],
+        "kt_gqa_prefill_mma": [P] * 6 + [I] * 7 + [F, I, I] + [P, P],
+        "kt_gqa_decode_split": [P] * 5 + [I] * 7 + [F, I] + [P] * 4,
     },
 }
 

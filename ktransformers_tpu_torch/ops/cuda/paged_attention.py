@@ -349,20 +349,30 @@ def mla_paged_prefill(q_nope_eff, q_pe, ckv_pages, kpe_pages, page_tables,
 
 # ---- GQA ----
 
-GQA_KERNEL_D = 128  # head dim the kernels take
+# head dims the kernels take: 128, and Qwen3-Next's 256 (every kernel of
+# csrc/gqa_paged_attention.cu is instantiated for both)
+GQA_KERNEL_D = (128, 256)
 GQA_KERNEL_GMAX = 16  # query heads per KV head the float32 decode takes
 # gqa_decode_split_kernel (csrc/gqa_paged_attention.cu): the G query heads
 # of a KV head are the rows of one mma row group; a split takes a multiple
 # of GQA_DECODE_UNIT keys, at least GQA_DECODE_MIN_SPAN (one tile); at most
 # GQA_DECODE_MAX_SPLITS splits (one merge record a lane), each writing a
 # record of m [16], l [16] and acc [16, D] floats; the plan fills the card
-# with GQA_DECODE_BLOCKS_PER_SM blocks an SM (its shared memory allows two)
+# with GQA_DECODE_BLOCKS_PER_SM[D] blocks an SM, as many as the kernel's
+# shared memory lets one SM hold (two at D = 128, one at D = 256)
 GQA_SPLIT_GMAX = 16
 GQA_DECODE_UNIT = 16
 GQA_DECODE_MIN_SPAN = 64
 GQA_DECODE_MAX_SPLITS = 32
-GQA_DECODE_BLOCKS_PER_SM = 2
-GQA_DECODE_REC = 2 * GQA_SPLIT_GMAX + GQA_SPLIT_GMAX * GQA_KERNEL_D
+GQA_DECODE_BLOCKS_PER_SM = {128: 2, 256: 1}
+
+
+def gqa_decode_rec(d: int) -> int:
+    """Floats of one split's record at head dim d: m [16], l [16], acc
+    [16, d]."""
+    return 2 * GQA_SPLIT_GMAX + GQA_SPLIT_GMAX * d
+
+
 GQA_DECODE_KERNEL_NAMES = {"split": "gqa_decode_split_kernel"}
 # gqa_prefill_mma_kernel (csrc/gqa_paged_attention.cu): a block holds one
 # of GQA_PREFILL_ROWS flattened (position, head) query rows of one KV head
@@ -378,18 +388,19 @@ def gqa_decode_route(dtype: torch.dtype) -> str:
     return "split" if dtype == torch.bfloat16 else "first"
 
 
-def gqa_decode_split_plan(b: int, hkv: int, capacity: int, sms: int) -> int:
+def gqa_decode_split_plan(b: int, hkv: int, capacity: int, sms: int,
+                          d: int = 128) -> int:
     """Splits a (sequence, KV head) of a gqa_decode_split_kernel launch over
-    pools of ``capacity`` = pmax * page positions a sequence: the most for
-    which (B x Hkv x splits) blocks fit the card at once
-    (GQA_DECODE_BLOCKS_PER_SM blocks an SM, the kernel's shared memory
-    allows two), at most GQA_DECODE_MAX_SPLITS and no more than the
+    pools of ``capacity`` = pmax * page positions a sequence at head dim
+    ``d``: the most for which (B x Hkv x splits) blocks fit the card at
+    once (GQA_DECODE_BLOCKS_PER_SM[d] blocks an SM), at most
+    GQA_DECODE_MAX_SPLITS and no more than the
     capacity's tiles. On the H100 at Mixtral's serving batch (B = 8, Hkv =
     8) that is 4, which beat 5 and 8 at window 0 and 512
     (ops/cuda/split_sweep.py). A pure function of the shapes: the lengths
     stay on the card, where each block cuts its sequence's keys
     (gqa_decode_split_rows)."""
-    fit = GQA_DECODE_BLOCKS_PER_SM * sms // (b * hkv)
+    fit = GQA_DECODE_BLOCKS_PER_SM[d] * sms // (b * hkv)
     return max(1, min(fit, GQA_DECODE_MAX_SPLITS,
                       -(-capacity // GQA_DECODE_MIN_SPAN)))
 
@@ -492,8 +503,8 @@ def _check_gqa(what, q, k_pages, v_pages, page_tables, lengths, b):
 
 
 def _check_gqa_cuda(what, q, k_pages, v_pages, *ints):
-    if q.shape[-1] != GQA_KERNEL_D:
-        raise ValueError(f"{what}: kernel takes D={GQA_KERNEL_D}; got "
+    if q.shape[-1] not in GQA_KERNEL_D:
+        raise ValueError(f"{what}: kernel takes D in {GQA_KERNEL_D}; got "
                          f"{q.shape[-1]}")
     dt = q.dtype
     if dt not in (torch.float32, torch.bfloat16) or any(
@@ -523,19 +534,21 @@ def gqa_decode_launcher(q, k_pages, v_pages, page_tables, lengths,
     out = torch.empty_like(q)
     lib = _build.lib("gqa_paged_attention")
     page, pmax = k_pages.shape[1], page_tables.shape[1]
+    d = q.shape[-1]
     if kernel == "split":
         dev = out.device
-        splits = gqa_decode_split_plan(b, hkv, pmax * page, sm_count(dev))
+        splits = gqa_decode_split_plan(b, hkv, pmax * page, sm_count(dev),
+                                       d)
         part = cnt = None
         if splits > 1:
-            part, cnt = scratch(dev, b * hkv * splits * GQA_DECODE_REC,
+            part, cnt = scratch(dev, b * hkv * splits * gqa_decode_rec(d),
                                 b * hkv, "gqa_decode_split")
 
         def launch_split():
             err = lib.kt_gqa_decode_split(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 page_tables.data_ptr(), lengths.data_ptr(), b, h, hkv, page,
-                pmax, int(window), splits, float(scale),
+                pmax, int(window), splits, float(scale), d,
                 None if part is None else part.data_ptr(),
                 None if cnt is None else cnt.data_ptr(), out.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream,
@@ -554,7 +567,7 @@ def gqa_decode_launcher(q, k_pages, v_pages, page_tables, lengths,
         err = lib.kt_gqa_paged_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_tables.data_ptr(), lengths.data_ptr(), b, h, hkv, page, pmax,
-            int(window), float(scale), is_bf16, out.data_ptr(),
+            int(window), float(scale), is_bf16, d, out.data_ptr(),
             part.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream,
         )
         _build.check(err, what)
@@ -588,7 +601,8 @@ def gqa_prefill_launcher(q, k_pages, v_pages, page_tables, lengths, valid,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_tables.data_ptr(), lengths.data_ptr(), valid.data_ptr(), c,
             h, hkv, s, page, pmax, int(window), float(scale), mode,
-            out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream,
+            q.shape[-1], out.data_ptr(),
+            torch.cuda.current_stream(out.device).cuda_stream,
         )
         _build.check(err, what)
 

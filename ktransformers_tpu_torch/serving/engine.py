@@ -25,11 +25,16 @@ tokens do not.
 
 Both attention kinds of the port serve: MLA pools (ckv / k_pe) and GQA
 pools (k / v per KV head); pool creation, trash-page writes, prefix reuse
-and the spill tiers read pages by id and do not care which.
+and the spill tiers read pages by id and do not care which. A hybrid
+model's GatedDeltaNet layers (qwen3-next) keep O(1) state per slot
+instead of pages: a state cannot be rebuilt from pages, so prefix reuse is
+off and spilling refused for such a model, a slot's state is zeroed before
+its query's first prefill chunk, the decode batch's inactive rows leave
+theirs untouched (``valid``) and decode and prefill run as separate steps.
 
 Not ported, the constructor raises when asked: the sparse page budget
 (ROADMAP Queue 1 item 9), routing collection with expert re-placement
-(item 11); hybrid linear-attention models have no spec yet (item 6).
+(item 11).
 """
 
 from __future__ import annotations
@@ -101,8 +106,15 @@ class ServeEngine:
         self.params = params_to(prepare_params(params, spec), self.device)
         self.spec = spec
         self.cfg = cfg
+        self._hybrid = spec.hybrid
+        if self._hybrid:
+            if spill_tier is not None:
+                raise ValueError("a hybrid model's linear-attention state "
+                                 "cannot spill")
+            enable_prefix_cache = False
         self.kv = PagedKVCache.create(spec, num_pages, cfg.page_size,
-                                      dtype=cache_dtype, device=self.device)
+                                      dtype=cache_dtype, device=self.device,
+                                      linear_slots=cfg.max_batch_size)
         # page 0 = trash page for padding-row writes (see PageAllocator)
         self.alloc = PageAllocator(num_pages, reserved=1)
         self.prefix = (
@@ -209,9 +221,12 @@ class ServeEngine:
         """One token for every row of the fixed decode batch. Chainable: it
         consumes st["tokens"] / st["lengths"] on the device and leaves the
         next ones there, so the following step needs no host round trip."""
+        # a hybrid model's inactive rows must not advance their slot's
+        # linear-attention state
         logits, _ = forward_paged(
             self.params, self.spec, st["tokens"][:, None], self.kv,
             st["tables"], st["lengths"], logits_last_only=True,
+            valid=st["active"].to(torch.int32) if self._hybrid else None,
             **self._forward_args())
         st["tokens"], st["lengths"] = self._sample_decode(
             logits[:, -1], st, penalized)
@@ -233,7 +248,15 @@ class ServeEngine:
 
     def _can_fuse_mixed(self, qs: list[Query]) -> bool:
         return (os.environ.get("KT_FUSED_MIXED", "1") != "0"
+                and not self._hybrid
                 and not any(q.sampling.needs_counts for q in qs))
+
+    def _reset_linear_state(self, slot: int) -> None:
+        """Zero a slot's GatedDeltaNet states before its query's first
+        prefill chunk: unlike pages, they are reused by slot index."""
+        for li in self.kv.linear_layers:
+            self.kv.bufs_a[li][slot] = 0
+            self.kv.bufs_b[li][slot] = 0
 
     # -- execution ----------------------------------------------------------
 
@@ -282,6 +305,8 @@ class ServeEngine:
     def _dispatch_prefill(self, q: Query, chunk: list[int]):
         """Enqueue one bucketed prefill chunk; returns its logits
         ([1, 1, V], taken at the last VALID position)."""
+        if self._hybrid and q.prefill_pos == 0:
+            self._reset_linear_state(q.slot)
         bucket = self._bucket(len(chunk))
         tokens = np.zeros((1, bucket), np.int64)
         tokens[0, : len(chunk)] = chunk
@@ -291,6 +316,8 @@ class ServeEngine:
             self._to_device(np.asarray([q.prefill_pos], np.int32)),
             logits_last_only=True,
             valid=self._to_device(np.asarray([len(chunk)], np.int32)),
+            slots=torch.tensor([q.slot], device=self.device)
+            if self._hybrid else None,
             **self._forward_args())
         return logits
 

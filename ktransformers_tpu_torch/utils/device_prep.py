@@ -63,8 +63,12 @@ def fuse_qkv_projections(params, spec):
     (q_a with q_lora_rank) + kv_a -> "qkv_a", GQA q_proj + k_proj + v_proj
     -> "qkv". Where a part has a bias, the fused projection gets one
     concatenated "<fused>_bias" (zeros for a part without one), as in the
-    JAX package. Layers with differing formats or a LoRA adapter on a
-    part keep theirs. Mutates params in place."""
+    JAX package. A gated q_proj (qwen3-next, each head's [q | gate]) goes
+    in whole, so the fused weight keeps its per-head interleave. Layers
+    with differing formats or a LoRA adapter on a part keep theirs, and a
+    GatedDeltaNet layer has no such projections (its in_proj_qkvz /
+    out_proj are repacked for W4A8 like any other weight). Mutates params
+    in place."""
     a = spec.attention
     if a.kind == "mla":
         names, fkey = ("q_a" if a.q_lora_rank else "q_proj", "kv_a"), "qkv_a"
@@ -73,9 +77,10 @@ def fuse_qkv_projections(params, spec):
     else:
         names, fkey = ("q_proj", "k_proj", "v_proj"), "qkv"
         bias_keys = ("q_bias", "k_bias", "v_bias")
-    for lp in params.get("layers", []):
+    for li, lp in enumerate(params.get("layers", [])):
         p = lp.get("attn")
-        if p is None or any(n not in p or n + "_lora" in p for n in names):
+        if spec.layer_kind(li) == "linear" or p is None or any(
+                n not in p or n + "_lora" in p for n in names):
             continue
         parts = [p[n] for n in names]
         fused = _concat_out(parts)

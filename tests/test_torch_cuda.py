@@ -577,19 +577,19 @@ def test_grouped_w4a8_matmul_empty_expert_and_tail(cuda):
     assert _rel(out, MM.grouped_w4a8_matmul_ref(xs, w, sizes)) <= 1e-5
 
 
-def _gqa_pool(rng, b, pmax, page, dtype, live, hkv=2):
-    """Shuffled page tables over k / v pools [P, page, hkv, 128] whose
+def _gqa_pool(rng, b, pmax, page, dtype, live, hkv=2, d=128):
+    """Shuffled page tables over k / v pools [P, page, hkv, d] whose
     unused pages, and rows at or past each live length, are NaN."""
     num_pages = b * pmax + 1
     perm = rng.permutation(num_pages - 1)[: b * pmax] + 1
     tables = torch.from_numpy(perm.reshape(b, pmax).astype(np.int32))
-    k = torch.full((num_pages, page, hkv, 128), float("nan"))
+    k = torch.full((num_pages, page, hkv, d), float("nan"))
     v = torch.full_like(k, float("nan"))
     for i, n in enumerate(live):
         for pos in range(n):
             pid, slot = int(tables[i, pos // page]), pos % page
-            k[pid, slot] = _x(rng, hkv, 128)
-            v[pid, slot] = _x(rng, hkv, 128)
+            k[pid, slot] = _x(rng, hkv, d)
+            v[pid, slot] = _x(rng, hkv, d)
     return k.to(dtype), v.to(dtype), tables
 
 
@@ -658,7 +658,7 @@ def test_gqa_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="at most 16"):
         PA.gqa_paged_decode(*on(_x(rng, 1, 32, 128), k, v, tables, lengths),
                             0.1)
-    with pytest.raises(ValueError, match="D=128"):
+    with pytest.raises(ValueError, match=r"D in \(128, 256\)"):
         PA.gqa_paged_decode(*on(_x(rng, 1, 4, 64), k[..., :64].contiguous(),
                                 v[..., :64].contiguous(), tables, lengths),
                             0.1)
@@ -1496,13 +1496,15 @@ def test_mla_paged_decode_routes(cuda):
     assert _rel(first, PA.mla_paged_decode_ref(*args, 0.07)) <= 1e-2
 
 
-def _gqa_prefill_case(rng, page, g, s, olds, valids, hkv=2):
-    """bf16 operands of gqa_paged_prefill over 2048 positions a chunk."""
-    pmax = 2048 // page
+def _gqa_prefill_case(rng, page, g, s, olds, valids, hkv=2, d=128,
+                      span=2048):
+    """bf16 operands of gqa_paged_prefill over ``span`` positions a
+    chunk."""
+    pmax = span // page
     live = [o + v for o, v in zip(olds, valids)]
     (k, v), tables = _bf_pool(rng, len(olds), pmax, page, live,
-                              [(hkv, 128), (hkv, 128)])
-    q = _x(rng, len(olds), g * hkv, s, 128).bfloat16()
+                              [(hkv, d), (hkv, d)])
+    q = _x(rng, len(olds), g * hkv, s, d).bfloat16()
     return (q, k, v, tables, torch.tensor(olds, dtype=torch.int32),
             torch.tensor(valids, dtype=torch.int32))
 
@@ -1578,15 +1580,16 @@ def test_gqa_prefill_routes(cuda):
 # ------------------------------- redesigned paged GQA decode, row 13 (bf16)
 
 
-def _gqa_decode_case(rng, page, g, lens, hkv=2):
-    """bf16 operands of gqa_paged_decode over 2048 positions a sequence;
-    the last row is an inactive batch row (zero table, length 1)."""
-    pmax = 2048 // page
+def _gqa_decode_case(rng, page, g, lens, hkv=2, d=128, span=2048):
+    """bf16 operands of gqa_paged_decode over ``span`` positions a
+    sequence; the last row is an inactive batch row (zero table, length
+    1)."""
+    pmax = span // page
     b = len(lens) + 1
     (k, v), tables = _bf_pool(rng, b, pmax, page, lens + [0],
-                              [(hkv, 128), (hkv, 128)])
+                              [(hkv, d), (hkv, d)])
     tables[-1] = 0
-    q = _x(rng, b, g * hkv, 128).bfloat16()
+    q = _x(rng, b, g * hkv, d).bfloat16()
     lengths = torch.tensor(lens + [1], dtype=torch.int32)
     return q, k, v, tables, lengths
 
@@ -1675,6 +1678,103 @@ def test_gqa_qwen_widths(cuda, h, hkv):
         assert bool(torch.isfinite(out.float()).all())
         for i in range(len(olds)):
             assert _rel(out[i], ref[i]) <= 1e-2, (olds[i], valids[i])
+
+
+@pytest.mark.parametrize("window", [0, 20, 512])
+@pytest.mark.parametrize("g", [8, 16])
+def test_gqa_d256(cuda, g, window):
+    """Rows 13 and 15 at head dim 256 (Qwen3-Next: 16 query heads over 2 KV
+    heads, G = 8; and G = 16), page 64, bf16 on the redesigned kernels and
+    float32 on the first versions: decode lengths 0, 1, on and around
+    tiles and pages, 2047 and an inactive row; prefill chunks of 100 (old
+    lengths 0, 1, 63, 65, 64 and 1948, valid < S and == S, an empty chunk),
+    each against its plain version (1e-2 bf16, 1e-5 float32), every pool
+    row no sequence owns NaN, the split partials NaN before the call; a
+    second bf16 call gives the same bits."""
+    rng = np.random.default_rng(g + window)
+    lens = [0, 1, 15, 16, 17, 63, 64, 65, 700, 2047]
+    args = _gqa_decode_case(rng, 64, g, lens, d=256)
+    f32 = [t.float() if t.is_floating_point() else t for t in args]
+    split = ROUTED_LAUNCHES["gqa_decode_split_kernel"]
+    _poison_scratch("gqa_decode_split")
+    on = [t.to(cuda) for t in args]
+    out = PA.gqa_paged_decode(*on, 0.0625, window=window)
+    assert ROUTED_LAUNCHES["gqa_decode_split_kernel"] == split + 1
+    assert torch.equal(out, PA.gqa_paged_decode(*on, 0.0625, window=window))
+    ref = PA.gqa_paged_decode_ref(*args, 0.0625, window=window)
+    first = PA.gqa_paged_decode(*[t.to(cuda) for t in f32], 0.0625,
+                                window=window)
+    ref32 = PA.gqa_paged_decode_ref(*f32, 0.0625, window=window)
+    assert torch.all(out[0] == 0) and torch.all(first[0] == 0)
+    for i in range(1, len(lens) + 1):
+        assert _rel(out[i], ref[i]) <= 1e-2, i
+        assert _rel(first[i], ref32[i]) <= 1e-5, i
+    s = 100
+    olds = [0, 1, 63, 65, 64, 2048 - s, 0]
+    valids = [s - 7, s, s - 1, 37, s, s, 0]
+    pargs = _gqa_prefill_case(rng, 64, g, s, olds, valids, d=256)
+    p32 = [t.float() if t.is_floating_point() else t for t in pargs]
+    mma = ROUTED_LAUNCHES["gqa_prefill_mma_kernel"]
+    on = [t.to(cuda) for t in pargs]
+    out = PA.gqa_paged_prefill(*on, 0.0625, window=window)
+    assert ROUTED_LAUNCHES["gqa_prefill_mma_kernel"] == mma + 1
+    assert torch.equal(out, PA.gqa_paged_prefill(*on, 0.0625, window=window))
+    ref = PA.gqa_paged_prefill_ref(*pargs, 0.0625, window=window)
+    first = PA.gqa_paged_prefill(*[t.to(cuda) for t in p32], 0.0625,
+                                 window=window)
+    ref32 = PA.gqa_paged_prefill_ref(*p32, 0.0625, window=window)
+    assert bool(torch.isfinite(out.float()).all())
+    assert torch.all(out[-1] == 0)
+    for i in range(len(olds) - 1):
+        assert _rel(out[i], ref[i]) <= 1e-2, (olds[i], valids[i])
+        assert _rel(first[i], ref32[i]) <= 1e-5, (olds[i], valids[i])
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+def test_gqa_d256_prefill_plans(cuda, rows, monkeypatch):
+    """Both block shapes at head dim 256 (16 query heads over 2 KV heads):
+    a mixed step's chunk of 256 after 256 and a padded continued chunk
+    beside a fresh one, the plan forced."""
+    rng = np.random.default_rng(rows + 256)
+    args = _gqa_prefill_case(rng, 64, 8, 256, [256, 0], [256, 200], d=256)
+    monkeypatch.setattr(PA, "gqa_prefill_plan", lambda *a: rows)
+    launch, out = PA.gqa_prefill_launcher(*[t.to(cuda) for t in args],
+                                          0.0625, kernel="mma")
+    launch()
+    ref = PA.gqa_paged_prefill_ref(*args, 0.0625)
+    assert bool(torch.isfinite(out.float()).all())
+    for i in range(2):
+        assert _rel(out[i], ref[i]) <= 1e-2, i
+
+
+def test_gqa_window_past_the_window(cuda):
+    """SmallThinker-21B's windowed layers: 28 query heads over 4 KV heads
+    of 128 (G = 7), window 4096, decode lengths 4,097, 4,608 and 8,200 (keys
+    before the window never read: they are NaN) and a 256-token prefill
+    chunk after 4,352 and after 7,944, on both redesigned kernels, against
+    the plain versions; the decode's K rows before each window are NaN,
+    so a read of one would show."""
+    rng = np.random.default_rng(4096)
+    lens = [4097, 4608, 8200]
+    args = _gqa_decode_case(rng, 64, 7, lens, hkv=4, span=8256)
+    k, v = args[1], args[2]
+    tables = args[3]
+    for i, n in enumerate(lens):  # keys outside the window: NaN
+        pos = torch.arange(n - 4096)
+        k.view(-1, 4, 128)[tables[i].long()[pos // 64] * 64 + pos % 64] = \
+            float("nan")
+    out = PA.gqa_paged_decode(*[t.to(cuda) for t in args], 0.088,
+                              window=4096)
+    ref = PA.gqa_paged_decode_ref(*args, 0.088, window=4096)
+    for i in range(len(lens)):
+        assert _rel(out[i], ref[i]) <= 1e-2, lens[i]
+    pargs = _gqa_prefill_case(rng, 64, 7, 256, [4352, 7944], [256, 256],
+                              hkv=4, span=8256)
+    out = PA.gqa_paged_prefill(*[t.to(cuda) for t in pargs], 0.088,
+                               window=4096)
+    ref = PA.gqa_paged_prefill_ref(*pargs, 0.088, window=4096)
+    for i in range(2):
+        assert _rel(out[i], ref[i]) <= 1e-2, i
 
 
 def test_gqa_decode_routes(cuda):

@@ -85,6 +85,21 @@ def test_split_plan(b, hkv, capacity, want):
     assert PA.gqa_decode_split_plan(b, hkv, capacity, 132) == want
 
 
+@pytest.mark.parametrize("b, capacity, want", [
+    (8, 4672, 8),   # Qwen3-Next's serving batch (2 KV heads): 128 blocks
+    (1, 4672, 32),  # one sequence: the cap
+    (8, 576, 8),    # 9 tiles, one SM's block each for 8 x 2 x 8 blocks
+    (64, 4672, 1),
+])
+def test_split_plan_d256(b, capacity, want):
+    """At head dim 256 the kernel's shared memory (206 KB) lets an SM hold
+    one block, so the plan fills the card with one an SM: half the D = 128
+    splits where the card, not the cap or the tiles, sets the count."""
+    assert PA.GQA_DECODE_BLOCKS_PER_SM == {128: 2, 256: 1}
+    assert PA.gqa_decode_split_plan(b, 2, capacity, 132, 256) == want
+    assert PA.gqa_decode_split_plan(b, 2, capacity, 132, 128) >= want
+
+
 @pytest.mark.parametrize("window", [0, 20, 512])
 @pytest.mark.parametrize("b", [1, 8])
 @pytest.mark.parametrize("page", [16, 64])

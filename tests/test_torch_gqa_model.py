@@ -168,13 +168,32 @@ def test_spec_matches_jax():
     dict(model_type="llama"),
 ])
 def test_spec_refuses_unported_gqa_knobs(change):
-    """Mixtral with a knob of another GQA family raises (q / k norm,
-    gated output, a sliding window, dynamic rope scaling, another
-    activation) and so do the GQA families the port does not run;
+    """Mixtral with a knob of another GQA family raises (q / k norm, a
+    Mistral sliding window, dynamic rope scaling, another activation);
     projection biases (attention_bias) are ported and Qwen3-MoE is
-    (tests/test_torch_qwen_moe.py). Partial rotary, tied embeddings and
-    the llama family, which GLM4-MoE and the dense families need, build:
-    rope over the leading half of each head, no lm_head, a dense model."""
+    (tests/test_torch_qwen_moe.py). Partial rotary, tied embeddings, gated
+    output and the llama family, which GLM4-MoE, the dense families and
+    Qwen3-Next need, build: rope over the leading half of each head, no
+    lm_head, the output gated per head, a dense model. The qwen3_next
+    model type reads its own keys, which a Mixtral config lacks, and
+    builds from the registry's preset."""
+    if "gated_output" in change:
+        spec = spec_from_hf_config(dict(MIXTRAL_8X7B, **change))
+        assert spec.attention.gated_output and spec.model_type == "mixtral"
+        return
+    if change.get("model_type") == "qwen3_next":
+        from ktransformers_tpu_torch.models.registry import REGISTRY
+
+        with pytest.raises(KeyError):
+            spec_from_hf_config(dict(MIXTRAL_8X7B, **change))
+        spec = spec_from_hf_config(dict(
+            REGISTRY["qwen3-next-80b-a3b"].config))
+        assert spec.attention.gated_output and spec.layer_kind(0) == "linear"
+        return
+    if "sliding_window" in change:
+        with pytest.raises(ValueError, match="sliding_window_layout"):
+            spec_from_hf_config(dict(MIXTRAL_8X7B, **change))
+        return
     if "partial_rotary_factor" in change:
         spec = spec_from_hf_config(dict(MIXTRAL_8X7B, **change))
         assert spec.attention.rotary_dim == spec.rope.dim == 64

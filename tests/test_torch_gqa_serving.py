@@ -405,7 +405,7 @@ def test_paged_cache_from_jax_carries_gqa_pools(both):
     jkv = JKV.create(v.jspec, num_pages=6, page_size=8, dtype=jnp.float32)
     _, jkv = jforward(v.jparams, v.jspec, _ji(tokens), jkv, _ji(tables),
                       _ji([0]), compute_dtype=jnp.float32)
-    kv = paged_cache_from_jax(jax.device_get(jkv), "cpu")
+    kv = paged_cache_from_jax(jax.device_get(jkv), SPEC, "cpu")
     assert kv.page_size == 8 and kv.bufs_a[0].shape == (6, 8, 2, 128)
     tok = np.asarray([[7]])
     ref, _ = jforward(v.jparams, v.jspec, _ji(tok), jkv, _ji(tables),

@@ -187,7 +187,7 @@ def test_spec_matches_jax_for_bench_config():
 
 
 @pytest.mark.parametrize("change", [
-    dict(model_type="qwen3_next"), dict(tie_word_embeddings=True),
+    dict(model_type="gpt_oss"), dict(tie_word_embeddings=True),
     dict(scoring_func="softplus"), dict(topk_method="random"),
     dict(rope_scaling={"type": "dynamic", "factor": 2.0}),
     dict(attention_bias=True), dict(hidden_act="gelu"),

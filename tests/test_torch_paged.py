@@ -205,7 +205,8 @@ def test_paged_cache_from_jax_round_trip():
             rng.standard_normal(kv.bufs_a[1].shape), dtype)
         kv.bufs_b[2] = jnp.asarray(
             rng.standard_normal(kv.bufs_b[2].shape), dtype)
-        out = paged_cache_from_jax(jax.device_get(kv), "cpu")
+        out = paged_cache_from_jax(jax.device_get(kv),
+                                   spec_from_hf_config(SMALL), "cpu")
         mine = PagedKVCache.create(spec_from_hf_config(SMALL), 6, 8,
                                    dtype=tdtype, device="cpu")
         assert out.page_size == 8 and out.num_pages == 6
@@ -217,10 +218,14 @@ def test_paged_cache_from_jax_round_trip():
                 a.float().numpy(), np.asarray(b.astype(jnp.float32)))
     with pytest.raises(ValueError, match="summaries"):
         paged_cache_from_jax(JPagedKVCache.create(
-            jspec(SMALL), 4, 8, dtype=jnp.float32, summaries=True), "cpu")
+            jspec(SMALL), 4, 8, dtype=jnp.float32, summaries=True),
+            spec_from_hf_config(SMALL), "cpu")
 
 
 def test_unported_paths_raise():
+    """Page summaries (sparse decode) and routing collection raise, naming
+    their ROADMAP items; hybrid linear-attention slots are ported
+    (tests/test_torch_qwen3_next.py)."""
     spec = spec_from_hf_config(SMALL)
     with pytest.raises(NotImplementedError, match="item 9"):
         PagedKVCache.create(spec, 4, 8, summaries=True, device="cpu")
@@ -229,8 +234,7 @@ def test_unported_paths_raise():
     pt = torch.zeros(1, 2, dtype=torch.int32)
     ln = torch.zeros(1, dtype=torch.int32)
     for kw, item in ((dict(sparse_budget=2), "item 9"),
-                     (dict(collect_routing=True), "item 11"),
-                     (dict(slots=ln), "item 6")):
+                     (dict(collect_routing=True), "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             tpaged.forward_paged({}, spec, toks, kv, pt, ln, **kw)
 

@@ -123,11 +123,21 @@ def test_spec_matches_jax(name):
     dict(hidden_act="gelu"), dict(use_qk_norm=True),
 ])
 def test_spec_refuses_unported_knobs(family, change):
-    """A sliding window in use, gated output and another activation raise;
-    so does a q / k norm asked of Qwen2 (Qwen3 applies its own). Partial
-    rotary and tied embeddings, which every GQA family takes (GLM4-MoE and
-    the dense families need them), build: rope over the leading half of
-    each head (tables sized to it), no lm_head."""
+    """A Qwen sliding window in use (the JAX package reads a window only
+    from SmallThinker's layouts) and another activation raise; so does a
+    q / k norm asked of Qwen2 (Qwen3 applies its own). Partial rotary,
+    tied embeddings and gated output, which every GQA family takes
+    (GLM4-MoE, the dense families and Qwen3-Next need them), build: rope
+    over the leading half of each head (tables sized to it), no lm_head,
+    the output gated per head."""
+    if "gated_output" in change:
+        assert spec_from_hf_config(dict(TINY[family], **change)).attention \
+            .gated_output
+        return
+    if "sliding_window" in change:
+        with pytest.raises(ValueError, match="sliding_window_layout"):
+            spec_from_hf_config(dict(TINY[family], **change))
+        return
     if family == "qwen3_moe" and "use_qk_norm" in change:
         assert spec_from_hf_config(dict(TINY[family], **change)).attention \
             .qk_norm

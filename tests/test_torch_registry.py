@@ -3,8 +3,8 @@ listed with the same config, the same weight bytes by role at every quant
 kind, the DeepSeek / Kimi / Qwen-MoE / Mixtral / Llama / GLM presets
 translated to specs (llama-3.1-8b's and glm-4.5-air's equal to the JAX
 package's field by field but for the llama3 rope scaling, which the port
-takes from HF), and the families the port cannot translate yet refused with
-the ROADMAP item."""
+takes from HF; smallthinker-21b's and qwen3-next-80b-a3b's equal to it
+field by field), and a model type the port does not know refused."""
 
 import dataclasses
 
@@ -17,7 +17,8 @@ BYTE_FIELDS = ("embed_gb", "attn_gb", "dense_mlp_gb", "experts_gb",
                "shared_gb", "total_gb", "active_gb_per_token")
 PORTED = ("deepseek-v2-lite", "deepseek-v2", "deepseek-v3", "deepseek-r1",
           "kimi-k2", "qwen3-235b-a22b", "qwen3-30b-a3b", "qwen2-57b-a14b",
-          "mixtral-8x7b", "llama-3.1-8b", "glm-4.5-air")
+          "mixtral-8x7b", "llama-3.1-8b", "glm-4.5-air", "smallthinker-21b",
+          "qwen3-next-80b-a3b")
 
 
 def test_every_preset_lists():
@@ -69,18 +70,27 @@ def test_ported_presets_translate(name):
         assert spec.attention.q_lora_rank == 1536
         assert spec.moe.gate.has_correction_bias
         assert "offload" in shown["recommended"]
+    if name in ("smallthinker-21b", "qwen3-next-80b-a3b"):
+        from ktransformers_tpu.models.spec import spec_from_hf_config
+
+        jspec = spec_from_hf_config(dict(jreg.REGISTRY[name].config))
+        for path, tv, jv in _fields(spec, jspec):
+            assert tv == jv, path
 
 
-@pytest.mark.parametrize("name", [n for n in jreg.REGISTRY
-                                  if n not in PORTED])
-def test_other_families_raise_naming_item_6(name):
-    with pytest.raises(ValueError, match="item 6"):
+@pytest.mark.parametrize("name", ["unknown_model_type"])
+def test_other_families_raise_naming_item_6(name, monkeypatch):
+    """Every preset translates; an entry of a model type the port does not
+    know raises, naming the type, and still lists and estimates."""
+    e = dataclasses.replace(treg.REGISTRY["qwen3-30b-a3b"], name=name,
+                            config=dict(treg.REGISTRY["qwen3-30b-a3b"].config,
+                                        model_type=name))
+    monkeypatch.setitem(treg.REGISTRY, name, e)
+    with pytest.raises(ValueError, match=f"{name!r} is not ported"):
         treg.REGISTRY[name].spec()
-    with pytest.raises(ValueError, match="item 6"):
+    with pytest.raises(ValueError, match=f"{name!r} is not ported"):
         treg.show_model(name)
-    # they still list and estimate
-    assert treg.estimate_bytes(treg.REGISTRY[name].config, "int8",
-                               "int4_g")["total_gb"] > 0
+    assert treg.estimate_bytes(e.config, "int8", "int4_g")["total_gb"] > 0
 
 
 def _fields(t, j, path=""):

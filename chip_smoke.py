@@ -99,7 +99,7 @@ Phases (any failure exits non-zero before the final line):
             (int8 attention, int4_g W4A8 experts), held by moe_parity (the
             W4A8 variant's rule of phase 4, and a row past NEAR_TIE only
             where a route it sees differs between the devices); then
-            MIXTRAL_LAYERS = 16 of its 32 layers in a Generator answering 2
+            MIXTRAL_LAYERS = 8 of its 32 layers in a Generator answering 2
             requests of 512 + 32 tokens, launches per step held to the
             counts the code implies, a ServeEngine answering the 8 requests
             of phase 6 at depth 3 with the same checks, and the profiles of
@@ -167,7 +167,7 @@ Phases (any failure exits non-zero before the final line):
             G = 8 and G = 7); 2-layer parity card vs CPU of both models
             with the served kinds (int8 attention, shared expert and
             lm_head, int4_g experts) by moe_parity; then Qwen3-30B-A3B cut
-            to QWEN3_LAYERS = 12 of its 48 layers and Qwen2-57B-A14B cut to
+            to QWEN3_LAYERS = 8 of its 48 layers and Qwen2-57B-A14B cut to
             4 layers (depth only, full width), each in a Generator answering
             2 requests of 512 + 32 tokens and a ServeEngine answering the 8
             requests of phase 6 at depth 3, profiled, launches per step held
@@ -188,7 +188,7 @@ Phases (any failure exits non-zero before the final line):
             GLM's shared expert and dense MLP as int4_g weights, rows 13 and
             15 at G = 12); 2-layer parity card vs CPU (Llama int8 held to
             FORMAT_TOL, GLM by moe_parity); then Llama-3.1-8B cut to
-            LLAMA_LAYERS = 16 of its 32 layers (int8) and GLM-4.5-Air cut
+            LLAMA_LAYERS = 8 of its 32 layers (int8) and GLM-4.5-Air cut
             to GLM_LAYERS = 4 (the dense
             layer and 3 MoE layers; int8 with int4_g experts, the published
             q / k / v biases), each in a Generator answering 2 requests of
@@ -221,7 +221,26 @@ Phases (any failure exits non-zero before the final line):
             request 0's reused slot, its state zeroed); profiled, launches
             per step held to SMALLTHINKER_* / QNEXT_*, the GatedDeltaNet
             recurrence's share of Qwen3-Next's prefill chunk recorded
-            (hybrid_window_run).
+            (hybrid_window_run);
+21. offload: DeepSeek-V2-Lite, all 27 layers at full width, int4_g,
+            its routed experts in host memory (offload_run): one layer's
+            host FFN (the C++ of csrc/host_moe.cpp, built with g++) at 1, 8
+            and 256 rows against the plain float32 product on the card;
+            the HostOffloadGenerator on 2 requests of 256 + 16 tokens at
+            batch 2, and with 2 microbatches (the same tokens as the
+            requests alone); a HostOffloadServeEngine answering 4 requests
+            (one sharing 128 tokens of another's prompt), held to the
+            single-user tokens by phase 6's rule; launches per step held to
+            OFFLOAD_STEP_LAUNCHES; one decode step profiled (host ms a
+            hop, busy, idle, the shared experts' device time inside the
+            hops); one request's logits with float32 hops against the
+            resident Generator on the same weights with KT_W4A8=0, under
+            the offloaded run's routes, within SPREAD_FACTOR times the
+            bf16 rounding spread (offload_vs_resident); streamed experts
+            (offload_moe_weights) bit-identical to that Generator over 8
+            decode steps, and a 256-token chunk within the same bound
+            (streamed_check); 2-layer parity card vs CPU; the host's cores,
+            RAM and threads.
 The parity phases draw their 2-layer weights on the card and copy them to
 the host (card_drawn), where the host took 7-9 s to draw each.
 Each phase's seconds are logged and kept in chip_smoke.json (phase_s).
@@ -247,6 +266,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import re
@@ -264,8 +284,13 @@ BF16_FLOPS_PER_S = 989e12
 OUT_DIR = "chiprun_out"
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """A line of the run's log, after the seconds since the script
+    started."""
+    print(f"[{time.perf_counter() - _T0:7.1f}]", *a, flush=True)
 
 
 def card_line() -> str:
@@ -331,7 +356,7 @@ def make_check(rows: list, entries: dict):
     included)."""
 
     def check(name, label, tol, wrapper, plain, launcher, b_bytes, ops,
-              peak, library=None, main=False, plain_iters=5, side_tol=None,
+              peak, library=None, main=False, side_tol=None,
               expect=None, iters=20, per_row=False, first=None, kernel=None,
               kernel_main=False, up=None, fold=None):
         """expect (default plain) gives what the wrapper is held to; plain
@@ -377,7 +402,8 @@ def make_check(rows: list, entries: dict):
                                      f"disagrees: {first_rel}")
             first_ms = time_ms(first_launch, iters=iters)
             del f_out
-        plain_ms = time_ms(plain, iters=plain_iters, warmup=1)
+        # one timed call: the reference call above warmed the plain version
+        plain_ms = time_ms(plain, iters=1, warmup=0)
         library_ms = None
         if library is not None:
             try:
@@ -407,7 +433,7 @@ def make_check(rows: list, entries: dict):
                 down_ms=time_ms(halves.down, iters=iters),
                 first_ms=None if first is None else time_ms(
                     first()[0].up, iters=iters),
-                plain_ms=time_ms(up["plain"], iters=plain_iters, warmup=1),
+                plain_ms=time_ms(up["plain"], iters=1, warmup=0),
                 library_ms=None if up["library"] is None else time_ms(
                     up["library"], iters=iters),
                 bound_ms=up_bound, bound_by=up_by, bytes=up["bytes"],
@@ -601,8 +627,7 @@ def dense_w4a8_check(check, x, wt, label, sms, main=False,
           lambda: MM.dense_w4a8_launcher(x, wt),
           nbytes(x, *weight_parts(wt)) + m * n * 2, 2 * m * n * k,
           INT8_OPS_PER_S, library=lambda: torch.matmul(x, wdq), main=main,
-          kernel_main=kernel_main, plain_iters=2 if m > 64 else 5,
-          fold=fold_pair(
+          kernel_main=kernel_main, fold=fold_pair(
               lambda f: MM.dense_w4a8_launcher(x, wt, None, f),
               lambda: MM.prep_activations(x, k, wt.group_size, hasz),
               MM.gemv_call_folds(n, 1, 1, k, gs, sms)
@@ -635,8 +660,7 @@ def dense_ffn_check(check, x, sgu, sdn, label, sms, main=False):
           lambda: F.dense_launcher(x, sgu, sdn),
           nbytes(*weight_parts(sgu), *weight_parts(sdn))
           + 2 * nbytes(x), 2 * m * 3 * d * inter, INT8_OPS_PER_S,
-          main=main, plain_iters=2 if m > 64 else 5,
-          up=None if gdq is None else ffn_up(
+          main=main, up=None if gdq is None else ffn_up(
               x, sgu, sdn, torch.zeros(1, dtype=torch.int64,
                                        device=x.device),
               1, lambda: torch.matmul(x, gdq)),
@@ -667,8 +691,7 @@ def gathered_mm_check(check, x, wt, ids, label, main=False):
           lambda: MM.gathered_w4a8_matmul_ref(x, wt, ids),
           lambda: MM.gathered_launcher(x, wt, ids),
           nbytes(x) + used * nbytes(*weight_parts(wt, 0)) + rows * n * 2,
-          2 * rows * n * k, INT8_OPS_PER_S, main=main, plain_iters=3,
-          fold=fold_pair(
+          2 * rows * n * k, INT8_OPS_PER_S, main=main, fold=fold_pair(
               lambda f: MM.gathered_launcher(x, wt, ids, None, f),
               lambda: MM.prep_activations(x, k, wt.group_size, hasz),
               MM.gemv_call_folds(n, rows, e, k, gs, MM.sm_count(x.device)),
@@ -694,7 +717,7 @@ def grouped_mm_check(check, x, wt, sizes, label, library=None, main=False):
           lambda: MM.grouped_launcher(x, wt, sizes),
           nbytes(x) + used * nbytes(*weight_parts(wt, 0)) + rows * n * 2,
           2 * rows * n * k, INT8_OPS_PER_S, library=library, main=main,
-          plain_iters=2, iters=10, fold=fold_pair(
+          iters=10, fold=fold_pair(
               lambda f: MM.grouped_launcher(x, wt, sizes, None, f),
               lambda: MM.prep_activations(x, k, wt.group_size, hasz),
               MM.folds(route, rows, k, gs, hasz),
@@ -814,8 +837,7 @@ def kernel_checks(rows: list, entries: dict) -> None:
           lambda: F.grouped_w4a8_ffn_ref(xs, gu, dn, sizes),
           lambda: F.grouped_launcher(xs, gu, dn, sizes),
           used * per_expert + 2 * nbytes(xs), 2 * 1536 * 3 * d * f,
-          INT8_OPS_PER_S, main=True, kernel_main=True, plain_iters=2,
-          fold=fold_pair(
+          INT8_OPS_PER_S, main=True, kernel_main=True, fold=fold_pair(
               lambda fo: F.grouped_launcher(xs, gu, dn, sizes, "silu", None,
                                             fo),
               lambda: MM.prep_activations(xs, d, 128),
@@ -912,8 +934,7 @@ def kernel_checks(rows: list, entries: dict) -> None:
           lambda: F.grouped_w4a8_ffn_ref(xs, gu, dn, sizes),
           lambda: F.grouped_launcher(xs, gu, dn, sizes),
           int((sizes > 0).sum()) * per_expert + 2 * nbytes(xs),
-          2 * 3120 * 3 * d * f, INT8_OPS_PER_S, plain_iters=2,
-          fold=fold_pair(
+          2 * 3120 * 3 * d * f, INT8_OPS_PER_S, fold=fold_pair(
               lambda fo: F.grouped_launcher(xs, gu, dn, sizes, "silu", None,
                                             fo),
               lambda: MM.prep_activations(xs, d, 128),
@@ -1023,7 +1044,7 @@ def quant_kernel_checks(check, rd, rn, dev) -> None:
                   main=(kind == "int8" and m == 1 and n == 3648),
                   kernel_main=(kind == "int8" and m in (1, 256)
                                and n == 3648),
-                  plain_iters=2, iters=it,
+                  iters=it,
                   **routed(QM_ROUTES, QM.route(
                       x.dtype, m, "dense", kind, k, n,
                       QM.rows_per_group(wt)),
@@ -1043,7 +1064,7 @@ def quant_kernel_checks(check, rd, rn, dev) -> None:
                       + ids.shape[0] * n * 2, 2 * ids.shape[0] * n * k,
                       BF16_FLOPS_PER_S,
                       main=(kind == "int8" and what == "gate_up"
-                            and ids is ids6), plain_iters=2, iters=it,
+                            and ids is ids6), iters=it,
                       **routed(QM_ROUTES, QM.route(
                           x.dtype, ids.shape[0], "gathered", kind, k, n,
                           QM.rows_per_group(wt)),
@@ -1066,7 +1087,7 @@ def quant_kernel_checks(check, rd, rn, dev) -> None:
                       + rows * n * 2, 2 * live * n * k, BF16_FLOPS_PER_S,
                       library=grouped_mm(x, wdq, sz),
                       main=(kind == "int8" and what == "gate_up"
-                            and rows == 1536), plain_iters=2, iters=it,
+                            and rows == 1536), iters=it,
                       **routed(QM_ROUTES, QM.route(
                           x.dtype, rows, "grouped", kind, k, n,
                           QM.rows_per_group(wt)),
@@ -1229,8 +1250,7 @@ def paged_kernel_checks(check, rn, dev, h: int = 16,
               + nbytes(qn, qp) + c * h * s * r * 2,
               2 * h * pairs * (2 * r + dr), BF16_FLOPS_PER_S,
               library=lambda: sdpa(q, ckv0, kpe0, tables, mask), main=main,
-              kernel_main=main, plain_iters=3,
-              **routed(MLA_PREFILL_ROUTES, PA.prefill_route(torch.bfloat16),
+              kernel_main=main, **routed(MLA_PREFILL_ROUTES, PA.prefill_route(torch.bfloat16),
                        lambda: PA.prefill_launcher(*args, kernel="first")))
         out = PA.mla_paged_prefill(*args)
         if not bool(torch.isfinite(out.float()).all()):
@@ -1294,7 +1314,6 @@ def mixtral_kernel_checks(rows: list, entries: dict) -> None:
               lambda: QM.dense_launcher(x, wt),
               nbytes(x, wt.data, wt.scales) + n * 2, 2 * n * k,
               BF16_FLOPS_PER_S, library=lambda: torch.matmul(x, wdq),
-              plain_iters=2,
               **routed(QM_ROUTES, QM.route(x.dtype, 1, "dense", "int8", k, n,
                                            QM.rows_per_group(wt)),
                        lambda: QM.dense_launcher(x, wt, "rows")))
@@ -1415,7 +1434,7 @@ def gqa_cases_checks(check, rn, h: int, hkv: int, hd: int, cases, tag: str,
                   library=lambda: tF.scaled_dot_product_attention(
                       q[:, :, None], kg, vg, attn_mask=ok[:, None, None],
                       scale=scale, enable_gqa=True),
-                  per_row=True, plain_iters=2, main=entry, kernel_main=entry,
+                  per_row=True, main=entry, kernel_main=entry,
                   **routed(GQA_DECODE_ROUTES, route,
                            lambda: PA.gqa_decode_launcher(
                                *args, window=window, kernel="first")))
@@ -1451,7 +1470,7 @@ def gqa_cases_checks(check, rn, h: int, hkv: int, hd: int, cases, tag: str,
                   library=lambda: tF.scaled_dot_product_attention(
                       q, kg, vg, attn_mask=mask[:, None], scale=scale,
                       enable_gqa=True),
-                  per_row=True, plain_iters=2, main=entry, kernel_main=entry,
+                  per_row=True, main=entry, kernel_main=entry,
                   **routed(GQA_PREFILL_ROUTES, route,
                            lambda: PA.gqa_prefill_launcher(
                                *args, window=window, kernel="first")))
@@ -1978,8 +1997,9 @@ def int8_step_launches(result: dict, gen) -> None:
 
 
 # Mixtral-8x7B served at MIXTRAL_LAYERS of its 32 layers (served whole
-# until the SmallThinker / Qwen3-Next phase took the time)
-MIXTRAL_LAYERS = 16
+# until the SmallThinker / Qwen3-Next phase took the time, at 16 until the
+# host-offload phase did)
+MIXTRAL_LAYERS = 8
 _LM = MIXTRAL_LAYERS
 # Mixtral, L layers: quant_matmul 2 L + 1 (the fused qkv and o_proj of
 # every layer, lm_head), the expert matmul 2 L (gathered at decode on the
@@ -2644,7 +2664,7 @@ def sft_kernel_checks(rows: list, entries: dict) -> None:
               lambda: QT.dense_t_launcher(dy, wt),
               nbytes(dy) + wbytes(wt) + m * k * 4, 2 * m * n * k,
               BF16_FLOPS_PER_S, library=lambda: torch.matmul(dy, wdq.T),
-              main=main, kernel_main=main, plain_iters=2, iters=iters,
+              main=main, kernel_main=main, iters=iters,
               **routed(QT_ROUTES, QT._route(wt),
                        lambda: QT.dense_t_launcher(dy, wt, "rows")))
 
@@ -2687,7 +2707,7 @@ def sft_kernel_checks(rows: list, entries: dict) -> None:
               nbytes(dy) + wbytes(wt, used) + m * 6 * k * 4,
               2 * m * 6 * n * k, BF16_FLOPS_PER_S,
               library=grouped_mm(dy, wdqt, sizes),
-              main=(what == "gate_up"), plain_iters=2, iters=10,
+              main=(what == "gate_up"), iters=10,
               **routed(QT_ROUTES, QT._route(wt),
                        lambda: QT.grouped_t_launcher(dy, wt, sizes, "rows")))
         del wdqt
@@ -2699,8 +2719,7 @@ def sft_kernel_checks(rows: list, entries: dict) -> None:
               lambda: QT.gathered_quant_matmul_t_ref(dy6, wt, ids6),
               lambda: QT.gathered_t_launcher(dy6, wt, ids6),
               nbytes(dy6) + wbytes(wt, 6) + 6 * k * 4, 2 * 6 * n * k,
-              BF16_FLOPS_PER_S, plain_iters=2,
-              **routed(QT_ROUTES, QT._route(wt),
+              BF16_FLOPS_PER_S, **routed(QT_ROUTES, QT._route(wt),
                        lambda: QT.gathered_t_launcher(dy6, wt, ids6,
                                                       "rows")))
         # row 8 forward on the same experts and rows (the step's routed
@@ -2714,7 +2733,7 @@ def sft_kernel_checks(rows: list, entries: dict) -> None:
               lambda: MM.grouped_launcher(x, wt, sizes),
               nbytes(x) + wbytes(wt, used) + m * 6 * n * 2,
               2 * m * 6 * n * k, INT8_OPS_PER_S,
-              library=grouped_mm(x, wdq, sizes), plain_iters=2, iters=10,
+              library=grouped_mm(x, wdq, sizes), iters=10,
               fold=fold_pair(
                   lambda f: MM.grouped_launcher(x, wt, sizes, None, f),
                   lambda: MM.prep_activations(x, k, wt.group_size),
@@ -3184,24 +3203,26 @@ def v3_variant():
     return "v3_w4a8", spec, card_drawn(spec), None
 
 
-def routes_of(fn):
+def routes_of(fn, module=None):
     """(fn(), picks): fn run with the expert set each MoE layer of
-    models/model.py routes each token to recorded, one list of frozensets a
-    call of its router, in call order."""
-    from ktransformers_tpu_torch.models import model
+    ``module`` (models/model.py unless another, such as
+    offload/host_engine.py) routes each token to recorded, one list of
+    frozensets a call of its router, in call order."""
+    if module is None:
+        from ktransformers_tpu_torch.models import model as module
 
-    picks, route = [], model.route
+    picks, route = [], module.route
 
     def recording(*args, **kwargs):
         idx, weights = route(*args, **kwargs)
         picks.append([frozenset(r) for r in idx.tolist()])
         return idx, weights
 
-    model.route = recording
+    module.route = recording
     try:
         return fn(), picks
     finally:
-        model.route = route
+        module.route = route
 
 
 def moe_parity(what: str, spec, params, prompt: int) -> dict:
@@ -3219,12 +3240,21 @@ def moe_parity(what: str, spec, params, prompt: int) -> dict:
         lambda: parity_rows(params, spec, "cuda", prompt))
     cpu, cpu_picks = routes_of(
         lambda: parity_rows(params, spec, "cpu", prompt))
-    held = hold_rows(card, cpu, f"parity {what} (card vs CPU)", None)
+    return hold_routed(f"parity {what} (card vs CPU)", card, card_picks,
+                       cpu, cpu_picks)
+
+
+def hold_routed(what: str, card, card_picks, cpu, cpu_picks) -> dict:
+    """moe_parity's rule for logits rows ``card`` against ``cpu`` (one row
+    a forward, each forward's router calls in ``*_picks``): hold_rows with
+    tolerance None, and a row past NEAR_TIE only where a route it sees
+    differs."""
+    held = hold_rows(card, cpu, what, None)
     steps = card.shape[0]
     layers = len(card_picks) // steps
     if (not layers or layers * steps != len(card_picks)
             or len(cpu_picks) != len(card_picks)):
-        raise AssertionError(f"parity {what}: {len(card_picks)} / "
+        raise AssertionError(f"{what}: {len(card_picks)} / "
                              f"{len(cpu_picks)} router calls for {steps} rows")
     rerouted, earlier = [], False
     for i in range(steps):
@@ -3233,10 +3263,10 @@ def moe_parity(what: str, spec, params, prompt: int) -> dict:
         earlier = earlier or a[:-1] != b[:-1]
         rerouted.append(earlier or a[-1][-1] != b[-1][-1])
     wide = [i for i, e in enumerate(held["rel_err"]) if e > NEAR_TIE]
-    log(f"parity {what}: rows past {NEAR_TIE} {wide}; rows a route of the "
+    log(f"{what}: rows past {NEAR_TIE} {wide}; rows a route of the "
         f"card's differs for {[i for i, r in enumerate(rerouted) if r]}")
     if any(not rerouted[i] for i in wide):
-        raise AssertionError(f"parity {what}: rows {wide} leave the W4A8 "
+        raise AssertionError(f"{what}: rows {wide} leave the W4A8 "
                              f"spread with the same experts ({rerouted})")
     return dict(held, rerouted=rerouted)
 
@@ -3421,12 +3451,14 @@ def hf_module(tensors: dict) -> torch.nn.Module:
 def hf_import(result: dict) -> None:
     """DeepSeek-V2-Lite at full width cut to 2 layers (one dense, one MoE)
     as HF-named tensors drawn on the host (hf_tensors), held by a plain
-    nn.Module tree: TorchModelProvider -> build_params(int4_g) on the card
-    and on the CPU. Every imported leaf on the card equal to the CPU's
-    bits (build_params quantizes on the host for both devices, so this
-    holds the move of the tree to the card, not the quantizer: the
-    quantizer's bits are held against the JAX package's on the CPU, in
-    tests/test_torch_hf_import.py); then prepare_params and a Generator on
+    nn.Module tree: TorchModelProvider -> build_params(int4_g) on the CPU,
+    and that tree moved to the card as build_params(device="cuda") moves
+    the one it builds on the host (params_to; building it twice took ~20
+    s of host quantization). Every imported leaf on the card equal to the
+    CPU's bits (this holds the move of the tree to the card, not the
+    quantizer: the quantizer's bits are held against the JAX package's on
+    the CPU, in tests/test_torch_hf_import.py); then prepare_params and a
+    Generator on
     each device: a 16-token
     prompt and 4 decode steps on fixed tokens, whose logits rows the parity
     rule holds (hold_rows, W4A8: greedy tokens equal except at a
@@ -3435,13 +3467,14 @@ def hf_import(result: dict) -> None:
     from ktransformers_tpu_torch.loader.providers import TorchModelProvider
     from ktransformers_tpu_torch.models.loading import build_params
     from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.utils.device_prep import params_to
 
     t0 = time.perf_counter()
     spec = spec_from_hf_config(dict(bench_model_cfg(), num_hidden_layers=2))
     provider = TorchModelProvider(hf_module(hf_tensors(spec, seed=13)))
-    trees = {dev: build_params(provider, spec, quant="int4_g", device=dev)
-             for dev in ("cuda", "cpu")}
-    del provider
+    cpu = build_params(provider, spec, quant="int4_g", device="cpu")
+    trees = {"cuda": params_to(cpu, "cuda"), "cpu": cpu}
+    del provider, cpu
     leaves = list(zip(_leaves(trees["cuda"]), _leaves(trees["cpu"])))
     differ = sum(not (a.dtype == b.dtype and torch.equal(a.cpu(), b))
                  for a, b in leaves)
@@ -3547,7 +3580,7 @@ def ffn_entry_check(check, entry, x, gu, dn, label, sms, ids=None,
         folds = F.ffn_folds(route, r, d, gs, hasz)
     check(f"{entry}_w4a8_ffn", label, 3e-2, wrapper, plain, launcher,
           used * per_expert + 2 * nbytes(x), 2 * r * 3 * d * inter,
-          INT8_OPS_PER_S, plain_iters=2, iters=10, kernel_main=kernel_main,
+          INT8_OPS_PER_S, iters=10, kernel_main=kernel_main,
           up=ffn_up(x, gu, dn, ids.long(), used)
           if route == "gemv" else None,
           fold=None if route == "split" else fold_pair(
@@ -3989,9 +4022,10 @@ def gguf_serve(result: dict) -> None:
 # Qwen2-57B-A14B's depth on the card: cut to 4 layers (depth only; the 28
 # layers would take 34.7 GB and another two minutes of serving)
 QWEN2_LAYERS = 4
-# Qwen3-30B-A3B served at 12 of its 48 layers: the phases of the dense and
-# GLM models took the time (it ran whole, 48 layers, until then)
-QWEN3_LAYERS = 12
+# Qwen3-30B-A3B served at 8 of its 48 layers: the phases of the dense and
+# GLM models took the time (it ran whole, 48 layers, until then; 12 until
+# the host-offload phase)
+QWEN3_LAYERS = 8
 
 
 def qwen3_cfg(layers: int = QWEN3_LAYERS) -> dict:
@@ -4038,7 +4072,6 @@ def int8_matmul_checks(check, rd, rn, weights) -> None:
                   lambda: QM.dense_launcher(x, wt),
                   nbytes(x, wt.data, wt.scales) + m * n * 2, 2 * m * n * d,
                   BF16_FLOPS_PER_S, library=lambda: torch.matmul(x, wdq),
-                  plain_iters=2,
                   **routed(QM_ROUTES, QM.route(x.dtype, m, "dense", "int8",
                                                d, n, QM.rows_per_group(wt)),
                            lambda: QM.dense_launcher(x, wt, "rows")))
@@ -4520,8 +4553,9 @@ LLAMA_SINGLE_USER_KERNELS = ("quant_matmul",)
 LLAMA_PAGED_KERNELS = ("quant_matmul", "gqa_paged_decode",
                        "gqa_paged_prefill")
 # Llama-3.1-8B served at LLAMA_LAYERS of its 32 layers (served whole until
-# the SmallThinker / Qwen3-Next phase took the time)
-LLAMA_LAYERS = 16
+# the SmallThinker / Qwen3-Next phase took the time, at 16 until the
+# host-offload phase did)
+LLAMA_LAYERS = 8
 _LL = LLAMA_LAYERS
 # Llama, L dense int8 layers: quant_matmul 4 L + 1 (the fused qkv, o_proj,
 # gate_up and down of every layer, lm_head); no W4A8 weight, so no prep;
@@ -4590,10 +4624,10 @@ def dense_glm_run(result: dict, rows: list, entries: dict) -> None:
 
 # ------------------------------- SmallThinker-21B and Qwen3-Next (phase 20)
 
-# SmallThinker-21B served at SMALLTHINKER_LAYERS of its 52 layers: a
-# multiple of 4 keeps its layouts (every 4th layer NoPE and unwindowed, the
-# others windowed at 4,096 keys)
-SMALLTHINKER_LAYERS = 16
+# SmallThinker-21B served at SMALLTHINKER_LAYERS of its 52 layers (16 until
+# the host-offload phase took the time): a multiple of 4 keeps its layouts
+# (every 4th layer NoPE and unwindowed, the others windowed at 4,096 keys)
+SMALLTHINKER_LAYERS = 8
 # Qwen3-Next-80B-A3B at QNEXT_LAYERS of its 48: its first layer_types, 3
 # GatedDeltaNet layers and 1 gated full-attention layer
 QNEXT_LAYERS = 4
@@ -4895,6 +4929,647 @@ def hybrid_window_run(result: dict, rows: list, entries: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- routed experts on host
+
+# DeepSeek-V2-Lite with its routed experts in host memory (int4_g, all 27
+# layers, full width): two requests of OFFLOAD_PROMPT + OFFLOAD_NEW tokens
+# single-user, four through the HostOffloadServeEngine
+OFFLOAD_PROMPT = 256
+OFFLOAD_NEW = 16
+OFFLOAD_ENGINE_NEW = 8  # new tokens of each engine request
+OFFLOAD_HOST_ROWS = (1, 8, 256)
+OFFLOAD_HOST_TOL = 1e-4  # host FFN against the plain float32 product
+# launches per offloaded step, predicted before the first card run: the
+# card runs the 57 dense projections (qkv_a and o_proj of 27 layers, the
+# layer-0 MLP's gate_up and down, lm_head), the 26 shared-expert FFN calls
+# and the attention of 27 layers, and no routed-expert kernel. At 2 and 4
+# rows every W4A8 call quantizes x inside its kernel (w4a8_matmul.folds,
+# w4a8_ffn.ffn_folds) but the layer-0 down (group 96 at K = 10944, past the
+# folded A tile): one prep. A 2 x 256-row chunk folds only lm_head (its
+# last 2 rows): 54 + 2 + 26 preps. Attention of a contiguous-cache chunk
+# is plain PyTorch.
+OFFLOAD_STEP_LAUNCHES = {
+    "prefill_chunk_b2_s256": {"dense_w4a8_matmul": 57,
+                              "dense_w4a8_ffn": 26, "w4a8_prep": 82},
+    "decode_step_b2": {"dense_w4a8_matmul": 57, "dense_w4a8_ffn": 26,
+                       "mla_decode_fused": 27, "w4a8_prep": 1},
+    "serve_decode_step_b4": {"dense_w4a8_matmul": 57, "dense_w4a8_ffn": 26,
+                             "mla_paged_decode": 27, "w4a8_prep": 1},
+}
+OFFLOAD_KERNELS = ("w4a8_prep", "dense_w4a8_matmul", "dense_w4a8_ffn",
+                   "mla_decode_fused")
+SHARED_RANGE = "offload::shared_expert"  # offload_profile's annotation
+OFFLOAD_PAGED_KERNELS = ("w4a8_prep", "dense_w4a8_matmul", "dense_w4a8_ffn",
+                         "mla_paged_decode", "mla_paged_prefill")
+
+
+def launch_diff(before: dict, after: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] - before.get(k, 0)}
+
+
+def near_tie_hold(what: str, got: list, ref: list, gaps: list):
+    """Phase 6's rule: tokens ``got`` equal ``ref`` up to the first
+    position whose top-2 gap in the reference lies below NEAR_TIE of its
+    largest logit; returns that first difference (None: all equal)."""
+    diff = next((j for j in range(len(ref)) if got[j] != ref[j]), None)
+    if diff is not None and gaps[diff] >= NEAR_TIE:
+        raise AssertionError(f"{what} leaves the single-user tokens at "
+                             f"{diff} (top-2 gap {gaps[diff]:.3e}): {got} vs "
+                             f"{ref}")
+    return diff
+
+
+def host_info() -> dict:
+    """The card's host: cores, RAM, OpenMP and torch threads."""
+    from ktransformers_tpu_torch.offload.host_moe import openmp_max_threads
+
+    mem = None
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemTotal:"):
+                mem = int(line.split()[1]) * 1024
+    return dict(cpu_count=os.cpu_count(), mem_total_bytes=mem,
+                openmp_max_threads=openmp_max_threads(),
+                torch_threads=torch.get_num_threads())
+
+
+def host_ffn_check(layer, gate_up, down, spec) -> dict:
+    """One layer's HostMoELayer at OFFLOAD_HOST_ROWS rows, top-k of its
+    experts, against the plain float32 expert product on the card
+    (moe_forward_dense_reference on the same int4_g codes), held within
+    OFFLOAD_HOST_TOL of the largest value; host ms, median of 3."""
+    from ktransformers_tpu_torch.ops.gate import route
+    from ktransformers_tpu_torch.ops.moe import (
+        MoEWeights,
+        moe_forward_dense_reference,
+    )
+
+    out = {}
+    for t in OFFLOAD_HOST_ROWS:
+        g = torch.Generator(device="cuda").manual_seed(t)
+        x = torch.randn(t, spec.hidden_size, device="cuda", generator=g)
+        logits = torch.randn(t, spec.moe.num_experts, device="cuda",
+                             generator=g)
+        ids, w = route(logits, spec.moe.gate)
+        ref = moe_forward_dense_reference(x, MoEWeights(gate_up, down), ids,
+                                          w, spec.activation).cpu()
+        args = (x.cpu(), ids.cpu().contiguous(), w.cpu().contiguous())
+        got = layer.forward(*args)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            layer.forward(*args)
+            times.append((time.perf_counter() - t0) * 1e3)
+        err = float((got - ref).abs().max() / ref.abs().max())
+        out[t] = dict(rel_err=err, host_ms=statistics.median(times))
+        log(f"offload host FFN T = {t}: rel_err {err:.2e} "
+            f"(held to {OFFLOAD_HOST_TOL}), {out[t]['host_ms']:.3f} ms on "
+            f"{layer.threads} threads")
+        if not err <= OFFLOAD_HOST_TOL:
+            raise AssertionError(f"host FFN at T = {t}: {err}")
+    return out
+
+
+def offload_greedy(gen, prompts: list, n: int) -> dict:
+    """n greedy tokens of equal-length prompts through forward_chunk (one
+    prefill chunk, then one token a step): tokens, top-2 gaps and logits
+    rows per prompt, the launches of the chunk and of the first decode
+    step, prefill and decode tok/s on the host's clock."""
+    from ktransformers_tpu_torch.ops.cuda import LAUNCHES
+
+    b = len(prompts)
+    cache = gen.new_cache(b)
+    toks = torch.tensor(prompts, device=gen.device)
+    before = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, logits, cache = gen.forward_chunk(toks, cache)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    chunk = launch_diff(before, LAUNCHES)
+    rows, outs, step = [logits.float().cpu()], [tok], None
+    for _ in range(n - 1):
+        before = dict(LAUNCHES)
+        tok, logits, cache = gen.forward_chunk(tok[:, None], cache)
+        step = step or launch_diff(before, LAUNCHES)
+        rows.append(logits.float().cpu())
+        outs.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rows = torch.stack(rows, dim=1)  # [B, n, V]
+    top2 = torch.topk(rows, 2, dim=-1).values
+    gaps = ((top2[..., 0] - top2[..., 1]) / rows.abs().amax(-1)).tolist()
+    return dict(tokens=torch.stack(outs, 1).cpu().tolist(), gaps=gaps,
+                rows=rows, cache=cache, last=tok, chunk_launches=chunk,
+                step_launches=step,
+                prefill_tok_s=b * len(prompts[0]) / (t1 - t0),
+                decode_tok_s=b * (n - 1) / (t2 - t1))
+
+
+def offload_profile(gen, cache, tok) -> dict:
+    """One decode step of the offloaded Generator under torch.profiler:
+    wall (mean of 4 unprofiled steps), device busy and idle share, host ms
+    per layer hop, and the share of the shared experts' device time that
+    falls inside the host hops (their device ranges, annotated here
+    around models/model.py's _dense_mlp calls on the shared experts,
+    against the hops' host ranges on the profiler's common clock; None
+    where the trace has no device range of the annotation)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ktransformers_tpu_torch.models import model
+    from ktransformers_tpu_torch.offload.host_engine import HOP_RANGE
+
+    state = {"tok": tok}
+
+    def step():
+        state["tok"], _, _ = gen.forward_chunk(state["tok"][:, None], cache)
+
+    wall = wall_ms(lambda: [step() for _ in range(4)]) / 4
+    shared_ids = {id(lp["moe"]["shared"]) for lp in gen.params["layers"]
+                  if "moe" in lp and lp["moe"].get("shared") is not None}
+    dense_mlp = model._dense_mlp
+
+    def annotated(p, spec, x):
+        if id(p) not in shared_ids:
+            return dense_mlp(p, spec, x)
+        with record_function(SHARED_RANGE):
+            return dense_mlp(p, spec, x)
+
+    torch.cuda.synchronize()
+    model._dense_mlp = annotated
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        model._dense_mlp = dense_mlp
+    events = list(prof.events())
+    names = (HOP_RANGE, SHARED_RANGE)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in names and e.time_range.elapsed_us() > 0]
+    hops = [(e.time_range.start, e.time_range.end) for e in events
+            if e.name == HOP_RANGE and e.device_type == DeviceType.CPU]
+    shared = [(e.time_range.start, e.time_range.end) for e in events
+              if e.name == SHARED_RANGE and e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+    def inside(a0, a1):
+        return sum(max(0, min(a1, h1) - max(a0, h0)) for h0, h1 in hops)
+
+    shared_us = sum(b - a for a, b in shared)
+    overlap = (sum(inside(a, b) for a, b in shared) / shared_us
+               if shared_us else None)
+    hop_ms = [(b - a) / 1e3 for a, b in hops]
+    busy_in_hops = sum(inside(e.time_range.start, e.time_range.end)
+                       for e in kernels) / 1e3
+    prof.export_chrome_trace(os.path.join(OUT_DIR,
+                                          "offload_decode_trace.json"))
+    out = dict(wall_ms=wall, device_busy_ms=busy,
+               idle_share=1.0 - busy / wall, device_kernels=len(kernels),
+               hops=len(hops), hop_ms_mean=statistics.mean(hop_ms),
+               hop_ms_max=max(hop_ms), hop_ms_sum=sum(hop_ms),
+               device_busy_in_hops_ms=busy_in_hops,
+               shared_device_ms=shared_us / 1e3 if shared else None,
+               shared_inside_hop_share=overlap)
+    log(f"offload profile decode step (batch {cache.lengths.shape[0]}): "
+        f"wall {wall:.3f} ms, device busy {busy:.3f} ms in {len(kernels)} "
+        f"kernels, idle {out['idle_share']:.3f}; {len(hops)} host hops of "
+        f"{out['hop_ms_mean']:.3f} ms mean ({out['hop_ms_sum']:.3f} ms in "
+        f"all, the card busy {busy_in_hops:.3f} ms inside them); shared "
+        f"experts {out['shared_device_ms']} ms on the card, {overlap} of it "
+        "inside a hop")
+    if len(hops) != gen.spec.num_layers - 1:
+        raise AssertionError(f"{len(hops)} host hops in a decode step")
+    return out
+
+
+def offload_engine(result: dict, dev, host, spec, prompts: list,
+                   refs: list) -> None:
+    """Four requests through the HostOffloadServeEngine at a batch of 4
+    (request 1 submitted once request 0 has finished, so that the 128
+    tokens it shares with request 0 hit the prefix cache), each held to its
+    single-user tokens by phase 6's rule (near_tie_hold); launches of the
+    run and of a decode step, and the fused mixed steps taken."""
+    from ktransformers_tpu_torch.offload import HostOffloadServeEngine
+    from ktransformers_tpu_torch.ops.cuda import (
+        LAUNCHES,
+        ROUTED_LAUNCHES,
+        reset_launches,
+    )
+    from ktransformers_tpu_torch.serving import SchedulerConfig
+
+    num_pages = 64
+    eng = HostOffloadServeEngine(
+        dev, spec, SchedulerConfig(max_batch_size=4, max_pages_per_query=8),
+        host_layers=host, num_pages=num_pages, device="cuda")
+    steps: list = []
+    decode_step = eng._decode_step
+
+    def counted(st, penalized):
+        before = dict(LAUNCHES)
+        out = decode_step(st, penalized)
+        steps.append(launch_diff(before, LAUNCHES))
+        return out
+
+    eng._decode_step = counted
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    qs = {i: eng.submit(prompts[i], max_new_tokens=OFFLOAD_ENGINE_NEW)
+          for i in (0, 2, 3)}
+    while len(qs) < 4 or any(q.state != "done" for q in qs.values()):
+        if not eng.step() and len(qs) == 4:
+            break
+        if 1 not in qs and qs[0].state == "done":
+            qs[1] = eng.submit(prompts[1],
+                               max_new_tokens=OFFLOAD_ENGINE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    result["paged_serve_offload"] = dict(
+        launches=dict(LAUNCHES), routed_launches=dict(ROUTED_LAUNCHES),
+        wall_s=wall, output_tok_s=4 * OFFLOAD_ENGINE_NEW / wall,
+        engine_steps=eng.steps_executed,
+        mixed_steps_fused=eng.mixed_steps_fused,
+        matched_len=[qs[i].matched_len for i in range(4)],
+        tokens=[list(qs[i].output_ids) for i in range(4)],
+        decode_step_launches=steps[0] if steps else None)
+    rec = result["paged_serve_offload"]
+    log(f"offload engine: 4 requests in {wall:.2f} s, "
+        f"{rec['output_tok_s']:.2f} output tok/s, {eng.steps_executed} "
+        f"steps ({eng.mixed_steps_fused} fused mixed), matched "
+        f"{rec['matched_len']}, launches "
+        f"{json.dumps({k: v for k, v in rec['launches'].items() if v})}")
+    if rec["matched_len"][1] != 128:
+        raise AssertionError(f"offload engine: request 1 matched "
+                             f"{rec['matched_len'][1]}")
+    held = eng.prefix.stats()["nodes"]
+    if eng.alloc.free_count + held != num_pages - 1:
+        raise AssertionError("offload engine: pages leaked")
+    verdicts = [near_tie_hold(f"offload engine request {i}",
+                              rec["tokens"][i], ref, gaps)
+                for i, (ref, gaps) in enumerate(refs)]
+    rec["agreement"] = verdicts
+    log(f"offload engine against single-user: {verdicts}")
+    missing = [k for k in OFFLOAD_PAGED_KERNELS if rec["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"offload engine launched none of {missing}")
+
+
+def offload_parity(result: dict) -> None:
+    """DeepSeek-V2-Lite's full width cut to 2 layers (one dense, one MoE;
+    int4_g drawn on the card, card_drawn): the HostOffloadGenerator on the
+    card against the same run on the CPU (a 32-token prefill and 2 decode
+    steps on fixed tokens, float32 compute and hops), held by moe_parity's
+    rule with the routes recorded."""
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.offload import HostOffloadGenerator
+
+    spec = spec_from_hf_config(dict(bench_model_cfg(), num_hidden_layers=2))
+    params = card_drawn(spec, prepare=False)
+    feed = [t % spec.vocab_size for t in (11, 2222)]
+    prompt = np.random.default_rng(3).integers(0, spec.vocab_size, (1, 32))
+
+    def rows_on(device):
+        gen = HostOffloadGenerator(params, spec, max_len=64, batch=1,
+                                   cache_dtype=torch.float32,
+                                   compute_dtype=torch.float32,
+                                   device=device)
+        cache = gen.new_cache()
+        _, lg, cache = gen.forward_chunk(torch.as_tensor(prompt), cache)
+        rows = [lg.float().cpu()]
+        for tok in feed:
+            _, lg, cache = gen.forward_chunk(torch.tensor([[tok]]), cache)
+            rows.append(lg.float().cpu())
+        return torch.cat(rows)
+
+    t0 = time.perf_counter()
+    card, card_picks = routes_of(lambda: rows_on("cuda"))
+    cpu, cpu_picks = routes_of(lambda: rows_on("cpu"))
+    result["offload"]["parity"] = dict(
+        hold_routed("parity offload (card vs CPU)", card, card_picks, cpu,
+                    cpu_picks), seconds=time.perf_counter() - t0)
+    del params
+    torch.cuda.empty_cache()
+
+
+def forced_spread(gen, prompt: list, toks: list, routes) -> float:
+    """What bf16 rounding alone moves ``gen``'s single-user steps by
+    (model_steps over ``prompt`` and ``toks``, ``routes`` forced on every
+    router call): the largest row error of its float32 compute and cache
+    against its own compute dtype, as a share of the row's largest
+    logit."""
+    ref, _ = model_steps(gen, prompt, toks, forced=routes)
+    dtypes = gen.compute_dtype, gen.cache_dtype
+    gen.compute_dtype = gen.cache_dtype = torch.float32
+    try:
+        f32, _ = model_steps(gen, prompt, toks, forced=routes)
+    finally:
+        gen.compute_dtype, gen.cache_dtype = dtypes
+    return float(((f32 - ref).abs().amax(-1) / ref.abs().amax(-1)).max())
+
+
+def offload_vs_resident(res, host, prompt: list, toks: list) -> dict:
+    """The offloaded model (float32 hops, the host FFN in float32) against
+    the resident Generator ``res`` (KT_W4A8=0: the routed experts on row
+    10 in bf16) on the same device tensors, fed ``prompt`` and then
+    ``toks`` (model_steps): the resident steps run under the routes the
+    offloaded run took, so that the two differ by rounding alone, and
+    every row is held by hold_rows to SPREAD_FACTOR times the resident
+    model's bf16 rounding spread under the same routes (forced_spread)."""
+    from ktransformers_tpu_torch.offload import HostOffloadGenerator
+
+    off = HostOffloadGenerator(res.params, res.spec, host,
+                               max_len=res.max_len, batch=1,
+                               transfer_dtype=None, device="cuda")
+    rows, routes = model_steps(off, prompt, toks)
+    del off
+    spread = forced_spread(res, prompt, toks, routes)
+    ref, _ = model_steps(res, prompt, toks, forced=routes)
+    held = hold_rows(rows.cpu(), ref.cpu(), "offload (float32 hops) against "
+                     "the resident Generator (KT_W4A8=0) under the "
+                     "offloaded routes", SPREAD_FACTOR * spread)
+    return dict(held, spread=spread, routes=routes,
+                max_rel_err=max(held["rel_err"]))
+
+
+def streamed_check(result: dict, gen, prompt: list, routes,
+                   tol: float) -> None:
+    """Every MoE layer's experts streamed from the host (offload_moe_weights)
+    in a Generator beside the resident one on the same parameters, both
+    with KT_W4A8=0 (int4_g through row 10): an 8-token prompt (the gather
+    path on both) and 8 greedy tokens, logits bit-identical at every step;
+    then the 256 tokens of ``prompt`` as one chunk (the streamed side
+    gathers each layer's distinct routed experts; the resident side takes
+    the grouped path) under ``routes`` forced on both sides, held by
+    hold_rows to ``tol``; bytes streamed a token and in the chunk, the
+    staging's pinned bytes, and host-to-card rates: a pinned copy of one
+    layer's gathered experts (CUDA events) and the gather plus copy
+    (device_qtensor) on the host's clock."""
+    from ktransformers_tpu_torch.engine.generate import Generator
+    from ktransformers_tpu_torch.offload import experts as offload_experts
+    from ktransformers_tpu_torch.offload import offload_moe_weights
+    from ktransformers_tpu_torch.ops.cuda import (
+        LAUNCHES,
+        ROUTED_LAUNCHES,
+        reset_launches,
+    )
+
+    spec = gen.spec
+    layers = [dict(lp, moe=dict(lp["moe"], experts=offload_moe_weights(
+        lp["moe"]["experts"]))) if "moe" in lp else lp
+        for lp in gen.params["layers"]]
+    offs = [lp["moe"]["experts"] for lp in layers if "moe" in lp]
+    streamed = Generator(dict(gen.params, layers=layers), spec,
+                         max_len=gen.max_len, device="cuda")
+    toks = torch.tensor([prompt[:8]], device="cuda")
+    same, n_tok = [], 8
+    c_r, c_s = gen.new_cache(), streamed.new_cache()
+    last_r, c_r = gen.prefill(c_r, toks)
+    last_s, c_s = streamed.prefill(c_s, toks)
+    same.append(torch.equal(last_r, last_s))
+    for off in offs:
+        off.bytes_streamed = 0
+    # the streamed model's launches alone (counted around its steps)
+    launches = {k: 0 for k in LAUNCHES}
+    routed_n = {k: 0 for k in ROUTED_LAUNCHES}
+    wall = 0.0
+    for _ in range(n_tok):
+        tok = last_r.argmax(-1)
+        lr, c_r = gen._forward(tok[:, None], c_r)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        ls, c_s = streamed._forward(tok[:, None], c_s)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        for mine, counts in ((launches, LAUNCHES), (routed_n,
+                                                    ROUTED_LAUNCHES)):
+            for k, v in counts.items():
+                mine[k] += v
+        last_r, last_s = lr[:, -1], ls[:, -1]
+        same.append(torch.equal(last_r, last_s))
+    per_tok = sum(off.bytes_streamed for off in offs) / n_tok
+    del c_r, c_s
+    # a whole prefill chunk, under the same routes on both sides
+    for off in offs:
+        off.bytes_streamed = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chunk_s, _ = model_steps(streamed, prompt, [], forced=routes)
+    torch.cuda.synchronize()
+    chunk_wall = time.perf_counter() - t0
+    chunk_peak = torch.cuda.max_memory_allocated()
+    chunk_bytes = sum(off.bytes_streamed for off in offs)
+    chunk_r, _ = model_steps(gen, prompt, [], forced=routes)
+    chunk = hold_rows(chunk_s.cpu(), chunk_r.cpu(), "streamed experts, a "
+                      f"{len(prompt)}-token chunk (resident routes forced)",
+                      tol)
+    staging = sum(b.numel() * b.element_size()
+                  for st in offload_experts._STAGING.values()
+                  for b in st.bufs if b is not None)
+    # the pinned copy of one layer's gathered experts alone, and the
+    # host gather with it
+    off, ids = offs[0], torch.arange(spec.moe.top_k)
+    pinned = [torch.empty(t[: len(ids)].shape, dtype=t.dtype,
+                          pin_memory=True)
+              for q in (off.gate_up, off.down) for t in (q.data, q.scales)]
+    nb = sum(t.numel() * t.element_size() for t in pinned)
+    copy_ms = time_ms(lambda: [t.to("cuda", non_blocking=True)
+                               for t in pinned], iters=10)
+    gather_ms = wall_ms(lambda: [off.device_qtensor(w, ids, torch.device(
+        "cuda")) for w in ("gate_up", "down")])
+    rec = dict(bit_identical=same, bytes_per_token=per_tok,
+               layer_bytes=nb, pinned_copy_gb_s=nb / copy_ms / 1e6,
+               gather_copy_gb_s=nb / gather_ms / 1e6,
+               decode_tok_s=n_tok / wall, launches=launches,
+               routed_launches=routed_n,
+               chunk=dict(chunk, tokens=len(prompt), bytes=chunk_bytes,
+                          wall_s=chunk_wall, peak_device_bytes=chunk_peak,
+                          staging_pinned_bytes=staging))
+    result["offload"]["streamed"] = rec
+    result["single_user_streamed"] = rec
+    log(f"streamed experts: logits bit-identical to the resident model at "
+        f"{sum(same)}/{len(same)} steps; {per_tok / 1e6:.1f} MB streamed a "
+        f"token; a {len(prompt)}-token chunk streamed "
+        f"{chunk_bytes / 1e9:.3f} GB in {chunk_wall:.2f} s, peak device "
+        f"memory {chunk_peak / 1e9:.3f} GB, pinned staging "
+        f"{staging / 1e9:.3f} GB; one layer's {len(ids)} experts "
+        f"({nb / 1e6:.1f} MB): pinned copy {rec['pinned_copy_gb_s']:.1f} "
+        f"GB/s, host gather + copy {rec['gather_copy_gb_s']:.1f} GB/s; "
+        f"decode {rec['decode_tok_s']:.2f} tok/s; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    if not all(same):
+        raise AssertionError(f"streamed experts leave the resident bits: "
+                             f"{same}")
+    if (launches["gathered_quant_matmul"]
+            != 2 * (spec.num_layers - 1) * n_tok):
+        raise AssertionError("streamed experts: gathered_quant_matmul "
+                             f"launched {launches['gathered_quant_matmul']}")
+
+
+def offload_run(result: dict) -> None:
+    """Phase 21: DeepSeek-V2-Lite, 27 layers at full width, int4_g weights
+    from seed 0 (phase 5's), its routed experts in host memory:
+    1. one layer's HostMoELayer at 1, 8 and 256 rows against the plain
+       product (host_ffn_check);
+    2. full depth: the HostOffloadGenerator (bf16 hops) on requests 0 and 1
+       (OFFLOAD_PROMPT + OFFLOAD_NEW tokens) at batch 2, then generate()
+       with microbatches=2: the same tokens; request 2 (request 0's first
+       128 tokens and 32 more) at batch 1, requests 3 and 4 (32 tokens)
+       together at batch 2; the HostOffloadServeEngine on requests 0, 2, 3
+       and 4 (OFFLOAD_ENGINE_NEW tokens each), held to those single-user
+       tokens; launches per step held to OFFLOAD_STEP_LAUNCHES; one
+       decode step profiled;
+    3. request 2 with float32 hops against the resident Generator on the
+       same weights with KT_W4A8=0 (bf16 activations) under the offloaded
+       routes (offload_vs_resident); streamed experts bit-identical to
+       that Generator at decode, and a 256-token chunk within the same
+       bound (streamed_check);
+    4. 2-layer parity card vs CPU (offload_parity); the host's cores, RAM
+       and threads."""
+    from ktransformers_tpu_torch.engine.generate import Generator
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.offload import (
+        HostOffloadGenerator,
+        split_params_for_offload,
+    )
+    from ktransformers_tpu_torch.ops.cuda import (
+        LAUNCHES,
+        ROUTED_LAUNCHES,
+        reset_launches,
+    )
+
+    cfg = bench_model_cfg()
+    spec = spec_from_hf_config(cfg)
+    rec = result["offload"] = dict(host=host_info(), seconds={})
+    log(f"offload host: {json.dumps(rec['host'])}")
+    t_mark = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        rec["seconds"][name] = now - t_mark[0]
+        t_mark[0] = now
+    rng = np.random.default_rng(600)
+    prompts = [rng.integers(0, spec.vocab_size, OFFLOAD_PROMPT).tolist()
+               for _ in range(2)]
+    prompts.append(prompts[0][:128]
+                   + rng.integers(0, spec.vocab_size, 32).tolist())
+    prompts += [rng.integers(0, spec.vocab_size, 32).tolist()
+                for _ in range(2)]
+
+    t0 = time.perf_counter()
+    params = init_params_synthetic(spec, seed=0, quant="int4_g",
+                                   device="cuda")
+    dev, host = split_params_for_offload(params, spec)
+    torch.cuda.synchronize()
+    rec["split_s"] = time.perf_counter() - t0
+    experts = params["layers"][1]["moe"]["experts"]
+    rec["host_ffn"] = host_ffn_check(host[1], experts.gate_up, experts.down,
+                                     spec)
+    del params, experts
+    gen2 = HostOffloadGenerator(dev, spec, host, max_len=512, batch=2,
+                                transfer_dtype=torch.bfloat16, device="cuda")
+    gen1 = HostOffloadGenerator(gen2.params, spec, host, max_len=512,
+                                batch=1, transfer_dtype=torch.bfloat16,
+                                device="cuda")
+    del dev
+    torch.cuda.empty_cache()
+    rec["device_param_bytes"] = sum(t.numel() * t.element_size()
+                                    for t in _leaves(gen2.params))
+    rec["host_bytes"] = sum(h.nbytes for h in host.values())
+    rec["threads"] = host[1].threads
+    log(f"offload: split in {rec['split_s']:.1f} s; parameters on the card "
+        f"{rec['device_param_bytes'] / 1e9:.3f} GB (phase 5 resident: "
+        f"9.167 GB), experts on the host {rec['host_bytes'] / 1e9:.3f} GB, "
+        f"host FFN on {rec['threads']} threads")
+    mark("split_and_host_ffn")
+    # warm-up (allocator, pinned staging, OpenMP team); not counted
+    gen2.forward_chunk(torch.tensor([prompts[0][:16]] * 2, device="cuda"),
+                       gen2.new_cache())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # requests 0 and 1 at batch 2 (one microbatch), then with 2
+    # microbatches: the same tokens
+    reset_launches()
+    run = offload_greedy(gen2, prompts[:2], OFFLOAD_NEW)
+    mb2 = gen2.generate(prompts[:2], max_new_tokens=OFFLOAD_NEW,
+                        microbatches=2)
+    result["serve_offload"] = dict(
+        launches=dict(LAUNCHES), routed_launches=dict(ROUTED_LAUNCHES),
+        prefill_tok_s=run["prefill_tok_s"], decode_tok_s=run["decode_tok_s"],
+        tokens=run["tokens"], microbatches_2=mb2)
+    log(f"offload single-user (batch 2): prefill "
+        f"{run['prefill_tok_s']:.1f} tok/s, decode {run['decode_tok_s']:.2f} "
+        f"tok/s; tokens with 2 microbatches equal: {mb2 == run['tokens']}")
+    if mb2 != run["tokens"]:
+        raise AssertionError(f"microbatches=2 {mb2} != {run['tokens']}")
+    # the engine's references: request 2 at batch 1, requests 3 and 4
+    # (equal lengths) together at batch 2
+    one2 = offload_greedy(gen1, [prompts[2]], OFFLOAD_ENGINE_NEW)
+    two = offload_greedy(gen2, prompts[3:5], OFFLOAD_ENGINE_NEW)
+    result["serve_offload"]["batch1_prefill_tok_s"] = one2["prefill_tok_s"]
+    result["serve_offload"]["batch1_decode_tok_s"] = one2["decode_tok_s"]
+    refs = [(run["tokens"][0][:OFFLOAD_ENGINE_NEW],
+             run["gaps"][0][:OFFLOAD_ENGINE_NEW]),
+            (one2["tokens"][0], one2["gaps"][0])] + [
+        (two["tokens"][i], two["gaps"][i]) for i in range(2)]
+    got = {"prefill_chunk_b2_s256": run["chunk_launches"],
+           "decode_step_b2": run["step_launches"]}
+    rec["profile"] = offload_profile(gen2, run["cache"], run["last"])
+    mark("single_user")
+    missing = [k for k in OFFLOAD_KERNELS
+               if result["serve_offload"]["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"offload single-user launched none of "
+                             f"{missing}")
+    offload_engine(result, gen2.params, host, spec,
+                   [prompts[i] for i in (0, 2, 3, 4)], refs)
+    got["serve_decode_step_b4"] = \
+        result["paged_serve_offload"]["decode_step_launches"]
+    rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    rec["step_launches"] = got
+    log(f"offload launches per step {json.dumps(got)}; peak device memory "
+        f"{rec['peak_device_bytes'] / 1e9:.3f} GB")
+    if got != OFFLOAD_STEP_LAUNCHES:
+        raise AssertionError(f"offload launches per step {got}, want "
+                             f"{OFFLOAD_STEP_LAUNCHES}")
+    feed = one2["tokens"][0][:-1]
+    del gen1, gen2, run, one2, two
+    torch.cuda.empty_cache()
+    mark("engine")
+
+    # the resident model on the same weights with bf16 activations
+    old = os.environ.get("KT_W4A8")
+    os.environ["KT_W4A8"] = "0"
+    try:
+        params = init_params_synthetic(spec, seed=0, quant="int4_g",
+                                       device="cuda")
+        gen = Generator(params, spec, max_len=512, device="cuda")
+        del params
+        held = offload_vs_resident(gen, host, prompts[2], feed)
+        rec["vs_resident"] = {k: v for k, v in held.items()
+                              if k != "routes"}
+        del host
+        _, chunk_routes = model_steps(gen, prompts[0], [])
+        streamed_check(result, gen, prompts[0], chunk_routes, held["tol"])
+        del gen
+    finally:
+        if old is None:
+            del os.environ["KT_W4A8"]
+        else:
+            os.environ["KT_W4A8"] = old
+    torch.cuda.empty_cache()
+    mark("resident_and_streamed")
+    offload_parity(result)
+    mark("parity")
+    log(f"offload seconds: {json.dumps(rec['seconds'])}")
+
+
 def _qtensors(node):
     import dataclasses
 
@@ -4955,6 +5630,8 @@ def main() -> int:
         now = time.perf_counter()
         result["phase_s"][name] = now - marks[-1][1]
         marks.append((name, now))
+        with open(os.path.join(OUT_DIR, "phase_s.json"), "w") as fh:
+            json.dump(result["phase_s"], fh, indent=1)
         log(f"phase {name}: {result['phase_s'][name]:.1f} s "
             f"({now - marks[0][1]:.1f} s in all)")
 
@@ -4965,7 +5642,16 @@ def main() -> int:
     result["card"] = card
 
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    # the two host libraries (g++) build beside the nvcc jobs
+    from ktransformers_tpu_torch.loader import native
+    from ktransformers_tpu_torch.offload import host_moe
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        host_libs = [pool.submit(native.build), pool.submit(host_moe.build)]
+        logs = _build.build_all()
+        if not host_libs[0].result():
+            raise RuntimeError("g++ failed for csrc/ggml_decode.cpp")
+        host_libs[1].result()
     build_s = time.perf_counter() - t0
     log(f"build: {len(logs)} sources in {build_s:.1f} s")
     result["build_s"] = build_s
@@ -5069,6 +5755,10 @@ def main() -> int:
     # SmallThinker-21B past its window, Qwen3-Next's hybrid layers
     hybrid_window_run(result, rows, entries)
     phase("hybrid_window")
+    # DeepSeek-V2-Lite with its routed experts in host memory
+    offload_run(result)
+    torch.cuda.empty_cache()
+    phase("offload")
 
     sources = {
         # plain XLA in the JAX package, no Pallas kernel
@@ -5156,6 +5846,9 @@ def main() -> int:
             result["paged_serve_smallthinker"]["runs"][3],
         "single_user_qnext": result["serve_qnext"],
         "paged_serve_qnext": result["paged_serve_qnext"]["runs"][3],
+        "single_user_offload": result["serve_offload"],
+        "paged_serve_offload": result["paged_serve_offload"],
+        "single_user_streamed": result["single_user_streamed"],
     }
     paths = {k: dict(r["launches"]) for k, r in runs.items()}
     # the redesigned kernels: launches of their wrappers' calls that took them
@@ -5262,7 +5955,18 @@ def main() -> int:
             ("w4a8_mma_kernel", ("single_user_qwen2", "paged_serve_qwen2")),
             *((k, ("single_user_gguf", "paged_serve_gguf"))
               for k in W4A8_ZP),
-            ("mla_decode_split_kernel<false>", ("single_user_int8",))):
+            ("mla_decode_split_kernel<false>", ("single_user_int8",)),
+            # the offloaded DeepSeek-V2-Lite: its shared experts on row 3,
+            # its attention on rows 5 / 12 / 14; the streamed experts on
+            # row 10's GEMV
+            *((k, ("single_user_offload", "paged_serve_offload"))
+              for k in ("dense_w4a8_matmul", "dense_w4a8_ffn",
+                        "w4a8_ffn_mma_kernel", "w4a8_mma_kernel")),
+            ("mla_decode_fused", ("single_user_offload",)),
+            *((k, ("paged_serve_offload",))
+              for k in ("mla_paged_decode", "mla_paged_prefill")),
+            *((k, ("single_user_streamed",))
+              for k in ("gathered_quant_matmul", "quant_gemv_kernel"))):
         idle = [k for k in keys if paths[k].get(kernel, 0) <= 0]
         if idle:
             raise AssertionError(f"{kernel} launched on no call of {idle}")

@@ -349,10 +349,17 @@ def show_model(name: str) -> dict:
     est = estimate_bytes(e.config, e.quant, e.moe_quant)
     rec: dict = {"quant": e.quant, "moe_quant": e.moe_quant}
     if not est["fits_h100"]:
+        host_gb = est["experts_gb"]
+        device_gb = round(est["total_gb"] - host_gb, 2)
         rec["offload"] = (
-            f"needs >= {est['min_h100_cards']} H100 cards: routed experts "
-            "in host memory (ROADMAP Queue 1 item 10) or expert "
-            "parallelism across cards (item 11), neither ported yet")
+            f"needs >= {est['min_h100_cards']} H100 cards resident: serve it "
+            "with its routed experts in host memory "
+            "(ktransformers_tpu_torch.offload: HostOffloadGenerator / "
+            f"HostOffloadServeEngine): ~{host_gb} GB of experts on the host, "
+            f"~{device_gb} GB of the rest on the card; or expert "
+            "parallelism across cards (ROADMAP Queue 1 item 11, not ported)")
+        rec["host_gb"] = host_gb
+        rec["device_gb"] = device_gb
     return {
         "name": e.name,
         "hf_id": e.hf_id,

@@ -27,7 +27,13 @@ Any other kind raises. Per-expert LoRA factors
 (MoEWeights.lora, the SFT path) are added after each expert matmul, as the
 JAX package adds them, and keep the routes off the fused FFN kernels. A
 call whose input needs a gradient runs its kernels through the
-ops/vjp.py rules. Expert parallelism and host offload are not ported.
+ops/vjp.py rules. Experts kept in host memory take the MoEWeights' place
+and compute the call themselves (their ``forward``): an
+OffloadedMoEWeights (offload/experts.py) streams the routed experts to the
+card and runs the gathered path's matmuls there, at every T, as in the JAX
+package (its ops/moe.py:362-367); a HostExperts (offload/host_engine.py)
+runs the C++ expert FFN on the host. Expert parallelism is not ported
+(ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -253,6 +259,10 @@ def moe_forward(x: torch.Tensor, weights: MoEWeights, topk_idx: torch.Tensor,
                 topk_weights: torch.Tensor,
                 act: ActivationConfig = ActivationConfig()) -> torch.Tensor:
     """x [T, d]; topk_idx [T, k] int; topk_weights [T, k] float32."""
+    if not isinstance(weights, MoEWeights):
+        # experts in host memory (offload/): streamed to the card
+        # (OffloadedMoEWeights) or computed on the host (HostExperts)
+        return weights.forward(x, topk_idx, topk_weights, act)
     t, d = x.shape
     k = topk_idx.shape[1]
     if t <= DECODE_GATHER_MAX_TOKENS:

@@ -271,7 +271,12 @@ def test_port_imports_no_jax():
     assert {"ktransformers_tpu_torch/ops/cuda/quant_matmul.py",
             "ktransformers_tpu_torch/ops/cuda/mla_decode.py",
             "ktransformers_tpu_torch/ops/linear.py",
-            "ktransformers_tpu_torch/quant/formats.py"} <= names
+            "ktransformers_tpu_torch/quant/formats.py",
+            "ktransformers_tpu_torch/offload/__init__.py",
+            "ktransformers_tpu_torch/offload/host_moe.py",
+            "ktransformers_tpu_torch/offload/experts.py",
+            "ktransformers_tpu_torch/offload/host_engine.py",
+            "ktransformers_tpu_torch/offload/paged_engine.py"} <= names
     # nor does the package hand a kernel's product to a library call
     lib = re.compile(r"_int_mm|_scaled_mm|_grouped_mm"
                      r"|scaled_dot_product_attention|torch\.compile")

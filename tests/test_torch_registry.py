@@ -69,7 +69,13 @@ def test_ported_presets_translate(name):
     if name in ("deepseek-v3", "deepseek-r1", "kimi-k2"):
         assert spec.attention.q_lora_rank == 1536
         assert spec.moe.gate.has_correction_bias
-        assert "offload" in shown["recommended"]
+        rec, est = shown["recommended"], shown["estimate"]
+        assert "HostOffloadServeEngine" in rec["offload"]
+        assert "item 11" in rec["offload"]
+        assert rec["host_gb"] == est["experts_gb"]
+        assert abs(rec["host_gb"] + rec["device_gb"]
+                   - est["total_gb"]) <= 0.011
+        assert rec["device_gb"] < 80
     if name in ("smallthinker-21b", "qwen3-next-80b-a3b"):
         from ktransformers_tpu.models.spec import spec_from_hf_config
 

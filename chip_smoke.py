@@ -44,7 +44,7 @@ Phases (any failure exits non-zero before the final line):
             route) at M = 1, 8, 256, 264;
 4. parity:  the full-width config cut to 2 layers, the same synthetic
             weights on the CPU (plain versions) and on the card (kernels),
-            float32 compute: a 64-token prefill and 4 decode steps through
+            float32 compute: a 64-token prefill and 2 decode steps through
             forward(); the same through forward_paged (two chunks, page
             tables), and forward_paged_mixed against separate decode and
             prefill calls on the card. Twice: with unquantized float32
@@ -59,15 +59,15 @@ Phases (any failure exits non-zero before the final line):
             repetition / presence / frequency penalties on 2 narrow
             layers, card tokens equal to the CPU's (penalty_check);
 5. serve:   the full 27-layer config (int4_g weights) in a Generator at
-            max_len 1024 answering 3 requests of 512 seeded prompt tokens
+            max_len 1024 answering 2 requests of 512 seeded prompt tokens
             and 32 greedy new tokens; every single-user kernel must launch;
 6. paged serve: a ServeEngine over the same parameters (batch 8, chunk 256,
             page 64, 512 pages) answering 8 requests in three waves, 32
-            greedy tokens each, once at decode pipeline depth 1 and once at
-            3; mixed steps, a 256-token prefix hit, page accounting and
-            agreement with the single-user Generator are checked (and that
-            the prompts give at least 4 distinct first tokens, without
-            which that agreement would not see the prompt);
+            greedy tokens each, at decode pipeline depth 3; mixed steps,
+            a 256-token prefix hit, page accounting and agreement with
+            the single-user Generator are checked (and that the prompts
+            give at least 4 distinct first tokens, without which that
+            agreement would not see the prompt);
 7. profile: a prefill chunk and a decode step of the Generator, a batch-8
             decode step and a mixed step of the ServeEngine: wall time,
             launches per step, device time by kernel (torch.profiler); a
@@ -81,6 +81,23 @@ Phases (any failure exits non-zero before the final line):
             profile); the activation preps of the decode step (none) and
             of the batch-8 step (those the fold crossovers imply) are
             held;
+7b. front door: the port's OpenAIServer (serving/server.py, IdTokenizer)
+            over a ServeEngine on phase 6's parameters at a free loopback
+            port: phase 6's 8 prompts from 8 client threads at once
+            (token-id /v1/completions, two of them streamed, one through
+            /api/generate) and a chat completion, each request's tokens
+            held to the single-user Generator's by phase 6's rule,
+            client-side TTFT / TBT / latency and the output tok/s, the
+            launches of the run (path http_serve: rows 1-4, 12 and 14
+            required; http_serve); then the CLI (front_door_cli):
+            DeepSeek-V2-Lite's full width at 2 layers as HF-named bf16
+            tensors in a two-shard safetensors directory, `python -m
+            ktransformers_tpu_torch.cli convert` (SafetensorsProvider ->
+            build_params, int8 with int4_g experts) to a packed directory,
+            `doctor`, `serve <packed>` as a process answering two greedy
+            requests whose tokens equal an in-process ServeEngine's over
+            load_params(<packed>); the packed tree on the card equal to
+            the CPU's bits, its logits card vs CPU by moe_parity;
 8. int8:    the int4_g parameters are freed; the full 27-layer config with
             int8 weights (every matmul through the quant_matmul kernels) in
             a Generator answering 2 requests of 512 + 32 tokens, the second
@@ -128,16 +145,10 @@ Phases (any failure exits non-zero before the final line):
             rows 12 and 14 at H = 128; each against its plain version, as
             phase 3;
 14. v3 parity: DeepSeek-V3 at full width cut to 2 layers (one dense, one
-            MoE), W4A8, an 8-token prompt and 4 decode steps card vs CPU
+            MoE), W4A8, an 8-token prompt and 2 decode steps card vs CPU
             (moe_parity); DeepSeek-V2-Lite's 2-layer model with
             unquantized float32 experts (the plain expert products of
-            ops/moe.py on both devices), held to PARITY_TOL; the HF import
-            (hf_import): DeepSeek-V2-Lite's full width at depth 2 as
-            HF-named tensors in a plain nn.Module tree, through
-            TorchModelProvider -> build_params(int4_g) on both devices (the
-            same bits; the host quantizes for both, so this holds the move
-            to the card) -> prepare_params -> Generator, logits held as
-            ``w4a8``;
+            ops/moe.py on both devices), held to PARITY_TOL;
 15. v3 serve: DeepSeek-V3 cut to 6 layers (3 dense, 3 MoE; W4A8, bf16
             absorbed mats): a Generator answering 2 requests of 512 + 32
             tokens, a ServeEngine answering the 8 requests of phase 6 at
@@ -282,6 +293,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
 OUT_DIR = "chiprun_out"
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 _T0 = time.perf_counter()
@@ -289,8 +301,13 @@ _T0 = time.perf_counter()
 
 def log(*a):
     """A line of the run's log, after the seconds since the script
-    started."""
-    print(f"[{time.perf_counter() - _T0:7.1f}]", *a, flush=True)
+    started; also appended to chiprun_out/chip_smoke.log (a captured
+    output may keep only its end)."""
+    line = " ".join([f"[{time.perf_counter() - _T0:7.1f}]", *map(str, a)])
+    print(line, flush=True)
+    if os.path.isdir(OUT_DIR):
+        with open(os.path.join(OUT_DIR, "chip_smoke.log"), "a") as fh:
+            fh.write(line + "\n")
 
 
 def card_line() -> str:
@@ -1495,6 +1512,9 @@ FORMAT_TOL = 1e-4
 # few tokens (its routed experts then take the gathered path, whose plain
 # version reads only the routed experts on the host)
 PARITY_PROMPT = {"v3_w4a8": 8}
+# decode steps after each parity prefill: each is a full-width CPU forward,
+# and a third or fourth step would repeat what the first two hold
+PARITY_DECODE = 2
 
 
 def card_drawn(spec, prepare: bool = True, seed: int = 5, **kw):
@@ -1600,13 +1620,14 @@ def hold_rows(out: torch.Tensor, ref: torch.Tensor, what: str, tol) -> dict:
 
 def parity_rows(params, spec, device, prompt: int) -> torch.Tensor:
     """Logits rows [5, V] (float32, CPU) of the parity run on ``device``: the
-    last position of a ``prompt``-token prefill, then 4 decode steps on
+    last position of a ``prompt``-token prefill, then PARITY_DECODE steps on
     fixed tokens, the same on both sides, through the contiguous forward()
     in float32 compute."""
     from ktransformers_tpu_torch.models.model import KVCache, forward
     from ktransformers_tpu_torch.utils.device_prep import params_to
 
-    feed = [t % spec.vocab_size for t in (11, 2222, 33333, 44444)]
+    feed = [t % spec.vocab_size
+            for t in (11, 2222, 33333, 44444)[:PARITY_DECODE]]
     params = params_to(params, device)
     cache = KVCache.create(spec, 1, 128, torch.float32, device)
     toks = torch.as_tensor(np.random.default_rng(3).integers(
@@ -1725,7 +1746,7 @@ def pool_err(pools, ref_pools) -> float:
 def paged_parity_check(result: dict, variants: list) -> None:
     """Both parity models through the paged forward: two sequences on
     shuffled page tables, two chunks each (the second sequence's first
-    chunk padded), then 4 decode steps on fixed tokens, on the CPU (plain
+    chunk padded), then PARITY_DECODE steps on fixed tokens, on the CPU (plain
     versions) and on the card (kernels), float32. Then, on the card,
     forward_paged_mixed against separate decode and prefill calls. Logits
     rows are held by hold_rows; on the float32 weights the KV pools (every
@@ -1759,7 +1780,7 @@ def paged_parity_check(result: dict, variants: list) -> None:
         lengths = np.zeros(2, np.int64)
         outs = []
         steps = [(toks[:, :64], [64, 40]), (toks[:, 64:], [32, 32])]
-        steps += [(feed[i][:, None], None) for i in range(4)]
+        steps += [(feed[i][:, None], None) for i in range(PARITY_DECODE)]
         for t, valid in steps:
             logits, kv = forward_paged(
                 params, spec, ti(t, device, torch.int64), kv, pt,
@@ -1832,7 +1853,7 @@ INT8_SINGLE_USER_KERNELS = ("quant_matmul", "gathered_quant_matmul",
 
 
 def serve(result: dict, quant: str = "int4_g", key: str = "serve",
-          requests: int = 3, expect=SINGLE_USER_KERNELS,
+          requests: int = 2, expect=SINGLE_USER_KERNELS,
           unfused_last: bool = False, cfg=None, moe_quant=None,
           max_len: int = 1024, prompt_lens=None):
     """A Generator over the full config (DeepSeek-V2-Lite unless ``cfg``
@@ -2311,7 +2332,7 @@ def reroute_check(gen, prompt: list, toks: list, what: str,
                        greedy_differ=held["greedy_differ"])
 
 
-def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(1, 3),
+def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(3,),
                 expect=PAGED_KERNELS, tie: float = NEAR_TIE, prompts=None,
                 sched=None, reroutes: bool = False) -> None:
     """The 8 requests (paged_prompts unless ``prompts``) through the
@@ -2333,9 +2354,10 @@ def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(1, 3),
     runs = {depth: paged_serve_run(gen, prompts, depth, expect, sched)
             for depth in depths}
     # the single-user Generator on the same prompts
-    full, verdicts, firsts, tol = 0, [], set(), None
+    full, verdicts, firsts, tol, refs = 0, [], set(), None, []
     for i, prompt in enumerate(prompts):
         ref, gaps = single_user_reference(gen, prompt, PAGED_NEW_TOKENS)
+        refs.append((ref, gaps))
         firsts.add(ref[0])
         for depth, run in runs.items():
             got = run["tokens"][i]
@@ -2366,9 +2388,9 @@ def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(1, 3),
         f"a near-tie (top-2 gap < {tie}); tokens equal across depths: "
         f"{same}; {len(firsts)} distinct first tokens, {distinct} distinct "
         "tokens served")
-    result[key] = dict(runs=runs, agreement=verdicts,
+    result[key] = dict(runs=runs, agreement=verdicts, single_user=refs,
                        requests_equal_single_user=full,
-                       depth1_equals_depth3=same,
+                       depths_agree=same,
                        distinct_first_tokens=len(firsts),
                        distinct_tokens=distinct)
     # weights whose outputs ignore the prompt would make the agreement
@@ -3448,65 +3470,372 @@ def hf_module(tensors: dict) -> torch.nn.Module:
     return root
 
 
-def hf_import(result: dict) -> None:
-    """DeepSeek-V2-Lite at full width cut to 2 layers (one dense, one MoE)
-    as HF-named tensors drawn on the host (hf_tensors), held by a plain
-    nn.Module tree: TorchModelProvider -> build_params(int4_g) on the CPU,
-    and that tree moved to the card as build_params(device="cuda") moves
-    the one it builds on the host (params_to; building it twice took ~20
-    s of host quantization). Every imported leaf on the card equal to the
-    CPU's bits (this holds the move of the tree to the card, not the
-    quantizer: the quantizer's bits are held against the JAX package's on
-    the CPU, in tests/test_torch_hf_import.py); then prepare_params and a
-    Generator on
-    each device: a 16-token
-    prompt and 4 decode steps on fixed tokens, whose logits rows the parity
-    rule holds (hold_rows, W4A8: greedy tokens equal except at a
-    near-tie)."""
-    from ktransformers_tpu_torch.engine.generate import Generator
-    from ktransformers_tpu_torch.loader.providers import TorchModelProvider
-    from ktransformers_tpu_torch.models.loading import build_params
-    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
-    from ktransformers_tpu_torch.utils.device_prep import params_to
+# ---------------------------------------------------------------- front door
+
+HTTP_NEW = PAGED_NEW_TOKENS
+HTTP_STREAM = (1, 5)  # requests that stream (server-sent events)
+HTTP_OLLAMA = 3  # the request sent to /api/generate
+HTTP_KERNELS = ("dense_w4a8_matmul", "gathered_w4a8_ffn", "dense_w4a8_ffn",
+                "grouped_w4a8_ffn", "mla_paged_decode", "mla_paged_prefill")
+CLI_LAYERS = 2
+CLI_NEW = 16
+CLI_PROMPTS = (64, 100)
+
+
+def http_call(base: str, path: str, body=None, timeout: float = 300.0):
+    """(status, JSON) of one request; GET without a body."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def id_list(text: str) -> list:
+    """The ids of an IdTokenizer text."""
+    return [int(t) for t in text.split()]
+
+
+def http_request(base: str, kind: str, prompt: list, n: int) -> dict:
+    """One request of the front-door run on the client's clock: a token-id
+    /v1/completions ("plain", or "stream" with server-sent events), an
+    /api/generate ("ollama") or a /v1/chat/completions ("chat") of the
+    ids as IdTokenizer text. TTFT and the mean gap between tokens are
+    taken where tokens arrive one at a time (streams); every request has
+    its latency."""
+    import urllib.request
+
+    text = " ".join(map(str, prompt))
+    t0 = time.perf_counter()
+    out = dict(kind=kind, prompt_tokens=len(prompt))
+    if kind == "stream":
+        req = urllib.request.Request(
+            base + "/v1/completions", headers={
+                "Content-Type": "application/json"},
+            data=json.dumps({"prompt": prompt, "max_tokens": n,
+                             "stream": True}).encode())
+        toks, stamps, finish = [], [], None
+        with urllib.request.urlopen(req, timeout=300) as r:
+            for line in r:
+                line = line.decode().strip()
+                if not line.startswith("data: ") or line == "data: [DONE]":
+                    continue
+                choice = json.loads(line[6:])["choices"][0]
+                got = id_list(choice["text"])
+                if got:
+                    toks += got
+                    stamps.append(time.perf_counter())
+                finish = choice["finish_reason"] or finish
+        gaps = np.diff(stamps)
+        out.update(ttft_s=stamps[0] - t0,
+                   tbt_s=float(gaps.mean()) if len(gaps) else None)
+    elif kind == "ollama":
+        status, body = http_call(base, "/api/generate", {
+            "prompt": text, "options": {"num_predict": n}})
+        if status != 200:
+            raise AssertionError(f"/api/generate: {status} {body}")
+        toks, finish = id_list(body["response"]), body["done_reason"]
+    else:
+        chat = kind == "chat"
+        status, body = http_call(
+            base, "/v1/chat/completions" if chat else "/v1/completions",
+            {"messages": [{"role": "user", "content": text}],
+             "max_tokens": n} if chat else {"prompt": prompt,
+                                            "max_tokens": n})
+        if status != 200:
+            raise AssertionError(f"{kind}: {status} {body}")
+        choice = body["choices"][0]
+        toks = id_list(choice["message"]["content"] if chat
+                       else choice["text"])
+        finish = choice["finish_reason"]
+        if body["usage"]["completion_tokens"] != len(toks):
+            raise AssertionError(f"{kind}: usage {body['usage']}")
+    out.update(tokens=toks, finish_reason=finish,
+               latency_s=time.perf_counter() - t0, done_at=time.perf_counter())
+    return out
+
+
+def hold_single_user(what: str, got: list, ref: list, gaps: list,
+                     tie: float = NEAR_TIE):
+    """Phase 6's rule: ``got`` equals the single-user tokens up to the
+    first position whose top-2 gap lies below ``tie`` (a near-tie);
+    returns that position or None."""
+    diff = next((j for j in range(len(ref)) if got[j] != ref[j]), None)
+    if len(got) != len(ref) or (diff is not None and gaps[diff] >= tie):
+        raise AssertionError(f"{what} leaves the single-user tokens at "
+                             f"{diff}: {got} vs {ref}")
+    return diff
+
+
+def http_serve(result: dict, gen) -> None:
+    """The port's OpenAIServer (IdTokenizer) over a ServeEngine on phase
+    6's parameters, on 127.0.0.1 at a free port: phase 6's 8 prompts from
+    8 client threads at once (token-id /v1/completions, requests
+    HTTP_STREAM streamed, request HTTP_OLLAMA through /api/generate) and a
+    ninth thread's chat completion, HTTP_NEW greedy tokens each, every
+    request's tokens held to the single-user Generator's by phase 6's
+    rule; client-side TTFT, mean TBT, latency and the aggregate output
+    tok/s beside the card; the launches of the run (counts set to 0 just
+    before the first request), HTTP_KERNELS among them."""
+    from ktransformers_tpu_torch.ops.cuda import (
+        LAUNCHES,
+        ROUTED_LAUNCHES,
+        reset_launches,
+    )
+    from ktransformers_tpu_torch.serving import SchedulerConfig, ServeEngine
+    from ktransformers_tpu_torch.serving.server import (
+        IdTokenizer,
+        OpenAIServer,
+    )
 
     t0 = time.perf_counter()
-    spec = spec_from_hf_config(dict(bench_model_cfg(), num_hidden_layers=2))
-    provider = TorchModelProvider(hf_module(hf_tensors(spec, seed=13)))
-    cpu = build_params(provider, spec, quant="int4_g", device="cpu")
-    trees = {"cuda": params_to(cpu, "cuda"), "cpu": cpu}
-    del provider, cpu
-    leaves = list(zip(_leaves(trees["cuda"]), _leaves(trees["cpu"])))
-    differ = sum(not (a.dtype == b.dtype and torch.equal(a.cpu(), b))
-                 for a, b in leaves)
-    log(f"hf_import: {len(leaves)} leaves moved to the card, {differ} differ "
-        "from the CPU's")
-    if differ:
-        raise AssertionError(f"hf_import: {differ} leaves differ")
-    prompt = np.random.default_rng(14).integers(0, spec.vocab_size,
-                                                16).tolist()
-    feed = [t % spec.vocab_size for t in (11, 2222, 33333, 44444)]
-    outs = {}
-    for dev, params in trees.items():
-        gen = Generator(params, spec, max_len=64, device=dev,
-                        cache_dtype=torch.float32,
-                        compute_dtype=torch.float32)
-        cache = gen.new_cache()
-        last, cache = gen.prefill(cache, torch.as_tensor([prompt],
-                                                         device=dev))
-        rows = [last.float().cpu()]
-        for tok in feed:
-            logits, cache = gen._forward(
-                torch.tensor([[tok]], device=dev), cache)
-            rows.append(logits[:, -1].float().cpu())
-        outs[dev] = rows
-        del gen, cache
-    del trees
-    torch.cuda.empty_cache()
-    result["hf_import"] = dict(
-        leaves=len(leaves), differ=differ,
-        logits=hold_rows(torch.cat(outs["cuda"]), torch.cat(outs["cpu"]),
-                         "hf_import logits (card vs CPU)", None),
+    vocab = gen.spec.vocab_size
+    prompts = paged_prompts(vocab)
+    prompts.append(np.random.default_rng(400).integers(0, vocab,
+                                                       200).tolist())
+    refs = list(result["paged_serve"]["single_user"])
+    refs.append(single_user_reference(gen, prompts[8], HTTP_NEW))
+    kinds = ["stream" if i in HTTP_STREAM else
+             "ollama" if i == HTTP_OLLAMA else "plain" for i in range(8)]
+    kinds.append("chat")
+    eng = ServeEngine(gen.params, gen.spec, SchedulerConfig(),
+                      num_pages=512, device="cuda")
+    eng.generate_sync(list(range(8)), max_new_tokens=2)  # warm-up
+    eng.reset_metrics()
+    srv = OpenAIServer(eng, IdTokenizer())
+    eng.start()
+    base = f"http://127.0.0.1:{srv.start('127.0.0.1', 0)}"
+    try:
+        status, health = http_call(base, "/health")
+        if status != 200:
+            raise AssertionError(f"/health: {status} {health}")
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(kinds)) as pool:
+            futs = [pool.submit(http_request, base, k, p, HTTP_NEW)
+                    for k, p in zip(kinds, prompts)]
+            outs = [f.result() for f in futs]
+        wall = max(o["done_at"] for o in outs) - start
+        torch.cuda.synchronize()
+        launches, routed_n = dict(LAUNCHES), dict(ROUTED_LAUNCHES)
+        status, models = http_call(base, "/v1/models")
+    finally:
+        srv.stop()
+        eng.stop()
+    server_side = sorted((len(q.prompt), q.ttft, q.tbt)
+                         for q in eng.scheduler.finished)
+    diffs = []
+    for i, (o, (ref, gaps)) in enumerate(zip(outs, refs)):
+        if o["finish_reason"] != "length":
+            raise AssertionError(f"http request {i}: {o}")
+        diffs.append(hold_single_user(f"http request {i} ({o['kind']})",
+                                      o["tokens"], ref, gaps))
+        o.pop("done_at")
+    tok_s = sum(len(o["tokens"]) for o in outs) / wall
+    card = result["card"]
+    for i, o in enumerate(outs):
+        ttft = "" if "ttft_s" not in o else (
+            f", ttft {o['ttft_s'] * 1e3:.1f} ms, mean tbt "
+            f"{o['tbt_s'] * 1e3:.2f} ms")
+        log(f"http request {i} ({o['kind']}, {o['prompt_tokens']} prompt "
+            f"tokens): latency {o['latency_s'] * 1e3:.1f} ms{ttft}")
+    log(f"http_serve ({card}): {len(outs)} requests, {tok_s:.1f} output "
+        f"tok/s on the client's clock over {wall:.2f} s; "
+        f"{sum(d is None for d in diffs)}/{len(outs)} equal the single-user "
+        f"tokens, the rest first differ at a near-tie ({diffs}); launches "
+        f"{json.dumps(launches)}")
+    missing = [k for k in HTTP_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by http_serve: {missing}")
+    result["http_serve"] = dict(
+        card=card, requests=outs, wall_s=wall, output_tok_s=tok_s,
+        first_diff=diffs, server_ttft_tbt=server_side, launches=launches,
+        routed_launches=routed_n, models=models,
         seconds=time.perf_counter() - t0)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cli_start(args: list) -> subprocess.Popen:
+    """``python -m ktransformers_tpu_torch.cli`` with ``args``, started
+    from the checkout's root."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "ktransformers_tpu_torch.cli", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+
+
+def cli_finish(proc: subprocess.Popen, log_name: str,
+               timeout: float = 600.0) -> str:
+    """Wait for a cli_start process, its output into
+    chiprun_out/<log_name>; returns stdout, raises on a failure."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(os.path.join(OUT_DIR, log_name), "w") as fh:
+        fh.write(f"$ {' '.join(proc.args)}\n{out}\n{err}")
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {proc.args[3]} exited {proc.returncode}: "
+                             f"{err[-2000:]}")
+    return out
+
+
+def write_hf_dir(path: str, cfg: dict, tensors: dict) -> None:
+    """An HF-style directory: config.json, two bf16 safetensors shards
+    (the embedding and layer 0, then the rest) and their index, written
+    with the port's writer."""
+    from ktransformers_tpu_torch.loader.safetensors_io import save_file
+
+    os.makedirs(path, exist_ok=True)
+    first = {k for k in tensors
+             if k.startswith(("model.embed_tokens", "model.layers.0."))}
+    weight_map = {}
+    for i, names in enumerate((sorted(first), sorted(set(tensors) - first))):
+        fname = f"model-{i + 1:05d}-of-00002.safetensors"
+        save_file({k: tensors[k].to(torch.bfloat16) for k in names},
+                  os.path.join(path, fname))
+        weight_map.update({k: fname for k in names})
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as fh:
+        json.dump({"metadata": {}, "weight_map": weight_map}, fh)
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(cfg, fh)
+
+
+def front_door_cli(result: dict) -> None:
+    """The CLI end to end on DeepSeek-V2-Lite at full width cut to
+    CLI_LAYERS (one dense, one MoE layer): HF-named tensors drawn on the
+    host (hf_tensors) written as an HF directory (write_hf_dir); `convert`
+    to a packed directory (int8, int4_g experts) through
+    SafetensorsProvider; `doctor` (beside the two); `serve <packed>
+    --tokenizer ids` as a
+    process on a free port, polled on /health, answering CLI_PROMPTS one
+    after the other (CLI_NEW greedy tokens), its tokens equal to an
+    in-process ServeEngine's over load_params(<packed>) with the CLI's
+    scheduler settings (run while the server starts). The packed tree
+    loaded onto the card equals the CPU's bit for bit, and its logits card
+    vs CPU hold moe_parity's rule.
+    The server process is killed in a finally; its exit before that fails
+    the run."""
+    import tempfile
+
+    from ktransformers_tpu_torch.models.checkpoint import load_params
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.serving import ServeEngine
+    from ktransformers_tpu_torch.serving.config import ServerConfig
+    from ktransformers_tpu_torch.utils.device_prep import prepare_params
+
+    times = {}
+    t0 = time.perf_counter()
+    cfg = dict(bench_model_cfg(), num_hidden_layers=CLI_LAYERS)
+    spec = spec_from_hf_config(cfg)
+    prompts = [np.random.default_rng(500 + i).integers(
+        0, spec.vocab_size, n).tolist() for i, n in enumerate(CLI_PROMPTS)]
+    # doctor needs nothing of the others: it runs beside them
+    doctor_proc = cli_start(["doctor"])
+    with tempfile.TemporaryDirectory() as tmp:
+        hf, packed = os.path.join(tmp, "hf"), os.path.join(tmp, "packed")
+        write_hf_dir(hf, cfg, hf_tensors(spec, seed=13))
+        times["write_hf"] = time.perf_counter() - t0
+        t = time.perf_counter()
+        cli_finish(cli_start(["convert", hf, packed, "--quant", "int8",
+                              "--moe-quant", "int4_g"]),
+                   "front_door_convert.log")
+        times["convert"] = time.perf_counter() - t
+        t = time.perf_counter()
+        doctor = json.loads(cli_finish(doctor_proc, "front_door_doctor.log"))
+        times["doctor_wait"] = time.perf_counter() - t
+        if doctor["matmul_smoke"] != "ok" or any(
+                v != "ok" for v in doctor["kernel_libraries"].values()):
+            raise AssertionError(f"doctor: {doctor}")
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        sc = ServerConfig(num_pages=256, max_batch_size=8)
+        args = ["serve", packed, "--host", "127.0.0.1", "--port", str(port),
+                "--tokenizer", "ids", "--num-pages", str(sc.num_pages),
+                "--max-batch-size", str(sc.max_batch_size)]
+        t = time.perf_counter()
+        served = []
+        with open(os.path.join(OUT_DIR, "front_door_serve.log"), "w") as fh:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "ktransformers_tpu_torch.cli", *args],
+                stdout=fh, stderr=subprocess.STDOUT, cwd=ROOT)
+            try:
+                # while the server starts: the packed tree on both devices
+                # and the in-process engine's tokens on the same prompts
+                card = load_params(packed, spec, "cuda")
+                cpu = load_params(packed, spec, "cpu")
+                leaves = list(zip(_leaves(card), _leaves(cpu)))
+                differ = sum(not (a.dtype == b.dtype
+                                  and torch.equal(a.cpu(), b))
+                             for a, b in leaves)
+                if differ:
+                    raise AssertionError(
+                        f"front door: {differ} of {len(leaves)} packed "
+                        "leaves differ between the card and the CPU")
+                eng = ServeEngine(card, spec, sc.scheduler_config(),
+                                  num_pages=sc.num_pages, device="cuda")
+                eng.decode_pipeline_depth = sc.decode_pipeline_depth
+                local = [eng.generate_sync(p, max_new_tokens=CLI_NEW)
+                         for p in prompts]
+                del eng, card
+                times["in_process"] = time.perf_counter() - t
+                deadline = time.perf_counter() + 300
+                while True:
+                    if proc.poll() is not None:
+                        raise AssertionError(
+                            f"cli serve exited {proc.returncode} before "
+                            "answering /health")
+                    try:
+                        if http_call(base, "/health", timeout=5)[0] == 200:
+                            break
+                    except OSError:
+                        pass
+                    if time.perf_counter() > deadline:
+                        raise AssertionError("cli serve: no /health in 300 s")
+                    time.sleep(0.5)
+                times["serve_ready"] = time.perf_counter() - t
+                for p in prompts:
+                    status, body = http_call(base, "/v1/completions", {
+                        "prompt": p, "max_tokens": CLI_NEW})
+                    if status != 200:
+                        raise AssertionError(f"cli serve: {status} {body}")
+                    served.append(id_list(body["choices"][0]["text"]))
+                if proc.poll() is not None:
+                    raise AssertionError(
+                        f"cli serve exited {proc.returncode}")
+            finally:
+                proc.kill()
+                proc.wait(timeout=60)
+        times["serve"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    log(f"front door cli: served {served}, in-process {local}")
+    if served != local or any(len(x) != CLI_NEW for x in served):
+        raise AssertionError(f"cli serve tokens {served} != the in-process "
+                             f"engine's {local}")
+    t = time.perf_counter()
+    parity = moe_parity("front_door_cli", spec, prepare_params(cpu, spec), 16)
+    times["parity"] = time.perf_counter() - t
+    times["all"] = time.perf_counter() - t0
+    log(f"front door cli: {len(leaves)} leaves equal card vs CPU; seconds "
+        f"{json.dumps({k: round(v, 1) for k, v in times.items()})}")
+    result["front_door_cli"] = dict(
+        leaves=len(leaves), served=served, in_process=local, parity=parity,
+        doctor=doctor, seconds=times)
 
 
 def mixtral_run(result: dict, rows: list, entries: dict) -> None:
@@ -3901,7 +4230,7 @@ def gguf_serve(result: dict) -> None:
     the card (the file's codes and block scales as they are,
     quant/gguf_repack.py); gguf_sample_check; prepare_params (W4A8 on: the
     int4_gz weights take the W4A8 kernels with their zero term); parity
-    card vs CPU on an 8-token prompt and 4 decode steps by moe_parity
+    card vs CPU on an 8-token prompt and 2 decode steps by moe_parity
     (greedy tokens equal except at a near-tie; a row further than
     NEAR_TIE must follow a token that took other experts on the card);
     then a Generator answering one request of 256 prompt + 32 new tokens
@@ -5621,6 +5950,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(OUT_DIR, exist_ok=True)
+    open(os.path.join(OUT_DIR, "chip_smoke.log"), "w").close()
     result: dict = {}
     marks = [("start", time.perf_counter())]
     result["phase_s"] = {}
@@ -5699,9 +6029,15 @@ def main() -> int:
     profile_steps(result, gen)
     profile_engine_steps(result, gen)
     hold_prep(result, b8=DEEPSEEK_B8_PREPS)
+    phase("serve_w4a8")
+
+    # the front door: the HTTP server over the same parameters, then the
+    # CLI (convert, doctor, serve) on a 2-layer HF directory
+    http_serve(result, gen)
     del gen
     torch.cuda.empty_cache()
-    phase("serve_w4a8")
+    front_door_cli(result)
+    phase("front_door")
 
     # the int8 path: every matmul through the quant_matmul kernels
     gen = serve(result, quant="int8", key="serve_int8", requests=2,
@@ -5735,7 +6071,6 @@ def main() -> int:
     routed_parity(result, v3_variant())
     parity_check(result, [bf16_experts_variant()])
     torch.cuda.empty_cache()
-    hf_import(result)
     v3_serve(result)
     v3_int8_engine(result)
     phase("v3")
@@ -5813,8 +6148,9 @@ def main() -> int:
     }
     # launches: each main path was driven with the counts set to 0 just
     # before and read just after (single-user serve and paged serve at the
-    # default pipeline depth: DeepSeek-V2-Lite on the int4_g and on the int8
-    # parameters, then Mixtral-8x7B; then the SFT steps; then DeepSeek-V3 on
+    # default pipeline depth: DeepSeek-V2-Lite on the int4_g parameters,
+    # the same behind the HTTP server, then on the int8 parameters, then
+    # Mixtral-8x7B; then the SFT steps; then DeepSeek-V3 on
     # W4A8 and on int8 parameters; then the GGUF DeepSeek-V2-Lite; then
     # Qwen3-30B-A3B and Qwen2-57B-A14B; then Llama-3.1-8B and
     # GLM-4.5-Air; then SmallThinker-21B and Qwen3-Next-80B-A3B); a
@@ -5822,6 +6158,7 @@ def main() -> int:
     runs = {
         "single_user": result["serve"],
         "paged_serve": result["paged_serve"]["runs"][3],
+        "http_serve": result["http_serve"],
         "single_user_int8": result["serve_int8"],
         "paged_serve_int8": result["paged_serve_int8"]["runs"][3],
         "single_user_mixtral": result["serve_mixtral"],
@@ -5956,6 +6293,8 @@ def main() -> int:
             *((k, ("single_user_gguf", "paged_serve_gguf"))
               for k in W4A8_ZP),
             ("mla_decode_split_kernel<false>", ("single_user_int8",)),
+            # rows 1-4, 12 and 14 behind the HTTP server
+            *((k, ("http_serve",)) for k in HTTP_KERNELS),
             # the offloaded DeepSeek-V2-Lite: its shared experts on row 3,
             # its attention on rows 5 / 12 / 14; the streamed experts on
             # row 10's GEMV

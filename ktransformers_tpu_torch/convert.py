@@ -42,7 +42,9 @@ from ktransformers_tpu_torch.quant.formats import INT4_KINDS, QTensor
 def tensor_from_numpy(a, device) -> torch.Tensor:
     """numpy (including ml_dtypes bfloat16 and float8_e4m3fn, which numpy
     itself does not know: they cross as their bits) -> torch tensor on
-    device."""
+    device; a torch tensor moves as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.array(a)  # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
@@ -84,10 +86,14 @@ def qtensor_from_jax(q, device, out_cols: int | None = None) -> QTensor:
     )
 
 
-def params_from_jax(tree, spec: ModelSpec, device="cuda"):
-    """The JAX params tree (numpy leaves) as the port's params on device."""
-    a = spec.attention
-    if a.kind == "mla":
+def params_from_jax(tree, spec: ModelSpec | None, device="cuda"):
+    """The JAX params tree (numpy leaves) as the port's params on device.
+    Without a spec the tree must hold no fused projection (an unprepared
+    tree, as build_params makes and models/checkpoint.py stores)."""
+    a = spec.attention if spec is not None else None
+    if a is None:
+        fkey, qkv_cols = None, None
+    elif a.kind == "mla":
         fkey = "qkv_a"
         qkv_cols = (a.q_lora_rank or a.num_heads * (a.qk_nope_head_dim
                                                     + a.qk_rope_head_dim)
@@ -113,8 +119,10 @@ def params_from_jax(tree, spec: ModelSpec, device="cuda"):
             return MoEWeights(conv(node.gate_up), conv(node.down),
                               conv(getattr(node, "lora", None)))
         if isinstance(node, dict):
+            if fkey is None and ("qkv_a" in node or "qkv" in node):
+                raise ValueError("a fused projection needs the model spec")
             out = {k: conv(v, k) for k, v in node.items()}
-            if fkey + "_bias" in out:
+            if fkey is not None and fkey + "_bias" in out:
                 out[fkey + "_bias"] = out[fkey + "_bias"][:qkv_cols]
             return out
         if isinstance(node, (list, tuple)):

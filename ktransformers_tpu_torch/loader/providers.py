@@ -1,16 +1,23 @@
 """Weight providers (counterpart of ktransformers_tpu/loader/providers.py):
-``get(name)`` over HF-style tensor names. The in-memory torch source and
-the GGUF file source (with its lossless repack, ``get_exact``); the
-safetensors provider belongs to ROADMAP Queue 1 item 5b."""
+``get(name)`` over HF-style tensor names. The in-memory torch source, the
+safetensors file or directory source (read by loader/safetensors_io.py,
+FP8-blockwise weights dequantized on read) and the GGUF file source (with
+its lossless repack, ``get_exact``)."""
 
 from __future__ import annotations
 
+import json
+import os
 import re
 
 import numpy as np
 import torch
 
 from ktransformers_tpu_torch.loader.gguf import GGML_TYPES, GGUFDir
+from ktransformers_tpu_torch.loader.safetensors_io import (
+    SafetensorsFile,
+    numpy_view,
+)
 from ktransformers_tpu_torch.models.loading import WeightProvider
 from ktransformers_tpu_torch.quant.formats import QTensor
 from ktransformers_tpu_torch.quant.gguf_repack import repack_ggml_exact
@@ -29,6 +36,69 @@ class TorchModelProvider(WeightProvider):
         if name not in self._sd:
             raise KeyError(name)
         return self._sd[name].detach().to("cpu").float().numpy()
+
+
+class SafetensorsProvider(WeightProvider):
+    """A directory of .safetensors files (with or without
+    model.safetensors.index.json) or one file. ``get`` returns float32 for
+    BF16 tensors and the stored numpy dtype otherwise; a ``weight`` with a
+    ``weight_scale_inv`` beside it (DeepSeek-V3's FP8 blockwise format, 128
+    x 128 blocks; float8_e4m3fn codes stored as F8_E4M3 or U8) is
+    dequantized to float32 as the JAX package's provider does it."""
+
+    def __init__(self, path: str):
+        if os.path.isfile(path):
+            files = [path]
+        else:
+            index = os.path.join(path, "model.safetensors.index.json")
+            if os.path.exists(index):
+                with open(index) as f:
+                    weight_map = json.load(f)["weight_map"]
+                files = sorted({os.path.join(path, v)
+                                for v in weight_map.values()})
+            else:
+                files = sorted(os.path.join(path, f) for f in os.listdir(path)
+                               if f.endswith(".safetensors"))
+        self._files = {}
+        self._where = {}
+        for fp in files:
+            h = SafetensorsFile(fp)
+            self._files[fp] = h
+            for k in h.keys():
+                self._where[k] = fp
+
+    def keys(self):
+        return list(self._where)
+
+    def raw(self, name: str) -> torch.Tensor:
+        """The stored tensor as it is (torch, on the CPU)."""
+        return self._files[self._where[name]].get(name)
+
+    def _raw(self, name: str) -> np.ndarray:
+        """The stored bits as numpy (bfloat16 as uint16, float8 as uint8)."""
+        return numpy_view(self.raw(name))
+
+    def get(self, name: str) -> np.ndarray:
+        if name not in self._where:
+            raise KeyError(name)
+        w = self.raw(name)
+        scale_name = name.replace(".weight", ".weight_scale_inv")
+        if (name.endswith(".weight") and scale_name in self._where
+                and w.element_size() == 1):
+            return self._dequant_fp8_block(w, self.raw(scale_name))
+        if w.dtype in (torch.bfloat16, torch.float8_e4m3fn):
+            return w.to(torch.float32).numpy()
+        return numpy_view(w)
+
+    @staticmethod
+    def _dequant_fp8_block(w: torch.Tensor,
+                           scale_inv: torch.Tensor) -> np.ndarray:
+        wf = w.view(torch.float8_e4m3fn).to(torch.float32).numpy()
+        bo, bi = 128, 128
+        o, i = wf.shape
+        s = scale_inv.to(torch.float32).numpy()
+        s_full = np.repeat(np.repeat(s, bo, axis=0)[:o], bi, axis=1)[:, :i]
+        return wf * s_full
 
 
 # --- GGUF name translation -------------------------------------------------

@@ -18,8 +18,10 @@ are bit-exact with its build_params; the finished tree moves to
 ``device`` once, at the end. With ``exact_gguf`` a provider that has
 ``get_exact`` (loader/providers.GGUFProvider) hands over its tensors' GGUF
 codes and block scales as they are (quant/gguf_repack.py), as the JAX
-package's build_params does. The safetensors source and the per-module
-``placement`` belong to ROADMAP item 5b.
+package's build_params does. ``placement`` (placement/spec.py) gives each
+module path its (quant, group_size) through ``quant_for``, as in the JAX
+package; the paths are the params-tree paths ("layers.3.attn.kv_a",
+"layers.3.moe.experts", "lm_head", ...).
 """
 
 from __future__ import annotations
@@ -85,18 +87,15 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
                  moe_quant: str | None = None, group_size: int = 128,
                  placement=None,
                  exact_gguf: bool = False, layer_indices=None,
-                 include_head: bool = True, device="cuda"):
+                 include_head: bool = True, device="cuda", progress=None):
     """The params tree from a provider, on ``device``. ``quant`` for
     attention, dense MLP, shared experts and lm_head, ``moe_quant``
     (default quant) for the routed experts; ``layer_indices`` (default
     all) with ``include_head=False`` builds a partial tree of those layers
-    only, as in the JAX package. ``exact_gguf``: take the provider's
+    only, as in the JAX package; ``progress(msg)`` hears of each layer.
+    ``exact_gguf``: take the provider's
     lossless repack (get_exact) of every tensor it has one for, the
     others (norms, router, embedding, F16 / F32 tensors) as above."""
-    if placement is not None:
-        raise NotImplementedError(
-            "build_params: per-module placement is not ported (ROADMAP "
-            "Queue 1 item 5b, with models/checkpoint.py and placement/*)")
     moe_quant = moe_quant or quant
     a = spec.attention
     get, maybe = p.get, p.maybe
@@ -104,8 +103,13 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
     if layer_indices is None:
         layer_indices = range(spec.num_layers)
 
-    def q(arr: np.ndarray, kind: str):
-        return quantize(torch.from_numpy(arr), kind, group_size=group_size)
+    def pick(path: str, kind: str) -> tuple[str, int]:
+        if placement is None:
+            return kind, group_size
+        return placement.quant_for(path)
+
+    def q(arr: np.ndarray, kind: str, gs: int = group_size):
+        return quantize(torch.from_numpy(arr), kind, group_size=gs)
 
     def exact(name: str):
         if not can_exact:
@@ -115,15 +119,16 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
         except KeyError:
             return None
 
-    def qx(name: str, kind: str = quant):
+    def qx(name: str, path: str, kind: str = quant):
         qt = exact(name)
-        return qt if qt is not None else q(_t(get(name)), kind)
+        return qt if qt is not None else q(_t(get(name)), *pick(path, kind))
 
-    def qx_fused(gname: str, uname: str, fused_name: str):
+    def qx_fused(gname: str, uname: str, fused_name: str, path: str):
         qt = exact(fused_name)
         if qt is not None:
             return qt
-        return q(np.concatenate([_t(get(gname)), _t(get(uname))], 1), quant)
+        return q(np.concatenate([_t(get(gname)), _t(get(uname))], 1),
+                 *pick(path, quant))
 
     def vec(name: str) -> torch.Tensor:
         return _vec(get(name))
@@ -137,6 +142,8 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
 
     layers = []
     for li in layer_indices:
+        if progress:
+            progress(f"layer {li}/{spec.num_layers}")
         pre = f"model.layers.{li}"
         lp = {
             "input_norm": nvec(f"{pre}.input_layernorm.weight"),
@@ -147,20 +154,21 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
             la_pre = f"{pre}.linear_attn"
             perm_qkvz, perm_ba = linear_attn_perms(spec.linear_attn)
             conv = np.asarray(get(f"{la_pre}.conv1d.weight"), np.float32)
+            lk, lg = pick(f"layers.{li}.attn", quant)
             attn = {
                 "in_proj_qkvz": q(np.ascontiguousarray(
                     _t(get(f"{la_pre}.in_proj_qkvz.weight"))[:, perm_qkvz]),
-                    quant),
+                    lk, lg),
                 "in_proj_ba": q(np.ascontiguousarray(
                     _t(get(f"{la_pre}.in_proj_ba.weight"))[:, perm_ba]),
-                    "bf16"),
+                    "bf16", lg),
                 "conv_w": torch.from_numpy(np.ascontiguousarray(
                     conv[:, 0, :])),  # [C, 1, K] -> [C, K]
                 "dt_bias": vec(f"{la_pre}.dt_bias"),
                 "A_log": vec(f"{la_pre}.A_log"),
                 # GatedDeltaNet's own gated norm is not zero-centred
                 "norm_w": vec(f"{la_pre}.norm.weight"),
-                "out_proj": q(_t(get(f"{la_pre}.out_proj.weight")), quant),
+                "out_proj": q(_t(get(f"{la_pre}.out_proj.weight")), lk, lg),
             }
         elif a.kind == "mla":
             kv_b = torch.from_numpy(_t(get(f"{sa}.kv_b_proj.weight")))
@@ -168,24 +176,30 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
                                           a.qk_nope_head_dim, a.v_head_dim)
             absorbed = torch.float32 if quant == "f32" else torch.bfloat16
             attn = {
-                "kv_a": qx(f"{sa}.kv_a_proj_with_mqa.weight"),
+                "kv_a": qx(f"{sa}.kv_a_proj_with_mqa.weight",
+                           f"layers.{li}.attn.kv_a"),
                 "kv_a_norm": vec(f"{sa}.kv_a_layernorm.weight"),
                 "w_uk": w_uk.to(absorbed),
                 "w_uv": w_uv.to(absorbed),
-                "o_proj": qx(f"{sa}.o_proj.weight"),
+                "o_proj": qx(f"{sa}.o_proj.weight",
+                             f"layers.{li}.attn.o_proj"),
             }
             if maybe(f"{sa}.kv_a_proj_with_mqa.bias") is not None:
                 attn["kv_a_bias"] = vec(f"{sa}.kv_a_proj_with_mqa.bias")
             if a.q_lora_rank:
-                attn["q_a"] = qx(f"{sa}.q_a_proj.weight")
+                attn["q_a"] = qx(f"{sa}.q_a_proj.weight",
+                                 f"layers.{li}.attn.q_a")
                 attn["q_a_norm"] = vec(f"{sa}.q_a_layernorm.weight")
-                attn["q_b"] = qx(f"{sa}.q_b_proj.weight")
+                attn["q_b"] = qx(f"{sa}.q_b_proj.weight",
+                                 f"layers.{li}.attn.q_b")
             else:
-                attn["q_proj"] = qx(f"{sa}.q_proj.weight")
+                attn["q_proj"] = qx(f"{sa}.q_proj.weight",
+                                    f"layers.{li}.attn.q_proj")
         else:
             attn = {}
             for nm in ("q", "k", "v", "o"):
-                attn[f"{nm}_proj"] = qx(f"{sa}.{nm}_proj.weight")
+                attn[f"{nm}_proj"] = qx(f"{sa}.{nm}_proj.weight",
+                                        f"layers.{li}.attn.{nm}_proj")
                 bias = maybe(f"{sa}.{nm}_proj.bias")
                 if bias is None:
                     continue
@@ -242,8 +256,9 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
             if gus is None:
                 moe["experts"] = MoEWeights(gate_up=exact_gu, down=exact_dn)
             else:
-                moe["experts"] = MoEWeights(gate_up=q(gus, moe_quant),
-                                            down=q(dns, moe_quant))
+                ek, eg = pick(f"layers.{li}.moe.experts", moe_quant)
+                moe["experts"] = MoEWeights(gate_up=q(gus, ek, eg),
+                                            down=q(dns, ek, eg))
             del gus, dns
             if m.shared_expert_intermediate_size:
                 # deepseek's shared_experts, qwen2-moe's shared_expert
@@ -254,8 +269,10 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
                 moe["shared"] = {
                     "gate_up": qx_fused(f"{base}.gate_proj.weight",
                                         f"{base}.up_proj.weight",
-                                        f"{base}.gate_up_proj"),
-                    "down": qx(f"{base}.down_proj.weight"),
+                                        f"{base}.gate_up_proj",
+                                        f"layers.{li}.moe.shared"),
+                    "down": qx(f"{base}.down_proj.weight",
+                               f"layers.{li}.moe.shared"),
                 }
                 if m.shared_expert_gate:
                     # [1, hidden] as HF holds it (a GGUF file's
@@ -270,15 +287,17 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
             lp["mlp"] = {
                 "gate_up": q(np.concatenate([_t(get(f"{bsm}.gate.weight")),
                                              _t(get(f"{bsm}.up.weight"))],
-                                            1), quant),
-                "down": qx(f"{bsm}.down.weight"),
+                                            1), *pick(f"layers.{li}.mlp",
+                                                      quant)),
+                "down": qx(f"{bsm}.down.weight", f"layers.{li}.mlp"),
             }
         else:
             lp["mlp"] = {
                 "gate_up": qx_fused(f"{mlp_pre}.gate_proj.weight",
                                     f"{mlp_pre}.up_proj.weight",
-                                    f"{mlp_pre}.gate_up_proj"),
-                "down": qx(f"{mlp_pre}.down_proj.weight"),
+                                    f"{mlp_pre}.gate_up_proj",
+                                    f"layers.{li}.mlp"),
+                "down": qx(f"{mlp_pre}.down_proj.weight", f"layers.{li}.mlp"),
             }
         layers.append(lp)
 
@@ -288,5 +307,5 @@ def build_params(p: WeightProvider, spec: ModelSpec, quant: str = "bf16",
         "final_norm": nvec("model.norm.weight") if include_head else None,
     }
     if include_head and not spec.tie_word_embeddings:
-        params["lm_head"] = qx("lm_head.weight")
+        params["lm_head"] = qx("lm_head.weight", "lm_head")
     return params_to(params, device)

@@ -1,6 +1,7 @@
-"""Serving engine: continuous batching over a paged KV cache (counterpart
-of ktransformers_tpu/serving, without the HTTP layer): a host-side FCFS
-scheduler feeding fixed-shape model steps."""
+"""Serving (counterpart of ktransformers_tpu/serving): continuous batching
+over a paged KV cache, a host-side FCFS scheduler feeding fixed-shape model
+steps, and the OpenAI / Ollama-compatible HTTP layer (server.py, on the
+standard library)."""
 
 from ktransformers_tpu_torch.serving.engine import ServeEngine
 from ktransformers_tpu_torch.serving.scheduler import (

@@ -49,6 +49,7 @@ import torch
 
 from ktransformers_tpu_torch.cache.paged import PagedKVCache, PageAllocator
 from ktransformers_tpu_torch.cache.prefix import PrefixCache
+from ktransformers_tpu_torch.engine.local_chat import prompt_ids_error
 from ktransformers_tpu_torch.engine.sampler import sample, sample_batched
 from ktransformers_tpu_torch.models.paged import (
     forward_paged,
@@ -528,6 +529,27 @@ class ServeEngine:
         return True
 
     # -- public API ---------------------------------------------------------
+
+    def admission_error(self, prompt, max_new_tokens: int) -> str | None:
+        """Why a query cannot run here, or None: an empty prompt, an id
+        outside the vocabulary, or more tokens (with the decode pipeline's
+        lookahead) than a page table, the page pool or the rope tables
+        hold. Past the page table the step fails, past the pool the query
+        waits for ever."""
+        if not prompt:
+            return "empty prompt"
+        err = prompt_ids_error(prompt, self.spec.vocab_size)
+        if err:
+            return err
+        pool = self.alloc.num_pages - self.alloc.reserved
+        room = min(min(self.cfg.max_pages_per_query, pool)
+                   * self.cfg.page_size, self.spec.rope.max_position) \
+            - self.decode_pipeline_depth - 2
+        if len(prompt) + max_new_tokens > room:
+            return (f"prompt of {len(prompt)} tokens plus max_tokens "
+                    f"{max_new_tokens} exceeds the {room} tokens a query may "
+                    "hold")
+        return None
 
     def submit(self, prompt, **kw) -> Query:
         with self._lock:

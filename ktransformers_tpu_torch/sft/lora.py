@@ -7,20 +7,19 @@ the routed experts; alpha / r is folded into the a factors and b starts at
 zero, so a fresh adapter changes nothing. Files are safetensors keyed by
 the params path exactly as the JAX package names them
 ("layers/3/moe/experts/lora/gate_up_a"), so an adapter written by either
-package loads in the other; they are read and written here with numpy and
-json alone.
+package loads in the other; loader/safetensors_io.py reads and writes
+them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 import re
-import struct
 
 import numpy as np
 import torch
 
+from ktransformers_tpu_torch.loader.safetensors_io import load_file, save_file
 from ktransformers_tpu_torch.models.spec import ModelSpec
 from ktransformers_tpu_torch.ops.moe import MoEWeights
 from ktransformers_tpu_torch.quant.formats import QTensor
@@ -177,60 +176,19 @@ def merge_lora_params(lora, base):
 # safetensors: an 8-byte little-endian header length, a JSON header of
 # {name: {"dtype", "shape", "data_offsets": [begin, end]}} padded with
 # spaces to a multiple of 8, then the tensors' raw bytes back to back.
-_ST_CODES = {torch.float32: "F32", torch.bfloat16: "BF16",
-             torch.float16: "F16", torch.float64: "F64", torch.int32: "I32",
-             torch.int64: "I64", torch.int8: "I8", torch.uint8: "U8"}
-_ST_DTYPES = {v: k for k, v in _ST_CODES.items()}
-
-
-def _write_safetensors(flat: dict[str, torch.Tensor], path: str) -> None:
-    header, blobs, offset = {}, [], 0
-    for name in sorted(flat):
-        t = flat[name].detach().cpu().contiguous()
-        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
-        header[name] = {"dtype": _ST_CODES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + len(raw)]}
-        blobs.append(raw)
-        offset += len(raw)
-    text = json.dumps(header, separators=(",", ":")).encode()
-    text += b" " * (-len(text) % 8)
-    with open(path, "wb") as fh:
-        fh.write(struct.pack("<Q", len(text)))
-        fh.write(text)
-        for raw in blobs:
-            fh.write(raw)
-
-
-def _read_safetensors(path: str) -> dict[str, torch.Tensor]:
-    with open(path, "rb") as fh:
-        (n,) = struct.unpack("<Q", fh.read(8))
-        header = json.loads(fh.read(n))
-        data = fh.read()
-    out = {}
-    for name, meta in header.items():
-        if name == "__metadata__":
-            continue
-        begin, end = meta["data_offsets"]
-        raw = np.frombuffer(data, dtype=np.uint8, count=end - begin,
-                            offset=begin).copy()
-        out[name] = torch.from_numpy(raw).view(
-            _ST_DTYPES[meta["dtype"]]).reshape(meta["shape"])
-    return out
-
-
 def save_lora(params, path: str) -> None:
     """Write every LoRA leaf of params to a safetensors file."""
     flat = dict(lora_leaves(params))
     if not flat:
         raise ValueError("save_lora: no LoRA leaves found")
-    _write_safetensors(flat, path)
+    save_file(flat, path)
 
 
 def load_lora(params, path: str):
     """params (which already holds LoRA leaves of the same config) with
     every leaf the file names replaced by the file's values, on the leaf's
     device."""
-    flat = _read_safetensors(path)
+    flat = load_file(path)
 
     def take(p, leaf):
         name = "/".join(str(k) for k in p)

@@ -320,12 +320,14 @@ def test_build_params_bit_exact_with_jax(family, quant):
 
 def test_build_params_partial_tree_and_refusals():
     """layer_indices with include_head=False builds those layers only, as
-    the JAX package does; placement raises naming ROADMAP item 5b, and
+    the JAX package does; a placement that gives every module int8
+    builds the int8 tree, and
     exact_gguf with a provider that has no get_exact (no GGUF codes to
     carry over) builds the tree it builds without, as in the JAX
     package."""
     from ktransformers_tpu_torch.loader.providers import TorchModelProvider
     from ktransformers_tpu_torch.models.loading import build_params
+    from ktransformers_tpu_torch.placement import PlacementSpec
 
     model, cfg = _v3_model()
     spec = spec_from_hf_config(cfg)
@@ -336,8 +338,10 @@ def test_build_params_partial_tree_and_refusals():
     assert part["embed"] is None and part["final_norm"] is None
     assert "lm_head" not in part and len(part["layers"]) == 1
     _assert_same_tree(part["layers"][0], full["layers"][2])
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        build_params(prov, spec, device="cpu", placement=object())
+    all_int8 = PlacementSpec.from_dict(
+        [{"match": {"name": ".*"}, "assign": {"quant": "int8"}}])
+    _assert_same_tree(build_params(prov, spec, device="cpu",
+                                   placement=all_int8), full)
     _assert_same_tree(build_params(prov, spec, quant="int8", device="cpu",
                                    exact_gguf=True), full)
     assert prov.maybe("no.such.weight") is None

@@ -276,7 +276,21 @@ def test_port_imports_no_jax():
             "ktransformers_tpu_torch/offload/host_moe.py",
             "ktransformers_tpu_torch/offload/experts.py",
             "ktransformers_tpu_torch/offload/host_engine.py",
-            "ktransformers_tpu_torch/offload/paged_engine.py"} <= names
+            "ktransformers_tpu_torch/offload/paged_engine.py",
+            "ktransformers_tpu_torch/loader/safetensors_io.py",
+            "ktransformers_tpu_torch/loader/gptq.py",
+            "ktransformers_tpu_torch/loader/providers.py",
+            "ktransformers_tpu_torch/placement/spec.py",
+            "ktransformers_tpu_torch/placement/library.py",
+            "ktransformers_tpu_torch/models/checkpoint.py",
+            "ktransformers_tpu_torch/engine/local_chat.py",
+            "ktransformers_tpu_torch/serving/server.py",
+            "ktransformers_tpu_torch/serving/config.py",
+            "ktransformers_tpu_torch/serving/tools.py",
+            "ktransformers_tpu_torch/serving/assistants.py",
+            "ktransformers_tpu_torch/cli/main.py",
+            "ktransformers_tpu_torch/cli/__main__.py",
+            "ktransformers_tpu_torch/utils/eval.py"} <= names
     # nor does the package hand a kernel's product to a library call
     lib = re.compile(r"_int_mm|_scaled_mm|_grouped_mm"
                      r"|scaled_dot_product_attention|torch\.compile")

@@ -98,7 +98,31 @@ Phases (any failure exits non-zero before the final line):
             requests whose tokens equal an in-process ServeEngine's over
             load_params(<packed>); the packed tree on the card equal to
             the CPU's bits, its logits card vs CPU by moe_parity;
-8. int8:    the int4_g parameters are freed; the full 27-layer config with
+7c. speculation (speculation_run, before 7b): on phase 5's parameters a
+            512-token prompt and 32 new tokens at k = 3 through
+            speculative_generate (the target as its own draft),
+            draft_generate (a drawn 2-layer drafter of the same widths),
+            mtp_generate and mtp_generate_fused (an init_mtp_synthetic
+            head, a MoE layer): rounds, acceptance, output tok/s (prefill
+            included) beside the plain Generator's, launches; tokens held
+            to the single-user ones by phase 6's near-tie rule; a cache of
+            prompt + 32 refused before any step; on 2 full-width layers
+            of float32 weights all five functions token for token equal to
+            Generator.generate; the verify step's shapes (M = 4 / 5 on rows
+            1 and 3, (k + 1) x 6 gathered rows on row 2) against their
+            plain versions with bound and library times;
+7d. sparse serve (sparse_serve_run): on phase 5's parameters the
+            ServeEngine with a budget of the whole page table against the
+            dense one (4 requests, both held to the single-user tokens by
+            phase 6's rule, no paged decode kernel launched); 4 prompts of
+            2,048 tokens + 32 at a budget of 8 of 32 pages (quest / layer)
+            against the dense engine: output tok/s, mean TBT; the card's
+            sparse decode against the CPU's on that run's pools with NaN in
+            every dead row; at 2 layers the other anchors and retrievals
+            (full budget held, budget 2 run) and offload x sparse against
+            the offloaded dense engine;
+8. int8:    the int4_g parameters are freed; the config cut to INT8_LAYERS
+            = 9 of its 27 layers with
             int8 weights (every matmul through the quant_matmul kernels) in
             a Generator answering 2 requests of 512 + 32 tokens, the second
             with the fused decode off; launches per decode step and per
@@ -267,7 +291,9 @@ Qwen3-Next's paged paths, the fused FFN's kernels on both of the last two
 models' paths, the MLA
 kernels and both W4A8 matmul kernels on DeepSeek-V3's two paths and the W4A8
 matmul kernels on Qwen2's and GLM's, row 9 and both its redesigned kernels
-on Llama's; w4a8_ffn_gemv_kernel's entry gives the gate_up half's times
+on Llama's; rows 1-5 and their redesigned kernels on the speculation
+paths, row 6 on the MTP paths, rows 1-4 and 14 on the sparse serving
+paths; w4a8_ffn_gemv_kernel's entry gives the gate_up half's times
 and bound; a W4A8 entry also its "fold": the folded kernel beside prep +
 unfolded kernel), the card line, and as
 the last line
@@ -1995,25 +2021,35 @@ def step_launches(result: dict, gen, key: str, want: dict) -> dict:
     return routed_by
 
 
+# DeepSeek-V2-Lite on int8 weights at INT8_LAYERS of its 27 layers (all 27
+# until the speculation and sparse_serve phases took the time): the dense
+# layer 0 and 8 MoE layers
+INT8_LAYERS = 9
+
+
 def int8_step_launches(result: dict, gen) -> None:
-    """On the int8 parameters: quant_matmul 109 (qkv_a and o_proj in 27
-    layers, lm_head, and gate_up + down of the 27 dense / shared MLPs), the
-    expert kernel 2 x 26 (gathered at decode, grouped at prefill), the
-    attention kernel 27 at decode (prefill attention is plain PyTorch) and
-    no W4A8 kernel; with the fused decode off, every one of the 27 bf16
-    mla_decode_attention calls on mla_decode_split_kernel<false>."""
+    """On the int8 parameters of L layers: quant_matmul 4 L + 1 (qkv_a and
+    o_proj in every layer, lm_head, and gate_up + down of the dense /
+    shared MLPs), the expert kernel 2 (L - 1) (gathered at decode, grouped
+    at prefill), the attention kernel L at decode (prefill attention is
+    plain PyTorch) and no W4A8 kernel; with the fused decode off, every
+    one of the L bf16 mla_decode_attention calls on
+    mla_decode_split_kernel<false>."""
+    n = gen.spec.num_layers
     routed_by = step_launches(result, gen, "int8_step_launches", {
-        "prefill_chunk": {"quant_matmul": 109, "grouped_quant_matmul": 52},
-        "decode_step": {"quant_matmul": 109, "gathered_quant_matmul": 52,
-                        "mla_decode_fused": 27},
-        "decode_step_unfused": {"quant_matmul": 109,
-                                "gathered_quant_matmul": 52,
-                                "mla_decode_attention": 27},
+        "prefill_chunk": {"quant_matmul": 4 * n + 1,
+                          "grouped_quant_matmul": 2 * (n - 1)},
+        "decode_step": {"quant_matmul": 4 * n + 1,
+                        "gathered_quant_matmul": 2 * (n - 1),
+                        "mla_decode_fused": n},
+        "decode_step_unfused": {"quant_matmul": 4 * n + 1,
+                                "gathered_quant_matmul": 2 * (n - 1),
+                                "mla_decode_attention": n},
     })
     split = routed_by["decode_step_unfused"].get(
         "mla_decode_split_kernel<false>", 0)
-    if split != 27:
-        raise AssertionError(f"fused decode off: {split} of 27 attention "
+    if split != n:
+        raise AssertionError(f"fused decode off: {split} of {n} attention "
                              "calls on mla_decode_split_kernel<false>")
 
 
@@ -5899,6 +5935,562 @@ def offload_run(result: dict) -> None:
     log(f"offload seconds: {json.dumps(rec['seconds'])}")
 
 
+# ------------------------------------------------------------ speculation
+
+SPEC_PROMPT, SPEC_NEW, SPEC_K = 512, 32, 3
+# the float32 exactness run's prompt (its plain float32 expert products
+# dominate its time)
+SPEC_F32_PROMPT = 128
+# the kernels each speculation path must launch on the 27-layer W4A8
+# model: the prompt's prefill chunks (rows 1, 3, 4), the verify step's
+# k + 1 rows (row 1 on w4a8_mma, row 3 on w4a8_ffn_mma, row 2's gathered
+# rows on its GEMV), the one-token draft steps of the target or the draft
+# model (row 5, the GEMVs); the MTP head's decode attention (row 6)
+SPEC_KERNELS = ("dense_w4a8_matmul", "gathered_w4a8_ffn", "dense_w4a8_ffn",
+                "grouped_w4a8_ffn", "mla_decode_fused")
+SPEC_ROUTED = ("w4a8_mma_kernel", "w4a8_gemv_kernel", "w4a8_ffn_mma_kernel",
+               "w4a8_ffn_gemv_kernel", "mla_decode_split_kernel")
+MTP_KERNELS = ("dense_w4a8_matmul", "gathered_w4a8_ffn", "dense_w4a8_ffn",
+               "grouped_w4a8_ffn", "mla_decode_attention")
+MTP_ROUTED = ("w4a8_mma_kernel", "w4a8_ffn_mma_kernel",
+              "mla_decode_split_kernel<false>")
+
+
+def verify_kernel_checks(rows: list, entries: dict) -> None:
+    """The verify step's shapes (k + 1 = 4 and 5 rows) at DeepSeek-V2-Lite's
+    widths, against their plain versions, with bound and library times:
+    row 1 on qkv_a / o_proj / lm_head / the layer-0 MLP, row 3 on the
+    shared expert, row 2 on (k + 1) x 6 gathered rows."""
+    from ktransformers_tpu_torch.ops.cuda import w4a8_ffn as F
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul as MM
+
+    dev = torch.device("cuda")
+    check = make_check(rows, entries)
+    _, rn, w = draw(4321)
+    sms = MM.sm_count(dev)
+    for m in (4, 5):
+        for k, n, what in ((2048, 3648, "qkv_a"), (2048, 2048, "o_proj"),
+                           (2048, 102400, "lm_head"),
+                           (2048, 21888, "layer-0 gate_up"),
+                           (10944, 2048, "layer-0 down (gs 96)")):
+            wt = w((k, n))
+            dense_w4a8_check(check, rn(m, k), wt, f"verify {what} M={m}",
+                             sms)
+            del wt
+    sgu, sdn = w((2048, 2 * 2816)), w((2816, 2048))
+    for m in (4, 5):
+        dense_ffn_check(check, rn(m, 2048), sgu, sdn,
+                        f"verify shared I=2816 M={m}", sms)
+    del sgu, sdn
+    e, d, f = 64, 2048, 1408
+    gu, dn = w((e, d, 2 * f)), w((e, f, d))
+    per_expert = nbytes(gu.data[0], gu.scales[0], dn.data[0], dn.scales[0])
+    g_cpu = torch.Generator().manual_seed(7)
+    for m in (4, 5):
+        r = 6 * m
+        ids = torch.cat([torch.randperm(e, generator=g_cpu)[:6]
+                         for _ in range(m)]).to(torch.int32).to(dev)
+        used = int(torch.unique(ids).numel())
+        x = rn(r, d)
+        route = F.ffn_route(r, "gathered", 128, 128, f, d)
+        check("gathered_w4a8_ffn", f"verify {r} rows ({m} tok x 6)", 3e-2,
+              lambda: F.gathered_w4a8_ffn(x, gu, dn, ids),
+              lambda: F.gathered_w4a8_ffn_ref(x, gu, dn, ids),
+              lambda: F.gathered_launcher(x, gu, dn, ids),
+              used * per_expert + 2 * nbytes(x), 2 * r * 3 * d * f,
+              INT8_OPS_PER_S,
+              up=ffn_up(x, gu, dn, ids.long(), used) if route == "gemv"
+              else None,
+              **routed(FFN_ROUTES, route,
+                       lambda: F.gathered_launcher(x, gu, dn, ids, "silu",
+                                                   "rows")))
+    del gu, dn
+    torch.cuda.empty_cache()
+
+
+def spec_call(name: str, fn) -> dict:
+    """One speculation run with the launch counts set to 0 just before and
+    read just after: (tokens, stats, wall s, launches, routed)."""
+    from ktransformers_tpu_torch.ops.cuda import (
+        LAUNCHES,
+        ROUTED_LAUNCHES,
+        reset_launches,
+    )
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out, stats = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(tokens=out, rounds=stats.rounds, drafted=stats.drafted,
+                accepted=stats.accepted, acceptance=stats.acceptance_rate,
+                wall_s=wall, out_tok_s=len(out) / wall,
+                launches={k: v for k, v in LAUNCHES.items() if v},
+                routed_launches={k: v for k, v in ROUTED_LAUNCHES.items()
+                                 if v})
+
+
+def hold_launches(what: str, rec: dict, kernels, routed_kernels) -> None:
+    idle = [k for k in kernels if rec["launches"].get(k, 0) <= 0]
+    idle += [k for k in routed_kernels
+             if rec["routed_launches"].get(k, 0) <= 0]
+    if idle:
+        raise AssertionError(f"{what}: {idle} launched no time")
+
+
+def speculation_f32(result: dict) -> None:
+    """On a 2-layer full-width model with float32 weights (one dense, one
+    MoE layer, plain expert products), float32 compute: every speculation
+    function gives Generator.generate's tokens, token for token."""
+    from ktransformers_tpu_torch.engine import mtp
+    from ktransformers_tpu_torch.engine.draft_spec import draft_generate
+    from ktransformers_tpu_torch.engine.generate import (
+        GenerateConfig,
+        Generator,
+    )
+    from ktransformers_tpu_torch.engine.speculative import (
+        speculative_generate,
+    )
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+
+    spec = spec_from_hf_config(dict(bench_model_cfg(), num_hidden_layers=2))
+    f32 = dict(cache_dtype=torch.float32, compute_dtype=torch.float32)
+    params = init_params_synthetic(spec, seed=21, quant="bf16",
+                                   dtype=torch.float32, device="cuda")
+    gen = Generator(params, spec, max_len=1024, device="cuda", **f32)
+    # a dense-layer head (only the target's verify decides the tokens)
+    head = mtp.init_mtp_synthetic(spec, seed=8, quant="bf16",
+                                  dense_layer=True, device="cuda")
+    prompt = np.random.default_rng(702).integers(
+        0, spec.vocab_size, SPEC_F32_PROMPT).tolist()
+    cfg = GenerateConfig(max_new_tokens=SPEC_NEW)
+    want = gen.generate(prompt, cfg)[0]
+    got = {}
+    for name, fn in (
+            ("speculative", lambda: speculative_generate(
+                gen, gen, prompt, cfg, k=SPEC_K)),
+            ("draft", lambda: draft_generate(gen, gen, prompt, cfg,
+                                             k=SPEC_K)),
+            ("mtp", lambda: mtp.mtp_generate(gen, head, prompt, cfg,
+                                             k=SPEC_K)),
+            ("mtp_single", lambda: mtp.mtp_generate_single(
+                gen, head, prompt, cfg, k=SPEC_K)),
+            ("mtp_fused", lambda: mtp.mtp_generate_fused(
+                gen, head, prompt, cfg, k=SPEC_K))):
+        out, stats = fn()
+        got[name] = dict(equal=out == want, acceptance=stats.acceptance_rate)
+        if out != want:
+            raise AssertionError(f"speculation float32 {name}: {out} vs "
+                                 f"{want}")
+    result["speculation_f32"] = got
+    log(f"speculation float32 (2 layers): every function's tokens equal "
+        f"Generator.generate's: {json.dumps(got)}")
+    del gen, params, head
+    torch.cuda.empty_cache()
+
+
+def speculation_run(result: dict, gen, rows: list, entries: dict) -> None:
+    """Phase `speculation` on the 27-layer W4A8 DeepSeek-V2-Lite of phase 5
+    (``gen``, max_len 1024): a SPEC_PROMPT-token prompt and SPEC_NEW new
+    tokens at k = SPEC_K through speculative_generate (the target as its
+    own draft), draft_generate (a drawn 2-layer drafter of the same widths
+    and vocabulary), mtp_generate and mtp_generate_fused (an
+    init_mtp_synthetic head mirroring the last, MoE, layer); each run's
+    tokens held to the single-user greedy tokens by phase 6's near-tie
+    rule (the verify step's float32 plain attention and w4a8_mma against
+    the decode step's bf16 fused kernel and GEMVs), its rounds,
+    acceptance, output tok/s (prefill included) beside the plain
+    Generator's on the same host, and its launches. Then the refusal of a
+    cache too short for the last round, the float32 2-layer exactness run
+    and the verify shapes' kernel rows."""
+    from ktransformers_tpu_torch.engine import mtp
+    from ktransformers_tpu_torch.engine.draft_spec import draft_generate
+    from ktransformers_tpu_torch.engine.generate import (
+        GenerateConfig,
+        Generator,
+    )
+    from ktransformers_tpu_torch.engine.speculative import (
+        speculative_generate,
+    )
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+
+    spec = gen.spec
+    rec = result["speculation"] = {}
+    prompt = np.random.default_rng(701).integers(
+        0, spec.vocab_size, SPEC_PROMPT).tolist()
+    cfg = GenerateConfig(max_new_tokens=SPEC_NEW)
+    ref, gaps = single_user_reference(gen, prompt, SPEC_NEW)
+    plain = spec_call("generator", lambda: (gen.generate(prompt, cfg)[0],
+                                            mtp.SpecStats()))
+    rec["generator"] = {k: plain[k] for k in ("wall_s", "out_tok_s")}
+    log(f"speculation: plain Generator {plain['out_tok_s']:.2f} output "
+        f"tok/s ({SPEC_PROMPT} + {SPEC_NEW} tokens, prefill included)")
+
+    t0 = time.perf_counter()
+    dspec = spec_from_hf_config(dict(bench_model_cfg(), num_hidden_layers=2))
+    draft = Generator(init_params_synthetic(dspec, seed=11, quant="int4_g",
+                                            device="cuda"), dspec,
+                      max_len=1024, device="cuda")
+    head = mtp.init_mtp_synthetic(spec, seed=7, quant="int4_g",
+                                  device="cuda")
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    runs = (("speculative", lambda: speculative_generate(
+                gen, gen, prompt, cfg, k=SPEC_K), SPEC_KERNELS, SPEC_ROUTED),
+            ("draft_spec", lambda: draft_generate(
+                gen, draft, prompt, cfg, k=SPEC_K), SPEC_KERNELS,
+             SPEC_ROUTED),
+            ("mtp", lambda: mtp.mtp_generate(gen, head, prompt, cfg,
+                                             k=SPEC_K), MTP_KERNELS,
+             MTP_ROUTED),
+            ("mtp_fused", lambda: mtp.mtp_generate_fused(
+                gen, head, prompt, cfg, k=SPEC_K), MTP_KERNELS, MTP_ROUTED))
+    for name, fn, kernels, routed_kernels in runs:
+        r = spec_call(name, fn)
+        r["first_diff"] = hold_single_user(f"speculation {name}",
+                                           r["tokens"], ref, gaps)
+        if r["drafted"] != r["rounds"] * SPEC_K:
+            raise AssertionError(f"speculation {name}: {r['drafted']} "
+                                 f"drafted in {r['rounds']} rounds")
+        hold_launches(f"speculation {name}", r, kernels, routed_kernels)
+        rec[name] = r
+        log(f"speculation {name}: {r['rounds']} rounds, acceptance "
+            f"{r['acceptance']:.3f} ({r['accepted']}/{r['drafted']}), "
+            f"{r['out_tok_s']:.2f} output tok/s (plain Generator "
+            f"{plain['out_tok_s']:.2f}), first difference from the "
+            f"single-user tokens {r['first_diff']}; launches "
+            f"{json.dumps(r['launches'])}; on the redesigned kernels "
+            f"{json.dumps(r['routed_launches'])}")
+    if rec["speculative"]["acceptance"] < 0.5:
+        raise AssertionError("speculation: the target as its own draft "
+                             f"accepted {rec['speculative']['acceptance']}")
+    # a cache of prompt + max_new_tokens is refused up front
+    tight = Generator(gen.params, spec, max_len=SPEC_PROMPT + SPEC_NEW,
+                      device="cuda")
+    try:
+        speculative_generate(tight, tight, prompt, cfg, k=SPEC_K)
+    except ValueError as exc:
+        rec["capacity_refusal"] = str(exc)
+        log(f"speculation: a cache of {SPEC_PROMPT + SPEC_NEW} positions is "
+            f"refused: {exc}")
+    else:
+        raise AssertionError("speculation: a tight cache was not refused")
+    del tight, draft, head
+    torch.cuda.empty_cache()
+    speculation_f32(result)
+    verify_kernel_checks(rows, entries)
+
+
+# ---------------------------------------------------------- sparse serve
+
+SPARSE_FULL_LENS = (512, 384, 256, 128)
+SPARSE_LONG, SPARSE_LONG_N, SPARSE_NEW = 2048, 4, 32
+SPARSE_BUDGET = 8
+SPARSE_KERNELS = ("dense_w4a8_matmul", "gathered_w4a8_ffn", "dense_w4a8_ffn",
+                  "grouped_w4a8_ffn", "mla_paged_prefill")
+# the other anchors and retrievals, at 2 layers
+SPARSE_KINDS = (("block_max", "layer"), ("block_mean", "qhead"),
+                ("fixed", "layer"), ("dynamic", "qhead"), ("quest", "qhead"))
+
+
+def sparse_engine_run(params, spec, prompts, new: int, sched, budget=None,
+                      anchor="quest", retrieval="layer", engine_cls=None,
+                      **kw) -> dict:
+    """The prompts through one ServeEngine (or ``engine_cls``) at once,
+    launches counted over the run: tokens, output tok/s, mean TBT, the
+    engine."""
+    from ktransformers_tpu_torch.ops.cuda import (
+        LAUNCHES,
+        ROUTED_LAUNCHES,
+        reset_launches,
+    )
+    from ktransformers_tpu_torch.serving import ServeEngine
+
+    eng = (engine_cls or ServeEngine)(
+        params, spec, sched, num_pages=kw.pop("num_pages", 512),
+        sparse_budget=budget, sparse_anchor=anchor,
+        sparse_retrieval=retrieval, device="cuda", **kw)
+    eng.generate_sync(prompts[-1][:16], max_new_tokens=2)  # warm-up
+    eng.reset_metrics()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    qs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    tables = {}  # a query's pages and length at its last decode step
+    while any(q.state != "done" for q in qs):
+        if not eng.step():
+            time.sleep(0.0005)
+        for q in qs:
+            if q.state == "decode":
+                tables[q.id] = (list(q.pages), q.total_len - 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tbts = [q.tbt for q in qs if q.tbt is not None]
+    return dict(tokens=[list(q.output_ids) for q in qs], wall_s=wall,
+                tables=[tables[q.id] for q in qs if q.id in tables],
+                out_tok_s=len(qs) * new / wall,
+                mean_tbt_ms=1e3 * sum(tbts) / max(len(tbts), 1),
+                launches={k: v for k, v in LAUNCHES.items() if v},
+                routed_launches={k: v for k, v in ROUTED_LAUNCHES.items()
+                                 if v},
+                engine=eng)
+
+
+def plant_dead_nan(kv, tables, lengths) -> None:
+    """NaN into every row of the pools a query's length does not reach:
+    the rows past each length in its last page and every page no table
+    names (not page 0, the trash page)."""
+    named = set()
+    for pt, ln in zip(tables.tolist(), lengths.tolist()):
+        pages = -(-ln // kv.page_size)
+        named.update(pt[:pages])
+        last, used = pt[pages - 1], ln - (pages - 1) * kv.page_size
+        for li in kv.paged_layers:
+            kv.bufs_a[li][last, used:] = float("nan")
+            kv.bufs_b[li][last, used:] = float("nan")
+    dead = [p for p in range(1, kv.num_pages) if p not in named]
+    for li in kv.paged_layers:
+        kv.bufs_a[li][dead] = float("nan")
+        kv.bufs_b[li][dead] = float("nan")
+
+
+def sparse_decode_check(result: dict, run: dict, spec) -> None:
+    """The card's plain sparse MLA decode against the same function on the
+    CPU, on the long run's pools of one layer with NaN planted in every
+    dead row: finite, within 1e-4 of the CPU's, the same pages selected;
+    its time beside the paged decode kernel's (row 12) on the same pool."""
+    from ktransformers_tpu_torch.ops import sparse_attention as SA
+    from ktransformers_tpu_torch.ops.cuda.paged_attention import (
+        mla_paged_decode,
+    )
+
+    eng = run["engine"]
+    kv = eng.kv
+    pmax = eng.cfg.max_pages_per_query
+    tables = torch.tensor(np.stack([eng._pad_table(p)
+                                    for p, _ in run["tables"]]),
+                          dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([ln for _, ln in run["tables"]],
+                           dtype=torch.int32, device="cuda")
+    plant_dead_nan(kv, tables.cpu(), lengths.cpu())
+    li = spec.num_layers // 2
+    a = spec.attention
+    g = torch.Generator(device="cuda").manual_seed(5)
+    b = tables.shape[0]
+    qa = torch.randn(b, a.num_heads, a.kv_lora_rank, device="cuda",
+                     generator=g).bfloat16()
+    qp = torch.randn(b, a.num_heads, a.qk_rope_head_dim, device="cuda",
+                     generator=g).bfloat16()
+    planes = kv.planes(li)
+    scale = (a.qk_nope_head_dim + a.qk_rope_head_dim) ** -0.5
+    args = (kv.bufs_a[li], kv.bufs_b[li], None, None, tables, lengths,
+            kv.page_size, SPARSE_BUDGET, scale, "quest", "layer", planes)
+    card = SA.sparse_mla_decode(qa, qp, *args)
+    cpu_args = tuple(t.cpu() if isinstance(t, torch.Tensor) else t
+                     for t in args[:-1]) + (
+        {k: v.cpu() for k, v in planes.items()},)
+    cpu = SA.sparse_mla_decode(qa.cpu(), qp.cpu(), *cpu_args)
+    sel = SA.select_pages(torch.cat([qa, qp], -1), planes, tables, lengths,
+                          kv.page_size, SPARSE_BUDGET)
+    sel_cpu = SA.select_pages(torch.cat([qa, qp], -1).cpu(), cpu_args[-1],
+                              tables.cpu(), lengths.cpu(), kv.page_size,
+                              SPARSE_BUDGET)
+    same = [sorted(x) for x in sel.cpu().tolist()] == [
+        sorted(x) for x in sel_cpu.tolist()]
+    mae, rel = rel_err(card.cpu(), cpu)
+    finite = bool(torch.isfinite(card).all())
+    sparse_ms = time_ms(lambda: SA.sparse_mla_decode(qa, qp, *args),
+                        iters=10)
+    kernel_ms = time_ms(lambda: mla_paged_decode(
+        qa, qp, kv.bufs_a[li], kv.bufs_b[li], tables, lengths, scale),
+        iters=10)
+    rec = dict(rel_err=rel, max_abs_err=mae, finite=finite,
+               same_pages=same, sparse_ms=sparse_ms,
+               paged_decode_kernel_ms=kernel_ms, batch=b,
+               lengths=lengths.tolist(), budget=SPARSE_BUDGET, pmax=pmax)
+    result["sparse_serve"]["decode_check"] = rec
+    log(f"sparse decode card vs CPU (layer {li}, NaN in every dead row): "
+        f"{json.dumps(rec)}")
+    if not (finite and same and rel <= 1e-4):
+        raise AssertionError(f"sparse decode card vs CPU: {rec}")
+
+
+def sparse_serve_run(result: dict, gen) -> None:
+    """Phase `sparse_serve` on phase 5's 27-layer W4A8 DeepSeek-V2-Lite:
+    1. the ServeEngine with a budget of the whole page table (quest /
+       layer) and without, on SPARSE_FULL_LENS prompts + 16 tokens: each
+       held to the single-user tokens by phase 6's near-tie rule, the
+       sparse run launching no paged decode kernel;
+    2. SPARSE_LONG_N prompts of SPARSE_LONG tokens + SPARSE_NEW at a budget
+       of SPARSE_BUDGET pages (quest / layer) against the dense engine:
+       output tok/s and mean TBT of both; the card's sparse decode held to
+       the CPU's on the sparse run's pools with NaN in the dead rows;
+    3. at 2 layers of the same widths: the other anchors and retrievals at
+       a full budget held to the single-user tokens, each also at a budget
+       of 2 pages; the HostOffloadServeEngine with a full budget against
+       the offloaded dense engine."""
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.serving import SchedulerConfig
+
+    spec = gen.spec
+    rec = result["sparse_serve"] = {}
+    rng = np.random.default_rng(801)
+    prompts = [rng.integers(0, spec.vocab_size, n).tolist()
+               for n in SPARSE_FULL_LENS]
+    refs = [single_user_reference(gen, p, 16) for p in prompts]
+    sched = SchedulerConfig(max_batch_size=8, page_size=64,
+                            max_pages_per_query=16)
+    full = {}
+    for name, budget in (("dense", None), ("sparse", 16)):
+        r = sparse_engine_run(gen.params, spec, prompts, 16, sched, budget)
+        r["first_diff"] = [
+            hold_single_user(f"sparse_serve full budget {name} request {i}",
+                             t, ref, gaps)
+            for i, (t, (ref, gaps)) in enumerate(zip(r["tokens"], refs))]
+        full[name] = r
+    if full["sparse"]["launches"].get("mla_paged_decode", 0):
+        raise AssertionError("sparse_serve: the sparse engine launched the "
+                             "paged decode kernel")
+    hold_launches("sparse_serve full budget", full["sparse"], SPARSE_KERNELS,
+                  ())
+    rec["full_budget"] = {k: {kk: v[kk] for kk in (
+        "first_diff", "out_tok_s", "mean_tbt_ms", "launches")}
+        for k, v in full.items()}
+    log(f"sparse_serve full budget: first differences from the single-user "
+        f"tokens dense {full['dense']['first_diff']}, sparse "
+        f"{full['sparse']['first_diff']}; sparse launches "
+        f"{json.dumps(full['sparse']['launches'])}")
+    for r in full.values():
+        r.pop("engine").kv = None
+    del full
+    torch.cuda.empty_cache()
+
+    long_prompts = [rng.integers(0, spec.vocab_size, SPARSE_LONG).tolist()
+                    for _ in range(SPARSE_LONG_N)]
+    sched = SchedulerConfig(max_batch_size=SPARSE_LONG_N, page_size=64,
+                            max_pages_per_query=40)
+    # the published max_position_embeddings (163,840; the preset's 2,048
+    # rope positions end inside these prompts), the same weights
+    long_spec = spec_from_hf_config(dict(bench_model_cfg(),
+                                         max_position_embeddings=163840))
+    long = {}
+    for name, budget in (("dense", None), ("sparse", SPARSE_BUDGET)):
+        long[name] = sparse_engine_run(gen.params, long_spec, long_prompts,
+                                       SPARSE_NEW, sched, budget,
+                                       num_pages=256)
+    agree = [sum(a == b for a, b in zip(x, y)) for x, y in zip(
+        long["dense"]["tokens"], long["sparse"]["tokens"])]
+    rec["partial_budget"] = dict(
+        prompt=SPARSE_LONG, requests=SPARSE_LONG_N, new=SPARSE_NEW,
+        budget=SPARSE_BUDGET, pages_a_prompt=SPARSE_LONG // 64,
+        tokens_equal_dense=agree,
+        **{f"{k}_{m}": long[k][m] for k in long
+           for m in ("out_tok_s", "mean_tbt_ms", "wall_s")},
+        sparse_launches=long["sparse"]["launches"])
+    log(f"sparse_serve partial budget ({SPARSE_BUDGET} of "
+        f"{SPARSE_LONG // 64} pages, {SPARSE_LONG_N} x {SPARSE_LONG} + "
+        f"{SPARSE_NEW}): sparse {long['sparse']['out_tok_s']:.2f} output "
+        f"tok/s, mean TBT {long['sparse']['mean_tbt_ms']:.1f} ms; dense "
+        f"{long['dense']['out_tok_s']:.2f} tok/s, "
+        f"{long['dense']['mean_tbt_ms']:.1f} ms; tokens equal to dense's "
+        f"{agree} of {SPARSE_NEW}")
+    if long["sparse"]["launches"].get("mla_paged_decode", 0):
+        raise AssertionError("sparse_serve: partial budget launched the "
+                             "paged decode kernel")
+    for r in long["sparse"]["tokens"]:
+        if len(r) != SPARSE_NEW or not all(0 <= t < spec.vocab_size
+                                           for t in r):
+            raise AssertionError(f"sparse_serve: bad tokens {r}")
+    # the launches of the main sparse path (kernels line): the full-budget
+    # and the partial-budget runs' sum
+    result["sparse_serve_path"] = dict(
+        launches=long["sparse"]["launches"],
+        routed_launches=long["sparse"]["routed_launches"])
+    sparse_decode_check(result, long["sparse"], spec)
+    for r in long.values():
+        r.pop("engine").kv = None
+    del long
+    torch.cuda.empty_cache()
+    sparse_two_layers(result, rec)
+
+
+def sparse_two_layers(result: dict, rec: dict) -> None:
+    """Step 3 of sparse_serve_run at 2 layers (one dense, one MoE) of
+    DeepSeek-V2-Lite's widths, int4_g weights."""
+    from ktransformers_tpu_torch.engine.generate import Generator
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.offload import (
+        HostOffloadServeEngine,
+        split_params_for_offload,
+    )
+    from ktransformers_tpu_torch.serving import SchedulerConfig
+
+    spec = spec_from_hf_config(dict(bench_model_cfg(), num_hidden_layers=2))
+
+    def drawn():
+        return init_params_synthetic(spec, seed=31, quant="int4_g",
+                                     device="cuda")
+
+    # the offloaded engines' tree split before any repack, the resident
+    # one on its own copy of the same weights
+    dev_params, host = split_params_for_offload(drawn(), spec)
+    gen = Generator(drawn(), spec, max_len=1024, device="cuda")
+    rng = np.random.default_rng(802)
+    prompts = [rng.integers(0, spec.vocab_size, n).tolist()
+               for n in SPARSE_FULL_LENS]
+    refs = [single_user_reference(gen, p, 16) for p in prompts]
+    sched = SchedulerConfig(max_batch_size=8, page_size=64,
+                            max_pages_per_query=16)
+    kinds = {}
+    for anchor, retrieval in SPARSE_KINDS:
+        for budget in (16, 2):
+            r = sparse_engine_run(gen.params, spec, prompts, 16, sched,
+                                  budget, anchor, retrieval)
+            key = f"{anchor}/{retrieval}/{budget}"
+            if budget == 16:
+                r["first_diff"] = [hold_single_user(
+                    f"sparse_serve 2 layers {key} request {i}", t, ref,
+                    gaps) for i, (t, (ref, gaps)) in enumerate(
+                        zip(r["tokens"], refs))]
+            elif r["launches"].get("mla_paged_decode", 0):
+                raise AssertionError(f"sparse_serve {key}: paged decode")
+            kinds[key] = {k: r.get(k) for k in ("first_diff", "out_tok_s")}
+            r.pop("engine").kv = None
+    rec["two_layer_kinds"] = kinds
+    log(f"sparse_serve 2 layers, other anchors / retrievals: "
+        f"{json.dumps(kinds)}")
+    off = {}
+    for name, budget in (("dense", None), ("sparse", 16)):
+        r = sparse_engine_run(
+            dev_params, spec, prompts, 16, sched, budget,
+            engine_cls=lambda p, s, c, **kw: HostOffloadServeEngine(
+                p, s, c, host_layers=host, **kw))
+        off[name] = r
+    diffs = [near_tie_hold(f"sparse_serve offload x sparse request {i}", s,
+                           d, gaps)
+             for i, (s, d, (_, gaps)) in enumerate(zip(
+                 off["sparse"]["tokens"], off["dense"]["tokens"], refs))]
+    if off["sparse"]["launches"].get("mla_paged_decode", 0):
+        raise AssertionError("sparse_serve offload: paged decode kernel")
+    rec["offload"] = dict(first_diff_from_dense=diffs, **{
+        f"{k}_out_tok_s": v["out_tok_s"] for k, v in off.items()})
+    result["sparse_offload_path"] = dict(
+        launches=off["sparse"]["launches"],
+        routed_launches=off["sparse"]["routed_launches"])
+    log(f"sparse_serve offload x sparse (2 layers, full budget): first "
+        f"difference from the offloaded dense engine {diffs}; "
+        f"{json.dumps(rec['offload'])}")
+    for r in off.values():
+        r.pop("engine").kv = None
+    del gen, dev_params, host, off
+    torch.cuda.empty_cache()
+
+
 def _qtensors(node):
     import dataclasses
 
@@ -6031,6 +6623,12 @@ def main() -> int:
     hold_prep(result, b8=DEEPSEEK_B8_PREPS)
     phase("serve_w4a8")
 
+    # speculation and sparse long-context decode on the same parameters
+    speculation_run(result, gen, rows, entries)
+    phase("speculation")
+    sparse_serve_run(result, gen)
+    phase("sparse_serve")
+
     # the front door: the HTTP server over the same parameters, then the
     # CLI (convert, doctor, serve) on a 2-layer HF directory
     http_serve(result, gen)
@@ -6041,7 +6639,8 @@ def main() -> int:
 
     # the int8 path: every matmul through the quant_matmul kernels
     gen = serve(result, quant="int8", key="serve_int8", requests=2,
-                expect=INT8_SINGLE_USER_KERNELS, unfused_last=True)
+                expect=INT8_SINGLE_USER_KERNELS, unfused_last=True,
+                cfg=dict(bench_model_cfg(), num_hidden_layers=INT8_LAYERS))
     int8_step_launches(result, gen)
     paged_serve(result, gen, key="paged_serve_int8", depths=(3,),
                 expect=INT8_PAGED_KERNELS)
@@ -6186,6 +6785,12 @@ def main() -> int:
         "single_user_offload": result["serve_offload"],
         "paged_serve_offload": result["paged_serve_offload"],
         "single_user_streamed": result["single_user_streamed"],
+        "speculative": result["speculation"]["speculative"],
+        "draft_spec": result["speculation"]["draft_spec"],
+        "mtp": result["speculation"]["mtp"],
+        "mtp_fused": result["speculation"]["mtp_fused"],
+        "sparse_serve": result["sparse_serve_path"],
+        "sparse_offload": result["sparse_offload_path"],
     }
     paths = {k: dict(r["launches"]) for k, r in runs.items()}
     # the redesigned kernels: launches of their wrappers' calls that took them
@@ -6305,7 +6910,20 @@ def main() -> int:
             *((k, ("paged_serve_offload",))
               for k in ("mla_paged_decode", "mla_paged_prefill")),
             *((k, ("single_user_streamed",))
-              for k in ("gathered_quant_matmul", "quant_gemv_kernel"))):
+              for k in ("gathered_quant_matmul", "quant_gemv_kernel")),
+            # speculation: the verify step's k + 1 rows on the tensor-core
+            # kernels, the one-token draft steps on the GEMVs and row 5;
+            # the MTP head's decode attention on row 6
+            *((k, ("speculative", "draft_spec"))
+              for k in SPEC_KERNELS + SPEC_ROUTED),
+            *((k, ("mtp", "mtp_fused")) for k in MTP_KERNELS + MTP_ROUTED),
+            # sparse serving: rows 1-4 and the paged prefill (row 14); the
+            # sparse decode in plain PyTorch where row 12 ran
+            *((k, ("sparse_serve",))
+              for k in SPARSE_KERNELS + ("mla_prefill_mma_kernel",)),
+            *((k, ("sparse_offload",))
+              for k in ("dense_w4a8_matmul", "dense_w4a8_ffn",
+                        "mla_paged_prefill"))):
         idle = [k for k in keys if paths[k].get(kernel, 0) <= 0]
         if idle:
             raise AssertionError(f"{kernel} launched on no call of {idle}")

@@ -7,6 +7,13 @@ updated IN PLACE (models/paged.py writes into them); a PagedKVCache is a
 handle on buffers, not a value. A hybrid model's GatedDeltaNet layers hold
 no pages: their two buffers are O(1) state per slot (``linear_slots`` rows,
 the engine's decode-batch slots).
+
+With ``summaries`` every page pool also keeps float32 key summaries a page
+for sparse decode (ops/sparse_attention.py): smin / smax [P, R + Dr] (MLA:
+the [ckv | k_pe] latent) or [P, Hkv, D] (GQA), and the plane its anchor
+reads (ssum for block_mean, sfix for fixed, sdyn for dynamic), one a layer.
+models/paged.py updates them in place with every page write;
+``reset_page_summaries`` clears recycled pages.
 """
 
 from __future__ import annotations
@@ -30,6 +37,22 @@ class PagedKVCache:
     bufs_b: list
     page_size: int = 64
     linear_layers: tuple = ()  # layers whose buffers are slot state
+    # per-page key summaries for sparse decode, a list of one tensor a
+    # layer each, or None (dense only)
+    smin: list | None = None
+    smax: list | None = None
+    ssum: list | None = None
+    sfix: list | None = None
+    sdyn: list | None = None
+
+    PLANES = ("smin", "smax", "ssum", "sfix", "sdyn")
+    FILL = {"smin": torch.inf, "smax": -torch.inf}
+
+    def planes(self, li: int) -> dict | None:
+        """Layer li's summary planes by name (the present ones), or None
+        without summaries."""
+        names = [n for n in self.PLANES if getattr(self, n) is not None]
+        return {n: getattr(self, n)[li] for n in names} if names else None
 
     @property
     def paged_layers(self) -> list:
@@ -44,17 +67,23 @@ class PagedKVCache:
     @staticmethod
     def create(spec: ModelSpec, num_pages: int, page_size: int = 64,
                dtype=torch.bfloat16, summaries: bool = False,
-               device="cuda", linear_slots: int = 8) -> "PagedKVCache":
+               device="cuda", linear_slots: int = 8,
+               anchor: str = "quest") -> "PagedKVCache":
+        """Zeroed pools; with ``summaries`` the smin / smax planes (+inf /
+        -inf) and, for ``anchor`` block_mean / fixed / dynamic, its zeroed
+        ssum / sfix / sdyn plane."""
         a = spec.attention
-        if summaries:
-            raise NotImplementedError(
-                "PagedKVCache: per-page key summaries for sparse decode are "
-                "not ported (ROADMAP Queue 1 item 9)")
+        if summaries and spec.hybrid:
+            raise ValueError("sparse page summaries with hybrid "
+                             "linear-attention layers: not supported "
+                             "together (as in the JAX package)")
         if a.kind == "mla":
             sa = (num_pages, page_size, a.kv_lora_rank)
             sb = (num_pages, page_size, a.qk_rope_head_dim)
+            sp = (num_pages, a.kv_lora_rank + a.qk_rope_head_dim)
         else:
             sa = sb = (num_pages, page_size, a.num_kv_heads, a.head_dim)
+            sp = (num_pages, a.num_kv_heads, a.head_dim)
         bufs_a, bufs_b, linear = [], [], []
         for li in range(spec.num_layers):
             if spec.layer_kind(li) == "linear":
@@ -69,8 +98,30 @@ class PagedKVCache:
             else:
                 bufs_a.append(torch.zeros(sa, dtype=dtype, device=device))
                 bufs_b.append(torch.zeros(sb, dtype=dtype, device=device))
+        wanted = ()
+        if summaries:
+            wanted = ("smin", "smax") + tuple(
+                n for n, kind in (("ssum", "block_mean"), ("sfix", "fixed"),
+                                  ("sdyn", "dynamic")) if anchor == kind)
+        planes = {n: [torch.full(sp, PagedKVCache.FILL.get(n, 0.0),
+                                 dtype=torch.float32, device=device)
+                      for _ in range(spec.num_layers)] for n in wanted}
         return PagedKVCache(bufs_a=bufs_a, bufs_b=bufs_b,
-                            page_size=page_size, linear_layers=tuple(linear))
+                            page_size=page_size, linear_layers=tuple(linear),
+                            **planes)
+
+    def reset_page_summaries(self, pids) -> "PagedKVCache":
+        """Clear the summaries of freshly (re)allocated pages in place: a
+        previous occupant's extremes would loosen the selection bounds.
+        Returns self."""
+        if self.smin is None:
+            return self
+        idx = torch.as_tensor(list(pids), dtype=torch.int64,
+                              device=self.smin[0].device)
+        for n in self.PLANES:
+            for plane in getattr(self, n) or ():
+                plane[idx] = self.FILL.get(n, 0.0)
+        return self
 
     def bytes_per_page(self) -> int:
         """Bytes one page id holds over all paged layers (both pools)."""

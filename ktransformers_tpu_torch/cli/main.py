@@ -63,16 +63,24 @@ def cmd_chat(a) -> None:
         load_tokenizer,
     )
 
-    if a.speculative_model:
-        raise NotImplementedError(
-            "--speculative-model: draft-model speculation is not ported "
-            "(ROADMAP Queue 1 item 8)")
     spec, params = _load(a)
     tok = load_tokenizer(a.model_path, a.tokenizer_path)
+    draft = None
+    if a.speculative_model:
+        # the draft model takes the target's kinds; greedy turns then run
+        # draft-model speculation (engine/draft_spec.py)
+        from ktransformers_tpu_torch.engine.generate import Generator
+
+        d_spec, d_params = _load(argparse.Namespace(
+            **{**vars(a), "model_path": a.speculative_model,
+               "config_path": None, "placement_yaml": None}))
+        draft = Generator(d_params, d_spec, max_len=a.max_len, batch=1,
+                          device=a.device)
     try:
         chat_loop(spec, params, tok, max_len=a.max_len,
                   max_new_tokens=a.max_new_tokens,
-                  temperature=a.temperature, top_p=a.top_p, device=a.device)
+                  temperature=a.temperature, top_p=a.top_p, draft=draft,
+                  device=a.device)
     except ValueError as e:  # a prompt past the vocabulary
         raise CliError(str(e)) from e
 
@@ -105,6 +113,9 @@ def build_engine(sc, device: str):
     engine = engine_cls(params, spec, sc.scheduler_config(),
                         num_pages=sc.num_pages,
                         enable_prefix_cache=sc.enable_prefix_cache,
+                        sparse_budget=sc.sparse_budget,
+                        sparse_anchor=sc.sparse_anchor or "quest",
+                        sparse_retrieval=sc.sparse_retrieval or "layer",
                         device=device)
     if not sc.offload:  # the offloaded engine keeps its depth of 1
         engine.decode_pipeline_depth = sc.decode_pipeline_depth
@@ -478,7 +489,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top-p", type=float, default=0.95)
     p.add_argument("--max-len", type=int, default=4096)
     p.add_argument("--speculative-model", default=None,
-                   help="draft model (not ported: ROADMAP item 8)")
+                   help="a smaller draft model with the same vocabulary: "
+                   "greedy turns (--temperature 0) run draft-model "
+                   "speculation (engine/draft_spec.py)")
     p.set_defaults(fn=cmd_chat)
 
     p = sub.add_parser("serve", help="OpenAI / Ollama-compatible server")

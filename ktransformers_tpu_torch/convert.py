@@ -22,10 +22,15 @@ their fields only and imports nothing from the JAX package. Handled:
   a gated q_proj is twice as wide inside the fused qkv.
 
 ``paged_cache_from_jax(kv, spec, device)`` carries a JAX PagedKVCache (MLA
-or GQA pools, and a hybrid model's conv tails [slots, K, conv_dim] and
-float32 recurrent states [slots, Hv, dk, dv], numpy leaves) across, so a
-run can prefill on one side and continue on the other. Scheduler, allocator and prefix cache hold only Python state and
-need no conversion.
+or GQA pools, their page summaries for sparse decode where it keeps them,
+and a hybrid model's conv tails [slots, K, conv_dim] and float32 recurrent
+states [slots, Hv, dk, dv], numpy leaves) across, so a run can prefill on
+one side and continue on the other. Scheduler, allocator and prefix cache
+hold only Python state and need no conversion.
+
+``mtp_params_from_jax(tree, spec, device)`` carries a JAX MTP head
+(engine/mtp.py: enorm, hnorm, eh_proj, the decoder layer, final_norm)
+across through the same machinery.
 """
 
 from __future__ import annotations
@@ -138,15 +143,35 @@ def paged_cache_from_jax(kv, spec: ModelSpec, device="cuda") -> PagedKVCache:
     """The JAX package's PagedKVCache after ``jax.device_get`` (bufs_a /
     bufs_b lists of numpy arrays, page_size) as the port's, on device; the
     ``spec`` it was made for marks which layers hold slot state (a hybrid
-    model's linear layers). Page summaries for sparse decode are not
-    ported and raise."""
-    if any(getattr(kv, n, None) is not None
-           for n in ("smin", "smax", "ssum", "sfix", "sdyn")):
-        raise ValueError("page summaries (sparse decode) are not ported")
+    model's linear layers); the summary planes (smin, smax, ssum, sfix,
+    sdyn, float32, one a layer) cross where the cache keeps them."""
+    planes = {}
+    for n in PagedKVCache.PLANES:
+        leaves = getattr(kv, n, None)
+        if leaves is not None:
+            planes[n] = [tensor_from_numpy(t, device) for t in leaves]
     return PagedKVCache(
         bufs_a=[tensor_from_numpy(a, device) for a in kv.bufs_a],
         bufs_b=[tensor_from_numpy(b, device) for b in kv.bufs_b],
         page_size=int(kv.page_size),
         linear_layers=tuple(li for li in range(spec.num_layers)
                             if spec.layer_kind(li) == "linear"),
+        **planes,
     )
+
+
+MTP_KEYS = ("enorm", "hnorm", "eh_proj", "layer", "final_norm")
+
+
+def mtp_params_from_jax(tree, spec: ModelSpec, device="cuda") -> dict:
+    """A JAX MTP head after ``jax.device_get`` as the port's, on device:
+    the norms and eh_proj as tensors / QTensors, the decoder layer through
+    params_from_jax (a fused projection trimmed as a model layer's)."""
+    missing = [k for k in MTP_KEYS if k not in tree]
+    if missing:
+        raise ValueError(f"not an MTP head: no {missing}")
+    out = params_from_jax({"layers": [tree["layer"]],
+                           **{k: tree[k] for k in MTP_KEYS if k != "layer"}},
+                          spec, device)
+    out["layer"] = out.pop("layers")[0]
+    return out

@@ -55,11 +55,16 @@ class Generator:
                               self.cache_dtype, self.device)
 
     @torch.no_grad()
-    def _forward(self, tokens, cache, logits_last_only=False):
+    def _forward(self, tokens, cache, logits_last_only=False,
+                 return_hidden=False):
+        """forward() over this Generator's params, rope tables and compute
+        dtype: (logits, cache), plus the hidden states with
+        return_hidden."""
         return forward(self.params, self.spec, tokens, cache,
                        rope_tables=self.rope_tables,
                        compute_dtype=self.compute_dtype,
-                       logits_last_only=logits_last_only)
+                       logits_last_only=logits_last_only,
+                       return_hidden=return_hidden)
 
     def prefill(self, cache: KVCache, tokens: torch.Tensor,
                 chunk: int = 256):

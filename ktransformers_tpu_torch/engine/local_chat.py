@@ -173,10 +173,10 @@ def render_prompt(tokenizer, messages) -> list[int]:
 def chat_loop(spec, params, tokenizer, max_len: int = 4096,
               max_new_tokens: int = 512, temperature: float = 0.6,
               top_p: float = 0.95, draft=None, device="cuda"):
-    """Interactive loop on stdin / stdout until an empty line or EOF."""
-    if draft is not None:
-        raise NotImplementedError(
-            "draft-model speculation is not ported (ROADMAP Queue 1 item 8)")
+    """Interactive loop on stdin / stdout until an empty line or EOF. With
+    ``draft`` (a Generator sharing the vocabulary) greedy turns run
+    draft-model speculation (engine/draft_spec.draft_generate), whose
+    tokens are the greedy ones."""
     gen = Generator(params, spec, max_len=max_len, batch=1, device=device)
     history = []
     print("ktransformers-tpu chat — empty line to exit", flush=True)
@@ -204,7 +204,16 @@ def chat_loop(spec, params, tokenizer, max_len: int = 4096,
             max_new_tokens=max_new_tokens,
             sampling=SamplingConfig(temperature=temperature, top_p=top_p),
             eos_token_id=getattr(tokenizer, "eos_token_id", None))
-        out = gen.generate([ids], cfg, on_token=on_token)[0]
+        if draft is not None and temperature <= 0:
+            from ktransformers_tpu_torch.engine.draft_spec import (
+                draft_generate,
+            )
+
+            out, _ = draft_generate(gen, draft, list(ids), cfg)
+            for t in out:
+                on_token([t])
+        else:
+            out = gen.generate([ids], cfg, on_token=on_token)[0]
         dt = time.perf_counter() - t0
         print(f"\n[{len(out)} tokens, {len(out) / dt:.1f} tok/s]",
               file=sys.stderr)

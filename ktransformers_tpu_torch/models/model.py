@@ -442,10 +442,14 @@ def decoder_layer(lp, spec: ModelSpec, x, layer_cache, lengths, rope_cs,
 
 def forward(params, spec: ModelSpec, tokens: torch.Tensor, cache: KVCache,
             rope_tables=None, compute_dtype=torch.bfloat16,
-            logits_last_only: bool = False, remat: bool = False):
+            logits_last_only: bool = False, remat: bool = False,
+            return_hidden: bool = False):
     """One pass over S new tokens per sequence (positions cache.lengths +
     arange(S)). Returns (logits [B, S, V] or [B, 1, V] with
-    logits_last_only, cache); the cache is updated in place. With remat
+    logits_last_only, cache), and with return_hidden the pre-final-norm
+    hidden states [B, S, H] of every position as a third value (what an
+    MTP draft head consumes, engine/mtp.py); the cache is updated in
+    place. With remat
     (and gradients recorded) each decoder layer keeps only its input for
     the backward and runs again there: activation memory of one layer
     instead of all, for a second forward of every layer."""
@@ -473,6 +477,7 @@ def forward(params, spec: ModelSpec, tokens: torch.Tensor, cache: KVCache,
         else:
             x, buf_a, buf_b = decoder_layer(*args)
         cache.bufs_a[li], cache.bufs_b[li] = buf_a, buf_b
+    hidden = x
     x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
     if logits_last_only:
         x = x[:, -1:, :]
@@ -482,4 +487,6 @@ def forward(params, spec: ModelSpec, tokens: torch.Tensor, cache: KVCache,
     else:
         logits = linear(x, lm_head)
     cache.lengths = cache.lengths + s  # a new tensor: a layer may hold the old
+    if return_hidden:
+        return logits, cache, hidden
     return logits, cache

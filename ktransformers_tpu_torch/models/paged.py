@@ -28,9 +28,16 @@ fused mixed step refuses a hybrid model, as in the JAX package. A windowed
 layer (smallthinker) hands its window to the paged kernels; a NoPE layer
 skips rope; qwen3-next's attention output is gated.
 
-Not ported, each raising NotImplementedError: the sparse page budget
-(ROADMAP Queue 1 item 9) and routing collection for expert re-placement
-(item 11).
+Sparse long-context decode (ops/sparse_attention.py): where the cache
+keeps page summaries, every step updates them, in place, with the keys it
+writes (padding rows into the trash page 0); with ``sparse_budget`` each
+decode row (S == 1, and on GQA layers without a window) attends only the
+top-``sparse_budget`` pages its anchor scores select, in plain PyTorch,
+instead of the paged decode kernel; prefill chunks stay dense. A budget
+without summaries raises.
+
+Not ported: routing collection for expert re-placement (ROADMAP Queue 1
+item 11), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -59,11 +66,32 @@ from ktransformers_tpu_torch.ops.cuda.paged_attention import (
 )
 from ktransformers_tpu_torch.ops.linear import linear, plinear
 from ktransformers_tpu_torch.ops.norm import rms_norm
+from ktransformers_tpu_torch.ops.sparse_attention import (
+    ANCHOR_PLANE,
+    check_sparse_kinds,
+    sparse_gqa_decode,
+    sparse_mla_decode,
+    update_page_summaries_cfg,
+)
 from ktransformers_tpu_torch.ops.rope import (
     apply_rope,
     precompute_rope_tables,
     rope_attention_scale,
 )
+
+
+def _page_ids(page_tables, lengths, s: int, page_size: int, valid=None):
+    """(pid, pos) [B, S]: the page and position of each new row; rows
+    j >= valid[b] (padding) go to page 0, the trash page, and the table
+    index is clamped into the table before the lookup."""
+    dev = page_tables.device
+    pos = lengths.to(torch.int64)[:, None] + torch.arange(s, device=dev)[None]
+    pidx = torch.clamp(pos // page_size, 0, page_tables.shape[1] - 1)
+    pid = torch.gather(page_tables.to(torch.int64), 1, pidx)  # [B, S]
+    if valid is not None:
+        keep = torch.arange(s, device=dev)[None, :] < valid[:, None]
+        pid = torch.where(keep, pid, torch.zeros_like(pid))
+    return pid, pos
 
 
 def _write_pages(buf, new, page_tables, lengths, page_size, valid=None):
@@ -73,20 +101,42 @@ def _write_pages(buf, new, page_tables, lengths, page_size, valid=None):
     ``valid`` [B] (optional): rows j >= valid[b] are padding (bucketed
     prefill chunks). Their writes are redirected to page 0 (the serving
     engine's trash page) at slot pos % page; several may land on one slot,
-    in no defined order, which is harmless only there. The table index is
-    clamped into the table before the lookup."""
+    in no defined order, which is harmless only there."""
     b, s = new.shape[:2]
-    dev = buf.device
-    pos = lengths.to(torch.int64)[:, None] + torch.arange(s, device=dev)[None]
-    pidx = torch.clamp(pos // page_size, 0, page_tables.shape[1] - 1)
-    pid = torch.gather(page_tables.to(torch.int64), 1, pidx)  # [B, S]
+    pid, pos = _page_ids(page_tables, lengths, s, page_size, valid)
     slot = pos % page_size
-    if valid is not None:
-        keep = torch.arange(s, device=dev)[None, :] < valid[:, None]
-        pid = torch.where(keep, pid, torch.zeros_like(pid))
     buf[pid.reshape(-1), slot.reshape(-1)] = new.reshape(
         b * s, *new.shape[2:]).to(buf.dtype)
     return buf
+
+
+def _summarize(summ, keys, page_tables, lengths, page_size, valid=None):
+    """Fold the keys [B, S, ...] just written into the layer's summary
+    planes (in place), when the cache keeps them."""
+    if summ is not None:
+        pid, pos = _page_ids(page_tables, lengths, keys.shape[1], page_size,
+                             valid)
+        update_page_summaries_cfg(summ, keys, pid, pos, page_size)
+
+
+def _sparse_mla(q_nope, q_pe, bufs, summ, tables, lengths, page_size, scale,
+                sparse):
+    """Sparse MLA decode of rows [B, H, R] / [B, H, Dr] over the pages
+    their anchors select: [B, H, 1, R] float32."""
+    budget, anchor, retrieval = sparse
+    return sparse_mla_decode(
+        q_nope.to(torch.float32), q_pe.to(torch.float32), bufs[0], bufs[1],
+        summ["smin"], summ["smax"], tables, lengths + 1, page_size, budget,
+        scale, anchor=anchor, retrieval=retrieval, planes=summ)[:, :, None]
+
+
+def _sparse_gqa(q, bufs, summ, tables, lengths, page_size, scale, sparse):
+    """Sparse GQA decode of rows q [B, H, D]: [B, H, D] float32."""
+    budget, anchor, retrieval = sparse
+    return sparse_gqa_decode(
+        q, bufs[0], bufs[1], summ["smin"], summ["smax"], tables, lengths + 1,
+        page_size, budget, scale, anchor=anchor, retrieval=retrieval,
+        planes=summ)
 
 
 def _scale(spec: ModelSpec) -> float:
@@ -119,8 +169,11 @@ def _unabsorb(p, spec: ModelSpec, ctx, dtype):
 
 
 def _mla_paged(p, spec: ModelSpec, x, bufs, page_tables, lengths, rope_cs,
-               page_size, valid=None):
-    """x [B, S, d] -> (attention output [B, S, d], (buf_a, buf_b))."""
+               page_size, valid=None, summ=None, sparse=None):
+    """x [B, S, d] -> (attention output [B, S, d], (buf_a, buf_b)); the
+    layer's summary planes ``summ`` (or None) take the new keys, and with
+    ``sparse`` (budget, anchor, retrieval) a decode step attends the pages
+    they select."""
     a = spec.attention
     b, s, _ = x.shape
     h, r = a.num_heads, a.kv_lora_rank
@@ -132,8 +185,14 @@ def _mla_paged(p, spec: ModelSpec, x, bufs, page_tables, lengths, rope_cs,
     buf_a = _write_pages(bufs[0], ckv, page_tables, lengths, page_size, valid)
     buf_b = _write_pages(bufs[1], k_pe, page_tables, lengths, page_size,
                          valid)
+    _summarize(summ, torch.cat([ckv, k_pe], -1), page_tables, lengths,
+               page_size, valid)
     scale = _scale(spec)
-    if s == 1:
+    if s == 1 and sparse is not None:
+        ctx = _sparse_mla(q_nope_eff[:, :, 0], q_pe[:, :, 0], (buf_a, buf_b),
+                          summ, page_tables, lengths, page_size, scale,
+                          sparse)
+    elif s == 1:
         # the kernel's lengths include the token just written
         ctx = mla_paged_decode(
             q_nope_eff[:, :, 0].contiguous(), q_pe[:, :, 0].contiguous(),
@@ -149,11 +208,13 @@ def _mla_paged(p, spec: ModelSpec, x, bufs, page_tables, lengths, rope_cs,
 
 def _mla_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
                      pre_table, pre_length, pre_valid, dec_rope_cs,
-                     pre_rope_cs, page_size, b_dec, s_pre):
+                     pre_rope_cs, page_size, b_dec, s_pre, summ=None,
+                     sparse=None):
     """Mixed-step MLA attention: ONE projection / output pass over the
     concatenated decode + prefill rows [1, B + C*S, d]; the attention core
-    splits into mla_paged_decode (B rows) and mla_paged_prefill (C chunks
-    of S tokens, distinct queries)."""
+    splits into mla_paged_decode (B rows; the sparse decode with
+    ``sparse``) and mla_paged_prefill (C chunks of S tokens, distinct
+    queries)."""
     a = spec.attention
     h, r, dr = a.num_heads, a.kv_lora_rank, a.qk_rope_head_dim
     hd = a.qk_nope_head_dim + dr
@@ -181,11 +242,20 @@ def _mla_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
                          pre_valid)
     buf_b = _write_pages(buf_b, kpe_p, pre_table, pre_length, page_size,
                          pre_valid)
+    _summarize(summ, torch.cat([ckv_d, kpe_d], -1), dec_tables, dec_lengths,
+               page_size)
+    _summarize(summ, torch.cat([ckv_p, kpe_p], -1), pre_table, pre_length,
+               page_size, pre_valid)
 
     scale = _scale(spec)
-    ctx_d = mla_paged_decode(
-        qn_d[:, :, 0].contiguous(), qpe_d[:, :, 0].contiguous(), buf_a, buf_b,
-        dec_tables, dec_lengths + 1, scale)[:, :, None]  # [B, H, 1, R]
+    if sparse is not None:
+        ctx_d = _sparse_mla(qn_d[:, :, 0], qpe_d[:, :, 0], (buf_a, buf_b),
+                            summ, dec_tables, dec_lengths, page_size, scale,
+                            sparse)
+    else:
+        ctx_d = mla_paged_decode(
+            qn_d[:, :, 0].contiguous(), qpe_d[:, :, 0].contiguous(), buf_a,
+            buf_b, dec_tables, dec_lengths + 1, scale)[:, :, None]
     ctx_p = mla_paged_prefill(
         qn_p.contiguous(), qpe_p.contiguous(), buf_a, buf_b, pre_table,
         pre_length, pre_valid, scale)  # [C, H, S, R]
@@ -198,14 +268,21 @@ def _mla_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
 
 
 def _gqa_paged(p, spec: ModelSpec, x, bufs, page_tables, lengths, rope_cs,
-               page_size, valid=None, use_rope: bool = True, window: int = 0):
+               page_size, valid=None, use_rope: bool = True, window: int = 0,
+               summ=None, sparse=None):
     """x [B, S, d] -> (attention output [B, S, d], (k pages, v pages));
-    ``use_rope`` / ``window`` are the layer's."""
+    ``use_rope`` / ``window`` are the layer's; ``summ`` / ``sparse`` as
+    in _mla_paged (a windowed layer keeps the paged decode kernel)."""
     b, s, _ = x.shape
     q, k, v, gate = gqa_project_rope(p, spec, x, rope_cs, use_rope)
     buf_a = _write_pages(bufs[0], k, page_tables, lengths, page_size, valid)
     buf_b = _write_pages(bufs[1], v, page_tables, lengths, page_size, valid)
-    if s == 1:
+    _summarize(summ, k, page_tables, lengths, page_size, valid)
+    if s == 1 and sparse is not None and window == 0:
+        out = _sparse_gqa(q[:, :, 0], (buf_a, buf_b), summ, page_tables,
+                          lengths, page_size, gqa_scale(spec), sparse)
+        out = out.to(x.dtype).reshape(b, 1, -1)
+    elif s == 1:
         # the kernel's lengths include the token just written
         out = gqa_paged_decode(q[:, :, 0].contiguous(), buf_a, buf_b,
                                page_tables, lengths + 1, gqa_scale(spec),
@@ -223,10 +300,12 @@ def _gqa_paged(p, spec: ModelSpec, x, bufs, page_tables, lengths, rope_cs,
 def _gqa_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
                      pre_table, pre_length, pre_valid, dec_rope_cs,
                      pre_rope_cs, page_size, b_dec, s_pre,
-                     use_rope: bool = True, window: int = 0):
+                     use_rope: bool = True, window: int = 0, summ=None,
+                     sparse=None):
     """Mixed-step GQA attention (see _mla_paged_mixed): ONE projection /
     output pass over the B + C*S rows; the attention core splits into
-    gqa_paged_decode (B rows) and gqa_paged_prefill (C chunks of S)."""
+    gqa_paged_decode (B rows; the sparse decode with ``sparse`` on a layer
+    without a window) and gqa_paged_prefill (C chunks of S)."""
     a = spec.attention
     h, hkv, d = a.num_heads, a.num_kv_heads, a.head_dim
     c_pre = pre_table.shape[0]
@@ -250,11 +329,18 @@ def _gqa_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
                          pre_valid)
     buf_b = _write_pages(buf_b, v_p, pre_table, pre_length, page_size,
                          pre_valid)
+    _summarize(summ, k_d, dec_tables, dec_lengths, page_size)
+    _summarize(summ, k_p, pre_table, pre_length, page_size, pre_valid)
 
     scale = gqa_scale(spec)
-    out_d = gqa_paged_decode(q_d[:, :, 0].contiguous(), buf_a, buf_b,
-                             dec_tables, dec_lengths + 1, scale,
-                             window)  # [B, H, D]
+    if sparse is not None and window == 0:
+        out_d = _sparse_gqa(q_d[:, :, 0], (buf_a, buf_b), summ, dec_tables,
+                            dec_lengths, page_size, scale,
+                            sparse).to(rows.dtype)
+    else:
+        out_d = gqa_paged_decode(q_d[:, :, 0].contiguous(), buf_a, buf_b,
+                                 dec_tables, dec_lengths + 1, scale,
+                                 window)  # [B, H, D]
     out_p = gqa_paged_prefill(q_p.contiguous(), buf_a, buf_b, pre_table,
                               pre_length, pre_valid, scale,
                               window)  # [C, H, S, D]
@@ -273,11 +359,23 @@ def _lm_head(params, x):
     return linear(x, lm_head)
 
 
-def _reject_sparse(sparse_budget) -> None:
-    if sparse_budget is not None:
-        raise NotImplementedError(
-            "sparse page-budget decode is not ported (ROADMAP Queue 1 "
-            "item 9)")
+def sparse_args(kv: PagedKVCache, spec: ModelSpec, budget, anchor: str,
+                retrieval: str):
+    """(budget, anchor, retrieval) for the attention calls, or None without
+    a budget; raises ValueError for a budget the cache keeps no summaries
+    for (the anchor's plane included) or kinds the attention does not
+    take."""
+    if budget is None:
+        return None
+    check_sparse_kinds(anchor, retrieval, spec.attention.kind)
+    plane = ANCHOR_PLANE.get(anchor, "smin")
+    if kv.smin is None or getattr(kv, plane) is None:
+        raise ValueError(
+            f"sparse_budget with the {anchor} anchor needs a cache made "
+            f"with summaries=True, anchor={anchor!r} (no {plane} plane)")
+    if budget < 1:
+        raise ValueError(f"sparse_budget {budget} < 1")
+    return (int(budget), anchor, retrieval)
 
 
 @torch.no_grad()
@@ -285,7 +383,9 @@ def forward_paged_mixed(params, spec: ModelSpec, dec_tokens, pre_tokens,
                         kv: PagedKVCache, dec_tables, dec_lengths, pre_table,
                         pre_length, pre_valid, rope_tables=None,
                         compute_dtype=torch.bfloat16,
-                        sparse_budget: int | None = None):
+                        sparse_budget: int | None = None,
+                        sparse_anchor: str = "quest",
+                        sparse_retrieval: str = "layer"):
     """ONE model pass for a mixed scheduler batch: the decode batch and C
     prefill chunks (distinct queries) share every dense / MoE weights pass.
 
@@ -294,8 +394,13 @@ def forward_paged_mixed(params, spec: ModelSpec, dec_tokens, pre_tokens,
     pre_length [C] tokens already cached per query, pre_valid [C] live
     tokens of each chunk. Returns (dec_logits [B, V], pre_last_logits
     [C, V] at each chunk's last valid row, kv). A hybrid model (linear
-    layers) raises: its engine runs decode and prefill apart."""
-    _reject_sparse(sparse_budget)
+    layers) raises: its engine runs decode and prefill apart. With
+    ``sparse_budget`` the decode rows attend the top pages by their
+    ``sparse_anchor`` scores (``sparse_retrieval``: a page set a sequence,
+    a query head (MLA) or a KV head (GQA)); the chunks stay dense and
+    update the summaries."""
+    sparse = sparse_args(kv, spec, sparse_budget, sparse_anchor,
+                         sparse_retrieval)
     if spec.hybrid:
         raise ValueError("forward_paged_mixed: the fused mixed step does "
                          "not run hybrid linear-attention layers")
@@ -325,9 +430,11 @@ def forward_paged_mixed(params, spec: ModelSpec, dec_tokens, pre_tokens,
         args = (lp["attn"], spec, xn, (kv.bufs_a[li], kv.bufs_b[li]),
                 dec_tables, dec_lengths, pre_table, pre_length, pre_valid,
                 dec_rope, pre_rope, kv.page_size, b, s)
+        summ = kv.planes(li)
         attn_out, (kv.bufs_a[li], kv.bufs_b[li]) = (
-            _mla_paged_mixed(*args) if mla else _gqa_paged_mixed(
-                *args, spec.layer_uses_rope(li), spec.layer_window(li)))
+            _mla_paged_mixed(*args, summ, sparse) if mla
+            else _gqa_paged_mixed(*args, spec.layer_uses_rope(li),
+                                  spec.layer_window(li), summ, sparse))
         rows = res + attn_out
         res = rows
         xn = rms_norm(rows, lp["post_attn_norm"], spec.rms_norm_eps)
@@ -347,7 +454,9 @@ def forward_paged(params, spec: ModelSpec, tokens, kv: PagedKVCache,
                   page_tables, lengths, rope_tables=None,
                   compute_dtype=torch.bfloat16, logits_last_only: bool = True,
                   valid=None, collect_routing: bool = False,
-                  sparse_budget: int | None = None, slots=None):
+                  sparse_budget: int | None = None,
+                  sparse_anchor: str = "quest",
+                  sparse_retrieval: str = "layer", slots=None):
     """tokens [B, S] at positions lengths[b] + arange(S); page_tables
     [B, Pmax] int32; lengths [B] int32 tokens already cached.
 
@@ -357,9 +466,12 @@ def forward_paged(params, spec: ModelSpec, tokens, kv: PagedKVCache,
     untouched and, with logits_last_only, the logits row is taken at
     position valid[b] - 1. ``slots`` [B] int64 (hybrid models): the state
     row of each batch row in the linear layers' buffers, arange(B) when
-    None (the decode batch's rows are its slots). Returns (logits [B, 1 or
-    S, V], kv); the pools and states are updated in place."""
-    _reject_sparse(sparse_budget)
+    None (the decode batch's rows are its slots). ``sparse_*`` as in
+    forward_paged_mixed, for a decode step (S == 1). Returns (logits
+    [B, 1 or S, V], kv); the pools, states and summaries are updated in
+    place."""
+    sparse = sparse_args(kv, spec, sparse_budget, sparse_anchor,
+                         sparse_retrieval)
     if collect_routing:
         raise NotImplementedError(
             "collect_routing (expert re-placement statistics) is not ported "
@@ -389,12 +501,13 @@ def forward_paged(params, spec: ModelSpec, tokens, kv: PagedKVCache,
             bufs[1][slots] = rec
         elif mla:
             attn_out, _ = _mla_paged(lp["attn"], spec, xn, bufs, page_tables,
-                                     lengths, rope_cs, kv.page_size, valid)
+                                     lengths, rope_cs, kv.page_size, valid,
+                                     kv.planes(li), sparse)
         else:
             attn_out, _ = _gqa_paged(
                 lp["attn"], spec, xn, bufs, page_tables, lengths, rope_cs,
                 kv.page_size, valid, spec.layer_uses_rope(li),
-                spec.layer_window(li))
+                spec.layer_window(li), kv.planes(li), sparse)
         x = res + attn_out
         res = x
         xn = rms_norm(x, lp["post_attn_norm"], spec.rms_norm_eps)

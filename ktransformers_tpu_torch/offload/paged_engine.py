@@ -12,8 +12,10 @@ package; unlike the JAX package, a mixed batch takes the fused mixed step,
 whose one pass makes one hop a layer for the decode batch and its prefill
 chunks together.
 
-The sparse page budget raises, naming ROADMAP Queue 1 item 9, whose port
-brings its offloaded counterpart too.
+The sparse page budget (``sparse_budget``, ``sparse_anchor``,
+``sparse_retrieval``) works as in the ServeEngine: the summary planes
+travel with the pools through the same forward_paged, so the offloaded
+layers update them and select pages exactly as the resident ones do.
 """
 
 from __future__ import annotations
@@ -31,10 +33,6 @@ class HostOffloadServeEngine(ServeEngine):
                  cfg: SchedulerConfig = SchedulerConfig(),
                  host_layers: dict | None = None,
                  transfer_dtype=torch.bfloat16, **kw):
-        if kw.get("sparse_budget") is not None:
-            raise NotImplementedError(
-                "sparse page-budget decode is not ported, offloaded or not "
-                "(ROADMAP Queue 1 item 9)")
         params, self.host = offload_params(params, spec, host_layers,
                                            transfer_dtype)
         super().__init__(params, spec, cfg, **kw)

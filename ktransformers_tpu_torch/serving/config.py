@@ -3,9 +3,10 @@
 
 Loadable from JSON, or YAML through PyYAML imported when the file is not
 JSON (``serve --config-file server.json``); command-line flags override
-file values and unknown keys are refused. The port's engine does not take
-the sparse page budget (ROADMAP Queue 1 item 9) or routing collection
-(item 11): a config that asks for them raises when it is made.
+file values and unknown keys are refused. The sparse page budget and its
+anchor / retrieval reach the engine (the kinds are checked when the config
+is made); the port's engine does not take routing collection (ROADMAP
+Queue 1 item 11): a config that asks for it raises when it is made.
 """
 
 from __future__ import annotations
@@ -46,9 +47,9 @@ class ServerConfig:
 
     # features
     offload: bool = False  # routed experts computed in host memory
-    sparse_budget: int | None = None  # top-K-page decode (not ported)
-    sparse_anchor: str = "quest"
-    sparse_retrieval: str = "layer"
+    sparse_budget: int | None = None  # top-K-page decode attention
+    sparse_anchor: str = "quest"  # page-summary anchor kind
+    sparse_retrieval: str = "layer"  # retrieval granularity
     collect_routing: bool = False  # routing stats (not ported)
     rebalance_interval_steps: int = 0
     decode_pipeline_depth: int = 3  # in-flight decode steps (engine)
@@ -88,12 +89,19 @@ class ServerConfig:
         return cls(**data)
 
     def __post_init__(self):
-        """Refuse a feature the port's engines do not have."""
-        if (self.sparse_budget is not None or self.sparse_anchor != "quest"
-                or self.sparse_retrieval != "layer"):
-            raise NotImplementedError(
-                "sparse_* (top-K-page decode attention) is not ported "
-                "(ROADMAP Queue 1 item 9)")
+        """Refuse a sparse kind that does not exist and a feature the
+        port's engines do not have."""
+        from ktransformers_tpu_torch.ops.sparse_attention import (
+            ANCHOR_KINDS,
+            RETRIEVAL_KINDS,
+        )
+
+        if self.sparse_anchor not in ANCHOR_KINDS:
+            raise ValueError(f"sparse_anchor {self.sparse_anchor!r}: one of "
+                             f"{ANCHOR_KINDS}")
+        if self.sparse_retrieval not in RETRIEVAL_KINDS:
+            raise ValueError(f"sparse_retrieval {self.sparse_retrieval!r}: "
+                             f"one of {RETRIEVAL_KINDS}")
         if self.collect_routing or self.rebalance_interval_steps:
             raise NotImplementedError(
                 "collect_routing / expert re-placement is not ported "

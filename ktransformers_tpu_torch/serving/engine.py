@@ -32,9 +32,16 @@ off and spilling refused for such a model, a slot's state is zeroed before
 its query's first prefill chunk, the decode batch's inactive rows leave
 theirs untouched (``valid``) and decode and prefill run as separate steps.
 
-Not ported, the constructor raises when asked: the sparse page budget
-(ROADMAP Queue 1 item 9), routing collection with expert re-placement
-(item 11).
+Sparse long-context decode (``sparse_budget``, ``sparse_anchor``,
+``sparse_retrieval``; ops/sparse_attention.py): the pools keep page
+summaries, which every step updates; decode rows attend the top pages of
+their anchor scores, in the decode-only step and in the fused mixed step
+alike. Pages the allocator hands out are collected and their summaries
+reset before the next step's launches, so a recycled page never carries
+its previous occupant's extremes into a bound.
+
+Not ported, the constructor raises when asked: routing collection with
+expert re-placement (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from ktransformers_tpu_torch.engine.sampler import sample, sample_batched
 from ktransformers_tpu_torch.models.paged import (
     forward_paged,
     forward_paged_mixed,
+    sparse_args,
 )
 from ktransformers_tpu_torch.models.spec import ModelSpec
 from ktransformers_tpu_torch.ops.rope import precompute_rope_tables
@@ -90,15 +98,13 @@ class ServeEngine:
                  enable_prefix_cache: bool = True,
                  spill_tier=None,  # cache/tiers.py HostDiskTier
                  collect_routing: bool = False,
-                 sparse_budget: int | None = None, device="cuda"):
+                 sparse_budget: int | None = None,
+                 sparse_anchor: str = "quest",
+                 sparse_retrieval: str = "layer", device="cuda"):
         if collect_routing:
             raise NotImplementedError(
                 "collect_routing / apply_expert_rebalance are not ported "
                 "(ROADMAP Queue 1 item 11)")
-        if sparse_budget is not None:
-            raise NotImplementedError(
-                "sparse page-budget decode is not ported (ROADMAP Queue 1 "
-                "item 9)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.device = torch.device(device)
@@ -115,9 +121,23 @@ class ServeEngine:
             enable_prefix_cache = False
         self.kv = PagedKVCache.create(spec, num_pages, cfg.page_size,
                                       dtype=cache_dtype, device=self.device,
-                                      linear_slots=cfg.max_batch_size)
+                                      linear_slots=cfg.max_batch_size,
+                                      summaries=sparse_budget is not None,
+                                      anchor=sparse_anchor)
+        # raises for kinds the attention does not take
+        sparse_args(self.kv, spec, sparse_budget, sparse_anchor,
+                    sparse_retrieval)
+        self.sparse_budget = sparse_budget
+        self.sparse_anchor = sparse_anchor
+        self.sparse_retrieval = sparse_retrieval
+        # pages handed out since the last step, whose summaries are reset
+        # before the next launch
+        self._stale_summary_pages: list[int] = []
         # page 0 = trash page for padding-row writes (see PageAllocator)
-        self.alloc = PageAllocator(num_pages, reserved=1)
+        self.alloc = PageAllocator(
+            num_pages, reserved=1,
+            on_alloc=(self._stale_summary_pages.extend
+                      if sparse_budget is not None else None))
         self.prefix = (
             PrefixCache(
                 self.alloc, cfg.page_size, spill=spill_tier,
@@ -195,8 +215,20 @@ class ServeEngine:
         return b
 
     def _forward_args(self) -> dict:
-        return dict(rope_tables=self.rope_tables,
+        args = dict(rope_tables=self.rope_tables,
                     compute_dtype=self.compute_dtype)
+        if self.sparse_budget is not None:
+            args.update(sparse_budget=self.sparse_budget,
+                        sparse_anchor=self.sparse_anchor,
+                        sparse_retrieval=self.sparse_retrieval)
+        return args
+
+    def _reset_stale_summaries(self) -> None:
+        """Clear the summaries of the pages allocated since the last call
+        (recycled pages carry the previous occupant's keys' extremes)."""
+        if self._stale_summary_pages:
+            self.kv.reset_page_summaries(self._stale_summary_pages)
+            self._stale_summary_pages.clear()
 
     def _sample_decode(self, logits, st, penalized: bool):
         """Next tokens and lengths of the decode batch from its logits
@@ -487,6 +519,8 @@ class ServeEngine:
         decode_qs = (
             self._ensure_decode_pages(plan.decode) if plan.decode else []
         )
+        # after every allocation of this step, before its first launch
+        self._reset_stale_summaries()
         self.timer.stage("dispatch")
         pending = []
         fuse = bool(decode_qs and plan.prefills

@@ -1821,3 +1821,103 @@ def test_plain_expert_products_on_card(cuda, kind, t, dtype):
     assert (dict(LAUNCHES), dict(ROUTED_LAUNCHES)) == before
     assert out.device.type == "cuda" and out.dtype == x.dtype
     assert _rel(out, ref) <= (1e-5 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("m", [4, 5])
+def test_verify_step_shapes(cuda, m):
+    """The speculative verify step's k + 1 = 4 / 5 rows at
+    DeepSeek-V2-Lite's widths: row 1 on w4a8_mma (1e-2, bf16 out), row 3
+    on the FFN's tensor-core kernel and row 2's (k + 1) x 6 gathered rows
+    (1e-2, the FFN kernels' tolerance), each against its plain version."""
+    rng = np.random.default_rng(60 + m)
+    x = _x(rng, m, 2048).bfloat16()
+    w = _w(rng, (2048, 3648))
+    before = ROUTED_LAUNCHES["w4a8_mma_kernel"]
+    out = MM.dense_w4a8_matmul(x.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert ROUTED_LAUNCHES["w4a8_mma_kernel"] == before + 1
+    assert _rel(out, MM.w4a8_matmul_ref(x, w)) <= 1e-2
+    gu, dn = _w(rng, (2048, 2 * 2816)), _w(rng, (2816, 2048))
+    before = ROUTED_LAUNCHES["w4a8_ffn_mma_kernel"]
+    out = F.dense_w4a8_ffn(x.to(cuda), gu.to(cuda), dn.to(cuda))
+    torch.cuda.synchronize()
+    assert ROUTED_LAUNCHES["w4a8_ffn_mma_kernel"] == before + 1
+    assert _rel(out, F.dense_w4a8_ffn_ref(x, gu, dn)) <= 1e-2
+    egu, edn = _w(rng, (8, 2048, 2 * 1408)), _w(rng, (8, 1408, 2048))
+    ids = torch.from_numpy(np.concatenate(
+        [rng.permutation(8)[:6] for _ in range(m)]).astype(np.int32))
+    xr = _x(rng, 6 * m, 2048).bfloat16()
+    out = _counted("gathered_w4a8_ffn", lambda: F.gathered_w4a8_ffn(
+        xr.to(cuda), egu.to(cuda), edn.to(cuda), ids.to(cuda)))
+    assert _rel(out, F.gathered_w4a8_ffn_ref(xr, egu, edn, ids)) <= 1e-2
+
+
+def _summaries(pools, tables, lens, page, shape):
+    """Every anchor's planes over the live keys of a _bf_pool (MLA: the
+    [ckv | k_pe] latent; GQA: the k pool), on the CPU."""
+    from ktransformers_tpu_torch.ops import sparse_attention as SA
+
+    planes = {"smin": torch.full(shape, torch.inf),
+              "smax": torch.full(shape, -torch.inf),
+              "ssum": torch.zeros(shape), "sfix": torch.zeros(shape)}
+    for b, ln in enumerate(lens):
+        pos = torch.arange(ln)
+        pid = tables[b].long()[pos // page]
+        keys = torch.cat([p[pid, pos % page].float() for p in pools], -1)
+        SA.update_page_summaries_cfg(planes, keys[None], pid[None],
+                                     pos[None], page)
+    planes["sdyn"] = planes["sfix"].clone()
+    return planes
+
+
+@pytest.mark.parametrize("retrieval", ["layer", "qhead"])
+@pytest.mark.parametrize("anchor", ["quest", "block_mean", "fixed"])
+def test_sparse_mla_decode_on_the_card(cuda, anchor, retrieval):
+    """The sparse decode (plain PyTorch on both devices) over bf16 pools
+    with NaN in every row past a sequence's length: the card's output is
+    finite and within 1e-4 of the CPU's (float32 sums in another order),
+    over a budget of 3 of 8 pages and of all of them."""
+    from ktransformers_tpu_torch.ops import sparse_attention as SA
+
+    rng = np.random.default_rng(70)
+    page, pmax, lens = 16, 8, [100, 37, 128]
+    (ckv, kpe), tables = _bf_pool(rng, 3, pmax, page, lens, [(64,), (16,)])
+    planes = _summaries((ckv, kpe), tables, lens, page, (ckv.shape[0], 80))
+    qa = _x(rng, 3, 4, 64)
+    qp = _x(rng, 3, 4, 16)
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    for budget in (3, 8):
+        args = (None, None, tables, lengths, page, budget, 0.125, anchor,
+                retrieval)
+        ref = SA.sparse_mla_decode(qa, qp, ckv, kpe, *args, planes)
+        out = SA.sparse_mla_decode(
+            qa.to(cuda), qp.to(cuda), ckv.to(cuda), kpe.to(cuda), None, None,
+            tables.to(cuda), lengths.to(cuda), page, budget, 0.125, anchor,
+            retrieval, {k: v.to(cuda) for k, v in planes.items()})
+        assert torch.isfinite(out).all()
+        assert _rel(out, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("retrieval", ["layer", "kvhead"])
+@pytest.mark.parametrize("anchor", ["quest", "block_max"])
+def test_sparse_gqa_decode_on_the_card(cuda, anchor, retrieval):
+    """As test_sparse_mla_decode_on_the_card, on GQA k / v pools (8 query
+    heads over 2 KV heads of 64)."""
+    from ktransformers_tpu_torch.ops import sparse_attention as SA
+
+    rng = np.random.default_rng(71)
+    page, pmax, lens = 16, 8, [90, 128, 17]
+    (k, v), tables = _bf_pool(rng, 3, pmax, page, lens, [(2, 64), (2, 64)])
+    planes = _summaries((k,), tables, lens, page, (k.shape[0], 2, 64))
+    q = _x(rng, 3, 8, 64)
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    for budget in (3, 8):
+        ref = SA.sparse_gqa_decode(q, k, v, None, None, tables, lengths,
+                                   page, budget, 0.125, anchor, retrieval,
+                                   planes)
+        out = SA.sparse_gqa_decode(
+            q.to(cuda), k.to(cuda), v.to(cuda), None, None, tables.to(cuda),
+            lengths.to(cuda), page, budget, 0.125, anchor, retrieval,
+            {key: t.to(cuda) for key, t in planes.items()})
+        assert torch.isfinite(out).all()
+        assert _rel(out, ref) <= 1e-4

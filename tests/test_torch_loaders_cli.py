@@ -659,11 +659,11 @@ def test_cli_refusals(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr("sys.stdin", io.StringIO("AB\n"))
     assert main(["chat", hf, "--device", "cpu", "--max-len", "64"]) == 1
     assert "vocabulary of 96" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(["chat", hf, "--speculative-model", hf, "--device", "cpu"])
+    # a draft model is taken (tests/test_torch_speculative.py runs it); a
+    # sparse kind that does not exist is refused when the config is made
     cfg = tmp_path / "server.json"
-    cfg.write_text(json.dumps({"sparse_budget": 4}))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    cfg.write_text(json.dumps({"sparse_budget": 4, "sparse_anchor": "x"}))
+    with pytest.raises(ValueError, match="sparse_anchor"):
         main(["serve", hf, "--config-file", str(cfg), "--device", "cpu"])
     assert main(["serve", "--device", "cpu"]) == 1
 

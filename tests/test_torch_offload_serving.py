@@ -189,14 +189,17 @@ def test_offload_engine_matches_jax(transfer):
 
 
 def test_offload_refusals():
-    """The sparse page budget raises naming ROADMAP item 9 (offloaded or
-    not), and a hybrid spec raises before any weight moves."""
+    """A sparse retrieval the attention does not take raises (offloaded as
+    resident; the sparse budget itself is served,
+    tests/test_torch_sparse_attention.py), and a hybrid spec raises before
+    any weight moves."""
     from tests.test_torch_offload import _refusal_cases
 
     _, jp, spec = _draw()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="kvhead"):
         HostOffloadServeEngine(params_from_jax(jp, spec, "cpu"), spec,
-                               _cfg(), sparse_budget=8, **F32)
+                               _cfg(), sparse_budget=8,
+                               sparse_retrieval="kvhead", **F32)
     cfg, what = _refusal_cases()["hybrid"]
     with pytest.raises(ValueError, match=what):
         HostOffloadServeEngine({"layers": []}, spec_from_hf_config(dict(cfg)),

@@ -216,27 +216,37 @@ def test_paged_cache_from_jax_round_trip():
             assert a.dtype == tdtype
             np.testing.assert_array_equal(
                 a.float().numpy(), np.asarray(b.astype(jnp.float32)))
-    with pytest.raises(ValueError, match="summaries"):
-        paged_cache_from_jax(JPagedKVCache.create(
-            jspec(SMALL), 4, 8, dtype=jnp.float32, summaries=True),
-            spec_from_hf_config(SMALL), "cpu")
+    # page summaries cross where the cache keeps them
+    jkv = JPagedKVCache.create(jspec(SMALL), 4, 8, dtype=jnp.float32,
+                               summaries=True, anchor="fixed")
+    out = paged_cache_from_jax(jax.device_get(jkv),
+                               spec_from_hf_config(SMALL), "cpu")
+    assert out.ssum is None and out.sdyn is None
+    for n in ("smin", "smax", "sfix"):
+        for a, b in zip(getattr(out, n), getattr(jkv, n)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def test_unported_paths_raise():
-    """Page summaries (sparse decode) and routing collection raise, naming
-    their ROADMAP items; hybrid linear-attention slots are ported
-    (tests/test_torch_qwen3_next.py)."""
+    """Routing collection raises, naming its ROADMAP item; a sparse budget
+    over a cache without summaries raises (sparse decode itself is ported,
+    tests/test_torch_sparse_attention.py), as do summaries beside hybrid
+    linear-attention slots, which the JAX package refuses too."""
+    from tests.test_torch_qwen3_next import TINY as QNEXT
+
     spec = spec_from_hf_config(SMALL)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PagedKVCache.create(spec, 4, 8, summaries=True, device="cpu")
+    with pytest.raises(ValueError, match="hybrid"):
+        PagedKVCache.create(spec_from_hf_config(dict(QNEXT)), 4, 8,
+                            summaries=True, device="cpu")
     kv = PagedKVCache.create(spec, 4, 8, dtype=torch.float32, device="cpu")
     toks = torch.zeros(1, 1, dtype=torch.int64)
     pt = torch.zeros(1, 2, dtype=torch.int32)
     ln = torch.zeros(1, dtype=torch.int32)
-    for kw, item in ((dict(sparse_budget=2), "item 9"),
-                     (dict(collect_routing=True), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            tpaged.forward_paged({}, spec, toks, kv, pt, ln, **kw)
+    with pytest.raises(ValueError, match="summaries=True"):
+        tpaged.forward_paged({}, spec, toks, kv, pt, ln, sparse_budget=2)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tpaged.forward_paged({}, spec, toks, kv, pt, ln,
+                             collect_routing=True)
 
 
 def test_params_to_copies_the_whole_tree():

@@ -472,12 +472,18 @@ def test_server_config_matches_jax(tmp_path):
     bad.write_text(json.dumps({"max_batch": 3}))
     with pytest.raises(ValueError, match="unknown config keys"):
         ServerConfig.from_file(str(bad))
-    for extra, item in (({"sparse_budget": 8}, "item 9"),
-                        ({"sparse_anchor": "block_max"}, "item 9"),
-                        ({"collect_routing": True}, "item 11")):
+    f = tmp_path / "sparse.json"
+    f.write_text(json.dumps({"sparse_budget": 8,
+                             "sparse_anchor": "block_max"}))
+    t = ServerConfig.from_file(str(f))
+    assert vars(t) == vars(JServerConfig.from_file(str(f)))
+    for extra, err, what in (
+            ({"sparse_anchor": "nearest"}, ValueError, "sparse_anchor"),
+            ({"sparse_retrieval": "token"}, ValueError, "sparse_retrieval"),
+            ({"collect_routing": True}, NotImplementedError, "item 11")):
         f = tmp_path / "unported.json"
         f.write_text(json.dumps(extra))
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(err, match=what):
             ServerConfig.from_file(str(f))
 
 
@@ -518,8 +524,21 @@ def test_chat_loop_submits_the_rendered_template(monkeypatch, capsys):
     lines = iter(["été"])  # codepoints 233: past 128
     with pytest.raises(ValueError, match="vocabulary of 128"):
         local_chat.chat_loop(spec, params, tok, max_len=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        local_chat.chat_loop(spec, params, tok, draft=object(), device="cpu")
+    # with a draft, greedy turns go to draft_generate with the same ids
+    from ktransformers_tpu_torch.engine import draft_spec
+
+    drafted = []
+
+    def fake_draft(target, draft, ids, cfg):
+        drafted.append((draft, ids))
+        return [7], None
+
+    monkeypatch.setattr(draft_spec, "draft_generate", fake_draft)
+    lines = iter(["hi"])
+    sentinel = object()
+    local_chat.chat_loop(spec, params, tok, max_len=64, temperature=0.0,
+                         draft=sentinel, device="cpu")
+    assert drafted == [(sentinel, first)]
 
 
 def test_mmlu_eval_http(servers, tmp_path):

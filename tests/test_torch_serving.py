@@ -425,10 +425,12 @@ def test_entry_points_default_to_the_card_and_refuse_unported(synth):
 
     for fn in (ServeEngine.__init__, PagedKVCache.create, Generator.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    for kw, item in ((dict(collect_routing=True), "item 11"),
-                     (dict(sparse_budget=4), "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            ServeEngine(synth, SPEC, **kw, **F32)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ServeEngine(synth, SPEC, collect_routing=True, **F32)
+    # sparse decode is ported; a retrieval MLA does not take is refused
+    with pytest.raises(ValueError, match="kvhead"):
+        ServeEngine(synth, SPEC, sparse_budget=4, sparse_retrieval="kvhead",
+                    **F32)
     # parameters already on the engine's device are shared, not copied
     qkv = _engine(synth).params["layers"][0]["attn"]["qkv_a"]
     assert qkv.data is synth["layers"][0]["attn"]["qkv_a"].data

@@ -275,7 +275,26 @@ Phases (any failure exits non-zero before the final line):
             (offload_moe_weights) bit-identical to that Generator over 8
             decode steps, and a 256-token chunk within the same bound
             (streamed_check); 2-layer parity card vs CPU; the host's cores,
-            RAM and threads.
+            RAM and threads;
+22. parallel: DeepSeek-V2-Lite at full width cut to PARALLEL_LAYERS = 4
+            (parallel_run): the W4A8 Generator with its shared experts
+            fused into the routed set against the unfused one (256 + 16
+            tokens held by phase 6's rule, 2-layer-style parity rows by
+            moe_parity's rule, dense_w4a8_ffn gone from the MoE layers, a
+            decode step of each timed in turns and profiled); a ServeEngine
+            with collect_routing on 4 requests, apply_expert_rebalance(2),
+            the 4 again, both waves held to the single-user tokens and the
+            second equal to the first; rows 5,
+            12 and 14 at a TP rank's 8 heads (the queries followed by NaN
+            rows); then PARALLEL_RANKS = 2 spawned ranks sharing the card
+            over gloo (no interconnect measured): EP = 2 on W4A8 (a 256-token
+            chunk through the all-to-all, decode through the all-reduce;
+            contiguous and paged) and TP = 2 on int8, each rank's rows held
+            to the single device's by moe_parity's rule (TP's also under the
+            single device's routes, every row within SPREAD_FACTOR times
+            the bf16 rounding spread), its launches, step
+            times and collectives by path printed; a rank that fails or
+            hangs (PARALLEL_JOIN_S) fails the phase.
 The parity phases draw their 2-layer weights on the card and copy them to
 the host (card_drawn), where the host took 7-9 s to draw each.
 Each phase's seconds are logged and kept in chip_smoke.json (phase_s).
@@ -6491,6 +6510,518 @@ def sparse_two_layers(result: dict, rec: dict) -> None:
     torch.cuda.empty_cache()
 
 
+
+# ---------------------------------------------------------------- parallel
+
+PARALLEL_LAYERS = 4  # DeepSeek-V2-Lite's width, its dense layer + 3 MoE
+PARALLEL_PROMPT = 256
+PARALLEL_NEW = 16
+PARALLEL_DECODE = 4  # decode rows of the rank checks after the prompt
+PARALLEL_RANKS = 2  # ranks on the one card (gloo)
+PARALLEL_JOIN_S = 420  # a rank still running then has hung
+PARALLEL_EP_KERNELS = ("dense_w4a8_matmul", "gathered_w4a8_ffn",
+                       "grouped_w4a8_ffn", "dense_w4a8_ffn",
+                       "mla_decode_fused", "mla_paged_decode",
+                       "mla_paged_prefill")
+PARALLEL_TP_KERNELS = ("quant_matmul", "gathered_quant_matmul",
+                       "grouped_quant_matmul", "mla_decode_fused",
+                       "mla_decode_split_kernel")
+
+
+def parallel_cfg(layers: int = PARALLEL_LAYERS) -> dict:
+    return dict(bench_model_cfg(), num_hidden_layers=layers)
+
+
+def decode_step_ms(gens: dict, prompt: list, steps: int = 8) -> dict:
+    """Median wall ms of a single-user decode step (synchronised) of each
+    Generator of ``gens`` after the prompt's first 256 tokens, measured in
+    turns (a, b, b, a: ``steps`` steps a turn) so that a drift of the
+    host's clock meets both alike."""
+    state, times = {}, {name: [] for name in gens}
+    for name, gen in gens.items():
+        cache = gen.new_cache()
+        last, cache = gen.prefill(
+            cache, torch.as_tensor([prompt[:256]], device=gen.device), 256)
+        state[name] = (last.float().argmax(-1)[:, None], cache)
+    for name in list(gens) + list(reversed(list(gens))):
+        tok, cache = state[name]
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = gens[name]._forward(tok, cache)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+        state[name] = (tok, cache)
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def fused_shared_run(result: dict):
+    """Phase parallel, part 1: the W4A8 DeepSeek-V2-Lite (full width, cut to
+    PARALLEL_LAYERS) single-user, its shared experts separate and then fused
+    into the routed set (ops/fuse_shared.py: 2 shared experts of 1408, 8
+    gathered rows a token): greedy tokens held to the unfused run's by
+    phase 6's rule, 2-row parity (float32 compute) by moe_parity's rule,
+    and the launches: no dense_w4a8_ffn in the fused run. Returns the
+    unfused Generator and the spec."""
+    from ktransformers_tpu_torch.engine.generate import Generator
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.ops.cuda import (
+        LAUNCHES,
+        ROUTED_LAUNCHES,
+        reset_launches,
+    )
+    from ktransformers_tpu_torch.ops.fuse_shared import fuse_shared_experts
+
+    t0 = time.perf_counter()
+    cfg = parallel_cfg()
+    spec = spec_from_hf_config(cfg)
+    prompt = np.random.default_rng(400).integers(
+        0, cfg["vocab_size"], PARALLEL_PROMPT).tolist()
+    gen_u = Generator(init_params_synthetic(spec, seed=0, quant="int4_g",
+                                            device="cuda"),
+                      spec, max_len=512, device="cuda")
+    reset_launches()
+    ref, gaps = single_user_reference(gen_u, prompt, PARALLEL_NEW)
+    torch.cuda.synchronize()
+    unfused = dict(LAUNCHES)
+    fused = fuse_shared_experts(init_params_synthetic(
+        spec, seed=0, quant="int4_g", device="cuda"), spec)
+    n_fused = [lp["moe"]["experts"].n_shared_fused
+               for lp in fused["layers"] if "moe" in lp]
+    if n_fused != [2] * (PARALLEL_LAYERS - 1):
+        raise AssertionError(f"fused shared experts: {n_fused}")
+    gen_f = Generator(fused, spec, max_len=512, device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    toks, _ = single_user_reference(gen_f, prompt, PARALLEL_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches, routed_n = dict(LAUNCHES), dict(ROUTED_LAUNCHES)
+    diff = hold_single_user("fused shared experts (vs unfused)", toks, ref,
+                            gaps)
+    moe_layers = PARALLEL_LAYERS - 1
+    if launches["dense_w4a8_ffn"] != 0 \
+            or unfused["dense_w4a8_ffn"] != moe_layers * PARALLEL_NEW \
+            or launches["gathered_w4a8_ffn"] != moe_layers * (
+                PARALLEL_NEW - 1):
+        raise AssertionError(
+            f"fused shared experts: dense_w4a8_ffn {launches['dense_w4a8_ffn']}"
+            f" (unfused {unfused['dense_w4a8_ffn']}), gathered_w4a8_ffn "
+            f"{launches['gathered_w4a8_ffn']}")
+    rows_f, picks_f = routes_of(lambda: parity_rows(gen_f.params, spec,
+                                                    "cuda", 64))
+    rows_u, picks_u = routes_of(lambda: parity_rows(gen_u.params, spec,
+                                                    "cuda", 64))
+    held = hold_routed("parity fused shared vs unfused (card)", rows_f,
+                       picks_f, rows_u, picks_u)
+    step_ms = decode_step_ms({"fused": gen_f, "unfused": gen_u}, prompt)
+    steps = {}
+    for name, gen in (("fused", gen_f), ("unfused", gen_u)):
+        cache = gen.new_cache()
+        last, cache = gen.prefill(
+            cache, torch.as_tensor([prompt], device=gen.device), 256)
+        tok = last.float().argmax(-1)[:, None]
+        gen._forward(tok, cache)
+        before = dict(LAUNCHES)
+        step_wall = wall_ms(lambda: gen._forward(tok, cache))
+        steps[f"{name}_shared_decode_step"] = (
+            step_wall, launch_diff(before, LAUNCHES),
+            kernel_rows(lambda: gen._forward(tok, cache)))
+    profile = summarize_steps(steps)
+    result["parallel_fused_shared"] = dict(
+        launches=launches, routed_launches=routed_n,
+        unfused_launches=unfused, n_shared_fused=n_fused, first_diff=diff,
+        tokens=toks[:8], wall_s=wall, decode_step_ms=step_ms, parity=held,
+        profile=profile, seconds=time.perf_counter() - t0)
+    log(f"parallel fused shared: {PARALLEL_LAYERS} layers, tokens equal up "
+        f"to {diff}, dense_w4a8_ffn {unfused['dense_w4a8_ffn']} -> 0, "
+        f"gathered_w4a8_ffn {unfused['gathered_w4a8_ffn']} -> "
+        f"{launches['gathered_w4a8_ffn']}, decode step ms {step_ms}")
+    del gen_f, fused
+    torch.cuda.empty_cache()
+    return gen_u, spec
+
+
+def rebalance_serve(result: dict, gen, spec) -> None:
+    """Phase parallel, part 2: a ServeEngine with collect_routing serves 4
+    requests, apply_expert_rebalance(ep_size=2) re-places every MoE layer's
+    experts from the counted routing, and the same requests again: both
+    waves held to the single-user tokens by phase 6's rule, and the second
+    wave's tokens equal to the first's (the same rows go through the same
+    experts, and each token's k products are summed in route order, so a
+    re-placement changes no bit); the second wave's launches are the
+    path's."""
+    from ktransformers_tpu_torch.ops.cuda import (
+        LAUNCHES,
+        ROUTED_LAUNCHES,
+        reset_launches,
+    )
+    from ktransformers_tpu_torch.serving import SchedulerConfig, ServeEngine
+
+    t0 = time.perf_counter()
+    vocab = spec.vocab_size
+    prompts = [np.random.default_rng(500 + i).integers(0, vocab, n).tolist()
+               for i, n in enumerate((256, 192, 128, 64))]
+    refs = [single_user_reference(gen, p, PARALLEL_NEW) for p in prompts]
+    eng = ServeEngine(gen.params, spec, SchedulerConfig(
+        max_batch_size=4, max_pages_per_query=8), num_pages=64,
+        enable_prefix_cache=False, collect_routing=True, device="cuda")
+
+    def wave(tag):
+        qs = [eng.submit(p, max_new_tokens=PARALLEL_NEW) for p in prompts]
+        steps = 0
+        while any(q.state != "done" for q in qs):
+            eng.step()
+            steps += 1
+            if steps > 500:
+                raise AssertionError(f"rebalance {tag} did not finish")
+        outs = [list(q.output_ids) for q in qs]
+        for i, (got, (ref, gaps)) in enumerate(zip(outs, refs)):
+            hold_single_user(f"rebalance {tag} request {i}", got, ref, gaps)
+        return outs
+
+    before = wave("before")
+    counted = int(eng.stats.counts.sum())
+    eng.apply_expert_rebalance(ep_size=2)
+    moved = sum(
+        1 for lp in eng.params["layers"] if "moe" in lp and not torch.equal(
+            lp["moe"]["experts"].logical_to_physical.cpu(),
+            torch.arange(spec.moe.num_experts, dtype=torch.int32)))
+    if counted <= 0 or moved == 0:
+        raise AssertionError(f"rebalance: {counted} routed ids counted, "
+                             f"{moved} layers re-placed")
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    after = wave("after")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    if before != after:
+        raise AssertionError(f"rebalance: tokens before {before} and after "
+                             f"{after} the re-placement differ")
+    result["parallel_rebalance"] = dict(
+        launches=dict(LAUNCHES), routed_launches=dict(ROUTED_LAUNCHES),
+        counted=counted, moved_layers=moved, wall_s=wall,
+        seconds=time.perf_counter() - t0)
+    log(f"parallel rebalance: {counted} routed ids counted over "
+        f"{eng.stats.counts.shape[0]} layers, {moved} layers re-placed for "
+        f"ep 2, the 4 requests' tokens equal after; second wave "
+        f"{wall:.2f} s")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def rank_rows(params, spec, prompt, paged: bool = False,
+              dtype=torch.bfloat16):
+    """Logits rows [1 + PARALLEL_DECODE, V] (float32, CPU) and the decode
+    steps' wall ms of a run on the card in ``dtype`` (compute and cache):
+    the last position of the prompt (one chunk), then PARALLEL_DECODE steps
+    on fixed tokens; through forward(), or forward_paged() over a 64-token
+    page pool."""
+    from ktransformers_tpu_torch.cache.paged import PagedKVCache
+    from ktransformers_tpu_torch.models.model import KVCache, forward
+    from ktransformers_tpu_torch.models.paged import forward_paged
+
+    n = len(prompt)
+    feed = [t % spec.vocab_size
+            for t in (11, 2222, 33333, 44444, 555)[:PARALLEL_DECODE]]
+    toks = torch.tensor([prompt], device="cuda")
+    times = []
+    if paged:
+        kv = PagedKVCache.create(spec, 16, 64, dtype=dtype, device="cuda")
+        table = torch.arange(1, 9, dtype=torch.int32, device="cuda")[None]
+
+        def step(t, pos):
+            return forward_paged(params, spec, t, kv, table, torch.tensor(
+                [pos], dtype=torch.int32, device="cuda"),
+                compute_dtype=dtype)[0]
+    else:
+        cache = KVCache.create(spec, 1, 512, dtype=dtype, device="cuda")
+
+        def step(t, pos):
+            return forward(params, spec, t, cache, compute_dtype=dtype,
+                           logits_last_only=True)[0]
+    outs = [step(toks, 0)[:, -1].float().cpu()]
+    for i, tok in enumerate(feed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(torch.tensor([[tok]], device="cuda"), n + i)
+        outs.append(logits[:, -1].float().cpu())
+        times.append((time.perf_counter() - t0) * 1e3)
+    return torch.cat(outs), times
+
+
+def forcing_routes(fn, forced=None):
+    """(fn(), routes): fn run with every router call of models/model.py
+    recorded as its [T, k] experts. With ``forced`` (the routes of another
+    run) each call takes the forced call's experts instead, weighted by
+    its own scores (forced_weights), so that the two runs differ by
+    rounding alone."""
+    from ktransformers_tpu_torch.models import model
+
+    route, feed, routes = model.route, iter(forced or ()), []
+
+    def hooked(lg, cfg, bias=None):
+        if forced is None:
+            idx, w = route(lg, cfg, bias)
+        else:
+            idx = next(feed)
+            w = forced_weights(lg, cfg, idx)
+        routes.append(idx)
+        return idx, w
+
+    model.route = hooked
+    try:
+        out = fn()
+    finally:
+        model.route = route
+    if forced is not None and len(routes) != len(forced):
+        raise AssertionError(f"{len(routes)} router calls under "
+                             f"{len(forced)} forced routes")
+    return out, routes
+
+
+def rank_check(what, mesh, params, spec, prompt, impl="psum",
+               paged: bool = False, forced: bool = False) -> dict:
+    """One path on this rank: the single-device run of the full params
+    first (not counted), then this rank's cut under parallel_context(mesh)
+    with the launch counts set to 0 just before and read just after; rows
+    held to the single device's by moe_parity's rule (the all-reduce adds
+    in another order, so a route can flip near a tie). With ``forced``
+    (weights with no activation codes) the cut runs once more under the
+    single device's routes, and every row is held to SPREAD_FACTOR times
+    the rounding spread: the largest row error of the single device in
+    float32 compute under the same routes."""
+    from ktransformers_tpu_torch.ops.cuda import (
+        LAUNCHES,
+        ROUTED_LAUNCHES,
+        reset_launches,
+    )
+    from ktransformers_tpu_torch.parallel.context import parallel_context
+    from ktransformers_tpu_torch.parallel.shardings import (
+        rank_spec,
+        shard_params,
+    )
+
+    (ref, ref_times), ref_picks = routes_of(lambda: rank_rows(
+        params, spec, prompt, paged))
+    local = shard_params(params, spec, mesh)
+    lspec = rank_spec(spec, mesh)
+    torch.cuda.synchronize()
+    mesh.collectives.clear()
+    reset_launches()
+    with parallel_context(mesh, ep_impl=impl):
+        (rows, times), picks = routes_of(lambda: rank_rows(
+            local, lspec, prompt, paged))
+    torch.cuda.synchronize()
+    launches, routed_n = dict(LAUNCHES), dict(ROUTED_LAUNCHES)
+    held = hold_routed(what, rows, picks, ref, ref_picks)
+    if forced:
+        (ref, _), routes = forcing_routes(lambda: rank_rows(
+            params, spec, prompt, paged))
+        (f32, _), _ = forcing_routes(lambda: rank_rows(
+            params, spec, prompt, paged, dtype=torch.float32), routes)
+        spread = float(((f32 - ref).abs().amax(-1)
+                        / ref.abs().amax(-1)).max())
+        with parallel_context(mesh, ep_impl=impl):
+            (rows, _), _ = forcing_routes(lambda: rank_rows(
+                local, lspec, prompt, paged), routes)
+        held["forced"] = dict(hold_rows(
+            rows, ref, f"{what} (one device's routes forced)",
+            SPREAD_FACTOR * spread), spread=spread)
+    return dict(launches=launches, routed_launches=routed_n, held=held,
+                decode_step_ms=statistics.median(times),
+                one_device_step_ms=statistics.median(ref_times),
+                collectives={"/".join(k): v
+                             for k, v in mesh.collectives.items()})
+
+
+def parallel_rank(rank: int, world: int, tmp: str) -> None:
+    """One of the ranks that share the card (spawned by parallel_ranks):
+    gloo group through a file rendezvous in ``tmp``; EP = 2 on the W4A8
+    DeepSeek-V2-Lite (a2a prefill chunk and psum decode, contiguous and
+    paged), then TP = 2 on its int8 weights (8 heads a rank); its record
+    to tmp/rank<r>.json, a failure's traceback to tmp/rank<r>.err."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        from ktransformers_tpu_torch.models.init import init_params_synthetic
+        from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+        from ktransformers_tpu_torch.parallel.distributed import (
+            init_multihost,
+        )
+        from ktransformers_tpu_torch.parallel.mesh import make_mesh
+        from ktransformers_tpu_torch.utils.device_prep import prepare_params
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mesh = init_multihost(dp=1, ep=world, tp=1, backend="gloo",
+                              init_method=f"file://{tmp}/rendezvous",
+                              world_size=world, rank=rank, device="cuda:0",
+                              timeout_s=PARALLEL_JOIN_S / 2)
+        rec = dict(rank=rank, world=world, backend=dist.get_backend(),
+                   card=card_line())
+        cfg = parallel_cfg()
+        spec = spec_from_hf_config(cfg)
+        prompt = np.random.default_rng(600).integers(
+            0, cfg["vocab_size"], PARALLEL_PROMPT).tolist()
+        params = prepare_params(init_params_synthetic(
+            spec, seed=0, quant="int4_g", device="cuda"), spec)
+        rec["ep"] = rank_check(f"rank {rank} EP={world} (a2a chunk, psum "
+                               "decode) vs one device", mesh, params, spec,
+                               prompt, impl="a2a")
+        rec["ep_paged"] = rank_check(f"rank {rank} EP={world} paged vs one "
+                                     "device", mesh, params, spec, prompt,
+                                     impl="a2a", paged=True)
+        del params
+        torch.cuda.empty_cache()
+        tp_mesh = make_mesh(dp=1, ep=1, tp=world, device="cuda:0")
+        params = prepare_params(init_params_synthetic(
+            spec, seed=0, quant="int8", device="cuda"), spec)
+        rec["tp"] = rank_check(f"rank {rank} TP={world} int8 vs one device",
+                               tp_mesh, params, spec, prompt, forced=True)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump(rec, fh)
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def parallel_ranks(result: dict) -> None:
+    """Phase parallel, parts 3 and 4: PARALLEL_RANKS processes (spawn; the
+    kernels were built before) share the one card over gloo, whose CUDA
+    path takes all-reduce and whose other collectives the port copies
+    through the host (parallel/collectives.py): no interconnect is
+    measured. A rank that fails, or runs past PARALLEL_JOIN_S, fails the
+    phase."""
+    import multiprocessing
+    import tempfile
+
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="kt_parallel_") as tmp:
+        procs = [ctx.Process(target=parallel_rank,
+                             args=(r, PARALLEL_RANKS, tmp))
+                 for r in range(PARALLEL_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + PARALLEL_JOIN_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        errs = {}
+        recs = []
+        for r in range(PARALLEL_RANKS):
+            err = os.path.join(tmp, f"rank{r}.err")
+            if os.path.exists(err):
+                with open(err) as fh:
+                    errs[r] = fh.read()
+            out = os.path.join(tmp, f"rank{r}.json")
+            if os.path.exists(out):
+                with open(out) as fh:
+                    recs.append(json.load(fh))
+    if hung or errs or len(recs) != PARALLEL_RANKS \
+            or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(
+            f"parallel ranks: hung {hung}, exit codes "
+            f"{[p.exitcode for p in procs]}, errors {errs}")
+    for rec in recs:
+        # the EP path: its contiguous and its paged run
+        rec["paths"] = {"ep": {
+            k: {n: rec["ep"][k][n] + rec["ep_paged"][k][n]
+                for n in rec["ep"][k]}
+            for k in ("launches", "routed_launches")}, "tp": rec["tp"]}
+        for path, keys in (("ep", PARALLEL_EP_KERNELS),
+                           ("tp", PARALLEL_TP_KERNELS)):
+            counts = {**rec["paths"][path]["launches"],
+                      **rec["paths"][path]["routed_launches"]}
+            missing = [k for k in keys if counts[k] <= 0]
+            if missing:
+                raise AssertionError(f"rank {rec['rank']} {path}: "
+                                     f"{missing} not launched")
+            log(f"parallel rank {rec['rank']} {path.upper()}={rec['world']} "
+                f"({rec['backend']}; {rec['card']}): decode step "
+                f"{rec[path]['decode_step_ms']:.2f} ms (one device, the "
+                f"other rank beside it: "
+                f"{rec[path]['one_device_step_ms']:.2f}), launches "
+                f"{json.dumps({k: v for k, v in counts.items() if v})}, "
+                f"collectives {json.dumps(rec[path]['collectives'])}")
+    result["parallel_ranks"] = dict(ranks=recs,
+                                    seconds=time.perf_counter() - t0)
+
+
+def parallel_run(result: dict, rows: list, entries: dict) -> None:
+    """The phase ``parallel``: fused shared experts, routing statistics
+    with re-placement, the MLA kernels at a TP rank's 8 heads against their
+    plain versions (NaN past every length and in the memory after the
+    queries), then EP and TP over ranks that share the card."""
+    gen, spec = fused_shared_run(result)
+    rebalance_serve(result, gen, spec)
+    del gen
+    torch.cuda.empty_cache()
+    mla_eight_head_checks(rows, entries)
+    torch.cuda.empty_cache()
+    parallel_ranks(result)
+
+
+def mla_eight_head_checks(rows: list, entries: dict) -> None:
+    """Rows 5, 12 and 14 at 8 heads (DeepSeek-V2-Lite's 16 over tp = 2):
+    mla_decode_split_kernel through mla_decode_fused at 512 cached rows,
+    the queries followed in memory by 8 NaN head rows that the kernel's
+    16-row tile must not take; the paged decode and prefill at the serving
+    shapes (paged_kernel_checks at h = 8)."""
+    from ktransformers_tpu_torch.ops.cuda import mla_decode as MD
+    from ktransformers_tpu_torch.ops.rope import (
+        RopeConfig,
+        precompute_rope_tables,
+        rope_rotation_matrix,
+    )
+
+    check = make_check(rows, entries)
+    dev = torch.device("cuda")
+    _, rn, _ = draw(21)
+
+    def guarded(b, h, width):
+        buf = torch.full((b * h + 8, width), float("nan"),
+                         dtype=torch.bfloat16, device=dev)
+        buf[: b * h] = rn(b * h, width)
+        return buf[: b * h].view(b, h, width)
+
+    b, h, r, dr, smax, length = 1, 8, 512, 64, 1024, 512
+    cos, sin = precompute_rope_tables(RopeConfig(dim=dr, max_position=smax,
+                                                 interleaved=True), dev)
+    rot = rope_rotation_matrix(cos[length][None], sin[length][None], True)
+    qn, qp, kv = guarded(b, h, r), guarded(b, h, dr), rn(b, 1, r + dr)
+    gamma = torch.ones(r, device=dev)
+    ckv, kpe = rn(b, smax, r), rn(b, smax, dr)
+    ckv[:, length:] = float("nan")
+    kpe[:, length:] = float("nan")
+    lengths = torch.full((b,), length, dtype=torch.int32, device=dev)
+    args = (qn, qp, kv, gamma, rot, ckv, kpe, lengths, (128 + 64) ** -0.5,
+            1e-6)
+    check("mla_decode_fused", f"tp rank decode H={h} cached={length} "
+          f"S={smax}", 1e-2, lambda: MD.mla_decode_fused(*args),
+          lambda: MD.mla_decode_fused_ref(*args),
+          lambda: MD.mla_launcher(*args),
+          length * (r + dr) * 2 + nbytes(qn, qp, kv) + b * h * r * 2,
+          2 * h * (length + 1) * (2 * r + dr), BF16_FLOPS_PER_S,
+          **routed(MLA_DECODE_ROUTES, MD.route(torch.bfloat16),
+                   lambda: MD.mla_launcher(*args, "fused")))
+    del ckv, kpe
+    paged_kernel_checks(check, rn, dev, h=h, prefix="tp rank ")
+
 def _qtensors(node):
     import dataclasses
 
@@ -6693,6 +7224,11 @@ def main() -> int:
     offload_run(result)
     torch.cuda.empty_cache()
     phase("offload")
+    # fused shared experts, routing statistics and re-placement, then EP
+    # and TP over ranks that share the card
+    parallel_run(result, rows, entries)
+    torch.cuda.empty_cache()
+    phase("parallel")
 
     sources = {
         # plain XLA in the JAX package, no Pallas kernel
@@ -6791,7 +7327,13 @@ def main() -> int:
         "mtp_fused": result["speculation"]["mtp_fused"],
         "sparse_serve": result["sparse_serve_path"],
         "sparse_offload": result["sparse_offload_path"],
+        "parallel_fused_shared": result["parallel_fused_shared"],
+        "parallel_rebalance": result["parallel_rebalance"],
     }
+    # each rank's launches of its EP run (contiguous and paged) and TP run
+    for rec in result["parallel_ranks"]["ranks"]:
+        for path, r in rec["paths"].items():
+            runs[f"parallel_{path}_rank{rec['rank']}"] = r
     paths = {k: dict(r["launches"]) for k, r in runs.items()}
     # the redesigned kernels: launches of their wrappers' calls that took them
     for kernel in ROUTED_KERNELS:
@@ -6923,7 +7465,26 @@ def main() -> int:
               for k in SPARSE_KERNELS + ("mla_prefill_mma_kernel",)),
             *((k, ("sparse_offload",))
               for k in ("dense_w4a8_matmul", "dense_w4a8_ffn",
-                        "mla_paged_prefill"))):
+                        "mla_paged_prefill")),
+            # parallelism: the fused shared experts on rows 1, 2, 4, 5 (row
+            # 3 gone from the MoE layers: held in fused_shared_run); the
+            # re-placed engine on rows 1-4, 12 and 14; every rank's EP run
+            # on the same W4A8 rows and its TP run on rows 9-11 and 5 at 8
+            # heads
+            *((k, ("parallel_fused_shared",))
+              for k in ("dense_w4a8_matmul", "gathered_w4a8_ffn",
+                        "grouped_w4a8_ffn", "mla_decode_fused",
+                        "w4a8_ffn_gemv_kernel")),
+            *((k, ("parallel_rebalance",))
+              for k in ("dense_w4a8_matmul", "gathered_w4a8_ffn",
+                        "dense_w4a8_ffn", "mla_paged_decode",
+                        "mla_paged_prefill")),
+            *((k, tuple(f"parallel_ep_rank{r}"
+                        for r in range(PARALLEL_RANKS)))
+              for k in PARALLEL_EP_KERNELS),
+            *((k, tuple(f"parallel_tp_rank{r}"
+                        for r in range(PARALLEL_RANKS)))
+              for k in PARALLEL_TP_KERNELS)):
         idle = [k for k in keys if paths[k].get(kernel, 0) <= 0]
         if idle:
             raise AssertionError(f"{kernel} launched on no call of {idle}")

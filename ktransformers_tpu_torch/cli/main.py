@@ -116,6 +116,7 @@ def build_engine(sc, device: str):
                         sparse_budget=sc.sparse_budget,
                         sparse_anchor=sc.sparse_anchor or "quest",
                         sparse_retrieval=sc.sparse_retrieval or "layer",
+                        collect_routing=sc.collect_routing,
                         device=device)
     if not sc.offload:  # the offloaded engine keeps its depth of 1
         engine.decode_pipeline_depth = sc.decode_pipeline_depth

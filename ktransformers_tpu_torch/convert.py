@@ -14,9 +14,9 @@ their fields only and imports nothing from the JAX package. Handled:
   not yet repacked (uint8) are both kept as they are, with the flag;
 - every format of quant/formats.py: per-channel scales [..., 1, N], zero
   points, float8_e4m3fn data and uint8 ue8m0 exponents;
-- LoRA adapters: the "<key>_lora" dicts and MoEWeights.lora. Expert
-  parallelism (logical_to_physical, expert_mask) and fused shared experts
-  (n_shared_fused) are not ported and raise rather than being dropped;
+- LoRA adapters: the "<key>_lora" dicts and MoEWeights.lora, and the
+  expert map, mask and fused shared count (logical_to_physical,
+  expert_mask, n_shared_fused);
 - a GatedDeltaNet layer's leaves (conv_w, A_log, dt_bias, norm_w, the bf16
   in_proj_ba, the quantized in_proj_qkvz / out_proj) cross as they are;
   a gated q_proj is twice as wide inside the fused qkv.
@@ -114,15 +114,13 @@ def params_from_jax(tree, spec: ModelSpec | None, device="cuda"):
                 node, device, qkv_cols if key == fkey else None
             )
         if hasattr(node, "gate_up") and hasattr(node, "down"):
-            for f in ("logical_to_physical", "expert_mask"):
-                if getattr(node, f, None) is not None:
-                    raise NotImplementedError(
-                        f"MoEWeights.{f} (expert parallelism) is not ported")
-            if getattr(node, "n_shared_fused", 0):
-                raise NotImplementedError(
-                    "fused shared experts (n_shared_fused) are not ported")
-            return MoEWeights(conv(node.gate_up), conv(node.down),
-                              conv(getattr(node, "lora", None)))
+            return MoEWeights(
+                conv(node.gate_up), conv(node.down),
+                conv(getattr(node, "lora", None)),
+                logical_to_physical=conv(getattr(node, "logical_to_physical",
+                                                 None)),
+                expert_mask=conv(getattr(node, "expert_mask", None)),
+                n_shared_fused=int(getattr(node, "n_shared_fused", 0)))
         if isinstance(node, dict):
             if fkey is None and ("qkv_a" in node or "qkv" in node):
                 raise ValueError("a fused projection needs the model spec")

@@ -8,8 +8,11 @@ float8 as its uint8 bits) and ``manifest.json``: {"statics": {path: node
 record}, "dtypes": {name: dtype name}}. A node record is {"type": "dict",
 "keys"}, {"type": "list", "len"}, {"type": "QTensor", "kind",
 "group_size", "has_scales", "has_zeros"}, {"type": "MoEWeights",
-"has_l2p", "has_mask", "has_lora", "lora_keys"} or {"type": "array"}
-(None leaves too: they have no tensor). What is stored is the tree
+"has_l2p", "has_mask", "has_lora", "lora_keys"} (and, for fused shared
+experts, "n_shared_fused", which the JAX package neither writes nor
+reads) or {"type": "array"} (None leaves too:
+they have no tensor). An expert map and mask are stored as the
+"logical_to_physical" / "expert_mask" leaves of their MoEWeights. What is stored is the tree
 build_params returns, before prepare_params; a prepared tree (W4A8
 offset-lo codes) is refused.
 
@@ -77,12 +80,18 @@ def save_params(params, out_dir: str) -> None:
             return
         if isinstance(node, MoEWeights):
             statics[prefix] = {
-                "type": "MoEWeights", "has_l2p": False, "has_mask": False,
+                "type": "MoEWeights",
+                "has_l2p": node.logical_to_physical is not None,
+                "has_mask": node.expert_mask is not None,
                 "has_lora": node.lora is not None,
                 "lora_keys": sorted(node.lora) if node.lora else [],
             }
+            if node.n_shared_fused:
+                statics[prefix]["n_shared_fused"] = node.n_shared_fused
             record(node.gate_up, prefix + "/gate_up")
             record(node.down, prefix + "/down")
+            leaf(node.logical_to_physical, f"{name}/logical_to_physical")
+            leaf(node.expert_mask, f"{name}/expert_mask")
             for k, v in (node.lora or {}).items():
                 leaf(v, f"{name}/lora/{k}")
             return
@@ -143,7 +152,7 @@ def _read_tree(out_dir: str):
                 if st["has_l2p"] else None,
                 expert_mask=arr(f"{base}/expert_mask")
                 if st["has_mask"] else None,
-                lora=lora)
+                lora=lora, n_shared_fused=st.get("n_shared_fused", 0))
         if kind == "dict":
             return {k: build(f"{prefix}/{k}") for k in st["keys"]}
         if kind == "list":

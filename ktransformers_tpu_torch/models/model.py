@@ -58,6 +58,15 @@ from ktransformers_tpu_torch.ops.rope import (
     rope_attention_scale,
     rope_rotation_matrix,
 )
+from ktransformers_tpu_torch.parallel.collectives import (
+    tp_all_gather,
+    tp_all_reduce,
+)
+from ktransformers_tpu_torch.parallel.context import get_parallel_context
+from ktransformers_tpu_torch.parallel.ep import (
+    moe_forward_ep,
+    moe_forward_ep_a2a,
+)
 
 NEG_INF = -1e30
 
@@ -173,6 +182,21 @@ def mla_qkv_proj(p, spec: ModelSpec, x):
     return q, ckv_kpe
 
 
+def o_proj(p, out):
+    """The attention output projection (and its bias), summed over the
+    tensor-parallel ranks, each of which holds its heads' rows."""
+    return tp_all_reduce(plinear(p, "o_proj", out, p.get("o_bias")))
+
+
+def lm_head_logits(params, x):
+    """Logits of the final hidden states x: the lm_head (its columns
+    gathered over the tensor-parallel ranks) or the tied embedding."""
+    lm_head = params.get("lm_head")
+    if lm_head is None:
+        return x @ params["embed"].to(x.dtype).T
+    return tp_all_gather(linear(x, lm_head))
+
+
 def gqa_qkv_proj(p, spec: ModelSpec, x):
     """Flat q [B, S, H*D] (with gated output [B, S, H*2D], each head's [q |
     gate]), k and v [B, S, Hkv*D], with the projection biases where the
@@ -278,7 +302,7 @@ def _gqa_attention(p, spec: ModelSpec, x, layer_cache, pos_offset, rope_cs,
                   scale=gqa_scale(spec), mask=mask)
     out = gqa_gate(out.transpose(1, 2).reshape(b, s, a.num_heads * a.head_dim),
                    gate)
-    return plinear(p, "o_proj", out, p.get("o_bias")), (k_buf, v_buf)
+    return o_proj(p, out), (k_buf, v_buf)
 
 
 def _mla_attention(p, spec: ModelSpec, x, layer_cache, pos_offset, rope_cs,
@@ -310,7 +334,7 @@ def _mla_attention(p, spec: ModelSpec, x, layer_cache, pos_offset, rope_cs,
         out = torch.einsum(
             "bhr,hrv->bhv", ctx.to(torch.float32), p["w_uv"].to(torch.float32)
         ).to(x.dtype).reshape(b, 1, h * a.v_head_dim)
-        return plinear(p, "o_proj", out, p.get("o_bias")), (ckv_buf, kpe_buf)
+        return o_proj(p, out), (ckv_buf, kpe_buf)
 
     q = q.reshape(b, s, h, nope + dr)
     q_nope, q_pe = q[..., :nope], q[..., nope:]
@@ -342,7 +366,7 @@ def _mla_attention(p, spec: ModelSpec, x, layer_cache, pos_offset, rope_cs,
     out = torch.einsum(
         "bhsr,hrv->bshv", attn.to(torch.float32), p["w_uv"].to(torch.float32)
     ).to(x.dtype).reshape(b, s, h * a.v_head_dim)
-    return plinear(p, "o_proj", out, p.get("o_bias")), (ckv_buf, kpe_buf)
+    return o_proj(p, out), (ckv_buf, kpe_buf)
 
 
 def _dense_mlp(p, spec: ModelSpec, x):
@@ -371,23 +395,59 @@ def _dense_mlp(p, spec: ModelSpec, x):
                                            spec.activation))
 
 
-def _moe_mlp(p, spec: ModelSpec, x, router_x=None):
+def _moe_mlp(p, spec: ModelSpec, x, router_x=None, aux: list | None = None):
     """Routed experts (and the shared expert) of x [B, S, d]; the router
     reads ``router_x`` where given (smallthinker's early router: the layer
-    input), else x."""
+    input), else x. ``aux``, where given, gets this layer's routed ids
+    [B*S, k] (the serving engine's routing statistics). Fused shared
+    experts (ops/fuse_shared.py) ride the routed call as always-selected
+    rows of weight 1, or the sigmoid shared gate's value, and the separate
+    shared FFN then does not run (the JAX package's models/model.py:
+    474-493). Under a parallel context with ep ranks the routed call goes
+    through parallel/ep.py: the all-to-all dispatch where ep_impl is "a2a"
+    and the tokens divide by ep, else the psum combine (:496-516)."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     rflat = flat if router_x is None else router_x.reshape(b * s, d)
     logits = rflat.to(torch.float32) @ p["router_w"].to(torch.float32).T
     topk_idx, topk_w = route(logits, spec.moe.gate, p.get("router_bias_corr"))
-    y = moe_forward(flat, p["experts"], topk_idx, topk_w, spec.activation)
-    if p.get("shared") is not None:
+    if aux is not None:
+        aux.append(topk_idx)
+    experts = p["experts"]
+    n_fused = getattr(experts, "n_shared_fused", 0)
+    ctx = get_parallel_context()
+    ep = ctx.ep_size if ctx is not None else 1
+    gate = None
+    if spec.moe.shared_expert_gate:
+        gate = torch.sigmoid(flat.to(torch.float32)
+                             @ p["shared_gate"].to(torch.float32).T)
+    if n_fused:
+        # the shared experts' slots follow all E routed ones (this rank
+        # holds E / ep of the stored experts under EP)
+        t = topk_idx.shape[0]
+        e_routed = experts.num_experts * ep - n_fused
+        sh_ids = torch.arange(e_routed, e_routed + n_fused,
+                              dtype=topk_idx.dtype,
+                              device=topk_idx.device).expand(t, n_fused)
+        sh_w = (gate.expand(t, n_fused) if gate is not None
+                else torch.ones((t, n_fused), device=topk_w.device))
+        topk_idx = torch.cat([topk_idx, sh_ids], dim=-1)
+        topk_w = torch.cat([topk_w, sh_w.to(topk_w.dtype)], dim=-1)
+    if ep > 1:
+        if ctx.ep_impl == "a2a" and flat.shape[0] % ctx.ep_size == 0:
+            y = moe_forward_ep_a2a(flat, experts, topk_idx, topk_w,
+                                   spec.activation, ctx.mesh,
+                                   pipeline_chunks=ctx.ep_pipeline_chunks)
+        else:
+            y = moe_forward_ep(flat, experts, topk_idx, topk_w,
+                               spec.activation, ctx.mesh)
+    else:
+        y = moe_forward(flat, experts, topk_idx, topk_w, spec.activation)
+    if not n_fused and p.get("shared") is not None:
         y_sh = _dense_mlp(p["shared"], spec, flat)
-        if spec.moe.shared_expert_gate:
+        if gate is not None:
             # qwen2-moe: the shared expert scaled by a sigmoid gate [T, 1]
-            g = torch.sigmoid(flat.to(torch.float32)
-                              @ p["shared_gate"].to(torch.float32).T)
-            y_sh = y_sh * g.to(y_sh.dtype)
+            y_sh = y_sh * gate.to(y_sh.dtype)
         y = y + y_sh
     return y.reshape(b, s, d)
 
@@ -399,12 +459,14 @@ def early_router_input(spec: ModelSpec, x):
     return x if spec.moe is not None and spec.moe.early_router else None
 
 
-def mlp(lp, spec: ModelSpec, xn, router_x=None):
-    """The layer's MoE (its router on ``router_x`` where given) or dense
-    MLP of the normed hidden state xn."""
+def mlp(lp, spec: ModelSpec, xn, router_x=None, aux: list | None = None):
+    """The layer's MoE (its router on ``router_x`` where given; its routed
+    ids appended to ``aux``) or dense MLP of the normed hidden state xn,
+    summed over the tensor-parallel ranks (each holds its share of every
+    intermediate width)."""
     if "moe" in lp:
-        return _moe_mlp(lp["moe"], spec, xn, router_x)
-    return _dense_mlp(lp["mlp"], spec, xn)
+        return tp_all_reduce(_moe_mlp(lp["moe"], spec, xn, router_x, aux))
+    return tp_all_reduce(_dense_mlp(lp["mlp"], spec, xn))
 
 
 def linear_layer_state(p, spec: ModelSpec, xn, conv, rec, valid=None):
@@ -481,11 +543,7 @@ def forward(params, spec: ModelSpec, tokens: torch.Tensor, cache: KVCache,
     x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
     if logits_last_only:
         x = x[:, -1:, :]
-    lm_head = params.get("lm_head")
-    if lm_head is None:
-        logits = x @ params["embed"].to(x.dtype).T
-    else:
-        logits = linear(x, lm_head)
+    logits = lm_head_logits(params, x)
     cache.lengths = cache.lengths + s  # a new tensor: a layer may hold the old
     if return_hidden:
         return logits, cache, hidden

@@ -36,8 +36,11 @@ top-``sparse_budget`` pages its anchor scores select, in plain PyTorch,
 instead of the paged decode kernel; prefill chunks stay dense. A budget
 without summaries raises.
 
-Not ported: routing collection for expert re-placement (ROADMAP Queue 1
-item 11), which raises NotImplementedError.
+``collect_routing`` (forward_paged) also returns each MoE layer's routed
+ids [n_moe_layers, B*S, k], logical ids before any fused shared expert or
+expert map: the serving engine's routing statistics for expert
+re-placement (the JAX package's models/paged.py:774, 798, 890). Under a
+parallel context the layers split and combine as in models/model.py.
 """
 
 from __future__ import annotations
@@ -54,8 +57,10 @@ from ktransformers_tpu_torch.models.model import (
     gqa_scale,
     gqa_split_gate,
     linear_layer_state,
+    lm_head_logits,
     mla_qkv_proj,
     mlp,
+    o_proj,
 )
 from ktransformers_tpu_torch.models.spec import ModelSpec
 from ktransformers_tpu_torch.ops.cuda.paged_attention import (
@@ -64,7 +69,6 @@ from ktransformers_tpu_torch.ops.cuda.paged_attention import (
     mla_paged_decode,
     mla_paged_prefill,
 )
-from ktransformers_tpu_torch.ops.linear import linear, plinear
 from ktransformers_tpu_torch.ops.norm import rms_norm
 from ktransformers_tpu_torch.ops.sparse_attention import (
     ANCHOR_PLANE,
@@ -203,7 +207,7 @@ def _mla_paged(p, spec: ModelSpec, x, bufs, page_tables, lengths, rope_cs,
             q_nope_eff.contiguous(), q_pe.contiguous(), buf_a, buf_b,
             page_tables, lengths, v_arr, scale)
     out = _unabsorb(p, spec, ctx, x.dtype)
-    return plinear(p, "o_proj", out, p.get("o_bias")), (buf_a, buf_b)
+    return o_proj(p, out), (buf_a, buf_b)
 
 
 def _mla_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
@@ -264,7 +268,7 @@ def _mla_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
         [_unabsorb(p, spec, ctx_d, rows.dtype).reshape(b_dec, -1),
          _unabsorb(p, spec, ctx_p, rows.dtype).reshape(c_pre * s_pre, -1)],
         dim=0)[None]  # [1, B + C*S, H*v]
-    return plinear(p, "o_proj", out_rows, p.get("o_bias")), (buf_a, buf_b)
+    return o_proj(p, out_rows), (buf_a, buf_b)
 
 
 def _gqa_paged(p, spec: ModelSpec, x, bufs, page_tables, lengths, rope_cs,
@@ -294,7 +298,7 @@ def _gqa_paged(p, spec: ModelSpec, x, bufs, page_tables, lengths, rope_cs,
                                 lengths, v_arr, gqa_scale(spec), window)
         out = out.transpose(1, 2).reshape(b, s, -1)
     out = gqa_gate(out, gate)
-    return plinear(p, "o_proj", out, p.get("o_bias")), (buf_a, buf_b)
+    return o_proj(p, out), (buf_a, buf_b)
 
 
 def _gqa_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
@@ -349,14 +353,7 @@ def _gqa_paged_mixed(p, spec: ModelSpec, rows, bufs, dec_tables, dec_lengths,
          out_p.transpose(1, 2).reshape(c_pre * s_pre, h * d)],
         dim=0)[None]  # [1, B + C*S, H*D]
     out_rows = gqa_gate(out_rows, gate)
-    return plinear(p, "o_proj", out_rows, p.get("o_bias")), (buf_a, buf_b)
-
-
-def _lm_head(params, x):
-    lm_head = params.get("lm_head")
-    if lm_head is None:
-        return x @ params["embed"].to(x.dtype).T
-    return linear(x, lm_head)
+    return o_proj(p, out_rows), (buf_a, buf_b)
 
 
 def sparse_args(kv: PagedKVCache, spec: ModelSpec, budget, anchor: str,
@@ -445,7 +442,7 @@ def forward_paged_mixed(params, spec: ModelSpec, dec_tokens, pre_tokens,
     pre_last = (b + torch.arange(c, device=dev) * s
                 + torch.clamp(pre_valid.to(torch.int64) - 1, min=0))
     sel = torch.cat([torch.arange(b, device=dev), pre_last])
-    logits = _lm_head(params, x[sel])  # [B + C, V]
+    logits = lm_head_logits(params, x[sel])  # [B + C, V]
     return logits[:b], logits[b:], kv
 
 
@@ -468,14 +465,12 @@ def forward_paged(params, spec: ModelSpec, tokens, kv: PagedKVCache,
     row of each batch row in the linear layers' buffers, arange(B) when
     None (the decode batch's rows are its slots). ``sparse_*`` as in
     forward_paged_mixed, for a decode step (S == 1). Returns (logits
-    [B, 1 or S, V], kv); the pools, states and summaries are updated in
-    place."""
+    [B, 1 or S, V], kv), and with ``collect_routing`` the routed ids
+    [n_moe_layers, B*S, k] as a third value; the pools, states and
+    summaries are updated in place."""
     sparse = sparse_args(kv, spec, sparse_budget, sparse_anchor,
                          sparse_retrieval)
-    if collect_routing:
-        raise NotImplementedError(
-            "collect_routing (expert re-placement statistics) is not ported "
-            "(ROADMAP Queue 1 item 11)")
+    routing = [] if collect_routing else None
     mla = spec.attention.kind == "mla"
     dev = tokens.device
     b, s = tokens.shape
@@ -511,7 +506,7 @@ def forward_paged(params, spec: ModelSpec, tokens, kv: PagedKVCache,
         x = res + attn_out
         res = x
         xn = rms_norm(x, lp["post_attn_norm"], spec.rms_norm_eps)
-        x = res + mlp(lp, spec, xn, router_x)
+        x = res + mlp(lp, spec, xn, router_x, routing)
 
     x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
     if logits_last_only:
@@ -520,4 +515,6 @@ def forward_paged(params, spec: ModelSpec, tokens, kv: PagedKVCache,
             x = x[torch.arange(b, device=dev), last][:, None]
         else:
             x = x[:, -1:, :]
-    return _lm_head(params, x), kv
+    if collect_routing:
+        return lm_head_logits(params, x), kv, torch.stack(routing)
+    return lm_head_logits(params, x), kv

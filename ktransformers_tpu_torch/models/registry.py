@@ -357,7 +357,8 @@ def show_model(name: str) -> dict:
             "(ktransformers_tpu_torch.offload: HostOffloadGenerator / "
             f"HostOffloadServeEngine): ~{host_gb} GB of experts on the host, "
             f"~{device_gb} GB of the rest on the card; or expert "
-            "parallelism across cards (ROADMAP Queue 1 item 11, not ported)")
+            "parallelism across cards (ktransformers_tpu_torch.parallel: "
+            "init_multihost, shard_params, parallel_context)")
         rec["host_gb"] = host_gb
         rec["device_gb"] = device_gb
     return {

@@ -23,9 +23,10 @@ the copy that last read it has completed (its CUDA event), so the gather
 of one matmul overlaps the copy of the other. On the CPU the same gathers
 run with plain copies.
 
-The port's MoEWeights has no logical_to_physical / expert_mask (expert
-parallelism, ROADMAP Queue 1 item 11; convert.params_from_jax refuses
-them), so there is nothing of them to keep here. Expert LoRA factors are
+A layer's logical_to_physical map and expert_mask stay with its
+OffloadedMoEWeights: each call sends the routed ids to their slots and
+gives a masked expert weight 0 (reading slot 0 in its place), as the JAX
+package's offload/experts.py:110, 126-130 does. Expert LoRA factors are
 refused.
 """
 
@@ -86,9 +87,12 @@ class OffloadedMoEWeights:
     down [E, I(/2), K]) and its staging buffers. Not a dataclass, so the
     params tree walkers (params_to, enable_w4a8) leave it as it is."""
 
-    def __init__(self, gate_up: QTensor, down: QTensor):
+    def __init__(self, gate_up: QTensor, down: QTensor,
+                 logical_to_physical=None, expert_mask=None):
         self.gate_up = self._host(gate_up)
         self.down = self._host(down)
+        self.logical_to_physical = logical_to_physical
+        self.expert_mask = expert_mask
         self.intermediate_size = gate_up.out_features // 2
         self._pinned = torch.cuda.is_available()
         self.bytes_streamed = 0  # host -> card bytes so far (all calls)
@@ -137,11 +141,17 @@ class OffloadedMoEWeights:
 def offload_moe_weights(w):
     """A layer's MoEWeights with its experts moved to host memory: the
     OffloadedMoEWeights that ops/moe.py:moe_forward streams from. Refuses
-    expert LoRA factors (the streamed path has no LoRA term)."""
+    expert LoRA factors (the streamed path has no LoRA term) and fused
+    shared experts (their rows would be streamed every call)."""
     if getattr(w, "lora", None) is not None:
         raise ValueError("offload_moe_weights: experts with LoRA factors "
                          "are not offloaded")
-    return OffloadedMoEWeights(w.gate_up, w.down)
+    if getattr(w, "n_shared_fused", 0):
+        raise ValueError("offload_moe_weights: fused shared experts are not "
+                         "offloaded")
+    return OffloadedMoEWeights(w.gate_up, w.down,
+                               getattr(w, "logical_to_physical", None),
+                               getattr(w, "expert_mask", None))
 
 
 def moe_forward_offloaded(x: torch.Tensor, off: OffloadedMoEWeights,
@@ -152,8 +162,9 @@ def moe_forward_offloaded(x: torch.Tensor, off: OffloadedMoEWeights,
     experts' bytes streamed to x's device, then the gathered matmuls there,
     one row per (token, slot), as the JAX package's moe_forward_offloaded
     (every T, prefill too)."""
-    from ktransformers_tpu_torch.ops.moe import gathered_matmul
+    from ktransformers_tpu_torch.ops.moe import gathered_matmul, placed_routes
 
+    topk_idx, topk_weights = placed_routes(off, topk_idx, topk_weights)
     t, k = topk_idx.shape
     inter = off.intermediate_size
     uniq, inv = topk_idx.reshape(t * k).to("cpu", torch.int64).unique(

@@ -136,6 +136,11 @@ def split_params_for_offload(params, spec: ModelSpec):
         if w.lora is not None:
             raise ValueError(f"layer {li}: experts with LoRA factors are "
                              "not offloaded")
+        if w.logical_to_physical is not None or w.expert_mask is not None \
+                or w.n_shared_fused:
+            raise ValueError(f"layer {li}: an expert map, mask or fused "
+                             "shared experts are not offloaded to the host "
+                             "FFN")
         host[li] = HostMoELayer.from_qtensors(w.gate_up, w.down,
                                               spec.activation)
         layers.append({**lp, "moe": moe})

@@ -32,8 +32,14 @@ and compute the call themselves (their ``forward``): an
 OffloadedMoEWeights (offload/experts.py) streams the routed experts to the
 card and runs the gathered path's matmuls there, at every T, as in the JAX
 package (its ops/moe.py:362-367); a HostExperts (offload/host_engine.py)
-runs the C++ expert FFN on the host. Expert parallelism is not ported
-(ROADMAP Queue 1 item 11).
+runs the C++ expert FFN on the host. Before any route, a
+``logical_to_physical`` map sends each routed id to the slot that stores
+its expert (utils/expert_placement.py re-places experts), and an
+``expert_mask`` zeroes the combine weight of every expert it marks as not
+computed here (the JAX package's ops/moe.py:95-110, 266-270, 307-311,
+454-458): on the gather path a masked row reads expert 0, on the sorted
+path it sorts past every group and its rows come back zero. Across ranks
+parallel/ep.py splits the experts and calls moe_forward on each shard.
 """
 
 from __future__ import annotations
@@ -85,11 +91,17 @@ class MoEWeights:
     down: QTensor [E, inter, hidden]; lora: optional per-expert LoRA
     factors {"gate_up_a": [E, hidden, r], "gate_up_b": [E, r, 2 * inter],
     "down_a": [E, inter, r], "down_b": [E, r, hidden]} (alpha / r folded
-    into the a factors)."""
+    into the a factors); logical_to_physical: optional int [E] slot of
+    each logical expert; expert_mask: optional bool [E], True where the
+    expert is computed here; n_shared_fused: shared experts stacked at the
+    END of the expert arrays (ops/fuse_shared.py), always selected."""
 
     gate_up: QTensor
     down: QTensor
     lora: dict | None = None
+    logical_to_physical: torch.Tensor | None = None
+    expert_mask: torch.Tensor | None = None
+    n_shared_fused: int = 0
 
     @property
     def num_experts(self) -> int:
@@ -193,13 +205,34 @@ def grouped_matmul(x: torch.Tensor, w: QTensor,
 
 def moe_dispatch(topk_idx: torch.Tensor, num_experts: int):
     """Sort (token, expert) pairs by expert: (sort_order [T*k],
-    token_of_row [T*k], group_sizes [E] int32)."""
+    token_of_row [T*k], group_sizes [E] int32). An id of num_experts (a
+    masked expert) sorts after every group and is in no group's count."""
     k = topk_idx.shape[1]
     flat = topk_idx.reshape(-1).to(torch.int64)
     sort_order = torch.argsort(flat, stable=True)
     token_of_row = sort_order // k
-    group_sizes = torch.bincount(flat, minlength=num_experts).to(torch.int32)
+    group_sizes = torch.bincount(flat, minlength=num_experts + 1)[
+        :num_experts].to(torch.int32)
     return sort_order, token_of_row, group_sizes
+
+
+def placed_routes(weights, topk_idx: torch.Tensor,
+                  topk_weights: torch.Tensor, masked_id: int | None = 0):
+    """(ids, weights) after the expert map and mask of ``weights``: each
+    logical id sent to its slot, and a masked expert's weight set to 0 and
+    its id to ``masked_id`` (0 on the gather path, E on the sorted path;
+    None keeps it, for the EP shards, which dispatch it and add zero)."""
+    ids = topk_idx
+    if weights.logical_to_physical is not None:
+        ids = weights.logical_to_physical.to(topk_idx.device)[
+            topk_idx.long()].to(topk_idx.dtype)
+    if weights.expert_mask is not None:
+        local = weights.expert_mask.to(ids.device)[ids.long()]
+        topk_weights = torch.where(local, topk_weights,
+                                   torch.zeros_like(topk_weights))
+        if masked_id is not None:
+            ids = torch.where(local, ids, torch.full_like(ids, masked_id))
+    return ids, topk_weights
 
 
 def _gather_lora_add(h, inp, lora: dict, name: str, ids):
@@ -266,7 +299,11 @@ def moe_forward(x: torch.Tensor, weights: MoEWeights, topk_idx: torch.Tensor,
     t, d = x.shape
     k = topk_idx.shape[1]
     if t <= DECODE_GATHER_MAX_TOKENS:
+        topk_idx, topk_weights = placed_routes(weights, topk_idx,
+                                               topk_weights)
         return _moe_forward_gather(x, weights, topk_idx, topk_weights, act)
+    topk_idx, topk_weights = placed_routes(weights, topk_idx, topk_weights,
+                                           weights.num_experts)
     gu, dn, lora = weights.gate_up, weights.down, weights.lora
     sort_order, token_of_row, group_sizes = moe_dispatch(
         topk_idx, weights.num_experts
@@ -301,6 +338,7 @@ def moe_forward_dense_reference(x: torch.Tensor, weights: MoEWeights,
                                 ) -> torch.Tensor:
     """Every expert for every token, on the dequantized float32 weights
     (the JAX package's moe_forward_dense_reference). For tests only."""
+    topk_idx, topk_weights = placed_routes(weights, topk_idx, topk_weights)
     inter = weights.intermediate_size
     gu = dequantize(weights.gate_up, torch.float32)
     dn = dequantize(weights.down, torch.float32)

@@ -5,8 +5,9 @@ Loadable from JSON, or YAML through PyYAML imported when the file is not
 JSON (``serve --config-file server.json``); command-line flags override
 file values and unknown keys are refused. The sparse page budget and its
 anchor / retrieval reach the engine (the kinds are checked when the config
-is made); the port's engine does not take routing collection (ROADMAP
-Queue 1 item 11): a config that asks for it raises when it is made.
+is made); so does routing collection. ``rebalance_interval_steps`` is taken
+as the JAX package takes it, and no engine reads it (re-placement is
+``ServeEngine.apply_expert_rebalance``).
 """
 
 from __future__ import annotations
@@ -50,8 +51,8 @@ class ServerConfig:
     sparse_budget: int | None = None  # top-K-page decode attention
     sparse_anchor: str = "quest"  # page-summary anchor kind
     sparse_retrieval: str = "layer"  # retrieval granularity
-    collect_routing: bool = False  # routing stats (not ported)
-    rebalance_interval_steps: int = 0
+    collect_routing: bool = False  # routing stats for expert re-placement
+    rebalance_interval_steps: int = 0  # taken as in JAX; no engine reads it
     decode_pipeline_depth: int = 3  # in-flight decode steps (engine)
 
     # observability
@@ -89,8 +90,8 @@ class ServerConfig:
         return cls(**data)
 
     def __post_init__(self):
-        """Refuse a sparse kind that does not exist and a feature the
-        port's engines do not have."""
+        """Refuse a sparse kind that does not exist and a re-placement
+        interval without the statistics it reads."""
         from ktransformers_tpu_torch.ops.sparse_attention import (
             ANCHOR_KINDS,
             RETRIEVAL_KINDS,
@@ -102,10 +103,6 @@ class ServerConfig:
         if self.sparse_retrieval not in RETRIEVAL_KINDS:
             raise ValueError(f"sparse_retrieval {self.sparse_retrieval!r}: "
                              f"one of {RETRIEVAL_KINDS}")
-        if self.collect_routing or self.rebalance_interval_steps:
-            raise NotImplementedError(
-                "collect_routing / expert re-placement is not ported "
-                "(ROADMAP Queue 1 item 11)")
 
     def scheduler_config(self):
         from ktransformers_tpu_torch.serving.scheduler import SchedulerConfig

@@ -40,8 +40,16 @@ alike. Pages the allocator hands out are collected and their summaries
 reset before the next step's launches, so a recycled page never carries
 its previous occupant's extremes into a bound.
 
-Not ported, the constructor raises when asked: routing collection with
-expert re-placement (ROADMAP Queue 1 item 11).
+Routing statistics (``collect_routing``): each decode-only step also
+returns its MoE layers' routed ids, and when its tokens are read back the
+active rows' ids are counted in ``stats`` (utils/expert_placement.py
+ExpertStatsCollector), as the JAX package's engine counts them (its
+serving/engine.py:50, 146-157, 567-571; prefill chunks are not counted, and
+the fused mixed step, which returns no ids, is off).
+``apply_expert_rebalance(ep_size)`` drains the pipeline and stores every
+MoE layer's experts in the frequency-balanced order for ep_size ranks
+(balanced_logical_to_physical, reorder_expert_weights); the outputs do not
+change. As in the JAX package, the engine never re-places on its own.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from ktransformers_tpu_torch.models.paged import (
     sparse_args,
 )
 from ktransformers_tpu_torch.models.spec import ModelSpec
+from ktransformers_tpu_torch.ops.moe import MoEWeights
 from ktransformers_tpu_torch.ops.rope import precompute_rope_tables
 from ktransformers_tpu_torch.serving.scheduler import (
     DECODE,
@@ -75,6 +84,11 @@ from ktransformers_tpu_torch.serving.scheduler import (
 from ktransformers_tpu_torch.utils.device_prep import (
     params_to,
     prepare_params,
+)
+from ktransformers_tpu_torch.utils.expert_placement import (
+    ExpertStatsCollector,
+    balanced_logical_to_physical,
+    reorder_expert_weights,
 )
 from ktransformers_tpu_torch.utils.observability import (
     StageTimer,
@@ -101,10 +115,6 @@ class ServeEngine:
                  sparse_budget: int | None = None,
                  sparse_anchor: str = "quest",
                  sparse_retrieval: str = "layer", device="cuda"):
-        if collect_routing:
-            raise NotImplementedError(
-                "collect_routing / apply_expert_rebalance are not ported "
-                "(ROADMAP Queue 1 item 11)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.device = torch.device(device)
@@ -183,6 +193,12 @@ class ServeEngine:
         self._thread = None
         self.steps_executed = 0
         self.mixed_steps_fused = 0
+        self.collect_routing = collect_routing
+        self.stats = None
+        if collect_routing and spec.moe is not None:
+            n_moe = sum(1 for li in range(spec.num_layers)
+                        if spec.moe.is_moe_layer(li))
+            self.stats = ExpertStatsCollector(n_moe, spec.moe.num_experts)
 
     # -- page spill callbacks -----------------------------------------------
 
@@ -256,13 +272,15 @@ class ServeEngine:
         next ones there, so the following step needs no host round trip."""
         # a hybrid model's inactive rows must not advance their slot's
         # linear-attention state
-        logits, _ = forward_paged(
+        out = forward_paged(
             self.params, self.spec, st["tokens"][:, None], self.kv,
             st["tables"], st["lengths"], logits_last_only=True,
             valid=st["active"].to(torch.int32) if self._hybrid else None,
-            **self._forward_args())
+            collect_routing=self.stats is not None, **self._forward_args())
         st["tokens"], st["lengths"] = self._sample_decode(
-            logits[:, -1], st, penalized)
+            out[0][:, -1], st, penalized)
+        # the routed ids [n_moe, B, k] of this step, for the statistics
+        st["routing"] = out[2] if self.stats is not None else None
         return st["tokens"]
 
     @torch.no_grad()
@@ -282,6 +300,7 @@ class ServeEngine:
     def _can_fuse_mixed(self, qs: list[Query]) -> bool:
         return (os.environ.get("KT_FUSED_MIXED", "1") != "0"
                 and not self._hybrid
+                and self.stats is None
                 and not any(q.sampling.needs_counts for q in qs))
 
     def _reset_linear_state(self, slot: int) -> None:
@@ -461,18 +480,26 @@ class ServeEngine:
         # its slot freed (possibly reused only after the drain that any
         # composition change forces)
         self._inflight.append(([(q, q.slot) for q in qs],
-                               *self._readback(toks)))
+                               *self._readback(toks),
+                               self._dstate.get("routing")))
 
     def _drain_decode(self) -> None:
         while self._inflight:
             self._resolve_decode(*self._inflight.pop(0))
 
-    def _resolve_decode(self, qs_slots, host_toks, event=None) -> None:
+    def _resolve_decode(self, qs_slots, host_toks, event=None,
+                        routing=None) -> None:
         if event is not None:
             event.synchronize()
         toks_np = host_toks.numpy()
         if self.check_numerics:
             check_numerics(toks_np, "decode tokens")
+        if routing is not None:
+            # [n_moe, B, k] logical ids; the rows active at dispatch
+            r = routing.cpu().numpy()
+            slots = [s for _, s in qs_slots]
+            for li in range(r.shape[0]):
+                self.stats.record(li, r[li, slots])
         for q, slot in qs_slots:
             # skip queries that finished or were preempted while this step
             # was in flight
@@ -561,6 +588,32 @@ class ServeEngine:
         self.timer.end()
         self.steps_executed += 1
         return True
+
+    def apply_expert_rebalance(self, ep_size: int = 1) -> None:
+        """Store each MoE layer's experts in the order that balances the
+        counted routing over ``ep_size`` ranks (stop the world: the decode
+        pipeline is drained first and its state rebuilt after). The
+        outputs do not change: the map sends each logical id to its new
+        slot (JAX serving/engine.py:581-611)."""
+        if self.stats is None:
+            raise ValueError("apply_expert_rebalance needs collect_routing")
+        self._drain_decode()
+        freqs = self.stats.frequencies
+        layers, li_moe = [], 0
+        for li, lp in enumerate(self.params["layers"]):
+            if "moe" not in lp:
+                layers.append(lp)
+                continue
+            w = lp["moe"]["experts"]
+            if not isinstance(w, MoEWeights):
+                raise ValueError(f"layer {li}: experts in host memory are "
+                                 "not re-placed")
+            l2p = balanced_logical_to_physical(freqs[li_moe], ep_size)
+            layers.append({**lp, "moe": {
+                **lp["moe"], "experts": reorder_expert_weights(w, l2p)}})
+            li_moe += 1
+        self.params = {**self.params, "layers": layers}
+        self._decode_sig = None  # the device decode state is rebuilt
 
     # -- public API ---------------------------------------------------------
 

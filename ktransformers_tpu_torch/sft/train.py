@@ -76,7 +76,7 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "the distributed (ZeRO-1) trainer is not ported (ROADMAP "
-                "Queue 1 item 11)")
+                "Queue 1 item 11c)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.spec = spec

@@ -1,5 +1,6 @@
 """Observability of the serving loop (counterpart of
-ktransformers_tpu/utils/observability.py: StageTimer and check_numerics).
+ktransformers_tpu/utils/observability.py: setup_logging, StageTimer and
+check_numerics).
 
 Device work is asynchronous, so the stage timer measures HOST wall
 segments between dispatch points (schedule / dispatch / readback /
@@ -10,11 +11,25 @@ read back to the host, so it adds no device synchronisation.
 from __future__ import annotations
 
 import collections
+import logging
 import os
 import time
 
 import numpy as np
 import torch
+
+
+def setup_logging(level: str | None = None) -> logging.Logger:
+    """The package's logger, given one stream handler the first time; its
+    level from ``level`` or KT_LOG_LEVEL (default INFO)."""
+    logger = logging.getLogger("ktransformers_tpu_torch")
+    if not logger.handlers:
+        h = logging.StreamHandler()
+        h.setFormatter(logging.Formatter(
+            "%(asctime)s %(name)s %(levelname)s %(message)s"))
+        logger.addHandler(h)
+    logger.setLevel((level or os.environ.get("KT_LOG_LEVEL", "INFO")).upper())
+    return logger
 
 
 class StageTimer:

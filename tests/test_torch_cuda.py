@@ -1463,6 +1463,50 @@ def test_mla_paged_decode_split(cuda, page, h):
         assert _rel(out[i], ref[i]) <= 1e-2, lens[i] if i < len(lens) else i
 
 
+def _nan_tailed(t: torch.Tensor, device) -> torch.Tensor:
+    """t [B, H, W] on device as the head of a buffer whose next 8 rows
+    (where heads H .. H + 7 of a 16-row tile at H = 8 would sit) are NaN."""
+    b, h, w = t.shape
+    buf = torch.full((b * h + 8, w), float("nan"), dtype=t.dtype,
+                     device=device)
+    buf[: b * h] = t.reshape(b * h, w).to(device)
+    return buf[: b * h].view(b, h, w)
+
+
+@pytest.mark.parametrize("entry", ["mla_decode_fused", "mla_paged_decode"])
+def test_mla_split_kernels_at_a_tensor_parallel_rank(cuda, entry):
+    """DeepSeek-V2-Lite's 16 heads over tp = 2 leave 8 a rank: half of the
+    16-row mma group of mla_decode_split_kernel and
+    mla_paged_decode_split_kernel. The queries are followed in memory by
+    NaN rows, every cache or pool row at or past a length is NaN: the
+    outputs are finite and within 1e-2 of the plain version (the kernels
+    load rows past H as zeros and store only rows below H), and the split
+    kernel took the call."""
+    rng = np.random.default_rng(8)
+    h = 8
+    if entry == "mla_decode_fused":
+        cast = _decode_inputs(rng, 3, h, 2048, [0, 511, 2047])
+        on = [t.to(cuda) for t in cast]
+        on[0], on[1] = _nan_tailed(cast[0], cuda), _nan_tailed(cast[1], cuda)
+        kernel = "mla_decode_split_kernel"
+        split = ROUTED_LAUNCHES[kernel]
+        out = _counted(entry, lambda: mla_decode_fused(*on, 0.07, 1e-6))
+        ref = MD.mla_decode_fused_ref(*cast, 0.07, 1e-6)
+    else:
+        lens = [1, 64, 65, 512, 2048]
+        cast = _mla_paged_case(rng, 64, h, lens)
+        on = [t.to(cuda) for t in cast]
+        on[0], on[1] = _nan_tailed(cast[0], cuda), _nan_tailed(cast[1], cuda)
+        kernel = "mla_paged_decode_split_kernel"
+        split = ROUTED_LAUNCHES[kernel]
+        out = (_counted(entry, lambda: PA.mla_paged_decode(*on, 0.07)),)
+        ref = (PA.mla_paged_decode_ref(*cast, 0.07),)
+    assert ROUTED_LAUNCHES[kernel] == split + 1
+    for o, rf in zip(out, ref):
+        assert bool(torch.isfinite(o.float()).all())
+        assert _rel(o, rf) <= 1e-2
+
+
 @pytest.mark.parametrize("splits", ["one", "most"])
 def test_mla_paged_decode_split_plans(cuda, splits, monkeypatch):
     """The kernel at a forced plan: one split of all 2048 positions, and

@@ -71,7 +71,7 @@ def test_ported_presets_translate(name):
         assert spec.moe.gate.has_correction_bias
         rec, est = shown["recommended"], shown["estimate"]
         assert "HostOffloadServeEngine" in rec["offload"]
-        assert "item 11" in rec["offload"]
+        assert "init_multihost" in rec["offload"]
         assert rec["host_gb"] == est["experts_gb"]
         assert abs(rec["host_gb"] + rec["device_gb"]
                    - est["total_gb"]) <= 0.011

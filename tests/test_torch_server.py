@@ -477,10 +477,13 @@ def test_server_config_matches_jax(tmp_path):
                              "sparse_anchor": "block_max"}))
     t = ServerConfig.from_file(str(f))
     assert vars(t) == vars(JServerConfig.from_file(str(f)))
+    f.write_text(json.dumps({"collect_routing": True,
+                             "rebalance_interval_steps": 4}))
+    t = ServerConfig.from_file(str(f))
+    assert vars(t) == vars(JServerConfig.from_file(str(f)))
     for extra, err, what in (
             ({"sparse_anchor": "nearest"}, ValueError, "sparse_anchor"),
-            ({"sparse_retrieval": "token"}, ValueError, "sparse_retrieval"),
-            ({"collect_routing": True}, NotImplementedError, "item 11")):
+            ({"sparse_retrieval": "token"}, ValueError, "sparse_retrieval")):
         f = tmp_path / "unported.json"
         f.write_text(json.dumps(extra))
         with pytest.raises(err, match=what):

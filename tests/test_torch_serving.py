@@ -425,8 +425,9 @@ def test_entry_points_default_to_the_card_and_refuse_unported(synth):
 
     for fn in (ServeEngine.__init__, PagedKVCache.create, Generator.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ServeEngine(synth, SPEC, collect_routing=True, **F32)
+    # re-placement reads routing statistics: none were collected
+    with pytest.raises(ValueError, match="collect_routing"):
+        ServeEngine(synth, SPEC, **F32).apply_expert_rebalance(2)
     # sparse decode is ported; a retrieval MLA does not take is refused
     with pytest.raises(ValueError, match="kvhead"):
         ServeEngine(synth, SPEC, sparse_budget=4, sparse_retrieval="kvhead",

@@ -349,15 +349,17 @@ def test_convert_carries_expert_lora_and_refuses_ep():
     assert all(np.array_equal(lora[k].numpy(), np.asarray(want[k]))
                for k in want)
     assert "o_proj_lora" in tp["layers"][1]["attn"]
+    # the expert map and mask (expert parallelism) cross as they are
     ex = jl["layers"][1]["moe"]["experts"]
-    for field, value in (("logical_to_physical", jnp.arange(4)),
-                         ("expert_mask", jnp.ones(4, bool))):
-        bad = dict(jl)
-        bad["layers"] = [jl["layers"][0], dict(jl["layers"][1], moe=dict(
+    for field, value in (("logical_to_physical", jnp.arange(4)[::-1]),
+                         ("expert_mask", jnp.asarray([1, 0, 1, 1], bool))):
+        other = dict(jl)
+        other["layers"] = [jl["layers"][0], dict(jl["layers"][1], moe=dict(
             jl["layers"][1]["moe"],
             experts=dataclasses.replace(ex, **{field: value})))]
-        with pytest.raises(NotImplementedError, match=field):
-            _port(bad, spec_t)
+        got = getattr(_port(other, spec_t)["layers"][1]["moe"]["experts"],
+                      field)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(value))
 
 
 def test_lora_guards():

@@ -293,8 +293,18 @@ Phases (any failure exits non-zero before the final line):
             to the single device's by moe_parity's rule (TP's also under the
             single device's routes, every row within SPREAD_FACTOR times
             the bf16 rounding spread), its launches, step
-            times and collectives by path printed; a rank that fails or
-            hangs (PARALLEL_JOIN_S) fails the phase.
+            times and collectives by path printed; then, on the same
+            ranks, the training half: PP = 2 on Mixtral-8x7B at full
+            width cut to PP_LAYERS = 4 (2 a stage, PP_MICROBATCHES = 4 of
+            1 x 128 tokens; W4A8 logits held to the one-device forward by
+            hold_pipelined, then int8 float32 LoRA loss and stage
+            gradients by hold_sft, sft_parity's tolerances), ZeRO-1 at
+            dp = 2 (2 steps in lockstep with a one-device Trainer, the
+            moments cut in half) and one EP = 2 attention-LoRA step (psum
+            and a2a) on the 4-layer int8 DeepSeek-V2-Lite, each held to
+            one device by hold_sft, its launches held to PP_KERNELS /
+            PARALLEL_SFT_KERNELS (rows 16 and 17 in every backward); a
+            rank that fails or hangs (PARALLEL_JOIN_S) fails the phase.
 The parity phases draw their 2-layer weights on the card and copy them to
 the host (card_drawn), where the host took 7-9 s to draw each.
 Each phase's seconds are logged and kept in chip_smoke.json (phase_s).
@@ -2832,23 +2842,13 @@ def sft_kernel_checks(rows: list, entries: dict) -> None:
 # at most 2^-8 of a gradient's norm
 SFT_LOSS_TOL = 1e-4
 SFT_GRAD_TOL = 2.0 ** -8
-
-
-def sft_step(trainer, ids, labels):
-    """One Trainer step as train_step takes it, keeping the gradients:
-    (loss, gradients), the leaves updated in place."""
-    from ktransformers_tpu_torch.sft.train import loss_fn
-
-    dev = trainer.device
-    ids = torch.as_tensor(ids, device=dev)
-    labels = torch.as_tensor(labels, device=dev)
-    loss = loss_fn(trainer.params, trainer.spec, ids, labels,
-                   trainer.compute_dtype, remat=trainer.cfg.remat,
-                   rope_tables=trainer.rope_tables)
-    grads = torch.autograd.grad(loss, trainer.leaves)
-    with torch.no_grad():
-        trainer._update(list(grads))
-    return float(loss.detach()), grads
+# a ZeRO-1 step's change of a LoRA leaf against one device's, as a share of
+# its norm (hold_zero1_step). Adam's early steps move each element by about
+# the learning rate times the sign of its gradient, so an element whose
+# gradient is below the float32 sums' spread can move the other way: the
+# card read 5.9e-2 (step 0) and 1.2e-2 (step 1), and 1.39 with the dp
+# halves swapped
+ZERO1_STEP_TOL = 1e-1
 
 
 def sft_parity(result: dict) -> None:
@@ -2885,7 +2885,9 @@ def sft_parity(result: dict) -> None:
         for dev in ("cpu", "cuda"):
             tr = Trainer(params_to(params, dev), spec,
                          TrainConfig(seq_len=64), device=dev)
-            loss, grads = sft_step(tr, toks, toks)
+            loss, grads = tr.loss_and_grads(toks, toks)
+            with torch.no_grad():
+                tr._update(grads)
             runs[dev] = (loss, [g.float().cpu() for g in grads],
                          [(n, t.detach().float().cpu())
                           for n, t in lora_leaves(tr.lora)])
@@ -6838,12 +6840,387 @@ def rank_check(what, mesh, params, spec, prompt, impl="psum",
                              for k, v in mesh.collectives.items()})
 
 
+# the training half: PP = 2 on Mixtral-8x7B at full width (2 layers a
+# stage), ZeRO-1 at dp = 2 and EP = 2 attention-LoRA steps on
+# DeepSeek-V2-Lite at full width cut to PARALLEL_LAYERS
+PP_LAYERS = 4
+PP_MICROBATCHES = 4  # of 1 x PP_TOKENS tokens
+PP_TOKENS = 128
+SFT_RANK_TOKENS = 128  # tokens a sequence of the ZeRO-1 and EP steps
+LORA_B_SCALE = 0.01  # drawn b factors: every factor's gradient nonzero
+ATTN_TARGETS = (r".*\.attn\.(q_proj|q_a|q_b|kv_a|o_proj|k_proj|v_proj)",)
+PP_KERNELS = ("w4a8_prep", "dense_w4a8_matmul", "grouped_w4a8_matmul",
+              "w4a8_mma_kernel")
+# int8 weights, float32 compute: row 9's float32 route and row 11 forward,
+# rows 16 and 17 (quant_wgmma_t_kernel) for every dx
+PARALLEL_SFT_KERNELS = ("quant_matmul", "grouped_quant_matmul",
+                        "quant_matmul_t", "grouped_quant_matmul_t",
+                        "quant_wgmma_t_kernel")
+
+
+def lora_drawn(params, spec, seed: int, targets=None):
+    """params with rank-8 adapters (init_lora, default targets or
+    ``targets``) whose b factors are drawn on the card (LORA_B_SCALE
+    normals, not zero), so that every factor's gradient is nonzero."""
+    from ktransformers_tpu_torch.sft.lora import (
+        LoRAConfig,
+        init_lora,
+        tree_map_with_path,
+    )
+
+    cfg = LoRAConfig(rank=8) if targets is None else LoRAConfig(
+        rank=8, target_modules=targets)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(path, t):
+        if t is not None and path[-1] in ("b", "gate_up_b", "down_b"):
+            return torch.randn(t.shape, generator=gen, device=t.device,
+                               dtype=t.dtype) * LORA_B_SCALE
+        return t
+
+    return tree_map_with_path(draw, init_lora(params, spec, cfg, seed=seed))
+
+
+def sft_batch(rows: int, tokens: int, vocab: int, seed: int):
+    """(ids, labels) [rows, tokens]: seeded ids, labels = ids with the first
+    32, 0, 64 and 16 labels of rows 0-3 masked (and so on in turn): the
+    ranks' rows hold unequal numbers of scored labels."""
+    from ktransformers_tpu_torch.sft.train import IGNORE_INDEX
+
+    ids = np.random.default_rng(seed).integers(0, vocab, (rows, tokens))
+    lengths = np.array([32, 0, 64, 16])[np.arange(rows) % 4]
+    masked = np.arange(tokens)[None] < lengths[:, None]
+    return ids, np.where(masked, IGNORE_INDEX, ids)
+
+
+def hold_sft(what: str, loss: float, ref_loss: float, grads, ref_grads,
+             names) -> dict:
+    """sft_parity's rule against one device: the loss within
+    SFT_LOSS_TOL, every LoRA gradient within SFT_GRAD_TOL of its norm, all
+    finite and every reference gradient nonzero."""
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    errs = {n: float((g.float() - r.float()).norm()
+                     / r.float().norm().clamp_min(1e-30))
+            for n, g, r in zip(names, grads, ref_grads)}
+    zero = [n for n, r in zip(names, ref_grads) if not r.abs().max() > 0]
+    finite = np.isfinite(loss) and all(bool(torch.isfinite(g).all())
+                                       for g in grads)
+    worst = max(errs.values())
+    log(f"{what}: loss {loss:.6f} vs one device {ref_loss:.6f} (rel "
+        f"{loss_err:.2e}), worst LoRA gradient rel {worst:.2e} over "
+        f"{len(names)} leaves")
+    if not finite or zero or loss_err > SFT_LOSS_TOL \
+            or worst > SFT_GRAD_TOL:
+        raise AssertionError(f"{what} failed: loss {loss_err}, gradients "
+                             f"{errs}, zero references {zero}")
+    return dict(loss=loss, loss_one_device=ref_loss, loss_rel_err=loss_err,
+                worst_grad_rel_err=worst, leaves=len(names))
+
+
+def counted(fn):
+    """(fn(), launches, routed launches, wall s) with the launch counts read
+    just before and just after fn, the card synchronised around it."""
+    from ktransformers_tpu_torch.ops.cuda import LAUNCHES, ROUTED_LAUNCHES
+
+    torch.cuda.synchronize()
+    before, routed = dict(LAUNCHES), dict(ROUTED_LAUNCHES)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, launch_diff(before, LAUNCHES),
+            launch_diff(routed, ROUTED_LAUNCHES), wall)
+
+
+def merge_counts(*recs) -> dict:
+    out = {}
+    for rec in recs:
+        for k, v in rec.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def hold_pipelined(what: str, got, ref, picks, ref_picks, mesh) -> dict:
+    """moe_parity's rule for pipelined logits ``got`` [B, S, V] against the
+    one-device forward's ``ref``: all finite, greedy tokens equal except at
+    a near-tie, and a row past NEAR_TIE of its largest logit only where a
+    route it sees differs. ``picks`` are this rank's router calls (a
+    microbatch's layers of its stage in turn), ``ref_picks`` the one
+    device's (one a layer, B * S tokens); the stages' differing routes are
+    summed over pp, and a route differing at a position reaches every row
+    after it in its sequence."""
+    from ktransformers_tpu_torch.parallel.collectives import all_reduce
+
+    b, s, v = got.shape
+    per = len(picks) // b
+    first = mesh.index("pp") * per
+    differ = torch.zeros(b, s, device="cuda")
+    for j in range(b):
+        for li in range(per):
+            mine, theirs = picks[j * per + li], ref_picks[first + li]
+            differ[j] += torch.tensor(
+                [float(x != y) for x, y in zip(mine, theirs[j * s:(j + 1) * s])],
+                device="cuda")
+    rerouted = (all_reduce(differ, mesh, "pp") > 0).cummax(dim=1).values
+    rerouted = rerouted.reshape(-1).tolist()
+    out = got.reshape(-1, v).float()
+    want = ref.reshape(-1, v).float()
+    top = want.abs().amax(dim=-1)
+    errs = ((out - want).abs().amax(dim=-1) / top).tolist()
+    top2 = torch.topk(want, 2, dim=-1).values
+    gaps = ((top2[:, 0] - top2[:, 1]) / top).tolist()
+    differ_tok = (out.argmax(-1) != want.argmax(-1)).tolist()
+    wrong = [i for i, d in enumerate(differ_tok) if d and gaps[i] >= NEAR_TIE]
+    wide = [i for i, e in enumerate(errs) if e > NEAR_TIE]
+    loose = [i for i in wide if not rerouted[i]]
+    log(f"{what}: worst row {max(errs):.2e} of its largest logit over "
+        f"{len(errs)} rows, {len(wide)} past {NEAR_TIE} ({len(loose)} with "
+        f"the same routes), greedy differ at {sum(differ_tok)} "
+        f"(not a near-tie: {wrong}), {sum(rerouted)} rows see a differing "
+        "route")
+    if not bool(torch.isfinite(out).all()) or wrong or loose:
+        raise AssertionError(f"{what} failed: rows {loose} leave the W4A8 "
+                             f"spread with the same routes, tokens {wrong}")
+    return dict(worst_rel_err=max(errs), past_near_tie=len(wide),
+                greedy_differ=sum(differ_tok), rerouted_rows=sum(rerouted))
+
+
+def pp_checks(rank: int, mesh) -> dict:
+    """PP = 2 over the pipeline mesh: Mixtral-8x7B at full width cut to
+    PP_LAYERS, PP_MICROBATCHES microbatches of 1 x PP_TOKENS tokens. W4A8
+    (int4_g weights, bf16 compute): the pipelined logits held to the one
+    device's forward() on the whole batch by hold_pipelined. int8 weights,
+    float32 compute, rank-8 adapters on the default targets: the loss of
+    the pipelined logits and this rank's stage's LoRA gradients held to
+    the one device's by hold_sft. Each run's launches are counted apart
+    from its one-device reference's."""
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.model import KVCache, forward
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.parallel.pp import pipeline_llm_forward
+    from ktransformers_tpu_torch.sft.lora import (
+        lora_leaves,
+        merge_lora_params,
+        split_lora,
+    )
+    from ktransformers_tpu_torch.sft.train import logits_nll
+    from ktransformers_tpu_torch.utils.device_prep import prepare_params
+
+    spec = spec_from_hf_config(dict(mixtral_cfg(),
+                                    num_hidden_layers=PP_LAYERS))
+    b, t = PP_MICROBATCHES, PP_TOKENS
+    ids, labels = (torch.as_tensor(a, device="cuda")
+                   for a in sft_batch(b, t, spec.vocab_size, 700))
+    rec = {}
+    params = prepare_params(init_params_synthetic(
+        spec, seed=0, quant="int4_g", device="cuda"), spec)
+    with torch.no_grad():
+        (ref, ref_picks), _, _, ref_wall = counted(lambda: routes_of(
+            lambda: forward(params, spec, ids, KVCache.create(
+                spec, b, t, torch.bfloat16, "cuda"),
+                compute_dtype=torch.bfloat16)[0]))
+        mesh.collectives.clear()
+        (got, picks), launches, routed_n, wall = counted(lambda: routes_of(
+            lambda: pipeline_llm_forward(params, spec, ids, mesh,
+                                         microbatches=b,
+                                         compute_dtype=torch.bfloat16)))
+        collectives = {"/".join(k): v for k, v in mesh.collectives.items()}
+        steady = counted(lambda: pipeline_llm_forward(
+            params, spec, ids, mesh, microbatches=b,
+            compute_dtype=torch.bfloat16))[3]
+        ref_steady = counted(lambda: forward(params, spec, ids, KVCache.create(
+            spec, b, t, torch.bfloat16, "cuda"),
+            compute_dtype=torch.bfloat16))[3]
+    rec["forward"] = dict(
+        hold_pipelined(f"rank {rank} PP=2 Mixtral W4A8 logits vs one device",
+                       got, ref, picks, ref_picks, mesh),
+        launches=launches, routed_launches=routed_n, wall_s=wall,
+        one_device_wall_s=ref_wall, steady_wall_s=steady,
+        one_device_steady_wall_s=ref_steady, collectives=collectives)
+    del params, ref, got
+    torch.cuda.empty_cache()
+
+    params = prepare_params(init_params_synthetic(
+        spec, seed=1, quant="int8", device="cuda"), spec)
+    lora, base = split_lora(lora_drawn(params, spec, seed=2))
+    del params
+    per = PP_LAYERS // mesh.size("pp")
+    mine = [(n, x) for n, x in lora_leaves(lora)
+            if int(n.split("/")[1]) // per == mesh.index("pp")]
+    names, leaves = [n for n, _ in mine], [x for _, x in mine]
+
+    def loss_of(logits):
+        total, count = logits_nll(logits, labels)
+        return total / count
+
+    def one_device():
+        logits = forward(merge_lora_params(lora, base), spec, ids,
+                         KVCache.create(spec, b, t, torch.float32, "cuda"),
+                         compute_dtype=torch.float32)[0]
+        loss = loss_of(logits)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    def pipelined():
+        loss = loss_of(pipeline_llm_forward(
+            merge_lora_params(lora, base), spec, ids, mesh, microbatches=b,
+            compute_dtype=torch.float32))
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    (ref_loss, ref_grads), _, _, ref_wall = counted(one_device)
+    mesh.collectives.clear()
+    (loss, grads), launches, routed_n, wall = counted(pipelined)
+    collectives = {"/".join(k): v for k, v in mesh.collectives.items()}
+    # the first pass of each pays one-time costs: a second one is timed
+    steady, ref_steady = counted(pipelined)[3], counted(one_device)[3]
+    rec["sft"] = dict(
+        hold_sft(f"rank {rank} PP=2 Mixtral int8 LoRA loss and stage "
+                 "gradients vs one device", loss, ref_loss, grads,
+                 ref_grads, names),
+        launches=launches, routed_launches=routed_n, wall_s=wall,
+        one_device_wall_s=ref_wall, steady_wall_s=steady,
+        one_device_steady_wall_s=ref_steady, collectives=collectives)
+    del lora, base, grads, ref_grads
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| (0 where both are zero)."""
+    d, n = float((a - b).float().norm()), float(b.float().norm())
+    return d / n if n > 0 else d
+
+
+def hold_zero1_step(what: str, changes, names, cut) -> dict:
+    """A ZeRO-1 step's change of each leaf against the one device's, as a
+    share of the latter's norm: within ZERO1_STEP_TOL. The planted fault
+    (each cut leaf's change with its two dp halves swapped, as a gather
+    that took the ranks' rows in the wrong order would give) must lie
+    above the bound, or the measure could not tell a wrong update from a
+    right one."""
+    errs = {n: _rel(z, o) for n, (z, o) in zip(names, changes)}
+    swapped = {n: _rel(torch.cat([z[z.shape[0] // 2:], z[:z.shape[0] // 2]]),
+                       o) for n, (z, o), c in zip(names, changes, cut) if c}
+    worst, weakest = max(errs.values()), min(swapped.values())
+    log(f"{what}: worst leaf change rel {worst:.3e} of the one device's "
+        f"(bound {ZERO1_STEP_TOL:.0e}); dp halves swapped: least rel "
+        f"{weakest:.3e} over {len(swapped)} cut leaves")
+    if not worst <= ZERO1_STEP_TOL or not weakest > ZERO1_STEP_TOL:
+        raise AssertionError(f"{what} failed: leaf change errors {errs}, "
+                             f"swapped {swapped}")
+    return dict(worst_change_rel_err=worst, swapped_change_least_rel=weakest)
+
+
+def train_checks(rank: int, dp_mesh, ep_mesh) -> dict:
+    """DeepSeek-V2-Lite at full width cut to PARALLEL_LAYERS, int8 weights,
+    float32 compute, per-layer remat. ZeRO-1 at dp = 2: a Trainer over
+    dp_mesh (rank-8 adapters on the default targets) and a one-device
+    Trainer take the same 2 steps on 2 sequences of SFT_RANK_TOKENS
+    (unequal masked labels) in lockstep, each step's loss and gradients
+    held by hold_sft and each leaf's change by hold_zero1_step, every
+    moment whose leading axis is even cut in half.
+    EP = 2: one step of a Trainer over ep_mesh with attention adapters,
+    ep_impl psum and a2a, held to a one-device Trainer's by hold_sft."""
+    from ktransformers_tpu_torch.models.init import init_params_synthetic
+    from ktransformers_tpu_torch.models.spec import spec_from_hf_config
+    from ktransformers_tpu_torch.sft import TrainConfig, Trainer
+    from ktransformers_tpu_torch.sft.lora import lora_leaves
+    from ktransformers_tpu_torch.utils.device_prep import prepare_params
+
+    spec = spec_from_hf_config(parallel_cfg())
+    params = prepare_params(init_params_synthetic(
+        spec, seed=0, quant="int8", device="cuda"), spec)
+    ids, labels = sft_batch(2, SFT_RANK_TOKENS, spec.vocab_size, 800)
+    cfg = TrainConfig(seq_len=SFT_RANK_TOKENS)
+    rec = {}
+
+    pl = lora_drawn(params, spec, seed=3)
+    one = Trainer(pl, spec, cfg, device="cuda")
+    zero = Trainer(pl, spec, cfg, mesh=dp_mesh)
+    del pl
+    names = [n for n, _ in lora_leaves(zero.lora)]
+    cut = [x.shape[0] % 2 == 0 and m.shape[0] * 2 == x.shape[0]
+           for x, m in zip(zero.leaves, zero.mu)]
+    dp_mesh.collectives.clear()
+    steps, launches, routed_n, walls = [], [], [], []
+    for step in range(2):
+        before = [(a.detach().clone(), c.detach().clone())
+                  for a, c in zip(zero.leaves, one.leaves)]
+        ref_loss, ref_grads = one.loss_and_grads(ids, labels)
+        with torch.no_grad():
+            one._update(ref_grads)
+
+        def zero_step():
+            loss, grads = zero.loss_and_grads(ids, labels)
+            with torch.no_grad():
+                zero._update(grads)
+            return loss, grads
+
+        (loss, grads), n, r, wall = counted(zero_step)
+        steps.append(hold_sft(f"rank {rank} ZeRO-1 dp=2 step {step} vs one "
+                              "device", loss, ref_loss, grads, ref_grads,
+                              names))
+        steps[-1].update(hold_zero1_step(
+            f"rank {rank} ZeRO-1 dp=2 step {step}",
+            [(a.detach() - b[0], c.detach() - b[1]) for a, c, b in
+             zip(zero.leaves, one.leaves, before)], names, cut))
+        launches.append(n)
+        routed_n.append(r)
+        walls.append(wall)
+    moments = {n: (list(m.shape), list(x.shape))
+               for n, x, m in zip(names, zero.leaves, zero.mu)}
+    uncut = [n for n, (m, x) in moments.items()
+             if x[0] % 2 == 0 and m[0] * 2 != x[0]]
+    if uncut or not any(cut):
+        raise AssertionError(f"rank {rank} ZeRO-1: moments {uncut} not cut "
+                             f"over dp ({moments})")
+    log(f"rank {rank} ZeRO-1: {len(moments)} moments, {sum(cut)} cut in "
+        f"half; step walls {walls}")
+    rec["zero1"] = dict(
+        steps=steps, launches=merge_counts(*launches),
+        routed_launches=merge_counts(*routed_n), step_wall_s=walls,
+        moments=moments,
+        collectives={"/".join(k): v for k, v in dp_mesh.collectives.items()})
+    del one, zero
+    torch.cuda.empty_cache()
+
+    pl = lora_drawn(params, spec, seed=4, targets=ATTN_TARGETS)
+    one = Trainer(pl, spec, cfg, device="cuda")
+    (ref_loss, ref_grads), _, _, ref_wall = counted(
+        lambda: one.loss_and_grads(ids, labels))
+    names = [n for n, _ in lora_leaves(one.lora)]
+    del one
+    rec["ep"] = {}
+    for impl in ("psum", "a2a"):
+        tr = Trainer(pl, spec, cfg, mesh=ep_mesh, ep_impl=impl)
+        ep_mesh.collectives.clear()
+
+        def ep_step():
+            loss, grads = tr.loss_and_grads(ids, labels)
+            with torch.no_grad():
+                tr._update(grads)
+            return loss, grads
+
+        (loss, grads), n, r, wall = counted(ep_step)
+        rec["ep"][impl] = dict(
+            hold_sft(f"rank {rank} EP=2 ({impl}) attention LoRA step vs one "
+                     "device", loss, ref_loss, grads, ref_grads, names),
+            launches=n, routed_launches=r, wall_s=wall,
+            one_device_wall_s=ref_wall,
+            collectives={"/".join(k): v
+                         for k, v in ep_mesh.collectives.items()})
+        del tr
+        torch.cuda.empty_cache()
+    return rec
+
+
 def parallel_rank(rank: int, world: int, tmp: str) -> None:
     """One of the ranks that share the card (spawned by parallel_ranks):
     gloo group through a file rendezvous in ``tmp``; EP = 2 on the W4A8
     DeepSeek-V2-Lite (a2a prefill chunk and psum decode, contiguous and
-    paged), then TP = 2 on its int8 weights (8 heads a rank); its record
-    to tmp/rank<r>.json, a failure's traceback to tmp/rank<r>.err."""
+    paged), then TP = 2 on its int8 weights (8 heads a rank), then the
+    training half: PP = 2 on Mixtral-8x7B (pp_checks), ZeRO-1 at dp = 2
+    and EP = 2 attention-LoRA steps (train_checks); its record to
+    tmp/rank<r>.json, a failure's traceback to tmp/rank<r>.err."""
     import traceback
 
     import torch.distributed as dist
@@ -6855,6 +7232,7 @@ def parallel_rank(rank: int, world: int, tmp: str) -> None:
             init_multihost,
         )
         from ktransformers_tpu_torch.parallel.mesh import make_mesh
+        from ktransformers_tpu_torch.parallel.pp import make_pp_mesh
         from ktransformers_tpu_torch.utils.device_prep import prepare_params
 
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -6884,6 +7262,11 @@ def parallel_rank(rank: int, world: int, tmp: str) -> None:
             spec, seed=0, quant="int8", device="cuda"), spec)
         rec["tp"] = rank_check(f"rank {rank} TP={world} int8 vs one device",
                                tp_mesh, params, spec, prompt, forced=True)
+        del params
+        torch.cuda.empty_cache()
+        rec["pp"] = pp_checks(rank, make_pp_mesh(device="cuda:0"))
+        rec["train"] = train_checks(
+            rank, make_mesh(dp=world, ep=1, tp=1, device="cuda:0"), mesh)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
             json.dump(rec, fh)
     except BaseException:
@@ -6938,26 +7321,55 @@ def parallel_ranks(result: dict) -> None:
             f"parallel ranks: hung {hung}, exit codes "
             f"{[p.exitcode for p in procs]}, errors {errs}")
     for rec in recs:
-        # the EP path: its contiguous and its paged run
-        rec["paths"] = {"ep": {
-            k: {n: rec["ep"][k][n] + rec["ep_paged"][k][n]
-                for n in rec["ep"][k]}
-            for k in ("launches", "routed_launches")}, "tp": rec["tp"]}
+        ep_sft = rec["train"]["ep"]
+        # the EP path: its contiguous and its paged run; the EP training
+        # path: its psum and its a2a step
+        rec["paths"] = {
+            "ep": {k: merge_counts(rec["ep"][k], rec["ep_paged"][k])
+                   for k in ("launches", "routed_launches")},
+            "tp": rec["tp"], "pp": rec["pp"]["forward"],
+            "pp_sft": rec["pp"]["sft"], "zero1": rec["train"]["zero1"],
+            "ep_sft": {k: merge_counts(ep_sft["psum"][k], ep_sft["a2a"][k])
+                       for k in ("launches", "routed_launches")}}
         for path, keys in (("ep", PARALLEL_EP_KERNELS),
-                           ("tp", PARALLEL_TP_KERNELS)):
+                           ("tp", PARALLEL_TP_KERNELS),
+                           ("pp", PP_KERNELS),
+                           ("pp_sft", PARALLEL_SFT_KERNELS),
+                           ("zero1", PARALLEL_SFT_KERNELS),
+                           ("ep_sft", PARALLEL_SFT_KERNELS)):
             counts = {**rec["paths"][path]["launches"],
                       **rec["paths"][path]["routed_launches"]}
-            missing = [k for k in keys if counts[k] <= 0]
+            missing = [k for k in keys if counts.get(k, 0) <= 0]
             if missing:
                 raise AssertionError(f"rank {rec['rank']} {path}: "
                                      f"{missing} not launched")
-            log(f"parallel rank {rec['rank']} {path.upper()}={rec['world']} "
-                f"({rec['backend']}; {rec['card']}): decode step "
-                f"{rec[path]['decode_step_ms']:.2f} ms (one device, the "
-                f"other rank beside it: "
-                f"{rec[path]['one_device_step_ms']:.2f}), launches "
-                f"{json.dumps({k: v for k, v in counts.items() if v})}, "
-                f"collectives {json.dumps(rec[path]['collectives'])}")
+            launched = json.dumps({k: v for k, v in counts.items() if v})
+            if path in ("ep", "tp"):
+                log(f"parallel rank {rec['rank']} {path.upper()}="
+                    f"{rec['world']} ({rec['backend']}; {rec['card']}): "
+                    f"decode step {rec[path]['decode_step_ms']:.2f} ms (one "
+                    f"device, the other rank beside it: "
+                    f"{rec[path]['one_device_step_ms']:.2f}), launches "
+                    f"{launched}, collectives "
+                    f"{json.dumps(rec[path]['collectives'])}")
+            else:
+                log(f"parallel rank {rec['rank']} {path} ({rec['backend']}; "
+                    f"{rec['card']}): launches {launched}")
+        for name, run in (("PP=2 forward", rec["pp"]["forward"]),
+                          ("PP=2 SFT", rec["pp"]["sft"]),
+                          ("EP=2 psum SFT step", ep_sft["psum"]),
+                          ("EP=2 a2a SFT step", ep_sft["a2a"])):
+            steady = "" if "steady_wall_s" not in run else (
+                f"; again {run['steady_wall_s']:.3f} s (one device "
+                f"{run['one_device_steady_wall_s']:.3f})")
+            log(f"parallel rank {rec['rank']} {name}: {run['wall_s']:.3f} s "
+                f"(one device, the other rank beside it: "
+                f"{run['one_device_wall_s']:.3f}){steady}, collectives "
+                f"{json.dumps(run['collectives'])}")
+        zero1 = rec["train"]["zero1"]
+        log(f"parallel rank {rec['rank']} ZeRO-1 dp=2 steps "
+            f"{[round(w, 3) for w in zero1['step_wall_s']]} s, collectives "
+            f"{json.dumps(zero1['collectives'])}")
     result["parallel_ranks"] = dict(ranks=recs,
                                     seconds=time.perf_counter() - t0)
 
@@ -6981,7 +7393,10 @@ def mla_eight_head_checks(rows: list, entries: dict) -> None:
     mla_decode_split_kernel through mla_decode_fused at 512 cached rows,
     the queries followed in memory by 8 NaN head rows that the kernel's
     16-row tile must not take; the paged decode and prefill at the serving
-    shapes (paged_kernel_checks at h = 8)."""
+    shapes (paged_kernel_checks at h = 8). Row 5's library yardstick is
+    one SDPA, as at 128 heads."""
+    import torch.nn.functional as tF
+
     from ktransformers_tpu_torch.ops.cuda import mla_decode as MD
     from ktransformers_tpu_torch.ops.rope import (
         RopeConfig,
@@ -7011,15 +7426,24 @@ def mla_eight_head_checks(rows: list, entries: dict) -> None:
     lengths = torch.full((b,), length, dtype=torch.int32, device=dev)
     args = (qn, qp, kv, gamma, rot, ckv, kpe, lengths, (128 + 64) ** -0.5,
             1e-6)
+    # the library yardstick: one SDPA over the cache's first length + 1
+    # rows (the current token's latent in the last), as row 5's V3 line
+    lib_c = torch.nan_to_num(ckv[:, : length + 1])
+    lib_q = torch.cat([qn, qp], dim=-1)[:, :, None]
+    lib_k = torch.cat([lib_c, torch.nan_to_num(kpe[:, : length + 1])],
+                      dim=-1)[:, None].expand(-1, h, -1, -1)
+    lib_v = lib_c[:, None].expand(-1, h, -1, -1)
     check("mla_decode_fused", f"tp rank decode H={h} cached={length} "
           f"S={smax}", 1e-2, lambda: MD.mla_decode_fused(*args),
           lambda: MD.mla_decode_fused_ref(*args),
           lambda: MD.mla_launcher(*args),
           length * (r + dr) * 2 + nbytes(qn, qp, kv) + b * h * r * 2,
           2 * h * (length + 1) * (2 * r + dr), BF16_FLOPS_PER_S,
+          library=lambda: tF.scaled_dot_product_attention(
+              lib_q, lib_k, lib_v, scale=(128 + 64) ** -0.5),
           **routed(MLA_DECODE_ROUTES, MD.route(torch.bfloat16),
                    lambda: MD.mla_launcher(*args, "fused")))
-    del ckv, kpe
+    del ckv, kpe, lib_c, lib_k, lib_v
     paged_kernel_checks(check, rn, dev, h=h, prefix="tp rank ")
 
 def _qtensors(node):
@@ -7484,7 +7908,17 @@ def main() -> int:
               for k in PARALLEL_EP_KERNELS),
             *((k, tuple(f"parallel_tp_rank{r}"
                         for r in range(PARALLEL_RANKS)))
-              for k in PARALLEL_TP_KERNELS)):
+              for k in PARALLEL_TP_KERNELS),
+            # the training half: each rank's pipelined W4A8 forward on rows
+            # 1 and 8, its pipelined int8 SFT, ZeRO-1 and EP steps on rows
+            # 9 and 11 forward and 16 and 17 in the backward
+            *((k, tuple(f"parallel_pp_rank{r}"
+                        for r in range(PARALLEL_RANKS)))
+              for k in PP_KERNELS),
+            *((k, tuple(f"parallel_{p}_rank{r}"
+                        for p in ("pp_sft", "zero1", "ep_sft")
+                        for r in range(PARALLEL_RANKS)))
+              for k in PARALLEL_SFT_KERNELS)):
         idle = [k for k in keys if paths[k].get(kernel, 0) <= 0]
         if idle:
             raise AssertionError(f"{kernel} launched on no call of {idle}")

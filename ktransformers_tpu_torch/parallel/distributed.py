@@ -22,7 +22,11 @@ import datetime
 import torch
 import torch.distributed as dist
 
-from ktransformers_tpu_torch.parallel.mesh import Mesh, make_mesh
+from ktransformers_tpu_torch.parallel.mesh import (
+    Mesh,
+    card_device,
+    make_mesh,
+)
 
 
 def init_multihost(dp: int = 1, ep: int | None = None, tp: int = 1,
@@ -34,10 +38,14 @@ def init_multihost(dp: int = 1, ep: int | None = None, tp: int = 1,
     yet) and return this rank's (dp, ep, tp) mesh; ``ep`` None takes the
     ranks dp * tp leaves. ``timeout_s`` bounds the rendezvous and every
     collective."""
-    if world_size > 1 and not dist.is_initialized():
-        if backend is None or init_method is None:
-            raise ValueError("a multi-process start needs its backend and "
-                             "init_method named")
+    start = world_size > 1 and not dist.is_initialized()
+    if start and (backend is None or init_method is None):
+        raise ValueError("a multi-process start needs its backend and "
+                         "init_method named")
+    if device is None:
+        r = dist.get_rank() if dist.is_initialized() else rank
+        device = card_device(r % max(torch.cuda.device_count(), 1))
+    if start:
         dist.init_process_group(
             backend, init_method=init_method, world_size=world_size,
             rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
@@ -46,12 +54,6 @@ def init_multihost(dp: int = 1, ep: int | None = None, tp: int = 1,
         ep = n // (dp * tp)
     if dp * ep * tp != n:
         raise ValueError(f"dp={dp} x ep={ep} x tp={tp} != {n} ranks")
-    if device is None:
-        if torch.cuda.is_available():
-            device = torch.device("cuda", (dist.get_rank() if n > 1 else 0)
-                                  % torch.cuda.device_count())
-        else:
-            device = torch.device("cpu")
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(device)
     return make_mesh(dp=dp, ep=ep, tp=tp, device=device)

@@ -23,6 +23,17 @@ package:
   same rows and kernels, another schedule).
 Both take x [T, d], topk_idx / topk_weights [T, k] the same on every rank
 of the ep group and return [T, d] on each of them.
+
+Both train (LoRA SFT under EP): their collectives record the gradient of
+the JAX package's shard_map, which sums a replicated input's cotangent over
+ep. Each rank's experts give only a part of the gradient of x and of
+topk_weights, so those two enter the routed computation through
+grad_all_reduce and their gradients are summed over ep there, and nowhere
+else: the shared experts, the dense layers and the residual are computed
+whole on every rank, and summing the whole gradient of the layer input
+would multiply their part by ep. So every rank of the ep group holds the
+same gradient of every replicated leaf (attention LoRA), which is not
+summed over ep again.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from ktransformers_tpu_torch.parallel.collectives import (
     all_gather,
     all_reduce,
     all_to_all,
+    grad_all_reduce,
 )
 from ktransformers_tpu_torch.parallel.mesh import AXIS_EP, Mesh
 
@@ -61,6 +73,8 @@ def moe_forward_ep(x: torch.Tensor, weights: MoEWeights,
     if ep == 1:
         return moe_forward(x, weights, topk_idx, topk_weights, act)
     e_local = weights.num_experts
+    x = grad_all_reduce(x, mesh, AXIS_EP)
+    topk_weights = grad_all_reduce(topk_weights, mesh, AXIS_EP)
     ids, tw = placed_routes(weights, topk_idx, topk_weights, None)
     ids_local = ids.long() - mesh.index(AXIS_EP) * e_local
     keep = (ids_local >= 0) & (ids_local < e_local)
@@ -101,6 +115,8 @@ def moe_forward_ep_a2a(x: torch.Tensor, weights: MoEWeights,
     cap = _a2a_capacity(tl, k, ep, capacity_factor, pipeline_chunks)
     me = mesh.index(AXIS_EP)
     rows = slice(me * tl, (me + 1) * tl)
+    x = grad_all_reduce(x, mesh, AXIS_EP)
+    topk_weights = grad_all_reduce(topk_weights, mesh, AXIS_EP)
     x_l = x[rows]
     ids, tw = placed_routes(weights, topk_idx[rows], topk_weights[rows],
                             None)

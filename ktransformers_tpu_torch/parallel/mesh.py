@@ -15,6 +15,9 @@ group: the caller's choice (gloo, or nccl with a card a rank), never
 switched. Every rank creates every group, in the same order, as
 new_group requires. A size-1 axis has no group and its collectives do
 nothing. With no process group started, the only mesh is 1 x 1 x 1.
+
+A rank computes on the card unless the caller names another device: with
+no card, ``card_device`` raises rather than fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -71,10 +74,21 @@ class Mesh:
         return self.groups[axis]
 
 
+def card_device(index: int | None = None) -> torch.device:
+    """cuda (cuda:<index> where given): where a rank computes when its
+    caller names no device. Raises where there is no card: the port never
+    falls back to the CPU unless asked for it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: a mesh computes on the card "
+                           "unless it is given device=\"cpu\"")
+    return torch.device("cuda", index) if index is not None \
+        else torch.device("cuda")
+
+
 def make_mesh(dp: int = 1, ep: int = 1, tp: int = 1, device=None) -> Mesh:
     """The mesh of this process: dp * ep * tp must be the world size of the
     started process group (1 without one). ``device``: where this rank
-    computes (default: cuda if there is a card, else cpu)."""
+    computes (default: cuda; with no card, card_device raises)."""
     n = dp * ep * tp
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n != world:
@@ -82,7 +96,7 @@ def make_mesh(dp: int = 1, ep: int = 1, tp: int = 1, device=None) -> Mesh:
                          f"group has {world}")
     rank = dist.get_rank() if dist.is_initialized() else 0
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        device = card_device()
     shape = {AXIS_DP: dp, AXIS_EP: ep, AXIS_TP: tp}
     grid = np.arange(n).reshape(dp, ep, tp)
     coords = dict(zip(AXES, (int(c) for c in np.argwhere(grid == rank)[0])))

@@ -23,10 +23,12 @@ gather themselves (parallel/collectives.py under a parallel_context):
 intermediate widths); the logits come back whole. Every cut weight is
 checked by its kernel wrapper's own weight check, so a per-rank shape that
 no kernel route takes raises here, never at the first call. Refused under
-tp > 1: GatedDeltaNet layers, LoRA adapters, an o_proj bias, GQA KV heads or
-widths that do not divide by tp. ``cache_shardings`` cuts a cache for its rank (batch over
-dp; MLA's latent whole over tp; GQA KV heads over tp) and
-``batch_sharding`` is the rank's rows of a batch.
+tp > 1: GatedDeltaNet layers, LoRA adapters (anywhere in a layer), an o_proj
+bias, GQA KV heads or widths that do not divide by tp; under ep > 1: LoRA
+factors on the routed experts. The two LoRA refusals match the JAX
+package, which fails on both (their messages say how). ``cache_shardings``
+cuts a cache for its rank (batch over dp; MLA's latent whole over tp; GQA
+KV heads over tp) and ``batch_sharding`` is the rank's rows of a batch.
 """
 
 from __future__ import annotations
@@ -171,6 +173,20 @@ def shard_experts(w: MoEWeights, mesh: Mesh) -> MoEWeights:
     return _apply(w, _expert_cut(w, mesh, "experts"), mesh, "experts")
 
 
+def _lora_keys(node, path: str = "") -> list:
+    """Paths of the "<key>_lora" adapters and expert LoRA factors in a
+    layer's tree."""
+    if isinstance(node, MoEWeights):
+        return [f"{path}.lora"] if node.lora is not None else []
+    if not isinstance(node, dict):
+        return []
+    out = []
+    for k, v in node.items():
+        sub = f"{path}.{k}".lstrip(".")
+        out += [sub] if k.endswith("_lora") else _lora_keys(v, sub)
+    return out
+
+
 def param_shardings(params, spec: ModelSpec, mesh: Mesh):
     """A params-shaped tree of Cuts: what this rank of ``mesh`` keeps."""
     tp, ti = mesh.size(AXIS_TP), mesh.index(AXIS_TP)
@@ -182,13 +198,15 @@ def param_shardings(params, spec: ModelSpec, mesh: Mesh):
                 raise NotImplementedError(
                     f"layer {li}: GatedDeltaNet layers under tensor "
                     "parallelism are not ported")
-            lora = [f"{k}.{n}" for k, sub in lp.items()
-                    if isinstance(sub, dict) for n in sub
-                    if n.endswith("_lora")]
+            lora = _lora_keys(lp)
             if lora:
                 raise NotImplementedError(
                     f"layer {li}: LoRA adapters {lora} under tensor "
-                    "parallelism are not ported")
+                    "parallelism are not ported; nor does the JAX package "
+                    "run them: its parallel/shardings.py param_shardings "
+                    "gives a '<key>_lora' dict one replicated spec, and "
+                    "shard_params fails on any tree with LoRA leaves "
+                    "(ValueError: Expected dict, got NamedSharding)")
         out = {k: REPL for k in lp}
         out["attn"] = (_attn_cuts(lp["attn"], spec, tp, ti) if tp > 1
                        else {k: REPL for k in lp["attn"]})
@@ -198,10 +216,14 @@ def param_shardings(params, spec: ModelSpec, mesh: Mesh):
             if not isinstance(w, MoEWeights):
                 raise ValueError(f"layer {li}: offloaded experts are not "
                                  "sharded")
-            if (ep > 1 or tp > 1) and w.lora is not None:
+            if ep > 1 and w.lora is not None:
                 raise NotImplementedError(
-                    f"layer {li}: expert LoRA factors under EP / TP are not "
-                    "ported")
+                    f"layer {li}: expert LoRA factors under expert "
+                    "parallelism are not ported; nor does the JAX package "
+                    "train them: its parallel/ep.py _expert_sharded_specs "
+                    "builds MoEWeights without lora, so the factors enter "
+                    "shard_map whole (TypeError: expected rhs group "
+                    "dimension size to be ..., got ...)")
             moe["experts"] = _expert_cut(w, mesh, f"layer {li}:")
             sh = lp["moe"].get("shared")
             if sh is not None:
@@ -300,6 +322,7 @@ def _apply(node, cut, mesh: Mesh, path: str):
             gate_up=_apply(node.gate_up, cut.gate_up, mesh,
                            f"{path}.gate_up"),
             down=_apply(node.down, cut.down, mesh, f"{path}.down"),
+            lora=_apply(node.lora, REPL, mesh, f"{path}.lora"),
             logical_to_physical=None if node.logical_to_physical is None
             else node.logical_to_physical.to(mesh.device),
             expert_mask=None if node.expert_mask is None

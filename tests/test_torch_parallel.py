@@ -3,8 +3,10 @@ parallel/) against the JAX package's sharded runs: expert parallelism
 (psum and all-to-all: exact, pipelined, overflow dropped, a prefix of
 experts on each shard, a remap), the tiny DeepSeek model under dp / ep /
 tp meshes (contiguous forward and a decode step, the a2a path with
-pipelined chunks, the paged forward). Mirrors tests/test_parallel.py
-(pipeline parallelism, tests/test_pp.py, is ROADMAP item 11c).
+pipelined chunks, the paged forward), and that no mesh falls back to the
+CPU. Mirrors tests/test_parallel.py (pipeline parallelism is
+tests/test_torch_pp.py's, training over ranks
+tests/test_torch_parallel_sft.py's).
 
 One spawn of WORLD = 4 gloo CPU ranks (tests/torch_parallel_worker.py,
 which imports no JAX and runs one torch thread) does every port check,
@@ -386,3 +388,33 @@ def test_single_process_mesh_and_refusals():
         init_multihost(ep=2, world_size=2, rank=0)
     with pytest.raises(ValueError, match="ep_impl"):
         ParallelContext(mesh, ep_impl="ring")
+
+
+def test_no_cpu_fallback(monkeypatch):
+    """Without a device the meshes compute on the card: make_mesh and
+    make_pp_mesh on cuda, init_multihost on cuda:<rank % device count>.
+    With no card each raises rather than fall back to the CPU, and
+    init_multihost starts no process group."""
+    import torch.distributed as dist
+
+    from ktransformers_tpu_torch.parallel import distributed
+    from ktransformers_tpu_torch.parallel.mesh import make_mesh as tmesh
+    from ktransformers_tpu_torch.parallel.pp import make_pp_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (tmesh, make_pp_mesh, distributed.init_multihost):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.init_multihost(ep=2, backend="gloo",
+                                   init_method="file:///nonexistent",
+                                   world_size=2, rank=1)
+    assert not dist.is_initialized()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    picked = []
+    monkeypatch.setattr(torch.cuda, "set_device", picked.append)
+    assert tmesh().device == torch.device("cuda")
+    assert make_pp_mesh().device == torch.device("cuda")
+    assert distributed.init_multihost().device == torch.device("cuda", 0)
+    assert picked == [torch.device("cuda", 0)]

@@ -379,5 +379,10 @@ def test_lora_guards():
                 q_proj_lora=with_lora["layers"][0]["attn"]["q_proj_lora"])
     with pytest.raises(ValueError, match="q_proj_lora"):
         mla_qkv_proj(attn, spec, torch.zeros(1, 2, 32))
-    with pytest.raises(NotImplementedError):
-        ttrain.Trainer(with_lora, spec, mesh=object(), device="cpu")
+    # LoRA under tensor parallelism (the JAX package fails on it too)
+    from ktransformers_tpu_torch.parallel.mesh import Mesh
+
+    tp2 = Mesh({"dp": 1, "ep": 1, "tp": 2}, {"dp": 0, "ep": 0, "tp": 0},
+               {"dp": None, "ep": None, "tp": None}, "cpu")
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        ttrain.Trainer(with_lora, spec, mesh=tp2, device="cpu")

@@ -60,16 +60,26 @@ Phases (any failure exits non-zero before the final line):
             layers, card tokens equal to the CPU's (penalty_check);
 5. serve:   the full 27-layer config (int4_g weights) in a Generator at
             max_len 1024 answering 2 requests of 512 seeded prompt tokens
-            and 32 greedy new tokens; every single-user kernel must launch;
+            and 32 greedy new tokens through its decode step captured in a
+            CUDA graph (engine/cuda_graph.py) and the depth-24 pipelined
+            readback, each request's tokens equal to the eager
+            decode_step loop's (every model phase serving a Generator holds
+            this); every single-user kernel must launch; then every
+            scratch set is replaced by one twice its size after the
+            capture and a replay must still give the eager tokens, and a
+            sampled run repeats token for token under one seed;
 6. paged serve: a ServeEngine over the same parameters (batch 8, chunk 256,
-            page 64, 512 pages) answering 8 requests in three waves, 32
-            greedy tokens each, at decode pipeline depth 3; mixed steps,
-            a 256-token prefix hit, page accounting and agreement with
-            the single-user Generator are checked (and that the prompts
-            give at least 4 distinct first tokens, without which that
-            agreement would not see the prompt);
-7. profile: a prefill chunk and a decode step of the Generator, a batch-8
-            decode step and a mixed step of the ServeEngine: wall time,
+            page 64, 512 pages; its decode step captured and replayed)
+            answering 8 requests in three waves, 32 greedy tokens each, at
+            decode pipeline depth 3; mixed steps, a 256-token prefix hit,
+            page accounting and agreement with the single-user Generator
+            are checked (and that the prompts give at least 4 distinct
+            first tokens, without which that agreement would not see the
+            prompt); the same run with the decode step eager gives the
+            same tokens;
+7. profile: a prefill chunk and a decode step of the Generator (eager and
+            replayed from its graph), a batch-8 decode step (replayed and
+            eager) and a mixed step of the ServeEngine: wall time,
             launches per step, device time by kernel (torch.profiler); a
             step that still launches a first-version instantiation its
             routes replace (8-row tiles on bf16, one-row quant_matmul
@@ -1907,16 +1917,118 @@ INT8_SINGLE_USER_KERNELS = ("quant_matmul", "gathered_quant_matmul",
                             "mla_decode_attention")
 
 
+def timed_generate(gen, prompt: list, cfg) -> tuple:
+    """gen.generate of one prompt: (tokens, ttft s, decode tok/s). The
+    pipeline resolves tokens in bunches, so ttft is the first token's
+    resolution on the host's clock and the decode rate runs from it to a
+    final synchronize."""
+    stamps = []
+    t_start = time.perf_counter()
+    out = gen.generate(prompt, cfg, on_token=lambda tok: stamps.append(
+        time.perf_counter()))[0]
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    return out, stamps[0] - t_start, (len(out) - 1) / (t_end - stamps[0])
+
+
+def eager_greedy(gen, prompt: list, n: int, chunk: int = 256) -> list:
+    """n greedy tokens of the eager loop: gen.prefill in ``chunk``-token
+    chunks, then gen.decode_step a token at a time, on a cache of its own
+    (no graph)."""
+    from ktransformers_tpu_torch.engine.sampler import SamplingConfig, sample
+
+    cache = gen.new_cache()
+    last, cache = gen.prefill(
+        cache, torch.as_tensor([prompt], device=gen.device), chunk)
+    tok = sample(last, None, SamplingConfig())
+    out = [int(tok[0])]
+    while len(out) < n:
+        tok, cache = gen.decode_step(tok, cache)
+        out.append(int(tok[0]))
+    return out
+
+
+def hold_graphed(what: str, gen, prompt: list, got: list,
+                 chunk: int = 256) -> None:
+    """The graphed Generator's greedy tokens ``got`` against the eager
+    loop's on the same prompt, token for token (the same kernels on the
+    same operands), and its greedy decode step captured."""
+    from ktransformers_tpu_torch.engine.sampler import SamplingConfig
+
+    if not gen.decode_graph(SamplingConfig()).graphed:
+        raise AssertionError(f"{what}: the decode step was not captured")
+    want = eager_greedy(gen, prompt, len(got), chunk)
+    if got != want:
+        raise AssertionError(f"{what}: graphed tokens {got} != eager {want}")
+
+
+def scratch_growth_check(gen, prompt: list, want: list) -> dict:
+    """The scratch hazard of a captured step: after the capture every
+    split kernel's scratch set is asked for twice its size, as a call
+    twice as wide asks (w4a8_matmul.scratch replaces the set), NaN and
+    non-zero counter tensors of the replaced sets' sizes take the memory a
+    freed set would give back, and the graphed generate of ``prompt`` must still give ``want``,
+    the eager loop's tokens."""
+    from ktransformers_tpu_torch.engine.generate import GenerateConfig
+    from ktransformers_tpu_torch.ops.cuda import w4a8_matmul
+
+    sets = dict(w4a8_matmul._SCRATCH)
+    for (dev, what), (part, cnt) in sets.items():
+        w4a8_matmul.scratch(dev, 2 * part.numel(), 2 * cnt.numel(), what)
+    grown = sorted(k[1] for k, buf in sets.items()
+                   if w4a8_matmul._SCRATCH[k] is not buf)
+    if not grown:
+        raise AssertionError("scratch growth: no set was replaced")
+    sizes = [(part.numel(), cnt.numel()) for part, cnt in sets.values()]
+    del sets, part, cnt
+    torch.cuda.synchronize()
+    junk = [(torch.full((n,), float("nan"), device=gen.device),
+             torch.full((c,), 7, dtype=torch.int32, device=gen.device))
+            for n, c in sizes]
+    got = gen.generate(prompt, GenerateConfig(max_new_tokens=len(want)))[0]
+    del junk
+    if got != want:
+        raise AssertionError(f"scratch growth: replayed {got} != {want}")
+    log(f"scratch growth: sets {grown} replaced after the capture; the "
+        "replay gave the eager tokens")
+    return dict(grown=grown, tokens_equal=True)
+
+
+def sampled_repeat_check(gen, prompt: list) -> dict:
+    """A sampled run (temperature 0.7, top-p 0.9, seed 7) through the
+    graphed step twice: the first warms up and captures it, the second
+    only replays; the tokens repeat token for token. Seed 8 is recorded
+    beside them."""
+    import dataclasses
+
+    from ktransformers_tpu_torch.engine.generate import GenerateConfig
+    from ktransformers_tpu_torch.engine.sampler import SamplingConfig
+
+    cfg = GenerateConfig(max_new_tokens=32, seed=7, sampling=SamplingConfig(
+        temperature=0.7, top_p=0.9))
+    first = gen.generate(prompt, cfg)[0]
+    again = gen.generate(prompt, cfg)[0]
+    other = gen.generate(prompt, dataclasses.replace(cfg, seed=8))[0]
+    if not gen.decode_graph(cfg.sampling).graphed or first != again:
+        raise AssertionError(f"sampled run: {first} then {again}")
+    log(f"sampled run (seed 7) repeats: {first[:8]}...; seed 8 "
+        f"{'differs' if other != first else 'gives the same'}")
+    return dict(tokens=first, seed8=other)
+
+
 def serve(result: dict, quant: str = "int4_g", key: str = "serve",
           requests: int = 2, expect=SINGLE_USER_KERNELS,
           unfused_last: bool = False, cfg=None, moe_quant=None,
-          max_len: int = 1024, prompt_lens=None):
+          max_len: int = 1024, prompt_lens=None, checks: bool = False):
     """A Generator over the full config (DeepSeek-V2-Lite unless ``cfg``
     names another) with ``quant`` weights (``moe_quant`` for the routed
     experts, default the same) at ``max_len`` cache positions answering
-    ``requests`` requests of 512 (or ``prompt_lens``) + 32 tokens; with
-    unfused_last the last one decodes with the fused decode kernel
-    switched off."""
+    ``requests`` requests of 512 (or ``prompt_lens``) + 32 tokens through
+    its graphed decode step, each request's tokens held to the eager
+    loop's; with unfused_last the last one decodes with the fused decode
+    kernel switched off. With ``checks`` also the scratch growth and the
+    sampled repeat (scratch_growth_check, sampled_repeat_check)."""
+    from ktransformers_tpu_torch.engine.cuda_graph import WARMUP
     from ktransformers_tpu_torch.engine.generate import (
         GenerateConfig,
         Generator,
@@ -1945,36 +2057,35 @@ def serve(result: dict, quant: str = "int4_g", key: str = "serve",
     log(f"{key}: {cfg['model_type']} {quant} / {moe_quant or quant} params "
         f"{pbytes / 1e9:.3f} GB ready in {init_s:.1f} s")
 
-    # warm-up request (allocator, cuBLAS handles); not counted
-    gen.generate(list(range(8)), GenerateConfig(max_new_tokens=2))
+    # warm-up requests (allocator, cuBLAS handles; the greedy decode
+    # step's warm-up calls and capture, with the fused decode off too
+    # where a request takes it); not counted
+    for fused in (True, False) if unfused_last else (True,):
+        attention.MLA_FUSED = fused
+        try:
+            gen.generate(list(range(8)),
+                         GenerateConfig(max_new_tokens=WARMUP + 3))
+        finally:
+            attention.MLA_FUSED = True
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    reqs = []
+    reqs, prompts = [], []
     lens = prompt_lens or [512] * requests
     for i, n in enumerate(lens):
         prompt = np.random.default_rng(100 + i).integers(
             0, cfg["vocab_size"], n).tolist()
-        stamps = []
-
-        def on_token(tok, stamps=stamps):
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
-
         fused = not (unfused_last and i == len(lens) - 1)
         attention.MLA_FUSED = fused
-        t_start = time.perf_counter()
         try:
-            out = gen.generate(prompt, GenerateConfig(max_new_tokens=32),
-                               on_token=on_token)
+            toks, ttft, dec = timed_generate(
+                gen, prompt, GenerateConfig(max_new_tokens=32))
         finally:
             attention.MLA_FUSED = True
-        toks = out[0]
         if len(toks) != 32 or not all(0 <= t < cfg["vocab_size"]
                                       for t in toks):
             raise AssertionError(f"request {i}: bad tokens {toks}")
-        ttft = stamps[0] - t_start
-        dec = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+        prompts.append((prompt, toks, fused))
         reqs.append(dict(prompt_tokens=n, prefill_tok_s=n / ttft,
                          ttft_s=ttft, decode_tok_s=dec, tokens=toks[:8],
                          fused_decode=fused))
@@ -1985,18 +2096,33 @@ def serve(result: dict, quant: str = "int4_g", key: str = "serve",
     launches = dict(LAUNCHES)
     routed_n = dict(ROUTED_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    # the graphed step's tokens against the eager loop's, each request
+    # under its own fused-decode switch
+    for i, (prompt, toks, fused) in enumerate(prompts):
+        attention.MLA_FUSED = fused
+        try:
+            hold_graphed(f"{key} request {i}", gen, prompt, toks)
+        finally:
+            attention.MLA_FUSED = True
     result[key] = dict(model=cfg["model_type"], quant=quant,
                        moe_quant=moe_quant or quant, requests=reqs,
                        launches=launches, routed_launches=routed_n,
                        max_memory_allocated=peak,
-                       params_bytes=pbytes, init_s=init_s)
+                       params_bytes=pbytes, init_s=init_s,
+                       graphed_equals_eager=len(prompts))
     log(f"{key}: max_memory_allocated {peak / 1e9:.3f} GB, launches "
         f"{json.dumps(launches)}, of them on the redesigned kernels "
-        f"{json.dumps(routed_n)}")
+        f"{json.dumps(routed_n)}; the graphed tokens of {len(prompts)} "
+        "requests equal the eager loop's")
     missing = [k for k in expect if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the {key} run: "
                              f"{missing}")
+    if checks:
+        prompt, toks, _ = prompts[0]
+        result[key]["scratch_growth"] = scratch_growth_check(gen, prompt,
+                                                             toks)
+        result[key]["sampled"] = sampled_repeat_check(gen, prompt)
     return gen
 
 
@@ -2167,14 +2293,16 @@ def single_user_reference(gen, prompt: list, n: int):
 
 
 def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS,
-                    sched=None) -> dict:
+                    sched=None, graphs: bool = True) -> dict:
     """The 8 requests through one ServeEngine (``sched``, default
     SchedulerConfig()) in three waves: 0-3 at once, 5 and 6 after 8 engine
     steps, 4 and 7 once request 0 has finished (request 4 then takes
     request 0's slot). A hybrid model (linear-attention layers) runs
     no prefix cache and no fused mixed step, and zeroes a slot's state
     before each query's first chunk: held instead of the prefix hit and
-    the mixed steps, with request 4's reused slot among the zeroed ones."""
+    the mixed steps, with request 4's reused slot among the zeroed ones.
+    The decode step is captured and replayed (it must be), or with
+    ``graphs`` False runs eagerly (ServeEngine.graph_steps)."""
     from ktransformers_tpu_torch.ops.cuda import (
         LAUNCHES,
         ROUTED_LAUNCHES,
@@ -2187,6 +2315,7 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS,
     eng = ServeEngine(gen.params, gen.spec, sched or SchedulerConfig(),
                       num_pages=num_pages, device="cuda")
     eng.decode_pipeline_depth = depth
+    eng.graph_steps = graphs
     eng.generate_sync(list(range(8)), max_new_tokens=2)  # warm-up
     eng.reset_metrics()
     resets, hybrid = [], gen.spec.hybrid
@@ -2244,6 +2373,7 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         kv_pool_bytes=eng.kv.bytes_per_page() * num_pages,
         state_bytes=eng.kv.state_bytes(), state_resets=resets,
+        graphs_captured=eng._graphs.captured(),
     )
     log(f"paged serve depth {depth}: {steps} engine steps "
         f"({eng.mixed_steps_fused} fused mixed) in {wall:.2f} s, "
@@ -2276,6 +2406,9 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS,
     missing = [k for k in expect if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by paged serve: {missing}")
+    if graphs != bool(out["graphs_captured"]):
+        raise AssertionError(f"paged serve: {out['graphs_captured']} decode "
+                             f"steps captured, graph_steps {graphs}")
     return out
 
 
@@ -2399,7 +2532,8 @@ def reroute_check(gen, prompt: list, toks: list, what: str,
 
 def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(3,),
                 expect=PAGED_KERNELS, tie: float = NEAR_TIE, prompts=None,
-                sched=None, reroutes: bool = False) -> None:
+                sched=None, reroutes: bool = False,
+                eager: bool = False) -> None:
     """The 8 requests (paged_prompts unless ``prompts``) through the
     ServeEngine (paged_serve_run) at each pipeline depth, each request's
     tokens held to the single-user Generator's up to the first position
@@ -2414,10 +2548,25 @@ def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(3,),
     stay within SPREAD_FACTOR times the rounding spread on every step up
     to that token, as must request 0's (the longest prompt) over its
     prompt and first 8 tokens: request 0 measures the spread, every
-    request is held to it (reroute_check)."""
+    request is held to it (reroute_check). With ``eager`` the first depth
+    runs once more with the decode step eager, whose tokens must equal the
+    graphed run's token for token."""
     prompts = prompts or paged_prompts(gen.spec.vocab_size)
     runs = {depth: paged_serve_run(gen, prompts, depth, expect, sched)
             for depth in depths}
+    if eager:
+        ref = paged_serve_run(gen, prompts, depths[0], expect, sched,
+                              graphs=False)
+        if ref["tokens"] != runs[depths[0]]["tokens"]:
+            raise AssertionError(
+                f"{key}: graphed engine tokens {runs[depths[0]]['tokens']} "
+                f"!= eager {ref['tokens']}")
+        log(f"{key}: the graphed engine's tokens equal the eager engine's; "
+            f"wall {runs[depths[0]]['wall_s']:.2f} s against "
+            f"{ref['wall_s']:.2f} s")
+        result[key + "_eager"] = dict(wall_s=ref["wall_s"],
+                                      output_tok_s=ref["output_tok_s"],
+                                      tokens_equal=True)
     # the single-user Generator on the same prompts
     full, verdicts, firsts, tol, refs = 0, [], set(), None, []
     for i, prompt in enumerate(prompts):
@@ -2584,14 +2733,111 @@ def summarize_steps(steps: dict) -> dict:
     return out
 
 
+def event_ms(fn, n: int = 8) -> float:
+    """Mean device time of a call of fn between CUDA events over n calls
+    (the card's clock: busy plus the gaps between kernels)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+# profiled calls of each side at most before hold_replay_kernels decides
+REPLAY_PROFILE_TRIES = 3
+# kernels a replay may add to its body's own: before a replay PyTorch
+# refills the seed and offset of each generator the graph holds (the
+# default one and the owner's sampler), two fills each
+REPLAY_PROLOGUE_MAX = 4
+
+
+def _kernel_counts(rows) -> dict:
+    out: dict = {}
+    for k, _, n in rows:
+        out[k] = out.get(k, 0) + n
+    return out
+
+
+def replay_kernel_gaps(graphed: dict, eager: dict, copies: int) -> list:
+    """What a replay's profiled kernels (counts by name) lack against the
+    eager step's: a port kernel counted otherwise, any kernel counted fewer
+    times, or more kernels added than its ``copies`` into the static
+    buffers and REPLAY_PROLOGUE_MAX."""
+    gaps = [f"{k[:70]}: {graphed.get(k, 0)} against {n}"
+            for k, n in eager.items()
+            if graphed.get(k, 0) < n
+            or (_is_port_kernel(k) and graphed.get(k, 0) != n)]
+    gaps += [f"{k[:70]}: {n} against none" for k, n in graphed.items()
+             if k not in eager and _is_port_kernel(k)]
+    added = sum(graphed.values()) - sum(eager.values())
+    if added > copies + REPLAY_PROLOGUE_MAX:
+        gaps.append(f"{added} kernels added, at most {copies} copies + "
+                    f"{REPLAY_PROLOGUE_MAX}")
+    return gaps
+
+
+def hold_replay_kernels(what: str, graphed_fn, eager_fn, graphed_rows,
+                        eager_rows, copies: int):
+    """The profiler's kernels of a replayed step held against the eager
+    step's, the independent evidence that a graph launches every kernel
+    (the launch counts cannot show it: a replay re-adds what its capture
+    counted). Each port kernel as many times, every other kernel at least
+    as many times, at most ``copies`` + REPLAY_PROLOGUE_MAX added. A trace
+    can lose events: while the counts fall short, both sides are profiled
+    again (up to REPLAY_PROFILE_TRIES calls each) and each name's largest
+    count is held. If the counts still fall short and a side's calls
+    counted differently, the trace lost events: that is recorded and
+    nothing is held; if every call counted alike, this raises. Returns
+    the two fullest traces' rows and the record."""
+    tries = [[graphed_rows], [eager_rows]]
+    while True:
+        most = [{} for _ in tries]
+        for side, rows_of in zip(most, tries):
+            for rows in rows_of:
+                for k, n in _kernel_counts(rows).items():
+                    side[k] = max(side.get(k, 0), n)
+        gaps = replay_kernel_gaps(most[0], most[1], copies)
+        if not gaps or len(tries[0]) == REPLAY_PROFILE_TRIES:
+            break
+        tries[0].append(kernel_rows(graphed_fn))
+        tries[1].append(kernel_rows(eager_fn))
+    totals = [[sum(r[2] for r in rows) for rows in side] for side in tries]
+    fullest = [max(side, key=lambda rows: sum(r[2] for r in rows))
+               for side in tries]
+    record = dict(held=not gaps, profiled=totals[0], eager_profiled=totals[1],
+                  added=sum(most[0].values()) - sum(most[1].values()),
+                  copies=copies)
+    if not gaps:
+        log(f"profile {what}: the replay's kernels hold against the eager "
+            f"step's ({record['added']} added, {copies} copies; profiled "
+            f"{totals[0]} / {totals[1]})")
+    elif any(len(set(t)) > 1 for t in totals):
+        record["lost_events"] = gaps[:8]
+        log(f"profile {what}: trace lost events (profiled {totals[0]} / "
+            f"{totals[1]} kernels), nothing held: {gaps[:4]}")
+    else:
+        raise AssertionError(f"profile {what}: the replay's kernels do not "
+                             f"hold against the eager step's: {gaps[:8]}")
+    return fullest[0], fullest[1], record
+
+
 def profile_steps(result: dict, gen, prefix: str = "") -> None:
     """Where the time of a 256-token prefill chunk (the second of a
-    512-token prompt) and of a decode step over those 512 tokens goes.
-    Wall time: median of 3 unprofiled chunks (each on a fresh cache), mean
-    of 8 unprofiled decode steps. Launches: per chunk and per step. Device
-    time by kernel: torch.profiler over one more chunk and one more step
-    (kernel events only, so PyTorch ops are not counted twice). Runs after
-    the serve counts were read, so it adds nothing to them."""
+    512-token prompt) and of a decode step over those 512 tokens goes, the
+    step eager (decode_step) and replayed from the Generator's CUDA graph
+    (decode_step_graphed). Wall time: median of 3 unprofiled chunks (each
+    on a fresh cache), mean of 8 unprofiled decode steps; event_ms: the
+    mean between CUDA events over 8 more. Launches: per chunk and per step
+    (a replay counts the captured step's). Device time by kernel:
+    torch.profiler over one more chunk and one more step (kernel events
+    only, so PyTorch ops are not counted twice). Runs after the serve
+    counts were read, so it adds nothing to them."""
+    from ktransformers_tpu_torch.engine.cuda_graph import WARMUP
+    from ktransformers_tpu_torch.engine.generate import GenerateConfig
     from ktransformers_tpu_torch.ops.cuda import LAUNCHES, reset_launches
 
     prompt = torch.as_tensor(np.random.default_rng(200).integers(
@@ -2628,9 +2874,41 @@ def profile_steps(result: dict, gen, prefix: str = "") -> None:
     step()
     step_launches = dict(LAUNCHES)
     wall = wall_ms(lambda: [step() for _ in range(8)]) / 8
-    steps[prefix + "decode_step"] = (wall, step_launches, kernel_rows(step))
+    eager_wall, eager_rows = wall, kernel_rows(step)
+    # the same step replayed from the Generator's graph, over the same 512
+    # tokens (gen.prime: the prompt in two chunks into the step cache)
+    graph = gen.prime(prompt, GenerateConfig())
+    while graph.calls <= WARMUP:
+        graph()
+    if not graph.graphed:
+        raise AssertionError(f"profile {prefix}: the decode step was not "
+                             "captured")
+    reset_launches()
+    graph()
+    graph_launches = dict(LAUNCHES)
+    wall = wall_ms(lambda: [graph() for _ in range(8)]) / 8
+    if graph_launches != step_launches:
+        raise AssertionError(f"profile {prefix}: a replay counts "
+                             f"{graph_launches}, an eager step "
+                             f"{step_launches}")
+    # the body's copies: the next tokens, the lengths and each
+    # GatedDeltaNet layer's conv tail and state (generate._commit)
+    spec = gen.spec
+    copies = 2 + 2 * sum(spec.layer_kind(li) == "linear"
+                         for li in range(spec.num_layers))
+    graph_rows, eager_rows, held = hold_replay_kernels(
+        prefix + "decode_step_graphed", graph, step, kernel_rows(graph),
+        eager_rows, copies)
+    steps[prefix + "decode_step"] = (eager_wall, step_launches, eager_rows)
+    steps[prefix + "decode_step_graphed"] = (wall, graph_launches,
+                                             graph_rows)
 
     result.setdefault("profile", {}).update(summarize_steps(steps))
+    result["profile"][prefix + "decode_step_graphed"]["replay_kernels"] = \
+        held
+    for name in ("decode_step", "decode_step_graphed"):
+        result["profile"][prefix + name]["event_ms"] = event_ms(
+            step if name == "decode_step" else graph)
 
 
 # activation preps of a DeepSeek-V2-Lite W4A8 step of the served batch of
@@ -2655,7 +2933,8 @@ def hold_prep(result: dict, prefix: str = "", b8: int = 0) -> None:
 
 def profile_engine_steps(result: dict, gen, prefix: str = "") -> None:
     """A decode step of the ServeEngine at a batch of 8 (512-token prompts,
-    pipelined: mean wall of 8 steps, one more profiled) and a fused mixed
+    pipelined: mean wall of 8 steps, one more profiled), replayed from its
+    graph and eager (serve_decode_step_b8_eager), and a fused mixed
     step (the fixed 8 decode rows, 7 of them live, plus one 256-token chunk
     of a new 600-token prompt: one step for the wall time and the launches,
     the next one profiled). A hybrid model's engine runs that step's
@@ -2677,8 +2956,36 @@ def profile_engine_steps(result: dict, gen, prefix: str = "") -> None:
     eng.step()
     step_launches = dict(LAUNCHES)
     wall = wall_ms(lambda: [eng.step() for _ in range(8)]) / 8
+    graph_rows = kernel_rows(eng.step)
+    if not eng._graphs.captured():
+        raise AssertionError("profile: the engine's decode step was not "
+                             "captured")
+
+    def eager_step():
+        eng.graph_steps = False
+        try:
+            eng.step()
+        finally:
+            eng.graph_steps = True
+
+    # the same steps eager
+    reset_launches()
+    eager_step()
+    eager_launches = dict(LAUNCHES)
+    eager_wall = wall_ms(lambda: [eager_step() for _ in range(8)]) / 8
+    if eager_launches != step_launches:
+        raise AssertionError(f"profile {prefix}: a replayed engine step "
+                             f"counts {step_launches}, an eager one "
+                             f"{eager_launches}")
+    # one body both ways: a replay adds no copy
+    graph_rows, eager_rows, held = hold_replay_kernels(
+        prefix + "serve_decode_step_b8", eng.step, eager_step, graph_rows,
+        kernel_rows(eager_step), 0)
     steps[prefix + "serve_decode_step_b8"] = (wall, step_launches,
-                                              kernel_rows(eng.step))
+                                              graph_rows)
+    steps[prefix + "serve_decode_step_b8_eager"] = (eager_wall,
+                                                    eager_launches,
+                                                    eager_rows)
     eng.cancel(qs[7])
     late = eng.submit(np.random.default_rng(500).integers(
         0, vocab, 600).tolist(), max_new_tokens=4)
@@ -2696,6 +3003,8 @@ def profile_engine_steps(result: dict, gen, prefix: str = "") -> None:
         "serve_mixed_step_b8_s256"
     steps[prefix + name] = (wall, step_launches, rows)
     result["profile"].update(summarize_steps(steps))
+    result["profile"][prefix + "serve_decode_step_b8"]["replay_kernels"] = \
+        held
 
 
 # -------------------------------------------------------------------- sft
@@ -4297,6 +4606,7 @@ def gguf_serve(result: dict) -> None:
     W4A8 weight int4_gz with zero points."""
     import tempfile
 
+    from ktransformers_tpu_torch.engine.cuda_graph import WARMUP
     from ktransformers_tpu_torch.engine.generate import (
         GenerateConfig,
         Generator,
@@ -4356,25 +4666,17 @@ def gguf_serve(result: dict) -> None:
 
     # single user: 256 prompt + 32 new tokens
     gen = Generator(params, spec, max_len=1024, batch=1, device="cuda")
-    gen.generate(list(range(8)), GenerateConfig(max_new_tokens=2))
+    gen.generate(list(range(8)), GenerateConfig(max_new_tokens=WARMUP + 3))
     torch.cuda.synchronize()
     reset_launches()
     prompt_ids = np.random.default_rng(140).integers(
         0, spec.vocab_size, 256).tolist()
-    stamps = []
-
-    def on_token(tok):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-
-    t_start = time.perf_counter()
-    out = gen.generate(prompt_ids, GenerateConfig(max_new_tokens=32),
-                       on_token=on_token)
-    if len(out[0]) != 32:
+    out, ttft, dec = timed_generate(gen, prompt_ids,
+                                    GenerateConfig(max_new_tokens=32))
+    if len(out) != 32:
         raise AssertionError(f"gguf: bad tokens {out}")
-    ttft = stamps[0] - t_start
-    dec = (len(stamps) - 1) / (stamps[-1] - stamps[0])
     launches, routed_n = dict(LAUNCHES), dict(ROUTED_LAUNCHES)
+    hold_graphed("gguf single user", gen, prompt_ids, out)
     log(f"gguf single user: prefill {256 / ttft:.1f} tok/s (ttft "
         f"{ttft * 1e3:.1f} ms), decode {dec:.2f} tok/s; launches "
         f"{json.dumps(launches)}, redesigned {json.dumps(routed_n)}")
@@ -4383,7 +4685,7 @@ def gguf_serve(result: dict) -> None:
         raise AssertionError(f"gguf single user: not launched {missing}")
     hold_w4a8_routes("gguf single user", launches, routed_n, zeros=True)
     result["serve_gguf"] = dict(prefill_tok_s=256 / ttft, ttft_s=ttft,
-                                decode_tok_s=dec, tokens=out[0][:8],
+                                decode_tok_s=dec, tokens=out[:8],
                                 launches=launches, routed_launches=routed_n)
     paged_serve(result, gen, key="paged_serve_gguf", depths=(3,),
                 expect=GGUF_PAGED_KERNELS)
@@ -7571,8 +7873,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("parity")
 
-    gen = serve(result)
-    paged_serve(result, gen)
+    gen = serve(result, checks=True)
+    paged_serve(result, gen, eager=True)
     profile_steps(result, gen)
     profile_engine_steps(result, gen)
     hold_prep(result, b8=DEEPSEEK_B8_PREPS)
@@ -7595,10 +7897,11 @@ def main() -> int:
     # the int8 path: every matmul through the quant_matmul kernels
     gen = serve(result, quant="int8", key="serve_int8", requests=2,
                 expect=INT8_SINGLE_USER_KERNELS, unfused_last=True,
-                cfg=dict(bench_model_cfg(), num_hidden_layers=INT8_LAYERS))
+                cfg=dict(bench_model_cfg(), num_hidden_layers=INT8_LAYERS),
+                checks=True)
     int8_step_launches(result, gen)
     paged_serve(result, gen, key="paged_serve_int8", depths=(3,),
-                expect=INT8_PAGED_KERNELS)
+                expect=INT8_PAGED_KERNELS, eager=True)
     profile_steps(result, gen, prefix="int8_")
     profile_engine_steps(result, gen, prefix="int8_")
     del gen

@@ -1,18 +1,50 @@
-"""Generator: chunked prefill + one-token decode steps (counterpart of
-ktransformers_tpu/engine/generate.py:Generator, single user).
+"""Generator: chunked prefill + one-token decode steps captured in a CUDA
+graph (counterpart of ktransformers_tpu/engine/generate.py:Generator,
+single user).
 
-PyTorch runs eagerly, so a decode step is forward() + sample() launched
-straight from Python; capturing it in a CUDA graph is later work.
+``generate`` prefills eagerly, then decodes through a GraphStep
+(engine/cuda_graph.py, the JAX package's jitted ``_decode_step`` /
+``_decode_step_penalized`` with the cache donated): forward() + sampling
+(+ the penalties' counts) over the Generator's static buffers
+(``decode_state()``: the step cache, its input / output tokens, the
+penalty counts and prompt mask), captured once per key and replayed.
+The key holds the SamplingConfig and every module attribute forward()
+reads at call time (ops.attention.MLA_FUSED, BLOCKWISE_KV_THRESHOLD).
+Each ``generate`` resets the step cache in place and reseeds the sampling
+generator, which the graphs have registered.
+
+The loop is the JAX package's depth-D software pipeline (its
+generate.py:283-360): up to ``KT_GENERATE_PIPELINE`` (default 24) steps in
+flight, each step's tokens copied to pinned host memory as it is
+dispatched, the oldest resolved on the host, where EOS ends a row; EOS is
+seen D - 1 steps late and the extra steps' tokens are dropped.
+``on_token`` receives each step's tokens as a CPU tensor [B] (the JAX loop
+passes numpy), in bunches as the pipeline resolves them.
+
+``decode_step`` and ``_forward`` stay eager and public: speculation
+(engine/speculative.py, draft_spec.py, mtp.py) and the checks drive them
+on caches of their own. Prefill stays eager. On the CPU, and on the card
+where capture_allowed refuses (experts in host memory, a parallel
+context), the step body runs eagerly on the same buffers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
+import numpy as np
 import torch
 
+from ktransformers_tpu_torch.engine.cuda_graph import (
+    GraphStep,
+    StepGraphs,
+    capture_allowed,
+    readback,
+)
 from ktransformers_tpu_torch.engine.sampler import SamplingConfig, sample
 from ktransformers_tpu_torch.models.model import KVCache, forward
+from ktransformers_tpu_torch.ops import attention
 from ktransformers_tpu_torch.models.spec import ModelSpec
 from ktransformers_tpu_torch.ops.rope import precompute_rope_tables
 from ktransformers_tpu_torch.utils.device_prep import prepare_params
@@ -32,9 +64,42 @@ def _count(counts: torch.Tensor, tok: torch.Tensor) -> None:
     counts.scatter_add_(1, tok[:, None], torch.ones_like(counts[:, :1]))
 
 
+def _view(cache: KVCache) -> KVCache:
+    """A KVCache over the same tensors, whose rebinds leave ``cache``
+    alone (forward() rebinds lengths and a linear layer's states)."""
+    return KVCache(cache.lengths, list(cache.bufs_a), list(cache.bufs_b))
+
+
+def _commit(static: KVCache, cache: KVCache) -> None:
+    """Copy every tensor forward() rebound in ``cache`` (a _view of
+    ``static``) back into static's buffer: the new lengths, GatedDeltaNet's
+    new conv tails and recurrent states."""
+    if cache.lengths is not static.lengths:
+        static.lengths.copy_(cache.lengths)
+    for bufs, new in ((static.bufs_a, cache.bufs_a),
+                      (static.bufs_b, cache.bufs_b)):
+        for buf, t in zip(bufs, new):
+            if t is not buf:
+                buf.copy_(t)
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """The decode step's static buffers: the step cache, the tokens [B]
+    int64 (each step's input, then its output) and, once penalized
+    sampling ran, the generated-token counts [B, V] int32 and the prompt
+    mask [B, V] bool."""
+
+    cache: KVCache
+    tokens: torch.Tensor
+    counts: torch.Tensor | None = None
+    prompt_mask: torch.Tensor | None = None
+
+
 class Generator:
     """Holds prepared params and the rope tables for one (spec, batch,
-    max_len) on one device (``cuda`` unless told otherwise)."""
+    max_len) on one device (``cuda`` unless told otherwise), and the
+    decode step's static buffers and graphs."""
 
     def __init__(self, params, spec: ModelSpec, max_len: int = 2048,
                  batch: int = 1, cache_dtype=torch.bfloat16,
@@ -49,6 +114,10 @@ class Generator:
         self.cache_dtype = cache_dtype
         self.compute_dtype = compute_dtype
         self.rope_tables = precompute_rope_tables(spec.rope, self.device)
+        # the draws of generate's sampling, reseeded by each call
+        self.sampler = torch.Generator(device=self.device)
+        self._state: DecodeState | None = None
+        self._graphs = StepGraphs()
 
     def new_cache(self) -> KVCache:
         return KVCache.create(self.spec, self.batch, self.max_len,
@@ -93,10 +162,80 @@ class Generator:
             _count(counts, nxt)
         return nxt, cache
 
+    def decode_state(self) -> DecodeState:
+        """The decode step's static buffers (made at first use)."""
+        if self._state is None:
+            self._state = DecodeState(
+                self.new_cache(),
+                torch.zeros(self.batch, dtype=torch.int64,
+                            device=self.device))
+        return self._state
+
+    def decode_graph(self, sampling: SamplingConfig) -> GraphStep:
+        """The decode step for ``sampling``: each call writes the next
+        tokens of decode_state().tokens into it and advances its cache
+        (penalized sampling: counts them too)."""
+        st = self.decode_state()
+        capture = capture_allowed(self.device, self.params)
+        # sampling decides the penalties' branch; the attention module's
+        # switches are read by forward() at call time
+        key = (sampling, attention.MLA_FUSED,
+               attention.BLOCKWISE_KV_THRESHOLD, capture)
+
+        def body():
+            cache = _view(st.cache)
+            pen = sampling.needs_counts
+            nxt, cache = self.decode_step(
+                st.tokens, cache, sampling, self.sampler,
+                st.counts if pen else None, st.prompt_mask if pen else None)
+            st.tokens.copy_(nxt)
+            _commit(st.cache, cache)
+
+        gens = (self.sampler,) if sampling.temperature > 0 else ()
+        return self._graphs.get(
+            self.params, key,
+            lambda: GraphStep(body, self.device, capture, gens))
+
+    def prime(self, prompt: torch.Tensor,
+              cfg: GenerateConfig = GenerateConfig()) -> GraphStep:
+        """Start a generation of prompt [B, S] on the device: reset the
+        step cache in place, reseed the sampler, prefill, sample the first
+        tokens into decode_state().tokens; returns
+        decode_graph(cfg.sampling)."""
+        st = self.decode_state()
+        st.cache.lengths.zero_()
+        for buf in st.cache.bufs_a + st.cache.bufs_b:
+            buf.zero_()
+        self.sampler.manual_seed(cfg.seed)
+        cache = _view(st.cache)
+        last, cache = self.prefill(cache, prompt, cfg.prefill_chunk)
+        _commit(st.cache, cache)
+        counts = prompt_mask = None
+        if cfg.sampling.needs_counts:
+            # penalties: the generated tokens' counts and the prompt's
+            # tokens, both on the device (the JAX Generator's layout)
+            if st.counts is None:
+                shape = (self.batch, last.shape[-1])
+                st.counts = torch.zeros(shape, dtype=torch.int32,
+                                        device=self.device)
+                st.prompt_mask = torch.zeros(shape, dtype=torch.bool,
+                                             device=self.device)
+            counts, prompt_mask = st.counts, st.prompt_mask
+            counts.zero_()
+            prompt_mask.zero_()
+            prompt_mask.scatter_(1, prompt, True)
+        tok = sample(last, self.sampler, cfg.sampling, counts, prompt_mask)
+        if counts is not None:
+            _count(counts, tok)
+        st.tokens.copy_(tok)
+        return self.decode_graph(cfg.sampling)
+
     def generate(self, prompt_ids, cfg: GenerateConfig = GenerateConfig(),
                  on_token=None) -> list[list[int]]:
         """Generate for a batch of equal-length prompts (token-id lists or
-        a [B, S] tensor); returns the generated ids per sequence."""
+        a [B, S] tensor); returns the generated ids per sequence, each row
+        ending at its first eos_token_id. ``on_token`` gets each step's
+        tokens, a CPU tensor [B], once the pipeline resolves them."""
         prompt = torch.as_tensor(prompt_ids, dtype=torch.int64)
         if prompt.dim() == 1:
             prompt = prompt[None]
@@ -105,40 +244,31 @@ class Generator:
             raise ValueError(f"batch {b} != Generator batch {self.batch}")
         if s + cfg.max_new_tokens > self.max_len:
             raise ValueError("prompt + max_new_tokens exceeds max_len")
-        prompt = prompt.to(self.device)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(cfg.seed)
-        cache = self.new_cache()
-        last, cache = self.prefill(cache, prompt, cfg.prefill_chunk)
-        counts = prompt_mask = None
-        if cfg.sampling.needs_counts:
-            # penalties: the generated tokens' counts and the prompt's
-            # tokens, both on the device (the JAX Generator's layout)
-            v = last.shape[-1]
-            counts = torch.zeros(b, v, dtype=torch.int32, device=self.device)
-            prompt_mask = torch.zeros(b, v, dtype=torch.bool,
-                                      device=self.device)
-            prompt_mask.scatter_(1, prompt, True)
-        tok = sample(last, gen, cfg.sampling, counts, prompt_mask)
-        if counts is not None:
-            _count(counts, tok)
-        toks = [tok]
-        if on_token is not None:
-            on_token(tok)
-        finished = torch.zeros(b, dtype=torch.bool)
-        while len(toks) < cfg.max_new_tokens:
-            if cfg.eos_token_id is not None:
-                finished |= (tok == cfg.eos_token_id).cpu()
-                if bool(finished.all()):
-                    break
-            tok, cache = self.decode_step(tok, cache, cfg.sampling, gen,
-                                          counts, prompt_mask)
-            toks.append(tok)
+        step = self.prime(prompt.to(self.device), cfg)
+        tokens = self.decode_state().tokens
+        depth = max(1, int(os.environ.get("KT_GENERATE_PIPELINE", "24")))
+        n = cfg.max_new_tokens
+        out = [[] for _ in range(b)]
+        finished = np.zeros(b, bool)
+        # steps in flight: (host tokens, event), oldest first
+        pending = [readback(tokens)]
+        dispatched, resolved = 1, 0
+        while resolved < n:
+            while dispatched < n and not finished.all() \
+                    and len(pending) < depth:
+                step()
+                pending.append(readback(tokens))
+                dispatched += 1
+            (host,), event = pending.pop(0)
+            if event is not None:
+                event.synchronize()
+            resolved += 1
+            for bi, t in enumerate(host.tolist()):
+                if not finished[bi]:
+                    out[bi].append(t)
+                    finished[bi] = t == cfg.eos_token_id
             if on_token is not None:
-                on_token(tok)
-        out = torch.stack(toks, dim=1).cpu().tolist()
-        if cfg.eos_token_id is not None:
-            for row in out:
-                if cfg.eos_token_id in row:
-                    del row[row.index(cfg.eos_token_id) + 1 :]
+                on_token(host)
+            if finished.all():
+                break
         return out

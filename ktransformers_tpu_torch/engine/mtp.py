@@ -39,6 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ktransformers_tpu_torch.engine.cuda_graph import readback
 from ktransformers_tpu_torch.engine.generate import GenerateConfig, Generator
 from ktransformers_tpu_torch.engine.speculative import (
     SpecStats,
@@ -185,7 +186,7 @@ def _numpy_layer(spec: ModelSpec, li: int, q, rand, quant: str,
 
 def init_mtp_synthetic(spec: ModelSpec, seed: int = 1, quant: str = "int8",
                        moe_quant: str | None = None,
-                       dense_layer: bool = False, device="cpu"):
+                       dense_layer: bool = False, device="cuda"):
     """A random MTP head whose decoder layer mirrors the model's last layer
     (``dense_layer``: the first dense layer instead). Drawn from numpy in
     the JAX package's order and quantized by quant/formats.quantize (on
@@ -219,7 +220,7 @@ def init_mtp_synthetic(spec: ModelSpec, seed: int = 1, quant: str = "int8",
 
 
 def mtp_params_from_provider(p, spec: ModelSpec, quant: str = "bf16",
-                             group_size: int = 128, device="cpu"):
+                             group_size: int = 128, device="cuda"):
     """A DeepSeek-V3-style MTP head from a provider of HF names: the extra
     layer L = num_hidden_layers (model.layers.L.{enorm, hnorm, eh_proj,
     shared_head.norm} and its decoder layer). The decoder layer is built by
@@ -476,18 +477,6 @@ def mtp_generate_single(
     return out[: cfg.max_new_tokens], stats
 
 
-def _readback(t: torch.Tensor):
-    """(host copy, event or None): on the card an asynchronous copy into
-    pinned memory and an event recorded after it."""
-    if t.device.type != "cuda":
-        return t.clone(), None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(t.device))
-    return host, event
-
-
 def mtp_generate_fused(
     target: Generator,
     mtp_params,
@@ -538,11 +527,11 @@ def mtp_generate_fused(
             # the catch-up's last token column only writes head row T+k,
             # past the kept range (< T+a, a <= k): the next bonus will do
             prev = (t_start, d, bonus, a, th)
-            pending.append(_readback(emitted[0]))
+            pending.append(readback(emitted[0]))
             issued += 1
         if not pending:
             break
-        host, event = pending.pop(0)
+        (host,), event = pending.pop(0)
         if event is not None:
             event.synchronize()
         done = _resolve(host.numpy(), out, stats, k, cfg)

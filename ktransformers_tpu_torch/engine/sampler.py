@@ -37,9 +37,12 @@ class SamplingConfig:
 
 
 def _column(v, like: torch.Tensor) -> torch.Tensor:
-    """A scalar or a [B] vector as a float32 [B or 1, 1] column."""
-    return torch.as_tensor(v, dtype=torch.float32,
-                           device=like.device).reshape(-1, 1)
+    """A scalar or a [B] vector as a float32 [B or 1, 1] column on like's
+    device (a scalar filled there: no host copy, which a captured decode
+    step cannot hold)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(like.device, torch.float32).reshape(-1, 1)
+    return torch.full((1, 1), v, dtype=torch.float32, device=like.device)
 
 
 def apply_repetition_penalty(logits: torch.Tensor, seen_mask: torch.Tensor,
@@ -82,8 +85,15 @@ def _top_p_filter(logits: torch.Tensor, p: float) -> torch.Tensor:
 
 
 def _draw(scaled: torch.Tensor, generator) -> torch.Tensor:
+    """One draw a row from softmax(scaled): torch.multinomial's own
+    one-sample path (argmax of p / q, q ~ Exp(1) from ``generator``), the
+    same draws, without its checks of p, which read the device's values
+    back to the host: a captured decode step cannot. So invalid
+    probabilities are no longer rejected, on every path and device: a row
+    of NaN (or negative) values gives a token instead of raising."""
     probs = torch.softmax(scaled, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
 
 
 def sample(logits: torch.Tensor, generator: torch.Generator | None,

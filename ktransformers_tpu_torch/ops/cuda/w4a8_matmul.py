@@ -214,7 +214,9 @@ _SCRATCH: dict = {}
 def scratch(device, floats: int, counters: int, what: str):
     """(f32 partials, int32 counters) of at least the sizes asked, kept per
     device and kernel. The counters are zero between launches: the kernel
-    that uses them sets them back; a grown set is allocated with zeros."""
+    that uses them sets them back; a grown set is allocated with zeros and
+    replaces the smaller one here. A captured CUDA graph replays into the
+    sets it saw, so it holds them (scratch_sets, engine/cuda_graph.py)."""
     key = (str(device), what)
     buf = _SCRATCH.get(key)
     if buf is None or buf[0].numel() < floats or buf[1].numel() < counters:
@@ -225,6 +227,11 @@ def scratch(device, floats: int, counters: int, what: str):
                            device=device))
         _SCRATCH[key] = buf
     return buf
+
+
+def scratch_sets() -> tuple:
+    """Every scratch set that scratch() hands out now."""
+    return tuple(_SCRATCH.values())
 
 
 def split_k_plan(blocks: int, k2: int, gs2: int,

@@ -156,7 +156,9 @@ def rope_rotation_matrix(cos: torch.Tensor, sin: torch.Tensor,
     bot = torch.cat([-sd, cd], dim=-1)
     rot = torch.cat([top, bot], dim=-2)
     if interleaved:
-        p = torch.cat([torch.arange(d2) * 2, torch.arange(d2) * 2 + 1])
-        inv = torch.argsort(p).to(cos.device)
+        # the inverse of the [evens | odds] order, built on the device (a
+        # host copy cannot sit inside a captured decode step)
+        half = torch.arange(d2, device=cos.device)
+        inv = torch.stack([half, half + d2], -1).reshape(-1)
         rot = rot[..., inv, :][..., :, inv]
     return rot.reshape(*lead, 2 * d2, 2 * d2)

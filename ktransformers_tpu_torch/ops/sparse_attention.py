@@ -95,9 +95,19 @@ def update_page_summaries_cfg(planes: dict, new_k, pid, pos,
     if planes.get("ssum") is not None:
         planes["ssum"].index_add_(0, idx, flat)
     if planes.get("sfix") is not None:
-        # only a page's first row writes its fixed anchor
-        first = (pos.reshape(-1) % page_size) == 0
-        planes["sfix"][idx[first]] = flat[first]
+        # a page's fixed anchor is its first row's key: each row writes
+        # the key of its page's first row where this call holds that row
+        # (the same row of the same sequence, off = pos % page_size rows
+        # back), else the page's anchor as it is. Rows of one page write
+        # one value, and nothing is read back to the host, so a captured
+        # decode step can take it
+        b, s = pos.shape
+        back = torch.arange(s, device=pos.device) - pos % page_size
+        row = (torch.arange(b, device=pos.device)[:, None] * s
+               + back.clamp(min=0)).reshape(-1)
+        held = (back >= 0).reshape(-1, *([1] * (flat.dim() - 1)))
+        fixed = planes["sfix"]
+        fixed[idx] = torch.where(held, flat[row], fixed[idx])
     return planes
 
 

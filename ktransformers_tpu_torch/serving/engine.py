@@ -2,14 +2,26 @@
 (counterpart of ktransformers_tpu/serving/engine.py).
 
 scheduler (serving/scheduler.py) -> paged model step (models/paged.py) ->
-sampler (engine/sampler.py). PyTorch runs eagerly, so the steps are plain
-methods; the KV pools are updated in place. The shapes stay fixed all the
-same: the decode batch always has ``max_batch_size`` rows indexed by the
-query's slot (inactive rows carry a zero page table and write to the trash
-page 0), and prefill chunks are padded to power-of-two buckets with
-``valid`` marking the live tokens. That keeps MoE routing by row count equal
-to the JAX package's and is what a CUDA-graph capture needs; the padded
-rows are real work on the card.
+sampler (engine/sampler.py); the KV pools are updated in place. The shapes
+stay fixed: the decode batch always has ``max_batch_size`` rows indexed by
+the query's slot (inactive rows carry a zero page table and write to the
+trash page 0), and prefill chunks are padded to power-of-two buckets with
+``valid`` marking the live tokens. That keeps MoE routing by row count
+equal to the JAX package's; the padded rows are real work on the card.
+
+The decode-only step is captured in a CUDA graph and replayed
+(engine/cuda_graph.py; the JAX package jits it, its serving/engine.py:
+219-237): its state lives in fixed buffers of ``max_batch_size`` rows
+(``_dstate``: tokens, lengths, page tables, sampling parameters, the
+active mask and, with collect_routing, the routed ids), which a change of
+the batch's composition refills in place, and the step writes its next
+tokens and lengths into the same buffers. The graphs are keyed by every
+Python-level branch the step takes (penalized or not, hybrid ``valid``,
+the sparse arguments, collect_routing); the sampling generator is
+registered with them. The fused mixed step and the prefill chunks run
+eagerly, on the same buffers. On the CPU, and where capture_allowed
+refuses (``graph_steps`` False, experts in host memory, a parallel
+context), the decode step runs eagerly too.
 
 Decode-only steps are PIPELINED: a step consumes device-resident tokens and
 lengths and returns the next ones, so step N+1 is enqueued before step N's
@@ -41,15 +53,17 @@ reset before the next step's launches, so a recycled page never carries
 its previous occupant's extremes into a bound.
 
 Routing statistics (``collect_routing``): each decode-only step also
-returns its MoE layers' routed ids, and when its tokens are read back the
-active rows' ids are counted in ``stats`` (utils/expert_placement.py
+writes its MoE layers' routed ids into the decode state, copied to the host
+with its tokens, and when they are read back the active rows' ids are
+counted in ``stats`` (utils/expert_placement.py
 ExpertStatsCollector), as the JAX package's engine counts them (its
 serving/engine.py:50, 146-157, 567-571; prefill chunks are not counted, and
 the fused mixed step, which returns no ids, is off).
 ``apply_expert_rebalance(ep_size)`` drains the pipeline and stores every
 MoE layer's experts in the frequency-balanced order for ep_size ranks
-(balanced_logical_to_physical, reorder_expert_weights); the outputs do not
-change. As in the JAX package, the engine never re-places on its own.
+(balanced_logical_to_physical, reorder_expert_weights), then drops the
+captured graphs, which read the old experts; the outputs do not change.
+As in the JAX package, the engine never re-places on its own.
 """
 
 from __future__ import annotations
@@ -64,6 +78,12 @@ import torch
 
 from ktransformers_tpu_torch.cache.paged import PagedKVCache, PageAllocator
 from ktransformers_tpu_torch.cache.prefix import PrefixCache
+from ktransformers_tpu_torch.engine.cuda_graph import (
+    GraphStep,
+    StepGraphs,
+    capture_allowed,
+    readback,
+)
 from ktransformers_tpu_torch.engine.local_chat import prompt_ids_error
 from ktransformers_tpu_torch.engine.sampler import sample, sample_batched
 from ktransformers_tpu_torch.models.paged import (
@@ -105,6 +125,10 @@ def _page_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 class ServeEngine:
+    # decode steps captured in CUDA graphs where capture_allowed says so
+    # (False: every step eager, as a comparison on the card wants)
+    graph_steps = True
+
     def __init__(self, params, spec: ModelSpec,
                  cfg: SchedulerConfig = SchedulerConfig(),
                  num_pages: int = 512, cache_dtype=torch.bfloat16,
@@ -176,6 +200,7 @@ class ServeEngine:
         self._dstate = None
         self._decode_sig = None
         self._inflight = []
+        self._graphs = StepGraphs()
         # most unresolved decode steps in flight before a blocking resolve
         # of the oldest (see step())
         self.decode_pipeline_depth = int(
@@ -248,9 +273,10 @@ class ServeEngine:
 
     def _sample_decode(self, logits, st, penalized: bool):
         """Next tokens and lengths of the decode batch from its logits
-        [B, V]. 'basic' samples with per-row temperature / top-k / top-p;
-        'penalized' also applies the per-slot generated-token counts and
-        prompt mask, and counts the new tokens of the active rows."""
+        [B, V], written into st["tokens"] / st["lengths"]. 'basic' samples
+        with per-row temperature / top-k / top-p; 'penalized' also applies
+        the per-slot generated-token counts and prompt mask, and counts the
+        new tokens of the active rows."""
         active = st["active"].to(torch.int32)
         if penalized:
             toks = sample_batched(
@@ -263,13 +289,15 @@ class ServeEngine:
         else:
             toks = sample_batched(logits, self._gen, st["temps"],
                                   top_ks=st["top_ks"], top_ps=st["top_ps"])
-        return toks, st["lengths"] + active
+        st["tokens"].copy_(toks)
+        st["lengths"].add_(active)
 
     @torch.no_grad()
     def _decode_step(self, st, penalized: bool):
         """One token for every row of the fixed decode batch. Chainable: it
-        consumes st["tokens"] / st["lengths"] on the device and leaves the
-        next ones there, so the following step needs no host round trip."""
+        consumes st["tokens"] / st["lengths"] on the device and writes the
+        next ones into the same buffers, so the following step needs no
+        host round trip (and a CUDA graph of it finds them there)."""
         # a hybrid model's inactive rows must not advance their slot's
         # linear-attention state
         out = forward_paged(
@@ -277,11 +305,21 @@ class ServeEngine:
             st["tables"], st["lengths"], logits_last_only=True,
             valid=st["active"].to(torch.int32) if self._hybrid else None,
             collect_routing=self.stats is not None, **self._forward_args())
-        st["tokens"], st["lengths"] = self._sample_decode(
-            out[0][:, -1], st, penalized)
-        # the routed ids [n_moe, B, k] of this step, for the statistics
-        st["routing"] = out[2] if self.stats is not None else None
-        return st["tokens"]
+        self._sample_decode(out[0][:, -1], st, penalized)
+        if self.stats is not None:
+            # the routed ids [n_moe, B, k] of this step, for the statistics
+            st["routing"].copy_(out[2])
+
+    def _decode_graph(self, penalized: bool) -> GraphStep:
+        """The decode-only step over the decode state's buffers, keyed by
+        every Python-level branch it takes."""
+        capture = capture_allowed(self.device, self.params, self.graph_steps)
+        key = (penalized, self._hybrid, self.stats is not None,
+               self.sparse_budget, self.sparse_anchor, self.sparse_retrieval,
+               capture)
+        return self._graphs.get(self.params, key, lambda: GraphStep(
+            lambda: self._decode_step(self._dstate, penalized), self.device,
+            capture, (self._gen,)))
 
     @torch.no_grad()
     def _mixed_step(self, st, pre_tokens, pre_table, pre_length, pre_valid):
@@ -293,8 +331,7 @@ class ServeEngine:
             self.params, self.spec, st["tokens"], pre_tokens, self.kv,
             st["tables"], st["lengths"], pre_table, pre_length, pre_valid,
             **self._forward_args())
-        st["tokens"], st["lengths"] = self._sample_decode(dec_logits, st,
-                                                          False)
+        self._sample_decode(dec_logits, st, False)
         return st["tokens"], pre_logits
 
     def _can_fuse_mixed(self, qs: list[Query]) -> bool:
@@ -415,9 +452,10 @@ class ServeEngine:
             tuple((q.id, q.slot, len(q.pages), q.sampling) for q in qs),
         )
 
-    def _build_decode_state(self, qs: list[Query]) -> dict:
+    def _build_decode_state(self, qs: list[Query]) -> None:
         """Host -> device upload of the full decode-batch state, packed
-        into two transfers (one int32, one float32)."""
+        into two transfers (one int32, one float32), copied into the fixed
+        buffers of ``_dstate`` (made at the first call)."""
         b = self.cfg.max_batch_size  # fixed shape
         pmax = self.cfg.max_pages_per_query
         ints = np.zeros((3 + pmax, b), np.int32)  # tokens/lengths/top_k/table
@@ -438,25 +476,24 @@ class ServeEngine:
                            sc.presence_penalty, sc.frequency_penalty, 1.0)
         ints_d = self._to_device(ints)
         f_d = self._to_device(fpack)
-        return dict(
-            tokens=ints_d[0].to(torch.int64),
-            lengths=ints_d[1].contiguous(),
-            top_ks=ints_d[2],
-            tables=ints_d[3:].T.contiguous(),
+        new = dict(
+            tokens=ints_d[0], lengths=ints_d[1], top_ks=ints_d[2],
+            tables=ints_d[3:].T,
             temps=f_d[0], top_ps=f_d[1], reps=f_d[2], press=f_d[3],
             freqs=f_d[4], active=f_d[5],
         )
-
-    def _readback(self, toks: torch.Tensor):
-        """Start copying tokens [B] to the host: (host tensor, event or
-        None). On the card the copy is asynchronous into pinned memory."""
-        if toks.device.type != "cuda":
-            return toks.clone(), None
-        host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
-        host.copy_(toks, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(toks.device))
-        return host, event
+        if self._dstate is None:
+            self._dstate = {
+                k: torch.empty(v.shape, device=self.device,
+                               dtype=torch.int64 if k == "tokens"
+                               else v.dtype)
+                for k, v in new.items()}
+            if self.stats is not None:
+                self._dstate["routing"] = torch.zeros(
+                    (self.stats.counts.shape[0], b, self.spec.moe.top_k),
+                    dtype=torch.int32, device=self.device)
+        for k, v in new.items():
+            self._dstate[k].copy_(v)
 
     def _dispatch_decode(self, qs: list[Query]):
         """Enqueue one decode step from device-resident state and queue
@@ -473,15 +510,19 @@ class ServeEngine:
                 self._decode_sig = None
                 return
             penalized = any(q.sampling.needs_counts for q in qs)
-            self._dstate = self._build_decode_state(qs)
+            self._build_decode_state(qs)
             self._decode_sig = self._decode_signature(qs, penalized)
-        toks = self._decode_step(self._dstate, penalized)
+        self._decode_graph(penalized)()
+        st = self._dstate
+        # the next step overwrites the buffers: their tokens (and routed
+        # ids) go to the host now
+        hosts, event = readback(st["tokens"], *(
+            [st["routing"]] if self.stats is not None else []))
         # snapshot slots: a query preempted / finished while in flight has
         # its slot freed (possibly reused only after the drain that any
         # composition change forces)
-        self._inflight.append(([(q, q.slot) for q in qs],
-                               *self._readback(toks),
-                               self._dstate.get("routing")))
+        self._inflight.append(([(q, q.slot) for q in qs], hosts[0], event,
+                               *hosts[1:]))
 
     def _drain_decode(self) -> None:
         while self._inflight:
@@ -496,7 +537,7 @@ class ServeEngine:
             check_numerics(toks_np, "decode tokens")
         if routing is not None:
             # [n_moe, B, k] logical ids; the rows active at dispatch
-            r = routing.cpu().numpy()
+            r = routing.numpy()
             slots = [s for _, s in qs_slots]
             for li in range(r.shape[0]):
                 self.stats.record(li, r[li, slots])
@@ -512,7 +553,7 @@ class ServeEngine:
         pass; returns [(query, chunk, logits [1, 1, V])]."""
         sig = self._decode_signature(decode_qs, False)
         if sig != self._decode_sig:
-            self._dstate = self._build_decode_state(decode_qs)
+            self._build_decode_state(decode_qs)
             self._decode_sig = sig
         c = len(fused)
         bucket = self._bucket(max(len(ch) for _, ch in fused))
@@ -529,8 +570,8 @@ class ServeEngine:
             self._dstate, self._to_device(pt), self._to_device(tables),
             self._to_device(poss), self._to_device(valids))
         self.mixed_steps_fused += 1
-        self._resolve_decode([(q, q.slot) for q in decode_qs],
-                             *self._readback(toks))
+        (host,), event = readback(toks)
+        self._resolve_decode([(q, q.slot) for q in decode_qs], host, event)
         return [(q, ch, pre_logits[i : i + 1, None])
                 for i, (q, ch) in enumerate(fused)]
 
@@ -612,8 +653,10 @@ class ServeEngine:
             layers.append({**lp, "moe": {
                 **lp["moe"], "experts": reorder_expert_weights(w, l2p)}})
             li_moe += 1
+        # a new tree: the graphs captured over the old experts are dropped
+        # at the next step (StepGraphs), and the decode state is refilled
         self.params = {**self.params, "layers": layers}
-        self._decode_sig = None  # the device decode state is rebuilt
+        self._decode_sig = None
 
     # -- public API ---------------------------------------------------------
 

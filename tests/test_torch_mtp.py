@@ -82,7 +82,8 @@ def test_init_mtp_synthetic_is_the_jax_head(arch, quant):
     m = models(arch)
     jm = mtp_params_from_jax(jax.device_get(init_mtp_synthetic(
         m.jspec, seed=11, quant=quant)), m.spec, "cpu")
-    tm = tmtp.init_mtp_synthetic(m.spec, seed=11, quant=quant)
+    tm = tmtp.init_mtp_synthetic(m.spec, seed=11, quant=quant,
+                                 device="cpu")
 
     def leaves(node, path=""):
         if isinstance(node, dict):
@@ -212,7 +213,7 @@ def test_mtp_params_from_provider(tmp_path):
     path = str(tmp_path / "mtp.safetensors")
     save_file({k: torch.from_numpy(v) for k, v in tensors.items()}, path)
     head = tmtp.mtp_params_from_provider(SafetensorsProvider(path), m.spec,
-                                         quant="bf16")
+                                         quant="bf16", device="cpu")
 
     class Dict(JProvider):
         def get(self, name):

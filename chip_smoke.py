@@ -60,27 +60,33 @@ Phases (any failure exits non-zero before the final line):
             layers, card tokens equal to the CPU's (penalty_check);
 5. serve:   the full 27-layer config (int4_g weights) in a Generator at
             max_len 1024 answering 2 requests of 512 seeded prompt tokens
-            and 32 greedy new tokens through its decode step captured in a
-            CUDA graph (engine/cuda_graph.py) and the depth-24 pipelined
-            readback, each request's tokens equal to the eager
-            decode_step loop's (every model phase serving a Generator holds
-            this); every single-user kernel must launch; then every
+            and 32 greedy new tokens through its prefill chunks and decode
+            step captured in CUDA graphs (engine/cuda_graph.py; a
+            768-token warm-up captures the 256-token chunk's step) and the
+            depth-24 pipelined readback, each request's tokens equal to
+            the eager prefill and decode_step loop's (every model phase
+            serving a Generator holds this); every single-user kernel must
+            launch; then every
             scratch set is replaced by one twice its size after the
             capture and a replay must still give the eager tokens, and a
             sampled run repeats token for token under one seed;
 6. paged serve: a ServeEngine over the same parameters (batch 8, chunk 256,
-            page 64, 512 pages; its decode step captured and replayed)
+            page 64, 512 pages; its prefill, decode and mixed steps
+            captured and replayed)
             answering 8 requests in three waves, 32 greedy tokens each, at
             decode pipeline depth 3; mixed steps, a 256-token prefix hit,
             page accounting and agreement with the single-user Generator
             are checked (and that the prompts give at least 4 distinct
             first tokens, without which that agreement would not see the
-            prompt); the same run with the decode step eager gives the
-            same tokens;
-7. profile: a prefill chunk and a decode step of the Generator (eager and
-            replayed from its graph), a batch-8 decode step (replayed and
-            eager) and a mixed step of the ServeEngine: wall time,
-            launches per step, device time by kernel (torch.profiler); a
+            prompt); the same run with every step eager gives the same
+            tokens, a mixed step having been captured;
+7. profile: a prefill chunk and a decode step of the Generator, a batch-8
+            decode step and a mixed step of the ServeEngine (a hybrid
+            model's split step), each eager and replayed from its graph
+            (each port kernel as often in the captured graph's nodes as
+            in the eager step's trace, every kernel at least as often in
+            the replay's trace), and the graph pools' bytes: wall time, launches per step (equal for
+            the two), device time by kernel (torch.profiler); a
             step that still launches a first-version instantiation its
             routes replace (8-row tiles on bf16, one-row quant_matmul
             tiles, any W4A8 rows kernel, the FFN's gate_up of 1 and 4 rows
@@ -350,6 +356,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -1917,6 +1924,25 @@ INT8_SINGLE_USER_KERNELS = ("quant_matmul", "gathered_quant_matmul",
                             "mla_decode_attention")
 
 
+# the warm-up prompt of a Generator: three 256-token chunks, so the chunk's
+# prefill step is captured (WARMUP eager calls, then the capture) before a
+# timed request
+WARM_CHUNKS = 3
+
+
+def warm_generator(gen) -> None:
+    """A warm-up request (allocator, cuBLAS handles, the 256-token chunk's
+    prefill step and the greedy decode step warmed up and captured) under
+    the current ops.attention switches; not counted."""
+    from ktransformers_tpu_torch.engine.cuda_graph import WARMUP
+    from ktransformers_tpu_torch.engine.generate import GenerateConfig
+
+    n = min(WARM_CHUNKS * 256, min(gen.max_len, gen.spec.rope.max_position)
+            - WARMUP - 3)
+    gen.generate([t % gen.spec.vocab_size for t in range(n)],
+                 GenerateConfig(max_new_tokens=WARMUP + 3))
+
+
 def timed_generate(gen, prompt: list, cfg) -> tuple:
     """gen.generate of one prompt: (tokens, ttft s, decode tok/s). The
     pipeline resolves tokens in bunches, so ttft is the first token's
@@ -1952,11 +1978,15 @@ def hold_graphed(what: str, gen, prompt: list, got: list,
                  chunk: int = 256) -> None:
     """The graphed Generator's greedy tokens ``got`` against the eager
     loop's on the same prompt, token for token (the same kernels on the
-    same operands), and its greedy decode step captured."""
+    same operands), its greedy decode step and the 256-token chunk's
+    prefill step captured."""
     from ktransformers_tpu_torch.engine.sampler import SamplingConfig
 
     if not gen.decode_graph(SamplingConfig()).graphed:
         raise AssertionError(f"{what}: the decode step was not captured")
+    if not gen.prefill_graph(256).graphed:
+        raise AssertionError(f"{what}: the 256-token prefill step was not "
+                             "captured")
     want = eager_greedy(gen, prompt, len(got), chunk)
     if got != want:
         raise AssertionError(f"{what}: graphed tokens {got} != eager {want}")
@@ -2024,11 +2054,10 @@ def serve(result: dict, quant: str = "int4_g", key: str = "serve",
     names another) with ``quant`` weights (``moe_quant`` for the routed
     experts, default the same) at ``max_len`` cache positions answering
     ``requests`` requests of 512 (or ``prompt_lens``) + 32 tokens through
-    its graphed decode step, each request's tokens held to the eager
-    loop's; with unfused_last the last one decodes with the fused decode
-    kernel switched off. With ``checks`` also the scratch growth and the
+    its graphed prefill and decode steps, each request's tokens held to
+    the eager loop's; with unfused_last the last one decodes with the
+    fused decode kernel switched off. With ``checks`` also the scratch growth and the
     sampled repeat (scratch_growth_check, sampled_repeat_check)."""
-    from ktransformers_tpu_torch.engine.cuda_graph import WARMUP
     from ktransformers_tpu_torch.engine.generate import (
         GenerateConfig,
         Generator,
@@ -2057,14 +2086,12 @@ def serve(result: dict, quant: str = "int4_g", key: str = "serve",
     log(f"{key}: {cfg['model_type']} {quant} / {moe_quant or quant} params "
         f"{pbytes / 1e9:.3f} GB ready in {init_s:.1f} s")
 
-    # warm-up requests (allocator, cuBLAS handles; the greedy decode
-    # step's warm-up calls and capture, with the fused decode off too
-    # where a request takes it); not counted
+    # warm-up requests (warm_generator), with the fused decode off too
+    # where a request takes it
     for fused in (True, False) if unfused_last else (True,):
         attention.MLA_FUSED = fused
         try:
-            gen.generate(list(range(8)),
-                         GenerateConfig(max_new_tokens=WARMUP + 3))
+            warm_generator(gen)
         finally:
             attention.MLA_FUSED = True
     torch.cuda.synchronize()
@@ -2374,6 +2401,9 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS,
         kv_pool_bytes=eng.kv.bytes_per_page() * num_pages,
         state_bytes=eng.kv.state_bytes(), state_resets=resets,
         graphs_captured=eng._graphs.captured(),
+        graphs_by_kind={k: eng._graphs.captured(k)
+                        for k in ("prefill", "mixed")},
+        graph_pool_bytes=eng._graphs.pool_bytes(),
     )
     log(f"paged serve depth {depth}: {steps} engine steps "
         f"({eng.mixed_steps_fused} fused mixed) in {wall:.2f} s, "
@@ -2381,7 +2411,10 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS,
         f"{[round(t * 1e3) for t in out['ttft_s']]}; mean tbt ms "
         f"{[round(t * 1e3, 1) for t in out['tbt_s']]}; matched "
         f"{out['matched_len']}; stages {json.dumps(out['stage_timer'])}; "
-        f"max_memory_allocated {out['max_memory_allocated'] / 1e9:.3f} GB")
+        f"max_memory_allocated {out['max_memory_allocated'] / 1e9:.3f} GB; "
+        f"captured {out['graphs_captured']} steps "
+        f"({json.dumps(out['graphs_by_kind'])}), graph pools "
+        f"{json.dumps(out['graph_pool_bytes'])} bytes")
     vocab = gen.spec.vocab_size
     for i in range(8):
         t = out["tokens"][i]
@@ -2407,7 +2440,7 @@ def paged_serve_run(gen, prompts, depth: int, expect=PAGED_KERNELS,
     if missing:
         raise AssertionError(f"kernels not launched by paged serve: {missing}")
     if graphs != bool(out["graphs_captured"]):
-        raise AssertionError(f"paged serve: {out['graphs_captured']} decode "
+        raise AssertionError(f"paged serve: {out['graphs_captured']} "
                              f"steps captured, graph_steps {graphs}")
     return out
 
@@ -2549,11 +2582,13 @@ def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(3,),
     to that token, as must request 0's (the longest prompt) over its
     prompt and first 8 tokens: request 0 measures the spread, every
     request is held to it (reroute_check). With ``eager`` the first depth
-    runs once more with the decode step eager, whose tokens must equal the
-    graphed run's token for token."""
+    runs once more with every step eager, whose tokens must equal the
+    graphed run's token for token, where a mixed step was captured."""
     prompts = prompts or paged_prompts(gen.spec.vocab_size)
     runs = {depth: paged_serve_run(gen, prompts, depth, expect, sched)
             for depth in depths}
+    if eager and not runs[depths[0]]["graphs_by_kind"]["mixed"]:
+        raise AssertionError(f"{key}: no mixed step was captured")
     if eager:
         ref = paged_serve_run(gen, prompts, depths[0], expect, sched,
                               graphs=False)
@@ -2618,30 +2653,29 @@ def paged_serve(result: dict, gen, key: str = "paged_serve", depths=(3,),
 # ---------------------------------------------------------------- profile
 
 
+# the base names of the port's kernels (an instantiation's name holds one)
+PORT_KERNELS = ("w4a8_rows_kernel", "ffn_up_kernel", "w4a8_mma_kernel",
+                "quant_mma_kernel", "w4a8_gemv_kernel", "w4a8_ffn_mma_kernel",
+                "w4a8_prep_kernel", "mla_decode_fused_kernel",
+                "mla_paged_decode_kernel", "mla_paged_prefill_kernel",
+                "quant_rows_kernel", "mla_decode_attention_kernel",
+                "gqa_paged_decode_kernel", "gqa_decode_combine_kernel",
+                "gqa_paged_prefill_kernel", "quant_rows_t_kernel",
+                "quant_gemv_kernel", "quant_wgmma_t_kernel",
+                "mla_decode_split_kernel", "mla_prefill_mma_kernel",
+                "mla_paged_decode_split_kernel", "gqa_prefill_mma_kernel",
+                "w4a8_ffn_gemv_kernel", "gqa_decode_split_kernel",
+                "w4a8_prep_block_kernel")
+
+
+def port_kernel_base(name: str):
+    """The base name (PORT_KERNELS) of a port kernel's name, or None."""
+    found = [k for k in PORT_KERNELS if k in name]
+    return max(found, key=len) if found else None
+
+
 def _is_port_kernel(name: str) -> bool:
-    return any(k in name for k in ("w4a8_rows_kernel", "ffn_up_kernel",
-                                   "w4a8_mma_kernel", "quant_mma_kernel",
-                                   "w4a8_gemv_kernel",
-                                   "w4a8_ffn_mma_kernel",
-                                   "w4a8_prep_kernel",
-                                   "mla_decode_fused_kernel",
-                                   "mla_paged_decode_kernel",
-                                   "mla_paged_prefill_kernel",
-                                   "quant_rows_kernel",
-                                   "mla_decode_attention_kernel",
-                                   "gqa_paged_decode_kernel",
-                                   "gqa_decode_combine_kernel",
-                                   "gqa_paged_prefill_kernel",
-                                   "quant_rows_t_kernel",
-                                   "quant_gemv_kernel",
-                                   "quant_wgmma_t_kernel",
-                                   "mla_decode_split_kernel",
-                                   "mla_prefill_mma_kernel",
-                                   "mla_paged_decode_split_kernel",
-                                   "gqa_prefill_mma_kernel",
-                                   "w4a8_ffn_gemv_kernel",
-                                   "gqa_decode_split_kernel",
-                                   "w4a8_prep_block_kernel"))
+    return port_kernel_base(name) is not None
 
 
 # first-version instantiations no call of the main paths should take: the
@@ -2688,21 +2722,74 @@ def wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def kernel_rows(fn):
-    """(kernel name, device ms, count) of one profiled call, kernel events
-    only, largest first."""
+# spin kernels (torch.cuda._sleep, ~0.1 ms each) a profiled call of
+# kernel_rows runs between, before and after it: a trace on the H100 loses
+# a profile's first device events now and then (21 of a DeepSeek-V3
+# chunk's 972, a w4a8_prep and a w4a8_mma among them, in every profile of
+# some runs; 20 of the 32 leading spins in a development run; all 32 in 3
+# profiles of a decode forward 10 minutes into a run), which are then
+# spins; each new profile of a call takes PROFILE_PAD_GROWTH times as many
+PROFILE_PAD = 32
+PROFILE_PAD_GROWTH = 8
+PROFILE_PAD_CYCLES = 200_000
+_SPIN = "spin_kernel"
+# profiles of a call at most while the trace lost every leading spin
+PROFILE_TRIES = 3
+
+
+def _profile(fn, spins: int) -> tuple:
+    """(device events in time order, leading spins kept, trailing spins
+    kept) of one profiled call of fn between ``spins`` spins a side."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def pad():
+        for _ in range(spins):
+            torch.cuda._sleep(PROFILE_PAD_CYCLES)
+        torch.cuda.synchronize()
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        pad()
         fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+        pad()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    lead = next((i for i, e in enumerate(events) if _SPIN not in e.name),
+                len(events))
+    return events, lead, sum(_SPIN in e.name for e in events[lead:])
+
+
+def kernel_rows(fn):
+    """(kernel name, device ms, count) of one profiled call, device events
+    only (kernels, copies, fills), largest first, summed from the trace's
+    events (key_averages() dropped some on the H100: 717 of a DeepSeek-V3
+    batch-8 step's 737). The call runs between PROFILE_PAD spin kernels
+    on each side, which are left out; while the trace kept no leading
+    spin, and so may have lost the call's first events, it is profiled
+    again (up to PROFILE_TRIES calls) with PROFILE_PAD_GROWTH times the
+    spins."""
+    spins = PROFILE_PAD
+    for _ in range(PROFILE_TRIES):
+        events, lead, trail = _profile(fn, spins)
+        if lead:
+            break
+        log(f"profile: the trace lost all {spins} leading spin kernels "
+            f"(kept {trail} of the trailing ones); again with "
+            f"{spins * PROFILE_PAD_GROWTH}")
+        spins *= PROFILE_PAD_GROWTH
+    else:
+        raise AssertionError(f"profile: {PROFILE_TRIES} traces each lost "
+                             "all their leading spin kernels")
+    agg: dict = {}
+    for e in events:
+        if _SPIN not in e.name:
+            ms, n = agg.get(e.name, (0.0, 0))
+            agg[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    rows = [(k, ms, n) for k, (ms, n) in agg.items()]
     return sorted(rows, key=lambda r: -r[1])
 
 
@@ -2755,87 +2842,179 @@ REPLAY_PROFILE_TRIES = 3
 REPLAY_PROLOGUE_MAX = 4
 
 
+def _is_copy_event(name: str) -> bool:
+    """A copy or fill of memory, not a kernel of the step: the trace names
+    an eager step's "Memcpy DtoD (...)" / "Memset (...)", while a replay
+    runs the copies its graph recorded as kernels named "memcpy32_post"
+    (as the H100's trace names them)."""
+    return name.lower().startswith(("memcpy", "memset"))
+
+
+# the counts' key of every copy or fill event (_is_copy_event)
+COPY_EVENTS = "<copy events>"
+
+
 def _kernel_counts(rows) -> dict:
     out: dict = {}
     for k, _, n in rows:
-        out[k] = out.get(k, 0) + n
+        key = COPY_EVENTS if _is_copy_event(k) else k
+        out[key] = out.get(key, 0) + n
     return out
 
 
-def replay_kernel_gaps(graphed: dict, eager: dict, copies: int) -> list:
-    """What a replay's profiled kernels (counts by name) lack against the
-    eager step's: a port kernel counted otherwise, any kernel counted fewer
-    times, or more kernels added than its ``copies`` into the static
+def _port_counts(counts: dict) -> dict:
+    """Counts by name -> the port kernels' counts by base name."""
+    out: dict = {}
+    for k, n in counts.items():
+        base = port_kernel_base(k)
+        if base:
+            out[base] = out.get(base, 0) + n
+    return out
+
+
+# GraphStep -> its graph's port kernels (graph_port_kernels)
+_GRAPH_NODES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def graph_port_kernels(step, what: str) -> dict:
+    """The port kernels a captured GraphStep's graph launches, by base
+    name: its kernel nodes, read from the graph's Graphviz dump
+    (GraphStep.dump, the capture made under cuda_graph.DEBUG_GRAPHS; each
+    node's block names its kernel once, mangled). One node a launch, so a
+    replay launches these and nothing else of the port's, whatever its
+    profiler trace names."""
+    if step in _GRAPH_NODES:
+        return _GRAPH_NODES[step]
+    path = os.path.join(OUT_DIR, "graph_nodes.dot")
+    step.dump(path)
+    with open(path) as fh:
+        text = fh.read()
+    os.remove(path)
+    nodes = re.split(r'"graph_\d+_node_\d+"\s*\[', text)[1:]
+    if not nodes:
+        raise AssertionError(f"profile {what}: the graph's dump holds no "
+                             f"node: {text[:300]!r}")
+    out: dict = {}
+    for node in nodes:
+        base = port_kernel_base(node)
+        if base:
+            out[base] = out.get(base, 0) + 1
+    _GRAPH_NODES[step] = out
+    return out
+
+
+def _repeated(counts: list):
+    """Of one side's profiles (counts by name), the counts that repeat
+    (the only profile's where there is one), else None."""
+    if len(counts) == 1:
+        return counts[0]
+    return next((c for i, c in enumerate(counts) if c in counts[i + 1:]),
+                None)
+
+
+def replay_kernel_gaps(graphed: dict, eager: dict, nodes: dict,
+                       copies: int) -> list:
+    """What a replay lacks against the eager step: a port kernel whose
+    graph nodes (``nodes``, by base name) are not as many as the eager
+    step's profiled launches; any kernel the replay's trace (counts by
+    name, every copy event under COPY_EVENTS) counts fewer times than the
+    eager step's; more events added than its ``copies`` into the static
     buffers and REPLAY_PROLOGUE_MAX."""
-    gaps = [f"{k[:70]}: {graphed.get(k, 0)} against {n}"
-            for k, n in eager.items()
-            if graphed.get(k, 0) < n
-            or (_is_port_kernel(k) and graphed.get(k, 0) != n)]
-    gaps += [f"{k[:70]}: {n} against none" for k, n in graphed.items()
-             if k not in eager and _is_port_kernel(k)]
+    ports = _port_counts(eager)
+    gaps = [f"{k}: {nodes.get(k, 0)} graph nodes against {ports.get(k, 0)}"
+            for k in sorted(set(ports) | set(nodes))
+            if nodes.get(k, 0) != ports.get(k, 0)]
+    gaps += [f"{k[:70]}: {graphed.get(k, 0)} against {n}"
+             for k, n in eager.items()
+             if k != COPY_EVENTS and graphed.get(k, 0) < n]
     added = sum(graphed.values()) - sum(eager.values())
     if added > copies + REPLAY_PROLOGUE_MAX:
-        gaps.append(f"{added} kernels added, at most {copies} copies + "
+        gaps.append(f"{added} events added, at most {copies} copies + "
                     f"{REPLAY_PROLOGUE_MAX}")
     return gaps
 
 
-def hold_replay_kernels(what: str, graphed_fn, eager_fn, graphed_rows,
+def hold_replay_kernels(what: str, steps, graphed_fn, eager_fn, graphed_rows,
                         eager_rows, copies: int):
-    """The profiler's kernels of a replayed step held against the eager
-    step's, the independent evidence that a graph launches every kernel
-    (the launch counts cannot show it: a replay re-adds what its capture
-    counted). Each port kernel as many times, every other kernel at least
-    as many times, at most ``copies`` + REPLAY_PROLOGUE_MAX added. A trace
-    can lose events: while the counts fall short, both sides are profiled
-    again (up to REPLAY_PROFILE_TRIES calls each) and each name's largest
-    count is held. If the counts still fall short and a side's calls
-    counted differently, the trace lost events: that is recorded and
-    nothing is held; if every call counted alike, this raises. Returns
-    the two fullest traces' rows and the record."""
+    """A replayed step held against the eager step, the independent
+    evidence that a graph launches every kernel (the launch counts cannot
+    show it: a replay re-adds what its capture counted): each port kernel
+    as many times in the nodes of the captured graphs ``steps`` (the
+    GraphSteps graphed_fn replays; graph_port_kernels) as in the eager
+    step's trace, every kernel at least as many times in the
+    replay's trace, at most ``copies`` + REPLAY_PROLOGUE_MAX events added
+    (replay_kernel_gaps; copy and fill events counted together,
+    _is_copy_event). The port kernels the replay's trace counts beyond
+    the graph's nodes are recorded (``trace_port_surplus``). A trace can
+    lose or gain events: while gaps remain, both sides are profiled again
+    (up to REPLAY_PROFILE_TRIES calls each) and each side's counts that
+    repeat are held. If a side's counts never repeat, the trace is
+    recorded as unsteady and nothing is held; if both repeat and gaps
+    remain, this raises. Returns the held profiles' rows and the
+    record."""
+    nodes: dict = {}
+    for step in steps:
+        for k, n in graph_port_kernels(step, what).items():
+            nodes[k] = nodes.get(k, 0) + n
     tries = [[graphed_rows], [eager_rows]]
     while True:
-        most = [{} for _ in tries]
-        for side, rows_of in zip(most, tries):
-            for rows in rows_of:
-                for k, n in _kernel_counts(rows).items():
-                    side[k] = max(side.get(k, 0), n)
-        gaps = replay_kernel_gaps(most[0], most[1], copies)
-        if not gaps or len(tries[0]) == REPLAY_PROFILE_TRIES:
+        counts = [[_kernel_counts(rows) for rows in side] for side in tries]
+        held = [_repeated(side) for side in counts]
+        gaps = (replay_kernel_gaps(held[0], held[1], nodes, copies)
+                if None not in held else None)
+        if gaps == [] or len(tries[0]) == REPLAY_PROFILE_TRIES:
             break
         tries[0].append(kernel_rows(graphed_fn))
         tries[1].append(kernel_rows(eager_fn))
     totals = [[sum(r[2] for r in rows) for rows in side] for side in tries]
-    fullest = [max(side, key=lambda rows: sum(r[2] for r in rows))
-               for side in tries]
-    record = dict(held=not gaps, profiled=totals[0], eager_profiled=totals[1],
-                  added=sum(most[0].values()) - sum(most[1].values()),
-                  copies=copies)
-    if not gaps:
-        log(f"profile {what}: the replay's kernels hold against the eager "
-            f"step's ({record['added']} added, {copies} copies; profiled "
-            f"{totals[0]} / {totals[1]})")
-    elif any(len(set(t)) > 1 for t in totals):
-        record["lost_events"] = gaps[:8]
-        log(f"profile {what}: trace lost events (profiled {totals[0]} / "
-            f"{totals[1]} kernels), nothing held: {gaps[:4]}")
+    rows_of = [side[c.index(h)] if h is not None else side[0]
+               for side, c, h in zip(tries, counts, held)]
+    traced = _port_counts(held[0] or counts[0][0])
+    record = dict(held=gaps == [], profiled=totals[0],
+                  eager_profiled=totals[1],
+                  held_kernels=[sum(r[2] for r in rows) for rows in rows_of],
+                  graph_port_kernels=sum(nodes.values()), copies=copies,
+                  copy_events=[sum(r[2] for r in rows if _is_copy_event(r[0]))
+                               for rows in rows_of],
+                  trace_port_surplus={k: n - nodes.get(k, 0)
+                                      for k, n in traced.items()
+                                      if n > nodes.get(k, 0)})
+    if held[0] is not None and held[1] is not None:
+        record["added"] = sum(held[0].values()) - sum(held[1].values())
+    if gaps == []:
+        log(f"profile {what}: the replay holds against the eager step "
+            f"({record['graph_port_kernels']} port kernel nodes; "
+            f"{record['added']} events added, {copies} copies; profiled "
+            f"{totals[0]} / {totals[1]}, held {record['held_kernels']}; "
+            f"copy events {record['copy_events']}"
+            + (f"; the trace names more port kernels than the graph "
+               f"holds: {record['trace_port_surplus']}"
+               if record["trace_port_surplus"] else "") + ")")
+    elif gaps is None:
+        record["unsteady"] = True
+        log(f"profile {what}: a side's profiles never repeated (profiled "
+            f"{totals[0]} / {totals[1]} kernels), nothing held")
     else:
-        raise AssertionError(f"profile {what}: the replay's kernels do not "
-                             f"hold against the eager step's: {gaps[:8]}")
-    return fullest[0], fullest[1], record
+        raise AssertionError(f"profile {what}: the replay does not hold "
+                             f"against the eager step: {gaps[:8]} "
+                             f"(profiled {totals[0]} / {totals[1]})")
+    return rows_of[0], rows_of[1], record
 
 
 def profile_steps(result: dict, gen, prefix: str = "") -> None:
     """Where the time of a 256-token prefill chunk (the second of a
-    512-token prompt) and of a decode step over those 512 tokens goes, the
-    step eager (decode_step) and replayed from the Generator's CUDA graph
-    (decode_step_graphed). Wall time: median of 3 unprofiled chunks (each
-    on a fresh cache), mean of 8 unprofiled decode steps; event_ms: the
-    mean between CUDA events over 8 more. Launches: per chunk and per step
-    (a replay counts the captured step's). Device time by kernel:
-    torch.profiler over one more chunk and one more step (kernel events
-    only, so PyTorch ops are not counted twice). Runs after the serve
-    counts were read, so it adds nothing to them."""
+    512-token prompt) and of a decode step over those 512 tokens goes,
+    each step eager (prefill, decode_step) and replayed from the
+    Generator's CUDA graphs (prefill_chunk_graphed, decode_step_graphed).
+    Wall time: median of 3 unprofiled chunks (the eager ones each on a
+    fresh cache; the replays over the step cache, its lengths set back to
+    256 before each), mean of 8 unprofiled decode steps; event_ms: the mean
+    between CUDA events over 8 more steps, 4 more chunks. Launches: per
+    chunk and per step (a replay counts the captured step's). Device time
+    by kernel: torch.profiler over one more chunk and one more step
+    (kernel events only, so PyTorch ops are not counted twice), each
+    replay's kernels held against the eager step's (hold_replay_kernels).
+    Runs after the serve counts were read, so it adds nothing to them."""
     from ktransformers_tpu_torch.engine.cuda_graph import WARMUP
     from ktransformers_tpu_torch.engine.generate import GenerateConfig
     from ktransformers_tpu_torch.ops.cuda import LAUNCHES, reset_launches
@@ -2843,6 +3022,9 @@ def profile_steps(result: dict, gen, prefix: str = "") -> None:
     prompt = torch.as_tensor(np.random.default_rng(200).integers(
         0, gen.spec.vocab_size, (1, 512)), device=gen.device)
     first, second = prompt[:, :256], prompt[:, 256:]
+    spec = gen.spec
+    linear = sum(spec.layer_kind(li) == "linear"
+                 for li in range(spec.num_layers))
 
     def primed(chunks: int):
         cache = gen.new_cache()
@@ -2852,17 +3034,58 @@ def profile_steps(result: dict, gen, prefix: str = "") -> None:
         return cache, last.argmax(-1)
 
     steps = {}
-    # prefill chunk
+    # prefill chunk, eager: each call on the cache of the first chunk
+    # (prefill rebinds the cache's lengths, so setting them back launches
+    # nothing)
+    cache, _ = primed(1)
+    start = cache.lengths
+
+    def chunk():
+        cache.lengths = start
+        gen.prefill(cache, second)
+
     walls = []
     for _ in range(3):
-        cache, _ = primed(1)
         reset_launches()
-        walls.append(wall_ms(lambda: gen.prefill(cache, second)))
+        walls.append(wall_ms(chunk))
     chunk_launches = dict(LAUNCHES)
-    cache, _ = primed(1)
-    steps[prefix + "prefill_chunk"] = (
-        statistics.median(walls), chunk_launches,
-        kernel_rows(lambda: gen.prefill(cache, second)))
+    chunk_rows = kernel_rows(chunk)
+    # the same chunk replayed from the Generator's prefill step over the
+    # step cache (gen.prime: the prompt in two chunks, capturing the
+    # step where the warm-up has not), its lengths set back in place
+    pstep = gen.prefill_graph(256)
+    for _ in range(2):
+        if not pstep.graphed:
+            gen.prime(prompt, GenerateConfig())
+    if not pstep.graphed:
+        raise AssertionError(f"profile {prefix}: the prefill step was not "
+                             "captured")
+    st = gen.decode_state()
+    st.chunk(256).copy_(second)
+
+    def chunk_graphed():
+        st.cache.lengths.fill_(256)
+        pstep()
+
+    gwalls = []
+    for _ in range(3):
+        reset_launches()
+        gwalls.append(wall_ms(chunk_graphed))
+    pgraph_launches = dict(LAUNCHES)
+    if pgraph_launches != chunk_launches:
+        raise AssertionError(f"profile {prefix}: a prefill replay counts "
+                             f"{pgraph_launches}, an eager chunk "
+                             f"{chunk_launches}")
+    # the replay's extra kernels: the lengths' fill, the body's copies of
+    # the logits and lengths and each GatedDeltaNet layer's conv tail and
+    # state (generate._commit)
+    pgraph_rows, chunk_rows, pheld = hold_replay_kernels(
+        prefix + "prefill_chunk_graphed", [pstep], chunk_graphed, chunk,
+        kernel_rows(chunk_graphed), chunk_rows, 3 + 2 * linear)
+    steps[prefix + "prefill_chunk"] = (statistics.median(walls),
+                                       chunk_launches, chunk_rows)
+    steps[prefix + "prefill_chunk_graphed"] = (statistics.median(gwalls),
+                                               pgraph_launches, pgraph_rows)
     # decode step
     cache, tok = primed(2)
     state = {"tok": tok}
@@ -2893,22 +3116,26 @@ def profile_steps(result: dict, gen, prefix: str = "") -> None:
                              f"{step_launches}")
     # the body's copies: the next tokens, the lengths and each
     # GatedDeltaNet layer's conv tail and state (generate._commit)
-    spec = gen.spec
-    copies = 2 + 2 * sum(spec.layer_kind(li) == "linear"
-                         for li in range(spec.num_layers))
     graph_rows, eager_rows, held = hold_replay_kernels(
-        prefix + "decode_step_graphed", graph, step, kernel_rows(graph),
-        eager_rows, copies)
+        prefix + "decode_step_graphed", [graph], graph, step,
+        kernel_rows(graph), eager_rows, 2 + 2 * linear)
     steps[prefix + "decode_step"] = (eager_wall, step_launches, eager_rows)
     steps[prefix + "decode_step_graphed"] = (wall, graph_launches,
                                              graph_rows)
 
-    result.setdefault("profile", {}).update(summarize_steps(steps))
-    result["profile"][prefix + "decode_step_graphed"]["replay_kernels"] = \
-        held
-    for name in ("decode_step", "decode_step_graphed"):
-        result["profile"][prefix + name]["event_ms"] = event_ms(
-            step if name == "decode_step" else graph)
+    prof = result.setdefault("profile", {})
+    prof.update(summarize_steps(steps))
+    prof[prefix + "decode_step_graphed"]["replay_kernels"] = held
+    prof[prefix + "prefill_chunk_graphed"]["replay_kernels"] = pheld
+    for name, fn, n in (("decode_step", step, 8),
+                        ("decode_step_graphed", graph, 8),
+                        ("prefill_chunk", chunk, 4),
+                        ("prefill_chunk_graphed", chunk_graphed, 4)):
+        prof[prefix + name]["event_ms"] = event_ms(fn, n)
+    pools = gen._graphs.pool_bytes()
+    prof[prefix + "prefill_chunk_graphed"]["graph_pool_bytes"] = pools
+    log(f"profile {prefix}: the Generator's captured steps reserve "
+        f"{json.dumps(pools)} bytes of graph pools")
 
 
 # activation preps of a DeepSeek-V2-Lite W4A8 step of the served batch of
@@ -2932,19 +3159,48 @@ def hold_prep(result: dict, prefix: str = "", b8: int = 0) -> None:
 
 
 def profile_engine_steps(result: dict, gen, prefix: str = "") -> None:
-    """A decode step of the ServeEngine at a batch of 8 (512-token prompts,
-    pipelined: mean wall of 8 steps, one more profiled), replayed from its
-    graph and eager (serve_decode_step_b8_eager), and a fused mixed
-    step (the fixed 8 decode rows, 7 of them live, plus one 256-token chunk
-    of a new 600-token prompt: one step for the wall time and the launches,
-    the next one profiled). A hybrid model's engine runs that step's
-    decode and chunk as two passes (serve_split_step_b8_s256)."""
+    """The ServeEngine's steps. First three single requests of 512 tokens
+    and one new token (no decode batch: a 512-token prefill step each,
+    captured at the third, whose token is held to the eager step's). Then
+    a decode step at a batch of 8 (512-token prompts, pipelined: mean wall
+    of 8 steps, one more profiled), replayed from its graph and eager
+    (serve_decode_step_b8_eager), and a fused mixed step (the fixed 8
+    decode rows, 7 of them live, plus the second 256-token chunk of a new
+    600-token prompt, whose host position is set back to 256 before each
+    step, so every step runs the same chunk: one step for the wall time and
+    the launches, the next one profiled), replayed from the (256, 1) key's
+    graph and eager (serve_mixed_step_b8_s256_eager). A hybrid model's
+    engine runs that step's decode and chunk as two passes, its decode
+    step and its 256-token prefill step (serve_split_step_b8_s256). Each
+    replay's kernels are held against the eager step's; the graph pools'
+    bytes are recorded."""
+    from ktransformers_tpu_torch.engine.cuda_graph import WARMUP
     from ktransformers_tpu_torch.ops.cuda import LAUNCHES, reset_launches
     from ktransformers_tpu_torch.serving import SchedulerConfig, ServeEngine
 
     vocab = gen.spec.vocab_size
     eng = ServeEngine(gen.params, gen.spec, SchedulerConfig(), num_pages=512,
                       enable_prefix_cache=False, device="cuda")
+
+    def eager(fn):
+        def run():
+            eng.graph_steps = False
+            try:
+                return fn()
+            finally:
+                eng.graph_steps = True
+        return run
+
+    single = np.random.default_rng(399).integers(0, vocab, 512).tolist()
+    for _ in range(WARMUP + 1):
+        got = eng.generate_sync(single, max_new_tokens=1)
+    if not eng._prefill_graph(512)[0].graphed:
+        raise AssertionError(f"profile {prefix}: the engine's 512-token "
+                             "prefill step was not captured")
+    want = eager(lambda: eng.generate_sync(single, max_new_tokens=1))()
+    if got != want:
+        raise AssertionError(f"profile {prefix}: the replayed prefill step "
+                             f"gives {got}, the eager one {want}")
     qs = [eng.submit(np.random.default_rng(400 + i).integers(
         0, vocab, 512).tolist(), max_new_tokens=400) for i in range(8)]
     while any(q.state != "decode" for q in qs):
@@ -2960,14 +3216,7 @@ def profile_engine_steps(result: dict, gen, prefix: str = "") -> None:
     if not eng._graphs.captured():
         raise AssertionError("profile: the engine's decode step was not "
                              "captured")
-
-    def eager_step():
-        eng.graph_steps = False
-        try:
-            eng.step()
-        finally:
-            eng.graph_steps = True
-
+    eager_step = eager(eng.step)
     # the same steps eager
     reset_launches()
     eager_step()
@@ -2979,32 +3228,72 @@ def profile_engine_steps(result: dict, gen, prefix: str = "") -> None:
                              f"{eager_launches}")
     # one body both ways: a replay adds no copy
     graph_rows, eager_rows, held = hold_replay_kernels(
-        prefix + "serve_decode_step_b8", eng.step, eager_step, graph_rows,
-        kernel_rows(eager_step), 0)
+        prefix + "serve_decode_step_b8", [eng._decode_graph(False)], eng.step,
+        eager_step, graph_rows, kernel_rows(eager_step), 0)
     steps[prefix + "serve_decode_step_b8"] = (wall, step_launches,
                                               graph_rows)
     steps[prefix + "serve_decode_step_b8_eager"] = (eager_wall,
                                                     eager_launches,
                                                     eager_rows)
+    # the mixed (or split) step: the late prompt's first chunk, then its
+    # second again and again
     eng.cancel(qs[7])
     late = eng.submit(np.random.default_rng(500).integers(
         0, vocab, 600).tolist(), max_new_tokens=4)
-    fused0 = eng.mixed_steps_fused
-    reset_launches()
-    wall = wall_ms(eng.step)
-    step_launches = dict(LAUNCHES)
-    rows = kernel_rows(eng.step)
+    eng.step()
     hybrid = gen.spec.hybrid
-    fused = 0 if hybrid else 2
-    if eng.mixed_steps_fused != fused0 + fused or late.prefill_pos != 512:
-        raise AssertionError(f"profile: {eng.mixed_steps_fused - fused0} of "
-                             f"the 2 mixed steps ran fused, want {fused}")
+    chunk_step = (eng._prefill_graph(256) if hybrid
+                  else eng._mixed_graph(1, 256))[0]
+
+    def late_step():
+        late.prefill_pos = 256
+        eng.step()
+
+    eager_late = eager(late_step)
+    fused0 = eng.mixed_steps_fused
+    while not chunk_step.graphed and chunk_step.calls <= WARMUP:
+        late_step()
+    if not chunk_step.graphed:
+        raise AssertionError(f"profile {prefix}: the 256-token "
+                             f"{'prefill' if hybrid else 'mixed'} step was "
+                             "not captured")
+    reset_launches()
+    wall = wall_ms(late_step)
+    step_launches = dict(LAUNCHES)
+    rows = kernel_rows(late_step)
+    reset_launches()
+    eager_wall = wall_ms(eager_late)
+    eager_launches = dict(LAUNCHES)
+    if eager_launches != step_launches:
+        raise AssertionError(f"profile {prefix}: a replayed chunk step "
+                             f"counts {step_launches}, an eager one "
+                             f"{eager_launches}")
     name = "serve_split_step_b8_s256" if hybrid else \
         "serve_mixed_step_b8_s256"
+    # a hybrid's split step replays the decode graph and the chunk's
+    rows, eager_rows, chunk_held = hold_replay_kernels(
+        prefix + name, [eng._decode_graph(False), chunk_step] if hybrid
+        else [chunk_step], late_step, eager_late, rows,
+        kernel_rows(eager_late), 0)
+    ran = eng.mixed_steps_fused - fused0
+    if (ran > 0) == hybrid or late.prefill_pos != 512:
+        raise AssertionError(f"profile {prefix}: {ran} chunk steps ran "
+                             f"fused, the late prompt at {late.prefill_pos}")
     steps[prefix + name] = (wall, step_launches, rows)
-    result["profile"].update(summarize_steps(steps))
-    result["profile"][prefix + "serve_decode_step_b8"]["replay_kernels"] = \
-        held
+    steps[prefix + name + "_eager"] = (eager_wall, eager_launches, eager_rows)
+    kinds = ("prefill",) if hybrid else ("prefill", "mixed")
+    captured = {k: eng._graphs.captured(k) for k in kinds}
+    if not all(captured.values()):
+        raise AssertionError(f"profile {prefix}: captured {captured}")
+    prof = result.setdefault("profile", {})
+    prof.update(summarize_steps(steps))
+    prof[prefix + "serve_decode_step_b8"]["replay_kernels"] = held
+    prof[prefix + name]["replay_kernels"] = chunk_held
+    prof[prefix + name]["graph_pool_bytes"] = eng._graphs.pool_bytes()
+    log(f"profile {prefix}: the engine's captured steps {json.dumps(captured)}"
+        f" reserve {json.dumps(eng._graphs.pool_bytes())} bytes of graph "
+        "pools")
+    eng.cancel(late)
 
 
 # -------------------------------------------------------------------- sft
@@ -4606,7 +4895,6 @@ def gguf_serve(result: dict) -> None:
     W4A8 weight int4_gz with zero points."""
     import tempfile
 
-    from ktransformers_tpu_torch.engine.cuda_graph import WARMUP
     from ktransformers_tpu_torch.engine.generate import (
         GenerateConfig,
         Generator,
@@ -4666,7 +4954,7 @@ def gguf_serve(result: dict) -> None:
 
     # single user: 256 prompt + 32 new tokens
     gen = Generator(params, spec, max_len=1024, batch=1, device="cuda")
-    gen.generate(list(range(8)), GenerateConfig(max_new_tokens=WARMUP + 3))
+    warm_generator(gen)
     torch.cuda.synchronize()
     reset_launches()
     prompt_ids = np.random.default_rng(140).integers(
@@ -7798,6 +8086,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # every capture keeps its graph's nodes for hold_replay_kernels
+    from ktransformers_tpu_torch.engine import cuda_graph
+
+    cuda_graph.DEBUG_GRAPHS = True
     os.makedirs(OUT_DIR, exist_ok=True)
     open(os.path.join(OUT_DIR, "chip_smoke.log"), "w").close()
     result: dict = {}

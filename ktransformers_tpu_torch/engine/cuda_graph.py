@@ -1,7 +1,9 @@
-"""Decode steps captured in CUDA graphs and replayed: the port's
+"""Model steps captured in CUDA graphs and replayed: the port's
 counterpart of the JAX package's ``jax.jit(step, donate_argnums=...)``
-(ktransformers_tpu/engine/generate.py:88, :158 and
-ktransformers_tpu/serving/engine.py:219-237).
+(ktransformers_tpu/engine/generate.py:88, :158, :192 and
+ktransformers_tpu/serving/engine.py:186-211, :219-237, :301-336): the
+Generator's prefill chunks and decode step, the ServeEngine's prefill
+chunks, decode step and fused mixed step.
 
 A ``GraphStep`` runs a step body that reads and writes STATIC buffers only:
 tensors allocated once, outside the step, whose storage never changes (the
@@ -17,8 +19,10 @@ run the body eagerly on a side stream: they build the kernels
 (ops/cuda/_build.lib), set their shared-memory attributes and size every
 scratch buffer and tile map the wrappers keep. The next call captures one
 call of the body in a ``torch.cuda.CUDAGraph`` (``thread_local`` capture
-errors: the ServeEngine captures from its own thread) and replays it; every
-later call replays. Warm-up calls are real steps: their results are the
+errors: the ServeEngine captures from its own thread; Python's garbage
+collector off, as a collection there could free a dead owner's graphs,
+whose cudaFree invalidates a capture) and replays it; every later call
+replays. Warm-up calls are real steps: their results are the
 step's results. A capture or replay error propagates; nothing retries
 eagerly. Elsewhere (the CPU, or a path eager by rule) every call runs the
 body eagerly on the same buffers, so the CPU tests exercise the buffer
@@ -28,6 +32,19 @@ A sampling torch.Generator the body draws from is registered with the
 graph (``CUDAGraph.register_generator_state``), so each replay draws anew
 from its current seed and offset; reseeding it (``manual_seed``) between
 replays restarts the draws as it does for eager calls.
+
+Each captured graph keeps a private memory pool for the tensors its
+captured call allocated (``pool_bytes``: what the capture added to the
+device's reserved memory); no pool is shared, so replays may come in any
+order. An owner's steps are bounded: every key starts with its kind
+("prefill", "mixed", "decode") and holds only values of a bounded set
+(the Generator captures the prefill chunk of its configured length
+only, and runs a shorter tail eagerly).
+
+With ``DEBUG_GRAPHS`` set before a capture, the graph keeps its node list
+(``CUDAGraph(keep_graph=True)``) and ``GraphStep.dump`` writes it as
+Graphviz DOT: the kernels a replay launches, by name (chip_smoke.py holds
+them against the eager step's profiled kernels).
 
 The graph replays into the scratch sets of the split kernels
 (ops/cuda/w4a8_matmul.scratch) that its capture saw; a wider eager call
@@ -43,6 +60,8 @@ kernels launched, per step.
 
 from __future__ import annotations
 
+import gc
+
 import torch
 
 from ktransformers_tpu_torch.ops import cuda as kernels
@@ -52,6 +71,8 @@ from ktransformers_tpu_torch.parallel.context import get_parallel_context
 
 # eager calls of a step before its capture
 WARMUP = 2
+# captures keep their graphs' node lists for GraphStep.dump
+DEBUG_GRAPHS = False
 
 
 def host_experts(params) -> bool:
@@ -77,6 +98,11 @@ def capture_allowed(device, params, enabled: bool = True) -> bool:
 
 
 _COUNTS = (kernels.LAUNCHES, kernels.ROUTED_LAUNCHES)
+
+
+def _reserved(device: torch.device) -> int:
+    """Bytes the caching allocator holds on ``device`` (0 off the card)."""
+    return torch.cuda.memory_reserved(device) if device.type == "cuda" else 0
 
 
 def _add(diffs: list, sign: int = 1) -> None:
@@ -106,6 +132,8 @@ class GraphStep:
         # into them, so they live as long as the graph (w4a8_matmul.scratch
         # replaces a set that a wider call outgrows)
         self.scratch: tuple = ()
+        # device memory the capture reserved for the graph's private pool
+        self.pool_bytes = 0
 
     @property
     def graphed(self) -> bool:
@@ -132,7 +160,13 @@ class GraphStep:
         main.wait_stream(side)
 
     def _capture(self) -> None:
-        graph = torch.cuda.CUDAGraph()
+        if DEBUG_GRAPHS:
+            # the node list is kept (keep_graph) and the graph instantiated
+            # after the capture, as without it
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            graph.enable_debug_mode()
+        else:
+            graph = torch.cuda.CUDAGraph()
         if self.generators and not hasattr(graph, "register_generator_state"):
             raise RuntimeError(
                 "a sampled step needs torch.cuda.CUDAGraph."
@@ -142,8 +176,23 @@ class GraphStep:
             graph.register_generator_state(gen)
         before = [dict(table) for table in _COUNTS]
         sets = scratch_sets()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.body()
+        # no garbage collection inside the capture (entering it collects
+        # first): collecting a dead owner's graphs frees their pools, and
+        # that cudaFree invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                # read inside: entering the capture empties the
+                # allocator's cache first
+                reserved = _reserved(self.device)
+                self.body()
+        finally:
+            if collecting:
+                gc.enable()
+        if DEBUG_GRAPHS:
+            graph.instantiate()
+        self.pool_bytes = _reserved(self.device) - reserved
         self.scratch = sets + scratch_sets()
         self.launches = [{k: n - old[k] for k, n in table.items()
                           if n != old[k]}
@@ -154,6 +203,12 @@ class GraphStep:
     def _replay(self) -> None:
         self.graph.replay()
         _add(self.launches)
+
+    def dump(self, path: str) -> None:
+        """Write the captured graph's nodes to ``path`` as Graphviz DOT
+        (cudaGraphDebugDotPrint): every kernel a replay launches, by name.
+        Needs DEBUG_GRAPHS set at the capture."""
+        self.graph.debug_dump(path)
 
 
 class StepGraphs:
@@ -173,9 +228,20 @@ class StepGraphs:
             self._steps[key] = make()
         return self._steps[key]
 
-    def captured(self) -> int:
-        """How many of the steps hold a captured graph."""
-        return sum(step.graphed for step in self._steps.values())
+    def captured(self, kind: str | None = None) -> int:
+        """How many of the steps hold a captured graph; with ``kind``
+        (a key's first item: "prefill", "mixed", "decode") only those."""
+        return sum(step.graphed for key, step in self._steps.items()
+                   if kind is None or key[0] == kind)
+
+    def pool_bytes(self) -> dict:
+        """The captured steps' pool bytes summed by kind (a key's first
+        item)."""
+        out: dict = {}
+        for key, step in self._steps.items():
+            if step.graphed:
+                out[key[0]] = out.get(key[0], 0) + step.pool_bytes
+        return out
 
 
 def readback(*tensors):

@@ -1,17 +1,28 @@
-"""Generator: chunked prefill + one-token decode steps captured in a CUDA
-graph (counterpart of ktransformers_tpu/engine/generate.py:Generator,
+"""Generator: prefill chunks and one-token decode steps captured in CUDA
+graphs (counterpart of ktransformers_tpu/engine/generate.py:Generator,
 single user).
 
-``generate`` prefills eagerly, then decodes through a GraphStep
-(engine/cuda_graph.py, the JAX package's jitted ``_decode_step`` /
-``_decode_step_penalized`` with the cache donated): forward() + sampling
-(+ the penalties' counts) over the Generator's static buffers
-(``decode_state()``: the step cache, its input / output tokens, the
-penalty counts and prompt mask), captured once per key and replayed.
-The key holds the SamplingConfig and every module attribute forward()
-reads at call time (ops.attention.MLA_FUSED, BLOCKWISE_KV_THRESHOLD).
-Each ``generate`` resets the step cache in place and reseeds the sampling
-generator, which the graphs have registered.
+``generate`` runs its steps through GraphSteps (engine/cuda_graph.py), the
+JAX package's jitted steps with the cache donated, over the Generator's
+static buffers (``decode_state()``: the step cache, its input / output
+tokens, the penalty counts and prompt mask, a token buffer [B, n] of the
+chunk length n and the last logits [B, V]), each captured once per key and
+replayed:
+- the prefill chunk of n = cfg.prefill_chunk tokens (its
+  ``_prefill_step_fn(n)``): forward() of ``chunk(n)`` into the step cache,
+  the chunk's last logits written into ``logits``. A shorter tail chunk
+  runs the same body eagerly: the contiguous cache's forward has no
+  ``valid`` argument, so a tail is not padded, and a step a tail length
+  (the JAX package jits one a ``q_len``) would keep a graph and its memory
+  pool for every length a prompt ever ended on;
+- the decode step (its ``_decode_step`` / ``_decode_step_penalized``):
+  forward() + sampling (+ the penalties' counts).
+The keys hold the step's kind, what selects the body (the chunk length,
+the SamplingConfig) and every module attribute forward() reads at call
+time (ops.attention.MLA_FUSED, BLOCKWISE_KV_THRESHOLD). Each ``generate`` resets
+the step cache in place and reseeds the sampling generator, which the
+decode graphs have registered; the first token is sampled eagerly from
+``logits``.
 
 The loop is the JAX package's depth-D software pipeline (its
 generate.py:283-360): up to ``KT_GENERATE_PIPELINE`` (default 24) steps in
@@ -21,11 +32,11 @@ seen D - 1 steps late and the extra steps' tokens are dropped.
 ``on_token`` receives each step's tokens as a CPU tensor [B] (the JAX loop
 passes numpy), in bunches as the pipeline resolves them.
 
-``decode_step`` and ``_forward`` stay eager and public: speculation
-(engine/speculative.py, draft_spec.py, mtp.py) and the checks drive them
-on caches of their own. Prefill stays eager. On the CPU, and on the card
-where capture_allowed refuses (experts in host memory, a parallel
-context), the step body runs eagerly on the same buffers.
+``prefill``, ``decode_step`` and ``_forward`` stay eager and public:
+speculation (engine/speculative.py, draft_spec.py, mtp.py) and the checks
+drive them on caches of their own. On the CPU, and on the card where
+capture_allowed refuses (experts in host memory, a parallel context),
+every step body runs eagerly on the same buffers.
 """
 
 from __future__ import annotations
@@ -85,21 +96,33 @@ def _commit(static: KVCache, cache: KVCache) -> None:
 
 @dataclasses.dataclass
 class DecodeState:
-    """The decode step's static buffers: the step cache, the tokens [B]
-    int64 (each step's input, then its output) and, once penalized
-    sampling ran, the generated-token counts [B, V] int32 and the prompt
-    mask [B, V] bool."""
+    """The steps' static buffers: the step cache, the tokens [B] int64
+    (each decode step's input, then its output), the last logits [B, V]
+    of the latest prefill chunk, a token buffer [B, n] int64 for each
+    chunk length n (``chunk``) and, once penalized sampling ran, the
+    generated-token counts [B, V] int32 and the prompt mask [B, V] bool."""
 
     cache: KVCache
     tokens: torch.Tensor
+    logits: torch.Tensor
+    chunks: dict = dataclasses.field(default_factory=dict)
     counts: torch.Tensor | None = None
     prompt_mask: torch.Tensor | None = None
+
+    def chunk(self, n: int) -> torch.Tensor:
+        """The token buffer of an n-token prefill chunk (made at first
+        use)."""
+        if n not in self.chunks:
+            self.chunks[n] = torch.zeros((self.tokens.shape[0], n),
+                                         dtype=torch.int64,
+                                         device=self.tokens.device)
+        return self.chunks[n]
 
 
 class Generator:
     """Holds prepared params and the rope tables for one (spec, batch,
     max_len) on one device (``cuda`` unless told otherwise), and the
-    decode step's static buffers and graphs."""
+    steps' static buffers and graphs."""
 
     def __init__(self, params, spec: ModelSpec, max_len: int = 2048,
                  batch: int = 1, cache_dtype=torch.bfloat16,
@@ -163,13 +186,35 @@ class Generator:
         return nxt, cache
 
     def decode_state(self) -> DecodeState:
-        """The decode step's static buffers (made at first use)."""
+        """The steps' static buffers (made at first use)."""
         if self._state is None:
             self._state = DecodeState(
                 self.new_cache(),
                 torch.zeros(self.batch, dtype=torch.int64,
-                            device=self.device))
+                            device=self.device),
+                torch.zeros((self.batch, self.spec.vocab_size),
+                            dtype=self.compute_dtype, device=self.device))
         return self._state
+
+    def _prefill_state(self, tokens: torch.Tensor) -> None:
+        """The prefill body: tokens [B, n] into the step cache, their last
+        logits into decode_state().logits."""
+        st = self.decode_state()
+        cache = _view(st.cache)
+        logits, cache = self._forward(tokens, cache, logits_last_only=True)
+        st.logits.copy_(logits[:, -1])
+        _commit(st.cache, cache)
+
+    def prefill_graph(self, n: int) -> GraphStep:
+        """The prefill step of an n-token chunk: each call feeds
+        decode_state().chunk(n) into the step cache and writes the chunk's
+        last logits into decode_state().logits."""
+        tokens = self.decode_state().chunk(n)
+        capture = capture_allowed(self.device, self.params)
+        key = ("prefill", n, attention.MLA_FUSED,
+               attention.BLOCKWISE_KV_THRESHOLD, capture)
+        return self._graphs.get(self.params, key, lambda: GraphStep(
+            lambda: self._prefill_state(tokens), self.device, capture))
 
     def decode_graph(self, sampling: SamplingConfig) -> GraphStep:
         """The decode step for ``sampling``: each call writes the next
@@ -179,7 +224,7 @@ class Generator:
         capture = capture_allowed(self.device, self.params)
         # sampling decides the penalties' branch; the attention module's
         # switches are read by forward() at call time
-        key = (sampling, attention.MLA_FUSED,
+        key = ("decode", sampling, attention.MLA_FUSED,
                attention.BLOCKWISE_KV_THRESHOLD, capture)
 
         def body():
@@ -199,17 +244,24 @@ class Generator:
     def prime(self, prompt: torch.Tensor,
               cfg: GenerateConfig = GenerateConfig()) -> GraphStep:
         """Start a generation of prompt [B, S] on the device: reset the
-        step cache in place, reseed the sampler, prefill, sample the first
-        tokens into decode_state().tokens; returns
+        step cache in place, reseed the sampler, prefill in chunks of
+        cfg.prefill_chunk through prefill_graph (a shorter tail eagerly),
+        sample the first tokens into decode_state().tokens; returns
         decode_graph(cfg.sampling)."""
         st = self.decode_state()
         st.cache.lengths.zero_()
         for buf in st.cache.bufs_a + st.cache.bufs_b:
             buf.zero_()
         self.sampler.manual_seed(cfg.seed)
-        cache = _view(st.cache)
-        last, cache = self.prefill(cache, prompt, cfg.prefill_chunk)
-        _commit(st.cache, cache)
+        n = cfg.prefill_chunk
+        for i in range(0, prompt.shape[1], n):
+            piece = prompt[:, i : i + n]
+            if piece.shape[1] < n:
+                self._prefill_state(piece)
+            else:
+                st.chunk(n).copy_(piece)
+                self.prefill_graph(n)()
+        last = st.logits
         counts = prompt_mask = None
         if cfg.sampling.needs_counts:
             # penalties: the generated tokens' counts and the prompt's

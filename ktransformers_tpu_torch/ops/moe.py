@@ -206,14 +206,18 @@ def grouped_matmul(x: torch.Tensor, w: QTensor,
 def moe_dispatch(topk_idx: torch.Tensor, num_experts: int):
     """Sort (token, expert) pairs by expert: (sort_order [T*k],
     token_of_row [T*k], group_sizes [E] int32). An id of num_experts (a
-    masked expert) sorts after every group and is in no group's count."""
+    masked expert) sorts after every group and is in no group's count.
+    The sizes are counted on the device, into E + 1 bins whose last (the
+    masked id's) is dropped: torch.bincount's counts, without its host
+    read of the ids' range, which a CUDA graph capture refuses."""
     k = topk_idx.shape[1]
     flat = topk_idx.reshape(-1).to(torch.int64)
     sort_order = torch.argsort(flat, stable=True)
     token_of_row = sort_order // k
-    group_sizes = torch.bincount(flat, minlength=num_experts + 1)[
-        :num_experts].to(torch.int32)
-    return sort_order, token_of_row, group_sizes
+    bins = torch.zeros(num_experts + 1, dtype=torch.int32,
+                       device=flat.device)
+    bins.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    return sort_order, token_of_row, bins[:num_experts]
 
 
 def placed_routes(weights, topk_idx: torch.Tensor,

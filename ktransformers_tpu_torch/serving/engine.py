@@ -9,19 +9,34 @@ trash page 0), and prefill chunks are padded to power-of-two buckets with
 ``valid`` marking the live tokens. That keeps MoE routing by row count
 equal to the JAX package's; the padded rows are real work on the card.
 
-The decode-only step is captured in a CUDA graph and replayed
-(engine/cuda_graph.py; the JAX package jits it, its serving/engine.py:
-219-237): its state lives in fixed buffers of ``max_batch_size`` rows
-(``_dstate``: tokens, lengths, page tables, sampling parameters, the
-active mask and, with collect_routing, the routed ids), which a change of
-the batch's composition refills in place, and the step writes its next
-tokens and lengths into the same buffers. The graphs are keyed by every
-Python-level branch the step takes (penalized or not, hybrid ``valid``,
-the sparse arguments, collect_routing); the sampling generator is
-registered with them. The fused mixed step and the prefill chunks run
-eagerly, on the same buffers. On the CPU, and where capture_allowed
-refuses (``graph_steps`` False, experts in host memory, a parallel
-context), the decode step runs eagerly too.
+Every model step is captured in a CUDA graph and replayed
+(engine/cuda_graph.py; the JAX package jits each, its serving/engine.py:
+186-211, 219-237 and 301-336), over static buffers:
+- the decode-only step: its state lives in fixed buffers of
+  ``max_batch_size`` rows (``_dstate``: tokens, lengths, page tables,
+  sampling parameters, the active mask and, with collect_routing, the
+  routed ids), which a change of the batch's composition refills in place,
+  and the step writes its next tokens and lengths into the same buffers;
+- a prefill chunk, one step a power-of-two bucket: the chunk's tokens
+  [1, bucket], its page table [1, max_pages_per_query], start position,
+  ``valid`` count and (hybrid) state slot, each [1], and the last valid
+  row's logits [1, V];
+- the fused mixed step, one a (bucket, number of chunks C), as the JAX
+  package compiles one: ``_dstate`` and the chunks' tokens [C, bucket],
+  page tables, start positions and ``valid`` counts, and their logits
+  [C, V].
+A chunk step's inputs are int32 views of one packed buffer, uploaded from
+the host with one copy a dispatch (``_fill``).
+The steps are keyed by every Python-level branch they take (penalized or
+not, hybrid ``valid`` and slots, the sparse arguments, collect_routing);
+the sampling generator is registered with the steps that sample. A step
+writes its logits into its own buffer, which its next replay overwrites:
+``step()`` dispatches every chunk of a plan (two may share a bucket)
+before it reads any logits, so each dispatch copies its logits out first.
+A hybrid slot's state is zeroed eagerly before its first chunk's step. On
+the CPU, and where capture_allowed refuses (``graph_steps`` False,
+experts in host memory, a parallel context), every step runs its body
+eagerly on the same buffers.
 
 Decode-only steps are PIPELINED: a step consumes device-resident tokens and
 lengths and returns the next ones, so step N+1 is enqueued before step N's
@@ -69,6 +84,7 @@ As in the JAX package, the engine never re-places on its own.
 from __future__ import annotations
 
 import json
+import math
 import os
 import threading
 import time
@@ -124,8 +140,12 @@ def _page_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.to("cpu", copy=True).numpy()
 
 
+# the inputs of a prefill or mixed step, in their packed buffer's order
+_CHUNK_INPUTS = ("tokens", "table", "start", "valid", "slot")
+
+
 class ServeEngine:
-    # decode steps captured in CUDA graphs where capture_allowed says so
+    # model steps captured in CUDA graphs where capture_allowed says so
     # (False: every step eager, as a comparison on the card wants)
     graph_steps = True
 
@@ -201,6 +221,8 @@ class ServeEngine:
         self._decode_sig = None
         self._inflight = []
         self._graphs = StepGraphs()
+        # the prefill and mixed steps' static buffers by (kind, shape)
+        self._bufs: dict = {}
         # most unresolved decode steps in flight before a blocking resolve
         # of the oldest (see step())
         self.decode_pipeline_depth = int(
@@ -314,7 +336,7 @@ class ServeEngine:
         """The decode-only step over the decode state's buffers, keyed by
         every Python-level branch it takes."""
         capture = capture_allowed(self.device, self.params, self.graph_steps)
-        key = (penalized, self._hybrid, self.stats is not None,
+        key = ("decode", penalized, self._hybrid, self.stats is not None,
                self.sparse_budget, self.sparse_anchor, self.sparse_retrieval,
                capture)
         return self._graphs.get(self.params, key, lambda: GraphStep(
@@ -322,17 +344,83 @@ class ServeEngine:
             capture, (self._gen,)))
 
     @torch.no_grad()
-    def _mixed_step(self, st, pre_tokens, pre_table, pre_length, pre_valid):
+    def _mixed_step(self, st, b) -> None:
         """ONE model pass for the decode batch plus up to
-        KT_MIXED_MAX_CHUNKS prefill chunks (distinct queries), which share
-        every dense / MoE weights pass. Returns (tokens [B], pre_logits
-        [C, V])."""
+        KT_MIXED_MAX_CHUNKS prefill chunks (distinct queries, in the chunk
+        buffers ``b``), which share every dense / MoE weights pass: the
+        decode rows' next tokens sampled into ``st``, the chunks' last
+        logits written into b["logits"] [C, V]."""
         dec_logits, pre_logits, _ = forward_paged_mixed(
-            self.params, self.spec, st["tokens"], pre_tokens, self.kv,
-            st["tables"], st["lengths"], pre_table, pre_length, pre_valid,
+            self.params, self.spec, st["tokens"], b["tokens"], self.kv,
+            st["tables"], st["lengths"], b["table"], b["start"], b["valid"],
             **self._forward_args())
         self._sample_decode(dec_logits, st, False)
-        return st["tokens"], pre_logits
+        b["logits"].copy_(pre_logits)
+
+    def _chunk_buffers(self, kind: str, c: int, bucket: int) -> dict:
+        """The static inputs of ``c`` chunks padded to ``bucket`` tokens:
+        int32 views (_CHUNK_INPUTS: tokens, page tables, start positions,
+        valid counts and, hybrid only, state slots) of one packed buffer
+        (``packed``), and their logits [c, V]; made at first use."""
+        key = (kind, c, bucket)
+        if key not in self._bufs:
+            shapes = dict(tokens=(c, bucket),
+                          table=(c, self.cfg.max_pages_per_query),
+                          start=(c,), valid=(c,), slot=(c,))
+            if not self._hybrid:
+                del shapes["slot"]
+            packed = torch.zeros(sum(math.prod(v) for v in shapes.values()),
+                                 dtype=torch.int32, device=self.device)
+            bufs, at = dict(packed=packed), 0
+            for name, shape in shapes.items():
+                bufs[name] = packed[at : at + math.prod(shape)].view(shape)
+                at += math.prod(shape)
+            bufs["logits"] = torch.zeros((c, self.spec.vocab_size),
+                                         dtype=self.compute_dtype,
+                                         device=self.device)
+            self._bufs[key] = bufs
+        return self._bufs[key]
+
+    def _fill(self, bufs: dict, **arrays) -> None:
+        """Pack the host arrays of bufs' inputs (_CHUNK_INPUTS, in order;
+        ``slot`` is dropped where bufs has none) into one int32 array and
+        upload it with one copy."""
+        host = np.concatenate([
+            np.asarray(arrays[name], np.int32).reshape(-1)
+            for name in _CHUNK_INPUTS if name in bufs])
+        bufs["packed"].copy_(torch.from_numpy(host))
+
+    def _prefill_graph(self, bucket: int):
+        """The prefill step of one chunk padded to ``bucket`` tokens, keyed
+        by every Python-level branch forward_paged takes: (step, its
+        _chunk_buffers)."""
+        b = self._chunk_buffers("prefill", 1, bucket)
+        capture = capture_allowed(self.device, self.params, self.graph_steps)
+        key = ("prefill", bucket, self._hybrid, self.sparse_budget,
+               self.sparse_anchor, self.sparse_retrieval, capture)
+
+        def body():
+            logits, _ = forward_paged(
+                self.params, self.spec, b["tokens"], self.kv, b["table"],
+                b["start"], logits_last_only=True, valid=b["valid"],
+                slots=b.get("slot"),
+                **self._forward_args())
+            b["logits"].copy_(logits[:, -1])
+
+        return self._graphs.get(self.params, key, lambda: GraphStep(
+            body, self.device, capture)), b
+
+    def _mixed_graph(self, c: int, bucket: int):
+        """The fused mixed step of the decode batch and ``c`` chunks padded
+        to ``bucket`` tokens: (step, its _chunk_buffers); the step samples
+        the decode rows into _dstate and writes the chunks' logits."""
+        b = self._chunk_buffers("mixed", c, bucket)
+        capture = capture_allowed(self.device, self.params, self.graph_steps)
+        key = ("mixed", bucket, c, self.sparse_budget, self.sparse_anchor,
+               self.sparse_retrieval, capture)
+        return self._graphs.get(self.params, key, lambda: GraphStep(
+            lambda: self._mixed_step(self._dstate, b), self.device, capture,
+            (self._gen,))), b
 
     def _can_fuse_mixed(self, qs: list[Query]) -> bool:
         return (os.environ.get("KT_FUSED_MIXED", "1") != "0"
@@ -392,23 +480,21 @@ class ServeEngine:
                           prompt_mask=pmask)[0])
 
     def _dispatch_prefill(self, q: Query, chunk: list[int]):
-        """Enqueue one bucketed prefill chunk; returns its logits
-        ([1, 1, V], taken at the last VALID position)."""
+        """Enqueue one bucketed prefill chunk through its bucket's step;
+        returns a copy of its logits ([1, 1, V], taken at the last VALID
+        position): the next chunk of the bucket overwrites the step's."""
         if self._hybrid and q.prefill_pos == 0:
             self._reset_linear_state(q.slot)
         bucket = self._bucket(len(chunk))
-        tokens = np.zeros((1, bucket), np.int64)
+        step, b = self._prefill_graph(bucket)
+        tokens = np.zeros((1, bucket), np.int32)
         tokens[0, : len(chunk)] = chunk
-        logits, _ = forward_paged(
-            self.params, self.spec, self._to_device(tokens), self.kv,
-            self._to_device(self._pad_table(q.pages))[None],
-            self._to_device(np.asarray([q.prefill_pos], np.int32)),
-            logits_last_only=True,
-            valid=self._to_device(np.asarray([len(chunk)], np.int32)),
-            slots=torch.tensor([q.slot], device=self.device)
-            if self._hybrid else None,
-            **self._forward_args())
-        return logits
+        self._fill(b, tokens=tokens, table=self._pad_table(q.pages)[None],
+                   start=np.asarray([q.prefill_pos], np.int32),
+                   valid=np.asarray([len(chunk)], np.int32),
+                   slot=np.asarray([q.slot], np.int32))
+        step()
+        return b["logits"][:, None].clone()
 
     def _finish_prefill(self, q: Query, chunk: list[int], logits) -> None:
         self.scheduler.prefill_done_chunk(q, len(chunk))
@@ -557,7 +643,8 @@ class ServeEngine:
             self._decode_sig = sig
         c = len(fused)
         bucket = self._bucket(max(len(ch) for _, ch in fused))
-        pt = np.zeros((c, bucket), np.int64)
+        step, b = self._mixed_graph(c, bucket)
+        pt = np.zeros((c, bucket), np.int32)
         tables = np.zeros((c, self.cfg.max_pages_per_query), np.int32)
         poss = np.zeros((c,), np.int32)
         valids = np.zeros((c,), np.int32)
@@ -566,11 +653,12 @@ class ServeEngine:
             tables[i] = self._pad_table(q.pages)
             poss[i] = q.prefill_pos
             valids[i] = len(ch)
-        toks, pre_logits = self._mixed_step(
-            self._dstate, self._to_device(pt), self._to_device(tables),
-            self._to_device(poss), self._to_device(valids))
+        self._fill(b, tokens=pt, table=tables, start=poss, valid=valids)
+        step()
         self.mixed_steps_fused += 1
-        (host,), event = readback(toks)
+        # the next replay overwrites the step's logits
+        pre_logits = b["logits"].clone()
+        (host,), event = readback(self._dstate["tokens"])
         self._resolve_decode([(q, q.slot) for q in decode_qs], host, event)
         return [(q, ch, pre_logits[i : i + 1, None])
                 for i, (q, ch) in enumerate(fused)]
